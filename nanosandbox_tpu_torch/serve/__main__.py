@@ -1,0 +1,118 @@
+"""`python -m nanosandbox_tpu_torch.serve` — serve a checkpoint on the GPU.
+
+Loads <out_dir>/serving.pt (checkpoint.save_for_serving; a JAX-trained
+checkpoint converts through models/convert.py), casts the weights to
+the compute dtype, and exposes the continuous-batching engine over HTTP:
+
+    python -m nanosandbox_tpu_torch.serve --out_dir=out_torch --port=8000 &
+    curl -s localhost:8000/generate -d '{"prompt_tokens": [1, 2, 3],
+        "max_new_tokens": 32, "temperature": 0.8, "top_k": 40}'
+    curl -s localhost:8000/stats
+
+--device defaults to auto, which is the GPU and raises without one;
+--device=cpu runs the plain PyTorch attention instead of the kernels.
+Tokenizer flags are optional: without --data_dir, only prompt_tokens
+requests are served.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m nanosandbox_tpu_torch.serve")
+    ap.add_argument("--out_dir", default="out")
+    ap.add_argument("--data_dir", default="",
+                    help="prepared-dataset root holding <dataset>/meta.pkl "
+                         "(text prompts); empty = prompt_tokens only")
+    ap.add_argument("--dataset", default="shakespeare_char")
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=8000,
+                    help="0 picks a free port")
+    ap.add_argument("--num_slots", type=int, default=8,
+                    help="concurrent request capacity (decode batch rows)")
+    ap.add_argument("--max_len", type=int, default=0,
+                    help="per-request KV length; 0 = block_size")
+    ap.add_argument("--device", default="auto",
+                    help="auto (the GPU; raises without one) | cuda | cpu")
+    ap.add_argument("--paged", default="on", choices=("on", "off"),
+                    help="block-paged KV pool; 'off' (the dense pool) is "
+                         "not ported yet and raises")
+    ap.add_argument("--kv_page_size", type=int, default=16,
+                    help="positions per KV block")
+    ap.add_argument("--kv_pool_blocks", type=int, default=0,
+                    help="pool size in blocks; 0 = num_slots * max_len / "
+                         "page")
+    ap.add_argument("--no_prefix_cache", action="store_true",
+                    help="disable radix prefix reuse")
+    ap.add_argument("--kv_dtype", default=None,
+                    choices=("fp32", "bf16", "int8", "int4"),
+                    help="KV pool storage (default: the compute dtype); "
+                         "int8/int4 are not ported yet and raise")
+    return ap
+
+
+def build_server(argv: list[str] | None = None):
+    """(server, loop, engine): the checkpoint loaded, the engine warmed
+    by one one-token request, its loop thread started, and the HTTP
+    server bound (not yet serving). The caller runs
+    ``server.serve_forever()`` and, at the end, ``loop.stop()`` and
+    ``server.server_close()``."""
+    from nanosandbox_tpu_torch.checkpoint import load_for_serving
+    from nanosandbox_tpu_torch.config import resolve_device
+    from nanosandbox_tpu_torch.data.tokenizer import tokenizer_for_dataset
+    from nanosandbox_tpu_torch.models.gpt import GPT, cast_for_serving
+    from nanosandbox_tpu_torch.serve.engine import Engine
+    from nanosandbox_tpu_torch.serve.http import EngineLoop, make_server
+
+    args = build_parser().parse_args(argv if argv is not None
+                                     else sys.argv[1:])
+    device = resolve_device(args.device)
+    cfg, state_dict = load_for_serving(args.out_dir)
+    model = GPT(cfg, device=device)
+    model.load_state_dict(state_dict)
+    cast_for_serving(model)
+    tok = (tokenizer_for_dataset(args.data_dir, args.dataset)
+           if args.data_dir else None)
+    engine = Engine(model, num_slots=args.num_slots,
+                    max_len=args.max_len or None, kv_dtype=args.kv_dtype,
+                    paged=args.paged == "on",
+                    kv_page_size=args.kv_page_size,
+                    kv_pool_blocks=args.kv_pool_blocks or None,
+                    prefix_cache=not args.no_prefix_cache, device=device)
+    # One request through prefill and decode before the port binds, so
+    # no client pays for the libraries' first-call setup.
+    engine.submit([0], 2)
+    engine.drain()
+    engine.reset_latency_stats()
+    loop = EngineLoop(engine)
+    loop.start()
+    server = make_server(
+        args.host, args.port, loop,
+        tok.encode if tok is not None else None,
+        (lambda ids: tok.decode([int(t) for t in ids]))
+        if tok is not None else None)
+    print(f"[serve] {cfg.n_layer}L/{cfg.n_embd}d on {engine.device}: "
+          f"{engine.num_slots} slots x {engine.max_len} ctx, paged pool "
+          f"{engine.kv_pool_blocks} blocks x {engine.kv_page_size} "
+          f"(kv_dtype={engine.kv_dtype}); listening on {args.host}:"
+          f"{server.server_address[1]} (POST /generate, GET /healthz "
+          "/stats)", file=sys.stderr, flush=True)
+    return server, loop, engine
+
+
+def main(argv: list[str] | None = None) -> None:
+    server, loop, _ = build_server(argv)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        loop.stop()
+        server.server_close()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,226 @@
+"""Thin stdlib HTTP front end over the continuous-batching Engine.
+
+The counterpart of nanosandbox_tpu/serve/http.py's EngineLoop and
+make_server, with the JAX server's request and response names:
+
+    POST /generate  {"prompt": str | "prompt_tokens": [int], and any of
+                     max_new_tokens, temperature, top_k, top_p, seed,
+                     eos_id} -> {"id", "tokens", "text", "finish_reason"}
+                     (+ "prefix_digest" when prompt blocks were cached);
+                     400 for a request the engine rejects, 503 when the
+                     engine loop is gone, 504 on timeout.
+    GET  /healthz   {"ok": true} while the engine loop runs, else 503.
+    GET  /stats     engine counters: tokens, steps, prefix hits, TTFT /
+                    TPOT percentiles, decode tokens/s.
+
+The Engine is single-threaded; EngineLoop is the ONE thread that touches
+it. Handler threads (ThreadingHTTPServer) hand submissions over through
+a lock-guarded inbox and wait on a per-request Event, so N concurrent
+clients become N rows of the same batched decode step.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable, Optional
+
+
+class _Pending:
+    def __init__(self, kwargs: dict):
+        self.kwargs = kwargs
+        self.done = threading.Event()
+        self.result = None
+        self.error: Optional[Exception] = None
+
+
+class EngineLoop(threading.Thread):
+    """Background thread that owns the Engine: drains the submission
+    inbox, steps while any request is in flight, sleeps otherwise."""
+
+    def __init__(self, engine):
+        super().__init__(daemon=True, name="serve-engine-loop")
+        self.engine = engine
+        self._cond = threading.Condition()
+        self._inbox: list[_Pending] = []
+        self._by_rid: dict[int, _Pending] = {}
+        self._stopping = False
+        # Set when the loop dies on an engine error: /healthz goes red.
+        self.dead: Optional[str] = None
+
+    def submit(self, **kwargs) -> _Pending:
+        """Thread-safe: queue a request for the loop thread."""
+        p = _Pending(kwargs)
+        with self._cond:
+            if self.dead is not None:
+                p.error = RuntimeError(f"engine loop died: {self.dead}")
+                p.done.set()
+            else:
+                self._inbox.append(p)
+                self._cond.notify()
+        return p
+
+    def generate(self, timeout: Optional[float] = None, **kwargs):
+        """submit + wait; raises the engine's validation error if any."""
+        p = self.submit(**kwargs)
+        if not p.done.wait(timeout):
+            raise TimeoutError("generation timed out")
+        if p.error is not None:
+            raise p.error
+        return p.result
+
+    def stop(self) -> None:
+        with self._cond:
+            self._stopping = True
+            self._cond.notify()
+
+    def is_live(self) -> tuple[bool, str]:
+        if self.dead is not None:
+            return False, f"engine loop died: {self.dead}"
+        if not self.is_alive():
+            return False, "engine loop not running"
+        return True, "ok"
+
+    def stats(self) -> dict:
+        with self._cond:
+            return {"inbox": len(self._inbox), "waiting": len(self._by_rid),
+                    "dead": self.dead}
+
+    def run(self) -> None:
+        while True:
+            with self._cond:
+                while (not self._stopping and not self._inbox
+                       and not self.engine.has_work()):
+                    self._cond.wait()
+                if self._stopping:
+                    self._fail_all(RuntimeError("server shutting down"))
+                    return
+                inbox, self._inbox = self._inbox, []
+            for p in inbox:
+                try:
+                    rid = self.engine.submit(**p.kwargs)
+                    self._by_rid[rid] = p
+                except ValueError as e:     # admission rules -> the caller
+                    p.error = e
+                    p.done.set()
+            try:
+                results = self.engine.step()
+            except Exception as e:
+                # An engine failure wedges every in-flight request: fail
+                # all waiters now instead of letting them time out, mark
+                # the loop dead so /healthz goes red, and exit.
+                with self._cond:
+                    self.dead = f"{type(e).__name__}: {e}"
+                    self._fail_all(RuntimeError(
+                        f"engine loop died: {self.dead}"))
+                raise
+            for res in results:
+                p = self._by_rid.pop(res.rid, None)
+                if p is not None:
+                    p.result = res
+                    p.done.set()
+
+    def _fail_all(self, err: Exception) -> None:
+        """Signal every waiter (call with self._cond held)."""
+        for p in self._inbox:
+            p.error = err
+            p.done.set()
+        self._inbox = []
+        for p in self._by_rid.values():
+            p.error = err
+            p.done.set()
+        self._by_rid = {}
+
+
+def make_server(host: str, port: int, loop: EngineLoop,
+                encode: Optional[Callable[[str], list]] = None,
+                decode: Optional[Callable[[list], str]] = None,
+                request_timeout: float = 300.0) -> ThreadingHTTPServer:
+    """HTTP server bound to an EngineLoop (routes in the module
+    docstring). Without a tokenizer (``encode``/``decode`` None), text
+    prompts are a 400 and responses carry "text": null; prompt_tokens
+    requests need none."""
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):  # stdout stays quiet
+            pass
+
+        def _json(self, code: int, obj: dict) -> None:
+            data = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def do_GET(self):
+            path = self.path.split("?", 1)[0]
+            if path == "/healthz":
+                live, reason = loop.is_live()
+                self._json(200 if live else 503,
+                           {"ok": live} if live else
+                           {"ok": False, "error": reason})
+            elif path == "/stats":
+                stats = loop.engine.stats()
+                stats["loop"] = loop.stats()
+                self._json(200, stats)
+            else:
+                self._json(404, {"error": f"no route {self.path}"})
+
+        def do_POST(self):
+            if self.path != "/generate":
+                self._json(404, {"error": f"no route {self.path}"})
+                return
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                payload = json.loads(self.rfile.read(n) or b"{}")
+                if not isinstance(payload, dict):
+                    raise ValueError("body must be a JSON object")
+                if "prompt_tokens" in payload:
+                    prompt = [int(t) for t in payload["prompt_tokens"]]
+                elif encode is None:
+                    raise ValueError("this server has no tokenizer: send "
+                                     "prompt_tokens")
+                else:
+                    prompt = encode(str(payload.get("prompt", ""))) or [0]
+                kwargs = dict(
+                    prompt=prompt,
+                    max_new_tokens=int(payload.get("max_new_tokens", 64)),
+                    temperature=float(payload.get("temperature", 0.8)),
+                    top_k=int(payload.get("top_k", 0)),
+                    top_p=float(payload.get("top_p", 1.0)),
+                    seed=int(payload.get("seed", 0)),
+                )
+                if payload.get("eos_id") is not None:
+                    kwargs["eos_id"] = int(payload["eos_id"])
+            except (ValueError, TypeError, KeyError) as e:
+                # KeyError: a char tokenizer meeting an out-of-vocab char.
+                self._json(400, {"error": f"bad request: {e!r}"})
+                return
+            try:
+                res = loop.generate(timeout=request_timeout, **kwargs)
+            except ValueError as e:
+                self._json(400, {"error": str(e)})
+                return
+            except TimeoutError as e:
+                self._json(504, {"error": str(e)})
+                return
+            except RuntimeError as e:
+                self._json(503, {"error": str(e)})
+                return
+            if res.finish_reason == "failed":
+                self._json(503, {"error": "non-finite logits during "
+                                          "generation", "id": res.rid,
+                                 "tokens": res.tokens,
+                                 "finish_reason": "failed"})
+                return
+            body = {"id": res.rid, "tokens": res.tokens,
+                    "text": (decode(list(res.prompt) + res.tokens)
+                             if decode is not None else None),
+                    "finish_reason": res.finish_reason}
+            if res.prefix_digest:
+                body["prefix_digest"] = list(res.prefix_digest)
+            self._json(200, body)
+
+    return ThreadingHTTPServer((host, port), Handler)

@@ -1,0 +1,290 @@
+"""Host-side block accounting for the paged KV pool: a free-list
+allocator over fixed-size KV blocks plus a refcounted radix prefix cache.
+
+This package's own copy of nanosandbox_tpu/serve/paged.py, cut to what
+the serving slice runs (migration adoption, preemption donation and the
+debug views are later slices' work). Plain Python over block *ids*; the
+K/V bytes live in the device pool (models/gpt.py init_paged_cache).
+
+Allocation contract — full reservation at admission: a request is
+admitted with every block it can ever touch, ceil((prompt_len +
+max_new_tokens) / page) minus the blocks a prefix hit shares, so the
+decode loop never allocates and pool exhaustion mid-decode cannot
+happen. A request that cannot be covered right now waits in the queue.
+
+Prefix sharing — block-aligned, copy-on-write by refcount: the radix
+cache is a trie keyed on page-sized token blocks. Only FULL prompt
+blocks are shared, so the block anything writes is always private. A hit
+is capped one token short of the prompt, so the suffix prefill always
+has a token to compute the first logit from. On release a request's
+full prompt blocks are DONATED to the trie (refcount 0, evictable LRU).
+"""
+
+from __future__ import annotations
+
+import hashlib
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
+
+
+def blocks_for(n_positions: int, page: int) -> int:
+    """ceil(n_positions / page): blocks covering n_positions tokens."""
+    return -(-n_positions // page)
+
+
+def _block_digest(prev: bytes, block: Sequence[int]) -> bytes:
+    h = hashlib.blake2b(digest_size=8)
+    h.update(prev)
+    h.update(",".join(str(int(t)) for t in block).encode())
+    return h.digest()
+
+
+def prefix_digests(tokens: Sequence[int], page: int) -> List[str]:
+    """Chained per-block fingerprints (hex) of a token sequence's FULL
+    page-sized blocks: entry i fingerprints tokens[:(i+1)*page]. The same
+    chain as the JAX package's, so both report identical digests."""
+    out: List[str] = []
+    prev = b""
+    for i in range(len(tokens) // page):
+        prev = _block_digest(prev, tokens[i * page:(i + 1) * page])
+        out.append(prev.hex())
+    return out
+
+
+class _Node:
+    """One cached block: a trie edge keyed by its page of token ids."""
+
+    __slots__ = ("key", "block", "parent", "children", "refs", "last_use")
+
+    def __init__(self, key, block: int, parent):
+        self.key = key
+        self.block = block
+        self.parent = parent
+        self.children: Dict[tuple, "_Node"] = {}
+        self.refs = 0                   # in-flight requests sharing it
+        self.last_use = 0
+
+
+class RadixPrefixCache:
+    """Refcounted radix/trie prefix cache over page-sized token blocks."""
+
+    def __init__(self, page: int):
+        if page < 1:
+            raise ValueError(f"page must be >= 1, got {page}")
+        self.page = page
+        self.root = _Node(key=None, block=-1, parent=None)
+        self._nodes: List[_Node] = []
+        self._tick = 0
+
+    def __len__(self) -> int:
+        return len(self._nodes)
+
+    def _keys(self, prompt: Sequence[int], n_blocks: int) -> List[tuple]:
+        p = self.page
+        return [tuple(prompt[i * p:(i + 1) * p]) for i in range(n_blocks)]
+
+    def match(self, prompt: Sequence[int]) -> List[_Node]:
+        """The resident chain of FULL prompt blocks, capped one token
+        short of the prompt. Touches the chain's LRU clocks."""
+        usable = (len(prompt) - 1) // self.page
+        path: List[_Node] = []
+        node = self.root
+        for key in self._keys(prompt, usable):
+            child = node.children.get(key)
+            if child is None:
+                break
+            path.append(child)
+            node = child
+        self._tick += 1
+        for n in path:
+            n.last_use = self._tick
+        return path
+
+    def acquire(self, node: _Node) -> None:
+        node.refs += 1
+
+    def release(self, node: _Node) -> None:
+        if node.refs <= 0:
+            raise RuntimeError("prefix-cache refcount underflow")
+        node.refs -= 1
+
+    def insert_chain(self, prompt: Sequence[int], blocks: Sequence[int],
+                     start: int) -> List[int]:
+        """Donate ``blocks[start:full]`` (a finished request's private
+        full-prompt blocks; blocks[:start] are its hit chain, already in
+        the trie). Returns the block ids NOT absorbed — duplicates of a
+        chain another request donated first — for the caller to free."""
+        full = len(prompt) // self.page
+        keys = self._keys(prompt, full)
+        node = self.root
+        for key in keys[:start]:
+            node = node.children[key]
+        dup: List[int] = []
+        self._tick += 1
+        for i in range(start, full):
+            child = node.children.get(keys[i])
+            if child is None:
+                child = _Node(keys[i], blocks[i], node)
+                node.children[keys[i]] = child
+                self._nodes.append(child)
+            else:
+                dup.append(blocks[i])
+            child.last_use = self._tick
+            node = child
+        return dup
+
+    def evict(self, want: int) -> List[int]:
+        """Free up to ``want`` blocks, LRU refcount-zero leaves first (a
+        parent becomes a leaf once its children are gone)."""
+        freed: List[int] = []
+        while len(freed) < want:
+            victim = None
+            for n in self._nodes:
+                if n.refs == 0 and not n.children and (
+                        victim is None or n.last_use < victim.last_use):
+                    victim = n
+            if victim is None:
+                break
+            del victim.parent.children[victim.key]
+            self._nodes.remove(victim)
+            freed.append(victim.block)
+        return freed
+
+    def cached_blocks(self) -> List[int]:
+        return [n.block for n in self._nodes]
+
+
+@dataclass
+class Allocation:
+    """One admitted request's blocks: the table row the device side
+    writes, and the bookkeeping release() unwinds."""
+    prompt: tuple
+    table: List[int]                 # hit chain + private blocks, in order
+    n_hit: int                       # leading shared (trie) blocks
+    nodes: List[_Node] = field(default_factory=list)
+
+
+class BlockPool:
+    """Free-list allocator + radix prefix cache over ``num_blocks`` KV
+    blocks of ``page`` positions each."""
+
+    def __init__(self, num_blocks: int, page: int, *,
+                 prefix_cache: bool = True):
+        if num_blocks < 1:
+            raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
+        self.num_blocks = num_blocks
+        self.page = page
+        self._free: List[int] = list(range(num_blocks - 1, -1, -1))
+        self.cache = RadixPrefixCache(page) if prefix_cache else None
+        self.hit_tokens = 0
+        self.miss_tokens = 0
+        self.hit_requests = 0
+        self.stall_steps = 0
+        self.evicted_blocks = 0
+
+    def blocks_needed(self, prompt_len: int, max_new: int) -> int:
+        return blocks_for(prompt_len + max_new, self.page)
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    def _match(self, prompt: Sequence[int]) -> List[_Node]:
+        return self.cache.match(tuple(prompt)) if self.cache else []
+
+    def match_len(self, prompt: Sequence[int]) -> int:
+        """Tokens a hit would skip (the engine buckets the SUFFIX with
+        this before committing blocks)."""
+        return len(self._match(prompt)) * self.page
+
+    def _take(self, want: int) -> Optional[List[int]]:
+        """Pop ``want`` free blocks, evicting LRU cached blocks to cover a
+        shortfall; None (nothing consumed) when even that cannot."""
+        short = want - len(self._free)
+        if short > 0 and self.cache is not None:
+            freed = self.cache.evict(short)
+            self.evicted_blocks += len(freed)
+            self._free.extend(freed)
+        if want > len(self._free):
+            return None
+        return [self._free.pop() for _ in range(want)]
+
+    def admit(self, prompt: Sequence[int],
+              max_new: int) -> Optional[Allocation]:
+        """Acquire the prompt's hit chain and allocate private blocks for
+        the rest (suffix + the whole generation budget); None when the
+        pool cannot cover it. The chain is pinned BEFORE the private
+        allocation, so the shortfall eviction can never hand a just-
+        matched block out a second time as a fresh private block."""
+        nodes = self._match(prompt)
+        n_hit = len(nodes)
+        total = self.blocks_needed(len(prompt), max_new)
+        for n in nodes:
+            self.cache.acquire(n)
+        fresh = self._take(total - n_hit)
+        if fresh is None:
+            for n in nodes:
+                self.cache.release(n)
+            self.stall_steps += 1
+            return None
+        hit = n_hit * self.page
+        self.hit_tokens += hit
+        self.miss_tokens += len(prompt) - hit
+        self.hit_requests += bool(n_hit)
+        return Allocation(prompt=tuple(prompt),
+                          table=[n.block for n in nodes] + fresh,
+                          n_hit=n_hit, nodes=nodes)
+
+    def release(self, alloc: Allocation, *, donate: bool = True) -> None:
+        """Unwind one finished request: deref its hit chain, donate its
+        full prompt blocks to the trie, free the rest. ``donate=False``
+        frees everything (a failed row's K/V must never serve a hit)."""
+        for n in alloc.nodes:
+            self.cache.release(n)
+        if self.cache is None or not donate:
+            self._free.extend(alloc.table[alloc.n_hit:])
+            return
+        full = len(alloc.prompt) // self.page
+        dup = self.cache.insert_chain(alloc.prompt[:full * self.page],
+                                      alloc.table, alloc.n_hit)
+        self._free.extend(dup)
+        self._free.extend(alloc.table[full:])
+
+    def stats(self) -> dict:
+        cached = len(self.cache) if self.cache is not None else 0
+        seen = self.hit_tokens + self.miss_tokens
+        return {
+            "num_blocks": self.num_blocks,
+            "page": self.page,
+            "free": len(self._free),
+            "trie_blocks": cached,
+            "prefix_hit_requests": self.hit_requests,
+            "prefix_hit_tokens": self.hit_tokens,
+            "prefix_miss_tokens": self.miss_tokens,
+            "prefix_hit_rate": (self.hit_tokens / seen) if seen else None,
+            "block_stall_steps": self.stall_steps,
+            "evicted_blocks": self.evicted_blocks,
+        }
+
+    def check(self, live_allocs: Sequence[Allocation] = ()) -> None:
+        """Invariant audit: the free list, the trie and the live
+        allocations' private blocks partition [0, num_blocks), and each
+        node's refcount equals the live allocations holding it."""
+        free = list(self._free)
+        cached = self.cache.cached_blocks() if self.cache else []
+        owned: List[int] = []
+        refs: Dict[int, int] = {}
+        for a in live_allocs:
+            owned.extend(a.table[a.n_hit:])
+            for n in a.nodes:
+                refs[id(n)] = refs.get(id(n), 0) + 1
+        every = free + cached + owned
+        if len(every) != len(set(every)) or set(every) != set(
+                range(self.num_blocks)):
+            raise AssertionError(
+                f"pool partition broken: free={sorted(free)} "
+                f"cached={sorted(cached)} owned={sorted(owned)}")
+        for n in (self.cache._nodes if self.cache else []):
+            if n.refs != refs.get(id(n), 0):
+                raise AssertionError(("refcount drift", n.key, n.refs,
+                                      refs.get(id(n), 0)))

@@ -1,0 +1,180 @@
+"""Package-level contracts of the PyTorch port.
+
+* nanosandbox_tpu_torch imports neither jax nor nanosandbox_tpu: a fresh
+  interpreter imports every module of it and finds neither in
+  sys.modules, and an AST scan finds no such import statement anywhere
+  in the package (the runs-without-jax idiom of tests/test_analysis.py).
+* The entry points run on the GPU unless asked for the CPU: with no CUDA
+  device, device='auto' raises instead of quietly choosing the CPU, and
+  chip_smoke.py exits non-zero without printing a result; its engine and
+  server phases rehearse on the CPU up to the launch-count check.
+* Paths not ported yet raise instead of running something else.
+* The port's copies of BlockPool and SlotScheduler pass an admit / hit /
+  release round trip.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from nanosandbox_tpu_torch import config as tconfig
+from nanosandbox_tpu_torch.config import GPTConfig, resolve_device
+from nanosandbox_tpu_torch.models.gpt import GPT
+from nanosandbox_tpu_torch.serve.engine import Engine
+from nanosandbox_tpu_torch.serve.paged import BlockPool
+from nanosandbox_tpu_torch.serve.scheduler import (SlotScheduler,
+                                                   admit_ladder,
+                                                   default_buckets)
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "nanosandbox_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "nanosandbox_tpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """Tiny models gain nothing from torch's full intra-op thread pool,
+    and the suite's other workers run timing-sensitive tests beside
+    these; two threads keep this module from oversubscribing the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import nanosandbox_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "p.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(len(names), bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          capture_output=True, text=True, timeout=120,
+                          env=env)
+    assert proc.returncode == 0, proc.stderr
+    n, bad = proc.stdout.strip().split(" ", 1)
+    assert int(n) >= 12 and bad == "[]", proc.stdout
+
+
+def test_no_jax_import_statements_in_the_package():
+    offenders = []
+    for path in PKG.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{path.relative_to(REPO)}: {n}"
+                          for n in names if _forbidden(n)]
+    assert not offenders, offenders
+
+
+def test_auto_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(tconfig.torch.cuda, "is_available", lambda: False)
+    for name in ("auto", "cuda"):
+        with pytest.raises(RuntimeError, match="--device=cpu"):
+            resolve_device(name)
+    model = GPT(GPTConfig(n_layer=1, n_head=2, n_embd=64, block_size=32,
+                          vocab_size=16, compute_dtype="float32"))
+    with pytest.raises(RuntimeError, match="--device=cpu"):
+        Engine(model, num_slots=1, max_len=32)
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unknown device"):
+        resolve_device("tpu")
+
+
+def test_chip_smoke_refuses_to_run_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py would run")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=str(REPO),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
+    """chip_smoke.py's engine and server phases, run on the CPU at a tiny
+    width: every check before the launch counts passes (greedy tokens
+    equal the recompute, 6/6 answers, a prefix hit), and the launch check
+    then refuses the run, because on the CPU no kernel launched."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    from nanosandbox_tpu_torch.ops import flash_decode as fd
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "MODEL", dict(
+        n_layer=2, n_head=2, n_embd=64, block_size=1024, vocab_size=256))
+    for phase in (chip_smoke.check_engine_fp32,
+                  lambda fd: chip_smoke.check_server(fd, "cpu")):
+        with pytest.raises(SystemExit, match="bypassed a kernel"):
+            phase(fd)
+
+
+def test_unported_paths_raise():
+    model = GPT(GPTConfig(n_layer=1, n_head=2, n_embd=64, block_size=32,
+                          vocab_size=16, compute_dtype="float32"))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        Engine(model, num_slots=1, max_len=32, paged=False, device="cpu")
+    for kvd in ("int8", "int4"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            Engine(model, num_slots=1, max_len=32, kv_dtype=kvd,
+                   device="cpu")
+
+
+def test_block_pool_and_scheduler_round_trip():
+    assert admit_ladder(6) == [1, 2, 4, 6]
+    assert default_buckets(100) == [16, 32, 64, 100]
+    sched = SlotScheduler(2, [8, 16])
+    pool = BlockPool(6, 4)
+    first = tuple(range(10))
+    a = pool.admit(first, 2)                    # 3 blocks, no hit
+    assert a.n_hit == 0 and len(a.table) == 3
+    pool.check([a])
+    pool.release(a)                             # donates 2 full blocks
+    pool.check([])
+    assert pool.match_len(first[:8] + (99, 98)) == 8
+    b = pool.admit(first[:8] + (99, 98), 2)     # hit the 2 donated blocks
+    assert b.n_hit == 2 and b.table[:2] == a.table[:2]
+    c = pool.admit((7,) * 9, 7)                 # needs 4: evicts the trie
+    assert c is None                            # ...but the hit is pinned
+    pool.check([b])
+    pool.release(b, donate=False)
+    c = pool.admit((7,) * 9, 7)
+    assert c is not None and len(c.table) == 4
+    pool.check([c])
+    assert pool.stats()["prefix_hit_requests"] == 1
+
+    class R:
+        def __init__(self, n):
+            self.prompt = (0,) * n
+
+    for n in (5, 7, 12):
+        sched.enqueue(R(n))
+    items, slots, bucket = sched.next_admission_wave()
+    assert [len(i.prompt) for i in items] == [5, 7] and bucket == 8
+    assert sched.next_admission_wave() is None      # no free slot
+    sched.release(slots[0])
+    items, _, bucket = sched.next_admission_wave()
+    assert len(items[0].prompt) == 12 and bucket == 16
+    sched.release(slots[1])
+    with pytest.raises(ValueError, match="twice"):
+        sched.release(slots[1])
