@@ -1,17 +1,25 @@
-"""Decoder-only GPT in PyTorch: the serving half of models/gpt.py.
+"""Decoder-only GPT in PyTorch: the port of models/gpt.py.
 
 Same model contract as the JAX package's flax GPT: learned positional
 embeddings, pre-LayerNorm blocks (f32 LayerNorm, eps 1e-5), causal
 self-attention with [q|k|v] packed in one projection, a 4x tanh-GELU
 MLP, optional biases, and an LM head tied to ``wte``. Matmuls run in
-``cfg.compute_dtype``; the weights may be stored wider (training) or
-already cast to the compute dtype (serving, which halves the bytes the
-weight-read-bound decode step streams).
+``cfg.compute_dtype``; the weights are stored in ``cfg.param_dtype``
+(training) or already cast to the compute dtype (serving, which halves
+the bytes the weight-read-bound decode step streams).
 
 Two forward paths:
 
-  * no cache: plain causal attention in f32 — the reference recompute
-    the cached path is held against;
+  * no cache (training, evaluation, the reference recompute): causal
+    attention through ops/attention.py — the flash kernels on CUDA
+    tensors, the plain version on CPU tensors. ``plain_attention=True``
+    asks for the plain version on any device; only comparison harnesses
+    pass it (its CUDA calls show in attention.plain_cuda_calls). With a
+    ``dropout_generator`` and cfg.dropout > 0 the forward trains: residual
+    dropout where flax has it (after the embedding sum, after attention's
+    c_proj, after the MLP's c_proj) with masks drawn from the generator,
+    and attention-probability dropout in the kernels, keyed by a uint32
+    seed per layer drawn from the same generator;
   * paged cache: each layer's (K, V) pool is (num_blocks + 1, H, page,
     D). The call writes its K/V through the block table first, then
     attends with the paged-attention kernels (ops/flash_decode.py):
@@ -27,6 +35,9 @@ would) nor an out-of-range index (which raises a device-side assert on
 CUDA where JAX's scatter drops). No table entry of a live request ever
 names it, and the kernels only read it for sentinel entries, whose
 positions are past every frontier.
+
+The losses (``cross_entropy_loss``, ``chunked_cross_entropy_loss``) and
+``count_params`` are the JAX module's, in the same logsumexp form.
 """
 
 from __future__ import annotations
@@ -37,10 +48,12 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from nanosandbox_tpu_torch.config import GPTConfig
-from nanosandbox_tpu_torch.ops.flash_decode import (NEG_INF,
-                                                    flash_decode_paged,
+from nanosandbox_tpu_torch.config import DTYPES, GPTConfig
+from nanosandbox_tpu_torch.ops.attention import (causal_attention,
+                                                 torch_flash_attention)
+from nanosandbox_tpu_torch.ops.flash_decode import (flash_decode_paged,
                                                     flash_prefill_paged)
 
 KVPool = List[Tuple[torch.Tensor, torch.Tensor]]
@@ -59,15 +72,22 @@ def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
                         ln.eps)
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor) -> torch.Tensor:
-    """Plain causal attention over (B, H, T, D) in f32 — the counterpart
-    of ops/attention.py's xla_attention, and the reference recompute."""
-    T, D = q.shape[2], q.shape[3]
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * D ** -0.5, k.float())
-    mask = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
-    p = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+def _dropout(x: torch.Tensor, rate: float,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax nn.Dropout: keep with probability 1 - rate, kept values
+    scaled by 1 / (1 - rate); the identity without a generator."""
+    if generator is None or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0)
+
+
+def _attention_seed(generator: torch.Generator, device) -> torch.Tensor:
+    """One uint32 dropout seed (as int64) drawn on the generator's device:
+    no host sync on the training path."""
+    return torch.randint(0, 2**32, (1,), generator=generator,
+                         device=device, dtype=torch.int64)
 
 
 def write_paged_kv(pool_k: torch.Tensor, pool_v: torch.Tensor,
@@ -102,7 +122,8 @@ class CausalSelfAttention(nn.Module):
         self.c_attn = nn.Linear(C, 3 * C, bias=cfg.bias, **factory)
         self.c_proj = nn.Linear(C, C, bias=cfg.bias, **factory)
 
-    def forward(self, x, cache=None, cache_index=None, block_table=None):
+    def forward(self, x, cache=None, cache_index=None, block_table=None,
+                generator=None, plain_attention=False):
         cfg = self.cfg
         B, T, C = x.shape
         H, D = cfg.n_head, cfg.head_dim
@@ -112,7 +133,16 @@ class CausalSelfAttention(nn.Module):
         k = k.view(B, T, H, D).transpose(1, 2)
         v = v.view(B, T, H, D).transpose(1, 2)
         if cache is None:
-            y = causal_attention(q, k, v)
+            rate, seed = 0.0, None
+            if generator is not None and cfg.dropout > 0.0:
+                rate, seed = cfg.dropout, _attention_seed(generator, x.device)
+            if plain_attention:
+                y = torch_flash_attention(q, k, v, dropout_rate=rate,
+                                          seed=seed)[0]
+            else:
+                y = causal_attention(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), dropout_rate=rate,
+                                     seed=seed)
         else:
             ck, cv = cache
             # The pool must hold this call's K/V before the kernel reads
@@ -127,7 +157,7 @@ class CausalSelfAttention(nn.Module):
                 y = flash_prefill_paged(q.contiguous(), ck, cv, block_table,
                                         cache_index)
         y = y.transpose(1, 2).reshape(B, T, C)
-        return _dense(self.c_proj, y, dtype)
+        return _dropout(_dense(self.c_proj, y, dtype), cfg.dropout, generator)
 
 
 class MLP(nn.Module):
@@ -138,10 +168,11 @@ class MLP(nn.Module):
         self.c_fc = nn.Linear(C, 4 * C, bias=cfg.bias, **factory)
         self.c_proj = nn.Linear(4 * C, C, bias=cfg.bias, **factory)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         dtype = self.cfg.torch_compute_dtype
         h = F.gelu(_dense(self.c_fc, x, dtype), approximate="tanh")
-        return _dense(self.c_proj, h, dtype)
+        return _dropout(_dense(self.c_proj, h, dtype), self.cfg.dropout,
+                        generator)
 
 
 class Block(nn.Module):
@@ -153,11 +184,13 @@ class Block(nn.Module):
         self.ln_2 = nn.LayerNorm(C, eps=1e-5, bias=cfg.bias, **factory)
         self.mlp = MLP(cfg, **factory)
 
-    def forward(self, x, cache=None, cache_index=None, block_table=None):
+    def forward(self, x, cache=None, cache_index=None, block_table=None,
+                generator=None, plain_attention=False):
         dtype = x.dtype
         x = x + self.attn(_layer_norm(self.ln_1, x).to(dtype), cache,
-                          cache_index, block_table)
-        return x + self.mlp(_layer_norm(self.ln_2, x).to(dtype))
+                          cache_index, block_table, generator,
+                          plain_attention)
+        return x + self.mlp(_layer_norm(self.ln_2, x).to(dtype), generator)
 
 
 class GPT(nn.Module):
@@ -174,7 +207,7 @@ class GPT(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
-        factory = {"device": device, "dtype": torch.float32}
+        factory = {"device": device, "dtype": cfg.torch_param_dtype}
         self.wte = nn.Embedding(cfg.vocab_size, cfg.n_embd, **factory)
         self.wpe = nn.Embedding(cfg.block_size, cfg.n_embd, **factory)
         self.h = nn.ModuleList(Block(cfg, **factory)
@@ -200,12 +233,16 @@ class GPT(nn.Module):
 
     def hidden(self, idx: torch.Tensor, *, cache: Optional[KVPool] = None,
                cache_index: Optional[torch.Tensor] = None,
-               block_table: Optional[torch.Tensor] = None) -> torch.Tensor:
+               block_table: Optional[torch.Tensor] = None,
+               dropout_generator: Optional[torch.Generator] = None,
+               plain_attention: bool = False) -> torch.Tensor:
         """Final-LayerNorm hidden states (B, T, C), f32. With ``cache``
         (a paged pool from init_paged_cache), ``cache_index`` (B,) int32
         is each row's position of idx[:, 0] and ``block_table`` (B, nb)
         int32 maps its positions onto pool blocks; the pool is written
-        in place."""
+        in place. Without a cache, ``dropout_generator`` turns training
+        dropout on and ``plain_attention`` selects the plain attention
+        (module docstring)."""
         cfg = self.cfg
         B, T = idx.shape
         if T > cfg.block_size:
@@ -218,15 +255,19 @@ class GPT(nn.Module):
             if cache_index is None or block_table is None:
                 raise ValueError("the paged cache needs cache_index and "
                                  "block_table")
+            if dropout_generator is not None or plain_attention:
+                raise ValueError("the paged cache path is inference-only "
+                                 "and always runs the paged kernels")
             # Bucket padding can run past block_size; those positions are
             # garbage rows nobody reads, clamped so the lookup stays in
             # range (an out-of-range index raises on CUDA).
             pos = (cache_index.long()[:, None] + ar[None, :]).clamp(
                 max=cfg.block_size - 1)
-        x = (self.wte(idx) + self.wpe(pos)).to(cfg.torch_compute_dtype)
+        x = _dropout(self.wte(idx) + self.wpe(pos), cfg.dropout,
+                     dropout_generator).to(cfg.torch_compute_dtype)
         for i, block in enumerate(self.h):
             x = block(x, None if cache is None else cache[i], cache_index,
-                      block_table)
+                      block_table, dropout_generator, plain_attention)
         return _layer_norm(self.ln_f, x)
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
@@ -238,11 +279,13 @@ class GPT(nn.Module):
         return F.linear(h.to(w.dtype), w).float()
 
     def forward(self, idx, *, cache=None, cache_index=None,
-                block_table=None) -> torch.Tensor:
+                block_table=None, dropout_generator=None,
+                plain_attention=False) -> torch.Tensor:
         """Logits (B, T, vocab) in f32."""
-        return self.head(self.hidden(idx, cache=cache,
-                                     cache_index=cache_index,
-                                     block_table=block_table))
+        return self.head(self.hidden(
+            idx, cache=cache, cache_index=cache_index,
+            block_table=block_table, dropout_generator=dropout_generator,
+            plain_attention=plain_attention))
 
 
 KV_DTYPES = {"fp32": torch.float32, "float32": torch.float32,
@@ -280,3 +323,64 @@ def cast_for_serving(model: GPT) -> GPT:
     sample.cast_params_for_serving): decode streams every weight once per
     token, so bf16 weights halve its bytes. No-op for float32 compute."""
     return model.to(model.cfg.torch_compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       ignore_index: int = -1) -> torch.Tensor:
+    """Mean next-token cross entropy; positions == ignore_index are
+    masked. In logsumexp form (nll = logsumexp(logits) - logits[target]),
+    so no (B, T, vocab) log-probability tensor is built beside the
+    logits. ``.float()`` is free for the f32 logits the head returns."""
+    logits = logits.float()
+    valid = targets != ignore_index
+    safe = torch.where(valid, targets, 0)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, safe[..., None])[..., 0]
+    nll = torch.where(valid, lse - tgt, 0.0)
+    return nll.sum() / valid.sum().clamp(min=1)
+
+
+def _chunk_nll(h: torch.Tensor, y: torch.Tensor, emb: torch.Tensor,
+               ignore_index: int):
+    """(sum of nll, count of valid targets) over one chunk: the head in
+    emb's dtype, the softmax math in f32."""
+    logits = F.linear(h.to(emb.dtype), emb).float()     # (B, cs, V)
+    valid = y != ignore_index
+    safe = torch.where(valid, y, 0)
+    nll = (torch.logsumexp(logits, dim=-1)
+           - logits.gather(-1, safe[..., None])[..., 0])
+    return torch.where(valid, nll, 0.0).sum(), valid.sum()
+
+
+def chunked_cross_entropy_loss(hidden: torch.Tensor, embedding: torch.Tensor,
+                               targets: torch.Tensor, *, chunk_size: int = 128,
+                               compute_dtype: str = "bfloat16",
+                               ignore_index: int = -1) -> torch.Tensor:
+    """Tied LM head + cross entropy over sequence chunks, so only
+    (B, chunk, vocab) logits are ever alive: each chunk runs under
+    torch.utils.checkpoint, and its backward recomputes the chunk's head
+    instead of saving its logits. The head runs in ``compute_dtype``.
+    hidden: (B, T, C) from GPT.hidden; embedding: the (V, C) wte table.
+    The chunk is the largest divisor of T at most chunk_size."""
+    B, T, C = hidden.shape
+    cs = min(chunk_size, T)
+    while T % cs:
+        cs -= 1
+    emb = embedding.to(DTYPES[compute_dtype])
+    tot = hidden.new_zeros((), dtype=torch.float32)
+    cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for i in range(0, T, cs):
+        t, c = checkpoint(_chunk_nll, hidden[:, i:i + cs],
+                          targets[:, i:i + cs], emb, ignore_index,
+                          use_reentrant=False)
+        tot = tot + t
+        cnt = cnt + c
+    return tot / cnt.clamp(min=1)
+
+
+def count_params(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles ``nanosandbox_tpu_torch/csrc/paged_attention.cu`` into
-a shared library with a plain C interface, which ``ctypes`` loads: no
-PyTorch headers are compiled, so the build takes seconds. It happens at
-first use, into ``build/`` at the repository root (listed in
-.gitignore), under a name keyed by the source's and flags' hash, so an
-edited source is never served by a stale library.
+``nvcc`` compiles each source under ``nanosandbox_tpu_torch/csrc/`` into
+a shared library of its own with a plain C interface, which ``ctypes``
+loads: no PyTorch headers are compiled, so a build takes seconds, and
+the sources build in parallel (one ``nvcc`` each, all started
+together). It happens at first use, into ``build/`` at the repository
+root (listed in .gitignore), under a name keyed by the source's and
+flags' hash, so an edited source is never served by a stale library.
 
 Nothing here runs at import time: importing the package on a machine
 without ``nvcc`` or a GPU (the CPU test tier) must work.
@@ -20,17 +21,21 @@ import shutil
 import subprocess
 import threading
 import time
+import types
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_ROOT = os.path.dirname(_PKG)
 BUILD_DIR = os.path.join(REPO_ROOT, "build")
-SOURCES = (os.path.join(_PKG, "csrc", "paged_attention.cu"),)
+SOURCES = tuple(os.path.join(_PKG, "csrc", name) for name in
+                ("paged_attention.cu", "flash_attention.cu"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-# What the last build did, for the caller that wants to report it.
+_lib: types.SimpleNamespace | None = None
+# What the last build did, for the caller that wants to report it:
+# seconds, and per source its library path, whether it was built now,
+# and nvcc's log (with ptxas's register and spill report).
 build_info: dict = {}
 
 
@@ -44,45 +49,82 @@ def _nvcc() -> str:
     return path
 
 
-def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # (q, k, v, table, lengths|start, out, B, H, [T,] D, N, page, nb,
-    #  sm_scale, q dtype, kv dtype, stream)
-    lib.nsb_paged_decode.argtypes = [p] * 6 + [i] * 6 + [f, i, i, p]
-    lib.nsb_paged_decode.restype = i
-    lib.nsb_paged_prefill.argtypes = [p] * 6 + [i] * 7 + [f, i, i, p]
-    lib.nsb_paged_prefill.restype = i
-    return lib
+def _signatures() -> dict:
+    """argtypes of every C entry point, by name."""
+    p, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_uint)
+    return {
+        # (q, k, v, table, lengths|start, out, B, H, [T,] D, N, page, nb,
+        #  sm_scale, q dtype, kv dtype, stream)
+        "nsb_paged_decode": [p] * 6 + [i] * 6 + [f, i, i, p],
+        "nsb_paged_prefill": [p] * 6 + [i] * 7 + [f, i, i, p],
+        # (q, k, v, o, lse, seed, BH, H, T, D, sm_scale, dtype, dropout on,
+        #  threshold, keep scale, hash_seq_len, stream)
+        "nsb_flash_fwd": [p] * 6 + [i] * 4 + [f, i, i, u, f, u, p],
+        # (q, k, v, o, dout, lse, seed, dq, dk, dv, BH, H, T, D, sm_scale,
+        #  dtype, dropout on, threshold, keep scale, hash_seq_len, mode,
+        #  stream)
+        "nsb_flash_bwd": [p] * 10 + [i] * 4 + [f, i, i, u, f, u, i, p],
+    }
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on the first call of the process
-    (and reused from ``build/`` when an identical build exists)."""
+def _target(src: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    with open(src, "rb") as fh:
+        h.update(fh.read())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"nsb_{stem}_{h.hexdigest()[:16]}.so")
+
+
+def library() -> types.SimpleNamespace:
+    """Every kernel entry point, declared, as attributes of one object;
+    the libraries are built on the first call of the process (and reused
+    from ``build/`` when identical builds exist)."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in SOURCES:
-            with open(src, "rb") as fh:
-                h.update(fh.read())
-        out = os.path.join(BUILD_DIR, f"nsb_kernels_{h.hexdigest()[:16]}.so")
         t0 = time.monotonic()
-        built = False
-        if not os.path.exists(out):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            with open(out[:-3] + ".log", "w") as fh:
-                fh.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        libs = []
+        procs = []
+        for src in SOURCES:
+            out = _target(src)
+            entry = {"source": os.path.relpath(src, REPO_ROOT), "path": out,
+                     "log": out[:-3] + ".log", "built": False}
+            libs.append(entry)
+            if not os.path.exists(out):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{out}.{os.getpid()}.tmp"
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+                procs.append((entry, cmd, tmp, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)))
+        failed = []
+        for entry, cmd, tmp, proc in procs:
+            stdout, stderr = proc.communicate()
+            with open(entry["log"], "w") as fh:
+                fh.write(" ".join(cmd) + "\n" + stdout + stderr)
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-            os.replace(tmp, out)
-            built = True
-        _lib = _declare(ctypes.CDLL(out))
-        build_info.update(path=out, built=built,
-                          seconds=time.monotonic() - t0,
-                          log=out[:-3] + ".log")
+                failed.append(f"{entry['source']} ({proc.returncode}):\n"
+                              f"{stderr[-4000:]}")
+            else:
+                os.replace(tmp, entry["path"])
+                entry["built"] = True
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        sigs = _signatures()
+        fns = {}
+        for entry in libs:
+            cdll = ctypes.CDLL(entry["path"])
+            for name, argtypes in sigs.items():
+                if hasattr(cdll, name):
+                    fn = getattr(cdll, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    fns[name] = fn
+        missing = sorted(set(sigs) - set(fns))
+        if missing:
+            raise RuntimeError(f"kernel libraries lack {missing}")
+        _lib = types.SimpleNamespace(**fns)
+        build_info.update(libs=libs, seconds=time.monotonic() - t0)
         return _lib

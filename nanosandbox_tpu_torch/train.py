@@ -1,0 +1,406 @@
+"""Iter-driven training loop: the nanoGPT train.py contract on one GPU.
+
+    python -m nanosandbox_tpu_torch.train [configs/foo.py] --key=value ...
+
+The port of nanosandbox_tpu/train.py, with the same CLI, config files
+and loop semantics: iter-driven (max_iters), periodic evaluation on a
+fixed set of batches (eval_interval, eval_iters; iteration 0 included),
+logging every log_interval iterations, warmup + cosine learning rate,
+AdamW with weight decay on >= 2-D parameters only, global-norm gradient
+clipping, gradient accumulation, checkpoints under <out_dir>/ckpt with
+best-val gating, and resume (--init_from=resume / auto).
+
+One device. Causal attention goes through the flash kernels
+(ops/attention.py) on a CUDA device and through their plain PyTorch
+versions with --device=cpu; the dense projections stay cuBLAS GEMMs.
+The step runs eagerly whatever ``compile`` says (torch.compile or CUDA
+graph capture of the step is later work).
+
+Numerics kept from the JAX package, because they decide the trajectory:
+optax's schedule counts updates from 0, so with warmup the first update
+has lr 0 and changes no parameter; clipping scales by max_norm / norm
+only when norm >= max_norm (optax.clip_by_global_norm, no epsilon); the
+reported grad_norm is the unclipped one; torch's AdamW over the two
+weight-decay groups is optax.adamw (eps outside the square root,
+decoupled decay).
+
+Dropout masks come from a torch.Generator seeded from (seed + 7,
+iter_num) at every step, so a resumed run draws the masks an
+uninterrupted one would. JAX draws from threefry: residual-dropout bits
+differ between the packages; the attention mask is a pure function of
+the per-layer seed words and matches the JAX kernels' bit for bit for
+the same words.
+"""
+
+from __future__ import annotations
+
+import math
+import sys
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from nanosandbox_tpu_torch.config import (GPTConfig, TrainConfig,
+                                          check_ported, load_config,
+                                          resolve_device,
+                                          resolve_loss_chunk_size)
+
+# Peak dense bf16 FLOP/s per device for MFU (data sheets): NVIDIA H100
+# SXM 989 TFLOP/s. A CPU run reports MFU against a nominal 1 TFLOP/s.
+PEAK_FLOPS = {"H100": 989e12, "cpu": 1e12}
+
+
+def make_lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
+    """lr as a function of the number of updates done so far: optax's
+    join_schedules([linear_schedule(0, lr, warmup), cosine_decay_schedule
+    (lr, decay, alpha=min_lr/lr)], [warmup]) -- 0 at update 0."""
+    lr = cfg.learning_rate
+    if not cfg.decay_lr:
+        return lambda step: lr
+    warmup = max(cfg.warmup_iters, 1)
+    decay_steps = max(cfg.lr_decay_iters - cfg.warmup_iters, 1)
+    alpha = cfg.min_lr / lr
+
+    def schedule(step: int) -> float:
+        if step < cfg.warmup_iters:
+            return lr * min(step, warmup) / warmup
+        t = min(step - cfg.warmup_iters, decay_steps)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * t / decay_steps))
+        return lr * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+def make_optimizer(model: torch.nn.Module, cfg: TrainConfig):
+    """(AdamW over two groups -- weight decay on parameters with ndim >= 2,
+    none on the rest -- and the lr schedule)."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    groups = [
+        {"params": [p for p in params if p.dim() >= 2],
+         "weight_decay": cfg.weight_decay},
+        {"params": [p for p in params if p.dim() < 2], "weight_decay": 0.0},
+    ]
+    opt = torch.optim.AdamW(groups, lr=0.0, betas=(cfg.beta1, cfg.beta2),
+                            eps=1e-8)
+    return opt, make_lr_schedule(cfg)
+
+
+def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of every element's square (optax.global_norm)."""
+    return torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+
+
+def clip_by_global_norm_(grads: list[torch.Tensor], norm: torch.Tensor,
+                         max_norm: float) -> None:
+    """optax.clip_by_global_norm in place: g * max_norm / norm when
+    norm >= max_norm, untouched otherwise; decided on the device."""
+    scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                        max_norm / norm)
+    for g in grads:
+        g.mul_(scale.to(g.dtype))
+
+
+def optimizer_step(optimizer: torch.optim.Optimizer,
+                   schedule: Callable[[int], float], step: int,
+                   grad_clip: float) -> torch.Tensor:
+    """One update from the .grad of every parameter: optax's
+    chain(clip_by_global_norm, adamw(schedule)) at update count ``step``.
+    Returns the unclipped global norm (a device scalar)."""
+    grads = [p.grad for group in optimizer.param_groups
+             for p in group["params"] if p.grad is not None]
+    norm = global_norm(grads)
+    if grad_clip > 0:
+        clip_by_global_norm_(grads, norm, grad_clip)
+    lr = schedule(step)
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    optimizer.step()
+    return norm
+
+
+class Trainer:
+    """Owns the model, optimizer, data and the train/eval steps."""
+
+    def __init__(self, cfg: TrainConfig):
+        from nanosandbox_tpu_torch.data.loader import BinDataset
+        from nanosandbox_tpu_torch.models.gpt import GPT
+
+        check_ported(cfg)
+        if cfg.init_from not in ("scratch", "resume", "auto"):
+            raise ValueError(f"unknown init_from {cfg.init_from!r} (expected "
+                             "scratch, resume or auto)")
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        self.dataset = BinDataset(cfg.data_dir, cfg.dataset)
+        vocab = cfg.vocab_size or self.dataset.vocab_size
+        self.model_cfg = GPTConfig.from_train_config(cfg, vocab)
+        self.loss_chunk_size = resolve_loss_chunk_size(
+            cfg.loss_chunk_size, cfg.batch_size, cfg.block_size, vocab)
+        self.model = GPT(self.model_cfg, device=self.device,
+                         generator=torch.Generator(
+                             device=self.device).manual_seed(cfg.seed))
+        self.optimizer, self.lr_schedule = make_optimizer(self.model, cfg)
+        self.step = 0  # optimizer updates done: the schedule's count
+        from nanosandbox_tpu_torch.utils.metrics import warn_once
+        if cfg.compile:
+            warn_once("compile", "[train] compile=True: the port runs the "
+                      "step eagerly (torch.compile / CUDA graphs are not "
+                      "ported yet)")
+        if cfg.attention_impl not in ("auto", "pallas"):
+            warn_once("attention_impl", f"[train] attention_impl="
+                      f"{cfg.attention_impl!r} names a JAX implementation "
+                      "and selects nothing here: causal attention runs the "
+                      "flash kernels on CUDA, their plain versions on the "
+                      "CPU")
+
+    # -- steps ---------------------------------------------------------------
+
+    def loss(self, x: torch.Tensor, y: torch.Tensor,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+        """Mean cross entropy: chunked head + loss when loss_chunk_size >
+        0, full logits otherwise."""
+        from nanosandbox_tpu_torch.models.gpt import (
+            chunked_cross_entropy_loss, cross_entropy_loss)
+
+        if self.loss_chunk_size > 0:
+            hidden = self.model.hidden(x, dropout_generator=generator)
+            return chunked_cross_entropy_loss(
+                hidden, self.model.wte.weight, y,
+                chunk_size=self.loss_chunk_size,
+                compute_dtype=self.cfg.compute_dtype)
+        return cross_entropy_loss(self.model(x, dropout_generator=generator),
+                                  y)
+
+    def dropout_generator(self, iter_num: int) -> torch.Generator | None:
+        """The step's mask stream, keyed by (seed + 7, iter_num); None
+        without dropout."""
+        if self.cfg.dropout == 0.0:
+            return None
+        g = torch.Generator(device=self.device)
+        g.manual_seed(((self.cfg.seed + 7) * 1_000_003 + iter_num)
+                      & 0xFFFF_FFFF_FFFF)
+        return g
+
+    def grads(self, x: torch.Tensor, y: torch.Tensor,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+        """Fill every parameter's .grad with the mean gradient over the
+        batch's gradient_accumulation_steps micro-batches; returns the
+        mean loss (a device scalar)."""
+        accum = self.cfg.gradient_accumulation_steps
+        self.optimizer.zero_grad(set_to_none=True)
+        total = None
+        for xm, ym in zip(x.chunk(accum), y.chunk(accum)):
+            loss = self.loss(xm, ym, generator)
+            (loss / accum if accum > 1 else loss).backward()
+            total = loss.detach() if total is None else total + loss.detach()
+        return total / accum
+
+    def train_step(self, x: torch.Tensor, y: torch.Tensor,
+                   generator: torch.Generator | None = None
+                   ) -> dict[str, torch.Tensor]:
+        """One optimizer update; {'loss', 'grad_norm' (unclipped)} as
+        device scalars (no host sync)."""
+        self.model.train()
+        loss = self.grads(x, y, generator)
+        norm = optimizer_step(self.optimizer, self.lr_schedule, self.step,
+                              self.cfg.grad_clip)
+        self.step += 1
+        return {"loss": loss, "grad_norm": norm}
+
+    @torch.no_grad()
+    def eval_loss(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        self.model.eval()
+        return self.loss(x, y)
+
+    # -- data ----------------------------------------------------------------
+
+    def make_loader(self, split: str, start_step: int = 0, prefetch=True):
+        from nanosandbox_tpu_torch.data.loader import BatchLoader
+
+        return BatchLoader(self.dataset, split, self.cfg.sequences_per_iter,
+                           self.cfg.block_size, seed=self.cfg.seed,
+                           start_step=start_step, prefetch=prefetch)
+
+    def to_device(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a).long()
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    # -- evaluation (nanoGPT estimate_loss) ----------------------------------
+
+    def estimate_loss(self, eval_iters: int | None = None) -> dict:
+        """Mean loss over the same eval_iters batches of each split at
+        every call (step index 1_000_000 + i, seed + 1): a low-variance,
+        fixed sample. One host read per split."""
+        eval_iters = eval_iters or self.cfg.eval_iters
+        out = {}
+        for split in ("train", "val"):
+            batches = [self.dataset.sample_batch(
+                split, 1_000_000 + i, self.cfg.batch_size,
+                self.cfg.block_size, seed=self.cfg.seed + 1)
+                for i in range(eval_iters)]
+            losses = [self.eval_loss(self.to_device(xb), self.to_device(yb))
+                      for xb, yb in batches]
+            out[split] = float(torch.stack(losses).mean())
+        return out
+
+    # -- MFU -----------------------------------------------------------------
+
+    def flops_per_iter(self) -> float:
+        """nanoGPT's estimate: 6N + 12 L H Q T flops per token, N without
+        the position embedding."""
+        from nanosandbox_tpu_torch.models.gpt import count_params
+
+        m, cfg = self.model_cfg, self.cfg
+        n = count_params(self.model) - m.block_size * m.n_embd
+        L, H, Q, T = m.n_layer, m.n_head, m.head_dim, cfg.block_size
+        return (6 * n + 12 * L * H * Q * T) * cfg.tokens_per_iter
+
+    def peak_flops(self) -> float:
+        kind = (torch.cuda.get_device_name(self.device)
+                if self.device.type == "cuda" else "cpu")
+        for k, v in PEAK_FLOPS.items():
+            if k.lower() in kind.lower():
+                return v
+        raise ValueError(f"no peak FLOP/s for {kind!r}: add it to "
+                         "train.PEAK_FLOPS to report MFU")
+
+    # -- checkpoints ---------------------------------------------------------
+
+    def save(self, ckpt, iter_num: int, best_val_loss: float) -> bool:
+        return ckpt.save(iter_num, model=self.model.state_dict(),
+                         optimizer=self.optimizer.state_dict(),
+                         iter_num=iter_num, best_val_loss=best_val_loss,
+                         config=self.cfg.to_dict(), opt_step=self.step)
+
+    def restore(self, ckpt, step: int | None = None) -> dict:
+        blob = ckpt.restore(step)
+        self.model.load_state_dict(blob["model"])
+        self.optimizer.load_state_dict(blob["optimizer"])
+        self.step = int(blob["step"])
+        return blob
+
+    # -- main loop -----------------------------------------------------------
+
+    def run(self) -> dict:
+        from nanosandbox_tpu_torch.checkpoint import TrainCheckpointer
+        from nanosandbox_tpu_torch.data.loader import OFFSET_SAMPLER
+        from nanosandbox_tpu_torch.utils.metrics import MetricsWriter
+
+        cfg = self.cfg
+        ckpt = TrainCheckpointer(cfg.out_dir, keep=cfg.keep_checkpoints)
+        iter_num = 0
+        best_val_loss = 1e9
+        init_from = cfg.init_from
+        if init_from == "auto":
+            init_from = ("resume" if ckpt.latest_step() is not None
+                         else "scratch")
+        if init_from == "resume":
+            blob = self.restore(ckpt)
+            iter_num = int(blob["iter_num"])
+            best_val_loss = float(blob["best_val_loss"])
+            print(f"resumed from iter {iter_num} "
+                  f"(best val loss {best_val_loss:.4f})")
+
+        writer = MetricsWriter(cfg.resolved_log_dir, cfg.run_name,
+                               tensorboard=cfg.tensorboard)
+        loader = self.make_loader("train", start_step=iter_num)
+        writer.write_header({
+            "eval_batch_policy": "fixed", "eval_seed": cfg.seed + 1,
+            "eval_iters": cfg.eval_iters,
+            "offset_sampler": OFFSET_SAMPLER,
+            # A JAX PRNG name with no torch meaning: recorded, inert.
+            "rng_impl": cfg.rng_impl,
+            "device": str(self.device),
+        })
+        tokens_per_iter = cfg.tokens_per_iter
+        flops_per_iter = self.flops_per_iter()
+        peak = self.peak_flops()
+        last_loss = float("nan")
+        last_eval: tuple[int, dict] | None = None
+        log: list[dict] = []
+        t0 = time.time()
+        window_start_iter = iter_num - 1  # the sync precedes step iter_num
+        try:
+            while iter_num < cfg.max_iters:
+                if (cfg.eval_interval > 0
+                        and iter_num % cfg.eval_interval == 0):
+                    losses = self.estimate_loss()
+                    last_eval = (iter_num, losses)
+                    print(f"step {iter_num}: train loss "
+                          f"{losses['train']:.4f}, val loss "
+                          f"{losses['val']:.4f}")
+                    writer.log(iter_num, {"eval/train_loss": losses["train"],
+                                          "eval/val_loss": losses["val"]})
+                    # The iter-0 anchor never seeds best_val_loss: a run
+                    # that cannot beat its scratch loss still saves.
+                    if iter_num > 0 and (losses["val"] < best_val_loss
+                                         or cfg.always_save_checkpoint):
+                        best_val_loss = min(best_val_loss, losses["val"])
+                        self.save(ckpt, iter_num, best_val_loss)
+                    if cfg.eval_only:
+                        break
+                    # Eval and checkpoint time stay out of the next
+                    # throughput window.
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    t0, window_start_iter = time.time(), iter_num - 1
+
+                xb, yb = next(loader)
+                metrics = self.train_step(self.to_device(xb),
+                                          self.to_device(yb),
+                                          self.dropout_generator(iter_num))
+
+                if cfg.log_interval > 0 and iter_num % cfg.log_interval == 0:
+                    loss = float(metrics["loss"])  # the log-step sync
+                    last_loss = loss
+                    # Window-averaged: the host runs ahead of the device,
+                    # and this read drains every step since the last one.
+                    now = time.time()
+                    n_iters = iter_num - window_start_iter
+                    dt = (now - t0) / max(n_iters, 1)
+                    t0, window_start_iter = now, iter_num
+                    toks = tokens_per_iter / max(dt, 1e-9)
+                    mfu = flops_per_iter / max(dt, 1e-9) / peak
+                    print(f"iter {iter_num}: loss {loss:.4f}, "
+                          f"time {dt * 1000:.2f}ms, "
+                          f"tok/s {toks:,.0f}, mfu {mfu * 100:.2f}%")
+                    grad_norm = float(metrics["grad_norm"])
+                    lr = self.lr_schedule(iter_num)
+                    writer.log(iter_num, {
+                        "train/loss": loss, "train/grad_norm": grad_norm,
+                        "train/lr": lr, "perf/tokens_per_sec": toks,
+                        "perf/mfu": mfu})
+                    log.append({"iter": iter_num, "loss": loss,
+                                "ms": dt * 1000, "tok_s": toks, "mfu": mfu})
+                iter_num += 1
+        finally:
+            loader.close()
+            writer.close()
+
+        if last_eval is not None and last_eval[0] == iter_num:
+            losses = last_eval[1]  # already evaluated at this exact step
+        else:
+            losses = self.estimate_loss() if cfg.max_iters > 0 else {}
+        if cfg.max_iters > 0 and not cfg.eval_only:
+            self.save(ckpt, iter_num,
+                      min(best_val_loss, losses.get("val", 1e9)))
+        return {"iter_num": iter_num, "final_loss": last_loss, "log": log,
+                **{f"final_{k}_loss": v for k, v in losses.items()}}
+
+
+def main(argv: list[str] | None = None) -> dict:
+    cfg = load_config(argv if argv is not None else sys.argv[1:])
+    trainer = Trainer(cfg)
+    print(f"tokens per iteration: {cfg.tokens_per_iter:,}")
+    print(f"device: {trainer.device}"
+          + (f" ({torch.cuda.get_device_name(trainer.device)})"
+             if trainer.device.type == "cuda" else ""))
+    return trainer.run()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,77 @@
+"""Metric logging: the JSONL half of the JAX package's MetricsWriter.
+
+``<log_dir>/<run>/metrics.jsonl`` gets one header record
+(``{"header": {...}, "time": t}``, written with the first scalars, so a
+run that logs nothing leaves no file behind) and one record per
+``log(step, scalars)`` (``{"step": n, "time": t, **scalars}``), the
+JAX package's record format. TensorBoard event files are not ported
+yet: ``tensorboard=True`` writes the JSONL only and says so once.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+from typing import Any
+
+_WARNED: set[str] = set()
+
+
+def warn_once(key: str, msg: str) -> None:
+    """Print msg to stderr the first time key is seen in the process."""
+    if key in _WARNED:
+        return
+    _WARNED.add(key)
+    print(msg, file=sys.stderr, flush=True)
+
+
+class MetricsWriter:
+    def __init__(self, log_dir: str, run_name: str = "", enabled: bool = True,
+                 tensorboard: bool = True):
+        self.enabled = enabled
+        self.jsonl = None
+        if not enabled:
+            return
+        run = run_name or time.strftime("%Y%m%d-%H%M%S")
+        self.dir = os.path.join(log_dir, run)
+        os.makedirs(self.dir, exist_ok=True)
+        self.path = os.path.join(self.dir, "metrics.jsonl")
+        self._pending_headers: list[dict[str, Any]] = []
+        self._wrote_any = False
+        if tensorboard:
+            warn_once("tensorboard",
+                      "[metrics] TensorBoard event files are not ported yet; "
+                      f"writing {self.path} only")
+
+    def _write(self, rec: dict) -> None:
+        if self.jsonl is None:
+            self.jsonl = open(self.path, "a", buffering=1)
+        self.jsonl.write(json.dumps(rec) + "\n")
+
+    def write_header(self, meta: dict[str, Any]) -> None:
+        """One provenance record (eval-batch policy, offset sampler, rng
+        impl), deferred until the first log() unless scalars were
+        already written."""
+        if not self.enabled:
+            return
+        rec = {"header": meta, "time": time.time()}
+        if self._wrote_any:
+            self._write(rec)
+        else:
+            self._pending_headers.append(rec)
+
+    def log(self, step: int, scalars: dict[str, Any]) -> None:
+        if not self.enabled:
+            return
+        for rec in self._pending_headers:
+            self._write(rec)
+        self._pending_headers.clear()
+        self._wrote_any = True
+        self._write({"step": step, "time": time.time(), **scalars})
+
+    def close(self) -> None:
+        if self.jsonl is not None:
+            self.jsonl.close()
+            self.jsonl = None

@@ -1,0 +1,171 @@
+"""The port's training attention against the JAX package's flash kernels.
+
+Plain versions only: on the CPU the wrappers of
+nanosandbox_tpu_torch/ops/attention.py route to torch_flash_attention
+and torch_flash_attention_bwd, which chip_smoke.py holds the CUDA
+kernels to on the card. The JAX side runs its Pallas kernels in
+interpret mode, as its own tests do. Inputs are numpy-seeded, fp32, at
+B 2, H 2, T <= 128, D 32 (tests/conftest.py tiny_cfg's head size).
+Tolerances: 2e-5 on o and lse, 2e-4 on gradients (f32 sums in another
+order; the JAX kernels pad D to 128 and T to the block).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nanosandbox_tpu.ops import attention as jattn
+from nanosandbox_tpu_torch.ops import attention as tattn
+
+B, H, D = 2, 2, 32
+TOL_O, TOL_G = 2e-5, 2e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(T, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((B, H, T, D), dtype=np.float32)
+            for _ in range(4)]                      # q, k, v, dO
+
+
+def _torch_grads(fn, q, k, v, do):
+    """(o, lse or None, dq, dk, dv) of a torch function of (q, k, v)."""
+    qt, kt, vt = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    out = fn(qt, kt, vt)
+    o, lse = out if isinstance(out, tuple) else (out, None)
+    o.backward(torch.from_numpy(do))
+    return (o.detach().numpy(), None if lse is None else lse.detach().numpy(),
+            qt.grad.numpy(), kt.grad.numpy(), vt.grad.numpy())
+
+
+def _jax_grads(fn, q, k, v, do):
+    o, vjp = jax.vjp(fn, *(jnp.asarray(x) for x in (q, k, v)))
+    return (np.asarray(o), *(np.asarray(g) for g in vjp(jnp.asarray(do))))
+
+
+@pytest.mark.parametrize("T", [128, 96])
+def test_plain_flash_attention_matches_jax(T):
+    q, k, v, do = _inputs(T)
+    jo, jlse = jattn.flash_attention_lse(*(jnp.asarray(x) for x in (q, k, v)),
+                                         True, None, True)
+    _, *jg = _jax_grads(lambda q, k, v: jattn.flash_attention(
+        q, k, v, True, None, True), q, k, v, do)
+    o, lse, *g = _torch_grads(tattn.torch_flash_attention, q, k, v, do)
+    np.testing.assert_allclose(o, np.asarray(jo), atol=TOL_O)
+    np.testing.assert_allclose(lse, np.asarray(jlse), atol=TOL_O)
+    for got, ref in zip(g, jg):
+        np.testing.assert_allclose(got, ref, atol=TOL_G)
+
+
+@pytest.mark.parametrize("impl", ["fused", "split"])
+def test_backward_from_o_and_lse_matches_jax(impl, monkeypatch):
+    """flash_attention_bwd on CPU tensors (the plain version of K5 / K6+K7)
+    from the forward's o and lse gives JAX's gradients."""
+    monkeypatch.setattr(tattn, "BWD_IMPL", impl)
+    q, k, v, do = _inputs(128, seed=1)
+    _, *jg = _jax_grads(lambda q, k, v: jattn.flash_attention(
+        q, k, v, True, None, True), q, k, v, do)
+    qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = tattn.flash_attention_fwd(qt, kt, vt)
+    got = tattn.flash_attention_bwd(qt, kt, vt, o, lse, dot)
+    for g, ref in zip(got, jg):
+        np.testing.assert_allclose(g.numpy(), ref, atol=TOL_G)
+    dq = tattn.flash_attention_bwd_dq(qt, kt, vt, o, lse, dot)
+    dk, dv = tattn.flash_attention_bwd_dkv(qt, kt, vt, o, lse, dot)
+    for g, ref in zip((dq, dk, dv), got):
+        np.testing.assert_array_equal(g.numpy(), ref.numpy())
+    assert not any(tattn.launches.values())   # CPU: no kernel launched
+
+
+@pytest.mark.parametrize("T", [96, 128])
+def test_hash_dropout_keep_mask_is_bit_exact(T):
+    for seed in ([7], [0xFFFFFFF0, 3, 1, 2**31 + 5, 17]):
+        for offs in (dict(), dict(q_off=4, k_off=9, b_off=1, h_off=2,
+                                  hash_heads=5)):
+            ref = np.asarray(jattn.hash_dropout_keep_mask(
+                jnp.asarray(seed, jnp.uint32), B, H, T, T, rate=0.1, **offs))
+            got = tattn.hash_dropout_keep_mask(seed, B, H, T, T, rate=0.1,
+                                               **offs).numpy()
+            np.testing.assert_array_equal(got, ref)
+            assert 0.85 < got.mean() < 0.95
+
+
+@pytest.mark.parametrize("T,seed", [(128, [5]), (96, [11, 0, 0, 3, 40])])
+def test_flash_attention_dropout_matches_jax(T, seed):
+    q, k, v, do = _inputs(T, seed=2)
+    rate = 0.2
+    jseed = jnp.asarray(seed, jnp.uint32)
+    jo, *jg = _jax_grads(lambda q, k, v: jattn.flash_attention_dropout(
+        q, k, v, jseed, True, None, rate, True), q, k, v, do)
+    o, _, *g = _torch_grads(lambda q, k, v: tattn.flash_attention_dropout(
+        q, k, v, seed, dropout_rate=rate), q, k, v, do)
+    np.testing.assert_allclose(o, jo, atol=TOL_O)
+    for got, ref in zip(g, jg):
+        np.testing.assert_allclose(got, ref, atol=TOL_G)
+    # The autograd.Function the CUDA path uses, wired here to the plain
+    # versions its kernel entry points take for CPU tensors.
+    words = tattn.seed_words(seed)
+    o, _, *g = _torch_grads(lambda q, k, v: tattn.FlashAttention.apply(
+        q, k, v, words, None, rate, None), q, k, v, do)
+    np.testing.assert_allclose(o, jo, atol=TOL_O)
+    for got, ref in zip(g, jg):
+        np.testing.assert_allclose(got, ref, atol=TOL_G)
+    # The explicit backward from (o, lse) drops the same elements.
+    qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
+    o2, lse = tattn.flash_attention_fwd(qt, kt, vt, dropout_rate=rate,
+                                        seed=seed)
+    got = tattn.flash_attention_bwd(qt, kt, vt, o2, lse, dot,
+                                    dropout_rate=rate, seed=seed)
+    for g2, ref in zip(got, jg):
+        np.testing.assert_allclose(g2.numpy(), ref, atol=TOL_G)
+
+
+def test_causal_attention_routing_and_seeds(monkeypatch):
+    q, k, v, _ = (torch.from_numpy(x) for x in _inputs(64, seed=3))
+    base = tattn.causal_attention(q, k, v)
+    # Dropout needs a seed: without one the model's call is deterministic,
+    # the explicit dropout entry point refuses.
+    assert torch.equal(tattn.causal_attention(q, k, v, dropout_rate=0.1),
+                       base)
+    with pytest.raises(ValueError, match="per-step seed"):
+        tattn.flash_attention_dropout(q, k, v, None, dropout_rate=0.1)
+    a = tattn.causal_attention(q, k, v, dropout_rate=0.1, seed=3)
+    assert torch.equal(a, tattn.causal_attention(q, k, v, dropout_rate=0.1,
+                                                 seed=torch.tensor([3])))
+    assert not torch.equal(a, base)
+    words = tattn.seed_words(2**32 + 9)
+    assert words.tolist() == [9, 0, 0, 0, 0]
+    with pytest.raises(ValueError, match="1 or 5 words"):
+        tattn.seed_words([1, 2])
+    monkeypatch.setattr(tattn, "BWD_IMPL", "nope")
+    with pytest.raises(ValueError, match="unknown BWD_IMPL"):
+        tattn.flash_attention_bwd(q, k, v, q, q[..., 0], q)
+
+
+def test_kernel_argument_checks():
+    """What the kernels do not take raises before a pointer leaves
+    Python (the checks are device-independent)."""
+    q = torch.zeros(1, 2, 8, 64)
+    tattn._check(("q", q), ("k", q), ("v", q))
+    with pytest.raises(ValueError, match="head_dim 48"):
+        tattn._check(("q", torch.zeros(1, 2, 8, 48)),)
+    with pytest.raises(TypeError, match="float16"):
+        tattn._check(("q", q.half()),)
+    with pytest.raises(ValueError, match="contiguous"):
+        tattn._check(("q", q), ("k", q.transpose(2, 3).contiguous()
+                                .transpose(2, 3)))
+    with pytest.raises(ValueError, match="lse"):
+        tattn._check(("q", q), ("lse", torch.zeros(1, 2, 8,
+                                                   dtype=torch.bfloat16)))
+    with pytest.raises(ValueError, match="65536"):
+        tattn.torch_flash_attention(q, q, q, dropout_rate=0.1, seed=1,
+                                    hash_seq_len=70000)

@@ -109,22 +109,32 @@ def test_chip_smoke_refuses_to_run_without_a_gpu():
 
 
 def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
-    """chip_smoke.py's engine and server phases, run on the CPU at a tiny
-    width: every check before the launch counts passes (greedy tokens
-    equal the recompute, 6/6 answers, a prefix hit), and the launch check
-    then refuses the run, because on the CPU no kernel launched."""
+    """chip_smoke.py's engine, server and trainer phases, run on the CPU
+    at a tiny width: every check before the launch counts passes (greedy
+    tokens equal the recompute, 6/6 answers, a prefix hit; the trainer's
+    loss falls by 2 nats by iter 25, ckpt/30 exists, the resume continues
+    at 30), and the launch check then refuses the run, because on the
+    CPU no kernel launched."""
     sys.path.insert(0, str(REPO))
     try:
         import chip_smoke
     finally:
         sys.path.remove(str(REPO))
+    from nanosandbox_tpu_torch.ops import attention as at
     from nanosandbox_tpu_torch.ops import flash_decode as fd
 
+    monkeypatch.chdir(REPO)
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "MODEL", dict(
         n_layer=2, n_head=2, n_embd=64, block_size=1024, vocab_size=256))
+    # A tiny width learns too slowly at the config's rate to fall 2 nats
+    # in 25 steps over 50304 logits; 256 logits at 1e-2 do.
+    monkeypatch.setattr(chip_smoke, "TRAIN", [
+        "--n_layer=2", "--n_head=2", "--n_embd=64", "--block_size=64",
+        "--batch_size=4", "--vocab_size=256", "--learning_rate=1e-2"])
     for phase in (chip_smoke.check_engine_fp32,
-                  lambda fd: chip_smoke.check_server(fd, "cpu")):
+                  lambda fd: chip_smoke.check_server(fd, "cpu"),
+                  lambda fd: chip_smoke.check_trainer(at, fd, "cpu")):
         with pytest.raises(SystemExit, match="bypassed a kernel"):
             phase(fd)
 
