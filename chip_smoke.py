@@ -8,14 +8,21 @@ Phases (each prints what it found; any failure exits non-zero):
   2. build    the CUDA kernels from nanosandbox_tpu_torch/csrc (into
               build/), with nvcc's register and spill report;
   3. kernels  each kernel against its plain PyTorch version on the card
-              at GPT-2 124M shapes (H 12, D 64, page 16, 512 blocks, 64
-              table entries per row), fp32 within 1e-5 and bf16 within
-              2e-2 (compared in f32), with its time, its bound and the
-              time of F.scaled_dot_product_attention on pre-gathered
-              contiguous K/V (a yardstick that excludes the gather);
-              then the other template instances (head_dim 32 and 128,
-              a bf16 query over an fp32 pool) and decode rows of length
-              0 and -1 (zeros out), correctness only;
+              at GPT-2 124M shapes, under fp32 and bf16 queries: K2 and
+              K1 (H 12, D 64, page 16, 512 blocks, 64 table entries per
+              row) over a pool in the query's dtype and over int8 and
+              int4 pools, K3 (flash_decode_kernel) over contiguous
+              (8, 12, 1024, 64) slot rows at K2's lengths in the fp32,
+              bf16, int8 and int4 modes. Both sides take the same pool;
+              fp32 queries within 1e-5, bf16 within 2e-2 (compared in
+              f32), each also within the relative limits of phase 7;
+              each case timed beside its bound and
+              F.scaled_dot_product_attention on K/V gathered into
+              contiguous rows and dequantized beforehand (a yardstick
+              that excludes both); then, correctness only at the same
+              limits, K1, K2 and K3 at head_dim 32, 64 and 128 in every
+              (query, kv mode) pair, and K2 and K3 on decode rows of
+              length 0 and -1 in every kv mode (zeros out, finite);
   4. engine   GPT-2 124M in fp32 (seeded random weights) through the
               paged engine: greedy tokens must equal a no-cache
               full-sequence recompute of the same model with the plain
@@ -53,7 +60,23 @@ Phases (each prints what it found; any failure exits non-zero):
               training path, counts reset just before it); the step's
               time, tok/s and MFU; a torch.profiler split of one step;
               then, as a control, the first run's 30 steps with the
-              plain attention (loss trajectory printed, not checked).
+              plain attention (loss trajectory printed, not checked);
+ 10. pools    phase 4's model and prompts through a dense-pool fp32
+              engine (tokens equal to phase 4's paged engine and to the
+              recompute; K3 and the K4 prefill launched), then fp32
+              engines over int8 and int4 pools, paged and dense, each
+              token-identical to the same engine with the kernels swapped
+              for their plain versions, with the share of tokens that
+              agree with the fp32-KV engine; launch counts of each run;
+ 11. servers  phase 5's requests against bf16 servers with --paged=off,
+              --kv_dtype=int8 and --kv_dtype=int4 (every answer 200 and
+              in vocabulary; K3 or the int8/int4 instances launched, no
+              plain version on the card); decode tok/s, TTFT p50 and
+              TPOT p50 per mode beside phase 5's;
+ 12. sampler  `python -m nanosandbox_tpu_torch.sample`'s main() on phase
+              9's checkpoint (K4 prefill, K3 decode steps launched), then
+              fp32 greedy generate() over 32 tokens on the same weights
+              equal to a no-cache argmax loop.
 
 The last line is {"ok": true, "device": {...}}; the line before it is a
 JSON object with one entry per kernel. Needs one CUDA GPU; without one it
@@ -62,6 +85,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -79,8 +103,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense bf16 tensor cores
               torch.float32: 67e12}    # fp32 outside the tensor cores
 SEED = 1234
 DEVICE = "cuda"
-# GPTConfig overrides for the model of phases 4 and 5; empty = GPT-2 124M
-# (the defaults). A CPU rehearsal of the phases sets a tiny model here.
+# GPTConfig overrides for the model of phases 4, 5, 10 and 11; empty =
+# GPT-2 124M (the defaults). A CPU rehearsal of the phases sets a tiny
+# model here.
 MODEL: dict = {}
 # Extra train CLI flags for phase 9, after its own; empty = the config's
 # full width. A CPU rehearsal sets a tiny model here.
@@ -178,12 +203,63 @@ def gathered(pool, table, L):
             .reshape(table.shape[0], H, -1, D)[:, :, :L].contiguous())
 
 
+# Phase 3's limits by query dtype: max |err| (both sides take the same
+# pool, so only the summation order differs), and the relative limits of
+# phase 7.
+DECODE_TOL = {torch.float32: dict(abs=1e-5, rel=1e-4),
+              torch.bfloat16: dict(abs=2e-2, rel=2e-2)}
+KV_ELEMENT_BYTES = {"fp32": 4, "bf16": 2, "int8": 1, "int4": 0.5}
+
+
+def pool_in_mode(x, mode):
+    """(values, scales) of fp32 x in a kv mode: cast, or quantized with
+    the port's quantizers (scales None for the fp modes)."""
+    from nanosandbox_tpu_torch.ops import flash_decode as fd
+
+    if mode == "int8":
+        return fd.quantize_kv_rows(x)
+    if mode == "int4":
+        return fd.quantize_kv_rows_int4(x)
+    return x.to(torch.bfloat16 if mode == "bf16" else torch.float32), None
+
+
+def dequantized(x, scale, dtype):
+    """The values a pool stands for, in dtype (the yardstick's input)."""
+    from nanosandbox_tpu_torch.ops import flash_decode as fd
+
+    if scale is None:
+        return x.to(dtype)
+    if x.dtype == torch.uint8:
+        x = fd.unpack_int4(x)
+    return (x.float() * scale[..., None]).to(dtype)
+
+
+def check_limits(name, got, ref, dtype) -> float:
+    """max |err| of got against ref, failing past DECODE_TOL."""
+    e = errors(got, ref)
+    tol = DECODE_TOL[dtype]
+    if not (e["err"] <= tol["abs"] and e["err"] <= tol["rel"] * e["ref"]
+            and e["norm"] <= tol["rel"]):
+        fail(f"{name}: max |err| {e['err']} (limit {tol['abs']}), max |ref| "
+             f"{e['ref']}, ||err|| / ||ref|| {e['norm']} (relative limit "
+             f"{tol['rel']})")
+    return e["err"]
+
+
+def decode_bytes(tot, H, D, mode, q_bytes) -> int:
+    """Bytes one decode call must move: K and V of the visited positions
+    (and their two f32 scales in the quantized modes), q read, out
+    written."""
+    per_pos = 2 * D * KV_ELEMENT_BYTES[mode] + (8 if mode in ("int8", "int4")
+                                                else 0)
+    return int(tot * H * per_pos + 2 * q_bytes)
+
+
 def check_kernels(fd) -> dict:
     import torch.nn.functional as F
 
     rng = np.random.default_rng(SEED)
     H, D, page, N, nb = 12, 64, 16, 512, 64
-    cases = []
     decode_len = np.array([1024, 1, 517, 300, 16, 17, 1, 1], np.int32)
     dk, dv, dtbl = make_case(rng, 8, decode_len, sentinel_rows=(6, 7))
     dq = torch.from_numpy(rng.standard_normal((8, H, D),
@@ -197,164 +273,244 @@ def check_kernels(fd) -> dict:
                                                   dtype=np.float32)).to(DEVICE)
         prefill.append((T, start, pq, pk, pv, ptbl,
                         torch.from_numpy(start).to(DEVICE)))
+    # K3's contiguous (B, H, L, D) slot rows, at K2's lengths.
+    L, tot = int(decode_len.max()), int(decode_len.sum())
+    ck, cv = (torch.from_numpy(rng.standard_normal(
+        (8, H, L, D), dtype=np.float32)).to(DEVICE) for _ in range(2))
+    dmask = (torch.arange(L, device=DEVICE)[None, None, None, :]
+             < dlen[:, None, None, None])
+    lens = f"lengths={decode_len.tolist()}"
 
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        es = torch.tensor([], dtype=dtype).element_size()
-        # K2: decode at the serving decode shape.
-        q, k, v = dq.to(dtype), dk.to(dtype), dv.to(dtype)
-        out = fd.flash_decode_paged(q, k, v, dtbl, dlen)
-        ref = fd.torch_decode_attention_paged(q, k, v, dtbl, dlen)
-        sync()
-        err = float((out.float() - ref.float()).abs().max())
-        if not err <= tol:
-            fail(f"paged decode {dtype}: max |err| {err} > {tol}")
-        tot = int(decode_len.sum())
-        nbytes = 2 * tot * H * D * es + 2 * q.numel() * es
-        flops = 4 * H * D * tot
-        L = int(decode_len.max())
-        gk, gv = gathered(k, dtbl, L), gathered(v, dtbl, L)
-        mask = (torch.arange(L, device=DEVICE)[None, None, None, :]
-                < dlen[:, None, None, None])
-        cases.append(case(
-            "paged_decode_kernel", dtype,
-            f"B=8 H={H} D={D} lengths={decode_len.tolist()}", err, tol,
-            lambda: fd.flash_decode_paged(q, k, v, dtbl, dlen),
-            lambda: fd.torch_decode_attention_paged(q, k, v, dtbl, dlen),
-            lambda: F.scaled_dot_product_attention(
-                q[:, :, None], gk, gv, attn_mask=mask), nbytes, flops))
-        # K1: prefill, row 0 cold (start 0), row 1 after a 64-token hit.
-        for T, start, pq, pk, pv, ptbl, pstart in prefill:
-            q, k, v = pq.to(dtype), pk.to(dtype), pv.to(dtype)
-            out = fd.flash_prefill_paged(q, k, v, ptbl, pstart)
-            ref = fd.torch_prefill_attention_paged(q, k, v, ptbl, pstart)
-            sync()
-            err = float((out.float() - ref.float()).abs().max())
-            if not err <= tol:
-                fail(f"paged prefill {dtype} T={T}: max |err| {err} > {tol}")
-            nbytes = (2 * int((start + T).sum()) * H * D * es
-                      + 2 * q.numel() * es)
-            flops = int(sum(4 * H * D * (s * T + T * T / 2) for s in start))
-            L = int((start + T).max())
-            gk, gv = gathered(k, ptbl, L), gathered(v, ptbl, L)
-            qpos = pstart[:, None] + torch.arange(T, device=DEVICE)[None]
-            mask = (torch.arange(L, device=DEVICE)[None, None, None, :]
-                    <= qpos[:, None, :, None])
-            cases.append(case(
-                "paged_prefill_kernel", dtype,
-                f"B=2 H={H} T={T} D={D} start={start.tolist()}", err, tol,
-                lambda: fd.flash_prefill_paged(q, k, v, ptbl, pstart),
-                lambda: fd.torch_prefill_attention_paged(q, k, v, ptbl,
-                                                         pstart),
-                lambda: F.scaled_dot_product_attention(
-                    q, gk, gv, attn_mask=mask), nbytes, flops))
-    print("  kernel                dtype     shape"
+    def one(name, dtype, shape, pools, fn, plain, library_qkv, nbytes,
+            flops):
+        """fn against plain on ``pools`` ((k, k_scale), (v, v_scale)),
+        then all three timed (the library call on K/V dequantized
+        beforehand, in the query's dtype)."""
+        (k, ks), (v, vs) = pools
+        kw = {} if ks is None else dict(k_scale=ks, v_scale=vs)
+        err = check_limits(f"{name} q {dtype} {shape}", fn(k, v, **kw),
+                           plain(k, v, **kw), dtype)
+        gq, gk, gv, mask = library_qkv(dequantized(k, ks, dtype),
+                                       dequantized(v, vs, dtype))
+        return case(name, dtype, shape, err, DECODE_TOL[dtype]["abs"],
+                    lambda: fn(k, v, **kw), lambda: plain(k, v, **kw),
+                    lambda: F.scaled_dot_product_attention(
+                        gq, gk, gv, attn_mask=mask), nbytes, flops)
+
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q = dq.to(dtype)
+        qb = q.numel() * q.element_size()
+        fp = "fp32" if dtype == torch.float32 else "bf16"
+        # K3 over contiguous slot rows, in every kv mode.
+        for mode in ("fp32", "bf16", "int8", "int4"):
+            cases.append(one(
+                f"flash_decode_kernel<{mode}>", dtype,
+                f"B=8 H={H} D={D} L={L} {lens}",
+                (pool_in_mode(ck, mode), pool_in_mode(cv, mode)),
+                lambda k, v, **kw: fd.flash_decode(q, k, v, dlen, **kw),
+                lambda k, v, **kw: fd.torch_decode_attention(q, k, v, dlen,
+                                                             **kw),
+                lambda k, v: (q[:, :, None], k, v, dmask),
+                decode_bytes(tot, H, D, mode, qb), 4 * H * D * tot))
+        # K2 at the serving decode shape, and K1 with row 0 cold (start 0)
+        # and row 1 after a 64-token hit: over a pool in the query's
+        # dtype and over int8 and int4 pools.
+        for mode in (fp, "int8", "int4"):
+            tag = "" if mode == fp else f"<{mode}>"
+            cases.append(one(
+                f"paged_decode_kernel{tag}", dtype, f"B=8 H={H} D={D} {lens}",
+                (pool_in_mode(dk, mode), pool_in_mode(dv, mode)),
+                lambda k, v, **kw: fd.flash_decode_paged(q, k, v, dtbl, dlen,
+                                                         **kw),
+                lambda k, v, **kw: fd.torch_decode_attention_paged(
+                    q, k, v, dtbl, dlen, **kw),
+                lambda k, v: (q[:, :, None], gathered(k, dtbl, L),
+                              gathered(v, dtbl, L), dmask),
+                decode_bytes(tot, H, D, mode, qb), 4 * H * D * tot))
+            for T, start, pq, pk, pv, ptbl, pstart in prefill:
+                qT = pq.to(dtype)
+                Lp = int((start + T).max())
+                qpos = pstart[:, None] + torch.arange(T, device=DEVICE)[None]
+                mask = (torch.arange(Lp, device=DEVICE)[None, None, None, :]
+                        <= qpos[:, None, :, None])
+                cases.append(one(
+                    f"paged_prefill_kernel{tag}", dtype,
+                    f"B=2 H={H} T={T} D={D} start={start.tolist()}",
+                    (pool_in_mode(pk, mode), pool_in_mode(pv, mode)),
+                    lambda k, v, **kw: fd.flash_prefill_paged(
+                        qT, k, v, ptbl, pstart, **kw),
+                    lambda k, v, **kw: fd.torch_prefill_attention_paged(
+                        qT, k, v, ptbl, pstart, **kw),
+                    lambda k, v: (qT, gathered(k, ptbl, Lp),
+                                  gathered(v, ptbl, Lp), mask),
+                    decode_bytes(int((start + T).sum()), H, D, mode,
+                                 qT.numel() * qT.element_size()),
+                    int(sum(4 * H * D * (s * T + T * T / 2)
+                            for s in start))))
+    print("  kernel                        dtype     shape"
           + " " * 40 + "max|err|   ms       bound_ms  %bound  plain_ms "
-          "library_ms(excl. gather)")
+          "library_ms")
     for c in cases:
-        print(f"  {c['kernel']:<21} {c['dtype']:<9} {c['shape']:<44} "
+        print(f"  {c['kernel']:<29} {c['dtype']:<9} {c['shape']:<44} "
               f"{c['max_abs_err']:.2e} {c['ms']:.5f}  {c['bound_ms']:.5f}  "
               f"{100 * c['bound_ms'] / c['ms']:5.1f}%  {c['plain_ms']:.5f}  "
               f"{c['library_ms']:.5f}  [{c['bound_by']}]")
+    print("  library_ms: F.scaled_dot_product_attention on K/V gathered into "
+          "contiguous rows and dequantized beforehand (it excludes the "
+          "gather and the dequantization)")
     check_other_instances(fd, rng)
     return {"cases": cases}
 
 
 def check_other_instances(fd, rng) -> None:
-    """The kernels' other template instances, correctness only: head_dim
-    32 and 128 in fp32 and bf16, and a bf16 query over an fp32 pool
-    (--kv_dtype=fp32 under bf16 compute), which must attend in f32; and
-    decode rows with lengths 0 and -1, which see no key and return 0."""
-    errs = []
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        lengths = np.array([0, 130, -1], np.int32)
-        k, v, tbl = make_case(rng, 3, np.maximum(lengths, 0), H=4, N=64,
-                              nb=16)
-        q = torch.from_numpy(rng.standard_normal((3, 4, 64),
-                                                 dtype=np.float32))
-        args = (q.to(DEVICE, dtype), k.to(dtype), v.to(dtype), tbl,
-                torch.from_numpy(lengths).to(DEVICE))
-        got = fd.flash_decode_paged(*args)
-        ref = fd.torch_decode_attention_paged(*args)
-        err = float((got.float() - ref.float()).abs().max())
-        errs.append(f"decode lengths {lengths.tolist()} {str(dtype)[6:]} "
-                    f"{err:.1e}")
-        if not (err <= tol and bool(torch.isfinite(got).all())
-                and not got[0].any() and not got[2].any()):
-            fail(f"paged decode {dtype} with empty rows: max |err| {err}, "
-                 f"finite {bool(torch.isfinite(got).all())}")
-    for D, qdt, kvdt, tol in ((32, torch.float32, torch.float32, 1e-5),
-                              (32, torch.bfloat16, torch.bfloat16, 2e-2),
-                              (128, torch.float32, torch.float32, 1e-5),
-                              (128, torch.bfloat16, torch.bfloat16, 2e-2),
-                              (64, torch.bfloat16, torch.float32, 2e-2)):
+    """The kernels' other template instances, correctness only, at the
+    limits of the timed cases (DECODE_TOL): K1, K2 and K3 at head_dim 32,
+    64 and 128 over fp32, bf16, int8 and int4 pools under fp32 and bf16
+    queries (a bf16 query over an fp32 pool is --kv_dtype=fp32 under bf16
+    compute, which must attend in f32); and K2 and K3 on decode rows with
+    lengths 0 and -1 in every kv mode, which see no key and must return
+    0."""
+    def randn(shape, dtype=torch.float32):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(DEVICE, dtype)
+
+    def pools(a, b, mode):
+        """k, v and their scale kwargs of fp32 a, b in a kv mode."""
+        (k, ks), (v, vs) = pool_in_mode(a, mode), pool_in_mode(b, mode)
+        return k, v, {} if ks is None else dict(k_scale=ks, v_scale=vs)
+
+    worst = {}
+    for D in fd.HEAD_DIMS:
         lengths = np.array([130, 1, 77], np.int32)
-        k, v, tbl = make_case(rng, 3, lengths + 40, H=4, D=D, N=64, nb=16)
-        k, v = k.to(kvdt), v.to(kvdt)
         n = torch.from_numpy(lengths).to(DEVICE)
-        q1, qT = (torch.from_numpy(rng.standard_normal(
-            shape, dtype=np.float32)).to(DEVICE, qdt)
-            for shape in ((3, 4, D), (3, 4, 40, D)))
-        for name, got, ref in (
-                ("decode", fd.flash_decode_paged(q1, k, v, tbl, n),
-                 fd.torch_decode_attention_paged(q1, k, v, tbl, n)),
-                ("prefill", fd.flash_prefill_paged(qT, k, v, tbl, n),
-                 fd.torch_prefill_attention_paged(qT, k, v, tbl, n))):
-            err = float((got.float() - ref.float()).abs().max())
-            errs.append(f"{name} D={D} q={str(qdt)[6:]} kv={str(kvdt)[6:]} "
-                        f"{err:.1e}")
-            if not err <= tol:
-                fail(f"paged {name} D={D} q {qdt} kv {kvdt}: max |err| "
-                     f"{err} > {tol}")
-    print("  other instances, max |err| vs plain: " + "; ".join(errs))
+        empty = torch.tensor([0, 130, -1], dtype=torch.int32, device=DEVICE)
+        pk, pv, tbl = make_case(rng, 3, lengths + 40, H=4, D=D, N=64, nb=16)
+        ek, ev, etbl = make_case(rng, 3, [0, 130, 0], H=4, D=D, N=64, nb=16)
+        ck, cv = randn((3, 4, 256, D)), randn((3, 4, 256, D))
+        for qdt in (torch.float32, torch.bfloat16):
+            q1, qT = randn((3, 4, D), qdt), randn((3, 4, 40, D), qdt)
+            for mode in fd.KV_MODES:
+                k, v, s = pools(pk, pv, mode)
+                k3, v3, s3 = pools(ck, cv, mode)
+                ke, ve, se = pools(ek, ev, mode)
+                runs = (
+                    ("paged decode", fd.flash_decode_paged,
+                     fd.torch_decode_attention_paged, (q1, k, v, tbl, n), s),
+                    ("paged prefill", fd.flash_prefill_paged,
+                     fd.torch_prefill_attention_paged, (qT, k, v, tbl, n), s),
+                    ("decode", fd.flash_decode, fd.torch_decode_attention,
+                     (q1, k3, v3, n), s3),
+                    ("paged decode, lengths [0, 130, -1]",
+                     fd.flash_decode_paged, fd.torch_decode_attention_paged,
+                     (q1, ke, ve, etbl, empty), se),
+                    ("decode, lengths [0, 130, -1]", fd.flash_decode,
+                     fd.torch_decode_attention, (q1, k3, v3, empty), s3))
+                for name, fn, plain, args, scales in runs:
+                    got = fn(*args, **scales)
+                    tag = f"{name} D={D} q={str(qdt)[6:]} kv={mode}"
+                    err = check_limits(tag, got, plain(*args, **scales), qdt)
+                    if not bool(torch.isfinite(got).all()):
+                        fail(f"{tag}: non-finite output")
+                    if "lengths" in name and (got[0].any() or got[2].any()):
+                        fail(f"{tag}: a row with no key did not return 0")
+                    worst[name] = max(worst.get(name, 0.0), err)
+    print(f"  other instances (D {fd.HEAD_DIMS}, q fp32/bf16, kv "
+          f"{fd.KV_MODES}; empty rows zero and finite), worst max "
+          "|err| vs plain: " + "; ".join(f"{k} {e:.1e}"
+                                         for k, e in worst.items()))
 
 
 # ---------------------------------------------------------------------------
 # phase 4: the fp32 engine against a no-cache recompute
 # ---------------------------------------------------------------------------
 
-def check_engine_fp32(fd) -> dict:
+ENGINE_NEW = 32    # greedy tokens per prompt in phases 4 and 10
+
+
+def fp32_model_and_prompts():
+    """GPT-2 124M in fp32 (seeded random weights) and phase 4's prompts."""
     from nanosandbox_tpu_torch.config import GPTConfig
     from nanosandbox_tpu_torch.models.gpt import GPT
-    from nanosandbox_tpu_torch.serve.engine import Engine
 
     cfg = GPTConfig(**MODEL, compute_dtype="float32")
     model = GPT(cfg, device=DEVICE,
                 generator=torch.Generator(device=DEVICE).manual_seed(SEED))
-    engine = Engine(model, num_slots=8, max_len=1024, device=DEVICE)
     rng = np.random.default_rng(SEED + 1)
     prompts = [[int(t) for t in rng.integers(0, prompt_vocab(cfg), n)]
                for n in (16, 77, 160, 300)]
-    new = 32
-    fd.reset_counts()
-    t0 = time.monotonic()
-    rids = [engine.submit(p, new) for p in prompts]
-    done = {r.rid: r for r in engine.drain()}
-    sync()
-    wall = time.monotonic() - t0
-    launches = dict(fd.launches)
-    mismatches = 0
+    return model, prompts
+
+
+def recompute(model, prompts, new=ENGINE_NEW) -> list:
+    """Greedy continuations by a no-cache full-sequence forward per token
+    (cropped to the last block_size tokens), with the plain attention."""
+    out = []
     with torch.no_grad():
-        for rid, p in zip(rids, prompts):
+        for p in prompts:
             seq = list(p)
             for _ in range(new):
-                logits = model(torch.tensor([seq], device=DEVICE),
+                ctx = seq[-model.cfg.block_size:]
+                logits = model(torch.tensor([ctx], device=DEVICE),
                                plain_attention=True)[0, -1]
                 seq.append(int(torch.argmax(logits)))
-            if done[rid].tokens != seq[len(p):]:
-                mismatches += 1
-                print(f"  prompt len {len(p)}: engine {done[rid].tokens} "
-                      f"!= recompute {seq[len(p):]}")
+            out.append(seq[len(p):])
+    return out
+
+
+def run_engine(model, prompts, **kw) -> dict:
+    """One engine (8 slots x 1024) drained over the prompts, greedy, with
+    every count reset just before: tokens per prompt, wall time, the
+    decode kernels' launches and plain-version calls on the card, and
+    the flash forward's launches (the dense prefill's K4)."""
+    from nanosandbox_tpu_torch.ops import attention as at
+    from nanosandbox_tpu_torch.ops import flash_decode as fd
+    from nanosandbox_tpu_torch.serve.engine import Engine
+
+    engine = Engine(model, num_slots=8, max_len=1024, device=DEVICE, **kw)
+    fd.reset_counts()
+    at.reset_counts()
+    t0 = time.monotonic()
+    rids = [engine.submit(p, ENGINE_NEW) for p in prompts]
+    done = {r.rid: r for r in engine.drain()}
+    sync()
+    out = {"tokens": [done[r].tokens for r in rids],
+           "wall_s": time.monotonic() - t0,
+           "launches": {k: n for k, n in fd.launches.items() if n},
+           "k4_launches": at.launches["flash_attention_fwd"],
+           "plain_cuda_calls": {**fd.plain_cuda_calls,
+                                **at.plain_cuda_calls}}
+    del engine
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    return out
+
+
+def need_launches(name: str, run: dict, keys) -> None:
+    """Fail unless every kernel instance in keys launched in the run, and
+    no plain version ran on the card."""
+    missing = [k for k in keys if not run["launches"].get(k)]
+    if missing:
+        fail(f"{name} bypassed a kernel: {missing} never launched "
+             f"({run['launches']})")
+    if any(run["plain_cuda_calls"].values()):
+        fail(f"{name}: plain versions ran on the card: "
+             f"{run['plain_cuda_calls']}")
+
+
+def check_engine_fp32(model, prompts, ref) -> dict:
+    """The paged fp32 engine's greedy tokens against the recompute."""
+    run = run_engine(model, prompts)
+    mismatches = sum(got != want for got, want in zip(run["tokens"], ref))
     print(f"  fp32 engine: {len(prompts)} prompts (lengths "
-          f"{[len(p) for p in prompts]}), {new} greedy tokens each, "
-          f"{wall:.3f} s; launches {launches}; token mismatches vs "
-          f"no-cache recompute: {mismatches}")
+          f"{[len(p) for p in prompts]}), {ENGINE_NEW} greedy tokens each, "
+          f"{run['wall_s']:.3f} s; launches {run['launches']}; token "
+          f"mismatches vs no-cache recompute: {mismatches}")
     if mismatches:
         fail("fp32 engine greedy tokens differ from the recompute")
-    if min(launches.values()) == 0:
-        fail(f"the fp32 engine bypassed a kernel: {launches}")
-    del engine, model
-    torch.cuda.empty_cache()
-    return launches
+    need_launches("the fp32 engine", run, ("flash_decode_paged/fp32",
+                                           "flash_prefill_paged/fp32"))
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -368,10 +524,18 @@ def post(base, body, timeout=300):
         return r.status, json.loads(r.read())
 
 
-def check_server(fd, smi: str) -> dict:
+def check_server(fd, smi: str, flags=(), need=("flash_decode_paged/bf16",
+                                               "flash_prefill_paged/bf16"),
+                 ) -> dict:
+    """GPT-2 124M in bf16 behind the server's own code path, with extra
+    server flags (phase 5: none; phase 11: --paged=off, --kv_dtype=...):
+    6 requests in two rounds, every answer 200 with in-vocab tokens, and
+    the kernel instances ``need`` launched with no plain version on the
+    card. Paged servers must also show a prefix hit."""
     from nanosandbox_tpu_torch.checkpoint import save_for_serving
     from nanosandbox_tpu_torch.config import GPTConfig
     from nanosandbox_tpu_torch.models.gpt import GPT
+    from nanosandbox_tpu_torch.ops import attention as at
     from nanosandbox_tpu_torch.serve.__main__ import build_server
 
     cfg = GPTConfig(**MODEL)                     # bf16 compute
@@ -382,10 +546,11 @@ def check_server(fd, smi: str) -> dict:
         del model
         # The serving path is the main path: counts start here.
         fd.reset_counts()
+        at.reset_counts()
         server, loop, engine = build_server([
             f"--out_dir={out_dir}", "--host=127.0.0.1", "--port=0",
             "--num_slots=8", "--max_len=1024", "--kv_page_size=16",
-            f"--device={DEVICE}"])
+            f"--device={DEVICE}", *flags])
     th = threading.Thread(target=server.serve_forever, daemon=True)
     th.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
@@ -429,8 +594,9 @@ def check_server(fd, smi: str) -> dict:
         with urllib.request.urlopen(base + "/stats", timeout=30) as r:
             stats = json.loads(r.read())
         sync()
-        launches = dict(fd.launches)
-        plain = dict(fd.plain_cuda_calls)
+        launches = {k: n for k, n in fd.launches.items() if n}
+        launches["flash_attention_fwd"] = at.launches["flash_attention_fwd"]
+        plain = {**fd.plain_cuda_calls, **at.plain_cuda_calls}
     finally:
         server.shutdown()
         server.server_close()
@@ -446,17 +612,19 @@ def check_server(fd, smi: str) -> dict:
                  f"{all(0 <= x < cfg.vocab_size for x in t)}")
     if health != (200, {"ok": True}):
         fail(f"/healthz {health}")
-    hits = stats["kv_pool"]["prefix_hit_requests"]
-    if hits < 1:
-        fail(f"no prefix hit: {stats['kv_pool']}")
-    if min(launches.values()) == 0:
-        fail(f"the serving path bypassed a kernel: {launches}")
-    if any(plain.values()):
-        fail(f"plain versions ran on the card in the serving path: {plain}")
+    label = (f"bf16 server ({'paged' if stats['paged'] else 'dense'}, "
+             f"kv {stats['kv_dtype']})")
+    need_launches(f"the {label}", {"launches": launches,
+                                   "plain_cuda_calls": plain}, need)
+    hits = "none (dense pool)"
+    if stats["paged"]:
+        hits = stats["kv_pool"]["prefix_hit_requests"]
+        if hits < 1:
+            fail(f"no prefix hit: {stats['kv_pool']}")
+        hits = f"{hits} ({stats['kv_pool']['prefix_hit_tokens']} tokens)"
     total = sum(len(a[1]["tokens"]) for a in answers)
-    print(f"  bf16 server: 6/6 answered 200 with {new} in-vocab tokens, "
-          f"/healthz ok, prefix hits {hits} "
-          f"({stats['kv_pool']['prefix_hit_tokens']} tokens)")
+    print(f"  {label}: 6/6 answered 200 with {new} in-vocab tokens, "
+          f"/healthz ok, prefix hits {hits}; launches {launches}")
     print(f"  [{smi}] decode {stats['decode_tokens_per_sec']:.1f} tok/s "
           f"(engine window), {total / wall:.1f} tok/s end to end over "
           f"{wall:.3f} s; TTFT p50 {stats['ttft_s']['p50'] * 1e3:.2f} ms; "
@@ -750,118 +918,260 @@ def profile_step(trainer, x, y) -> dict:
             "idle_share": 1 - dev_ms / wall_ms if by_kind else None}
 
 
-def check_trainer(at, fd, smi: str) -> dict:
+def check_trainer(at, fd, smi: str, tmp: str) -> dict:
+    """Phase 9 in ``tmp``: the corpus, the runs' out_dirs (phase 12 samples
+    from <tmp>/out) and the control run."""
     import os
 
     from nanosandbox_tpu_torch import train
     from nanosandbox_tpu_torch.config import load_config
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        prepare_bytes(tmp, "english_prose_bpe")
-        out_dir = os.path.join(tmp, "out")
-        flags = [TRAIN_CONFIG, f"--data_dir={tmp}", f"--out_dir={out_dir}",
-                 "--max_iters=30", "--lr_decay_iters=30", "--warmup_iters=5",
-                 "--eval_interval=15", "--eval_iters=4", "--log_interval=5",
-                 "--profile_steps=", f"--device={DEVICE}", *TRAIN]
-        # The training path is the main path: counts start here. The
-        # first run takes the fused backward (K5), the resume the split
-        # one (K6 + K7).
-        at.reset_counts()
-        fd.reset_counts()
-        t0 = time.monotonic()
-        first = train.main(flags)
-        at.BWD_IMPL = "split"
-        try:
-            resumed = train.main(
-                [f for f in flags if not f.startswith("--max_iters=")]
-                + ["--max_iters=35", "--init_from=resume"])
-        finally:
-            at.BWD_IMPL = "fused"
-        sync()
-        wall = time.monotonic() - t0
-        launches = dict(at.launches)
-        plain = {**at.plain_cuda_calls, **fd.plain_cuda_calls}
-        ckpts = sorted(os.listdir(os.path.join(out_dir, "ckpt")))
-        cfg = load_config(flags)
-        losses = {r["iter"]: r["loss"] for r in first["log"]}
-        print(f"  {cfg.n_layer}L/{cfg.n_head}H/{cfg.n_embd}d, block "
-              f"{cfg.block_size}, vocab {cfg.vocab_size}, batch "
-              f"{cfg.batch_size}, {cfg.compute_dtype}: losses "
-              f"{ {i: round(v, 4) for i, v in losses.items()} }; resumed "
-              f"to {resumed['iter_num']} (losses "
-              f"{[round(r['loss'], 4) for r in resumed['log']]}); "
-              f"checkpoints {ckpts}; {wall:.1f} s")
-        if not losses[25] <= losses[0] - 2.0:
-            fail(f"the loss fell from {losses[0]} to {losses[25]} by iter "
-                 "25, less than 2 nats")
-        if "30" not in ckpts or first["iter_num"] != 30:
-            fail(f"no checkpoint at 30: {ckpts}")
-        if resumed["iter_num"] != 35 or resumed["log"][0]["iter"] != 30:
-            fail(f"the resume did not continue at 30: {resumed['log']}")
-        steps = 35
-        need = {"flash_attention_fwd": cfg.n_layer * steps,
-                "flash_attention_bwd_fused": cfg.n_layer * 30,
-                "flash_attention_bwd_dq": cfg.n_layer * 5,
-                "flash_attention_bwd_dkv": cfg.n_layer * 5}
-        print(f"  kernel launches {launches}; plain versions on CUDA "
-              f"{plain}")
-        if any(launches[k] < n for k, n in need.items()):
-            fail(f"the training path bypassed a kernel: {launches}, each "
-                 f"needs at least {need}")
-        if any(plain.values()):
-            fail(f"plain versions ran on the card in the training path: "
-                 f"{plain}")
-        # Steady-state windows: iter 0 includes the first-call setup.
-        rest = [r for r in first["log"] if r["iter"] > 0]
-        ms = float(np.median([r["ms"] for r in rest]))
-        toks = float(np.median([r["tok_s"] for r in rest]))
-        mfu = float(np.median([r["mfu"] for r in rest]))
-        print(f"  [{smi}] step {ms:.2f} ms (median of the logged windows "
-              f"after iter 0), {toks:,.0f} tok/s, MFU {100 * mfu:.2f}%")
-        trainer = train.Trainer(cfg)
-        xb, yb = trainer.dataset.sample_batch("train", 0, cfg.batch_size,
-                                              cfg.block_size)
-        prof = profile_step(trainer, trainer.to_device(xb),
-                            trainer.to_device(yb))
-        print(f"  profiled step: wall {prof['step_wall_ms']:.2f} ms, device "
-              f"{prof['device_ms']:.2f} ms ("
-              + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
-                  prof["device_ms_by_kind"].items(), key=lambda kv: -kv[1]))
-              + f"), idle share {prof['idle_share']:.3f}, peak memory "
-              f"{prof['peak_memory_gb']:.2f} GiB")
-        for name, t in prof["top_kernels_ms"].items():
-            print(f"    {t:8.3f} ms  {name}")
-        del trainer
-        torch.cuda.empty_cache()
-        control = control_losses(train, at, flags, tmp)
-        print("  control, the first run's 30 steps with the plain attention "
-              "(after the counts; printed, not checked): losses "
-              f"{ {i: round(v, 4) for i, v in control.items()} }")
+    prepare_bytes(tmp, "english_prose_bpe")
+    out_dir = os.path.join(tmp, "out")
+    flags = [TRAIN_CONFIG, f"--data_dir={tmp}", f"--out_dir={out_dir}",
+             "--max_iters=30", "--lr_decay_iters=30", "--warmup_iters=5",
+             "--eval_interval=15", "--eval_iters=4", "--log_interval=5",
+             "--profile_steps=", f"--device={DEVICE}", *TRAIN]
+    # The training path is the main path: counts start here. The
+    # first run takes the fused backward (K5), the resume the split
+    # one (K6 + K7).
+    at.reset_counts()
+    fd.reset_counts()
+    t0 = time.monotonic()
+    first = train.main(flags)
+    at.BWD_IMPL = "split"
+    try:
+        resumed = train.main(
+            [f for f in flags if not f.startswith("--max_iters=")]
+            + ["--max_iters=35", "--init_from=resume"])
+    finally:
+        at.BWD_IMPL = "fused"
+    sync()
+    wall = time.monotonic() - t0
+    launches = dict(at.launches)
+    plain = {**at.plain_cuda_calls, **fd.plain_cuda_calls}
+    ckpts = sorted(os.listdir(os.path.join(out_dir, "ckpt")))
+    cfg = load_config(flags)
+    losses = {r["iter"]: r["loss"] for r in first["log"]}
+    print(f"  {cfg.n_layer}L/{cfg.n_head}H/{cfg.n_embd}d, block "
+          f"{cfg.block_size}, vocab {cfg.vocab_size}, batch "
+          f"{cfg.batch_size}, {cfg.compute_dtype}: losses "
+          f"{ {i: round(v, 4) for i, v in losses.items()} }; resumed "
+          f"to {resumed['iter_num']} (losses "
+          f"{[round(r['loss'], 4) for r in resumed['log']]}); "
+          f"checkpoints {ckpts}; {wall:.1f} s")
+    if not losses[25] <= losses[0] - 2.0:
+        fail(f"the loss fell from {losses[0]} to {losses[25]} by iter "
+             "25, less than 2 nats")
+    if "30" not in ckpts or first["iter_num"] != 30:
+        fail(f"no checkpoint at 30: {ckpts}")
+    if resumed["iter_num"] != 35 or resumed["log"][0]["iter"] != 30:
+        fail(f"the resume did not continue at 30: {resumed['log']}")
+    steps = 35
+    need = {"flash_attention_fwd": cfg.n_layer * steps,
+            "flash_attention_bwd_fused": cfg.n_layer * 30,
+            "flash_attention_bwd_dq": cfg.n_layer * 5,
+            "flash_attention_bwd_dkv": cfg.n_layer * 5}
+    print(f"  kernel launches {launches}; plain versions on CUDA "
+          f"{plain}")
+    if any(launches[k] < n for k, n in need.items()):
+        fail(f"the training path bypassed a kernel: {launches}, each "
+             f"needs at least {need}")
+    if any(plain.values()):
+        fail(f"plain versions ran on the card in the training path: "
+             f"{plain}")
+    # Steady-state windows: iter 0 includes the first-call setup.
+    rest = [r for r in first["log"] if r["iter"] > 0]
+    ms = float(np.median([r["ms"] for r in rest]))
+    toks = float(np.median([r["tok_s"] for r in rest]))
+    mfu = float(np.median([r["mfu"] for r in rest]))
+    print(f"  [{smi}] step {ms:.2f} ms (median of the logged windows "
+          f"after iter 0), {toks:,.0f} tok/s, MFU {100 * mfu:.2f}%")
+    trainer = train.Trainer(cfg)
+    xb, yb = trainer.dataset.sample_batch("train", 0, cfg.batch_size,
+                                          cfg.block_size)
+    prof = profile_step(trainer, trainer.to_device(xb),
+                        trainer.to_device(yb))
+    print(f"  profiled step: wall {prof['step_wall_ms']:.2f} ms, device "
+          f"{prof['device_ms']:.2f} ms ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+              prof["device_ms_by_kind"].items(), key=lambda kv: -kv[1]))
+          + f"), idle share {prof['idle_share']:.3f}, peak memory "
+          f"{prof['peak_memory_gb']:.2f} GiB")
+    for name, t in prof["top_kernels_ms"].items():
+        print(f"    {t:8.3f} ms  {name}")
+    del trainer
+    torch.cuda.empty_cache()
+    control = control_losses(train, flags, tmp)
+    print("  control, the first run's 30 steps with the plain attention "
+          "(after the counts; printed, not checked): losses "
+          f"{ {i: round(v, 4) for i, v in control.items()} }")
     torch.cuda.empty_cache()
     return {"launches": launches, "plain_cuda_calls": plain, "step_ms": ms,
             "tok_s": toks, "mfu": mfu, "profile": prof}
 
 
-def control_losses(train, at, flags, tmp) -> dict:
+def control_losses(train, flags, tmp) -> dict:
     """The trainer's first run again with the plain attention in place of
     the kernels: a control for the loss trajectory. The two runs round
     differently in bf16 and part ways, so it is printed, not checked."""
-    from nanosandbox_tpu_torch.models import gpt
-
-    kernels = gpt.causal_attention
-
-    def plain(q, k, v, *, dropout_rate, seed):
-        return at.torch_flash_attention(q, k, v, dropout_rate=dropout_rate,
-                                        seed=seed)[0]
-
-    gpt.causal_attention = plain
-    try:
+    with plain_kernels():
         out = train.main([f"--out_dir={tmp}/control"
                           if f.startswith("--out_dir=") else f
                           for f in flags])
-    finally:
-        gpt.causal_attention = kernels
     return {r["iter"]: r["loss"] for r in out["log"]}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The model's attention calls swapped for the kernels' plain
+    versions, in this script only: the control runs of phases 9 and 10."""
+    from nanosandbox_tpu_torch.models import gpt
+    from nanosandbox_tpu_torch.ops import attention as at
+    from nanosandbox_tpu_torch.ops import flash_decode as fd
+
+    def causal(q, k, v, *, dropout_rate, seed):
+        return at.torch_flash_attention(q, k, v, dropout_rate=dropout_rate,
+                                        seed=seed)[0]
+
+    swap = {"causal_attention": causal,
+            "flash_decode": fd.torch_decode_attention,
+            "flash_decode_paged": fd.torch_decode_attention_paged,
+            "flash_prefill_paged": fd.torch_prefill_attention_paged}
+    kernels = {name: getattr(gpt, name) for name in swap}
+    for name, fn in swap.items():
+        setattr(gpt, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in kernels.items():
+            setattr(gpt, name, fn)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the fp32 124M engines over the dense pool and int8/int4 pools
+# ---------------------------------------------------------------------------
+
+def check_pools_fp32(model, prompts, ref, paged_fp32) -> dict:
+    """The dense fp32 engine against phase 4's paged engine and the
+    recompute (identical tokens); then int8 and int4 pools, paged and
+    dense, each against the same engine with the kernels swapped for
+    their plain versions (identical tokens), with the share of tokens
+    that agree with the fp32-KV engine. Launch counts per run."""
+    runs = {}
+    dense = run_engine(model, prompts, paged=False)
+    runs["dense fp32"] = dense
+    bad = sum(a != b for a, b in zip(dense["tokens"], ref))
+    bad_paged = sum(a != b for a, b in zip(dense["tokens"],
+                                           paged_fp32["tokens"]))
+    print(f"  dense fp32 engine: {dense['wall_s']:.3f} s; launches "
+          f"{dense['launches']}, flash forward (prefill) "
+          f"{dense['k4_launches']}; token mismatches vs recompute {bad}, "
+          f"vs the paged engine {bad_paged}")
+    if bad or bad_paged:
+        fail("the dense fp32 engine's greedy tokens differ from the "
+             "recompute or the paged engine")
+    need = {"dense fp32": ("flash_decode/fp32",)}
+    ref_tokens = sum(len(t) for t in ref)
+    for mode in ("int8", "int4"):
+        for paged in (True, False):
+            name = f"{'paged' if paged else 'dense'} {mode}"
+            run = run_engine(model, prompts, kv_dtype=mode, paged=paged)
+            with plain_kernels():
+                plain = run_engine(model, prompts, kv_dtype=mode,
+                                   paged=paged)
+            runs[name] = run
+            bad = sum(a != b for a, b in zip(run["tokens"], plain["tokens"]))
+            agree = sum(x == y for a, b in zip(run["tokens"], ref)
+                        for x, y in zip(a, b))
+            print(f"  {name} engine: {run['wall_s']:.3f} s; launches "
+                  f"{run['launches']}; token mismatches vs its plain-version "
+                  f"control {bad}; tokens agreeing with the fp32-KV engine "
+                  f"{agree}/{ref_tokens} ({100 * agree / ref_tokens:.1f}%)")
+            if bad:
+                fail(f"the {name} engine's tokens differ from its "
+                     "plain-version control")
+            need[name] = ((f"flash_decode_paged/{mode}",
+                           f"flash_prefill_paged/{mode}")
+                          if paged else (f"flash_decode/{mode}",))
+    # The launch checks come after every token check.
+    for name, keys in need.items():
+        need_launches(f"the {name} engine", runs[name], keys)
+    if not dense["k4_launches"]:
+        fail("the dense fp32 engine's prefill bypassed a kernel: the "
+             "flash forward never launched")
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the offline sampler on phase 9's checkpoint
+# ---------------------------------------------------------------------------
+
+def check_sampler(train_dir: str) -> dict:
+    """`python -m nanosandbox_tpu_torch.sample`'s main() on phase 9's
+    checkpoint (bf16, the K4 prefill and K3 decode steps), then, on the
+    same weights in fp32, greedy generate() over 32 tokens against a
+    no-cache argmax loop."""
+    import os
+
+    from nanosandbox_tpu_torch import sample
+    from nanosandbox_tpu_torch.checkpoint import TrainCheckpointer
+    from nanosandbox_tpu_torch.config import GPTConfig, TrainConfig
+    from nanosandbox_tpu_torch.models.gpt import GPT
+    from nanosandbox_tpu_torch.ops import attention as at
+    from nanosandbox_tpu_torch.ops import flash_decode as fd
+
+    out_dir = os.path.join(train_dir, "out")
+    # The sampling path is the main path: counts start here.
+    fd.reset_counts()
+    at.reset_counts()
+    t0 = time.monotonic()
+    texts = sample.main([f"--out_dir={out_dir}", "--start=The ",
+                         "--num_samples=2", "--max_new_tokens=64",
+                         f"--device={DEVICE}"])
+    sync()
+    wall = time.monotonic() - t0
+    run = {"launches": {k: n for k, n in fd.launches.items() if n},
+           "plain_cuda_calls": {**fd.plain_cuda_calls,
+                                **at.plain_cuda_calls}}
+    run["launches"]["flash_attention_fwd"] = at.launches[
+        "flash_attention_fwd"]
+    print(f"  sample CLI: 2 samples of 64 tokens in {wall:.3f} s (the "
+          f"model's load included); launches {run['launches']}")
+    if len(texts) != 2 or not all(t.startswith("The ") for t in texts):
+        fail(f"the sample CLI printed {texts!r}")
+    blob = TrainCheckpointer(out_dir).restore()
+    cfg = GPTConfig.from_train_config(TrainConfig(**blob["config"]),
+                                      blob["model"]["wte.weight"].shape[0])
+    cli_mode = "bf16" if cfg.compute_dtype == "bfloat16" else "fp32"
+    cfg.compute_dtype = "float32"
+    model = GPT(cfg, device=DEVICE)
+    model.load_state_dict(blob["model"])
+    model.eval()
+    with open(CORPUS, "rb") as f:
+        prompt = list(f.read(48))
+    idx = torch.tensor([prompt], device=DEVICE)
+    fd.reset_counts()
+    at.reset_counts()
+    got = sample.generate(model, idx, 32)[0, len(prompt):].tolist()
+    k3, k4 = fd.launches["flash_decode/fp32"], at.launches[
+        "flash_attention_fwd"]
+    want = recompute(model, [prompt])[0]
+    print(f"  fp32 greedy generate, 48-byte prompt, 32 tokens: "
+          f"{bytes(got).decode('utf-8', 'replace')!r}; no-cache argmax "
+          f"loop {'equal' if got == want else 'DIFFERENT'}; launches "
+          f"flash_decode/fp32 {k3}, flash_attention_fwd {k4}")
+    if got != want:
+        fail(f"fp32 generate {got} != no-cache argmax loop {want}")
+    need_launches("the sample CLI", run, (f"flash_decode/{cli_mode}",
+                                          "flash_attention_fwd"))
+    if not (k3 and k4):
+        fail("generate bypassed a kernel: flash_decode/fp32 "
+             f"{k3}, flash_attention_fwd {k4}")
+    del model
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    return run
 
 
 def main() -> int:
@@ -903,7 +1213,9 @@ def main() -> int:
     kern = check_kernels(fd)
 
     print("== phase 4: fp32 124M engine vs no-cache recompute")
-    check_engine_fp32(fd)
+    model, prompts = fp32_model_and_prompts()
+    ref = recompute(model, prompts)
+    paged_fp32 = check_engine_fp32(model, prompts, ref)
 
     print("== phase 5: bf16 124M server")
     served = check_server(fd, smi)
@@ -918,8 +1230,37 @@ def main() -> int:
     print("== phase 8: fp32 124M loss and gradients, kernels vs plain")
     check_train_parity(at)
 
-    print("== phase 9: the 124M bf16 trainer")
-    trained = check_trainer(at, fd, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        print("== phase 9: the 124M bf16 trainer")
+        trained = check_trainer(at, fd, smi, tmp)
+
+        print("== phase 10: fp32 124M engines, dense pool and int8/int4 "
+              "pools")
+        pools = check_pools_fp32(model, prompts, ref, paged_fp32)
+        del model
+        torch.cuda.empty_cache()
+
+        print("== phase 11: bf16 124M servers, dense pool and int8/int4 "
+              "pools")
+        servers = {"paged bf16": served}
+        for name, flags, need in (
+                ("dense bf16", ["--paged=off"], (
+                    "flash_decode/bf16", "flash_attention_fwd")),
+                ("paged int8", ["--kv_dtype=int8"], (
+                    "flash_decode_paged/int8", "flash_prefill_paged/int8")),
+                ("paged int4", ["--kv_dtype=int4"], (
+                    "flash_decode_paged/int4", "flash_prefill_paged/int4"))):
+            servers[name] = check_server(fd, smi, flags, need)
+        print(f"  [{smi}]\n  mode        decode tok/s  TTFT p50 ms  "
+              "TPOT p50 ms")
+        for name, sv in servers.items():
+            st = sv["stats"]
+            print(f"  {name:<11} {st['decode_tokens_per_sec']:12.1f}  "
+                  f"{st['ttft_s']['p50'] * 1e3:11.2f}  "
+                  f"{st['tpot_s']['p50'] * 1e3:11.3f}")
+
+        print("== phase 12: the sampler on phase 9's checkpoint")
+        check_sampler(tmp)
 
     def entry(name, source, replaces, launches, case):
         return {"name": name, "route": "cuda",
@@ -932,17 +1273,45 @@ def main() -> int:
                 "library_ms": case["library_ms"],
                 "case": f"{case.get('dtype', 'bfloat16')} {case['shape']}"}
 
-    bf = [c for c in kern["cases"] if c["dtype"] == "bfloat16"]
-    dec = next(c for c in bf if c["kernel"] == "paged_decode_kernel")
-    pre = [c for c in bf if c["kernel"] == "paged_prefill_kernel"][-1]
-    paged, flash = "paged_attention.cu", "flash_attention.cu"
+    def timed(kernel, dtype, last=False):
+        found = [c for c in kern["cases"]
+                 if c["kernel"] == kernel and c["dtype"] == dtype]
+        return found[-1] if last else found[0]
+
+    paged, dense = "paged_attention.cu", "flash_decode.cu"
+    flash = "flash_attention.cu"
+    sl = {name: sv["launches"] for name, sv in servers.items()}
     tl = trained["launches"]
-    print(smi)
-    print(json.dumps({"kernels": [
+    kernels = [
         entry("paged_decode_kernel", paged, "flash_decode.py:421",
-              served["launches"]["flash_decode_paged"], dec),
+              sl["paged bf16"]["flash_decode_paged/bf16"],
+              timed("paged_decode_kernel", "bfloat16")),
         entry("paged_prefill_kernel", paged, "flash_decode.py:585",
-              served["launches"]["flash_prefill_paged"], pre),
+              sl["paged bf16"]["flash_prefill_paged/bf16"],
+              timed("paged_prefill_kernel", "bfloat16", last=True))]
+    for mode in ("int8", "int4"):
+        kernels += [
+            entry(f"paged_decode_kernel<{mode}>", paged, "flash_decode.py:421",
+                  sl[f"paged {mode}"][f"flash_decode_paged/{mode}"],
+                  timed(f"paged_decode_kernel<{mode}>", "bfloat16")),
+            entry(f"paged_prefill_kernel<{mode}>", paged,
+                  "flash_decode.py:585",
+                  sl[f"paged {mode}"][f"flash_prefill_paged/{mode}"],
+                  timed(f"paged_prefill_kernel<{mode}>", "bfloat16",
+                        last=True))]
+    # K3: the bf16 pool's launches are the dense bf16 server's; the fp32,
+    # int8 and int4 pools' are phase 10's fp32-compute dense engines', so
+    # their times are taken under an fp32 query.
+    kernels.append(entry("flash_decode_kernel<bf16>", dense,
+                         "flash_decode.py:244",
+                         sl["dense bf16"]["flash_decode/bf16"],
+                         timed("flash_decode_kernel<bf16>", "bfloat16")))
+    for mode in ("fp32", "int8", "int4"):
+        kernels.append(entry(
+            f"flash_decode_kernel<{mode}>", dense, "flash_decode.py:244",
+            pools[f"dense {mode}"]["launches"][f"flash_decode/{mode}"],
+            timed(f"flash_decode_kernel<{mode}>", "float32")))
+    kernels += [
         entry("flash_fwd_kernel", flash, "attention.py:180",
               tl["flash_attention_fwd"], train_cases["fwd"]),
         entry("flash_bwd_kv_kernel<with_dq>", flash, "attention.py:556",
@@ -950,7 +1319,9 @@ def main() -> int:
         entry("flash_bwd_dq_kernel", flash, "attention.py:475",
               tl["flash_attention_bwd_dq"], train_cases["dq"]),
         entry("flash_bwd_kv_kernel", flash, "attention.py:556",
-              tl["flash_attention_bwd_dkv"], train_cases["dkv"])]}))
+              tl["flash_attention_bwd_dkv"], train_cases["dkv"])]
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

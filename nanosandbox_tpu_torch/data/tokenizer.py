@@ -49,7 +49,20 @@ class ByteTokenizer:
         return list(text.encode("utf-8"))
 
     def decode(self, ids) -> str:
-        return bytes(int(i) for i in ids).decode("utf-8", errors="replace")
+        """UTF-8, with invalid sequences and ids outside [0, 256) as
+        U+FFFD: a model whose head is wider than 256 (GPT-2's 50304
+        trained on bytes) can sample such ids, and the JAX copy raises
+        on them."""
+        out, run = [], bytearray()
+        for i in ids:
+            i = int(i)
+            if 0 <= i < 256:
+                run.append(i)
+            else:
+                out.append(run.decode("utf-8", errors="replace") + "\ufffd")
+                run = bytearray()
+        out.append(run.decode("utf-8", errors="replace"))
+        return "".join(out)
 
 
 def get_tokenizer(kind: str, meta: dict | None = None) -> Tokenizer:

@@ -20,21 +20,39 @@ Two forward paths:
     c_proj, after the MLP's c_proj) with masks drawn from the generator,
     and attention-probability dropout in the kernels, keyed by a uint32
     seed per layer drawn from the same generator;
-  * paged cache: each layer's (K, V) pool is (num_blocks + 1, H, page,
-    D). The call writes its K/V through the block table first, then
-    attends with the paged-attention kernels (ops/flash_decode.py):
-    the decode kernel for T = 1, the prefill kernel for T > 1. The pool
-    is updated IN PLACE (JAX returns a new pool; here that would copy
-    the whole pool every step).
+  * paged cache: each layer's pool is (num_blocks + 1, H, page, D). The
+    call writes its K/V through the block table first, then attends with
+    the paged-attention kernels (ops/flash_decode.py): the decode kernel
+    for T = 1, the prefill kernel for T > 1;
+  * dense cache (init_cache): each layer's pool is (B, H, max_len, D),
+    one row per slot or sample. With a per-row ``cache_index`` (B,) and
+    T = 1 (the dense engine's decode step) each row writes at its own
+    position and K3 (flash_decode) attends up to it; with a scalar
+    ``cache_index`` i and T = 1 (the sampler's decode step) every row
+    writes at i and K3 attends over [0, i]; with i == 0 and T > 1 (a
+    prefill into a fresh cache) the call writes [0, T) and attends
+    causally over its own keys through causal_attention (K4). Other
+    combinations (T > 1 at a nonzero index: speculative verify) are not
+    ported yet.
 
-The pool's last block (index num_blocks, the engine's sentinel value)
-is a drop block: writes bound for the sentinel — parked rows, ladder
-padding, positions past a row's chain — land there instead of being
-filtered out, so the write needs neither a host sync (a boolean mask
-would) nor an out-of-range index (which raises a device-side assert on
-CUDA where JAX's scatter drops). No table entry of a live request ever
-names it, and the kernels only read it for sentinel entries, whose
-positions are past every frontier.
+Each pool layer is (K, V) in fp32 or bf16, or (K, V, k_scale, v_scale)
+for the quantized modes: int8 values, or packed int4 (uint8, two nibbles
+per byte along head_dim), with one f32 scale per (row|block, head,
+position). Writes quantize on the way in (ops/flash_decode.py
+quantize_kv_rows[_int4]), so fp K/V never reaches a quantized pool, and
+the kernels fold the scales into scores and probabilities. Pools are
+updated IN PLACE (JAX returns a new pool; here that would copy the whole
+pool every step).
+
+The paged pool's last block (index num_blocks, the engine's sentinel
+value) is a drop block: writes bound for the sentinel — parked rows,
+ladder padding, positions past a row's chain — land there instead of
+being filtered out, so the write needs neither a host sync (a boolean
+mask would) nor an out-of-range index (which raises a device-side assert
+on CUDA where JAX's scatter drops). No table entry of a live request
+ever names it, and the kernels only read it for sentinel entries, whose
+positions are past every frontier. Writes bound for it skip the
+quantizer's scale chain (``valid=``), as JAX's do.
 
 The losses (``cross_entropy_loss``, ``chunked_cross_entropy_loss``) and
 ``count_params`` are the JAX module's, in the same logsumexp form.
@@ -53,10 +71,15 @@ from torch.utils.checkpoint import checkpoint
 from nanosandbox_tpu_torch.config import DTYPES, GPTConfig
 from nanosandbox_tpu_torch.ops.attention import (causal_attention,
                                                  torch_flash_attention)
-from nanosandbox_tpu_torch.ops.flash_decode import (flash_decode_paged,
-                                                    flash_prefill_paged)
+from nanosandbox_tpu_torch.ops.flash_decode import (KV_MODES, KV_STORAGE,
+                                                    flash_decode,
+                                                    flash_decode_paged,
+                                                    flash_prefill_paged,
+                                                    quantize_kv_rows,
+                                                    quantize_kv_rows_int4)
 
-KVPool = List[Tuple[torch.Tensor, torch.Tensor]]
+# Per layer: (K, V) or, quantized, (K, V, k_scale, v_scale).
+KVPool = List[Tuple[torch.Tensor, ...]]
 
 
 def _dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype):
@@ -90,28 +113,65 @@ def _attention_seed(generator: torch.Generator, device) -> torch.Tensor:
                          device=device, dtype=torch.int64)
 
 
-def write_paged_kv(pool_k: torch.Tensor, pool_v: torch.Tensor,
-                   k: torch.Tensor, v: torch.Tensor,
+def _to_pool(layer, k: torch.Tensor, v: torch.Tensor, valid=None):
+    """(B, H, T, D) K/V in the layer's representation: values cast to
+    the pool dtype, or quantized (with scales (B, H, T)) for a 4-tuple
+    layer. ``valid`` (broadcastable to (B, H, T)) as in the quantizers."""
+    if len(layer) == 2:
+        return k.to(layer[0].dtype), v.to(layer[1].dtype), None, None
+    quantize = (quantize_kv_rows_int4 if layer[0].dtype == torch.uint8
+                else quantize_kv_rows)
+    (kq, ks), (vq, vs) = quantize(k, valid=valid), quantize(v, valid=valid)
+    return kq, vq, ks, vs
+
+
+def write_paged_kv(layer, k: torch.Tensor, v: torch.Tensor,
                    block_table: torch.Tensor,
                    cache_index: torch.Tensor) -> None:
     """Write (B, H, T, D) K/V at positions cache_index[b] + [0, T) of
     each row's chain: position p of row b lands in block
     table[b, p // page] at offset p % page. Positions past the chain or
-    bound for a sentinel entry go to the drop block (module docstring)."""
+    bound for a sentinel entry go to the drop block (module docstring),
+    and skip the quantizer's scale chain."""
+    pool_k = layer[0]
     drop = pool_k.shape[0] - 1
     page = pool_k.shape[2]
-    B, H, T, D = k.shape
+    B, H, T, _ = k.shape
     nb = block_table.shape[1]
     qpos = (cache_index.long()[:, None]
             + torch.arange(T, device=k.device)[None, :])          # (B, T)
     jblk = qpos // page
     blk = block_table.long().gather(1, jblk.clamp(max=nb - 1))
     blk = torch.where((jblk < nb) & (blk >= 0) & (blk < drop), blk, drop)
+    vals = _to_pool(layer, k, v, valid=(blk < drop)[:, None, :])
     bf, of = blk.reshape(-1), (qpos % page).reshape(-1)
-    pool_k[bf, :, of, :] = k.transpose(1, 2).reshape(B * T, H, D).to(
-        pool_k.dtype)
-    pool_v[bf, :, of, :] = v.transpose(1, 2).reshape(B * T, H, D).to(
-        pool_v.dtype)
+    for buf, x in zip(layer, vals):
+        if x.dim() == 4:                          # values (B, H, T, D')
+            buf[bf, :, of, :] = x.transpose(1, 2).reshape(B * T, H, -1)
+        else:                                     # scales (B, H, T)
+            buf[bf, :, of] = x.transpose(1, 2).reshape(B * T, H)
+
+
+def write_dense_kv(layer, k: torch.Tensor, v: torch.Tensor,
+                   cache_index) -> None:
+    """Write (B, H, T, D) K/V into a dense (B, H, L, D') layer: a scalar
+    ``cache_index`` i writes positions [i, i + T) of every row; a (B,)
+    one (T = 1 only) writes row b at its own position cache_index[b]."""
+    vals = _to_pool(layer, k, v)
+    if isinstance(cache_index, int):
+        T = k.shape[2]
+        for buf, x in zip(layer, vals):
+            buf[:, :, cache_index:cache_index + T] = x
+        return
+    rows = torch.arange(k.shape[0], device=k.device)
+    pos = cache_index.long()
+    for buf, x in zip(layer, vals):
+        buf[rows, :, pos] = x[:, :, 0]
+
+
+def _scales(layer) -> dict:
+    return ({} if len(layer) == 2
+            else {"k_scale": layer[2], "v_scale": layer[3]})
 
 
 class CausalSelfAttention(nn.Module):
@@ -143,21 +203,53 @@ class CausalSelfAttention(nn.Module):
                 y = causal_attention(q.contiguous(), k.contiguous(),
                                      v.contiguous(), dropout_rate=rate,
                                      seed=seed)
-        else:
-            ck, cv = cache
+        elif block_table is not None:
             # The pool must hold this call's K/V before the kernel reads
             # it: decode attends up to cache_index + 1 positions, prefill
             # from cache_index on (the resident prefix included).
-            write_paged_kv(ck, cv, k, v, block_table, cache_index)
+            write_paged_kv(cache, k, v, block_table, cache_index)
+            ck, cv = cache[0], cache[1]
             if T == 1:
                 y = flash_decode_paged(q[:, :, 0].contiguous(), ck, cv,
-                                       block_table,
-                                       cache_index + 1)[:, :, None]
+                                       block_table, cache_index + 1,
+                                       **_scales(cache))[:, :, None]
             else:
                 y = flash_prefill_paged(q.contiguous(), ck, cv, block_table,
-                                        cache_index)
+                                        cache_index, **_scales(cache))
+        else:
+            y = self._dense_cached(q, k, v, cache, cache_index)
         y = y.transpose(1, 2).reshape(B, T, C)
         return _dropout(_dense(self.c_proj, y, dtype), cfg.dropout, generator)
+
+    @staticmethod
+    def _dense_cached(q, k, v, cache, cache_index):
+        """Attention through a dense (B, H, L, D) cache (module
+        docstring); the write comes first, as on the paged path."""
+        B, H, T, _ = q.shape
+        per_row = not isinstance(cache_index, int)
+        if T == 1:
+            write_dense_kv(cache, k, v, cache_index)
+            lengths = (cache_index + 1 if per_row else torch.full(
+                (B,), cache_index + 1, dtype=torch.int32, device=q.device))
+            return flash_decode(q[:, :, 0].contiguous(), cache[0], cache[1],
+                                lengths.to(torch.int32),
+                                **_scales(cache))[:, :, None]
+        if per_row or cache_index != 0:
+            raise NotImplementedError(
+                "a dense-cache call with T > 1 at a nonzero or per-row "
+                "cache_index (speculative verify) is not ported yet")
+        if len(cache) == 4:
+            raise NotImplementedError(
+                "a T > 1 prefill into a quantized dense cache is not "
+                "ported yet (prefill into a full-precision cache, then "
+                "scatter_cache_rows quantizes)")
+        write_dense_kv(cache, k, v, 0)
+        # JAX's masked path bounds a scalar-index call's span to
+        # cache_index + T keys, so at index 0 it is exactly causal
+        # attention over this call's own keys: K4, over q/k/v as
+        # computed (a cache in the compute dtype holds the same values).
+        return causal_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), dropout_rate=0.0, seed=None)
 
 
 class MLP(nn.Module):
@@ -236,13 +328,15 @@ class GPT(nn.Module):
                block_table: Optional[torch.Tensor] = None,
                dropout_generator: Optional[torch.Generator] = None,
                plain_attention: bool = False) -> torch.Tensor:
-        """Final-LayerNorm hidden states (B, T, C), f32. With ``cache``
-        (a paged pool from init_paged_cache), ``cache_index`` (B,) int32
-        is each row's position of idx[:, 0] and ``block_table`` (B, nb)
-        int32 maps its positions onto pool blocks; the pool is written
-        in place. Without a cache, ``dropout_generator`` turns training
-        dropout on and ``plain_attention`` selects the plain attention
-        (module docstring)."""
+        """Final-LayerNorm hidden states (B, T, C), f32. With ``cache``,
+        the pool is written in place and ``cache_index`` gives the
+        position of idx[:, 0]: for a paged pool (init_paged_cache) a (B,)
+        int32 frontier per row, with ``block_table`` (B, nb) int32
+        mapping positions onto pool blocks; for a dense pool (init_cache)
+        a (B,) int32 frontier per row (T = 1) or one Python int for every
+        row (module docstring). Without a cache, ``dropout_generator``
+        turns training dropout on and ``plain_attention`` selects the
+        plain attention."""
         cfg = self.cfg
         B, T = idx.shape
         if T > cfg.block_size:
@@ -252,17 +346,20 @@ class GPT(nn.Module):
         if cache is None:
             pos = ar[None, :]
         else:
-            if cache_index is None or block_table is None:
-                raise ValueError("the paged cache needs cache_index and "
-                                 "block_table")
+            if cache_index is None:
+                raise ValueError("a cached call needs cache_index")
+            if block_table is not None and isinstance(cache_index, int):
+                raise ValueError("a paged cache is per-row: cache_index "
+                                 "must be a (B,) frontier vector")
             if dropout_generator is not None or plain_attention:
-                raise ValueError("the paged cache path is inference-only "
-                                 "and always runs the paged kernels")
+                raise ValueError("the cached path is inference-only and "
+                                 "always runs the decode kernels")
+            start = (cache_index if isinstance(cache_index, int)
+                     else cache_index.long()[:, None])
             # Bucket padding can run past block_size; those positions are
             # garbage rows nobody reads, clamped so the lookup stays in
             # range (an out-of-range index raises on CUDA).
-            pos = (cache_index.long()[:, None] + ar[None, :]).clamp(
-                max=cfg.block_size - 1)
+            pos = (start + ar[None, :]).clamp(max=cfg.block_size - 1)
         x = _dropout(self.wte(idx) + self.wpe(pos), cfg.dropout,
                      dropout_generator).to(cfg.torch_compute_dtype)
         for i, block in enumerate(self.h):
@@ -288,34 +385,95 @@ class GPT(nn.Module):
             plain_attention=plain_attention))
 
 
-KV_DTYPES = {"fp32": torch.float32, "float32": torch.float32,
-             "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
+_KV_ALIASES = {"fp32": "fp32", "float32": "fp32", "bf16": "bf16",
+               "bfloat16": "bf16", "int8": "int8", "int4": "int4"}
 
 
-def kv_torch_dtype(cfg: GPTConfig, kv_dtype=None) -> torch.dtype:
-    """--kv_dtype -> storage dtype; None/''/'auto' is the compute dtype."""
+def normalize_kv_dtype(kv_dtype) -> Optional[str]:
+    """Canonicalize a --kv_dtype flag value: None/''/'auto' -> None (the
+    compute dtype), else one of ops/flash_decode.KV_MODES."""
     if kv_dtype in (None, "", "auto"):
-        return cfg.torch_compute_dtype
-    if kv_dtype in ("int8", "int4"):
-        raise NotImplementedError(
-            f"kv_dtype={kv_dtype!r}: quantized KV pools are not ported yet "
-            "(fp32 and bf16 are)")
-    if kv_dtype not in KV_DTYPES:
+        return None
+    norm = _KV_ALIASES.get(str(kv_dtype))
+    if norm is None:
         raise ValueError(f"unknown kv_dtype {kv_dtype!r} (expected one of "
-                         "fp32, bf16, int8, int4)")
-    return KV_DTYPES[kv_dtype]
+                         f"{KV_MODES})")
+    return norm
+
+
+def kv_mode(cfg: GPTConfig, kv_dtype=None) -> str:
+    """The pool mode --kv_dtype selects: 'fp32' | 'bf16' | 'int8' |
+    'int4'; None/''/'auto' is the compute dtype's."""
+    return normalize_kv_dtype(kv_dtype) or (
+        "bf16" if cfg.torch_compute_dtype == torch.bfloat16 else "fp32")
+
+
+def _cache_layers(cfg: GPTConfig, lead: tuple, length: int, kv_dtype,
+                  device) -> KVPool:
+    """Per-layer pools of lead + (H, length, head_dim): (K, V) for the fp
+    modes; (K, V, k_scale, v_scale) with f32 scales lead + (H, length)
+    for int8 and int4 (values packed to head_dim // 2 bytes)."""
+    mode = kv_mode(cfg, kv_dtype)
+    D = cfg.head_dim
+    if mode == "int4" and D % 2:
+        raise ValueError(f"int4 KV packs two dims per byte; head_dim {D} "
+                         "must be even")
+    vshape = lead + (cfg.n_head, length, D // 2 if mode == "int4" else D)
+    sshape = lead + (cfg.n_head, length)
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    dtype = KV_STORAGE[mode]
+    if mode in ("int8", "int4"):
+        return [(zeros(vshape, dtype), zeros(vshape, dtype),
+                 zeros(sshape, torch.float32), zeros(sshape, torch.float32))
+                for _ in range(cfg.n_layer)]
+    return [(zeros(vshape, dtype), zeros(vshape, dtype))
+            for _ in range(cfg.n_layer)]
+
+
+def init_cache(cfg: GPTConfig, batch_size: int, max_len: int, kv_dtype=None,
+               device=None) -> KVPool:
+    """Per-layer dense decode pools of (batch_size, H, max_len, head_dim)
+    (models/gpt.py init_cache of the JAX package): one row per slot or
+    sample, in the --kv_dtype mode (module docstring). max_len caps at
+    block_size, the positions wpe defines."""
+    if max_len > cfg.block_size:
+        raise ValueError(f"cache length {max_len} > block_size "
+                         f"{cfg.block_size}")
+    return _cache_layers(cfg, (batch_size,), max_len, kv_dtype, device)
+
+
+def scatter_cache_rows(pool: KVPool, rows: KVPool,
+                       slots: torch.Tensor) -> None:
+    """Write a prefill wave's per-layer (n, H, L, D) full-precision K/V
+    rows into slot rows ``slots`` (n,) of a dense pool at positions
+    [0, L), in place: cast to an fp pool's dtype, or quantized into an
+    int8/int4 pool. Positions past L keep stale values, which the per-row
+    frontier hides until the new occupant overwrites them.
+
+    JAX's version takes the wave's ladder-padding rows with slot ids >=
+    num_slots and drops them in the scatter; here the caller knows the
+    wave's size and passes only its real rows."""
+    slots = slots.long()
+    for pool_layer, row_layer in zip(pool, rows):
+        if len(row_layer) != 2:
+            raise ValueError(
+                "scatter_cache_rows takes full-precision (K, V) rows; the "
+                "pool quantizes them itself")
+        L = row_layer[0].shape[2]
+        for buf, x in zip(pool_layer, _to_pool(pool_layer, *row_layer)):
+            buf[slots, :, :L] = x
 
 
 def init_paged_cache(cfg: GPTConfig, num_blocks: int, page: int,
                      kv_dtype=None, device=None) -> KVPool:
-    """Per-layer (K, V) block pools of shape (num_blocks + 1, H, page,
-    head_dim): ``num_blocks`` allocatable blocks plus the drop block at
-    index num_blocks (module docstring)."""
-    dtype = kv_torch_dtype(cfg, kv_dtype)
-    shape = (num_blocks + 1, cfg.n_head, page, cfg.head_dim)
-    return [(torch.zeros(shape, dtype=dtype, device=device),
-             torch.zeros(shape, dtype=dtype, device=device))
-            for _ in range(cfg.n_layer)]
+    """Per-layer block pools of (num_blocks + 1, H, page, head_dim):
+    ``num_blocks`` allocatable blocks plus the drop block at index
+    num_blocks (module docstring), in the --kv_dtype mode; int8/int4
+    layers carry (num_blocks + 1, H, page) f32 scales."""
+    return _cache_layers(cfg, (num_blocks + 1,), page, kv_dtype, device)
 
 
 def cast_for_serving(model: GPT) -> GPT:

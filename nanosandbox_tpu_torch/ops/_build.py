@@ -6,7 +6,8 @@ loads: no PyTorch headers are compiled, so a build takes seconds, and
 the sources build in parallel (one ``nvcc`` each, all started
 together). It happens at first use, into ``build/`` at the repository
 root (listed in .gitignore), under a name keyed by the source's and
-flags' hash, so an edited source is never served by a stale library.
+flags' hash (the shared headers included), so an edited source is
+never served by a stale library.
 
 Nothing here runs at import time: importing the package on a machine
 without ``nvcc`` or a GPU (the CPU test tier) must work.
@@ -27,7 +28,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_ROOT = os.path.dirname(_PKG)
 BUILD_DIR = os.path.join(REPO_ROOT, "build")
 SOURCES = tuple(os.path.join(_PKG, "csrc", name) for name in
-                ("paged_attention.cu", "flash_attention.cu"))
+                ("paged_attention.cu", "flash_decode.cu",
+                 "flash_attention.cu"))
+# Headers the sources include: part of every library's hash.
+HEADERS = tuple(os.path.join(_PKG, "csrc", name) for name in
+                ("decode_common.cuh",))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -54,10 +59,13 @@ def _signatures() -> dict:
     p, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_uint)
     return {
-        # (q, k, v, table, lengths|start, out, B, H, [T,] D, N, page, nb,
-        #  sm_scale, q dtype, kv dtype, stream)
-        "nsb_paged_decode": [p] * 6 + [i] * 6 + [f, i, i, p],
-        "nsb_paged_prefill": [p] * 6 + [i] * 7 + [f, i, i, p],
+        # (q, k, v, k_scale, v_scale, table, lengths|start, out, B, H,
+        #  [T,] D, N, page, nb, sm_scale, q dtype, kv dtype, stream)
+        "nsb_paged_decode": [p] * 8 + [i] * 6 + [f, i, i, p],
+        "nsb_paged_prefill": [p] * 8 + [i] * 7 + [f, i, i, p],
+        # (q, k, v, k_scale, v_scale, lengths, out, B, H, D, L, sm_scale,
+        #  q dtype, kv dtype, stream)
+        "nsb_flash_decode": [p] * 7 + [i] * 4 + [f, i, i, p],
         # (q, k, v, o, lse, seed, BH, H, T, D, sm_scale, dtype, dropout on,
         #  threshold, keep scale, hash_seq_len, stream)
         "nsb_flash_fwd": [p] * 6 + [i] * 4 + [f, i, i, u, f, u, p],
@@ -70,8 +78,9 @@ def _signatures() -> dict:
 
 def _target(src: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(src, "rb") as fh:
-        h.update(fh.read())
+    for path in (src, *HEADERS):
+        with open(path, "rb") as fh:
+            h.update(fh.read())
     stem = os.path.splitext(os.path.basename(src))[0]
     return os.path.join(BUILD_DIR, f"nsb_{stem}_{h.hexdigest()[:16]}.so")
 

@@ -1,20 +1,37 @@
-"""Per-row token sampling for the serve engine.
+"""Token sampling, and the offline sampler.
 
-The counterpart of sample.py's ``_filter_logits_rows``,
-``_sample_token_rows`` and ``row_keys``: each row of a (B, V) logits
-batch samples under its own temperature / top-k / top-p, and the token
-for position q of a request seeded s depends only on (s, q, logits),
-never on which other requests share the batch.
+The counterpart of nanosandbox_tpu/sample.py:
+
+  * ``sample_token_rows`` (``_filter_logits_rows``, ``_sample_token_rows``
+    and ``row_keys`` there): each row of a (B, V) logits batch samples
+    under its own temperature / top-k / top-p, and the token for
+    position q of a request seeded s depends only on (s, q, logits),
+    never on which other requests share the batch;
+  * ``generate``: one prefill over the prompt into a dense cache
+    (models/gpt.py init_cache; causal attention, K4), then one T = 1
+    decode step per token (K3); ``_generate_windowed`` re-forwards the
+    sliding context window (K4) when prompt + new tokens exceed
+    block_size;
+  * ``main``: ``python -m nanosandbox_tpu_torch.sample`` with the JAX
+    CLI's flags, from a training out_dir of this port.
+
+    python -m nanosandbox_tpu_torch.sample --out_dir=out --start="Once" \
+        --num_samples=2 --max_new_tokens=100
 
 Randomness is counter-based: Gumbel-max over a per-element uniform
 drawn from an fmix32 hash of (seed, position, vocab index) — the same
 murmur3 finalizer as ops/attention.py's dropout mask. It does not
 reproduce JAX's threefry bits; sampled streams are held to the
 contract above (and to distribution tests), greedy streams to exact
-token identity.
+token identity. The offline sampler keys sample i of a run seeded s by
+(s + i, position); JAX draws all samples from one threefry stream.
 """
 
 from __future__ import annotations
+
+import argparse
+import sys
+from typing import Optional
 
 import torch
 
@@ -96,3 +113,166 @@ def sample_token_rows(logits: torch.Tensor, *, seeds: torch.Tensor,
     u = row_uniforms(seeds, positions, logits.shape[-1])
     sampled = torch.argmax(x - torch.log(-torch.log(u)), dim=-1)
     return torch.where(t == 0.0, greedy, sampled)
+
+
+# ---------------------------------------------------------------------------
+# The offline sampler
+# ---------------------------------------------------------------------------
+
+class _RowSampler:
+    """One sampling setting for every row of a generate() batch; row i's
+    noise is keyed by (seed + i, position)."""
+
+    def __init__(self, batch: int, *, temperature: float, top_k: int,
+                 top_p: float, seed: int, device):
+        def full(value, dtype):
+            return torch.full((batch,), value, dtype=dtype, device=device)
+
+        self.kw = dict(temperature=full(float(temperature), torch.float32),
+                       top_k=full(int(top_k), torch.int64),
+                       top_p=full(float(top_p), torch.float32),
+                       filtered=temperature > 0 and (top_k > 0
+                                                     or top_p < 1.0))
+        self.seeds = seed + torch.arange(batch, device=device)
+
+    def __call__(self, logits: torch.Tensor, position: int) -> torch.Tensor:
+        positions = torch.full_like(self.seeds, position)
+        return sample_token_rows(logits, seeds=self.seeds,
+                                 positions=positions, **self.kw)
+
+
+@torch.no_grad()
+def generate(model, idx: torch.Tensor, max_new_tokens: int, *,
+             temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+             seed: int = 0, block_size: Optional[int] = None) -> torch.Tensor:
+    """(B, T0 + max_new_tokens) token ids: idx followed by its samples.
+    Temperature 0 is greedy. KV-cached: one prefill over the prompt into
+    a (B, H, T0 + max_new_tokens, D) cache in the compute dtype, then one
+    single-token step per new token against it, so attention reads grow
+    with the frontier instead of re-running the context. Falls back to
+    the windowed path only when the total exceeds block_size (wpe
+    defines no positions past it)."""
+    from nanosandbox_tpu_torch.models.gpt import init_cache
+
+    block_size = block_size or model.cfg.block_size
+    B, T0 = idx.shape
+    total = T0 + max_new_tokens
+    if max_new_tokens == 0:
+        return idx
+    sampler = _RowSampler(B, temperature=temperature, top_k=top_k,
+                          top_p=top_p, seed=seed, device=idx.device)
+    if total > block_size:
+        return _generate_windowed(model, idx, max_new_tokens, sampler,
+                                  block_size)
+    cache = init_cache(model.cfg, B, total, device=idx.device)
+    tok = sampler(model(idx, cache=cache, cache_index=0)[:, -1], T0)
+    out = [tok]
+    for i in range(T0, total - 1):
+        logits = model(tok[:, None], cache=cache, cache_index=i)[:, 0]
+        tok = sampler(logits, i + 1)
+        out.append(tok)
+    return torch.cat([idx, torch.stack(out, dim=1)], dim=1)
+
+
+def _generate_windowed(model, idx: torch.Tensor, max_new_tokens: int,
+                       sampler: _RowSampler,
+                       block_size: int) -> torch.Tensor:
+    """Full-forward sliding-window decode (nanoGPT's crop-and-reforward
+    semantics): each token re-runs the last block_size known tokens
+    through the no-cache forward (K4). JAX pads the window to
+    block_size with zeros past the frontier; causal attention makes
+    those positions irrelevant, so only the known tokens are run."""
+    B, T0 = idx.shape
+    buf = torch.zeros((B, T0 + max_new_tokens), dtype=idx.dtype,
+                      device=idx.device)
+    buf[:, :T0] = idx
+    for i in range(T0 - 1, T0 - 1 + max_new_tokens):
+        start = max(i + 1 - block_size, 0)
+        logits = model(buf[:, start:i + 1])[:, -1]
+        buf[:, i + 1] = sampler(logits, i + 1)
+    return buf
+
+
+def resolve_start(start: str) -> str:
+    """nanoGPT's --start convention: 'FILE:<path>' reads the prompt from a
+    file (verbatim, trailing newline included); anything else is the
+    prompt text itself."""
+    if start.startswith("FILE:"):
+        with open(start[len("FILE:"):], "r", encoding="utf-8") as f:
+            return f.read()
+    return start
+
+
+def main(argv: list[str] | None = None) -> list[str]:
+    ap = argparse.ArgumentParser(prog="python -m nanosandbox_tpu_torch.sample")
+    ap.add_argument("--out_dir", default="out",
+                    help="a training out_dir of this port (ckpt/<step>/)")
+    ap.add_argument("--data_dir", default="",
+                    help="dataset root holding <dataset>/meta.pkl; empty = "
+                         "the checkpoint's training data_dir")
+    ap.add_argument("--dataset", default="",
+                    help="empty = the checkpoint's training dataset")
+    ap.add_argument("--start", default="\n",
+                    help="prompt text, or FILE:<path> to read it from a "
+                         "file (nanoGPT convention)")
+    ap.add_argument("--num_samples", type=int, default=1)
+    ap.add_argument("--max_new_tokens", type=int, default=200)
+    ap.add_argument("--temperature", type=float, default=0.8,
+                    help="0 = greedy")
+    ap.add_argument("--top_k", type=int, default=40)
+    ap.add_argument("--top_p", type=float, default=1.0,
+                    help="nucleus sampling mass (1.0 disables)")
+    ap.add_argument("--seed", type=int, default=1337,
+                    help="sample i draws its noise from seed + i")
+    ap.add_argument("--spec", default="off",
+                    help="speculative decoding: not ported yet (only "
+                         "'off' runs)")
+    ap.add_argument("--spec_k", type=int, default=None,
+                    help="draft tokens per verify step: not ported yet "
+                         "(setting it raises)")
+    ap.add_argument("--device", default="auto",
+                    help="auto (the GPU; raises without one) | cuda | cpu")
+    args = ap.parse_args(argv if argv is not None else sys.argv[1:])
+    if args.num_samples < 1:
+        ap.error(f"--num_samples must be >= 1, got {args.num_samples}")
+    if args.spec != "off" or args.spec_k is not None:
+        raise NotImplementedError(
+            f"--spec={args.spec} --spec_k={args.spec_k}: speculative "
+            "decoding is not ported yet")
+    # Fail fast on a bad --start=FILE:<path>, before loading a model.
+    start_text = resolve_start(args.start)
+
+    from nanosandbox_tpu_torch.checkpoint import TrainCheckpointer
+    from nanosandbox_tpu_torch.config import (GPTConfig, TrainConfig,
+                                              resolve_device)
+    from nanosandbox_tpu_torch.data.tokenizer import tokenizer_for_dataset
+    from nanosandbox_tpu_torch.models.gpt import GPT, cast_for_serving
+
+    device = resolve_device(args.device)
+    blob = TrainCheckpointer(args.out_dir).restore()     # the newest step
+    tcfg = TrainConfig(**blob["config"])
+    cfg = GPTConfig.from_train_config(tcfg,
+                                      blob["model"]["wte.weight"].shape[0])
+    model = GPT(cfg, device=device)
+    model.load_state_dict(blob["model"])
+    cast_for_serving(model).eval()
+    tok = tokenizer_for_dataset(args.data_dir or tcfg.data_dir,
+                                args.dataset or tcfg.dataset)
+    start_ids = tok.encode(start_text) or [0]
+    idx = torch.tensor([start_ids] * args.num_samples, dtype=torch.int64,
+                       device=device)
+    out = generate(model, idx, args.max_new_tokens,
+                   temperature=args.temperature, top_k=args.top_k,
+                   top_p=args.top_p, seed=args.seed,
+                   block_size=cfg.block_size)
+    texts = []
+    for row in out.cpu().tolist():      # one readback for every sample
+        text = tok.decode(row)
+        texts.append(text)
+        print(text)
+        print("---------------")
+    return texts
+
+
+if __name__ == "__main__":
+    main()

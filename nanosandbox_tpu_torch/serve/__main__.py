@@ -38,19 +38,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="auto",
                     help="auto (the GPU; raises without one) | cuda | cpu")
     ap.add_argument("--paged", default="on", choices=("on", "off"),
-                    help="block-paged KV pool; 'off' (the dense pool) is "
-                         "not ported yet and raises")
+                    help="on: the block-paged KV pool with prefix reuse; "
+                         "off: the dense pool, one max_len row per slot")
     ap.add_argument("--kv_page_size", type=int, default=16,
-                    help="positions per KV block")
+                    help="positions per KV block (paged only)")
     ap.add_argument("--kv_pool_blocks", type=int, default=0,
                     help="pool size in blocks; 0 = num_slots * max_len / "
-                         "page")
+                         "page (paged only)")
     ap.add_argument("--no_prefix_cache", action="store_true",
-                    help="disable radix prefix reuse")
+                    help="disable radix prefix reuse (paged only)")
     ap.add_argument("--kv_dtype", default=None,
                     choices=("fp32", "bf16", "int8", "int4"),
                     help="KV pool storage (default: the compute dtype); "
-                         "int8/int4 are not ported yet and raise")
+                         "int8 and int4 (two values per byte) keep one "
+                         "f32 scale per position and quantize on write")
     return ap
 
 
@@ -94,9 +95,10 @@ def build_server(argv: list[str] | None = None):
         tok.encode if tok is not None else None,
         (lambda ids: tok.decode([int(t) for t in ids]))
         if tok is not None else None)
+    pool = (f"paged pool {engine.kv_pool_blocks} blocks x "
+            f"{engine.kv_page_size}" if engine.paged else "dense pool")
     print(f"[serve] {cfg.n_layer}L/{cfg.n_embd}d on {engine.device}: "
-          f"{engine.num_slots} slots x {engine.max_len} ctx, paged pool "
-          f"{engine.kv_pool_blocks} blocks x {engine.kv_page_size} "
+          f"{engine.num_slots} slots x {engine.max_len} ctx, {pool} "
           f"(kv_dtype={engine.kv_dtype}); listening on {args.host}:"
           f"{server.server_address[1]} (POST /generate, GET /healthz "
           "/stats)", file=sys.stderr, flush=True)

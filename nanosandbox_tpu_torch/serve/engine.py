@@ -1,7 +1,9 @@
-"""Continuous-batching decode engine over a block-paged KV pool.
+"""Continuous-batching decode engine over a paged or dense KV pool.
 
-The counterpart of the default path of nanosandbox_tpu/serve/engine.py
-(``--paged=on``, ``--scan_k=1``):
+The counterpart of nanosandbox_tpu/serve/engine.py with ``--scan_k=1``,
+both pools, and every --kv_dtype (fp32, bf16, int8, int4; the quantized
+modes quantize on write, models/gpt.py). The paged pool (``paged=True``,
+the default):
 
   * One per-layer K/V pool of (kv_pool_blocks + 1) blocks of
     ``kv_page_size`` positions (models/gpt.py init_paged_cache) and a
@@ -20,9 +22,20 @@ The counterpart of the default path of nanosandbox_tpu/serve/engine.py
     the drop block and their tokens are never read. Per-slot decode
     operands live on the device; admission and release update them in
     place, so the decode step uploads nothing.
-  * Sampling is per-row and keyed by (seed, position) (sample.py): a
-    request's tokens do not depend on the rest of its batch.
 
+The dense pool (``paged=False``): one (H, max_len, D) row per slot
+(models/gpt.py init_cache). An admission wave of n requests, padded up
+the ladder to k rows and to its prefill bucket L, prefills a temp cache
+init_cache(k, L) in the compute dtype (scalar cache_index 0: causal
+attention, K4), then scatter_cache_rows writes its first n rows onto the
+wave's slots (quantizing for an int8/int4 pool). JAX scatters all k rows
+and drops the padding rows' by an out-of-range slot id; the host knows
+n, so here they are sliced off. The decode step writes each row at its
+own position and attends with K3 (flash_decode); a parked row writes
+into its own row at position 0, as in JAX. There is no prefix cache.
+
+On both pools sampling is per-row and keyed by (seed, position)
+(sample.py): a request's tokens do not depend on the rest of its batch.
 The loop is synchronous — dispatch, read back, retire — which is the
 JAX engine's ``pipeline=False``; outputs are identical either way. The
 one-step pipeline, scan_k, speculative decoding, chunked prefill,
@@ -41,8 +54,9 @@ import numpy as np
 import torch
 
 from nanosandbox_tpu_torch.config import resolve_device
-from nanosandbox_tpu_torch.models.gpt import (GPT, init_paged_cache,
-                                              kv_torch_dtype)
+from nanosandbox_tpu_torch.models.gpt import (GPT, init_cache,
+                                              init_paged_cache, kv_mode,
+                                              scatter_cache_rows)
 from nanosandbox_tpu_torch.ops import _build
 from nanosandbox_tpu_torch.sample import sample_token_rows
 from nanosandbox_tpu_torch.serve.paged import (Allocation, BlockPool,
@@ -82,25 +96,26 @@ class Result:
 class _Active:
     req: Request
     slot: int
-    alloc: Allocation
+    alloc: Optional[Allocation]             # None on the dense pool
     tokens: List[int] = field(default_factory=list)
     submit_t: float = 0.0
     first_token_t: float = 0.0
 
 
 class Engine:
-    """submit() / step() / drain() over a paged KV pool on ``device``.
+    """submit() / step() / drain() over a KV pool on ``device``.
 
     model : a GPT whose weights are already in their serving dtype
         (models/gpt.py cast_for_serving); moved to ``device``.
     num_slots : concurrent requests (the decode batch).
     max_len : per-request positions (prompt + new tokens); capped at
         block_size.
-    kv_dtype : 'fp32' | 'bf16' (default: the compute dtype). 'int8' and
-        'int4' raise NotImplementedError: not ported yet.
-    paged : must be True; the dense slot pool is not ported yet.
+    kv_dtype : 'fp32' | 'bf16' | 'int8' | 'int4' (default: the compute
+        dtype).
+    paged : the block-paged pool (default) or, False, the dense one.
     kv_page_size / kv_pool_blocks / prefix_cache : the paged pool, as in
-        the JAX engine (default pool: num_slots * max_len / page blocks).
+        the JAX engine (default pool: num_slots * max_len / page blocks);
+        unused by the dense pool.
     device : 'auto' (the GPU; raises without one), 'cuda' or 'cpu'.
     """
 
@@ -110,32 +125,35 @@ class Engine:
                  kv_page_size: int = 16,
                  kv_pool_blocks: Optional[int] = None,
                  prefix_cache: bool = True, device: str = "auto"):
-        if not paged:
-            raise NotImplementedError(
-                "paged=False (the dense per-slot KV pool) is not ported "
-                "yet; the paged pool is")
-        if kv_page_size < 1:
+        if paged and kv_page_size < 1:
             raise ValueError(f"kv_page_size must be >= 1, got "
                              f"{kv_page_size}")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         cfg = self.cfg = model.cfg
-        pool_dtype = kv_torch_dtype(cfg, kv_dtype)
-        self.kv_dtype = "bf16" if pool_dtype == torch.bfloat16 else "fp32"
+        self.kv_dtype = kv_mode(cfg, kv_dtype)
         self.num_slots = num_slots
         self.max_len = min(max_len or cfg.block_size, cfg.block_size)
         # Prefill buckets: the power-of-two ladder up to max_len.
         self.sched = SlotScheduler(num_slots, default_buckets(self.max_len))
         self.admit_buckets = self.sched.admit_buckets
-        self.kv_page_size = int(kv_page_size)
-        self.slot_blocks = -(-self.max_len // self.kv_page_size)
-        self.kv_pool_blocks = int(kv_pool_blocks
-                                  or num_slots * self.slot_blocks)
-        self._pool = init_paged_cache(cfg, self.kv_pool_blocks,
-                                      self.kv_page_size, kv_dtype,
-                                      device=self.device)
-        self.block_pool = BlockPool(self.kv_pool_blocks, self.kv_page_size,
-                                    prefix_cache=prefix_cache)
+        self.paged = bool(paged)
+        self.block_pool: Optional[BlockPool] = None
+        if self.paged:
+            self.kv_page_size = int(kv_page_size)
+            self.slot_blocks = -(-self.max_len // self.kv_page_size)
+            self.kv_pool_blocks = int(kv_pool_blocks
+                                      or num_slots * self.slot_blocks)
+            self._pool = init_paged_cache(cfg, self.kv_pool_blocks,
+                                          self.kv_page_size, kv_dtype,
+                                          device=self.device)
+            self.block_pool = BlockPool(self.kv_pool_blocks,
+                                        self.kv_page_size,
+                                        prefix_cache=prefix_cache)
+        else:
+            self.kv_page_size = self.slot_blocks = self.kv_pool_blocks = 0
+            self._pool = init_cache(cfg, num_slots, self.max_len, kv_dtype,
+                                    device=self.device)
         self._reset_slot_state()
         if self.device.type == "cuda":
             _build.library()       # build the kernels before any request
@@ -166,13 +184,15 @@ class Engine:
         self._topp = torch.ones(S, dtype=torch.float32, device=dev)
         self._seed = torch.zeros(S, dtype=torch.int64, device=dev)
         self._live = torch.zeros(S, dtype=torch.bool, device=dev)
-        self._table = torch.full((S, self.slot_blocks), self.kv_pool_blocks,
-                                 dtype=torch.int32, device=dev)
+        self._table = (torch.full((S, self.slot_blocks), self.kv_pool_blocks,
+                                  dtype=torch.int32, device=dev)
+                       if self.paged else None)
 
     def _release_row(self, slot: int) -> None:
-        """Park one slot: pos 0, token 0, greedy, and the whole table row
-        on the sentinel, so its ride-along decode writes go to the drop
-        block instead of a block the host has freed or donated."""
+        """Park one slot: pos 0, token 0, greedy and, paged, the whole
+        table row on the sentinel, so its ride-along decode writes go to
+        the drop block instead of a block the host has freed or donated.
+        A parked dense row writes into its own row at position 0."""
         self._pos[slot] = 0
         self._tok[slot] = 0
         self._temp[slot] = 0.0
@@ -180,7 +200,8 @@ class Engine:
         self._topp[slot] = 1.0
         self._seed[slot] = 0
         self._live[slot] = False
-        self._table[slot] = self.kv_pool_blocks
+        if self.paged:
+            self._table[slot] = self.kv_pool_blocks
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -220,11 +241,12 @@ class Engine:
                          f"prompt ({plen}) + max_new_tokens "
                          f"({max_new_tokens}) exceeds the per-request KV "
                          f"length {self.max_len}")
-        need = self.block_pool.blocks_needed(plen, max_new_tokens)
-        if need > self.kv_pool_blocks:
-            self._reject("pool_too_small",
-                         f"request needs {need} KV blocks but the pool "
-                         f"holds {self.kv_pool_blocks}")
+        if self.paged:
+            need = self.block_pool.blocks_needed(plen, max_new_tokens)
+            if need > self.kv_pool_blocks:
+                self._reject("pool_too_small",
+                             f"request needs {need} KV blocks but the pool "
+                             f"holds {self.kv_pool_blocks}")
         rid = next(self._rid)
         req = Request(rid=rid, prompt=prompt, max_new_tokens=max_new_tokens,
                       temperature=float(temperature), top_k=int(top_k),
@@ -270,6 +292,14 @@ class Engine:
 
     def _admit_waves(self, finished: List[Result]) -> None:
         while True:
+            if not self.paged:
+                wave = self.sched.next_admission_wave()
+                if wave is None:
+                    return
+                reqs, slots, bucket = wave
+                self._prefill_wave(reqs, slots, [None] * len(reqs), bucket,
+                                   finished)
+                continue
             allocs: List[Allocation] = []
 
             def try_alloc(req: Request) -> bool:
@@ -286,11 +316,14 @@ class Engine:
             self._prefill_wave(reqs, slots, allocs, bucket, finished)
 
     def _prefill_wave(self, reqs: List[Request], slots: List[int],
-                      allocs: List[Allocation], bucket: int,
+                      allocs: List[Optional[Allocation]], bucket: int,
                       finished: List[Result]) -> None:
-        """One (rung, bucket) prefill forward against the pool, first
-        tokens sampled from each row's last true position with the
-        (seed, true_len) key the decode stream continues from."""
+        """One (rung, bucket) prefill forward — against the paged pool
+        from each row's prefix hit on, or into a dense temp cache whose
+        first n rows are scattered onto the wave's slots (module
+        docstring) — then first tokens sampled from each row's last true
+        position with the (seed, true_len) key the decode stream
+        continues from."""
         k, n = self.sched.rung_for(len(reqs)), len(reqs)
         page = self.kv_page_size
         tokens = np.zeros((k, bucket), np.int64)
@@ -303,19 +336,30 @@ class Engine:
         top_ks = np.zeros(k, np.int64)
         top_ps = np.ones(k, np.float32)
         for i, (req, a) in enumerate(zip(reqs, allocs)):
-            hit = a.n_hit * page
+            hit = a.n_hit * page if a is not None else 0
             sfx = req.prompt[hit:]
             tokens[i, :len(sfx)] = sfx
-            tables[i, :len(a.table)] = a.table
+            if a is not None:
+                tables[i, :len(a.table)] = a.table
             hits[i], true_lens[i] = hit, len(req.prompt)
             seeds[i], temps[i] = req.seed, req.temperature
             top_ks[i], top_ps[i] = req.top_k, req.top_p
         d_hits, d_true = self._to_dev(hits), self._to_dev(true_lens)
-        d_tables = self._to_dev(tables)
         d_seeds, d_temps = self._to_dev(seeds), self._to_dev(temps)
         d_topk, d_topp = self._to_dev(top_ks), self._to_dev(top_ps)
-        h = self.model.hidden(self._to_dev(tokens), cache=self._pool,
-                              cache_index=d_hits, block_table=d_tables)
+        d_tokens = self._to_dev(tokens)
+        d_tables = None
+        if self.paged:
+            d_tables = self._to_dev(tables)
+            h = self.model.hidden(d_tokens, cache=self._pool,
+                                  cache_index=d_hits, block_table=d_tables)
+        else:
+            temp = init_cache(self.cfg, k, bucket, device=self.device)
+            h = self.model.hidden(d_tokens, cache=temp, cache_index=0)
+            scatter_cache_rows(self._pool,
+                               [tuple(x[:n] for x in layer) for layer in temp],
+                               torch.tensor(slots, device=self.device))
+            del temp
         rows = torch.arange(k, device=self.device)
         logits = self.model.head(h[rows, (d_true - d_hits - 1).long()])
         toks = sample_token_rows(
@@ -333,7 +377,8 @@ class Engine:
         self._topk[idx] = d_topk[:n]
         self._topp[idx] = d_topp[:n]
         self._seed[idx] = d_seeds[:n]
-        self._table[idx] = d_tables[:n]
+        if self.paged:
+            self._table[idx] = d_tables[:n]
         self._live[idx] = True
         host = torch.where(ok, toks, self.cfg.vocab_size).cpu().tolist()
         self.waves += 1
@@ -342,7 +387,8 @@ class Engine:
         for i, (req, slot, a) in enumerate(zip(reqs, slots, allocs)):
             self._commit_admission(req, slot, a, host[i], now, finished)
 
-    def _commit_admission(self, req: Request, slot: int, alloc: Allocation,
+    def _commit_admission(self, req: Request, slot: int,
+                          alloc: Optional[Allocation],
                           first_tok: int, now: float,
                           finished: List[Result]) -> None:
         self.admitted += 1
@@ -408,9 +454,10 @@ class Engine:
         self.sched.release(st.slot)
         self._release_row(st.slot)
         donate = reason != "failed"
-        self.block_pool.release(st.alloc, donate=donate)
         digest: tuple = ()
-        if donate and self.block_pool.cache is not None:
+        if self.paged:
+            self.block_pool.release(st.alloc, donate=donate)
+        if donate and self.paged and self.block_pool.cache is not None:
             digest = tuple(prefix_digests(st.req.prompt, self.kv_page_size))
         self.completed += 1
         if len(st.tokens) > 1:
@@ -447,10 +494,12 @@ class Engine:
             "device": str(self.device),
             "num_slots": self.num_slots,
             "max_len": self.max_len,
+            "paged": self.paged,
             "kv_dtype": self.kv_dtype,
             "kv_page_size": self.kv_page_size,
             "kv_pool_blocks": self.kv_pool_blocks,
-            "kv_pool": self.block_pool.stats(),
+            "kv_pool": (self.block_pool.stats() if self.paged
+                        else {"paged": False}),
             "prefill_buckets": list(self.sched.buckets),
             "admit_buckets": list(self.admit_buckets),
             "active": len(self._active),

@@ -1,9 +1,12 @@
 """Where a serving step's time goes, on the GPU.
 
     python -m nanosandbox_tpu_torch.serve.profile [--num_slots=8]
+        [--paged=on|off] [--kv_dtype=fp32|bf16|int8|int4]
 
-Builds GPT-2 124M (seeded random weights, bf16) behind the paged
-Engine, runs one untimed one-token request (CUDA library setup), fills
+Builds GPT-2 124M (seeded random weights, bf16) behind the Engine (the
+paged pool by default, or the dense one; the pool in --kv_dtype, default
+the compute dtype), runs one untimed one-token request (CUDA library
+setup), fills
 every slot with a PROMPT_LEN-token greedy request (one prefill wave),
 then traces STEPS batched decode steps with torch.profiler. Prints one
 JSON object: the card (nvidia-smi name and power limit), the prefill
@@ -37,10 +40,10 @@ def _card() -> str:
 
 
 def _kind(name: str) -> str:
-    if "paged_decode_kernel" in name:
-        return "paged_decode_kernel"
-    if "paged_prefill_kernel" in name:
-        return "paged_prefill_kernel"
+    for kernel in ("paged_decode_kernel", "paged_prefill_kernel",
+                   "flash_decode_kernel", "flash_fwd_kernel"):
+        if kernel in name:
+            return kernel
     low = name.lower()
     if any(w in low for w in ("gemm", "gemv", "cutlass", "sm90", "nvjet")):
         return "matmul"
@@ -60,6 +63,9 @@ def main(argv: list[str] | None = None) -> dict:
         prog="python -m nanosandbox_tpu_torch.serve.profile")
     ap.add_argument("--num_slots", type=int, default=8)
     ap.add_argument("--device", default="auto")
+    ap.add_argument("--paged", default="on", choices=("on", "off"))
+    ap.add_argument("--kv_dtype", default=None,
+                    choices=("fp32", "bf16", "int8", "int4"))
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     if device.type != "cuda":
@@ -69,6 +75,7 @@ def main(argv: list[str] | None = None) -> dict:
     model = cast_for_serving(GPT(cfg, device=device, generator=torch.Generator(
         device=device).manual_seed(SEED)))
     engine = Engine(model, num_slots=args.num_slots, max_len=cfg.block_size,
+                    kv_dtype=args.kv_dtype, paged=args.paged == "on",
                     device=device)
     engine.submit([0], 2)            # first-call library setup, untimed
     engine.drain()
@@ -107,7 +114,10 @@ def main(argv: list[str] | None = None) -> dict:
     out = {
         "card": _card(),
         "config": f"GPT-2 124M bf16, {args.num_slots} slots, prompt "
-                  f"{PROMPT_LEN}, paged page 16",
+                  f"{PROMPT_LEN}, "
+                  + (f"paged page {engine.kv_page_size}" if engine.paged
+                     else "dense pool")
+                  + f", kv {engine.kv_dtype}",
         "prefill_wave_plus_first_decode_ms": 1e3 * first,
         "decode_step_ms": step_ms,
         "decode_step_ms_under_profiler": wall_ms,

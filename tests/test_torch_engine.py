@@ -3,10 +3,14 @@
 Greedy outputs of the port's Engine(device="cpu") must be token-identical
 to the JAX Engine's on the tiny fp32 model (num_slots=2, max_len=64,
 page 16), over 4 prompts of which two share a 32-token prefix, so the
-second is admitted as a prefix hit. Then the sampling contract: a seed
-replays, top_k=1 is greedy, a request's tokens do not depend on its
-batch, and the per-row filter equals the JAX filter. Last, one HTTP
-round trip on an ephemeral port.
+second is admitted as a prefix hit. The same holds for the dense pool
+(paged=False) at fp32 and int8 and for int8 and int4 paged pools, on a
+mixed continuous batch (6 prompts of 1-39 tokens, 2-11 new tokens each,
+through 4 slots), against the JAX Engine with its Pallas kernels in
+interpret mode. Then the sampling contract: a seed replays, top_k=1 is
+greedy, a request's tokens do not depend on its batch, and the per-row
+filter equals the JAX filter. Last, one HTTP round trip on an ephemeral
+port.
 """
 
 import json
@@ -95,6 +99,30 @@ def test_greedy_tokens_identical_to_jax_engine(models, engine):
     assert all(len(t) == NEW for t in got)
     assert engine.stats()["kv_pool"]["prefix_hit_requests"] >= 1
     assert jeng.stats()["kv_pool"]["prefix_hit_tokens"] > 0
+
+
+def _run_mixed(engine, n=6, seed=0):
+    """tests/test_flash_decode.py's mixed batch: n greedy requests of
+    1-39 prompt tokens and 2-11 new tokens, submitted together."""
+    rng = np.random.default_rng(seed)
+    rids = [engine.submit(rng.integers(0, 50, int(rng.integers(1, 40)))
+                          .tolist(), int(rng.integers(2, 12)))
+            for _ in range(n)]
+    res = {r.rid: r for r in engine.drain()}
+    return [res[r].tokens for r in rids]
+
+
+@pytest.mark.parametrize("kv_dtype,paged", [
+    ("fp32", False), ("int8", True), ("int4", True), ("int8", False)])
+def test_pools_and_kv_modes_match_jax_engine(models, kv_dtype, paged):
+    jmodel, params, model = models
+    kw = dict(num_slots=4, max_len=64, kv_dtype=kv_dtype, paged=paged)
+    jeng = JaxEngine(jmodel, params, decode_impl="pallas_interpret", **kw)
+    eng = Engine(model, device="cpu", **kw)
+    assert _run_mixed(eng) == _run_mixed(jeng)
+    st = eng.stats()
+    assert st["paged"] == paged and st["kv_dtype"] == kv_dtype
+    assert st["completed"] == 6
 
 
 def test_sampling_seed_replays(engine):

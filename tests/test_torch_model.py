@@ -22,8 +22,7 @@ from nanosandbox_tpu_torch.checkpoint import (load_for_serving,
                                               save_for_serving)
 from nanosandbox_tpu_torch.config import GPTConfig
 from nanosandbox_tpu_torch.models.convert import state_dict_from_jax_params
-from nanosandbox_tpu_torch.models.gpt import (GPT, init_paged_cache,
-                                              kv_torch_dtype)
+from nanosandbox_tpu_torch.models.gpt import GPT, init_paged_cache, kv_mode
 
 DIMS = dict(n_layer=2, n_head=2, n_embd=64, block_size=64, vocab_size=65)
 ATOL = 1e-4
@@ -150,9 +149,19 @@ def test_state_dict_round_trips_through_serving_checkpoint(twin, tmp_path):
 
 def test_kv_dtype_modes(twin):
     cfg = twin[3]
-    assert kv_torch_dtype(cfg, None) == torch.float32
-    assert kv_torch_dtype(cfg, "bf16") == torch.bfloat16
-    assert init_paged_cache(cfg, 3, 8)[0][0].shape == (4, 2, 8, 32)
-    for mode in ("int8", "int4"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            init_paged_cache(cfg, 3, 8, kv_dtype=mode)
+    assert kv_mode(cfg, None) == "fp32" and kv_mode(cfg, "bfloat16") == "bf16"
+    k = init_paged_cache(cfg, 3, 8)[0][0]
+    assert k.shape == (4, 2, 8, 32) and k.dtype == torch.float32
+    assert init_paged_cache(cfg, 3, 8, kv_dtype="bf16")[0][0].dtype == (
+        torch.bfloat16)
+    # int8 / int4: 4-tuples (K, V, k_scale, v_scale) with the drop block,
+    # int4 packing two dims per byte.
+    for mode, dtype, d in (("int8", torch.int8, 32), ("int4", torch.uint8,
+                                                      16)):
+        assert kv_mode(cfg, mode) == mode
+        k, v, ks, vs = init_paged_cache(cfg, 3, 8, kv_dtype=mode)[0]
+        assert k.shape == v.shape == (4, 2, 8, d) and k.dtype == dtype
+        assert ks.shape == vs.shape == (4, 2, 8)
+        assert ks.dtype == torch.float32
+    with pytest.raises(ValueError, match="unknown kv_dtype"):
+        kv_mode(cfg, "int2")

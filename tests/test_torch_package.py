@@ -8,7 +8,8 @@
   device, device='auto' raises instead of quietly choosing the CPU, and
   chip_smoke.py exits non-zero without printing a result; its engine and
   server phases rehearse on the CPU up to the launch-count check.
-* Paths not ported yet raise instead of running something else.
+* Paths not ported yet raise instead of running something else; the
+  dense and int8/int4 pools construct.
 * The port's copies of BlockPool and SlotScheduler pass an admit / hit /
   release round trip.
 """
@@ -19,6 +20,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -108,13 +110,16 @@ def test_chip_smoke_refuses_to_run_without_a_gpu():
     assert '"ok": true' not in proc.stdout
 
 
-def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
-    """chip_smoke.py's engine, server and trainer phases, run on the CPU
-    at a tiny width: every check before the launch counts passes (greedy
-    tokens equal the recompute, 6/6 answers, a prefix hit; the trainer's
-    loss falls by 2 nats by iter 25, ckpt/30 exists, the resume continues
-    at 30), and the launch check then refuses the run, because on the
-    CPU no kernel launched."""
+def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path):
+    """chip_smoke.py's engine, server, trainer, pool and sampler phases,
+    run on the CPU at a tiny width: every check before the launch counts
+    passes (greedy tokens equal the recompute, the dense and quantized
+    engines' tokens equal the paged engine's and their plain-version
+    controls', 6/6 answers on each server, a prefix hit on the paged
+    ones; the trainer's loss falls by 2 nats by iter 25, ckpt/30 exists,
+    the resume continues at 30; the sample CLI prints its samples and
+    generate equals the argmax loop), and the launch check then refuses
+    each run, because on the CPU no kernel launched."""
     sys.path.insert(0, str(REPO))
     try:
         import chip_smoke
@@ -132,22 +137,59 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "TRAIN", [
         "--n_layer=2", "--n_head=2", "--n_embd=64", "--block_size=64",
         "--batch_size=4", "--vocab_size=256", "--learning_rate=1e-2"])
-    for phase in (chip_smoke.check_engine_fp32,
-                  lambda fd: chip_smoke.check_server(fd, "cpu"),
-                  lambda fd: chip_smoke.check_trainer(at, fd, "cpu")):
+    model, prompts = chip_smoke.fp32_model_and_prompts()
+    ref = chip_smoke.recompute(model, prompts)
+    paged = {"tokens": ref}
+    for phase in (lambda: chip_smoke.check_engine_fp32(model, prompts, ref),
+                  lambda: chip_smoke.check_server(fd, "cpu"),
+                  lambda: chip_smoke.check_server(fd, "cpu",
+                                                  ["--paged=off"]),
+                  lambda: chip_smoke.check_pools_fp32(model, prompts, ref,
+                                                      paged),
+                  lambda: chip_smoke.check_trainer(at, fd, "cpu",
+                                                   str(tmp_path)),
+                  lambda: chip_smoke.check_sampler(str(tmp_path))):
         with pytest.raises(SystemExit, match="bypassed a kernel"):
-            phase(fd)
+            phase()
+
+
+def test_chip_smoke_instance_checks_rehearse_on_cpu(monkeypatch):
+    """chip_smoke.py's checks of the other kernel instances (every head
+    dim and (query, kv mode) pair, and rows with no key) run on the CPU,
+    where both sides are the plain versions, and pass."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    from nanosandbox_tpu_torch.ops import flash_decode as fd
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    chip_smoke.check_other_instances(fd, np.random.default_rng(0))
 
 
 def test_unported_paths_raise():
+    """The dense pool and the int8/int4 pools are ported and construct;
+    speculative verify (T > 1 at a nonzero cache_index) and the
+    sampler's --spec / --spec_k are not, and raise."""
+    from nanosandbox_tpu_torch import sample
+    from nanosandbox_tpu_torch.models.gpt import init_cache
+
     model = GPT(GPTConfig(n_layer=1, n_head=2, n_embd=64, block_size=32,
                           vocab_size=16, compute_dtype="float32"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Engine(model, num_slots=1, max_len=32, paged=False, device="cpu")
-    for kvd in ("int8", "int4"):
+    for kvd in ("fp32", "int8", "int4"):
+        for paged in (True, False):
+            eng = Engine(model, num_slots=1, max_len=32, kv_dtype=kvd,
+                         paged=paged, device="cpu")
+            assert eng.stats()["kv_dtype"] == kvd
+            assert eng.stats()["paged"] == paged
+    with torch.no_grad(), pytest.raises(NotImplementedError,
+                                        match="not ported yet"):
+        model(torch.zeros(1, 3, dtype=torch.int64),
+              cache=init_cache(model.cfg, 1, 32), cache_index=5)
+    for flag in ("--spec=ngram", "--spec_k=4"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
-            Engine(model, num_slots=1, max_len=32, kv_dtype=kvd,
-                   device="cpu")
+            sample.main([flag, "--out_dir=nowhere"])
 
 
 def test_block_pool_and_scheduler_round_trip():

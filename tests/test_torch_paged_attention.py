@@ -105,10 +105,12 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
                                                              tt, tl))
     assert torch.equal(pre, tfd.torch_prefill_attention_paged(tqT, tk, tv,
                                                               tt, ts))
-    assert tfd.launches == {"flash_decode_paged": 0,
-                            "flash_prefill_paged": 0}
-    assert tfd.plain_cuda_calls == {"torch_decode_attention_paged": 0,
-                                    "torch_prefill_attention_paged": 0}
+    assert set(tfd.launches) == {
+        f"{fn}/{mode}" for fn in ("flash_decode", "flash_decode_paged",
+                                  "flash_prefill_paged")
+        for mode in ("fp32", "bf16", "int8", "int4")}
+    assert not any(tfd.launches.values())
+    assert not any(tfd.plain_cuda_calls.values())
 
 
 def test_bf16_pool_attends_in_f32():
@@ -145,13 +147,32 @@ def test_decode_rows_without_keys_return_zeros():
 
 
 def test_quantized_pools_raise_not_ported():
-    q = torch.zeros(1, 1, 32)
-    k = torch.zeros(2, 1, 8, 32)
-    tbl = torch.zeros(1, 1, dtype=torch.int32)
-    n = torch.ones(1, dtype=torch.int32)
-    s = torch.ones(2, 1, 8)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tfd.flash_decode_paged(q, k, k, tbl, n, k_scale=s, v_scale=s)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tfd.flash_prefill_paged(q[:, :, None], k, k, tbl, n - 1,
-                                k_scale=s, v_scale=s)
+    """Quantized pools are ported: an int8 pool with its scales runs on
+    the CPU through the plain versions (no launch), equal to the fp32
+    pool the scales dequantize to, and scales without an int8/int4 pool
+    (or such a pool without scales) raise."""
+    rng = np.random.default_rng(9)
+    B, H, page, D, nb, N = 2, 2, 8, 32, 3, 8
+    lengths = np.array([5, 24], np.int32)
+    k, v, table = _pool_and_table(rng, B, H, page, D, nb, N, lengths)
+    (kq, ks), (vq, vs) = (tfd.quantize_kv_rows(torch.from_numpy(x))
+                          for x in (k, v))
+    deq_k, deq_v = kq.float() * ks[..., None], vq.float() * vs[..., None]
+    q1 = torch.from_numpy(rng.normal(size=(B, H, D)).astype(np.float32))
+    qT = torch.from_numpy(rng.normal(size=(B, H, 6, D)).astype(np.float32))
+    tt, tl = _t(table, lengths)
+    start = torch.tensor([0, 8], dtype=torch.int32)
+    tfd.reset_counts()
+    dec = tfd.flash_decode_paged(q1, kq, vq, tt, tl, k_scale=ks, v_scale=vs)
+    pre = tfd.flash_prefill_paged(qT, kq, vq, tt, start, k_scale=ks,
+                                  v_scale=vs)
+    assert not any(tfd.launches.values())
+    torch.testing.assert_close(dec, tfd.flash_decode_paged(
+        q1, deq_k, deq_v, tt, tl), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(pre, tfd.flash_prefill_paged(
+        qT, deq_k, deq_v, tt, start), atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="non-quantized"):
+        tfd.flash_decode_paged(q1, deq_k, deq_v, tt, tl, k_scale=ks,
+                               v_scale=vs)
+    with pytest.raises(ValueError, match="needs k_scale"):
+        tfd.flash_prefill_paged(qT, kq, vq, tt, start)
