@@ -6,7 +6,10 @@ Phases (each prints what it found; any failure exits non-zero):
 
   1. device   torch / CUDA versions, the card's name and power limit;
   2. build    the CUDA kernels from nanosandbox_tpu_torch/csrc (into
-              build/), with nvcc's register and spill report;
+              build/), with nvcc's register and spill report, and for
+              each tensor-core kernel (bf16 K4 and K5, head_dim 32, 64,
+              128) its registers, spill stores (must be 0) and
+              HMMA/HGMMA count in the SASS (cuobjdump; must not be 0);
   3. kernels  each kernel against its plain PyTorch version on the card
               at GPT-2 124M shapes, under fp32 and bf16 queries: K2 and
               K1 (H 12, D 64, page 16, 512 blocks, 64 table entries per
@@ -42,7 +45,10 @@ Phases (each prints what it found; any failure exits non-zero):
               output's max |err| and ||err|| within a relative limit of
               its reference (1e-4 fp32, 2e-2 bf16); dropout 0.1 with a
               fixed seed, head_dim 32 and 128, and T = 200 (not a tile
-              multiple), correctness only; then each kernel's time on
+              multiple), correctness only; in bf16 also T = 1000 (B 1,
+              H 12), T = 1 and 17 (B 1, H 1; at T = 1 dq and dk are 0 in
+              exact arithmetic and meet the absolute limit alone) and
+              head_dim 128 with dropout 0.1; then each kernel's time on
               the bf16 inputs just checked, beside its bound, its plain
               version and F.scaled_dot_product_attention (is_causal;
               forward, and forward+backward minus forward);
@@ -156,6 +162,86 @@ def time_ms(fn, reps: int = 25) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the build
+# ---------------------------------------------------------------------------
+
+# The kernels on the tensor cores, by the name their symbols carry.
+TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_mma_kernel")
+
+
+def ptxas_report(log: str) -> dict:
+    """{mangled kernel name: (registers, spill store bytes)} from an
+    nvcc -Xptxas -v log."""
+    out = {}
+    for block in log.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        out[block.split("'", 1)[0]] = (int(regs.group(1)) if regs else 0,
+                                       int(spill.group(1)) if spill else 0)
+    return out
+
+
+def sass_mma_counts(sass: str) -> dict:
+    """{mangled kernel name: tensor-core instructions (HMMA / HGMMA)} in
+    cuobjdump -sass output."""
+    return {block.split()[0]: len(re.findall(r"\bHG?MMA\.", block))
+            for block in sass.split("Function : ")[1:]}
+
+
+def cuobjdump_sass(lib_path: str, nvcc: str) -> str:
+    import os
+
+    return subprocess.run(
+        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+         lib_path], capture_output=True, text=True, timeout=300,
+        check=True).stdout
+
+
+def kernel_label(mangled: str) -> str:
+    """name<D> of a kernel template's mangled symbol."""
+    name = next(n for n in TENSOR_CORE_KERNELS if n in mangled)
+    head_dim = re.search(r"ILi(\d+)", mangled).group(1)
+    return f"{name}<D={head_dim}>"
+
+
+def check_build(_build) -> None:
+    """Builds the kernels; prints each library's ptxas summary, and the
+    registers, spill stores and SASS tensor-core instructions of every
+    tensor-core kernel. Fails if one of those has no HMMA / HGMMA or
+    spills."""
+    _build.library()
+    info = _build.build_info
+    print(f"  {len(info['libs'])} libraries in {info['seconds']:.1f} s "
+          "(one nvcc per source, in parallel)")
+    tc = []
+    for lib in info["libs"]:
+        with open(lib["log"]) as f:
+            report = ptxas_report(f.read())
+        regs = [r for r, _ in report.values()]
+        print(f"  {lib['source']} -> {lib['path']} "
+              f"({'built' if lib['built'] else 'cached'}); ptxas: "
+              f"{len(report)} kernels, registers {min(regs, default=0)}-"
+              f"{max(regs, default=0)}, max spill stores "
+              f"{max((s for _, s in report.values()), default=0)} bytes")
+        names = [n for n in report
+                 if any(k in n for k in TENSOR_CORE_KERNELS)]
+        if names:
+            mma = sass_mma_counts(cuobjdump_sass(lib["path"],
+                                                 _build._nvcc()))
+            tc += [(kernel_label(n), *report[n], mma.get(n, 0))
+                   for n in names]
+    if len(tc) != 3 * len(TENSOR_CORE_KERNELS):
+        fail(f"expected the tensor-core kernels at head_dim 32, 64 and "
+             f"128, found {[t[0] for t in tc]}")
+    for label, regs, spill, mma in sorted(tc):
+        print(f"  {label}: {regs} registers, {spill} bytes spill stores, "
+              f"{mma} HMMA/HGMMA instructions in SASS")
+        if mma == 0 or spill:
+            fail(f"{label}: {mma} tensor-core instructions in its SASS, "
+                 f"{spill} bytes spilled (needs > 0 and 0)")
 
 
 # ---------------------------------------------------------------------------
@@ -662,10 +748,15 @@ def errors(got, ref) -> dict:
             "norm": float(diff.norm() / ref.norm().clamp_min(1e-30))}
 
 
-def check_attention(at, name, q, k, v, do, rate=0.0, seed=None) -> dict:
+def check_attention(at, name, q, k, v, do, rate=0.0, seed=None,
+                    zero_ref=()) -> dict:
     """K4, K5 and K6 + K7 on one case against the plain versions on the
     same inputs (the backward's: the kernel forward's o and lse). Returns
-    the errors of each output; fails past TRAIN_TOL."""
+    the errors of each output; fails past TRAIN_TOL. zero_ref names the
+    gradients ("dq", "dk") that are 0 in exact arithmetic (T = 1: one key,
+    so the softmax is 1 whatever the score and dS = 0): both sides then
+    hold rounding noise of the f32 row term, the relative limits have no
+    scale, and those outputs are held to the absolute limit alone."""
     kw = dict(dropout_rate=rate, seed=seed)
     o, lse = at.flash_attention_fwd(q, k, v, **kw)
     ro, rlse = at.torch_flash_attention(q, k, v, **kw)
@@ -688,8 +779,10 @@ def check_attention(at, name, q, k, v, do, rate=0.0, seed=None) -> dict:
     tol = TRAIN_TOL[q.dtype]
     for key, e in errs.items():
         lim = tol["o"] if key in ("o", "lse") else tol["g"]
-        if not (e["err"] <= lim and e["err"] <= tol["rel"] * e["ref"]
-                and e["norm"] <= tol["rel"]):
+        zero = key.split("_")[-1] in zero_ref
+        if not (e["err"] <= lim and (zero or (
+                e["err"] <= tol["rel"] * e["ref"]
+                and e["norm"] <= tol["rel"]))):
             fail(f"flash attention {name}: {key} max |err| {e['err']} "
                  f"(limit {lim}), max |ref| {e['ref']} (max |err| / max "
                  f"|ref| limit {tol['rel']}), ||err|| / ||ref|| {e['norm']} "
@@ -733,6 +826,19 @@ def check_train_kernels(at) -> dict:
         rows.append(check_attention(at, f"B=2 H=4 T=200 D={D}",
                                     *qkv(rng, 2, 4, 200, D, dtype), rate=0.1,
                                     seed=[7, 0, 0, 3, 5]))
+    # bf16 only, the tensor-core kernels' tile edges: a ragged last tile
+    # after a long walk, one partial tile, head_dim 128 with dropout.
+    bf = torch.bfloat16
+    rows.append(check_attention(at, f"B=1 H={H} T=1000 D={D}",
+                                *qkv(rng, 1, H, 1000, D, bf)))
+    rows.append(check_attention(at, f"B=1 H=1 T=1 D={D}",
+                                *qkv(rng, 1, 1, 1, D, bf),
+                                zero_ref=("dq", "dk")))
+    rows.append(check_attention(at, f"B=1 H=1 T=17 D={D}",
+                                *qkv(rng, 1, 1, 17, D, bf)))
+    rows.append(check_attention(at, "B=2 H=4 T=256 D=128",
+                                *qkv(rng, 2, 4, 256, 128, bf), rate=0.1,
+                                seed=SEED))
     print("  each output: max |err| of max |ref| (||err|| / ||ref||)")
     for r in rows:
         print(f"  {r['case']}:\n    " + ", ".join(
@@ -873,7 +979,7 @@ def prepare_bytes(root: str, dataset: str) -> None:
 
 
 def kernel_kind(name: str) -> str:
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd" in name:
         return "flash forward"
     if "flash_bwd" in name:
         return "flash backward"
@@ -1193,21 +1299,7 @@ def main() -> int:
     print(f"  nvidia-smi: {smi}")
 
     print("== phase 2: build")
-    _build.library()
-    info = _build.build_info
-    print(f"  {len(info['libs'])} libraries in {info['seconds']:.1f} s "
-          "(one nvcc per source, in parallel)")
-    for lib in info["libs"]:
-        with open(lib["log"]) as f:
-            ptx = f.read()
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptx)]
-        spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores",
-                                             ptx)]
-        print(f"  {lib['source']} -> {lib['path']} "
-              f"({'built' if lib['built'] else 'cached'}); ptxas: "
-              f"{len(regs)} kernels, registers {min(regs, default=0)}-"
-              f"{max(regs, default=0)}, max spill stores "
-              f"{max(spills, default=0)} bytes")
+    check_build(_build)
 
     print("== phase 3: kernels vs plain versions (124M shapes)")
     kern = check_kernels(fd)
@@ -1312,9 +1404,9 @@ def main() -> int:
             pools[f"dense {mode}"]["launches"][f"flash_decode/{mode}"],
             timed(f"flash_decode_kernel<{mode}>", "float32")))
     kernels += [
-        entry("flash_fwd_kernel", flash, "attention.py:180",
+        entry("flash_fwd_mma_kernel", flash, "attention.py:180",
               tl["flash_attention_fwd"], train_cases["fwd"]),
-        entry("flash_bwd_kv_kernel<with_dq>", flash, "attention.py:556",
+        entry("flash_bwd_mma_kernel", flash, "attention.py:556",
               tl["flash_attention_bwd_fused"], train_cases["fused"]),
         entry("flash_bwd_dq_kernel", flash, "attention.py:475",
               tl["flash_attention_bwd_dq"], train_cases["dq"]),

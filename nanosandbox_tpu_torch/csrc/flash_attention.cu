@@ -1,71 +1,101 @@
 // Causal flash attention for training, forward and backward, for Hopper
 // (sm_90a).
 //
-// Four kernels, each the CUDA counterpart of a Pallas kernel in
-// nanosandbox_tpu/ops/attention.py:
+// Each kernel is the CUDA counterpart of a Pallas kernel in
+// nanosandbox_tpu/ops/attention.py. Two designs, chosen by the input type
+// and nothing else:
 //
-//   flash_fwd_kernel            <- _flash_fwd_kernel (K4)
-//       o and the per-row logsumexp; optional hash dropout on p.v.
-//   flash_bwd_kv_kernel<true>   <- _flash_bwd_tiles_kernel(with_dq=True)
-//       (K5) the fused backward: dK, dV per key tile, dQ added into an f32
-//       buffer with atomicAdd.
-//   flash_bwd_dq_kernel         <- _flash_bwd_dq_kernel (K6)
-//       the split backward's dQ pass, parallel over query tiles.
-//   flash_bwd_kv_kernel<false>  <- _flash_bwd_tiles_kernel(with_dq=False)
-//       (K7) the split backward's dK/dV pass: K5 without dQ.
+//   bf16, on the tensor cores (mma.sync):
+//     flash_fwd_mma_kernel        <- _flash_fwd_kernel (K4)
+//     flash_bwd_mma_kernel        <- _flash_bwd_tiles_kernel(with_dq=True)
+//       (K5), after flash_bwd_drow_kernel, its pre-pass for the row term
+//       Drow = rowsum(dO o);
+//   f32 (every type for K6 and K7), on CUDA cores:
+//     flash_fwd_kernel<float>           <- K4
+//     flash_bwd_kv_kernel<float, true>  <- K5
+//     flash_bwd_dq_kernel               <- _flash_bwd_dq_kernel (K6), the
+//       split backward's dQ pass, parallel over query tiles;
+//     flash_bwd_kv_kernel<T, false>     <- _flash_bwd_tiles_kernel(
+//       with_dq=False) (K7), the split backward's dK/dV pass.
 //
 // What bounds them. Per (row, head) the forward does 4*D*T(T+1)/2 flops and
-// moves q, k, v and o once; the backward does 2.5x (fused) to 3.5x (split)
-// those flops over about twice the bytes. At GPT-2 124M's training shape
-// (B 16, H 12, T 1024, D 64, bf16) the forward's 25.8 GFLOP take 0.026 ms
-// at the bf16 tensor-core peak and its ~101 MB 0.030 ms at 3.35 TB/s: the
-// work sits at the ridge point, so a good kernel is bound by operations
-// on the tensor cores. This first version runs every product on CUDA
-// cores in f32 from shared memory (the f32 peak is 67 TFLOP/s, and a
-// shared-memory-fed loop reaches a fraction of it), so it runs far above
-// that bound. A tensor-core design (mma.sync or wgmma on bf16 tiles,
-// K/V fed by TMA through a ring of shared-memory stages) is later work.
+// moves q, k, v and o once; the fused backward does 2.5x those flops over
+// about twice the bytes. At GPT-2 124M's training shape (B 16, H 12,
+// T 1024, D 64, bf16) the forward's 25.8 GFLOP take 0.026 ms at the bf16
+// tensor-core peak and its ~101 MB 0.030 ms at 3.35 TB/s: the work sits at
+// the ridge point, so a kernel is bound by how fast it feeds the tensor
+// cores.
 //
-// Design. The Pallas kernels walk a sequential grid axis and keep state
-// in VMEM across it (the forward's online softmax, K5's resident dQ). CUDA
-// blocks run in no order, so:
-//   - K4 and K6 give one block a (row*head, 64-query tile) and loop over
-//     the key tiles at or before the diagonal inside the block;
-//   - K5 and K7 give one block a (row*head, 64-key tile) and loop over
-//     the query tiles at or after the diagonal; K5's dQ, summed over key
-//     tiles that run on different SMs, goes through f32 atomicAdd into a
-//     buffer the wrapper zeroes (its summation order changes from run to
-//     run; K6 + K7 give a deterministic backward instead).
-// Tiles are 64 x 64 with 256 threads; thread (ty, tx) of a 16 x 16 grid
-// owns rows ty + 16a and columns tx + 16b of a tile, so a row's 16 owners
-// are one half-warp and the softmax reductions are shuffles. Tiles are
-// staged in shared memory as f32, rows padded to D + 1 floats so the
-// column walks are free of bank conflicts. Any T is taken: rows and
-// columns past T are zero on load and masked; only tiles that cross the
+// The tensor-core design (bf16). Every product is mma.sync.m16n8k16 on
+// bf16 fragments with f32 accumulation; each warp owns 16 rows of its
+// output. Tiles stay bf16 in shared memory, each 16-byte chunk of a row
+// XOR-swizzled by the row so that ldmatrix's eight 16-byte rows fall in
+// distinct banks; operands needed transposed (V, dO, Q, dS) come through
+// ldmatrix.trans, never through a copy. Global tiles arrive by cp.async
+// through a two-stage ring: the next tile is in flight while the current
+// one is multiplied, and rows past T are zero-filled by the copy itself.
+//   - K4: a block owns 16 * warps queries (128 for D <= 64, 64 for D 128)
+//     of one (row, head); Q is loaded once into A fragments, 64-key K/V
+//     tiles stream through the ring. The online softmax runs in registers
+//     (a row's max over the four lanes that hold it, by shuffles); p is
+//     rounded to bf16 in registers and is the A fragment of p.v as it
+//     stands. A warp skips the key tiles that lie wholly past its rows.
+//     Registers are capped so that two blocks share an SM.
+//   - K5: a block owns 64 keys of one (row, head), a warp 16 of them, and
+//     walks the 32-query tiles at or after the diagonal: S^T = K Q^T and
+//     dP^T = V dO^T, then dV += P~^T dO and dK += dS^T Q from those same
+//     accumulators as A fragments. dS^T goes to shared memory once per
+//     tile; dQ += dS K (ldmatrix.trans of dS^T and of K) is split over the
+//     warps and added into the zeroed f32 buffer with 16-byte vector
+//     atomics (a lane pair trades halves so each lane holds four
+//     consecutive columns of one row); its summation order changes from
+//     run to run. Drow comes from the pre-pass, computed once per row
+//     instead of once per key tile that visits it. The small query tile
+//     keeps three blocks on an SM.
+// The CUDA-core design (f32): 64 x 64 tiles staged in shared memory as f32
+// (rows padded to D + 1 floats), a 16 x 16 grid of threads computing 4 x 4
+// outputs each, synchronous loads. It keeps the f32 kernels exact to 1e-5
+// against the plain version; TF32 products would not.
+//
+// Blocks run in no order, where the Pallas kernels walk a sequential grid
+// axis and keep state in VMEM across it (the forward's online softmax,
+// K5's resident dQ). So K4 and K6 give one block a query tile and loop
+// over the key tiles at or before the diagonal inside the block; K5 and
+// K7 give one block a key tile and loop over the query tiles at or after
+// it; K5's dQ, summed over key tiles on different SMs, goes through f32
+// atomics (K6 + K7 give a deterministic backward instead). The longest
+// walks are launched first. Any T is taken: only tiles that cross the
 // diagonal or the tail compare positions.
 //
-// Numerics follow the Pallas kernels: scores are scaled in f32 after the
-// product; the forward's l sums the UNMASKED p, and dropout touches only
-// the p.v sum; p is rounded to v's type before p.v, ds to q's type before
-// ds^T q and ds k (the MXU's bf16 inputs); the row term
-// Drow = rowsum(dO o) is recomputed in the backward; dK and dQ are scaled
-// by sm_scale at the end.
+// Numerics follow the Pallas kernels, in both designs: scores are scaled
+// in f32 after the product; the forward's l sums the UNMASKED, unrounded
+// f32 p, and dropout touches only the p.v sum; p is rounded to v's type
+// before p.v, ds to q's type before ds^T q and ds k (the MXU's bf16
+// inputs); Drow = rowsum(dO o) in f32; dK and dQ are scaled by sm_scale at
+// the end. (The tensor-core kernels take exp2 of scores pre-multiplied by
+// log2(e); lse is stored in natural log.)
 //
 // Dropout keep-mask: murmur3's fmix32 over q_pos * hash_seq_len + k_pos
 // (uint32), XORed with a per-(batch*head) stream key from the (5,) seed
 // words [seed, b_off, h_off, q_off, k_off]; kept where the hash is at or
 // above round(rate * 2^32) -- bit for bit the Pallas kernels' mask
-// (attention.py _dropout_tile_seed / _dropout_keep).
+// (attention.py _dropout_tile_seed / _dropout_keep). In an m16n8k16
+// accumulator lane l holds rows l/4 and l/4 + 8 and columns 2(l%4) and
+// 2(l%4) + 1 of each 8-column slice; the mask, lse and Drow are looked up
+// by those positions.
 //
 // Layouts (row-major, contiguous): q, k, v, o, dO, dK, dV (B*H, T, D) in
-// float or bf16 (all one type); lse (B*H, T) f32; the fused dQ buffer
-// (B*H, T, D) f32; seed (5,) int64 words holding uint32 values. Every
-// entry point returns cudaGetLastError() after its launch; the Python
-// wrapper raises when it is not cudaSuccess.
+// float or bf16 (all one type); lse and the bf16 backward's Drow scratch
+// (B*H, T) f32; the fused dQ buffer (B*H, T, D) f32; seed (5,) int64 words
+// holding uint32 values. Every entry point returns cudaGetLastError()
+// after its launches; the Python wrapper raises when it is not
+// cudaSuccess.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -204,8 +234,8 @@ __device__ __forceinline__ Dropout make_dropout(const DropoutArgs& a, int bh,
 }
 
 // ---------------------------------------------------------------------------
-// Tile helpers. A "D-tile" is kTile x (D + 1) floats, an "S-tile"
-// kTile x kSP floats.
+// Tile helpers of the CUDA-core kernels. A "D-tile" is kTile x (D + 1)
+// floats, an "S-tile" kTile x kSP floats.
 // ---------------------------------------------------------------------------
 
 // Rows [r0, r0 + kTile) of a (n_rows, D) matrix into a D-tile; rows at or
@@ -362,7 +392,7 @@ __device__ __forceinline__ void bwd_tile(
 }
 
 // ---------------------------------------------------------------------------
-// K4: forward. One block per (64-query tile, row*head).
+// K4 on CUDA cores (f32). One block per (64-query tile, row*head).
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -453,8 +483,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K5 (kWithDq) and K7: the key-parallel backward. One block per (64-key
-// tile, row*head), looping over the query tiles at or after the diagonal.
+// K5 on CUDA cores (f32; kWithDq) and K7 (every type): the key-parallel
+// backward. One block per (64-key tile, row*head), looping over the query
+// tiles at or after the diagonal.
 // ---------------------------------------------------------------------------
 
 template <typename T, int D, bool kWithDq>
@@ -601,6 +632,579 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// The tensor-core kernels (bf16): K4 and K5 on mma.sync.m16n8k16.
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kKeys = 64;  // keys per tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (4) bytes from global to shared memory, asynchronously; src_bytes 0
+// writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8, and r[i] holds matrix i's fragment (row l / 4,
+// columns 2(l % 4), +1; with .trans, rows 2(l % 4), +1 of column l / 4).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d += a b for a 16 x 16 bf16 A fragment, a 16 x 8 B fragment, f32 d.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 rounded to bf16 (round to nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Reductions over the four lanes that hold one accumulator row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Byte offset of 16-byte chunk c of row r in a swizzled tile of kCols
+// bf16 per row: the chunk index is XORed with bits of the row so that the
+// 8 rows one ldmatrix matrix reads at one chunk hit 8 distinct bank groups.
+template <int kCols>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  constexpr int kChunks = kCols / 8;
+  static_assert(kChunks == 4 || kChunks == 8 || kChunks == 16,
+                "rows of 64, 128 or 256 bytes");
+  const int x = kChunks == 4 ? (r >> 1) & 3 : r & 7;
+  return static_cast<uint32_t>((r * kChunks + (c ^ x)) * 16);
+}
+
+// Rows [r0, r0 + kRows) of an (n_rows, kCols) bf16 matrix into a swizzled
+// tile at dst, by cp.async; rows at or past n_rows are zero.
+template <int kRows, int kCols, int kThreadsT>
+__device__ __forceinline__ void load_rows(uint32_t dst,
+                                          const bf16* __restrict__ src,
+                                          int r0, int n_rows) {
+  constexpr int kChunks = kCols / 8;
+  static_assert((kRows * kChunks) % kThreadsT == 0, "whole chunks");
+#pragma unroll
+  for (int i = 0; i < kRows * kChunks / kThreadsT; ++i) {
+    const int e = threadIdx.x + i * kThreadsT;
+    const int r = e / kChunks, c = e % kChunks;
+    const bool in = r0 + r < n_rows;
+    const bf16* p = src + (in ? static_cast<int64_t>(r0 + r) * kCols + c * 8
+                              : 0);
+    cp_async16(dst + swz<kCols>(r, c), p, in ? 16 : 0);
+  }
+}
+
+// Entries [r0, r0 + kRows) of an f32 vector of n_rows into dst; zero past.
+template <int kRows>
+__device__ __forceinline__ void load_floats(uint32_t dst,
+                                            const float* __restrict__ src,
+                                            int r0, int n_rows) {
+  for (int r = threadIdx.x; r < kRows; r += blockDim.x) {
+    const bool in = r0 + r < n_rows;
+    cp_async4(dst + 4 * r, src + (in ? r0 + r : 0), in ? 4 : 0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4 on the tensor cores. One block per (row*head, 16 * kWarps queries);
+// the grid's y is the query tile, the longest walk first.
+// ---------------------------------------------------------------------------
+
+template <int D>
+constexpr int fwd_warps() { return D == 128 ? 4 : 8; }
+
+template <int D>
+constexpr size_t fwd_mma_smem() {
+  // Q, then two stages of (K, V).
+  return sizeof(bf16) * D * (16 * fwd_warps<D>() + 4 * kKeys);
+}
+
+// Two blocks per SM: at most 128 registers a thread for 8 warps.
+template <int D, int kWarps>
+__global__ void __launch_bounds__(kWarps * 32, 2)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int H, int Tn, float sm_scale,
+                     DropoutArgs da) {
+  constexpr int kThreadsT = kWarps * 32, kBM = 16 * kWarps;
+  constexpr int kKS = D / 16;      // k-steps of Q K^T
+  constexpr int kNT = kKeys / 8;   // 8-key column slices of a score tile
+  constexpr int kDT = D / 8;       // 8-wide column slices of o
+  constexpr uint32_t kTileB = kKeys * D * sizeof(bf16);
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  const uint32_t q_s = smem_addr(smem_tc);
+  const uint32_t kv_s = q_s + kBM * D * sizeof(bf16);  // stage s: K, then V
+
+  const int bh = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * kBM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t base = static_cast<int64_t>(bh) * Tn * D;
+  const Dropout dr = make_dropout(da, bh, H);
+  const int n_kt = (min(q0 + kBM, Tn) + kKeys - 1) / kKeys;
+
+  load_rows<kBM, D, kThreadsT>(q_s, q + base, q0, Tn);
+  cp_async_commit();
+  load_rows<kKeys, D, kThreadsT>(kv_s, k + base, 0, Tn);
+  load_rows<kKeys, D, kThreadsT>(kv_s + kTileB, v + base, 0, Tn);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q has landed
+  __syncthreads();
+
+  const int r_lo = q0 + 16 * warp;  // the warp's first query
+  const int i0 = r_lo + g, i1 = i0 + 8;
+  uint32_t qf[kKS][4];
+#pragma unroll
+  for (int kk = 0; kk < kKS; ++kk)
+    ldsm_x4(qf[kk], q_s + swz<D>(16 * warp + (lane & 15),
+                                 2 * kk + (lane >> 4)));
+
+  float acc[kDT][4];
+#pragma unroll
+  for (int dt = 0; dt < kDT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+  // Rows i0 and i1: running max (log2 units) and this lane's part of l.
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  const float scale2 = sm_scale * kLog2e;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kKeys;
+    if (kt + 1 < n_kt) {
+      const uint32_t st = kv_s + ((kt + 1) & 1) * 2 * kTileB;
+      load_rows<kKeys, D, kThreadsT>(st, k + base, k0 + kKeys, Tn);
+      load_rows<kKeys, D, kThreadsT>(st + kTileB, v + base, k0 + kKeys, Tn);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile kt has landed
+    __syncthreads();
+    const uint32_t k_s = kv_s + (kt & 1) * 2 * kTileB, v_s = k_s + kTileB;
+    // Warp-uniform: a tile whose keys all lie past the warp's rows, or a
+    // warp whose rows all lie past T, adds nothing.
+    if (k0 <= r_lo + 15 && r_lo < Tn) {
+      float s[kNT][4];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk)
+#pragma unroll
+        for (int np = 0; np < kNT; np += 2) {
+          uint32_t b[4];
+          ldsm_x4(b, k_s + swz<D>(8 * np + (lane & 7) + ((lane >> 4) << 3),
+                                  2 * kk + ((lane >> 3) & 1)));
+          mma_bf16(s[np], qf[kk], b[0], b[1]);
+          mma_bf16(s[np + 1], qf[kk], b[2], b[3]);
+        }
+      // Only a tile that crosses the warp's diagonal or the tail compares
+      // positions.
+      const bool masked = k0 + kKeys - 1 > r_lo || k0 + kKeys > Tn;
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = k0 + 8 * nt + 2 * t + e;
+          float x0 = s[nt][e] * scale2, x1 = s[nt][2 + e] * scale2;
+          if (masked) {
+            if (j > i0 || j >= Tn) x0 = kNegInf;
+            if (j > i1 || j >= Tn) x1 = kNegInf;
+          }
+          s[nt][e] = x0;
+          s[nt][2 + e] = x1;
+          mx0 = fmaxf(mx0, x0);
+          mx1 = fmaxf(mx1, x1);
+        }
+      const float mn0 = fmaxf(m0, quad_max(mx0));
+      const float mn1 = fmaxf(m1, quad_max(mx1));
+      const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      // p as the A fragments of p.v: k-step kk takes slices 2kk, 2kk + 1.
+      uint32_t pf[kNT / 2][4];
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        float p00 = exp2f(s[nt][0] - m0), p01 = exp2f(s[nt][1] - m0);
+        float p10 = exp2f(s[nt][2] - m1), p11 = exp2f(s[nt][3] - m1);
+        // l sums the unmasked p; dropout touches only the p.v sum.
+        sum0 += p00 + p01;
+        sum1 += p10 + p11;
+        if (dr.on) {
+          const int j = k0 + 8 * nt + 2 * t;
+          p00 = dr.keep(i0, j) ? p00 * dr.scale : 0.f;
+          p01 = dr.keep(i0, j + 1) ? p01 * dr.scale : 0.f;
+          p10 = dr.keep(i1, j) ? p10 * dr.scale : 0.f;
+          p11 = dr.keep(i1, j + 1) ? p11 * dr.scale : 0.f;
+        }
+        pf[nt >> 1][(nt & 1) * 2] = pack_bf16(p00, p01);
+        pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p10, p11);
+      }
+      l0 = al0 * l0 + sum0;
+      l1 = al1 * l1 + sum1;
+#pragma unroll
+      for (int dt = 0; dt < kDT; ++dt) {
+        acc[dt][0] *= al0;
+        acc[dt][1] *= al0;
+        acc[dt][2] *= al1;
+        acc[dt][3] *= al1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+        for (int dp = 0; dp < kDT; dp += 2) {
+          uint32_t b[4];
+          ldsm_x4_t(b, v_s + swz<D>(16 * kk + (lane & 15), dp + (lane >> 4)));
+          mma_bf16(acc[dp], pf[kk], b[0], b[1]);
+          mma_bf16(acc[dp + 1], pf[kk], b[2], b[3]);
+        }
+    }
+    __syncthreads();  // every warp is done with stage kt & 1
+  }
+  cp_async_wait<0>();
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+#pragma unroll
+  for (int dt = 0; dt < kDT; ++dt) {
+    const int col = 8 * dt + 2 * t;
+    if (i0 < Tn)
+      *reinterpret_cast<uint32_t*>(o + base + static_cast<int64_t>(i0) * D +
+                                   col) =
+          pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
+    if (i1 < Tn)
+      *reinterpret_cast<uint32_t*>(o + base + static_cast<int64_t>(i1) * D +
+                                   col) =
+          pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
+  }
+  if (t == 0) {
+    float* lse_bh = lse + static_cast<int64_t>(bh) * Tn;
+    if (i0 < Tn) lse_bh[i0] = m0 * kLn2 + logf(l0);
+    if (i1 < Tn) lse_bh[i1] = m1 * kLn2 + logf(l1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5 on the tensor cores: Drow's pre-pass, then one block per (row*head,
+// 64-key tile); the grid's y is the key tile, key tile 0 (the longest
+// walk) first.
+// ---------------------------------------------------------------------------
+
+// drow[r] = sum_d dO[r, d] o[r, d] in f32 over rows r < n_rows of
+// (n_rows, D); D / 8 lanes per row, 16 bytes of each tensor a lane.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_drow_kernel(const bf16* __restrict__ o,
+                      const bf16* __restrict__ dout,
+                      float* __restrict__ drow, int64_t n_rows) {
+  constexpr int kL = D / 8;
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
+  const int64_t row = idx / kL;
+  const int part = threadIdx.x % kL;
+  float acc = 0.f;
+  if (row < n_rows) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + row * D + part * 8);
+    const uint4 b =
+        *reinterpret_cast<const uint4*>(dout + row * D + part * 8);
+    const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 fa = __bfloat1622float2(ha[i]);
+      const float2 fb = __bfloat1622float2(hb[i]);
+      acc = fmaf(fa.x, fb.x, acc);
+      acc = fmaf(fa.y, fb.y, acc);
+    }
+  }
+#pragma unroll
+  for (int off = kL / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (part == 0 && row < n_rows) drow[row] = acc;
+}
+
+template <int D>
+struct BwdMma {
+  static constexpr int kWarps = 4, kThreadsT = 128;
+  // 32 queries per tile: the S^T and dP^T accumulators stay small enough
+  // (about 170 registers a thread at D 64) for 3 blocks per SM.
+  static constexpr int kBQ = 32;
+  static constexpr uint32_t kKV = kKeys * D * sizeof(bf16);  // K or V
+  static constexpr uint32_t kQB = kBQ * D * sizeof(bf16);    // Q or dO
+  // One stage of the ring: Q, dO, lse, Drow.
+  static constexpr uint32_t kStage = 2 * kQB + 2 * kBQ * sizeof(float);
+  static constexpr size_t kSmem =
+      2 * kKV + 2 * kStage + kKeys * kBQ * sizeof(bf16);  // + dS^T
+};
+
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ drow,
+                     float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int H, int Tn, float sm_scale,
+                     DropoutArgs da) {
+  using P = BwdMma<D>;
+  constexpr int kBQ = P::kBQ, kThreadsT = P::kThreadsT;
+  constexpr int kKS = D / 16;    // k-steps over D
+  constexpr int kQT = kBQ / 8;   // 8-query column slices of S^T
+  constexpr int kDT = D / 8;     // 8-wide column slices of dK, dV
+  constexpr int kMT = kBQ / 16;  // 16-query row tiles of the dQ tile
+  constexpr int kDW = kDT * kMT / P::kWarps;  // dQ column slices a warp
+  static_assert(kDW % 2 == 0 && kQT % 2 == 0, "pairs of slices");
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  const uint32_t k_s = smem_addr(smem_tc), v_s = k_s + P::kKV;
+  const uint32_t ring = v_s + P::kKV;
+  unsigned char* ds_p = smem_tc + 2 * P::kKV + 2 * P::kStage;
+  const uint32_t ds_s = smem_addr(ds_p);
+
+  const int bh = blockIdx.x, k0 = blockIdx.y * kKeys;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t base = static_cast<int64_t>(bh) * Tn * D;
+  const float* lse_bh = lse + static_cast<int64_t>(bh) * Tn;
+  const float* drow_bh = drow + static_cast<int64_t>(bh) * Tn;
+  const Dropout dr = make_dropout(da, bh, H);
+  const int qt0 = k0 / kBQ, n_qt = (Tn + kBQ - 1) / kBQ;
+
+  auto load_stage = [&](int qt, int slot) {
+    const uint32_t st = ring + slot * P::kStage;
+    load_rows<kBQ, D, kThreadsT>(st, q + base, qt * kBQ, Tn);
+    load_rows<kBQ, D, kThreadsT>(st + P::kQB, dout + base, qt * kBQ, Tn);
+    load_floats<kBQ>(st + 2 * P::kQB, lse_bh, qt * kBQ, Tn);
+    load_floats<kBQ>(st + 2 * P::kQB + kBQ * sizeof(float), drow_bh,
+                     qt * kBQ, Tn);
+  };
+  load_rows<kKeys, D, kThreadsT>(k_s, k + base, k0, Tn);
+  load_rows<kKeys, D, kThreadsT>(v_s, v + base, k0, Tn);
+  cp_async_commit();
+  load_stage(qt0, 0);
+  cp_async_commit();
+
+  const int j_lo = k0 + 16 * warp;  // the warp's first key
+  float dk_acc[kDT][4], dv_acc[kDT][4];
+#pragma unroll
+  for (int dt = 0; dt < kDT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
+  const float scale2 = sm_scale * kLog2e;
+
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int q0 = qt * kBQ, slot = (qt - qt0) & 1;
+    if (qt + 1 < n_qt) load_stage(qt + 1, slot ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // K, V and this tile have landed
+    __syncthreads();
+    const uint32_t q_s = ring + slot * P::kStage, do_s = q_s + P::kQB;
+    const float* lse_s = reinterpret_cast<const float*>(
+        smem_tc + 2 * P::kKV + slot * P::kStage + 2 * P::kQB);
+    const float* drow_s = lse_s + kBQ;
+
+    // Warp-uniform: a query tile wholly before the warp's keys adds
+    // nothing; its rows of dS^T are zero.
+    if (j_lo <= q0 + kBQ - 1) {
+      float st[kQT][4], dpt[kQT][4];  // S^T and dP^T: rows keys, cols queries
+#pragma unroll
+      for (int nt = 0; nt < kQT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk) {
+        uint32_t ka[4], va[4];
+        const uint32_t a_off = swz<D>(16 * warp + (lane & 15),
+                                      2 * kk + (lane >> 4));
+        ldsm_x4(ka, k_s + a_off);
+        ldsm_x4(va, v_s + a_off);
+#pragma unroll
+        for (int np = 0; np < kQT; np += 2) {
+          const uint32_t b_off =
+              swz<D>(8 * np + (lane & 7) + ((lane >> 4) << 3),
+                     2 * kk + ((lane >> 3) & 1));
+          uint32_t b[4];
+          ldsm_x4(b, q_s + b_off);
+          mma_bf16(st[np], ka, b[0], b[1]);
+          mma_bf16(st[np + 1], ka, b[2], b[3]);
+          ldsm_x4(b, do_s + b_off);
+          mma_bf16(dpt[np], va, b[0], b[1]);
+          mma_bf16(dpt[np + 1], va, b[2], b[3]);
+        }
+      }
+      // Only a tile that crosses the warp's diagonal or the tail compares
+      // positions.
+      const bool masked = q0 < j_lo + 15 || q0 + kBQ > Tn;
+      // P~^T and dS^T as A fragments (k-steps over queries).
+      uint32_t pa[kQT / 2][4], dsa[kQT / 2][4];
+#pragma unroll
+      for (int nt = 0; nt < kQT; ++nt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // rows g and g + 8: keys
+          const int j = j_lo + g + 8 * h;
+          float pv[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * nt + 2 * t + e, i = q0 + c;
+            float p = exp2f(st[nt][2 * h + e] * scale2 - lse_s[c] * kLog2e);
+            if (masked && (j > i || i >= Tn)) p = 0.f;
+            float dpv = dpt[nt][2 * h + e];
+            pv[e] = p;
+            if (dr.on) {
+              const bool keep = dr.keep(i, j);
+              pv[e] = keep ? p * dr.scale : 0.f;
+              dpv = keep ? dpv * dr.scale : 0.f;
+            }
+            ds[e] = p * (dpv - drow_s[c]);
+          }
+          pa[nt >> 1][(nt & 1) * 2 + h] = pack_bf16(pv[0], pv[1]);
+          dsa[nt >> 1][(nt & 1) * 2 + h] = pack_bf16(ds[0], ds[1]);
+        }
+      }
+      // dV += P~^T dO, dK += dS^T Q.
+#pragma unroll
+      for (int kq = 0; kq < kQT / 2; ++kq)
+#pragma unroll
+        for (int dp = 0; dp < kDT; dp += 2) {
+          const uint32_t off = swz<D>(16 * kq + (lane & 15), dp + (lane >> 4));
+          uint32_t b[4];
+          ldsm_x4_t(b, do_s + off);
+          mma_bf16(dv_acc[dp], pa[kq], b[0], b[1]);
+          mma_bf16(dv_acc[dp + 1], pa[kq], b[2], b[3]);
+          ldsm_x4_t(b, q_s + off);
+          mma_bf16(dk_acc[dp], dsa[kq], b[0], b[1]);
+          mma_bf16(dk_acc[dp + 1], dsa[kq], b[2], b[3]);
+        }
+      // dS^T into shared memory, the warp's 16 key rows.
+#pragma unroll
+      for (int nt = 0; nt < kQT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<uint32_t*>(
+              ds_p + swz<kBQ>(16 * warp + g + 8 * h, nt) + 4 * t) =
+              dsa[nt >> 1][(nt & 1) * 2 + h];
+    } else {
+      for (int e = lane; e < 16 * kQT; e += 32)
+        *reinterpret_cast<uint4*>(ds_p + swz<kBQ>(16 * warp + e / kQT,
+                                                  e % kQT)) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+    __syncthreads();  // dS^T complete
+
+    // dQ += dS K over this tile: the warp takes query rows 16 mt and kDW
+    // column slices from dw0.
+    const int mt = warp % kMT, dw0 = (warp / kMT) * kDW;
+    if (q0 + 16 * mt < Tn) {
+      float dqa[kDW][4];
+#pragma unroll
+      for (int dt = 0; dt < kDW; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dqa[dt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4_t(a, ds_s + swz<kBQ>(16 * kk + (lane & 7) + ((lane >> 4) << 3),
+                                     2 * mt + ((lane >> 3) & 1)));
+#pragma unroll
+        for (int dp = 0; dp < kDW; dp += 2) {
+          uint32_t b[4];
+          ldsm_x4_t(b, k_s + swz<D>(16 * kk + (lane & 15),
+                                    dw0 + dp + (lane >> 4)));
+          mma_bf16(dqa[dp], a, b[0], b[1]);
+          mma_bf16(dqa[dp + 1], a, b[2], b[3]);
+        }
+      }
+      // Lanes t and t ^ 1 trade halves: the even one then holds row g,
+      // the odd one row g + 8, each over 4 consecutive columns.
+      const bool odd = t & 1;
+      const int row = q0 + 16 * mt + g + (odd ? 8 : 0);
+#pragma unroll
+      for (int dt = 0; dt < kDW; ++dt) {
+        const float s0 = odd ? dqa[dt][0] : dqa[dt][2];
+        const float s1 = odd ? dqa[dt][1] : dqa[dt][3];
+        const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+        const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+        const float4 val = odd ? make_float4(r0, r1, dqa[dt][2], dqa[dt][3])
+                               : make_float4(dqa[dt][0], dqa[dt][1], r0, r1);
+        if (row < Tn)
+          atomicAdd(reinterpret_cast<float4*>(
+                        dq_acc + base + static_cast<int64_t>(row) * D +
+                        8 * (dw0 + dt) + 2 * (t & ~1)),
+                    val);
+      }
+    }
+    __syncthreads();  // dS^T and this stage are free for the next tile
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int dt = 0; dt < kDT; ++dt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = j_lo + g + 8 * h;
+      if (j < Tn) {
+        const int64_t off = base + static_cast<int64_t>(j) * D + 8 * dt + 2 * t;
+        *reinterpret_cast<uint32_t*>(dk + off) =
+            pack_bf16(dk_acc[dt][2 * h] * sm_scale,
+                      dk_acc[dt][2 * h + 1] * sm_scale);
+        *reinterpret_cast<uint32_t*>(dv + off) =
+            pack_bf16(dv_acc[dt][2 * h], dv_acc[dt][2 * h + 1]);
+      }
+    }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers, dispatched on (dtype, head_dim).
 // ---------------------------------------------------------------------------
 
@@ -614,13 +1218,13 @@ constexpr size_t s_tile_bytes() { return sizeof(float) * kTile * kSP; }
 
 // Above 48 KB, dynamic shared memory has to be allowed per kernel.
 template <typename K, typename... Args>
-cudaError_t launch(K kernel, dim3 grid, size_t smem, cudaStream_t stream,
-                   Args... args) {
+cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem,
+                   cudaStream_t stream, Args... args) {
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -628,6 +1232,7 @@ struct Call {
   const void *q, *k, *v, *o, *dout;
   const float* lse_in;
   float* lse_out;
+  float* drow;  // the bf16 fused backward's (B*H, T) scratch
   void *dq, *dk, *dv, *out;
   int BH, H, T;
   float sm_scale;
@@ -637,12 +1242,42 @@ struct Call {
 
 template <typename T, int D>
 cudaError_t run_fwd(const Call& c) {
-  const dim3 grid((c.T + kTile - 1) / kTile, c.BH);
-  return launch(flash_fwd_kernel<T, D>, grid,
-                3 * d_tile_bytes(D) + s_tile_bytes(), c.stream,
-                static_cast<const T*>(c.q), static_cast<const T*>(c.k),
-                static_cast<const T*>(c.v), static_cast<T*>(c.out), c.lse_out,
-                c.H, c.T, c.sm_scale, c.dr);
+  if constexpr (std::is_same<T, bf16>::value) {
+    constexpr int kW = fwd_warps<D>();
+    const dim3 grid(c.BH, (c.T + 16 * kW - 1) / (16 * kW));
+    return launch(flash_fwd_mma_kernel<D, kW>, grid, 32 * kW,
+                  fwd_mma_smem<D>(), c.stream, static_cast<const bf16*>(c.q),
+                  static_cast<const bf16*>(c.k),
+                  static_cast<const bf16*>(c.v), static_cast<bf16*>(c.out),
+                  c.lse_out, c.H, c.T, c.sm_scale, c.dr);
+  } else {
+    const dim3 grid((c.T + kTile - 1) / kTile, c.BH);
+    return launch(flash_fwd_kernel<T, D>, grid, kThreads,
+                  3 * d_tile_bytes(D) + s_tile_bytes(), c.stream,
+                  static_cast<const T*>(c.q), static_cast<const T*>(c.k),
+                  static_cast<const T*>(c.v), static_cast<T*>(c.out),
+                  c.lse_out, c.H, c.T, c.sm_scale, c.dr);
+  }
+}
+
+// K5 on the tensor cores: Drow's pre-pass, then the key-parallel kernel.
+template <int D>
+cudaError_t run_bwd_mma(const Call& c) {
+  const bf16 *o = static_cast<const bf16*>(c.o),
+             *dout = static_cast<const bf16*>(c.dout);
+  const int64_t rows = static_cast<int64_t>(c.BH) * c.T;
+  const int64_t lanes = rows * (D / 8);
+  flash_bwd_drow_kernel<D><<<static_cast<unsigned>((lanes + 255) / 256),
+                             256, 0, c.stream>>>(o, dout, c.drow, rows);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 grid(c.BH, (c.T + kKeys - 1) / kKeys);
+  return launch(flash_bwd_mma_kernel<D>, grid, BwdMma<D>::kThreadsT,
+                BwdMma<D>::kSmem, c.stream, static_cast<const bf16*>(c.q),
+                static_cast<const bf16*>(c.k), static_cast<const bf16*>(c.v),
+                dout, c.lse_in, static_cast<const float*>(c.drow),
+                static_cast<float*>(c.dq), static_cast<bf16*>(c.dk),
+                static_cast<bf16*>(c.dv), c.H, c.T, c.sm_scale, c.dr);
 }
 
 template <typename T, int D>
@@ -654,19 +1289,23 @@ cudaError_t run_bwd(const Call& c, int mode) {
   const size_t stats = 2 * kTile * sizeof(float);
   switch (mode) {
     case kFused:
-      return launch(flash_bwd_kv_kernel<T, D, true>, grid,
-                    4 * d_tile_bytes(D) + 2 * s_tile_bytes() + stats, c.stream,
-                    q, k, v, o, dout, c.lse_in, static_cast<float*>(c.dq),
-                    static_cast<T*>(c.dk), static_cast<T*>(c.dv), c.H, c.T,
-                    c.sm_scale, c.dr);
+      if constexpr (std::is_same<T, bf16>::value) {
+        return run_bwd_mma<D>(c);
+      } else {
+        return launch(flash_bwd_kv_kernel<T, D, true>, grid, kThreads,
+                      4 * d_tile_bytes(D) + 2 * s_tile_bytes() + stats,
+                      c.stream, q, k, v, o, dout, c.lse_in,
+                      static_cast<float*>(c.dq), static_cast<T*>(c.dk),
+                      static_cast<T*>(c.dv), c.H, c.T, c.sm_scale, c.dr);
+      }
     case kDkv:
-      return launch(flash_bwd_kv_kernel<T, D, false>, grid,
+      return launch(flash_bwd_kv_kernel<T, D, false>, grid, kThreads,
                     4 * d_tile_bytes(D) + 2 * s_tile_bytes() + stats, c.stream,
                     q, k, v, o, dout, c.lse_in, static_cast<float*>(nullptr),
                     static_cast<T*>(c.dk), static_cast<T*>(c.dv), c.H, c.T,
                     c.sm_scale, c.dr);
     case kDq:
-      return launch(flash_bwd_dq_kernel<T, D>, grid,
+      return launch(flash_bwd_dq_kernel<T, D>, grid, kThreads,
                     4 * d_tile_bytes(D) + s_tile_bytes() + stats, c.stream, q,
                     k, v, o, dout, c.lse_in, static_cast<T*>(c.dq), c.H, c.T,
                     c.sm_scale, c.dr);
@@ -715,18 +1354,20 @@ int nsb_flash_fwd(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(dispatch(dtype, D, c, -1));
 }
 
-// K5 (mode 0: dq is the zeroed f32 accumulator), K6 (mode 1: dq only, in
-// the input type; dk, dv unused) or K7 (mode 2: dk, dv; dq unused).
+// K5 (mode 0: dq is the zeroed f32 accumulator; bf16 also needs drow, a
+// (B*H, T) f32 scratch), K6 (mode 1: dq only, in the input type; dk, dv
+// unused) or K7 (mode 2: dk, dv; dq unused).
 int nsb_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                   const void* dout, const float* lse, const long long* seed,
-                  void* dq, void* dk, void* dv, int BH, int H, int T, int D,
-                  float sm_scale, int dtype, int dropout_on,
+                  float* drow, void* dq, void* dk, void* dv, int BH, int H,
+                  int T, int D, float sm_scale, int dtype, int dropout_on,
                   unsigned threshold, float keep_scale, unsigned hash_seq_len,
                   int mode, void* stream) {
-  if (mode < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (mode < 0 || (mode == kFused && dtype == kBF16 && drow == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   Call c{};
   c.q = q; c.k = k; c.v = v; c.o = o; c.dout = dout; c.lse_in = lse;
-  c.dq = dq; c.dk = dk; c.dv = dv;
+  c.drow = drow; c.dq = dq; c.dk = dk; c.dv = dv;
   c.BH = BH; c.H = H; c.T = T; c.sm_scale = sm_scale;
   c.dr = dropout_args(seed, dropout_on, threshold, keep_scale, hash_seq_len);
   c.stream = static_cast<cudaStream_t>(stream);

@@ -69,10 +69,10 @@ def _signatures() -> dict:
         # (q, k, v, o, lse, seed, BH, H, T, D, sm_scale, dtype, dropout on,
         #  threshold, keep scale, hash_seq_len, stream)
         "nsb_flash_fwd": [p] * 6 + [i] * 4 + [f, i, i, u, f, u, p],
-        # (q, k, v, o, dout, lse, seed, dq, dk, dv, BH, H, T, D, sm_scale,
-        #  dtype, dropout on, threshold, keep scale, hash_seq_len, mode,
-        #  stream)
-        "nsb_flash_bwd": [p] * 10 + [i] * 4 + [f, i, i, u, f, u, i, p],
+        # (q, k, v, o, dout, lse, seed, drow, dq, dk, dv, BH, H, T, D,
+        #  sm_scale, dtype, dropout on, threshold, keep scale, hash_seq_len,
+        #  mode, stream)
+        "nsb_flash_bwd": [p] * 11 + [i] * 4 + [f, i, i, u, f, u, i, p],
     }
 
 

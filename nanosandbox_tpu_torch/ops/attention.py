@@ -1,13 +1,17 @@
 """Causal flash attention for training, forward and backward.
 
 The counterpart of nanosandbox_tpu/ops/attention.py. Its four Pallas
-kernels become four CUDA kernels (csrc/flash_attention.cu, built at
-first use by ops/_build.py):
+kernels become CUDA kernels (csrc/flash_attention.cu, built at first use
+by ops/_build.py):
 
   flash_attention_fwd        (K4)  <- _flash_fwd_kernel
   flash_attention_bwd fused  (K5)  <- _flash_bwd_tiles_kernel(with_dq=True)
   flash_attention_bwd_dq     (K6)  <- _flash_bwd_dq_kernel
   flash_attention_bwd_dkv    (K7)  <- _flash_bwd_tiles_kernel(with_dq=False)
+
+K4 and K5 on bfloat16 run on the tensor cores (mma.sync); on float32,
+and K6 and K7 on either type, they run on CUDA cores. The input type
+alone picks the design.
 
 ``BWD_IMPL`` picks the backward strategy, as in the JAX file: 'fused'
 (K5, one pass; dQ summed across key tiles with f32 atomicAdd, so its
@@ -330,15 +334,20 @@ def _launch_bwd(mode: str, q, k, v, o, lse, do, dq, dk, dv, sm_scale,
                 dropout_rate, seed, hash_seq_len) -> None:
     B, H, T, D = q.shape
     words, dr = _dropout_args(q, seed, dropout_rate, hash_seq_len)
+    # The bf16 K5 computes Drow = rowsum(dO o) once per row into this
+    # (B*H, T) f32 scratch before its key-parallel kernel.
+    drow = (torch.empty((B * H, T), dtype=torch.float32, device=q.device)
+            if mode == "fused" and q.dtype == torch.bfloat16 else None)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = _build.library().nsb_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), dr[0], ptr(dq), ptr(dk), ptr(dv),
-        B * H, H, T, D, float(sm_scale), _DTYPE_CODE[q.dtype], *dr[1:],
-        _BWD_MODE[mode], torch.cuda.current_stream(q.device).cuda_stream)
+        do.data_ptr(), lse.data_ptr(), dr[0], ptr(drow), ptr(dq), ptr(dk),
+        ptr(dv), B * H, H, T, D, float(sm_scale), _DTYPE_CODE[q.dtype],
+        *dr[1:], _BWD_MODE[mode],
+        torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, f"flash attention backward ({mode})")
     launches[f"flash_attention_bwd_{mode}"] += 1
-    del words
+    del words, drow
 
 
 def _bwd_args(q, k, v, o, lse, do, sm_scale):

@@ -7,7 +7,9 @@ kernels to on the card. The JAX side runs its Pallas kernels in
 interpret mode, as its own tests do. Inputs are numpy-seeded, fp32, at
 B 2, H 2, T <= 128, D 32 (tests/conftest.py tiny_cfg's head size).
 Tolerances: 2e-5 on o and lse, 2e-4 on gradients (f32 sums in another
-order; the JAX kernels pad D to 128 and T to the block).
+order; the JAX kernels pad D to 128 and T to the block). One test feeds
+both sides bf16 inputs at D 64, T up to 200, the yardstick of the bf16
+tensor-core kernels, within phase 7's 2e-2.
 """
 
 import jax
@@ -169,3 +171,52 @@ def test_kernel_argument_checks():
     with pytest.raises(ValueError, match="65536"):
         tattn.torch_flash_attention(q, q, q, dropout_rate=0.1, seed=1,
                                     hash_seq_len=70000)
+
+
+@pytest.mark.parametrize("T,rate", [(96, 0.0), (96, 0.1), (200, 0.0),
+                                    (200, 0.1)])
+def test_plain_versions_on_bf16_match_jax(T, rate):
+    """The yardstick the bf16 tensor-core kernels are held to on the card
+    (chip_smoke.py phase 7: the plain versions fed the same bf16 inputs)
+    against the JAX package's flash kernels in interpret mode on the
+    same numpy-seeded inputs cast to bf16: o, lse, dq, dk, dv within
+    2e-2, compared in f32. D 64; dO scaled by 0.1, as phase 7's (a mean
+    loss's gradients are small). Both sides round their outputs to bf16
+    and JAX also rounds p and ds before its products: 2e-2 is phase 7's
+    bf16 limit and covers both."""
+    rng = np.random.default_rng(6)
+    shape = (B, H, T, 64)
+    q, k, v = (rng.standard_normal(shape, dtype=np.float32)
+               for _ in range(3))
+    do = 0.1 * rng.standard_normal(shape, dtype=np.float32)
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    seed = [9, 0, 0, 2, 4] if rate else None
+    if rate:
+        jseed = jnp.asarray(seed, jnp.uint32)
+        jo, jlse = jattn.flash_attention_lse_dropout(jq, jk, jv, jseed, True,
+                                                     None, rate, True)
+
+        def fn(q, k, v):
+            return jattn.flash_attention_dropout(q, k, v, jseed, True, None,
+                                                 rate, True)
+    else:
+        jo, jlse = jattn.flash_attention_lse(jq, jk, jv, True, None, True)
+
+        def fn(q, k, v):
+            return jattn.flash_attention(q, k, v, True, None, True)
+    _, vjp = jax.vjp(fn, jq, jk, jv)
+    refs = [jo, jlse, *vjp(jdo)]
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16)
+                       for x in (q, k, v, do))
+    o, lse = tattn.flash_attention_fwd(tq, tk, tv, dropout_rate=rate,
+                                       seed=seed)
+    grads = tattn.flash_attention_bwd(tq, tk, tv, o, lse, tdo,
+                                      dropout_rate=rate, seed=seed)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+    for name, got, ref in zip(("o", "lse", "dq", "dk", "dv"),
+                              (o, lse, *grads), refs):
+        ref = np.asarray(ref, dtype=np.float32)
+        assert np.abs(ref).max() > 0.05, name      # not a vacuous check
+        np.testing.assert_allclose(got.float().numpy(), ref, atol=2e-2,
+                                   err_msg=name)

@@ -168,6 +168,32 @@ def test_chip_smoke_instance_checks_rehearse_on_cpu(monkeypatch):
     chip_smoke.check_other_instances(fd, np.random.default_rng(0))
 
 
+def test_chip_smoke_build_report_parsers():
+    """Phase 2 reads each tensor-core kernel's registers and spills from
+    ptxas's -v log and its HMMA/HGMMA count from cuobjdump -sass; both
+    parsers, on text in those tools' formats."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    fwd = "_ZN12_GLOBAL__N_120flash_fwd_mma_kernelILi64ELi8EEEvPK13bf16"
+    log = (f"ptxas info    : Compiling entry function '{fwd}' for "
+           "'sm_90a'\nptxas info    : Function properties for x\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\nptxas info    : Used 128 registers, 384 bytes cmem[0]\n"
+           "ptxas info    : Compiling entry function '_Zold' for 'sm_90a'\n"
+           "    8 bytes stack frame, 12 bytes spill stores, 12 bytes spill "
+           "loads\nptxas info    : Used 255 registers\n")
+    assert chip_smoke.ptxas_report(log) == {fwd: (128, 0), "_Zold": (255, 12)}
+    sass = (f"\tcode for sm_90a\n\t\tFunction : {fwd}\n"
+            "        /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"
+            "        /*0110*/  HMMA.16816.F32.BF16 R8, R8, R14, R8 ;\n"
+            "\t\tFunction : _Zold\n        /*0000*/  FFMA R1, R2, R3, R1 ;\n")
+    assert chip_smoke.sass_mma_counts(sass) == {fwd: 2, "_Zold": 0}
+    assert chip_smoke.kernel_label(fwd) == "flash_fwd_mma_kernel<D=64>"
+
+
 def test_unported_paths_raise():
     """The dense pool and the int8/int4 pools are ported and construct;
     speculative verify (T > 1 at a nonzero cache_index) and the
