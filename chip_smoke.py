@@ -1,20 +1,25 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases=2,3,7]
 
-Phases (each prints what it found; any failure exits non-zero):
+Phases (each prints what it found; any failure exits non-zero; --phases
+runs phase 1 and the kernel phases named, 2, 3 or 7, and prints no
+result line):
 
   1. device   torch / CUDA versions, the card's name and power limit;
   2. build    the CUDA kernels from nanosandbox_tpu_torch/csrc (into
               build/), with nvcc's register and spill report, and for
-              each tensor-core kernel (bf16 K4 and K5, head_dim 32, 64,
-              128) its registers, spill stores (must be 0) and
-              HMMA/HGMMA count in the SASS (cuobjdump; must not be 0);
+              each tensor-core instance (TENSOR_CORE_INSTANCES: bf16 K4,
+              K5 and K7, and K1 under a bf16 query over bf16, int8 and
+              int4 pools, at head_dim 32, 64, 128; all must be found) its
+              registers, spill stores (must be 0) and HMMA/HGMMA count
+              in the SASS (cuobjdump; must not be 0);
   3. kernels  each kernel against its plain PyTorch version on the card
               at GPT-2 124M shapes, under fp32 and bf16 queries: K2 and
               K1 (H 12, D 64, page 16, 512 blocks, 64 table entries per
-              row) over a pool in the query's dtype and over int8 and
-              int4 pools, K3 (flash_decode_kernel) over contiguous
+              row; K1 at B 2, T 128 and 256, starts [0, 64], and under a
+              bf16 query also the 8 x 512 admission wave) over a pool in
+              the query's dtype and over int8 and int4 pools, K3 (flash_decode_kernel) over contiguous
               (8, 12, 1024, 64) slot rows at K2's lengths in the fp32,
               bf16, int8 and int4 modes. Both sides take the same pool;
               fp32 queries within 1e-5, bf16 within 2e-2 (compared in
@@ -24,8 +29,9 @@ Phases (each prints what it found; any failure exits non-zero):
               contiguous rows and dequantized beforehand (a yardstick
               that excludes both); then, correctness only at the same
               limits, K1, K2 and K3 at head_dim 32, 64 and 128 in every
-              (query, kv mode) pair, and K2 and K3 on decode rows of
-              length 0 and -1 in every kv mode (zeros out, finite);
+              (query, kv mode) pair (K1 also at T 100, starts [0, 37]),
+              and K2 and K3 on decode rows of length 0 and -1 in every
+              kv mode (zeros out, finite);
   4. engine   GPT-2 124M in fp32 (seeded random weights) through the
               paged engine: greedy tokens must equal a no-cache
               full-sequence recompute of the same model with the plain
@@ -48,10 +54,12 @@ Phases (each prints what it found; any failure exits non-zero):
               multiple), correctness only; in bf16 also T = 1000 (B 1,
               H 12), T = 1 and 17 (B 1, H 1; at T = 1 dq and dk are 0 in
               exact arithmetic and meet the absolute limit alone) and
-              head_dim 128 with dropout 0.1; then each kernel's time on
-              the bf16 inputs just checked, beside its bound, its plain
-              version and F.scaled_dot_product_attention (is_causal;
-              forward, and forward+backward minus forward);
+              head_dim 128 with dropout 0.1; the split backward must
+              give equal bits twice; then each kernel's time on the bf16
+              inputs just checked, and K4's and K5's on the fp32 ones
+              (TF32 off), beside its bound, its plain version and
+              F.scaled_dot_product_attention (is_causal; forward, and
+              forward+backward minus forward);
   8. train parity  GPT-2 124M in fp32 (TF32 off) on a 2 x 1024 batch,
               without dropout and with dropout 0.1 (masks from alike-
               seeded generators): loss and every parameter gradient with
@@ -85,8 +93,9 @@ Phases (each prints what it found; any failure exits non-zero):
               equal to a no-cache argmax loop.
 
 The last line is {"ok": true, "device": {...}}; the line before it is a
-JSON object with one entry per kernel. Needs one CUDA GPU; without one it
-exits non-zero and prints no result.
+JSON object with one entry per kernel instance timed (K1 twice: phase 3's
+B 2, T 256 case and the wave). Needs one CUDA GPU; without one it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -169,7 +178,18 @@ def time_ms(fn, reps: int = 25) -> float:
 # ---------------------------------------------------------------------------
 
 # The kernels on the tensor cores, by the name their symbols carry.
-TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_mma_kernel")
+TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_mma_kernel",
+                       "paged_prefill_mma_kernel")
+HEAD_DIMS = (32, 64, 128)
+# The template instances phase 2 must find, as kernel_label names them:
+# K4 (bf16), K5 and K7 (bf16, with and without dQ), and K1 under a bf16
+# query over each bf16, int8 and int4 pool.
+TENSOR_CORE_INSTANCES = tuple(sorted(
+    [f"flash_fwd_mma_kernel<D={d}>" for d in HEAD_DIMS]
+    + [f"flash_bwd_mma_kernel<D={d}, dq={w}>" for d in HEAD_DIMS
+       for w in (0, 1)]
+    + [f"paged_prefill_mma_kernel<{kv}, D={d}>" for d in HEAD_DIMS
+       for kv in ("bf16", "int8", "int4")]))
 
 
 def ptxas_report(log: str) -> dict:
@@ -201,9 +221,21 @@ def cuobjdump_sass(lib_path: str, nvcc: str) -> str:
 
 
 def kernel_label(mangled: str) -> str:
-    """name<D> of a kernel template's mangled symbol."""
+    """name<template arguments> of a tensor-core kernel's mangled symbol:
+    the head_dim (the first integer argument), the pool's storage type of
+    the paged prefill (bf16, int8 = signed char, int4 = nsb::Int4), and
+    whether the backward computes dQ (its bool argument)."""
     name = next(n for n in TENSOR_CORE_KERNELS if n in mangled)
-    head_dim = re.search(r"ILi(\d+)", mangled).group(1)
+    args = mangled.split(name, 1)[1]
+    head_dim = re.search(r"Li(\d+)E", args).group(1)
+    if name == "paged_prefill_mma_kernel":
+        kv = ("bf16" if args.startswith("I13__nv_bfloat16") else
+              "int8" if args.startswith("Ia") else
+              "int4" if "4Int4" in args.split("Li", 1)[0] else "?")
+        return f"{name}<{kv}, D={head_dim}>"
+    if name == "flash_bwd_mma_kernel":
+        dq = re.search(r"Lb([01])E", args).group(1)
+        return f"{name}<D={head_dim}, dq={dq}>"
     return f"{name}<D={head_dim}>"
 
 
@@ -233,9 +265,10 @@ def check_build(_build) -> None:
                                                  _build._nvcc()))
             tc += [(kernel_label(n), *report[n], mma.get(n, 0))
                    for n in names]
-    if len(tc) != 3 * len(TENSOR_CORE_KERNELS):
-        fail(f"expected the tensor-core kernels at head_dim 32, 64 and "
-             f"128, found {[t[0] for t in tc]}")
+    found = tuple(sorted(t[0] for t in tc))
+    if found != TENSOR_CORE_INSTANCES:
+        fail(f"expected the tensor-core instances {TENSOR_CORE_INSTANCES}, "
+             f"found {found}")
     for label, regs, spill, mma in sorted(tc):
         print(f"  {label}: {regs} registers, {spill} bytes spill stores, "
               f"{mma} HMMA/HGMMA instructions in SASS")
@@ -351,14 +384,18 @@ def check_kernels(fd) -> dict:
     dq = torch.from_numpy(rng.standard_normal((8, H, D),
                                               dtype=np.float32)).to(DEVICE)
     dlen = torch.from_numpy(decode_len).to(DEVICE)
+    # K1: B 2 with row 0 cold (start 0) and row 1 after a 64-token hit, at
+    # T 128 and 256; and, under a bf16 query only, a full admission wave of
+    # the default server (8 slots x 512 tokens, start 0: serve/profile.py's).
     prefill = []
-    for T in (128, 256):
-        start = np.array([0, 64], np.int32)
-        pk, pv, ptbl = make_case(rng, 2, start + T)
-        pq = torch.from_numpy(rng.standard_normal((2, H, T, D),
+    for B, T, s0, wave in ((2, 128, [0, 64], False), (2, 256, [0, 64], False),
+                           (8, 512, [0] * 8, True)):
+        start = np.array(s0, np.int32)
+        pk, pv, ptbl = make_case(rng, B, start + T)
+        pq = torch.from_numpy(rng.standard_normal((B, H, T, D),
                                                   dtype=np.float32)).to(DEVICE)
         prefill.append((T, start, pq, pk, pv, ptbl,
-                        torch.from_numpy(start).to(DEVICE)))
+                        torch.from_numpy(start).to(DEVICE), wave))
     # K3's contiguous (B, H, L, D) slot rows, at K2's lengths.
     L, tot = int(decode_len.max()), int(decode_len.sum())
     ck, cv = (torch.from_numpy(rng.standard_normal(
@@ -399,11 +436,13 @@ def check_kernels(fd) -> dict:
                                                              **kw),
                 lambda k, v: (q[:, :, None], k, v, dmask),
                 decode_bytes(tot, H, D, mode, qb), 4 * H * D * tot))
-        # K2 at the serving decode shape, and K1 with row 0 cold (start 0)
-        # and row 1 after a 64-token hit: over a pool in the query's
-        # dtype and over int8 and int4 pools.
+        # K2 at the serving decode shape, and K1: over a pool in the
+        # query's dtype and over int8 and int4 pools. Under a bf16 query K1
+        # is the tensor-core kernel.
         for mode in (fp, "int8", "int4"):
             tag = "" if mode == fp else f"<{mode}>"
+            k1 = (f"paged_prefill_mma_kernel<{mode}>"
+                  if dtype == torch.bfloat16 else f"paged_prefill_kernel{tag}")
             cases.append(one(
                 f"paged_decode_kernel{tag}", dtype, f"B=8 H={H} D={D} {lens}",
                 (pool_in_mode(dk, mode), pool_in_mode(dv, mode)),
@@ -414,15 +453,18 @@ def check_kernels(fd) -> dict:
                 lambda k, v: (q[:, :, None], gathered(k, dtbl, L),
                               gathered(v, dtbl, L), dmask),
                 decode_bytes(tot, H, D, mode, qb), 4 * H * D * tot))
-            for T, start, pq, pk, pv, ptbl, pstart in prefill:
+            for T, start, pq, pk, pv, ptbl, pstart, wave in prefill:
+                if wave and dtype != torch.bfloat16:
+                    continue  # the wave is timed under the serving dtype
                 qT = pq.to(dtype)
                 Lp = int((start + T).max())
                 qpos = pstart[:, None] + torch.arange(T, device=DEVICE)[None]
                 mask = (torch.arange(Lp, device=DEVICE)[None, None, None, :]
                         <= qpos[:, None, :, None])
                 cases.append(one(
-                    f"paged_prefill_kernel{tag}", dtype,
-                    f"B=2 H={H} T={T} D={D} start={start.tolist()}",
+                    k1, dtype,
+                    f"B={len(start)} H={H} T={T} D={D} "
+                    f"start={start.tolist()}",
                     (pool_in_mode(pk, mode), pool_in_mode(pv, mode)),
                     lambda k, v, **kw: fd.flash_prefill_paged(
                         qT, k, v, ptbl, pstart, **kw),
@@ -434,11 +476,11 @@ def check_kernels(fd) -> dict:
                                  qT.numel() * qT.element_size()),
                     int(sum(4 * H * D * (s * T + T * T / 2)
                             for s in start))))
-    print("  kernel                        dtype     shape"
-          + " " * 40 + "max|err|   ms       bound_ms  %bound  plain_ms "
+    print("  kernel                           dtype     shape"
+          + " " * 49 + "max|err|   ms       bound_ms  %bound  plain_ms "
           "library_ms")
     for c in cases:
-        print(f"  {c['kernel']:<29} {c['dtype']:<9} {c['shape']:<44} "
+        print(f"  {c['kernel']:<32} {c['dtype']:<9} {c['shape']:<53} "
               f"{c['max_abs_err']:.2e} {c['ms']:.5f}  {c['bound_ms']:.5f}  "
               f"{100 * c['bound_ms'] / c['ms']:5.1f}%  {c['plain_ms']:.5f}  "
               f"{c['library_ms']:.5f}  [{c['bound_by']}]")
@@ -454,9 +496,10 @@ def check_other_instances(fd, rng) -> None:
     limits of the timed cases (DECODE_TOL): K1, K2 and K3 at head_dim 32,
     64 and 128 over fp32, bf16, int8 and int4 pools under fp32 and bf16
     queries (a bf16 query over an fp32 pool is --kv_dtype=fp32 under bf16
-    compute, which must attend in f32); and K2 and K3 on decode rows with
-    lengths 0 and -1 in every kv mode, which see no key and must return
-    0."""
+    compute, which must attend in f32); K1 also at T 100 with starts
+    [0, 37] (a start off the page grid, a ragged last query tile, a chunk
+    that spans blocks); and K2 and K3 on decode rows with lengths 0 and -1
+    in every kv mode, which see no key and must return 0."""
     def randn(shape, dtype=torch.float32):
         return torch.from_numpy(rng.standard_normal(
             shape, dtype=np.float32)).to(DEVICE, dtype)
@@ -474,10 +517,15 @@ def check_other_instances(fd, rng) -> None:
         pk, pv, tbl = make_case(rng, 3, lengths + 40, H=4, D=D, N=64, nb=16)
         ek, ev, etbl = make_case(rng, 3, [0, 130, 0], H=4, D=D, N=64, nb=16)
         ck, cv = randn((3, 4, 256, D)), randn((3, 4, 256, D))
+        rstart = np.array([0, 37], np.int32)
+        rk, rv, rtbl = make_case(rng, 2, rstart + 100, H=4, D=D, N=64, nb=16)
+        rs = torch.from_numpy(rstart).to(DEVICE)
         for qdt in (torch.float32, torch.bfloat16):
             q1, qT = randn((3, 4, D), qdt), randn((3, 4, 40, D), qdt)
+            q100 = randn((2, 4, 100, D), qdt)
             for mode in fd.KV_MODES:
                 k, v, s = pools(pk, pv, mode)
+                k2, v2, s2 = pools(rk, rv, mode)
                 k3, v3, s3 = pools(ck, cv, mode)
                 ke, ve, se = pools(ek, ev, mode)
                 runs = (
@@ -485,6 +533,9 @@ def check_other_instances(fd, rng) -> None:
                      fd.torch_decode_attention_paged, (q1, k, v, tbl, n), s),
                     ("paged prefill", fd.flash_prefill_paged,
                      fd.torch_prefill_attention_paged, (qT, k, v, tbl, n), s),
+                    ("paged prefill, T 100, start [0, 37]",
+                     fd.flash_prefill_paged, fd.torch_prefill_attention_paged,
+                     (q100, k2, v2, rtbl, rs), s2),
                     ("decode", fd.flash_decode, fd.torch_decode_attention,
                      (q1, k3, v3, n), s3),
                     ("paged decode, lengths [0, 130, -1]",
@@ -805,18 +856,17 @@ def train_bound(kind, B, H, T, D, es) -> tuple[int, int]:
 
 
 def check_train_kernels(at) -> dict:
-    import torch.nn.functional as F
-
     rng = np.random.default_rng(SEED + 3)
     B, H, T, D = 16, 12, 1024, 64
     shape = f"B={B} H={H} T={T} D={D}"
-    # The 124M training shape in bf16: the inputs the times below use.
-    timed = qkv(rng, B, H, T, D, torch.bfloat16)
+    # The 124M training shape in bf16 and fp32: the inputs the times below
+    # use.
+    timed = {torch.bfloat16: qkv(rng, B, H, T, D, torch.bfloat16)}
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        rows.append(check_attention(
-            at, shape, *(timed if dtype == torch.bfloat16
-                         else qkv(rng, B, H, T, D, dtype))))
+        if dtype not in timed:
+            timed[dtype] = qkv(rng, B, H, T, D, dtype)
+        rows.append(check_attention(at, shape, *timed[dtype]))
         rows.append(check_attention(at, f"B=2 H={H} T={T} D={D}",
                                     *qkv(rng, 2, H, T, D, dtype), rate=0.1,
                                     seed=SEED))
@@ -845,9 +895,49 @@ def check_train_kernels(at) -> dict:
             f"{k} {e['err']:.1e} of {e['ref']:.1e} ({e['norm']:.1e})"
             for k, e in r.items() if k != "case"))
 
-    # Times at the 124M training shape, bf16, on the inputs checked above.
-    dtype = torch.bfloat16
-    q, k, v, do = timed
+    # Times at the 124M training shape on the inputs checked above: every
+    # kernel in bf16, and the fp32 instances of K4 and K5 (the fp32 engines'
+    # dense prefill and phase 8's path; TF32 off) as "fwd_fp32" and
+    # "fused_fp32".
+    cases = time_train_kernels(at, timed[torch.bfloat16],
+                               ("fwd", "fused", "dq", "dkv"))
+    for kind, c in time_train_kernels(at, timed[torch.float32],
+                                      ("fwd", "fused")).items():
+        cases[f"{kind}_fp32"] = c
+    print(f"  times at {shape}: kernel       ms        bound_ms  %bound  "
+          "plain_ms  library_ms")
+    for kind, c in cases.items():
+        lib = ("-" if c["library_ms"] is None
+               else f"{c['library_ms']:.5f}")
+        print(f"  {kind:<10} {c['ms']:.5f}  {c['bound_ms']:.5f}  "
+              f"{100 * c['bound_ms'] / c['ms']:5.1f}%  {c['plain_ms']:.5f}  "
+              f"{lib}  [{c['bound_by']}]")
+    split = cases["dq"]["ms"] + cases["dkv"]["ms"]
+    print(f"  bf16 backward: fused {cases['fused']['ms']:.5f} ms, split "
+          f"(K6 + K7) {split:.5f} ms, SDPA {cases['fused']['library_ms']:.5f} "
+          "ms")
+    # The max |err| reported beside each time: that of the timed inputs.
+    outputs = {"fwd": ("o", "lse"), "fused": ("fused_dq", "fused_dk",
+                                              "fused_dv"),
+               "dq": ("split_dq",), "dkv": ("split_dk", "split_dv")}
+    for kind, c in cases.items():
+        base, _, fp32 = kind.partition("_")
+        row = next(r for r in rows if r["case"] == f"{shape} "
+                   + ("float32" if fp32 else "bfloat16"))
+        c["max_abs_err"] = max(row[n]["err"] for n in outputs[base])
+    return cases
+
+
+def time_train_kernels(at, inputs, kinds) -> dict:
+    """Each kind's ("fwd", "fused", "dq", "dkv") time on (q, k, v, dO),
+    beside its bound, its plain version and F.scaled_dot_product_attention
+    (is_causal; forward, and forward+backward minus forward; none for dQ
+    or dK/dV alone)."""
+    import torch.nn.functional as F
+
+    q, k, v, do = inputs
+    B, H, T, D = q.shape
+    dtype = q.dtype
     o, lse = at.flash_attention_fwd(q, k, v)
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
 
@@ -862,17 +952,18 @@ def check_train_kernels(at) -> dict:
     sdpa_bwd = time_ms(sdpa_fwd_bwd) - sdpa_fwd
     plain_bwd = time_ms(lambda: at.torch_flash_attention_bwd(q, k, v, o, lse,
                                                              do))
+    runs = {"fwd": (lambda: at.flash_attention_fwd(q, k, v),
+                    lambda: at.torch_flash_attention(q, k, v), sdpa_fwd),
+            "fused": (lambda: at.flash_attention_bwd(q, k, v, o, lse, do),
+                      None, sdpa_bwd),
+            "dq": (lambda: at.flash_attention_bwd_dq(q, k, v, o, lse, do),
+                   None, None),
+            "dkv": (lambda: at.flash_attention_bwd_dkv(q, k, v, o, lse, do),
+                    None, None)}
     cases = {}
-    for kind, fn, plain, library in (
-            ("fwd", lambda: at.flash_attention_fwd(q, k, v),
-             lambda: at.torch_flash_attention(q, k, v), sdpa_fwd),
-            ("fused", lambda: at.flash_attention_bwd(q, k, v, o, lse, do),
-             None, sdpa_bwd),
-            ("dq", lambda: at.flash_attention_bwd_dq(q, k, v, o, lse, do),
-             None, None),
-            ("dkv", lambda: at.flash_attention_bwd_dkv(q, k, v, o, lse, do),
-             None, None)):
-        nbytes, flops = train_bound(kind, B, H, T, D, 2)
+    for kind in kinds:
+        fn, plain, library = runs[kind]
+        nbytes, flops = train_bound(kind, B, H, T, D, q.element_size())
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
         with torch.no_grad():
             plain_ms = time_ms(plain) if plain is not None else plain_bwd
@@ -880,25 +971,7 @@ def check_train_kernels(at) -> dict:
             ms=time_ms(fn), plain_ms=plain_ms, library_ms=library,
             bytes=nbytes, flops=flops, bound_ms=1e3 * max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            shape=f"{shape} bf16")
-    print(f"  times at B={B} H={H} T={T} D={D} bf16: kernel  ms        "
-          f"bound_ms  %bound  plain_ms  library_ms")
-    for kind, c in cases.items():
-        lib = ("-" if c["library_ms"] is None
-               else f"{c['library_ms']:.5f}")
-        print(f"  {kind:<5} {c['ms']:.5f}  {c['bound_ms']:.5f}  "
-              f"{100 * c['bound_ms'] / c['ms']:5.1f}%  {c['plain_ms']:.5f}  "
-              f"{lib}  [{c['bound_by']}]")
-    split = cases["dq"]["ms"] + cases["dkv"]["ms"]
-    print(f"  backward: fused {cases['fused']['ms']:.5f} ms, split (K6 + K7) "
-          f"{split:.5f} ms, SDPA {sdpa_bwd:.5f} ms")
-    # The max |err| reported beside each time: that of the timed inputs.
-    bf = next(r for r in rows if r["case"] == f"{shape} bfloat16")
-    outputs = {"fwd": ("o", "lse"), "fused": ("fused_dq", "fused_dk",
-                                              "fused_dv"),
-               "dq": ("split_dq",), "dkv": ("split_dk", "split_dv")}
-    for kind in cases:
-        cases[kind]["max_abs_err"] = max(bf[n]["err"] for n in outputs[kind])
+            dtype=str(dtype)[6:], shape=f"B={B} H={H} T={T} D={D}")
     return cases
 
 
@@ -906,14 +979,16 @@ def check_train_kernels(at) -> dict:
 # phase 8: the fp32 124M loss and gradients, kernels against plain
 # ---------------------------------------------------------------------------
 
-def check_train_parity(at) -> None:
+def check_train_parity(at) -> dict:
     """Without dropout, and with dropout 0.1: both passes draw their
     per-layer attention seeds and residual masks from generators seeded
-    alike, so they drop the same elements and must agree as closely."""
+    alike, so they drop the same elements and must agree as closely.
+    Returns the kernel passes' launches (the fp32 K4 and K5), summed."""
     from nanosandbox_tpu_torch.config import GPTConfig
     from nanosandbox_tpu_torch.models.gpt import GPT, cross_entropy_loss
 
     rng = np.random.default_rng(SEED + 4)
+    kernel_launches: dict = {}
     for dropout in (0.0, 0.1):
         cfg = GPTConfig(**MODEL, compute_dtype="float32", dropout=dropout)
         model = GPT(cfg, device=DEVICE, generator=torch.Generator(
@@ -954,8 +1029,11 @@ def check_train_parity(at) -> None:
         if not plain_calls["torch_flash_attention"]:
             fail(f"{name}: the plain pass did not run the plain attention: "
                  f"{plain_calls}")
+        for key, n in launches.items():
+            kernel_launches[key] = kernel_launches.get(key, 0) + n
         del model, gk, gp
         torch.cuda.empty_cache()
+    return kernel_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1047,9 +1125,11 @@ def check_trainer(at, fd, smi: str, tmp: str) -> dict:
     first = train.main(flags)
     at.BWD_IMPL = "split"
     try:
+        # Every resumed step is logged: the split backward's step time.
         resumed = train.main(
-            [f for f in flags if not f.startswith("--max_iters=")]
-            + ["--max_iters=35", "--init_from=resume"])
+            [f for f in flags if not f.startswith(("--max_iters=",
+                                                   "--log_interval="))]
+            + ["--max_iters=35", "--init_from=resume", "--log_interval=1"])
     finally:
         at.BWD_IMPL = "fused"
     sync()
@@ -1091,8 +1171,12 @@ def check_trainer(at, fd, smi: str, tmp: str) -> dict:
     ms = float(np.median([r["ms"] for r in rest]))
     toks = float(np.median([r["tok_s"] for r in rest]))
     mfu = float(np.median([r["mfu"] for r in rest]))
+    # The resume's first step carries its process's first-call setup.
+    split_ms = float(np.median([r["ms"] for r in resumed["log"][1:]]))
     print(f"  [{smi}] step {ms:.2f} ms (median of the logged windows "
-          f"after iter 0), {toks:,.0f} tok/s, MFU {100 * mfu:.2f}%")
+          f"after iter 0), {toks:,.0f} tok/s, MFU {100 * mfu:.2f}%; the "
+          f"resume's step with the split backward (K6 + K7) {split_ms:.2f} "
+          "ms (median after its first)")
     trainer = train.Trainer(cfg)
     xb, yb = trainer.dataset.sample_batch("train", 0, cfg.batch_size,
                                           cfg.block_size)
@@ -1114,7 +1198,8 @@ def check_trainer(at, fd, smi: str, tmp: str) -> dict:
           f"{ {i: round(v, 4) for i, v in control.items()} }")
     torch.cuda.empty_cache()
     return {"launches": launches, "plain_cuda_calls": plain, "step_ms": ms,
-            "tok_s": toks, "mfu": mfu, "profile": prof}
+            "split_step_ms": split_ms, "tok_s": toks, "mfu": mfu,
+            "profile": prof}
 
 
 def control_losses(train, flags, tmp) -> dict:
@@ -1280,7 +1365,23 @@ def check_sampler(train_dir: str) -> dict:
     return run
 
 
-def main() -> int:
+# Phases that stand alone, for a partial run (--phases=2,3,7).
+STANDALONE_PHASES = (2, 3, 7)
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    only = None
+    for arg in args:
+        name, _, value = arg.partition("=")
+        if name != "--phases":
+            raise SystemExit(f"chip_smoke: unknown argument {arg!r} (only "
+                             "--phases=<comma list of "
+                             f"{STANDALONE_PHASES}>)")
+        only = {int(p) for p in value.split(",")}
+        if not only <= set(STANDALONE_PHASES):
+            raise SystemExit(f"chip_smoke: --phases takes phases of "
+                             f"{STANDALONE_PHASES}, not {sorted(only)}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch; this script "
               "runs the port on a GPU only", file=sys.stderr)
@@ -1297,6 +1398,21 @@ def main() -> int:
           f"python {sys.version.split()[0]}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     print(f"  nvidia-smi: {smi}")
+    if only is not None:
+        # Phases 2, 3 and 7 alone (the kernels' build, checks and times),
+        # with no result line: the full run alone makes one.
+        for phase, title, fn in (
+                (2, "build", lambda: check_build(_build)),
+                (3, "kernels vs plain versions (124M shapes)",
+                 lambda: check_kernels(fd)),
+                (7, "training kernels vs plain versions",
+                 lambda: check_train_kernels(at))):
+            if phase in only:
+                print(f"== phase {phase}: {title}")
+                fn()
+        print(f"chip_smoke: phases {sorted(only)} passed (a partial run "
+              "prints no result line)")
+        return 0
 
     print("== phase 2: build")
     check_build(_build)
@@ -1320,7 +1436,7 @@ def main() -> int:
     train_cases = check_train_kernels(at)
 
     print("== phase 8: fp32 124M loss and gradients, kernels vs plain")
-    check_train_parity(at)
+    parity_launches = check_train_parity(at)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         print("== phase 9: the 124M bf16 trainer")
@@ -1363,34 +1479,34 @@ def main() -> int:
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
                 "bound_by": case["bound_by"],
                 "library_ms": case["library_ms"],
-                "case": f"{case.get('dtype', 'bfloat16')} {case['shape']}"}
+                "case": f"{case['dtype']} {case['shape']}"}
 
-    def timed(kernel, dtype, last=False):
-        found = [c for c in kern["cases"]
-                 if c["kernel"] == kernel and c["dtype"] == dtype]
-        return found[-1] if last else found[0]
+    def timed(kernel, dtype, shape=""):
+        """The first phase-3 case of a kernel instance whose shape starts
+        with ``shape``."""
+        return next(c for c in kern["cases"] if c["kernel"] == kernel
+                    and c["dtype"] == dtype and c["shape"].startswith(shape))
 
     paged, dense = "paged_attention.cu", "flash_decode.cu"
     flash = "flash_attention.cu"
     sl = {name: sv["launches"] for name, sv in servers.items()}
     tl = trained["launches"]
-    kernels = [
-        entry("paged_decode_kernel", paged, "flash_decode.py:421",
-              sl["paged bf16"]["flash_decode_paged/bf16"],
-              timed("paged_decode_kernel", "bfloat16")),
-        entry("paged_prefill_kernel", paged, "flash_decode.py:585",
-              sl["paged bf16"]["flash_prefill_paged/bf16"],
-              timed("paged_prefill_kernel", "bfloat16", last=True))]
-    for mode in ("int8", "int4"):
+    kernels = []
+    # K2 and K1 (the tensor-core instances, a bf16 query) with the paged
+    # servers' launches; K1 at phase 3's B 2, T 256 case and at the
+    # 8 x 512 admission wave.
+    for mode in ("bf16", "int8", "int4"):
+        tag = "" if mode == "bf16" else f"<{mode}>"
+        k1 = f"paged_prefill_mma_kernel<{mode}>"
+        n_k1 = sl[f"paged {mode}"][f"flash_prefill_paged/{mode}"]
         kernels += [
-            entry(f"paged_decode_kernel<{mode}>", paged, "flash_decode.py:421",
+            entry(f"paged_decode_kernel{tag}", paged, "flash_decode.py:421",
                   sl[f"paged {mode}"][f"flash_decode_paged/{mode}"],
-                  timed(f"paged_decode_kernel<{mode}>", "bfloat16")),
-            entry(f"paged_prefill_kernel<{mode}>", paged,
-                  "flash_decode.py:585",
-                  sl[f"paged {mode}"][f"flash_prefill_paged/{mode}"],
-                  timed(f"paged_prefill_kernel<{mode}>", "bfloat16",
-                        last=True))]
+                  timed(f"paged_decode_kernel{tag}", "bfloat16")),
+            entry(k1, paged, "flash_decode.py:585", n_k1,
+                  timed(k1, "bfloat16", "B=2 H=12 T=256")),
+            entry(f"{k1}[wave B=8 T=512]", paged, "flash_decode.py:585",
+                  n_k1, timed(k1, "bfloat16", "B=8"))]
     # K3: the bf16 pool's launches are the dense bf16 server's; the fp32,
     # int8 and int4 pools' are phase 10's fp32-compute dense engines', so
     # their times are taken under an fp32 query.
@@ -1410,8 +1526,16 @@ def main() -> int:
               tl["flash_attention_bwd_fused"], train_cases["fused"]),
         entry("flash_bwd_dq_kernel", flash, "attention.py:475",
               tl["flash_attention_bwd_dq"], train_cases["dq"]),
-        entry("flash_bwd_kv_kernel", flash, "attention.py:556",
-              tl["flash_attention_bwd_dkv"], train_cases["dkv"])]
+        entry("flash_bwd_mma_kernel<with_dq=false>", flash,
+              "attention.py:556", tl["flash_attention_bwd_dkv"],
+              train_cases["dkv"]),
+        # The fp32 instances, with the launches of phase 8's fp32 path.
+        entry("flash_fwd_kernel<float>", flash, "attention.py:180",
+              parity_launches["flash_attention_fwd"],
+              train_cases["fwd_fp32"]),
+        entry("flash_bwd_kv_kernel<float>", flash, "attention.py:556",
+              parity_launches["flash_attention_bwd_fused"],
+              train_cases["fused_fp32"])]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

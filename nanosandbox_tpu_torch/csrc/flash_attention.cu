@@ -5,18 +5,24 @@
 // nanosandbox_tpu/ops/attention.py. Two designs, chosen by the input type
 // and nothing else:
 //
-//   bf16, on the tensor cores (mma.sync):
-//     flash_fwd_mma_kernel        <- _flash_fwd_kernel (K4)
-//     flash_bwd_mma_kernel        <- _flash_bwd_tiles_kernel(with_dq=True)
-//       (K5), after flash_bwd_drow_kernel, its pre-pass for the row term
-//       Drow = rowsum(dO o);
-//   f32 (every type for K6 and K7), on CUDA cores:
+//   bf16, on the tensor cores (mma.sync; building blocks in
+//   mma_common.cuh):
+//     flash_fwd_mma_kernel              <- _flash_fwd_kernel (K4)
+//     flash_bwd_mma_kernel<D, true>     <- _flash_bwd_tiles_kernel(
+//       with_dq=True) (K5), after flash_bwd_drow_kernel, its pre-pass for
+//       the row term Drow = rowsum(dO o);
+//     flash_bwd_mma_kernel<D, false>    <- _flash_bwd_tiles_kernel(
+//       with_dq=False) (K7), the split backward's dK/dV pass: the same
+//       kernel and pre-pass without the dQ half;
+//   f32 (every type for K6), on CUDA cores:
 //     flash_fwd_kernel<float>           <- K4
 //     flash_bwd_kv_kernel<float, true>  <- K5
+//     flash_bwd_kv_kernel<float, false> <- K7
 //     flash_bwd_dq_kernel               <- _flash_bwd_dq_kernel (K6), the
-//       split backward's dQ pass, parallel over query tiles;
-//     flash_bwd_kv_kernel<T, false>     <- _flash_bwd_tiles_kernel(
-//       with_dq=False) (K7), the split backward's dK/dV pass.
+//       split backward's dQ pass, parallel over query tiles.
+//   f32 stays on CUDA cores because its kernels are held to 1e-5 of the
+//   plain version with TF32 off, which bf16 or TF32 products would not
+//   meet; K6 is the next kernel to move.
 //
 // What bounds them. Per (row, head) the forward does 4*D*T(T+1)/2 flops and
 // moves q, k, v and o once; the fused backward does 2.5x those flops over
@@ -52,6 +58,10 @@
 //     run to run. Drow comes from the pre-pass, computed once per row
 //     instead of once per key tile that visits it. The small query tile
 //     keeps three blocks on an SM.
+//   - K7: K5's kernel compiled without the dS^T store, the barrier after
+//     it, the dQ product and its atomics (and without the dS^T tile in
+//     shared memory). Every block writes only its own keys' dK and dV, so
+//     the split backward's result is the same bit for bit on every run.
 // The CUDA-core design (f32): 64 x 64 tiles staged in shared memory as f32
 // (rows padded to D + 1 floats), a 16 x 16 grid of threads computing 4 x 4
 // outputs each, synchronous loads. It keeps the f32 kernels exact to 1e-5
@@ -97,7 +107,11 @@
 
 #include <type_traits>
 
+#include "mma_common.cuh"
+
 namespace {
+
+using namespace nsb;
 
 constexpr float kNegInf = -1e30f;  // the Pallas kernels' NEG_INF
 constexpr int kTile = 64;          // queries and keys per tile
@@ -632,129 +646,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core kernels (bf16): K4 and K5 on mma.sync.m16n8k16.
+// The tensor-core kernels (bf16): K4, K5 and K7 on mma.sync.m16n8k16, from
+// the building blocks of mma_common.cuh.
 // ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kKeys = 64;  // keys per tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (4) bytes from global to shared memory, asynchronously; src_bytes 0
-// writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Waits until at most N of this thread's copy groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8, and r[i] holds matrix i's fragment (row l / 4,
-// columns 2(l % 4), +1; with .trans, rows 2(l % 4), +1 of column l / 4).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// d += a b for a 16 x 16 bf16 A fragment, a 16 x 8 B fragment, f32 d.
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two f32 rounded to bf16 (round to nearest even), lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Reductions over the four lanes that hold one accumulator row.
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Byte offset of 16-byte chunk c of row r in a swizzled tile of kCols
-// bf16 per row: the chunk index is XORed with bits of the row so that the
-// 8 rows one ldmatrix matrix reads at one chunk hit 8 distinct bank groups.
-template <int kCols>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  constexpr int kChunks = kCols / 8;
-  static_assert(kChunks == 4 || kChunks == 8 || kChunks == 16,
-                "rows of 64, 128 or 256 bytes");
-  const int x = kChunks == 4 ? (r >> 1) & 3 : r & 7;
-  return static_cast<uint32_t>((r * kChunks + (c ^ x)) * 16);
-}
-
-// Rows [r0, r0 + kRows) of an (n_rows, kCols) bf16 matrix into a swizzled
-// tile at dst, by cp.async; rows at or past n_rows are zero.
-template <int kRows, int kCols, int kThreadsT>
-__device__ __forceinline__ void load_rows(uint32_t dst,
-                                          const bf16* __restrict__ src,
-                                          int r0, int n_rows) {
-  constexpr int kChunks = kCols / 8;
-  static_assert((kRows * kChunks) % kThreadsT == 0, "whole chunks");
-#pragma unroll
-  for (int i = 0; i < kRows * kChunks / kThreadsT; ++i) {
-    const int e = threadIdx.x + i * kThreadsT;
-    const int r = e / kChunks, c = e % kChunks;
-    const bool in = r0 + r < n_rows;
-    const bf16* p = src + (in ? static_cast<int64_t>(r0 + r) * kCols + c * 8
-                              : 0);
-    cp_async16(dst + swz<kCols>(r, c), p, in ? 16 : 0);
-  }
-}
-
-// Entries [r0, r0 + kRows) of an f32 vector of n_rows into dst; zero past.
-template <int kRows>
-__device__ __forceinline__ void load_floats(uint32_t dst,
-                                            const float* __restrict__ src,
-                                            int r0, int n_rows) {
-  for (int r = threadIdx.x; r < kRows; r += blockDim.x) {
-    const bool in = r0 + r < n_rows;
-    cp_async4(dst + 4 * r, src + (in ? r0 + r : 0), in ? 4 : 0);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // K4 on the tensor cores. One block per (row*head, 16 * kWarps queries);
@@ -937,9 +835,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K5 on the tensor cores: Drow's pre-pass, then one block per (row*head,
-// 64-key tile); the grid's y is the key tile, key tile 0 (the longest
-// walk) first.
+// K5 and K7 on the tensor cores: Drow's pre-pass, then one block per
+// (row*head, 64-key tile); the grid's y is the key tile, key tile 0 (the
+// longest walk) first. K7 is K5's kernel without its dQ half.
 // ---------------------------------------------------------------------------
 
 // drow[r] = sum_d dO[r, d] o[r, d] in f32 over rows r < n_rows of
@@ -974,7 +872,7 @@ flash_bwd_drow_kernel(const bf16* __restrict__ o,
   if (part == 0 && row < n_rows) drow[row] = acc;
 }
 
-template <int D>
+template <int D, bool kWithDq>
 struct BwdMma {
   static constexpr int kWarps = 4, kThreadsT = 128;
   // 32 queries per tile: the S^T and dP^T accumulators stay small enough
@@ -984,11 +882,15 @@ struct BwdMma {
   static constexpr uint32_t kQB = kBQ * D * sizeof(bf16);    // Q or dO
   // One stage of the ring: Q, dO, lse, Drow.
   static constexpr uint32_t kStage = 2 * kQB + 2 * kBQ * sizeof(float);
+  // + dS^T, for the dQ product only.
   static constexpr size_t kSmem =
-      2 * kKV + 2 * kStage + kKeys * kBQ * sizeof(bf16);  // + dS^T
+      2 * kKV + 2 * kStage + (kWithDq ? kKeys * kBQ * sizeof(bf16) : 0);
 };
 
-template <int D>
+// kWithDq: K5 (dQ summed by atomics into dq_acc); without it K7, which
+// writes dK and dV alone, touches no memory two blocks share, and gives
+// the same bits on every run.
+template <int D, bool kWithDq>
 __global__ void __launch_bounds__(128)
 flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
@@ -998,7 +900,7 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      float* __restrict__ dq_acc, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, int H, int Tn, float sm_scale,
                      DropoutArgs da) {
-  using P = BwdMma<D>;
+  using P = BwdMma<D, kWithDq>;
   constexpr int kBQ = P::kBQ, kThreadsT = P::kThreadsT;
   constexpr int kKS = D / 16;    // k-steps over D
   constexpr int kQT = kBQ / 8;   // 8-query column slices of S^T
@@ -1127,25 +1029,27 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           mma_bf16(dk_acc[dp + 1], dsa[kq], b[2], b[3]);
         }
       // dS^T into shared memory, the warp's 16 key rows.
+      if constexpr (kWithDq) {
 #pragma unroll
-      for (int nt = 0; nt < kQT; ++nt)
+        for (int nt = 0; nt < kQT; ++nt)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<uint32_t*>(
-              ds_p + swz<kBQ>(16 * warp + g + 8 * h, nt) + 4 * t) =
-              dsa[nt >> 1][(nt & 1) * 2 + h];
-    } else {
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<uint32_t*>(
+                ds_p + swz<kBQ>(16 * warp + g + 8 * h, nt) + 4 * t) =
+                dsa[nt >> 1][(nt & 1) * 2 + h];
+      }
+    } else if constexpr (kWithDq) {
       for (int e = lane; e < 16 * kQT; e += 32)
         *reinterpret_cast<uint4*>(ds_p + swz<kBQ>(16 * warp + e / kQT,
                                                   e % kQT)) =
             make_uint4(0u, 0u, 0u, 0u);
     }
-    __syncthreads();  // dS^T complete
+    if constexpr (kWithDq) __syncthreads();  // dS^T complete
 
     // dQ += dS K over this tile: the warp takes query rows 16 mt and kDW
     // column slices from dw0.
     const int mt = warp % kMT, dw0 = (warp / kMT) * kDW;
-    if (q0 + 16 * mt < Tn) {
+    if (kWithDq && q0 + 16 * mt < Tn) {
       float dqa[kDW][4];
 #pragma unroll
       for (int dt = 0; dt < kDW; ++dt)
@@ -1260,8 +1164,9 @@ cudaError_t run_fwd(const Call& c) {
   }
 }
 
-// K5 on the tensor cores: Drow's pre-pass, then the key-parallel kernel.
-template <int D>
+// K5 or K7 on the tensor cores: Drow's pre-pass, then the key-parallel
+// kernel (K7: no dQ, dq_acc unused).
+template <int D, bool kWithDq>
 cudaError_t run_bwd_mma(const Call& c) {
   const bf16 *o = static_cast<const bf16*>(c.o),
              *dout = static_cast<const bf16*>(c.dout);
@@ -1272,8 +1177,9 @@ cudaError_t run_bwd_mma(const Call& c) {
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const dim3 grid(c.BH, (c.T + kKeys - 1) / kKeys);
-  return launch(flash_bwd_mma_kernel<D>, grid, BwdMma<D>::kThreadsT,
-                BwdMma<D>::kSmem, c.stream, static_cast<const bf16*>(c.q),
+  using P = BwdMma<D, kWithDq>;
+  return launch(flash_bwd_mma_kernel<D, kWithDq>, grid, P::kThreadsT,
+                P::kSmem, c.stream, static_cast<const bf16*>(c.q),
                 static_cast<const bf16*>(c.k), static_cast<const bf16*>(c.v),
                 dout, c.lse_in, static_cast<const float*>(c.drow),
                 static_cast<float*>(c.dq), static_cast<bf16*>(c.dk),
@@ -1290,7 +1196,7 @@ cudaError_t run_bwd(const Call& c, int mode) {
   switch (mode) {
     case kFused:
       if constexpr (std::is_same<T, bf16>::value) {
-        return run_bwd_mma<D>(c);
+        return run_bwd_mma<D, true>(c);
       } else {
         return launch(flash_bwd_kv_kernel<T, D, true>, grid, kThreads,
                       4 * d_tile_bytes(D) + 2 * s_tile_bytes() + stats,
@@ -1299,11 +1205,15 @@ cudaError_t run_bwd(const Call& c, int mode) {
                       static_cast<T*>(c.dv), c.H, c.T, c.sm_scale, c.dr);
       }
     case kDkv:
-      return launch(flash_bwd_kv_kernel<T, D, false>, grid, kThreads,
-                    4 * d_tile_bytes(D) + 2 * s_tile_bytes() + stats, c.stream,
-                    q, k, v, o, dout, c.lse_in, static_cast<float*>(nullptr),
-                    static_cast<T*>(c.dk), static_cast<T*>(c.dv), c.H, c.T,
-                    c.sm_scale, c.dr);
+      if constexpr (std::is_same<T, bf16>::value) {
+        return run_bwd_mma<D, false>(c);
+      } else {
+        return launch(flash_bwd_kv_kernel<T, D, false>, grid, kThreads,
+                      4 * d_tile_bytes(D) + 2 * s_tile_bytes() + stats,
+                      c.stream, q, k, v, o, dout, c.lse_in,
+                      static_cast<float*>(nullptr), static_cast<T*>(c.dk),
+                      static_cast<T*>(c.dv), c.H, c.T, c.sm_scale, c.dr);
+      }
     case kDq:
       return launch(flash_bwd_dq_kernel<T, D>, grid, kThreads,
                     4 * d_tile_bytes(D) + s_tile_bytes() + stats, c.stream, q,
@@ -1354,16 +1264,17 @@ int nsb_flash_fwd(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(dispatch(dtype, D, c, -1));
 }
 
-// K5 (mode 0: dq is the zeroed f32 accumulator; bf16 also needs drow, a
-// (B*H, T) f32 scratch), K6 (mode 1: dq only, in the input type; dk, dv
-// unused) or K7 (mode 2: dk, dv; dq unused).
+// K5 (mode 0: dq is the zeroed f32 accumulator), K6 (mode 1: dq only, in
+// the input type; dk, dv unused) or K7 (mode 2: dk, dv; dq unused). In
+// bf16, K5 and K7 also need drow, a (B*H, T) f32 scratch.
 int nsb_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                   const void* dout, const float* lse, const long long* seed,
                   float* drow, void* dq, void* dk, void* dv, int BH, int H,
                   int T, int D, float sm_scale, int dtype, int dropout_on,
                   unsigned threshold, float keep_scale, unsigned hash_seq_len,
                   int mode, void* stream) {
-  if (mode < 0 || (mode == kFused && dtype == kBF16 && drow == nullptr))
+  if (mode < 0 ||
+      ((mode == kFused || mode == kDkv) && dtype == kBF16 && drow == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Call c{};
   c.q = q; c.k = k; c.v = v; c.o = o; c.dout = dout; c.lse_in = lse;

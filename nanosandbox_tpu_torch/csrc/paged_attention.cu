@@ -1,9 +1,9 @@
 // Paged attention over a block-paged KV pool, for Hopper (sm_90a).
 //
-// Two kernels, each the CUDA counterpart of a Pallas kernel in
+// The CUDA counterparts of two Pallas kernels in
 // nanosandbox_tpu/ops/flash_decode.py:
 //
-//   paged_decode_kernel  <- _paged_decode_kernel  (flash_decode_paged)
+//   paged_decode_kernel  <- _paged_decode_kernel  (flash_decode_paged, K2)
 //       one query per (row, head) over the row's block chain, up to
 //       lengths[b] positions (decode_common.cuh decode_row over a
 //       PagedChain). Bound by bytes: every position of the chain is read
@@ -12,11 +12,40 @@
 //       share of the memory rate, and B*H blocks (96 at 8 slots)
 //       under-fill 132 SMs; splitting a row's chain over blocks is later
 //       work.
-//   paged_prefill_kernel <- _paged_prefill_kernel (flash_prefill_paged)
+//   paged_prefill_mma_kernel, paged_prefill_kernel
+//                        <- _paged_prefill_kernel (flash_prefill_paged, K1)
 //       T queries per row at positions start[b] .. start[b]+T-1, causal
-//       over the row's chain (the resident prefix included). It does
-//       about T times the decode's flops per byte; this first version
-//       runs the products on CUDA cores in f32, not on the tensor cores.
+//       over the row's chain (the resident prefix included).
+//
+// K1 does about T/2 times the decode's flops per byte read. At an 8 x 512
+// admission wave (GPT-2 124M, head_dim 64, start 0) it moves 25 MB (K/V of
+// the visited positions, q, out): 0.0075 ms at 3.35 TB/s, its bound; its
+// 3.2 GFLOP take 0.0033 ms on the bf16 tensor cores but 0.048 ms at the
+// f32 peak of the CUDA cores. So the products go to the tensor cores, and
+// each K/V chunk is staged once per 64-query tile.
+//
+//   paged_prefill_mma_kernel: a bf16 query over a bf16, int8 or int4
+//     pool, on the tensor cores (mma.sync.m16n8k16, bf16 in, f32
+//     accumulate; building blocks in mma_common.cuh). A block owns 64
+//     queries of one (row, head), a warp 16; Q is loaded once into A
+//     fragments. 64-position K/V chunks stream through a two-stage
+//     cp.async ring, each 16-byte piece of a stored row addressed through
+//     the block table, positions past the tile's last visible key
+//     zero-filled by the copy. A bf16 chunk lands straight in swizzled
+//     tiles; an int8/int4 chunk lands as its stored bytes and scales and
+//     is widened to bf16 tiles in shared memory (exact), with the next
+//     chunk in flight. K's B fragments come by ldmatrix, V's by
+//     ldmatrix.trans. The scales fold where the Pallas kernel folds them:
+//     s = (q . k_int) * k_scale * sm_scale in f32 after the product, l
+//     sums the unscaled p, and p * v_scale is rounded to bf16 as the A
+//     fragment of p.v -- JAX's own rounding, since it feeds the MXU in a
+//     bf16 query's dtype. The online softmax runs in registers (exp2 of
+//     pre-multiplied scores; a row's max and sum over its four lanes).
+//   paged_prefill_kernel: every other (query, pool) pair, on CUDA cores in
+//     f32 with 16-query tiles. An fp32 query is held to 1e-5 of the plain
+//     version and the fp32 engines to token identity, which bf16 products
+//     would not meet; a bf16 query over an fp32 pool attends in f32, as
+//     JAX does (its dot dtype is promote_types(bf16, f32)).
 //
 // Layouts (row-major, contiguous): q (B, H, D) or (B, H, T, D); k, v
 // (N, H, page, D), or (N, H, page, D/2) bytes for packed int4; k_scale,
@@ -40,7 +69,10 @@
 // Every entry point returns cudaGetLastError() after its launch; the
 // Python wrapper raises when it is not cudaSuccess.
 
+#include <type_traits>
+
 #include "decode_common.cuh"
+#include "mma_common.cuh"
 
 namespace nsb {
 namespace {
@@ -61,11 +93,11 @@ paged_decode_kernel(const TQ* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// Prefill: one block per (query tile, head, row); K/V chunks staged in
-// shared memory converted to f32 (int4 unpacked, int8 widened, their
-// scales staged beside them and applied to scores and probabilities,
-// never to the staged values), an f32 score tile, the online softmax per
-// query row.
+// Prefill on CUDA cores (an fp32 query, or an fp32 pool): one block per
+// (query tile, head, row); K/V chunks staged in shared memory converted to
+// f32 (int4 unpacked, int8 widened, their scales staged beside them and
+// applied to scores and probabilities, never to the staged values), an f32
+// score tile, the online softmax per query row.
 // ---------------------------------------------------------------------------
 
 constexpr int kPfThreads = 128;
@@ -200,6 +232,309 @@ paged_prefill_kernel(const TQ* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Prefill on the tensor cores: a bf16 query over a bf16, int8 or int4 pool.
+// One block per (row*head, 64-query tile), the grid's y the query tile, the
+// longest walk first; a warp owns 16 queries. K/V arrive in 64-position
+// chunks of the row's chain through a two-stage cp.async ring, each
+// 16-byte piece of a stored row addressed through the block table (so a
+// chunk may span several blocks, at any page size and any start).
+// ---------------------------------------------------------------------------
+
+constexpr int kPmKC = 64;  // key positions per chunk
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of one instance: Q; for a quantized pool the widened bf16
+// K and V tiles and the chunk's k and v scales; then two ring stages. A
+// stage holds a chunk as the pool stores it: swizzled bf16 K and V tiles,
+// or the K and V bytes unswizzled (D or D/2 a position) and the scales.
+template <typename TKV, int D>
+struct PrefillMma {
+  using L = KV<TKV>;
+  // 4 warps (64 queries) at every head_dim: 8 warps at D <= 64 measured
+  // 2.5% faster on the bf16 wave but 14-20% slower on the int8/int4 waves
+  // and slower on small prefills (PERF.md, section 6).
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBM = 16 * kWarps;  // queries per block
+  static constexpr bool kQuant = L::kQuant;
+  static constexpr int kRowBytes =
+      D * static_cast<int>(sizeof(typename L::S)) / L::kDiv;
+  static constexpr int kPieces = kRowBytes / 16;  // 16-byte pieces a row
+  static constexpr uint32_t kQ = kBM * D * sizeof(bf16);
+  static constexpr uint32_t kTile = kPmKC * D * sizeof(bf16);  // K or V
+  static constexpr uint32_t kRaw = kPmKC * kRowBytes;  // stored K or V
+  static constexpr uint32_t kScales = 2 * kPmKC * sizeof(float);
+  static constexpr uint32_t kWide = kQuant ? 2 * kTile + kScales : 0;
+  static constexpr uint32_t kStage = kQuant ? 2 * kRaw + kScales : 2 * kTile;
+  static constexpr size_t kSmem = kQ + kWide + 2 * kStage;
+  static_assert(kRowBytes % 16 == 0, "whole 16-byte pieces a row");
+};
+
+// Byte j of x, two int4 values, widened to a bf16 pair: the low nibble is
+// the even dim; each is biased by +8.
+__device__ __forceinline__ uint32_t nibbles(uint32_t x, int j) {
+  const int byte = (x >> (8 * j)) & 0xff;
+  return pack_bf16(static_cast<float>((byte & 15) - 8),
+                   static_cast<float>((byte >> 4) - 8));
+}
+
+// A quantized chunk's stored bytes at raw, widened to the swizzled bf16 K
+// and V tiles at wide (exact: int8 values lie in [-127, 127], int4 values
+// in [-8, 7]), and its scales
+// copied beside them, so the ring stage is free once this returns.
+template <typename TKV, int D>
+__device__ __forceinline__ void widen_chunk(const unsigned char* raw,
+                                            unsigned char* wide) {
+  using P = PrefillMma<TKV, D>;
+  constexpr int kOut = kPmKC * D / 8;  // 16-byte bf16 chunks of a tile
+  constexpr int kIn = P::kRowBytes * 8 / D;  // stored bytes behind one
+#pragma unroll 4
+  for (int i = 0; i < 2 * kOut / P::kThreads; ++i) {
+    const int e = threadIdx.x + i * P::kThreads;
+    const int tile = e / kOut, r = (e % kOut) / (D / 8), c = e % (D / 8);
+    const unsigned char* src = raw + tile * P::kRaw + r * P::kRowBytes +
+                               c * kIn;
+    uint4 o;
+    if constexpr (std::is_same<TKV, int8_t>::value) {
+      const uint2 x = *reinterpret_cast<const uint2*>(src);
+      o = make_uint4(pack_bf16(sbyte(x.x, 0), sbyte(x.x, 1)),
+                     pack_bf16(sbyte(x.x, 2), sbyte(x.x, 3)),
+                     pack_bf16(sbyte(x.y, 0), sbyte(x.y, 1)),
+                     pack_bf16(sbyte(x.y, 2), sbyte(x.y, 3)));
+    } else {
+      const uint32_t x = *reinterpret_cast<const uint32_t*>(src);
+      o = make_uint4(nibbles(x, 0), nibbles(x, 1), nibbles(x, 2),
+                     nibbles(x, 3));
+    }
+    *reinterpret_cast<uint4*>(wide + tile * P::kTile + swz<D>(r, c)) = o;
+  }
+  const float* s_in = reinterpret_cast<const float*>(raw + 2 * P::kRaw);
+  float* s_out = reinterpret_cast<float*>(wide + 2 * P::kTile);
+  for (int j = threadIdx.x; j < 2 * kPmKC; j += P::kThreads)
+    s_out[j] = s_in[j];
+}
+
+template <typename TKV, int D>
+__global__ void __launch_bounds__(PrefillMma<TKV, D>::kThreads)
+paged_prefill_mma_kernel(const bf16* __restrict__ q,
+                         const typename KV<TKV>::S* __restrict__ k,
+                         const typename KV<TKV>::S* __restrict__ v,
+                         const float* __restrict__ ks,
+                         const float* __restrict__ vs,
+                         const int* __restrict__ table,
+                         const int* __restrict__ start, bf16* __restrict__ out,
+                         int H, int T, int N, int page, int nb,
+                         float sm_scale) {
+  using P = PrefillMma<TKV, D>;
+  constexpr bool kQuant = P::kQuant;
+  constexpr int kThreads = P::kThreads, kBM = P::kBM;
+  constexpr int kKS = D / 16;     // k-steps of Q K^T
+  constexpr int kNT = kPmKC / 8;  // 8-key column slices of a score tile
+  constexpr int kDT = D / 8;      // 8-wide column slices of o
+  extern __shared__ __align__(128) unsigned char smem_pm[];
+  const uint32_t q_s = smem_addr(smem_pm);
+  unsigned char* wide = smem_pm + P::kQ;
+  const uint32_t ring = q_s + P::kQ + P::kWide;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t qbase = static_cast<int64_t>(bh) * T * D;
+  const PagedChain chain{table, nb, N, page, H};
+  const int base = start[b];  // position of query 0 of this row
+  // Keys any query of the tile can see; nothing past the chain exists.
+  const int kv_end = min(base + min(q0 + kBM, T), chain.capacity());
+  const int n_chunks = (kv_end + kPmKC - 1) / kPmKC;
+  const unsigned char* kb = reinterpret_cast<const unsigned char*>(k);
+  const unsigned char* vb = reinterpret_cast<const unsigned char*>(v);
+
+  // Chunk c into ring stage `slot`; positions at or past kv_end are zero.
+  auto load_chunk = [&](int c, int slot) {
+    const uint32_t st = ring + slot * P::kStage;
+    const uint32_t v_off = kQuant ? P::kRaw : P::kTile;
+    const int c0 = c * kPmKC;
+#pragma unroll 1
+    for (int e = threadIdx.x; e < kPmKC * P::kPieces; e += kThreads) {
+      const int r = e / P::kPieces, p = e % P::kPieces, pos = c0 + r;
+      const bool in = pos < kv_end;
+      const int64_t off =
+          in ? (chain.base(b, h, pos / page) + pos % page) * P::kRowBytes +
+                   16 * p
+             : 0;
+      const uint32_t dst =
+          st + (kQuant ? r * P::kRowBytes + 16 * p : swz<D>(r, p));
+      cp_async16(dst, kb + off, in ? 16 : 0);
+      cp_async16(dst + v_off, vb + off, in ? 16 : 0);
+    }
+    if constexpr (kQuant) {
+#pragma unroll 1
+      for (int r = threadIdx.x; r < kPmKC; r += kThreads) {
+        const int pos = c0 + r;
+        const bool in = pos < kv_end;
+        const int64_t row = in ? chain.base(b, h, pos / page) + pos % page : 0;
+        const uint32_t dst = st + 2 * P::kRaw + 4 * r;
+        cp_async4(dst, ks + row, in ? 4 : 0);
+        cp_async4(dst + 4 * kPmKC, vs + row, in ? 4 : 0);
+      }
+    }
+  };
+
+  load_rows<kBM, D, kThreads>(q_s, q + qbase, q0, T);
+  cp_async_commit();
+  load_chunk(0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q has landed
+  __syncthreads();
+
+  const int r_lo = q0 + 16 * warp;  // the warp's first query
+  const int i0 = r_lo + g, i1 = i0 + 8;
+  const int qp_lo = base + r_lo, qp0 = base + i0, qp1 = base + i1;
+  uint32_t qf[kKS][4];
+#pragma unroll
+  for (int kk = 0; kk < kKS; ++kk)
+    ldsm_x4(qf[kk], q_s + swz<D>(16 * warp + (lane & 15),
+                                 2 * kk + (lane >> 4)));
+
+  float acc[kDT][4];
+#pragma unroll
+  for (int dt = 0; dt < kDT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+  // Rows i0 and i1: running max (log2 units) and this lane's part of l.
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  const float scale2 = sm_scale * kLog2e;
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int c0 = c * kPmKC;
+    if (c + 1 < n_chunks) load_chunk(c + 1, (c + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // chunk c has landed
+    __syncthreads();
+    const uint32_t st = ring + (c & 1) * P::kStage;
+    uint32_t k_s = st, v_s = st + P::kTile;
+    const float *ks_c = nullptr, *vs_c = nullptr;
+    if constexpr (kQuant) {
+      // The next chunk's bytes stay in flight while this one widens.
+      widen_chunk<TKV, D>(smem_pm + (st - q_s), wide);
+      __syncthreads();
+      k_s = q_s + P::kQ;
+      v_s = k_s + P::kTile;
+      ks_c = reinterpret_cast<const float*>(wide + 2 * P::kTile);
+      vs_c = ks_c + kPmKC;
+    }
+    // Warp-uniform: a chunk whose keys all lie past the warp's last query,
+    // or a warp whose rows all lie past T, adds nothing.
+    if (c0 <= qp_lo + 15 && r_lo < T) {
+      float s[kNT][4];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk)
+#pragma unroll
+        for (int np = 0; np < kNT; np += 2) {
+          uint32_t bfr[4];
+          ldsm_x4(bfr, k_s + swz<D>(8 * np + (lane & 7) + ((lane >> 4) << 3),
+                                    2 * kk + ((lane >> 3) & 1)));
+          mma_bf16(s[np], qf[kk], bfr[0], bfr[1]);
+          mma_bf16(s[np + 1], qf[kk], bfr[2], bfr[3]);
+        }
+      // A chunk wholly at or before the warp's first query position is
+      // causally valid for every (query, key) pair and skips the compare
+      // (the Pallas kernel's inner/frontier split); frontier and tail
+      // chunks compare positions.
+      const bool masked = c0 + kPmKC - 1 > qp_lo || c0 + kPmKC > kv_end;
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int jl = 8 * nt + 2 * t + e, j = c0 + jl;
+          // s = (q . k_int) * k_scale * sm_scale, in f32 after the product.
+          const float sc = kQuant ? ks_c[jl] * scale2 : scale2;
+          float x0 = s[nt][e] * sc, x1 = s[nt][2 + e] * sc;
+          if (masked) {
+            if (j > qp0 || j >= kv_end) x0 = kNegInf;
+            if (j > qp1 || j >= kv_end) x1 = kNegInf;
+          }
+          s[nt][e] = x0;
+          s[nt][2 + e] = x1;
+          mx0 = fmaxf(mx0, x0);
+          mx1 = fmaxf(mx1, x1);
+        }
+      const float mn0 = fmaxf(m0, quad_max(mx0));
+      const float mn1 = fmaxf(m1, quad_max(mx1));
+      const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      // p as the A fragments of p.v: k-step kk takes slices 2kk, 2kk + 1.
+      // l sums the unscaled p; p * v_scale is rounded to bf16 (JAX feeds
+      // the MXU in the query's dtype).
+      uint32_t pf[kNT / 2][4];
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        float p00 = exp2f(s[nt][0] - m0), p01 = exp2f(s[nt][1] - m0);
+        float p10 = exp2f(s[nt][2] - m1), p11 = exp2f(s[nt][3] - m1);
+        sum0 += p00 + p01;
+        sum1 += p10 + p11;
+        if constexpr (kQuant) {
+          const float v0 = vs_c[8 * nt + 2 * t], v1 = vs_c[8 * nt + 2 * t + 1];
+          p00 *= v0;
+          p01 *= v1;
+          p10 *= v0;
+          p11 *= v1;
+        }
+        pf[nt >> 1][(nt & 1) * 2] = pack_bf16(p00, p01);
+        pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p10, p11);
+      }
+      l0 = al0 * l0 + sum0;
+      l1 = al1 * l1 + sum1;
+#pragma unroll
+      for (int dt = 0; dt < kDT; ++dt) {
+        acc[dt][0] *= al0;
+        acc[dt][1] *= al0;
+        acc[dt][2] *= al1;
+        acc[dt][3] *= al1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kPmKC / 16; ++kk)
+#pragma unroll
+        for (int dp = 0; dp < kDT; dp += 2) {
+          uint32_t bfr[4];
+          ldsm_x4_t(bfr, v_s + swz<D>(16 * kk + (lane & 15), dp + (lane >> 4)));
+          mma_bf16(acc[dp], pf[kk], bfr[0], bfr[1]);
+          mma_bf16(acc[dp + 1], pf[kk], bfr[2], bfr[3]);
+        }
+    }
+    // A bf16 pool's stage c & 1 is refilled by the next iteration: every
+    // warp must be done with it. A quantized chunk left its stage at the
+    // widening barrier, and its widened tiles are rewritten only after the
+    // next iteration's first barrier.
+    if constexpr (!kQuant) __syncthreads();
+  }
+  cp_async_wait<0>();
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+#pragma unroll
+  for (int dt = 0; dt < kDT; ++dt) {
+    const int col = 8 * dt + 2 * t;
+    if (i0 < T)
+      *reinterpret_cast<uint32_t*>(out + qbase + static_cast<int64_t>(i0) * D +
+                                   col) =
+          pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
+    if (i1 < T)
+      *reinterpret_cast<uint32_t*>(out + qbase + static_cast<int64_t>(i1) * D +
+                                   col) =
+          pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
+  }
+}
+
 struct LaunchDecode {
   template <typename TQ, typename TKV, int D>
   static void run(const void* q, const void* k, const void* v,
@@ -214,6 +549,8 @@ struct LaunchDecode {
   }
 };
 
+// A bf16 query over a bf16, int8 or int4 pool takes the tensor-core kernel;
+// an fp32 query, or any query over an fp32 pool, the CUDA-core one.
 struct LaunchPrefill {
   template <typename TQ, typename TKV, int D>
   static void run(const void* q, const void* k, const void* v,
@@ -221,11 +558,28 @@ struct LaunchPrefill {
                   const int* start, void* out, int B, int H, int T, int N,
                   int page, int nb, float sm_scale, cudaStream_t stream) {
     using S = typename KV<TKV>::S;
-    const dim3 grid((T + kPfQT - 1) / kPfQT, H, B);
-    paged_prefill_kernel<TQ, TKV, D><<<grid, kPfThreads, 0, stream>>>(
-        static_cast<const TQ*>(q), static_cast<const S*>(k),
-        static_cast<const S*>(v), ks, vs, table, start,
-        static_cast<TQ*>(out), H, T, N, page, nb, sm_scale);
+    if constexpr (std::is_same<TQ, bf16>::value &&
+                  !std::is_same<TKV, float>::value) {
+      using P = PrefillMma<TKV, D>;
+      constexpr size_t smem = P::kSmem;
+      // Above 48 KB, dynamic shared memory has to be allowed per kernel;
+      // a refusal is left for the entry point's cudaGetLastError().
+      if (cudaFuncSetAttribute(paged_prefill_mma_kernel<TKV, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem)) != cudaSuccess)
+        return;
+      const dim3 grid(B * H, (T + P::kBM - 1) / P::kBM);
+      paged_prefill_mma_kernel<TKV, D><<<grid, P::kThreads, smem, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const S*>(k),
+          static_cast<const S*>(v), ks, vs, table, start,
+          static_cast<bf16*>(out), H, T, N, page, nb, sm_scale);
+    } else {
+      const dim3 grid((T + kPfQT - 1) / kPfQT, H, B);
+      paged_prefill_kernel<TQ, TKV, D><<<grid, kPfThreads, 0, stream>>>(
+          static_cast<const TQ*>(q), static_cast<const S*>(k),
+          static_cast<const S*>(v), ks, vs, table, start,
+          static_cast<TQ*>(out), H, T, N, page, nb, sm_scale);
+    }
   }
 };
 

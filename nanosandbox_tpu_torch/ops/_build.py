@@ -32,7 +32,7 @@ SOURCES = tuple(os.path.join(_PKG, "csrc", name) for name in
                  "flash_attention.cu"))
 # Headers the sources include: part of every library's hash.
 HEADERS = tuple(os.path.join(_PKG, "csrc", name) for name in
-                ("decode_common.cuh",))
+                ("decode_common.cuh", "mma_common.cuh"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -9,8 +9,8 @@ by ops/_build.py):
   flash_attention_bwd_dq     (K6)  <- _flash_bwd_dq_kernel
   flash_attention_bwd_dkv    (K7)  <- _flash_bwd_tiles_kernel(with_dq=False)
 
-K4 and K5 on bfloat16 run on the tensor cores (mma.sync); on float32,
-and K6 and K7 on either type, they run on CUDA cores. The input type
+K4, K5 and K7 on bfloat16 run on the tensor cores (mma.sync); on
+float32, and K6 on either type, they run on CUDA cores. The input type
 alone picks the design.
 
 ``BWD_IMPL`` picks the backward strategy, as in the JAX file: 'fused'
@@ -334,10 +334,11 @@ def _launch_bwd(mode: str, q, k, v, o, lse, do, dq, dk, dv, sm_scale,
                 dropout_rate, seed, hash_seq_len) -> None:
     B, H, T, D = q.shape
     words, dr = _dropout_args(q, seed, dropout_rate, hash_seq_len)
-    # The bf16 K5 computes Drow = rowsum(dO o) once per row into this
-    # (B*H, T) f32 scratch before its key-parallel kernel.
+    # The bf16 K5 and K7 compute Drow = rowsum(dO o) once per row into
+    # this (B*H, T) f32 scratch before their key-parallel kernel.
     drow = (torch.empty((B * H, T), dtype=torch.float32, device=q.device)
-            if mode == "fused" and q.dtype == torch.bfloat16 else None)
+            if mode in ("fused", "dkv") and q.dtype == torch.bfloat16
+            else None)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = _build.library().nsb_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

@@ -18,9 +18,10 @@ pool without its last dim, and fp pools without them; block_table
 block" sentinel; lengths / start (B,) int32. All return q's dtype, with
 f32 scores and accumulation. The scales fold into the math as in the JAX
 functions: s = (q . k_int) * k_scale * sm_scale, the normaliser sums the
-unscaled p, and the output is (p * v_scale) . v_int. (JAX rounds
-p * v_scale to a bf16 query's dtype before the product; the port keeps
-it in f32.)
+unscaled p, and the output is (p * v_scale) . v_int. The paged prefill
+rounds p (p * v_scale) to the dtype JAX feeds its p.v product in -- a
+bf16 query's over a bf16, int8 or int4 pool -- as its tensor-core kernel
+does; the decode paths keep it in f32 (JAX rounds it there too).
 
 Routing: a CUDA tensor goes to the hand-written kernel
 (csrc/flash_decode.cu, csrc/paged_attention.cu, built at first use by
@@ -192,9 +193,10 @@ def _gather_chain(pool: torch.Tensor, block_table: torch.Tensor):
 # Plain versions: the CPU path, and the reference the kernels are held to
 # ---------------------------------------------------------------------------
 
-def _attend(q, gk, gv, mask, ks, vs, sm_scale):
+def _attend(q, gk, gv, mask, ks, vs, sm_scale, p_dtype=torch.float32):
     """Masked softmax attention of q (..., T, D) over f32 rows (..., S, D)
-    with the scale folds; ks / vs (..., S) or None."""
+    with the scale folds; ks / vs (..., S) or None. p (p * vs) is rounded
+    to p_dtype before the p.v product, which sums in f32."""
     s = torch.einsum("...td,...sd->...ts", q.float(), gk)
     if ks is not None:
         s = s * ks[..., None, :]
@@ -202,7 +204,7 @@ def _attend(q, gk, gv, mask, ks, vs, sm_scale):
     p = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
     if vs is not None:
         p = p * vs[..., None, :]
-    return torch.einsum("...ts,...sd->...td", p, gv)
+    return torch.einsum("...ts,...sd->...td", p.to(p_dtype).float(), gv)
 
 
 def torch_decode_attention(q, k, v, lengths, *, k_scale=None, v_scale=None,
@@ -253,7 +255,11 @@ def torch_prefill_attention_paged(q, k, v, block_table, start, *,
                                   k_scale=None, v_scale=None) -> torch.Tensor:
     """Causal multi-query attention over a row's block chain, gathered:
     query t of row b sits at position start[b] + t and attends to every
-    key position <= its own. Returns (B, H, T, D)."""
+    key position <= its own. Returns (B, H, T, D). p is rounded to JAX's
+    dot dtype before p.v (flash_decode.py _paged_prefill_kernel): q's
+    dtype over an int8/int4 pool, else the promotion of q's and the
+    pool's, so only a bf16 query over a bf16, int8 or int4 pool rounds
+    it."""
     _kv_mode(q, k, v, k_scale, v_scale)
     if q.is_cuda:
         plain_cuda_calls["torch_prefill_attention_paged"] += 1
@@ -270,7 +276,10 @@ def torch_prefill_attention_paged(q, k, v, block_table, start, *,
             + torch.arange(T, device=q.device)[None, :])        # (B, T)
     kpos = torch.arange(gk.shape[2], device=q.device)
     mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None]  # (B,1,T,S)
-    return _attend(q, gk, gv, mask, gks, gvs, sm_scale).to(q.dtype)
+    dot_dtype = (q.dtype if k_scale is not None
+                 else torch.promote_types(q.dtype, k.dtype))
+    return _attend(q, gk, gv, mask, gks, gvs, sm_scale,
+                   dot_dtype).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -389,7 +398,9 @@ def flash_prefill_paged(q, k, v, block_table, start, *,
     """Multi-query causal attention over a BLOCK-PAGED pool: q
     (B, H, T, D) holds row b's queries at positions start[b] ..
     start[b]+T-1, and the pool must already hold their K/V. Returns
-    (B, H, T, D) in q's dtype. CUDA tensors launch paged_prefill_kernel."""
+    (B, H, T, D) in q's dtype. CUDA tensors launch paged_prefill_mma_kernel
+    (a bf16 query over a bf16, int8 or int4 pool, on the tensor cores) or
+    paged_prefill_kernel (an fp32 query, or an fp32 pool)."""
     mode = _kv_mode(q, k, v, k_scale, v_scale)
     if not q.is_cuda:
         return torch_prefill_attention_paged(q, k, v, block_table, start,

@@ -197,6 +197,43 @@ def test_paged_prefill_quantized_plain_matches_jax_kernel(mode):
                                rtol=QTOL)
 
 
+@pytest.mark.parametrize("mode,D", [("bf16", 64), ("bf16", 128),
+                                    ("int8", 32), ("int8", 64),
+                                    ("int4", 64), ("int4", 128)])
+def test_paged_prefill_bf16_plain_matches_jax_kernel(mode, D):
+    """A bf16 query over a bf16, int8 or int4 pool: the plain version (the
+    yardstick the tensor-core kernel is held to on the card) against JAX's
+    kernel in interpret mode, at a start off the page grid, a ragged last
+    page and sentinel table entries, within 2e-2 (bf16 outputs, compared
+    in f32; both round p to bf16 before p.v)."""
+    rng = np.random.default_rng(23 + D)
+    B, H, T, page, nb, N = 2, 2, 100, 8, 19, 40
+    start = np.asarray([0, 37], np.int32)
+    k, v, ks, vs, table = _paged(rng, "fp32", B, H, page, D, nb, N,
+                                 start + T)
+    if mode == "bf16":
+        k, v = (np.asarray(jnp.asarray(x, jnp.bfloat16)) for x in (k, v))
+    else:
+        k, v, ks, vs = _quantized(mode, k, v)
+    q = np.asarray(jnp.asarray(rng.normal(size=(B, H, T, D)), jnp.bfloat16))
+    scales = {} if ks is None else dict(k_scale=jnp.asarray(ks),
+                                        v_scale=jnp.asarray(vs))
+    ref = jfd.flash_prefill_paged(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(table),
+        jnp.asarray(start), interpret=True, **scales)
+    tsc = {} if ks is None else dict(zip(("k_scale", "v_scale"),
+                                         _t(ks, vs)))
+    tq, tt, ts = _t(q.astype(np.float32), table, start)
+    tk, tv = ((torch.from_numpy(x.astype(np.float32)).bfloat16()
+               if mode == "bf16" else torch.from_numpy(np.array(x)))
+              for x in (k, v))
+    out = tfd.flash_prefill_paged(tq.bfloat16(), tk, tv, tt, ts, **tsc)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref).astype(np.float32),
+                               atol=2e-2, rtol=0)
+
+
 def test_scale_checks_raise():
     q = torch.zeros(1, 1, 32)
     k8 = torch.zeros(2, 1, 8, 32, dtype=torch.int8)

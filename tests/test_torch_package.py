@@ -192,6 +192,23 @@ def test_chip_smoke_build_report_parsers():
             "\t\tFunction : _Zold\n        /*0000*/  FFMA R1, R2, R3, R1 ;\n")
     assert chip_smoke.sass_mma_counts(sass) == {fwd: 2, "_Zold": 0}
     assert chip_smoke.kernel_label(fwd) == "flash_fwd_mma_kernel<D=64>"
+    # K7 (the backward without dQ) and K1 over each pool's storage type:
+    # bf16, int8 (signed char) and int4 (nsb::Int4, a substitution).
+    labels = {
+        "_ZN12_GLOBAL__N_120flash_bwd_mma_kernelILi128ELb0EEEvPK13__nv_"
+        "bfloat16S3_": "flash_bwd_mma_kernel<D=128, dq=0>",
+        "_ZN12_GLOBAL__N_120flash_bwd_mma_kernelILi32ELb1EEEvPK13__nv_"
+        "bfloat16S3_": "flash_bwd_mma_kernel<D=32, dq=1>",
+        "_ZN3nsb12_GLOBAL__N_124paged_prefill_mma_kernelI13__nv_bfloat16"
+        "Li64EEEvPKS2_": "paged_prefill_mma_kernel<bf16, D=64>",
+        "_ZN3nsb12_GLOBAL__N_124paged_prefill_mma_kernelIaLi32EEEvPK13__nv_"
+        "bfloat16": "paged_prefill_mma_kernel<int8, D=32>",
+        "_ZN3nsb12_GLOBAL__N_124paged_prefill_mma_kernelINS_4Int4ELi128EEEv"
+        "PK13__nv_bfloat16": "paged_prefill_mma_kernel<int4, D=128>"}
+    for mangled, label in labels.items():
+        assert chip_smoke.kernel_label(mangled) == label
+        assert label in chip_smoke.TENSOR_CORE_INSTANCES
+    assert len(chip_smoke.TENSOR_CORE_INSTANCES) == 18
 
 
 def test_unported_paths_raise():
