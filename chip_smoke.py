@@ -10,10 +10,12 @@ result line):
   2. build    the CUDA kernels from nanosandbox_tpu_torch/csrc (into
               build/), with nvcc's register and spill report, and for
               each tensor-core instance (TENSOR_CORE_INSTANCES: bf16 K4,
-              K5 and K7, and K1 under a bf16 query over bf16, int8 and
-              int4 pools, at head_dim 32, 64, 128; all must be found) its
-              registers, spill stores (must be 0) and HMMA/HGMMA count
-              in the SASS (cuobjdump; must not be 0);
+              K5, K6 and K7, and K1 under a bf16 query over bf16, int8
+              and int4 pools, at head_dim 32, 64, 128; all must be found)
+              its registers, spill stores (must be 0) and HMMA/HGMMA
+              count in the SASS (cuobjdump; must not be 0), and the
+              registers and spill stores (must be 0) of the fp32 K5 and
+              K7 (CUDA_CORE_INSTANCES);
   3. kernels  each kernel against its plain PyTorch version on the card
               at GPT-2 124M shapes, under fp32 and bf16 queries: K2 and
               K1 (H 12, D 64, page 16, 512 blocks, 64 table entries per
@@ -56,14 +58,16 @@ result line):
               exact arithmetic and meet the absolute limit alone) and
               head_dim 128 with dropout 0.1; the split backward must
               give equal bits twice; then each kernel's time on the bf16
-              inputs just checked, and K4's and K5's on the fp32 ones
-              (TF32 off), beside its bound, its plain version and
-              F.scaled_dot_product_attention (is_causal; forward, and
-              forward+backward minus forward);
+              and on the fp32 inputs just checked (TF32 off), beside its
+              bound, its plain version and F.scaled_dot_product_attention
+              (is_causal; forward, and forward+backward minus forward,
+              which the fused backward and the split pair K6 + K7 are
+              printed against);
   8. train parity  GPT-2 124M in fp32 (TF32 off) on a 2 x 1024 batch,
               without dropout and with dropout 0.1 (masks from alike-
               seeded generators): loss and every parameter gradient with
-              the kernels against the same model with the plain attention
+              the kernels, through the fused backward and through the
+              split one, against the same model with the plain attention
               on the card;
   9. trainer  `python -m nanosandbox_tpu_torch.train`'s main() with
               configs/train_gpt2_124m_englishprose_bpe.py at full width
@@ -179,17 +183,24 @@ def time_ms(fn, reps: int = 25) -> float:
 
 # The kernels on the tensor cores, by the name their symbols carry.
 TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_mma_kernel",
-                       "paged_prefill_mma_kernel")
+                       "flash_bwd_dq_mma_kernel", "paged_prefill_mma_kernel")
+# CUDA-core kernels whose instances phase 2 holds to 0 spill bytes.
+CUDA_CORE_KERNELS = ("flash_bwd_kv_kernel",)
 HEAD_DIMS = (32, 64, 128)
 # The template instances phase 2 must find, as kernel_label names them:
-# K4 (bf16), K5 and K7 (bf16, with and without dQ), and K1 under a bf16
-# query over each bf16, int8 and int4 pool.
+# K4, K6 (bf16), K5 and K7 (bf16, with and without dQ), and K1 under a
+# bf16 query over each bf16, int8 and int4 pool.
 TENSOR_CORE_INSTANCES = tuple(sorted(
     [f"flash_fwd_mma_kernel<D={d}>" for d in HEAD_DIMS]
+    + [f"flash_bwd_dq_mma_kernel<D={d}>" for d in HEAD_DIMS]
     + [f"flash_bwd_mma_kernel<D={d}, dq={w}>" for d in HEAD_DIMS
        for w in (0, 1)]
     + [f"paged_prefill_mma_kernel<{kv}, D={d}>" for d in HEAD_DIMS
        for kv in ("bf16", "int8", "int4")]))
+# The fp32 K5 and K7 (with and without dQ).
+CUDA_CORE_INSTANCES = tuple(sorted(
+    f"flash_bwd_kv_kernel<D={d}, dq={w}>" for d in HEAD_DIMS
+    for w in (0, 1)))
 
 
 def ptxas_report(log: str) -> dict:
@@ -225,7 +236,8 @@ def kernel_label(mangled: str) -> str:
     the head_dim (the first integer argument), the pool's storage type of
     the paged prefill (bf16, int8 = signed char, int4 = nsb::Int4), and
     whether the backward computes dQ (its bool argument)."""
-    name = next(n for n in TENSOR_CORE_KERNELS if n in mangled)
+    name = next(n for n in TENSOR_CORE_KERNELS + CUDA_CORE_KERNELS
+                if n in mangled)
     args = mangled.split(name, 1)[1]
     head_dim = re.search(r"Li(\d+)E", args).group(1)
     if name == "paged_prefill_mma_kernel":
@@ -233,7 +245,7 @@ def kernel_label(mangled: str) -> str:
               "int8" if args.startswith("Ia") else
               "int4" if "4Int4" in args.split("Li", 1)[0] else "?")
         return f"{name}<{kv}, D={head_dim}>"
-    if name == "flash_bwd_mma_kernel":
+    if name in ("flash_bwd_mma_kernel", "flash_bwd_kv_kernel"):
         dq = re.search(r"Lb([01])E", args).group(1)
         return f"{name}<D={head_dim}, dq={dq}>"
     return f"{name}<D={head_dim}>"
@@ -242,13 +254,14 @@ def kernel_label(mangled: str) -> str:
 def check_build(_build) -> None:
     """Builds the kernels; prints each library's ptxas summary, and the
     registers, spill stores and SASS tensor-core instructions of every
-    tensor-core kernel. Fails if one of those has no HMMA / HGMMA or
-    spills."""
+    tensor-core kernel and the registers and spill stores of the fp32 K5
+    and K7. Fails if a tensor-core kernel has no HMMA / HGMMA, or if one
+    of either spills."""
     _build.library()
     info = _build.build_info
     print(f"  {len(info['libs'])} libraries in {info['seconds']:.1f} s "
           "(one nvcc per source, in parallel)")
-    tc = []
+    tc, cc = [], []
     for lib in info["libs"]:
         with open(lib["log"]) as f:
             report = ptxas_report(f.read())
@@ -265,16 +278,24 @@ def check_build(_build) -> None:
                                                  _build._nvcc()))
             tc += [(kernel_label(n), *report[n], mma.get(n, 0))
                    for n in names]
-    found = tuple(sorted(t[0] for t in tc))
-    if found != TENSOR_CORE_INSTANCES:
-        fail(f"expected the tensor-core instances {TENSOR_CORE_INSTANCES}, "
-             f"found {found}")
+        cc += [(kernel_label(n), *report[n]) for n in report
+               if any(k in n for k in CUDA_CORE_KERNELS)]
+    for kind, want, got in (("tensor-core", TENSOR_CORE_INSTANCES, tc),
+                            ("CUDA-core", CUDA_CORE_INSTANCES, cc)):
+        found = tuple(sorted(t[0] for t in got))
+        if found != want:
+            fail(f"expected the {kind} instances {want}, found {found}")
     for label, regs, spill, mma in sorted(tc):
         print(f"  {label}: {regs} registers, {spill} bytes spill stores, "
               f"{mma} HMMA/HGMMA instructions in SASS")
         if mma == 0 or spill:
             fail(f"{label}: {mma} tensor-core instructions in its SASS, "
                  f"{spill} bytes spilled (needs > 0 and 0)")
+    for label, regs, spill in sorted(cc):
+        print(f"  {label} (f32, CUDA cores): {regs} registers, {spill} bytes "
+              "spill stores")
+        if spill:
+            fail(f"{label}: {spill} bytes spilled (needs 0)")
 
 
 # ---------------------------------------------------------------------------
@@ -896,13 +917,13 @@ def check_train_kernels(at) -> dict:
             for k, e in r.items() if k != "case"))
 
     # Times at the 124M training shape on the inputs checked above: every
-    # kernel in bf16, and the fp32 instances of K4 and K5 (the fp32 engines'
-    # dense prefill and phase 8's path; TF32 off) as "fwd_fp32" and
-    # "fused_fp32".
-    cases = time_train_kernels(at, timed[torch.bfloat16],
-                               ("fwd", "fused", "dq", "dkv"))
+    # kernel in bf16 and in fp32 (the fp32 engines' dense prefill and phase
+    # 8's path; TF32 off) as "fwd_fp32", "fused_fp32", "dq_fp32" and
+    # "dkv_fp32".
+    kinds = ("fwd", "fused", "dq", "dkv")
+    cases = time_train_kernels(at, timed[torch.bfloat16], kinds)
     for kind, c in time_train_kernels(at, timed[torch.float32],
-                                      ("fwd", "fused")).items():
+                                      kinds).items():
         cases[f"{kind}_fp32"] = c
     print(f"  times at {shape}: kernel       ms        bound_ms  %bound  "
           "plain_ms  library_ms")
@@ -912,10 +933,11 @@ def check_train_kernels(at) -> dict:
         print(f"  {kind:<10} {c['ms']:.5f}  {c['bound_ms']:.5f}  "
               f"{100 * c['bound_ms'] / c['ms']:5.1f}%  {c['plain_ms']:.5f}  "
               f"{lib}  [{c['bound_by']}]")
-    split = cases["dq"]["ms"] + cases["dkv"]["ms"]
-    print(f"  bf16 backward: fused {cases['fused']['ms']:.5f} ms, split "
-          f"(K6 + K7) {split:.5f} ms, SDPA {cases['fused']['library_ms']:.5f} "
-          "ms")
+    for dt, tag in (("bf16", ""), ("fp32", "_fp32")):
+        split = cases[f"dq{tag}"]["ms"] + cases[f"dkv{tag}"]["ms"]
+        print(f"  {dt} backward: fused {cases['fused' + tag]['ms']:.5f} ms, "
+              f"split (K6 + K7) {split:.5f} ms, SDPA backward (dQ, dK, dV) "
+              f"{cases['fused' + tag]['library_ms']:.5f} ms")
     # The max |err| reported beside each time: that of the timed inputs.
     outputs = {"fwd": ("o", "lse"), "fused": ("fused_dq", "fused_dk",
                                               "fused_dv"),
@@ -980,15 +1002,20 @@ def time_train_kernels(at, inputs, kinds) -> dict:
 # ---------------------------------------------------------------------------
 
 def check_train_parity(at) -> dict:
-    """Without dropout, and with dropout 0.1: both passes draw their
-    per-layer attention seeds and residual masks from generators seeded
-    alike, so they drop the same elements and must agree as closely.
-    Returns the kernel passes' launches (the fp32 K4 and K5), summed."""
+    """Without dropout, and with dropout 0.1: the kernels with the fused
+    backward (K5), the kernels with the split one (K6 + K7) and the plain
+    attention each draw their per-layer attention seeds and residual
+    masks from generators seeded alike, so they drop the same elements
+    and must agree as closely. Returns the kernel passes' launches (the
+    fp32 K4-K7), summed."""
     from nanosandbox_tpu_torch.config import GPTConfig
     from nanosandbox_tpu_torch.models.gpt import GPT, cross_entropy_loss
 
     rng = np.random.default_rng(SEED + 4)
     kernel_launches: dict = {}
+    need = {"fused": ("flash_attention_fwd", "flash_attention_bwd_fused"),
+            "split": ("flash_attention_fwd", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv")}
     for dropout in (0.0, 0.1):
         cfg = GPTConfig(**MODEL, compute_dtype="float32", dropout=dropout)
         model = GPT(cfg, device=DEVICE, generator=torch.Generator(
@@ -998,40 +1025,49 @@ def check_train_parity(at) -> dict:
                 .to(DEVICE) for _ in range(2))
         params = [p for _, p in model.named_parameters()]
         out = {}
-        for plain in (False, True):
+        for impl in ("fused", "split", "plain"):
             gen = (torch.Generator(device=DEVICE).manual_seed(SEED + 5)
                    if dropout else None)
             at.reset_counts()
-            loss = cross_entropy_loss(model(x, plain_attention=plain,
-                                            dropout_generator=gen), y)
-            grads = torch.autograd.grad(loss, params)
-            sync()
-            out[plain] = (float(loss.detach()), grads, dict(at.launches),
-                          dict(at.plain_cuda_calls))
-        (lk, gk, launches, _), (lp, gp, _, plain_calls) = out[False], out[True]
-        rel = abs(lk - lp) / abs(lp)
-        worst = max((float((a - b).abs().max())
-                     / max(float(b.abs().max()), 1e-30), n)
-                    for (n, _), a, b in zip(model.named_parameters(), gk, gp))
-        name = f"fp32 124M, 2 x {cfg.block_size}, dropout {dropout}"
-        print(f"  {name}: loss kernels {lk:.7f} plain {lp:.7f} (rel "
-              f"{rel:.1e}); worst gradient max|diff|/max|ref| {worst[0]:.1e} "
-              f"({worst[1]}); kernel launches {launches}, plain CUDA calls "
-              f"{plain_calls}")
-        if not rel <= 1e-5:
-            fail(f"{name}: loss kernels {lk} vs plain {lp}: rel {rel} > 1e-5")
-        if not worst[0] <= 1e-3:
-            fail(f"{name}: gradient {worst[1]}: max|diff| / max|ref| "
-                 f"{worst[0]} > 1e-3")
-        if launches["flash_attention_fwd"] < cfg.n_layer or \
-                launches["flash_attention_bwd_fused"] < cfg.n_layer:
-            fail(f"{name}: the kernel pass bypassed a kernel: {launches}")
+            at.BWD_IMPL = "split" if impl == "split" else "fused"
+            try:
+                loss = cross_entropy_loss(model(
+                    x, plain_attention=impl == "plain",
+                    dropout_generator=gen), y)
+                grads = torch.autograd.grad(loss, params)
+                sync()
+            finally:
+                at.BWD_IMPL = "fused"
+            out[impl] = (float(loss.detach()), grads, dict(at.launches),
+                         dict(at.plain_cuda_calls))
+        lp, gp, _, plain_calls = out["plain"]
+        for impl in ("fused", "split"):
+            lk, gk, launches, _ = out[impl]
+            rel = abs(lk - lp) / abs(lp)
+            worst = max((float((a - b).abs().max())
+                         / max(float(b.abs().max()), 1e-30), n)
+                        for (n, _), a, b in zip(model.named_parameters(), gk,
+                                                gp))
+            name = (f"fp32 124M, 2 x {cfg.block_size}, dropout {dropout}, "
+                    f"{impl} backward")
+            print(f"  {name}: loss kernels {lk:.7f} plain {lp:.7f} (rel "
+                  f"{rel:.1e}); worst gradient max|diff|/max|ref| "
+                  f"{worst[0]:.1e} ({worst[1]}); kernel launches "
+                  f"{launches}, plain CUDA calls {plain_calls}")
+            if not rel <= 1e-5:
+                fail(f"{name}: loss kernels {lk} vs plain {lp}: rel {rel} > "
+                     "1e-5")
+            if not worst[0] <= 1e-3:
+                fail(f"{name}: gradient {worst[1]}: max|diff| / max|ref| "
+                     f"{worst[0]} > 1e-3")
+            if any(launches[k] < cfg.n_layer for k in need[impl]):
+                fail(f"{name}: the kernel pass bypassed a kernel: {launches}")
+            for key, n in launches.items():
+                kernel_launches[key] = kernel_launches.get(key, 0) + n
         if not plain_calls["torch_flash_attention"]:
-            fail(f"{name}: the plain pass did not run the plain attention: "
-                 f"{plain_calls}")
-        for key, n in launches.items():
-            kernel_launches[key] = kernel_launches.get(key, 0) + n
-        del model, gk, gp
+            fail(f"fp32 124M, dropout {dropout}: the plain pass did not run "
+                 f"the plain attention: {plain_calls}")
+        del model, out, gp
         torch.cuda.empty_cache()
     return kernel_launches
 
@@ -1524,7 +1560,7 @@ def main(argv: list[str] | None = None) -> int:
               tl["flash_attention_fwd"], train_cases["fwd"]),
         entry("flash_bwd_mma_kernel", flash, "attention.py:556",
               tl["flash_attention_bwd_fused"], train_cases["fused"]),
-        entry("flash_bwd_dq_kernel", flash, "attention.py:475",
+        entry("flash_bwd_dq_mma_kernel", flash, "attention.py:475",
               tl["flash_attention_bwd_dq"], train_cases["dq"]),
         entry("flash_bwd_mma_kernel<with_dq=false>", flash,
               "attention.py:556", tl["flash_attention_bwd_dkv"],
@@ -1535,7 +1571,13 @@ def main(argv: list[str] | None = None) -> int:
               train_cases["fwd_fp32"]),
         entry("flash_bwd_kv_kernel<float>", flash, "attention.py:556",
               parity_launches["flash_attention_bwd_fused"],
-              train_cases["fused_fp32"])]
+              train_cases["fused_fp32"]),
+        entry("flash_bwd_dq_kernel<float>", flash, "attention.py:475",
+              parity_launches["flash_attention_bwd_dq"],
+              train_cases["dq_fp32"]),
+        entry("flash_bwd_kv_kernel<float, with_dq=false>", flash,
+              "attention.py:556", parity_launches["flash_attention_bwd_dkv"],
+              train_cases["dkv_fp32"])]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -113,7 +113,7 @@ class TrainConfig:
     memory_report: bool = False  # not ported yet
 
     # -- logging --
-    tensorboard: bool = True  # JSONL only in the port
+    tensorboard: bool = True
     run_name: str = ""
     log_dir: str = ""  # default: <out_dir>/runs
     profile_steps: str = ""  # 'a:b'; not ported yet

@@ -13,7 +13,10 @@
 // exactly as the Pallas kernels fold them (nanosandbox_tpu/ops/
 // flash_decode.py): the k scale multiplies a score after the q.k
 // reduction, the v scale multiplies the probability before p.v, and the
-// softmax normaliser l sums the UNscaled probabilities.
+// softmax normaliser l sums the UNscaled probabilities. The probability
+// (times the v scale) is rounded to the Pallas kernels' dot dtype before
+// p.v: a bf16 query's over a bf16, int8 or int4 pool rounds it to bf16
+// (kRoundP); an fp32 query, or an fp32 pool, keeps it in f32.
 //
 // The decode walk (decode_row) is one query per (row, head) over that
 // row's positions [0, len), with an addressing policy saying where each
@@ -25,6 +28,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace nsb {
 
@@ -220,6 +225,11 @@ __device__ __forceinline__ void decode_row(
     const float* __restrict__ vs, const Chain& chain, int length,
     TQ* __restrict__ out, int b, int h, int H, float sm_scale) {
   using L = KV<TKV>;
+  // JAX's dot dtype is q's for a quantized pool and the wider of (q, pool)
+  // otherwise (flash_decode.py _flash_decode_kernel): bf16 exactly when a
+  // bf16 query meets a pool that is not fp32.
+  constexpr bool kRoundP = std::is_same<TQ, __nv_bfloat16>::value &&
+                           !std::is_same<TKV, float>::value;
   constexpr int kVN = L::kN;         // dims per lane load
   constexpr int kLPR = D / kVN;      // lanes per K/V row
   constexpr int kRPW = 32 / kLPR;    // rows per warp load
@@ -280,7 +290,8 @@ __device__ __forceinline__ void decode_row(
           const float m_new = fmaxf(m, s);
           const float alpha = expf(m - m_new), p = expf(s - m_new);
           l = l * alpha + p;
-          const float pv = L::kQuant ? p * vsc[u] : p;
+          float pv = L::kQuant ? p * vsc[u] : p;
+          if constexpr (kRoundP) pv = __bfloat162float(__float2bfloat16(pv));
 #pragma unroll
           for (int i = 0; i < kVN; ++i) acc[i] = acc[i] * alpha + pv * vx[u][i];
           m = m_new;

@@ -11,18 +11,20 @@
 //     flash_bwd_mma_kernel<D, true>     <- _flash_bwd_tiles_kernel(
 //       with_dq=True) (K5), after flash_bwd_drow_kernel, its pre-pass for
 //       the row term Drow = rowsum(dO o);
+//     flash_bwd_dq_mma_kernel           <- _flash_bwd_dq_kernel (K6), the
+//       split backward's dQ pass, parallel over query tiles;
 //     flash_bwd_mma_kernel<D, false>    <- _flash_bwd_tiles_kernel(
 //       with_dq=False) (K7), the split backward's dK/dV pass: the same
 //       kernel and pre-pass without the dQ half;
-//   f32 (every type for K6), on CUDA cores:
+//   f32, on CUDA cores (every product an exact f32 fmaf):
 //     flash_fwd_kernel<float>           <- K4
-//     flash_bwd_kv_kernel<float, true>  <- K5
-//     flash_bwd_kv_kernel<float, false> <- K7
-//     flash_bwd_dq_kernel               <- _flash_bwd_dq_kernel (K6), the
-//       split backward's dQ pass, parallel over query tiles.
+//     flash_bwd_kv_kernel<D, true>      <- K5, after the f32 instance of
+//       flash_bwd_drow_kernel;
+//     flash_bwd_kv_kernel<D, false>     <- K7, after the same pre-pass;
+//     flash_bwd_dq_kernel<float>        <- K6.
 //   f32 stays on CUDA cores because its kernels are held to 1e-5 of the
 //   plain version with TF32 off, which bf16 or TF32 products would not
-//   meet; K6 is the next kernel to move.
+//   meet.
 //
 // What bounds them. Per (row, head) the forward does 4*D*T(T+1)/2 flops and
 // moves q, k, v and o once; the fused backward does 2.5x those flops over
@@ -62,10 +64,20 @@
 //     it, the dQ product and its atomics (and without the dS^T tile in
 //     shared memory). Every block writes only its own keys' dK and dV, so
 //     the split backward's result is the same bit for bit on every run.
-// The CUDA-core design (f32): 64 x 64 tiles staged in shared memory as f32
-// (rows padded to D + 1 floats), a 16 x 16 grid of threads computing 4 x 4
-// outputs each, synchronous loads. It keeps the f32 kernels exact to 1e-5
-// against the plain version; TF32 products would not.
+//   - K6: K4's walk with a second product. A block owns 64 queries, a
+//     warp 16; S = Q K^T and dP = dO V^T from the same 64-key K/V tiles
+//     of the ring, dS = P (dP - Drow) rounded to bf16 in registers is the
+//     A fragment of dQ += dS K (K by ldmatrix.trans), and dQ stays in
+//     registers to the end: no atomics, no dS round trip through shared
+//     memory. Drow is computed once per row at the start.
+// The CUDA-core design (f32). The forward and K6: 64 x 64 tiles staged in
+// shared memory as f32 (rows padded to D + 1 floats), a 16 x 16 grid of
+// threads computing 4 x 4 outputs each, synchronous loads. K5 and K7:
+// rows padded to D + 4 floats, so tiles arrive by 16-byte cp.async (a
+// two-stage ring of query tiles, or one stage and a second block on the
+// SM) and are read as float4; each thread's micro-tile is read four deep
+// along the contracted dimension; Drow comes from the pre-pass; dQ is
+// added with 16-byte vector atomics.
 //
 // Blocks run in no order, where the Pallas kernels walk a sequential grid
 // axis and keep state in VMEM across it (the forward's online softmax,
@@ -95,7 +107,7 @@
 // by those positions.
 //
 // Layouts (row-major, contiguous): q, k, v, o, dO, dK, dV (B*H, T, D) in
-// float or bf16 (all one type); lse and the bf16 backward's Drow scratch
+// float or bf16 (all one type); lse and K5's and K7's Drow scratch
 // (B*H, T) f32; the fused dQ buffer (B*H, T, D) f32; seed (5,) int64 words
 // holding uint32 values. Every entry point returns cudaGetLastError()
 // after its launches; the Python wrapper raises when it is not
@@ -319,28 +331,6 @@ __device__ __forceinline__ void tile_pv(const float* __restrict__ P,
   }
 }
 
-// acc[a][c] += sum_i P[i][ty + 16a] * X[i][tx + 16c]: the transposed
-// S-tile times a D-tile (dV = P^T dO, dK = dS^T Q), columns of P.
-template <int D>
-__device__ __forceinline__ void tile_ptx(const float* __restrict__ P,
-                                         const float* __restrict__ X,
-                                         float (&acc)[4][D / 16]) {
-  constexpr int kDP = D + 1, kDC = D / 16;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll 4
-  for (int i = 0; i < kTile; ++i) {
-    float p[4], x[kDC];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) p[a] = P[i * kSP + ty + 16 * a];
-#pragma unroll
-    for (int c = 0; c < kDC; ++c) x[c] = X[i * kDP + tx + 16 * c];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < kDC; ++c) acc[a][c] = fmaf(p[a], x[c], acc[a][c]);
-  }
-}
-
 // The backward's per-row stats for query rows [q0, q0 + kTile):
 // Drow = rowsum(dO o) in f32 (from the staged dO tile and o in device
 // memory) and the forward's lse; zero past T. One warp per row.
@@ -368,18 +358,17 @@ __device__ __forceinline__ void load_row_stats(const float* __restrict__ do_s,
   }
 }
 
-// The backward's tile math for queries [q0, q0 + kTile) x keys
+// The fp32 K6's tile math for queries [q0, q0 + kTile) x keys
 // [k0, k0 + kTile): p = exp(s - lse) (0 where masked), dp = dO v^T, with
-// the dropout mask and rescale on dp and on the p that multiplies dO.
-// Writes ds = p (dp - Drow) rounded to T into ds_s and, when p_s is not
-// null, the (dropped) p rounded to T into p_s.
+// the dropout mask and rescale on dp. Writes ds = p (dp - Drow) rounded
+// to T into ds_s.
 template <typename T, int D>
 __device__ __forceinline__ void bwd_tile(
     const float* __restrict__ q_s, const float* __restrict__ k_s,
     const float* __restrict__ v_s, const float* __restrict__ do_s,
     const float* __restrict__ lse_s, const float* __restrict__ drow_s,
     int q0, int k0, int Tn, float sm_scale, const Dropout& dr,
-    float* __restrict__ p_s, float* __restrict__ ds_s) {
+    float* __restrict__ ds_s) {
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   float s[4][4], dp[4][4];
   tile_dot<D>(q_s, k_s, s);
@@ -393,13 +382,8 @@ __device__ __forceinline__ void bwd_tile(
       const int jl = tx + 16 * b, j = k0 + jl;
       const bool valid = i < Tn && j <= i;
       const float p = valid ? expf(s[a][b] * sm_scale - lse_i) : 0.f;
-      float pv = p, dpv = dp[a][b];
-      if (dr.on) {
-        const bool keep = dr.keep(i, j);
-        pv = keep ? p * dr.scale : 0.f;
-        dpv = keep ? dpv * dr.scale : 0.f;
-      }
-      if (p_s != nullptr) p_s[il * kSP + jl] = round_to<T>(pv);
+      float dpv = dp[a][b];
+      if (dr.on) dpv = dr.keep(i, j) ? dpv * dr.scale : 0.f;
       ds_s[il * kSP + jl] = round_to<T>(p * (dpv - drow_i));
     }
   }
@@ -497,95 +481,289 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K5 on CUDA cores (f32; kWithDq) and K7 (every type): the key-parallel
-// backward. One block per (64-key tile, row*head), looping over the query
-// tiles at or after the diagonal.
+// K5 (kWithDq) and K7 on CUDA cores (f32): the key-parallel backward. One
+// block per (64-key tile, row*head), looping over the kBQ-query tiles at
+// or after the diagonal; Drow comes from flash_bwd_drow_kernel.
+//
+// Every product is an exact f32 fmaf. Tiles are f32 in shared memory with
+// rows padded by 4 floats, so 16-byte cp.async copies and float4 loads
+// stay aligned and a row's neighbour starts 4 banks over. K and V stay
+// resident; Q, dO, lse and Drow of the next query tile are in flight
+// through a two-stage cp.async ring while the current one is multiplied
+// (one stage at D <= 64, where a second block on the SM hides the load;
+// see BwdF32).
+// A 16 x 16 grid of threads: thread (ty, tx) owns keys ty + 16a (a < 4)
+// and queries tx + 16b of S^T = K Q^T and dP^T = V dO^T, read as float4
+// along D; P~^T and dS^T go to shared memory once per tile, key-major;
+// dV += P~^T dO and dK += dS^T Q give the thread keys ty + 16a and the D/16
+// columns from tx D/16, read as float4 along the queries; dQ += dS K gives
+// it kBQ/16 consecutive queries and the same columns, added into the f32
+// buffer with 16-byte (8-byte at D 32) vector atomics.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, bool kWithDq>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    float* __restrict__ dq_acc, T* __restrict__ dk,
-                    T* __restrict__ dv, int H, int Tn, float sm_scale,
+// n consecutive floats from shared memory by 16- (8-) byte loads.
+template <int kN>
+__device__ __forceinline__ void lds(const float* p, float* o) {
+  if constexpr (kN % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < kN; i += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + i);
+      o[i] = x.x; o[i + 1] = x.y; o[i + 2] = x.z; o[i + 3] = x.w;
+    }
+  } else {
+    static_assert(kN == 2, "2 or a multiple of 4 floats");
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    o[0] = x.x; o[1] = x.y;
+  }
+}
+
+// Rows [r0, r0 + kRows) of an (n_rows, D) f32 matrix into a tile of rows
+// padded to D + 4 floats, by cp.async; rows at or past n_rows are zero.
+template <int kRows, int D>
+__device__ __forceinline__ void load_rows_f32(uint32_t dst,
+                                              const float* __restrict__ src,
+                                              int r0, int n_rows) {
+  constexpr int kChunks = D / 4;
+  for (int e = threadIdx.x; e < kRows * kChunks; e += kThreads) {
+    const int r = e / kChunks, c = e % kChunks;
+    const bool in = r0 + r < n_rows;
+    cp_async16(dst + (r * (D + 4) + 4 * c) * 4,
+               src + (in ? static_cast<int64_t>(r0 + r) * D + 4 * c : 0),
+               in ? 16 : 0);
+  }
+}
+
+// Two blocks share an SM at D <= 64 (128 registers a thread): each one's
+// barriers and loads are covered by the other's products, which measured
+// faster than one block with more registers and a two-stage ring (the
+// ring and two blocks do not fit together at D 64). At D 128 one block
+// fills the SM, with 32-query tiles, and the ring is what overlaps loads.
+template <int D>
+struct BwdF32 {
+  static constexpr int kBQ = D == 128 ? 32 : 64;  // queries a tile
+  static constexpr int kMinBlocks = D == 128 ? 1 : 2;
+  static constexpr int kStages = kMinBlocks == 1 ? 2 : 1;
+  static constexpr int kDR = D + 4, kPR = kBQ + 4;  // padded rows
+  static constexpr int kKV = kTile * kDR;           // floats of K or V
+  static constexpr int kQT = kBQ * kDR;             // floats of Q or dO
+  static constexpr int kStage = 2 * kQT + 2 * kBQ;  // Q, dO, lse, Drow
+  static constexpr size_t kSmem =
+      sizeof(float) * (2 * kKV + kStages * kStage + 2 * kTile * kPR);
+};
+
+template <int D, bool kWithDq>
+__global__ void __launch_bounds__(kThreads, BwdF32<D>::kMinBlocks)
+flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ drow,
+                    float* __restrict__ dq_acc, float* __restrict__ dk,
+                    float* __restrict__ dv, int H, int Tn, float sm_scale,
                     DropoutArgs da) {
-  constexpr int kDP = D + 1, kDC = D / 16;
+  using P = BwdF32<D>;
+  constexpr int kBQ = P::kBQ, kDR = P::kDR, kPR = P::kPR;
+  constexpr int kQB = kBQ / 16;  // queries a thread in S^T; rows in dQ
+  constexpr int kCW = D / 16;    // columns a thread in dK, dV, dQ
   extern __shared__ float smem[];
   float* k_s = smem;
-  float* v_s = k_s + kTile * kDP;
-  float* q_s = v_s + kTile * kDP;
-  float* do_s = q_s + kTile * kDP;
-  float* p_s = do_s + kTile * kDP;
-  float* ds_s = p_s + kTile * kSP;
-  float* lse_s = ds_s + kTile * kSP;
-  float* drow_s = lse_s + kTile;
+  float* v_s = k_s + P::kKV;
+  float* ring = v_s + P::kKV;
+  float* pt_s = ring + P::kStages * P::kStage;  // P~^T, key-major
+  float* dst_s = pt_s + kTile * kPR;            // dS^T, key-major
 
   const int kt = gridDim.x - 1 - blockIdx.x;  // key tile 0 walks the most
   const int bh = blockIdx.y, k0 = kt * kTile;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int64_t base = static_cast<int64_t>(bh) * Tn * D;
   const float* lse_bh = lse + static_cast<int64_t>(bh) * Tn;
-  const Dropout dr = make_dropout(da, bh, H);
+  const float* drow_bh = drow + static_cast<int64_t>(bh) * Tn;
+  const int qt0 = k0 / kBQ, n_qt = (Tn + kBQ - 1) / kBQ;
 
-  load_tile<T, D>(k + base, k0, Tn, k_s);
-  load_tile<T, D>(v + base, k0, Tn, v_s);
-  float dk_acc[4][kDC], dv_acc[4][kDC];
+  auto load_stage = [&](int qt, int slot) {
+    const uint32_t st = smem_addr(ring + slot * P::kStage);
+    load_rows_f32<kBQ, D>(st, q + base, qt * kBQ, Tn);
+    load_rows_f32<kBQ, D>(st + 4 * P::kQT, dout + base, qt * kBQ, Tn);
+    load_floats<kBQ>(st + 8 * P::kQT, lse_bh, qt * kBQ, Tn);
+    load_floats<kBQ>(st + 8 * P::kQT + 4 * kBQ, drow_bh, qt * kBQ, Tn);
+  };
+  load_rows_f32<kTile, D>(smem_addr(k_s), k + base, k0, Tn);
+  load_rows_f32<kTile, D>(smem_addr(v_s), v + base, k0, Tn);
+  cp_async_commit();
+  if constexpr (P::kStages == 2) {
+    load_stage(qt0, 0);
+    cp_async_commit();
+  }
+
+  float dk_acc[4][kCW], dv_acc[4][kCW];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int c = 0; c < kDC; ++c) dk_acc[a][c] = dv_acc[a][c] = 0.f;
+    for (int c = 0; c < kCW; ++c) dk_acc[a][c] = dv_acc[a][c] = 0.f;
 
-  const int n_qt = (Tn + kTile - 1) / kTile;
-  for (int qt = kt; qt < n_qt; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // the last tile's readers are done
-    load_tile<T, D>(q + base, q0, Tn, q_s);
-    load_tile<T, D>(dout + base, q0, Tn, do_s);
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int q0 = qt * kBQ;
+    const int slot = P::kStages == 2 ? (qt - qt0) & 1 : 0;
+    if constexpr (P::kStages == 2) {
+      if (qt + 1 < n_qt) load_stage(qt + 1, slot ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // K, V and this tile have landed
+    } else {
+      load_stage(qt, 0);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    load_row_stats<T, D>(do_s, o + base, lse_bh, q0, Tn, drow_s, lse_s);
-    __syncthreads();
-    bwd_tile<T, D>(q_s, k_s, v_s, do_s, lse_s, drow_s, q0, k0, Tn, sm_scale,
-                   dr, p_s, ds_s);
-    __syncthreads();
-    tile_ptx<D>(p_s, do_s, dv_acc);   // dV += P~^T dO
-    tile_ptx<D>(ds_s, q_s, dk_acc);   // dK += dS^T Q
-    if constexpr (kWithDq) {
-      float dq_part[4][kDC];
+    const float* q_s = ring + slot * P::kStage;
+    const float* do_s = q_s + P::kQT;
+    const float* lse_s = do_s + P::kQT;
+    const float* drow_s = lse_s + kBQ;
+
+    // S^T and dP^T: keys ty + 16a, queries tx + 16b.
+    float s[4][kQB], dp[4][kQB];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < kQB; ++b) s[a][b] = dp[a][b] = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; d += 4) {
+      float kx[4][4], qx[kQB][4];
 #pragma unroll
       for (int a = 0; a < 4; ++a)
+        lds<4>(k_s + (ty + 16 * a) * kDR + d, kx[a]);
 #pragma unroll
-        for (int c = 0; c < kDC; ++c) dq_part[a][c] = 0.f;
-      tile_pv<D>(ds_s, k_s, dq_part);  // dQ += dS K, summed across blocks
+      for (int b = 0; b < kQB; ++b)
+        lds<4>(q_s + (tx + 16 * b) * kDR + d, qx[b]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < kQB; ++b)
+            s[a][b] = fmaf(kx[a][e], qx[b][e], s[a][b]);
+    }
+#pragma unroll
+    for (int d = 0; d < D; d += 4) {
+      float vx[4][4], ox[kQB][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        lds<4>(v_s + (ty + 16 * a) * kDR + d, vx[a]);
+#pragma unroll
+      for (int b = 0; b < kQB; ++b)
+        lds<4>(do_s + (tx + 16 * b) * kDR + d, ox[b]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < kQB; ++b)
+            dp[a][b] = fmaf(vx[a][e], ox[b][e], dp[a][b]);
+    }
+    // Made here, so its registers are free outside this phase.
+    const Dropout dr = make_dropout(da, bh, H);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int jl = ty + 16 * a, j = k0 + jl;
+#pragma unroll
+      for (int b = 0; b < kQB; ++b) {
+        const int il = tx + 16 * b, i = q0 + il;
+        const bool valid = i < Tn && j <= i;
+        const float p = valid ? expf(s[a][b] * sm_scale - lse_s[il]) : 0.f;
+        float pv = p, dpv = dp[a][b];
+        if (dr.on) {
+          const bool keep = dr.keep(i, j);
+          pv = keep ? p * dr.scale : 0.f;
+          dpv = keep ? dpv * dr.scale : 0.f;
+        }
+        pt_s[jl * kPR + il] = pv;
+        dst_s[jl * kPR + il] = p * (dpv - drow_s[il]);
+      }
+    }
+    __syncthreads();  // P~^T and dS^T complete
+
+    // dV += P~^T dO, dK += dS^T Q: keys ty + 16a, columns tx kCW + c.
+#pragma unroll
+    for (int i = 0; i < kBQ; i += 4) {
+      float pt[4][4], dst[4][4];
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
-        const int i = q0 + ty + 16 * a;
-        if (i < Tn) {
+        lds<4>(pt_s + (ty + 16 * a) * kPR + i, pt[a]);
+        lds<4>(dst_s + (ty + 16 * a) * kPR + i, dst[a]);
+      }
 #pragma unroll
-          for (int c = 0; c < kDC; ++c)
-            atomicAdd(dq_acc + base + static_cast<int64_t>(i) * D + tx + 16 * c,
-                      dq_part[a][c]);
+      for (int e = 0; e < 4; ++e) {
+        float ox[kCW], qx[kCW];
+        lds<kCW>(do_s + (i + e) * kDR + tx * kCW, ox);
+        lds<kCW>(q_s + (i + e) * kDR + tx * kCW, qx);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < kCW; ++c) {
+            dv_acc[a][c] = fmaf(pt[a][e], ox[c], dv_acc[a][c]);
+            dk_acc[a][c] = fmaf(dst[a][e], qx[c], dk_acc[a][c]);
+          }
+      }
+    }
+    if constexpr (kWithDq) {
+      // dQ += dS K over this tile: queries ty kQB + a, columns tx kCW + c.
+      float dqa[kQB][kCW];
+#pragma unroll
+      for (int a = 0; a < kQB; ++a)
+#pragma unroll
+        for (int c = 0; c < kCW; ++c) dqa[a][c] = 0.f;
+#pragma unroll 4
+      for (int j = 0; j < kTile; ++j) {
+        float ds[kQB], kx[kCW];
+        lds<kQB>(dst_s + j * kPR + ty * kQB, ds);
+        lds<kCW>(k_s + j * kDR + tx * kCW, kx);
+#pragma unroll
+        for (int a = 0; a < kQB; ++a)
+#pragma unroll
+          for (int c = 0; c < kCW; ++c) dqa[a][c] = fmaf(ds[a], kx[c],
+                                                         dqa[a][c]);
+      }
+#pragma unroll
+      for (int a = 0; a < kQB; ++a) {
+        const int i = q0 + ty * kQB + a;
+        if (i < Tn) {
+          float* row = dq_acc + base + static_cast<int64_t>(i) * D + tx * kCW;
+          if constexpr (kCW == 2) {
+            atomicAdd(reinterpret_cast<float2*>(row),
+                      make_float2(dqa[a][0], dqa[a][1]));
+          } else {
+#pragma unroll
+            for (int c = 0; c < kCW; c += 4)
+              atomicAdd(reinterpret_cast<float4*>(row + c),
+                        make_float4(dqa[a][c], dqa[a][c + 1], dqa[a][c + 2],
+                                    dqa[a][c + 3]));
+          }
         }
       }
     }
+    __syncthreads();  // this stage, P~^T and dS^T are free
   }
+  cp_async_wait<0>();
+
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int j = k0 + ty + 16 * a;
     if (j < Tn) {
+      const int64_t off = base + static_cast<int64_t>(j) * D + tx * kCW;
 #pragma unroll
-      for (int c = 0; c < kDC; ++c) {
-        const int64_t off = base + static_cast<int64_t>(j) * D + tx + 16 * c;
-        dk[off] = from_f<T>(dk_acc[a][c] * sm_scale);
-        dv[off] = from_f<T>(dv_acc[a][c]);
+      for (int c = 0; c < kCW; c += 2) {
+        *reinterpret_cast<float2*>(dk + off + c) =
+            make_float2(dk_acc[a][c] * sm_scale, dk_acc[a][c + 1] * sm_scale);
+        *reinterpret_cast<float2*>(dv + off + c) =
+            make_float2(dv_acc[a][c], dv_acc[a][c + 1]);
       }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// K6: the split backward's dQ pass. One block per (64-query tile,
-// row*head), looping over the key tiles at or before the diagonal.
+// K6 on CUDA cores (f32): the split backward's dQ pass. One block per
+// (64-query tile, row*head), looping over the key tiles at or before the
+// diagonal. (bf16 runs flash_bwd_dq_mma_kernel.)
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -629,7 +807,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, D>(v + base, k0, Tn, v_s);
     __syncthreads();
     bwd_tile<T, D>(q_s, k_s, v_s, do_s, lse_s, drow_s, q0, k0, Tn, sm_scale,
-                   dr, nullptr, ds_s);
+                   dr, ds_s);
     __syncthreads();
     tile_pv<D>(ds_s, k_s, acc);  // dQ += dS K
   }
@@ -841,30 +1019,24 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 // drow[r] = sum_d dO[r, d] o[r, d] in f32 over rows r < n_rows of
-// (n_rows, D); D / 8 lanes per row, 16 bytes of each tensor a lane.
-template <int D>
+// (n_rows, D); D / 8 lanes per row in bf16 (D / 4 in f32), 16 bytes of
+// each tensor a lane. The pre-pass of the key-parallel K5 and K7, in both
+// designs.
+template <typename T, int D>
 __global__ void __launch_bounds__(256)
-flash_bwd_drow_kernel(const bf16* __restrict__ o,
-                      const bf16* __restrict__ dout,
+flash_bwd_drow_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                       float* __restrict__ drow, int64_t n_rows) {
-  constexpr int kL = D / 8;
+  constexpr int kVN = Vec<T>::kN, kL = D / kVN;
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
   const int64_t row = idx / kL;
   const int part = threadIdx.x % kL;
   float acc = 0.f;
   if (row < n_rows) {
-    const uint4 a = *reinterpret_cast<const uint4*>(o + row * D + part * 8);
-    const uint4 b =
-        *reinterpret_cast<const uint4*>(dout + row * D + part * 8);
-    const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&b);
+    float a[kVN], b[kVN];
+    Vec<T>::load(o + row * D + part * kVN, a);
+    Vec<T>::load(dout + row * D + part * kVN, b);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 fa = __bfloat1622float2(ha[i]);
-      const float2 fb = __bfloat1622float2(hb[i]);
-      acc = fmaf(fa.x, fb.x, acc);
-      acc = fmaf(fa.y, fb.y, acc);
-    }
+    for (int i = 0; i < kVN; ++i) acc = fmaf(a[i], b[i], acc);
   }
 #pragma unroll
   for (int off = kL / 2; off > 0; off >>= 1)
@@ -1109,6 +1281,215 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// K6 on the tensor cores: the split backward's dQ pass. One block per
+// (row*head, 16 * kWarps queries); the grid's y is the query tile, the
+// longest walk first. K4's walk with a second product: a warp owns 16
+// query rows, 64-key K and V tiles stream through the cp.async ring;
+// S = Q K^T and dP = dO V^T (V in K's place), P = exp(S sm_scale - lse),
+// dS = P (dP - Drow) rounded to bf16 in registers, the A fragment of
+// dQ += dS K (K by ldmatrix.trans, as V in K4's p.v). Drow = rowsum(dO o)
+// is computed once per row at the start, from the staged dO and o in
+// device memory. Every block writes only its own rows of dQ, so the
+// split backward gives the same bits on every run.
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct BwdDqMma {
+  static constexpr int kWarps = 4, kBM = 16 * kWarps;
+  // Q and dO stay A fragments in registers at D <= 64; at D 128 they are
+  // read from shared memory per key tile, so registers hold dQ and S, dP.
+  static constexpr bool kRegs = D <= 64;
+  static constexpr uint32_t kQB = kBM * D * sizeof(bf16);    // Q or dO
+  static constexpr uint32_t kKV = kKeys * D * sizeof(bf16);  // K or V
+  // Q, dO, two stages of (K, V), Drow.
+  static constexpr size_t kSmem = 2 * kQB + 4 * kKV + kBM * sizeof(float);
+};
+
+template <int D>
+__global__ void __launch_bounds__(BwdDqMma<D>::kWarps * 32, 2)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ o,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, bf16* __restrict__ dq,
+                        int H, int Tn, float sm_scale, DropoutArgs da) {
+  using P = BwdDqMma<D>;
+  constexpr int kWarps = P::kWarps, kThreadsT = kWarps * 32, kBM = P::kBM;
+  constexpr int kKS = D / 16;      // k-steps over D
+  constexpr int kNT = kKeys / 8;   // 8-key column slices of S, dP
+  constexpr int kDT = D / 8;       // 8-wide column slices of dQ
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  const uint32_t q_s = smem_addr(smem_tc), do_s = q_s + P::kQB;
+  const uint32_t kv_s = do_s + P::kQB;  // stage s: K, then V
+  float* drow_s = reinterpret_cast<float*>(smem_tc + 2 * P::kQB + 4 * P::kKV);
+
+  const int bh = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * kBM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t base = static_cast<int64_t>(bh) * Tn * D;
+  const Dropout dr = make_dropout(da, bh, H);
+  const int n_kt = (min(q0 + kBM, Tn) + kKeys - 1) / kKeys;
+
+  load_rows<kBM, D, kThreadsT>(q_s, q + base, q0, Tn);
+  load_rows<kBM, D, kThreadsT>(do_s, dout + base, q0, Tn);
+  cp_async_commit();
+  load_rows<kKeys, D, kThreadsT>(kv_s, k + base, 0, Tn);
+  load_rows<kKeys, D, kThreadsT>(kv_s + P::kKV, v + base, 0, Tn);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q and dO have landed
+  __syncthreads();
+
+  // Drow of the tile's rows: two threads a row, D / 2 columns each, from
+  // the staged dO and o in device memory (zero past T).
+  {
+    const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+    float acc = 0.f;
+    if (q0 + r < Tn) {
+      const bf16* o_row = o + base + static_cast<int64_t>(q0 + r) * D;
+#pragma unroll
+      for (int cc = 0; cc < D / 16; ++cc) {
+        const int c = half * (D / 16) + cc;
+        float a[8], b[8];
+        Vec<bf16>::load(o_row + 8 * c, a);
+        Vec<bf16>::load(reinterpret_cast<const bf16*>(
+                            smem_tc + P::kQB + swz<D>(r, c)), b);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc = fmaf(a[e], b[e], acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0) drow_s[r] = acc;
+  }
+
+  const int r_lo = q0 + 16 * warp;  // the warp's first query
+  const int i0 = r_lo + g, i1 = i0 + 8;
+  uint32_t qf[P::kRegs ? kKS : 1][4], df[P::kRegs ? kKS : 1][4];
+  if constexpr (P::kRegs) {
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk) {
+      const uint32_t off = swz<D>(16 * warp + (lane & 15),
+                                  2 * kk + (lane >> 4));
+      ldsm_x4(qf[kk], q_s + off);
+      ldsm_x4(df[kk], do_s + off);
+    }
+  }
+  __syncthreads();  // Drow written
+  // Rows past T get lse = +inf, so their p (and dS) is 0.
+  const float* lse_bh = lse + static_cast<int64_t>(bh) * Tn;
+  const float inf = __int_as_float(0x7f800000);
+  const float lse0 = i0 < Tn ? lse_bh[i0] * kLog2e : inf;
+  const float lse1 = i1 < Tn ? lse_bh[i1] * kLog2e : inf;
+  const float drow0 = drow_s[16 * warp + g], drow1 = drow_s[16 * warp + g + 8];
+
+  float acc[kDT][4];
+#pragma unroll
+  for (int dt = 0; dt < kDT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+  const float scale2 = sm_scale * kLog2e;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kKeys;
+    if (kt + 1 < n_kt) {
+      const uint32_t st = kv_s + ((kt + 1) & 1) * 2 * P::kKV;
+      load_rows<kKeys, D, kThreadsT>(st, k + base, k0 + kKeys, Tn);
+      load_rows<kKeys, D, kThreadsT>(st + P::kKV, v + base, k0 + kKeys, Tn);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile kt has landed
+    __syncthreads();
+    const uint32_t k_s = kv_s + (kt & 1) * 2 * P::kKV, v_s = k_s + P::kKV;
+    // Warp-uniform: a tile whose keys all lie past the warp's rows, or a
+    // warp whose rows all lie past T, adds nothing.
+    if (k0 <= r_lo + 15 && r_lo < Tn) {
+      float s[kNT][4], dp[kNT][4];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk) {
+        uint32_t qa[4], da4[4];
+        if constexpr (P::kRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            qa[e] = qf[kk][e];
+            da4[e] = df[kk][e];
+          }
+        } else {
+          const uint32_t off = swz<D>(16 * warp + (lane & 15),
+                                      2 * kk + (lane >> 4));
+          ldsm_x4(qa, q_s + off);
+          ldsm_x4(da4, do_s + off);
+        }
+#pragma unroll
+        for (int np = 0; np < kNT; np += 2) {
+          const uint32_t b_off =
+              swz<D>(8 * np + (lane & 7) + ((lane >> 4) << 3),
+                     2 * kk + ((lane >> 3) & 1));
+          uint32_t b[4];
+          ldsm_x4(b, k_s + b_off);
+          mma_bf16(s[np], qa, b[0], b[1]);
+          mma_bf16(s[np + 1], qa, b[2], b[3]);
+          ldsm_x4(b, v_s + b_off);
+          mma_bf16(dp[np], da4, b[0], b[1]);
+          mma_bf16(dp[np + 1], da4, b[2], b[3]);
+        }
+      }
+      // Only a tile that crosses the warp's diagonal or the tail compares
+      // positions.
+      const bool masked = k0 + kKeys - 1 > r_lo || k0 + kKeys > Tn;
+      // dS as the A fragments of dS K: k-step kk takes slices 2kk, 2kk + 1.
+      uint32_t dsf[kNT / 2][4];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // rows g and g + 8
+          const int i = h ? i1 : i0;
+          const float lse2 = h ? lse1 : lse0, drow_i = h ? drow1 : drow0;
+          float ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = k0 + 8 * nt + 2 * t + e;
+            float p = exp2f(s[nt][2 * h + e] * scale2 - lse2);
+            if (masked && (j > i || j >= Tn)) p = 0.f;
+            float dpv = dp[nt][2 * h + e];
+            if (dr.on) dpv = dr.keep(i, j) ? dpv * dr.scale : 0.f;
+            ds[e] = p * (dpv - drow_i);
+          }
+          dsf[nt >> 1][(nt & 1) * 2 + h] = pack_bf16(ds[0], ds[1]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+        for (int dp2 = 0; dp2 < kDT; dp2 += 2) {
+          uint32_t b[4];
+          ldsm_x4_t(b, k_s + swz<D>(16 * kk + (lane & 15), dp2 + (lane >> 4)));
+          mma_bf16(acc[dp2], dsf[kk], b[0], b[1]);
+          mma_bf16(acc[dp2 + 1], dsf[kk], b[2], b[3]);
+        }
+    }
+    __syncthreads();  // every warp is done with stage kt & 1
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int dt = 0; dt < kDT; ++dt) {
+    const int col = 8 * dt + 2 * t;
+    if (i0 < Tn)
+      *reinterpret_cast<uint32_t*>(dq + base + static_cast<int64_t>(i0) * D +
+                                   col) =
+          pack_bf16(acc[dt][0] * sm_scale, acc[dt][1] * sm_scale);
+    if (i1 < Tn)
+      *reinterpret_cast<uint32_t*>(dq + base + static_cast<int64_t>(i1) * D +
+                                   col) =
+          pack_bf16(acc[dt][2] * sm_scale, acc[dt][3] * sm_scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers, dispatched on (dtype, head_dim).
 // ---------------------------------------------------------------------------
 
@@ -1136,7 +1517,7 @@ struct Call {
   const void *q, *k, *v, *o, *dout;
   const float* lse_in;
   float* lse_out;
-  float* drow;  // the bf16 fused backward's (B*H, T) scratch
+  float* drow;  // K5's and K7's (B*H, T) Drow scratch
   void *dq, *dk, *dv, *out;
   int BH, H, T;
   float sm_scale;
@@ -1164,63 +1545,82 @@ cudaError_t run_fwd(const Call& c) {
   }
 }
 
-// K5 or K7 on the tensor cores: Drow's pre-pass, then the key-parallel
-// kernel (K7: no dQ, dq_acc unused).
-template <int D, bool kWithDq>
-cudaError_t run_bwd_mma(const Call& c) {
-  const bf16 *o = static_cast<const bf16*>(c.o),
-             *dout = static_cast<const bf16*>(c.dout);
+// Drow's pre-pass of K5 and K7, in either type.
+template <typename T, int D>
+cudaError_t run_drow(const Call& c) {
   const int64_t rows = static_cast<int64_t>(c.BH) * c.T;
-  const int64_t lanes = rows * (D / 8);
-  flash_bwd_drow_kernel<D><<<static_cast<unsigned>((lanes + 255) / 256),
-                             256, 0, c.stream>>>(o, dout, c.drow, rows);
-  const cudaError_t e = cudaGetLastError();
+  const int64_t lanes = rows * (D / Vec<T>::kN);
+  flash_bwd_drow_kernel<T, D><<<static_cast<unsigned>((lanes + 255) / 256),
+                                256, 0, c.stream>>>(
+      static_cast<const T*>(c.o), static_cast<const T*>(c.dout), c.drow,
+      rows);
+  return cudaGetLastError();
+}
+
+// K5 or K7: Drow's pre-pass, then the key-parallel kernel of the type's
+// design (K7: no dQ, dq_acc unused).
+template <typename T, int D, bool kWithDq>
+cudaError_t run_bwd_kv(const Call& c) {
+  const cudaError_t e = run_drow<T, D>(c);
   if (e != cudaSuccess) return e;
-  const dim3 grid(c.BH, (c.T + kKeys - 1) / kKeys);
-  using P = BwdMma<D, kWithDq>;
-  return launch(flash_bwd_mma_kernel<D, kWithDq>, grid, P::kThreadsT,
-                P::kSmem, c.stream, static_cast<const bf16*>(c.q),
-                static_cast<const bf16*>(c.k), static_cast<const bf16*>(c.v),
-                dout, c.lse_in, static_cast<const float*>(c.drow),
-                static_cast<float*>(c.dq), static_cast<bf16*>(c.dk),
-                static_cast<bf16*>(c.dv), c.H, c.T, c.sm_scale, c.dr);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const dim3 grid(c.BH, (c.T + kKeys - 1) / kKeys);
+    using P = BwdMma<D, kWithDq>;
+    return launch(flash_bwd_mma_kernel<D, kWithDq>, grid, P::kThreadsT,
+                  P::kSmem, c.stream, static_cast<const bf16*>(c.q),
+                  static_cast<const bf16*>(c.k),
+                  static_cast<const bf16*>(c.v),
+                  static_cast<const bf16*>(c.dout), c.lse_in,
+                  static_cast<const float*>(c.drow),
+                  static_cast<float*>(c.dq), static_cast<bf16*>(c.dk),
+                  static_cast<bf16*>(c.dv), c.H, c.T, c.sm_scale, c.dr);
+  } else {
+    const dim3 grid((c.T + kTile - 1) / kTile, c.BH);
+    return launch(flash_bwd_kv_kernel<D, kWithDq>, grid, kThreads,
+                  BwdF32<D>::kSmem, c.stream,
+                  static_cast<const float*>(c.q),
+                  static_cast<const float*>(c.k),
+                  static_cast<const float*>(c.v),
+                  static_cast<const float*>(c.dout), c.lse_in,
+                  static_cast<const float*>(c.drow),
+                  static_cast<float*>(c.dq), static_cast<float*>(c.dk),
+                  static_cast<float*>(c.dv), c.H, c.T, c.sm_scale, c.dr);
+  }
+}
+
+// K6, the query-parallel dQ pass.
+template <typename T, int D>
+cudaError_t run_bwd_dq(const Call& c) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    using P = BwdDqMma<D>;
+    const dim3 grid(c.BH, (c.T + P::kBM - 1) / P::kBM);
+    return launch(flash_bwd_dq_mma_kernel<D>, grid, P::kWarps * 32, P::kSmem,
+                  c.stream, static_cast<const bf16*>(c.q),
+                  static_cast<const bf16*>(c.k),
+                  static_cast<const bf16*>(c.v),
+                  static_cast<const bf16*>(c.o),
+                  static_cast<const bf16*>(c.dout), c.lse_in,
+                  static_cast<bf16*>(c.dq), c.H, c.T, c.sm_scale, c.dr);
+  } else {
+    const dim3 grid((c.T + kTile - 1) / kTile, c.BH);
+    return launch(flash_bwd_dq_kernel<T, D>, grid, kThreads,
+                  4 * d_tile_bytes(D) + s_tile_bytes() +
+                      2 * kTile * sizeof(float),
+                  c.stream, static_cast<const T*>(c.q),
+                  static_cast<const T*>(c.k), static_cast<const T*>(c.v),
+                  static_cast<const T*>(c.o), static_cast<const T*>(c.dout),
+                  c.lse_in, static_cast<T*>(c.dq), c.H, c.T, c.sm_scale,
+                  c.dr);
+  }
 }
 
 template <typename T, int D>
 cudaError_t run_bwd(const Call& c, int mode) {
-  const dim3 grid((c.T + kTile - 1) / kTile, c.BH);
-  const T *q = static_cast<const T*>(c.q), *k = static_cast<const T*>(c.k),
-          *v = static_cast<const T*>(c.v), *o = static_cast<const T*>(c.o),
-          *dout = static_cast<const T*>(c.dout);
-  const size_t stats = 2 * kTile * sizeof(float);
   switch (mode) {
-    case kFused:
-      if constexpr (std::is_same<T, bf16>::value) {
-        return run_bwd_mma<D, true>(c);
-      } else {
-        return launch(flash_bwd_kv_kernel<T, D, true>, grid, kThreads,
-                      4 * d_tile_bytes(D) + 2 * s_tile_bytes() + stats,
-                      c.stream, q, k, v, o, dout, c.lse_in,
-                      static_cast<float*>(c.dq), static_cast<T*>(c.dk),
-                      static_cast<T*>(c.dv), c.H, c.T, c.sm_scale, c.dr);
-      }
-    case kDkv:
-      if constexpr (std::is_same<T, bf16>::value) {
-        return run_bwd_mma<D, false>(c);
-      } else {
-        return launch(flash_bwd_kv_kernel<T, D, false>, grid, kThreads,
-                      4 * d_tile_bytes(D) + 2 * s_tile_bytes() + stats,
-                      c.stream, q, k, v, o, dout, c.lse_in,
-                      static_cast<float*>(nullptr), static_cast<T*>(c.dk),
-                      static_cast<T*>(c.dv), c.H, c.T, c.sm_scale, c.dr);
-      }
-    case kDq:
-      return launch(flash_bwd_dq_kernel<T, D>, grid, kThreads,
-                    4 * d_tile_bytes(D) + s_tile_bytes() + stats, c.stream, q,
-                    k, v, o, dout, c.lse_in, static_cast<T*>(c.dq), c.H, c.T,
-                    c.sm_scale, c.dr);
-    default:
-      return cudaErrorInvalidValue;
+    case kFused: return run_bwd_kv<T, D, true>(c);
+    case kDkv: return run_bwd_kv<T, D, false>(c);
+    case kDq: return run_bwd_dq<T, D>(c);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -1265,16 +1665,15 @@ int nsb_flash_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 // K5 (mode 0: dq is the zeroed f32 accumulator), K6 (mode 1: dq only, in
-// the input type; dk, dv unused) or K7 (mode 2: dk, dv; dq unused). In
-// bf16, K5 and K7 also need drow, a (B*H, T) f32 scratch.
+// the input type; dk, dv unused) or K7 (mode 2: dk, dv; dq unused). K5 and
+// K7 also need drow, a (B*H, T) f32 scratch for their Drow pre-pass.
 int nsb_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                   const void* dout, const float* lse, const long long* seed,
                   float* drow, void* dq, void* dk, void* dv, int BH, int H,
                   int T, int D, float sm_scale, int dtype, int dropout_on,
                   unsigned threshold, float keep_scale, unsigned hash_seq_len,
                   int mode, void* stream) {
-  if (mode < 0 ||
-      ((mode == kFused || mode == kDkv) && dtype == kBF16 && drow == nullptr))
+  if (mode < 0 || ((mode == kFused || mode == kDkv) && drow == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Call c{};
   c.q = q; c.k = k; c.v = v; c.o = o; c.dout = dout; c.lse_in = lse;

@@ -9,9 +9,11 @@ by ops/_build.py):
   flash_attention_bwd_dq     (K6)  <- _flash_bwd_dq_kernel
   flash_attention_bwd_dkv    (K7)  <- _flash_bwd_tiles_kernel(with_dq=False)
 
-K4, K5 and K7 on bfloat16 run on the tensor cores (mma.sync); on
-float32, and K6 on either type, they run on CUDA cores. The input type
-alone picks the design.
+On bfloat16 all four run on the tensor cores (mma.sync); on float32
+they run on CUDA cores in exact f32 products (K5 and K7 through a
+cp.async ring of float4-read tiles after a Drow pre-pass, K4 and K6 on
+64 x 64 tiles with synchronous loads). The input type alone picks the
+design.
 
 ``BWD_IMPL`` picks the backward strategy, as in the JAX file: 'fused'
 (K5, one pass; dQ summed across key tiles with f32 atomicAdd, so its
@@ -334,11 +336,10 @@ def _launch_bwd(mode: str, q, k, v, o, lse, do, dq, dk, dv, sm_scale,
                 dropout_rate, seed, hash_seq_len) -> None:
     B, H, T, D = q.shape
     words, dr = _dropout_args(q, seed, dropout_rate, hash_seq_len)
-    # The bf16 K5 and K7 compute Drow = rowsum(dO o) once per row into
-    # this (B*H, T) f32 scratch before their key-parallel kernel.
+    # K5 and K7 compute Drow = rowsum(dO o) once per row into this
+    # (B*H, T) f32 scratch before their key-parallel kernel.
     drow = (torch.empty((B * H, T), dtype=torch.float32, device=q.device)
-            if mode in ("fused", "dkv") and q.dtype == torch.bfloat16
-            else None)
+            if mode in ("fused", "dkv") else None)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = _build.library().nsb_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

@@ -18,10 +18,10 @@ pool without its last dim, and fp pools without them; block_table
 block" sentinel; lengths / start (B,) int32. All return q's dtype, with
 f32 scores and accumulation. The scales fold into the math as in the JAX
 functions: s = (q . k_int) * k_scale * sm_scale, the normaliser sums the
-unscaled p, and the output is (p * v_scale) . v_int. The paged prefill
-rounds p (p * v_scale) to the dtype JAX feeds its p.v product in -- a
-bf16 query's over a bf16, int8 or int4 pool -- as its tensor-core kernel
-does; the decode paths keep it in f32 (JAX rounds it there too).
+unscaled p, and the output is (p * v_scale) . v_int. Every path rounds
+p (p * v_scale) to the dtype JAX feeds its p.v product in (``_dot_dtype``):
+bf16 for a bf16 query over a bf16, int8 or int4 pool, f32 otherwise, as
+the kernels do.
 
 Routing: a CUDA tensor goes to the hand-written kernel
 (csrc/flash_decode.cu, csrc/paged_attention.cu, built at first use by
@@ -207,6 +207,14 @@ def _attend(q, gk, gv, mask, ks, vs, sm_scale, p_dtype=torch.float32):
     return torch.einsum("...ts,...sd->...td", p.to(p_dtype).float(), gv)
 
 
+def _dot_dtype(q, k, k_scale) -> torch.dtype:
+    """The dtype JAX's kernels feed p.v in (flash_decode.py
+    _flash_decode_kernel's dot_dt): q's over an int8/int4 pool, else the
+    promotion of q's and the pool's."""
+    return (q.dtype if k_scale is not None
+            else torch.promote_types(q.dtype, k.dtype))
+
+
 def torch_decode_attention(q, k, v, lengths, *, k_scale=None, v_scale=None,
                            sm_scale: float | None = None) -> torch.Tensor:
     """Single-query masked attention over contiguous slot rows: q
@@ -222,7 +230,7 @@ def torch_decode_attention(q, k, v, lengths, *, k_scale=None, v_scale=None,
     kpos = torch.arange(k.shape[2], device=q.device)
     mask = (kpos[None, :] < lengths[:, None])[:, None, None, :]
     out = _attend(q[:, :, None], _values(k), _values(v), mask, k_scale,
-                  v_scale, sm_scale)[:, :, 0]
+                  v_scale, sm_scale, _dot_dtype(q, k, k_scale))[:, :, 0]
     return torch.where((lengths > 0)[:, None, None], out, 0.0).to(q.dtype)
 
 
@@ -246,7 +254,8 @@ def torch_decode_attention_paged(q, k, v, block_table, lengths, *,
     lengths = lengths.to(q.device)
     kpos = torch.arange(gk.shape[2], device=q.device)
     mask = (kpos[None, :] < lengths[:, None])[:, None, None, :]
-    out = _attend(q[:, :, None], gk, gv, mask, gks, gvs, sm_scale)[:, :, 0]
+    out = _attend(q[:, :, None], gk, gv, mask, gks, gvs, sm_scale,
+                  _dot_dtype(q, k, k_scale))[:, :, 0]
     return torch.where((lengths > 0)[:, None, None], out, 0.0).to(q.dtype)
 
 
@@ -276,10 +285,8 @@ def torch_prefill_attention_paged(q, k, v, block_table, start, *,
             + torch.arange(T, device=q.device)[None, :])        # (B, T)
     kpos = torch.arange(gk.shape[2], device=q.device)
     mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None]  # (B,1,T,S)
-    dot_dtype = (q.dtype if k_scale is not None
-                 else torch.promote_types(q.dtype, k.dtype))
     return _attend(q, gk, gv, mask, gks, gvs, sm_scale,
-                   dot_dtype).to(q.dtype)
+                   _dot_dtype(q, k, k_scale)).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,12 @@
-"""Metric logging: the JSONL half of the JAX package's MetricsWriter.
+"""Metric logging: the JAX package's MetricsWriter.
 
 ``<log_dir>/<run>/metrics.jsonl`` gets one header record
 (``{"header": {...}, "time": t}``, written with the first scalars, so a
 run that logs nothing leaves no file behind) and one record per
 ``log(step, scalars)`` (``{"step": n, "time": t, **scalars}``), the
-JAX package's record format. TensorBoard event files are not ported
-yet: ``tensorboard=True`` writes the JSONL only and says so once.
+JAX package's record format. With ``tensorboard=True`` every scalar that
+``float()`` takes also goes, under its key as the tag, into a TensorBoard
+event file beside it (utils/events.py), opened with the first scalars.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import os
 import sys
 import time
 from typing import Any
+
+from nanosandbox_tpu_torch.utils.events import EventFileWriter
 
 _WARNED: set[str] = set()
 
@@ -32,6 +35,8 @@ class MetricsWriter:
                  tensorboard: bool = True):
         self.enabled = enabled
         self.jsonl = None
+        self.tb = None
+        self.tensorboard = tensorboard
         if not enabled:
             return
         run = run_name or time.strftime("%Y%m%d-%H%M%S")
@@ -40,10 +45,6 @@ class MetricsWriter:
         self.path = os.path.join(self.dir, "metrics.jsonl")
         self._pending_headers: list[dict[str, Any]] = []
         self._wrote_any = False
-        if tensorboard:
-            warn_once("tensorboard",
-                      "[metrics] TensorBoard event files are not ported yet; "
-                      f"writing {self.path} only")
 
     def _write(self, rec: dict) -> None:
         if self.jsonl is None:
@@ -70,8 +71,22 @@ class MetricsWriter:
         self._pending_headers.clear()
         self._wrote_any = True
         self._write({"step": step, "time": time.time(), **scalars})
+        if self.tensorboard:
+            if self.tb is None:
+                self.tb = EventFileWriter(self.dir)
+            values = {}
+            for k, v in scalars.items():
+                try:
+                    values[k] = float(v)
+                except (TypeError, ValueError):
+                    pass
+            self.tb.add_scalars(step, values)
 
     def close(self) -> None:
         if self.jsonl is not None:
             self.jsonl.close()
             self.jsonl = None
+        if self.tb is not None:
+            self.tb.flush()
+            self.tb.close()
+            self.tb = None

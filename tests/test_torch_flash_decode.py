@@ -234,6 +234,91 @@ def test_paged_prefill_bf16_plain_matches_jax_kernel(mode, D):
                                atol=2e-2, rtol=0)
 
 
+def _bf16(x):
+    """x rounded to bf16, kept as an f32 numpy array."""
+    return np.asarray(jnp.asarray(x, jnp.bfloat16)).astype(np.float32)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int4"])
+def test_decode_bf16_plain_matches_jax_kernel(mode, paged):
+    """A bf16 query over a bf16, int8 or int4 pool, dense (K3) and paged
+    (K2): the plain version against JAX's kernel in interpret mode within
+    2e-2 (bf16 outputs, compared in f32; both round p, or p * v_scale, to
+    bf16 before p.v), over frontiers of 1, a full row and one off the
+    page grid, sentinel table entries included."""
+    rng = np.random.default_rng(31 + 2 * paged + len(mode))
+    B, H, D, page, nb, N, L = 3, 2, 64, 16, 5, 16, 80
+    lengths = np.asarray([1, L, 37], np.int32)
+    if paged:
+        k, v, ks, vs, table = _paged(rng, "fp32", B, H, page, D, nb, N,
+                                     lengths)
+    else:
+        k, v = (rng.normal(size=(B, H, L, D)).astype(np.float32)
+                for _ in range(2))
+        ks = vs = table = None
+    if mode == "bf16":
+        k, v = _bf16(k), _bf16(v)
+        jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (k, v))
+        tk, tv = (torch.from_numpy(x).bfloat16() for x in (k, v))
+    else:
+        k, v, ks, vs = _quantized(mode, k, v)
+        jk, jv = jnp.asarray(k), jnp.asarray(v)
+        tk, tv = _t(k, v)
+    q = _bf16(rng.normal(size=(B, H, D)))
+    scales = {} if ks is None else dict(k_scale=jnp.asarray(ks),
+                                        v_scale=jnp.asarray(vs))
+    tsc = {} if ks is None else dict(zip(("k_scale", "v_scale"),
+                                         _t(ks, vs)))
+    jq, tq = jnp.asarray(q, jnp.bfloat16), torch.from_numpy(q).bfloat16()
+    if paged:
+        ref = jfd.flash_decode_paged(jq, jk, jv, jnp.asarray(table),
+                                     jnp.asarray(lengths), interpret=True,
+                                     **scales)
+        out = tfd.flash_decode_paged(tq, tk, tv, *_t(table, lengths), **tsc)
+    else:
+        ref = jfd.flash_decode(jq, jk, jv, jnp.asarray(lengths),
+                               interpret=True, **scales)
+        out = tfd.flash_decode(tq, tk, tv, *_t(lengths), **tsc)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref).astype(np.float32),
+                               atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_decode_bf16_query_rounds_p_to_bf16(mode):
+    """The bf16-query plain decode is _attend with p (p * v_scale) rounded
+    to bf16, bit for bit, and that rounding shows: keeping p in f32 gives
+    another result on the same seeded inputs. An fp32 query keeps f32."""
+    rng = np.random.default_rng(41)
+    B, H, L, D = 2, 2, 48, 32
+    lengths = torch.tensor([48, 29], dtype=torch.int32)
+    k, v = (rng.normal(size=(B, H, L, D)).astype(np.float32)
+            for _ in range(2))
+    if mode == "bf16":
+        tk, tv = (torch.from_numpy(x).bfloat16() for x in (k, v))
+        tks = tvs = None
+    else:
+        tk, tv, tks, tvs = _t(*_quantized(mode, k, v))
+    q = torch.from_numpy(rng.normal(size=(B, H, D)).astype(np.float32))
+    kpos = torch.arange(L)
+    mask = (kpos[None, :] < lengths[:, None])[:, None, None, :]
+
+    def attend(qq, p_dtype):
+        return tfd._attend(qq[:, :, None], tfd._values(tk), tfd._values(tv),
+                           mask, tks, tvs, D ** -0.5,
+                           p_dtype)[:, :, 0].to(qq.dtype)
+
+    got = tfd.torch_decode_attention(q.bfloat16(), tk, tv, lengths,
+                                     k_scale=tks, v_scale=tvs)
+    assert torch.equal(got, attend(q.bfloat16(), torch.bfloat16))
+    assert not torch.equal(got, attend(q.bfloat16(), torch.float32))
+    got32 = tfd.torch_decode_attention(q, tk, tv, lengths, k_scale=tks,
+                                       v_scale=tvs)
+    assert torch.equal(got32, attend(q, torch.float32))
+
+
 def test_scale_checks_raise():
     q = torch.zeros(1, 1, 32)
     k8 = torch.zeros(2, 1, 8, 32, dtype=torch.int8)

@@ -204,11 +204,18 @@ def test_chip_smoke_build_report_parsers():
         "_ZN3nsb12_GLOBAL__N_124paged_prefill_mma_kernelIaLi32EEEvPK13__nv_"
         "bfloat16": "paged_prefill_mma_kernel<int8, D=32>",
         "_ZN3nsb12_GLOBAL__N_124paged_prefill_mma_kernelINS_4Int4ELi128EEEv"
-        "PK13__nv_bfloat16": "paged_prefill_mma_kernel<int4, D=128>"}
+        "PK13__nv_bfloat16": "paged_prefill_mma_kernel<int4, D=128>",
+        "_ZN12_GLOBAL__N_123flash_bwd_dq_mma_kernelILi64EEEvPK13__nv_"
+        "bfloat16S3_": "flash_bwd_dq_mma_kernel<D=64>"}
     for mangled, label in labels.items():
         assert chip_smoke.kernel_label(mangled) == label
         assert label in chip_smoke.TENSOR_CORE_INSTANCES
-    assert len(chip_smoke.TENSOR_CORE_INSTANCES) == 18
+    assert len(chip_smoke.TENSOR_CORE_INSTANCES) == 21
+    # The fp32 K5 and K7 on CUDA cores: held to 0 spills, no HMMA asked.
+    kv = "_ZN12_GLOBAL__N_119flash_bwd_kv_kernelILi128ELb0EEEvPKfS2_"
+    assert chip_smoke.kernel_label(kv) == "flash_bwd_kv_kernel<D=128, dq=0>"
+    assert "flash_bwd_kv_kernel<D=128, dq=0>" in chip_smoke.CUDA_CORE_INSTANCES
+    assert len(chip_smoke.CUDA_CORE_INSTANCES) == 6
 
 
 def test_unported_paths_raise():
