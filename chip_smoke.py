@@ -14,24 +14,28 @@ result line):
               and int4 pools, at head_dim 32, 64, 128; all must be found)
               its registers, spill stores (must be 0) and HMMA/HGMMA
               count in the SASS (cuobjdump; must not be 0), and the
-              registers and spill stores (must be 0) of the fp32 K5 and
-              K7 (CUDA_CORE_INSTANCES);
+              registers and spill stores (must be 0) of each f32
+              CUDA-core instance (CUDA_CORE_INSTANCES: K5, K6, K7, and K1
+              in each of its f32 (query, pool) pairs, at every head_dim;
+              all must be found);
   3. kernels  each kernel against its plain PyTorch version on the card
               at GPT-2 124M shapes, under fp32 and bf16 queries: K2 and
               K1 (H 12, D 64, page 16, 512 blocks, 64 table entries per
-              row; K1 at B 2, T 128 and 256, starts [0, 64], and under a
-              bf16 query also the 8 x 512 admission wave) over a pool in
-              the query's dtype and over int8 and int4 pools, K3 (flash_decode_kernel) over contiguous
-              (8, 12, 1024, 64) slot rows at K2's lengths in the fp32,
-              bf16, int8 and int4 modes. Both sides take the same pool;
-              fp32 queries within 1e-5, bf16 within 2e-2 (compared in
-              f32), each also within the relative limits of phase 7;
-              each case timed beside its bound and
+              row; K1 at B 2, T 128 and 256, starts [0, 64], and the
+              8 x 512 admission wave) over a pool in the query's dtype
+              and over int8 and int4 pools, K3 (flash_decode_kernel) over
+              contiguous (8, 12, 1024, 64) slot rows at K2's lengths in
+              the fp32, bf16, int8 and int4 modes. Both sides take the
+              same pool; fp32 queries within 1e-5, bf16 within 2e-2
+              (compared in f32), each also within the relative limits of
+              phase 7; each case timed beside its bound and
               F.scaled_dot_product_attention on K/V gathered into
               contiguous rows and dequantized beforehand (a yardstick
               that excludes both); then, correctness only at the same
               limits, K1, K2 and K3 at head_dim 32, 64 and 128 in every
-              (query, kv mode) pair (K1 also at T 100, starts [0, 37]),
+              (query, kv mode) pair (K1 also at T 100, starts [0, 37],
+              and at B 8, H 12, T 160, where the f32 one takes 64-query
+              blocks),
               and K2 and K3 on decode rows of length 0 and -1 in every
               kv mode (zeros out, finite);
   4. engine   GPT-2 124M in fp32 (seeded random weights) through the
@@ -97,9 +101,9 @@ result line):
               equal to a no-cache argmax loop.
 
 The last line is {"ok": true, "device": {...}}; the line before it is a
-JSON object with one entry per kernel instance timed (K1 twice: phase 3's
-B 2, T 256 case and the wave). Needs one CUDA GPU; without one it exits
-non-zero and prints no result.
+JSON object with one entry per kernel instance timed (K1 twice for each
+pool and query: phase 3's B 2, T 256 case and the wave). Needs one CUDA
+GPU; without one it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -184,8 +188,9 @@ def time_ms(fn, reps: int = 25) -> float:
 # The kernels on the tensor cores, by the name their symbols carry.
 TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_mma_kernel",
                        "flash_bwd_dq_mma_kernel", "paged_prefill_mma_kernel")
-# CUDA-core kernels whose instances phase 2 holds to 0 spill bytes.
-CUDA_CORE_KERNELS = ("flash_bwd_kv_kernel",)
+# CUDA-core kernels (f32) whose instances phase 2 holds to 0 spill bytes.
+CUDA_CORE_KERNELS = ("flash_bwd_kv_kernel", "flash_bwd_dq_f32_kernel",
+                     "paged_prefill_f32_kernel")
 HEAD_DIMS = (32, 64, 128)
 # The template instances phase 2 must find, as kernel_label names them:
 # K4, K6 (bf16), K5 and K7 (bf16, with and without dQ), and K1 under a
@@ -197,10 +202,26 @@ TENSOR_CORE_INSTANCES = tuple(sorted(
        for w in (0, 1)]
     + [f"paged_prefill_mma_kernel<{kv}, D={d}>" for d in HEAD_DIMS
        for kv in ("bf16", "int8", "int4")]))
-# The fp32 K5 and K7 (with and without dQ).
+# The (query, pool) pairs of the f32 K1: an fp32 query over every pool,
+# a bf16 query over an fp32 pool.
+F32_PREFILL_PAIRS = (("fp32", "fp32"), ("fp32", "bf16"), ("fp32", "int8"),
+                     ("fp32", "int4"), ("bf16", "fp32"))
+# The fp32 K5 and K7 (with and without dQ), the fp32 K6, and K1 in each of
+# its f32 pairs, with 32- and 64-query blocks (BQ).
 CUDA_CORE_INSTANCES = tuple(sorted(
-    f"flash_bwd_kv_kernel<D={d}, dq={w}>" for d in HEAD_DIMS
-    for w in (0, 1)))
+    [f"flash_bwd_kv_kernel<D={d}, dq={w}>" for d in HEAD_DIMS
+     for w in (0, 1)]
+    + [f"flash_bwd_dq_f32_kernel<D={d}>" for d in HEAD_DIMS]
+    + [f"paged_prefill_f32_kernel<q={qd}, kv={kv}, D={d}, BQ={bq}>"
+       for d in HEAD_DIMS for qd, kv in F32_PREFILL_PAIRS
+       for bq in (32, 64)]))
+# The f32 K1's (query, pool) template arguments as they open its mangled
+# symbol: float is f, __nv_bfloat16 13__nv_bfloat16, int8_t (signed char)
+# a, nsb::Int4 a nested name ending in 4Int4E.
+F32_PREFILL_MANGLED = {"Iff": ("fp32", "fp32"),
+                       "If13__nv_bfloat16": ("fp32", "bf16"),
+                       "Ifa": ("fp32", "int8"), "IfN": ("fp32", "int4"),
+                       "I13__nv_bfloat16f": ("bf16", "fp32")}
 
 
 def ptxas_report(log: str) -> dict:
@@ -232,14 +253,20 @@ def cuobjdump_sass(lib_path: str, nvcc: str) -> str:
 
 
 def kernel_label(mangled: str) -> str:
-    """name<template arguments> of a tensor-core kernel's mangled symbol:
-    the head_dim (the first integer argument), the pool's storage type of
-    the paged prefill (bf16, int8 = signed char, int4 = nsb::Int4), and
-    whether the backward computes dQ (its bool argument)."""
+    """name<template arguments> of a kernel's mangled symbol: the head_dim
+    (the first integer argument), the pool's storage type of the paged
+    prefill (bf16, int8 = signed char, int4 = nsb::Int4) and, for the f32
+    one, the query's type and the queries a block (its second integer),
+    and whether the backward computes dQ (its bool argument)."""
     name = next(n for n in TENSOR_CORE_KERNELS + CUDA_CORE_KERNELS
                 if n in mangled)
     args = mangled.split(name, 1)[1]
     head_dim = re.search(r"Li(\d+)E", args).group(1)
+    if name == "paged_prefill_f32_kernel":
+        qd, kv = next(((q, k) for p, (q, k) in F32_PREFILL_MANGLED.items()
+                       if args.startswith(p)), ("?", "?"))
+        bq = re.findall(r"Li(\d+)E", args)[1]
+        return f"{name}<q={qd}, kv={kv}, D={head_dim}, BQ={bq}>"
     if name == "paged_prefill_mma_kernel":
         kv = ("bf16" if args.startswith("I13__nv_bfloat16") else
               "int8" if args.startswith("Ia") else
@@ -254,9 +281,10 @@ def kernel_label(mangled: str) -> str:
 def check_build(_build) -> None:
     """Builds the kernels; prints each library's ptxas summary, and the
     registers, spill stores and SASS tensor-core instructions of every
-    tensor-core kernel and the registers and spill stores of the fp32 K5
-    and K7. Fails if a tensor-core kernel has no HMMA / HGMMA, or if one
-    of either spills."""
+    tensor-core kernel and the registers and spill stores of the f32
+    CUDA-core kernels (K1 under an fp32 query or over an fp32 pool, K5,
+    K6, K7). Fails if an instance is missing, if a tensor-core kernel has
+    no HMMA / HGMMA, or if one of either spills."""
     _build.library()
     info = _build.build_info
     print(f"  {len(info['libs'])} libraries in {info['seconds']:.1f} s "
@@ -406,17 +434,16 @@ def check_kernels(fd) -> dict:
                                               dtype=np.float32)).to(DEVICE)
     dlen = torch.from_numpy(decode_len).to(DEVICE)
     # K1: B 2 with row 0 cold (start 0) and row 1 after a 64-token hit, at
-    # T 128 and 256; and, under a bf16 query only, a full admission wave of
-    # the default server (8 slots x 512 tokens, start 0: serve/profile.py's).
+    # T 128 and 256; and a full admission wave of the default server (8
+    # slots x 512 tokens, start 0: serve/profile.py's), under either query.
     prefill = []
-    for B, T, s0, wave in ((2, 128, [0, 64], False), (2, 256, [0, 64], False),
-                           (8, 512, [0] * 8, True)):
+    for B, T, s0 in ((2, 128, [0, 64]), (2, 256, [0, 64]), (8, 512, [0] * 8)):
         start = np.array(s0, np.int32)
         pk, pv, ptbl = make_case(rng, B, start + T)
         pq = torch.from_numpy(rng.standard_normal((B, H, T, D),
                                                   dtype=np.float32)).to(DEVICE)
         prefill.append((T, start, pq, pk, pv, ptbl,
-                        torch.from_numpy(start).to(DEVICE), wave))
+                        torch.from_numpy(start).to(DEVICE)))
     # K3's contiguous (B, H, L, D) slot rows, at K2's lengths.
     L, tot = int(decode_len.max()), int(decode_len.sum())
     ck, cv = (torch.from_numpy(rng.standard_normal(
@@ -459,11 +486,12 @@ def check_kernels(fd) -> dict:
                 decode_bytes(tot, H, D, mode, qb), 4 * H * D * tot))
         # K2 at the serving decode shape, and K1: over a pool in the
         # query's dtype and over int8 and int4 pools. Under a bf16 query K1
-        # is the tensor-core kernel.
+        # is the tensor-core kernel, under an fp32 query the f32 one.
         for mode in (fp, "int8", "int4"):
             tag = "" if mode == fp else f"<{mode}>"
             k1 = (f"paged_prefill_mma_kernel<{mode}>"
-                  if dtype == torch.bfloat16 else f"paged_prefill_kernel{tag}")
+                  if dtype == torch.bfloat16
+                  else f"paged_prefill_f32_kernel<{mode}>")
             cases.append(one(
                 f"paged_decode_kernel{tag}", dtype, f"B=8 H={H} D={D} {lens}",
                 (pool_in_mode(dk, mode), pool_in_mode(dv, mode)),
@@ -474,9 +502,7 @@ def check_kernels(fd) -> dict:
                 lambda k, v: (q[:, :, None], gathered(k, dtbl, L),
                               gathered(v, dtbl, L), dmask),
                 decode_bytes(tot, H, D, mode, qb), 4 * H * D * tot))
-            for T, start, pq, pk, pv, ptbl, pstart, wave in prefill:
-                if wave and dtype != torch.bfloat16:
-                    continue  # the wave is timed under the serving dtype
+            for T, start, pq, pk, pv, ptbl, pstart in prefill:
                 qT = pq.to(dtype)
                 Lp = int((start + T).max())
                 qpos = pstart[:, None] + torch.arange(T, device=DEVICE)[None]
@@ -519,7 +545,8 @@ def check_other_instances(fd, rng) -> None:
     queries (a bf16 query over an fp32 pool is --kv_dtype=fp32 under bf16
     compute, which must attend in f32); K1 also at T 100 with starts
     [0, 37] (a start off the page grid, a ragged last query tile, a chunk
-    that spans blocks); and K2 and K3 on decode rows with lengths 0 and -1
+    that spans blocks) and at B 8, H 12, T 160 (the f32 K1's 64-query
+    blocks); and K2 and K3 on decode rows with lengths 0 and -1
     in every kv mode, which see no key and must return 0."""
     def randn(shape, dtype=torch.float32):
         return torch.from_numpy(rng.standard_normal(
@@ -541,12 +568,20 @@ def check_other_instances(fd, rng) -> None:
         rstart = np.array([0, 37], np.int32)
         rk, rv, rtbl = make_case(rng, 2, rstart + 100, H=4, D=D, N=64, nb=16)
         rs = torch.from_numpy(rstart).to(DEVICE)
+        # B 8, H 12, T 160: the f32 K1's 64-query blocks (288 of them fill
+        # the 132 SMs twice over), a ragged last tile, starts off the grid.
+        wstart = np.array([0, 37, 0, 16, 5, 0, 64, 100], np.int32)
+        wk, wv, wtbl = make_case(rng, 8, wstart + 160, H=12, D=D, N=160,
+                                 nb=20)
+        ws = torch.from_numpy(wstart).to(DEVICE)
         for qdt in (torch.float32, torch.bfloat16):
             q1, qT = randn((3, 4, D), qdt), randn((3, 4, 40, D), qdt)
             q100 = randn((2, 4, 100, D), qdt)
+            q160 = randn((8, 12, 160, D), qdt)
             for mode in fd.KV_MODES:
                 k, v, s = pools(pk, pv, mode)
                 k2, v2, s2 = pools(rk, rv, mode)
+                k4, v4, s4 = pools(wk, wv, mode)
                 k3, v3, s3 = pools(ck, cv, mode)
                 ke, ve, se = pools(ek, ev, mode)
                 runs = (
@@ -557,6 +592,9 @@ def check_other_instances(fd, rng) -> None:
                     ("paged prefill, T 100, start [0, 37]",
                      fd.flash_prefill_paged, fd.torch_prefill_attention_paged,
                      (q100, k2, v2, rtbl, rs), s2),
+                    ("paged prefill, B 8, H 12, T 160",
+                     fd.flash_prefill_paged, fd.torch_prefill_attention_paged,
+                     (q160, k4, v4, wtbl, ws), s4),
                     ("decode", fd.flash_decode, fd.torch_decode_attention,
                      (q1, k3, v3, n), s3),
                     ("paged decode, lengths [0, 130, -1]",
@@ -1543,6 +1581,23 @@ def main(argv: list[str] | None = None) -> int:
                   timed(k1, "bfloat16", "B=2 H=12 T=256")),
             entry(f"{k1}[wave B=8 T=512]", paged, "flash_decode.py:585",
                   n_k1, timed(k1, "bfloat16", "B=8"))]
+    # K2 and K1 under an fp32 query (K1 the f32 kernel), with the paged
+    # fp32-compute engines' launches: phase 4's over the fp32 pool, phase
+    # 10's over the int8 and int4 pools.
+    for mode, run in (("fp32", paged_fp32), ("int8", pools["paged int8"]),
+                      ("int4", pools["paged int4"])):
+        tag = "" if mode == "fp32" else f"<{mode}>"
+        k1 = f"paged_prefill_f32_kernel<{mode}>"
+        n_k1 = run["launches"][f"flash_prefill_paged/{mode}"]
+        kernels += [
+            entry(f"paged_decode_kernel{tag}[q fp32]", paged,
+                  "flash_decode.py:421",
+                  run["launches"][f"flash_decode_paged/{mode}"],
+                  timed(f"paged_decode_kernel{tag}", "float32")),
+            entry(k1, paged, "flash_decode.py:585", n_k1,
+                  timed(k1, "float32", "B=2 H=12 T=256")),
+            entry(f"{k1}[wave B=8 T=512]", paged, "flash_decode.py:585",
+                  n_k1, timed(k1, "float32", "B=8"))]
     # K3: the bf16 pool's launches are the dense bf16 server's; the fp32,
     # int8 and int4 pools' are phase 10's fp32-compute dense engines', so
     # their times are taken under an fp32 query.
@@ -1572,7 +1627,7 @@ def main(argv: list[str] | None = None) -> int:
         entry("flash_bwd_kv_kernel<float>", flash, "attention.py:556",
               parity_launches["flash_attention_bwd_fused"],
               train_cases["fused_fp32"]),
-        entry("flash_bwd_dq_kernel<float>", flash, "attention.py:475",
+        entry("flash_bwd_dq_f32_kernel", flash, "attention.py:475",
               parity_launches["flash_attention_bwd_dq"],
               train_cases["dq_fp32"]),
         entry("flash_bwd_kv_kernel<float, with_dq=false>", flash,

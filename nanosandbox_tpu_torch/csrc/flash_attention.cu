@@ -21,7 +21,7 @@
 //     flash_bwd_kv_kernel<D, true>      <- K5, after the f32 instance of
 //       flash_bwd_drow_kernel;
 //     flash_bwd_kv_kernel<D, false>     <- K7, after the same pre-pass;
-//     flash_bwd_dq_kernel<float>        <- K6.
+//     flash_bwd_dq_f32_kernel<D>        <- K6.
 //   f32 stays on CUDA cores because its kernels are held to 1e-5 of the
 //   plain version with TF32 off, which bf16 or TF32 products would not
 //   meet.
@@ -70,14 +70,21 @@
 //     A fragment of dQ += dS K (K by ldmatrix.trans), and dQ stays in
 //     registers to the end: no atomics, no dS round trip through shared
 //     memory. Drow is computed once per row at the start.
-// The CUDA-core design (f32). The forward and K6: 64 x 64 tiles staged in
-// shared memory as f32 (rows padded to D + 1 floats), a 16 x 16 grid of
-// threads computing 4 x 4 outputs each, synchronous loads. K5 and K7:
-// rows padded to D + 4 floats, so tiles arrive by 16-byte cp.async (a
-// two-stage ring of query tiles, or one stage and a second block on the
-// SM) and are read as float4; each thread's micro-tile is read four deep
-// along the contracted dimension; Drow comes from the pre-pass; dQ is
-// added with 16-byte vector atomics.
+// The CUDA-core design (f32). What bounds these kernels is the f32 FMA
+// rate of the CUDA cores (67 TFLOP/s: K6's 38.7 GFLOP at the training
+// shape take 0.578 ms) and the shared-memory reads that feed it. The
+// forward (K4): 64 x 64 tiles staged in shared memory as f32 (rows padded
+// to D + 1 floats), a 16 x 16 grid of threads computing 4 x 4 outputs
+// each, synchronous loads. K5, K6 and K7: rows padded to D + 4 floats, so
+// tiles arrive by 16-byte cp.async and are read as float4; each thread's
+// micro-tile is read four deep along the contracted dimension. K5 and K7
+// walk the query tiles (a two-stage ring, or one stage and a second block
+// on the SM), Drow comes from the pre-pass, and K5 adds dQ with 16-byte
+// vector atomics. K6 walks the 64-key K/V tiles with Q, dO, lse and its
+// own Drow resident (one stage and two blocks an SM at D <= 64, a
+// two-stage ring at D 128); dS goes to shared memory once per tile, and dQ
+// stays in registers to one store. sm_scale multiplies each score after
+// its product and dK, dQ once at the end.
 //
 // Blocks run in no order, where the Pallas kernels walk a sequential grid
 // axis and keep state in VMEM across it (the forward's online softmax,
@@ -179,26 +186,6 @@ struct Vec<__nv_bfloat16> {
     }
   }
 };
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Reductions over the 16 threads (one half-warp) that own a tile row.
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // ---------------------------------------------------------------------------
 // Dropout keep-mask (attention.py:85-137)
@@ -331,64 +318,6 @@ __device__ __forceinline__ void tile_pv(const float* __restrict__ P,
   }
 }
 
-// The backward's per-row stats for query rows [q0, q0 + kTile):
-// Drow = rowsum(dO o) in f32 (from the staged dO tile and o in device
-// memory) and the forward's lse; zero past T. One warp per row.
-template <typename T, int D>
-__device__ __forceinline__ void load_row_stats(const float* __restrict__ do_s,
-                                               const T* __restrict__ o,
-                                               const float* __restrict__ lse,
-                                               int q0, int Tn,
-                                               float* __restrict__ drow_s,
-                                               float* __restrict__ lse_s) {
-  constexpr int kDP = D + 1;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < kTile; r += kWarps) {
-    const int row = q0 + r;
-    float acc = 0.f;
-    if (row < Tn) {
-      for (int d = lane; d < D; d += 32)
-        acc += do_s[r * kDP + d] * to_f(o[static_cast<int64_t>(row) * D + d]);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      drow_s[r] = acc;
-      lse_s[r] = row < Tn ? lse[row] : 0.f;
-    }
-  }
-}
-
-// The fp32 K6's tile math for queries [q0, q0 + kTile) x keys
-// [k0, k0 + kTile): p = exp(s - lse) (0 where masked), dp = dO v^T, with
-// the dropout mask and rescale on dp. Writes ds = p (dp - Drow) rounded
-// to T into ds_s.
-template <typename T, int D>
-__device__ __forceinline__ void bwd_tile(
-    const float* __restrict__ q_s, const float* __restrict__ k_s,
-    const float* __restrict__ v_s, const float* __restrict__ do_s,
-    const float* __restrict__ lse_s, const float* __restrict__ drow_s,
-    int q0, int k0, int Tn, float sm_scale, const Dropout& dr,
-    float* __restrict__ ds_s) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float s[4][4], dp[4][4];
-  tile_dot<D>(q_s, k_s, s);
-  tile_dot<D>(do_s, v_s, dp);
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int il = ty + 16 * a, i = q0 + il;
-    const float lse_i = lse_s[il], drow_i = drow_s[il];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int jl = tx + 16 * b, j = k0 + jl;
-      const bool valid = i < Tn && j <= i;
-      const float p = valid ? expf(s[a][b] * sm_scale - lse_i) : 0.f;
-      float dpv = dp[a][b];
-      if (dr.on) dpv = dr.keep(i, j) ? dpv * dr.scale : 0.f;
-      ds_s[il * kSP + jl] = round_to<T>(p * (dpv - drow_i));
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K4 on CUDA cores (f32). One block per (64-query tile, row*head).
 // ---------------------------------------------------------------------------
@@ -501,38 +430,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // buffer with 16-byte (8-byte at D 32) vector atomics.
 // ---------------------------------------------------------------------------
 
-// n consecutive floats from shared memory by 16- (8-) byte loads.
-template <int kN>
-__device__ __forceinline__ void lds(const float* p, float* o) {
-  if constexpr (kN % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < kN; i += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(p + i);
-      o[i] = x.x; o[i + 1] = x.y; o[i + 2] = x.z; o[i + 3] = x.w;
-    }
-  } else {
-    static_assert(kN == 2, "2 or a multiple of 4 floats");
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    o[0] = x.x; o[1] = x.y;
-  }
-}
-
-// Rows [r0, r0 + kRows) of an (n_rows, D) f32 matrix into a tile of rows
-// padded to D + 4 floats, by cp.async; rows at or past n_rows are zero.
-template <int kRows, int D>
-__device__ __forceinline__ void load_rows_f32(uint32_t dst,
-                                              const float* __restrict__ src,
-                                              int r0, int n_rows) {
-  constexpr int kChunks = D / 4;
-  for (int e = threadIdx.x; e < kRows * kChunks; e += kThreads) {
-    const int r = e / kChunks, c = e % kChunks;
-    const bool in = r0 + r < n_rows;
-    cp_async16(dst + (r * (D + 4) + 4 * c) * 4,
-               src + (in ? static_cast<int64_t>(r0 + r) * D + 4 * c : 0),
-               in ? 16 : 0);
-  }
-}
-
 // Two blocks share an SM at D <= 64 (128 registers a thread): each one's
 // barriers and loads are covered by the other's products, which measured
 // faster than one block with more registers and a two-stage ring (the
@@ -582,13 +479,14 @@ flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   auto load_stage = [&](int qt, int slot) {
     const uint32_t st = smem_addr(ring + slot * P::kStage);
-    load_rows_f32<kBQ, D>(st, q + base, qt * kBQ, Tn);
-    load_rows_f32<kBQ, D>(st + 4 * P::kQT, dout + base, qt * kBQ, Tn);
+    load_rows_f32<kBQ, D, kThreads>(st, q + base, qt * kBQ, Tn);
+    load_rows_f32<kBQ, D, kThreads>(st + 4 * P::kQT, dout + base, qt * kBQ,
+                                    Tn);
     load_floats<kBQ>(st + 8 * P::kQT, lse_bh, qt * kBQ, Tn);
     load_floats<kBQ>(st + 8 * P::kQT + 4 * kBQ, drow_bh, qt * kBQ, Tn);
   };
-  load_rows_f32<kTile, D>(smem_addr(k_s), k + base, k0, Tn);
-  load_rows_f32<kTile, D>(smem_addr(v_s), v + base, k0, Tn);
+  load_rows_f32<kTile, D, kThreads>(smem_addr(k_s), k + base, k0, Tn);
+  load_rows_f32<kTile, D, kThreads>(smem_addr(v_s), v + base, k0, Tn);
   cp_async_commit();
   if constexpr (P::kStages == 2) {
     load_stage(qt0, 0);
@@ -763,62 +661,227 @@ flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 // K6 on CUDA cores (f32): the split backward's dQ pass. One block per
 // (64-query tile, row*head), looping over the key tiles at or before the
-// diagonal. (bf16 runs flash_bwd_dq_mma_kernel.)
+// diagonal, the longest walks first. (bf16 runs flash_bwd_dq_mma_kernel.)
+//
+// Every product is an exact f32 fmaf. Q, dO, lse and the block's Drow stay
+// resident, Q and dO in tiles of rows padded by 4 floats (16-byte cp.async,
+// float4 reads); 64-key K/V tiles arrive by cp.async (see BwdDqF32 for the
+// ring). Drow = rowsum(dO o) is computed once per row at the start, from
+// the staged dO and o in device memory, as the Pallas kernel does. A
+// 16 x 16 grid of threads: thread (ty, tx) owns queries ty + 16a and keys
+// tx + 16b (a, b < 4) of S = Q K^T and dP = dO V^T, each read as float4
+// four deep along D; P = exp(S sm_scale - lse), dropout's mask and rescale
+// on dP, dS = P (dP - Drow) goes to shared memory once per tile,
+// query-major; dQ += dS K gives the thread the same queries and the D/16
+// columns from tx D/16, dS read as float4 along the keys. dQ stays in
+// registers to one store, scaled by sm_scale: no atomics, so the split
+// backward gives the same bits on every run.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    T* __restrict__ dq, int H, int Tn, float sm_scale,
-                    DropoutArgs da) {
-  constexpr int kDP = D + 1, kDC = D / 16;
+// Two blocks share an SM at D <= 64 (128 registers a thread), with one K/V
+// stage each: 12% faster than a two-stage ring at one block an SM. At
+// D 128 one block fills the SM and the ring keeps the next tile in
+// flight. 8 x 4 micro-tiles in 128-thread blocks (fewer shared loads per
+// FMA, fewer warps) measured 1.5x slower (PERF.md, section 6).
+template <int D>
+struct BwdDqF32 {
+  static constexpr int kThreadsT = 256;
+  static constexpr int kTY = kThreadsT / 16;  // rows of the thread grid
+  static constexpr int kQR = kTile / kTY;     // queries a thread
+  static constexpr int kMinBlocks = D == 128 ? 1 : 2;
+  static constexpr int kStages = kMinBlocks == 1 ? 2 : 1;
+  static constexpr int kDR = D + 4;       // padded row of Q, dO, K, V
+  static constexpr int kSR = kTile + 16;  // padded row of dS: the two rows
+                                          // of a warp fall 16 banks apart
+  static constexpr int kQT = kTile * kDR;  // floats of one such tile
+  // Q, dO, lse, Drow, kStages x (K, V), dS.
+  static constexpr size_t kSmem =
+      sizeof(float) * (2 * kQT + 2 * kTile + kStages * 2 * kQT + kTile * kSR);
+};
+
+template <int D>
+__global__ void __launch_bounds__(BwdDqF32<D>::kThreadsT,
+                                  BwdDqF32<D>::kMinBlocks)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ o,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse, float* __restrict__ dq,
+                        int H, int Tn, float sm_scale, DropoutArgs da) {
+  using P = BwdDqF32<D>;
+  constexpr int kDR = P::kDR, kSR = P::kSR, kTY = P::kTY, kQR = P::kQR;
+  constexpr int kThreadsT = P::kThreadsT;
+  constexpr int kCW = D / 16;  // columns a thread in dQ
   extern __shared__ float smem[];
   float* q_s = smem;
-  float* do_s = q_s + kTile * kDP;
-  float* k_s = do_s + kTile * kDP;
-  float* v_s = k_s + kTile * kDP;
-  float* ds_s = v_s + kTile * kDP;
-  float* lse_s = ds_s + kTile * kSP;
+  float* do_s = q_s + P::kQT;
+  float* lse_s = do_s + P::kQT;
   float* drow_s = lse_s + kTile;
+  float* ring = drow_s + kTile;  // stage s: K, then V
+  float* ds_s = ring + P::kStages * 2 * P::kQT;
 
-  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest walks first
   const int bh = blockIdx.y, q0 = qt * kTile;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int64_t base = static_cast<int64_t>(bh) * Tn * D;
-  const Dropout dr = make_dropout(da, bh, H);
-
-  load_tile<T, D>(q + base, q0, Tn, q_s);
-  load_tile<T, D>(dout + base, q0, Tn, do_s);
-  __syncthreads();
-  load_row_stats<T, D>(do_s, o + base, lse + static_cast<int64_t>(bh) * Tn,
-                       q0, Tn, drow_s, lse_s);
-  float acc[4][kDC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < kDC; ++c) acc[a][c] = 0.f;
   const int n_kt = (min(q0 + kTile, Tn) + kTile - 1) / kTile;
+
+  auto load_kv = [&](int kt, int slot) {
+    const uint32_t st = smem_addr(ring + slot * 2 * P::kQT);
+    load_rows_f32<kTile, D, kThreadsT>(st, k + base, kt * kTile, Tn);
+    load_rows_f32<kTile, D, kThreadsT>(st + 4 * P::kQT, v + base, kt * kTile,
+                                      Tn);
+  };
+  load_rows_f32<kTile, D, kThreadsT>(smem_addr(q_s), q + base, q0, Tn);
+  load_rows_f32<kTile, D, kThreadsT>(smem_addr(do_s), dout + base, q0, Tn);
+  load_floats<kTile>(smem_addr(lse_s), lse + static_cast<int64_t>(bh) * Tn,
+                     q0, Tn);
+  cp_async_commit();
+  load_kv(0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q, dO and lse have landed
+  __syncthreads();
+
+  // Drow of the tile's rows: kTPR threads a row, D / kTPR columns each
+  // (zero past T). Read after the loop's first barrier.
+  {
+    constexpr int kTPR = kThreadsT / kTile, kW = D / kTPR;
+    const int r = threadIdx.x / kTPR, c0 = (threadIdx.x % kTPR) * kW;
+    float acc = 0.f;
+    if (q0 + r < Tn) {
+      const float* o_row = o + base + static_cast<int64_t>(q0 + r) * D + c0;
+#pragma unroll
+      for (int c = 0; c < kW; c += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(o_row + c);
+        float b[4];
+        lds<4>(do_s + r * kDR + c0 + c, b);
+        acc = fmaf(a.x, b[0], acc);
+        acc = fmaf(a.y, b[1], acc);
+        acc = fmaf(a.z, b[2], acc);
+        acc = fmaf(a.w, b[3], acc);
+      }
+    }
+#pragma unroll
+    for (int o = kTPR / 2; o > 0; o >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (threadIdx.x % kTPR == 0) drow_s[r] = acc;
+  }
+
+  float acc[kQR][kCW];
+#pragma unroll
+  for (int a = 0; a < kQR; ++a)
+#pragma unroll
+    for (int c = 0; c < kCW; ++c) acc[a][c] = 0.f;
+
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kTile;
-    __syncthreads();  // row stats written; the last tile's readers done
-    load_tile<T, D>(k + base, k0, Tn, k_s);
-    load_tile<T, D>(v + base, k0, Tn, v_s);
+    int slot = 0;
+    if constexpr (P::kStages == 2) {
+      slot = kt & 1;
+      if (kt + 1 < n_kt) load_kv(kt + 1, slot ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // tile kt has landed
+    } else {
+      if (kt > 0) {
+        load_kv(kt, 0);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    bwd_tile<T, D>(q_s, k_s, v_s, do_s, lse_s, drow_s, q0, k0, Tn, sm_scale,
-                   dr, ds_s);
-    __syncthreads();
-    tile_pv<D>(ds_s, k_s, acc);  // dQ += dS K
+    const float* k_t = ring + slot * 2 * P::kQT;
+    const float* v_t = k_t + P::kQT;
+
+    // S and dP: queries ty + kTY a, keys tx + 16b.
+    float s[kQR][4], dp[kQR][4];
+#pragma unroll
+    for (int a = 0; a < kQR; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) s[a][b] = dp[a][b] = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; d += 4) {
+      float qx[kQR][4], kx[4][4];
+#pragma unroll
+      for (int a = 0; a < kQR; ++a)
+        lds<4>(q_s + (ty + kTY * a) * kDR + d, qx[a]);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) lds<4>(k_t + (tx + 16 * b) * kDR + d, kx[b]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int a = 0; a < kQR; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            s[a][b] = fmaf(qx[a][e], kx[b][e], s[a][b]);
+    }
+#pragma unroll
+    for (int d = 0; d < D; d += 4) {
+      float ox[kQR][4], vx[4][4];
+#pragma unroll
+      for (int a = 0; a < kQR; ++a)
+        lds<4>(do_s + (ty + kTY * a) * kDR + d, ox[a]);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) lds<4>(v_t + (tx + 16 * b) * kDR + d, vx[b]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int a = 0; a < kQR; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            dp[a][b] = fmaf(ox[a][e], vx[b][e], dp[a][b]);
+    }
+    // Made here, so its registers are free outside this phase.
+    const Dropout dr = make_dropout(da, bh, H);
+    // Only a tile that crosses the diagonal or the tail compares positions.
+    const bool masked = k0 + kTile - 1 > q0 || k0 + kTile > Tn;
+#pragma unroll
+    for (int a = 0; a < kQR; ++a) {
+      const int il = ty + kTY * a, i = q0 + il;
+      const float lse_i = lse_s[il], drow_i = drow_s[il];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int jl = tx + 16 * b, j = k0 + jl;
+        const bool valid = i < Tn && !(masked && j > i);
+        const float p = valid ? expf(s[a][b] * sm_scale - lse_i) : 0.f;
+        float dpv = dp[a][b];
+        if (dr.on) dpv = dr.keep(i, j) ? dpv * dr.scale : 0.f;
+        ds_s[il * kSR + jl] = p * (dpv - drow_i);
+      }
+    }
+    __syncthreads();  // dS complete
+
+    // dQ += dS K: queries ty + kTY a, columns tx kCW + c.
+#pragma unroll
+    for (int j = 0; j < kTile; j += 4) {
+      float ds[kQR][4];
+#pragma unroll
+      for (int a = 0; a < kQR; ++a)
+        lds<4>(ds_s + (ty + kTY * a) * kSR + j, ds[a]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float kx[kCW];
+        lds<kCW>(k_t + (j + e) * kDR + tx * kCW, kx);
+#pragma unroll
+        for (int a = 0; a < kQR; ++a)
+#pragma unroll
+          for (int c = 0; c < kCW; ++c)
+            acc[a][c] = fmaf(ds[a][e], kx[c], acc[a][c]);
+      }
+    }
+    __syncthreads();  // this stage and dS are free
   }
+  cp_async_wait<0>();
+
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = q0 + ty + 16 * a;
+  for (int a = 0; a < kQR; ++a) {
+    const int i = q0 + ty + kTY * a;
     if (i < Tn) {
+      float* row = dq + base + static_cast<int64_t>(i) * D + tx * kCW;
 #pragma unroll
-      for (int c = 0; c < kDC; ++c)
-        dq[base + static_cast<int64_t>(i) * D + tx + 16 * c] =
-            from_f<T>(acc[a][c] * sm_scale);
+      for (int c = 0; c < kCW; c += 2)
+        *reinterpret_cast<float2*>(row + c) =
+            make_float2(acc[a][c] * sm_scale, acc[a][c + 1] * sm_scale);
     }
   }
 }
@@ -1603,14 +1666,14 @@ cudaError_t run_bwd_dq(const Call& c) {
                   static_cast<bf16*>(c.dq), c.H, c.T, c.sm_scale, c.dr);
   } else {
     const dim3 grid((c.T + kTile - 1) / kTile, c.BH);
-    return launch(flash_bwd_dq_kernel<T, D>, grid, kThreads,
-                  4 * d_tile_bytes(D) + s_tile_bytes() +
-                      2 * kTile * sizeof(float),
-                  c.stream, static_cast<const T*>(c.q),
-                  static_cast<const T*>(c.k), static_cast<const T*>(c.v),
-                  static_cast<const T*>(c.o), static_cast<const T*>(c.dout),
-                  c.lse_in, static_cast<T*>(c.dq), c.H, c.T, c.sm_scale,
-                  c.dr);
+    return launch(flash_bwd_dq_f32_kernel<D>, grid, BwdDqF32<D>::kThreadsT,
+                  BwdDqF32<D>::kSmem, c.stream,
+                  static_cast<const float*>(c.q),
+                  static_cast<const float*>(c.k),
+                  static_cast<const float*>(c.v),
+                  static_cast<const float*>(c.o),
+                  static_cast<const float*>(c.dout), c.lse_in,
+                  static_cast<float*>(c.dq), c.H, c.T, c.sm_scale, c.dr);
   }
 }
 

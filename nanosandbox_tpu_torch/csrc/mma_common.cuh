@@ -1,6 +1,9 @@
-// Tensor-core building blocks shared by the mma.sync kernels, for Hopper
-// (sm_90a): the flash-attention forward and backward
-// (flash_attention.cu) and the paged prefill (paged_attention.cu).
+// Building blocks shared by the kernels of flash_attention.cu and
+// paged_attention.cu, for Hopper (sm_90a): the mma.sync kernels (the bf16
+// flash-attention forward and backward, the paged prefill under a bf16
+// query) and the f32 CUDA-core kernels that stage tiles by cp.async (the
+// fp32 backward, the paged prefill under an fp32 query or over an fp32
+// pool).
 //
 //   smem_addr               a shared-memory pointer as a 32-bit address;
 //   cp_async16 / cp_async4  global -> shared copies that bypass registers,
@@ -11,7 +14,12 @@
 //   quad_max / quad_sum     reductions over the four lanes of a row;
 //   swz                     the XOR swizzle of a bf16 tile's 16-byte chunks;
 //   load_rows / load_floats whole rows (f32 entries) into shared memory by
-//                           cp.async, zero past the end.
+//                           cp.async, zero past the end;
+//   load_rows_f32 / lds     f32 rows into tiles padded by 4 floats, by
+//                           cp.async; n consecutive floats from shared
+//                           memory by 16- (8-) byte loads;
+//   row_max / row_sum       reductions over the 16 lanes (a half-warp)
+//                           that share a row of a CUDA-core score tile.
 //
 // In an m16n8k16 accumulator lane l holds rows l/4 and l/4 + 8 and columns
 // 2(l%4) and 2(l%4) + 1 of each 8-column slice; every mask, scale and
@@ -140,6 +148,52 @@ __device__ __forceinline__ void load_floats(uint32_t dst,
     const bool in = r0 + r < n_rows;
     cp_async4(dst + 4 * r, src + (in ? r0 + r : 0), in ? 4 : 0);
   }
+}
+
+// Rows [r0, r0 + kRows) of an (n_rows, D) f32 matrix into a tile of rows
+// padded to D + 4 floats, by cp.async: 16-byte copies stay aligned and a
+// row's neighbour starts 4 banks over. Rows at or past n_rows are zero.
+template <int kRows, int D, int kThreadsT>
+__device__ __forceinline__ void load_rows_f32(uint32_t dst,
+                                              const float* __restrict__ src,
+                                              int r0, int n_rows) {
+  constexpr int kChunks = D / 4;
+  for (int e = threadIdx.x; e < kRows * kChunks; e += kThreadsT) {
+    const int r = e / kChunks, c = e % kChunks;
+    const bool in = r0 + r < n_rows;
+    cp_async16(dst + (r * (D + 4) + 4 * c) * 4,
+               src + (in ? static_cast<int64_t>(r0 + r) * D + 4 * c : 0),
+               in ? 16 : 0);
+  }
+}
+
+// n consecutive floats from shared memory by 16- (8-) byte loads.
+template <int kN>
+__device__ __forceinline__ void lds(const float* p, float* o) {
+  if constexpr (kN % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < kN; i += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + i);
+      o[i] = x.x; o[i + 1] = x.y; o[i + 2] = x.z; o[i + 3] = x.w;
+    }
+  } else {
+    static_assert(kN == 2, "2 or a multiple of 4 floats");
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    o[0] = x.x; o[1] = x.y;
+  }
+}
+
+// Reductions over the 16 lanes (one half-warp) that own a tile row.
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
 }
 
 }  // namespace nsb

@@ -12,7 +12,7 @@
 //       share of the memory rate, and B*H blocks (96 at 8 slots)
 //       under-fill 132 SMs; splitting a row's chain over blocks is later
 //       work.
-//   paged_prefill_mma_kernel, paged_prefill_kernel
+//   paged_prefill_mma_kernel, paged_prefill_f32_kernel
 //                        <- _paged_prefill_kernel (flash_prefill_paged, K1)
 //       T queries per row at positions start[b] .. start[b]+T-1, causal
 //       over the row's chain (the resident prefix included).
@@ -21,8 +21,8 @@
 // admission wave (GPT-2 124M, head_dim 64, start 0) it moves 25 MB (K/V of
 // the visited positions, q, out): 0.0075 ms at 3.35 TB/s, its bound; its
 // 3.2 GFLOP take 0.0033 ms on the bf16 tensor cores but 0.048 ms at the
-// f32 peak of the CUDA cores. So the products go to the tensor cores, and
-// each K/V chunk is staged once per 64-query tile.
+// f32 peak of the CUDA cores. So a bf16 query's products go to the tensor
+// cores, and each K/V chunk is staged once per query tile.
 //
 //   paged_prefill_mma_kernel: a bf16 query over a bf16, int8 or int4
 //     pool, on the tensor cores (mma.sync.m16n8k16, bf16 in, f32
@@ -41,11 +41,28 @@
 //     fragment of p.v -- JAX's own rounding, since it feeds the MXU in a
 //     bf16 query's dtype. The online softmax runs in registers (exp2 of
 //     pre-multiplied scores; a row's max and sum over its four lanes).
-//   paged_prefill_kernel: every other (query, pool) pair, on CUDA cores in
-//     f32 with 16-query tiles. An fp32 query is held to 1e-5 of the plain
-//     version and the fp32 engines to token identity, which bf16 products
-//     would not meet; a bf16 query over an fp32 pool attends in f32, as
-//     JAX does (its dot dtype is promote_types(bf16, f32)).
+//   paged_prefill_f32_kernel: every other (query, pool) pair -- an fp32
+//     query over any pool, a bf16 query over an fp32 pool -- on CUDA cores
+//     with exact f32 products. An fp32 query is held to 1e-5 of the plain
+//     version and the fp32 engines to token identity, which bf16 or TF32
+//     products would not meet; a bf16 query over an fp32 pool attends in
+//     f32, as JAX does (its dot dtype is promote_types(bf16, f32)). Bound
+//     by the f32 FMA rate (the wave's 3.2 GFLOP take 0.048 ms at 67
+//     TFLOP/s) and the shared-memory reads that feed it. A block owns 32
+//     queries of one (row, head), or 64 once such blocks fill every SM
+//     twice over (192 blocks for the 132 SMs at B 2, T 256; 64-query
+//     blocks at an 8 x 512 wave), and reads the row's chain once, in
+//     64-position chunks (32 at D 128, so two blocks share an SM) through
+//     a two-stage cp.async ring addressed as above; an fp32 chunk lands as
+//     f32 tiles of rows padded by 4 floats, a bf16, int8 or int4 chunk as
+//     its stored bytes and scales, widened to such tiles (exact) with the
+//     next chunk in flight.
+//     Each thread's 4 x 4 micro-tile of scores is read as float4, four
+//     deep along D; p goes to shared memory once per chunk and p.v reads
+//     it as float4. The scales and sm_scale fold as in the Pallas kernel:
+//     s = (q . k) * k_scale * sm_scale in f32 after the product, l sums
+//     the unscaled p, and p * v_scale feeds p.v in f32 (JAX's dot dtype
+//     for every pair this kernel takes).
 //
 // Layouts (row-major, contiguous): q (B, H, D) or (B, H, T, D); k, v
 // (N, H, page, D), or (N, H, page, D/2) bytes for packed int4; k_scale,
@@ -93,142 +110,293 @@ paged_decode_kernel(const TQ* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// Prefill on CUDA cores (an fp32 query, or an fp32 pool): one block per
-// (query tile, head, row); K/V chunks staged in shared memory converted to
-// f32 (int4 unpacked, int8 widened, their scales staged beside them and
-// applied to scores and probabilities, never to the staged values), an f32
-// score tile, the online softmax per query row.
+// Prefill on CUDA cores in f32: an fp32 query over any pool, or a bf16
+// query over an fp32 pool. One block per (row*head, query tile of 32 or
+// 64), the grid's y the query tile, the longest walk first; kKC-position
+// K/V chunks stream through a two-stage cp.async ring, each 16-byte piece
+// of a stored row addressed through the block table, positions past the
+// tile's last visible key zero-filled by the copy. An fp32 chunk lands as
+// f32 tiles of rows padded by 4 floats; a bf16, int8 or int4 chunk lands
+// as its stored bytes (and scales) and is widened to such tiles (exact),
+// with the next chunk in flight. A kTY x 16 grid of threads: thread
+// (ty, tx) owns queries ty + kTY a and keys tx + 16b of the score tile,
+// read as float4 four deep along D, the online softmax in registers (a
+// row's max and sum over its 16 lanes); p goes to shared memory once per
+// chunk, and p.v gives the thread the same queries and the D/16 output
+// columns from tx D/16, read as float4.
 // ---------------------------------------------------------------------------
 
-constexpr int kPfThreads = 128;
-constexpr int kPfQT = 16;  // queries per block
-
-template <typename TQ, typename TKV, int D>
-__global__ void __launch_bounds__(kPfThreads)
-paged_prefill_kernel(const TQ* __restrict__ q,
-                     const typename KV<TKV>::S* __restrict__ k,
-                     const typename KV<TKV>::S* __restrict__ v,
-                     const float* __restrict__ ks,
-                     const float* __restrict__ vs,
-                     const int* __restrict__ table,
-                     const int* __restrict__ start, TQ* __restrict__ out,
-                     int H, int T, int N, int page, int nb, float sm_scale) {
+// kBQ queries a block, 32 or 64, with 4 kBQ threads (see LaunchPrefill):
+// 4 x 4 micro-tiles; 8 x 4 with half the threads measured 6-11% slower at
+// the wave (PERF.md, section 6).
+template <typename TKV, int D, int kBQ_>
+struct PrefillF32 {
   using L = KV<TKV>;
-  constexpr int kRow = D / L::kDiv;      // storage elements per K/V row
-  constexpr int kKC = 2048 / D;          // key positions per chunk
-  constexpr int kDP = D + 1;             // padded row: no bank conflicts
-  constexpr int kWarps = kPfThreads / 32;
-  constexpr int kNRG = kPfThreads / D;   // query-row groups in the p.v pass
-  constexpr int kRPT = kPfQT / kNRG;     // query rows per thread
-  __shared__ float q_s[kPfQT][kDP];
-  __shared__ float k_s[kKC][kDP];
-  __shared__ float v_s[kKC][kDP];
-  __shared__ float p_s[kPfQT][kKC + 1];
-  __shared__ float ks_s[kKC], vs_s[kKC];
-  __shared__ float m_s[kPfQT], l_s[kPfQT], a_s[kPfQT];
+  static constexpr int kBQ = kBQ_;
+  static constexpr int kThreads = 4 * kBQ;
+  // Key positions a chunk: 32 at D 128, so two blocks still share an SM.
+  static constexpr int kKC = D == 128 ? 32 : 64;
+  static constexpr int kTY = kThreads / 16;  // rows of the thread grid
+  static constexpr int kQR = kBQ / kTY;  // queries a thread: ty + kTY a
+  static constexpr int kKB = kKC / 16;  // keys a thread: tx + 16b
+  static constexpr int kCW = D / 16;    // output columns a thread
+  static constexpr int kDR = D + 4;     // padded row of Q, K, V (floats)
+  static constexpr int kPR = kKC + 16;  // padded row of p: a warp's two
+                                        // rows fall 16 banks apart
+  static constexpr bool kQuant = L::kQuant;
+  static constexpr bool kWiden = !std::is_same<TKV, float>::value;
+  static constexpr int kRowBytes =
+      D * static_cast<int>(sizeof(typename L::S)) / L::kDiv;
+  static constexpr int kPieces = kRowBytes / 16;  // 16-byte pieces a row
+  static constexpr uint32_t kQ = kBQ * kDR * 4;
+  static constexpr uint32_t kP = kBQ * kPR * 4;
+  static constexpr uint32_t kTile = kKC * kDR * 4;     // f32 K or V
+  static constexpr uint32_t kRaw = kKC * kRowBytes;    // stored K or V
+  static constexpr uint32_t kScales = 2 * kKC * 4;
+  // A stage holds a chunk as f32 tiles (fp32 pool) or as stored bytes and
+  // scales, which are widened into the two f32 tiles after p.
+  static constexpr uint32_t kStage =
+      kWiden ? 2 * kRaw + (kQuant ? kScales : 0) : 2 * kTile;
+  static constexpr size_t kSmem =
+      kQ + kP + (kWiden ? 2 * kTile : 0) + 2 * kStage;
+  static_assert(kRowBytes % 16 == 0, "whole 16-byte pieces a row");
+};
 
-  const int q0 = blockIdx.x * kPfQT, h = blockIdx.y, b = blockIdx.z;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int64_t qrow = ((int64_t)b * H + h) * T;
-  const int base = start[b];  // position of query 0 of this row
+// Four consecutive stored values at src widened to f32 (exact).
+template <typename TKV>
+__device__ __forceinline__ float4 widen4(const unsigned char* src) {
+  if constexpr (std::is_same<TKV, bf16>::value) {
+    const uint2 x = *reinterpret_cast<const uint2*>(src);
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&x.x));
+    const float2 b = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&x.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+  } else if constexpr (std::is_same<TKV, int8_t>::value) {
+    const uint32_t x = *reinterpret_cast<const uint32_t*>(src);
+    return make_float4(sbyte(x, 0), sbyte(x, 1), sbyte(x, 2), sbyte(x, 3));
+  } else {
+    // Two bytes of packed int4: dim 2j in the low nibble, each biased by 8.
+    const uint32_t x = *reinterpret_cast<const uint16_t*>(src);
+    return make_float4(static_cast<float>(static_cast<int>(x & 15) - 8),
+                       static_cast<float>(static_cast<int>((x >> 4) & 15) - 8),
+                       static_cast<float>(static_cast<int>((x >> 8) & 15) - 8),
+                       static_cast<float>(static_cast<int>(x >> 12) - 8));
+  }
+}
+
+template <typename TQ, typename TKV, int D, int kBQ_>
+__global__ void __launch_bounds__(PrefillF32<TKV, D, kBQ_>::kThreads, 2)
+paged_prefill_f32_kernel(const TQ* __restrict__ q,
+                         const typename KV<TKV>::S* __restrict__ k,
+                         const typename KV<TKV>::S* __restrict__ v,
+                         const float* __restrict__ ks,
+                         const float* __restrict__ vs,
+                         const int* __restrict__ table,
+                         const int* __restrict__ start, TQ* __restrict__ out,
+                         int H, int T, int N, int page, int nb,
+                         float sm_scale) {
+  using P = PrefillF32<TKV, D, kBQ_>;
+  constexpr bool kQuant = P::kQuant, kWiden = P::kWiden;
+  constexpr int kThreads = P::kThreads, kBQ = P::kBQ, kKC = P::kKC;
+  constexpr int kTY = P::kTY, kQR = P::kQR, kKB = P::kKB, kCW = P::kCW;
+  constexpr int kDR = P::kDR, kPR = P::kPR;
+  extern __shared__ __align__(128) unsigned char smem_pf[];
+  float* q_s = reinterpret_cast<float*>(smem_pf);
+  float* p_s = reinterpret_cast<float*>(smem_pf + P::kQ);
+  float* wide = reinterpret_cast<float*>(smem_pf + P::kQ + P::kP);
+  unsigned char* ring =
+      smem_pf + P::kQ + P::kP + (kWiden ? 2 * P::kTile : 0);
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int64_t qbase = static_cast<int64_t>(bh) * T * D;
   const PagedChain chain{table, nb, N, page, H};
-
-  for (int e = t; e < kPfQT * D; e += kPfThreads) {
-    const int i = e / D, d = e % D;
-    q_s[i][d] = q0 + i < T ? to_f(q[(qrow + q0 + i) * D + d]) * sm_scale : 0.f;
-  }
-  if (t < kPfQT) {
-    m_s[t] = kNegInf;
-    l_s[t] = 0.f;
-  }
+  const int base = start[b];  // position of query 0 of this row
   // Keys any query of the tile can see; nothing past the chain exists.
-  const int last_q = min(q0 + kPfQT, T) - 1;
-  const int kv_end = min(base + last_q + 1, chain.capacity());
+  const int kv_end = min(base + min(q0 + kBQ, T), chain.capacity());
+  const int n_chunks = (kv_end + kKC - 1) / kKC;
   const int first_qpos = base + q0;
-  const int d_own = t % D, rg = t / D;
-  float acc[kRPT];
-#pragma unroll
-  for (int r = 0; r < kRPT; ++r) acc[r] = 0.f;
-  __syncthreads();
+  const unsigned char* kb = reinterpret_cast<const unsigned char*>(k);
+  const unsigned char* vb = reinterpret_cast<const unsigned char*>(v);
 
-  for (int c0 = 0; c0 < kv_end; c0 += kKC) {
-    for (int e = t; e < kKC * D; e += kPfThreads) {
-      const int j = e / D, d = e % D, pos = c0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (pos < kv_end) {
-        const int64_t r = chain.base(b, h, pos / page) + pos % page;
-        kx = L::at(k + r * kRow, d);
-        vx = L::at(v + r * kRow, d);
-      }
-      k_s[j][d] = kx;
-      v_s[j][d] = vx;
+  // Chunk c into ring stage `slot`; positions at or past kv_end are zero.
+  auto load_chunk = [&](int c, int slot) {
+    const uint32_t st = smem_addr(ring + slot * P::kStage);
+    const uint32_t v_off = kWiden ? P::kRaw : P::kTile;
+    const int c0 = c * kKC;
+#pragma unroll 1
+    for (int e = threadIdx.x; e < kKC * P::kPieces; e += kThreads) {
+      const int r = e / P::kPieces, p = e % P::kPieces, pos = c0 + r;
+      const bool in = pos < kv_end;
+      const int64_t off =
+          in ? (chain.base(b, h, pos / page) + pos % page) * P::kRowBytes +
+                   16 * p
+             : 0;
+      const uint32_t dst =
+          st + (kWiden ? r * P::kRowBytes + 16 * p : (r * kDR + 4 * p) * 4);
+      cp_async16(dst, kb + off, in ? 16 : 0);
+      cp_async16(dst + v_off, vb + off, in ? 16 : 0);
     }
-    if constexpr (L::kQuant) {
-      for (int j = t; j < kKC; j += kPfThreads) {
-        const int pos = c0 + j;
-        float kss = 0.f, vss = 0.f;
-        if (pos < kv_end) {
-          const int64_t r = chain.base(b, h, pos / page) + pos % page;
-          kss = ks[r];
-          vss = vs[r];
-        }
-        ks_s[j] = kss;
-        vs_s[j] = vss;
-      }
-    }
-    __syncthreads();
-    // A chunk wholly at or before the tile's first query position is
-    // causally valid for every (query, key) pair and skips the mask; only
-    // chunks that cross the frontier compare positions (the Pallas
-    // kernel's inner/frontier split).
-    const bool frontier = c0 + kKC - 1 > first_qpos;
-    for (int e = t; e < kPfQT * kKC; e += kPfThreads) {
-      const int i = e / kKC, j = e % kKC;
-      float s = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) s += q_s[i][d] * k_s[j][d];
-      if constexpr (L::kQuant) s *= ks_s[j];
-      const int kpos = c0 + j;
-      if (kpos >= kv_end || (frontier && kpos > first_qpos + i)) s = kNegInf;
-      p_s[i][j] = s;
-    }
-    __syncthreads();
-    for (int i = warp; i < kPfQT; i += kWarps) {
-      float mx = kNegInf;
-      for (int j = lane; j < kKC; j += 32) mx = fmaxf(mx, p_s[i][j]);
-      mx = warp_max(mx);
-      const float m_old = m_s[i];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int j = lane; j < kKC; j += 32) {
-        const float p = expf(p_s[i][j] - m_new);
-        sum += p;  // l sums the unscaled p; the v scale folds in below
-        p_s[i][j] = L::kQuant ? p * vs_s[j] : p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[i] = alpha;
-        l_s[i] = l_s[i] * alpha + sum;
-        m_s[i] = m_new;
+    if constexpr (kQuant) {
+#pragma unroll 1
+      for (int r = threadIdx.x; r < kKC; r += kThreads) {
+        const int pos = c0 + r;
+        const bool in = pos < kv_end;
+        const int64_t row = in ? chain.base(b, h, pos / page) + pos % page : 0;
+        const uint32_t dst = st + 2 * P::kRaw + 4 * r;
+        cp_async4(dst, ks + row, in ? 4 : 0);
+        cp_async4(dst + 4 * kKC, vs + row, in ? 4 : 0);
       }
     }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kRPT; ++r) {
-      const int i = rg + r * kNRG;
-      float a = acc[r] * a_s[i];
-#pragma unroll 8
-      for (int j = 0; j < kKC; ++j) a += p_s[i][j] * v_s[j][d_own];
-      acc[r] = a;
+  };
+
+  // Q once, as f32 rows padded by 4 floats (zero past T): an fp32 query by
+  // cp.async, a bf16 one widened on the way.
+  if constexpr (std::is_same<TQ, float>::value) {
+    load_rows_f32<kBQ, D, kThreads>(smem_addr(q_s), q + qbase, q0, T);
+  } else {
+    for (int e = threadIdx.x; e < kBQ * D / 8; e += kThreads) {
+      const int r = e / (D / 8), c = 8 * (e % (D / 8));
+      float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (q0 + r < T)
+        KV<bf16>::load(q + qbase + static_cast<int64_t>(q0 + r) * D, c, x);
+      float* dst = q_s + r * kDR + c;
+      *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+      *reinterpret_cast<float4*>(dst + 4) = make_float4(x[4], x[5], x[6], x[7]);
     }
-    __syncthreads();  // k_s, v_s and p_s are rewritten by the next chunk
   }
+  cp_async_commit();
+  load_chunk(0, 0);
+  cp_async_commit();
+
+  float m[kQR], l[kQR], acc[kQR][kCW];
 #pragma unroll
-  for (int r = 0; r < kRPT; ++r) {
-    const int i = rg + r * kNRG;
-    if (q0 + i < T)
-      out[(qrow + q0 + i) * D + d_own] = from_f<TQ>(acc[r] / l_s[i]);
+  for (int a = 0; a < kQR; ++a) {
+    m[a] = kNegInf;
+    l[a] = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < kCW; ++cc) acc[a][cc] = 0.f;
+  }
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int c0 = c * kKC;
+    if (c + 1 < n_chunks) load_chunk(c + 1, (c + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // Q and chunk c have landed
+    __syncthreads();
+    const unsigned char* st = ring + (c & 1) * P::kStage;
+    const float* k_t = reinterpret_cast<const float*>(st);
+    const float* ks_c = reinterpret_cast<const float*>(st + 2 * P::kRaw);
+    const float* vs_c = ks_c + kKC;
+    if constexpr (kWiden) {
+      // Stored bytes to f32 tiles; the next chunk stays in flight.
+      constexpr int kG = D / 4;  // groups of 4 dims a row
+#pragma unroll 4
+      for (int e = threadIdx.x; e < 2 * kKC * kG; e += kThreads) {
+        const int tile = e / (kKC * kG), r = (e / kG) % kKC, g = e % kG;
+        *reinterpret_cast<float4*>(wide + tile * (P::kTile / 4) + r * kDR +
+                                   4 * g) =
+            widen4<TKV>(st + tile * P::kRaw + r * P::kRowBytes +
+                        g * (P::kRowBytes / kG));
+      }
+      __syncthreads();
+      k_t = wide;
+    }
+    const float* v_t = k_t + P::kTile / 4;
+
+    // Scores: queries ty + kTY a, keys tx + 16b.
+    float s[kQR][kKB];
+#pragma unroll
+    for (int a = 0; a < kQR; ++a)
+#pragma unroll
+      for (int j = 0; j < kKB; ++j) s[a][j] = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; d += 4) {
+      float qx[kQR][4], kx[kKB][4];
+#pragma unroll
+      for (int a = 0; a < kQR; ++a)
+        lds<4>(q_s + (ty + kTY * a) * kDR + d, qx[a]);
+#pragma unroll
+      for (int j = 0; j < kKB; ++j)
+        lds<4>(k_t + (tx + 16 * j) * kDR + d, kx[j]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int a = 0; a < kQR; ++a)
+#pragma unroll
+          for (int j = 0; j < kKB; ++j)
+            s[a][j] = fmaf(qx[a][e], kx[j][e], s[a][j]);
+    }
+    // s = (q . k) * k_scale * sm_scale in f32, after the product, as the
+    // Pallas kernel computes it. A chunk wholly at or before the tile's
+    // first query position is causally valid for every (query, key) pair
+    // and skips the compare (the Pallas kernel's inner/frontier split);
+    // frontier and tail chunks compare positions.
+    const bool masked = c0 + kKC - 1 > first_qpos || c0 + kKC > kv_end;
+#pragma unroll
+    for (int a = 0; a < kQR; ++a) {
+      const int il = ty + kTY * a, qpos = first_qpos + il;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kKB; ++j) {
+        const int jl = tx + 16 * j, kpos = c0 + jl;
+        float x = s[a][j];
+        if constexpr (kQuant) x *= ks_c[jl];
+        x *= sm_scale;
+        if (masked && (kpos > qpos || kpos >= kv_end)) x = kNegInf;
+        s[a][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      const float m_new = fmaxf(m[a], row_max(mx));
+      const float alpha = expf(m[a] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kKB; ++j) {
+        const int jl = tx + 16 * j;
+        const float p = expf(s[a][j] - m_new);
+        sum += p;  // l sums the unscaled p; the v scale folds in here
+        p_s[il * kPR + jl] = kQuant ? p * vs_c[jl] : p;
+      }
+      l[a] = alpha * l[a] + row_sum(sum);
+      m[a] = m_new;
+#pragma unroll
+      for (int cc = 0; cc < kCW; ++cc) acc[a][cc] *= alpha;
+    }
+    __syncthreads();  // p complete
+
+    // p.v: queries ty + kTY a, columns tx kCW + cc. p stays f32, JAX's dot
+    // dtype for every pair this kernel takes.
+#pragma unroll
+    for (int j = 0; j < kKC; j += 4) {
+      float px[kQR][4];
+#pragma unroll
+      for (int a = 0; a < kQR; ++a)
+        lds<4>(p_s + (ty + kTY * a) * kPR + j, px[a]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float vx[kCW];
+        lds<kCW>(v_t + (j + e) * kDR + tx * kCW, vx);
+#pragma unroll
+        for (int a = 0; a < kQR; ++a)
+#pragma unroll
+          for (int cc = 0; cc < kCW; ++cc)
+            acc[a][cc] = fmaf(px[a][e], vx[cc], acc[a][cc]);
+      }
+    }
+    __syncthreads();  // stage c & 1, the widened tiles and p are free
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int a = 0; a < kQR; ++a) {
+    const int i = q0 + ty + kTY * a;
+    if (i < T) {
+      TQ* row = out + qbase + static_cast<int64_t>(i) * D + tx * kCW;
+#pragma unroll
+      for (int cc = 0; cc < kCW; ++cc) row[cc] = from_f<TQ>(acc[a][cc] / l[a]);
+    }
   }
 }
 
@@ -549,8 +717,45 @@ struct LaunchDecode {
   }
 };
 
+// The f32 K1 with kBQ-query blocks.
+template <typename TQ, typename TKV, int D, int kBQ>
+void launch_prefill_f32(const void* q, const void* k, const void* v,
+                        const float* ks, const float* vs, const int* table,
+                        const int* start, void* out, int B, int H, int T,
+                        int N, int page, int nb, float sm_scale,
+                        cudaStream_t stream) {
+  using P = PrefillF32<TKV, D, kBQ>;
+  using S = typename KV<TKV>::S;
+  constexpr size_t smem = P::kSmem;
+  if (cudaFuncSetAttribute(paged_prefill_f32_kernel<TQ, TKV, D, kBQ>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return;
+  const dim3 grid(B * H, (T + kBQ - 1) / kBQ);
+  paged_prefill_f32_kernel<TQ, TKV, D, kBQ><<<grid, P::kThreads, smem,
+                                              stream>>>(
+      static_cast<const TQ*>(q), static_cast<const S*>(k),
+      static_cast<const S*>(v), ks, vs, table, start, static_cast<TQ*>(out),
+      H, T, N, page, nb, sm_scale);
+}
+
+// SMs of the current device, read once.
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms;
+  }();
+  return n;
+}
+
 // A bf16 query over a bf16, int8 or int4 pool takes the tensor-core kernel;
-// an fp32 query, or any query over an fp32 pool, the CUDA-core one.
+// an fp32 query, or any query over an fp32 pool, the f32 CUDA-core one:
+// with 64-query blocks once those fill every SM twice over (an admission
+// wave: each block then reads the row's chain for 64 queries), else with
+// 32-query blocks, so a small prefill still spreads over every SM (B 2,
+// T 256: 192 blocks; PERF.md, section 6).
 struct LaunchPrefill {
   template <typename TQ, typename TKV, int D>
   static void run(const void* q, const void* k, const void* v,
@@ -574,11 +779,15 @@ struct LaunchPrefill {
           static_cast<const S*>(v), ks, vs, table, start,
           static_cast<bf16*>(out), H, T, N, page, nb, sm_scale);
     } else {
-      const dim3 grid((T + kPfQT - 1) / kPfQT, H, B);
-      paged_prefill_kernel<TQ, TKV, D><<<grid, kPfThreads, 0, stream>>>(
-          static_cast<const TQ*>(q), static_cast<const S*>(k),
-          static_cast<const S*>(v), ks, vs, table, start,
-          static_cast<TQ*>(out), H, T, N, page, nb, sm_scale);
+      const int64_t blocks64 = static_cast<int64_t>(B) * H * ((T + 63) / 64);
+      if (blocks64 >= 2 * sm_count())
+        launch_prefill_f32<TQ, TKV, D, 64>(q, k, v, ks, vs, table, start,
+                                           out, B, H, T, N, page, nb,
+                                           sm_scale, stream);
+      else
+        launch_prefill_f32<TQ, TKV, D, 32>(q, k, v, ks, vs, table, start,
+                                           out, B, H, T, N, page, nb,
+                                           sm_scale, stream);
     }
   }
 };

@@ -407,7 +407,8 @@ def flash_prefill_paged(q, k, v, block_table, start, *,
     start[b]+T-1, and the pool must already hold their K/V. Returns
     (B, H, T, D) in q's dtype. CUDA tensors launch paged_prefill_mma_kernel
     (a bf16 query over a bf16, int8 or int4 pool, on the tensor cores) or
-    paged_prefill_kernel (an fp32 query, or an fp32 pool)."""
+    paged_prefill_f32_kernel (an fp32 query, or an fp32 pool, on CUDA
+    cores in f32)."""
     mode = _kv_mode(q, k, v, k_scale, v_scale)
     if not q.is_cuda:
         return torch_prefill_attention_paged(q, k, v, block_table, start,

@@ -16,6 +16,7 @@
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -211,11 +212,55 @@ def test_chip_smoke_build_report_parsers():
         assert chip_smoke.kernel_label(mangled) == label
         assert label in chip_smoke.TENSOR_CORE_INSTANCES
     assert len(chip_smoke.TENSOR_CORE_INSTANCES) == 21
-    # The fp32 K5 and K7 on CUDA cores: held to 0 spills, no HMMA asked.
-    kv = "_ZN12_GLOBAL__N_119flash_bwd_kv_kernelILi128ELb0EEEvPKfS2_"
-    assert chip_smoke.kernel_label(kv) == "flash_bwd_kv_kernel<D=128, dq=0>"
-    assert "flash_bwd_kv_kernel<D=128, dq=0>" in chip_smoke.CUDA_CORE_INSTANCES
-    assert len(chip_smoke.CUDA_CORE_INSTANCES) == 6
+    # The f32 kernels on CUDA cores: held to 0 spills, no HMMA asked. The
+    # fp32 K5/K7 and K6, and K1 in each of its f32 (query, pool) pairs
+    # with 32- and 64-query blocks.
+    pf = ("_ZN3nsb51_GLOBAL__N__737eb1aa_18_paged_attention_cu_2415576824"
+          "paged_prefill_f32_kernel")
+    labels = {
+        "_ZN12_GLOBAL__N_119flash_bwd_kv_kernelILi128ELb0EEEvPKfS2_":
+        "flash_bwd_kv_kernel<D=128, dq=0>",
+        "_ZN51_GLOBAL__N__5ee34151_18_flash_attention_cu_bc8f9a2a23flash_bwd_"
+        "dq_f32_kernelILi64EEEvPKfS2_S2_S2_S2_S2_PfiifNS_11DropoutArgsE":
+        "flash_bwd_dq_f32_kernel<D=64>",
+        pf + "IffLi64ELi32EEEvPKT_PKNS_2KVIT0_E1SESA_PKfSC_PKiSE_PS2_iiiiif":
+        "paged_prefill_f32_kernel<q=fp32, kv=fp32, D=64, BQ=32>",
+        pf + "If13__nv_bfloat16Li32ELi64EEEvPKT_PKNS_2KVIT0_E1SESB_PKfSD_"
+        "PKiSF_PS3_iiiiif":
+        "paged_prefill_f32_kernel<q=fp32, kv=bf16, D=32, BQ=64>",
+        pf + "IfaLi128ELi32EEEvPKT_PKNS_2KVIT0_E1SESA_PKfSC_PKiSE_PS2_iiiiif":
+        "paged_prefill_f32_kernel<q=fp32, kv=int8, D=128, BQ=32>",
+        pf + "IfNS_4Int4ELi64ELi64EEEvPKT_PKNS_2KVIT0_E1SESB_PKfSD_PKiSF_PS3_"
+        "iiiiif": "paged_prefill_f32_kernel<q=fp32, kv=int4, D=64, BQ=64>",
+        pf + "I13__nv_bfloat16fLi64ELi32EEEvPKT_PKNS_2KVIT0_E1SESB_PKfSD_"
+        "PKiSF_PS3_iiiiif":
+        "paged_prefill_f32_kernel<q=bf16, kv=fp32, D=64, BQ=32>"}
+    for mangled, label in labels.items():
+        assert chip_smoke.kernel_label(mangled) == label
+        assert label in chip_smoke.CUDA_CORE_INSTANCES
+    assert len(chip_smoke.CUDA_CORE_INSTANCES) == 39
+
+
+def test_chip_smoke_kernel_names_are_kernels_in_the_sources():
+    """Every kernel name phase 2 looks for is a __global__ function of
+    the port's CUDA sources, so a renamed kernel fails here and not after
+    a chip run."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    kernels = set()
+    for path in (PKG / "csrc").glob("*.cu"):
+        kernels |= set(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+            r"(\w+)\s*\(", path.read_text()))
+    names = chip_smoke.TENSOR_CORE_KERNELS + chip_smoke.CUDA_CORE_KERNELS
+    assert set(names) <= kernels, sorted(set(names) - kernels)
+    # Each instance phase 2 expects names one of those kernels.
+    for label in (chip_smoke.TENSOR_CORE_INSTANCES
+                  + chip_smoke.CUDA_CORE_INSTANCES):
+        assert label.split("<", 1)[0] in names, label
 
 
 def test_unported_paths_raise():

@@ -146,7 +146,7 @@ def test_decode_rows_without_keys_return_zeros():
     torch.testing.assert_close(out[1:2], one, atol=1e-5, rtol=1e-5)
 
 
-def test_quantized_pools_raise_not_ported():
+def test_quantized_pools_run_plain_on_cpu_and_scale_checks_raise():
     """Quantized pools are ported: an int8 pool with its scales runs on
     the CPU through the plain versions (no launch), equal to the fp32
     pool the scales dequantize to, and scales without an int8/int4 pool
