@@ -14,14 +14,16 @@ result line):
               and int4 pools, at head_dim 32, 64, 128; all must be found)
               its registers, spill stores (must be 0) and HMMA/HGMMA
               count in the SASS (cuobjdump; must not be 0), and the
-              registers and spill stores (must be 0) of each f32
-              CUDA-core instance (CUDA_CORE_INSTANCES: K5, K6, K7, and K1
-              in each of its f32 (query, pool) pairs, at every head_dim;
-              all must be found);
+              registers and spill stores (must be 0) of each CUDA-core
+              instance (CUDA_CORE_INSTANCES: the fp32 K4 with 32- and
+              64-query blocks, K5, K6, K7, K1 in each of its f32 (query,
+              pool) pairs, and K2 in every (query, pool) pair, at every
+              head_dim; all must be found);
   3. kernels  each kernel against its plain PyTorch version on the card
               at GPT-2 124M shapes, under fp32 and bf16 queries: K2 and
               K1 (H 12, D 64, page 16, 512 blocks, 64 table entries per
-              row; K1 at B 2, T 128 and 256, starts [0, 64], and the
+              row; K2 also at the serving steady state, 8 rows x 512
+              positions; K1 at B 2, T 128 and 256, starts [0, 64], and the
               8 x 512 admission wave) over a pool in the query's dtype
               and over int8 and int4 pools, K3 (flash_decode_kernel) over
               contiguous (8, 12, 1024, 64) slot rows at K2's lengths in
@@ -35,7 +37,8 @@ result line):
               limits, K1, K2 and K3 at head_dim 32, 64 and 128 in every
               (query, kv mode) pair (K1 also at T 100, starts [0, 37],
               and at B 8, H 12, T 160, where the f32 one takes 64-query
-              blocks),
+              blocks; K2 also at lengths Ls - 1, Ls, Ls + 1 and the full
+              capacity of its splits, equal bits on two calls),
               and K2 and K3 on decode rows of length 0 and -1 in every
               kv mode (zeros out, finite);
   4. engine   GPT-2 124M in fp32 (seeded random weights) through the
@@ -102,7 +105,8 @@ result line):
 
 The last line is {"ok": true, "device": {...}}; the line before it is a
 JSON object with one entry per kernel instance timed (K1 twice for each
-pool and query: phase 3's B 2, T 256 case and the wave). Needs one CUDA
+pool and query: phase 3's B 2, T 256 case and the wave; K2 twice: phase
+3's lengths and the serving steady state). Needs one CUDA
 GPU; without one it exits non-zero and prints no result.
 """
 
@@ -188,9 +192,11 @@ def time_ms(fn, reps: int = 25) -> float:
 # The kernels on the tensor cores, by the name their symbols carry.
 TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_mma_kernel",
                        "flash_bwd_dq_mma_kernel", "paged_prefill_mma_kernel")
-# CUDA-core kernels (f32) whose instances phase 2 holds to 0 spill bytes.
-CUDA_CORE_KERNELS = ("flash_bwd_kv_kernel", "flash_bwd_dq_f32_kernel",
-                     "paged_prefill_f32_kernel")
+# CUDA-core kernels whose instances phase 2 holds to 0 spill bytes: the
+# f32 ones and K2.
+CUDA_CORE_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_kv_kernel",
+                     "flash_bwd_dq_f32_kernel", "paged_prefill_f32_kernel",
+                     "paged_decode_kernel")
 HEAD_DIMS = (32, 64, 128)
 # The template instances phase 2 must find, as kernel_label names them:
 # K4, K6 (bf16), K5 and K7 (bf16, with and without dQ), and K1 under a
@@ -206,22 +212,40 @@ TENSOR_CORE_INSTANCES = tuple(sorted(
 # a bf16 query over an fp32 pool.
 F32_PREFILL_PAIRS = (("fp32", "fp32"), ("fp32", "bf16"), ("fp32", "int8"),
                      ("fp32", "int4"), ("bf16", "fp32"))
-# The fp32 K5 and K7 (with and without dQ), the fp32 K6, and K1 in each of
-# its f32 pairs, with 32- and 64-query blocks (BQ).
+# The fp32 K4 and K1 in each of its f32 pairs, with 32- and 64-query
+# blocks (BQ); the fp32 K5 and K7 (with and without dQ), the fp32 K6; K2
+# in every (query, pool) pair.
 CUDA_CORE_INSTANCES = tuple(sorted(
-    [f"flash_bwd_kv_kernel<D={d}, dq={w}>" for d in HEAD_DIMS
-     for w in (0, 1)]
+    [f"flash_fwd_f32_kernel<D={d}, BQ={bq}>" for d in HEAD_DIMS
+     for bq in (32, 64)]
+    + [f"flash_bwd_kv_kernel<D={d}, dq={w}>" for d in HEAD_DIMS
+       for w in (0, 1)]
     + [f"flash_bwd_dq_f32_kernel<D={d}>" for d in HEAD_DIMS]
     + [f"paged_prefill_f32_kernel<q={qd}, kv={kv}, D={d}, BQ={bq}>"
        for d in HEAD_DIMS for qd, kv in F32_PREFILL_PAIRS
-       for bq in (32, 64)]))
-# The f32 K1's (query, pool) template arguments as they open its mangled
-# symbol: float is f, __nv_bfloat16 13__nv_bfloat16, int8_t (signed char)
-# a, nsb::Int4 a nested name ending in 4Int4E.
-F32_PREFILL_MANGLED = {"Iff": ("fp32", "fp32"),
-                       "If13__nv_bfloat16": ("fp32", "bf16"),
-                       "Ifa": ("fp32", "int8"), "IfN": ("fp32", "int4"),
-                       "I13__nv_bfloat16f": ("bf16", "fp32")}
+       for bq in (32, 64)]
+    + [f"paged_decode_kernel<q={qd}, kv={kv}, D={d}>" for d in HEAD_DIMS
+       for qd in ("fp32", "bf16")
+       for kv in ("fp32", "bf16", "int8", "int4")]))
+
+
+def mangled_pair(args: str) -> tuple[str, str]:
+    """The (query, pool) template arguments that open a paged kernel's
+    mangled arguments: float is f, __nv_bfloat16 13__nv_bfloat16 (or,
+    repeated, a substitution S<n>_), int8_t (signed char) a, nsb::Int4 a
+    nested name ending in 4Int4E."""
+    types = args[1:].split("Li", 1)[0]
+    if types.startswith("f"):
+        qd, kv = "fp32", types[1:]
+    elif types.startswith("13__nv_bfloat16"):
+        qd, kv = "bf16", types[len("13__nv_bfloat16"):]
+    else:
+        return "?", "?"
+    kv = ("fp32" if kv == "f" else "int8" if kv == "a"
+          else "int4" if "4Int4" in kv
+          else "bf16" if kv == "13__nv_bfloat16" or re.fullmatch(r"S\w*_", kv)
+          else "?")
+    return qd, kv
 
 
 def ptxas_report(log: str) -> dict:
@@ -263,10 +287,15 @@ def kernel_label(mangled: str) -> str:
     args = mangled.split(name, 1)[1]
     head_dim = re.search(r"Li(\d+)E", args).group(1)
     if name == "paged_prefill_f32_kernel":
-        qd, kv = next(((q, k) for p, (q, k) in F32_PREFILL_MANGLED.items()
-                       if args.startswith(p)), ("?", "?"))
+        qd, kv = mangled_pair(args)
         bq = re.findall(r"Li(\d+)E", args)[1]
         return f"{name}<q={qd}, kv={kv}, D={head_dim}, BQ={bq}>"
+    if name == "paged_decode_kernel":
+        qd, kv = mangled_pair(args)
+        return f"{name}<q={qd}, kv={kv}, D={head_dim}>"
+    if name == "flash_fwd_f32_kernel":
+        bq = re.findall(r"Li(\d+)E", args)[1]
+        return f"{name}<D={head_dim}, BQ={bq}>"
     if name == "paged_prefill_mma_kernel":
         kv = ("bf16" if args.startswith("I13__nv_bfloat16") else
               "int8" if args.startswith("Ia") else
@@ -320,7 +349,7 @@ def check_build(_build) -> None:
             fail(f"{label}: {mma} tensor-core instructions in its SASS, "
                  f"{spill} bytes spilled (needs > 0 and 0)")
     for label, regs, spill in sorted(cc):
-        print(f"  {label} (f32, CUDA cores): {regs} registers, {spill} bytes "
+        print(f"  {label} (CUDA cores): {regs} registers, {spill} bytes "
               "spill stores")
         if spill:
             fail(f"{label}: {spill} bytes spilled (needs 0)")
@@ -433,6 +462,12 @@ def check_kernels(fd) -> dict:
     dq = torch.from_numpy(rng.standard_normal((8, H, D),
                                               dtype=np.float32)).to(DEVICE)
     dlen = torch.from_numpy(decode_len).to(DEVICE)
+    # K2 at the serve profile's steady state: 8 slots x 512 positions.
+    serve_len = np.full(8, 512, np.int32)
+    sk, sv, stbl = make_case(rng, 8, serve_len)
+    slen = torch.from_numpy(serve_len).to(DEVICE)
+    smask = (torch.arange(512, device=DEVICE)[None, None, None, :]
+             < slen[:, None, None, None])
     # K1: B 2 with row 0 cold (start 0) and row 1 after a 64-token hit, at
     # T 128 and 256; and a full admission wave of the default server (8
     # slots x 512 tokens, start 0: serve/profile.py's), under either query.
@@ -492,16 +527,23 @@ def check_kernels(fd) -> dict:
             k1 = (f"paged_prefill_mma_kernel<{mode}>"
                   if dtype == torch.bfloat16
                   else f"paged_prefill_f32_kernel<{mode}>")
-            cases.append(one(
-                f"paged_decode_kernel{tag}", dtype, f"B=8 H={H} D={D} {lens}",
-                (pool_in_mode(dk, mode), pool_in_mode(dv, mode)),
-                lambda k, v, **kw: fd.flash_decode_paged(q, k, v, dtbl, dlen,
-                                                         **kw),
-                lambda k, v, **kw: fd.torch_decode_attention_paged(
-                    q, k, v, dtbl, dlen, **kw),
-                lambda k, v: (q[:, :, None], gathered(k, dtbl, L),
-                              gathered(v, dtbl, L), dmask),
-                decode_bytes(tot, H, D, mode, qb), 4 * H * D * tot))
+            for kk, vv, tbl, n, mask, Lg, shape, total in (
+                    (dk, dv, dtbl, dlen, dmask, L, lens, tot),
+                    (sk, sv, stbl, slen, smask, 512, "lengths=8x512",
+                     int(serve_len.sum()))):
+                cases.append(one(
+                    f"paged_decode_kernel{tag}", dtype,
+                    f"B=8 H={H} D={D} {shape}",
+                    (pool_in_mode(kk, mode), pool_in_mode(vv, mode)),
+                    lambda k, v, tbl=tbl, n=n, **kw: fd.flash_decode_paged(
+                        q, k, v, tbl, n, **kw),
+                    lambda k, v, tbl=tbl, n=n, **kw:
+                        fd.torch_decode_attention_paged(q, k, v, tbl, n,
+                                                        **kw),
+                    lambda k, v, tbl=tbl, Lg=Lg, mask=mask: (
+                        q[:, :, None], gathered(k, tbl, Lg),
+                        gathered(v, tbl, Lg), mask),
+                    decode_bytes(total, H, D, mode, qb), 4 * H * D * total))
             for T, start, pq, pk, pv, ptbl, pstart in prefill:
                 qT = pq.to(dtype)
                 Lp = int((start + T).max())
@@ -574,8 +616,17 @@ def check_other_instances(fd, rng) -> None:
         wk, wv, wtbl = make_case(rng, 8, wstart + 160, H=12, D=D, N=160,
                                  nb=20)
         ws = torch.from_numpy(wstart).to(DEVICE)
+        # K2's split boundaries: rows of lengths Ls - 1, Ls, Ls + 1 and the
+        # full capacity, Ls the split length of a (4, 12) call over 64
+        # pages of 16 on this card (an H100's 132 SMs in a CPU rehearsal).
+        sms = 132 if DEVICE == "cpu" else fd._sm_count(torch.device(DEVICE))
+        Ls = fd.decode_splits(4, 12, 64, 16, sms)[1]
+        blens = np.array([Ls - 1, Ls, Ls + 1, 64 * 16], np.int32)
+        bk, bv, btbl = make_case(rng, 4, blens, H=12, D=D, N=128, nb=64)
+        bn = torch.from_numpy(blens).to(DEVICE)
         for qdt in (torch.float32, torch.bfloat16):
             q1, qT = randn((3, 4, D), qdt), randn((3, 4, 40, D), qdt)
+            qs = randn((4, 12, D), qdt)
             q100 = randn((2, 4, 100, D), qdt)
             q160 = randn((8, 12, 160, D), qdt)
             for mode in fd.KV_MODES:
@@ -584,9 +635,13 @@ def check_other_instances(fd, rng) -> None:
                 k4, v4, s4 = pools(wk, wv, mode)
                 k3, v3, s3 = pools(ck, cv, mode)
                 ke, ve, se = pools(ek, ev, mode)
+                k5, v5, s5 = pools(bk, bv, mode)
                 runs = (
                     ("paged decode", fd.flash_decode_paged,
                      fd.torch_decode_attention_paged, (q1, k, v, tbl, n), s),
+                    (f"paged decode, lengths {blens.tolist()}",
+                     fd.flash_decode_paged, fd.torch_decode_attention_paged,
+                     (qs, k5, v5, btbl, bn), s5),
                     ("paged prefill", fd.flash_prefill_paged,
                      fd.torch_prefill_attention_paged, (qT, k, v, tbl, n), s),
                     ("paged prefill, T 100, start [0, 37]",
@@ -608,8 +663,12 @@ def check_other_instances(fd, rng) -> None:
                     err = check_limits(tag, got, plain(*args, **scales), qdt)
                     if not bool(torch.isfinite(got).all()):
                         fail(f"{tag}: non-finite output")
-                    if "lengths" in name and (got[0].any() or got[2].any()):
+                    if "[0, 130, -1]" in name and (got[0].any()
+                                                   or got[2].any()):
                         fail(f"{tag}: a row with no key did not return 0")
+                    if (fn is fd.flash_decode_paged
+                            and not torch.equal(got, fn(*args, **scales))):
+                        fail(f"{tag}: two calls differ")
                     worst[name] = max(worst.get(name, 0.0), err)
     print(f"  other instances (D {fd.HEAD_DIMS}, q fp32/bf16, kv "
           f"{fd.KV_MODES}; empty rows zero and finite), worst max "
@@ -1573,10 +1632,14 @@ def main(argv: list[str] | None = None) -> int:
         tag = "" if mode == "bf16" else f"<{mode}>"
         k1 = f"paged_prefill_mma_kernel<{mode}>"
         n_k1 = sl[f"paged {mode}"][f"flash_prefill_paged/{mode}"]
+        n_k2 = sl[f"paged {mode}"][f"flash_decode_paged/{mode}"]
         kernels += [
             entry(f"paged_decode_kernel{tag}", paged, "flash_decode.py:421",
-                  sl[f"paged {mode}"][f"flash_decode_paged/{mode}"],
-                  timed(f"paged_decode_kernel{tag}", "bfloat16")),
+                  n_k2, timed(f"paged_decode_kernel{tag}", "bfloat16")),
+            entry(f"paged_decode_kernel{tag}[serve B=8 len=512]", paged,
+                  "flash_decode.py:421", n_k2,
+                  timed(f"paged_decode_kernel{tag}", "bfloat16",
+                        "B=8 H=12 D=64 lengths=8x512")),
             entry(k1, paged, "flash_decode.py:585", n_k1,
                   timed(k1, "bfloat16", "B=2 H=12 T=256")),
             entry(f"{k1}[wave B=8 T=512]", paged, "flash_decode.py:585",
@@ -1589,11 +1652,15 @@ def main(argv: list[str] | None = None) -> int:
         tag = "" if mode == "fp32" else f"<{mode}>"
         k1 = f"paged_prefill_f32_kernel<{mode}>"
         n_k1 = run["launches"][f"flash_prefill_paged/{mode}"]
+        n_k2 = run["launches"][f"flash_decode_paged/{mode}"]
         kernels += [
             entry(f"paged_decode_kernel{tag}[q fp32]", paged,
-                  "flash_decode.py:421",
-                  run["launches"][f"flash_decode_paged/{mode}"],
+                  "flash_decode.py:421", n_k2,
                   timed(f"paged_decode_kernel{tag}", "float32")),
+            entry(f"paged_decode_kernel{tag}[q fp32, serve B=8 len=512]",
+                  paged, "flash_decode.py:421", n_k2,
+                  timed(f"paged_decode_kernel{tag}", "float32",
+                        "B=8 H=12 D=64 lengths=8x512")),
             entry(k1, paged, "flash_decode.py:585", n_k1,
                   timed(k1, "float32", "B=2 H=12 T=256")),
             entry(f"{k1}[wave B=8 T=512]", paged, "flash_decode.py:585",
@@ -1621,7 +1688,7 @@ def main(argv: list[str] | None = None) -> int:
               "attention.py:556", tl["flash_attention_bwd_dkv"],
               train_cases["dkv"]),
         # The fp32 instances, with the launches of phase 8's fp32 path.
-        entry("flash_fwd_kernel<float>", flash, "attention.py:180",
+        entry("flash_fwd_f32_kernel", flash, "attention.py:180",
               parity_launches["flash_attention_fwd"],
               train_cases["fwd_fp32"]),
         entry("flash_bwd_kv_kernel<float>", flash, "attention.py:556",

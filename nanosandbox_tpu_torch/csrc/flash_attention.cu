@@ -17,7 +17,7 @@
 //       with_dq=False) (K7), the split backward's dK/dV pass: the same
 //       kernel and pre-pass without the dQ half;
 //   f32, on CUDA cores (every product an exact f32 fmaf):
-//     flash_fwd_kernel<float>           <- K4
+//     flash_fwd_f32_kernel<D, kBQ>      <- K4
 //     flash_bwd_kv_kernel<D, true>      <- K5, after the f32 instance of
 //       flash_bwd_drow_kernel;
 //     flash_bwd_kv_kernel<D, false>     <- K7, after the same pre-pass;
@@ -72,19 +72,22 @@
 //     memory. Drow is computed once per row at the start.
 // The CUDA-core design (f32). What bounds these kernels is the f32 FMA
 // rate of the CUDA cores (67 TFLOP/s: K6's 38.7 GFLOP at the training
-// shape take 0.578 ms) and the shared-memory reads that feed it. The
-// forward (K4): 64 x 64 tiles staged in shared memory as f32 (rows padded
-// to D + 1 floats), a 16 x 16 grid of threads computing 4 x 4 outputs
-// each, synchronous loads. K5, K6 and K7: rows padded to D + 4 floats, so
-// tiles arrive by 16-byte cp.async and are read as float4; each thread's
-// micro-tile is read four deep along the contracted dimension. K5 and K7
-// walk the query tiles (a two-stage ring, or one stage and a second block
-// on the SM), Drow comes from the pre-pass, and K5 adds dQ with 16-byte
-// vector atomics. K6 walks the 64-key K/V tiles with Q, dO, lse and its
-// own Drow resident (one stage and two blocks an SM at D <= 64, a
-// two-stage ring at D 128); dS goes to shared memory once per tile, and dQ
-// stays in registers to one store. sm_scale multiplies each score after
-// its product and dK, dQ once at the end.
+// shape take 0.578 ms) and the shared-memory reads that feed it. Rows are
+// padded to D + 4 floats, so tiles arrive by 16-byte cp.async and are read
+// as float4; each thread's micro-tile is read four deep along the
+// contracted dimension. The forward (K4) is attend_f32.cuh's loop, the one
+// the fp32 paged prefill (K1) runs, over contiguous rows: 32- or 64-query
+// blocks of 4 threads a query (64 once they fill every SM twice over, as
+// at the training shape's 3072 blocks), Q resident, 64-key K/V tiles (32
+// at D 128) through a two-stage cp.async ring, 4 x 4 micro-tiles, the
+// online softmax in registers, p through shared memory; two blocks an SM.
+// K5 and K7 walk the query tiles (a two-stage ring, or one stage and a
+// second block on the SM), Drow comes from the pre-pass, and K5 adds dQ
+// with 16-byte vector atomics. K6 walks the 64-key K/V tiles with Q, dO,
+// lse and its own Drow resident (one stage and two blocks an SM at D <=
+// 64, a two-stage ring at D 128); dS goes to shared memory once per tile,
+// and dQ stays in registers to one store. sm_scale multiplies each score
+// after its product and dK, dQ once at the end.
 //
 // Blocks run in no order, where the Pallas kernels walk a sequential grid
 // axis and keep state in VMEM across it (the forward's online softmax,
@@ -126,39 +129,16 @@
 
 #include <type_traits>
 
+#include "attend_f32.cuh"
 #include "mma_common.cuh"
 
 namespace {
 
 using namespace nsb;
 
-constexpr float kNegInf = -1e30f;  // the Pallas kernels' NEG_INF
 constexpr int kTile = 64;          // queries and keys per tile
 constexpr int kThreads = 256;      // a 16 x 16 grid of threads
-constexpr int kWarps = kThreads / 32;
-constexpr int kSP = kTile + 1;     // padded row of a score tile
 constexpr uint32_t kGolden = 0x9E3779B9u;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T and back: the cast the MXU's inputs get in the Pallas
-// kernels (round to nearest even, as XLA's convert).
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
 
 // 16-byte vector loads: 4 floats or 8 bf16 per load, converted to f32.
 template <typename T>
@@ -209,6 +189,7 @@ struct DropoutArgs {
 };
 
 struct Dropout {
+  static constexpr bool kMay = true;  // attend_f32's dropout branch
   bool on;
   uint32_t mix, q_off, k_off, seq_len, threshold;
   float scale;
@@ -247,166 +228,24 @@ __device__ __forceinline__ Dropout make_dropout(const DropoutArgs& a, int bh,
 }
 
 // ---------------------------------------------------------------------------
-// Tile helpers of the CUDA-core kernels. A "D-tile" is kTile x (D + 1)
-// floats, an "S-tile" kTile x kSP floats.
+// K4 on CUDA cores (f32): attend_f32 (attend_f32.cuh, the fp32 paged
+// prefill's loop) over contiguous rows, with dropout on the p.v sum and the
+// lse store compiled in. One block per (row*head, query tile of kBQ), the
+// grid's y the query tile, the longest walks first.
 // ---------------------------------------------------------------------------
 
-// Rows [r0, r0 + kTile) of a (n_rows, D) matrix into a D-tile; rows at or
-// past n_rows are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, int r0,
-                                          int n_rows, float* __restrict__ dst) {
-  constexpr int kVN = Vec<T>::kN, kNV = D / kVN, kDP = D + 1;
-  for (int e = threadIdx.x; e < kTile * kNV; e += kThreads) {
-    const int r = e / kNV, d0 = (e % kNV) * kVN;
-    float x[kVN];
-    if (r0 + r < n_rows) {
-      Vec<T>::load(src + static_cast<int64_t>(r0 + r) * D + d0, x);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kVN; ++i) x[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kVN; ++i) dst[r * kDP + d0 + i] = x[i];
-  }
-}
-
-// s[a][b] = A[ty + 16a] . B[tx + 16b] over D, for two D-tiles.
-template <int D>
-__device__ __forceinline__ void tile_dot(const float* __restrict__ A,
-                                         const float* __restrict__ B,
-                                         float (&s)[4][4]) {
-  constexpr int kDP = D + 1;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float x[4], y[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) x[a] = A[(ty + 16 * a) * kDP + d];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) y[b] = B[(tx + 16 * b) * kDP + d];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) s[a][b] = fmaf(x[a], y[b], s[a][b]);
-  }
-}
-
-// acc[a][c] += sum_j P[ty + 16a][j] * X[j][tx + 16c]: an S-tile times a
-// D-tile, rows of P.
-template <int D>
-__device__ __forceinline__ void tile_pv(const float* __restrict__ P,
-                                        const float* __restrict__ X,
-                                        float (&acc)[4][D / 16]) {
-  constexpr int kDP = D + 1, kDC = D / 16;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll 4
-  for (int j = 0; j < kTile; ++j) {
-    float p[4], x[kDC];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) p[a] = P[(ty + 16 * a) * kSP + j];
-#pragma unroll
-    for (int c = 0; c < kDC; ++c) x[c] = X[j * kDP + tx + 16 * c];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < kDC; ++c) acc[a][c] = fmaf(p[a], x[c], acc[a][c]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K4 on CUDA cores (f32). One block per (64-query tile, row*head).
-// ---------------------------------------------------------------------------
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int H, int Tn, float sm_scale,
-                 DropoutArgs da) {
-  constexpr int kDP = D + 1, kDC = D / 16;
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + kTile * kDP;
-  float* v_s = k_s + kTile * kDP;
-  float* p_s = v_s + kTile * kDP;
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest walks first
-  const int bh = blockIdx.y, q0 = qt * kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int64_t base = static_cast<int64_t>(bh) * Tn * D;
-  const Dropout dr = make_dropout(da, bh, H);
-
-  load_tile<T, D>(q + base, q0, Tn, q_s);
-  float m[4], l[4], acc[4][kDC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = kNegInf;
-    l[a] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kDC; ++c) acc[a][c] = 0.f;
-  }
-  // Keys any query of the tile can see: [0, min(q0 + kTile, T)).
-  const int n_kt = (min(q0 + kTile, Tn) + kTile - 1) / kTile;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the last tile's readers of k_s, v_s, p_s are done
-    load_tile<T, D>(k + base, k0, Tn, k_s);
-    load_tile<T, D>(v + base, k0, Tn, v_s);
-    __syncthreads();
-    float s[4][4];
-    tile_dot<D>(q_s, k_s, s);
-    // Only a tile that crosses the diagonal or the tail compares positions.
-    const bool masked = k0 + kTile - 1 > q0 || k0 + kTile > Tn;
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int il = ty + 16 * a, i = q0 + il;
-      float mx = kNegInf;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int j = k0 + tx + 16 * b;
-        float x = s[a][b] * sm_scale;
-        if (masked && (j > i || j >= Tn)) x = kNegInf;
-        s[a][b] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[a], row_max(mx));
-      const float alpha = expf(m[a] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int jl = tx + 16 * b;
-        const float p = expf(s[a][b] - m_new);
-        sum += p;
-        // l sums the unmasked p; dropout touches only the p.v sum.
-        float pv = p;
-        if (dr.on) pv = dr.keep(i, k0 + jl) ? p * dr.scale : 0.f;
-        p_s[il * kSP + jl] = round_to<T>(pv);
-      }
-      l[a] = alpha * l[a] + row_sum(sum);
-      m[a] = m_new;
-#pragma unroll
-      for (int c = 0; c < kDC; ++c) acc[a][c] *= alpha;
-    }
-    __syncthreads();
-    tile_pv<D>(p_s, v_s, acc);
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = q0 + ty + 16 * a;
-    if (i < Tn) {
-#pragma unroll
-      for (int c = 0; c < kDC; ++c)
-        o[base + static_cast<int64_t>(i) * D + tx + 16 * c] =
-            from_f<T>(acc[a][c] / l[a]);
-      if (tx == 0)
-        lse[static_cast<int64_t>(bh) * Tn + i] = m[a] + logf(l[a]);
-    }
-  }
+template <int D, int kBQ>
+__global__ void __launch_bounds__(TilesF32<float, D, kBQ>::kThreads, 2)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int H, int Tn, float sm_scale,
+                     DropoutArgs da) {
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  attend_f32<float, float, D, kBQ, true>(
+      q, k, v, nullptr, nullptr, ContigRows{static_cast<int64_t>(bh) * Tn},
+      bh, Tn, q0, q0, min(q0 + kBQ, Tn), o, lse, sm_scale,
+      make_dropout(da, bh, H));
 }
 
 // ---------------------------------------------------------------------------
@@ -1556,13 +1395,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
 // Launchers, dispatched on (dtype, head_dim).
 // ---------------------------------------------------------------------------
 
-enum DType { kF32 = 0, kBF16 = 1 };
 enum BwdMode { kFused = 0, kDq = 1, kDkv = 2 };
-
-constexpr size_t d_tile_bytes(int D) {
-  return sizeof(float) * kTile * (D + 1);
-}
-constexpr size_t s_tile_bytes() { return sizeof(float) * kTile * kSP; }
 
 // Above 48 KB, dynamic shared memory has to be allowed per kernel.
 template <typename K, typename... Args>
@@ -1588,6 +1421,18 @@ struct Call {
   cudaStream_t stream;
 };
 
+// The fp32 K4 with kBQ-query blocks.
+template <int D, int kBQ>
+cudaError_t launch_fwd_f32(const Call& c) {
+  using P = TilesF32<float, D, kBQ>;
+  const dim3 grid(c.BH, (c.T + kBQ - 1) / kBQ);
+  return launch(flash_fwd_f32_kernel<D, kBQ>, grid, P::kThreads, P::kSmem,
+                c.stream, static_cast<const float*>(c.q),
+                static_cast<const float*>(c.k),
+                static_cast<const float*>(c.v), static_cast<float*>(c.out),
+                c.lse_out, c.H, c.T, c.sm_scale, c.dr);
+}
+
 template <typename T, int D>
 cudaError_t run_fwd(const Call& c) {
   if constexpr (std::is_same<T, bf16>::value) {
@@ -1599,12 +1444,9 @@ cudaError_t run_fwd(const Call& c) {
                   static_cast<const bf16*>(c.v), static_cast<bf16*>(c.out),
                   c.lse_out, c.H, c.T, c.sm_scale, c.dr);
   } else {
-    const dim3 grid((c.T + kTile - 1) / kTile, c.BH);
-    return launch(flash_fwd_kernel<T, D>, grid, kThreads,
-                  3 * d_tile_bytes(D) + s_tile_bytes(), c.stream,
-                  static_cast<const T*>(c.q), static_cast<const T*>(c.k),
-                  static_cast<const T*>(c.v), static_cast<T*>(c.out),
-                  c.lse_out, c.H, c.T, c.sm_scale, c.dr);
+    // The query tile of the fp32 paged prefill's rule (attend_f32.cuh).
+    return wide_query_tiles(c.BH, c.T) ? launch_fwd_f32<D, 64>(c)
+                                       : launch_fwd_f32<D, 32>(c);
   }
 }
 
@@ -1698,7 +1540,7 @@ cudaError_t by_head_dim(int D, const Call& c, int mode) {
 }
 
 // mode < 0: the forward; else a BwdMode.
-cudaError_t dispatch(int dtype, int D, const Call& c, int mode) {
+cudaError_t dispatch_call(int dtype, int D, const Call& c, int mode) {
   if (dtype == kF32) return by_head_dim<float>(D, c, mode);
   if (dtype == kBF16) return by_head_dim<__nv_bfloat16>(D, c, mode);
   return cudaErrorInvalidValue;
@@ -1724,7 +1566,7 @@ int nsb_flash_fwd(const void* q, const void* k, const void* v, void* o,
   c.BH = BH; c.H = H; c.T = T; c.sm_scale = sm_scale;
   c.dr = dropout_args(seed, dropout_on, threshold, keep_scale, hash_seq_len);
   c.stream = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dispatch(dtype, D, c, -1));
+  return static_cast<int>(dispatch_call(dtype, D, c, -1));
 }
 
 // K5 (mode 0: dq is the zeroed f32 accumulator), K6 (mode 1: dq only, in
@@ -1744,7 +1586,7 @@ int nsb_flash_bwd(const void* q, const void* k, const void* v, const void* o,
   c.BH = BH; c.H = H; c.T = T; c.sm_scale = sm_scale;
   c.dr = dropout_args(seed, dropout_on, threshold, keep_scale, hash_seq_len);
   c.stream = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dispatch(dtype, D, c, mode));
+  return static_cast<int>(dispatch_call(dtype, D, c, mode));
 }
 
 }  // extern "C"

@@ -9,11 +9,10 @@
 //       probabilities). The dense engine's decode step (--paged=off) and
 //       the offline sampler's decode steps run it.
 //
-// It is the paged decode kernel's walk (decode_common.cuh decode_row)
-// with a contiguous address in place of the block-table lookup: warps
-// take 64-position chunks of the row in turn, kLPR lanes share one K/V
-// row with ~8 dims each, and the online-softmax states merge by shuffles
-// and then through shared memory. Bound by bytes: each visited position
+// Its walk is decode_common.cuh's decode_row over contiguous rows: one
+// block a (row, head), warps take 64-position chunks of the row in turn,
+// kLPR lanes share one K/V row with ~8 dims each, and the online-softmax
+// states merge by shuffles and then through shared memory. Bound by bytes: each visited position
 // is read once (K, V and, quantized, two f32 scales) for 4*D flops.
 // Positions at or past the row's frontier are never read, so a slot
 // row's stale tail (an earlier occupant's K/V) costs nothing. A row with

@@ -5,13 +5,13 @@
 //
 //   paged_decode_kernel  <- _paged_decode_kernel  (flash_decode_paged, K2)
 //       one query per (row, head) over the row's block chain, up to
-//       lengths[b] positions (decode_common.cuh decode_row over a
+//       lengths[b] positions (decode_common.cuh decode_split over a
 //       PagedChain). Bound by bytes: every position of the chain is read
 //       once (K and V, and their scales in the int8/int4 modes) for 4*D
-//       flops. One block per (row, head) leaves a long row to one SM's
-//       share of the memory rate, and B*H blocks (96 at 8 slots)
-//       under-fill 132 SMs; splitting a row's chain over blocks is later
-//       work.
+//       flops. So the chain is split over blocks, a grid (H, B, S) of
+//       whole-page splits chosen on the host to fill every SM twice over,
+//       and every lane loads 16 bytes at a time in every pool mode; the
+//       last split of a (row, head) to finish merges the others' states.
 //   paged_prefill_mma_kernel, paged_prefill_f32_kernel
 //                        <- _paged_prefill_kernel (flash_prefill_paged, K1)
 //       T queries per row at positions start[b] .. start[b]+T-1, causal
@@ -48,21 +48,13 @@
 //     products would not meet; a bf16 query over an fp32 pool attends in
 //     f32, as JAX does (its dot dtype is promote_types(bf16, f32)). Bound
 //     by the f32 FMA rate (the wave's 3.2 GFLOP take 0.048 ms at 67
-//     TFLOP/s) and the shared-memory reads that feed it. A block owns 32
-//     queries of one (row, head), or 64 once such blocks fill every SM
-//     twice over (192 blocks for the 132 SMs at B 2, T 256; 64-query
-//     blocks at an 8 x 512 wave), and reads the row's chain once, in
-//     64-position chunks (32 at D 128, so two blocks share an SM) through
-//     a two-stage cp.async ring addressed as above; an fp32 chunk lands as
-//     f32 tiles of rows padded by 4 floats, a bf16, int8 or int4 chunk as
-//     its stored bytes and scales, widened to such tiles (exact) with the
-//     next chunk in flight.
-//     Each thread's 4 x 4 micro-tile of scores is read as float4, four
-//     deep along D; p goes to shared memory once per chunk and p.v reads
-//     it as float4. The scales and sm_scale fold as in the Pallas kernel:
-//     s = (q . k) * k_scale * sm_scale in f32 after the product, l sums
-//     the unscaled p, and p * v_scale feeds p.v in f32 (JAX's dot dtype
-//     for every pair this kernel takes).
+//     TFLOP/s) and the shared-memory reads that feed it. Its loop is
+//     attend_f32.cuh's, shared with the fp32 flash forward (K4), over the
+//     row's chain: 32- or 64-query blocks (64 once such blocks fill every
+//     SM twice over: 192 32-query blocks for the 132 SMs at B 2, T 256;
+//     64-query blocks at an 8 x 512 wave), each reading the chain once
+//     through a two-stage cp.async ring of 16-byte pieces addressed
+//     through the block table.
 //
 // Layouts (row-major, contiguous): q (B, H, D) or (B, H, T, D); k, v
 // (N, H, page, D), or (N, H, page, D/2) bytes for packed int4; k_scale,
@@ -76,9 +68,10 @@
 //
 // Design. The Pallas kernels walk a sequential grid axis over the chain
 // and carry the online-softmax state (acc, m, l) in VMEM scratch from
-// one grid step to the next. CUDA blocks run in no order, so here one
-// block owns a whole (row, head) -- or a (row, head, query tile) for
-// prefill -- and the carry is a loop inside the block. Each block reads
+// one grid step to the next. CUDA blocks run in no order: a prefill block
+// owns a (row, head, query tile) and the carry is a loop inside it; a
+// decode block owns a (row, head, split) and the splits' carries merge
+// exactly, in split order, in the last block to finish. Each block reads
 // its own block-table entries; sentinel entries are clamped to N - 1 so
 // they never address memory outside the pool (their positions lie past
 // the frontier and are masked, exactly as in the Pallas index maps).
@@ -88,6 +81,7 @@
 
 #include <type_traits>
 
+#include "attend_f32.cuh"
 #include "decode_common.cuh"
 #include "mma_common.cuh"
 
@@ -103,90 +97,23 @@ paged_decode_kernel(const TQ* __restrict__ q,
                     const float* __restrict__ vs,
                     const int* __restrict__ table,
                     const int* __restrict__ lengths, TQ* __restrict__ out,
-                    int H, int N, int page, int nb, float sm_scale) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  decode_row<TQ, TKV, D>(q, k, v, ks, vs, PagedChain{table, nb, N, page, H},
-                         lengths[b], out, b, h, H, sm_scale);
+                    float* __restrict__ part, int* __restrict__ tickets,
+                    int H, int N, int page, int nb, int Ls, float sm_scale) {
+  const int h = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
+  decode_split<TQ, TKV, D>(q, k, v, ks, vs, PagedChain{table, nb, N, page, H},
+                           lengths[b], Ls, out, part, tickets, b, h, s,
+                           gridDim.z, H, sm_scale);
 }
 
 // ---------------------------------------------------------------------------
 // Prefill on CUDA cores in f32: an fp32 query over any pool, or a bf16
 // query over an fp32 pool. One block per (row*head, query tile of 32 or
-// 64), the grid's y the query tile, the longest walk first; kKC-position
-// K/V chunks stream through a two-stage cp.async ring, each 16-byte piece
-// of a stored row addressed through the block table, positions past the
-// tile's last visible key zero-filled by the copy. An fp32 chunk lands as
-// f32 tiles of rows padded by 4 floats; a bf16, int8 or int4 chunk lands
-// as its stored bytes (and scales) and is widened to such tiles (exact),
-// with the next chunk in flight. A kTY x 16 grid of threads: thread
-// (ty, tx) owns queries ty + kTY a and keys tx + 16b of the score tile,
-// read as float4 four deep along D, the online softmax in registers (a
-// row's max and sum over its 16 lanes); p goes to shared memory once per
-// chunk, and p.v gives the thread the same queries and the D/16 output
-// columns from tx D/16, read as float4.
+// 64), the grid's y the query tile, the longest walk first; the loop is
+// attend_f32's over the row's block chain.
 // ---------------------------------------------------------------------------
 
-// kBQ queries a block, 32 or 64, with 4 kBQ threads (see LaunchPrefill):
-// 4 x 4 micro-tiles; 8 x 4 with half the threads measured 6-11% slower at
-// the wave (PERF.md, section 6).
-template <typename TKV, int D, int kBQ_>
-struct PrefillF32 {
-  using L = KV<TKV>;
-  static constexpr int kBQ = kBQ_;
-  static constexpr int kThreads = 4 * kBQ;
-  // Key positions a chunk: 32 at D 128, so two blocks still share an SM.
-  static constexpr int kKC = D == 128 ? 32 : 64;
-  static constexpr int kTY = kThreads / 16;  // rows of the thread grid
-  static constexpr int kQR = kBQ / kTY;  // queries a thread: ty + kTY a
-  static constexpr int kKB = kKC / 16;  // keys a thread: tx + 16b
-  static constexpr int kCW = D / 16;    // output columns a thread
-  static constexpr int kDR = D + 4;     // padded row of Q, K, V (floats)
-  static constexpr int kPR = kKC + 16;  // padded row of p: a warp's two
-                                        // rows fall 16 banks apart
-  static constexpr bool kQuant = L::kQuant;
-  static constexpr bool kWiden = !std::is_same<TKV, float>::value;
-  static constexpr int kRowBytes =
-      D * static_cast<int>(sizeof(typename L::S)) / L::kDiv;
-  static constexpr int kPieces = kRowBytes / 16;  // 16-byte pieces a row
-  static constexpr uint32_t kQ = kBQ * kDR * 4;
-  static constexpr uint32_t kP = kBQ * kPR * 4;
-  static constexpr uint32_t kTile = kKC * kDR * 4;     // f32 K or V
-  static constexpr uint32_t kRaw = kKC * kRowBytes;    // stored K or V
-  static constexpr uint32_t kScales = 2 * kKC * 4;
-  // A stage holds a chunk as f32 tiles (fp32 pool) or as stored bytes and
-  // scales, which are widened into the two f32 tiles after p.
-  static constexpr uint32_t kStage =
-      kWiden ? 2 * kRaw + (kQuant ? kScales : 0) : 2 * kTile;
-  static constexpr size_t kSmem =
-      kQ + kP + (kWiden ? 2 * kTile : 0) + 2 * kStage;
-  static_assert(kRowBytes % 16 == 0, "whole 16-byte pieces a row");
-};
-
-// Four consecutive stored values at src widened to f32 (exact).
-template <typename TKV>
-__device__ __forceinline__ float4 widen4(const unsigned char* src) {
-  if constexpr (std::is_same<TKV, bf16>::value) {
-    const uint2 x = *reinterpret_cast<const uint2*>(src);
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&x.x));
-    const float2 b = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&x.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  } else if constexpr (std::is_same<TKV, int8_t>::value) {
-    const uint32_t x = *reinterpret_cast<const uint32_t*>(src);
-    return make_float4(sbyte(x, 0), sbyte(x, 1), sbyte(x, 2), sbyte(x, 3));
-  } else {
-    // Two bytes of packed int4: dim 2j in the low nibble, each biased by 8.
-    const uint32_t x = *reinterpret_cast<const uint16_t*>(src);
-    return make_float4(static_cast<float>(static_cast<int>(x & 15) - 8),
-                       static_cast<float>(static_cast<int>((x >> 4) & 15) - 8),
-                       static_cast<float>(static_cast<int>((x >> 8) & 15) - 8),
-                       static_cast<float>(static_cast<int>(x >> 12) - 8));
-  }
-}
-
-template <typename TQ, typename TKV, int D, int kBQ_>
-__global__ void __launch_bounds__(PrefillF32<TKV, D, kBQ_>::kThreads, 2)
+template <typename TQ, typename TKV, int D, int kBQ>
+__global__ void __launch_bounds__(TilesF32<TKV, D, kBQ>::kThreads, 2)
 paged_prefill_f32_kernel(const TQ* __restrict__ q,
                          const typename KV<TKV>::S* __restrict__ k,
                          const typename KV<TKV>::S* __restrict__ v,
@@ -196,208 +123,15 @@ paged_prefill_f32_kernel(const TQ* __restrict__ q,
                          const int* __restrict__ start, TQ* __restrict__ out,
                          int H, int T, int N, int page, int nb,
                          float sm_scale) {
-  using P = PrefillF32<TKV, D, kBQ_>;
-  constexpr bool kQuant = P::kQuant, kWiden = P::kWiden;
-  constexpr int kThreads = P::kThreads, kBQ = P::kBQ, kKC = P::kKC;
-  constexpr int kTY = P::kTY, kQR = P::kQR, kKB = P::kKB, kCW = P::kCW;
-  constexpr int kDR = P::kDR, kPR = P::kPR;
-  extern __shared__ __align__(128) unsigned char smem_pf[];
-  float* q_s = reinterpret_cast<float*>(smem_pf);
-  float* p_s = reinterpret_cast<float*>(smem_pf + P::kQ);
-  float* wide = reinterpret_cast<float*>(smem_pf + P::kQ + P::kP);
-  unsigned char* ring =
-      smem_pf + P::kQ + P::kP + (kWiden ? 2 * P::kTile : 0);
-
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int64_t qbase = static_cast<int64_t>(bh) * T * D;
   const PagedChain chain{table, nb, N, page, H};
   const int base = start[b];  // position of query 0 of this row
   // Keys any query of the tile can see; nothing past the chain exists.
   const int kv_end = min(base + min(q0 + kBQ, T), chain.capacity());
-  const int n_chunks = (kv_end + kKC - 1) / kKC;
-  const int first_qpos = base + q0;
-  const unsigned char* kb = reinterpret_cast<const unsigned char*>(k);
-  const unsigned char* vb = reinterpret_cast<const unsigned char*>(v);
-
-  // Chunk c into ring stage `slot`; positions at or past kv_end are zero.
-  auto load_chunk = [&](int c, int slot) {
-    const uint32_t st = smem_addr(ring + slot * P::kStage);
-    const uint32_t v_off = kWiden ? P::kRaw : P::kTile;
-    const int c0 = c * kKC;
-#pragma unroll 1
-    for (int e = threadIdx.x; e < kKC * P::kPieces; e += kThreads) {
-      const int r = e / P::kPieces, p = e % P::kPieces, pos = c0 + r;
-      const bool in = pos < kv_end;
-      const int64_t off =
-          in ? (chain.base(b, h, pos / page) + pos % page) * P::kRowBytes +
-                   16 * p
-             : 0;
-      const uint32_t dst =
-          st + (kWiden ? r * P::kRowBytes + 16 * p : (r * kDR + 4 * p) * 4);
-      cp_async16(dst, kb + off, in ? 16 : 0);
-      cp_async16(dst + v_off, vb + off, in ? 16 : 0);
-    }
-    if constexpr (kQuant) {
-#pragma unroll 1
-      for (int r = threadIdx.x; r < kKC; r += kThreads) {
-        const int pos = c0 + r;
-        const bool in = pos < kv_end;
-        const int64_t row = in ? chain.base(b, h, pos / page) + pos % page : 0;
-        const uint32_t dst = st + 2 * P::kRaw + 4 * r;
-        cp_async4(dst, ks + row, in ? 4 : 0);
-        cp_async4(dst + 4 * kKC, vs + row, in ? 4 : 0);
-      }
-    }
-  };
-
-  // Q once, as f32 rows padded by 4 floats (zero past T): an fp32 query by
-  // cp.async, a bf16 one widened on the way.
-  if constexpr (std::is_same<TQ, float>::value) {
-    load_rows_f32<kBQ, D, kThreads>(smem_addr(q_s), q + qbase, q0, T);
-  } else {
-    for (int e = threadIdx.x; e < kBQ * D / 8; e += kThreads) {
-      const int r = e / (D / 8), c = 8 * (e % (D / 8));
-      float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (q0 + r < T)
-        KV<bf16>::load(q + qbase + static_cast<int64_t>(q0 + r) * D, c, x);
-      float* dst = q_s + r * kDR + c;
-      *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
-      *reinterpret_cast<float4*>(dst + 4) = make_float4(x[4], x[5], x[6], x[7]);
-    }
-  }
-  cp_async_commit();
-  load_chunk(0, 0);
-  cp_async_commit();
-
-  float m[kQR], l[kQR], acc[kQR][kCW];
-#pragma unroll
-  for (int a = 0; a < kQR; ++a) {
-    m[a] = kNegInf;
-    l[a] = 0.f;
-#pragma unroll
-    for (int cc = 0; cc < kCW; ++cc) acc[a][cc] = 0.f;
-  }
-
-  for (int c = 0; c < n_chunks; ++c) {
-    const int c0 = c * kKC;
-    if (c + 1 < n_chunks) load_chunk(c + 1, (c + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // Q and chunk c have landed
-    __syncthreads();
-    const unsigned char* st = ring + (c & 1) * P::kStage;
-    const float* k_t = reinterpret_cast<const float*>(st);
-    const float* ks_c = reinterpret_cast<const float*>(st + 2 * P::kRaw);
-    const float* vs_c = ks_c + kKC;
-    if constexpr (kWiden) {
-      // Stored bytes to f32 tiles; the next chunk stays in flight.
-      constexpr int kG = D / 4;  // groups of 4 dims a row
-#pragma unroll 4
-      for (int e = threadIdx.x; e < 2 * kKC * kG; e += kThreads) {
-        const int tile = e / (kKC * kG), r = (e / kG) % kKC, g = e % kG;
-        *reinterpret_cast<float4*>(wide + tile * (P::kTile / 4) + r * kDR +
-                                   4 * g) =
-            widen4<TKV>(st + tile * P::kRaw + r * P::kRowBytes +
-                        g * (P::kRowBytes / kG));
-      }
-      __syncthreads();
-      k_t = wide;
-    }
-    const float* v_t = k_t + P::kTile / 4;
-
-    // Scores: queries ty + kTY a, keys tx + 16b.
-    float s[kQR][kKB];
-#pragma unroll
-    for (int a = 0; a < kQR; ++a)
-#pragma unroll
-      for (int j = 0; j < kKB; ++j) s[a][j] = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; d += 4) {
-      float qx[kQR][4], kx[kKB][4];
-#pragma unroll
-      for (int a = 0; a < kQR; ++a)
-        lds<4>(q_s + (ty + kTY * a) * kDR + d, qx[a]);
-#pragma unroll
-      for (int j = 0; j < kKB; ++j)
-        lds<4>(k_t + (tx + 16 * j) * kDR + d, kx[j]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-#pragma unroll
-        for (int a = 0; a < kQR; ++a)
-#pragma unroll
-          for (int j = 0; j < kKB; ++j)
-            s[a][j] = fmaf(qx[a][e], kx[j][e], s[a][j]);
-    }
-    // s = (q . k) * k_scale * sm_scale in f32, after the product, as the
-    // Pallas kernel computes it. A chunk wholly at or before the tile's
-    // first query position is causally valid for every (query, key) pair
-    // and skips the compare (the Pallas kernel's inner/frontier split);
-    // frontier and tail chunks compare positions.
-    const bool masked = c0 + kKC - 1 > first_qpos || c0 + kKC > kv_end;
-#pragma unroll
-    for (int a = 0; a < kQR; ++a) {
-      const int il = ty + kTY * a, qpos = first_qpos + il;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kKB; ++j) {
-        const int jl = tx + 16 * j, kpos = c0 + jl;
-        float x = s[a][j];
-        if constexpr (kQuant) x *= ks_c[jl];
-        x *= sm_scale;
-        if (masked && (kpos > qpos || kpos >= kv_end)) x = kNegInf;
-        s[a][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[a], row_max(mx));
-      const float alpha = expf(m[a] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kKB; ++j) {
-        const int jl = tx + 16 * j;
-        const float p = expf(s[a][j] - m_new);
-        sum += p;  // l sums the unscaled p; the v scale folds in here
-        p_s[il * kPR + jl] = kQuant ? p * vs_c[jl] : p;
-      }
-      l[a] = alpha * l[a] + row_sum(sum);
-      m[a] = m_new;
-#pragma unroll
-      for (int cc = 0; cc < kCW; ++cc) acc[a][cc] *= alpha;
-    }
-    __syncthreads();  // p complete
-
-    // p.v: queries ty + kTY a, columns tx kCW + cc. p stays f32, JAX's dot
-    // dtype for every pair this kernel takes.
-#pragma unroll
-    for (int j = 0; j < kKC; j += 4) {
-      float px[kQR][4];
-#pragma unroll
-      for (int a = 0; a < kQR; ++a)
-        lds<4>(p_s + (ty + kTY * a) * kPR + j, px[a]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float vx[kCW];
-        lds<kCW>(v_t + (j + e) * kDR + tx * kCW, vx);
-#pragma unroll
-        for (int a = 0; a < kQR; ++a)
-#pragma unroll
-          for (int cc = 0; cc < kCW; ++cc)
-            acc[a][cc] = fmaf(px[a][e], vx[cc], acc[a][cc]);
-      }
-    }
-    __syncthreads();  // stage c & 1, the widened tiles and p are free
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int a = 0; a < kQR; ++a) {
-    const int i = q0 + ty + kTY * a;
-    if (i < T) {
-      TQ* row = out + qbase + static_cast<int64_t>(i) * D + tx * kCW;
-#pragma unroll
-      for (int cc = 0; cc < kCW; ++cc) row[cc] = from_f<TQ>(acc[a][cc] / l[a]);
-    }
-  }
+  attend_f32<TQ, TKV, D, kBQ, false>(q, k, v, ks, vs, ChainRows{chain, b, h},
+                                     bh, T, q0, base + q0, kv_end, out,
+                                     nullptr, sm_scale, NoDropout{});
 }
 
 // ---------------------------------------------------------------------------
@@ -707,13 +441,15 @@ struct LaunchDecode {
   template <typename TQ, typename TKV, int D>
   static void run(const void* q, const void* k, const void* v,
                   const float* ks, const float* vs, const int* table,
-                  const int* lengths, void* out, int B, int H, int N,
-                  int page, int nb, float sm_scale, cudaStream_t stream) {
-    using S = typename KV<TKV>::S;
-    paged_decode_kernel<TQ, TKV, D><<<dim3(H, B), kDecThreads, 0, stream>>>(
-        static_cast<const TQ*>(q), static_cast<const S*>(k),
-        static_cast<const S*>(v), ks, vs, table, lengths,
-        static_cast<TQ*>(out), H, N, page, nb, sm_scale);
+                  const int* lengths, void* out, float* part, int* tickets,
+                  int B, int H, int N, int page, int nb, int S, int Ls,
+                  float sm_scale, cudaStream_t stream) {
+    using S_ = typename KV<TKV>::S;
+    paged_decode_kernel<TQ, TKV, D><<<dim3(H, B, S), kDecThreads, 0,
+                                      stream>>>(
+        static_cast<const TQ*>(q), static_cast<const S_*>(k),
+        static_cast<const S_*>(v), ks, vs, table, lengths,
+        static_cast<TQ*>(out), part, tickets, H, N, page, nb, Ls, sm_scale);
   }
 };
 
@@ -724,7 +460,7 @@ void launch_prefill_f32(const void* q, const void* k, const void* v,
                         const int* start, void* out, int B, int H, int T,
                         int N, int page, int nb, float sm_scale,
                         cudaStream_t stream) {
-  using P = PrefillF32<TKV, D, kBQ>;
+  using P = TilesF32<TKV, D, kBQ>;
   using S = typename KV<TKV>::S;
   constexpr size_t smem = P::kSmem;
   if (cudaFuncSetAttribute(paged_prefill_f32_kernel<TQ, TKV, D, kBQ>,
@@ -739,23 +475,9 @@ void launch_prefill_f32(const void* q, const void* k, const void* v,
       H, T, N, page, nb, sm_scale);
 }
 
-// SMs of the current device, read once.
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return sms;
-  }();
-  return n;
-}
-
 // A bf16 query over a bf16, int8 or int4 pool takes the tensor-core kernel;
-// an fp32 query, or any query over an fp32 pool, the f32 CUDA-core one:
-// with 64-query blocks once those fill every SM twice over (an admission
-// wave: each block then reads the row's chain for 64 queries), else with
-// 32-query blocks, so a small prefill still spreads over every SM (B 2,
-// T 256: 192 blocks; PERF.md, section 6).
+// an fp32 query, or any query over an fp32 pool, the f32 CUDA-core one,
+// with the query tile of wide_query_tiles (attend_f32.cuh).
 struct LaunchPrefill {
   template <typename TQ, typename TKV, int D>
   static void run(const void* q, const void* k, const void* v,
@@ -779,8 +501,7 @@ struct LaunchPrefill {
           static_cast<const S*>(v), ks, vs, table, start,
           static_cast<bf16*>(out), H, T, N, page, nb, sm_scale);
     } else {
-      const int64_t blocks64 = static_cast<int64_t>(B) * H * ((T + 63) / 64);
-      if (blocks64 >= 2 * sm_count())
+      if (wide_query_tiles(static_cast<int64_t>(B) * H, T))
         launch_prefill_f32<TQ, TKV, D, 64>(q, k, v, ks, vs, table, start,
                                            out, B, H, T, N, page, nb,
                                            sm_scale, stream);
@@ -798,15 +519,26 @@ struct LaunchPrefill {
 extern "C" {
 
 // Returns a cudaError_t: cudaSuccess (0) once the kernel is queued. D is
-// the logical head_dim (twice the stored bytes of a packed int4 row).
+// the logical head_dim (twice the stored bytes of a packed int4 row). S
+// splits of Ls positions each (ops/flash_decode.py decode_splits): Ls a
+// whole number of pages, at most kMaxSplitPages of them, Ls * page below
+// 2^31, S * Ls covering the chain; part a (B*H, S, D + 2) f32 scratch
+// when S > 1; tickets (B*H,) int32, zero, left zero.
 int nsb_paged_decode(const void* q, const void* k, const void* v,
                      const float* k_scale, const float* v_scale,
-                     const int* table, const int* lengths, void* out, int B,
-                     int H, int D, int N, int page, int nb, float sm_scale,
+                     const int* table, const int* lengths, void* out,
+                     float* part, int* tickets, int B, int H, int D, int N,
+                     int page, int nb, int S, int Ls, float sm_scale,
                      int q_dtype, int kv_dtype, void* stream) {
+  if (page < 1 || S < 1 || Ls < page || Ls % page != 0 ||
+      Ls / page > nsb::kMaxSplitPages ||
+      static_cast<long long>(Ls) * page >= (1ll << 31) ||
+      static_cast<long long>(S) * Ls < static_cast<long long>(nb) * page ||
+      tickets == nullptr || (S > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (!nsb::dispatch<nsb::LaunchDecode>(
           q_dtype, kv_dtype, D, q, k, v, k_scale, v_scale, table, lengths,
-          out, B, H, N, page, nb, sm_scale,
+          out, part, tickets, B, H, N, page, nb, S, Ls, sm_scale,
           static_cast<cudaStream_t>(stream)))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -32,7 +32,7 @@ SOURCES = tuple(os.path.join(_PKG, "csrc", name) for name in
                  "flash_attention.cu"))
 # Headers the sources include: part of every library's hash.
 HEADERS = tuple(os.path.join(_PKG, "csrc", name) for name in
-                ("decode_common.cuh", "mma_common.cuh"))
+                ("attend_f32.cuh", "decode_common.cuh", "mma_common.cuh"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -59,9 +59,11 @@ def _signatures() -> dict:
     p, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_uint)
     return {
-        # (q, k, v, k_scale, v_scale, table, lengths|start, out, B, H,
-        #  [T,] D, N, page, nb, sm_scale, q dtype, kv dtype, stream)
-        "nsb_paged_decode": [p] * 8 + [i] * 6 + [f, i, i, p],
+        # (q, k, v, k_scale, v_scale, table, lengths, out, part, tickets,
+        #  B, H, D, N, page, nb, S, Ls, sm_scale, q dtype, kv dtype, stream)
+        "nsb_paged_decode": [p] * 10 + [i] * 8 + [f, i, i, p],
+        # (q, k, v, k_scale, v_scale, table, start, out, B, H, T, D, N,
+        #  page, nb, sm_scale, q dtype, kv dtype, stream)
         "nsb_paged_prefill": [p] * 8 + [i] * 7 + [f, i, i, p],
         # (q, k, v, k_scale, v_scale, lengths, out, B, H, D, L, sm_scale,
         #  q dtype, kv dtype, stream)

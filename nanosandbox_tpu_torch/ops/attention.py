@@ -10,10 +10,10 @@ by ops/_build.py):
   flash_attention_bwd_dkv    (K7)  <- _flash_bwd_tiles_kernel(with_dq=False)
 
 On bfloat16 all four run on the tensor cores (mma.sync); on float32
-they run on CUDA cores in exact f32 products (K5 and K7 through a
-cp.async ring of float4-read tiles after a Drow pre-pass, K4 and K6 on
-64 x 64 tiles with synchronous loads). The input type alone picks the
-design.
+they run on CUDA cores in exact f32 products, on cp.async-staged tiles
+read as float4 (K4 through the fp32 paged prefill's tile loop,
+csrc/attend_f32.cuh; K5 and K7 after a Drow pre-pass; K6 with its Drow
+computed in the kernel). The input type alone picks the design.
 
 ``BWD_IMPL`` picks the backward strategy, as in the JAX file: 'fused'
 (K5, one pass; dQ summed across key tiles with f32 atomicAdd, so its
@@ -307,7 +307,8 @@ def flash_attention_fwd(q, k, v, *, sm_scale: float | None = None,
                         dropout_rate: float = 0.0, seed=None,
                         hash_seq_len: int | None = None):
     """K4: (o in q's dtype, lse (B, H, T) f32) for causal attention over
-    (B, H, T, D). CUDA tensors launch flash_fwd_kernel; CPU tensors get
+    (B, H, T, D). CUDA tensors launch flash_fwd_mma_kernel (bf16) or
+    flash_fwd_f32_kernel (fp32); CPU tensors get
     the plain version."""
     if not q.is_cuda:
         return torch_flash_attention(q, k, v, sm_scale=sm_scale,

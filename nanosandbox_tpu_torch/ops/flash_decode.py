@@ -52,11 +52,17 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.uint8: 3}
 _Q_DTYPES = (torch.float32, torch.bfloat16)
 
+# The paged decode's split rule (decode_splits): blocks a launch aims at
+# per SM, and the pages one split may hold (csrc/decode_common.cuh
+# kMaxSplitPages).
+SPLIT_BLOCKS_PER_SM = 2
+MAX_SPLIT_PAGES = 256
+
 __all__ = ["flash_decode", "flash_decode_paged", "flash_prefill_paged",
            "torch_decode_attention", "torch_decode_attention_paged",
            "torch_prefill_attention_paged", "quantize_kv_rows",
-           "quantize_kv_rows_int4", "unpack_int4", "launches",
-           "plain_cuda_calls", "reset_counts"]
+           "quantize_kv_rows_int4", "unpack_int4", "decode_splits",
+           "launches", "plain_cuda_calls", "reset_counts"]
 
 launches = {f"{fn}/{mode}": 0
             for fn in ("flash_decode", "flash_decode_paged",
@@ -293,6 +299,56 @@ def torch_prefill_attention_paged(q, k, v, block_table, start, *,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+def decode_splits(B: int, H: int, nb: int, page: int,
+                  sms: int) -> tuple[int, int]:
+    """(S, Ls): the paged decode kernel splits each row's chain of nb
+    pages into S splits of Ls positions, Ls a whole number of pages, so
+    that the B*H*S blocks reach SPLIT_BLOCKS_PER_SM blocks on each of the
+    ``sms`` SMs wherever nb pages allow (a split holds at least a page),
+    as evenly as whole pages allow. The splits cover [0, nb*page), each
+    position once; a split holds at most MAX_SPLIT_PAGES pages, and Ls *
+    page stays below 2^31 (the kernel's page division). The lengths play
+    no part: the grid is fixed before the device is asked anything."""
+    if min(B, H, page, sms) < 1 or nb < 0:
+        raise ValueError(f"decode_splits({B}, {H}, {nb}, {page}, {sms}): "
+                         "B, H, page and sms must be >= 1, nb >= 0")
+    if page * page >= 1 << 31:
+        raise ValueError(f"page {page}: the paged decode kernel takes pages "
+                         "of fewer than 46341 positions")
+    want = max(1, min(-(-SPLIT_BLOCKS_PER_SM * sms // (B * H)), nb))
+    pps = max(1, -(-nb // want))                  # pages a split
+    while pps > 1 and -(-nb // pps) < want:
+        pps -= 1
+    pps = min(pps, MAX_SPLIT_PAGES, ((1 << 31) - 1) // (page * page))
+    return max(1, -(-nb // pps)), pps * page
+
+
+_sm_counts: dict = {}
+_tickets: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """SMs of a CUDA device, read once per device."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+def _ticket_counters(device: torch.device, n: int) -> torch.Tensor:
+    """The paged decode's (row, head) ticket counters: int32 zeros, one
+    buffer per device, made anew when a call has more rows. The kernel
+    leaves them zero, so calls on one stream share them; calls on two
+    streams at once must not."""
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _tickets[device] = torch.zeros(n, dtype=torch.int32,
+                                             device=device)
+    return buf
+
+
 def _check_kernel_args(tensors, vec, name: str) -> None:
     """Everything the kernels do not take raises here, before a pointer
     leaves Python: devices, index dtypes, head_dim, contiguity, and
@@ -364,7 +420,9 @@ def flash_decode_paged(q, k, v, block_table, lengths, *,
     """Single-query attention over a BLOCK-PAGED pool: q (B, H, D)
     attends to positions [0, lengths[b]) of row b's chain. Returns
     (B, H, D) in q's dtype, zeros for a row with lengths[b] <= 0. CUDA
-    tensors launch paged_decode_kernel."""
+    tensors launch paged_decode_kernel, one launch over a grid of
+    (head, row, split) blocks (decode_splits), with a (B*H, S, D + 2) f32
+    scratch for the splits' states when S > 1."""
     mode = _kv_mode(q, k, v, k_scale, v_scale)
     if not q.is_cuda:
         return torch_decode_attention_paged(q, k, v, block_table, lengths,
@@ -387,12 +445,18 @@ def flash_decode_paged(q, k, v, block_table, lengths, *,
                        lengths, "lengths")
     if sm_scale is None:
         sm_scale = D ** -0.5
+    nb = block_table.shape[1]
+    S, Ls = decode_splits(B, H, nb, page, _sm_count(q.device))
     out = torch.empty_like(q)
+    # Each split's (acc[D], m, l), merged by the last split to finish.
+    part = (torch.empty(B * H * S * (D + 2), dtype=torch.float32,
+                        device=q.device) if S > 1 else None)
     err = _build.library().nsb_paged_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), block_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, H, D, N, page, block_table.shape[1],
-        float(sm_scale), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype],
+        out.data_ptr(), _ptr(part),
+        _ticket_counters(q.device, B * H).data_ptr(), B, H, D, N, page, nb,
+        S, Ls, float(sm_scale), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged decode")
     launches[f"flash_decode_paged/{mode}"] += 1

@@ -43,7 +43,7 @@ def _card() -> str:
 def _kind(name: str) -> str:
     for kernel in ("paged_decode_kernel", "paged_prefill_mma_kernel",
                    "paged_prefill_f32_kernel", "flash_decode_kernel",
-                   "flash_fwd_mma_kernel", "flash_fwd_kernel"):
+                   "flash_fwd_mma_kernel", "flash_fwd_f32_kernel"):
         if kernel in name:
             return kernel
     low = name.lower()

@@ -347,6 +347,41 @@ def test_scale_checks_raise():
                          v_scale=s)
 
 
+def test_paged_decode_split_rule():
+    """The paged decode kernel's host-side split rule: S splits of Ls
+    positions, Ls a whole number of pages, cover every position of the
+    chain exactly once; B*H*S reaches SPLIT_BLOCKS_PER_SM blocks an SM
+    wherever the chain has pages enough; the kernel's page division and
+    page list stay in range; and the rule takes no lengths."""
+    import inspect
+
+    assert list(inspect.signature(tfd.decode_splits).parameters) == [
+        "B", "H", "nb", "page", "sms"]
+    for B in (1, 2, 3, 8, 16, 64):
+        for H in (1, 4, 12, 25):
+            for nb in (0, 1, 2, 5, 7, 16, 64, 300, 1000):
+                for page in (1, 3, 16, 64, 4096):
+                    for sms in (1, 7, 132):
+                        S, Ls = tfd.decode_splits(B, H, nb, page, sms)
+                        cap = nb * page
+                        assert S >= 1 and Ls >= page and Ls % page == 0
+                        assert Ls // page <= tfd.MAX_SPLIT_PAGES
+                        assert Ls * page < 2 ** 31
+                        # [s Ls, min((s+1) Ls, cap)) partition [0, cap).
+                        assert S * Ls >= cap and (S - 1) * Ls < max(cap, 1)
+                        if B * H * nb >= tfd.SPLIT_BLOCKS_PER_SM * sms:
+                            assert B * H * S >= tfd.SPLIT_BLOCKS_PER_SM * sms
+                        if cap <= 2000:
+                            seen = [p for s in range(S)
+                                    for p in range(s * Ls,
+                                                   min((s + 1) * Ls, cap))]
+                            assert seen == list(range(cap))
+    # The serving shape on 132 SMs: 8 slots x 12 heads, 64 pages of 16.
+    assert tfd.decode_splits(8, 12, 64, 16, 132) == (3, 352)
+    with pytest.raises(ValueError, match="page"):
+        tfd.decode_splits(1, 1, 4, 1 << 16, 132)
+
+
 # ------------------------------------------------------ caches and model
 
 @pytest.fixture(scope="module")

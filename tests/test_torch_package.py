@@ -212,9 +212,10 @@ def test_chip_smoke_build_report_parsers():
         assert chip_smoke.kernel_label(mangled) == label
         assert label in chip_smoke.TENSOR_CORE_INSTANCES
     assert len(chip_smoke.TENSOR_CORE_INSTANCES) == 21
-    # The f32 kernels on CUDA cores: held to 0 spills, no HMMA asked. The
-    # fp32 K5/K7 and K6, and K1 in each of its f32 (query, pool) pairs
-    # with 32- and 64-query blocks.
+    # The kernels on CUDA cores: held to 0 spills, no HMMA asked. The fp32
+    # K4 with 32- and 64-query blocks, the fp32 K5/K7 and K6, K1 in each
+    # of its f32 (query, pool) pairs with 32- and 64-query blocks, and K2
+    # in every (query, pool) pair (a repeated bf16 is a substitution).
     pf = ("_ZN3nsb51_GLOBAL__N__737eb1aa_18_paged_attention_cu_2415576824"
           "paged_prefill_f32_kernel")
     labels = {
@@ -234,11 +235,23 @@ def test_chip_smoke_build_report_parsers():
         "iiiiif": "paged_prefill_f32_kernel<q=fp32, kv=int4, D=64, BQ=64>",
         pf + "I13__nv_bfloat16fLi64ELi32EEEvPKT_PKNS_2KVIT0_E1SESB_PKfSD_"
         "PKiSF_PS3_iiiiif":
-        "paged_prefill_f32_kernel<q=bf16, kv=fp32, D=64, BQ=32>"}
+        "paged_prefill_f32_kernel<q=bf16, kv=fp32, D=64, BQ=32>",
+        "_ZN12_GLOBAL__N_120flash_fwd_f32_kernelILi128ELi32EEEvPKfS1_S1_PfS2_"
+        "iifNS_11DropoutArgsE": "flash_fwd_f32_kernel<D=128, BQ=32>",
+        "_ZN12_GLOBAL__N_120flash_fwd_f32_kernelILi64ELi64EEEvPKfS1_S1_PfS2_"
+        "iifNS_11DropoutArgsE": "flash_fwd_f32_kernel<D=64, BQ=64>",
+        "_ZN3nsb12_GLOBAL__N_119paged_decode_kernelI13__nv_bfloat16S2_Li64EE"
+        "EvPKT_": "paged_decode_kernel<q=bf16, kv=bf16, D=64>",
+        "_ZN3nsb12_GLOBAL__N_119paged_decode_kernelIfNS_4Int4ELi32EEEvPKT_":
+        "paged_decode_kernel<q=fp32, kv=int4, D=32>",
+        "_ZN3nsb12_GLOBAL__N_119paged_decode_kernelI13__nv_bfloat16aLi128EEE"
+        "vPKT_": "paged_decode_kernel<q=bf16, kv=int8, D=128>",
+        "_ZN3nsb12_GLOBAL__N_119paged_decode_kernelIffLi64EEEvPKT_":
+        "paged_decode_kernel<q=fp32, kv=fp32, D=64>"}
     for mangled, label in labels.items():
         assert chip_smoke.kernel_label(mangled) == label
         assert label in chip_smoke.CUDA_CORE_INSTANCES
-    assert len(chip_smoke.CUDA_CORE_INSTANCES) == 39
+    assert len(chip_smoke.CUDA_CORE_INSTANCES) == 69
 
 
 def test_chip_smoke_kernel_names_are_kernels_in_the_sources():
