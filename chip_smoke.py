@@ -1,10 +1,10 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases=2,3,7]
+    python3 chip_smoke.py [--phases=2,3,7,13]
 
 Phases (each prints what it found; any failure exits non-zero; --phases
-runs phase 1 and the kernel phases named, 2, 3 or 7, and prints no
-result line):
+runs phase 1 and the phases named, 2, 3, 7 or 13, and prints no result
+line):
 
   1. device   torch / CUDA versions, the card's name and power limit;
   2. build    the CUDA kernels from nanosandbox_tpu_torch/csrc (into
@@ -69,7 +69,11 @@ result line):
               bound, its plain version and F.scaled_dot_product_attention
               (is_causal; forward, and forward+backward minus forward,
               which the fused backward and the split pair K6 + K7 are
-              printed against);
+              printed against); then ring attention's blocks (B 1, H 12,
+              T 1024, D 64): K4 non-causal with its lse, K5 and K6 + K7
+              non-causal given a random lse cotangent, bf16 and fp32,
+              without and with dropout, at the same limits, timed beside
+              their bound and non-causal SDPA;
   8. train parity  GPT-2 124M in fp32 (TF32 off) on a 2 x 1024 batch,
               without dropout and with dropout 0.1 (masks from alike-
               seeded generators): loss and every parameter gradient with
@@ -101,7 +105,18 @@ result line):
  12. sampler  `python -m nanosandbox_tpu_torch.sample`'s main() on phase
               9's checkpoint (K4 prefill, K3 decode steps launched), then
               fp32 greedy generate() over 32 tokens on the same weights
-              equal to a no-cache argmax loop.
+              equal to a no-cache argmax loop;
+ 13. sequence parallel  four ranks of `python -m nanosandbox_tpu_torch.
+              train configs/train_longcontext_8k.py` (mesh_sp 4, ring
+              attention) on one card, gloo with host-staged exchanges,
+              against one process at mesh_sp 1 on the same batches: bf16
+              at full width (step 0 with the split backward, then a
+              resume with the fused one), fp32 at 2 layers in both
+              layouts; every step's loss and grad norm, and the q/k/v
+              rows of the attention projections' gradients at steps 0-1,
+              within the stated limits, every rank's launch counts equal
+              to the ring schedule, no plain version on the card; step
+              time, tok/s, peak memory and exchange costs.
 
 The last line is {"ok": true, "device": {...}}; the line before it is a
 JSON object with one entry per kernel instance timed (K1 twice for each
@@ -198,14 +213,22 @@ CUDA_CORE_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_kv_kernel",
                      "flash_bwd_dq_f32_kernel", "paged_prefill_f32_kernel",
                      "paged_decode_kernel")
 HEAD_DIMS = (32, 64, 128)
+# The flash-attention kernels (K4-K7): each has a causal and a non-causal
+# instance (ring attention's off-diagonal blocks).
+FLASH_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_mma_kernel",
+                 "flash_bwd_dq_mma_kernel", "flash_fwd_f32_kernel",
+                 "flash_bwd_kv_kernel", "flash_bwd_dq_f32_kernel")
 # The template instances phase 2 must find, as kernel_label names them:
-# K4, K6 (bf16), K5 and K7 (bf16, with and without dQ), and K1 under a
-# bf16 query over each bf16, int8 and int4 pool.
+# K4, K6 (bf16; with and without reading dlse), K5 and K7 (bf16, with and
+# without dQ), each causal and not, and K1 under a bf16 query over each
+# bf16, int8 and int4 pool.
 TENSOR_CORE_INSTANCES = tuple(sorted(
-    [f"flash_fwd_mma_kernel<D={d}>" for d in HEAD_DIMS]
-    + [f"flash_bwd_dq_mma_kernel<D={d}>" for d in HEAD_DIMS]
-    + [f"flash_bwd_mma_kernel<D={d}, dq={w}>" for d in HEAD_DIMS
-       for w in (0, 1)]
+    [f"flash_fwd_mma_kernel<D={d}, causal={c}>" for d in HEAD_DIMS
+     for c in (0, 1)]
+    + [f"flash_bwd_dq_mma_kernel<D={d}, dlse={w}, causal={c}>"
+       for d in HEAD_DIMS for w in (0, 1) for c in (0, 1)]
+    + [f"flash_bwd_mma_kernel<D={d}, dq={w}, causal={c}>" for d in HEAD_DIMS
+       for w in (0, 1) for c in (0, 1)]
     + [f"paged_prefill_mma_kernel<{kv}, D={d}>" for d in HEAD_DIMS
        for kv in ("bf16", "int8", "int4")]))
 # The (query, pool) pairs of the f32 K1: an fp32 query over every pool,
@@ -213,14 +236,17 @@ TENSOR_CORE_INSTANCES = tuple(sorted(
 F32_PREFILL_PAIRS = (("fp32", "fp32"), ("fp32", "bf16"), ("fp32", "int8"),
                      ("fp32", "int4"), ("bf16", "fp32"))
 # The fp32 K4 and K1 in each of its f32 pairs, with 32- and 64-query
-# blocks (BQ); the fp32 K5 and K7 (with and without dQ), the fp32 K6; K2
+# blocks (BQ; the non-causal fp32 K4 with 32 only); the fp32 K5 and K7
+# (with and without dQ), the fp32 K6 (the fp32 K4-K7 causal and not); K2
 # in every (query, pool) pair.
 CUDA_CORE_INSTANCES = tuple(sorted(
-    [f"flash_fwd_f32_kernel<D={d}, BQ={bq}>" for d in HEAD_DIMS
+    [f"flash_fwd_f32_kernel<D={d}, BQ={bq}, causal=1>" for d in HEAD_DIMS
      for bq in (32, 64)]
-    + [f"flash_bwd_kv_kernel<D={d}, dq={w}>" for d in HEAD_DIMS
-       for w in (0, 1)]
-    + [f"flash_bwd_dq_f32_kernel<D={d}>" for d in HEAD_DIMS]
+    + [f"flash_fwd_f32_kernel<D={d}, BQ=32, causal=0>" for d in HEAD_DIMS]
+    + [f"flash_bwd_kv_kernel<D={d}, dq={w}, causal={c}>" for d in HEAD_DIMS
+       for w in (0, 1) for c in (0, 1)]
+    + [f"flash_bwd_dq_f32_kernel<D={d}, causal={c}>" for d in HEAD_DIMS
+       for c in (0, 1)]
     + [f"paged_prefill_f32_kernel<q={qd}, kv={kv}, D={d}, BQ={bq}>"
        for d in HEAD_DIMS for qd, kv in F32_PREFILL_PAIRS
        for bq in (32, 64)]
@@ -281,11 +307,14 @@ def kernel_label(mangled: str) -> str:
     (the first integer argument), the pool's storage type of the paged
     prefill (bf16, int8 = signed char, int4 = nsb::Int4) and, for the f32
     one, the query's type and the queries a block (its second integer),
-    and whether the backward computes dQ (its bool argument)."""
+    whether the backward computes dQ or the bf16 K6 reads dlse (its first
+    bool argument) and whether a flash kernel is causal (its last)."""
     name = next(n for n in TENSOR_CORE_KERNELS + CUDA_CORE_KERNELS
                 if n in mangled)
     args = mangled.split(name, 1)[1]
     head_dim = re.search(r"Li(\d+)E", args).group(1)
+    bools = re.findall(r"Lb([01])E", args)
+    causal = f", causal={bools[-1]}" if name in FLASH_KERNELS else ""
     if name == "paged_prefill_f32_kernel":
         qd, kv = mangled_pair(args)
         bq = re.findall(r"Li(\d+)E", args)[1]
@@ -295,16 +324,17 @@ def kernel_label(mangled: str) -> str:
         return f"{name}<q={qd}, kv={kv}, D={head_dim}>"
     if name == "flash_fwd_f32_kernel":
         bq = re.findall(r"Li(\d+)E", args)[1]
-        return f"{name}<D={head_dim}, BQ={bq}>"
+        return f"{name}<D={head_dim}, BQ={bq}{causal}>"
     if name == "paged_prefill_mma_kernel":
         kv = ("bf16" if args.startswith("I13__nv_bfloat16") else
               "int8" if args.startswith("Ia") else
               "int4" if "4Int4" in args.split("Li", 1)[0] else "?")
         return f"{name}<{kv}, D={head_dim}>"
     if name in ("flash_bwd_mma_kernel", "flash_bwd_kv_kernel"):
-        dq = re.search(r"Lb([01])E", args).group(1)
-        return f"{name}<D={head_dim}, dq={dq}>"
-    return f"{name}<D={head_dim}>"
+        return f"{name}<D={head_dim}, dq={bools[0]}{causal}>"
+    if name == "flash_bwd_dq_mma_kernel":
+        return f"{name}<D={head_dim}, dlse={bools[0]}{causal}>"
+    return f"{name}<D={head_dim}{causal}>"
 
 
 def check_build(_build) -> None:
@@ -918,17 +948,21 @@ def errors(got, ref) -> dict:
 
 
 def check_attention(at, name, q, k, v, do, rate=0.0, seed=None,
-                    zero_ref=()) -> dict:
+                    zero_ref=(), causal=True, dlse=None,
+                    hash_seq_len=None) -> dict:
     """K4, K5 and K6 + K7 on one case against the plain versions on the
-    same inputs (the backward's: the kernel forward's o and lse). Returns
-    the errors of each output; fails past TRAIN_TOL. zero_ref names the
+    same inputs (the backward's: the kernel forward's o and lse), causal
+    or not, the backward given the lse cotangent dlse if any. Returns the
+    errors of each output; fails past TRAIN_TOL. zero_ref names the
     gradients ("dq", "dk") that are 0 in exact arithmetic (T = 1: one key,
     so the softmax is 1 whatever the score and dS = 0): both sides then
     hold rounding noise of the f32 row term, the relative limits have no
     scale, and those outputs are held to the absolute limit alone."""
-    kw = dict(dropout_rate=rate, seed=seed)
-    o, lse = at.flash_attention_fwd(q, k, v, **kw)
-    ro, rlse = at.torch_flash_attention(q, k, v, **kw)
+    fwd_kw = dict(dropout_rate=rate, seed=seed, causal=causal,
+                  hash_seq_len=hash_seq_len)
+    kw = dict(fwd_kw, dlse=dlse)
+    o, lse = at.flash_attention_fwd(q, k, v, **fwd_kw)
+    ro, rlse = at.torch_flash_attention(q, k, v, **fwd_kw)
     ref = at.torch_flash_attention_bwd(q, k, v, o, lse, do, **kw)
     if at.BWD_IMPL != "fused":
         fail(f"BWD_IMPL is {at.BWD_IMPL!r}, phase 7 checks 'fused' as K5")
@@ -944,7 +978,9 @@ def check_attention(at, name, q, k, v, do, rate=0.0, seed=None,
     for impl, got in (("fused", fused), ("split", split)):
         for g_name, g, r in zip(("dq", "dk", "dv"), got, ref):
             errs[f"{impl}_{g_name}"] = errors(g, r)
-    name += f" {str(q.dtype)[6:]}" + (f" dropout {rate}" if rate else "")
+    name += (f" {str(q.dtype)[6:]}" + ("" if causal else " non-causal")
+             + ("" if dlse is None else " dlse")
+             + (f" dropout {rate}" if rate else ""))
     tol = TRAIN_TOL[q.dtype]
     for key, e in errs.items():
         lim = tol["o"] if key in ("o", "lse") else tol["g"]
@@ -962,15 +998,18 @@ def check_attention(at, name, q, k, v, do, rate=0.0, seed=None,
     return {"case": name, **errs}
 
 
-def train_bound(kind, B, H, T, D, es) -> tuple[int, int]:
+def train_bound(kind, B, H, T, D, es, causal=True,
+                dlse=False) -> tuple[int, int]:
     """(bytes, flops) one call must move and do: each input read once,
-    each output written once; causal, so T(T+1)/2 score elements per
-    (row, head), 2 D flops per element per product."""
+    each output written once (lse, and a backward's dlse, 4 bytes a row);
+    causal, T(T+1)/2 score elements per (row, head), else T^2; 2 D flops
+    per element per product."""
     bhtd, bht = B * H * T * D, B * H * T
-    pairs = B * H * T * (T + 1) // 2
+    pairs = B * H * T * (T + 1) // 2 if causal else B * H * T * T
     tensors, products = {"fwd": (4, 2), "fused": (8, 5), "dq": (6, 3),
                          "dkv": (7, 4)}[kind]
-    return tensors * bhtd * es + 4 * bht, 2 * D * pairs * products
+    stats = 4 * bht * (2 if dlse and kind != "fwd" else 1)
+    return tensors * bhtd * es + stats, 2 * D * pairs * products
 
 
 def check_train_kernels(at) -> dict:
@@ -1047,21 +1086,92 @@ def check_train_kernels(at) -> dict:
     return cases
 
 
-def time_train_kernels(at, inputs, kinds) -> dict:
+# Ring attention's block shape at phase 13's run: B 1, H 12, a zigzag
+# half-chunk of the 8192-token sequence over 4 ranks (1024), D 64.
+RING_BLOCK = (1, 12, 1024, 64)
+RING_T = 8192
+
+
+def check_ring_blocks(at) -> dict:
+    """The instances ring attention adds (ops/ring_attention.py): K4
+    non-causal with its lse, K5 and K6 + K7 non-causal given a random lse
+    cotangent, in bf16 and fp32 (TF32 off), without and with dropout 0.1
+    (seed words of a late-half query block against an early-half key
+    block, hashed over the global 8192 positions), at RING_BLOCK. Each
+    is held to its plain version at TRAIN_TOL and timed beside its bound
+    (T^2 score elements), its plain version and SDPA (is_causal=False,
+    no dropout, no lse cotangent). Returns the timed cases keyed
+    "<kind>[_fp32][_dropout]", with the max |err| of their check."""
+    rng = np.random.default_rng(SEED + 13)
+    B, H, T, D = RING_BLOCK
+    shape = f"B={B} H={H} T={T} D={D} non-causal"
+    cases, rows = {}, []
+    outputs = {"fwd": ("o", "lse"), "fused": ("fused_dq", "fused_dk",
+                                              "fused_dv"),
+               "dq": ("split_dq",), "dkv": ("split_dk", "split_dv")}
+    for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
+        for rate in (0.0, 0.1):
+            inputs = qkv(rng, B, H, T, D, dtype)
+            dlse = torch.from_numpy(0.1 * rng.standard_normal(
+                (B, H, T), dtype=np.float32)).to(DEVICE)
+            # The seed words on the card, as the ring makes them: a host
+            # list would be copied in every timed call, behind the stream.
+            seed = torch.tensor([SEED, 0, 0, 5 * T, 2 * T], device=DEVICE)
+            kw = dict(rate=rate, seed=seed, hash_seq_len=RING_T)
+            row = check_attention(at, shape, *inputs, causal=False,
+                                  dlse=dlse, **kw)
+            rows.append(row)
+            timed = time_train_kernels(at, inputs, ("fwd", "fused", "dq",
+                                                    "dkv"),
+                                       causal=False, dlse=dlse, **kw)
+            for kind, c in timed.items():
+                c["max_abs_err"] = max(row[n]["err"] for n in outputs[kind])
+                c["shape"] = shape + (" dlse" if kind != "fwd" else "")
+                cases[kind + tag + ("_dropout" if rate else "")] = c
+    print("  ring blocks, each output: max |err| of max |ref| "
+          "(||err|| / ||ref||)")
+    for r in rows:
+        print(f"  {r['case']}:\n    " + ", ".join(
+            f"{k} {e['err']:.1e} of {e['ref']:.1e} ({e['norm']:.1e})"
+            for k, e in r.items() if k != "case"))
+    print(f"  times at {shape} (backward with dlse; SDPA: non-causal, no "
+          "dropout, no lse cotangent):\n  kernel              ms        "
+          "bound_ms  %bound  plain_ms  library_ms")
+    for kind, c in cases.items():
+        lib = ("-" if c["library_ms"] is None
+               else f"{c['library_ms']:.5f}")
+        print(f"  {kind:<18} {c['ms']:.5f}  {c['bound_ms']:.5f}  "
+              f"{100 * c['bound_ms'] / c['ms']:5.1f}%  {c['plain_ms']:.5f}  "
+              f"{lib}  [{c['bound_by']}]")
+    for dt, tag in (("bf16", ""), ("fp32", "_fp32")):
+        split = cases[f"dq{tag}"]["ms"] + cases[f"dkv{tag}"]["ms"]
+        fused = cases["fused" + tag]
+        print(f"  {dt} ring-block backward: fused {fused['ms']:.5f} ms, "
+              f"split (K6 + K7) {split:.5f} ms, SDPA backward (dQ, dK, dV; "
+              f"no dlse) {fused['library_ms']:.5f} ms")
+    return cases
+
+
+def time_train_kernels(at, inputs, kinds, causal=True, dlse=None, rate=0.0,
+                       seed=None, hash_seq_len=None) -> dict:
     """Each kind's ("fwd", "fused", "dq", "dkv") time on (q, k, v, dO),
+    causal or not (the backward with dlse if given, dropout at ``rate``),
     beside its bound, its plain version and F.scaled_dot_product_attention
-    (is_causal; forward, and forward+backward minus forward; none for dQ
-    or dK/dV alone)."""
+    (is_causal as the kernels, no dropout and no lse cotangent; forward,
+    and forward+backward minus forward; none for dQ or dK/dV alone)."""
     import torch.nn.functional as F
 
     q, k, v, do = inputs
     B, H, T, D = q.shape
     dtype = q.dtype
-    o, lse = at.flash_attention_fwd(q, k, v)
+    fkw = dict(causal=causal, dropout_rate=rate, seed=seed,
+               hash_seq_len=hash_seq_len)
+    bkw = dict(fkw, dlse=dlse)
+    o, lse = at.flash_attention_fwd(q, k, v, **fkw)
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
 
     def sdpa():
-        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
 
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa(), (qg, kg, vg), do)
@@ -1070,19 +1180,24 @@ def time_train_kernels(at, inputs, kinds) -> dict:
         sdpa_fwd = time_ms(sdpa)
     sdpa_bwd = time_ms(sdpa_fwd_bwd) - sdpa_fwd
     plain_bwd = time_ms(lambda: at.torch_flash_attention_bwd(q, k, v, o, lse,
-                                                             do))
-    runs = {"fwd": (lambda: at.flash_attention_fwd(q, k, v),
-                    lambda: at.torch_flash_attention(q, k, v), sdpa_fwd),
-            "fused": (lambda: at.flash_attention_bwd(q, k, v, o, lse, do),
+                                                             do, **bkw))
+    runs = {"fwd": (lambda: at.flash_attention_fwd(q, k, v, **fkw),
+                    lambda: at.torch_flash_attention(q, k, v, **fkw),
+                    sdpa_fwd),
+            "fused": (lambda: at.flash_attention_bwd(q, k, v, o, lse, do,
+                                                     **bkw),
                       None, sdpa_bwd),
-            "dq": (lambda: at.flash_attention_bwd_dq(q, k, v, o, lse, do),
+            "dq": (lambda: at.flash_attention_bwd_dq(q, k, v, o, lse, do,
+                                                     **bkw),
                    None, None),
-            "dkv": (lambda: at.flash_attention_bwd_dkv(q, k, v, o, lse, do),
+            "dkv": (lambda: at.flash_attention_bwd_dkv(q, k, v, o, lse, do,
+                                                       **bkw),
                     None, None)}
     cases = {}
     for kind in kinds:
         fn, plain, library = runs[kind]
-        nbytes, flops = train_bound(kind, B, H, T, D, q.element_size())
+        nbytes, flops = train_bound(kind, B, H, T, D, q.element_size(),
+                                    causal, dlse is not None)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
         with torch.no_grad():
             plain_ms = time_ms(plain) if plain is not None else plain_bwd
@@ -1498,8 +1613,322 @@ def check_sampler(train_dir: str) -> dict:
     return run
 
 
-# Phases that stand alone, for a partial run (--phases=2,3,7).
-STANDALONE_PHASES = (2, 3, 7)
+# ---------------------------------------------------------------------------
+# phase 13: the sequence-parallel trainer (ring attention)
+# ---------------------------------------------------------------------------
+
+SP_CONFIG = "configs/train_longcontext_8k.py"
+SP_RANKS = 4
+# The cuts of the 8k config on one card (PERF.md section 4): the byte
+# corpus (prepare_bytes), remat off (not ported), batch 1, no
+# accumulation, a few steps with warmup 1 (so the parameters move), eval
+# of one batch a split at the end only.
+SP_CUTS = ["--remat=False", "--batch_size=1",
+           "--gradient_accumulation_steps=1", "--warmup_iters=1",
+           "--eval_interval=0", "--eval_iters=1", "--log_interval=1",
+           "--tensorboard=False", "--run_name=r"]
+# bf16 limits, relative, on every step's loss and grad norm: the ring
+# and one process take the same bf16 products but sum in another order,
+# the ring rounds each block's output to bf16 before its f32 merge (as
+# JAX's ring does), and K5's dQ atomics make each run's sums differ from
+# the last. Read on an H100 (PERF.md section 6) in ten sound runs of
+# steps 0-3: losses differed by at most 3.0e-5 and grad norms by at most
+# 2.6e-4, and one process's own step-2 loss moved by 1.6e-5 from run to
+# run. The limits give those readings 3x and more headroom. Neither sees
+# a wrong dq or dk at initialisation (the q/k/v rows below do).
+SP_BF16_LOSS_REL = 1e-4
+SP_BF16_NORM_REL = 1e-3
+# The q, k and v rows of each layer's attention-projection gradient
+# (RANK_MAIN), relative, at steps 0 and 1 only: step 0's update has lr 0
+# (the warmup starts at 0), so both steps take their gradients at the
+# same parameters in both runs. From step 2 on they do not: AdamW's first
+# update moves every weight by about lr whatever the size of its
+# gradient, so q and k weights whose gradients are mostly rounding take
+# different signs in the two runs (q/k rows 12-45% apart at steps 2-4 on
+# an H100, PERF.md section 6). Read there at steps 0-1: at most 1.9e-4
+# in five sound runs; the limit gives them 5x headroom, and a bf16 K6
+# that drops the lse cotangent reads 7.4e-3 at step 0.
+SP_BF16_QKV_REL = 1e-3
+SP_QKV_STEPS = 2
+# A rank runs `python -m nanosandbox_tpu_torch.train` through runpy (what
+# -m does), with the backward strategy set first (the module constant
+# BWD_IMPL; there is no flag), and reports what only its process knows:
+# among it, before every update, the norms of the q, k and v rows of each
+# layer's packed attention projection's gradient (clipped; summed over
+# the ranks), where the attention backward's dq, dk and dv land first.
+# At initialisation attention is near uniform, dq and dk are small, and
+# neither moves the loss or the global grad norm visibly.
+RANK_MAIN = r"""
+import json, os, runpy, sys
+import torch
+from torch.optim.optimizer import register_optimizer_step_pre_hook
+from nanosandbox_tpu_torch.ops import attention as at
+from nanosandbox_tpu_torch.ops import flash_decode as fd
+from nanosandbox_tpu_torch.parallel import distributed
+at.BWD_IMPL = sys.argv.pop(1)
+qkv = []
+def record(opt, args, kwargs):
+    norms = []
+    for group in opt.param_groups:
+        for p in group["params"]:
+            g = p.grad
+            if g is not None and g.dim() == 2 and g.shape[0] == 3 * g.shape[1]:
+                norms += [x.float().norm() for x in g.chunk(3)]
+    qkv.append(torch.stack(norms).tolist())
+register_optimizer_step_pre_hook(record)
+runpy.run_module("nanosandbox_tpu_torch.train", run_name="__main__",
+                 alter_sys=True)
+print("RANK_REPORT " + json.dumps({
+    "rank": int(os.environ.get("PROCESS_ID", "0")),
+    "qkv_grad_norms": qkv,
+    "launches": at.launches,
+    "plain_cuda_calls": {**at.plain_cuda_calls, **fd.plain_cuda_calls},
+    "exchanged": distributed.exchanged,
+    "peak_memory_gb": (torch.cuda.max_memory_allocated() / 2**30
+                       if torch.cuda.is_available() else 0.0)}))
+"""
+
+
+def run_ranks(n: int, bwd: str, flags: list, log_prefix: str,
+              timeout: int = 600) -> list:
+    """Start ``n`` processes of RANK_MAIN as the ranks of one run (n = 1:
+    one process, no group) on 127.0.0.1 and a free port, wait for all,
+    and return their RANK_REPORTs, rank 0 first. A failed rank or a hang
+    past ``timeout`` seconds fails the phase (every rank is killed)."""
+    import os
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs = []
+    for rank in range(n):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("COORDINATOR_ADDRESS", "NUM_PROCESSES",
+                            "PROCESS_ID")}
+        if n > 1:
+            env.update(COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       NUM_PROCESSES=str(n), PROCESS_ID=str(rank))
+        env["PYTHONPATH"] = os.getcwd()
+        log = open(f"{log_prefix}.rank{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", RANK_MAIN, bwd, *flags], env=env,
+            stdout=log, stderr=subprocess.STDOUT), log))
+    t0 = time.monotonic()
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, timeout - (time.monotonic() - t0)))
+    except subprocess.TimeoutExpired:
+        fail(f"{log_prefix}: a rank hung past {timeout} s")
+    finally:
+        for p, log in procs:
+            p.kill()
+            p.wait()
+            log.close()
+    reports = []
+    for rank, (p, _) in enumerate(procs):
+        with open(f"{log_prefix}.rank{rank}.log") as f:
+            text = f.read()
+        if p.returncode != 0:
+            fail(f"{log_prefix}: rank {rank} exited {p.returncode}:\n"
+                 f"{text[-3000:]}")
+        line = next(ln for ln in text.splitlines()
+                    if ln.startswith("RANK_REPORT "))
+        report = json.loads(line[len("RANK_REPORT "):])
+        report["backend_line"] = next(
+            (ln for ln in text.splitlines() if "] backend " in ln), "")
+        reports.append(report)
+    return sorted(reports, key=lambda r: r["rank"])
+
+
+def read_steps(out_dir: str) -> dict:
+    """{step: (loss, grad_norm, tokens/s)} from rank 0's metrics.jsonl."""
+    import os
+
+    steps = {}
+    with open(os.path.join(out_dir, "runs", "r", "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if "train/loss" in rec:
+                steps[rec["step"]] = (rec["train/loss"],
+                                      rec["train/grad_norm"],
+                                      rec["perf/tokens_per_sec"])
+    return steps
+
+
+def ring_schedule(layout: str, cp: int, rank: int) -> dict:
+    """Block calls of one ring attention call on ``rank``, by launch key
+    (ops/attention.py): the JAX package's schedules (ring_attention.py
+    :199-227 contiguous, :295-326 zigzag). Forward: "fwd" (causal) and
+    "fwd/full". Backward: the same blocks, each given its lse cotangent
+    but for a block whose lse reaches no merge: rank 0's first diagonal
+    block (zigzag's early half, or contiguous rank 0's only block)."""
+    if layout == "zigzag":
+        full, causal = 2 * cp - 1, 2
+    else:
+        full, causal = rank, 1
+    return {"fwd": causal, "fwd/full": full,
+            "bwd/dlse": causal - (rank == 0), "bwd": int(rank == 0),
+            "bwd/full/dlse": full}
+
+
+def expected_launches(layout, cp, rank, layers, steps, evals, bwd) -> dict:
+    """The launch counts a rank's run must show: per layer, a ring call
+    per training step and eval batch forward, one backward per step."""
+    sched = ring_schedule(layout, cp, rank)
+    modes = ("fused",) if bwd == "fused" else ("dq", "dkv")
+    want = {"flash_attention_fwd": layers * (steps + evals) * sched["fwd"],
+            "flash_attention_fwd/full":
+                layers * (steps + evals) * sched["fwd/full"]}
+    for mode in modes:
+        base = f"flash_attention_bwd_{mode}"
+        want[base] = layers * steps * sched["bwd"]
+        want[base + "/dlse"] = layers * steps * sched["bwd/dlse"]
+        want[base + "/full/dlse"] = layers * steps * sched["bwd/full/dlse"]
+    return want
+
+
+def check_sp_trainer(smi: str, tmp: str) -> dict:
+    """Phase 13: SP_RANKS ranks train SP_CONFIG (mesh_sp = SP_RANKS, ring
+    attention) on the byte corpus, on one card (gloo, host-staged
+    exchanges): bf16 at full width, step 0 with the split backward (K6 +
+    K7) and a resume to 4 with the fused one (K5); fp32 at 2 layers, 2
+    steps, zigzag (fused) and contiguous (split). Each against the same
+    config run by one process at mesh_sp 1 (the causal kernels over the
+    whole 8192-token row) on the same batches: every step's loss and grad
+    norm, and at steps 0 and 1 (SP_QKV_STEPS) the q, k and v rows of
+    each layer's attention-projection gradient (RANK_MAIN), where a wrong
+    dq or dk shows; bf16 within SP_BF16_LOSS_REL, SP_BF16_NORM_REL and
+    SP_BF16_QKV_REL; fp32 within 1e-5, 1e-4 and 1e-4 relative. Every rank's launch counts must equal the ring schedule
+    (expected_launches), and no plain version may run on the card."""
+    import os
+
+    from nanosandbox_tpu_torch.config import load_config
+
+    prepare_bytes(tmp, "english_prose_bytes")
+    base = [SP_CONFIG, f"--data_dir={tmp}", "--dataset=english_prose_bytes",
+            f"--device={DEVICE}", *SP_CUTS]
+    results = {}
+
+    def run(name, n, bwd, flags):
+        out_dir = os.path.join(tmp, name)
+        t0 = time.monotonic()
+        reports = run_ranks(n, bwd, base + [f"--out_dir={out_dir}", *flags],
+                            os.path.join(tmp, name))
+        return reports, out_dir, time.monotonic() - t0
+
+    cases = (
+        ("bf16", [], "zigzag", (("split", 1), ("fused", 4))),
+        ("fp32 zigzag", ["--compute_dtype=float32", "--n_layer=2"],
+         "zigzag", (("fused", 2),)),
+        ("fp32 contiguous", ["--compute_dtype=float32", "--n_layer=2",
+                             "--ring_layout=contiguous"],
+         "contiguous", (("split", 2),)))
+    for name, extra, layout, legs in cases:
+        tag = name.replace(" ", "_")
+        c = load_config(base + extra)
+        single, single_dir, single_s = run(
+            f"{tag}_single", 1, "fused",
+            extra + ["--mesh_sp=1", f"--max_iters={legs[-1][1]}",
+                     f"--lr_decay_iters={legs[-1][1]}"])
+        sp_reports, prev, sp_s, sp_qkv = [], 0, 0.0, []
+        for i, (bwd, upto) in enumerate(legs):
+            reports, sp_dir, secs = run(
+                f"{tag}_sp", SP_RANKS, bwd,
+                extra + [f"--max_iters={upto}",
+                         f"--lr_decay_iters={legs[-1][1]}"]
+                + (["--init_from=resume"] if i else []))
+            sp_s += secs
+            for rep_ in reports:
+                want = expected_launches(layout, SP_RANKS, rep_["rank"],
+                                         c.n_layer, upto - prev, 2, bwd)
+                got = {k: v for k, v in rep_["launches"].items() if v}
+                if got != {k: v for k, v in want.items() if v}:
+                    fail(f"phase 13 {name} ({bwd} backward): rank "
+                         f"{rep_['rank']} launched {got}, the ring schedule "
+                         f"needs {want}")
+                if any(rep_["plain_cuda_calls"].values()):
+                    fail(f"phase 13 {name}: plain versions ran on the card "
+                         f"on rank {rep_['rank']}: "
+                         f"{rep_['plain_cuda_calls']}")
+            sp_reports.append((bwd, upto - prev, reports))
+            sp_qkv += reports[0]["qkv_grad_norms"]
+            prev = upto
+        got, ref = read_steps(sp_dir), read_steps(single_dir)
+        if sorted(got) != sorted(ref) or len(got) != legs[-1][1]:
+            fail(f"phase 13 {name}: steps {sorted(got)} vs {sorted(ref)}")
+        rel_loss = [abs(got[i][0] - ref[i][0]) / abs(ref[i][0])
+                    for i in sorted(got)]
+        rel_norm = [abs(got[i][1] - ref[i][1]) / abs(ref[i][1])
+                    for i in sorted(got)]
+        worst_loss, worst_norm = max(rel_loss), max(rel_norm)
+        ref_qkv = np.asarray(single[0]["qkv_grad_norms"])
+        if (np.shape(sp_qkv) != ref_qkv.shape
+                or ref_qkv.shape[1] != 3 * c.n_layer):
+            fail(f"phase 13 {name}: q/k/v gradient norms of shape "
+                 f"{np.shape(sp_qkv)} vs {ref_qkv.shape}")
+        # (steps, layers, q/k/v): the worst relative difference by step.
+        rel_qkv = (np.abs(np.asarray(sp_qkv) - ref_qkv) / ref_qkv).reshape(
+            len(ref_qkv), c.n_layer, 3)
+        worst_qkv = float(rel_qkv[:SP_QKV_STEPS].max())
+        print(f"  {name} ({c.n_layer}L/{c.n_head}H/{c.n_embd}d, block "
+              f"{c.block_size}, vocab {c.vocab_size}, batch {c.batch_size}, "
+              f"{c.compute_dtype}, {layout}): losses SP "
+              f"{[round(got[i][0], 6) for i in sorted(got)]} vs one process "
+              f"{[round(ref[i][0], 6) for i in sorted(ref)]}; rel by step: "
+              f"losses {[f'{x:.1e}' for x in rel_loss]}, grad norms "
+              f"{[f'{x:.1e}' for x in rel_norm]}, q/k/v gradient rows (worst "
+              f"layer; checked at steps 0-{SP_QKV_STEPS - 1}) q "
+              f"{[f'{x:.1e}' for x in rel_qkv[:, :, 0].max(1)]} k "
+              f"{[f'{x:.1e}' for x in rel_qkv[:, :, 1].max(1)]} v "
+              f"{[f'{x:.1e}' for x in rel_qkv[:, :, 2].max(1)]}; wall SP "
+              f"{sp_s:.1f} s, one process {single_s:.1f} s")
+        for bwd, n_steps, reports in sp_reports:
+            for rep_ in reports:
+                x = rep_["exchanged"]
+                # A training step rotates K/V forward and their gradients
+                # back; each of the 2 eval batches rotates forward only.
+                step = 2 / (2 * n_steps + 2)
+                print(f"    {rep_['backend_line'].strip()}; {bwd} backward, "
+                      f"{n_steps} steps: launches "
+                      f"{ {k: v for k, v in rep_['launches'].items() if v} }"
+                      f"; peak {rep_['peak_memory_gb']:.2f} GiB; a training "
+                      f"step exchanges: ring "
+                      f"{step * x['ring_bytes'] / 2**20:.1f} MiB in "
+                      f"{step * x['ring_seconds']:.3f} s, all-reduce "
+                      f"{x['allreduce_bytes'] / n_steps / 2**20:.1f} MiB in "
+                      f"{x['allreduce_seconds'] / n_steps:.3f} s "
+                      "(host-staged gloo on one card)")
+        lim_loss, lim_norm, lim_qkv = (
+            (SP_BF16_LOSS_REL, SP_BF16_NORM_REL, SP_BF16_QKV_REL)
+            if c.compute_dtype == "bfloat16" else (1e-5, 1e-4, 1e-4))
+        if not (worst_loss <= lim_loss and worst_norm <= lim_norm
+                and worst_qkv <= lim_qkv):
+            fail(f"phase 13 {name}: SP vs one process: losses {worst_loss:.2e}"
+                 f" (limit {lim_loss:.0e}), grad norms {worst_norm:.2e} "
+                 f"(limit {lim_norm:.0e}), q/k/v gradient rows "
+                 f"{worst_qkv:.2e} (limit {lim_qkv:.0e}) relative")
+        # The first logged step carries each process's first-call setup.
+        later = [i for i in sorted(got) if i > 0]
+        toks = float(np.median([got[i][2] for i in later]))
+        ref_toks = float(np.median([ref[i][2] for i in later]))
+        print(f"    [{smi}] step {1e3 * c.tokens_per_iter / toks:.1f} ms, "
+              f"{toks:,.0f} tok/s global (median after step 0); one "
+              f"process {1e3 * c.tokens_per_iter / ref_toks:.1f} ms, "
+              f"{ref_toks:,.0f} tok/s")
+        results[name] = sp_reports
+    return results
+
+
+def sp_launches(results: dict, name: str, key: str) -> int:
+    """A launch key's count summed over phase 13 run ``name``'s ranks."""
+    return sum(rep_["launches"].get(key, 0)
+               for _, _, reports in results[name]
+               for rep_ in reports)
+
+
+# Phases that stand alone, for a partial run (--phases=2,3,7,13).
+STANDALONE_PHASES = (2, 3, 7, 13)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1539,7 +1968,10 @@ def main(argv: list[str] | None = None) -> int:
                 (3, "kernels vs plain versions (124M shapes)",
                  lambda: check_kernels(fd)),
                 (7, "training kernels vs plain versions",
-                 lambda: check_train_kernels(at))):
+                 lambda: (check_train_kernels(at), check_ring_blocks(at))),
+                (13, "the sequence-parallel trainer (4 ranks, one card)",
+                 lambda: (_build.library(), check_sp_trainer(
+                     smi, tempfile.mkdtemp(prefix="chip_smoke_sp_"))))):
             if phase in only:
                 print(f"== phase {phase}: {title}")
                 fn()
@@ -1567,6 +1999,7 @@ def main(argv: list[str] | None = None) -> int:
 
     print("== phase 7: training kernels vs plain versions")
     train_cases = check_train_kernels(at)
+    ring_cases = check_ring_blocks(at)
 
     print("== phase 8: fp32 124M loss and gradients, kernels vs plain")
     parity_launches = check_train_parity(at)
@@ -1602,6 +2035,10 @@ def main(argv: list[str] | None = None) -> int:
 
         print("== phase 12: the sampler on phase 9's checkpoint")
         check_sampler(tmp)
+
+        print("== phase 13: the sequence-parallel trainer (4 ranks, one "
+              "card)")
+        sp = check_sp_trainer(smi, tmp)
 
     def entry(name, source, replaces, launches, case):
         return {"name": name, "route": "cuda",
@@ -1700,6 +2137,44 @@ def main(argv: list[str] | None = None) -> int:
         entry("flash_bwd_kv_kernel<float, with_dq=false>", flash,
               "attention.py:556", parity_launches["flash_attention_bwd_dkv"],
               train_cases["dkv_fp32"])]
+    # The non-causal instances with an lse cotangent (ring attention's
+    # off-diagonal blocks), timed at phase 7's ring block, with the
+    # launches of phase 13's sequence-parallel runs (every rank): bf16 K5
+    # in the first run, K6 + K7 in the resume; fp32 K5 in the zigzag run,
+    # K6 + K7 in the contiguous one.
+    bf, zz, ct = "bf16", "fp32 zigzag", "fp32 contiguous"
+    kernels += [
+        entry("flash_fwd_mma_kernel<causal=0>", flash, "attention.py:180",
+              sp_launches(sp, bf, "flash_attention_fwd/full"),
+              ring_cases["fwd"]),
+        entry("flash_bwd_mma_kernel<causal=0, dlse>", flash,
+              "attention.py:556",
+              sp_launches(sp, bf, "flash_attention_bwd_fused/full/dlse"),
+              ring_cases["fused"]),
+        entry("flash_bwd_dq_mma_kernel<causal=0, dlse>", flash,
+              "attention.py:475",
+              sp_launches(sp, bf, "flash_attention_bwd_dq/full/dlse"),
+              ring_cases["dq"]),
+        entry("flash_bwd_mma_kernel<with_dq=false, causal=0, dlse>", flash,
+              "attention.py:556",
+              sp_launches(sp, bf, "flash_attention_bwd_dkv/full/dlse"),
+              ring_cases["dkv"]),
+        entry("flash_fwd_f32_kernel<causal=0>", flash, "attention.py:180",
+              sp_launches(sp, zz, "flash_attention_fwd/full")
+              + sp_launches(sp, ct, "flash_attention_fwd/full"),
+              ring_cases["fwd_fp32"]),
+        entry("flash_bwd_kv_kernel<float, causal=0, dlse>", flash,
+              "attention.py:556",
+              sp_launches(sp, zz, "flash_attention_bwd_fused/full/dlse"),
+              ring_cases["fused_fp32"]),
+        entry("flash_bwd_dq_f32_kernel<causal=0, dlse>", flash,
+              "attention.py:475",
+              sp_launches(sp, ct, "flash_attention_bwd_dq/full/dlse"),
+              ring_cases["dq_fp32"]),
+        entry("flash_bwd_kv_kernel<float, with_dq=false, causal=0, dlse>",
+              flash, "attention.py:556",
+              sp_launches(sp, ct, "flash_attention_bwd_dkv/full/dlse"),
+              ring_cases["dkv_fp32"])]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

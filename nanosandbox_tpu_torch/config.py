@@ -85,7 +85,8 @@ class TrainConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     # One of ATTENTION_IMPLS. 'auto' and 'pallas' are the flash kernels;
-    # 'ring' is not ported yet; the other JAX names select nothing here.
+    # 'ring' is ring attention under mesh_sp > 1 (the flash kernels at
+    # mesh_sp 1); the other JAX names select nothing here.
     attention_impl: str = "auto"
     # A TPU operand layout of the flash backward; the port has one path.
     attention_stat_layout: str = "compact"
@@ -95,7 +96,7 @@ class TrainConfig:
     # logits; -1 = resolve_loss_chunk_size() at Trainer construction.
     loss_chunk_size: int = -1
 
-    # -- parallelism (not ported yet beyond one device) --
+    # -- parallelism (the seq axis is ported; data, fsdp, model are not) --
     mesh_dp: int = -1
     mesh_fsdp: int = 1
     mesh_tp: int = 1
@@ -105,7 +106,7 @@ class TrainConfig:
     shard_params: bool = False
     mesh_slices: int = 0
 
-    # -- distributed bootstrap (not ported yet) --
+    # -- distributed bootstrap (parallel/distributed.py) --
     coordinator_address: str = ""
     num_processes: int = 0
     process_id: int = -1
@@ -147,27 +148,46 @@ class TrainConfig:
 # one way (the flash kernels on CUDA, their plain versions on the CPU):
 # 'auto' and 'pallas' name that; 'xla', 'pallas_interpret' and
 # 'pallas_jax' name JAX implementations and are accepted but inert (the
-# trainer says so once); 'ring' is not ported yet.
+# trainer says so once); 'ring' is ring attention over the seq axis.
 ATTENTION_IMPLS = ("auto", "pallas", "xla", "pallas_interpret", "pallas_jax",
                    "ring")
+RING_LAYOUTS = ("zigzag", "contiguous")
+# The ring's block is the flash kernels' lse instance on CUDA and the
+# plain block on the CPU, whatever this says: every JAX name is accepted
+# and inert, as attention_impl is (ops/ring_attention.py).
+RING_BLOCK_IMPLS = ("auto", "pallas", "xla", "pallas_interpret")
 
 
 def check_ported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for every field set to something this
-    port does not run yet (ROADMAP.md queue A lists them)."""
+    port does not run yet (ROADMAP.md queue A lists them), and the JAX
+    trainer's ValueErrors for a sequence-parallel config it refuses."""
     if cfg.attention_impl not in ATTENTION_IMPLS:
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r} "
                          f"(expected one of {ATTENTION_IMPLS})")
+    if cfg.ring_layout not in RING_LAYOUTS:
+        raise ValueError(f"unknown ring layout: {cfg.ring_layout!r}")
+    if cfg.ring_block_impl not in RING_BLOCK_IMPLS:
+        raise ValueError(f"unknown ring block impl: {cfg.ring_block_impl!r}")
+    if cfg.mesh_sp > 1 and cfg.attention_impl != "ring":
+        raise ValueError(
+            "mesh_sp > 1 requires attention_impl='ring' (other impls "
+            "compute attention over the local sequence shard only)")
+    if cfg.mesh_sp > 1 and cfg.block_size % cfg.mesh_sp:
+        raise ValueError(
+            f"block_size {cfg.block_size} must be divisible by the seq "
+            f"mesh axis ({cfg.mesh_sp})")
     unported = []
-    for name in ("mesh_fsdp", "mesh_tp", "mesh_sp", "mesh_dp"):
+    for name in ("mesh_fsdp", "mesh_tp", "mesh_dp"):
         if getattr(cfg, name) > 1:
             unported.append(f"{name}={getattr(cfg, name)} (multi-device)")
     if cfg.mesh_slices:
         unported.append(f"mesh_slices={cfg.mesh_slices} (multi-slice)")
     if cfg.shard_params:
         unported.append("shard_params=True (FSDP)")
-    if cfg.attention_impl == "ring":
-        unported.append("attention_impl='ring' (ring attention)")
+    if cfg.mesh_sp > 1 and cfg.dropout > 0.0:
+        unported.append(f"dropout={cfg.dropout} under mesh_sp > 1 (residual "
+                        "dropout keyed per rank)")
     if cfg.init_from.startswith(("gpt2", "hf:")):
         unported.append(f"init_from={cfg.init_from!r} (pretrained weights)")
     if cfg.memory_report:
@@ -175,8 +195,6 @@ def check_ported(cfg: TrainConfig) -> None:
     if cfg.profile_steps:
         unported.append(f"profile_steps={cfg.profile_steps!r} (profiler "
                         "window)")
-    if cfg.coordinator_address or cfg.num_processes > 1:
-        unported.append("coordinator_address/num_processes (multi-process)")
     if unported:
         raise NotImplementedError(
             "not ported yet to nanosandbox_tpu_torch: " + ", ".join(unported))
@@ -292,6 +310,11 @@ class GPTConfig:
     compute_dtype: str = "bfloat16"
     remat: bool = False
     remat_policy: str = "save_attention"
+    # 'ring' runs ring attention when the model is given a mesh whose seq
+    # axis is larger than 1 (models/gpt.py); every other value, and a
+    # ring without such a mesh, is causal attention over the whole row.
+    attention_impl: str = "auto"
+    ring_layout: str = "zigzag"
 
     def __post_init__(self) -> None:
         for name in ("compute_dtype", "param_dtype"):
@@ -328,7 +351,9 @@ class GPTConfig:
                    dropout=cfg.dropout, bias=cfg.bias,
                    param_dtype=cfg.param_dtype,
                    compute_dtype=cfg.compute_dtype, remat=cfg.remat,
-                   remat_policy=cfg.remat_policy)
+                   remat_policy=cfg.remat_policy,
+                   attention_impl=cfg.attention_impl,
+                   ring_layout=cfg.ring_layout)
 
 
 def resolve_device(device: str | torch.device = "auto") -> torch.device:

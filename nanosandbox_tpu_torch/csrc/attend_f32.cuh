@@ -4,8 +4,9 @@
 // forward (K4, flash_fwd_f32_kernel in flash_attention.cu). Both are
 // causal attention of a block of queries over the keys at or before them;
 // they differ only in where a key position's row lives (an addressing
-// policy: a block-table chain for K1, contiguous rows for K4) and in two
-// compile-time options (dropout on the p.v sum and the lse store, K4's).
+// policy: a block-table chain for K1, contiguous rows for K4) and in
+// compile-time options (dropout on the p.v sum and the lse store, K4's;
+// K4 also has a non-causal instance, for ring attention's blocks).
 //
 // Every product is an exact f32 fmaf: an fp32 query is held to 1e-5 of
 // the plain version, which bf16 or TF32 products would not meet. What
@@ -124,9 +125,11 @@ struct NoDropout {
 // The loop of one block: queries q0 .. q0 + kBQ - 1 of (row, head) bh,
 // over q and out of (B*H, T, D), the first at key position first_qpos;
 // keys [0, kv_end) are visible to some query of the block. Writes out and,
-// with kLse, lse (B*H, T) in natural log.
+// with kLse, lse (B*H, T) in natural log. Without kCausal (the fp32 K4's
+// non-causal ring blocks) every query sees every key of [0, kv_end), and
+// only the tail tile compares positions.
 template <typename TQ, typename TKV, int D, int kBQ, bool kLse,
-          typename Rows, typename Drop>
+          bool kCausal = true, typename Rows, typename Drop>
 __device__ __forceinline__ void attend_f32(
     const TQ* __restrict__ q, const typename KV<TKV>::S* __restrict__ k,
     const typename KV<TKV>::S* __restrict__ v, const float* __restrict__ ks,
@@ -262,7 +265,8 @@ __device__ __forceinline__ void attend_f32(
     // first query position is causally valid for every (query, key) pair
     // and skips the compare (the Pallas kernels' inner/frontier split);
     // diagonal and tail tiles compare positions.
-    const bool masked = c0 + kKC - 1 > first_qpos || c0 + kKC > kv_end;
+    const bool masked =
+        (kCausal && c0 + kKC - 1 > first_qpos) || c0 + kKC > kv_end;
 #pragma unroll
     for (int a = 0; a < kQR; ++a) {
       const int il = ty + kTY * a, qpos = first_qpos + il;
@@ -273,7 +277,8 @@ __device__ __forceinline__ void attend_f32(
         float x = s[a][j];
         if constexpr (kQuant) x *= ks_c[jl];
         x *= sm_scale;
-        if (masked && (kpos > qpos || kpos >= kv_end)) x = kNegInf;
+        if (masked && ((kCausal && kpos > qpos) || kpos >= kv_end))
+          x = kNegInf;
         s[a][j] = x;
         mx = fmaxf(mx, x);
       }

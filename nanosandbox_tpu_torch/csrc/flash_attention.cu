@@ -1,5 +1,5 @@
-// Causal flash attention for training, forward and backward, for Hopper
-// (sm_90a).
+// Flash attention for training, forward and backward, for Hopper (sm_90a):
+// causal, and non-causal for ring attention's off-diagonal blocks.
 //
 // Each kernel is the CUDA counterpart of a Pallas kernel in
 // nanosandbox_tpu/ops/attention.py. Two designs, chosen by the input type
@@ -89,6 +89,17 @@
 // and dQ stays in registers to one store. sm_scale multiplies each score
 // after its product and dK, dQ once at the end.
 //
+// Every kernel has a causal and a non-causal instance (template argument
+// kCausal; the Pallas kernels' `causal`): ring attention (ops/
+// ring_attention.py) calls flash_attention_lse with causal=False for the
+// blocks whose keys lie wholly before its queries. Non-causal, every
+// query tile walks every key tile, and only the tail tile compares
+// positions (the port masks ragged tails, so a ring chunk need not be a
+// tile multiple). The backwards take an optional lse cotangent dlse
+// (B*H, T) f32 (a pointer of its own, null for none), which folds into
+// the row term: ds = p (dp - (Drow - dlse)), in the Drow pre-pass of K5
+// and K7 and where K6 computes Drow.
+//
 // Blocks run in no order, where the Pallas kernels walk a sequential grid
 // axis and keep state in VMEM across it (the forward's online softmax,
 // K5's resident dQ). So K4 and K6 give one block a query tile and loop
@@ -117,7 +128,7 @@
 // by those positions.
 //
 // Layouts (row-major, contiguous): q, k, v, o, dO, dK, dV (B*H, T, D) in
-// float or bf16 (all one type); lse and K5's and K7's Drow scratch
+// float or bf16 (all one type); lse, dlse and K5's and K7's Drow scratch
 // (B*H, T) f32; the fused dQ buffer (B*H, T, D) f32; seed (5,) int64 words
 // holding uint32 values. Every entry point returns cudaGetLastError()
 // after its launches; the Python wrapper raises when it is not
@@ -234,7 +245,7 @@ __device__ __forceinline__ Dropout make_dropout(const DropoutArgs& a, int bh,
 // grid's y the query tile, the longest walks first.
 // ---------------------------------------------------------------------------
 
-template <int D, int kBQ>
+template <int D, int kBQ, bool kCausal>
 __global__ void __launch_bounds__(TilesF32<float, D, kBQ>::kThreads, 2)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
@@ -242,9 +253,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      DropoutArgs da) {
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
-  attend_f32<float, float, D, kBQ, true>(
+  attend_f32<float, float, D, kBQ, true, kCausal>(
       q, k, v, nullptr, nullptr, ContigRows{static_cast<int64_t>(bh) * Tn},
-      bh, Tn, q0, q0, min(q0 + kBQ, Tn), o, lse, sm_scale,
+      bh, Tn, q0, q0, kCausal ? min(q0 + kBQ, Tn) : Tn, o, lse, sm_scale,
       make_dropout(da, bh, H));
 }
 
@@ -287,7 +298,7 @@ struct BwdF32 {
       sizeof(float) * (2 * kKV + kStages * kStage + 2 * kTile * kPR);
 };
 
-template <int D, bool kWithDq>
+template <int D, bool kWithDq, bool kCausal>
 __global__ void __launch_bounds__(kThreads, BwdF32<D>::kMinBlocks)
 flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
@@ -314,7 +325,7 @@ flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t base = static_cast<int64_t>(bh) * Tn * D;
   const float* lse_bh = lse + static_cast<int64_t>(bh) * Tn;
   const float* drow_bh = drow + static_cast<int64_t>(bh) * Tn;
-  const int qt0 = k0 / kBQ, n_qt = (Tn + kBQ - 1) / kBQ;
+  const int qt0 = kCausal ? k0 / kBQ : 0, n_qt = (Tn + kBQ - 1) / kBQ;
 
   auto load_stage = [&](int qt, int slot) {
     const uint32_t st = smem_addr(ring + slot * P::kStage);
@@ -404,7 +415,7 @@ flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int b = 0; b < kQB; ++b) {
         const int il = tx + 16 * b, i = q0 + il;
-        const bool valid = i < Tn && j <= i;
+        const bool valid = i < Tn && (kCausal ? j <= i : j < Tn);
         const float p = valid ? expf(s[a][b] * sm_scale - lse_s[il]) : 0.f;
         float pv = p, dpv = dp[a][b];
         if (dr.on) {
@@ -538,7 +549,7 @@ struct BwdDqF32 {
       sizeof(float) * (2 * kQT + 2 * kTile + kStages * 2 * kQT + kTile * kSR);
 };
 
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(BwdDqF32<D>::kThreadsT,
                                   BwdDqF32<D>::kMinBlocks)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q,
@@ -546,7 +557,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ v,
                         const float* __restrict__ o,
                         const float* __restrict__ dout,
-                        const float* __restrict__ lse, float* __restrict__ dq,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ dlse, float* __restrict__ dq,
                         int H, int Tn, float sm_scale, DropoutArgs da) {
   using P = BwdDqF32<D>;
   constexpr int kDR = P::kDR, kSR = P::kSR, kTY = P::kTY, kQR = P::kQR;
@@ -564,7 +576,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   const int bh = blockIdx.y, q0 = qt * kTile;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int64_t base = static_cast<int64_t>(bh) * Tn * D;
-  const int n_kt = (min(q0 + kTile, Tn) + kTile - 1) / kTile;
+  const int n_kt = ((kCausal ? min(q0 + kTile, Tn) : Tn) + kTile - 1) / kTile;
 
   auto load_kv = [&](int kt, int slot) {
     const uint32_t st = smem_addr(ring + slot * 2 * P::kQT);
@@ -604,6 +616,9 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int o = kTPR / 2; o > 0; o >>= 1)
       acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    // The lse cotangent folds into the row term: ds = p (dp - (Drow - dlse)).
+    if (dlse != nullptr && q0 + r < Tn)
+      acc -= dlse[static_cast<int64_t>(bh) * Tn + q0 + r];
     if (threadIdx.x % kTPR == 0) drow_s[r] = acc;
   }
 
@@ -673,7 +688,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
     // Made here, so its registers are free outside this phase.
     const Dropout dr = make_dropout(da, bh, H);
     // Only a tile that crosses the diagonal or the tail compares positions.
-    const bool masked = k0 + kTile - 1 > q0 || k0 + kTile > Tn;
+    const bool masked =
+        (kCausal && k0 + kTile - 1 > q0) || k0 + kTile > Tn;
 #pragma unroll
     for (int a = 0; a < kQR; ++a) {
       const int il = ty + kTY * a, i = q0 + il;
@@ -681,7 +697,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
         const int jl = tx + 16 * b, j = k0 + jl;
-        const bool valid = i < Tn && !(masked && j > i);
+        const bool valid =
+            i < Tn && !(masked && (kCausal ? j > i : j >= Tn));
         const float p = valid ? expf(s[a][b] * sm_scale - lse_i) : 0.f;
         float dpv = dp[a][b];
         if (dr.on) dpv = dr.keep(i, j) ? dpv * dr.scale : 0.f;
@@ -749,7 +766,7 @@ constexpr size_t fwd_mma_smem() {
 }
 
 // Two blocks per SM: at most 128 registers a thread for 8 warps.
-template <int D, int kWarps>
+template <int D, int kWarps, bool kCausal>
 __global__ void __launch_bounds__(kWarps * 32, 2)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -769,7 +786,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int64_t base = static_cast<int64_t>(bh) * Tn * D;
   const Dropout dr = make_dropout(da, bh, H);
-  const int n_kt = (min(q0 + kBM, Tn) + kKeys - 1) / kKeys;
+  const int n_kt = ((kCausal ? min(q0 + kBM, Tn) : Tn) + kKeys - 1) / kKeys;
 
   load_rows<kBM, D, kThreadsT>(q_s, q + base, q0, Tn);
   cp_async_commit();
@@ -809,7 +826,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const uint32_t k_s = kv_s + (kt & 1) * 2 * kTileB, v_s = k_s + kTileB;
     // Warp-uniform: a tile whose keys all lie past the warp's rows, or a
     // warp whose rows all lie past T, adds nothing.
-    if (k0 <= r_lo + 15 && r_lo < Tn) {
+    if ((!kCausal || k0 <= r_lo + 15) && r_lo < Tn) {
       float s[kNT][4];
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt)
@@ -827,7 +844,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       // Only a tile that crosses the warp's diagonal or the tail compares
       // positions.
-      const bool masked = k0 + kKeys - 1 > r_lo || k0 + kKeys > Tn;
+      const bool masked =
+          (kCausal && k0 + kKeys - 1 > r_lo) || k0 + kKeys > Tn;
       float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt)
@@ -836,8 +854,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int j = k0 + 8 * nt + 2 * t + e;
           float x0 = s[nt][e] * scale2, x1 = s[nt][2 + e] * scale2;
           if (masked) {
-            if (j > i0 || j >= Tn) x0 = kNegInf;
-            if (j > i1 || j >= Tn) x1 = kNegInf;
+            if ((kCausal && j > i0) || j >= Tn) x0 = kNegInf;
+            if ((kCausal && j > i1) || j >= Tn) x1 = kNegInf;
           }
           s[nt][e] = x0;
           s[nt][2 + e] = x1;
@@ -920,13 +938,15 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // longest walk) first. K7 is K5's kernel without its dQ half.
 // ---------------------------------------------------------------------------
 
-// drow[r] = sum_d dO[r, d] o[r, d] in f32 over rows r < n_rows of
-// (n_rows, D); D / 8 lanes per row in bf16 (D / 4 in f32), 16 bytes of
-// each tensor a lane. The pre-pass of the key-parallel K5 and K7, in both
-// designs.
+// drow[r] = sum_d dO[r, d] o[r, d] - dlse[r] in f32 over rows r < n_rows
+// of (n_rows, D) (no dlse: none subtracted); D / 8 lanes per row in bf16
+// (D / 4 in f32), 16 bytes of each tensor a lane. The pre-pass of the
+// key-parallel K5 and K7, in both designs: the lse cotangent folds into
+// the row term, ds = p (dp - (Drow - dlse)).
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_drow_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                      const float* __restrict__ dlse,
                       float* __restrict__ drow, int64_t n_rows) {
   constexpr int kVN = Vec<T>::kN, kL = D / kVN;
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
@@ -943,7 +963,8 @@ flash_bwd_drow_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 #pragma unroll
   for (int off = kL / 2; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (part == 0 && row < n_rows) drow[row] = acc;
+  if (part == 0 && row < n_rows)
+    drow[row] = dlse != nullptr ? acc - dlse[row] : acc;
 }
 
 template <int D, bool kWithDq>
@@ -964,7 +985,7 @@ struct BwdMma {
 // kWithDq: K5 (dQ summed by atomics into dq_acc); without it K7, which
 // writes dK and dV alone, touches no memory two blocks share, and gives
 // the same bits on every run.
-template <int D, bool kWithDq>
+template <int D, bool kWithDq, bool kCausal>
 __global__ void __launch_bounds__(128)
 flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
@@ -995,7 +1016,7 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float* lse_bh = lse + static_cast<int64_t>(bh) * Tn;
   const float* drow_bh = drow + static_cast<int64_t>(bh) * Tn;
   const Dropout dr = make_dropout(da, bh, H);
-  const int qt0 = k0 / kBQ, n_qt = (Tn + kBQ - 1) / kBQ;
+  const int qt0 = kCausal ? k0 / kBQ : 0, n_qt = (Tn + kBQ - 1) / kBQ;
 
   auto load_stage = [&](int qt, int slot) {
     const uint32_t st = ring + slot * P::kStage;
@@ -1032,7 +1053,7 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // Warp-uniform: a query tile wholly before the warp's keys adds
     // nothing; its rows of dS^T are zero.
-    if (j_lo <= q0 + kBQ - 1) {
+    if (!kCausal || j_lo <= q0 + kBQ - 1) {
       float st[kQT][4], dpt[kQT][4];  // S^T and dP^T: rows keys, cols queries
 #pragma unroll
       for (int nt = 0; nt < kQT; ++nt)
@@ -1060,8 +1081,9 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
       // Only a tile that crosses the warp's diagonal or the tail compares
-      // positions.
-      const bool masked = q0 < j_lo + 15 || q0 + kBQ > Tn;
+      // positions (non-causal: the tail of the queries or of the keys).
+      const bool masked = kCausal ? q0 < j_lo + 15 || q0 + kBQ > Tn
+                                  : q0 + kBQ > Tn || j_lo + 16 > Tn;
       // P~^T and dS^T as A fragments (k-steps over queries).
       uint32_t pa[kQT / 2][4], dsa[kQT / 2][4];
 #pragma unroll
@@ -1074,7 +1096,7 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           for (int e = 0; e < 2; ++e) {
             const int c = 8 * nt + 2 * t + e, i = q0 + c;
             float p = exp2f(st[nt][2 * h + e] * scale2 - lse_s[c] * kLog2e);
-            if (masked && (j > i || i >= Tn)) p = 0.f;
+            if (masked && (i >= Tn || (kCausal ? j > i : j >= Tn))) p = 0.f;
             float dpv = dpt[nt][2 * h + e];
             pv[e] = p;
             if (dr.on) {
@@ -1207,14 +1229,18 @@ struct BwdDqMma {
   static constexpr size_t kSmem = 2 * kQB + 4 * kKV + kBM * sizeof(float);
 };
 
-template <int D>
+// kDlse: dlse, the (B*H, T) f32 lse cotangent, is read (without it the
+// pointer is unused); the training path's instance (causal, no kDlse)
+// compiles the causal-only kernel's code.
+template <int D, bool kDlse, bool kCausal>
 __global__ void __launch_bounds__(BwdDqMma<D>::kWarps * 32, 2)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
                         const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
                         const bf16* __restrict__ o,
                         const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, bf16* __restrict__ dq,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ dlse, bf16* __restrict__ dq,
                         int H, int Tn, float sm_scale, DropoutArgs da) {
   using P = BwdDqMma<D>;
   constexpr int kWarps = P::kWarps, kThreadsT = kWarps * 32, kBM = P::kBM;
@@ -1231,7 +1257,16 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
   const int g = lane >> 2, t = lane & 3;
   const int64_t base = static_cast<int64_t>(bh) * Tn * D;
   const Dropout dr = make_dropout(da, bh, H);
-  const int n_kt = (min(q0 + kBM, Tn) + kKeys - 1) / kKeys;
+  // The causal instance's conditions are spelled as in the causal-only
+  // kernel: folded into one expression with kCausal (`(kCausal && j > i)
+  // || j >= Tn`), the same conditions compiled to 3 more registers and
+  // ran 3.8% slower at the 124M training shape (PERF.md section 6).
+  int n_kt;
+  if constexpr (kCausal) {
+    n_kt = (min(q0 + kBM, Tn) + kKeys - 1) / kKeys;
+  } else {
+    n_kt = (Tn + kKeys - 1) / kKeys;
+  }
 
   load_rows<kBM, D, kThreadsT>(q_s, q + base, q0, Tn);
   load_rows<kBM, D, kThreadsT>(do_s, dout + base, q0, Tn);
@@ -1261,6 +1296,10 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
       }
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    // The lse cotangent folds into the row term: ds = p (dp - (Drow - dlse)).
+    if constexpr (kDlse) {
+      if (q0 + r < Tn) acc -= dlse[static_cast<int64_t>(bh) * Tn + q0 + r];
+    }
     if (half == 0) drow_s[r] = acc;
   }
 
@@ -1304,7 +1343,13 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
     const uint32_t k_s = kv_s + (kt & 1) * 2 * P::kKV, v_s = k_s + P::kKV;
     // Warp-uniform: a tile whose keys all lie past the warp's rows, or a
     // warp whose rows all lie past T, adds nothing.
-    if (k0 <= r_lo + 15 && r_lo < Tn) {
+    bool live;
+    if constexpr (kCausal) {
+      live = k0 <= r_lo + 15 && r_lo < Tn;
+    } else {
+      live = r_lo < Tn;
+    }
+    if (live) {
       float s[kNT][4], dp[kNT][4];
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt)
@@ -1341,7 +1386,12 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
       }
       // Only a tile that crosses the warp's diagonal or the tail compares
       // positions.
-      const bool masked = k0 + kKeys - 1 > r_lo || k0 + kKeys > Tn;
+      bool masked;
+      if constexpr (kCausal) {
+        masked = k0 + kKeys - 1 > r_lo || k0 + kKeys > Tn;
+      } else {
+        masked = k0 + kKeys > Tn;
+      }
       // dS as the A fragments of dS K: k-step kk takes slices 2kk, 2kk + 1.
       uint32_t dsf[kNT / 2][4];
 #pragma unroll
@@ -1355,7 +1405,11 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
           for (int e = 0; e < 2; ++e) {
             const int j = k0 + 8 * nt + 2 * t + e;
             float p = exp2f(s[nt][2 * h + e] * scale2 - lse2);
-            if (masked && (j > i || j >= Tn)) p = 0.f;
+            if constexpr (kCausal) {
+              if (masked && (j > i || j >= Tn)) p = 0.f;
+            } else {
+              if (masked && j >= Tn) p = 0.f;
+            }
             float dpv = dp[nt][2 * h + e];
             if (dr.on) dpv = dr.keep(i, j) ? dpv * dr.scale : 0.f;
             ds[e] = p * (dpv - drow_i);
@@ -1392,7 +1446,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// Launchers, dispatched on (dtype, head_dim).
+// Launchers, dispatched on (dtype, head_dim, causal).
 // ---------------------------------------------------------------------------
 
 enum BwdMode { kFused = 0, kDq = 1, kDkv = 2 };
@@ -1412,6 +1466,7 @@ cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem,
 struct Call {
   const void *q, *k, *v, *o, *dout;
   const float* lse_in;
+  const float* dlse;  // the lse cotangent (B*H, T) f32, or null
   float* lse_out;
   float* drow;  // K5's and K7's (B*H, T) Drow scratch
   void *dq, *dk, *dv, *out;
@@ -1422,57 +1477,63 @@ struct Call {
 };
 
 // The fp32 K4 with kBQ-query blocks.
-template <int D, int kBQ>
+template <int D, int kBQ, bool kCausal>
 cudaError_t launch_fwd_f32(const Call& c) {
   using P = TilesF32<float, D, kBQ>;
   const dim3 grid(c.BH, (c.T + kBQ - 1) / kBQ);
-  return launch(flash_fwd_f32_kernel<D, kBQ>, grid, P::kThreads, P::kSmem,
-                c.stream, static_cast<const float*>(c.q),
+  return launch(flash_fwd_f32_kernel<D, kBQ, kCausal>, grid, P::kThreads,
+                P::kSmem, c.stream, static_cast<const float*>(c.q),
                 static_cast<const float*>(c.k),
                 static_cast<const float*>(c.v), static_cast<float*>(c.out),
                 c.lse_out, c.H, c.T, c.sm_scale, c.dr);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kCausal>
 cudaError_t run_fwd(const Call& c) {
   if constexpr (std::is_same<T, bf16>::value) {
     constexpr int kW = fwd_warps<D>();
     const dim3 grid(c.BH, (c.T + 16 * kW - 1) / (16 * kW));
-    return launch(flash_fwd_mma_kernel<D, kW>, grid, 32 * kW,
+    return launch(flash_fwd_mma_kernel<D, kW, kCausal>, grid, 32 * kW,
                   fwd_mma_smem<D>(), c.stream, static_cast<const bf16*>(c.q),
                   static_cast<const bf16*>(c.k),
                   static_cast<const bf16*>(c.v), static_cast<bf16*>(c.out),
                   c.lse_out, c.H, c.T, c.sm_scale, c.dr);
-  } else {
+  } else if constexpr (kCausal) {
     // The query tile of the fp32 paged prefill's rule (attend_f32.cuh).
-    return wide_query_tiles(c.BH, c.T) ? launch_fwd_f32<D, 64>(c)
-                                       : launch_fwd_f32<D, 32>(c);
+    return wide_query_tiles(c.BH, c.T) ? launch_fwd_f32<D, 64, true>(c)
+                                       : launch_fwd_f32<D, 32, true>(c);
+  } else {
+    // Non-causal, 32-query blocks only: the 64-query instance spilled 12
+    // bytes at D 64 under its 128-register cap, and the ring's blocks
+    // (B 1, H 12, T 1024) take 32 by the rule above anyway.
+    return launch_fwd_f32<D, 32, false>(c);
   }
 }
 
-// Drow's pre-pass of K5 and K7, in either type.
+// Drow's pre-pass of K5 and K7, in either type, with dlse folded in.
 template <typename T, int D>
 cudaError_t run_drow(const Call& c) {
   const int64_t rows = static_cast<int64_t>(c.BH) * c.T;
   const int64_t lanes = rows * (D / Vec<T>::kN);
   flash_bwd_drow_kernel<T, D><<<static_cast<unsigned>((lanes + 255) / 256),
                                 256, 0, c.stream>>>(
-      static_cast<const T*>(c.o), static_cast<const T*>(c.dout), c.drow,
-      rows);
+      static_cast<const T*>(c.o), static_cast<const T*>(c.dout), c.dlse,
+      c.drow, rows);
   return cudaGetLastError();
 }
 
 // K5 or K7: Drow's pre-pass, then the key-parallel kernel of the type's
 // design (K7: no dQ, dq_acc unused).
-template <typename T, int D, bool kWithDq>
+template <typename T, int D, bool kWithDq, bool kCausal>
 cudaError_t run_bwd_kv(const Call& c) {
   const cudaError_t e = run_drow<T, D>(c);
   if (e != cudaSuccess) return e;
   if constexpr (std::is_same<T, bf16>::value) {
     const dim3 grid(c.BH, (c.T + kKeys - 1) / kKeys);
     using P = BwdMma<D, kWithDq>;
-    return launch(flash_bwd_mma_kernel<D, kWithDq>, grid, P::kThreadsT,
-                  P::kSmem, c.stream, static_cast<const bf16*>(c.q),
+    return launch(flash_bwd_mma_kernel<D, kWithDq, kCausal>, grid,
+                  P::kThreadsT, P::kSmem, c.stream,
+                  static_cast<const bf16*>(c.q),
                   static_cast<const bf16*>(c.k),
                   static_cast<const bf16*>(c.v),
                   static_cast<const bf16*>(c.dout), c.lse_in,
@@ -1481,7 +1542,7 @@ cudaError_t run_bwd_kv(const Call& c) {
                   static_cast<bf16*>(c.dv), c.H, c.T, c.sm_scale, c.dr);
   } else {
     const dim3 grid((c.T + kTile - 1) / kTile, c.BH);
-    return launch(flash_bwd_kv_kernel<D, kWithDq>, grid, kThreads,
+    return launch(flash_bwd_kv_kernel<D, kWithDq, kCausal>, grid, kThreads,
                   BwdF32<D>::kSmem, c.stream,
                   static_cast<const float*>(c.q),
                   static_cast<const float*>(c.k),
@@ -1494,55 +1555,64 @@ cudaError_t run_bwd_kv(const Call& c) {
 }
 
 // K6, the query-parallel dQ pass.
-template <typename T, int D>
+template <typename T, int D, bool kCausal>
 cudaError_t run_bwd_dq(const Call& c) {
   if constexpr (std::is_same<T, bf16>::value) {
     using P = BwdDqMma<D>;
     const dim3 grid(c.BH, (c.T + P::kBM - 1) / P::kBM);
-    return launch(flash_bwd_dq_mma_kernel<D>, grid, P::kWarps * 32, P::kSmem,
-                  c.stream, static_cast<const bf16*>(c.q),
+    auto kernel = c.dlse != nullptr ? flash_bwd_dq_mma_kernel<D, true, kCausal>
+                                    : flash_bwd_dq_mma_kernel<D, false, kCausal>;
+    return launch(kernel, grid, P::kWarps * 32,
+                  P::kSmem, c.stream, static_cast<const bf16*>(c.q),
                   static_cast<const bf16*>(c.k),
                   static_cast<const bf16*>(c.v),
                   static_cast<const bf16*>(c.o),
-                  static_cast<const bf16*>(c.dout), c.lse_in,
+                  static_cast<const bf16*>(c.dout), c.lse_in, c.dlse,
                   static_cast<bf16*>(c.dq), c.H, c.T, c.sm_scale, c.dr);
   } else {
     const dim3 grid((c.T + kTile - 1) / kTile, c.BH);
-    return launch(flash_bwd_dq_f32_kernel<D>, grid, BwdDqF32<D>::kThreadsT,
-                  BwdDqF32<D>::kSmem, c.stream,
+    return launch(flash_bwd_dq_f32_kernel<D, kCausal>, grid,
+                  BwdDqF32<D>::kThreadsT, BwdDqF32<D>::kSmem, c.stream,
                   static_cast<const float*>(c.q),
                   static_cast<const float*>(c.k),
                   static_cast<const float*>(c.v),
                   static_cast<const float*>(c.o),
-                  static_cast<const float*>(c.dout), c.lse_in,
+                  static_cast<const float*>(c.dout), c.lse_in, c.dlse,
                   static_cast<float*>(c.dq), c.H, c.T, c.sm_scale, c.dr);
   }
 }
 
-template <typename T, int D>
-cudaError_t run_bwd(const Call& c, int mode) {
+// mode < 0: the forward; else a BwdMode.
+template <typename T, int D, bool kCausal>
+cudaError_t run(const Call& c, int mode) {
   switch (mode) {
-    case kFused: return run_bwd_kv<T, D, true>(c);
-    case kDkv: return run_bwd_kv<T, D, false>(c);
-    case kDq: return run_bwd_dq<T, D>(c);
+    case -1: return run_fwd<T, D, kCausal>(c);
+    case kFused: return run_bwd_kv<T, D, true, kCausal>(c);
+    case kDkv: return run_bwd_kv<T, D, false, kCausal>(c);
+    case kDq: return run_bwd_dq<T, D, kCausal>(c);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename T, int D>
+cudaError_t by_causal(bool causal, const Call& c, int mode) {
+  return causal ? run<T, D, true>(c, mode) : run<T, D, false>(c, mode);
 }
 
 template <typename T>
-cudaError_t by_head_dim(int D, const Call& c, int mode) {
+cudaError_t by_head_dim(int D, bool causal, const Call& c, int mode) {
   switch (D) {
-    case 32: return mode < 0 ? run_fwd<T, 32>(c) : run_bwd<T, 32>(c, mode);
-    case 64: return mode < 0 ? run_fwd<T, 64>(c) : run_bwd<T, 64>(c, mode);
-    case 128: return mode < 0 ? run_fwd<T, 128>(c) : run_bwd<T, 128>(c, mode);
+    case 32: return by_causal<T, 32>(causal, c, mode);
+    case 64: return by_causal<T, 64>(causal, c, mode);
+    case 128: return by_causal<T, 128>(causal, c, mode);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// mode < 0: the forward; else a BwdMode.
-cudaError_t dispatch_call(int dtype, int D, const Call& c, int mode) {
-  if (dtype == kF32) return by_head_dim<float>(D, c, mode);
-  if (dtype == kBF16) return by_head_dim<__nv_bfloat16>(D, c, mode);
+cudaError_t dispatch_call(int dtype, int D, bool causal, const Call& c,
+                          int mode) {
+  if (dtype == kF32) return by_head_dim<float>(D, causal, c, mode);
+  if (dtype == kBF16) return by_head_dim<__nv_bfloat16>(D, causal, c, mode);
   return cudaErrorInvalidValue;
 }
 
@@ -1555,38 +1625,43 @@ DropoutArgs dropout_args(const long long* seed, int on, unsigned threshold,
 
 extern "C" {
 
-// K4. Returns a cudaError_t: cudaSuccess (0) once the kernel is queued.
+// K4, causal or not (causal 0: every query sees every key, ring
+// attention's off-diagonal blocks). Returns a cudaError_t: cudaSuccess (0)
+// once the kernel is queued.
 int nsb_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   float* lse, const long long* seed, int BH, int H, int T,
                   int D, float sm_scale, int dtype, int dropout_on,
                   unsigned threshold, float keep_scale, unsigned hash_seq_len,
-                  void* stream) {
+                  int causal, void* stream) {
   Call c{};
   c.q = q; c.k = k; c.v = v; c.out = o; c.lse_out = lse;
   c.BH = BH; c.H = H; c.T = T; c.sm_scale = sm_scale;
   c.dr = dropout_args(seed, dropout_on, threshold, keep_scale, hash_seq_len);
   c.stream = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dispatch_call(dtype, D, c, -1));
+  return static_cast<int>(dispatch_call(dtype, D, causal != 0, c, -1));
 }
 
 // K5 (mode 0: dq is the zeroed f32 accumulator), K6 (mode 1: dq only, in
 // the input type; dk, dv unused) or K7 (mode 2: dk, dv; dq unused). K5 and
-// K7 also need drow, a (B*H, T) f32 scratch for their Drow pre-pass.
+// K7 also need drow, a (B*H, T) f32 scratch for their Drow pre-pass. dlse,
+// the lse output's (B*H, T) f32 cotangent, may be null (none).
 int nsb_flash_bwd(const void* q, const void* k, const void* v, const void* o,
-                  const void* dout, const float* lse, const long long* seed,
-                  float* drow, void* dq, void* dk, void* dv, int BH, int H,
-                  int T, int D, float sm_scale, int dtype, int dropout_on,
-                  unsigned threshold, float keep_scale, unsigned hash_seq_len,
+                  const void* dout, const float* lse, const float* dlse,
+                  const long long* seed, float* drow, void* dq, void* dk,
+                  void* dv, int BH, int H, int T, int D, float sm_scale,
+                  int dtype, int dropout_on, unsigned threshold,
+                  float keep_scale, unsigned hash_seq_len, int causal,
                   int mode, void* stream) {
   if (mode < 0 || ((mode == kFused || mode == kDkv) && drow == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Call c{};
   c.q = q; c.k = k; c.v = v; c.o = o; c.dout = dout; c.lse_in = lse;
+  c.dlse = dlse;
   c.drow = drow; c.dq = dq; c.dk = dk; c.dv = dv;
   c.BH = BH; c.H = H; c.T = T; c.sm_scale = sm_scale;
   c.dr = dropout_args(seed, dropout_on, threshold, keep_scale, hash_seq_len);
   c.stream = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dispatch_call(dtype, D, c, mode));
+  return static_cast<int>(dispatch_call(dtype, D, causal != 0, c, mode));
 }
 
 }  // extern "C"

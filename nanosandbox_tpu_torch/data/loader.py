@@ -7,6 +7,11 @@ data.prepare), with offsets drawn from a stream keyed by
 (seed, split, step, process_index), so a resumed run draws the batches
 an uninterrupted one would.
 
+Under sequence parallelism every rank draws the same global batch (same
+seed and step) and keeps its own columns of x and y (``columns``: the
+ring layout's positions, ops/ring_attention.py ring_positions); no data
+is exchanged.
+
 Offsets come from numpy's Philox keyed by (seed, stream) -- the JAX
 loader's fallback sampler, bit for bit. The JAX loader prefers its C++
 xorshift128+ sampler when ``csrc/libbatchgen.so`` loads, and that draws
@@ -87,12 +92,13 @@ class BatchLoader:
 
     def __init__(self, dataset: BinDataset, split: str, batch_size: int,
                  block_size: int, *, seed: int = 1337, start_step: int = 0,
-                 prefetch: bool = True):
+                 prefetch: bool = True, columns: np.ndarray | None = None):
         self.dataset = dataset
         self.split = split
         self.batch_size = batch_size
         self.block_size = block_size
         self.seed = seed
+        self.columns = columns
         self.step = start_step
         self._queue: queue.Queue | None = None
         self._worker_exc: BaseException | None = None
@@ -103,8 +109,11 @@ class BatchLoader:
             self._thread.start()
 
     def _load(self, step: int) -> tuple[np.ndarray, np.ndarray]:
-        return self.dataset.sample_batch(self.split, step, self.batch_size,
+        x, y = self.dataset.sample_batch(self.split, step, self.batch_size,
                                          self.block_size, seed=self.seed)
+        if self.columns is None:
+            return x, y
+        return x[:, self.columns], y[:, self.columns]
 
     def _put(self, item) -> None:
         """Blocking put that still honours close(): a consumer that went

@@ -12,9 +12,15 @@ Two forward paths:
 
   * no cache (training, evaluation, the reference recompute): causal
     attention through ops/attention.py — the flash kernels on CUDA
-    tensors, the plain version on CPU tensors. ``plain_attention=True``
-    asks for the plain version on any device; only comparison harnesses
-    pass it (its CUDA calls show in attention.plain_cuda_calls). With a
+    tensors, the plain version on CPU tensors. Under sequence parallelism
+    (cfg.attention_impl 'ring' and a ``mesh`` whose seq axis is larger
+    than 1) the model holds this rank's tokens only, in the ring layout's
+    order (ops/ring_attention.py ring_positions): wpe looks up their
+    global positions and attention is ring attention over the seq group;
+    the loss is ``sharded_chunked_cross_entropy_loss``.
+    ``plain_attention=True`` asks for the plain version on any device;
+    only comparison harnesses pass it (its CUDA calls show in
+    attention.plain_cuda_calls), and a ring forward refuses it. With a
     ``dropout_generator`` and cfg.dropout > 0 the forward trains: residual
     dropout where flax has it (after the embedding sum, after attention's
     c_proj, after the MLP's c_proj) with masks drawn from the generator,
@@ -77,6 +83,9 @@ from nanosandbox_tpu_torch.ops.flash_decode import (KV_MODES, KV_STORAGE,
                                                     flash_prefill_paged,
                                                     quantize_kv_rows,
                                                     quantize_kv_rows_int4)
+from nanosandbox_tpu_torch.ops.ring_attention import (ring_attention_sharded,
+                                                      ring_positions)
+from nanosandbox_tpu_torch.parallel import distributed
 
 # Per layer: (K, V) or, quantized, (K, V, k_scale, v_scale).
 KVPool = List[Tuple[torch.Tensor, ...]]
@@ -174,10 +183,18 @@ def _scales(layer) -> dict:
             else {"k_scale": layer[2], "v_scale": layer[3]})
 
 
+def _ring(cfg: GPTConfig, mesh) -> bool:
+    """Whether the no-cache forward runs ring attention over mesh's seq
+    group (a ring over one rank is causal attention over the row)."""
+    return (cfg.attention_impl == "ring" and mesh is not None
+            and mesh.seq > 1)
+
+
 class CausalSelfAttention(nn.Module):
-    def __init__(self, cfg: GPTConfig, **factory):
+    def __init__(self, cfg: GPTConfig, mesh=None, **factory):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
         C = cfg.n_embd
         self.c_attn = nn.Linear(C, 3 * C, bias=cfg.bias, **factory)
         self.c_proj = nn.Linear(C, C, bias=cfg.bias, **factory)
@@ -196,7 +213,13 @@ class CausalSelfAttention(nn.Module):
             rate, seed = 0.0, None
             if generator is not None and cfg.dropout > 0.0:
                 rate, seed = cfg.dropout, _attention_seed(generator, x.device)
-            if plain_attention:
+            if _ring(cfg, self.mesh):
+                m = self.mesh
+                y = ring_attention_sharded(
+                    q, k, v, group=m.seq_group, rank=m.seq_index,
+                    size=m.seq, layout=cfg.ring_layout, dropout_rate=rate,
+                    dropout_seed=seed)
+            elif plain_attention:
                 y = torch_flash_attention(q, k, v, dropout_rate=rate,
                                           seed=seed)[0]
             else:
@@ -268,11 +291,11 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: GPTConfig, **factory):
+    def __init__(self, cfg: GPTConfig, mesh=None, **factory):
         super().__init__()
         C = cfg.n_embd
         self.ln_1 = nn.LayerNorm(C, eps=1e-5, bias=cfg.bias, **factory)
-        self.attn = CausalSelfAttention(cfg, **factory)
+        self.attn = CausalSelfAttention(cfg, mesh, **factory)
         self.ln_2 = nn.LayerNorm(C, eps=1e-5, bias=cfg.bias, **factory)
         self.mlp = MLP(cfg, **factory)
 
@@ -293,16 +316,18 @@ class GPT(nn.Module):
     ``generator`` seeds the initialization (GPT-2's: normal 0.02, the
     residual projections scaled by 1/sqrt(2 n_layer), LayerNorm 1/0);
     without one the weights are left as allocated, for a caller that
-    loads a state_dict next."""
+    loads a state_dict next. ``mesh`` (parallel/mesh.py) carries the seq
+    group ring attention runs over."""
 
     def __init__(self, cfg: GPTConfig, *, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
         factory = {"device": device, "dtype": cfg.torch_param_dtype}
         self.wte = nn.Embedding(cfg.vocab_size, cfg.n_embd, **factory)
         self.wpe = nn.Embedding(cfg.block_size, cfg.n_embd, **factory)
-        self.h = nn.ModuleList(Block(cfg, **factory)
+        self.h = nn.ModuleList(Block(cfg, mesh, **factory)
                                for _ in range(cfg.n_layer))
         self.ln_f = nn.LayerNorm(cfg.n_embd, eps=1e-5, bias=cfg.bias,
                                  **factory)
@@ -336,14 +361,25 @@ class GPT(nn.Module):
         a (B,) int32 frontier per row (T = 1) or one Python int for every
         row (module docstring). Without a cache, ``dropout_generator``
         turns training dropout on and ``plain_attention`` selects the
-        plain attention."""
+        plain attention. Under sequence parallelism idx holds this rank's
+        T / seq tokens of each row, in the ring layout's order."""
         cfg = self.cfg
         B, T = idx.shape
-        if T > cfg.block_size:
-            raise ValueError(f"sequence length {T} > block_size "
+        ring = _ring(cfg, self.mesh) and cache is None
+        if ring and plain_attention:
+            raise ValueError("plain_attention is not taken under ring "
+                             "attention: the ring's block picks the kernels "
+                             "or the plain block by the tensors' device")
+        T_global = T * self.mesh.seq if ring else T
+        if T_global > cfg.block_size:
+            raise ValueError(f"sequence length {T_global} > block_size "
                              f"{cfg.block_size}")
         ar = torch.arange(T, device=idx.device)
-        if cache is None:
+        if ring:
+            pos = torch.from_numpy(ring_positions(
+                T_global, self.mesh.seq, self.mesh.seq_index,
+                cfg.ring_layout)).to(idx.device)[None, :]
+        elif cache is None:
             pos = ar[None, :]
         else:
             if cache_index is None:
@@ -514,16 +550,17 @@ def _chunk_nll(h: torch.Tensor, y: torch.Tensor, emb: torch.Tensor,
     return torch.where(valid, nll, 0.0).sum(), valid.sum()
 
 
-def chunked_cross_entropy_loss(hidden: torch.Tensor, embedding: torch.Tensor,
-                               targets: torch.Tensor, *, chunk_size: int = 128,
-                               compute_dtype: str = "bfloat16",
-                               ignore_index: int = -1) -> torch.Tensor:
-    """Tied LM head + cross entropy over sequence chunks, so only
-    (B, chunk, vocab) logits are ever alive: each chunk runs under
-    torch.utils.checkpoint, and its backward recomputes the chunk's head
-    instead of saving its logits. The head runs in ``compute_dtype``.
-    hidden: (B, T, C) from GPT.hidden; embedding: the (V, C) wte table.
-    The chunk is the largest divisor of T at most chunk_size."""
+def chunked_nll_sums(hidden: torch.Tensor, embedding: torch.Tensor,
+                     targets: torch.Tensor, *, chunk_size: int = 128,
+                     compute_dtype: str = "bfloat16",
+                     ignore_index: int = -1):
+    """(sum of nll, count of valid targets) of the tied LM head + cross
+    entropy over sequence chunks, so only (B, chunk, vocab) logits are
+    ever alive: each chunk runs under torch.utils.checkpoint, and its
+    backward recomputes the chunk's head instead of saving its logits.
+    The head runs in ``compute_dtype``. hidden: (B, T, C) from
+    GPT.hidden; embedding: the (V, C) wte table. The chunk is the largest
+    divisor of T at most chunk_size."""
     B, T, C = hidden.shape
     cs = min(chunk_size, T)
     while T % cs:
@@ -537,7 +574,42 @@ def chunked_cross_entropy_loss(hidden: torch.Tensor, embedding: torch.Tensor,
                           use_reentrant=False)
         tot = tot + t
         cnt = cnt + c
+    return tot, cnt
+
+
+def chunked_cross_entropy_loss(hidden: torch.Tensor, embedding: torch.Tensor,
+                               targets: torch.Tensor, *, chunk_size: int = 128,
+                               compute_dtype: str = "bfloat16",
+                               ignore_index: int = -1) -> torch.Tensor:
+    """Mean cross entropy of the chunked tied head (chunked_nll_sums)."""
+    tot, cnt = chunked_nll_sums(hidden, embedding, targets,
+                                chunk_size=chunk_size,
+                                compute_dtype=compute_dtype,
+                                ignore_index=ignore_index)
     return tot / cnt.clamp(min=1)
+
+
+def sharded_chunked_cross_entropy_loss(hidden: torch.Tensor,
+                                       embedding: torch.Tensor,
+                                       targets: torch.Tensor, *, group=None,
+                                       chunk_size: int = 128,
+                                       compute_dtype: str = "bfloat16",
+                                       ignore_index: int = -1):
+    """The chunked loss under sequence parallelism (the JAX package's
+    sharded_chunked_cross_entropy_loss): each rank sums nll and count
+    over its own tokens, and both sums are all-reduced over the seq
+    group. Returns (this rank's share tot_r / sum(cnt), differentiable:
+    what the rank backprops, so that parameter gradients summed over the
+    ranks are the mean loss's; the mean loss sum(tot) / sum(cnt),
+    detached, the same on every rank)."""
+    tot, cnt = chunked_nll_sums(hidden, embedding, targets,
+                                chunk_size=chunk_size,
+                                compute_dtype=compute_dtype,
+                                ignore_index=ignore_index)
+    sums = torch.stack([tot.detach(), cnt.to(tot.dtype)])
+    distributed.all_reduce_sum_(sums, group)
+    total = sums[1].clamp(min=1)
+    return tot / total, sums[0] / total
 
 
 def count_params(model: nn.Module) -> int:

@@ -69,12 +69,12 @@ def _signatures() -> dict:
         #  q dtype, kv dtype, stream)
         "nsb_flash_decode": [p] * 7 + [i] * 4 + [f, i, i, p],
         # (q, k, v, o, lse, seed, BH, H, T, D, sm_scale, dtype, dropout on,
-        #  threshold, keep scale, hash_seq_len, stream)
-        "nsb_flash_fwd": [p] * 6 + [i] * 4 + [f, i, i, u, f, u, p],
-        # (q, k, v, o, dout, lse, seed, drow, dq, dk, dv, BH, H, T, D,
-        #  sm_scale, dtype, dropout on, threshold, keep scale, hash_seq_len,
-        #  mode, stream)
-        "nsb_flash_bwd": [p] * 11 + [i] * 4 + [f, i, i, u, f, u, i, p],
+        #  threshold, keep scale, hash_seq_len, causal, stream)
+        "nsb_flash_fwd": [p] * 6 + [i] * 4 + [f, i, i, u, f, u, i, p],
+        # (q, k, v, o, dout, lse, dlse, seed, drow, dq, dk, dv, BH, H, T,
+        #  D, sm_scale, dtype, dropout on, threshold, keep scale,
+        #  hash_seq_len, causal, mode, stream)
+        "nsb_flash_bwd": [p] * 12 + [i] * 4 + [f, i, i, u, f, u, i, i, p],
     }
 
 

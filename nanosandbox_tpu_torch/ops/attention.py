@@ -1,8 +1,8 @@
-"""Causal flash attention for training, forward and backward.
+"""Flash attention for training, forward and backward.
 
 The counterpart of nanosandbox_tpu/ops/attention.py. Its four Pallas
 kernels become CUDA kernels (csrc/flash_attention.cu, built at first use
-by ops/_build.py):
+by ops/_build.py), each in a causal and a non-causal instance:
 
   flash_attention_fwd        (K4)  <- _flash_fwd_kernel
   flash_attention_bwd fused  (K5)  <- _flash_bwd_tiles_kernel(with_dq=True)
@@ -21,10 +21,14 @@ summation order changes from run to run) or 'split' (K6 then K7, a
 deterministic backward that recomputes the score tiles twice).
 
 Layouts are the JAX package's: q, k, v, o (B, H, T, D) in float32 or
-bfloat16, lse (B, H, T) float32. ``FlashAttention`` is the
-torch.autograd.Function over K4 and the backward; ``flash_attention``,
-``flash_attention_dropout`` and ``causal_attention`` are the entry
-points the model calls.
+bfloat16, lse and its cotangent dlse (B, H, T) float32. ``FlashAttention``
+is the torch.autograd.Function over K4 and the backward, with outputs
+(o, lse); ``flash_attention``, ``flash_attention_dropout`` and
+``causal_attention`` are the entry points the model calls, and
+``flash_attention_lse`` / ``flash_attention_lse_dropout`` the block
+primitive of ring attention (ops/ring_attention.py): (o, lse) of a block,
+causal or not, differentiable in both, the lse cotangent folded into the
+backward's row term, ds = p (dp - (Drow - dlse)).
 
 Routing, as in ops/flash_decode.py: a CUDA tensor goes to a kernel or
 the call raises; a CPU tensor goes to the plain PyTorch version beside
@@ -37,10 +41,9 @@ never does).
 
 Attention-probability dropout is the JAX kernels' counter-based hash
 mask, bit for bit (``hash_dropout_keep_mask``): the same (5,) seed words
-drop the same score elements in both packages. Not ported yet:
-``flash_attention_lse`` (an lse output with its cotangent, which only
-ring attention needs) and the Mosaic stat layouts (on Hopper the lse is
-a plain (B*H, T) vector; ``attention_stat_layout`` selects nothing).
+drop the same score elements in both packages. The Mosaic stat layouts
+are not ported (on Hopper the lse is a plain (B*H, T) vector;
+``attention_stat_layout`` selects nothing).
 """
 
 from __future__ import annotations
@@ -64,14 +67,20 @@ _BWD_MODE = {"fused": 0, "dq": 1, "dkv": 2}
 BWD_IMPL = "fused"
 
 __all__ = ["flash_attention", "flash_attention_dropout", "causal_attention",
+           "flash_attention_lse", "flash_attention_lse_dropout",
            "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "torch_flash_attention", "torch_flash_attention_bwd",
            "hash_dropout_keep_mask", "FlashAttention", "BWD_IMPL",
            "launches", "plain_cuda_calls", "reset_counts"]
 
-launches = {"flash_attention_fwd": 0, "flash_attention_bwd_fused": 0,
-            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+# Keyed by kernel, "/full" for the non-causal instance, "/dlse" for a
+# backward given an lse cotangent: "flash_attention_fwd" is the causal K4,
+# "flash_attention_bwd_fused/full/dlse" K5 on a non-causal ring block.
+launches = {f"flash_attention_{kind}{full}{dl}": 0
+            for kind in ("fwd", "bwd_fused", "bwd_dq", "bwd_dkv")
+            for full in ("", "/full")
+            for dl in (("",) if kind == "fwd" else ("", "/dlse"))}
 plain_cuda_calls = {"torch_flash_attention": 0,
                     "torch_flash_attention_bwd": 0}
 
@@ -176,10 +185,13 @@ def hash_dropout_keep_mask(seed, B: int, H: int, Tq: int, Tk: int, *,
 # Plain versions: the CPU path, and the reference the kernels are held to
 # ---------------------------------------------------------------------------
 
-def _causal_scores(q, k, sm_scale) -> torch.Tensor:
-    """f32 scores, scaled after the product, NEG_INF above the diagonal."""
+def _scores(q, k, sm_scale, causal: bool = True) -> torch.Tensor:
+    """f32 scores, scaled after the product; causal: NEG_INF above the
+    diagonal (Tq == Tk, as every block here has)."""
     T = q.shape[2]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    if not causal:
+        return s
     mask = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
     return s.masked_fill(~mask, NEG_INF)
 
@@ -191,7 +203,8 @@ def _require_seed(seed, rate: float) -> None:
                          "when dropout_rate > 0")
 
 
-def _keep(seed, rate, B, H, T, hash_seq_len, device) -> torch.Tensor | None:
+def _keep(seed, rate, B, H, T, hash_seq_len,
+          device) -> torch.Tensor | None:
     if rate <= 0.0:
         return None
     _require_seed(seed, rate)
@@ -200,21 +213,22 @@ def _keep(seed, rate, B, H, T, hash_seq_len, device) -> torch.Tensor | None:
                                   device=device)
 
 
-def torch_flash_attention(q, k, v, *, sm_scale: float | None = None,
+def torch_flash_attention(q, k, v, *, causal: bool = True,
+                          sm_scale: float | None = None,
                           dropout_rate: float = 0.0, seed=None,
                           hash_seq_len: int | None = None):
-    """Causal attention over (B, H, T, D) in f32 math, differentiable:
-    (o in q's dtype, lse (B, H, T) f32). With dropout_rate > 0 the
-    softmax weights go through the hash keep-mask and the 1/(1-rate)
-    rescale before p.v; lse is that of the unmasked scores, as the
-    kernels'."""
+    """Attention over (B, H, T, D) in f32 math, causal or not,
+    differentiable in both outputs: (o in q's dtype, lse (B, H, T) f32).
+    With dropout_rate > 0 the softmax weights go through the hash
+    keep-mask and the 1/(1-rate) rescale before p.v; lse is that of the
+    unmasked scores, as the kernels'."""
     if q.is_cuda:
         plain_cuda_calls["torch_flash_attention"] += 1
     B, H, T, D = q.shape
     sm_scale = D ** -0.5 if sm_scale is None else sm_scale
     hash_seq_len = hash_seq_len or default_hash_seq_len(T)
     _check_dropout_seq_len(dropout_rate, hash_seq_len)
-    s = _causal_scores(q, k, sm_scale)
+    s = _scores(q, k, sm_scale, causal)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     keep = _keep(seed, dropout_rate, B, H, T, hash_seq_len, q.device)
@@ -224,21 +238,22 @@ def torch_flash_attention(q, k, v, *, sm_scale: float | None = None,
     return o.to(q.dtype), lse
 
 
-def torch_flash_attention_bwd(q, k, v, o, lse, do, *,
-                              sm_scale: float | None = None,
+def torch_flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                              dlse=None, sm_scale: float | None = None,
                               dropout_rate: float = 0.0, seed=None,
                               hash_seq_len: int | None = None):
     """(dq, dk, dv) from the forward's o and lse, in f32 math: the
     backward kernels' arithmetic without their casts. p = exp(s - lse)
     is recomputed; the dropout mask and rescale land on dp and on the p
-    that multiplies dO; Drow = rowsum(dO o)."""
+    that multiplies dO; Drow = rowsum(dO o), less the lse cotangent dlse
+    (B, H, T) when given."""
     if q.is_cuda:
         plain_cuda_calls["torch_flash_attention_bwd"] += 1
     B, H, T, D = q.shape
     sm_scale = D ** -0.5 if sm_scale is None else sm_scale
     hash_seq_len = hash_seq_len or default_hash_seq_len(T)
     _check_dropout_seq_len(dropout_rate, hash_seq_len)
-    p = torch.exp(_causal_scores(q, k, sm_scale) - lse.float()[..., None])
+    p = torch.exp(_scores(q, k, sm_scale, causal) - lse.float()[..., None])
     dof = do.float()
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
     keep = _keep(seed, dropout_rate, B, H, T, hash_seq_len, q.device)
@@ -248,6 +263,8 @@ def torch_flash_attention_bwd(q, k, v, o, lse, do, *,
         p_v = torch.where(keep, p * scale, 0.0)
         dp = torch.where(keep, dp * scale, 0.0)
     drow = (dof * o.float()).sum(-1, keepdim=True)
+    if dlse is not None:
+        drow = drow - dlse.float()[..., None]
     ds = p * (dp - drow)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * sm_scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * sm_scale
@@ -261,7 +278,8 @@ def torch_flash_attention_bwd(q, k, v, o, lse, do, *,
 
 def _check(*named) -> None:
     """Everything the kernels do not take raises here, before a pointer
-    leaves Python. named: (name, tensor) pairs, q first."""
+    leaves Python. named: (name, tensor) pairs, q first; a None tensor
+    (no dlse) is skipped."""
     q = named[0][1]
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, T, D), got {tuple(q.shape)}")
@@ -272,10 +290,13 @@ def _check(*named) -> None:
         raise ValueError(f"head_dim {q.shape[3]} not in the kernels' set "
                          f"{HEAD_DIMS}")
     for name, t in named:
+        if t is None:
+            continue
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        want = (torch.float32 if name == "lse" else q.dtype)
-        shape = q.shape[:3] if name == "lse" else q.shape
+        stat = name in ("lse", "dlse")
+        want = torch.float32 if stat else q.dtype
+        shape = q.shape[:3] if stat else q.shape
         if t.dtype != want or t.shape != shape:
             raise ValueError(f"{name} {t.dtype}{tuple(t.shape)} != "
                              f"{want}{tuple(shape)}")
@@ -292,7 +313,8 @@ def _raise_on(err: int, name: str) -> None:
 
 def _dropout_args(q, seed, dropout_rate, hash_seq_len):
     """(seed words on q's device or None, (seed pointer, on, threshold,
-    keep scale, hash_seq_len)) for a C entry point."""
+    keep scale, hash_seq_len)) for a C entry point. The kernels linearise
+    the stream over the call's own heads."""
     hash_seq_len = hash_seq_len or default_hash_seq_len(q.shape[2])
     _check_dropout_seq_len(dropout_rate, hash_seq_len)
     if dropout_rate <= 0.0:
@@ -303,17 +325,23 @@ def _dropout_args(q, seed, dropout_rate, hash_seq_len):
                    1.0 / (1.0 - dropout_rate), hash_seq_len)
 
 
-def flash_attention_fwd(q, k, v, *, sm_scale: float | None = None,
+def _instance(causal: bool, dlse=None) -> str:
+    """The launch-count suffix of a kernel instance."""
+    return ("" if causal else "/full") + ("" if dlse is None else "/dlse")
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True,
+                        sm_scale: float | None = None,
                         dropout_rate: float = 0.0, seed=None,
                         hash_seq_len: int | None = None):
-    """K4: (o in q's dtype, lse (B, H, T) f32) for causal attention over
-    (B, H, T, D). CUDA tensors launch flash_fwd_mma_kernel (bf16) or
-    flash_fwd_f32_kernel (fp32); CPU tensors get
-    the plain version."""
+    """K4: (o in q's dtype, lse (B, H, T) f32) for attention over
+    (B, H, T, D), causal or not. CUDA tensors launch flash_fwd_mma_kernel
+    (bf16) or flash_fwd_f32_kernel (fp32); CPU tensors get the plain
+    version."""
+    kw = dict(causal=causal, sm_scale=sm_scale, dropout_rate=dropout_rate,
+              seed=seed, hash_seq_len=hash_seq_len)
     if not q.is_cuda:
-        return torch_flash_attention(q, k, v, sm_scale=sm_scale,
-                                     dropout_rate=dropout_rate, seed=seed,
-                                     hash_seq_len=hash_seq_len)
+        return torch_flash_attention(q, k, v, **kw)
     _check(("q", q), ("k", k), ("v", v))
     B, H, T, D = q.shape
     sm_scale = D ** -0.5 if sm_scale is None else sm_scale
@@ -323,81 +351,85 @@ def flash_attention_fwd(q, k, v, *, sm_scale: float | None = None,
     err = _build.library().nsb_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), dr[0], B * H, H, T, D, float(sm_scale),
-        _DTYPE_CODE[q.dtype], *dr[1:],
+        _DTYPE_CODE[q.dtype], *dr[1:], int(causal),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash attention forward")
-    launches["flash_attention_fwd"] += 1
+    launches["flash_attention_fwd" + _instance(causal)] += 1
     # words may go now: the caching allocator hands its block only to work
     # queued after this launch on the same stream.
     del words
     return o, lse
 
 
-def _launch_bwd(mode: str, q, k, v, o, lse, do, dq, dk, dv, sm_scale,
-                dropout_rate, seed, hash_seq_len) -> None:
+def _launch_bwd(mode: str, q, k, v, o, lse, do, dq, dk, dv, sm_scale, *,
+                causal, dlse, dropout_rate, seed, hash_seq_len) -> None:
     B, H, T, D = q.shape
     words, dr = _dropout_args(q, seed, dropout_rate, hash_seq_len)
-    # K5 and K7 compute Drow = rowsum(dO o) once per row into this
+    # K5 and K7 compute Drow = rowsum(dO o) - dlse once per row into this
     # (B*H, T) f32 scratch before their key-parallel kernel.
     drow = (torch.empty((B * H, T), dtype=torch.float32, device=q.device)
             if mode in ("fused", "dkv") else None)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = _build.library().nsb_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), dr[0], ptr(drow), ptr(dq), ptr(dk),
-        ptr(dv), B * H, H, T, D, float(sm_scale), _DTYPE_CODE[q.dtype],
-        *dr[1:], _BWD_MODE[mode],
+        do.data_ptr(), lse.data_ptr(), ptr(dlse), dr[0], ptr(drow), ptr(dq),
+        ptr(dk), ptr(dv), B * H, H, T, D, float(sm_scale),
+        _DTYPE_CODE[q.dtype], *dr[1:], int(causal), _BWD_MODE[mode],
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, f"flash attention backward ({mode})")
-    launches[f"flash_attention_bwd_{mode}"] += 1
+    launches[f"flash_attention_bwd_{mode}" + _instance(causal, dlse)] += 1
     del words, drow
 
 
-def _bwd_args(q, k, v, o, lse, do, sm_scale):
-    _check(("q", q), ("k", k), ("v", v), ("o", o), ("lse", lse), ("do", do))
+def _bwd_args(q, k, v, o, lse, do, dlse, sm_scale):
+    _check(("q", q), ("k", k), ("v", v), ("o", o), ("lse", lse), ("do", do),
+           ("dlse", dlse))
     return q.shape[3] ** -0.5 if sm_scale is None else sm_scale
 
 
-def flash_attention_bwd_dq(q, k, v, o, lse, do, *,
-                           sm_scale: float | None = None,
+def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
+                           dlse=None, sm_scale: float | None = None,
                            dropout_rate: float = 0.0, seed=None,
-                           hash_seq_len: int | None = None) -> torch.Tensor:
+                           hash_seq_len: int | None = None
+                           ) -> torch.Tensor:
     """K6: dq in q's dtype, parallel over query tiles."""
-    kw = dict(dropout_rate=dropout_rate, seed=seed, hash_seq_len=hash_seq_len)
+    kw = dict(causal=causal, dlse=dlse, dropout_rate=dropout_rate, seed=seed,
+              hash_seq_len=hash_seq_len)
     if not q.is_cuda:
         return torch_flash_attention_bwd(q, k, v, o, lse, do,
                                          sm_scale=sm_scale, **kw)[0]
-    sm_scale = _bwd_args(q, k, v, o, lse, do, sm_scale)
+    sm_scale = _bwd_args(q, k, v, o, lse, do, dlse, sm_scale)
     dq = torch.empty_like(q)
-    _launch_bwd("dq", q, k, v, o, lse, do, dq, None, None, sm_scale,
-                dropout_rate, seed, hash_seq_len)
+    _launch_bwd("dq", q, k, v, o, lse, do, dq, None, None, sm_scale, **kw)
     return dq
 
 
-def flash_attention_bwd_dkv(q, k, v, o, lse, do, *,
-                            sm_scale: float | None = None,
+def flash_attention_bwd_dkv(q, k, v, o, lse, do, *, causal: bool = True,
+                            dlse=None, sm_scale: float | None = None,
                             dropout_rate: float = 0.0, seed=None,
                             hash_seq_len: int | None = None):
     """K7: (dk, dv) in k's and v's dtype, parallel over key tiles."""
-    kw = dict(dropout_rate=dropout_rate, seed=seed, hash_seq_len=hash_seq_len)
+    kw = dict(causal=causal, dlse=dlse, dropout_rate=dropout_rate, seed=seed,
+              hash_seq_len=hash_seq_len)
     if not q.is_cuda:
         return torch_flash_attention_bwd(q, k, v, o, lse, do,
                                          sm_scale=sm_scale, **kw)[1:]
-    sm_scale = _bwd_args(q, k, v, o, lse, do, sm_scale)
+    sm_scale = _bwd_args(q, k, v, o, lse, do, dlse, sm_scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("dkv", q, k, v, o, lse, do, None, dk, dv, sm_scale,
-                dropout_rate, seed, hash_seq_len)
+    _launch_bwd("dkv", q, k, v, o, lse, do, None, dk, dv, sm_scale, **kw)
     return dk, dv
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, *,
-                        sm_scale: float | None = None,
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        dlse=None, sm_scale: float | None = None,
                         dropout_rate: float = 0.0, seed=None,
                         hash_seq_len: int | None = None):
-    """(dq, dk, dv) from the forward's o and lse: K5 alone, or K6 then K7
-    (BWD_IMPL 'fused' or 'split'). CUDA tensors launch the kernels; CPU
-    tensors get torch_flash_attention_bwd."""
-    kw = dict(dropout_rate=dropout_rate, seed=seed, hash_seq_len=hash_seq_len)
+    """(dq, dk, dv) from the forward's o and lse (and the lse cotangent
+    dlse, if any): K5 alone, or K6 then K7 (BWD_IMPL 'fused' or 'split').
+    CUDA tensors launch the kernels; CPU tensors get
+    torch_flash_attention_bwd."""
+    kw = dict(causal=causal, dlse=dlse, dropout_rate=dropout_rate, seed=seed,
+              hash_seq_len=hash_seq_len)
     if BWD_IMPL not in ("fused", "split"):
         raise ValueError(f"unknown BWD_IMPL {BWD_IMPL!r} (expected 'fused' "
                          "or 'split')")
@@ -409,38 +441,78 @@ def flash_attention_bwd(q, k, v, o, lse, do, *,
                                     **kw)
         return (dq, *flash_attention_bwd_dkv(q, k, v, o, lse, do,
                                              sm_scale=sm_scale, **kw))
-    sm_scale = _bwd_args(q, k, v, o, lse, do, sm_scale)
+    sm_scale = _bwd_args(q, k, v, o, lse, do, dlse, sm_scale)
     # K5 adds into dq from every key tile: zeroed f32, scaled and cast
     # after (as the JAX wrapper does outside its pallas_call).
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("fused", q, k, v, o, lse, do, dq, dk, dv, sm_scale,
-                dropout_rate, seed, hash_seq_len)
+    _launch_bwd("fused", q, k, v, o, lse, do, dq, dk, dv, sm_scale, **kw)
     return (dq * sm_scale).to(q.dtype), dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
-    """o = dropout(softmax(causal q k^T * sm_scale)) v with the forward
-    kernel (K4) and the backward of BWD_IMPL (K5, or K6 + K7). The
-    wrappers below apply it to CUDA tensors; on CPU tensors its entry
-    points take the plain versions (the CPU tests drive it that way)."""
+    """(o, lse) = (dropout(softmax(q k^T * sm_scale)) v, logsumexp of the
+    scores), causal or not, with the forward kernel (K4) and the backward
+    of BWD_IMPL (K5, or K6 + K7); lse's cotangent, when lse reaches a loss,
+    folds into the backward's row term. The wrappers below apply it to
+    CUDA tensors; on CPU tensors its entry points take the plain versions
+    (the CPU tests drive it that way)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seed, sm_scale, dropout_rate, hash_seq_len):
-        o, lse = flash_attention_fwd(q, k, v, sm_scale=sm_scale,
-                                     dropout_rate=dropout_rate, seed=seed,
-                                     hash_seq_len=hash_seq_len)
+    def forward(ctx, q, k, v, seed, causal, sm_scale, dropout_rate,
+                hash_seq_len):
+        kw = dict(causal=causal, sm_scale=sm_scale,
+                  dropout_rate=dropout_rate, hash_seq_len=hash_seq_len)
+        o, lse = flash_attention_fwd(q, k, v, seed=seed, **kw)
         ctx.save_for_backward(q, k, v, o, lse, seed)
-        ctx.kw = dict(sm_scale=sm_scale, dropout_rate=dropout_rate,
-                      hash_seq_len=hash_seq_len)
-        return o
+        ctx.kw = kw
+        # An unused output's cotangent arrives as None: no dlse, no dO.
+        ctx.set_materialize_grads(False)
+        return o, lse
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, dlse):
         q, k, v, o, lse, seed = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         seed=seed, **ctx.kw)
-        return dq, dk, dv, None, None, None, None
+        if do is None:
+            do = torch.zeros_like(o)
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, o, lse, do.contiguous(), seed=seed,
+            dlse=None if dlse is None else dlse.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_lse_dropout(q, k, v, seed, causal: bool = True,
+                                sm_scale: float | None = None,
+                                rate: float = 0.0,
+                                hash_heads: int | None = None,
+                                hash_seq_len: int | None = None):
+    """(o, lse (B, H, T) f32) of attention over (B, H, T, D), causal or
+    not, with attention-probability dropout keyed by GLOBAL coordinates:
+    ``seed`` holds the (5,) words [seed, b_off, h_off, q_off, k_off] (or
+    one seed, offsets 0), ``hash_heads`` / ``hash_seq_len`` the global
+    head count and sequence length the mask hash runs over, so every ring
+    block drops the elements the whole-sequence call would. lse is that
+    of the unmasked scores. Differentiable in both outputs. The heads are
+    not sharded in the port, so ``hash_heads`` is the call's H (None says
+    so too)."""
+    _require_seed(seed, rate)
+    if hash_heads not in (None, q.shape[1]):
+        raise ValueError(f"hash_heads {hash_heads} != the call's {q.shape[1]} "
+                         "heads: head-sharded calls are not ported yet")
+    if not q.is_cuda:
+        return torch_flash_attention(q, k, v, causal=causal,
+                                     sm_scale=sm_scale, dropout_rate=rate,
+                                     seed=seed, hash_seq_len=hash_seq_len)
+    words = seed_words(seed, q.device)
+    return FlashAttention.apply(q, k, v, words, bool(causal), sm_scale,
+                                float(rate), hash_seq_len)
+
+
+def flash_attention_lse(q, k, v, causal: bool = True,
+                        sm_scale: float | None = None):
+    """(o, lse (B, H, T) f32) of attention over (B, H, T, D), causal or
+    not; differentiable in both (the block primitive of ring attention)."""
+    return flash_attention_lse_dropout(q, k, v, None, causal, sm_scale)
 
 
 def flash_attention_dropout(q, k, v, seed, *, sm_scale: float | None = None,
@@ -449,14 +521,9 @@ def flash_attention_dropout(q, k, v, seed, *, sm_scale: float | None = None,
     """Causal flash attention with attention-probability dropout in the
     kernels: o = dropout(softmax(s)) v, the mask keyed by the seed words
     (seed_words) and the element's position. Differentiable."""
-    _require_seed(seed, dropout_rate)
-    if not q.is_cuda:
-        return torch_flash_attention(q, k, v, sm_scale=sm_scale,
-                                     dropout_rate=dropout_rate, seed=seed,
-                                     hash_seq_len=hash_seq_len)[0]
-    words = seed_words(seed, q.device)
-    return FlashAttention.apply(q, k, v, words, sm_scale, float(dropout_rate),
-                                hash_seq_len)
+    return flash_attention_lse_dropout(q, k, v, seed, True, sm_scale,
+                                       dropout_rate,
+                                       hash_seq_len=hash_seq_len)[0]
 
 
 def flash_attention(q, k, v, *, sm_scale: float | None = None

@@ -10,11 +10,24 @@ AdamW with weight decay on >= 2-D parameters only, global-norm gradient
 clipping, gradient accumulation, checkpoints under <out_dir>/ckpt with
 best-val gating, and resume (--init_from=resume / auto).
 
-One device. Causal attention goes through the flash kernels
-(ops/attention.py) on a CUDA device and through their plain PyTorch
-versions with --device=cpu; the dense projections stay cuBLAS GEMMs.
-The step runs eagerly whatever ``compile`` says (torch.compile or CUDA
-graph capture of the step is later work).
+One device, or one process per seq shard. Causal attention goes through
+the flash kernels (ops/attention.py) on a CUDA device and through their
+plain PyTorch versions with --device=cpu; the dense projections stay
+cuBLAS GEMMs. The step runs eagerly whatever ``compile`` says
+(torch.compile or CUDA graph capture of the step is later work).
+
+Sequence parallelism (mesh_sp > 1, attention_impl='ring'): mesh_sp
+processes, started as the JAX package's are (coordinator_address,
+num_processes, process_id, or COORDINATOR_ADDRESS / NUM_PROCESSES /
+PROCESS_ID; parallel/distributed.py, which picks nccl or gloo). Every
+rank draws the same global batch and keeps its columns in the ring
+layout's order; attention is ring attention over the ranks
+(ops/ring_attention.py); each rank backprops its share of the summed
+loss, tot_r / sum(cnt), and the parameter gradients are summed over the
+ranks before clipping and AdamW, so every rank steps the same
+parameters. Logging, event files and checkpoints come from rank 0;
+every rank loads a checkpoint to resume. The data, fsdp and model axes
+are not ported yet.
 
 Numerics kept from the JAX package, because they decide the trajectory:
 optax's schedule counts updates from 0, so with warmup the first update
@@ -46,6 +59,7 @@ from nanosandbox_tpu_torch.config import (GPTConfig, TrainConfig,
                                           check_ported, load_config,
                                           resolve_device,
                                           resolve_loss_chunk_size)
+from nanosandbox_tpu_torch.parallel import distributed
 
 # Peak dense bf16 FLOP/s per device for MFU (data sheets): NVIDIA H100
 # SXM 989 TFLOP/s. A CPU run reports MFU against a nominal 1 TFLOP/s.
@@ -126,21 +140,49 @@ class Trainer:
     def __init__(self, cfg: TrainConfig):
         from nanosandbox_tpu_torch.data.loader import BinDataset
         from nanosandbox_tpu_torch.models.gpt import GPT
+        from nanosandbox_tpu_torch.ops.ring_attention import ring_positions
+        from nanosandbox_tpu_torch.parallel.mesh import make_mesh
 
         check_ported(cfg)
         if cfg.init_from not in ("scratch", "resume", "auto"):
             raise ValueError(f"unknown init_from {cfg.init_from!r} (expected "
                              "scratch, resume or auto)")
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
+        self.process = distributed.initialize(
+            cfg.coordinator_address, cfg.num_processes, cfg.process_id,
+            resolve_device(cfg.device))
+        if cfg.mesh_sp > 1 and self.process.world_size == 1:
+            raise ValueError(
+                f"mesh_sp={cfg.mesh_sp} runs one process per seq shard: "
+                f"start {cfg.mesh_sp} processes with coordinator_address, "
+                "num_processes and process_id (or COORDINATOR_ADDRESS, "
+                "NUM_PROCESSES and PROCESS_ID)")
+        self.device = self.process.device
+        self.rank0 = self.process.rank == 0
+        self.mesh = make_mesh(cfg.mesh_dp, cfg.mesh_fsdp, cfg.mesh_tp,
+                              cfg.mesh_sp,
+                              world_size=self.process.world_size,
+                              rank=self.process.rank)
+        # Under sequence parallelism this rank's token columns, in the
+        # ring layout's order; None: the whole row.
+        self.columns = (ring_positions(cfg.block_size, cfg.mesh_sp,
+                                       self.mesh.seq_index, cfg.ring_layout)
+                        if self.mesh.seq > 1 else None)
         self.dataset = BinDataset(cfg.data_dir, cfg.dataset)
         vocab = cfg.vocab_size or self.dataset.vocab_size
         self.model_cfg = GPTConfig.from_train_config(cfg, vocab)
         self.loss_chunk_size = resolve_loss_chunk_size(
-            cfg.loss_chunk_size, cfg.batch_size, cfg.block_size, vocab)
+            cfg.loss_chunk_size, cfg.batch_size, cfg.block_size, vocab,
+            seq_shards=self.mesh.seq)
+        if self.mesh.seq > 1 and self.loss_chunk_size == 0:
+            raise NotImplementedError(
+                "full logits (loss_chunk_size=0) under mesh_sp > 1 are not "
+                "ported yet: sequence parallelism takes the chunked loss")
+        # Every rank initializes from the same seed: the same parameters.
         self.model = GPT(self.model_cfg, device=self.device,
                          generator=torch.Generator(
-                             device=self.device).manual_seed(cfg.seed))
+                             device=self.device).manual_seed(cfg.seed),
+                         mesh=self.mesh)
         self.optimizer, self.lr_schedule = make_optimizer(self.model, cfg)
         self.step = 0  # optimizer updates done: the schedule's count
         from nanosandbox_tpu_torch.utils.metrics import warn_once
@@ -148,7 +190,7 @@ class Trainer:
             warn_once("compile", "[train] compile=True: the port runs the "
                       "step eagerly (torch.compile / CUDA graphs are not "
                       "ported yet)")
-        if cfg.attention_impl not in ("auto", "pallas"):
+        if cfg.attention_impl not in ("auto", "pallas", "ring"):
             warn_once("attention_impl", f"[train] attention_impl="
                       f"{cfg.attention_impl!r} names a JAX implementation "
                       "and selects nothing here: causal attention runs the "
@@ -158,20 +200,30 @@ class Trainer:
     # -- steps ---------------------------------------------------------------
 
     def loss(self, x: torch.Tensor, y: torch.Tensor,
-             generator: torch.Generator | None = None) -> torch.Tensor:
-        """Mean cross entropy: chunked head + loss when loss_chunk_size >
-        0, full logits otherwise."""
+             generator: torch.Generator | None = None):
+        """(what this rank backprops, the mean cross entropy): chunked
+        head + loss when loss_chunk_size > 0, full logits otherwise; one
+        tensor twice on one process, and under sequence parallelism this
+        rank's share tot_r / sum(cnt) and the all-reduced mean."""
         from nanosandbox_tpu_torch.models.gpt import (
-            chunked_cross_entropy_loss, cross_entropy_loss)
+            chunked_cross_entropy_loss, cross_entropy_loss,
+            sharded_chunked_cross_entropy_loss)
 
+        kw = dict(chunk_size=self.loss_chunk_size,
+                  compute_dtype=self.cfg.compute_dtype)
+        if self.mesh.seq > 1:
+            hidden = self.model.hidden(x, dropout_generator=generator)
+            return sharded_chunked_cross_entropy_loss(
+                hidden, self.model.wte.weight, y, group=self.mesh.seq_group,
+                **kw)
         if self.loss_chunk_size > 0:
             hidden = self.model.hidden(x, dropout_generator=generator)
-            return chunked_cross_entropy_loss(
-                hidden, self.model.wte.weight, y,
-                chunk_size=self.loss_chunk_size,
-                compute_dtype=self.cfg.compute_dtype)
-        return cross_entropy_loss(self.model(x, dropout_generator=generator),
-                                  y)
+            loss = chunked_cross_entropy_loss(hidden, self.model.wte.weight,
+                                              y, **kw)
+        else:
+            loss = cross_entropy_loss(self.model(
+                x, dropout_generator=generator), y)
+        return loss, loss
 
     def dropout_generator(self, iter_num: int) -> torch.Generator | None:
         """The step's mask stream, keyed by (seed + 7, iter_num); None
@@ -186,15 +238,19 @@ class Trainer:
     def grads(self, x: torch.Tensor, y: torch.Tensor,
               generator: torch.Generator | None = None) -> torch.Tensor:
         """Fill every parameter's .grad with the mean gradient over the
-        batch's gradient_accumulation_steps micro-batches; returns the
-        mean loss (a device scalar)."""
+        batch's gradient_accumulation_steps micro-batches (summed over the
+        seq ranks under sequence parallelism); returns the mean loss (a
+        device scalar)."""
         accum = self.cfg.gradient_accumulation_steps
         self.optimizer.zero_grad(set_to_none=True)
         total = None
         for xm, ym in zip(x.chunk(accum), y.chunk(accum)):
-            loss = self.loss(xm, ym, generator)
-            (loss / accum if accum > 1 else loss).backward()
+            objective, loss = self.loss(xm, ym, generator)
+            (objective / accum if accum > 1 else objective).backward()
             total = loss.detach() if total is None else total + loss.detach()
+        if self.mesh.seq > 1:
+            distributed.all_reduce_grads_(self.model.parameters(),
+                                          self.mesh.seq_group)
         return total / accum
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor,
@@ -212,7 +268,7 @@ class Trainer:
     @torch.no_grad()
     def eval_loss(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         self.model.eval()
-        return self.loss(x, y)
+        return self.loss(x, y)[1]
 
     # -- data ----------------------------------------------------------------
 
@@ -221,7 +277,8 @@ class Trainer:
 
         return BatchLoader(self.dataset, split, self.cfg.sequences_per_iter,
                            self.cfg.block_size, seed=self.cfg.seed,
-                           start_step=start_step, prefetch=prefetch)
+                           start_step=start_step, prefetch=prefetch,
+                           columns=self.columns)
 
     def to_device(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(a).long()
@@ -236,11 +293,12 @@ class Trainer:
         every call (step index 1_000_000 + i, seed + 1): a low-variance,
         fixed sample. One host read per split."""
         eval_iters = eval_iters or self.cfg.eval_iters
+        cols = slice(None) if self.columns is None else self.columns
         out = {}
         for split in ("train", "val"):
-            batches = [self.dataset.sample_batch(
+            batches = [tuple(a[:, cols] for a in self.dataset.sample_batch(
                 split, 1_000_000 + i, self.cfg.batch_size,
-                self.cfg.block_size, seed=self.cfg.seed + 1)
+                self.cfg.block_size, seed=self.cfg.seed + 1))
                 for i in range(eval_iters)]
             losses = [self.eval_loss(self.to_device(xb), self.to_device(yb))
                       for xb, yb in batches]
@@ -260,17 +318,24 @@ class Trainer:
         return (6 * n + 12 * L * H * Q * T) * cfg.tokens_per_iter
 
     def peak_flops(self) -> float:
+        """The peak of the cards the run occupies: one per rank under
+        nccl, one shared by every rank under gloo (or the CPU)."""
         kind = (torch.cuda.get_device_name(self.device)
                 if self.device.type == "cuda" else "cpu")
+        cards = (self.process.world_size if self.process.backend == "nccl"
+                 else 1)
         for k, v in PEAK_FLOPS.items():
             if k.lower() in kind.lower():
-                return v
+                return v * cards
         raise ValueError(f"no peak FLOP/s for {kind!r}: add it to "
                          "train.PEAK_FLOPS to report MFU")
 
     # -- checkpoints ---------------------------------------------------------
 
     def save(self, ckpt, iter_num: int, best_val_loss: float) -> bool:
+        """Rank 0 writes; every rank holds the same state."""
+        if not self.rank0:
+            return False
         return ckpt.save(iter_num, model=self.model.state_dict(),
                          optimizer=self.optimizer.state_dict(),
                          iter_num=iter_num, best_val_loss=best_val_loss,
@@ -291,6 +356,7 @@ class Trainer:
         from nanosandbox_tpu_torch.utils.metrics import MetricsWriter
 
         cfg = self.cfg
+        say = print if self.rank0 else (lambda *a, **k: None)
         ckpt = TrainCheckpointer(cfg.out_dir, keep=cfg.keep_checkpoints)
         iter_num = 0
         best_val_loss = 1e9
@@ -302,10 +368,12 @@ class Trainer:
             blob = self.restore(ckpt)
             iter_num = int(blob["iter_num"])
             best_val_loss = float(blob["best_val_loss"])
-            print(f"resumed from iter {iter_num} "
-                  f"(best val loss {best_val_loss:.4f})")
+            say(f"resumed from iter {iter_num} "
+                f"(best val loss {best_val_loss:.4f})")
 
+        # Rank 0 writes the metrics; the other ranks' writer is disabled.
         writer = MetricsWriter(cfg.resolved_log_dir, cfg.run_name,
+                               enabled=self.rank0,
                                tensorboard=cfg.tensorboard)
         loader = self.make_loader("train", start_step=iter_num)
         writer.write_header({
@@ -330,7 +398,7 @@ class Trainer:
                         and iter_num % cfg.eval_interval == 0):
                     losses = self.estimate_loss()
                     last_eval = (iter_num, losses)
-                    print(f"step {iter_num}: train loss "
+                    say(f"step {iter_num}: train loss "
                           f"{losses['train']:.4f}, val loss "
                           f"{losses['val']:.4f}")
                     writer.log(iter_num, {"eval/train_loss": losses["train"],
@@ -365,7 +433,7 @@ class Trainer:
                     t0, window_start_iter = now, iter_num
                     toks = tokens_per_iter / max(dt, 1e-9)
                     mfu = flops_per_iter / max(dt, 1e-9) / peak
-                    print(f"iter {iter_num}: loss {loss:.4f}, "
+                    say(f"iter {iter_num}: loss {loss:.4f}, "
                           f"time {dt * 1000:.2f}ms, "
                           f"tok/s {toks:,.0f}, mfu {mfu * 100:.2f}%")
                     grad_norm = float(metrics["grad_norm"])
@@ -395,11 +463,15 @@ class Trainer:
 def main(argv: list[str] | None = None) -> dict:
     cfg = load_config(argv if argv is not None else sys.argv[1:])
     trainer = Trainer(cfg)
-    print(f"tokens per iteration: {cfg.tokens_per_iter:,}")
-    print(f"device: {trainer.device}"
-          + (f" ({torch.cuda.get_device_name(trainer.device)})"
-             if trainer.device.type == "cuda" else ""))
-    return trainer.run()
+    try:
+        if trainer.rank0:
+            print(f"tokens per iteration: {cfg.tokens_per_iter:,}")
+            print(f"device: {trainer.device}"
+                  + (f" ({torch.cuda.get_device_name(trainer.device)})"
+                     if trainer.device.type == "cuda" else ""))
+        return trainer.run()
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

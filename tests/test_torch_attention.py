@@ -117,7 +117,7 @@ def test_flash_attention_dropout_matches_jax(T, seed):
     # versions its kernel entry points take for CPU tensors.
     words = tattn.seed_words(seed)
     o, _, *g = _torch_grads(lambda q, k, v: tattn.FlashAttention.apply(
-        q, k, v, words, None, rate, None), q, k, v, do)
+        q, k, v, words, True, None, rate, None)[0], q, k, v, do)
     np.testing.assert_allclose(o, jo, atol=TOL_O)
     for got, ref in zip(g, jg):
         np.testing.assert_allclose(got, ref, atol=TOL_G)

@@ -15,6 +15,7 @@
 """
 
 import ast
+import json
 import os
 import re
 import subprocess
@@ -56,21 +57,25 @@ def _forbidden(name: str) -> bool:
 
 def test_importing_every_module_loads_no_jax():
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, json, pkgutil, sys\n"
         "import nanosandbox_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
-        "print(len(names), bad)\n")
+        "print(json.dumps([names, bad]))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                           capture_output=True, text=True, timeout=120,
                           env=env)
     assert proc.returncode == 0, proc.stderr
-    n, bad = proc.stdout.strip().split(" ", 1)
-    assert int(n) >= 12 and bad == "[]", proc.stdout
+    names, bad = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(names) >= 15 and bad == [], proc.stdout
+    # Ring attention and the multi-process modules are among them.
+    for mod in ("ops.ring_attention", "parallel.distributed",
+                "parallel.mesh"):
+        assert f"nanosandbox_tpu_torch.{mod}" in names, names
 
 
 def test_no_jax_import_statements_in_the_package():
@@ -178,7 +183,7 @@ def test_chip_smoke_build_report_parsers():
         import chip_smoke
     finally:
         sys.path.remove(str(REPO))
-    fwd = "_ZN12_GLOBAL__N_120flash_fwd_mma_kernelILi64ELi8EEEvPK13bf16"
+    fwd = "_ZN12_GLOBAL__N_120flash_fwd_mma_kernelILi64ELi8ELb1EEEvPK13bf16"
     log = (f"ptxas info    : Compiling entry function '{fwd}' for "
            "'sm_90a'\nptxas info    : Function properties for x\n"
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
@@ -192,38 +197,43 @@ def test_chip_smoke_build_report_parsers():
             "        /*0110*/  HMMA.16816.F32.BF16 R8, R8, R14, R8 ;\n"
             "\t\tFunction : _Zold\n        /*0000*/  FFMA R1, R2, R3, R1 ;\n")
     assert chip_smoke.sass_mma_counts(sass) == {fwd: 2, "_Zold": 0}
-    assert chip_smoke.kernel_label(fwd) == "flash_fwd_mma_kernel<D=64>"
-    # K7 (the backward without dQ) and K1 over each pool's storage type:
-    # bf16, int8 (signed char) and int4 (nsb::Int4, a substitution).
+    assert (chip_smoke.kernel_label(fwd)
+            == "flash_fwd_mma_kernel<D=64, causal=1>")
+    # K7 (the backward without dQ), K5 non-causal, and K1 over each pool's
+    # storage type: bf16, int8 (signed char) and int4 (nsb::Int4, a
+    # substitution).
     labels = {
-        "_ZN12_GLOBAL__N_120flash_bwd_mma_kernelILi128ELb0EEEvPK13__nv_"
-        "bfloat16S3_": "flash_bwd_mma_kernel<D=128, dq=0>",
-        "_ZN12_GLOBAL__N_120flash_bwd_mma_kernelILi32ELb1EEEvPK13__nv_"
-        "bfloat16S3_": "flash_bwd_mma_kernel<D=32, dq=1>",
+        "_ZN12_GLOBAL__N_120flash_bwd_mma_kernelILi128ELb0ELb1EEEvPK13__nv_"
+        "bfloat16S3_": "flash_bwd_mma_kernel<D=128, dq=0, causal=1>",
+        "_ZN12_GLOBAL__N_120flash_bwd_mma_kernelILi32ELb1ELb0EEEvPK13__nv_"
+        "bfloat16S3_": "flash_bwd_mma_kernel<D=32, dq=1, causal=0>",
         "_ZN3nsb12_GLOBAL__N_124paged_prefill_mma_kernelI13__nv_bfloat16"
         "Li64EEEvPKS2_": "paged_prefill_mma_kernel<bf16, D=64>",
         "_ZN3nsb12_GLOBAL__N_124paged_prefill_mma_kernelIaLi32EEEvPK13__nv_"
         "bfloat16": "paged_prefill_mma_kernel<int8, D=32>",
         "_ZN3nsb12_GLOBAL__N_124paged_prefill_mma_kernelINS_4Int4ELi128EEEv"
         "PK13__nv_bfloat16": "paged_prefill_mma_kernel<int4, D=128>",
-        "_ZN12_GLOBAL__N_123flash_bwd_dq_mma_kernelILi64EEEvPK13__nv_"
-        "bfloat16S3_": "flash_bwd_dq_mma_kernel<D=64>"}
+        "_ZN12_GLOBAL__N_123flash_bwd_dq_mma_kernelILi64ELb1ELb0EEEvPK13__nv_"
+        "bfloat16S3_": "flash_bwd_dq_mma_kernel<D=64, dlse=1, causal=0>"}
     for mangled, label in labels.items():
         assert chip_smoke.kernel_label(mangled) == label
         assert label in chip_smoke.TENSOR_CORE_INSTANCES
-    assert len(chip_smoke.TENSOR_CORE_INSTANCES) == 21
+    # K4 x 3 head_dims x causal or not, K6 x 3 x dlse or not x 2, K5/K7 x
+    # 3 x 2 x 2, K1 x 9.
+    assert len(chip_smoke.TENSOR_CORE_INSTANCES) == 39
     # The kernels on CUDA cores: held to 0 spills, no HMMA asked. The fp32
-    # K4 with 32- and 64-query blocks, the fp32 K5/K7 and K6, K1 in each
-    # of its f32 (query, pool) pairs with 32- and 64-query blocks, and K2
-    # in every (query, pool) pair (a repeated bf16 is a substitution).
+    # K4 with 32- and 64-query blocks (non-causal: 32), the fp32 K5/K7 and
+    # K6 causal and not, K1 in each of its f32 (query, pool) pairs with
+    # 32- and 64-query blocks, and K2 in every (query, pool) pair (a
+    # repeated bf16 is a substitution).
     pf = ("_ZN3nsb51_GLOBAL__N__737eb1aa_18_paged_attention_cu_2415576824"
           "paged_prefill_f32_kernel")
     labels = {
-        "_ZN12_GLOBAL__N_119flash_bwd_kv_kernelILi128ELb0EEEvPKfS2_":
-        "flash_bwd_kv_kernel<D=128, dq=0>",
+        "_ZN12_GLOBAL__N_119flash_bwd_kv_kernelILi128ELb0ELb1EEEvPKfS2_":
+        "flash_bwd_kv_kernel<D=128, dq=0, causal=1>",
         "_ZN51_GLOBAL__N__5ee34151_18_flash_attention_cu_bc8f9a2a23flash_bwd_"
-        "dq_f32_kernelILi64EEEvPKfS2_S2_S2_S2_S2_PfiifNS_11DropoutArgsE":
-        "flash_bwd_dq_f32_kernel<D=64>",
+        "dq_f32_kernelILi64ELb0EEEvPKfS2_S2_S2_S2_S2_S2_PfiifNS_11DropoutArgs"
+        "E": "flash_bwd_dq_f32_kernel<D=64, causal=0>",
         pf + "IffLi64ELi32EEEvPKT_PKNS_2KVIT0_E1SESA_PKfSC_PKiSE_PS2_iiiiif":
         "paged_prefill_f32_kernel<q=fp32, kv=fp32, D=64, BQ=32>",
         pf + "If13__nv_bfloat16Li32ELi64EEEvPKT_PKNS_2KVIT0_E1SESB_PKfSD_"
@@ -236,10 +246,12 @@ def test_chip_smoke_build_report_parsers():
         pf + "I13__nv_bfloat16fLi64ELi32EEEvPKT_PKNS_2KVIT0_E1SESB_PKfSD_"
         "PKiSF_PS3_iiiiif":
         "paged_prefill_f32_kernel<q=bf16, kv=fp32, D=64, BQ=32>",
-        "_ZN12_GLOBAL__N_120flash_fwd_f32_kernelILi128ELi32EEEvPKfS1_S1_PfS2_"
-        "iifNS_11DropoutArgsE": "flash_fwd_f32_kernel<D=128, BQ=32>",
-        "_ZN12_GLOBAL__N_120flash_fwd_f32_kernelILi64ELi64EEEvPKfS1_S1_PfS2_"
-        "iifNS_11DropoutArgsE": "flash_fwd_f32_kernel<D=64, BQ=64>",
+        "_ZN12_GLOBAL__N_120flash_fwd_f32_kernelILi128ELi32ELb0EEEvPKfS1_S1_"
+        "PfS2_iifNS_11DropoutArgsE":
+        "flash_fwd_f32_kernel<D=128, BQ=32, causal=0>",
+        "_ZN12_GLOBAL__N_120flash_fwd_f32_kernelILi64ELi64ELb1EEEvPKfS1_S1_"
+        "PfS2_iifNS_11DropoutArgsE":
+        "flash_fwd_f32_kernel<D=64, BQ=64, causal=1>",
         "_ZN3nsb12_GLOBAL__N_119paged_decode_kernelI13__nv_bfloat16S2_Li64EE"
         "EvPKT_": "paged_decode_kernel<q=bf16, kv=bf16, D=64>",
         "_ZN3nsb12_GLOBAL__N_119paged_decode_kernelIfNS_4Int4ELi32EEEvPKT_":
@@ -251,7 +263,7 @@ def test_chip_smoke_build_report_parsers():
     for mangled, label in labels.items():
         assert chip_smoke.kernel_label(mangled) == label
         assert label in chip_smoke.CUDA_CORE_INSTANCES
-    assert len(chip_smoke.CUDA_CORE_INSTANCES) == 69
+    assert len(chip_smoke.CUDA_CORE_INSTANCES) == 81
 
 
 def test_chip_smoke_kernel_names_are_kernels_in_the_sources():

@@ -74,13 +74,19 @@ def test_config_files_load_like_the_jax_package():
         tconfig.load_config(["--learning_rte=1"])
 
 
+# The seq axis is ported (ring attention, multi-process start-up): its
+# cases combine it with what still raises -- another mesh axis, or
+# dropout under sequence parallelism.
 @pytest.mark.parametrize("override", [
-    dict(mesh_tp=2), dict(mesh_fsdp=2), dict(mesh_sp=2), dict(mesh_dp=4),
+    dict(mesh_tp=2), dict(mesh_fsdp=2),
+    dict(mesh_sp=2, mesh_dp=2, attention_impl="ring"), dict(mesh_dp=4),
     dict(mesh_slices=-1), dict(shard_params=True),
-    dict(attention_impl="ring"), dict(init_from="gpt2"),
+    dict(attention_impl="ring", mesh_fsdp=2), dict(init_from="gpt2"),
     dict(init_from="hf:/x"), dict(memory_report=True),
-    dict(profile_steps="1:3"), dict(coordinator_address="h:1"),
-    dict(num_processes=2)])
+    dict(profile_steps="1:3"),
+    dict(coordinator_address="h:1", mesh_sp=2, attention_impl="ring",
+         dropout=0.1),
+    dict(num_processes=2, mesh_sp=2, mesh_tp=2, attention_impl="ring")])
 def test_unported_keys_raise(override):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tconfig.check_ported(tconfig.TrainConfig(**override))
