@@ -12,8 +12,9 @@ line):
               each tensor-core instance (TENSOR_CORE_INSTANCES: bf16 K4,
               K5, K6 and K7, and K1 under a bf16 query over bf16, int8
               and int4 pools, at head_dim 32, 64, 128; all must be found)
-              its registers, spill stores (must be 0) and HMMA/HGMMA
-              count in the SASS (cuobjdump; must not be 0), and the
+              its registers, spill stores (must be 0) and HMMA and HGMMA
+              counts in the SASS (cuobjdump; must not be 0, and the
+              wgmma kernels' HGMMA count must not be 0), and the
               registers and spill stores (must be 0) of each CUDA-core
               instance (CUDA_CORE_INSTANCES: the fp32 K4 with 32- and
               64-query blocks, K5, K6, K7, K1 in each of its f32 (query,
@@ -69,11 +70,16 @@ line):
               bound, its plain version and F.scaled_dot_product_attention
               (is_causal; forward, and forward+backward minus forward,
               which the fused backward and the split pair K6 + K7 are
-              printed against); then ring attention's blocks (B 1, H 12,
-              T 1024, D 64): K4 non-causal with its lse, K5 and K6 + K7
-              non-causal given a random lse cotangent, bf16 and fp32,
-              without and with dropout, at the same limits, timed beside
-              their bound and non-causal SDPA;
+              printed against); then ring attention's blocks (B 1 and 4,
+              H 12, T 1024, D 64): K4 non-causal with its lse, K5 and
+              K6 + K7 non-causal given a random lse cotangent, bf16
+              without and with dropout, fp32 without (and at B 1 with)
+              it, at the same limits, timed beside their bound and
+              non-causal SDPA, with the grid, blocks an SM and waves of
+              the wgmma K4 and K5 and each kernel of one of their calls
+              (torch.profiler); and, correctness only, the bf16 ones at
+              head_dim 32 and 128 and at ragged, partial and one-key
+              tiles, with and without dlse and dropout;
   8. train parity  GPT-2 124M in fp32 (TF32 off) on a 2 x 1024 batch,
               without dropout and with dropout 0.1 (masks from alike-
               seeded generators): loss and every parameter gradient with
@@ -116,7 +122,10 @@ line):
               rows of the attention projections' gradients at steps 0-1,
               within the stated limits, every rank's launch counts equal
               to the ring schedule, no plain version on the card; step
-              time, tok/s, peak memory and exchange costs.
+              time, tok/s, peak memory and exchange costs; rank 0 traces
+              one bf16 step of the fused leg (torch.profiler): its wall
+              and the device ms of the non-causal ring blocks, of the
+              other flash kernels and of everything else.
 
 The last line is {"ok": true, "device": {...}}; the line before it is a
 JSON object with one entry per kernel instance timed (K1 twice for each
@@ -206,29 +215,38 @@ def time_ms(fn, reps: int = 25) -> float:
 
 # The kernels on the tensor cores, by the name their symbols carry.
 TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_mma_kernel",
-                       "flash_bwd_dq_mma_kernel", "paged_prefill_mma_kernel")
+                       "flash_bwd_dq_mma_kernel", "paged_prefill_mma_kernel",
+                       "flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel")
+# Of those, the ones on wgmma (csrc/flash_attention_sm90.cu: the
+# non-causal bf16 K4 and K5): their SASS must hold HGMMA, not only HMMA.
+WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel")
 # CUDA-core kernels whose instances phase 2 holds to 0 spill bytes: the
 # f32 ones and K2.
 CUDA_CORE_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_kv_kernel",
                      "flash_bwd_dq_f32_kernel", "paged_prefill_f32_kernel",
                      "paged_decode_kernel")
 HEAD_DIMS = (32, 64, 128)
-# The flash-attention kernels (K4-K7): each has a causal and a non-causal
-# instance (ring attention's off-diagonal blocks).
+# The flash-attention kernels (K4-K7), causal (their last bool template
+# argument) or not (ring attention's off-diagonal blocks); the wgmma ones
+# are non-causal only and have no such argument.
 FLASH_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_mma_kernel",
                  "flash_bwd_dq_mma_kernel", "flash_fwd_f32_kernel",
-                 "flash_bwd_kv_kernel", "flash_bwd_dq_f32_kernel")
+                 "flash_bwd_kv_kernel", "flash_bwd_dq_f32_kernel",
+                 "flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel")
 # The template instances phase 2 must find, as kernel_label names them:
-# K4, K6 (bf16; with and without reading dlse), K5 and K7 (bf16, with and
-# without dQ), each causal and not, and K1 under a bf16 query over each
-# bf16, int8 and int4 pool.
+# the bf16 K4 (mma.sync causal, wgmma non-causal), K6 (with and without
+# reading dlse, causal and not), K5 (mma.sync causal, wgmma non-causal),
+# K7 (the mma.sync kernel without dQ, causal and not), and K1 under a
+# bf16 query over each bf16, int8 and int4 pool.
 TENSOR_CORE_INSTANCES = tuple(sorted(
-    [f"flash_fwd_mma_kernel<D={d}, causal={c}>" for d in HEAD_DIMS
-     for c in (0, 1)]
+    [f"flash_fwd_mma_kernel<D={d}, causal=1>" for d in HEAD_DIMS]
+    + [f"flash_fwd_wgmma_kernel<D={d}, causal=0>" for d in HEAD_DIMS]
     + [f"flash_bwd_dq_mma_kernel<D={d}, dlse={w}, causal={c}>"
        for d in HEAD_DIMS for w in (0, 1) for c in (0, 1)]
-    + [f"flash_bwd_mma_kernel<D={d}, dq={w}, causal={c}>" for d in HEAD_DIMS
-       for w in (0, 1) for c in (0, 1)]
+    + [f"flash_bwd_mma_kernel<D={d}, dq=1, causal=1>" for d in HEAD_DIMS]
+    + [f"flash_bwd_wgmma_kernel<D={d}, causal=0>" for d in HEAD_DIMS]
+    + [f"flash_bwd_mma_kernel<D={d}, dq=0, causal={c}>" for d in HEAD_DIMS
+       for c in (0, 1)]
     + [f"paged_prefill_mma_kernel<{kv}, D={d}>" for d in HEAD_DIMS
        for kv in ("bf16", "int8", "int4")]))
 # The (query, pool) pairs of the f32 K1: an fp32 query over every pool,
@@ -287,9 +305,11 @@ def ptxas_report(log: str) -> dict:
 
 
 def sass_mma_counts(sass: str) -> dict:
-    """{mangled kernel name: tensor-core instructions (HMMA / HGMMA)} in
-    cuobjdump -sass output."""
-    return {block.split()[0]: len(re.findall(r"\bHG?MMA\.", block))
+    """{mangled kernel name: (HMMA, HGMMA) instruction counts} in
+    cuobjdump -sass output: mma.sync's and wgmma's tensor-core
+    instructions."""
+    return {block.split()[0]: (len(re.findall(r"\bHMMA\.", block)),
+                               len(re.findall(r"\bHGMMA\.", block)))
             for block in sass.split("Function : ")[1:]}
 
 
@@ -314,7 +334,8 @@ def kernel_label(mangled: str) -> str:
     args = mangled.split(name, 1)[1]
     head_dim = re.search(r"Li(\d+)E", args).group(1)
     bools = re.findall(r"Lb([01])E", args)
-    causal = f", causal={bools[-1]}" if name in FLASH_KERNELS else ""
+    causal = (f", causal={bools[-1] if bools else 0}"
+              if name in FLASH_KERNELS else "")
     if name == "paged_prefill_f32_kernel":
         qd, kv = mangled_pair(args)
         bq = re.findall(r"Li(\d+)E", args)[1]
@@ -343,7 +364,8 @@ def check_build(_build) -> None:
     tensor-core kernel and the registers and spill stores of the f32
     CUDA-core kernels (K1 under an fp32 query or over an fp32 pool, K5,
     K6, K7). Fails if an instance is missing, if a tensor-core kernel has
-    no HMMA / HGMMA, or if one of either spills."""
+    no HMMA / HGMMA (a wgmma kernel no HGMMA), or if one of either
+    spills."""
     _build.library()
     info = _build.build_info
     print(f"  {len(info['libs'])} libraries in {info['seconds']:.1f} s "
@@ -363,7 +385,7 @@ def check_build(_build) -> None:
         if names:
             mma = sass_mma_counts(cuobjdump_sass(lib["path"],
                                                  _build._nvcc()))
-            tc += [(kernel_label(n), *report[n], mma.get(n, 0))
+            tc += [(kernel_label(n), *report[n], mma.get(n, (0, 0)))
                    for n in names]
         cc += [(kernel_label(n), *report[n]) for n in report
                if any(k in n for k in CUDA_CORE_KERNELS)]
@@ -372,12 +394,14 @@ def check_build(_build) -> None:
         found = tuple(sorted(t[0] for t in got))
         if found != want:
             fail(f"expected the {kind} instances {want}, found {found}")
-    for label, regs, spill, mma in sorted(tc):
+    for label, regs, spill, (hmma, hgmma) in sorted(tc):
         print(f"  {label}: {regs} registers, {spill} bytes spill stores, "
-              f"{mma} HMMA/HGMMA instructions in SASS")
-        if mma == 0 or spill:
-            fail(f"{label}: {mma} tensor-core instructions in its SASS, "
-                 f"{spill} bytes spilled (needs > 0 and 0)")
+              f"{hmma} HMMA and {hgmma} HGMMA instructions in SASS")
+        wgmma = label.split("<", 1)[0] in WGMMA_KERNELS
+        if (hgmma if wgmma else hmma + hgmma) == 0 or spill:
+            fail(f"{label}: {hmma} HMMA and {hgmma} HGMMA instructions in "
+                 f"its SASS, {spill} bytes spilled (needs > 0 "
+                 f"{'HGMMA' if wgmma else 'of either'} and 0)")
     for label, regs, spill in sorted(cc):
         print(f"  {label} (CUDA cores): {regs} registers, {spill} bytes "
               "spill stores")
@@ -1086,69 +1110,151 @@ def check_train_kernels(at) -> dict:
     return cases
 
 
-# Ring attention's block shape at phase 13's run: B 1, H 12, a zigzag
-# half-chunk of the 8192-token sequence over 4 ranks (1024), D 64.
-RING_BLOCK = (1, 12, 1024, 64)
+# Ring attention's block shapes: phase 13's run (B 1, H 12, a zigzag
+# half-chunk of the 8192-token sequence over 4 ranks: 1024, D 64), and the
+# same at configs/train_longcontext_8k.py's committed batch_size = 4
+# (phase 13 cuts it to 1).
+RING_BLOCKS = ((1, 12, 1024, 64), (4, 12, 1024, 64))
 RING_T = 8192
+# Correctness only, bf16, the non-causal wgmma K4 and K5 (and K6 + K7) at
+# their tile edges: (B, H, T, D, with dlse, dropout rate): head_dim 32 and
+# 128, ragged and partial tiles, a single key, several rows and heads.
+RING_EDGES = ((2, 4, 256, 32, True, 0.0), (2, 4, 256, 128, True, 0.1),
+              (2, 4, 200, 64, False, 0.1), (1, 1, 17, 64, False, 0.0),
+              (1, 1, 1, 64, True, 0.0), (1, 12, 1000, 64, True, 0.0),
+              (3, 2, 33, 32, True, 0.1), (1, 3, 65, 128, False, 0.0))
+
+
+def print_wgmma_shapes(at) -> None:
+    """The grid, blocks an SM (the occupancy the kernel's registers and
+    shared memory allow) and waves of the wgmma K4 and K5 at each ring
+    block shape."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, H, T, D in RING_BLOCKS:
+        for kind, name in (("fwd", "flash_fwd_wgmma_kernel"),
+                           ("fused", "flash_bwd_wgmma_kernel")):
+            sh = at.wgmma_launch_shape(kind, B * H, T, D)
+            n = sh["grid"][0] * sh["grid"][1]
+            print(f"  {name} at B={B} H={H} T={T} D={D}: grid "
+                  f"{sh['grid']} = {n} blocks of {sh['threads']} threads, "
+                  f"{sh['blocks_per_sm']} blocks an SM, "
+                  f"{n / (sh['blocks_per_sm'] * sms):.2f} waves on {sms} "
+                  "SMs")
+
+
+def profile_ring_calls(at, rng, calls: int = 10) -> None:
+    """Each kernel of one non-causal bf16 K4 and K5 call (the backward
+    given a random lse cotangent) at each of RING_BLOCKS, by
+    torch.profiler's device time (warm L2, ``calls`` calls, no launch
+    gaps): what of a call's time_ms lies in its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for B, H, T, D in RING_BLOCKS:
+        q, k, v, do = qkv(rng, B, H, T, D, torch.bfloat16)
+        dlse = torch.from_numpy(0.1 * rng.standard_normal(
+            (B, H, T), dtype=np.float32)).to(DEVICE)
+        o, lse = at.flash_attention_fwd(q, k, v, causal=False)
+        for kind, fn in (
+                ("fwd", lambda: at.flash_attention_fwd(q, k, v,
+                                                       causal=False)),
+                ("fused", lambda: at.flash_attention_bwd(
+                    q, k, v, o, lse, do, causal=False, dlse=dlse))):
+            fn()
+            sync()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                sync()
+            us = {re.sub(r"\(anonymous namespace\)::", "",
+                         e.key).split("(")[0]: e.self_device_time_total / calls
+                  for e in prof.key_averages()
+                  if e.self_device_time_total > 0}
+            print(f"  {kind} at B={B} H={H} T={T} D={D}, a call's kernels "
+                  "(us, warm L2): " + ", ".join(
+                      f"{n} {t:.2f}" for n, t in sorted(
+                          us.items(), key=lambda kv: -kv[1])))
 
 
 def check_ring_blocks(at) -> dict:
     """The instances ring attention adds (ops/ring_attention.py): K4
     non-causal with its lse, K5 and K6 + K7 non-causal given a random lse
-    cotangent, in bf16 and fp32 (TF32 off), without and with dropout 0.1
-    (seed words of a late-half query block against an early-half key
-    block, hashed over the global 8192 positions), at RING_BLOCK. Each
-    is held to its plain version at TRAIN_TOL and timed beside its bound
-    (T^2 score elements), its plain version and SDPA (is_causal=False,
-    no dropout, no lse cotangent). Returns the timed cases keyed
-    "<kind>[_fp32][_dropout]", with the max |err| of their check."""
+    cotangent, at each of RING_BLOCKS: in bf16 without and with dropout
+    0.1 (seed words of a late-half query block against an early-half key
+    block, hashed over the global 8192 positions), in fp32 (TF32 off)
+    without (and at B 1 with) it. Each is held to its plain version at
+    TRAIN_TOL and timed beside its bound (T^2 score elements), its plain
+    version and SDPA (is_causal=False, no dropout, no lse cotangent); then
+    the RING_EDGES cases, correctness only. Returns the timed cases keyed
+    "<kind>[_fp32][_dropout][_b4]", with the max |err| of their check."""
     rng = np.random.default_rng(SEED + 13)
-    B, H, T, D = RING_BLOCK
-    shape = f"B={B} H={H} T={T} D={D} non-causal"
     cases, rows = {}, []
     outputs = {"fwd": ("o", "lse"), "fused": ("fused_dq", "fused_dk",
                                               "fused_dv"),
                "dq": ("split_dq",), "dkv": ("split_dk", "split_dv")}
-    for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
-        for rate in (0.0, 0.1):
-            inputs = qkv(rng, B, H, T, D, dtype)
-            dlse = torch.from_numpy(0.1 * rng.standard_normal(
-                (B, H, T), dtype=np.float32)).to(DEVICE)
-            # The seed words on the card, as the ring makes them: a host
-            # list would be copied in every timed call, behind the stream.
-            seed = torch.tensor([SEED, 0, 0, 5 * T, 2 * T], device=DEVICE)
-            kw = dict(rate=rate, seed=seed, hash_seq_len=RING_T)
-            row = check_attention(at, shape, *inputs, causal=False,
-                                  dlse=dlse, **kw)
-            rows.append(row)
-            timed = time_train_kernels(at, inputs, ("fwd", "fused", "dq",
-                                                    "dkv"),
-                                       causal=False, dlse=dlse, **kw)
-            for kind, c in timed.items():
-                c["max_abs_err"] = max(row[n]["err"] for n in outputs[kind])
-                c["shape"] = shape + (" dlse" if kind != "fwd" else "")
-                cases[kind + tag + ("_dropout" if rate else "")] = c
+    for B, H, T, D in RING_BLOCKS:
+        shape = f"B={B} H={H} T={T} D={D} non-causal"
+        btag = "" if B == 1 else f"_b{B}"
+        for dtype, tag, rates in ((torch.bfloat16, "", (0.0, 0.1)),
+                                  (torch.float32, "_fp32",
+                                   (0.0, 0.1) if B == 1 else (0.0,))):
+            for rate in rates:
+                inputs = qkv(rng, B, H, T, D, dtype)
+                dlse = torch.from_numpy(0.1 * rng.standard_normal(
+                    (B, H, T), dtype=np.float32)).to(DEVICE)
+                # The seed words on the card, as the ring makes them: a
+                # host list would be copied in every timed call, behind
+                # the stream.
+                seed = torch.tensor([SEED, 0, 0, 5 * T, 2 * T],
+                                    device=DEVICE)
+                kw = dict(rate=rate, seed=seed, hash_seq_len=RING_T)
+                row = check_attention(at, shape, *inputs, causal=False,
+                                      dlse=dlse, **kw)
+                rows.append(row)
+                timed = time_train_kernels(at, inputs, ("fwd", "fused", "dq",
+                                                        "dkv"),
+                                           causal=False, dlse=dlse, **kw)
+                for kind, c in timed.items():
+                    c["max_abs_err"] = max(row[n]["err"]
+                                           for n in outputs[kind])
+                    c["shape"] = shape + (" dlse" if kind != "fwd" else "")
+                    cases[kind + tag + ("_dropout" if rate else "")
+                          + btag] = c
+    for B, H, T, D, with_dlse, rate in RING_EDGES:
+        inputs = qkv(rng, B, H, T, D, torch.bfloat16)
+        dlse = (torch.from_numpy(0.1 * rng.standard_normal(
+            (B, H, T), dtype=np.float32)).to(DEVICE) if with_dlse else None)
+        seed = torch.tensor([SEED, 0, 0, 5 * T, 2 * T], device=DEVICE)
+        rows.append(check_attention(
+            at, f"B={B} H={H} T={T} D={D}", *inputs, causal=False, dlse=dlse,
+            rate=rate, seed=seed, hash_seq_len=RING_T,
+            zero_ref=("dq", "dk") if T == 1 else ()))
     print("  ring blocks, each output: max |err| of max |ref| "
           "(||err|| / ||ref||)")
     for r in rows:
         print(f"  {r['case']}:\n    " + ", ".join(
             f"{k} {e['err']:.1e} of {e['ref']:.1e} ({e['norm']:.1e})"
             for k, e in r.items() if k != "case"))
-    print(f"  times at {shape} (backward with dlse; SDPA: non-causal, no "
-          "dropout, no lse cotangent):\n  kernel              ms        "
-          "bound_ms  %bound  plain_ms  library_ms")
+    print_wgmma_shapes(at)
+    print("  times of the ring blocks (backward with dlse; SDPA: "
+          "non-causal, no dropout, no lse cotangent):\n  kernel"
+          "                 ms        bound_ms  %bound  plain_ms  "
+          "library_ms")
     for kind, c in cases.items():
         lib = ("-" if c["library_ms"] is None
                else f"{c['library_ms']:.5f}")
-        print(f"  {kind:<18} {c['ms']:.5f}  {c['bound_ms']:.5f}  "
+        print(f"  {kind:<21} {c['ms']:.5f}  {c['bound_ms']:.5f}  "
               f"{100 * c['bound_ms'] / c['ms']:5.1f}%  {c['plain_ms']:.5f}  "
-              f"{lib}  [{c['bound_by']}]")
-    for dt, tag in (("bf16", ""), ("fp32", "_fp32")):
+              f"{lib}  [{c['bound_by']}]  {c['shape']}")
+    for dt, tag in [(dt, tag + ("" if b[0] == 1 else f"_b{b[0]}"))
+                    for b in RING_BLOCKS
+                    for dt, tag in (("bf16", ""), ("fp32", "_fp32"))]:
         split = cases[f"dq{tag}"]["ms"] + cases[f"dkv{tag}"]["ms"]
         fused = cases["fused" + tag]
-        print(f"  {dt} ring-block backward: fused {fused['ms']:.5f} ms, "
-              f"split (K6 + K7) {split:.5f} ms, SDPA backward (dQ, dK, dV; "
-              f"no dlse) {fused['library_ms']:.5f} ms")
+        print(f"  {dt} ring-block backward at {fused['shape']}: fused "
+              f"{fused['ms']:.5f} ms, split (K6 + K7) {split:.5f} ms, SDPA "
+              f"backward (dQ, dK, dV; no dlse) {fused['library_ms']:.5f} ms")
+    profile_ring_calls(at, rng)
     return cases
 
 
@@ -1657,16 +1763,53 @@ SP_QKV_STEPS = 2
 # layer's packed attention projection's gradient (clipped; summed over
 # the ranks), where the attention backward's dq, dk and dv land first.
 # At initialisation attention is near uniform, dq and dk are small, and
-# neither moves the loss or the global grad norm visibly.
+# neither moves the loss or the global grad norm visibly. With
+# RANK_PROFILE_STEP = n set, the rank also traces one training step with
+# torch.profiler: from the pre-hook of its n-th optimizer step to that of
+# the next (the step's forward, backward, exchanges and update), each end
+# synchronised; it reports the wall and the device ms by kernel class.
 RANK_MAIN = r"""
-import json, os, runpy, sys
+import json, os, runpy, sys, time
 import torch
 from torch.optim.optimizer import register_optimizer_step_pre_hook
+from torch.profiler import ProfilerActivity, profile
 from nanosandbox_tpu_torch.ops import attention as at
 from nanosandbox_tpu_torch.ops import flash_decode as fd
 from nanosandbox_tpu_torch.parallel import distributed
 at.BWD_IMPL = sys.argv.pop(1)
 qkv = []
+prof_at = int(os.environ.get("RANK_PROFILE_STEP", "-1"))
+traced = {}
+def kernel_class(name):
+    if "wgmma" in name or "flash_bwd_prep" in name or "dq_cast" in name:
+        return "ring blocks, non-causal (wgmma K4, K5)"
+    if "flash_" in name:
+        return "flash, other (causal K4, K5; K6, K7)"
+    if name.startswith(("Memcpy", "Memset")):
+        return "copies (the host-staged exchanges among them)"
+    return "other kernels"
+def sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+def trace(n):
+    if n == prof_at:
+        sync()
+        traced["prof"] = profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if torch.cuda.is_available() else []))
+        traced["prof"].__enter__()
+        traced["t0"] = time.perf_counter()
+    elif n == prof_at + 1 and "prof" in traced:
+        sync()
+        wall = time.perf_counter() - traced["t0"]
+        prof = traced.pop("prof")
+        prof.__exit__(None, None, None)
+        ms = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0) or 0
+            if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+                k = kernel_class(e.key)
+                ms[k] = ms.get(k, 0.0) + us / 1e3
+        traced["profile"] = {"wall_ms": 1e3 * wall, "device_ms": ms}
 def record(opt, args, kwargs):
     norms = []
     for group in opt.param_groups:
@@ -1675,6 +1818,7 @@ def record(opt, args, kwargs):
             if g is not None and g.dim() == 2 and g.shape[0] == 3 * g.shape[1]:
                 norms += [x.float().norm() for x in g.chunk(3)]
     qkv.append(torch.stack(norms).tolist())
+    trace(len(qkv))
 register_optimizer_step_pre_hook(record)
 runpy.run_module("nanosandbox_tpu_torch.train", run_name="__main__",
                  alter_sys=True)
@@ -1684,17 +1828,20 @@ print("RANK_REPORT " + json.dumps({
     "launches": at.launches,
     "plain_cuda_calls": {**at.plain_cuda_calls, **fd.plain_cuda_calls},
     "exchanged": distributed.exchanged,
+    "profile": traced.get("profile"),
     "peak_memory_gb": (torch.cuda.max_memory_allocated() / 2**30
                        if torch.cuda.is_available() else 0.0)}))
 """
 
 
 def run_ranks(n: int, bwd: str, flags: list, log_prefix: str,
-              timeout: int = 600) -> list:
+              timeout: int = 600, profile_step: int | None = None) -> list:
     """Start ``n`` processes of RANK_MAIN as the ranks of one run (n = 1:
     one process, no group) on 127.0.0.1 and a free port, wait for all,
     and return their RANK_REPORTs, rank 0 first. A failed rank or a hang
-    past ``timeout`` seconds fails the phase (every rank is killed)."""
+    past ``timeout`` seconds fails the phase (every rank is killed).
+    profile_step: rank 0 traces the step after its profile_step-th
+    optimizer step (RANK_MAIN)."""
     import os
     import socket
 
@@ -1710,6 +1857,8 @@ def run_ranks(n: int, bwd: str, flags: list, log_prefix: str,
             env.update(COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                        NUM_PROCESSES=str(n), PROCESS_ID=str(rank))
         env["PYTHONPATH"] = os.getcwd()
+        if profile_step is not None and rank == 0:
+            env["RANK_PROFILE_STEP"] = str(profile_step)
         log = open(f"{log_prefix}.rank{rank}.log", "w")
         procs.append((subprocess.Popen(
             [sys.executable, "-c", RANK_MAIN, bwd, *flags], env=env,
@@ -1810,11 +1959,12 @@ def check_sp_trainer(smi: str, tmp: str) -> dict:
             f"--device={DEVICE}", *SP_CUTS]
     results = {}
 
-    def run(name, n, bwd, flags):
+    def run(name, n, bwd, flags, profile_step=None):
         out_dir = os.path.join(tmp, name)
         t0 = time.monotonic()
         reports = run_ranks(n, bwd, base + [f"--out_dir={out_dir}", *flags],
-                            os.path.join(tmp, name))
+                            os.path.join(tmp, name),
+                            profile_step=profile_step)
         return reports, out_dir, time.monotonic() - t0
 
     cases = (
@@ -1833,11 +1983,16 @@ def check_sp_trainer(smi: str, tmp: str) -> dict:
                      f"--lr_decay_iters={legs[-1][1]}"])
         sp_reports, prev, sp_s, sp_qkv = [], 0, 0.0, []
         for i, (bwd, upto) in enumerate(legs):
+            # bf16, fused: rank 0 traces its second step of the leg.
+            traced = name == "bf16" and bwd == "fused"
             reports, sp_dir, secs = run(
                 f"{tag}_sp", SP_RANKS, bwd,
                 extra + [f"--max_iters={upto}",
                          f"--lr_decay_iters={legs[-1][1]}"]
-                + (["--init_from=resume"] if i else []))
+                + (["--init_from=resume"] if i else []),
+                profile_step=2 if traced else None)
+            if traced and not reports[0]["profile"]:
+                fail(f"phase 13 {name}: rank 0 traced no step")
             sp_s += secs
             for rep_ in reports:
                 want = expected_launches(layout, SP_RANKS, rep_["rank"],
@@ -1884,6 +2039,14 @@ def check_sp_trainer(smi: str, tmp: str) -> dict:
               f"{[f'{x:.1e}' for x in rel_qkv[:, :, 2].max(1)]}; wall SP "
               f"{sp_s:.1f} s, one process {single_s:.1f} s")
         for bwd, n_steps, reports in sp_reports:
+            prof = reports[0]["profile"]
+            if prof:
+                dev = prof["device_ms"]
+                print(f"    [{smi}] rank 0, one {bwd}-backward step traced: "
+                      f"wall {prof['wall_ms']:.1f} ms, device "
+                      f"{sum(dev.values()):.2f} ms: " + ", ".join(
+                          f"{k} {v:.2f} ms" for k, v in sorted(
+                              dev.items(), key=lambda kv: -kv[1])))
             for rep_ in reports:
                 x = rep_["exchanged"]
                 # A training step rotates K/V forward and their gradients
@@ -2142,15 +2305,21 @@ def main(argv: list[str] | None = None) -> int:
     # launches of phase 13's sequence-parallel runs (every rank): bf16 K5
     # in the first run, K6 + K7 in the resume; fp32 K5 in the zigzag run,
     # K6 + K7 in the contiguous one.
+    # The wgmma K4 and K5 (csrc/flash_attention_sm90.cu) also at the 8k
+    # config's committed batch 4, with the same launches.
     bf, zz, ct = "bf16", "fp32 zigzag", "fp32 contiguous"
+    sm90 = "flash_attention_sm90.cu"
+    n_k4 = sp_launches(sp, bf, "flash_attention_fwd/full")
+    n_k5 = sp_launches(sp, bf, "flash_attention_bwd_fused/full/dlse")
     kernels += [
-        entry("flash_fwd_mma_kernel<causal=0>", flash, "attention.py:180",
-              sp_launches(sp, bf, "flash_attention_fwd/full"),
+        entry("flash_fwd_wgmma_kernel", sm90, "attention.py:180", n_k4,
               ring_cases["fwd"]),
-        entry("flash_bwd_mma_kernel<causal=0, dlse>", flash,
-              "attention.py:556",
-              sp_launches(sp, bf, "flash_attention_bwd_fused/full/dlse"),
+        entry("flash_fwd_wgmma_kernel[B=4]", sm90, "attention.py:180", n_k4,
+              ring_cases["fwd_b4"]),
+        entry("flash_bwd_wgmma_kernel<dlse>", sm90, "attention.py:556", n_k5,
               ring_cases["fused"]),
+        entry("flash_bwd_wgmma_kernel<dlse>[B=4]", sm90, "attention.py:556",
+              n_k5, ring_cases["fused_b4"]),
         entry("flash_bwd_dq_mma_kernel<causal=0, dlse>", flash,
               "attention.py:475",
               sp_launches(sp, bf, "flash_attention_bwd_dq/full/dlse"),

@@ -90,9 +90,11 @@
 // after its product and dK, dQ once at the end.
 //
 // Every kernel has a causal and a non-causal instance (template argument
-// kCausal; the Pallas kernels' `causal`): ring attention (ops/
-// ring_attention.py) calls flash_attention_lse with causal=False for the
-// blocks whose keys lie wholly before its queries. Non-causal, every
+// kCausal; the Pallas kernels' `causal`), but for the bf16 K4 and K5:
+// their non-causal instances are flash_attention_sm90.cu's wgmma kernels,
+// designed for the ring's block. Ring attention (ops/ring_attention.py)
+// calls flash_attention_lse with causal=False for the blocks whose keys
+// lie wholly before its queries. Non-causal, every
 // query tile walks every key tile, and only the tail tile compares
 // positions (the port masks ragged tails, so a ring chunk need not be a
 // tile multiple). The backwards take an optional lse cotangent dlse
@@ -141,6 +143,7 @@
 #include <type_traits>
 
 #include "attend_f32.cuh"
+#include "dropout.cuh"
 #include "mma_common.cuh"
 
 namespace {
@@ -149,7 +152,6 @@ using namespace nsb;
 
 constexpr int kTile = 64;          // queries and keys per tile
 constexpr int kThreads = 256;      // a 16 x 16 grid of threads
-constexpr uint32_t kGolden = 0x9E3779B9u;
 
 // 16-byte vector loads: 4 floats or 8 bf16 per load, converted to f32.
 template <typename T>
@@ -177,66 +179,6 @@ struct Vec<__nv_bfloat16> {
     }
   }
 };
-
-// ---------------------------------------------------------------------------
-// Dropout keep-mask (attention.py:85-137)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
-struct DropoutArgs {
-  const long long* seed;  // (5,) words; read only when on
-  int on;
-  uint32_t threshold;     // keep where fmix32(...) >= threshold
-  float scale;            // 1 / (1 - rate), rounded to f32 by the caller
-  uint32_t seq_len;       // hash_seq_len
-};
-
-struct Dropout {
-  static constexpr bool kMay = true;  // attend_f32's dropout branch
-  bool on;
-  uint32_t mix, q_off, k_off, seq_len, threshold;
-  float scale;
-
-  // Whether score element (query i, key j) of this (row, head) is kept.
-  __device__ __forceinline__ bool keep(int i, int j) const {
-    const uint32_t idx =
-        (q_off + static_cast<uint32_t>(i)) * seq_len +
-        (k_off + static_cast<uint32_t>(j));
-    return fmix32(idx ^ mix) >= threshold;
-  }
-};
-
-// The per-(call, batch*head) stream key of _dropout_tile_seed; the stream
-// id is linearised over this call's H heads (the JAX kernels' hash_heads
-// when heads are not sharded).
-__device__ __forceinline__ Dropout make_dropout(const DropoutArgs& a, int bh,
-                                                int H) {
-  Dropout d{};
-  d.on = a.on != 0;
-  if (!d.on) return d;
-  const uint32_t s0 = static_cast<uint32_t>(a.seed[0]);
-  const uint32_t b =
-      static_cast<uint32_t>(bh) / static_cast<uint32_t>(H) +
-      static_cast<uint32_t>(a.seed[1]);
-  const uint32_t h =
-      static_cast<uint32_t>(bh) % static_cast<uint32_t>(H) +
-      static_cast<uint32_t>(a.seed[2]);
-  d.mix = fmix32(s0 ^ ((b * static_cast<uint32_t>(H) + h) * kGolden));
-  d.q_off = static_cast<uint32_t>(a.seed[3]);
-  d.k_off = static_cast<uint32_t>(a.seed[4]);
-  d.seq_len = a.seq_len;
-  d.threshold = a.threshold;
-  d.scale = a.scale;
-  return d;
-}
 
 // ---------------------------------------------------------------------------
 // K4 on CUDA cores (f32): attend_f32 (attend_f32.cuh, the fp32 paged
@@ -1582,12 +1524,19 @@ cudaError_t run_bwd_dq(const Call& c) {
   }
 }
 
-// mode < 0: the forward; else a BwdMode.
+// mode < 0: the forward; else a BwdMode. The non-causal bf16 forward and
+// fused backward are flash_attention_sm90.cu's (nsb_flash_fwd_sm90,
+// nsb_flash_bwd_sm90) and have no instance here.
 template <typename T, int D, bool kCausal>
 cudaError_t run(const Call& c, int mode) {
+  constexpr bool kSm90 = std::is_same<T, bf16>::value && !kCausal;
   switch (mode) {
-    case -1: return run_fwd<T, D, kCausal>(c);
-    case kFused: return run_bwd_kv<T, D, true, kCausal>(c);
+    case -1:
+      if constexpr (kSm90) return cudaErrorInvalidValue;
+      else return run_fwd<T, D, kCausal>(c);
+    case kFused:
+      if constexpr (kSm90) return cudaErrorInvalidValue;
+      else return run_bwd_kv<T, D, true, kCausal>(c);
     case kDkv: return run_bwd_kv<T, D, false, kCausal>(c);
     case kDq: return run_bwd_dq<T, D, kCausal>(c);
     default: return cudaErrorInvalidValue;

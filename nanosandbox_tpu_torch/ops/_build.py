@@ -29,12 +29,16 @@ REPO_ROOT = os.path.dirname(_PKG)
 BUILD_DIR = os.path.join(REPO_ROOT, "build")
 SOURCES = tuple(os.path.join(_PKG, "csrc", name) for name in
                 ("paged_attention.cu", "flash_decode.cu",
-                 "flash_attention.cu"))
+                 "flash_attention.cu", "flash_attention_sm90.cu"))
 # Headers the sources include: part of every library's hash.
 HEADERS = tuple(os.path.join(_PKG, "csrc", name) for name in
-                ("attend_f32.cuh", "decode_common.cuh", "mma_common.cuh"))
+                ("attend_f32.cuh", "decode_common.cuh", "dropout.cuh",
+                 "mma_common.cuh"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# After the source: flash_attention_sm90.cu looks the driver's
+# cuTensorMapEncodeTiled up with dlopen.
+LINK_FLAGS = ("-ldl",)
 
 _lock = threading.Lock()
 _lib: types.SimpleNamespace | None = None
@@ -75,11 +79,21 @@ def _signatures() -> dict:
         #  D, sm_scale, dtype, dropout on, threshold, keep scale,
         #  hash_seq_len, causal, mode, stream)
         "nsb_flash_bwd": [p] * 12 + [i] * 4 + [f, i, i, u, f, u, i, i, p],
+        # The non-causal bf16 K4 and fused K5 on wgmma and TMA:
+        # (q, k, v, o, lse, seed, BH, H, T, D, sm_scale, dropout on,
+        #  threshold, keep scale, hash_seq_len, stream)
+        "nsb_flash_fwd_sm90": [p] * 6 + [i] * 4 + [f, i, u, f, u, p],
+        # (q, k, v, o, dout, lse, dlse, seed, stats, dq_acc, dq, dk, dv,
+        #  BH, H, T, D, sm_scale, dropout on, threshold, keep scale,
+        #  hash_seq_len, stream)
+        "nsb_flash_bwd_sm90": [p] * 13 + [i] * 4 + [f, i, u, f, u, p],
+        # (kind, BH, T, D, out int[4]): grid, threads, blocks an SM
+        "nsb_flash_sm90_shape": [i] * 4 + [p],
     }
 
 
 def _target(src: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in (src, *HEADERS):
         with open(path, "rb") as fh:
             h.update(fh.read())
@@ -106,7 +120,7 @@ def library() -> types.SimpleNamespace:
             if not os.path.exists(out):
                 os.makedirs(BUILD_DIR, exist_ok=True)
                 tmp = f"{out}.{os.getpid()}.tmp"
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src, *LINK_FLAGS]
                 procs.append((entry, cmd, tmp, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                     text=True)))

@@ -9,15 +9,22 @@ by ops/_build.py), each in a causal and a non-causal instance:
   flash_attention_bwd_dq     (K6)  <- _flash_bwd_dq_kernel
   flash_attention_bwd_dkv    (K7)  <- _flash_bwd_tiles_kernel(with_dq=False)
 
-On bfloat16 all four run on the tensor cores (mma.sync); on float32
-they run on CUDA cores in exact f32 products, on cp.async-staged tiles
-read as float4 (K4 through the fp32 paged prefill's tile loop,
+On bfloat16 all four run on the tensor cores: the non-causal K4 and the
+non-causal fused K5 (ring attention's off-diagonal blocks) on wgmma,
+with tiles brought in by TMA (csrc/flash_attention_sm90.cu; K5 in three
+launches: a pre-pass that makes Drow and zeroes the f32 dQ accumulator,
+the kernel, whose dQ tiles go out by bulk reduce-add, and the bf16 cast
+of dQ), every other bf16 instance on mma.sync. On float32 they run on
+CUDA cores in exact f32 products, on cp.async-staged tiles read as
+float4 (K4 through the fp32 paged prefill's tile loop,
 csrc/attend_f32.cuh; K5 and K7 after a Drow pre-pass; K6 with its Drow
-computed in the kernel). The input type alone picks the design.
+computed in the kernel). The input type and ``causal`` alone pick the
+design (``_on_wgmma``).
 
 ``BWD_IMPL`` picks the backward strategy, as in the JAX file: 'fused'
-(K5, one pass; dQ summed across key tiles with f32 atomicAdd, so its
-summation order changes from run to run) or 'split' (K6 then K7, a
+(K5, one pass; dQ summed across key tiles in f32 by atomicAdd, or by
+TMA reduce-adds in the wgmma K5, so its summation order changes from run
+to run) or 'split' (K6 then K7, a
 deterministic backward that recomputes the score tiles twice).
 
 Layouts are the JAX package's: q, k, v, o (B, H, T, D) in float32 or
@@ -47,6 +54,8 @@ are not ported (on Hopper the lse is a plain (B*H, T) vector;
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -330,13 +339,33 @@ def _instance(causal: bool, dlse=None) -> str:
     return ("" if causal else "/full") + ("" if dlse is None else "/dlse")
 
 
+def _on_wgmma(q, causal: bool) -> bool:
+    """Whether a call runs the Hopper kernels of flash_attention_sm90.cu
+    (wgmma, TMA): the non-causal bf16 forward and fused backward."""
+    return q.dtype == torch.bfloat16 and not causal
+
+
+def wgmma_launch_shape(kind: str, BH: int, T: int, D: int) -> dict:
+    """The grid, threads a block and blocks an SM (the occupancy the
+    kernel's registers and shared memory allow) of the non-causal bf16
+    K4 ("fwd") or K5's key-parallel kernel ("fused") at (B*H, T, D), as
+    the launcher computes them. Needs the card."""
+    out = (ctypes.c_int * 4)()
+    err = _build.library().nsb_flash_sm90_shape(
+        {"fwd": 0, "fused": 1}[kind], BH, T, D, ctypes.addressof(out))
+    _raise_on(err, f"flash attention {kind} launch shape")
+    return {"grid": (out[0], out[1]), "threads": out[2],
+            "blocks_per_sm": out[3]}
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         sm_scale: float | None = None,
                         dropout_rate: float = 0.0, seed=None,
                         hash_seq_len: int | None = None):
     """K4: (o in q's dtype, lse (B, H, T) f32) for attention over
-    (B, H, T, D), causal or not. CUDA tensors launch flash_fwd_mma_kernel
-    (bf16) or flash_fwd_f32_kernel (fp32); CPU tensors get the plain
+    (B, H, T, D), causal or not. CUDA tensors launch
+    flash_fwd_wgmma_kernel (bf16, non-causal), flash_fwd_mma_kernel (bf16,
+    causal) or flash_fwd_f32_kernel (fp32); CPU tensors get the plain
     version."""
     kw = dict(causal=causal, sm_scale=sm_scale, dropout_rate=dropout_rate,
               seed=seed, hash_seq_len=hash_seq_len)
@@ -348,11 +377,15 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     words, dr = _dropout_args(q, seed, dropout_rate, hash_seq_len)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    err = _build.library().nsb_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), dr[0], B * H, H, T, D, float(sm_scale),
-        _DTYPE_CODE[q.dtype], *dr[1:], int(causal),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), dr[0], B * H, H, T, D, float(sm_scale))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lib = _build.library()
+    if _on_wgmma(q, causal):
+        err = lib.nsb_flash_fwd_sm90(*ptrs, *dr[1:], stream)
+    else:
+        err = lib.nsb_flash_fwd(*ptrs, _DTYPE_CODE[q.dtype], *dr[1:],
+                                int(causal), stream)
     _raise_on(err, "flash attention forward")
     launches["flash_attention_fwd" + _instance(causal)] += 1
     # words may go now: the caching allocator hands its block only to work
@@ -362,23 +395,39 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
 
 
 def _launch_bwd(mode: str, q, k, v, o, lse, do, dq, dk, dv, sm_scale, *,
-                causal, dlse, dropout_rate, seed, hash_seq_len) -> None:
+                causal, dlse, dropout_rate, seed, hash_seq_len,
+                dq_acc=None) -> None:
+    """One backward kernel call. dq_acc: the (B, H, T, D) f32 dQ
+    accumulator of the wgmma K5 (dq is then its bf16 output); the
+    mma.sync and f32 K5 take dq itself as the accumulator."""
     B, H, T, D = q.shape
     words, dr = _dropout_args(q, seed, dropout_rate, hash_seq_len)
     # K5 and K7 compute Drow = rowsum(dO o) - dlse once per row into this
-    # (B*H, T) f32 scratch before their key-parallel kernel.
-    drow = (torch.empty((B * H, T), dtype=torch.float32, device=q.device)
-            if mode in ("fused", "dkv") else None)
+    # (B*H, T) f32 scratch before their key-parallel kernel; the wgmma K5
+    # into a (2, B*H, T rounded up to 4) one, lse beside it.
+    drow = None
+    if dq_acc is not None:
+        drow = torch.empty((2, B * H, -(-T // 4) * 4), dtype=torch.float32,
+                           device=q.device)
+    elif mode in ("fused", "dkv"):
+        drow = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = _build.library().nsb_flash_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), ptr(dlse), dr[0], ptr(drow), ptr(dq),
-        ptr(dk), ptr(dv), B * H, H, T, D, float(sm_scale),
-        _DTYPE_CODE[q.dtype], *dr[1:], int(causal), _BWD_MODE[mode],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), ptr(dlse), dr[0], ptr(drow))
+    shape = (B * H, H, T, D, float(sm_scale))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lib = _build.library()
+    if dq_acc is not None:
+        err = lib.nsb_flash_bwd_sm90(*head, dq_acc.data_ptr(), ptr(dq),
+                                     ptr(dk), ptr(dv), *shape, *dr[1:],
+                                     stream)
+    else:
+        err = lib.nsb_flash_bwd(*head, ptr(dq), ptr(dk), ptr(dv), *shape,
+                                _DTYPE_CODE[q.dtype], *dr[1:], int(causal),
+                                _BWD_MODE[mode], stream)
     _raise_on(err, f"flash attention backward ({mode})")
     launches[f"flash_attention_bwd_{mode}" + _instance(causal, dlse)] += 1
-    del words, drow
+    del words, drow, dq_acc
 
 
 def _bwd_args(q, k, v, o, lse, do, dlse, sm_scale):
@@ -442,10 +491,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         return (dq, *flash_attention_bwd_dkv(q, k, v, o, lse, do,
                                              sm_scale=sm_scale, **kw))
     sm_scale = _bwd_args(q, k, v, o, lse, do, dlse, sm_scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if _on_wgmma(q, causal):
+        # The kernels zero, fill, scale and cast the f32 accumulator
+        # themselves: three launches, no elementwise op here.
+        dq = torch.empty_like(q)
+        _launch_bwd("fused", q, k, v, o, lse, do, dq, dk, dv, sm_scale,
+                    dq_acc=torch.empty(q.shape, dtype=torch.float32,
+                                       device=q.device), **kw)
+        return dq, dk, dv
     # K5 adds into dq from every key tile: zeroed f32, scaled and cast
     # after (as the JAX wrapper does outside its pallas_call).
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_bwd("fused", q, k, v, o, lse, do, dq, dk, dv, sm_scale, **kw)
     return (dq * sm_scale).to(q.dtype), dk, dv
 

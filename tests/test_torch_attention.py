@@ -153,6 +153,49 @@ def test_causal_attention_routing_and_seeds(monkeypatch):
         tattn.flash_attention_bwd(q, k, v, q, q[..., 0], q)
 
 
+def test_wgmma_route_is_the_non_causal_bf16_forward_and_fused_backward():
+    """On CUDA tensors, the bf16 non-causal forward and fused backward (ring
+    attention's off-diagonal blocks) take the wgmma kernels of
+    csrc/flash_attention_sm90.cu; every other dtype and causality keeps
+    the kernels of csrc/flash_attention.cu."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for causal in (True, False):
+            q = torch.zeros(1, 1, 4, 32, dtype=dtype)
+            assert tattn._on_wgmma(q, causal) == (
+                dtype == torch.bfloat16 and not causal)
+
+
+def test_chip_smoke_ring_checks_rehearse_on_cpu(monkeypatch):
+    """chip_smoke.py's phase-7 checks of the non-causal instances at their
+    tile edges (RING_EDGES: head_dim 32 and 128, ragged, partial and
+    one-key tiles, with and without dlse and dropout, bf16) run on the
+    CPU, where both sides are the plain versions, and pass."""
+    import sys
+    from pathlib import Path
+
+    repo = str(Path(__file__).resolve().parent.parent)
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    assert chip_smoke.RING_BLOCKS == ((1, 12, 1024, 64), (4, 12, 1024, 64))
+    rng = np.random.default_rng(0)
+    for B, H, T, D, with_dlse, rate in chip_smoke.RING_EDGES:
+        if B * H * T > 4096:
+            continue  # the plain versions' (T, T) scores: keep it small
+        x = chip_smoke.qkv(rng, B, H, T, D, torch.bfloat16)
+        dlse = (torch.from_numpy(0.1 * rng.standard_normal(
+            (B, H, T), dtype=np.float32)) if with_dlse else None)
+        row = chip_smoke.check_attention(
+            tattn, "edge", *x, causal=False, dlse=dlse, rate=rate,
+            seed=[chip_smoke.SEED, 0, 0, 5 * T, 2 * T],
+            hash_seq_len=chip_smoke.RING_T,
+            zero_ref=("dq", "dk") if T == 1 else ())
+        assert all(e["err"] == 0.0 for k, e in row.items() if k != "case")
+
+
 def test_kernel_argument_checks():
     """What the kernels do not take raises before a pointer leaves
     Python (the checks are device-independent)."""

@@ -176,8 +176,8 @@ def test_chip_smoke_instance_checks_rehearse_on_cpu(monkeypatch):
 
 def test_chip_smoke_build_report_parsers():
     """Phase 2 reads each tensor-core kernel's registers and spills from
-    ptxas's -v log and its HMMA/HGMMA count from cuobjdump -sass; both
-    parsers, on text in those tools' formats."""
+    ptxas's -v log and its HMMA and HGMMA counts from cuobjdump -sass;
+    both parsers, on text in those tools' formats."""
     sys.path.insert(0, str(REPO))
     try:
         import chip_smoke
@@ -192,21 +192,31 @@ def test_chip_smoke_build_report_parsers():
            "    8 bytes stack frame, 12 bytes spill stores, 12 bytes spill "
            "loads\nptxas info    : Used 255 registers\n")
     assert chip_smoke.ptxas_report(log) == {fwd: (128, 0), "_Zold": (255, 12)}
+    wg = ("_ZN3nsb12_GLOBAL__N_122flash_fwd_wgmma_kernelILi64EEEv14CUtensor"
+          "Map_stS2_S2_P13__nv_bfloat16PfiifNS_11DropoutArgsE")
     sass = (f"\tcode for sm_90a\n\t\tFunction : {fwd}\n"
             "        /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"
             "        /*0110*/  HMMA.16816.F32.BF16 R8, R8, R14, R8 ;\n"
-            "\t\tFunction : _Zold\n        /*0000*/  FFMA R1, R2, R3, R1 ;\n")
-    assert chip_smoke.sass_mma_counts(sass) == {fwd: 2, "_Zold": 0}
+            "\t\tFunction : _Zold\n        /*0000*/  FFMA R1, R2, R3, R1 ;\n"
+            f"\t\tFunction : {wg}\n        /*0200*/  HGMMA.64x64x16.F32.BF16 "
+            "R24, gdesc[UR4], RZ, !UPT ;\n")
+    assert chip_smoke.sass_mma_counts(sass) == {fwd: (2, 0), "_Zold": (0, 0),
+                                                 wg: (0, 1)}
+    assert (chip_smoke.kernel_label(wg)
+            == "flash_fwd_wgmma_kernel<D=64, causal=0>")
     assert (chip_smoke.kernel_label(fwd)
             == "flash_fwd_mma_kernel<D=64, causal=1>")
-    # K7 (the backward without dQ), K5 non-causal, and K1 over each pool's
-    # storage type: bf16, int8 (signed char) and int4 (nsb::Int4, a
-    # substitution).
+    # K7 (the backward without dQ), K5 causal (mma.sync) and non-causal
+    # (wgmma), and K1 over each pool's storage type: bf16, int8 (signed
+    # char) and int4 (nsb::Int4, a substitution).
     labels = {
         "_ZN12_GLOBAL__N_120flash_bwd_mma_kernelILi128ELb0ELb1EEEvPK13__nv_"
         "bfloat16S3_": "flash_bwd_mma_kernel<D=128, dq=0, causal=1>",
-        "_ZN12_GLOBAL__N_120flash_bwd_mma_kernelILi32ELb1ELb0EEEvPK13__nv_"
-        "bfloat16S3_": "flash_bwd_mma_kernel<D=32, dq=1, causal=0>",
+        "_ZN12_GLOBAL__N_120flash_bwd_mma_kernelILi32ELb1ELb1EEEvPK13__nv_"
+        "bfloat16S3_": "flash_bwd_mma_kernel<D=32, dq=1, causal=1>",
+        "_ZN3nsb12_GLOBAL__N_122flash_bwd_wgmma_kernelILi32EEEv14CUtensorMap_"
+        "stS2_S2_S2_S2_S2_PfP13__nv_bfloat16S4_iifNS_11DropoutArgsE":
+        "flash_bwd_wgmma_kernel<D=32, causal=0>",
         "_ZN3nsb12_GLOBAL__N_124paged_prefill_mma_kernelI13__nv_bfloat16"
         "Li64EEEvPKS2_": "paged_prefill_mma_kernel<bf16, D=64>",
         "_ZN3nsb12_GLOBAL__N_124paged_prefill_mma_kernelIaLi32EEEvPK13__nv_"
@@ -218,9 +228,15 @@ def test_chip_smoke_build_report_parsers():
     for mangled, label in labels.items():
         assert chip_smoke.kernel_label(mangled) == label
         assert label in chip_smoke.TENSOR_CORE_INSTANCES
-    # K4 x 3 head_dims x causal or not, K6 x 3 x dlse or not x 2, K5/K7 x
-    # 3 x 2 x 2, K1 x 9.
+    # K4 x 3 head_dims (mma.sync causal, wgmma non-causal), K6 x 3 x dlse
+    # or not x causal or not, K5 x 3 (mma.sync causal, wgmma non-causal),
+    # K7 x 3 x causal or not, K1 x 9: the wgmma K4 and K5 took the places
+    # of the non-causal mma.sync K4 and K5, so the count stays 39.
     assert len(chip_smoke.TENSOR_CORE_INSTANCES) == 39
+    assert not [i for i in chip_smoke.TENSOR_CORE_INSTANCES
+                if i.startswith(("flash_fwd_mma_kernel",
+                                 "flash_bwd_mma_kernel")) and
+                i.endswith("causal=0>") and "dq=0" not in i]
     # The kernels on CUDA cores: held to 0 spills, no HMMA asked. The fp32
     # K4 with 32- and 64-query blocks (non-causal: 32), the fp32 K5/K7 and
     # K6 causal and not, K1 in each of its f32 (query, pool) pairs with
@@ -282,10 +298,37 @@ def test_chip_smoke_kernel_names_are_kernels_in_the_sources():
             r"(\w+)\s*\(", path.read_text()))
     names = chip_smoke.TENSOR_CORE_KERNELS + chip_smoke.CUDA_CORE_KERNELS
     assert set(names) <= kernels, sorted(set(names) - kernels)
+    # The kernels held to HGMMA are tensor-core kernels of their own file.
+    assert set(chip_smoke.WGMMA_KERNELS) <= set(chip_smoke.TENSOR_CORE_KERNELS)
+    sm90 = (PKG / "csrc" / "flash_attention_sm90.cu").read_text()
+    assert all(f"{n}(" in sm90 for n in chip_smoke.WGMMA_KERNELS)
     # Each instance phase 2 expects names one of those kernels.
     for label in (chip_smoke.TENSOR_CORE_INSTANCES
                   + chip_smoke.CUDA_CORE_INSTANCES):
         assert label.split("<", 1)[0] in names, label
+
+
+def test_build_compiles_every_source_and_hashes_every_header():
+    """ops/_build.py builds every csrc/*.cu into a library and keys each
+    library by every csrc/*.cuh, so that no kernel source is left out of
+    the build and an edited header rebuilds what includes it."""
+    from nanosandbox_tpu_torch.ops import _build
+
+    csrc = PKG / "csrc"
+    assert {Path(p).name for p in _build.SOURCES} == {
+        p.name for p in csrc.glob("*.cu")}
+    assert {Path(p).name for p in _build.HEADERS} == {
+        p.name for p in csrc.glob("*.cuh")}
+    for p in _build.SOURCES:
+        for inc in re.findall(r'#include "(\w+\.cuh)"', Path(p).read_text()):
+            assert str(csrc / inc) in _build.HEADERS, (p, inc)
+    # Every C entry point the wrappers call is declared with its argtypes.
+    sigs = _build._signatures()
+    entry = set()
+    for p in _build.SOURCES:
+        entry |= set(re.findall(r"^int (nsb_\w+)\(", Path(p).read_text(),
+                                re.M))
+    assert entry == set(sigs), sorted(entry ^ set(sigs))
 
 
 def test_unported_paths_raise():
