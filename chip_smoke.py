@@ -76,8 +76,9 @@ line):
               without and with dropout, fp32 without (and at B 1 with)
               it, at the same limits, timed beside their bound and
               non-causal SDPA, with the grid, blocks an SM and waves of
-              the wgmma K4 and K5 and each kernel of one of their calls
-              (torch.profiler); and, correctness only, the bf16 ones at
+              the wgmma K4, K5, K6 and K7 and each kernel of one K4, K5
+              and split-backward call (torch.profiler); and, correctness
+              only, the bf16 ones at
               head_dim 32 and 128 and at ragged, partial and one-key
               tiles, with and without dlse and dropout;
   8. train parity  GPT-2 124M in fp32 (TF32 off) on a 2 x 1024 batch,
@@ -216,37 +217,36 @@ def time_ms(fn, reps: int = 25) -> float:
 # The kernels on the tensor cores, by the name their symbols carry.
 TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_mma_kernel",
                        "flash_bwd_dq_mma_kernel", "paged_prefill_mma_kernel",
-                       "flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel")
+                       "flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel",
+                       "flash_bwd_dq_wgmma_kernel")
 # Of those, the ones on wgmma (csrc/flash_attention_sm90.cu: the
-# non-causal bf16 K4 and K5): their SASS must hold HGMMA, not only HMMA.
-WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel")
+# non-causal bf16 K4-K7): their SASS must hold HGMMA, not only HMMA.
+WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel",
+                 "flash_bwd_dq_wgmma_kernel")
 # CUDA-core kernels whose instances phase 2 holds to 0 spill bytes: the
 # f32 ones and K2.
 CUDA_CORE_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_kv_kernel",
                      "flash_bwd_dq_f32_kernel", "paged_prefill_f32_kernel",
                      "paged_decode_kernel")
 HEAD_DIMS = (32, 64, 128)
-# The flash-attention kernels (K4-K7), causal (their last bool template
-# argument) or not (ring attention's off-diagonal blocks); the wgmma ones
-# are non-causal only and have no such argument.
-FLASH_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_mma_kernel",
-                 "flash_bwd_dq_mma_kernel", "flash_fwd_f32_kernel",
-                 "flash_bwd_kv_kernel", "flash_bwd_dq_f32_kernel",
-                 "flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel")
+# The flash-attention kernels (K4-K7) whose last bool template argument
+# says causal or not (ring attention's off-diagonal blocks): the fp32
+# ones. The bf16 ones are causal on mma.sync and non-causal on wgmma,
+# with no such argument.
+CAUSAL_FLAG_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_kv_kernel",
+                       "flash_bwd_dq_f32_kernel")
 # The template instances phase 2 must find, as kernel_label names them:
-# the bf16 K4 (mma.sync causal, wgmma non-causal), K6 (with and without
-# reading dlse, causal and not), K5 (mma.sync causal, wgmma non-causal),
-# K7 (the mma.sync kernel without dQ, causal and not), and K1 under a
-# bf16 query over each bf16, int8 and int4 pool.
+# the bf16 K4, K5 (with dQ), K6 (mma.sync with and without reading dlse)
+# and K7 (without dQ), causal on mma.sync and non-causal on wgmma, and K1
+# under a bf16 query over each bf16, int8 and int4 pool.
 TENSOR_CORE_INSTANCES = tuple(sorted(
-    [f"flash_fwd_mma_kernel<D={d}, causal=1>" for d in HEAD_DIMS]
-    + [f"flash_fwd_wgmma_kernel<D={d}, causal=0>" for d in HEAD_DIMS]
-    + [f"flash_bwd_dq_mma_kernel<D={d}, dlse={w}, causal={c}>"
-       for d in HEAD_DIMS for w in (0, 1) for c in (0, 1)]
-    + [f"flash_bwd_mma_kernel<D={d}, dq=1, causal=1>" for d in HEAD_DIMS]
-    + [f"flash_bwd_wgmma_kernel<D={d}, causal=0>" for d in HEAD_DIMS]
-    + [f"flash_bwd_mma_kernel<D={d}, dq=0, causal={c}>" for d in HEAD_DIMS
-       for c in (0, 1)]
+    [f"flash_fwd_mma_kernel<D={d}>" for d in HEAD_DIMS]
+    + [f"flash_fwd_wgmma_kernel<D={d}>" for d in HEAD_DIMS]
+    + [f"flash_bwd_dq_mma_kernel<D={d}, dlse={w}>" for d in HEAD_DIMS
+       for w in (0, 1)]
+    + [f"flash_bwd_dq_wgmma_kernel<D={d}>" for d in HEAD_DIMS]
+    + [f"flash_bwd_{k}mma_kernel<D={d}, dq={w}>" for d in HEAD_DIMS
+       for k in ("", "wg") for w in (0, 1)]
     + [f"paged_prefill_mma_kernel<{kv}, D={d}>" for d in HEAD_DIMS
        for kv in ("bf16", "int8", "int4")]))
 # The (query, pool) pairs of the f32 K1: an fp32 query over every pool,
@@ -327,15 +327,16 @@ def kernel_label(mangled: str) -> str:
     (the first integer argument), the pool's storage type of the paged
     prefill (bf16, int8 = signed char, int4 = nsb::Int4) and, for the f32
     one, the query's type and the queries a block (its second integer),
-    whether the backward computes dQ or the bf16 K6 reads dlse (its first
-    bool argument) and whether a flash kernel is causal (its last)."""
+    whether the backward computes dQ or the mma.sync K6 reads dlse (its
+    first bool argument) and whether an fp32 flash kernel is causal (its
+    last)."""
     name = next(n for n in TENSOR_CORE_KERNELS + CUDA_CORE_KERNELS
                 if n in mangled)
     args = mangled.split(name, 1)[1]
     head_dim = re.search(r"Li(\d+)E", args).group(1)
     bools = re.findall(r"Lb([01])E", args)
-    causal = (f", causal={bools[-1] if bools else 0}"
-              if name in FLASH_KERNELS else "")
+    causal = (f", causal={bools[-1]}" if name in CAUSAL_FLAG_KERNELS
+              else "")
     if name == "paged_prefill_f32_kernel":
         qd, kv = mangled_pair(args)
         bq = re.findall(r"Li(\d+)E", args)[1]
@@ -351,10 +352,11 @@ def kernel_label(mangled: str) -> str:
               "int8" if args.startswith("Ia") else
               "int4" if "4Int4" in args.split("Li", 1)[0] else "?")
         return f"{name}<{kv}, D={head_dim}>"
-    if name in ("flash_bwd_mma_kernel", "flash_bwd_kv_kernel"):
+    if name in ("flash_bwd_mma_kernel", "flash_bwd_kv_kernel",
+                "flash_bwd_wgmma_kernel"):
         return f"{name}<D={head_dim}, dq={bools[0]}{causal}>"
     if name == "flash_bwd_dq_mma_kernel":
-        return f"{name}<D={head_dim}, dlse={bools[0]}{causal}>"
+        return f"{name}<D={head_dim}, dlse={bools[0]}>"
     return f"{name}<D={head_dim}{causal}>"
 
 
@@ -1116,7 +1118,7 @@ def check_train_kernels(at) -> dict:
 # (phase 13 cuts it to 1).
 RING_BLOCKS = ((1, 12, 1024, 64), (4, 12, 1024, 64))
 RING_T = 8192
-# Correctness only, bf16, the non-causal wgmma K4 and K5 (and K6 + K7) at
+# Correctness only, bf16, the non-causal wgmma K4, K5, K6 and K7 at
 # their tile edges: (B, H, T, D, with dlse, dropout rate): head_dim 32 and
 # 128, ragged and partial tiles, a single key, several rows and heads.
 RING_EDGES = ((2, 4, 256, 32, True, 0.0), (2, 4, 256, 128, True, 0.1),
@@ -1127,12 +1129,14 @@ RING_EDGES = ((2, 4, 256, 32, True, 0.0), (2, 4, 256, 128, True, 0.1),
 
 def print_wgmma_shapes(at) -> None:
     """The grid, blocks an SM (the occupancy the kernel's registers and
-    shared memory allow) and waves of the wgmma K4 and K5 at each ring
-    block shape."""
+    shared memory allow) and waves of the wgmma K4, K5, K6 and K7 at each
+    ring block shape."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for B, H, T, D in RING_BLOCKS:
         for kind, name in (("fwd", "flash_fwd_wgmma_kernel"),
-                           ("fused", "flash_bwd_wgmma_kernel")):
+                           ("fused", "flash_bwd_wgmma_kernel<dq=1>"),
+                           ("dq", "flash_bwd_dq_wgmma_kernel"),
+                           ("dkv", "flash_bwd_wgmma_kernel<dq=0>")):
             sh = at.wgmma_launch_shape(kind, B * H, T, D)
             n = sh["grid"][0] * sh["grid"][1]
             print(f"  {name} at B={B} H={H} T={T} D={D}: grid "
@@ -1143,10 +1147,11 @@ def print_wgmma_shapes(at) -> None:
 
 
 def profile_ring_calls(at, rng, calls: int = 10) -> None:
-    """Each kernel of one non-causal bf16 K4 and K5 call (the backward
-    given a random lse cotangent) at each of RING_BLOCKS, by
-    torch.profiler's device time (warm L2, ``calls`` calls, no launch
-    gaps): what of a call's time_ms lies in its kernels."""
+    """Each kernel of one non-causal bf16 K4 call, K5 call and split
+    backward (K6 then K7; the backwards given a random lse cotangent) at
+    each of RING_BLOCKS, by torch.profiler's device time (warm L2,
+    ``calls`` calls, no launch gaps): what of a call's time_ms lies in its
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     for B, H, T, D in RING_BLOCKS:
@@ -1158,7 +1163,11 @@ def profile_ring_calls(at, rng, calls: int = 10) -> None:
                 ("fwd", lambda: at.flash_attention_fwd(q, k, v,
                                                        causal=False)),
                 ("fused", lambda: at.flash_attention_bwd(
-                    q, k, v, o, lse, do, causal=False, dlse=dlse))):
+                    q, k, v, o, lse, do, causal=False, dlse=dlse)),
+                ("split", lambda: (at.flash_attention_bwd_dq(
+                    q, k, v, o, lse, do, causal=False, dlse=dlse),
+                    at.flash_attention_bwd_dkv(
+                        q, k, v, o, lse, do, causal=False, dlse=dlse)))):
             fn()
             sync()
             with profile(activities=[ProfilerActivity.CPU,
@@ -1782,9 +1791,9 @@ prof_at = int(os.environ.get("RANK_PROFILE_STEP", "-1"))
 traced = {}
 def kernel_class(name):
     if "wgmma" in name or "flash_bwd_prep" in name or "dq_cast" in name:
-        return "ring blocks, non-causal (wgmma K4, K5)"
+        return "ring blocks, non-causal (wgmma K4-K7)"
     if "flash_" in name:
-        return "flash, other (causal K4, K5; K6, K7)"
+        return "flash, other (causal K4-K7)"
     if name.startswith(("Memcpy", "Memset")):
         return "copies (the host-staged exchanges among them)"
     return "other kernels"
@@ -2305,29 +2314,26 @@ def main(argv: list[str] | None = None) -> int:
     # launches of phase 13's sequence-parallel runs (every rank): bf16 K5
     # in the first run, K6 + K7 in the resume; fp32 K5 in the zigzag run,
     # K6 + K7 in the contiguous one.
-    # The wgmma K4 and K5 (csrc/flash_attention_sm90.cu) also at the 8k
+    # The wgmma K4-K7 (csrc/flash_attention_sm90.cu) also at the 8k
     # config's committed batch 4, with the same launches.
     bf, zz, ct = "bf16", "fp32 zigzag", "fp32 contiguous"
     sm90 = "flash_attention_sm90.cu"
     n_k4 = sp_launches(sp, bf, "flash_attention_fwd/full")
     n_k5 = sp_launches(sp, bf, "flash_attention_bwd_fused/full/dlse")
+    n_k6 = sp_launches(sp, bf, "flash_attention_bwd_dq/full/dlse")
+    n_k7 = sp_launches(sp, bf, "flash_attention_bwd_dkv/full/dlse")
+    for name, replaces, n, kind in (
+            ("flash_fwd_wgmma_kernel", "attention.py:180", n_k4, "fwd"),
+            ("flash_bwd_wgmma_kernel<dlse>", "attention.py:556", n_k5,
+             "fused"),
+            ("flash_bwd_dq_wgmma_kernel<dlse>", "attention.py:475", n_k6,
+             "dq"),
+            ("flash_bwd_wgmma_kernel<with_dq=false, dlse>",
+             "attention.py:556", n_k7, "dkv")):
+        kernels += [entry(name, sm90, replaces, n, ring_cases[kind]),
+                    entry(f"{name}[B=4]", sm90, replaces, n,
+                          ring_cases[f"{kind}_b4"])]
     kernels += [
-        entry("flash_fwd_wgmma_kernel", sm90, "attention.py:180", n_k4,
-              ring_cases["fwd"]),
-        entry("flash_fwd_wgmma_kernel[B=4]", sm90, "attention.py:180", n_k4,
-              ring_cases["fwd_b4"]),
-        entry("flash_bwd_wgmma_kernel<dlse>", sm90, "attention.py:556", n_k5,
-              ring_cases["fused"]),
-        entry("flash_bwd_wgmma_kernel<dlse>[B=4]", sm90, "attention.py:556",
-              n_k5, ring_cases["fused_b4"]),
-        entry("flash_bwd_dq_mma_kernel<causal=0, dlse>", flash,
-              "attention.py:475",
-              sp_launches(sp, bf, "flash_attention_bwd_dq/full/dlse"),
-              ring_cases["dq"]),
-        entry("flash_bwd_mma_kernel<with_dq=false, causal=0, dlse>", flash,
-              "attention.py:556",
-              sp_launches(sp, bf, "flash_attention_bwd_dkv/full/dlse"),
-              ring_cases["dkv"]),
         entry("flash_fwd_f32_kernel<causal=0>", flash, "attention.py:180",
               sp_launches(sp, zz, "flash_attention_fwd/full")
               + sp_launches(sp, ct, "flash_attention_fwd/full"),

@@ -1,11 +1,12 @@
 // Flash attention for training, forward and backward, for Hopper (sm_90a):
-// causal, and non-causal for ring attention's off-diagonal blocks.
+// causal, and in fp32 also non-causal for ring attention's off-diagonal
+// blocks (the non-causal bf16 kernels are flash_attention_sm90.cu's).
 //
 // Each kernel is the CUDA counterpart of a Pallas kernel in
 // nanosandbox_tpu/ops/attention.py. Two designs, chosen by the input type
 // and nothing else:
 //
-//   bf16, on the tensor cores (mma.sync; building blocks in
+//   bf16, causal, on the tensor cores (mma.sync; building blocks in
 //   mma_common.cuh):
 //     flash_fwd_mma_kernel              <- _flash_fwd_kernel (K4)
 //     flash_bwd_mma_kernel<D, true>     <- _flash_bwd_tiles_kernel(
@@ -89,12 +90,12 @@
 // and dQ stays in registers to one store. sm_scale multiplies each score
 // after its product and dK, dQ once at the end.
 //
-// Every kernel has a causal and a non-causal instance (template argument
-// kCausal; the Pallas kernels' `causal`), but for the bf16 K4 and K5:
-// their non-causal instances are flash_attention_sm90.cu's wgmma kernels,
-// designed for the ring's block. Ring attention (ops/ring_attention.py)
-// calls flash_attention_lse with causal=False for the blocks whose keys
-// lie wholly before its queries. Non-causal, every
+// The f32 kernels have a causal and a non-causal instance (template
+// argument kCausal; the Pallas kernels' `causal`); the bf16 ones are
+// causal only: the non-causal bf16 K4-K7 are flash_attention_sm90.cu's
+// wgmma kernels, designed for the ring's block. Ring attention
+// (ops/ring_attention.py) calls flash_attention_lse with causal=False for
+// the blocks whose keys lie wholly before its queries. Non-causal, every
 // query tile walks every key tile, and only the tail tile compares
 // positions (the port masks ragged tails, so a ring chunk need not be a
 // tile multiple). The backwards take an optional lse cotangent dlse
@@ -707,8 +708,9 @@ constexpr size_t fwd_mma_smem() {
   return sizeof(bf16) * D * (16 * fwd_warps<D>() + 4 * kKeys);
 }
 
-// Two blocks per SM: at most 128 registers a thread for 8 warps.
-template <int D, int kWarps, bool kCausal>
+// Two blocks per SM: at most 128 registers a thread for 8 warps. Causal
+// only: the non-causal bf16 K4 is flash_attention_sm90.cu's.
+template <int D, int kWarps>
 __global__ void __launch_bounds__(kWarps * 32, 2)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -728,7 +730,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int64_t base = static_cast<int64_t>(bh) * Tn * D;
   const Dropout dr = make_dropout(da, bh, H);
-  const int n_kt = ((kCausal ? min(q0 + kBM, Tn) : Tn) + kKeys - 1) / kKeys;
+  const int n_kt = (min(q0 + kBM, Tn) + kKeys - 1) / kKeys;
 
   load_rows<kBM, D, kThreadsT>(q_s, q + base, q0, Tn);
   cp_async_commit();
@@ -768,7 +770,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const uint32_t k_s = kv_s + (kt & 1) * 2 * kTileB, v_s = k_s + kTileB;
     // Warp-uniform: a tile whose keys all lie past the warp's rows, or a
     // warp whose rows all lie past T, adds nothing.
-    if ((!kCausal || k0 <= r_lo + 15) && r_lo < Tn) {
+    if (k0 <= r_lo + 15 && r_lo < Tn) {
       float s[kNT][4];
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt)
@@ -786,8 +788,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       // Only a tile that crosses the warp's diagonal or the tail compares
       // positions.
-      const bool masked =
-          (kCausal && k0 + kKeys - 1 > r_lo) || k0 + kKeys > Tn;
+      const bool masked = k0 + kKeys - 1 > r_lo || k0 + kKeys > Tn;
       float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt)
@@ -796,8 +797,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int j = k0 + 8 * nt + 2 * t + e;
           float x0 = s[nt][e] * scale2, x1 = s[nt][2 + e] * scale2;
           if (masked) {
-            if ((kCausal && j > i0) || j >= Tn) x0 = kNegInf;
-            if ((kCausal && j > i1) || j >= Tn) x1 = kNegInf;
+            if (j > i0 || j >= Tn) x0 = kNegInf;
+            if (j > i1 || j >= Tn) x1 = kNegInf;
           }
           s[nt][e] = x0;
           s[nt][2 + e] = x1;
@@ -926,8 +927,9 @@ struct BwdMma {
 
 // kWithDq: K5 (dQ summed by atomics into dq_acc); without it K7, which
 // writes dK and dV alone, touches no memory two blocks share, and gives
-// the same bits on every run.
-template <int D, bool kWithDq, bool kCausal>
+// the same bits on every run. Causal only: the non-causal bf16 K5 and K7
+// are flash_attention_sm90.cu's.
+template <int D, bool kWithDq>
 __global__ void __launch_bounds__(128)
 flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
@@ -958,7 +960,7 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float* lse_bh = lse + static_cast<int64_t>(bh) * Tn;
   const float* drow_bh = drow + static_cast<int64_t>(bh) * Tn;
   const Dropout dr = make_dropout(da, bh, H);
-  const int qt0 = kCausal ? k0 / kBQ : 0, n_qt = (Tn + kBQ - 1) / kBQ;
+  const int qt0 = k0 / kBQ, n_qt = (Tn + kBQ - 1) / kBQ;
 
   auto load_stage = [&](int qt, int slot) {
     const uint32_t st = ring + slot * P::kStage;
@@ -995,7 +997,7 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // Warp-uniform: a query tile wholly before the warp's keys adds
     // nothing; its rows of dS^T are zero.
-    if (!kCausal || j_lo <= q0 + kBQ - 1) {
+    if (j_lo <= q0 + kBQ - 1) {
       float st[kQT][4], dpt[kQT][4];  // S^T and dP^T: rows keys, cols queries
 #pragma unroll
       for (int nt = 0; nt < kQT; ++nt)
@@ -1023,9 +1025,8 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
       // Only a tile that crosses the warp's diagonal or the tail compares
-      // positions (non-causal: the tail of the queries or of the keys).
-      const bool masked = kCausal ? q0 < j_lo + 15 || q0 + kBQ > Tn
-                                  : q0 + kBQ > Tn || j_lo + 16 > Tn;
+      // positions.
+      const bool masked = q0 < j_lo + 15 || q0 + kBQ > Tn;
       // P~^T and dS^T as A fragments (k-steps over queries).
       uint32_t pa[kQT / 2][4], dsa[kQT / 2][4];
 #pragma unroll
@@ -1038,7 +1039,7 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           for (int e = 0; e < 2; ++e) {
             const int c = 8 * nt + 2 * t + e, i = q0 + c;
             float p = exp2f(st[nt][2 * h + e] * scale2 - lse_s[c] * kLog2e);
-            if (masked && (i >= Tn || (kCausal ? j > i : j >= Tn))) p = 0.f;
+            if (masked && (i >= Tn || j > i)) p = 0.f;
             float dpv = dpt[nt][2 * h + e];
             pv[e] = p;
             if (dr.on) {
@@ -1172,9 +1173,9 @@ struct BwdDqMma {
 };
 
 // kDlse: dlse, the (B*H, T) f32 lse cotangent, is read (without it the
-// pointer is unused); the training path's instance (causal, no kDlse)
-// compiles the causal-only kernel's code.
-template <int D, bool kDlse, bool kCausal>
+// pointer is unused). Causal only: the non-causal bf16 K6 is
+// flash_attention_sm90.cu's.
+template <int D, bool kDlse>
 __global__ void __launch_bounds__(BwdDqMma<D>::kWarps * 32, 2)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
                         const bf16* __restrict__ k,
@@ -1199,16 +1200,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
   const int g = lane >> 2, t = lane & 3;
   const int64_t base = static_cast<int64_t>(bh) * Tn * D;
   const Dropout dr = make_dropout(da, bh, H);
-  // The causal instance's conditions are spelled as in the causal-only
-  // kernel: folded into one expression with kCausal (`(kCausal && j > i)
-  // || j >= Tn`), the same conditions compiled to 3 more registers and
-  // ran 3.8% slower at the 124M training shape (PERF.md section 6).
-  int n_kt;
-  if constexpr (kCausal) {
-    n_kt = (min(q0 + kBM, Tn) + kKeys - 1) / kKeys;
-  } else {
-    n_kt = (Tn + kKeys - 1) / kKeys;
-  }
+  const int n_kt = (min(q0 + kBM, Tn) + kKeys - 1) / kKeys;
 
   load_rows<kBM, D, kThreadsT>(q_s, q + base, q0, Tn);
   load_rows<kBM, D, kThreadsT>(do_s, dout + base, q0, Tn);
@@ -1285,13 +1277,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
     const uint32_t k_s = kv_s + (kt & 1) * 2 * P::kKV, v_s = k_s + P::kKV;
     // Warp-uniform: a tile whose keys all lie past the warp's rows, or a
     // warp whose rows all lie past T, adds nothing.
-    bool live;
-    if constexpr (kCausal) {
-      live = k0 <= r_lo + 15 && r_lo < Tn;
-    } else {
-      live = r_lo < Tn;
-    }
-    if (live) {
+    if (k0 <= r_lo + 15 && r_lo < Tn) {
       float s[kNT][4], dp[kNT][4];
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt)
@@ -1328,12 +1314,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
       }
       // Only a tile that crosses the warp's diagonal or the tail compares
       // positions.
-      bool masked;
-      if constexpr (kCausal) {
-        masked = k0 + kKeys - 1 > r_lo || k0 + kKeys > Tn;
-      } else {
-        masked = k0 + kKeys > Tn;
-      }
+      const bool masked = k0 + kKeys - 1 > r_lo || k0 + kKeys > Tn;
       // dS as the A fragments of dS K: k-step kk takes slices 2kk, 2kk + 1.
       uint32_t dsf[kNT / 2][4];
 #pragma unroll
@@ -1347,11 +1328,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
           for (int e = 0; e < 2; ++e) {
             const int j = k0 + 8 * nt + 2 * t + e;
             float p = exp2f(s[nt][2 * h + e] * scale2 - lse2);
-            if constexpr (kCausal) {
-              if (masked && (j > i || j >= Tn)) p = 0.f;
-            } else {
-              if (masked && j >= Tn) p = 0.f;
-            }
+            if (masked && (j > i || j >= Tn)) p = 0.f;
             float dpv = dp[nt][2 * h + e];
             if (dr.on) dpv = dr.keep(i, j) ? dpv * dr.scale : 0.f;
             ds[e] = p * (dpv - drow_i);
@@ -1430,12 +1407,14 @@ cudaError_t launch_fwd_f32(const Call& c) {
                 c.lse_out, c.H, c.T, c.sm_scale, c.dr);
 }
 
+// bf16: causal only (run keeps the non-causal calls out).
 template <typename T, int D, bool kCausal>
 cudaError_t run_fwd(const Call& c) {
   if constexpr (std::is_same<T, bf16>::value) {
+    static_assert(kCausal, "the non-causal bf16 K4 is flash_attention_sm90");
     constexpr int kW = fwd_warps<D>();
     const dim3 grid(c.BH, (c.T + 16 * kW - 1) / (16 * kW));
-    return launch(flash_fwd_mma_kernel<D, kW, kCausal>, grid, 32 * kW,
+    return launch(flash_fwd_mma_kernel<D, kW>, grid, 32 * kW,
                   fwd_mma_smem<D>(), c.stream, static_cast<const bf16*>(c.q),
                   static_cast<const bf16*>(c.k),
                   static_cast<const bf16*>(c.v), static_cast<bf16*>(c.out),
@@ -1465,15 +1444,17 @@ cudaError_t run_drow(const Call& c) {
 }
 
 // K5 or K7: Drow's pre-pass, then the key-parallel kernel of the type's
-// design (K7: no dQ, dq_acc unused).
+// design (K7: no dQ, dq_acc unused; bf16: causal only).
 template <typename T, int D, bool kWithDq, bool kCausal>
 cudaError_t run_bwd_kv(const Call& c) {
   const cudaError_t e = run_drow<T, D>(c);
   if (e != cudaSuccess) return e;
   if constexpr (std::is_same<T, bf16>::value) {
+    static_assert(kCausal,
+                  "the non-causal bf16 K5 and K7 are flash_attention_sm90");
     const dim3 grid(c.BH, (c.T + kKeys - 1) / kKeys);
     using P = BwdMma<D, kWithDq>;
-    return launch(flash_bwd_mma_kernel<D, kWithDq, kCausal>, grid,
+    return launch(flash_bwd_mma_kernel<D, kWithDq>, grid,
                   P::kThreadsT, P::kSmem, c.stream,
                   static_cast<const bf16*>(c.q),
                   static_cast<const bf16*>(c.k),
@@ -1496,14 +1477,15 @@ cudaError_t run_bwd_kv(const Call& c) {
   }
 }
 
-// K6, the query-parallel dQ pass.
+// K6, the query-parallel dQ pass (bf16: causal only).
 template <typename T, int D, bool kCausal>
 cudaError_t run_bwd_dq(const Call& c) {
   if constexpr (std::is_same<T, bf16>::value) {
+    static_assert(kCausal, "the non-causal bf16 K6 is flash_attention_sm90");
     using P = BwdDqMma<D>;
     const dim3 grid(c.BH, (c.T + P::kBM - 1) / P::kBM);
-    auto kernel = c.dlse != nullptr ? flash_bwd_dq_mma_kernel<D, true, kCausal>
-                                    : flash_bwd_dq_mma_kernel<D, false, kCausal>;
+    auto kernel = c.dlse != nullptr ? flash_bwd_dq_mma_kernel<D, true>
+                                    : flash_bwd_dq_mma_kernel<D, false>;
     return launch(kernel, grid, P::kWarps * 32,
                   P::kSmem, c.stream, static_cast<const bf16*>(c.q),
                   static_cast<const bf16*>(c.k),
@@ -1524,22 +1506,21 @@ cudaError_t run_bwd_dq(const Call& c) {
   }
 }
 
-// mode < 0: the forward; else a BwdMode. The non-causal bf16 forward and
-// fused backward are flash_attention_sm90.cu's (nsb_flash_fwd_sm90,
-// nsb_flash_bwd_sm90) and have no instance here.
+// mode < 0: the forward; else a BwdMode. Every non-causal bf16 call is
+// flash_attention_sm90.cu's (nsb_flash_fwd_sm90, nsb_flash_bwd_sm90) and
+// has no instance here.
 template <typename T, int D, bool kCausal>
 cudaError_t run(const Call& c, int mode) {
-  constexpr bool kSm90 = std::is_same<T, bf16>::value && !kCausal;
-  switch (mode) {
-    case -1:
-      if constexpr (kSm90) return cudaErrorInvalidValue;
-      else return run_fwd<T, D, kCausal>(c);
-    case kFused:
-      if constexpr (kSm90) return cudaErrorInvalidValue;
-      else return run_bwd_kv<T, D, true, kCausal>(c);
-    case kDkv: return run_bwd_kv<T, D, false, kCausal>(c);
-    case kDq: return run_bwd_dq<T, D, kCausal>(c);
-    default: return cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, bf16>::value && !kCausal) {
+    return cudaErrorInvalidValue;
+  } else {
+    switch (mode) {
+      case -1: return run_fwd<T, D, kCausal>(c);
+      case kFused: return run_bwd_kv<T, D, true, kCausal>(c);
+      case kDkv: return run_bwd_kv<T, D, false, kCausal>(c);
+      case kDq: return run_bwd_dq<T, D, kCausal>(c);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 

@@ -1,28 +1,33 @@
-// Flash attention's non-causal bf16 forward (K4) and fused backward (K5)
-// for Hopper (sm_90a): ring attention's off-diagonal blocks, each a
-// (B*H, T, D) query chunk against a key chunk of the same length lying
-// wholly in its past, at the ring block (B 1, H 12, T 1024, D 64) or the
-// 8k config's batch 4.
+// Flash attention's non-causal bf16 kernels for Hopper (sm_90a): ring
+// attention's off-diagonal blocks, each a (B*H, T, D) query chunk against
+// a key chunk of the same length lying wholly in its past, at the ring
+// block (B 1, H 12, T 1024, D 64) or the 8k config's batch 4.
 //
-//   flash_fwd_wgmma_kernel<D>   <- nanosandbox_tpu/ops/attention.py
-//                                  _flash_fwd_kernel (K4), causal=False
-//   flash_bwd_prep_kernel<D>,   <- _flash_bwd_tiles_kernel(with_dq=True)
-//   flash_bwd_wgmma_kernel<D>,     (K5), causal=False, with or without
-//   flash_bwd_dq_cast_kernel       the lse cotangent
+//   flash_fwd_wgmma_kernel<D>         <- nanosandbox_tpu/ops/attention.py
+//                                        _flash_fwd_kernel (K4)
+//   flash_bwd_prep_kernel<D>,         <- _flash_bwd_tiles_kernel(
+//   flash_bwd_wgmma_kernel<D, true>,     with_dq=True) (K5)
+//   flash_bwd_dq_cast_kernel
+//   flash_bwd_dq_wgmma_kernel<D>      <- _flash_bwd_dq_kernel (K6), the
+//                                        split backward's dQ pass
+//   flash_bwd_prep_kernel<D>,         <- _flash_bwd_tiles_kernel(
+//   flash_bwd_wgmma_kernel<D, false>     with_dq=False) (K7), its dK/dV pass
 //
-// The causal instances, K6, K7 and every fp32 instance stay in
-// flash_attention.cu (mma.sync, or CUDA cores); ops/attention.py sends a
-// bf16 non-causal forward or fused backward here and nothing else.
+// all causal=False, each backward with or without the lse cotangent. The
+// causal instances and every fp32 instance stay in flash_attention.cu
+// (mma.sync, or CUDA cores); ops/attention.py sends every bf16 non-causal
+// call here and nothing else.
 //
 // What bounds them. A block of the ring does 4 D T^2 flops a (row, head)
-// forward and 10 D T^2 backward: at the ring block 3.2 and 8.1 GFLOP, 3.3
-// and 8.1 us at the bf16 tensor-core peak, against 6.3 and 11.3 MB (1.9
-// and 3.4 us at 3.35 TB/s). At D 64 a tile's exponentials (one per score,
-// 16 a clock an SM) take as long as its products at the tensor cores' peak,
-// and at B 1 the grid is only (T/64) x B*H = 192 blocks for 132 SMs. The
-// mma.sync kernels they replace (8 warps and 128 queries a block forward:
-// 96 blocks; 4 warps and 32-query tiles backward, dQ by scalar f32
-// atomics) ran at 9-11% of the bound.
+// forward, 10 D T^2 fused backward, 6 and 8 D T^2 in K6 and K7: at the
+// ring block 3.2, 8.1, 4.8 and 6.4 GFLOP, 3.3 to 8.1 us at the bf16
+// tensor-core peak, against 6.3 to 11.3 MB (1.9 to 3.4 us at 3.35 TB/s).
+// At D 64 a tile's exponentials (one per score, 16 a clock an SM) take as
+// long as its products at the tensor cores' peak, and at B 1 the grid is
+// only (T/64) x B*H = 192 blocks for 132 SMs. The mma.sync kernels they
+// replace (8 warps and 128 queries a block forward: 96 blocks; 4 warps
+// and 32-query tiles backward, dQ by scalar f32 atomics; K6 4 warps of 16
+// queries each) ran at 9-11% of the bound.
 //
 // The design (TMA, mbarriers, wgmma):
 //   - A block is one consumer warpgroup (warps 0-3, 64 rows: the M of a
@@ -69,6 +74,29 @@
 //     writes dq = bf16(dq_acc sm_scale). Three launches, where the mma.sync
 //     path took a zeros fill, the pre-pass, the kernel and two elementwise
 //     ops.
+//   - K7: K5's kernel compiled without dQ (kWithDq false): no dS^T store,
+//     no dQ product, no staging buffers, no reduce-adds and no dq_acc
+//     map, so at D 64 its shared memory falls from about 91 KB to 51 KB.
+//     It takes each query tile in two 32-query halves, as K5 does at D
+//     128 (whole tiles spilled at D 64). The pre-pass makes the stats and
+//     zeroes nothing: two launches. A
+//     block writes only its own keys' dK and dV, so the split backward
+//     gives the same bits on every run.
+//   - K6: K4's skeleton, query-parallel. A block owns 64 queries of one
+//     (row, head); Q and dO stay resident (TMA, once), 64-key K/V tiles
+//     stream through a three-stage ring. S = Q K^T and dP = dO V^T are
+//     wgmmas from shared memory (all K-major); P = exp2(S scale log2(e) -
+//     lse log2(e)) and dS = P (dP~ - Drow) are made in place on S's
+//     accumulator (dP~: dP under the keep-mask and 1 / (1 - rate)); dS,
+//     rounded to bf16 fragments, is the A of dQ += dS K, K read MN-major
+//     from the same tile that S read K-major (as K4's P V reads V). Tile
+//     t's S and dP go out before tile t - 1's dQ product; dS is packed
+//     only after that product retires. Drow = rowsum(dO o) - dlse and lse
+//     of a thread's two rows are read with plain loads once per block, as
+//     the JAX kernel computes Drow from o. dQ stays in registers and
+//     leaves once as bf16(dQ sm_scale): one launch, no atomics, the same
+//     bits on every run. Two blocks an SM (one at D 128, where dQ's two
+//     panels beside S and dP would not fit in 168 registers).
 //   - The element loops (softmax, P~ and dS) have no branch: the tail tile
 //     and dropout select template instances outside them (a branch per
 //     element exposed each exponential's latency, 2.2x the softmax's
@@ -95,11 +123,11 @@
 // are k-step kk's A fragment as they stand.
 //
 // Layouts (row-major, contiguous): q, k, v, o, dO, dq, dk, dv (B*H, T, D)
-// bf16; lse, dlse (B*H, T) f32; the stats scratch (2, B*H, T padded to a
-// multiple of 4) f32; dq_acc (B*H, T, D) f32. Every entry point returns a
-// cudaError_t after its launches; the Python wrapper raises when it is not
-// cudaSuccess. cuTensorMapEncodeTiled, a driver entry point, is looked up
-// once in the process's libcuda.so.1.
+// bf16; lse, dlse (B*H, T) f32; the stats scratch of K5 and K7 (2, B*H, T
+// padded to a multiple of 4) f32; K5's dq_acc (B*H, T, D) f32. Every entry
+// point returns a cudaError_t after its launches; the Python wrapper raises
+// when it is not cudaSuccess. cuTensorMapEncodeTiled, a driver entry point,
+// is looked up once in the process's libcuda.so.1.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -699,16 +727,35 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// K5: the pre-pass, one block per (64-key tile, row*head), the dQ cast.
+// K5 and K7: the pre-pass, one block per (64-key tile, row*head), K5's dQ
+// cast.
 // ---------------------------------------------------------------------------
+
+// acc + the f32 dot product of 8 bf16 of o and of dO (16 bytes each).
+__device__ __forceinline__ float dot8(const bf16* o, const bf16* dout,
+                                      float acc) {
+  const uint4 a = *reinterpret_cast<const uint4*>(o);
+  const uint4 b = *reinterpret_cast<const uint4*>(dout);
+  const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fa = __bfloat1622float2(ha[i]);
+    const float2 fb = __bfloat1622float2(hb[i]);
+    acc = fmaf(fa.x, fb.x, acc);
+    acc = fmaf(fa.y, fb.y, acc);
+  }
+  return acc;
+}
 
 // Over the rows r = (bh, t) of (B*H, T, D): the row statistics the
 // key-parallel kernel stages, stats (2, B*H, Tp) f32 with T padded to Tp
 // (a multiple of 4, so that TMA can address each (row, head)'s vector):
 // stats[0, bh, t] = lse[r] log2(e) and stats[1, bh, t] = Drow =
-// sum_d dO[r, d] o[r, d] - dlse[r] in f32 (no dlse: none subtracted); and
-// row r of the f32 dQ accumulator zeroed. D / 8 lanes a row, 8 bf16 of
-// each a lane (the f32 sum in flash_attention.cu's pre-pass order).
+// sum_d dO[r, d] o[r, d] - dlse[r] in f32 (no dlse: none subtracted); and,
+// for K5 (dq_acc not null), row r of the f32 dQ accumulator zeroed. D / 8
+// lanes a row, 8 bf16 of each a lane (the f32 sum in flash_attention.cu's
+// pre-pass order).
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_prep_kernel(const bf16* __restrict__ o,
@@ -723,20 +770,12 @@ flash_bwd_prep_kernel(const bf16* __restrict__ o,
   const int part = threadIdx.x % kL;
   float acc = 0.f;
   if (row < n_rows) {
-    const uint4 a = *reinterpret_cast<const uint4*>(o + row * D + part * 8);
-    const uint4 b = *reinterpret_cast<const uint4*>(dout + row * D + part * 8);
-    const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&b);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 fa = __bfloat1622float2(ha[i]);
-      const float2 fb = __bfloat1622float2(hb[i]);
-      acc = fmaf(fa.x, fb.x, acc);
-      acc = fmaf(fa.y, fb.y, acc);
+    acc = dot8(o + row * D + part * 8, dout + row * D + part * 8, acc);
+    if (dq_acc != nullptr) {
+      float4* z = reinterpret_cast<float4*>(dq_acc + row * D + part * 8);
+      z[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+      z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    float4* z = reinterpret_cast<float4*>(dq_acc + row * D + part * 8);
-    z[0] = make_float4(0.f, 0.f, 0.f, 0.f);
-    z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 #pragma unroll
   for (int off = kL / 2; off > 0; off >>= 1)
@@ -767,10 +806,11 @@ flash_bwd_dq_cast_kernel(const float* __restrict__ dq_acc,
 // k0 + r0 and + 8; columns: queries q0 + col0 + the accumulator's) as the
 // A fragments pa, dsa of dV += P~^T dO and dK += dS^T Q; dS^T also into
 // the dS^T tile ds_p ([64 keys][64 queries] bf16, swizzled as a 128-byte
-// TMA tile) for dQ. lse2_s and drow_s: the query tile's lse in log2 units
-// and Drow. kMasked: a tail tile, where keys or queries at or past Tn get
-// p = 0; kDrop: dropout on (template arguments, as in softmax_tile).
-template <int kN, bool kMasked, bool kDrop>
+// TMA tile) for dQ when kStore (K5; K7 has no dQ). lse2_s and drow_s: the
+// query tile's lse in log2 units and Drow. kMasked: a tail tile, where
+// keys or queries at or past Tn get p = 0; kDrop: dropout on (template
+// arguments, as in softmax_tile).
+template <int kN, bool kStore, bool kMasked, bool kDrop>
 __device__ __forceinline__ void bwd_probs(
     const float (&st)[kN / 2], const float (&dpt)[kN / 2],
     uint32_t (&pa)[kN / 16][4], uint32_t (&dsa)[kN / 16][4],
@@ -803,18 +843,20 @@ __device__ __forceinline__ void bwd_probs(
       }
       pa[nt >> 1][(nt & 1) * 2 + hh] = pack_bf16(pv[0], pv[1]);
       dsa[nt >> 1][(nt & 1) * 2 + hh] = pack_bf16(ds[0], ds[1]);
-      const int kr = r0 + 8 * hh;
-      *reinterpret_cast<uint32_t*>(ds_p + kr * 128 +
-                                   (((qc >> 3) ^ (kr & 7)) << 4) +
-                                   (qc & 7) * 2) =
-          dsa[nt >> 1][(nt & 1) * 2 + hh];
+      if (kStore) {
+        const int kr = r0 + 8 * hh;
+        *reinterpret_cast<uint32_t*>(ds_p + kr * 128 +
+                                     (((qc >> 3) ^ (kr & 7)) << 4) +
+                                     (qc & 7) * 2) =
+            dsa[nt >> 1][(nt & 1) * 2 + hh];
+      }
     }
   }
 }
 
 // bwd_probs's instance for this tile: masked or not, dropout or not (kept
 // from keep_bits).
-template <int kN>
+template <int kN, bool kStore>
 __device__ __forceinline__ void bwd_probs_any(
     const float (&st)[kN / 2], const float (&dpt)[kN / 2],
     uint32_t (&pa)[kN / 16][4], uint32_t (&dsa)[kN / 16][4],
@@ -823,27 +865,34 @@ __device__ __forceinline__ void bwd_probs_any(
     const DropoutArgs& da, uint64_t kept, bool masked) {
   if (masked) {
     if (da.on)
-      bwd_probs<kN, true, true>(st, dpt, pa, dsa, ds_p, lse2_s, drow_s, q0,
-                                k0, r0, c, col0, Tn, scale2, da.scale, kept);
+      bwd_probs<kN, kStore, true, true>(st, dpt, pa, dsa, ds_p, lse2_s,
+                                        drow_s, q0, k0, r0, c, col0, Tn,
+                                        scale2, da.scale, kept);
     else
-      bwd_probs<kN, true, false>(st, dpt, pa, dsa, ds_p, lse2_s, drow_s, q0,
-                                 k0, r0, c, col0, Tn, scale2, 0.f, 0);
+      bwd_probs<kN, kStore, true, false>(st, dpt, pa, dsa, ds_p, lse2_s,
+                                         drow_s, q0, k0, r0, c, col0, Tn,
+                                         scale2, 0.f, 0);
   } else if (da.on) {
-    bwd_probs<kN, false, true>(st, dpt, pa, dsa, ds_p, lse2_s, drow_s, q0,
-                               k0, r0, c, col0, Tn, scale2, da.scale, kept);
+    bwd_probs<kN, kStore, false, true>(st, dpt, pa, dsa, ds_p, lse2_s,
+                                       drow_s, q0, k0, r0, c, col0, Tn,
+                                       scale2, da.scale, kept);
   } else {
-    bwd_probs<kN, false, false>(st, dpt, pa, dsa, ds_p, lse2_s, drow_s, q0,
-                                k0, r0, c, col0, Tn, scale2, 0.f, 0);
+    bwd_probs<kN, kStore, false, false>(st, dpt, pa, dsa, ds_p, lse2_s,
+                                        drow_s, q0, k0, r0, c, col0, Tn,
+                                        scale2, 0.f, 0);
   }
 }
 
-template <int D>
+// kWithDq: K5; without it K7, which has no dS^T tile and no dQ staging.
+template <int D, bool kWithDq>
 struct Bwd {
   static constexpr int kBN = 64;  // keys a block: the warpgroup's 64 rows
   static constexpr int kBM = 64;  // queries a tile: the M of dQ = dS K
   // Queries of one S^T, dP^T product: at D 128 half a tile, so that dK and
-  // dV (two panels each) and S^T, dP^T fit in registers together.
-  static constexpr int kBMh = D == 128 ? 32 : 64;
+  // dV (two panels each) and S^T, dP^T fit in registers together; in K7
+  // half a tile too (whole tiles spilled 4 bytes at D 64 under the 168
+  // registers of two blocks an SM; halves take 148).
+  static constexpr int kBMh = D == 128 || !kWithDq ? 32 : 64;
   static constexpr int kStages = 2;
   static constexpr uint32_t kKV = kBN * D * 2, kQ = kBM * D * 2;
   static constexpr uint32_t kVec = kBM * 4;  // lse or Drow of a tile
@@ -857,34 +906,43 @@ struct Bwd {
   static constexpr int kDqPanels = D / 32;
   static constexpr uint32_t kDq = kBM * D * 4;
   static constexpr size_t kSmem =
-      1024 + 2 * kKV + kStages * kStage + kDs + 2 * kDq;
-  static constexpr int kMinBlocks = D == 128 ? 1 : 2;
+      1024 + 2 * kKV + kStages * kStage + (kWithDq ? kDs + 2 * kDq : 0);
 };
 
+// Blocks an SM K5's and K7's kernel is built for (a constant of D alone,
+// so that __launch_bounds__ gets no template argument list with a comma).
 template <int D>
-__global__ void __launch_bounds__(kThreadsWg, Bwd<D>::kMinBlocks)
+constexpr int kBwdMinBlocks = D == 128 ? 1 : 2;
+
+// K7's place for K5's dq_acc map: no map at all.
+struct NoMap {};
+template <bool kWithDq>
+using DqMap = typename std::conditional<kWithDq, CUtensorMap, NoMap>::type;
+
+template <int D, bool kWithDq>
+__global__ void __launch_bounds__(kThreadsWg, kBwdMinBlocks<D>)
 flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        const __grid_constant__ CUtensorMap tdo,
                        const __grid_constant__ CUtensorMap tstats,
-                       const __grid_constant__ CUtensorMap tdq,
+                       const __grid_constant__ DqMap<kWithDq> tdq,
                        bf16* __restrict__ dk,
                        bf16* __restrict__ dv, int H, int Tn, float sm_scale,
                        DropoutArgs da) {
-  using P = Bwd<D>;
+  using P = Bwd<D, kWithDq>;
   using L = Tile<D>;
   constexpr int kBN = P::kBN, kBM = P::kBM, kBMh = P::kBMh, kS = P::kStages;
   constexpr int kPC = L::kCols / 8;  // 8-column slices of a panel
   extern __shared__ unsigned char smem_raw[];
   // mbarriers: K and V landed; stage s landed (full) and read (empty);
-  // dQ staging buffer b written (dq_full) and read by its reduce
+  // K5's dQ staging buffer b written (dq_full) and read by its reduce
   // (dq_empty).
   __shared__ __align__(8) uint64_t bars[1 + 2 * kS + 4];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t k_s = (raw + 1023) & ~1023u, v_s = k_s + P::kKV;
   const uint32_t ring = v_s + P::kKV, ds_s = ring + kS * P::kStage;
-  const uint32_t dq_s = ds_s + P::kDs;  // two buffers
+  const uint32_t dq_s = ds_s + P::kDs;  // two buffers (K5)
   unsigned char* const base = smem_raw + (k_s - raw);
   unsigned char* const ds_p = base + (ds_s - k_s);
   const uint32_t bar_kv = smem_addr(&bars[0]), full0 = smem_addr(&bars[1]),
@@ -893,9 +951,9 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                  dq_empty0 = dq_full0 + 16;
   const int k0 = blockIdx.x * kBN, bh = blockIdx.y;
   const int n_qt = (Tn + kBM - 1) / kBM;
-  // The blocks of a (row, head) start their walks at different query
+  // K5: the blocks of a (row, head) start their walks at different query
   // tiles, so that at any moment they add into different dQ tiles.
-  const int qt0 = blockIdx.x % n_qt;
+  const int qt0 = kWithDq ? blockIdx.x % n_qt : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_kv, 1);
@@ -903,7 +961,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, kConsumers);
     }
-    for (int b = 0; b < 2; ++b) {
+    for (int b = 0; b < (kWithDq ? 2 : 0); ++b) {
       mbar_init(dq_full0 + 8 * b, kConsumers);
       mbar_init(dq_empty0 + 8 * b, 1);
     }
@@ -912,21 +970,22 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   if (threadIdx.x >= kConsumers) {
-    // The producer warp: one lane brings every tile in and sends every dQ
-    // tile out. Its step it loads query tile it once the consumers have
-    // released its stage, then adds tile it - 1's dQ (staged by the
-    // consumers) into dq_acc, so that the consumers never wait on a
-    // reduce.
+    // The producer warp: one lane brings every tile in and (K5) sends
+    // every dQ tile out. Its step it loads query tile it once the
+    // consumers have released its stage, then adds tile it - 1's dQ
+    // (staged by the consumers) into dq_acc, so that the consumers never
+    // wait on a reduce.
     if (threadIdx.x == kConsumers) {
       mbar_expect_tx(bar_kv, 2 * P::kKV);
       load_tile<D>(k_s, &tk, bar_kv, kBN, k0, bh);
       load_tile<D>(v_s, &tv, bar_kv, kBN, k0, bh);
-      auto add_dq = [&](int t) {
+      // Generic, so that K7 (no map) never instantiates its body.
+      auto add_dq = [&](const auto& map, int t) {
         const int b = t & 1;
         mbar_wait(dq_full0 + 8 * b, (t >> 1) & 1);
         const uint32_t buf = dq_s + b * P::kDq;
         for (int p = 0; p < P::kDqPanels; ++p)
-          tma_reduce_add_3d(&tdq, buf + p * kBM * 128, 32 * p,
+          tma_reduce_add_3d(&map, buf + p * kBM * 128, 32 * p,
                             (qt0 + t) % n_qt * kBM, bh);
         bulk_commit();
         bulk_wait_read<0>();
@@ -940,16 +999,20 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         load_tile<D>(st, &tq, bar, kBM, q0, bh);
         load_tile<D>(st + P::kQ, &tdo, bar, kBM, q0, bh);
         tma_load_3d(st + 2 * P::kQ, &tstats, bar, q0, bh, 0);  // lse, Drow
-        if (it > 0) add_dq(it - 1);
+        if constexpr (kWithDq) {
+          if (it > 0) add_dq(tdq, it - 1);
+        }
       }
-      add_dq(n_qt - 1);
-      bulk_wait_all();
+      if constexpr (kWithDq) {
+        add_dq(tdq, n_qt - 1);
+        bulk_wait_all();
+      }
     }
     return;
   }
 
   // The consumer warpgroup: key rows r0 and r0 + 8 of the tile to a thread
-  // in S^T, dP^T, dK, dV; query rows r0 and r0 + 8 in dQ.
+  // in S^T, dP^T, dK, dV; query rows r0 and r0 + 8 in K5's dQ.
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = lane & 3, r0 = 16 * warp + (lane >> 2);
   const float scale2 = sm_scale * kLog2e;
@@ -984,8 +1047,9 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       hold(st);
       hold(dpt);
       uint32_t pa[kBMh / 16][4], dsa[kBMh / 16][4];
-      bwd_probs_any<kBMh>(st, dpt, pa, dsa, ds_p, lse2_s, drow_s, q0, k0, r0,
-                          c, h * kBMh, Tn, scale2, da, kept, masked);
+      bwd_probs_any<kBMh, kWithDq>(st, dpt, pa, dsa, ds_p, lse2_s, drow_s,
+                                   q0, k0, r0, c, h * kBMh, Tn, scale2, da,
+                                   kept, masked);
       // dV += P~^T dO, dK += dS^T Q (dO and Q MN-major); the fragments
       // and accumulators are final before the fence.
       hold(pa);
@@ -1003,42 +1067,46 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       hold(dsa);
     }
     mbar_arrive(empty0 + 8 * s);  // Q, dO, lse and Drow are read
-    fence_async_smem();           // dS^T, for the wgmma's reads
-    consumers_sync();
+    if constexpr (kWithDq) {
+      fence_async_smem();  // dS^T, for the wgmma's reads
+      consumers_sync();
 
-    // dQ = dS K over the tile's 64 keys: dS^T read MN-major as A, K as B.
-    float dqa[L::kPanels][L::kCols / 2];
-    const uint32_t dst_s = opaque(ds_s);
-    wg_fence();
+      // dQ = dS K over the tile's 64 keys: dS^T read MN-major as A, K as
+      // B.
+      float dqa[L::kPanels][L::kCols / 2];
+      const uint32_t dst_s = opaque(ds_s);
+      wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk)
+      for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int p = 0; p < L::kPanels; ++p)
+          wgmma_ss<1, 1>(dqa[p], Tile<64>::mnmajor(dst_s, kBN, 0, 16 * kk),
+                         L::mnmajor(kt_s, kBN, p, 16 * kk), kk);
+      wg_commit();
+      wg_wait<0>();
+      hold(dqa);
+
+      // Into staging buffer it & 1, once the reduce that last read it is
+      // done; the producer adds it into dq_acc (a TMA reduce-add a panel).
+      const int b = it & 1;
+      unsigned char* const buf_p = base + (dq_s + b * P::kDq - k_s);
+      if (it >= 2) mbar_wait(dq_empty0 + 8 * b, ((it >> 1) - 1) & 1);
 #pragma unroll
       for (int p = 0; p < L::kPanels; ++p)
-        wgmma_ss<1, 1>(dqa[p], Tile<64>::mnmajor(dst_s, kBN, 0, 16 * kk),
-                       L::mnmajor(kt_s, kBN, p, 16 * kk), kk);
-    wg_commit();
-    wg_wait<0>();
-    hold(dqa);
-
-    // Into staging buffer it & 1, once the reduce that last read it is
-    // done; the producer adds it into dq_acc (a TMA reduce-add a panel).
-    const int b = it & 1;
-    unsigned char* const buf_p = base + (dq_s + b * P::kDq - k_s);
-    if (it >= 2) mbar_wait(dq_empty0 + 8 * b, ((it >> 1) - 1) & 1);
 #pragma unroll
-    for (int p = 0; p < L::kPanels; ++p)
+        for (int cc = 0; cc < kPC; ++cc)
 #pragma unroll
-      for (int cc = 0; cc < kPC; ++cc)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int col = p * L::kCols + 8 * cc + 2 * c, row = r0 + 8 * hh;
-          *reinterpret_cast<float2*>(
-              buf_p + (col / 32) * kBM * 128 + row * 128 +
-              ((((col % 32) / 4) ^ (row & 7)) << 4) + (col % 4) * 4) =
-              make_float2(dqa[p][4 * cc + 2 * hh], dqa[p][4 * cc + 2 * hh + 1]);
-        }
-    fence_async_smem();
-    mbar_arrive(dq_full0 + 8 * b);
+          for (int hh = 0; hh < 2; ++hh) {
+            const int col = p * L::kCols + 8 * cc + 2 * c, row = r0 + 8 * hh;
+            *reinterpret_cast<float2*>(
+                buf_p + (col / 32) * kBM * 128 + row * 128 +
+                ((((col % 32) / 4) ^ (row & 7)) << 4) + (col % 4) * 4) =
+                make_float2(dqa[p][4 * cc + 2 * hh],
+                            dqa[p][4 * cc + 2 * hh + 1]);
+          }
+      fence_async_smem();
+      mbar_arrive(dq_full0 + 8 * b);
+    }
   }
 
   const int64_t base_g = static_cast<int64_t>(bh) * Tn * D;
@@ -1058,6 +1126,242 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           *reinterpret_cast<uint32_t*>(dv + off) = pack_bf16(
               dv_acc[p][4 * cc + 2 * hh], dv_acc[p][4 * cc + 2 * hh + 1]);
         }
+      }
+}
+
+// ---------------------------------------------------------------------------
+// K6: one block per (64-query tile, row*head), dQ of the split backward.
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct BwdDq {
+  static constexpr int kBM = 64, kBN = 64;  // queries a block, keys a tile
+  // K/V ring depth: three stages leave a tile's load a whole iteration
+  // ahead, and two blocks an SM still fit at D <= 64 (one at D 128).
+  static constexpr int kStages = 3;
+  static constexpr uint32_t kQ = kBM * D * 2, kKV = kBN * D * 2;
+  // + 1 KB to align the tiles to the swizzle's 1024-byte repeat: Q, dO,
+  // then the ring's (K, V) stages.
+  static constexpr size_t kSmem = 1024 + 2 * kQ + 2 * kStages * kKV;
+  // At D 128 dQ's two panels, S and dP (128 f32 registers a thread) leave
+  // too little of the 168 registers that two blocks an SM allow.
+  static constexpr int kMinBlocks = D == 128 ? 1 : 2;
+};
+
+// dS = P (dP~ - Drow) of one key tile, in place on the raw scores s (the
+// accumulator of S = Q K^T, retired; rows queries i0 and i0 + 8, columns
+// keys k0 + the accumulator's): P = exp2(s scale2 - lse2), keys at or past
+// Tn masked (the tail tile only, kTail), dP~ = dP under the keep-mask and
+// its 1 / (1 - rate) (kDrop; kept from keep_bits). lse2 and drow: the
+// thread's two rows' lse in log2 units (+inf past T, so their P is 0) and
+// Drow. Template flags, as in softmax_tile, keep the loop free of
+// branches.
+template <int kBN, bool kTail, bool kDrop>
+__device__ __forceinline__ void dq_tile(float (&s)[kBN / 2],
+                                        const float (&dp)[kBN / 2],
+                                        const float (&lse2)[2],
+                                        const float (&drow)[2], int k0, int c,
+                                        int Tn, float scale2, float drop,
+                                        uint64_t kept) {
+  const int n_in = kTail ? Tn - k0 : kBN;  // the tile's keys below Tn
+#pragma unroll
+  for (int nt = 0; nt < kBN / 8; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = 4 * nt + 2 * h + e;
+        float p = exp2_ftz(fmaf(s[x], scale2, -lse2[h]));
+        if (kTail && 8 * nt + 2 * c + e >= n_in) p = 0.f;
+        float dpv = dp[x];
+        if (kDrop) dpv = (kept >> x) & 1 ? dpv * drop : 0.f;
+        s[x] = p * (dpv - drow[h]);
+      }
+}
+
+// dq_tile's instance for tile k0: the tail one where the tile holds keys
+// at or past Tn, the dropout one where dropout is on.
+template <int kBN>
+__device__ __forceinline__ void dq_scores(float (&s)[kBN / 2],
+                                          const float (&dp)[kBN / 2],
+                                          const float (&lse2)[2],
+                                          const float (&drow)[2], int k0,
+                                          int c, int Tn, float scale2,
+                                          const DropoutArgs& da,
+                                          uint64_t kept) {
+  if (k0 + kBN > Tn) {
+    if (da.on)
+      dq_tile<kBN, true, true>(s, dp, lse2, drow, k0, c, Tn, scale2,
+                               da.scale, kept);
+    else
+      dq_tile<kBN, true, false>(s, dp, lse2, drow, k0, c, Tn, scale2, 0.f,
+                                0);
+  } else if (da.on) {
+    dq_tile<kBN, false, true>(s, dp, lse2, drow, k0, c, Tn, scale2, da.scale,
+                              kept);
+  } else {
+    dq_tile<kBN, false, false>(s, dp, lse2, drow, k0, c, Tn, scale2, 0.f, 0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsWg, BwdDq<D>::kMinBlocks)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const bf16* __restrict__ o,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dlse,
+                          bf16* __restrict__ dq, int H, int Tn,
+                          float sm_scale, DropoutArgs da) {
+  using P = BwdDq<D>;
+  using L = Tile<D>;
+  constexpr int kBM = P::kBM, kBN = P::kBN, kS = P::kStages;
+  constexpr int kPC = L::kCols / 8;  // 8-column slices of a dQ panel
+  extern __shared__ unsigned char smem_raw[];
+  // mbarriers: Q and dO landed; stage s's K and V landed (full) and read
+  // (empty).
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kS];
+  const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t do_s = q_s + P::kQ;
+  const uint32_t kv_s = do_s + P::kQ;  // stage s: K at kv_s + 2 s kKV, V next
+  const uint32_t bar_q = smem_addr(&bars[0]), full0 = smem_addr(&bars[1]),
+                 empty0 = smem_addr(&bars[1 + kS]);
+  const int q0 = blockIdx.x * kBM, bh = blockIdx.y;
+  const int n_kt = (Tn + kBN - 1) / kBN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // The producer warp: one lane issues every copy, a stage once the
+    // consumers have released it.
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(bar_q, 2 * P::kQ);
+      load_tile<D>(q_s, &tq, bar_q, kBM, q0, bh);
+      load_tile<D>(do_s, &tdo, bar_q, kBM, q0, bh);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kS;
+        if (kt >= kS) mbar_wait(empty0 + 8 * s, (kt / kS - 1) & 1);
+        const uint32_t k_s = kv_s + 2 * s * P::kKV, bar = full0 + 8 * s;
+        mbar_expect_tx(bar, 2 * P::kKV);
+        load_tile<D>(k_s, &tk, bar, kBN, kt * kBN, bh);
+        load_tile<D>(k_s + P::kKV, &tv, bar, kBN, kt * kBN, bh);
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup: query rows i0 and i0 + 8 of the tile to a
+  // thread.
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = lane & 3;
+  const int i0 = q0 + 16 * warp + (lane >> 2);
+  const float scale2 = sm_scale * kLog2e;
+  const int64_t base = static_cast<int64_t>(bh) * Tn * D;
+  // The rows' lse (log2 units) and Drow = rowsum(dO o) - dlse, while Q, dO
+  // and the first tiles land: the four lanes of a row take every fourth
+  // 8-column chunk.
+  float lse2[2], drow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = i0 + 8 * h;
+    float acc = 0.f;
+    if (i < Tn) {
+      const int64_t row = base + static_cast<int64_t>(i) * D;
+#pragma unroll
+      for (int ch = c; ch < D / 8; ch += 4)
+        acc = dot8(o + row + 8 * ch, dout + row + 8 * ch, acc);
+    }
+    acc = quad_sum(acc);
+    lse2[h] = __int_as_float(0x7f800000);  // +inf: a row past T
+    if (i < Tn) {
+      const int64_t r = static_cast<int64_t>(bh) * Tn + i;
+      lse2[h] = lse[r] * kLog2e;
+      if (dlse != nullptr) acc -= dlse[r];
+    }
+    drow[h] = acc;
+  }
+  float acc[L::kPanels][L::kCols / 2];
+#pragma unroll
+  for (int p = 0; p < L::kPanels; ++p)
+#pragma unroll
+    for (int e = 0; e < L::kCols / 2; ++e) acc[p][e] = 0.f;
+  uint32_t dsf[kBN / 16][4];
+
+  mbar_wait(bar_q, 0);
+  {
+    float s[kBN / 2], dp[kBN / 2];
+    mbar_wait(full0, 0);
+    wg_fence();
+    gemm_nt<D, kBN>(s, q_s, kBM, kv_s, kBN, 0);
+    gemm_nt<D, kBN>(dp, do_s, kBM, kv_s + P::kKV, kBN, 0);
+    wg_commit();
+    const uint64_t kept = keep_bits<kBN, true>(da, bh, H, i0, 0, c);
+    wg_wait<0>();
+    hold(s);
+    hold(dp);
+    dq_scores<kBN>(s, dp, lse2, drow, 0, c, Tn, scale2, da, kept);
+    pack_p<kBN>(s, dsf);
+  }
+  // Tile kt's S and dP go out before tile kt - 1's dQ += dS K (K of stage
+  // kt - 1 read MN-major); kt's dS is made while that product is on the
+  // tensor cores, and packed once it retires.
+  for (int kt = 1; kt < n_kt; ++kt) {
+    const int sn = kt % kS, sp = (kt - 1) % kS;
+    const uint32_t k_n = kv_s + 2 * sn * P::kKV;
+    float s[kBN / 2], dp[kBN / 2];
+    mbar_wait(full0 + 8 * sn, (kt / kS) & 1);
+    wg_fence();
+    gemm_nt<D, kBN>(s, opaque(q_s), kBM, k_n, kBN, 0);
+    gemm_nt<D, kBN>(dp, opaque(do_s), kBM, k_n + P::kKV, kBN, 0);
+    wg_commit();
+    hold(acc);
+    hold(dsf);
+    wg_fence();
+    gemm_rn<D, kBN>(acc, dsf, kv_s + 2 * sp * P::kKV, kBN, 0);
+    wg_commit();
+    const uint64_t kept = keep_bits<kBN, true>(da, bh, H, i0, kt * kBN, c);
+    wg_wait<1>();  // S and dP have landed
+    hold(s);
+    hold(dp);
+    dq_scores<kBN>(s, dp, lse2, drow, kt * kBN, c, Tn, scale2, da, kept);
+    wg_wait<0>();  // dQ += dS K has landed
+    hold(acc);
+    hold(dsf);
+    mbar_arrive(empty0 + 8 * sp);
+    pack_p<kBN>(s, dsf);
+  }
+  hold(acc);
+  hold(dsf);
+  wg_fence();
+  gemm_rn<D, kBN>(acc, dsf, kv_s + 2 * ((n_kt - 1) % kS) * P::kKV, kBN, 0);
+  wg_commit();
+  wg_wait<0>();
+  hold(acc);
+  hold(dsf);
+
+#pragma unroll
+  for (int p = 0; p < L::kPanels; ++p)
+#pragma unroll
+    for (int cc = 0; cc < kPC; ++cc)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = i0 + 8 * h;
+        if (i < Tn)
+          *reinterpret_cast<uint32_t*>(dq + base + static_cast<int64_t>(i) * D +
+                                       p * L::kCols + 8 * cc + 2 * c) =
+              pack_bf16(acc[p][4 * cc + 2 * h] * sm_scale,
+                        acc[p][4 * cc + 2 * h + 1] * sm_scale);
       }
 }
 
@@ -1181,32 +1485,37 @@ cudaError_t run_fwd(const Call& c) {
                 c.H, c.T, c.sm_scale, c.dr);
 }
 
-// The pre-pass, the key-parallel kernel, the dQ cast: three launches.
-template <int D>
+// K5 (kWithDq): the pre-pass, the key-parallel kernel, the dQ cast, three
+// launches; K7: the pre-pass (no accumulator to zero) and the kernel, two.
+template <int D, bool kWithDq>
 cudaError_t run_bwd(const Call& c) {
-  using P = Bwd<D>;
+  using P = Bwd<D, kWithDq>;
   const int64_t rows = static_cast<int64_t>(c.BH) * c.T;
   const int Tp = padded_rows(c.T);
-  CUtensorMap mq, mk, mv, mdo, mstats, mdq;
+  CUtensorMap mq, mk, mv, mdo, mstats;
+  DqMap<kWithDq> mdq{};
   if (!rows_map<D>(&mq, c.q, c.BH, c.T, P::kBM) ||
       !rows_map<D>(&mdo, c.dout, c.BH, c.T, P::kBM) ||
       !rows_map<D>(&mk, c.k, c.BH, c.T, P::kBN) ||
       !rows_map<D>(&mv, c.v, c.BH, c.T, P::kBN) ||
-      !stats_map(&mstats, c.stats, c.BH, c.T, Tp, P::kBM) ||
-      !dq_map(&mdq, c.dq_acc, c.BH, c.T, D))
+      !stats_map(&mstats, c.stats, c.BH, c.T, Tp, P::kBM))
     return cudaErrorInvalidValue;
+  if constexpr (kWithDq) {
+    if (!dq_map(&mdq, c.dq_acc, c.BH, c.T, D)) return cudaErrorInvalidValue;
+  }
   flash_bwd_prep_kernel<D>
       <<<static_cast<unsigned>((rows * (D / 8) + 255) / 256), 256, 0,
          c.stream>>>(static_cast<const bf16*>(c.o),
                      static_cast<const bf16*>(c.dout), c.lse_in, c.dlse,
-                     c.stats, c.dq_acc, rows, c.T, Tp);
+                     c.stats, kWithDq ? c.dq_acc : nullptr, rows, c.T, Tp);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const dim3 grid((c.T + P::kBN - 1) / P::kBN, c.BH);
-  e = launch(flash_bwd_wgmma_kernel<D>, grid, kThreadsWg, P::kSmem, c.stream,
-             mq, mk, mv, mdo, mstats, mdq, static_cast<bf16*>(c.dk),
-             static_cast<bf16*>(c.dv), c.H, c.T, c.sm_scale, c.dr);
-  if (e != cudaSuccess) return e;
+  e = launch(flash_bwd_wgmma_kernel<D, kWithDq>, grid, kThreadsWg, P::kSmem,
+             c.stream, mq, mk, mv, mdo, mstats, mdq,
+             static_cast<bf16*>(c.dk), static_cast<bf16*>(c.dv), c.H, c.T,
+             c.sm_scale, c.dr);
+  if (e != cudaSuccess || !kWithDq) return e;
   const int64_t n8 = rows * D / 8;
   flash_bwd_dq_cast_kernel<<<static_cast<unsigned>((n8 + 255) / 256), 256, 0,
                              c.stream>>>(c.dq_acc, static_cast<bf16*>(c.dq),
@@ -1214,21 +1523,58 @@ cudaError_t run_bwd(const Call& c) {
   return cudaGetLastError();
 }
 
-// {grid x, grid y, threads, blocks an SM} of K4's (kind 0) or K5's main
-// kernel (kind 1) at (BH, T).
+// K6: the query-parallel kernel alone, one launch.
 template <int D>
-cudaError_t shape(int kind, int BH, int T, int* out) {
-  const void* fn = kind == 0
-                       ? reinterpret_cast<const void*>(
-                             flash_fwd_wgmma_kernel<D>)
-                       : reinterpret_cast<const void*>(
-                             flash_bwd_wgmma_kernel<D>);
-  const size_t smem = kind == 0 ? Fwd<D>::kSmem : Bwd<D>::kSmem;
+cudaError_t run_bwd_dq(const Call& c) {
+  using P = BwdDq<D>;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!rows_map<D>(&mq, c.q, c.BH, c.T, P::kBM) ||
+      !rows_map<D>(&mdo, c.dout, c.BH, c.T, P::kBM) ||
+      !rows_map<D>(&mk, c.k, c.BH, c.T, P::kBN) ||
+      !rows_map<D>(&mv, c.v, c.BH, c.T, P::kBN))
+    return cudaErrorInvalidValue;
+  const dim3 grid((c.T + P::kBM - 1) / P::kBM, c.BH);
+  return launch(flash_bwd_dq_wgmma_kernel<D>, grid, kThreadsWg, P::kSmem,
+                c.stream, mq, mk, mv, mdo, static_cast<const bf16*>(c.o),
+                static_cast<const bf16*>(c.dout), c.lse_in, c.dlse,
+                static_cast<bf16*>(c.dq), c.H, c.T, c.sm_scale, c.dr);
+}
+
+// The modes of the C entry points, as flash_attention.cu numbers them: a
+// backward mode, or -1 for the forward.
+enum BwdMode { kFused = 0, kDq = 1, kDkv = 2 };
+
+// {grid x, grid y, threads, blocks an SM} of the main kernel of `mode` at
+// (BH, T).
+template <int D>
+cudaError_t shape(int mode, int BH, int T, int* out) {
+  const void* fn;
+  size_t smem;
+  switch (mode) {
+    case -1:
+      fn = reinterpret_cast<const void*>(flash_fwd_wgmma_kernel<D>);
+      smem = Fwd<D>::kSmem;
+      break;
+    case kFused:
+      fn = reinterpret_cast<const void*>(flash_bwd_wgmma_kernel<D, true>);
+      smem = Bwd<D, true>::kSmem;
+      break;
+    case kDq:
+      fn = reinterpret_cast<const void*>(flash_bwd_dq_wgmma_kernel<D>);
+      smem = BwdDq<D>::kSmem;
+      break;
+    case kDkv:
+      fn = reinterpret_cast<const void*>(flash_bwd_wgmma_kernel<D, false>);
+      smem = Bwd<D, false>::kSmem;
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  out[0] = (T + 63) / 64;  // kBM of K4, kBN of K5
+  out[0] = (T + 63) / 64;  // the 64 queries or keys of every kernel's block
   out[1] = BH;
   out[2] = kThreadsWg;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], fn,
@@ -1269,20 +1615,24 @@ int nsb_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
       by_head_dim(D, [&](auto d) { return run_fwd<decltype(d)::value>(c); }));
 }
 
-// K5, non-causal, bf16, fused: stats (2, B*H, T rounded up to a multiple
-// of 4) f32 and dq_acc (B*H, T, D) f32 are scratch (the pre-pass fills
-// both), dq, dk, dv the bf16 outputs; dlse, the lse output's (B*H, T) f32
-// cotangent, may be null (none).
+// The non-causal bf16 backward of `mode`: 0 K5 (fused: dq, dk, dv), 1 K6
+// (dq), 2 K7 (dk, dv); the other outputs are unused. stats (2, B*H, T
+// rounded up to a multiple of 4) f32 is K5's and K7's scratch, dq_acc
+// (B*H, T, D) f32 K5's (the pre-pass fills both); K6 takes neither. dlse,
+// the lse output's (B*H, T) f32 cotangent, may be null (none).
 int nsb_flash_bwd_sm90(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
                        const float* dlse, const long long* seed, float* stats,
                        float* dq_acc, void* dq, void* dk, void* dv, int BH,
                        int H, int T, int D, float sm_scale, int dropout_on,
                        unsigned threshold, float keep_scale,
-                       unsigned hash_seq_len, void* stream) {
+                       unsigned hash_seq_len, int mode, void* stream) {
   using namespace nsb;
   if (encode_tiled() == nullptr)
     return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  if ((mode != kDq && stats == nullptr) ||
+      (mode == kFused && dq_acc == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   Call c{};
   c.q = q; c.k = k; c.v = v; c.o = o; c.dout = dout; c.lse_in = lse;
   c.dlse = dlse; c.stats = stats; c.dq_acc = dq_acc;
@@ -1290,16 +1640,24 @@ int nsb_flash_bwd_sm90(const void* q, const void* k, const void* v,
   c.BH = BH; c.H = H; c.T = T; c.sm_scale = sm_scale;
   c.dr = DropoutArgs{seed, dropout_on, threshold, keep_scale, hash_seq_len};
   c.stream = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      by_head_dim(D, [&](auto d) { return run_bwd<decltype(d)::value>(c); }));
+  return static_cast<int>(by_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    switch (mode) {
+      case kFused: return run_bwd<kD, true>(c);
+      case kDq: return run_bwd_dq<kD>(c);
+      case kDkv: return run_bwd<kD, false>(c);
+      default: return cudaErrorInvalidValue;
+    }
+  }));
 }
 
 // out = {grid x, grid y, threads a block, blocks an SM} of K4's kernel
-// (kind 0) or K5's key-parallel kernel (kind 1) at (BH, T, D).
-int nsb_flash_sm90_shape(int kind, int BH, int T, int D, int* out) {
+// (mode -1) or of the main kernel of backward mode 0-2 (K5's key-parallel
+// kernel, K6's, K7's) at (BH, T, D).
+int nsb_flash_sm90_shape(int mode, int BH, int T, int D, int* out) {
   using namespace nsb;
   return static_cast<int>(by_head_dim(
-      D, [&](auto d) { return shape<decltype(d)::value>(kind, BH, T, out); }));
+      D, [&](auto d) { return shape<decltype(d)::value>(mode, BH, T, out); }));
 }
 
 }  // extern "C"

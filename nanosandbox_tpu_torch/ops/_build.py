@@ -79,15 +79,16 @@ def _signatures() -> dict:
         #  D, sm_scale, dtype, dropout on, threshold, keep scale,
         #  hash_seq_len, causal, mode, stream)
         "nsb_flash_bwd": [p] * 12 + [i] * 4 + [f, i, i, u, f, u, i, i, p],
-        # The non-causal bf16 K4 and fused K5 on wgmma and TMA:
+        # The non-causal bf16 K4-K7 on wgmma and TMA:
         # (q, k, v, o, lse, seed, BH, H, T, D, sm_scale, dropout on,
         #  threshold, keep scale, hash_seq_len, stream)
         "nsb_flash_fwd_sm90": [p] * 6 + [i] * 4 + [f, i, u, f, u, p],
         # (q, k, v, o, dout, lse, dlse, seed, stats, dq_acc, dq, dk, dv,
         #  BH, H, T, D, sm_scale, dropout on, threshold, keep scale,
-        #  hash_seq_len, stream)
-        "nsb_flash_bwd_sm90": [p] * 13 + [i] * 4 + [f, i, u, f, u, p],
-        # (kind, BH, T, D, out int[4]): grid, threads, blocks an SM
+        #  hash_seq_len, mode (0 K5, 1 K6, 2 K7), stream)
+        "nsb_flash_bwd_sm90": [p] * 13 + [i] * 4 + [f, i, u, f, u, i, p],
+        # (mode (-1 K4, else as above), BH, T, D, out int[4]): grid,
+        #  threads, blocks an SM
         "nsb_flash_sm90_shape": [i] * 4 + [p],
     }
 

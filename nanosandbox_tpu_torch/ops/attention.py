@@ -9,12 +9,13 @@ by ops/_build.py), each in a causal and a non-causal instance:
   flash_attention_bwd_dq     (K6)  <- _flash_bwd_dq_kernel
   flash_attention_bwd_dkv    (K7)  <- _flash_bwd_tiles_kernel(with_dq=False)
 
-On bfloat16 all four run on the tensor cores: the non-causal K4 and the
-non-causal fused K5 (ring attention's off-diagonal blocks) on wgmma,
-with tiles brought in by TMA (csrc/flash_attention_sm90.cu; K5 in three
-launches: a pre-pass that makes Drow and zeroes the f32 dQ accumulator,
-the kernel, whose dQ tiles go out by bulk reduce-add, and the bf16 cast
-of dQ), every other bf16 instance on mma.sync. On float32 they run on
+On bfloat16 all four run on the tensor cores: the non-causal ones (ring
+attention's off-diagonal blocks) on wgmma, with tiles brought in by TMA
+(csrc/flash_attention_sm90.cu; K5 in three launches: a pre-pass that
+makes Drow and zeroes the f32 dQ accumulator, the kernel, whose dQ tiles
+go out by bulk reduce-add, and the bf16 cast of dQ; K6 in one, Drow
+computed in the kernel; K7 in two, the pre-pass and K5's kernel without
+its dQ half), the causal ones on mma.sync. On float32 they run on
 CUDA cores in exact f32 products, on cp.async-staged tiles read as
 float4 (K4 through the fp32 paged prefill's tile loop,
 csrc/attend_f32.cuh; K5 and K7 after a Drow pre-pass; K6 with its Drow
@@ -341,18 +342,20 @@ def _instance(causal: bool, dlse=None) -> str:
 
 def _on_wgmma(q, causal: bool) -> bool:
     """Whether a call runs the Hopper kernels of flash_attention_sm90.cu
-    (wgmma, TMA): the non-causal bf16 forward and fused backward."""
+    (wgmma, TMA): every non-causal bf16 call, forward or backward."""
     return q.dtype == torch.bfloat16 and not causal
 
 
 def wgmma_launch_shape(kind: str, BH: int, T: int, D: int) -> dict:
     """The grid, threads a block and blocks an SM (the occupancy the
     kernel's registers and shared memory allow) of the non-causal bf16
-    K4 ("fwd") or K5's key-parallel kernel ("fused") at (B*H, T, D), as
-    the launcher computes them. Needs the card."""
+    K4 ("fwd") or of the main kernel of K5 ("fused"), K6 ("dq") or K7
+    ("dkv") at (B*H, T, D), as the launcher computes them. Needs the
+    card."""
     out = (ctypes.c_int * 4)()
     err = _build.library().nsb_flash_sm90_shape(
-        {"fwd": 0, "fused": 1}[kind], BH, T, D, ctypes.addressof(out))
+        -1 if kind == "fwd" else _BWD_MODE[kind], BH, T, D,
+        ctypes.addressof(out))
     _raise_on(err, f"flash attention {kind} launch shape")
     return {"grid": (out[0], out[1]), "threads": out[2],
             "blocks_per_sm": out[3]}
@@ -372,11 +375,21 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     if not q.is_cuda:
         return torch_flash_attention(q, k, v, **kw)
     _check(("q", q), ("k", k), ("v", v))
+    B, H, T, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    _launch_fwd(q, k, v, o, lse, sm_scale, causal=causal,
+                dropout_rate=dropout_rate, seed=seed,
+                hash_seq_len=hash_seq_len)
+    return o, lse
+
+
+def _launch_fwd(q, k, v, o, lse, sm_scale, *, causal, dropout_rate, seed,
+                hash_seq_len) -> None:
+    """One forward kernel call into o and lse."""
     B, H, T, D = q.shape
     sm_scale = D ** -0.5 if sm_scale is None else sm_scale
     words, dr = _dropout_args(q, seed, dropout_rate, hash_seq_len)
-    o = torch.empty_like(q)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), dr[0], B * H, H, T, D, float(sm_scale))
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -391,36 +404,35 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     # words may go now: the caching allocator hands its block only to work
     # queued after this launch on the same stream.
     del words
-    return o, lse
 
 
 def _launch_bwd(mode: str, q, k, v, o, lse, do, dq, dk, dv, sm_scale, *,
-                causal, dlse, dropout_rate, seed, hash_seq_len,
-                dq_acc=None) -> None:
-    """One backward kernel call. dq_acc: the (B, H, T, D) f32 dQ
-    accumulator of the wgmma K5 (dq is then its bf16 output); the
-    mma.sync and f32 K5 take dq itself as the accumulator."""
+                causal, dlse, dropout_rate, seed, hash_seq_len) -> None:
+    """One backward kernel call. The mma.sync and f32 K5 take dq as
+    their f32 accumulator; every other call writes dq in q's dtype."""
     B, H, T, D = q.shape
     words, dr = _dropout_args(q, seed, dropout_rate, hash_seq_len)
-    # K5 and K7 compute Drow = rowsum(dO o) - dlse once per row into this
-    # (B*H, T) f32 scratch before their key-parallel kernel; the wgmma K5
-    # into a (2, B*H, T rounded up to 4) one, lse beside it.
-    drow = None
-    if dq_acc is not None:
-        drow = torch.empty((2, B * H, -(-T // 4) * 4), dtype=torch.float32,
-                           device=q.device)
-    elif mode in ("fused", "dkv"):
-        drow = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
+    sm90 = _on_wgmma(q, causal)
+    # K5 and K7 compute Drow = rowsum(dO o) - dlse once per row into a
+    # scratch before their key-parallel kernel: (B*H, T) f32, or on wgmma
+    # (2, B*H, T rounded up to 4), lse beside it; the wgmma K5 also sums
+    # dQ into an f32 accumulator. K6 computes Drow itself.
+    drow = dq_acc = None
+    if mode in ("fused", "dkv"):
+        drow = torch.empty((2, B * H, -(-T // 4) * 4) if sm90 else
+                           (B * H, T), dtype=torch.float32, device=q.device)
+    if sm90 and mode == "fused":
+        dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), ptr(dlse), dr[0], ptr(drow))
     shape = (B * H, H, T, D, float(sm_scale))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = _build.library()
-    if dq_acc is not None:
-        err = lib.nsb_flash_bwd_sm90(*head, dq_acc.data_ptr(), ptr(dq),
-                                     ptr(dk), ptr(dv), *shape, *dr[1:],
-                                     stream)
+    if sm90:
+        err = lib.nsb_flash_bwd_sm90(*head, ptr(dq_acc), ptr(dq), ptr(dk),
+                                     ptr(dv), *shape, *dr[1:],
+                                     _BWD_MODE[mode], stream)
     else:
         err = lib.nsb_flash_bwd(*head, ptr(dq), ptr(dk), ptr(dv), *shape,
                                 _DTYPE_CODE[q.dtype], *dr[1:], int(causal),
@@ -441,7 +453,10 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
                            dropout_rate: float = 0.0, seed=None,
                            hash_seq_len: int | None = None
                            ) -> torch.Tensor:
-    """K6: dq in q's dtype, parallel over query tiles."""
+    """K6: dq in q's dtype, parallel over query tiles. CUDA tensors
+    launch flash_bwd_dq_wgmma_kernel (bf16, non-causal),
+    flash_bwd_dq_mma_kernel (bf16, causal) or flash_bwd_dq_f32_kernel
+    (fp32); CPU tensors get the plain version."""
     kw = dict(causal=causal, dlse=dlse, dropout_rate=dropout_rate, seed=seed,
               hash_seq_len=hash_seq_len)
     if not q.is_cuda:
@@ -457,7 +472,11 @@ def flash_attention_bwd_dkv(q, k, v, o, lse, do, *, causal: bool = True,
                             dlse=None, sm_scale: float | None = None,
                             dropout_rate: float = 0.0, seed=None,
                             hash_seq_len: int | None = None):
-    """K7: (dk, dv) in k's and v's dtype, parallel over key tiles."""
+    """K7: (dk, dv) in k's and v's dtype, parallel over key tiles. CUDA
+    tensors launch the pre-pass and flash_bwd_wgmma_kernel<D, false>
+    (bf16, non-causal), flash_bwd_mma_kernel<D, false> (bf16, causal) or
+    flash_bwd_kv_kernel<D, false> (fp32); CPU tensors get the plain
+    version."""
     kw = dict(causal=causal, dlse=dlse, dropout_rate=dropout_rate, seed=seed,
               hash_seq_len=hash_seq_len)
     if not q.is_cuda:
@@ -496,9 +515,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         # The kernels zero, fill, scale and cast the f32 accumulator
         # themselves: three launches, no elementwise op here.
         dq = torch.empty_like(q)
-        _launch_bwd("fused", q, k, v, o, lse, do, dq, dk, dv, sm_scale,
-                    dq_acc=torch.empty(q.shape, dtype=torch.float32,
-                                       device=q.device), **kw)
+        _launch_bwd("fused", q, k, v, o, lse, do, dq, dk, dv, sm_scale, **kw)
         return dq, dk, dv
     # K5 adds into dq from every key tile: zeroed f32, scaled and cast
     # after (as the JAX wrapper does outside its pallas_call).

@@ -12,6 +12,8 @@ both sides bf16 inputs at D 64, T up to 200, the yardstick of the bf16
 tensor-core kernels, within phase 7's 2e-2.
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -68,21 +70,43 @@ def test_plain_flash_attention_matches_jax(T):
         np.testing.assert_allclose(got, ref, atol=TOL_G)
 
 
-@pytest.mark.parametrize("impl", ["fused", "split"])
-def test_backward_from_o_and_lse_matches_jax(impl, monkeypatch):
+@pytest.mark.parametrize("impl,causal,with_dlse", [
+    pytest.param("fused", True, False, id="fused"),
+    pytest.param("split", True, False, id="split"),
+    pytest.param("fused", False, False, id="fused-non_causal"),
+    pytest.param("split", False, False, id="split-non_causal"),
+    pytest.param("fused", False, True, id="fused-non_causal-dlse"),
+    pytest.param("split", False, True, id="split-non_causal-dlse"),
+    pytest.param("split", True, True, id="split-dlse")])
+def test_backward_from_o_and_lse_matches_jax(impl, causal, with_dlse,
+                                             monkeypatch):
     """flash_attention_bwd on CPU tensors (the plain version of K5 / K6+K7)
-    from the forward's o and lse gives JAX's gradients."""
+    from the forward's o and lse, causal or not (ring attention's
+    off-diagonal blocks), given a seeded lse cotangent or none, gives the
+    gradients of JAX's backward under the same strategy (BWD_IMPL, its
+    Pallas kernels in interpret mode)."""
     monkeypatch.setattr(tattn, "BWD_IMPL", impl)
+    monkeypatch.setattr(jattn, "BWD_IMPL", impl)
     q, k, v, do = _inputs(128, seed=1)
-    _, *jg = _jax_grads(lambda q, k, v: jattn.flash_attention(
-        q, k, v, True, None, True), q, k, v, do)
+    dlse = (0.1 * np.random.default_rng(7).standard_normal(
+        (B, H, 128), dtype=np.float32) if with_dlse else None)
+    if with_dlse:
+        _, vjp = jax.vjp(lambda q, k, v: jattn.flash_attention_lse(
+            q, k, v, causal, None, True), *(jnp.asarray(x) for x in (q, k, v)))
+        jg = [np.asarray(g) for g in vjp((jnp.asarray(do),
+                                          jnp.asarray(dlse)))]
+    else:
+        _, *jg = _jax_grads(lambda q, k, v: jattn.flash_attention(
+            q, k, v, causal, None, True), q, k, v, do)
     qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
-    o, lse = tattn.flash_attention_fwd(qt, kt, vt)
-    got = tattn.flash_attention_bwd(qt, kt, vt, o, lse, dot)
+    kw = dict(causal=causal,
+              dlse=None if dlse is None else torch.from_numpy(dlse))
+    o, lse = tattn.flash_attention_fwd(qt, kt, vt, causal=causal)
+    got = tattn.flash_attention_bwd(qt, kt, vt, o, lse, dot, **kw)
     for g, ref in zip(got, jg):
         np.testing.assert_allclose(g.numpy(), ref, atol=TOL_G)
-    dq = tattn.flash_attention_bwd_dq(qt, kt, vt, o, lse, dot)
-    dk, dv = tattn.flash_attention_bwd_dkv(qt, kt, vt, o, lse, dot)
+    dq = tattn.flash_attention_bwd_dq(qt, kt, vt, o, lse, dot, **kw)
+    dk, dv = tattn.flash_attention_bwd_dkv(qt, kt, vt, o, lse, dot, **kw)
     for g, ref in zip((dq, dk, dv), got):
         np.testing.assert_array_equal(g.numpy(), ref.numpy())
     assert not any(tattn.launches.values())   # CPU: no kernel launched
@@ -153,16 +177,49 @@ def test_causal_attention_routing_and_seeds(monkeypatch):
         tattn.flash_attention_bwd(q, k, v, q, q[..., 0], q)
 
 
-def test_wgmma_route_is_the_non_causal_bf16_forward_and_fused_backward():
-    """On CUDA tensors, the bf16 non-causal forward and fused backward (ring
-    attention's off-diagonal blocks) take the wgmma kernels of
-    csrc/flash_attention_sm90.cu; every other dtype and causality keeps
-    the kernels of csrc/flash_attention.cu."""
+@pytest.mark.parametrize("mode", ["fwd", "fused", "dq", "dkv"])
+def test_wgmma_route_is_every_non_causal_bf16_call(mode, monkeypatch):
+    """Every bf16 non-causal call (ring attention's off-diagonal blocks),
+    forward, fused backward, dQ or dK/dV, goes to the C entry points of
+    csrc/flash_attention_sm90.cu (wgmma, TMA) with its mode and the
+    scratch that mode takes; every other dtype and causality goes to
+    those of csrc/flash_attention.cu. Driven through the launch code with
+    a stand-in for the built library, on CPU tensors."""
+    calls = []
+
+    class Library:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(tattn._build, "library", Library)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(tattn, "launches", dict(tattn.launches))
+    T = 6
     for dtype in (torch.bfloat16, torch.float32):
         for causal in (True, False):
-            q = torch.zeros(1, 1, 4, 32, dtype=dtype)
-            assert tattn._on_wgmma(q, causal) == (
-                dtype == torch.bfloat16 and not causal)
+            x = torch.zeros(1, 2, T, 32, dtype=dtype)
+            lse = torch.zeros(1, 2, T)
+            kw = dict(causal=causal, dropout_rate=0.0, seed=None,
+                      hash_seq_len=None)
+            if mode == "fwd":
+                tattn._launch_fwd(x, x, x, x, lse, None, **kw)
+            else:
+                tattn._launch_bwd(mode, x, x, x, x, lse, x, x, x, x, 0.1,
+                                  dlse=None, **kw)
+            name, args = calls.pop()
+            sm90 = dtype == torch.bfloat16 and not causal
+            assert tattn._on_wgmma(x, causal) == sm90
+            assert name == ("nsb_flash_" + ("fwd" if mode == "fwd" else "bwd")
+                            + ("_sm90" if sm90 else ""))
+            if mode == "fwd":
+                continue
+            assert args[-2] == tattn._BWD_MODE[mode]
+            # The row-statistics scratch (args[8]) of K5 and K7, none for
+            # K6; the wgmma K5's f32 dQ accumulator (args[9]).
+            assert (args[8] is None) == (mode == "dq")
+            if sm90:
+                assert (args[9] is None) == (mode != "fused")
 
 
 def test_chip_smoke_ring_checks_rehearse_on_cpu(monkeypatch):

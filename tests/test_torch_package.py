@@ -202,41 +202,50 @@ def test_chip_smoke_build_report_parsers():
             "R24, gdesc[UR4], RZ, !UPT ;\n")
     assert chip_smoke.sass_mma_counts(sass) == {fwd: (2, 0), "_Zold": (0, 0),
                                                  wg: (0, 1)}
-    assert (chip_smoke.kernel_label(wg)
-            == "flash_fwd_wgmma_kernel<D=64, causal=0>")
-    assert (chip_smoke.kernel_label(fwd)
-            == "flash_fwd_mma_kernel<D=64, causal=1>")
-    # K7 (the backward without dQ), K5 causal (mma.sync) and non-causal
-    # (wgmma), and K1 over each pool's storage type: bf16, int8 (signed
-    # char) and int4 (nsb::Int4, a substitution).
+    assert chip_smoke.kernel_label(wg) == "flash_fwd_wgmma_kernel<D=64>"
+    assert chip_smoke.kernel_label(fwd) == "flash_fwd_mma_kernel<D=64>"
+    # K5 and K7 (the backward with and without dQ), causal on mma.sync and
+    # non-causal on wgmma (K7's dq_acc map a std::conditional type), K6
+    # non-causal on wgmma, and K1 over each pool's storage type: bf16, int8
+    # (signed char) and int4 (nsb::Int4, a substitution).
     labels = {
-        "_ZN12_GLOBAL__N_120flash_bwd_mma_kernelILi128ELb0ELb1EEEvPK13__nv_"
-        "bfloat16S3_": "flash_bwd_mma_kernel<D=128, dq=0, causal=1>",
-        "_ZN12_GLOBAL__N_120flash_bwd_mma_kernelILi32ELb1ELb1EEEvPK13__nv_"
-        "bfloat16S3_": "flash_bwd_mma_kernel<D=32, dq=1, causal=1>",
-        "_ZN3nsb12_GLOBAL__N_122flash_bwd_wgmma_kernelILi32EEEv14CUtensorMap_"
-        "stS2_S2_S2_S2_S2_PfP13__nv_bfloat16S4_iifNS_11DropoutArgsE":
-        "flash_bwd_wgmma_kernel<D=32, causal=0>",
+        "_ZN12_GLOBAL__N_120flash_bwd_mma_kernelILi128ELb0EEEvPK13__nv_"
+        "bfloat16S3_": "flash_bwd_mma_kernel<D=128, dq=0>",
+        "_ZN12_GLOBAL__N_120flash_bwd_mma_kernelILi32ELb1EEEvPK13__nv_"
+        "bfloat16S3_": "flash_bwd_mma_kernel<D=32, dq=1>",
+        "_ZN3nsb12_GLOBAL__N_122flash_bwd_wgmma_kernelILi32ELb1EEEv14CUtensor"
+        "Map_stS2_S2_S2_S2_NSt11conditionalIXT0_ES2_NS0_5NoMapEE4typeEP13__nv"
+        "_bfloat16S8_iifNS_11DropoutArgsE":
+        "flash_bwd_wgmma_kernel<D=32, dq=1>",
+        "_ZN3nsb12_GLOBAL__N_122flash_bwd_wgmma_kernelILi128ELb0EEEv14CUtensor"
+        "Map_stS2_S2_S2_S2_NSt11conditionalIXT0_ES2_NS0_5NoMapEE4typeEP13__nv"
+        "_bfloat16S8_iifNS_11DropoutArgsE":
+        "flash_bwd_wgmma_kernel<D=128, dq=0>",
+        "_ZN3nsb12_GLOBAL__N_125flash_bwd_dq_wgmma_kernelILi64EEEv14CUtensor"
+        "Map_stS2_S2_S2_PK13__nv_bfloat16S5_PKfS7_PS3_iifNS_11DropoutArgsE":
+        "flash_bwd_dq_wgmma_kernel<D=64>",
         "_ZN3nsb12_GLOBAL__N_124paged_prefill_mma_kernelI13__nv_bfloat16"
         "Li64EEEvPKS2_": "paged_prefill_mma_kernel<bf16, D=64>",
         "_ZN3nsb12_GLOBAL__N_124paged_prefill_mma_kernelIaLi32EEEvPK13__nv_"
         "bfloat16": "paged_prefill_mma_kernel<int8, D=32>",
         "_ZN3nsb12_GLOBAL__N_124paged_prefill_mma_kernelINS_4Int4ELi128EEEv"
         "PK13__nv_bfloat16": "paged_prefill_mma_kernel<int4, D=128>",
-        "_ZN12_GLOBAL__N_123flash_bwd_dq_mma_kernelILi64ELb1ELb0EEEvPK13__nv_"
-        "bfloat16S3_": "flash_bwd_dq_mma_kernel<D=64, dlse=1, causal=0>"}
+        "_ZN12_GLOBAL__N_123flash_bwd_dq_mma_kernelILi64ELb1EEEvPK13__nv_"
+        "bfloat16S3_": "flash_bwd_dq_mma_kernel<D=64, dlse=1>"}
     for mangled, label in labels.items():
         assert chip_smoke.kernel_label(mangled) == label
         assert label in chip_smoke.TENSOR_CORE_INSTANCES
-    # K4 x 3 head_dims (mma.sync causal, wgmma non-causal), K6 x 3 x dlse
-    # or not x causal or not, K5 x 3 (mma.sync causal, wgmma non-causal),
-    # K7 x 3 x causal or not, K1 x 9: the wgmma K4 and K5 took the places
-    # of the non-causal mma.sync K4 and K5, so the count stays 39.
-    assert len(chip_smoke.TENSOR_CORE_INSTANCES) == 39
-    assert not [i for i in chip_smoke.TENSOR_CORE_INSTANCES
-                if i.startswith(("flash_fwd_mma_kernel",
-                                 "flash_bwd_mma_kernel")) and
-                i.endswith("causal=0>") and "dq=0" not in i]
+    # K4, K5 and K7 x 3 head_dims x mma.sync (causal) or wgmma
+    # (non-causal), K6 x 3 on mma.sync (causal) x dlse or not and on wgmma
+    # (non-causal), K1 x 9: the wgmma K6 and K7 took the places of the
+    # non-causal mma.sync K6 (two, dlse or not) and K7, so 39 became 36.
+    # The bf16 kernels have no causal flag left.
+    assert len(chip_smoke.TENSOR_CORE_INSTANCES) == 36
+    assert not [i for i in chip_smoke.TENSOR_CORE_INSTANCES if "causal" in i]
+    for d in chip_smoke.HEAD_DIMS:
+        assert {f"flash_bwd_dq_wgmma_kernel<D={d}>",
+                f"flash_bwd_wgmma_kernel<D={d}, dq=0>"} <= set(
+                    chip_smoke.TENSOR_CORE_INSTANCES)
     # The kernels on CUDA cores: held to 0 spills, no HMMA asked. The fp32
     # K4 with 32- and 64-query blocks (non-causal: 32), the fp32 K5/K7 and
     # K6 causal and not, K1 in each of its f32 (query, pool) pairs with
