@@ -16,10 +16,13 @@ line):
               counts in the SASS (cuobjdump; must not be 0, and the
               wgmma kernels' HGMMA count must not be 0), and the
               registers and spill stores (must be 0) of each CUDA-core
-              instance (CUDA_CORE_INSTANCES: the fp32 K4 with 32- and
-              64-query blocks, K5, K6, K7, K1 in each of its f32 (query,
-              pool) pairs, and K2 in every (query, pool) pair, at every
-              head_dim; all must be found);
+              instance (CUDA_CORE_INSTANCES: the causal fp32 K4 with 32-
+              and 64-query blocks, the non-causal fp32 K4 and K5 of ring
+              attention's blocks with and without dropout, K5, K6, K7, K1
+              in each of its f32 (query, pool) pairs, and K2 in every
+              (query, pool) pair, at every head_dim; all must be found),
+              and the registers, shared memory and blocks an SM of the
+              non-causal fp32 K4 and K5;
   3. kernels  each kernel against its plain PyTorch version on the card
               at GPT-2 124M shapes, under fp32 and bf16 queries: K2 and
               K1 (H 12, D 64, page 16, 512 blocks, 64 table entries per
@@ -76,11 +79,13 @@ line):
               without and with dropout, fp32 without (and at B 1 with)
               it, at the same limits, timed beside their bound and
               non-causal SDPA, with the grid, blocks an SM and waves of
-              the wgmma K4, K5, K6 and K7 and each kernel of one K4, K5
-              and split-backward call (torch.profiler); and, correctness
-              only, the bf16 ones at
-              head_dim 32 and 128 and at ragged, partial and one-key
-              tiles, with and without dlse and dropout;
+              the wgmma K4, K5, K6 and K7 and of the non-causal fp32 K4
+              and K5, and each kernel of one K4, K5 and split-backward
+              call (torch.profiler); the fp32 fused backward's dK and dV
+              must be the same bits on two calls; and, correctness only,
+              the bf16 and the fp32 ones at head_dim 32 and 128 and at
+              ragged, partial and one-key tiles, with and without dlse
+              and dropout;
   8. train parity  GPT-2 124M in fp32 (TF32 off) on a 2 x 1024 batch,
               without dropout and with dropout 0.1 (masks from alike-
               seeded generators): loss and every parameter gradient with
@@ -227,14 +232,21 @@ WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel",
 # f32 ones and K2.
 CUDA_CORE_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_kv_kernel",
                      "flash_bwd_dq_f32_kernel", "paged_prefill_f32_kernel",
-                     "paged_decode_kernel")
+                     "paged_decode_kernel", "flash_fwd_ring_f32_kernel",
+                     "flash_bwd_ring_f32_kernel")
+# Of those, the non-causal fp32 K4 and K5 of ring attention's blocks
+# (csrc/flash_ring_f32.cuh), each with a dropout instance (its first bool
+# template argument; K5 also in 32- and 64-key blocks, its second integer
+# one), and their kinds for ring_f32_launch_shape.
+RING_F32_KERNELS = (("fwd", "flash_fwd_ring_f32_kernel"),
+                    ("fused", "flash_bwd_ring_f32_kernel"))
 HEAD_DIMS = (32, 64, 128)
-# The flash-attention kernels (K4-K7) whose last bool template argument
+# The flash-attention kernels (K5-K7) whose last bool template argument
 # says causal or not (ring attention's off-diagonal blocks): the fp32
-# ones. The bf16 ones are causal on mma.sync and non-causal on wgmma,
-# with no such argument.
-CAUSAL_FLAG_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_kv_kernel",
-                       "flash_bwd_dq_f32_kernel")
+# ones of the split backward. The fp32 K4 and fused K5 are causal, with
+# the ring kernels their non-causal counterparts; the bf16 ones are
+# causal on mma.sync and non-causal on wgmma, with no such argument.
+CAUSAL_FLAG_KERNELS = ("flash_bwd_kv_kernel", "flash_bwd_dq_f32_kernel")
 # The template instances phase 2 must find, as kernel_label names them:
 # the bf16 K4, K5 (with dQ), K6 (mma.sync with and without reading dlse)
 # and K7 (without dQ), causal on mma.sync and non-causal on wgmma, and K1
@@ -253,16 +265,20 @@ TENSOR_CORE_INSTANCES = tuple(sorted(
 # a bf16 query over an fp32 pool.
 F32_PREFILL_PAIRS = (("fp32", "fp32"), ("fp32", "bf16"), ("fp32", "int8"),
                      ("fp32", "int4"), ("bf16", "fp32"))
-# The fp32 K4 and K1 in each of its f32 pairs, with 32- and 64-query
-# blocks (BQ; the non-causal fp32 K4 with 32 only); the fp32 K5 and K7
-# (with and without dQ), the fp32 K6 (the fp32 K4-K7 causal and not); K2
-# in every (query, pool) pair.
+# The causal fp32 K4 and K1 in each of its f32 pairs, with 32- and
+# 64-query blocks (BQ); the non-causal fp32 K4 and K5 (the ring kernels)
+# with and without dropout; the fp32 K5 (causal) and K7 (causal and not)
+# of flash_bwd_kv_kernel, the fp32 K6 causal and not; K2 in every
+# (query, pool) pair.
 CUDA_CORE_INSTANCES = tuple(sorted(
-    [f"flash_fwd_f32_kernel<D={d}, BQ={bq}, causal=1>" for d in HEAD_DIMS
+    [f"flash_fwd_f32_kernel<D={d}, BQ={bq}>" for d in HEAD_DIMS
      for bq in (32, 64)]
-    + [f"flash_fwd_f32_kernel<D={d}, BQ=32, causal=0>" for d in HEAD_DIMS]
+    + [f"flash_fwd_ring_f32_kernel<D={d}, drop={w}>" for d in HEAD_DIMS
+       for w in (0, 1)]
+    + [f"flash_bwd_ring_f32_kernel<D={d}, BK={bk}, drop={w}>"
+       for d in HEAD_DIMS for bk in (32, 64) for w in (0, 1)]
     + [f"flash_bwd_kv_kernel<D={d}, dq={w}, causal={c}>" for d in HEAD_DIMS
-       for w in (0, 1) for c in (0, 1)]
+       for w, c in ((1, 1), (0, 1), (0, 0))]
     + [f"flash_bwd_dq_f32_kernel<D={d}, causal={c}>" for d in HEAD_DIMS
        for c in (0, 1)]
     + [f"paged_prefill_f32_kernel<q={qd}, kv={kv}, D={d}, BQ={bq}>"
@@ -329,7 +345,8 @@ def kernel_label(mangled: str) -> str:
     one, the query's type and the queries a block (its second integer),
     whether the backward computes dQ or the mma.sync K6 reads dlse (its
     first bool argument) and whether an fp32 flash kernel is causal (its
-    last)."""
+    last), or a ring kernel is the dropout instance (its first) and the
+    keys a block of the ring K5 (its second integer)."""
     name = next(n for n in TENSOR_CORE_KERNELS + CUDA_CORE_KERNELS
                 if n in mangled)
     args = mangled.split(name, 1)[1]
@@ -346,7 +363,12 @@ def kernel_label(mangled: str) -> str:
         return f"{name}<q={qd}, kv={kv}, D={head_dim}>"
     if name == "flash_fwd_f32_kernel":
         bq = re.findall(r"Li(\d+)E", args)[1]
-        return f"{name}<D={head_dim}, BQ={bq}{causal}>"
+        return f"{name}<D={head_dim}, BQ={bq}>"
+    if name == "flash_fwd_ring_f32_kernel":
+        return f"{name}<D={head_dim}, drop={bools[0]}>"
+    if name == "flash_bwd_ring_f32_kernel":
+        bk = re.findall(r"Li(\d+)E", args)[1]
+        return f"{name}<D={head_dim}, BK={bk}, drop={bools[0]}>"
     if name == "paged_prefill_mma_kernel":
         kv = ("bf16" if args.startswith("I13__nv_bfloat16") else
               "int8" if args.startswith("Ia") else
@@ -409,6 +431,17 @@ def check_build(_build) -> None:
               "spill stores")
         if spill:
             fail(f"{label}: {spill} bytes spilled (needs 0)")
+    from nanosandbox_tpu_torch.ops import attention as at
+
+    for B, kind, name in ((1, "fwd", "flash_fwd_ring_f32_kernel"),
+                          (1, "fused", "flash_bwd_ring_f32_kernel<BK=32>"),
+                          (4, "fused", "flash_bwd_ring_f32_kernel<BK=64>")):
+        for d in HEAD_DIMS:
+            sh = at.ring_f32_launch_shape(kind, 12 * B, 1024, d)
+            print(f"  {name} at D={d}, B={B} H=12 T=1024 (no dropout): "
+                  f"{sh['registers']} registers, {sh['smem']} bytes of "
+                  f"shared memory, {sh['threads']} threads, "
+                  f"{sh['blocks_per_sm']} blocks an SM")
 
 
 # ---------------------------------------------------------------------------
@@ -979,7 +1012,9 @@ def check_attention(at, name, q, k, v, do, rate=0.0, seed=None,
     """K4, K5 and K6 + K7 on one case against the plain versions on the
     same inputs (the backward's: the kernel forward's o and lse), causal
     or not, the backward given the lse cotangent dlse if any. Returns the
-    errors of each output; fails past TRAIN_TOL. zero_ref names the
+    errors of each output; fails past TRAIN_TOL, if the split backward
+    differs between two calls, or if the non-causal fp32 fused backward's
+    dK or dV (flash_bwd_ring_f32_kernel) does. zero_ref names the
     gradients ("dq", "dk") that are 0 in exact arithmetic (T = 1: one key,
     so the softmax is 1 whatever the score and dS = 0): both sides then
     hold rounding noise of the f32 row term, the relative limits have no
@@ -993,6 +1028,9 @@ def check_attention(at, name, q, k, v, do, rate=0.0, seed=None,
     if at.BWD_IMPL != "fused":
         fail(f"BWD_IMPL is {at.BWD_IMPL!r}, phase 7 checks 'fused' as K5")
     fused = at.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    ring_f32 = q.dtype == torch.float32 and not causal
+    fused2 = at.flash_attention_bwd(q, k, v, o, lse, do, **kw) if ring_f32 \
+        else fused
 
     def split_bwd():
         return (at.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw),
@@ -1021,6 +1059,9 @@ def check_attention(at, name, q, k, v, do, rate=0.0, seed=None,
     if not all(torch.equal(a, b) for a, b in zip(split, split2)):
         fail(f"flash attention {name}: the split backward is not "
              "deterministic")
+    if not all(torch.equal(a, b) for a, b in zip(fused[1:], fused2[1:])):
+        fail(f"flash attention {name}: the fused backward's dK or dV "
+             "differs between two calls")
     return {"case": name, **errs}
 
 
@@ -1125,25 +1166,55 @@ RING_EDGES = ((2, 4, 256, 32, True, 0.0), (2, 4, 256, 128, True, 0.1),
               (2, 4, 200, 64, False, 0.1), (1, 1, 17, 64, False, 0.0),
               (1, 1, 1, 64, True, 0.0), (1, 12, 1000, 64, True, 0.0),
               (3, 2, 33, 32, True, 0.1), (1, 3, 65, 128, False, 0.0))
+# The same for the fp32 ones (the non-causal K4 and K5 of
+# csrc/flash_ring_f32.cuh, and K6 + K7), at phase 7's fp32 limits:
+# head_dim 32 and 128, a ragged last tile after a long walk, ragged key
+# and query tiles, a tail of one, a partial tile, a single key.
+RING_EDGES_F32 = ((2, 4, 256, 32, True, 0.0), (2, 4, 256, 128, True, 0.1),
+                  (1, 12, 1000, 64, True, 0.0), (2, 4, 200, 64, False, 0.1),
+                  (1, 3, 65, 128, False, 0.0), (3, 2, 65, 32, True, 0.1),
+                  (1, 1, 17, 64, True, 0.0), (1, 1, 1, 64, True, 0.0),
+                  (1, 2, 1, 32, False, 0.1))
 
 
-def print_wgmma_shapes(at) -> None:
+def print_ring_shapes(at) -> None:
     """The grid, blocks an SM (the occupancy the kernel's registers and
-    shared memory allow) and waves of the wgmma K4, K5, K6 and K7 at each
-    ring block shape."""
+    shared memory allow) and waves of the wgmma K4, K5, K6 and K7 and of
+    the non-causal fp32 K4 and K5 at each ring block shape."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for B, H, T, D in RING_BLOCKS:
-        for kind, name in (("fwd", "flash_fwd_wgmma_kernel"),
-                           ("fused", "flash_bwd_wgmma_kernel<dq=1>"),
-                           ("dq", "flash_bwd_dq_wgmma_kernel"),
-                           ("dkv", "flash_bwd_wgmma_kernel<dq=0>")):
-            sh = at.wgmma_launch_shape(kind, B * H, T, D)
+        for kind, name, shape in (
+                ("fwd", "flash_fwd_wgmma_kernel", at.wgmma_launch_shape),
+                ("fused", "flash_bwd_wgmma_kernel<dq=1>",
+                 at.wgmma_launch_shape),
+                ("dq", "flash_bwd_dq_wgmma_kernel", at.wgmma_launch_shape),
+                ("dkv", "flash_bwd_wgmma_kernel<dq=0>",
+                 at.wgmma_launch_shape),
+                *((kind, name, at.ring_f32_launch_shape)
+                  for kind, name in RING_F32_KERNELS)):
+            sh = shape(kind, B * H, T, D)
             n = sh["grid"][0] * sh["grid"][1]
             print(f"  {name} at B={B} H={H} T={T} D={D}: grid "
                   f"{sh['grid']} = {n} blocks of {sh['threads']} threads, "
                   f"{sh['blocks_per_sm']} blocks an SM, "
                   f"{n / (sh['blocks_per_sm'] * sms):.2f} waves on {sms} "
                   "SMs")
+
+
+def check_ring_edges(at, rng, dtype, edges, rows: list) -> None:
+    """The non-causal kernels in ``dtype`` at each (B, H, T, D, with dlse,
+    dropout rate) of ``edges`` against their plain versions (check_attention;
+    at T 1 dq and dk are 0 in exact arithmetic), rows appended to
+    ``rows``."""
+    for B, H, T, D, with_dlse, rate in edges:
+        inputs = qkv(rng, B, H, T, D, dtype)
+        dlse = (torch.from_numpy(0.1 * rng.standard_normal(
+            (B, H, T), dtype=np.float32)).to(DEVICE) if with_dlse else None)
+        seed = torch.tensor([SEED, 0, 0, 5 * T, 2 * T], device=DEVICE)
+        rows.append(check_attention(
+            at, f"B={B} H={H} T={T} D={D}", *inputs, causal=False, dlse=dlse,
+            rate=rate, seed=seed, hash_seq_len=RING_T,
+            zero_ref=("dq", "dk") if T == 1 else ()))
 
 
 def profile_ring_calls(at, rng, calls: int = 10) -> None:
@@ -1194,8 +1265,9 @@ def check_ring_blocks(at) -> dict:
     without (and at B 1 with) it. Each is held to its plain version at
     TRAIN_TOL and timed beside its bound (T^2 score elements), its plain
     version and SDPA (is_causal=False, no dropout, no lse cotangent); then
-    the RING_EDGES cases, correctness only. Returns the timed cases keyed
-    "<kind>[_fp32][_dropout][_b4]", with the max |err| of their check."""
+    the RING_EDGES and RING_EDGES_F32 cases, correctness only. Returns the
+    timed cases keyed "<kind>[_fp32][_dropout][_b4]", with the max |err|
+    of their check."""
     rng = np.random.default_rng(SEED + 13)
     cases, rows = {}, []
     outputs = {"fwd": ("o", "lse"), "fused": ("fused_dq", "fused_dk",
@@ -1229,22 +1301,16 @@ def check_ring_blocks(at) -> dict:
                     c["shape"] = shape + (" dlse" if kind != "fwd" else "")
                     cases[kind + tag + ("_dropout" if rate else "")
                           + btag] = c
-    for B, H, T, D, with_dlse, rate in RING_EDGES:
-        inputs = qkv(rng, B, H, T, D, torch.bfloat16)
-        dlse = (torch.from_numpy(0.1 * rng.standard_normal(
-            (B, H, T), dtype=np.float32)).to(DEVICE) if with_dlse else None)
-        seed = torch.tensor([SEED, 0, 0, 5 * T, 2 * T], device=DEVICE)
-        rows.append(check_attention(
-            at, f"B={B} H={H} T={T} D={D}", *inputs, causal=False, dlse=dlse,
-            rate=rate, seed=seed, hash_seq_len=RING_T,
-            zero_ref=("dq", "dk") if T == 1 else ()))
+    for dtype, edges in ((torch.bfloat16, RING_EDGES),
+                         (torch.float32, RING_EDGES_F32)):
+        check_ring_edges(at, rng, dtype, edges, rows)
     print("  ring blocks, each output: max |err| of max |ref| "
           "(||err|| / ||ref||)")
     for r in rows:
         print(f"  {r['case']}:\n    " + ", ".join(
             f"{k} {e['err']:.1e} of {e['ref']:.1e} ({e['norm']:.1e})"
             for k, e in r.items() if k != "case"))
-    print_wgmma_shapes(at)
+    print_ring_shapes(at)
     print("  times of the ring blocks (backward with dlse; SDPA: "
           "non-causal, no dropout, no lse cotangent):\n  kernel"
           "                 ms        bound_ms  %bound  plain_ms  "
@@ -2333,15 +2399,21 @@ def main(argv: list[str] | None = None) -> int:
         kernels += [entry(name, sm90, replaces, n, ring_cases[kind]),
                     entry(f"{name}[B=4]", sm90, replaces, n,
                           ring_cases[f"{kind}_b4"])]
+    # The non-causal fp32 K4 and K5 (csrc/flash_ring_f32.cuh) also at the
+    # 8k config's committed batch 4, with the same launches.
+    ring = "flash_ring_f32.cuh"
+    n_k4 = (sp_launches(sp, zz, "flash_attention_fwd/full")
+            + sp_launches(sp, ct, "flash_attention_fwd/full"))
+    n_k5 = sp_launches(sp, zz, "flash_attention_bwd_fused/full/dlse")
+    for name, replaces, n, kind in (
+            ("flash_fwd_ring_f32_kernel", "attention.py:180", n_k4,
+             "fwd_fp32"),
+            ("flash_bwd_ring_f32_kernel<dlse>", "attention.py:556", n_k5,
+             "fused_fp32")):
+        kernels += [entry(name, ring, replaces, n, ring_cases[kind]),
+                    entry(f"{name}[B=4]", ring, replaces, n,
+                          ring_cases[f"{kind}_b4"])]
     kernels += [
-        entry("flash_fwd_f32_kernel<causal=0>", flash, "attention.py:180",
-              sp_launches(sp, zz, "flash_attention_fwd/full")
-              + sp_launches(sp, ct, "flash_attention_fwd/full"),
-              ring_cases["fwd_fp32"]),
-        entry("flash_bwd_kv_kernel<float, causal=0, dlse>", flash,
-              "attention.py:556",
-              sp_launches(sp, zz, "flash_attention_bwd_fused/full/dlse"),
-              ring_cases["fused_fp32"]),
         entry("flash_bwd_dq_f32_kernel<causal=0, dlse>", flash,
               "attention.py:475",
               sp_launches(sp, ct, "flash_attention_bwd_dq/full/dlse"),

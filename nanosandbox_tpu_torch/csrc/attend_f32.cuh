@@ -1,12 +1,13 @@
 // The f32 tile loop shared by the CUDA-core attention kernels, for Hopper
 // (sm_90a): the paged prefill under an fp32 query or over an fp32 pool
-// (K1, paged_prefill_f32_kernel in paged_attention.cu) and the fp32 flash
-// forward (K4, flash_fwd_f32_kernel in flash_attention.cu). Both are
+// (K1, paged_prefill_f32_kernel in paged_attention.cu) and the causal fp32
+// flash forward (K4, flash_fwd_f32_kernel in flash_attention.cu). Both are
 // causal attention of a block of queries over the keys at or before them;
 // they differ only in where a key position's row lives (an addressing
 // policy: a block-table chain for K1, contiguous rows for K4) and in
-// compile-time options (dropout on the p.v sum and the lse store, K4's;
-// K4 also has a non-causal instance, for ring attention's blocks).
+// compile-time options (dropout on the p.v sum and the lse store, K4's).
+// The non-causal fp32 K4 of ring attention's blocks has a loop of its own
+// (flash_ring_f32.cuh).
 //
 // Every product is an exact f32 fmaf: an fp32 query is held to 1e-5 of
 // the plain version, which bf16 or TF32 products would not meet. What
@@ -125,11 +126,9 @@ struct NoDropout {
 // The loop of one block: queries q0 .. q0 + kBQ - 1 of (row, head) bh,
 // over q and out of (B*H, T, D), the first at key position first_qpos;
 // keys [0, kv_end) are visible to some query of the block. Writes out and,
-// with kLse, lse (B*H, T) in natural log. Without kCausal (the fp32 K4's
-// non-causal ring blocks) every query sees every key of [0, kv_end), and
-// only the tail tile compares positions.
+// with kLse, lse (B*H, T) in natural log.
 template <typename TQ, typename TKV, int D, int kBQ, bool kLse,
-          bool kCausal = true, typename Rows, typename Drop>
+          typename Rows, typename Drop>
 __device__ __forceinline__ void attend_f32(
     const TQ* __restrict__ q, const typename KV<TKV>::S* __restrict__ k,
     const typename KV<TKV>::S* __restrict__ v, const float* __restrict__ ks,
@@ -265,8 +264,7 @@ __device__ __forceinline__ void attend_f32(
     // first query position is causally valid for every (query, key) pair
     // and skips the compare (the Pallas kernels' inner/frontier split);
     // diagonal and tail tiles compare positions.
-    const bool masked =
-        (kCausal && c0 + kKC - 1 > first_qpos) || c0 + kKC > kv_end;
+    const bool masked = c0 + kKC - 1 > first_qpos || c0 + kKC > kv_end;
 #pragma unroll
     for (int a = 0; a < kQR; ++a) {
       const int il = ty + kTY * a, qpos = first_qpos + il;
@@ -277,8 +275,7 @@ __device__ __forceinline__ void attend_f32(
         float x = s[a][j];
         if constexpr (kQuant) x *= ks_c[jl];
         x *= sm_scale;
-        if (masked && ((kCausal && kpos > qpos) || kpos >= kv_end))
-          x = kNegInf;
+        if (masked && (kpos > qpos || kpos >= kv_end)) x = kNegInf;
         s[a][j] = x;
         mx = fmaxf(mx, x);
       }

@@ -1,6 +1,8 @@
 // Flash attention for training, forward and backward, for Hopper (sm_90a):
 // causal, and in fp32 also non-causal for ring attention's off-diagonal
-// blocks (the non-causal bf16 kernels are flash_attention_sm90.cu's).
+// blocks (the non-causal bf16 kernels are flash_attention_sm90.cu's; the
+// non-causal fp32 forward and fused backward flash_ring_f32.cuh's, which
+// this file includes and launches).
 //
 // Each kernel is the CUDA counterpart of a Pallas kernel in
 // nanosandbox_tpu/ops/attention.py. Two designs, chosen by the input type
@@ -18,11 +20,14 @@
 //       with_dq=False) (K7), the split backward's dK/dV pass: the same
 //       kernel and pre-pass without the dQ half;
 //   f32, on CUDA cores (every product an exact f32 fmaf):
-//     flash_fwd_f32_kernel<D, kBQ>      <- K4
-//     flash_bwd_kv_kernel<D, true>      <- K5, after the f32 instance of
-//       flash_bwd_drow_kernel;
+//     flash_fwd_f32_kernel<D, kBQ>      <- K4, causal
+//     flash_bwd_kv_kernel<D, true>      <- K5, causal, after the f32
+//       instance of flash_bwd_drow_kernel;
 //     flash_bwd_kv_kernel<D, false>     <- K7, after the same pre-pass;
-//     flash_bwd_dq_f32_kernel<D>        <- K6.
+//     flash_bwd_dq_f32_kernel<D>        <- K6;
+//     flash_fwd_ring_f32_kernel, flash_bwd_ring_prep_kernel +
+//       flash_bwd_ring_f32_kernel (flash_ring_f32.cuh) <- K4 and K5,
+//       non-causal: ring attention's blocks, designed for their shape.
 //   f32 stays on CUDA cores because its kernels are held to 1e-5 of the
 //   plain version with TF32 off, which bf16 or TF32 products would not
 //   meet.
@@ -90,18 +95,20 @@
 // and dQ stays in registers to one store. sm_scale multiplies each score
 // after its product and dK, dQ once at the end.
 //
-// The f32 kernels have a causal and a non-causal instance (template
-// argument kCausal; the Pallas kernels' `causal`); the bf16 ones are
-// causal only: the non-causal bf16 K4-K7 are flash_attention_sm90.cu's
-// wgmma kernels, designed for the ring's block. Ring attention
-// (ops/ring_attention.py) calls flash_attention_lse with causal=False for
-// the blocks whose keys lie wholly before its queries. Non-causal, every
-// query tile walks every key tile, and only the tail tile compares
-// positions (the port masks ragged tails, so a ring chunk need not be a
-// tile multiple). The backwards take an optional lse cotangent dlse
-// (B*H, T) f32 (a pointer of its own, null for none), which folds into
-// the row term: ds = p (dp - (Drow - dlse)), in the Drow pre-pass of K5
-// and K7 and where K6 computes Drow.
+// The f32 K5 (dK/dV kernel), K6 and K7 have a causal and a non-causal
+// instance (template argument kCausal; the Pallas kernels' `causal`); the
+// non-causal fp32 K4 and fused K5 are flash_ring_f32.cuh's kernels,
+// designed for the ring's block, and only the split backward's K6 and K7
+// run the kCausal = false instances. The bf16 ones are causal only: the
+// non-causal bf16 K4-K7 are flash_attention_sm90.cu's wgmma kernels.
+// Ring attention (ops/ring_attention.py) calls flash_attention_lse with
+// causal=False for the blocks whose keys lie wholly before its queries.
+// Non-causal, every query tile walks every key tile, and only the tail
+// tile compares positions (the port masks ragged tails, so a ring chunk
+// need not be a tile multiple). The backwards take an optional lse
+// cotangent dlse (B*H, T) f32 (a pointer of its own, null for none), which
+// folds into the row term: ds = p (dp - (Drow - dlse)), in the Drow
+// pre-pass of K5 and K7 and where K6 computes Drow.
 //
 // Blocks run in no order, where the Pallas kernels walk a sequential grid
 // axis and keep state in VMEM across it (the forward's online softmax,
@@ -145,6 +152,7 @@
 
 #include "attend_f32.cuh"
 #include "dropout.cuh"
+#include "flash_ring_f32.cuh"
 #include "mma_common.cuh"
 
 namespace {
@@ -182,13 +190,13 @@ struct Vec<__nv_bfloat16> {
 };
 
 // ---------------------------------------------------------------------------
-// K4 on CUDA cores (f32): attend_f32 (attend_f32.cuh, the fp32 paged
+// K4 on CUDA cores (f32), causal: attend_f32 (attend_f32.cuh, the fp32 paged
 // prefill's loop) over contiguous rows, with dropout on the p.v sum and the
 // lse store compiled in. One block per (row*head, query tile of kBQ), the
 // grid's y the query tile, the longest walks first.
 // ---------------------------------------------------------------------------
 
-template <int D, int kBQ, bool kCausal>
+template <int D, int kBQ>
 __global__ void __launch_bounds__(TilesF32<float, D, kBQ>::kThreads, 2)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
@@ -196,9 +204,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      DropoutArgs da) {
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
-  attend_f32<float, float, D, kBQ, true, kCausal>(
+  attend_f32<float, float, D, kBQ, true>(
       q, k, v, nullptr, nullptr, ContigRows{static_cast<int64_t>(bh) * Tn},
-      bh, Tn, q0, q0, kCausal ? min(q0 + kBQ, Tn) : Tn, o, lse, sm_scale,
+      bh, Tn, q0, q0, min(q0 + kBQ, Tn), o, lse, sm_scale,
       make_dropout(da, bh, H));
 }
 
@@ -1395,23 +1403,22 @@ struct Call {
   cudaStream_t stream;
 };
 
-// The fp32 K4 with kBQ-query blocks.
-template <int D, int kBQ, bool kCausal>
+// The causal fp32 K4 with kBQ-query blocks.
+template <int D, int kBQ>
 cudaError_t launch_fwd_f32(const Call& c) {
   using P = TilesF32<float, D, kBQ>;
   const dim3 grid(c.BH, (c.T + kBQ - 1) / kBQ);
-  return launch(flash_fwd_f32_kernel<D, kBQ, kCausal>, grid, P::kThreads,
+  return launch(flash_fwd_f32_kernel<D, kBQ>, grid, P::kThreads,
                 P::kSmem, c.stream, static_cast<const float*>(c.q),
                 static_cast<const float*>(c.k),
                 static_cast<const float*>(c.v), static_cast<float*>(c.out),
                 c.lse_out, c.H, c.T, c.sm_scale, c.dr);
 }
 
-// bf16: causal only (run keeps the non-causal calls out).
-template <typename T, int D, bool kCausal>
+// The causal K4 (run sends the non-causal calls elsewhere).
+template <typename T, int D>
 cudaError_t run_fwd(const Call& c) {
   if constexpr (std::is_same<T, bf16>::value) {
-    static_assert(kCausal, "the non-causal bf16 K4 is flash_attention_sm90");
     constexpr int kW = fwd_warps<D>();
     const dim3 grid(c.BH, (c.T + 16 * kW - 1) / (16 * kW));
     return launch(flash_fwd_mma_kernel<D, kW>, grid, 32 * kW,
@@ -1419,16 +1426,116 @@ cudaError_t run_fwd(const Call& c) {
                   static_cast<const bf16*>(c.k),
                   static_cast<const bf16*>(c.v), static_cast<bf16*>(c.out),
                   c.lse_out, c.H, c.T, c.sm_scale, c.dr);
-  } else if constexpr (kCausal) {
-    // The query tile of the fp32 paged prefill's rule (attend_f32.cuh).
-    return wide_query_tiles(c.BH, c.T) ? launch_fwd_f32<D, 64, true>(c)
-                                       : launch_fwd_f32<D, 32, true>(c);
   } else {
-    // Non-causal, 32-query blocks only: the 64-query instance spilled 12
-    // bytes at D 64 under its 128-register cap, and the ring's blocks
-    // (B 1, H 12, T 1024) take 32 by the rule above anyway.
-    return launch_fwd_f32<D, 32, false>(c);
+    // The query tile of the fp32 paged prefill's rule (attend_f32.cuh).
+    return wide_query_tiles(c.BH, c.T) ? launch_fwd_f32<D, 64>(c)
+                                       : launch_fwd_f32<D, 32>(c);
   }
+}
+
+// The non-causal fp32 K4 (flash_ring_f32.cuh): 32-query blocks, the grid's
+// x the query tile; the dropout instance where dropout is on.
+template <int D>
+cudaError_t run_fwd_ring(const Call& c) {
+  using P = RingFwdF32<D>;
+  const dim3 grid((c.T + P::kBQ - 1) / P::kBQ, c.BH);
+  return launch(c.dr.on ? flash_fwd_ring_f32_kernel<D, true>
+                        : flash_fwd_ring_f32_kernel<D, false>,
+                grid, P::kThreads, P::kSmem, c.stream,
+                static_cast<const float*>(c.q),
+                static_cast<const float*>(c.k),
+                static_cast<const float*>(c.v), static_cast<float*>(c.out),
+                c.lse_out, c.H, c.T, c.sm_scale, c.dr);
+}
+
+// Whether the non-causal fp32 K5 takes 64-key blocks: once they fill every
+// SM four times over (two waves of two), else 32-key ones, whose finer
+// grid spreads a small call over every SM.
+inline bool ring_wide_keys(int BH, int T) {
+  return static_cast<int64_t>(BH) * ((T + 63) / 64) >=
+         4 * static_cast<int64_t>(sm_count());
+}
+
+// The non-causal fp32 K5 (flash_ring_f32.cuh): the pre-pass (Drow less
+// dlse, dq zeroed), then kBK-key blocks, the grid's x the key tile; dq is
+// the f32 output, which the kernel scales.
+template <int D, int kBK>
+cudaError_t launch_bwd_ring(const Call& c) {
+  using P = RingBwdF32<D, kBK>;
+  const dim3 grid((c.T + kBK - 1) / kBK, c.BH);
+  return launch(c.dr.on ? flash_bwd_ring_f32_kernel<D, kBK, true>
+                        : flash_bwd_ring_f32_kernel<D, kBK, false>,
+                grid, P::kThreads, P::kSmem, c.stream,
+                static_cast<const float*>(c.q),
+                static_cast<const float*>(c.k),
+                static_cast<const float*>(c.v),
+                static_cast<const float*>(c.dout), c.lse_in,
+                static_cast<const float*>(c.drow), static_cast<float*>(c.dq),
+                static_cast<float*>(c.dk), static_cast<float*>(c.dv), c.H,
+                c.T, c.sm_scale, c.dr);
+}
+
+template <int D>
+cudaError_t run_bwd_ring(const Call& c) {
+  const int64_t rows = static_cast<int64_t>(c.BH) * c.T;
+  flash_bwd_ring_prep_kernel<D><<<static_cast<unsigned>(
+                                      (rows * (D / 4) + 255) / 256),
+                                  256, 0, c.stream>>>(
+      static_cast<const float*>(c.o), static_cast<const float*>(c.dout),
+      c.dlse, c.drow, static_cast<float*>(c.dq), rows);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return ring_wide_keys(c.BH, c.T) ? launch_bwd_ring<D, 64>(c)
+                                   : launch_bwd_ring<D, 32>(c);
+}
+
+// K5's main kernel with kBK-key blocks, without dropout, for ring_shape.
+template <int D, int kBK>
+void ring_bwd_kernel(const void** fn, size_t* smem, int* threads,
+                     int* tile) {
+  *fn = reinterpret_cast<const void*>(
+      flash_bwd_ring_f32_kernel<D, kBK, false>);
+  *smem = RingBwdF32<D, kBK>::kSmem;
+  *threads = RingBwdF32<D, kBK>::kThreads;
+  *tile = kBK;
+}
+
+// {grid x, grid y, threads, blocks an SM, dynamic shared memory bytes,
+// registers a thread} of the non-causal fp32 K4 (mode -1) or K5's main
+// kernel (kFused) as run_fwd_ring and run_bwd_ring launch them, without
+// dropout, at (BH, T).
+template <int D>
+cudaError_t ring_shape(int mode, int BH, int T, int* out) {
+  const void* fn;
+  size_t smem;
+  int threads, tile;
+  if (mode == -1) {
+    fn = reinterpret_cast<const void*>(flash_fwd_ring_f32_kernel<D, false>);
+    smem = RingFwdF32<D>::kSmem;
+    threads = RingFwdF32<D>::kThreads;
+    tile = RingFwdF32<D>::kBQ;
+  } else if (mode == kFused) {
+    if (ring_wide_keys(BH, T))
+      ring_bwd_kernel<D, 64>(&fn, &smem, &threads, &tile);
+    else
+      ring_bwd_kernel<D, 32>(&fn, &smem, &threads, &tile);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return e;
+  out[0] = (T + tile - 1) / tile;
+  out[1] = BH;
+  out[2] = threads;
+  out[4] = static_cast<int>(smem);
+  out[5] = attr.numRegs;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], fn, threads,
+                                                       smem);
 }
 
 // Drow's pre-pass of K5 and K7, in either type, with dlse folded in.
@@ -1508,14 +1615,23 @@ cudaError_t run_bwd_dq(const Call& c) {
 
 // mode < 0: the forward; else a BwdMode. Every non-causal bf16 call is
 // flash_attention_sm90.cu's (nsb_flash_fwd_sm90, nsb_flash_bwd_sm90) and
-// has no instance here.
+// has no instance here; the non-causal fp32 forward and fused backward
+// run flash_ring_f32.cuh's kernels.
 template <typename T, int D, bool kCausal>
 cudaError_t run(const Call& c, int mode) {
   if constexpr (std::is_same<T, bf16>::value && !kCausal) {
     return cudaErrorInvalidValue;
+  } else if constexpr (!kCausal) {
+    switch (mode) {
+      case -1: return run_fwd_ring<D>(c);
+      case kFused: return run_bwd_ring<D>(c);
+      case kDkv: return run_bwd_kv<T, D, false, false>(c);
+      case kDq: return run_bwd_dq<T, D, false>(c);
+      default: return cudaErrorInvalidValue;
+    }
   } else {
     switch (mode) {
-      case -1: return run_fwd<T, D, kCausal>(c);
+      case -1: return run_fwd<T, D>(c);
       case kFused: return run_bwd_kv<T, D, true, kCausal>(c);
       case kDkv: return run_bwd_kv<T, D, false, kCausal>(c);
       case kDq: return run_bwd_dq<T, D, kCausal>(c);
@@ -1571,7 +1687,8 @@ int nsb_flash_fwd(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(dispatch_call(dtype, D, causal != 0, c, -1));
 }
 
-// K5 (mode 0: dq is the zeroed f32 accumulator), K6 (mode 1: dq only, in
+// K5 (mode 0: dq is the zeroed f32 accumulator; non-causal fp32, the f32
+// dq itself, which the kernels zero and scale), K6 (mode 1: dq only, in
 // the input type; dk, dv unused) or K7 (mode 2: dk, dv; dq unused). K5 and
 // K7 also need drow, a (B*H, T) f32 scratch for their Drow pre-pass. dlse,
 // the lse output's (B*H, T) f32 cotangent, may be null (none).
@@ -1592,6 +1709,18 @@ int nsb_flash_bwd(const void* q, const void* k, const void* v, const void* o,
   c.dr = dropout_args(seed, dropout_on, threshold, keep_scale, hash_seq_len);
   c.stream = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dispatch_call(dtype, D, causal != 0, c, mode));
+}
+
+// The launch shape of the non-causal fp32 K4 (mode -1) or K5 (mode 0) at
+// (BH, T, D): out[6] = {grid x, grid y, threads, blocks an SM, dynamic
+// shared memory bytes, registers a thread}. Returns a cudaError_t.
+int nsb_flash_ring_f32_shape(int mode, int BH, int T, int D, int* out) {
+  switch (D) {
+    case 32: return static_cast<int>(ring_shape<32>(mode, BH, T, out));
+    case 64: return static_cast<int>(ring_shape<64>(mode, BH, T, out));
+    case 128: return static_cast<int>(ring_shape<128>(mode, BH, T, out));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -33,7 +33,7 @@ SOURCES = tuple(os.path.join(_PKG, "csrc", name) for name in
 # Headers the sources include: part of every library's hash.
 HEADERS = tuple(os.path.join(_PKG, "csrc", name) for name in
                 ("attend_f32.cuh", "decode_common.cuh", "dropout.cuh",
-                 "mma_common.cuh"))
+                 "flash_ring_f32.cuh", "mma_common.cuh"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # After the source: flash_attention_sm90.cu looks the driver's
@@ -90,6 +90,10 @@ def _signatures() -> dict:
         # (mode (-1 K4, else as above), BH, T, D, out int[4]): grid,
         #  threads, blocks an SM
         "nsb_flash_sm90_shape": [i] * 4 + [p],
+        # The non-causal fp32 K4 and K5 of flash_ring_f32.cuh: (mode (-1
+        #  K4, 0 K5), BH, T, D, out int[6]): grid, threads, blocks an SM,
+        #  dynamic shared memory bytes, registers a thread
+        "nsb_flash_ring_f32_shape": [i] * 4 + [p],
     }
 
 

@@ -17,10 +17,13 @@ go out by bulk reduce-add, and the bf16 cast of dQ; K6 in one, Drow
 computed in the kernel; K7 in two, the pre-pass and K5's kernel without
 its dQ half), the causal ones on mma.sync. On float32 they run on
 CUDA cores in exact f32 products, on cp.async-staged tiles read as
-float4 (K4 through the fp32 paged prefill's tile loop,
+float4 (the causal K4 through the fp32 paged prefill's tile loop,
 csrc/attend_f32.cuh; K5 and K7 after a Drow pre-pass; K6 with its Drow
-computed in the kernel). The input type and ``causal`` alone pick the
-design (``_on_wgmma``).
+computed in the kernel); the non-causal fp32 K4 and fused K5 run the
+kernels designed for the ring's block (csrc/flash_ring_f32.cuh; K5 in two
+launches, a pre-pass that makes Drow and zeroes dq, and the kernel, which
+adds dQ into it scaled). The input type and ``causal`` alone pick the
+design (``_on_wgmma``, ``_on_ring_f32``).
 
 ``BWD_IMPL`` picks the backward strategy, as in the JAX file: 'fused'
 (K5, one pass; dQ summed across key tiles in f32 by atomicAdd, or by
@@ -346,6 +349,13 @@ def _on_wgmma(q, causal: bool) -> bool:
     return q.dtype == torch.bfloat16 and not causal
 
 
+def _on_ring_f32(q, causal: bool) -> bool:
+    """Whether a forward or fused backward runs the fp32 kernels of
+    csrc/flash_ring_f32.cuh: every non-causal fp32 call (the split
+    backward's K6 and K7 stay on csrc/flash_attention.cu's)."""
+    return q.dtype == torch.float32 and not causal
+
+
 def wgmma_launch_shape(kind: str, BH: int, T: int, D: int) -> dict:
     """The grid, threads a block and blocks an SM (the occupancy the
     kernel's registers and shared memory allow) of the non-causal bf16
@@ -361,6 +371,20 @@ def wgmma_launch_shape(kind: str, BH: int, T: int, D: int) -> dict:
             "blocks_per_sm": out[3]}
 
 
+def ring_f32_launch_shape(kind: str, BH: int, T: int, D: int) -> dict:
+    """The grid, threads a block, blocks an SM, dynamic shared memory
+    (bytes) and registers a thread of the non-causal fp32 K4 ("fwd") or
+    of K5's main kernel ("fused") at (B*H, T, D), without dropout, as the
+    launcher computes them. Needs the card."""
+    out = (ctypes.c_int * 6)()
+    err = _build.library().nsb_flash_ring_f32_shape(
+        -1 if kind == "fwd" else _BWD_MODE[kind], BH, T, D,
+        ctypes.addressof(out))
+    _raise_on(err, f"flash attention fp32 {kind} launch shape")
+    return {"grid": (out[0], out[1]), "threads": out[2],
+            "blocks_per_sm": out[3], "smem": out[4], "registers": out[5]}
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         sm_scale: float | None = None,
                         dropout_rate: float = 0.0, seed=None,
@@ -368,7 +392,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     """K4: (o in q's dtype, lse (B, H, T) f32) for attention over
     (B, H, T, D), causal or not. CUDA tensors launch
     flash_fwd_wgmma_kernel (bf16, non-causal), flash_fwd_mma_kernel (bf16,
-    causal) or flash_fwd_f32_kernel (fp32); CPU tensors get the plain
+    causal), flash_fwd_ring_f32_kernel (fp32, non-causal) or
+    flash_fwd_f32_kernel (fp32, causal); CPU tensors get the plain
     version."""
     kw = dict(causal=causal, sm_scale=sm_scale, dropout_rate=dropout_rate,
               seed=seed, hash_seq_len=hash_seq_len)
@@ -408,8 +433,9 @@ def _launch_fwd(q, k, v, o, lse, sm_scale, *, causal, dropout_rate, seed,
 
 def _launch_bwd(mode: str, q, k, v, o, lse, do, dq, dk, dv, sm_scale, *,
                 causal, dlse, dropout_rate, seed, hash_seq_len) -> None:
-    """One backward kernel call. The mma.sync and f32 K5 take dq as
-    their f32 accumulator; every other call writes dq in q's dtype."""
+    """One backward kernel call. The mma.sync and causal f32 K5 take dq
+    as their zeroed f32 accumulator; every other call writes dq in q's
+    dtype."""
     B, H, T, D = q.shape
     words, dr = _dropout_args(q, seed, dropout_rate, hash_seq_len)
     sm90 = _on_wgmma(q, causal)
@@ -511,9 +537,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                                              sm_scale=sm_scale, **kw))
     sm_scale = _bwd_args(q, k, v, o, lse, do, dlse, sm_scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if _on_wgmma(q, causal):
-        # The kernels zero, fill, scale and cast the f32 accumulator
-        # themselves: three launches, no elementwise op here.
+    if _on_wgmma(q, causal) or _on_ring_f32(q, causal):
+        # The kernels zero, fill and scale the f32 accumulator (on wgmma
+        # also cast it) themselves: no elementwise op here.
         dq = torch.empty_like(q)
         _launch_bwd("fused", q, k, v, o, lse, do, dq, dk, dv, sm_scale, **kw)
         return dq, dk, dv

@@ -7,7 +7,9 @@ kernels to on the card. The JAX side runs its Pallas kernels in
 interpret mode, as its own tests do. Inputs are numpy-seeded, fp32, at
 B 2, H 2, T <= 128, D 32 (tests/conftest.py tiny_cfg's head size).
 Tolerances: 2e-5 on o and lse, 2e-4 on gradients (f32 sums in another
-order; the JAX kernels pad D to 128 and T to the block). One test feeds
+order; the JAX kernels pad D to 128 and T to the block); the non-causal
+cases (ring attention's blocks) at phase 7's fp32 limits, 1e-5 and 1e-4,
+which the ring's fp32 kernels are held to on the card. One test feeds
 both sides bf16 inputs at D 64, T up to 200, the yardstick of the bf16
 tensor-core kernels, within phase 7's 2e-2.
 """
@@ -25,6 +27,7 @@ from nanosandbox_tpu_torch.ops import attention as tattn
 
 B, H, D = 2, 2, 32
 TOL_O, TOL_G = 2e-5, 2e-4
+RING_O, RING_G = 1e-5, 1e-4  # chip_smoke.TRAIN_TOL's fp32 limits
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -56,18 +59,25 @@ def _jax_grads(fn, q, k, v, do):
     return (np.asarray(o), *(np.asarray(g) for g in vjp(jnp.asarray(do))))
 
 
-@pytest.mark.parametrize("T", [128, 96])
-def test_plain_flash_attention_matches_jax(T):
+@pytest.mark.parametrize("T,causal", [
+    pytest.param(128, True, id="128"), pytest.param(96, True, id="96"),
+    # The JAX kernels' non-causal path takes whole blocks only.
+    pytest.param(128, False, id="128-non_causal")])
+def test_plain_flash_attention_matches_jax(T, causal):
+    """The plain forward (o, lse) and its autograd gradients against JAX's
+    flash attention, causal or not (ring attention's blocks)."""
+    tol_o, tol_g = (TOL_O, TOL_G) if causal else (RING_O, RING_G)
     q, k, v, do = _inputs(T)
     jo, jlse = jattn.flash_attention_lse(*(jnp.asarray(x) for x in (q, k, v)),
-                                         True, None, True)
+                                         causal, None, True)
     _, *jg = _jax_grads(lambda q, k, v: jattn.flash_attention(
-        q, k, v, True, None, True), q, k, v, do)
-    o, lse, *g = _torch_grads(tattn.torch_flash_attention, q, k, v, do)
-    np.testing.assert_allclose(o, np.asarray(jo), atol=TOL_O)
-    np.testing.assert_allclose(lse, np.asarray(jlse), atol=TOL_O)
+        q, k, v, causal, None, True), q, k, v, do)
+    o, lse, *g = _torch_grads(lambda q, k, v: tattn.torch_flash_attention(
+        q, k, v, causal=causal), q, k, v, do)
+    np.testing.assert_allclose(o, np.asarray(jo), atol=tol_o)
+    np.testing.assert_allclose(lse, np.asarray(jlse), atol=tol_o)
     for got, ref in zip(g, jg):
-        np.testing.assert_allclose(got, ref, atol=TOL_G)
+        np.testing.assert_allclose(got, ref, atol=tol_g)
 
 
 @pytest.mark.parametrize("impl,causal,with_dlse", [
@@ -104,7 +114,8 @@ def test_backward_from_o_and_lse_matches_jax(impl, causal, with_dlse,
     o, lse = tattn.flash_attention_fwd(qt, kt, vt, causal=causal)
     got = tattn.flash_attention_bwd(qt, kt, vt, o, lse, dot, **kw)
     for g, ref in zip(got, jg):
-        np.testing.assert_allclose(g.numpy(), ref, atol=TOL_G)
+        np.testing.assert_allclose(g.numpy(), ref,
+                                   atol=TOL_G if causal else RING_G)
     dq = tattn.flash_attention_bwd_dq(qt, kt, vt, o, lse, dot, **kw)
     dk, dv = tattn.flash_attention_bwd_dkv(qt, kt, vt, o, lse, dot, **kw)
     for g, ref in zip((dq, dk, dv), got):
@@ -210,6 +221,8 @@ def test_wgmma_route_is_every_non_causal_bf16_call(mode, monkeypatch):
             name, args = calls.pop()
             sm90 = dtype == torch.bfloat16 and not causal
             assert tattn._on_wgmma(x, causal) == sm90
+            assert tattn._on_ring_f32(x, causal) == (
+                dtype == torch.float32 and not causal)
             assert name == ("nsb_flash_" + ("fwd" if mode == "fwd" else "bwd")
                             + ("_sm90" if sm90 else ""))
             if mode == "fwd":
@@ -222,11 +235,15 @@ def test_wgmma_route_is_every_non_causal_bf16_call(mode, monkeypatch):
                 assert (args[9] is None) == (mode != "fused")
 
 
-def test_chip_smoke_ring_checks_rehearse_on_cpu(monkeypatch):
+@pytest.mark.parametrize("dtype", [pytest.param(torch.bfloat16, id="bf16"),
+                                   pytest.param(torch.float32, id="fp32")])
+def test_chip_smoke_ring_checks_rehearse_on_cpu(dtype, monkeypatch):
     """chip_smoke.py's phase-7 checks of the non-causal instances at their
-    tile edges (RING_EDGES: head_dim 32 and 128, ragged, partial and
-    one-key tiles, with and without dlse and dropout, bf16) run on the
-    CPU, where both sides are the plain versions, and pass."""
+    tile edges (RING_EDGES in bf16, RING_EDGES_F32 in fp32: head_dim 32
+    and 128, ragged, partial and one-key tiles, with and without dlse and
+    dropout), with the fp32 fused backward's dK and dV held to equal bits
+    on two calls, run on the CPU, where both sides are the plain versions,
+    and pass."""
     import sys
     from pathlib import Path
 
@@ -238,19 +255,17 @@ def test_chip_smoke_ring_checks_rehearse_on_cpu(monkeypatch):
         sys.path.remove(repo)
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     assert chip_smoke.RING_BLOCKS == ((1, 12, 1024, 64), (4, 12, 1024, 64))
-    rng = np.random.default_rng(0)
-    for B, H, T, D, with_dlse, rate in chip_smoke.RING_EDGES:
-        if B * H * T > 4096:
-            continue  # the plain versions' (T, T) scores: keep it small
-        x = chip_smoke.qkv(rng, B, H, T, D, torch.bfloat16)
-        dlse = (torch.from_numpy(0.1 * rng.standard_normal(
-            (B, H, T), dtype=np.float32)) if with_dlse else None)
-        row = chip_smoke.check_attention(
-            tattn, "edge", *x, causal=False, dlse=dlse, rate=rate,
-            seed=[chip_smoke.SEED, 0, 0, 5 * T, 2 * T],
-            hash_seq_len=chip_smoke.RING_T,
-            zero_ref=("dq", "dk") if T == 1 else ())
-        assert all(e["err"] == 0.0 for k, e in row.items() if k != "case")
+    edges = (chip_smoke.RING_EDGES if dtype == torch.bfloat16
+             else chip_smoke.RING_EDGES_F32)
+    assert {e[3] for e in edges} == {32, 64, 128}
+    assert 1 in {e[2] for e in edges} and {0.0, 0.1} <= {e[5] for e in edges}
+    rows = []
+    # The plain versions' (T, T) scores: keep it small.
+    chip_smoke.check_ring_edges(tattn, np.random.default_rng(0), dtype,
+                                [e for e in edges
+                                 if e[0] * e[1] * e[2] <= 4096], rows)
+    assert rows and all(e["err"] == 0.0 for r in rows
+                        for k, e in r.items() if k != "case")
 
 
 def test_kernel_argument_checks():

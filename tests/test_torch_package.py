@@ -246,11 +246,13 @@ def test_chip_smoke_build_report_parsers():
         assert {f"flash_bwd_dq_wgmma_kernel<D={d}>",
                 f"flash_bwd_wgmma_kernel<D={d}, dq=0>"} <= set(
                     chip_smoke.TENSOR_CORE_INSTANCES)
-    # The kernels on CUDA cores: held to 0 spills, no HMMA asked. The fp32
-    # K4 with 32- and 64-query blocks (non-causal: 32), the fp32 K5/K7 and
-    # K6 causal and not, K1 in each of its f32 (query, pool) pairs with
-    # 32- and 64-query blocks, and K2 in every (query, pool) pair (a
-    # repeated bf16 is a substitution).
+    # The kernels on CUDA cores: held to 0 spills, no HMMA asked. The
+    # causal fp32 K4 with 32- and 64-query blocks, the non-causal fp32 K4
+    # and K5 of ring attention's blocks (csrc/flash_ring_f32.cuh) with and
+    # without dropout, the causal fp32 K5, K7 and K6 causal and not, K1 in
+    # each of its f32 (query, pool) pairs with 32- and 64-query blocks,
+    # and K2 in every (query, pool) pair (a repeated bf16 is a
+    # substitution).
     pf = ("_ZN3nsb51_GLOBAL__N__737eb1aa_18_paged_attention_cu_2415576824"
           "paged_prefill_f32_kernel")
     labels = {
@@ -271,12 +273,24 @@ def test_chip_smoke_build_report_parsers():
         pf + "I13__nv_bfloat16fLi64ELi32EEEvPKT_PKNS_2KVIT0_E1SESB_PKfSD_"
         "PKiSF_PS3_iiiiif":
         "paged_prefill_f32_kernel<q=bf16, kv=fp32, D=64, BQ=32>",
-        "_ZN12_GLOBAL__N_120flash_fwd_f32_kernelILi128ELi32ELb0EEEvPKfS1_S1_"
+        "_ZN12_GLOBAL__N_120flash_fwd_f32_kernelILi128ELi32EEEvPKfS1_S1_"
         "PfS2_iifNS_11DropoutArgsE":
-        "flash_fwd_f32_kernel<D=128, BQ=32, causal=0>",
-        "_ZN12_GLOBAL__N_120flash_fwd_f32_kernelILi64ELi64ELb1EEEvPKfS1_S1_"
+        "flash_fwd_f32_kernel<D=128, BQ=32>",
+        "_ZN12_GLOBAL__N_120flash_fwd_f32_kernelILi64ELi64EEEvPKfS1_S1_"
         "PfS2_iifNS_11DropoutArgsE":
-        "flash_fwd_f32_kernel<D=64, BQ=64, causal=1>",
+        "flash_fwd_f32_kernel<D=64, BQ=64>",
+        "_ZN12_GLOBAL__N_125flash_fwd_ring_f32_kernelILi64ELb1EEEvPKfS1_S1_"
+        "PfS2_iifN3nsb11DropoutArgsE":
+        "flash_fwd_ring_f32_kernel<D=64, drop=1>",
+        "_ZN12_GLOBAL__N_125flash_fwd_ring_f32_kernelILi32ELb0EEEvPKfS1_S1_"
+        "PfS2_iifN3nsb11DropoutArgsE":
+        "flash_fwd_ring_f32_kernel<D=32, drop=0>",
+        "_ZN12_GLOBAL__N_125flash_bwd_ring_f32_kernelILi128ELi32ELb0EEEvPKf"
+        "S1_S1_S1_S1_S1_PfS2_S2_iifN3nsb11DropoutArgsE":
+        "flash_bwd_ring_f32_kernel<D=128, BK=32, drop=0>",
+        "_ZN12_GLOBAL__N_125flash_bwd_ring_f32_kernelILi64ELi64ELb1EEEvPKf"
+        "S1_S1_S1_S1_S1_PfS2_S2_iifN3nsb11DropoutArgsE":
+        "flash_bwd_ring_f32_kernel<D=64, BK=64, drop=1>",
         "_ZN3nsb12_GLOBAL__N_119paged_decode_kernelI13__nv_bfloat16S2_Li64EE"
         "EvPKT_": "paged_decode_kernel<q=bf16, kv=bf16, D=64>",
         "_ZN3nsb12_GLOBAL__N_119paged_decode_kernelIfNS_4Int4ELi32EEEvPKT_":
@@ -288,20 +302,31 @@ def test_chip_smoke_build_report_parsers():
     for mangled, label in labels.items():
         assert chip_smoke.kernel_label(mangled) == label
         assert label in chip_smoke.CUDA_CORE_INSTANCES
-    assert len(chip_smoke.CUDA_CORE_INSTANCES) == 81
+    # The ring kernels' 18 instances (K4 x 3 head_dims x dropout or not,
+    # K5 also x 32- or 64-key blocks) took the places of the non-causal
+    # fp32 K4 (3) and fused K5 (3): 81 became 93. No instance of the fp32
+    # K4 or K5 is non-causal any more.
+    assert len(chip_smoke.CUDA_CORE_INSTANCES) == 93
+    assert not [i for i in chip_smoke.CUDA_CORE_INSTANCES
+                if i.startswith("flash_fwd_f32_kernel") and "causal" in i
+                or i.startswith("flash_bwd_kv_kernel<") and "dq=1, causal=0"
+                in i]
+    assert {f"flash_bwd_ring_f32_kernel<D={d}, BK={bk}, drop={w}>"
+            for d in chip_smoke.HEAD_DIMS for bk in (32, 64)
+            for w in (0, 1)} <= set(chip_smoke.CUDA_CORE_INSTANCES)
 
 
 def test_chip_smoke_kernel_names_are_kernels_in_the_sources():
     """Every kernel name phase 2 looks for is a __global__ function of
-    the port's CUDA sources, so a renamed kernel fails here and not after
-    a chip run."""
+    the port's CUDA sources (a .cu, or a .cuh one includes), so a renamed
+    kernel fails here and not after a chip run."""
     sys.path.insert(0, str(REPO))
     try:
         import chip_smoke
     finally:
         sys.path.remove(str(REPO))
     kernels = set()
-    for path in (PKG / "csrc").glob("*.cu"):
+    for path in (PKG / "csrc").glob("*.cu*"):
         kernels |= set(re.findall(
             r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
             r"(\w+)\s*\(", path.read_text()))
@@ -311,6 +336,12 @@ def test_chip_smoke_kernel_names_are_kernels_in_the_sources():
     assert set(chip_smoke.WGMMA_KERNELS) <= set(chip_smoke.TENSOR_CORE_KERNELS)
     sm90 = (PKG / "csrc" / "flash_attention_sm90.cu").read_text()
     assert all(f"{n}(" in sm90 for n in chip_smoke.WGMMA_KERNELS)
+    # The non-causal fp32 K4 and K5 live in a header that the flash
+    # library's source includes (its entry points route to them).
+    ring = (PKG / "csrc" / "flash_ring_f32.cuh").read_text()
+    assert all(f"\n{n}(" in ring for _, n in chip_smoke.RING_F32_KERNELS)
+    assert '#include "flash_ring_f32.cuh"' in (
+        PKG / "csrc" / "flash_attention.cu").read_text()
     # Each instance phase 2 expects names one of those kernels.
     for label in (chip_smoke.TENSOR_CORE_INSTANCES
                   + chip_smoke.CUDA_CORE_INSTANCES):
