@@ -17,12 +17,12 @@ line):
               wgmma kernels' HGMMA count must not be 0), and the
               registers and spill stores (must be 0) of each CUDA-core
               instance (CUDA_CORE_INSTANCES: the causal fp32 K4 with 32-
-              and 64-query blocks, the non-causal fp32 K4 and K5 of ring
-              attention's blocks with and without dropout, K5, K6, K7, K1
-              in each of its f32 (query, pool) pairs, and K2 in every
+              and 64-query blocks, K5, K6 and K7, the non-causal fp32
+              K4-K7 of ring attention's blocks with and without dropout,
+              K1 in each of its f32 (query, pool) pairs, and K2 in every
               (query, pool) pair, at every head_dim; all must be found),
               and the registers, shared memory and blocks an SM of the
-              non-causal fp32 K4 and K5;
+              non-causal fp32 K4-K7;
   3. kernels  each kernel against its plain PyTorch version on the card
               at GPT-2 124M shapes, under fp32 and bf16 queries: K2 and
               K1 (H 12, D 64, page 16, 512 blocks, 64 table entries per
@@ -79,10 +79,12 @@ line):
               without and with dropout, fp32 without (and at B 1 with)
               it, at the same limits, timed beside their bound and
               non-causal SDPA, with the grid, blocks an SM and waves of
-              the wgmma K4, K5, K6 and K7 and of the non-causal fp32 K4
-              and K5, and each kernel of one K4, K5 and split-backward
-              call (torch.profiler); the fp32 fused backward's dK and dV
-              must be the same bits on two calls; and, correctness only,
+              the wgmma K4, K5, K6 and K7 and of the non-causal fp32
+              ones, and each kernel of one K4, K5 and split-backward call
+              in bf16 and fp32 (torch.profiler; the fp32 calls must run
+              the kernels of csrc/flash_ring_f32.cuh alone); the fp32
+              fused backward's dK and dV must be the same bits on two
+              calls; and, correctness only,
               the bf16 and the fp32 ones at head_dim 32 and 128 and at
               ragged, partial and one-key tiles, with and without dlse
               and dropout;
@@ -233,20 +235,21 @@ WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel",
 CUDA_CORE_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_kv_kernel",
                      "flash_bwd_dq_f32_kernel", "paged_prefill_f32_kernel",
                      "paged_decode_kernel", "flash_fwd_ring_f32_kernel",
-                     "flash_bwd_ring_f32_kernel")
-# Of those, the non-causal fp32 K4 and K5 of ring attention's blocks
-# (csrc/flash_ring_f32.cuh), each with a dropout instance (its first bool
-# template argument; K5 also in 32- and 64-key blocks, its second integer
-# one), and their kinds for ring_f32_launch_shape.
+                     "flash_bwd_ring_f32_kernel",
+                     "flash_bwd_dq_ring_f32_kernel")
+# Of those, the non-causal fp32 K4-K7 of ring attention's blocks
+# (csrc/flash_ring_f32.cuh) by their kinds for ring_f32_launch_shape, each
+# with a dropout instance (its last bool template argument); K5 and K7
+# are one kernel (its first bool argument says dQ or not), in 32- and
+# 64-key blocks (its second integer one), K6 in 32- and 64-query blocks
+# (its second integer one). The fp32 K4-K7 of csrc/flash_attention.cu
+# are causal only, as are all its bf16 ones (the non-causal bf16 K4-K7
+# are on wgmma): no kernel has a causal flag.
 RING_F32_KERNELS = (("fwd", "flash_fwd_ring_f32_kernel"),
-                    ("fused", "flash_bwd_ring_f32_kernel"))
+                    ("fused", "flash_bwd_ring_f32_kernel"),
+                    ("dq", "flash_bwd_dq_ring_f32_kernel"),
+                    ("dkv", "flash_bwd_ring_f32_kernel"))
 HEAD_DIMS = (32, 64, 128)
-# The flash-attention kernels (K5-K7) whose last bool template argument
-# says causal or not (ring attention's off-diagonal blocks): the fp32
-# ones of the split backward. The fp32 K4 and fused K5 are causal, with
-# the ring kernels their non-causal counterparts; the bf16 ones are
-# causal on mma.sync and non-causal on wgmma, with no such argument.
-CAUSAL_FLAG_KERNELS = ("flash_bwd_kv_kernel", "flash_bwd_dq_f32_kernel")
 # The template instances phase 2 must find, as kernel_label names them:
 # the bf16 K4, K5 (with dQ), K6 (mma.sync with and without reading dlse)
 # and K7 (without dQ), causal on mma.sync and non-causal on wgmma, and K1
@@ -266,21 +269,23 @@ TENSOR_CORE_INSTANCES = tuple(sorted(
 F32_PREFILL_PAIRS = (("fp32", "fp32"), ("fp32", "bf16"), ("fp32", "int8"),
                      ("fp32", "int4"), ("bf16", "fp32"))
 # The causal fp32 K4 and K1 in each of its f32 pairs, with 32- and
-# 64-query blocks (BQ); the non-causal fp32 K4 and K5 (the ring kernels)
-# with and without dropout; the fp32 K5 (causal) and K7 (causal and not)
-# of flash_bwd_kv_kernel, the fp32 K6 causal and not; K2 in every
-# (query, pool) pair.
+# 64-query blocks (BQ); the non-causal fp32 K4, K5 and K7 (the ring
+# kernels; K5 and K7 in 32- and 64-key blocks) and K6 (in 32- and
+# 64-query blocks), each with and without dropout; the causal fp32 K5
+# and K7 of flash_bwd_kv_kernel and K6; K2 in every (query, pool) pair.
 CUDA_CORE_INSTANCES = tuple(sorted(
     [f"flash_fwd_f32_kernel<D={d}, BQ={bq}>" for d in HEAD_DIMS
      for bq in (32, 64)]
     + [f"flash_fwd_ring_f32_kernel<D={d}, drop={w}>" for d in HEAD_DIMS
        for w in (0, 1)]
-    + [f"flash_bwd_ring_f32_kernel<D={d}, BK={bk}, drop={w}>"
-       for d in HEAD_DIMS for bk in (32, 64) for w in (0, 1)]
-    + [f"flash_bwd_kv_kernel<D={d}, dq={w}, causal={c}>" for d in HEAD_DIMS
-       for w, c in ((1, 1), (0, 1), (0, 0))]
-    + [f"flash_bwd_dq_f32_kernel<D={d}, causal={c}>" for d in HEAD_DIMS
-       for c in (0, 1)]
+    + [f"flash_bwd_ring_f32_kernel<D={d}, BK={bk}, dq={q}, drop={w}>"
+       for d in HEAD_DIMS for bk in (32, 64) for q in (0, 1)
+       for w in (0, 1)]
+    + [f"flash_bwd_dq_ring_f32_kernel<D={d}, BQ={bq}, drop={w}>"
+       for d in HEAD_DIMS for bq in (32, 64) for w in (0, 1)]
+    + [f"flash_bwd_kv_kernel<D={d}, dq={w}>" for d in HEAD_DIMS
+       for w in (0, 1)]
+    + [f"flash_bwd_dq_f32_kernel<D={d}>" for d in HEAD_DIMS]
     + [f"paged_prefill_f32_kernel<q={qd}, kv={kv}, D={d}, BQ={bq}>"
        for d in HEAD_DIMS for qd, kv in F32_PREFILL_PAIRS
        for bq in (32, 64)]
@@ -344,16 +349,14 @@ def kernel_label(mangled: str) -> str:
     prefill (bf16, int8 = signed char, int4 = nsb::Int4) and, for the f32
     one, the query's type and the queries a block (its second integer),
     whether the backward computes dQ or the mma.sync K6 reads dlse (its
-    first bool argument) and whether an fp32 flash kernel is causal (its
-    last), or a ring kernel is the dropout instance (its first) and the
-    keys a block of the ring K5 (its second integer)."""
+    first bool argument), or a ring kernel is the dropout instance (its
+    last) and the keys a block of the ring K5 and K7 or the queries a
+    block of the ring K6 (its second integer)."""
     name = next(n for n in TENSOR_CORE_KERNELS + CUDA_CORE_KERNELS
                 if n in mangled)
     args = mangled.split(name, 1)[1]
     head_dim = re.search(r"Li(\d+)E", args).group(1)
     bools = re.findall(r"Lb([01])E", args)
-    causal = (f", causal={bools[-1]}" if name in CAUSAL_FLAG_KERNELS
-              else "")
     if name == "paged_prefill_f32_kernel":
         qd, kv = mangled_pair(args)
         bq = re.findall(r"Li(\d+)E", args)[1]
@@ -366,9 +369,13 @@ def kernel_label(mangled: str) -> str:
         return f"{name}<D={head_dim}, BQ={bq}>"
     if name == "flash_fwd_ring_f32_kernel":
         return f"{name}<D={head_dim}, drop={bools[0]}>"
+    if name == "flash_bwd_dq_ring_f32_kernel":
+        bq = re.findall(r"Li(\d+)E", args)[1]
+        return f"{name}<D={head_dim}, BQ={bq}, drop={bools[0]}>"
     if name == "flash_bwd_ring_f32_kernel":
         bk = re.findall(r"Li(\d+)E", args)[1]
-        return f"{name}<D={head_dim}, BK={bk}, drop={bools[0]}>"
+        return (f"{name}<D={head_dim}, BK={bk}, dq={bools[0]}, "
+                f"drop={bools[1]}>")
     if name == "paged_prefill_mma_kernel":
         kv = ("bf16" if args.startswith("I13__nv_bfloat16") else
               "int8" if args.startswith("Ia") else
@@ -376,10 +383,10 @@ def kernel_label(mangled: str) -> str:
         return f"{name}<{kv}, D={head_dim}>"
     if name in ("flash_bwd_mma_kernel", "flash_bwd_kv_kernel",
                 "flash_bwd_wgmma_kernel"):
-        return f"{name}<D={head_dim}, dq={bools[0]}{causal}>"
+        return f"{name}<D={head_dim}, dq={bools[0]}>"
     if name == "flash_bwd_dq_mma_kernel":
         return f"{name}<D={head_dim}, dlse={bools[0]}>"
-    return f"{name}<D={head_dim}{causal}>"
+    return f"{name}<D={head_dim}>"
 
 
 def check_build(_build) -> None:
@@ -434,8 +441,12 @@ def check_build(_build) -> None:
     from nanosandbox_tpu_torch.ops import attention as at
 
     for B, kind, name in ((1, "fwd", "flash_fwd_ring_f32_kernel"),
-                          (1, "fused", "flash_bwd_ring_f32_kernel<BK=32>"),
-                          (4, "fused", "flash_bwd_ring_f32_kernel<BK=64>")):
+                          (1, "dq", "flash_bwd_dq_ring_f32_kernel<BQ=32>"),
+                          (4, "dq", "flash_bwd_dq_ring_f32_kernel<BQ=64>"),
+                          *((b, kind, f"flash_bwd_ring_f32_kernel<BK={bk}, "
+                             f"dq={w}>")
+                            for kind, w in (("fused", 1), ("dkv", 0))
+                            for b, bk in ((1, 32), (4, 64)))):
         for d in HEAD_DIMS:
             sh = at.ring_f32_launch_shape(kind, 12 * B, 1024, d)
             print(f"  {name} at D={d}, B={B} H=12 T=1024 (no dropout): "
@@ -1166,8 +1177,8 @@ RING_EDGES = ((2, 4, 256, 32, True, 0.0), (2, 4, 256, 128, True, 0.1),
               (2, 4, 200, 64, False, 0.1), (1, 1, 17, 64, False, 0.0),
               (1, 1, 1, 64, True, 0.0), (1, 12, 1000, 64, True, 0.0),
               (3, 2, 33, 32, True, 0.1), (1, 3, 65, 128, False, 0.0))
-# The same for the fp32 ones (the non-causal K4 and K5 of
-# csrc/flash_ring_f32.cuh, and K6 + K7), at phase 7's fp32 limits:
+# The same for the fp32 ones (the non-causal K4-K7 of
+# csrc/flash_ring_f32.cuh), at phase 7's fp32 limits:
 # head_dim 32 and 128, a ragged last tile after a long walk, ragged key
 # and query tiles, a tail of one, a partial tile, a single key.
 RING_EDGES_F32 = ((2, 4, 256, 32, True, 0.0), (2, 4, 256, 128, True, 0.1),
@@ -1180,7 +1191,7 @@ RING_EDGES_F32 = ((2, 4, 256, 32, True, 0.0), (2, 4, 256, 128, True, 0.1),
 def print_ring_shapes(at) -> None:
     """The grid, blocks an SM (the occupancy the kernel's registers and
     shared memory allow) and waves of the wgmma K4, K5, K6 and K7 and of
-    the non-causal fp32 K4 and K5 at each ring block shape."""
+    the non-causal fp32 ones at each ring block shape."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for B, H, T, D in RING_BLOCKS:
         for kind, name, shape in (
@@ -1190,7 +1201,7 @@ def print_ring_shapes(at) -> None:
                 ("dq", "flash_bwd_dq_wgmma_kernel", at.wgmma_launch_shape),
                 ("dkv", "flash_bwd_wgmma_kernel<dq=0>",
                  at.wgmma_launch_shape),
-                *((kind, name, at.ring_f32_launch_shape)
+                *((kind, f"{name} ({kind})", at.ring_f32_launch_shape)
                   for kind, name in RING_F32_KERNELS)):
             sh = shape(kind, B * H, T, D)
             n = sh["grid"][0] * sh["grid"][1]
@@ -1217,16 +1228,27 @@ def check_ring_edges(at, rng, dtype, edges, rows: list) -> None:
             zero_ref=("dq", "dk") if T == 1 else ()))
 
 
+# The kernels of one non-causal fp32 call of each kind, by name: all of
+# csrc/flash_ring_f32.cuh, and every one of them launched.
+RING_F32_CALL_KERNELS = {
+    "fwd": {"flash_fwd_ring_f32_kernel"},
+    "fused": {"flash_bwd_ring_prep_kernel", "flash_bwd_ring_f32_kernel"},
+    "split": {"flash_bwd_dq_ring_f32_kernel", "flash_bwd_ring_prep_kernel",
+              "flash_bwd_ring_f32_kernel"}}
+
+
 def profile_ring_calls(at, rng, calls: int = 10) -> None:
-    """Each kernel of one non-causal bf16 K4 call, K5 call and split
-    backward (K6 then K7; the backwards given a random lse cotangent) at
-    each of RING_BLOCKS, by torch.profiler's device time (warm L2,
+    """Each kernel of one non-causal K4 call, K5 call and split backward
+    (K6 then K7; the backwards given a random lse cotangent) in bf16 and
+    fp32 at each of RING_BLOCKS, by torch.profiler's device time (warm L2,
     ``calls`` calls, no launch gaps): what of a call's time_ms lies in its
-    kernels."""
+    kernels. Fails unless an fp32 call's kernels are RING_F32_CALL_KERNELS
+    of its kind."""
     from torch.profiler import ProfilerActivity, profile
 
-    for B, H, T, D in RING_BLOCKS:
-        q, k, v, do = qkv(rng, B, H, T, D, torch.bfloat16)
+    for (B, H, T, D), dtype in [(b, dt) for b in RING_BLOCKS for dt in (
+            torch.bfloat16, torch.float32)]:
+        q, k, v, do = qkv(rng, B, H, T, D, dtype)
         dlse = torch.from_numpy(0.1 * rng.standard_normal(
             (B, H, T), dtype=np.float32)).to(DEVICE)
         o, lse = at.flash_attention_fwd(q, k, v, causal=False)
@@ -1250,8 +1272,13 @@ def profile_ring_calls(at, rng, calls: int = 10) -> None:
                          e.key).split("(")[0]: e.self_device_time_total / calls
                   for e in prof.key_averages()
                   if e.self_device_time_total > 0}
-            print(f"  {kind} at B={B} H={H} T={T} D={D}, a call's kernels "
-                  "(us, warm L2): " + ", ".join(
+            names = {n.removeprefix("void ").split("<")[0] for n in us}
+            want = RING_F32_CALL_KERNELS[kind]
+            if dtype == torch.float32 and names != want:
+                fail(f"the non-causal fp32 {kind} call at B={B} launched "
+                     f"{sorted(names)}, not {sorted(want)}")
+            print(f"  {kind} {str(dtype)[6:]} at B={B} H={H} T={T} D={D}, a "
+                  "call's kernels (us, warm L2): " + ", ".join(
                       f"{n} {t:.2f}" for n, t in sorted(
                           us.items(), key=lambda kv: -kv[1])))
 
@@ -2399,29 +2426,26 @@ def main(argv: list[str] | None = None) -> int:
         kernels += [entry(name, sm90, replaces, n, ring_cases[kind]),
                     entry(f"{name}[B=4]", sm90, replaces, n,
                           ring_cases[f"{kind}_b4"])]
-    # The non-causal fp32 K4 and K5 (csrc/flash_ring_f32.cuh) also at the
-    # 8k config's committed batch 4, with the same launches.
+    # The non-causal fp32 K4-K7 (csrc/flash_ring_f32.cuh) also at the 8k
+    # config's committed batch 4, with the same launches.
     ring = "flash_ring_f32.cuh"
     n_k4 = (sp_launches(sp, zz, "flash_attention_fwd/full")
             + sp_launches(sp, ct, "flash_attention_fwd/full"))
     n_k5 = sp_launches(sp, zz, "flash_attention_bwd_fused/full/dlse")
+    n_k6 = sp_launches(sp, ct, "flash_attention_bwd_dq/full/dlse")
+    n_k7 = sp_launches(sp, ct, "flash_attention_bwd_dkv/full/dlse")
     for name, replaces, n, kind in (
             ("flash_fwd_ring_f32_kernel", "attention.py:180", n_k4,
              "fwd_fp32"),
             ("flash_bwd_ring_f32_kernel<dlse>", "attention.py:556", n_k5,
-             "fused_fp32")):
+             "fused_fp32"),
+            ("flash_bwd_dq_ring_f32_kernel<dlse>", "attention.py:475", n_k6,
+             "dq_fp32"),
+            ("flash_bwd_ring_f32_kernel<with_dq=false, dlse>",
+             "attention.py:556", n_k7, "dkv_fp32")):
         kernels += [entry(name, ring, replaces, n, ring_cases[kind]),
                     entry(f"{name}[B=4]", ring, replaces, n,
                           ring_cases[f"{kind}_b4"])]
-    kernels += [
-        entry("flash_bwd_dq_f32_kernel<causal=0, dlse>", flash,
-              "attention.py:475",
-              sp_launches(sp, ct, "flash_attention_bwd_dq/full/dlse"),
-              ring_cases["dq_fp32"]),
-        entry("flash_bwd_kv_kernel<float, with_dq=false, causal=0, dlse>",
-              flash, "attention.py:556",
-              sp_launches(sp, ct, "flash_attention_bwd_dkv/full/dlse"),
-              ring_cases["dkv_fp32"])]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,7 @@
 // Flash attention for training, forward and backward, for Hopper (sm_90a):
-// causal, and in fp32 also non-causal for ring attention's off-diagonal
-// blocks (the non-causal bf16 kernels are flash_attention_sm90.cu's; the
-// non-causal fp32 forward and fused backward flash_ring_f32.cuh's, which
-// this file includes and launches).
+// the causal kernels here; the non-causal ones (ring attention's
+// off-diagonal blocks) are flash_attention_sm90.cu's in bf16 and
+// flash_ring_f32.cuh's in fp32, a header this file includes and launches.
 //
 // Each kernel is the CUDA counterpart of a Pallas kernel in
 // nanosandbox_tpu/ops/attention.py. Two designs, chosen by the input type
@@ -23,11 +22,13 @@
 //     flash_fwd_f32_kernel<D, kBQ>      <- K4, causal
 //     flash_bwd_kv_kernel<D, true>      <- K5, causal, after the f32
 //       instance of flash_bwd_drow_kernel;
-//     flash_bwd_kv_kernel<D, false>     <- K7, after the same pre-pass;
-//     flash_bwd_dq_f32_kernel<D>        <- K6;
+//     flash_bwd_kv_kernel<D, false>     <- K7, causal, after the same
+//       pre-pass;
+//     flash_bwd_dq_f32_kernel<D>        <- K6, causal;
 //     flash_fwd_ring_f32_kernel, flash_bwd_ring_prep_kernel +
-//       flash_bwd_ring_f32_kernel (flash_ring_f32.cuh) <- K4 and K5,
-//       non-causal: ring attention's blocks, designed for their shape.
+//       flash_bwd_ring_f32_kernel, flash_bwd_dq_ring_f32_kernel
+//       (flash_ring_f32.cuh) <- K4, K5 and K7, K6, non-causal: ring
+//       attention's blocks, designed for their shape.
 //   f32 stays on CUDA cores because its kernels are held to 1e-5 of the
 //   plain version with TF32 off, which bf16 or TF32 products would not
 //   meet.
@@ -95,20 +96,17 @@
 // and dQ stays in registers to one store. sm_scale multiplies each score
 // after its product and dK, dQ once at the end.
 //
-// The f32 K5 (dK/dV kernel), K6 and K7 have a causal and a non-causal
-// instance (template argument kCausal; the Pallas kernels' `causal`); the
-// non-causal fp32 K4 and fused K5 are flash_ring_f32.cuh's kernels,
-// designed for the ring's block, and only the split backward's K6 and K7
-// run the kCausal = false instances. The bf16 ones are causal only: the
-// non-causal bf16 K4-K7 are flash_attention_sm90.cu's wgmma kernels.
-// Ring attention (ops/ring_attention.py) calls flash_attention_lse with
-// causal=False for the blocks whose keys lie wholly before its queries.
-// Non-causal, every query tile walks every key tile, and only the tail
-// tile compares positions (the port masks ragged tails, so a ring chunk
-// need not be a tile multiple). The backwards take an optional lse
-// cotangent dlse (B*H, T) f32 (a pointer of its own, null for none), which
-// folds into the row term: ds = p (dp - (Drow - dlse)), in the Drow
-// pre-pass of K5 and K7 and where K6 computes Drow.
+// The kernels of this file are causal only (the Pallas kernels'
+// `causal=True`): the non-causal bf16 K4-K7 are flash_attention_sm90.cu's
+// wgmma kernels, the non-causal fp32 ones flash_ring_f32.cuh's, designed
+// for the ring's block. Ring attention (ops/ring_attention.py) calls
+// flash_attention_lse with causal=False for the blocks whose keys lie
+// wholly before its queries: there every query tile walks every key tile,
+// and only the tail tile compares positions (the port masks ragged tails,
+// so a ring chunk need not be a tile multiple). The backwards take an
+// optional lse cotangent dlse (B*H, T) f32 (a pointer of its own, null for
+// none), which folds into the row term: ds = p (dp - (Drow - dlse)), in the
+// Drow pre-pass of K5 and K7 and where K6 computes Drow.
 //
 // Blocks run in no order, where the Pallas kernels walk a sequential grid
 // axis and keep state in VMEM across it (the forward's online softmax,
@@ -249,7 +247,7 @@ struct BwdF32 {
       sizeof(float) * (2 * kKV + kStages * kStage + 2 * kTile * kPR);
 };
 
-template <int D, bool kWithDq, bool kCausal>
+template <int D, bool kWithDq>
 __global__ void __launch_bounds__(kThreads, BwdF32<D>::kMinBlocks)
 flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
@@ -276,7 +274,7 @@ flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t base = static_cast<int64_t>(bh) * Tn * D;
   const float* lse_bh = lse + static_cast<int64_t>(bh) * Tn;
   const float* drow_bh = drow + static_cast<int64_t>(bh) * Tn;
-  const int qt0 = kCausal ? k0 / kBQ : 0, n_qt = (Tn + kBQ - 1) / kBQ;
+  const int qt0 = k0 / kBQ, n_qt = (Tn + kBQ - 1) / kBQ;
 
   auto load_stage = [&](int qt, int slot) {
     const uint32_t st = smem_addr(ring + slot * P::kStage);
@@ -366,7 +364,7 @@ flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int b = 0; b < kQB; ++b) {
         const int il = tx + 16 * b, i = q0 + il;
-        const bool valid = i < Tn && (kCausal ? j <= i : j < Tn);
+        const bool valid = i < Tn && j <= i;
         const float p = valid ? expf(s[a][b] * sm_scale - lse_s[il]) : 0.f;
         float pv = p, dpv = dp[a][b];
         if (dr.on) {
@@ -500,7 +498,7 @@ struct BwdDqF32 {
       sizeof(float) * (2 * kQT + 2 * kTile + kStages * 2 * kQT + kTile * kSR);
 };
 
-template <int D, bool kCausal>
+template <int D>
 __global__ void __launch_bounds__(BwdDqF32<D>::kThreadsT,
                                   BwdDqF32<D>::kMinBlocks)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q,
@@ -527,7 +525,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   const int bh = blockIdx.y, q0 = qt * kTile;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int64_t base = static_cast<int64_t>(bh) * Tn * D;
-  const int n_kt = ((kCausal ? min(q0 + kTile, Tn) : Tn) + kTile - 1) / kTile;
+  const int n_kt = (min(q0 + kTile, Tn) + kTile - 1) / kTile;
 
   auto load_kv = [&](int kt, int slot) {
     const uint32_t st = smem_addr(ring + slot * 2 * P::kQT);
@@ -639,8 +637,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
     // Made here, so its registers are free outside this phase.
     const Dropout dr = make_dropout(da, bh, H);
     // Only a tile that crosses the diagonal or the tail compares positions.
-    const bool masked =
-        (kCausal && k0 + kTile - 1 > q0) || k0 + kTile > Tn;
+    const bool masked = k0 + kTile - 1 > q0 || k0 + kTile > Tn;
 #pragma unroll
     for (int a = 0; a < kQR; ++a) {
       const int il = ty + kTY * a, i = q0 + il;
@@ -648,8 +645,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
         const int jl = tx + 16 * b, j = k0 + jl;
-        const bool valid =
-            i < Tn && !(masked && (kCausal ? j > i : j >= Tn));
+        const bool valid = i < Tn && !(masked && j > i);
         const float p = valid ? expf(s[a][b] * sm_scale - lse_i) : 0.f;
         float dpv = dp[a][b];
         if (dr.on) dpv = dr.keep(i, j) ? dpv * dr.scale : 0.f;
@@ -1448,23 +1444,33 @@ cudaError_t run_fwd_ring(const Call& c) {
                 c.lse_out, c.H, c.T, c.sm_scale, c.dr);
 }
 
-// Whether the non-causal fp32 K5 takes 64-key blocks: once they fill every
-// SM four times over (two waves of two), else 32-key ones, whose finer
-// grid spreads a small call over every SM.
-inline bool ring_wide_keys(int BH, int T) {
+// Whether the non-causal fp32 K5 and K7 take 64-key blocks and K6
+// 64-query ones: once they fill every SM twice over (a wave of two an
+// SM), else 32-key or 32-query ones, whose finer grid spreads a small
+// call over every SM (at the ring's block, H 12, T 1024: 32 at B 1, 64
+// from B 2 on; PERF.md section 6). Built with -DNSB_RING_TILE=32 or 64,
+// every call takes that width instead (scripts/ring_f32_times.py --tile
+// times one against the other).
+inline bool ring_wide_tiles(int BH, int T) {
+#ifdef NSB_RING_TILE
+  static_assert(NSB_RING_TILE == 32 || NSB_RING_TILE == 64,
+                "NSB_RING_TILE is 32 or 64");
+  return NSB_RING_TILE == 64;
+#else
   return static_cast<int64_t>(BH) * ((T + 63) / 64) >=
-         4 * static_cast<int64_t>(sm_count());
+         2 * static_cast<int64_t>(sm_count());
+#endif
 }
 
-// The non-causal fp32 K5 (flash_ring_f32.cuh): the pre-pass (Drow less
-// dlse, dq zeroed), then kBK-key blocks, the grid's x the key tile; dq is
-// the f32 output, which the kernel scales.
-template <int D, int kBK>
+// The non-causal fp32 K5 (kWithDq) or K7 (flash_ring_f32.cuh): kBK-key
+// blocks, the grid's x the key tile; K5's dq is the f32 output, which the
+// kernel scales.
+template <int D, int kBK, bool kWithDq>
 cudaError_t launch_bwd_ring(const Call& c) {
   using P = RingBwdF32<D, kBK>;
   const dim3 grid((c.T + kBK - 1) / kBK, c.BH);
-  return launch(c.dr.on ? flash_bwd_ring_f32_kernel<D, kBK, true>
-                        : flash_bwd_ring_f32_kernel<D, kBK, false>,
+  return launch(c.dr.on ? flash_bwd_ring_f32_kernel<D, kBK, kWithDq, true>
+                        : flash_bwd_ring_f32_kernel<D, kBK, kWithDq, false>,
                 grid, P::kThreads, P::kSmem, c.stream,
                 static_cast<const float*>(c.q),
                 static_cast<const float*>(c.k),
@@ -1475,67 +1481,100 @@ cudaError_t launch_bwd_ring(const Call& c) {
                 c.T, c.sm_scale, c.dr);
 }
 
-template <int D>
+// The pre-pass (Drow less dlse; K5 also zeroes dq), then the main kernel.
+template <int D, bool kWithDq>
 cudaError_t run_bwd_ring(const Call& c) {
   const int64_t rows = static_cast<int64_t>(c.BH) * c.T;
-  flash_bwd_ring_prep_kernel<D><<<static_cast<unsigned>(
-                                      (rows * (D / 4) + 255) / 256),
-                                  256, 0, c.stream>>>(
+  flash_bwd_ring_prep_kernel<D, kWithDq><<<static_cast<unsigned>(
+                                               (rows * (D / 4) + 255) / 256),
+                                           256, 0, c.stream>>>(
       static_cast<const float*>(c.o), static_cast<const float*>(c.dout),
       c.dlse, c.drow, static_cast<float*>(c.dq), rows);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return ring_wide_keys(c.BH, c.T) ? launch_bwd_ring<D, 64>(c)
-                                   : launch_bwd_ring<D, 32>(c);
+  return ring_wide_tiles(c.BH, c.T) ? launch_bwd_ring<D, 64, kWithDq>(c)
+                                    : launch_bwd_ring<D, 32, kWithDq>(c);
 }
 
-// K5's main kernel with kBK-key blocks, without dropout, for ring_shape.
-template <int D, int kBK>
-void ring_bwd_kernel(const void** fn, size_t* smem, int* threads,
-                     int* tile) {
-  *fn = reinterpret_cast<const void*>(
-      flash_bwd_ring_f32_kernel<D, kBK, false>);
-  *smem = RingBwdF32<D, kBK>::kSmem;
-  *threads = RingBwdF32<D, kBK>::kThreads;
-  *tile = kBK;
+// The non-causal fp32 K6 (flash_ring_f32.cuh): kBQ-query blocks, the
+// grid's x the query tile, Drow computed in the kernel; one launch.
+template <int D, int kBQ>
+cudaError_t launch_bwd_dq_ring(const Call& c) {
+  using P = RingDqF32<D, kBQ>;
+  const dim3 grid((c.T + kBQ - 1) / kBQ, c.BH);
+  return launch(c.dr.on ? flash_bwd_dq_ring_f32_kernel<D, kBQ, true>
+                        : flash_bwd_dq_ring_f32_kernel<D, kBQ, false>,
+                grid, P::kThreads, P::kSmem, c.stream,
+                static_cast<const float*>(c.q),
+                static_cast<const float*>(c.k),
+                static_cast<const float*>(c.v),
+                static_cast<const float*>(c.o),
+                static_cast<const float*>(c.dout), c.lse_in, c.dlse,
+                static_cast<float*>(c.dq), c.H, c.T, c.sm_scale, c.dr);
 }
 
-// {grid x, grid y, threads, blocks an SM, dynamic shared memory bytes,
-// registers a thread} of the non-causal fp32 K4 (mode -1) or K5's main
-// kernel (kFused) as run_fwd_ring and run_bwd_ring launch them, without
-// dropout, at (BH, T).
 template <int D>
-cudaError_t ring_shape(int mode, int BH, int T, int* out) {
+cudaError_t run_bwd_dq_ring(const Call& c) {
+  return ring_wide_tiles(c.BH, c.T) ? launch_bwd_dq_ring<D, 64>(c)
+                                    : launch_bwd_dq_ring<D, 32>(c);
+}
+
+// A kernel as ring_shape reports it: the function, its dynamic shared
+// memory, threads a block and tile (the rows of T a block owns).
+struct RingKernel {
   const void* fn;
   size_t smem;
   int threads, tile;
+};
+
+template <typename P, typename K>
+RingKernel ring_kernel(K* fn, int tile) {
+  return {reinterpret_cast<const void*>(fn), P::kSmem, P::kThreads, tile};
+}
+
+// {grid x, grid y, threads, blocks an SM, dynamic shared memory bytes,
+// registers a thread} of the non-causal fp32 K4 (mode -1), K6 (kDq) or the
+// main kernel of K5 (kFused) or K7 (kDkv) as run launches them, without
+// dropout, at (BH, T).
+template <int D>
+cudaError_t ring_shape(int mode, int BH, int T, int* out) {
+  const bool wide = ring_wide_tiles(BH, T);
+  RingKernel k;
   if (mode == -1) {
-    fn = reinterpret_cast<const void*>(flash_fwd_ring_f32_kernel<D, false>);
-    smem = RingFwdF32<D>::kSmem;
-    threads = RingFwdF32<D>::kThreads;
-    tile = RingFwdF32<D>::kBQ;
+    k = ring_kernel<RingFwdF32<D>>(flash_fwd_ring_f32_kernel<D, false>,
+                                   RingFwdF32<D>::kBQ);
+  } else if (mode == kDq) {
+    k = wide ? ring_kernel<RingDqF32<D, 64>>(
+                   flash_bwd_dq_ring_f32_kernel<D, 64, false>, 64)
+             : ring_kernel<RingDqF32<D, 32>>(
+                   flash_bwd_dq_ring_f32_kernel<D, 32, false>, 32);
   } else if (mode == kFused) {
-    if (ring_wide_keys(BH, T))
-      ring_bwd_kernel<D, 64>(&fn, &smem, &threads, &tile);
-    else
-      ring_bwd_kernel<D, 32>(&fn, &smem, &threads, &tile);
+    k = wide ? ring_kernel<RingBwdF32<D, 64>>(
+                   flash_bwd_ring_f32_kernel<D, 64, true, false>, 64)
+             : ring_kernel<RingBwdF32<D, 32>>(
+                   flash_bwd_ring_f32_kernel<D, 32, true, false>, 32);
+  } else if (mode == kDkv) {
+    k = wide ? ring_kernel<RingBwdF32<D, 64>>(
+                   flash_bwd_ring_f32_kernel<D, 64, false, false>, 64)
+             : ring_kernel<RingBwdF32<D, 32>>(
+                   flash_bwd_ring_f32_kernel<D, 32, false, false>, 32);
   } else {
     return cudaErrorInvalidValue;
   }
   cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(k.smem));
   if (e != cudaSuccess) return e;
   cudaFuncAttributes attr;
-  e = cudaFuncGetAttributes(&attr, fn);
+  e = cudaFuncGetAttributes(&attr, k.fn);
   if (e != cudaSuccess) return e;
-  out[0] = (T + tile - 1) / tile;
+  out[0] = (T + k.tile - 1) / k.tile;
   out[1] = BH;
-  out[2] = threads;
-  out[4] = static_cast<int>(smem);
+  out[2] = k.threads;
+  out[4] = static_cast<int>(k.smem);
   out[5] = attr.numRegs;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], fn, threads,
-                                                       smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], k.fn,
+                                                       k.threads, k.smem);
 }
 
 // Drow's pre-pass of K5 and K7, in either type, with dlse folded in.
@@ -1550,15 +1589,13 @@ cudaError_t run_drow(const Call& c) {
   return cudaGetLastError();
 }
 
-// K5 or K7: Drow's pre-pass, then the key-parallel kernel of the type's
-// design (K7: no dQ, dq_acc unused; bf16: causal only).
-template <typename T, int D, bool kWithDq, bool kCausal>
+// The causal K5 or K7: Drow's pre-pass, then the key-parallel kernel of
+// the type's design (K7: no dQ, dq_acc unused).
+template <typename T, int D, bool kWithDq>
 cudaError_t run_bwd_kv(const Call& c) {
   const cudaError_t e = run_drow<T, D>(c);
   if (e != cudaSuccess) return e;
   if constexpr (std::is_same<T, bf16>::value) {
-    static_assert(kCausal,
-                  "the non-causal bf16 K5 and K7 are flash_attention_sm90");
     const dim3 grid(c.BH, (c.T + kKeys - 1) / kKeys);
     using P = BwdMma<D, kWithDq>;
     return launch(flash_bwd_mma_kernel<D, kWithDq>, grid,
@@ -1572,7 +1609,7 @@ cudaError_t run_bwd_kv(const Call& c) {
                   static_cast<bf16*>(c.dv), c.H, c.T, c.sm_scale, c.dr);
   } else {
     const dim3 grid((c.T + kTile - 1) / kTile, c.BH);
-    return launch(flash_bwd_kv_kernel<D, kWithDq, kCausal>, grid, kThreads,
+    return launch(flash_bwd_kv_kernel<D, kWithDq>, grid, kThreads,
                   BwdF32<D>::kSmem, c.stream,
                   static_cast<const float*>(c.q),
                   static_cast<const float*>(c.k),
@@ -1584,11 +1621,10 @@ cudaError_t run_bwd_kv(const Call& c) {
   }
 }
 
-// K6, the query-parallel dQ pass (bf16: causal only).
-template <typename T, int D, bool kCausal>
+// The causal K6, the query-parallel dQ pass.
+template <typename T, int D>
 cudaError_t run_bwd_dq(const Call& c) {
   if constexpr (std::is_same<T, bf16>::value) {
-    static_assert(kCausal, "the non-causal bf16 K6 is flash_attention_sm90");
     using P = BwdDqMma<D>;
     const dim3 grid(c.BH, (c.T + P::kBM - 1) / P::kBM);
     auto kernel = c.dlse != nullptr ? flash_bwd_dq_mma_kernel<D, true>
@@ -1602,7 +1638,7 @@ cudaError_t run_bwd_dq(const Call& c) {
                   static_cast<bf16*>(c.dq), c.H, c.T, c.sm_scale, c.dr);
   } else {
     const dim3 grid((c.T + kTile - 1) / kTile, c.BH);
-    return launch(flash_bwd_dq_f32_kernel<D, kCausal>, grid,
+    return launch(flash_bwd_dq_f32_kernel<D>, grid,
                   BwdDqF32<D>::kThreadsT, BwdDqF32<D>::kSmem, c.stream,
                   static_cast<const float*>(c.q),
                   static_cast<const float*>(c.k),
@@ -1615,8 +1651,8 @@ cudaError_t run_bwd_dq(const Call& c) {
 
 // mode < 0: the forward; else a BwdMode. Every non-causal bf16 call is
 // flash_attention_sm90.cu's (nsb_flash_fwd_sm90, nsb_flash_bwd_sm90) and
-// has no instance here; the non-causal fp32 forward and fused backward
-// run flash_ring_f32.cuh's kernels.
+// has no instance here; every non-causal fp32 call runs the kernels of
+// flash_ring_f32.cuh.
 template <typename T, int D, bool kCausal>
 cudaError_t run(const Call& c, int mode) {
   if constexpr (std::is_same<T, bf16>::value && !kCausal) {
@@ -1624,17 +1660,17 @@ cudaError_t run(const Call& c, int mode) {
   } else if constexpr (!kCausal) {
     switch (mode) {
       case -1: return run_fwd_ring<D>(c);
-      case kFused: return run_bwd_ring<D>(c);
-      case kDkv: return run_bwd_kv<T, D, false, false>(c);
-      case kDq: return run_bwd_dq<T, D, false>(c);
+      case kFused: return run_bwd_ring<D, true>(c);
+      case kDkv: return run_bwd_ring<D, false>(c);
+      case kDq: return run_bwd_dq_ring<D>(c);
       default: return cudaErrorInvalidValue;
     }
   } else {
     switch (mode) {
       case -1: return run_fwd<T, D>(c);
-      case kFused: return run_bwd_kv<T, D, true, kCausal>(c);
-      case kDkv: return run_bwd_kv<T, D, false, kCausal>(c);
-      case kDq: return run_bwd_dq<T, D, kCausal>(c);
+      case kFused: return run_bwd_kv<T, D, true>(c);
+      case kDkv: return run_bwd_kv<T, D, false>(c);
+      case kDq: return run_bwd_dq<T, D>(c);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -1711,9 +1747,10 @@ int nsb_flash_bwd(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(dispatch_call(dtype, D, causal != 0, c, mode));
 }
 
-// The launch shape of the non-causal fp32 K4 (mode -1) or K5 (mode 0) at
-// (BH, T, D): out[6] = {grid x, grid y, threads, blocks an SM, dynamic
-// shared memory bytes, registers a thread}. Returns a cudaError_t.
+// The launch shape of the non-causal fp32 K4 (mode -1) or of the main
+// kernel of K5 (mode 0), K6 (mode 1) or K7 (mode 2) at (BH, T, D):
+// out[6] = {grid x, grid y, threads, blocks an SM, dynamic shared memory
+// bytes, registers a thread}. Returns a cudaError_t.
 int nsb_flash_ring_f32_shape(int mode, int BH, int T, int D, int* out) {
   switch (D) {
     case 32: return static_cast<int>(ring_shape<32>(mode, BH, T, out));

@@ -17,7 +17,7 @@
 //                           cp.async, zero past the end;
 //   load_rows_f32 / lds     f32 rows into tiles padded by 4 floats, by
 //                           cp.async; n consecutive floats from shared
-//                           memory by 16- (8-) byte loads;
+//                           (or device) memory by 16- (8-) byte loads;
 //   row_max / row_sum       reductions over the 16 lanes (a half-warp)
 //                           that share a row of a CUDA-core score tile.
 //
@@ -167,7 +167,8 @@ __device__ __forceinline__ void load_rows_f32(uint32_t dst,
   }
 }
 
-// n consecutive floats from shared memory by 16- (8-) byte loads.
+// n consecutive floats by 16- (8-) byte loads, from shared memory or, the
+// pointer being generic, device memory.
 template <int kN>
 __device__ __forceinline__ void lds(const float* p, float* o) {
   if constexpr (kN % 4 == 0) {

@@ -90,9 +90,9 @@ def _signatures() -> dict:
         # (mode (-1 K4, else as above), BH, T, D, out int[4]): grid,
         #  threads, blocks an SM
         "nsb_flash_sm90_shape": [i] * 4 + [p],
-        # The non-causal fp32 K4 and K5 of flash_ring_f32.cuh: (mode (-1
-        #  K4, 0 K5), BH, T, D, out int[6]): grid, threads, blocks an SM,
-        #  dynamic shared memory bytes, registers a thread
+        # The non-causal fp32 K4-K7 of flash_ring_f32.cuh: (mode (-1 K4,
+        #  0 K5, 1 K6, 2 K7), BH, T, D, out int[6]): grid, threads, blocks
+        #  an SM, dynamic shared memory bytes, registers a thread
         "nsb_flash_ring_f32_shape": [i] * 4 + [p],
     }
 

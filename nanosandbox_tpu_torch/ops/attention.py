@@ -19,11 +19,13 @@ its dQ half), the causal ones on mma.sync. On float32 they run on
 CUDA cores in exact f32 products, on cp.async-staged tiles read as
 float4 (the causal K4 through the fp32 paged prefill's tile loop,
 csrc/attend_f32.cuh; K5 and K7 after a Drow pre-pass; K6 with its Drow
-computed in the kernel); the non-causal fp32 K4 and fused K5 run the
-kernels designed for the ring's block (csrc/flash_ring_f32.cuh; K5 in two
+computed in the kernel); the non-causal fp32 K4-K7 run the kernels
+designed for the ring's block (csrc/flash_ring_f32.cuh; K5 in two
 launches, a pre-pass that makes Drow and zeroes dq, and the kernel, which
-adds dQ into it scaled). The input type and ``causal`` alone pick the
-design (``_on_wgmma``, ``_on_ring_f32``).
+adds dQ into it scaled; K7 in two, the pre-pass without the zeroing and
+K5's kernel without its dQ half; K6 in one, Drow computed in the
+kernel). The input type and ``causal`` alone pick the design
+(``_on_wgmma``, ``_on_ring_f32``).
 
 ``BWD_IMPL`` picks the backward strategy, as in the JAX file: 'fused'
 (K5, one pass; dQ summed across key tiles in f32 by atomicAdd, or by
@@ -350,9 +352,9 @@ def _on_wgmma(q, causal: bool) -> bool:
 
 
 def _on_ring_f32(q, causal: bool) -> bool:
-    """Whether a forward or fused backward runs the fp32 kernels of
-    csrc/flash_ring_f32.cuh: every non-causal fp32 call (the split
-    backward's K6 and K7 stay on csrc/flash_attention.cu's)."""
+    """Whether a call runs the fp32 kernels of csrc/flash_ring_f32.cuh:
+    every non-causal fp32 call, forward or backward (nsb_flash_fwd and
+    nsb_flash_bwd route them there)."""
     return q.dtype == torch.float32 and not causal
 
 
@@ -373,9 +375,10 @@ def wgmma_launch_shape(kind: str, BH: int, T: int, D: int) -> dict:
 
 def ring_f32_launch_shape(kind: str, BH: int, T: int, D: int) -> dict:
     """The grid, threads a block, blocks an SM, dynamic shared memory
-    (bytes) and registers a thread of the non-causal fp32 K4 ("fwd") or
-    of K5's main kernel ("fused") at (B*H, T, D), without dropout, as the
-    launcher computes them. Needs the card."""
+    (bytes) and registers a thread of the non-causal fp32 K4 ("fwd"), K6
+    ("dq") or the main kernel of K5 ("fused") or K7 ("dkv") at (B*H, T,
+    D), without dropout, as the launcher computes them. Needs the
+    card."""
     out = (ctypes.c_int * 6)()
     err = _build.library().nsb_flash_ring_f32_shape(
         -1 if kind == "fwd" else _BWD_MODE[kind], BH, T, D,
@@ -481,8 +484,9 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
                            ) -> torch.Tensor:
     """K6: dq in q's dtype, parallel over query tiles. CUDA tensors
     launch flash_bwd_dq_wgmma_kernel (bf16, non-causal),
-    flash_bwd_dq_mma_kernel (bf16, causal) or flash_bwd_dq_f32_kernel
-    (fp32); CPU tensors get the plain version."""
+    flash_bwd_dq_mma_kernel (bf16, causal), flash_bwd_dq_ring_f32_kernel
+    (fp32, non-causal) or flash_bwd_dq_f32_kernel (fp32, causal); CPU
+    tensors get the plain version."""
     kw = dict(causal=causal, dlse=dlse, dropout_rate=dropout_rate, seed=seed,
               hash_seq_len=hash_seq_len)
     if not q.is_cuda:
@@ -499,10 +503,11 @@ def flash_attention_bwd_dkv(q, k, v, o, lse, do, *, causal: bool = True,
                             dropout_rate: float = 0.0, seed=None,
                             hash_seq_len: int | None = None):
     """K7: (dk, dv) in k's and v's dtype, parallel over key tiles. CUDA
-    tensors launch the pre-pass and flash_bwd_wgmma_kernel<D, false>
-    (bf16, non-causal), flash_bwd_mma_kernel<D, false> (bf16, causal) or
-    flash_bwd_kv_kernel<D, false> (fp32); CPU tensors get the plain
-    version."""
+    tensors launch a pre-pass and flash_bwd_wgmma_kernel<D, false>
+    (bf16, non-causal), flash_bwd_mma_kernel<D, false> (bf16, causal),
+    flash_bwd_ring_f32_kernel<D, BK, false> (fp32, non-causal) or
+    flash_bwd_kv_kernel<D, false> (fp32, causal); CPU tensors get the
+    plain version."""
     kw = dict(causal=causal, dlse=dlse, dropout_rate=dropout_rate, seed=seed,
               hash_seq_len=hash_seq_len)
     if not q.is_cuda:

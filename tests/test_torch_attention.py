@@ -235,6 +235,81 @@ def test_wgmma_route_is_every_non_causal_bf16_call(mode, monkeypatch):
                 assert (args[9] is None) == (mode != "fused")
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("with_dlse", [False, True], ids=["no_dlse", "dlse"])
+@pytest.mark.parametrize("mode", ["dq", "dkv"])
+def test_ring_f32_route_is_every_non_causal_fp32_split_call(
+        mode, with_dlse, rate, monkeypatch):
+    """Every fp32 non-causal dQ (K6) or dK/dV (K7) call, the split
+    backward on ring attention's off-diagonal blocks, goes to nsb_flash_bwd
+    as fp32 and non-causal with the mode it asked for (K7 with its
+    (B*H, T) Drow scratch, K6 without), with and without dlse and dropout,
+    and counts one launch of that instance; and csrc/flash_attention.cu
+    sends those two modes, fp32 and non-causal, to the kernels of
+    csrc/flash_ring_f32.cuh (flash_bwd_dq_ring_f32_kernel, and the pre-pass
+    and flash_bwd_ring_f32_kernel without dQ). Driven through the launch
+    code with a stand-in for the built library, on CPU tensors."""
+    calls = []
+
+    class Library:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(tattn._build, "library", Library)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(tattn, "launches", dict(tattn.launches))
+    x = torch.zeros(1, 2, 6, 32)
+    lse = torch.zeros(1, 2, 6)
+    dlse = lse.clone() if with_dlse else None
+    allocated = []
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **kw: allocated.append(
+        a[0]) or empty(*a, **kw))
+    assert tattn._on_ring_f32(x, False) and not tattn._on_wgmma(x, False)
+    tattn._launch_bwd(mode, x, x, x, x, lse, x, x, x, x, 0.1, causal=False,
+                      dlse=dlse, dropout_rate=rate, seed=3 if rate else None,
+                      hash_seq_len=None)
+    (name, args), = calls
+    assert name == "nsb_flash_bwd"
+    # (..., dtype, dropout on, threshold, keep scale, hash_seq_len,
+    #  causal, mode, stream)
+    assert args[-8] == tattn._DTYPE_CODE[torch.float32]
+    assert args[-7] == int(rate > 0)
+    assert args[-3] == 0 and args[-2] == tattn._BWD_MODE[mode]
+    assert (args[6] is None) == (not with_dlse)
+    assert (args[8] is None) == (mode == "dq")
+    assert ((2, 6) in allocated) == (mode == "dkv")
+    assert tattn.launches[f"flash_attention_bwd_{mode}/full"
+                          + ("/dlse" if with_dlse else "")] == 1
+    assert sum(tattn.launches.values()) == 1
+    # The C side: run<float, D, false> dispatches the two modes to the
+    # ring launchers, and those launch the ring kernels.
+    from pathlib import Path
+
+    csrc = Path(tattn.__file__).resolve().parent.parent / "csrc"
+    src = (csrc / "flash_attention.cu").read_text()
+    non_causal = src.split("} else if constexpr (!kCausal) {", 1)[1].split(
+        "} else {", 1)[0]
+    launcher = {"dq": "run_bwd_dq_ring<D>(c)",
+                "dkv": "run_bwd_ring<D, false>(c)"}[mode]
+    case = {"dq": "kDq", "dkv": "kDkv"}[mode]
+    assert f"case {case}: return {launcher};" in non_causal
+
+    def body(fn):
+        return src.split(f"cudaError_t {fn}(", 1)[1].split("\n}\n", 1)[0]
+
+    launch = {"dq": "launch_bwd_dq_ring", "dkv": "launch_bwd_ring"}[mode]
+    kernel = {"dq": "flash_bwd_dq_ring_f32_kernel<D, kBQ, ",
+              "dkv": "flash_bwd_ring_f32_kernel<D, kBK, kWithDq, "}[mode]
+    code = body(launcher.split("<")[0]) + body(launch)
+    assert f"{launch}<D, " in code and kernel in code
+    ring = (csrc / "flash_ring_f32.cuh").read_text()
+    assert kernel.split("<")[0].join("\n(") in ring
+    assert "flash_bwd_kv_kernel" not in non_causal + code
+    assert "flash_bwd_dq_f32_kernel" not in non_causal + code
+
+
 @pytest.mark.parametrize("dtype", [pytest.param(torch.bfloat16, id="bf16"),
                                    pytest.param(torch.float32, id="fp32")])
 def test_chip_smoke_ring_checks_rehearse_on_cpu(dtype, monkeypatch):

@@ -247,20 +247,19 @@ def test_chip_smoke_build_report_parsers():
                 f"flash_bwd_wgmma_kernel<D={d}, dq=0>"} <= set(
                     chip_smoke.TENSOR_CORE_INSTANCES)
     # The kernels on CUDA cores: held to 0 spills, no HMMA asked. The
-    # causal fp32 K4 with 32- and 64-query blocks, the non-causal fp32 K4
-    # and K5 of ring attention's blocks (csrc/flash_ring_f32.cuh) with and
-    # without dropout, the causal fp32 K5, K7 and K6 causal and not, K1 in
-    # each of its f32 (query, pool) pairs with 32- and 64-query blocks,
-    # and K2 in every (query, pool) pair (a repeated bf16 is a
-    # substitution).
+    # causal fp32 K4 with 32- and 64-query blocks, the non-causal fp32
+    # K4-K7 of ring attention's blocks (csrc/flash_ring_f32.cuh) with and
+    # without dropout, the causal fp32 K5, K7 and K6, K1 in each of its
+    # f32 (query, pool) pairs with 32- and 64-query blocks, and K2 in
+    # every (query, pool) pair (a repeated bf16 is a substitution).
     pf = ("_ZN3nsb51_GLOBAL__N__737eb1aa_18_paged_attention_cu_2415576824"
           "paged_prefill_f32_kernel")
     labels = {
-        "_ZN12_GLOBAL__N_119flash_bwd_kv_kernelILi128ELb0ELb1EEEvPKfS2_":
-        "flash_bwd_kv_kernel<D=128, dq=0, causal=1>",
+        "_ZN12_GLOBAL__N_119flash_bwd_kv_kernelILi128ELb0EEEvPKfS1_":
+        "flash_bwd_kv_kernel<D=128, dq=0>",
         "_ZN51_GLOBAL__N__5ee34151_18_flash_attention_cu_bc8f9a2a23flash_bwd_"
-        "dq_f32_kernelILi64ELb0EEEvPKfS2_S2_S2_S2_S2_S2_PfiifNS_11DropoutArgs"
-        "E": "flash_bwd_dq_f32_kernel<D=64, causal=0>",
+        "dq_f32_kernelILi64EEEvPKfS2_S2_S2_S2_S2_S2_PfiifNS_11DropoutArgsE":
+        "flash_bwd_dq_f32_kernel<D=64>",
         pf + "IffLi64ELi32EEEvPKT_PKNS_2KVIT0_E1SESA_PKfSC_PKiSE_PS2_iiiiif":
         "paged_prefill_f32_kernel<q=fp32, kv=fp32, D=64, BQ=32>",
         pf + "If13__nv_bfloat16Li32ELi64EEEvPKT_PKNS_2KVIT0_E1SESB_PKfSD_"
@@ -285,12 +284,21 @@ def test_chip_smoke_build_report_parsers():
         "_ZN12_GLOBAL__N_125flash_fwd_ring_f32_kernelILi32ELb0EEEvPKfS1_S1_"
         "PfS2_iifN3nsb11DropoutArgsE":
         "flash_fwd_ring_f32_kernel<D=32, drop=0>",
-        "_ZN12_GLOBAL__N_125flash_bwd_ring_f32_kernelILi128ELi32ELb0EEEvPKf"
-        "S1_S1_S1_S1_S1_PfS2_S2_iifN3nsb11DropoutArgsE":
-        "flash_bwd_ring_f32_kernel<D=128, BK=32, drop=0>",
-        "_ZN12_GLOBAL__N_125flash_bwd_ring_f32_kernelILi64ELi64ELb1EEEvPKf"
-        "S1_S1_S1_S1_S1_PfS2_S2_iifN3nsb11DropoutArgsE":
-        "flash_bwd_ring_f32_kernel<D=64, BK=64, drop=1>",
+        "_ZN12_GLOBAL__N_125flash_bwd_ring_f32_kernelILi128ELi32ELb0ELb0EEEv"
+        "PKfS1_S1_S1_S1_S1_PfS2_S2_iifN3nsb11DropoutArgsE":
+        "flash_bwd_ring_f32_kernel<D=128, BK=32, dq=0, drop=0>",
+        "_ZN12_GLOBAL__N_125flash_bwd_ring_f32_kernelILi64ELi64ELb1ELb1EEEv"
+        "PKfS1_S1_S1_S1_S1_PfS2_S2_iifN3nsb11DropoutArgsE":
+        "flash_bwd_ring_f32_kernel<D=64, BK=64, dq=1, drop=1>",
+        "_ZN12_GLOBAL__N_125flash_bwd_ring_f32_kernelILi32ELi64ELb0ELb1EEEv"
+        "PKfS1_S1_S1_S1_S1_PfS2_S2_iifN3nsb11DropoutArgsE":
+        "flash_bwd_ring_f32_kernel<D=32, BK=64, dq=0, drop=1>",
+        "_ZN12_GLOBAL__N_128flash_bwd_dq_ring_f32_kernelILi64ELi32ELb1EEEvPKf"
+        "S1_S1_S1_S1_S1_S1_PfiifN3nsb11DropoutArgsE":
+        "flash_bwd_dq_ring_f32_kernel<D=64, BQ=32, drop=1>",
+        "_ZN12_GLOBAL__N_128flash_bwd_dq_ring_f32_kernelILi128ELi64ELb0EEEvPK"
+        "fS1_S1_S1_S1_S1_S1_PfiifN3nsb11DropoutArgsE":
+        "flash_bwd_dq_ring_f32_kernel<D=128, BQ=64, drop=0>",
         "_ZN3nsb12_GLOBAL__N_119paged_decode_kernelI13__nv_bfloat16S2_Li64EE"
         "EvPKT_": "paged_decode_kernel<q=bf16, kv=bf16, D=64>",
         "_ZN3nsb12_GLOBAL__N_119paged_decode_kernelIfNS_4Int4ELi32EEEvPKT_":
@@ -302,18 +310,22 @@ def test_chip_smoke_build_report_parsers():
     for mangled, label in labels.items():
         assert chip_smoke.kernel_label(mangled) == label
         assert label in chip_smoke.CUDA_CORE_INSTANCES
-    # The ring kernels' 18 instances (K4 x 3 head_dims x dropout or not,
-    # K5 also x 32- or 64-key blocks) took the places of the non-causal
-    # fp32 K4 (3) and fused K5 (3): 81 became 93. No instance of the fp32
-    # K4 or K5 is non-causal any more.
-    assert len(chip_smoke.CUDA_CORE_INSTANCES) == 93
-    assert not [i for i in chip_smoke.CUDA_CORE_INSTANCES
-                if i.startswith("flash_fwd_f32_kernel") and "causal" in i
-                or i.startswith("flash_bwd_kv_kernel<") and "dq=1, causal=0"
-                in i]
-    assert {f"flash_bwd_ring_f32_kernel<D={d}, BK={bk}, drop={w}>"
-            for d in chip_smoke.HEAD_DIMS for bk in (32, 64)
-            for w in (0, 1)} <= set(chip_smoke.CUDA_CORE_INSTANCES)
+    # The ring K7 (12: K5's kernel without dQ, x 3 head_dims x 32- or
+    # 64-key blocks x dropout or not) and K6 (12: x 3 head_dims x 32- or
+    # 64-query blocks x dropout or not) took the places of the non-causal
+    # fp32 K7 (3, flash_bwd_kv_kernel<D, false, false>) and K6 (3,
+    # flash_bwd_dq_f32_kernel<D, false>): 93 became 111. The causal flag
+    # left the 9 remaining instances of those two kernels. No instance of
+    # a flash kernel of csrc/flash_attention.cu is non-causal any more.
+    assert len(chip_smoke.CUDA_CORE_INSTANCES) == 111
+    assert not [i for i in chip_smoke.CUDA_CORE_INSTANCES if "causal" in i]
+    assert {f"flash_bwd_ring_f32_kernel<D={d}, BK={bk}, dq={q}, drop={w}>"
+            for d in chip_smoke.HEAD_DIMS for bk in (32, 64) for q in (0, 1)
+            for w in (0, 1)} | {
+                f"flash_bwd_dq_ring_f32_kernel<D={d}, BQ={bq}, drop={w}>"
+                for d in chip_smoke.HEAD_DIMS for bq in (32, 64)
+                for w in (0, 1)} <= set(
+                    chip_smoke.CUDA_CORE_INSTANCES)
 
 
 def test_chip_smoke_kernel_names_are_kernels_in_the_sources():
@@ -336,10 +348,14 @@ def test_chip_smoke_kernel_names_are_kernels_in_the_sources():
     assert set(chip_smoke.WGMMA_KERNELS) <= set(chip_smoke.TENSOR_CORE_KERNELS)
     sm90 = (PKG / "csrc" / "flash_attention_sm90.cu").read_text()
     assert all(f"{n}(" in sm90 for n in chip_smoke.WGMMA_KERNELS)
-    # The non-causal fp32 K4 and K5 live in a header that the flash
-    # library's source includes (its entry points route to them).
+    # The non-causal fp32 K4-K7 live in a header that the flash library's
+    # source includes (its entry points route to them), one kind each.
     ring = (PKG / "csrc" / "flash_ring_f32.cuh").read_text()
+    assert [k for k, _ in chip_smoke.RING_F32_KERNELS] == [
+        "fwd", "fused", "dq", "dkv"]
     assert all(f"\n{n}(" in ring for _, n in chip_smoke.RING_F32_KERNELS)
+    assert "\nflash_bwd_dq_ring_f32_kernel(" in ring
+    assert "flash_bwd_dq_ring_f32_kernel" in chip_smoke.CUDA_CORE_KERNELS
     assert '#include "flash_ring_f32.cuh"' in (
         PKG / "csrc" / "flash_attention.cu").read_text()
     # Each instance phase 2 expects names one of those kernels.
