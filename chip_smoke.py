@@ -19,10 +19,12 @@ line):
               instance (CUDA_CORE_INSTANCES: the causal fp32 K4 with 32-
               and 64-query blocks, K5, K6 and K7, the non-causal fp32
               K4-K7 of ring attention's blocks with and without dropout,
-              K1 in each of its f32 (query, pool) pairs, and K2 in every
-              (query, pool) pair, at every head_dim; all must be found),
-              and the registers, shared memory and blocks an SM of the
-              non-causal fp32 K4-K7;
+              K1 in each of its f32 (query, pool) pairs, and K2 and K3 in
+              every (query, pool) pair, at every head_dim; all must be
+              found), the registers, shared memory and blocks an SM of
+              the non-causal fp32 K4-K7, and K3's registers, shared
+              memory (its ring and the static rest), blocks an SM and
+              split length in every (query, pool) pair and head_dim;
   3. kernels  each kernel against its plain PyTorch version on the card
               at GPT-2 124M shapes, under fp32 and bf16 queries: K2 and
               K1 (H 12, D 64, page 16, 512 blocks, 64 table entries per
@@ -30,8 +32,10 @@ line):
               positions; K1 at B 2, T 128 and 256, starts [0, 64], and the
               8 x 512 admission wave) over a pool in the query's dtype
               and over int8 and int4 pools, K3 (flash_decode_kernel) over
-              contiguous (8, 12, 1024, 64) slot rows at K2's lengths in
-              the fp32, bf16, int8 and int4 modes. Both sides take the
+              contiguous (8, 12, 1024, 64) slot rows at K2's lengths, at
+              8 rows x 512 (L 512) and at 1 row x 1024, in the fp32,
+              bf16, int8 and int4 modes (two calls on the 1024-position
+              row give equal bits). Both sides take the
               same pool; fp32 queries within 1e-5, bf16 within 2e-2
               (compared in f32), each also within the relative limits of
               phase 7; each case timed beside its bound and
@@ -42,7 +46,9 @@ line):
               (query, kv mode) pair (K1 also at T 100, starts [0, 37],
               and at B 8, H 12, T 160, where the f32 one takes 64-query
               blocks; K2 also at lengths Ls - 1, Ls, Ls + 1 and the full
-              capacity of its splits, equal bits on two calls),
+              capacity of its splits, K3 at L 1000 and 1001 and on rows
+              long enough to split in every mode, both equal bits on two
+              calls),
               and K2 and K3 on decode rows of length 0 and -1 in every
               kv mode (zeros out, finite);
   4. engine   GPT-2 124M in fp32 (seeded random weights) through the
@@ -138,7 +144,8 @@ line):
 The last line is {"ok": true, "device": {...}}; the line before it is a
 JSON object with one entry per kernel instance timed (K1 twice for each
 pool and query: phase 3's B 2, T 256 case and the wave; K2 twice: phase
-3's lengths and the serving steady state). Needs one CUDA
+3's lengths and the serving steady state; K3 three times: phase 3's
+lengths, 8 x 512 and 1 x 1024). Needs one CUDA
 GPU; without one it exits non-zero and prints no result.
 """
 
@@ -231,12 +238,12 @@ TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_mma_kernel",
 WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_wgmma_kernel",
                  "flash_bwd_dq_wgmma_kernel")
 # CUDA-core kernels whose instances phase 2 holds to 0 spill bytes: the
-# f32 ones and K2.
+# f32 ones, K2 and K3.
 CUDA_CORE_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_kv_kernel",
                      "flash_bwd_dq_f32_kernel", "paged_prefill_f32_kernel",
                      "paged_decode_kernel", "flash_fwd_ring_f32_kernel",
                      "flash_bwd_ring_f32_kernel",
-                     "flash_bwd_dq_ring_f32_kernel")
+                     "flash_bwd_dq_ring_f32_kernel", "flash_decode_kernel")
 # Of those, the non-causal fp32 K4-K7 of ring attention's blocks
 # (csrc/flash_ring_f32.cuh) by their kinds for ring_f32_launch_shape, each
 # with a dropout instance (its last bool template argument); K5 and K7
@@ -272,7 +279,8 @@ F32_PREFILL_PAIRS = (("fp32", "fp32"), ("fp32", "bf16"), ("fp32", "int8"),
 # 64-query blocks (BQ); the non-causal fp32 K4, K5 and K7 (the ring
 # kernels; K5 and K7 in 32- and 64-key blocks) and K6 (in 32- and
 # 64-query blocks), each with and without dropout; the causal fp32 K5
-# and K7 of flash_bwd_kv_kernel and K6; K2 in every (query, pool) pair.
+# and K7 of flash_bwd_kv_kernel and K6; K2 and K3 in every (query, pool)
+# pair.
 CUDA_CORE_INSTANCES = tuple(sorted(
     [f"flash_fwd_f32_kernel<D={d}, BQ={bq}>" for d in HEAD_DIMS
      for bq in (32, 64)]
@@ -289,7 +297,8 @@ CUDA_CORE_INSTANCES = tuple(sorted(
     + [f"paged_prefill_f32_kernel<q={qd}, kv={kv}, D={d}, BQ={bq}>"
        for d in HEAD_DIMS for qd, kv in F32_PREFILL_PAIRS
        for bq in (32, 64)]
-    + [f"paged_decode_kernel<q={qd}, kv={kv}, D={d}>" for d in HEAD_DIMS
+    + [f"{k}<q={qd}, kv={kv}, D={d}>" for d in HEAD_DIMS
+       for k in ("paged_decode_kernel", "flash_decode_kernel")
        for qd in ("fp32", "bf16")
        for kv in ("fp32", "bf16", "int8", "int4")]))
 
@@ -361,7 +370,7 @@ def kernel_label(mangled: str) -> str:
         qd, kv = mangled_pair(args)
         bq = re.findall(r"Li(\d+)E", args)[1]
         return f"{name}<q={qd}, kv={kv}, D={head_dim}, BQ={bq}>"
-    if name == "paged_decode_kernel":
+    if name in ("paged_decode_kernel", "flash_decode_kernel"):
         qd, kv = mangled_pair(args)
         return f"{name}<q={qd}, kv={kv}, D={head_dim}>"
     if name == "flash_fwd_f32_kernel":
@@ -439,7 +448,20 @@ def check_build(_build) -> None:
         if spill:
             fail(f"{label}: {spill} bytes spilled (needs 0)")
     from nanosandbox_tpu_torch.ops import attention as at
+    from nanosandbox_tpu_torch.ops import flash_decode as fd
 
+    for d in HEAD_DIMS:
+        shapes = []
+        for qd, qdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            for kv in fd.KV_MODES:
+                sh = fd.dense_decode_launch_shape(qdt, kv, d)
+                shapes.append(
+                    f"q={qd}, kv={kv}: {sh['registers']} registers, "
+                    f"{sh['smem']} + {sh['static_smem']} bytes of shared "
+                    f"memory (ring + static), {sh['blocks_per_sm']} blocks "
+                    f"an SM, split at {sh['split_at']} positions")
+        print(f"  flash_decode_kernel at D={d} ({sh['threads']} threads): "
+              + "; ".join(shapes))
     for B, kind, name in ((1, "fwd", "flash_fwd_ring_f32_kernel"),
                           (1, "dq", "flash_bwd_dq_ring_f32_kernel<BQ=32>"),
                           (4, "dq", "flash_bwd_dq_ring_f32_kernel<BQ=64>"),
@@ -506,6 +528,9 @@ def gathered(pool, table, L):
 DECODE_TOL = {torch.float32: dict(abs=1e-5, rel=1e-4),
               torch.bfloat16: dict(abs=2e-2, rel=2e-2)}
 KV_ELEMENT_BYTES = {"fp32": 4, "bf16": 2, "int8": 1, "int4": 0.5}
+# K3's long rows in check_other_instances: more than twice the positions
+# after which any kv mode splits a row (csrc/flash_decode.cu SplitAt).
+LONG_ROW = 4200
 
 
 def pool_in_mode(x, mode):
@@ -579,13 +604,27 @@ def check_kernels(fd) -> dict:
                                                   dtype=np.float32)).to(DEVICE)
         prefill.append((T, start, pq, pk, pv, ptbl,
                         torch.from_numpy(start).to(DEVICE)))
-    # K3's contiguous (B, H, L, D) slot rows, at K2's lengths.
+    # K3's contiguous (B, H, L, D) slot rows: at K2's lengths; at the dense
+    # server's steady state, 8 rows x 512 (L 512); and at the sampler's,
+    # --num_samples=1 at full block size (1 row x 1024).
     L, tot = int(decode_len.max()), int(decode_len.sum())
-    ck, cv = (torch.from_numpy(rng.standard_normal(
-        (8, H, L, D), dtype=np.float32)).to(DEVICE) for _ in range(2))
-    dmask = (torch.arange(L, device=DEVICE)[None, None, None, :]
-             < dlen[:, None, None, None])
     lens = f"lengths={decode_len.tolist()}"
+    dense = []
+    for rows, Ld, shape in ((decode_len, L, lens),
+                            (serve_len, 512, "lengths=8x512"),
+                            (np.array([1024], np.int32), 1024,
+                             "lengths=[1024]")):
+        ck, cv = (torch.from_numpy(rng.standard_normal(
+            (len(rows), H, Ld, D), dtype=np.float32)).to(DEVICE)
+                  for _ in range(2))
+        cq = torch.from_numpy(rng.standard_normal(
+            (len(rows), H, D), dtype=np.float32)).to(DEVICE)
+        cn = torch.from_numpy(rows).to(DEVICE)
+        dense.append((cq, ck, cv, cn, int(rows.sum()),
+                      f"B={len(rows)} H={H} D={D} L={Ld} {shape}",
+                      torch.arange(Ld, device=DEVICE)[None, None, None, :]
+                      < cn[:, None, None, None]))
+    dmask = dense[0][6]  # K2's at phase 3's lengths too
 
     def one(name, dtype, shape, pools, fn, plain, library_qkv, nbytes,
             flops):
@@ -608,17 +647,30 @@ def check_kernels(fd) -> dict:
         q = dq.to(dtype)
         qb = q.numel() * q.element_size()
         fp = "fp32" if dtype == torch.float32 else "bf16"
-        # K3 over contiguous slot rows, in every kv mode.
-        for mode in ("fp32", "bf16", "int8", "int4"):
-            cases.append(one(
-                f"flash_decode_kernel<{mode}>", dtype,
-                f"B=8 H={H} D={D} L={L} {lens}",
-                (pool_in_mode(ck, mode), pool_in_mode(cv, mode)),
-                lambda k, v, **kw: fd.flash_decode(q, k, v, dlen, **kw),
-                lambda k, v, **kw: fd.torch_decode_attention(q, k, v, dlen,
-                                                             **kw),
-                lambda k, v: (q[:, :, None], k, v, dmask),
-                decode_bytes(tot, H, D, mode, qb), 4 * H * D * tot))
+        # K3 over contiguous slot rows, in every kv mode, at its three
+        # shapes; on the 1024-position row two calls must give equal bits.
+        for cq, ck, cv, cn, total, shape, cmask in dense:
+            q3 = cq.to(dtype)
+            for mode in ("fp32", "bf16", "int8", "int4"):
+                pools = (pool_in_mode(ck, mode), pool_in_mode(cv, mode))
+                cases.append(one(
+                    f"flash_decode_kernel<{mode}>", dtype, shape, pools,
+                    lambda k, v, q3=q3, cn=cn, **kw: fd.flash_decode(
+                        q3, k, v, cn, **kw),
+                    lambda k, v, q3=q3, cn=cn, **kw:
+                        fd.torch_decode_attention(q3, k, v, cn, **kw),
+                    lambda k, v, q3=q3, cmask=cmask: (q3[:, :, None], k, v,
+                                                      cmask),
+                    decode_bytes(total, H, D, mode,
+                                 q3.numel() * q3.element_size()),
+                    4 * H * D * total))
+                if shape.endswith("lengths=[1024]"):
+                    (k, ks), (v, vs) = pools
+                    kw = {} if ks is None else dict(k_scale=ks, v_scale=vs)
+                    if not torch.equal(fd.flash_decode(q3, k, v, cn, **kw),
+                                       fd.flash_decode(q3, k, v, cn, **kw)):
+                        fail(f"flash_decode_kernel<{mode}> q {dtype} {shape}:"
+                             " two calls differ")
         # K2 at the serving decode shape, and K1: over a pool in the
         # query's dtype and over int8 and int4 pools. Under a bf16 query K1
         # is the tensor-core kernel, under an fp32 query the f32 one.
@@ -688,7 +740,11 @@ def check_other_instances(fd, rng) -> None:
     compute, which must attend in f32); K1 also at T 100 with starts
     [0, 37] (a start off the page grid, a ragged last query tile, a chunk
     that spans blocks) and at B 8, H 12, T 160 (the f32 K1's 64-query
-    blocks); and K2 and K3 on decode rows with lengths 0 and -1
+    blocks); K3 also at L 1000 and 1001 (neither a multiple of 64 nor of
+    4: ragged chunks and stages, scales off the 16-byte grid) and on rows
+    of LONG_ROW positions, which split in every kv mode (the phase fails
+    if a mode's split length P no longer makes them split), two calls
+    giving equal bits; and K2 and K3 on decode rows with lengths 0 and -1
     in every kv mode, which see no key and must return 0."""
     def randn(shape, dtype=torch.float32):
         return torch.from_numpy(rng.standard_normal(
@@ -707,6 +763,14 @@ def check_other_instances(fd, rng) -> None:
         pk, pv, tbl = make_case(rng, 3, lengths + 40, H=4, D=D, N=64, nb=16)
         ek, ev, etbl = make_case(rng, 3, [0, 130, 0], H=4, D=D, N=64, nb=16)
         ck, cv = randn((3, 4, 256, D)), randn((3, 4, 256, D))
+        # K3 at L 1000 and 1001, and on long rows (B 2, H 4).
+        odd = [(randn((2, 4, Lo, D)), randn((2, 4, Lo, D)),
+                torch.tensor(n, dtype=torch.int32, device=DEVICE), label)
+               for Lo, n, label in (
+                   (1000, [1000, 999], "L 1000"),
+                   (1001, [1001, 513], "L 1001"),
+                   (LONG_ROW, [LONG_ROW, LONG_ROW - 63],
+                    f"L {LONG_ROW}, split rows"))]
         rstart = np.array([0, 37], np.int32)
         rk, rv, rtbl = make_case(rng, 2, rstart + 100, H=4, D=D, N=64, nb=16)
         rs = torch.from_numpy(rstart).to(DEVICE)
@@ -726,16 +790,26 @@ def check_other_instances(fd, rng) -> None:
         bn = torch.from_numpy(blens).to(DEVICE)
         for qdt in (torch.float32, torch.bfloat16):
             q1, qT = randn((3, 4, D), qdt), randn((3, 4, 40, D), qdt)
+            q2 = randn((2, 4, D), qdt)
             qs = randn((4, 12, D), qdt)
             q100 = randn((2, 4, 100, D), qdt)
             q160 = randn((8, 12, 160, D), qdt)
             for mode in fd.KV_MODES:
+                if DEVICE != "cpu":
+                    P = fd.dense_decode_launch_shape(qdt, mode, D)[
+                        "split_at"]
+                    if 2 * P >= LONG_ROW:
+                        fail(f"flash_decode_kernel q {qdt} kv {mode} D {D} "
+                             f"splits a row at {P} positions: rows of "
+                             f"{LONG_ROW} no longer split")
                 k, v, s = pools(pk, pv, mode)
                 k2, v2, s2 = pools(rk, rv, mode)
                 k4, v4, s4 = pools(wk, wv, mode)
                 k3, v3, s3 = pools(ck, cv, mode)
                 ke, ve, se = pools(ek, ev, mode)
                 k5, v5, s5 = pools(bk, bv, mode)
+                odd_pools = [(pools(a, b, mode), n, label)
+                             for a, b, n, label in odd]
                 runs = (
                     ("paged decode", fd.flash_decode_paged,
                      fd.torch_decode_attention_paged, (q1, k, v, tbl, n), s),
@@ -756,7 +830,10 @@ def check_other_instances(fd, rng) -> None:
                      fd.flash_decode_paged, fd.torch_decode_attention_paged,
                      (q1, ke, ve, etbl, empty), se),
                     ("decode, lengths [0, 130, -1]", fd.flash_decode,
-                     fd.torch_decode_attention, (q1, k3, v3, empty), s3))
+                     fd.torch_decode_attention, (q1, k3, v3, empty), s3),
+                    *((f"decode, {label}", fd.flash_decode,
+                       fd.torch_decode_attention, (q2, ko, vo, n), so)
+                      for (ko, vo, so), n, label in odd_pools))
                 for name, fn, plain, args, scales in runs:
                     got = fn(*args, **scales)
                     tag = f"{name} D={D} q={str(qdt)[6:]} kv={mode}"
@@ -766,8 +843,9 @@ def check_other_instances(fd, rng) -> None:
                     if "[0, 130, -1]" in name and (got[0].any()
                                                    or got[2].any()):
                         fail(f"{tag}: a row with no key did not return 0")
-                    if (fn is fd.flash_decode_paged
-                            and not torch.equal(got, fn(*args, **scales))):
+                    if not torch.equal(got, fn(*args, **scales)) and (
+                            fn is fd.flash_decode_paged
+                            or fn is fd.flash_decode):
                         fail(f"{tag}: two calls differ")
                     worst[name] = max(worst.get(name, 0.0), err)
     print(f"  other instances (D {fd.HEAD_DIMS}, q fp32/bf16, kv "
@@ -2369,16 +2447,19 @@ def main(argv: list[str] | None = None) -> int:
                   n_k1, timed(k1, "float32", "B=8"))]
     # K3: the bf16 pool's launches are the dense bf16 server's; the fp32,
     # int8 and int4 pools' are phase 10's fp32-compute dense engines', so
-    # their times are taken under an fp32 query.
-    kernels.append(entry("flash_decode_kernel<bf16>", dense,
-                         "flash_decode.py:244",
-                         sl["dense bf16"]["flash_decode/bf16"],
-                         timed("flash_decode_kernel<bf16>", "bfloat16")))
-    for mode in ("fp32", "int8", "int4"):
-        kernels.append(entry(
-            f"flash_decode_kernel<{mode}>", dense, "flash_decode.py:244",
-            pools[f"dense {mode}"]["launches"][f"flash_decode/{mode}"],
-            timed(f"flash_decode_kernel<{mode}>", "float32")))
+    # their times are taken under an fp32 query. Each at phase 3's lengths,
+    # at the dense server's steady state and at the sampler's single row.
+    for mode, qdt, n in (
+            ("bf16", "bfloat16", sl["dense bf16"]["flash_decode/bf16"]),
+            *((mode, "float32",
+               pools[f"dense {mode}"]["launches"][f"flash_decode/{mode}"])
+              for mode in ("fp32", "int8", "int4"))):
+        name = f"flash_decode_kernel<{mode}>"
+        for suffix, shape in (("", "B=8 H=12 D=64 L=1024"),
+                              ("[serve B=8 len=512]", "B=8 H=12 D=64 L=512"),
+                              ("[sample B=1 len=1024]", "B=1 ")):
+            kernels.append(entry(name + suffix, dense, "flash_decode.py:244",
+                                 n, timed(name, qdt, shape)))
     kernels += [
         entry("flash_fwd_mma_kernel", flash, "attention.py:180",
               tl["flash_attention_fwd"], train_cases["fwd"]),

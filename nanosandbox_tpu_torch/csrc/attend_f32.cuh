@@ -190,8 +190,10 @@ __device__ __forceinline__ void attend_f32(
       const int r = e / (D / 8), c = 8 * (e % (D / 8));
       float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       if (q0 + r < T)
-        KV<__nv_bfloat16>::load(q + qbase + static_cast<int64_t>(q0 + r) * D,
-                                c, x);
+        Lane16<__nv_bfloat16>::widen(
+            *reinterpret_cast<const uint4*>(
+                q + qbase + static_cast<int64_t>(q0 + r) * D + c),
+            x);
       float* dst = q_s + r * kDR + c;
       *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
       *reinterpret_cast<float4*>(dst + 4) = make_float4(x[4], x[5], x[6], x[7]);

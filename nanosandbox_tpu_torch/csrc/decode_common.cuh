@@ -19,17 +19,20 @@
 // (kRoundP); an fp32 query, or an fp32 pool, keeps it in f32.
 //
 // Two decode walks, each one query per (row, head) over that row's
-// positions [0, len), each templated on an addressing policy saying where
-// a position lives: a block table (PagedChain) or contiguous slot rows
-// (DenseRows).
-//   decode_split  serves K2 (paged_decode_kernel, over a PagedChain): the
-//                 row's positions are split over S blocks of whole pages,
-//                 each lane loads 16 bytes of a row in every pool mode, and
-//                 the last block of a (row, head) to finish merges the
-//                 splits' softmax states in split order.
-//   decode_row    serves K3 (flash_decode_kernel, over DenseRows): one
-//                 block walks the whole row, 8 (int8) or 4 (int4) bytes a
-//                 lane load.
+// positions [0, len), split over a grid (H, B, S) whose S comes from the
+// host (ops/flash_decode.py decode_splits / dense_decode_splits: from the
+// shapes and the SM count, never from the lengths); the last block of a
+// (row, head) to finish merges the splits' softmax states in split order
+// (finish_split).
+//   decode_split  serves K2 (paged_decode_kernel, through the block table,
+//                 PagedChain): splits of Ls positions (whole pages), each
+//                 lane loading 16 bytes of a row from device memory in
+//                 every pool mode.
+//   K3 (flash_decode_kernel, flash_decode.cu, over contiguous slot rows)
+//                 splits a row only as far as its length pays for the
+//                 merge, and brings each split's rows into a shared-memory
+//                 ring by bulk copies; its warps widen them as
+//                 decode_split's lanes do (Lane16).
 
 #pragma once
 
@@ -66,28 +69,20 @@ __device__ __forceinline__ float sbyte(uint32_t w, int i) {
   return static_cast<float>(static_cast<int>(w << (24 - 8 * i)) >> 24);
 }
 
-// KV<T>: how one K/V row of D dims is read.
+// KV<T>: how one K/V row of D dims is stored.
 //   S       storage element type;
 //   kDiv    dims per storage element (2 for packed int4), so a row is
 //           D / kDiv elements;
-//   kN      dims one lane loads at once (load), converted to f32. Each
-//           lane keeps ~8 dims whatever the mode (4 for fp32): 16-byte
-//           loads for fp32/bf16, 8-byte for int8, 4-byte for int4, so
-//           the quantized modes need no more registers than bf16;
 //   kQuant  the row carries a per-position scale;
 //   at(row, d)  one dim, for the prefill kernel's element-wise staging.
+// The decode walks read rows 16 bytes a lane (Lane16, below).
 template <typename T>
 struct KV;
 template <>
 struct KV<float> {
   using S = float;
-  static constexpr int kN = 4, kDiv = 1;
+  static constexpr int kDiv = 1;
   static constexpr bool kQuant = false;
-  static __device__ __forceinline__ void load(const S* row, int d0,
-                                              float* o) {
-    const float4 x = *reinterpret_cast<const float4*>(row + d0);
-    o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
-  }
   static __device__ __forceinline__ float at(const S* row, int d) {
     return row[d];
   }
@@ -95,19 +90,8 @@ struct KV<float> {
 template <>
 struct KV<__nv_bfloat16> {
   using S = __nv_bfloat16;
-  static constexpr int kN = 8, kDiv = 1;
+  static constexpr int kDiv = 1;
   static constexpr bool kQuant = false;
-  static __device__ __forceinline__ void load(const S* row, int d0,
-                                              float* o) {
-    const uint4 x = *reinterpret_cast<const uint4*>(row + d0);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      o[2 * i] = f.x;
-      o[2 * i + 1] = f.y;
-    }
-  }
   static __device__ __forceinline__ float at(const S* row, int d) {
     return __bfloat162float(row[d]);
   }
@@ -115,17 +99,8 @@ struct KV<__nv_bfloat16> {
 template <>
 struct KV<int8_t> {
   using S = int8_t;
-  static constexpr int kN = 8, kDiv = 1;
+  static constexpr int kDiv = 1;
   static constexpr bool kQuant = true;
-  static __device__ __forceinline__ void load(const S* row, int d0,
-                                              float* o) {
-    const uint2 x = *reinterpret_cast<const uint2*>(row + d0);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      o[i] = sbyte(x.x, i);
-      o[4 + i] = sbyte(x.y, i);
-    }
-  }
   static __device__ __forceinline__ float at(const S* row, int d) {
     return static_cast<float>(row[d]);
   }
@@ -133,18 +108,8 @@ struct KV<int8_t> {
 template <>
 struct KV<Int4> {
   using S = uint8_t;
-  static constexpr int kN = 8, kDiv = 2;
+  static constexpr int kDiv = 2;
   static constexpr bool kQuant = true;
-  static __device__ __forceinline__ void load(const S* row, int d0,
-                                              float* o) {
-    const uint32_t x = *reinterpret_cast<const uint32_t*>(row + d0 / 2);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int b = (x >> (8 * j)) & 0xff;
-      o[2 * j] = static_cast<float>((b & 15) - 8);
-      o[2 * j + 1] = static_cast<float>((b >> 4) - 8);
-    }
-  }
   static __device__ __forceinline__ float at(const S* row, int d) {
     const int b = row[d >> 1];
     return static_cast<float>(((d & 1) ? (b >> 4) : (b & 15)) - 8);
@@ -165,25 +130,21 @@ __device__ __forceinline__ void merge_state(float& m, float& l, float* acc,
 }
 
 // ---------------------------------------------------------------------------
-// Addressing policies of the decode walks. A row's positions come in chunks
-// of chunk() consecutive positions; chunk j of (row b, head h) starts at
-// position-row index base(b, h, j) of the pool viewed as (rows, D) values
-// and (rows,) scales. capacity() bounds the positions a row can have.
-// decode_split asks a policy's split(b, h, lo, hi, pages_s) for the
-// block's view of positions [lo, hi), lo a whole number of chunks, whose
-// row(pos) gives the position-row index of any position in it (PagedChain
-// has one; decode_row's DenseRows does not need it).
+// The block-table addressing of the paged kernels. capacity() bounds the
+// positions a row can have; split(b, h, lo, hi, pages_s) gives a block's
+// view of positions [lo, hi) of (row b, head h), lo a whole number of
+// pages, whose row(pos) is the position-row index of any position in it,
+// in the pool viewed as (rows, D) values and (rows,) scales.
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxSplitPages = 256;  // pages of one split (pages_s)
 
-// (N, H, page, D) block pool; chunk j of row b is block table[b, j].
+// (N, H, page, D) block pool; page j of row b is block table[b, j].
 // Table entries outside [0, N) (the engine's sentinel) are clamped before
 // any address is formed; their positions lie past the row's frontier.
 struct PagedChain {
   const int* table;
   int nb, N, page, H;
-  __device__ __forceinline__ int chunk() const { return page; }
   __device__ __forceinline__ int capacity() const { return nb * page; }
   __device__ __forceinline__ int64_t base(int b, int h, int j) const {
     const int blk = min(max(table[(int64_t)b * nb + j], 0), N - 1);
@@ -215,185 +176,19 @@ struct PagedChain {
   }
 };
 
-// (B, H, L, D) contiguous slot rows, walked in chunks of kChunk positions.
-struct DenseRows {
-  static constexpr int kChunk = 64;
-  int L, H;
-  __device__ __forceinline__ int chunk() const { return kChunk; }
-  __device__ __forceinline__ int capacity() const { return L; }
-  __device__ __forceinline__ int64_t base(int b, int h, int j) const {
-    return ((int64_t)b * H + h) * L + (int64_t)j * kChunk;
-  }
-};
-
 // ---------------------------------------------------------------------------
-// decode_row (K3): one block per (head, row); each warp takes every
-// kDecWarps-th chunk of the row's positions.
-//
-// Within a warp, kLPR lanes share one K/V row (each lane kN dims of it),
-// so a load instruction moves kRPW whole rows, coalesced. q.k is a shuffle
-// reduction over those lanes; each lane group keeps its own online-softmax
-// state (m, l, and the p.v accumulator for its lane's dims) over the
-// positions it visits. The groups merge by shuffles, the warps through
-// shared memory: softmax states merge exactly, as in the Pallas kernels'
-// carry across grid steps. Only chunks below the frontier are read.
+// 16-byte lane loads widened to f32 (exact), for both walks. Every lane
+// reads 16 bytes of a K or V row at a time in every pool mode (4 fp32, 8
+// bf16, 16 int8 or 32 int4 dims), so kLPR = D / kN lanes share a row and a
+// warp load moves kRPW = 32 / kLPR whole rows; int8 and int4 widen by
+// exponent-bias magic (a byte permute and a subtract, no int-to-float
+// conversion). kUnroll: the row groups a K2 lane keeps in flight: 8 for
+// fp32 and 4 for bf16 (16 rows a warp step at any head_dim; 8 bf16 groups
+// measured 7% slower at the serving shape, PERF.md section 6), 4 for int8
+// and 2 for int4 (32 rows a warp step; their 16 and 32 widened dims a lane
+// take the registers).
 // ---------------------------------------------------------------------------
 
-constexpr int kDecWarps = 8;
-constexpr int kDecThreads = 32 * kDecWarps;
-constexpr int kDecUnroll = 4;  // row groups in flight per lane
-
-template <typename TQ, typename TKV, int D, typename Chain>
-__device__ __forceinline__ void decode_row(
-    const TQ* __restrict__ q, const typename KV<TKV>::S* __restrict__ k,
-    const typename KV<TKV>::S* __restrict__ v, const float* __restrict__ ks,
-    const float* __restrict__ vs, const Chain& chain, int length,
-    TQ* __restrict__ out, int b, int h, int H, float sm_scale) {
-  using L = KV<TKV>;
-  // JAX's dot dtype is q's for a quantized pool and the wider of (q, pool)
-  // otherwise (flash_decode.py _flash_decode_kernel): bf16 exactly when a
-  // bf16 query meets a pool that is not fp32.
-  constexpr bool kRoundP = std::is_same<TQ, __nv_bfloat16>::value &&
-                           !std::is_same<TKV, float>::value;
-  constexpr int kVN = L::kN;         // dims per lane load
-  constexpr int kLPR = D / kVN;      // lanes per K/V row
-  constexpr int kRPW = 32 / kLPR;    // rows per warp load
-  constexpr int kRow = D / L::kDiv;  // storage elements per row
-  static_assert(kLPR <= 32 && 32 % kLPR == 0, "head_dim vs lane width");
-  __shared__ float m_s[kDecWarps], l_s[kDecWarps];
-  __shared__ float acc_s[kDecWarps][D];
-
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int sub = lane / kLPR;         // which row of the warp's load
-  const int d0 = (lane % kLPR) * kVN;  // this lane's dims [d0, d0 + kVN)
-  const int64_t row = (int64_t)b * H + h;
-  const int len = min(length, chain.capacity());
-
-  float qv[kVN], acc[kVN];
-#pragma unroll
-  for (int i = 0; i < kVN; ++i) {
-    qv[i] = to_f(q[row * D + d0 + i]) * sm_scale;
-    acc[i] = 0.f;
-  }
-  float m = kNegInf, l = 0.f;
-  const int C = chain.chunk();
-  const int n_chunks = len > 0 ? (len + C - 1) / C : 0;
-  for (int j = warp; j < n_chunks; j += kDecWarps) {
-    const int64_t base = chain.base(b, h, j);
-    const int valid_rows = min(C, len - j * C);
-    for (int p0 = 0; p0 < valid_rows; p0 += kRPW * kDecUnroll) {
-      float kx[kDecUnroll][kVN], vx[kDecUnroll][kVN];
-      float ksc[kDecUnroll], vsc[kDecUnroll];
-      bool ok[kDecUnroll];
-#pragma unroll
-      for (int u = 0; u < kDecUnroll; ++u) {
-        const int p = p0 + u * kRPW + sub;
-        ok[u] = p < valid_rows;
-        ksc[u] = vsc[u] = 0.f;
-        if (ok[u]) {
-          L::load(k + (base + p) * kRow, d0, kx[u]);
-          L::load(v + (base + p) * kRow, d0, vx[u]);
-          if constexpr (L::kQuant) {
-            ksc[u] = ks[base + p];
-            vsc[u] = vs[base + p];
-          }
-        } else {
-#pragma unroll
-          for (int i = 0; i < kVN; ++i) kx[u][i] = vx[u][i] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kDecUnroll; ++u) {
-        float s = 0.f;
-#pragma unroll
-        for (int i = 0; i < kVN; ++i) s += qv[i] * kx[u][i];
-#pragma unroll
-        for (int o = kLPR / 2; o > 0; o >>= 1)
-          s += __shfl_xor_sync(0xffffffffu, s, o);
-        if constexpr (L::kQuant) s *= ksc[u];
-        if (ok[u]) {
-          const float m_new = fmaxf(m, s);
-          const float alpha = expf(m - m_new), p = expf(s - m_new);
-          l = l * alpha + p;
-          float pv = L::kQuant ? p * vsc[u] : p;
-          if constexpr (kRoundP) pv = __bfloat162float(__float2bfloat16(pv));
-#pragma unroll
-          for (int i = 0; i < kVN; ++i) acc[i] = acc[i] * alpha + pv * vx[u][i];
-          m = m_new;
-        }
-      }
-    }
-  }
-  // Merge the warp's row groups (lanes kLPR, 2 kLPR, ... apart).
-#pragma unroll
-  for (int o = kLPR; o < 32; o <<= 1) {
-    float acc2[kVN];
-#pragma unroll
-    for (int i = 0; i < kVN; ++i)
-      acc2[i] = __shfl_xor_sync(0xffffffffu, acc[i], o);
-    const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
-    const float l2 = __shfl_xor_sync(0xffffffffu, l, o);
-    merge_state<kVN>(m, l, acc, m2, l2, acc2);
-  }
-  if (sub == 0) {
-#pragma unroll
-    for (int i = 0; i < kVN; ++i) acc_s[warp][d0 + i] = acc[i];
-    if (lane == 0) {
-      m_s[warp] = m;
-      l_s[warp] = l;
-    }
-  }
-  __syncthreads();
-  // Merge the warps. When len >= 1, warp 0 saw position 0, so mx is
-  // finite; a warp that saw nothing (m = -1e30, l = 0, acc = 0) weighs
-  // exp(-huge) = 0. A row with len <= 0 saw no key at all: lsum is 0 and
-  // its output is 0, as in the plain versions.
-  if (t < D) {
-    float mx = m_s[0];
-#pragma unroll
-    for (int w = 1; w < kDecWarps; ++w) mx = fmaxf(mx, m_s[w]);
-    float lsum = 0.f, o = 0.f;
-#pragma unroll
-    for (int w = 0; w < kDecWarps; ++w) {
-      const float a = expf(m_s[w] - mx);
-      lsum += l_s[w] * a;
-      o += acc_s[w][t] * a;
-    }
-    out[row * D + t] = from_f<TQ>(lsum > 0.f ? o / lsum : 0.f);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// decode_split (K2): the row's positions [0, len) are split over S blocks,
-// block (h, b, s) walking [s Ls, min((s + 1) Ls, len)), Ls a whole number
-// of chunks. S and Ls come from the host (ops/flash_decode.py
-// decode_splits: from B, H, the capacity and the SM count, never from the
-// lengths), so the grid fills the card however few rows there are. A block
-// stages its split's pages while the row's length is in flight; a split
-// at or past the row's frontier then returns before any K/V load.
-//
-// Every lane loads 16 bytes of a K or V row at a time in every pool mode
-// (Lane16: 4 fp32, 8 bf16, 16 int8 or 32 int4 dims), so kLPR = D / kN
-// lanes share a row and a warp load moves kRPW = 32 / kLPR whole rows; a
-// lane keeps Lane16::kUnroll such row groups in flight, as stored bytes, and
-// widens them as they are used (int8 and int4 by exponent-bias magic: a
-// byte permute and a subtract, no int-to-float conversion). A row group's
-// scores share one max, one rescale of the accumulator and one exp each.
-// The scales are loaded once per row, by the first lane of its group, and
-// shuffled to the others.
-//
-// A split leaves its unnormalised state (acc[D], m, l) in f32 scratch
-// part (B*H, S, D + 2); the last block of a (row, head) to finish, known by
-// a ticket counter it resets (tickets (B*H,) int32, zero between calls),
-// merges the states in split order and writes the output, so two calls
-// give equal bits. A row that fits one split writes its output directly.
-// ---------------------------------------------------------------------------
-
-// 16-byte lane loads widened to f32 (exact). kUnroll: row groups a lane
-// keeps in flight: 8 for fp32 and 4 for bf16 (16 rows a warp step at any
-// head_dim; 8 bf16 groups measured 7% slower at the serving shape,
-// PERF.md section 6), 4 for int8 and 2 for int4 (32 rows a warp step;
-// their 16 and 32 widened dims a lane take the registers).
 template <typename TKV>
 struct Lane16;
 template <>
@@ -455,6 +250,125 @@ struct Lane16<Int4> {
   }
 };
 
+// ---------------------------------------------------------------------------
+// finish_split: the end of a split walk, by the walk's kDecWarps warps (the
+// first of the block) alone, through named barrier 1. A lane holds the
+// online-softmax state (m, l, acc) of the positions its row group saw,
+// acc its kN dims [d0, d0 + kN). The warp's row groups (lanes kLPR,
+// 2 kLPR, ... apart) merge by shuffles, the warps through shared memory;
+// a warp that saw nothing (m = -1e30, l = 0, acc = 0) weighs exp(-huge) = 0
+// once another saw a key, and a row with len <= 0 saw no key at all: its l
+// is 0 and its output 0, as in the plain versions.
+//
+// A (row, head) with one active split (n_act <= 1) writes its output here.
+// Otherwise the split leaves its unnormalised state (acc[D], m, l) in f32
+// scratch part (B*H, S, D + 2); the last split of the (row, head) to
+// finish, known by a ticket counter it resets (tickets (B*H,) int32, zero
+// between calls), merges the n_act states in split order and writes the
+// output, so two calls give equal bits.
+// ---------------------------------------------------------------------------
+
+constexpr int kDecWarps = 8;
+constexpr int kDecThreads = 32 * kDecWarps;
+
+__device__ __forceinline__ void dec_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kDecThreads) : "memory");
+}
+
+template <typename TQ, int D, int kN>
+__device__ __forceinline__ void finish_split(
+    float m, float l, float* acc, int n_act, TQ* __restrict__ out,
+    float* __restrict__ part, int* __restrict__ tickets, int64_t row, int s,
+    int S) {
+  constexpr int kLPR = D / kN;
+  __shared__ float m_s[kDecWarps], l_s[kDecWarps];
+  __shared__ float acc_s[kDecWarps][D];
+  __shared__ int last_s;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int sub = lane / kLPR, d0 = (lane % kLPR) * kN;
+#pragma unroll
+  for (int o = kLPR; o < 32; o <<= 1) {
+    float acc2[kN];
+#pragma unroll
+    for (int i = 0; i < kN; ++i)
+      acc2[i] = __shfl_xor_sync(0xffffffffu, acc[i], o);
+    const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
+    const float l2 = __shfl_xor_sync(0xffffffffu, l, o);
+    merge_state<kN>(m, l, acc, m2, l2, acc2);
+  }
+  if (sub == 0) {
+#pragma unroll
+    for (int i = 0; i < kN; ++i) acc_s[warp][d0 + i] = acc[i];
+    if (lane == 0) {
+      m_s[warp] = m;
+      l_s[warp] = l;
+    }
+  }
+  dec_sync();
+  float mx = kNegInf, lsum = 0.f, o = 0.f;
+  if (t < D) {
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) mx = fmaxf(mx, m_s[w]);
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float a = expf(m_s[w] - mx);
+      lsum += l_s[w] * a;
+      o += acc_s[w][t] * a;
+    }
+  }
+  if (n_act <= 1) {
+    if (t < D) out[row * D + t] = from_f<TQ>(lsum > 0.f ? o / lsum : 0.f);
+    return;
+  }
+  float* mine = part + (row * S + s) * (D + 2);
+  if (t < D) {
+    mine[t] = o;
+    if (t == 0) {
+      mine[D] = mx;
+      mine[D + 1] = lsum;
+    }
+  }
+  __threadfence();  // the state is visible before the ticket is taken
+  dec_sync();
+  if (t == 0) last_s = atomicAdd(tickets + row, 1) == n_act - 1;
+  dec_sync();
+  if (!last_s) return;
+  __threadfence();
+  // The last block: every split has a key (m finite, l > 0); merged in
+  // split order whichever block finished last, in one pass whose loads
+  // run ahead of the arithmetic (unrolled).
+  if (t < D) {
+    const float* st = part + row * S * (D + 2);
+    float M = kNegInf, lt = 0.f, ot = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < n_act; ++j) {
+      const float* sj = st + j * (D + 2);
+      const float mj = __ldcg(sj + D), lj = __ldcg(sj + D + 1);
+      const float oj = __ldcg(sj + t);
+      const float mn = fmaxf(M, mj);
+      const float a = expf(M - mn), c = expf(mj - mn);
+      lt = lt * a + lj * c;
+      ot = ot * a + oj * c;
+      M = mn;
+    }
+    out[row * D + t] = from_f<TQ>(ot / lt);
+  }
+  if (t == 0) tickets[row] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// decode_split (K2): the row's positions [0, len) are split over S blocks,
+// block (h, b, s) walking [s Ls, min((s + 1) Ls, len)), Ls a whole number
+// of chunks, so the grid fills the card however few rows there are. A
+// block stages its split's pages while the row's length is in flight; a
+// split at or past the row's frontier then returns before any K/V load.
+//
+// A lane keeps Lane16::kUnroll row groups in flight, as stored bytes, and
+// widens them as they are used. A row group's scores share one max, one
+// rescale of the accumulator and one exp each. The scales are loaded once
+// per row, by the first lane of its group, and shuffled to the others.
+// ---------------------------------------------------------------------------
+
 template <typename TQ, typename TKV, int D, typename Chain>
 __device__ __forceinline__ void decode_split(
     const TQ* __restrict__ q, const typename KV<TKV>::S* __restrict__ k,
@@ -477,9 +391,6 @@ __device__ __forceinline__ void decode_split(
   static_assert(kLPR >= 1 && kLPR <= 32 && 32 % kLPR == 0,
                 "head_dim vs the 16-byte lane load");
   __shared__ int pages_s[kMaxSplitPages];
-  __shared__ float m_s[kDecWarps], l_s[kDecWarps];
-  __shared__ float acc_s[kDecWarps][D];
-  __shared__ int last_s;
 
   // The split's pages are staged while the row's length is in flight.
   const int cap = chain.capacity(), lo = s * Ls;
@@ -571,79 +482,7 @@ __device__ __forceinline__ void decode_split(
     }
     m = mx;
   }
-  // Merge the warp's row groups (lanes kLPR, 2 kLPR, ... apart), then the
-  // warps through shared memory.
-#pragma unroll
-  for (int o = kLPR; o < 32; o <<= 1) {
-    float acc2[kN];
-#pragma unroll
-    for (int i = 0; i < kN; ++i)
-      acc2[i] = __shfl_xor_sync(0xffffffffu, acc[i], o);
-    const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
-    const float l2 = __shfl_xor_sync(0xffffffffu, l, o);
-    merge_state<kN>(m, l, acc, m2, l2, acc2);
-  }
-  if (sub == 0) {
-#pragma unroll
-    for (int i = 0; i < kN; ++i) acc_s[warp][d0 + i] = acc[i];
-    if (lane == 0) {
-      m_s[warp] = m;
-      l_s[warp] = l;
-    }
-  }
-  __syncthreads();
-  // A warp that saw nothing (m = -1e30, l = 0, acc = 0) weighs exp(-huge)
-  // = 0 once another saw a key; a row with len <= 0 saw no key at all: its
-  // l is 0 and its output 0, as in the plain versions.
-  float mx = kNegInf, lsum = 0.f, o = 0.f;
-  if (t < D) {
-#pragma unroll
-    for (int w = 0; w < kDecWarps; ++w) mx = fmaxf(mx, m_s[w]);
-#pragma unroll
-    for (int w = 0; w < kDecWarps; ++w) {
-      const float a = expf(m_s[w] - mx);
-      lsum += l_s[w] * a;
-      o += acc_s[w][t] * a;
-    }
-  }
-  if (n_act <= 1) {
-    if (t < D) out[row * D + t] = from_f<TQ>(lsum > 0.f ? o / lsum : 0.f);
-    return;
-  }
-  float* mine = part + (row * S + s) * (D + 2);
-  if (t < D) {
-    mine[t] = o;
-    if (t == 0) {
-      mine[D] = mx;
-      mine[D + 1] = lsum;
-    }
-  }
-  __threadfence();  // the state is visible before the ticket is taken
-  __syncthreads();
-  if (t == 0) last_s = atomicAdd(tickets + row, 1) == n_act - 1;
-  __syncthreads();
-  if (!last_s) return;
-  __threadfence();
-  // The last block: every split has a key (m finite, l > 0); merged in
-  // split order whichever block finished last, in one pass whose loads
-  // run ahead of the arithmetic (unrolled).
-  if (t < D) {
-    const float* st = part + row * S * (D + 2);
-    float M = kNegInf, lt = 0.f, ot = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < n_act; ++j) {
-      const float* sj = st + j * (D + 2);
-      const float mj = __ldcg(sj + D), lj = __ldcg(sj + D + 1);
-      const float oj = __ldcg(sj + t);
-      const float mn = fmaxf(M, mj);
-      const float a = expf(M - mn), c = expf(mj - mn);
-      lt = lt * a + lj * c;
-      ot = ot * a + oj * c;
-      M = mn;
-    }
-    out[row * D + t] = from_f<TQ>(ot / lt);
-  }
-  if (t == 0) tickets[row] = 0;
+  finish_split<TQ, D, kN>(m, l, acc, n_act, out, part, tickets, row, s, S);
 }
 
 // ---------------------------------------------------------------------------

@@ -150,36 +150,9 @@ constexpr int kConsumers = 128;  // one warpgroup
 constexpr int kThreadsWg = kConsumers + 32;  // + the producer warp
 
 // ---------------------------------------------------------------------------
-// mbarriers, TMA loads and reduce-adds, bulk groups, named barriers
+// TMA loads and reduce-adds, bulk groups, named barriers (the mbarriers
+// are mma_common.cuh's)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-// One arrival that also tells the barrier to expect `bytes` of TMA writes.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// Waits until the barrier's phase of this parity has completed (the spin
-// is a PTX loop, so the warp leaves it converged for the wgmma that
-// follows).
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\nbra WAIT;\nDONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
 
 // A box of a tensor map into shared memory, completing on `bar`.
 __device__ __forceinline__ void tma_load_3d(uint32_t dst,
@@ -435,10 +408,6 @@ __device__ __forceinline__ void gemm_rn(
 __device__ __forceinline__ uint32_t opaque(uint32_t x) {
   asm volatile("" : "+r"(x));
   return x;
-}
-
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
-// Building blocks shared by the kernels of flash_attention.cu and
-// paged_attention.cu, for Hopper (sm_90a): the mma.sync kernels (the bf16
-// flash-attention forward and backward, the paged prefill under a bf16
-// query) and the f32 CUDA-core kernels that stage tiles by cp.async (the
-// fp32 backward, the paged prefill under an fp32 query or over an fp32
-// pool).
+// Building blocks shared by the kernels of flash_attention.cu,
+// paged_attention.cu, flash_attention_sm90.cu and flash_decode.cu, for
+// Hopper (sm_90a): the mma.sync kernels (the bf16 flash-attention forward
+// and backward, the paged prefill under a bf16 query), the f32 CUDA-core
+// kernels that stage tiles by cp.async (the fp32 backward, the paged
+// prefill under an fp32 query or over an fp32 pool), and the mbarriers of
+// the kernels that copy by TMA or bulk copies (the wgmma K4-K7, K3).
 //
 //   smem_addr               a shared-memory pointer as a 32-bit address;
 //   cp_async16 / cp_async4  global -> shared copies that bypass registers,
@@ -19,7 +20,15 @@
 //                           cp.async; n consecutive floats from shared
 //                           (or device) memory by 16- (8-) byte loads;
 //   row_max / row_sum       reductions over the 16 lanes (a half-warp)
-//                           that share a row of a CUDA-core score tile.
+//                           that share a row of a CUDA-core score tile;
+//   mbar_*                  mbarriers in shared memory: init (and the
+//                           fence that publishes it), arrive, arrive with
+//                           an expected transaction count, wait on a phase;
+//   bulk_copy               a contiguous byte range from global to shared
+//                           memory by the copy engine (cp.async.bulk),
+//                           completing on an mbarrier;
+//   cp_async_arrive         an mbarrier arrival once this thread's
+//                           cp.async copies have landed.
 //
 // In an m16n8k16 accumulator lane l holds rows l/4 and l/4 + 8 and columns
 // 2(l%4) and 2(l%4) + 1 of each 8-column slice; every mask, scale and
@@ -195,6 +204,62 @@ __device__ __forceinline__ float row_sum(float x) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers (the TMA rings of flash_attention_sm90.cu, K3's ring of
+// contiguous rows in flash_decode.cu) and the 1D bulk copy
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// Makes the initialised barriers visible to the copy engine and the other
+// threads (before the __syncthreads that follows the init).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// One arrival that also tells the barrier to expect `bytes` of TMA writes.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Waits until the barrier's phase of this parity has completed (the spin
+// is a PTX loop, so the warp leaves it converged for the wgmma that
+// follows).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\nbra WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global
+// memory to shared memory at dst, by the copy engine, completing `bytes`
+// of bar's expected transactions.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// An arrival on bar once every cp.async this thread issued before it has
+// landed; .noinc: bar's expected count includes this arrival.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
 }
 
 }  // namespace nsb

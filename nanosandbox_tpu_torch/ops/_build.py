@@ -69,9 +69,13 @@ def _signatures() -> dict:
         # (q, k, v, k_scale, v_scale, table, start, out, B, H, T, D, N,
         #  page, nb, sm_scale, q dtype, kv dtype, stream)
         "nsb_paged_prefill": [p] * 8 + [i] * 7 + [f, i, i, p],
-        # (q, k, v, k_scale, v_scale, lengths, out, B, H, D, L, sm_scale,
-        #  q dtype, kv dtype, stream)
-        "nsb_flash_decode": [p] * 7 + [i] * 4 + [f, i, i, p],
+        # (q, k, v, k_scale, v_scale, lengths, out, part, tickets, B, H, D,
+        #  L, S, sm_scale, q dtype, kv dtype, stream)
+        "nsb_flash_decode": [p] * 9 + [i] * 5 + [f, i, i, p],
+        # (q dtype, kv dtype, D, out int[6]): threads, dynamic and static
+        #  shared memory bytes, registers a thread, blocks an SM, the
+        #  positions a block walks before a row splits
+        "nsb_flash_decode_shape": [i] * 3 + [p],
         # (q, k, v, o, lse, seed, BH, H, T, D, sm_scale, dtype, dropout on,
         #  threshold, keep scale, hash_seq_len, causal, stream)
         "nsb_flash_fwd": [p] * 6 + [i] * 4 + [f, i, i, u, f, u, i, p],

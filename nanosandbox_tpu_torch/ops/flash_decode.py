@@ -36,6 +36,8 @@ path never does).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from nanosandbox_tpu_torch.ops import _build
@@ -57,11 +59,15 @@ _Q_DTYPES = (torch.float32, torch.bfloat16)
 # kMaxSplitPages).
 SPLIT_BLOCKS_PER_SM = 2
 MAX_SPLIT_PAGES = 256
+# The dense decode's splits hold whole chunks of this many positions
+# (csrc/flash_decode.cu kChunk).
+DENSE_CHUNK = 64
 
 __all__ = ["flash_decode", "flash_decode_paged", "flash_prefill_paged",
            "torch_decode_attention", "torch_decode_attention_paged",
            "torch_prefill_attention_paged", "quantize_kv_rows",
            "quantize_kv_rows_int4", "unpack_int4", "decode_splits",
+           "dense_decode_splits", "dense_decode_launch_shape",
            "launches", "plain_cuda_calls", "reset_counts"]
 
 launches = {f"{fn}/{mode}": 0
@@ -323,6 +329,24 @@ def decode_splits(B: int, H: int, nb: int, page: int,
     return max(1, -(-nb // pps)), pps * page
 
 
+def dense_decode_splits(B: int, H: int, L: int,
+                        sms: int) -> tuple[int, int]:
+    """(S, Ls): the dense decode kernel's grid has S split slots for each
+    (row, head) of a (B, H, L, D) pool, and S splits of Ls positions, Ls a
+    whole number of DENSE_CHUNK-position chunks, cover [0, L) once: K2's
+    rule (decode_splits) over those chunks, so that B*H*S reaches
+    SPLIT_BLOCKS_PER_SM blocks on each of the ``sms`` SMs wherever L
+    allows. The lengths play no part. At run time the kernel gives a row
+    of len positions only as many slots as its length pays for (csrc/
+    flash_decode.cu SplitAt), splitting it into that many runs of whole
+    chunks; a row of L positions that takes every slot walks splits of at
+    most Ls."""
+    if min(B, H, L, sms) < 1:
+        raise ValueError(f"dense_decode_splits({B}, {H}, {L}, {sms}): "
+                         "B, H, L and sms must be >= 1")
+    return decode_splits(B, H, -(-L // DENSE_CHUNK), DENSE_CHUNK, sms)
+
+
 _sm_counts: dict = {}
 _tickets: dict = {}
 
@@ -338,10 +362,10 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _ticket_counters(device: torch.device, n: int) -> torch.Tensor:
-    """The paged decode's (row, head) ticket counters: int32 zeros, one
-    buffer per device, made anew when a call has more rows. The kernel
-    leaves them zero, so calls on one stream share them; calls on two
-    streams at once must not."""
+    """The decode kernels' (row, head) ticket counters, shared by K2 and
+    K3: int32 zeros, one buffer per device, made anew when a call has more
+    rows. The kernels leave them zero, so calls on one stream share them;
+    calls on two streams at once must not."""
     buf = _tickets.get(device)
     if buf is None or buf.numel() < n:
         buf = _tickets[device] = torch.zeros(n, dtype=torch.int32,
@@ -381,12 +405,31 @@ def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def dense_decode_launch_shape(q_dtype: torch.dtype, mode: str,
+                              D: int) -> dict:
+    """The threads a block, shared memory (the ring's dynamic bytes and the
+    static ones), registers a thread, blocks an SM and split length (the
+    positions a block walks before a row splits over more) of the dense
+    decode kernel's (query, pool, head_dim) instance. Needs the card."""
+    out = (ctypes.c_int * 6)()
+    err = _build.library().nsb_flash_decode_shape(
+        _DTYPE_CODE[q_dtype], _DTYPE_CODE[KV_STORAGE[mode]], D,
+        ctypes.addressof(out))
+    _raise_on(err, "flash decode launch shape")
+    return {"threads": out[0], "smem": out[1], "static_smem": out[2],
+            "registers": out[3], "blocks_per_sm": out[4],
+            "split_at": out[5]}
+
+
 def flash_decode(q, k, v, lengths, *, k_scale=None, v_scale=None,
                  sm_scale: float | None = None) -> torch.Tensor:
     """Single-query attention over contiguous slot rows: q (B, H, D)
     attends to positions [0, lengths[b]) of k/v (B, H, L, D') (D' = D or
     D // 2 packed int4). Returns (B, H, D) in q's dtype, zeros for a row
-    with lengths[b] <= 0. CUDA tensors launch flash_decode_kernel."""
+    with lengths[b] <= 0. CUDA tensors launch flash_decode_kernel, one
+    launch over a grid of (head, row, split slot) blocks
+    (dense_decode_splits), with a (B*H, S, D + 2) f32 scratch for the
+    splits' states when S > 1."""
     mode = _kv_mode(q, k, v, k_scale, v_scale)
     if not q.is_cuda:
         return torch_decode_attention(q, k, v, lengths, k_scale=k_scale,
@@ -403,10 +446,15 @@ def flash_decode(q, k, v, lengths, *, k_scale=None, v_scale=None,
                             v_scale=v_scale), lengths, "lengths")
     if sm_scale is None:
         sm_scale = D ** -0.5
+    S, _ = dense_decode_splits(B, H, L, _sm_count(q.device))
     out = torch.empty_like(q)
+    # Each split's (acc[D], m, l), merged by the last split to finish.
+    part = (torch.empty(B * H * S * (D + 2), dtype=torch.float32,
+                        device=q.device) if S > 1 else None)
     err = _build.library().nsb_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
-        _ptr(v_scale), lengths.data_ptr(), out.data_ptr(), B, H, D, L,
+        _ptr(v_scale), lengths.data_ptr(), out.data_ptr(), _ptr(part),
+        _ticket_counters(q.device, B * H).data_ptr(), B, H, D, L, S,
         float(sm_scale), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash decode")

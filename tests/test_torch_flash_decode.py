@@ -4,10 +4,12 @@
   to the JAX functions (ints and scales), all-zero rows and ``valid=``
   masks included.
 * K3's plain version (torch_decode_attention) against the JAX Pallas
-  kernel flash_decode in interpret mode, fp32 within atol = rtol = 1e-5
-  and int8/int4 within 5e-5 (tests/test_flash_decode.py's own limit for
-  the quantized kernels), over frontiers that include 1, L and lengths
-  off the 32-row quantum.
+  kernel flash_decode in interpret mode, fp32 and bf16 pools within
+  atol = rtol = 1e-5 and int8/int4 within 5e-5 (tests/test_flash_decode.py's
+  own limit for the quantized kernels), over frontiers that include 1, L,
+  lengths off the 32-row quantum, and 0, 63, 64, 65, L - 1 and L at an L
+  that is neither a multiple of 64 nor of 4; and the dense decode
+  kernel's split rule (dense_decode_splits), as the paged one's.
 * The quantized paged plain versions against flash_decode_paged /
   flash_prefill_paged in interpret mode (5e-5), with sentinel table
   entries and a nonzero prefill start.
@@ -100,35 +102,55 @@ def test_bf16_rows_quantize_like_jax():
 # ------------------------------------------------------- K3 plain version
 
 def _quantized(mode, k, v):
-    """(k, v, k_scale, v_scale) numpy pools of a mode from fp32 k, v."""
+    """(k, v, k_scale, v_scale) numpy pools of a mode from fp32 k, v (a
+    bf16 pool as its values, rounded, in f32)."""
     if mode == "fp32":
         return k, v, None, None
+    if mode == "bf16":
+        return _bf16(k), _bf16(v), None, None
     q = jfd.quantize_kv_rows if mode == "int8" else jfd.quantize_kv_rows_int4
     (kq, ks), (vq, vs) = q(jnp.asarray(k)), q(jnp.asarray(v))
     return (np.asarray(kq), np.asarray(vq), np.asarray(ks), np.asarray(vs))
 
 
-@pytest.mark.parametrize("mode", ["fp32", "int8", "int4"])
-@pytest.mark.parametrize("B,H,L,D", [(5, 2, 80, 32), (3, 2, 64, 64)])
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8", "int4"])
+@pytest.mark.parametrize("B,H,L,D", [(5, 2, 80, 32), (3, 2, 64, 64),
+                                     (6, 2, 131, 64)])
 def test_decode_plain_matches_jax_kernel(mode, B, H, L, D):
+    """K3's plain version (what chip_smoke's phase 3 holds the kernel to)
+    against JAX's flash_decode in interpret mode, under an fp32 query in
+    every kv mode (a bf16 pool's values exact in f32, as JAX's dot dtype
+    promotes them): at frontiers of 1 and L, off the 32-row quantum, and
+    at L 131 (neither a multiple of 64 nor of 4) on and around the kernel's
+    64-position chunk and split edges, 63, 64, 65, L - 1, L and 0. JAX's
+    kernel divides by zero on a row without keys, so the 0 row is held to
+    zeros instead."""
     rng = np.random.default_rng(L + D)
-    lengths = np.asarray(([1, L, 37, 33, 5])[:B], np.int32)
+    lengths = np.asarray(([1, L, 37, 33, 5] if L < 131 else
+                          [63, 64, 65, L - 1, L, 0])[:B], np.int32)
     k, v = (rng.normal(size=(B, H, L, D)).astype(np.float32)
             for _ in range(2))
     q = rng.normal(size=(B, H, D)).astype(np.float32)
     k, v, ks, vs = _quantized(mode, k, v)
     scales = {} if ks is None else dict(k_scale=jnp.asarray(ks),
                                         v_scale=jnp.asarray(vs))
-    ref = jfd.flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                           jnp.asarray(lengths), interpret=True, **scales)
+    jk, jv = (jnp.asarray(x, jnp.bfloat16 if mode == "bf16" else None)
+              for x in (k, v))
+    ref = np.asarray(jfd.flash_decode(jnp.asarray(q), jk, jv,
+                                      jnp.asarray(lengths), interpret=True,
+                                      **scales))
     tsc = {} if ks is None else dict(zip(("k_scale", "v_scale"),
                                          _t(ks, vs)))
     tq, tk, tv, tl = _t(q, k, v, lengths)
+    if mode == "bf16":
+        tk, tv = tk.bfloat16(), tv.bfloat16()
     tfd.reset_counts()
     out = tfd.flash_decode(tq, tk, tv, tl, **tsc)
-    tol = 1e-5 if mode == "fp32" else QTOL
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=tol,
+    tol = 1e-5 if mode in ("fp32", "bf16") else QTOL
+    keys = lengths > 0
+    np.testing.assert_allclose(out.numpy()[keys], ref[keys], atol=tol,
                                rtol=tol)
+    assert not out[torch.from_numpy(~keys)].any()
     assert not any(tfd.launches.values())
     assert torch.equal(out, tfd.torch_decode_attention(tq, tk, tv, tl,
                                                        **tsc))
@@ -380,6 +402,41 @@ def test_paged_decode_split_rule():
     assert tfd.decode_splits(8, 12, 64, 16, 132) == (3, 352)
     with pytest.raises(ValueError, match="page"):
         tfd.decode_splits(1, 1, 4, 1 << 16, 132)
+
+
+def test_dense_decode_split_rule():
+    """The dense decode kernel's host-side split rule: its grid's S slots
+    of Ls positions, Ls a whole number of 64-position chunks, cover every
+    position of a row [0, L) exactly once, L a multiple of 64 or not;
+    B*H*S reaches SPLIT_BLOCKS_PER_SM blocks an SM wherever the row has
+    chunks enough; and the rule takes no lengths (the kernel fits each
+    row's splits to its length at run time)."""
+    import inspect
+
+    assert list(inspect.signature(tfd.dense_decode_splits).parameters) == [
+        "B", "H", "L", "sms"]
+    C = tfd.DENSE_CHUNK
+    for B in (1, 2, 3, 8, 16):
+        for H in (1, 4, 12, 25):
+            for L in (1, 63, 64, 65, 131, 512, 1000, 1001, 1024, 4200,
+                      20000):
+                for sms in (1, 7, 132):
+                    S, Ls = tfd.dense_decode_splits(B, H, L, sms)
+                    assert S >= 1 and Ls >= C and Ls % C == 0
+                    assert S * Ls >= L and (S - 1) * Ls < L
+                    if B * H * -(-L // C) >= tfd.SPLIT_BLOCKS_PER_SM * sms:
+                        assert B * H * S >= tfd.SPLIT_BLOCKS_PER_SM * sms
+                    if L <= 5000:
+                        seen = [p for s in range(S)
+                                for p in range(s * Ls, min((s + 1) * Ls, L))]
+                        assert seen == list(range(L))
+    # K3's timed shapes on 132 SMs (H 12): phase 3's (B 8, L 1024), the
+    # dense server's steady state (8 x 512) and the sampler's (1 x 1024).
+    assert tfd.dense_decode_splits(8, 12, 1024, 132) == (3, 384)
+    assert tfd.dense_decode_splits(8, 12, 512, 132) == (3, 192)
+    assert tfd.dense_decode_splits(1, 12, 1024, 132) == (16, 64)
+    with pytest.raises(ValueError, match="L"):
+        tfd.dense_decode_splits(1, 1, 0, 132)
 
 
 # ------------------------------------------------------ caches and model

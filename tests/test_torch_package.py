@@ -306,7 +306,13 @@ def test_chip_smoke_build_report_parsers():
         "_ZN3nsb12_GLOBAL__N_119paged_decode_kernelI13__nv_bfloat16aLi128EEE"
         "vPKT_": "paged_decode_kernel<q=bf16, kv=int8, D=128>",
         "_ZN3nsb12_GLOBAL__N_119paged_decode_kernelIffLi64EEEvPKT_":
-        "paged_decode_kernel<q=fp32, kv=fp32, D=64>"}
+        "paged_decode_kernel<q=fp32, kv=fp32, D=64>",
+        "_ZN3nsb12_GLOBAL__N_119flash_decode_kernelI13__nv_bfloat16S2_Li64EE"
+        "EvPKT_": "flash_decode_kernel<q=bf16, kv=bf16, D=64>",
+        "_ZN3nsb12_GLOBAL__N_119flash_decode_kernelIfNS_4Int4ELi32EEEvPKT_":
+        "flash_decode_kernel<q=fp32, kv=int4, D=32>",
+        "_ZN3nsb12_GLOBAL__N_119flash_decode_kernelIfaLi128EEEvPKT_":
+        "flash_decode_kernel<q=fp32, kv=int8, D=128>"}
     for mangled, label in labels.items():
         assert chip_smoke.kernel_label(mangled) == label
         assert label in chip_smoke.CUDA_CORE_INSTANCES
@@ -317,7 +323,14 @@ def test_chip_smoke_build_report_parsers():
     # flash_bwd_dq_f32_kernel<D, false>): 93 became 111. The causal flag
     # left the 9 remaining instances of those two kernels. No instance of
     # a flash kernel of csrc/flash_attention.cu is non-causal any more.
-    assert len(chip_smoke.CUDA_CORE_INSTANCES) == 111
+    # K3 (flash_decode_kernel, 24: 2 queries x 4 pools x 3 head_dims)
+    # joined when its redesign gave it a ring to hold without spilling:
+    # 111 became 135.
+    assert len(chip_smoke.CUDA_CORE_INSTANCES) == 135
+    assert {f"flash_decode_kernel<q={qd}, kv={kv}, D={d}>"
+            for d in chip_smoke.HEAD_DIMS for qd in ("fp32", "bf16")
+            for kv in ("fp32", "bf16", "int8", "int4")} <= set(
+                chip_smoke.CUDA_CORE_INSTANCES)
     assert not [i for i in chip_smoke.CUDA_CORE_INSTANCES if "causal" in i]
     assert {f"flash_bwd_ring_f32_kernel<D={d}, BK={bk}, dq={q}, drop={w}>"
             for d in chip_smoke.HEAD_DIMS for bk in (32, 64) for q in (0, 1)
