@@ -1,10 +1,10 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases=2,3,7,13]
+    python3 chip_smoke.py [--phases=2,3,7,9,13]
 
 Phases (each prints what it found; any failure exits non-zero; --phases
-runs phase 1 and the phases named, 2, 3, 7 or 13, and prints no result
-line):
+runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it) or 13,
+and prints no result line):
 
   1. device   torch / CUDA versions, the card's name and power limit;
   2. build    the CUDA kernels from nanosandbox_tpu_torch/csrc (into
@@ -100,16 +100,31 @@ line):
               the kernels, through the fused backward and through the
               split one, against the same model with the plain attention
               on the card;
-  9. trainer  `python -m nanosandbox_tpu_torch.train`'s main() with
+  9. trainer  english_prose_bpe prepared from the committed XL corpus
+              by the port's data.prepare (its seconds; train.bin and
+              val.bin must hash to BPE_SHA256, the JAX package's bins),
+              then `python -m nanosandbox_tpu_torch.train`'s main() with
               configs/train_gpt2_124m_englishprose_bpe.py at full width
-              (bf16, batch 16) on the byte-tokenized committed corpus:
-              30 steps with the fused backward (the loss must fall by 2
-              nats by iter 25, ckpt/30 must exist), then a resume to 35
-              with the split backward; launch counts of both runs (the
-              training path, counts reset just before it); the step's
-              time, tok/s and MFU; a torch.profiler split of one step;
-              then, as a control, the first run's 30 steps with the
-              plain attention (loss trajectory printed, not checked);
+              (bf16, batch 16; cut to 30 iters, warmup 5, eval every 15
+              on 4 batches, a log every 5): 30 steps with the fused
+              backward, --profile_steps=20:22 and --memory_report=True
+              (the loss must fall by 2 nats by iter 25, ckpt/30, the
+              memory report's keys and the Chrome trace must exist, the
+              trace must name the flash kernels; the report printed
+              beside the run's measured peak), then a resume to 35 with
+              the split backward; then the remat legs (REMAT_LEGS, on
+              the same batches): 5 steps with --remat=True under
+              'save_attention' and 2 under 'full', each with iter 0's
+              loss the first run's bits, its grad norm within
+              SP_BF16_NORM_REL of it and its peak memory below the first
+              run's; launch counts of every run (the training path,
+              counts reset just before it; the remat legs exactly: the
+              forward n_layer a step under 'save_attention', 2 n_layer
+              under 'full'); the step's time, tok/s and MFU (median of
+              the logged windows outside iter 0 and the profiled iters);
+              a torch.profiler split of one step; then, as a control,
+              the first run's 30 steps with the plain attention (loss
+              trajectory printed, not checked);
  10. pools    phase 4's model and prompts through a dense-pool fp32
               engine (tokens equal to phase 4's paged engine and to the
               recompute; K3 and the K4 prefill launched), then fp32
@@ -123,23 +138,32 @@ line):
               plain version on the card); decode tok/s, TTFT p50 and
               TPOT p50 per mode beside phase 5's;
  12. sampler  `python -m nanosandbox_tpu_torch.sample`'s main() on phase
-              9's checkpoint (K4 prefill, K3 decode steps launched), then
-              fp32 greedy generate() over 32 tokens on the same weights
-              equal to a no-cache argmax loop;
- 13. sequence parallel  four ranks of `python -m nanosandbox_tpu_torch.
-              train configs/train_longcontext_8k.py` (mesh_sp 4, ring
-              attention) on one card, gloo with host-staged exchanges,
-              against one process at mesh_sp 1 on the same batches: bf16
-              at full width (step 0 with the split backward, then a
-              resume with the fused one), fp32 at 2 layers in both
-              layouts; every step's loss and grad norm, and the q/k/v
-              rows of the attention projections' gradients at steps 0-1,
-              within the stated limits, every rank's launch counts equal
-              to the ring schedule, no plain version on the card; step
-              time, tok/s, peak memory and exchange costs; rank 0 traces
-              one bf16 step of the fused leg (torch.profiler): its wall
-              and the device ms of the non-causal ring blocks, of the
-              other flash kernels and of everything else.
+              9's checkpoint (K4 prefill, K3 decode steps launched; the
+              prompt and samples through the dataset's BPE tokenizer),
+              then fp32 greedy generate() over 32 tokens from a 48-token
+              BPE prompt on the same weights equal to a no-cache argmax
+              loop;
+ 13. sequence parallel  openwebtext made by the port's data.prepare
+              from the committed corpus (--tokenizer=bpe; the download is
+              not ported), then four ranks of `python -m
+              nanosandbox_tpu_torch.train configs/train_longcontext_8k.py`
+              (mesh_sp 4, ring attention, the config's remat under
+              save_attention) on one card, gloo with host-staged
+              exchanges, against one process at mesh_sp 1 without
+              remat on the same batches: bf16 at full width (step 0 with the split
+              backward, then a resume with the fused one), fp32 at 2
+              layers in both layouts, and
+              configs/train_longcontext_8k_dropout.py (dropout 0.1) in
+              fp32 at 2 layers, zigzag; every step's loss and grad norm,
+              and the q/k/v rows of the attention projections' gradients
+              at steps 0-1, within the stated limits, every rank's launch
+              counts equal to the ring schedule, no plain version on the
+              card; step time, tok/s, peak memory a rank and exchange
+              costs (the K/V rotations, the share remat's recompute ran
+              again, the all-reduce); rank 0 traces one bf16 step of the
+              fused leg (torch.profiler): its wall and the device ms of
+              the non-causal ring blocks, of the other flash kernels and
+              of everything else.
 
 The last line is {"ok": true, "device": {...}}; the line before it is a
 JSON object with one entry per kernel instance timed (K1 twice for each
@@ -178,6 +202,20 @@ MODEL: dict = {}
 TRAIN: list = []
 TRAIN_CONFIG = "configs/train_gpt2_124m_englishprose_bpe.py"
 CORPUS = "data/fixtures/english_prose.txt"
+# Phase 9's dataset: english_prose_bpe prepared from this corpus by the
+# port's data.prepare, whose train.bin and val.bin must have these
+# sha256s. They are what the JAX package's prepare_english_prose_bpe_
+# dataset (HF tokenizers) writes from it, computed on the CPU;
+# tests/test_torch_data.py recomputes them. A CPU rehearsal points both
+# at a slice of the corpus.
+BPE_CORPUS = "data/fixtures/english_prose_xl.txt"
+BPE_SHA256 = {
+    "train.bin":
+        "7846504d0359b61a8a3deffc787582c7cb78aee4fb350e552864036b2923e3d8",
+    "val.bin":
+        "cabcae4c111726dfe60b6c75eaa6792bba2836752484aecb91275fef32c93878"}
+# Phase 9's profiler window (the first run's --profile_steps).
+PROFILE_STEPS = (20, 22)
 
 
 def prompt_vocab(cfg) -> int:
@@ -1574,20 +1612,31 @@ def check_train_parity(at) -> dict:
 # phase 9: the trainer
 # ---------------------------------------------------------------------------
 
-def prepare_bytes(root: str, dataset: str) -> None:
-    """The committed corpus as UTF-8 bytes: train.bin / val.bin (90/10,
-    uint16) and meta.pkl, the layout data.prepare writes."""
+def prepare_bpe(root: str) -> float:
+    """<root>/english_prose_bpe from BPE_CORPUS by the port's own
+    data.prepare (english_prose_bpe with --source_file); its bins must
+    hash to BPE_SHA256. Returns the seconds it took."""
+    import hashlib
     import os
-    import pickle
 
-    with open(CORPUS, "rb") as f:
-        data = np.frombuffer(f.read(), dtype=np.uint8).astype(np.uint16)
-    os.makedirs(os.path.join(root, dataset))
-    n = int(0.9 * len(data))
-    data[:n].tofile(os.path.join(root, dataset, "train.bin"))
-    data[n:].tofile(os.path.join(root, dataset, "val.bin"))
-    with open(os.path.join(root, dataset, "meta.pkl"), "wb") as f:
-        pickle.dump({"vocab_size": 256, "kind": "byte"}, f)
+    from nanosandbox_tpu_torch.data.prepare import \
+        prepare_english_prose_bpe_dataset
+
+    out = os.path.join(root, "english_prose_bpe")
+    t0 = time.monotonic()
+    stats = prepare_english_prose_bpe_dataset(out, source_file=BPE_CORPUS)
+    secs = time.monotonic() - t0
+    got = {}
+    for name in BPE_SHA256:
+        with open(os.path.join(out, name), "rb") as f:
+            got[name] = hashlib.sha256(f.read()).hexdigest()
+    print(f"  prepared english_prose_bpe from {BPE_CORPUS} with the port's "
+          f"data.prepare: {stats} in {secs:.1f} s; sha256 "
+          + ", ".join(f"{k} {v[:16]}" for k, v in got.items()))
+    if got != BPE_SHA256:
+        fail(f"the port's english_prose_bpe bins {got} are not the JAX "
+             f"package's {BPE_SHA256}")
+    return secs
 
 
 def kernel_kind(name: str) -> str:
@@ -1636,27 +1685,54 @@ def profile_step(trainer, x, y) -> dict:
             "idle_share": 1 - dev_ms / wall_ms if by_kind else None}
 
 
+def peak_gb() -> float | None:
+    """torch.cuda's peak allocation since the last reset, in GiB, and a
+    new reset; None on the CPU."""
+    if DEVICE == "cpu":
+        return None
+    sync()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    return peak
+
+
+def logged_windows(run: dict, skip: tuple) -> list:
+    """The run's logged records after iter 0 (whose window holds the
+    first-call setup) whose windows miss the iters [a, b) of ``skip``:
+    a record at iter i times the iters since the last log or eval, at
+    most log_interval of them."""
+    log = run["log"]
+    every = log[1]["iter"] - log[0]["iter"] if len(log) > 1 else 1
+    a, b = skip
+    return [r for r in log if r["iter"] > 0
+            and not a <= r["iter"] < b + every]
+
+
 def check_trainer(at, fd, smi: str, tmp: str) -> dict:
-    """Phase 9 in ``tmp``: the corpus, the runs' out_dirs (phase 12 samples
-    from <tmp>/out) and the control run."""
+    """Phase 9 in ``tmp``: the dataset, the runs' out_dirs (phase 12
+    samples from <tmp>/out) and the control run."""
     import os
 
     from nanosandbox_tpu_torch import train
     from nanosandbox_tpu_torch.config import load_config
 
-    prepare_bytes(tmp, "english_prose_bpe")
+    prepare_s = prepare_bpe(tmp)
     out_dir = os.path.join(tmp, "out")
     flags = [TRAIN_CONFIG, f"--data_dir={tmp}", f"--out_dir={out_dir}",
              "--max_iters=30", "--lr_decay_iters=30", "--warmup_iters=5",
              "--eval_interval=15", "--eval_iters=4", "--log_interval=5",
-             "--profile_steps=", f"--device={DEVICE}", *TRAIN]
+             f"--device={DEVICE}", *TRAIN]
+    a, b = PROFILE_STEPS
     # The training path is the main path: counts start here. The
     # first run takes the fused backward (K5), the resume the split
     # one (K6 + K7).
     at.reset_counts()
     fd.reset_counts()
+    peak_gb()
     t0 = time.monotonic()
-    first = train.main(flags)
+    first = train.main(flags + [f"--profile_steps={a}:{b}",
+                                "--memory_report=True"])
+    first_peak = peak_gb()
     at.BWD_IMPL = "split"
     try:
         # Every resumed step is logged: the split backward's step time.
@@ -1687,6 +1763,22 @@ def check_trainer(at, fd, smi: str, tmp: str) -> dict:
         fail(f"no checkpoint at 30: {ckpts}")
     if resumed["iter_num"] != 35 or resumed["log"][0]["iter"] != 30:
         fail(f"the resume did not continue at 30: {resumed['log']}")
+    mem = first["memory_report"]
+    print("  memory report before iter 0: "
+          + ", ".join(f"{k} {v / 2**30:.3f} GiB" for k, v in mem.items())
+          + ("" if first_peak is None else
+             f"; the first run's measured peak {first_peak:.3f} GiB"))
+    if set(mem) != ({"params_bytes", "state_bytes"} if DEVICE == "cpu"
+                    else {"params_bytes", "state_bytes", "temp_bytes",
+                          "total_bytes"}):
+        fail(f"the memory report's keys are {sorted(mem)}")
+    trace = os.path.join(out_dir, "runs", "profile",
+                         f"iters_{a}_{b}.trace.json")
+    if not os.path.exists(trace):
+        fail(f"--profile_steps={a}:{b} wrote no trace at {trace}")
+    remat = check_remat_legs(at, flags, first, first_peak, tmp)
+
+    # The launch checks come after every other check of the phase.
     steps = 35
     need = {"flash_attention_fwd": cfg.n_layer * steps,
             "flash_attention_bwd_fused": cfg.n_layer * 30,
@@ -1700,17 +1792,31 @@ def check_trainer(at, fd, smi: str, tmp: str) -> dict:
     if any(plain.values()):
         fail(f"plain versions ran on the card in the training path: "
              f"{plain}")
-    # Steady-state windows: iter 0 includes the first-call setup.
-    rest = [r for r in first["log"] if r["iter"] > 0]
+    for name, (got, want) in remat["launches"].items():
+        if got != want:
+            fail(f"the remat leg '{name}' bypassed a kernel or ran it "
+                 f"again: launches {got}, needs {want}")
+    with open(trace) as f:
+        text = f.read()
+    named = {k: k in text for k in ("flash_fwd", "flash_bwd")}
+    print(f"  profiler trace {trace}: {os.path.getsize(trace) / 2**20:.1f} "
+          f"MiB, names the flash kernels {named}")
+    if not all(named.values()):
+        fail(f"the profiler trace of iters [{a}:{b}) names no flash "
+             f"kernel: {named}")
+    # Steady-state windows: not iter 0's (the first-call setup) and not
+    # the profiled ones.
+    rest = logged_windows(first, PROFILE_STEPS)
     ms = float(np.median([r["ms"] for r in rest]))
     toks = float(np.median([r["tok_s"] for r in rest]))
     mfu = float(np.median([r["mfu"] for r in rest]))
     # The resume's first step carries its process's first-call setup.
     split_ms = float(np.median([r["ms"] for r in resumed["log"][1:]]))
-    print(f"  [{smi}] step {ms:.2f} ms (median of the logged windows "
-          f"after iter 0), {toks:,.0f} tok/s, MFU {100 * mfu:.2f}%; the "
-          f"resume's step with the split backward (K6 + K7) {split_ms:.2f} "
-          "ms (median after its first)")
+    print(f"  [{smi}] step {ms:.2f} ms (median of the logged windows at "
+          f"iters {[r['iter'] for r in rest]}), {toks:,.0f} tok/s, MFU "
+          f"{100 * mfu:.2f}%; the resume's step with the split backward "
+          f"(K6 + K7) {split_ms:.2f} ms (median after its first); "
+          f"english_prose_bpe prepared in {prepare_s:.1f} s")
     trainer = train.Trainer(cfg)
     xb, yb = trainer.dataset.sample_batch("train", 0, cfg.batch_size,
                                           cfg.block_size)
@@ -1733,7 +1839,72 @@ def check_trainer(at, fd, smi: str, tmp: str) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "plain_cuda_calls": plain, "step_ms": ms,
             "split_step_ms": split_ms, "tok_s": toks, "mfu": mfu,
-            "profile": prof}
+            "profile": prof, "remat": remat, "prepare_s": prepare_s}
+
+
+# Remat legs of phase 9: (name, extra flags, steps, forward launches a
+# layer and step). The first run's config with activation checkpointing,
+# on its batches: 'save_attention' recomputes no attention forward,
+# 'full' runs it again in the backward.
+REMAT_LEGS = (("save_attention", ["--remat_policy=save_attention"], 5, 1),
+              ("full", ["--remat_policy=full"], 2, 2))
+
+
+def check_remat_legs(at, flags: list, first: dict, first_peak, tmp: str
+                     ) -> dict:
+    """The first run's config with --remat=True: iter 0's loss must be
+    the first run's bits (the same forward), its grad norm within
+    SP_BF16_NORM_REL of it (K5's dQ atomics rule out bits), and its peak
+    memory below the first run's; the launch counts are returned for the
+    caller to check after its other checks: the forward n_layer times a
+    step under 'save_attention' and twice that under 'full', plus one a
+    layer for each of the closing evaluation's 2 batches."""
+    import os
+
+    from nanosandbox_tpu_torch import train
+    from nanosandbox_tpu_torch.config import load_config
+
+    out = {"launches": {}, "peak_gb": {}, "step_ms": {}}
+    for name, extra, steps, per_step in REMAT_LEGS:
+        leg = [f for f in flags if not f.startswith((
+            "--out_dir=", "--max_iters=", "--eval_interval=",
+            "--eval_iters=", "--log_interval="))] + [
+            f"--out_dir={os.path.join(tmp, 'remat_' + name)}",
+            f"--max_iters={steps}", "--eval_interval=0", "--eval_iters=1",
+            "--log_interval=1", "--remat=True", *extra]
+        layers = load_config(leg).n_layer
+        at.reset_counts()
+        peak_gb()
+        run = train.main(leg)
+        peak = peak_gb()
+        got, ref = run["log"][0], first["log"][0]
+        rel = abs(got["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+        ms = float(np.median([r["ms"] for r in run["log"][1:]]))
+        print(f"  remat '{name}', {steps} steps: iter 0 loss "
+              f"{got['loss']!r} (the first run's {ref['loss']!r}), grad "
+              f"norm {got['grad_norm']:.6g} ({rel:.1e} from the first "
+              f"run's {ref['grad_norm']:.6g}); losses "
+              f"{[round(r['loss'], 4) for r in run['log']]}; step "
+              f"{ms:.2f} ms (median after iter 0); peak "
+              + ("not measured on the CPU" if peak is None else
+                 f"{peak:.3f} GiB against the first run's "
+                 f"{first_peak:.3f} GiB"))
+        if got["loss"] != ref["loss"]:
+            fail(f"remat '{name}': iter 0's loss {got['loss']!r} is not the "
+                 f"first run's {ref['loss']!r}")
+        if not rel <= SP_BF16_NORM_REL:
+            fail(f"remat '{name}': iter 0's grad norm is {rel:.2e} from "
+                 f"the first run's (limit {SP_BF16_NORM_REL:.0e})")
+        if peak is not None and not peak < first_peak:
+            fail(f"remat '{name}': peak memory {peak:.3f} GiB is not "
+                 f"below the first run's {first_peak:.3f} GiB")
+        fwd = at.launches["flash_attention_fwd"]
+        bwd = at.launches["flash_attention_bwd_fused"]
+        out["launches"][name] = ((fwd, bwd), (layers * (per_step * steps + 2),
+                                              layers * steps))
+        out["peak_gb"][name] = peak
+        out["step_ms"][name] = ms
+    return out
 
 
 def control_losses(train, flags, tmp) -> dict:
@@ -1842,6 +2013,7 @@ def check_sampler(train_dir: str) -> dict:
     from nanosandbox_tpu_torch import sample
     from nanosandbox_tpu_torch.checkpoint import TrainCheckpointer
     from nanosandbox_tpu_torch.config import GPTConfig, TrainConfig
+    from nanosandbox_tpu_torch.data.tokenizer import tokenizer_for_dataset
     from nanosandbox_tpu_torch.models.gpt import GPT
     from nanosandbox_tpu_torch.ops import attention as at
     from nanosandbox_tpu_torch.ops import flash_decode as fd
@@ -1866,15 +2038,19 @@ def check_sampler(train_dir: str) -> dict:
     if len(texts) != 2 or not all(t.startswith("The ") for t in texts):
         fail(f"the sample CLI printed {texts!r}")
     blob = TrainCheckpointer(out_dir).restore()
-    cfg = GPTConfig.from_train_config(TrainConfig(**blob["config"]),
+    tcfg = TrainConfig(**blob["config"])
+    cfg = GPTConfig.from_train_config(tcfg,
                                       blob["model"]["wte.weight"].shape[0])
     cli_mode = "bf16" if cfg.compute_dtype == "bfloat16" else "fp32"
     cfg.compute_dtype = "float32"
     model = GPT(cfg, device=DEVICE)
     model.load_state_dict(blob["model"])
     model.eval()
-    with open(CORPUS, "rb") as f:
-        prompt = list(f.read(48))
+    # The prompt: the corpus's first 48 tokens, through the dataset's
+    # tokenizer (the committed BPE for phase 9's checkpoint).
+    tok = tokenizer_for_dataset(tcfg.data_dir, tcfg.dataset)
+    with open(CORPUS, encoding="utf-8") as f:
+        prompt = tok.encode(f.read(1000))[:48]
     idx = torch.tensor([prompt], device=DEVICE)
     fd.reset_counts()
     at.reset_counts()
@@ -1882,8 +2058,8 @@ def check_sampler(train_dir: str) -> dict:
     k3, k4 = fd.launches["flash_decode/fp32"], at.launches[
         "flash_attention_fwd"]
     want = recompute(model, [prompt])[0]
-    print(f"  fp32 greedy generate, 48-byte prompt, 32 tokens: "
-          f"{bytes(got).decode('utf-8', 'replace')!r}; no-cache argmax "
+    print(f"  fp32 greedy generate, 48-token prompt, 32 tokens: "
+          f"{tok.decode(got)!r}; no-cache argmax "
           f"loop {'equal' if got == want else 'DIFFERENT'}; launches "
           f"flash_decode/fp32 {k3}, flash_attention_fwd {k4}")
     if got != want:
@@ -1904,12 +2080,17 @@ def check_sampler(train_dir: str) -> dict:
 # ---------------------------------------------------------------------------
 
 SP_CONFIG = "configs/train_longcontext_8k.py"
+SP_DROPOUT_CONFIG = "configs/train_longcontext_8k_dropout.py"
 SP_RANKS = 4
-# The cuts of the 8k config on one card (PERF.md section 4): the byte
-# corpus (prepare_bytes), remat off (not ported), batch 1, no
-# accumulation, a few steps with warmup 1 (so the parameters move), eval
-# of one batch a split at the end only.
-SP_CUTS = ["--remat=False", "--batch_size=1",
+# The cuts of the 8k configs on one card (PERF.md section 4): batch 1,
+# no accumulation, a few steps with warmup 1 (so the parameters move),
+# eval of one batch a split at the end only. Their dataset, openwebtext,
+# needs a download: the port's data.prepare makes it from CORPUS
+# (--source_file) with the committed BPE vocabulary. The ranks keep each
+# config's own remat (save_attention); the one-process reference runs
+# without remat (--remat=False), so that remat, its dropout replay
+# included, is held against the plain block loop.
+SP_CUTS = ["--batch_size=1",
            "--gradient_accumulation_steps=1", "--warmup_iters=1",
            "--eval_interval=0", "--eval_iters=1", "--log_interval=1",
            "--tensorboard=False", "--run_name=r"]
@@ -2119,54 +2300,66 @@ def expected_launches(layout, cp, rank, layers, steps, evals, bwd) -> dict:
 
 def check_sp_trainer(smi: str, tmp: str) -> dict:
     """Phase 13: SP_RANKS ranks train SP_CONFIG (mesh_sp = SP_RANKS, ring
-    attention) on the byte corpus, on one card (gloo, host-staged
+    attention, remat with its save_attention policy) on openwebtext made
+    from CORPUS with the committed BPE, on one card (gloo, host-staged
     exchanges): bf16 at full width, step 0 with the split backward (K6 +
     K7) and a resume to 4 with the fused one (K5); fp32 at 2 layers, 2
-    steps, zigzag (fused) and contiguous (split). Each against the same
-    config run by one process at mesh_sp 1 (the causal kernels over the
-    whole 8192-token row) on the same batches: every step's loss and grad
-    norm, and at steps 0 and 1 (SP_QKV_STEPS) the q, k and v rows of
-    each layer's attention-projection gradient (RANK_MAIN), where a wrong
-    dq or dk shows; bf16 within SP_BF16_LOSS_REL, SP_BF16_NORM_REL and
-    SP_BF16_QKV_REL; fp32 within 1e-5, 1e-4 and 1e-4 relative. Every rank's launch counts must equal the ring schedule
-    (expected_launches), and no plain version may run on the card."""
+    steps, zigzag (fused) and contiguous (split); and SP_DROPOUT_CONFIG
+    (dropout 0.1) in fp32 at 2 layers, 2 steps, zigzag (fused). Each
+    against the same config run by one process at mesh_sp 1 without
+    remat (the causal kernels over the whole 8192-token row, the plain
+    block loop) on the same batches: every
+    step's loss and grad norm, and at steps 0 and 1 (SP_QKV_STEPS) the q,
+    k and v rows of each layer's attention-projection gradient
+    (RANK_MAIN), where a wrong dq or dk shows; bf16 within
+    SP_BF16_LOSS_REL, SP_BF16_NORM_REL and SP_BF16_QKV_REL; fp32 within
+    1e-5, 1e-4 and 1e-4 relative. Every rank's launch counts must equal
+    the ring schedule (expected_launches: save_attention launches no
+    forward again), and no plain version may run on the card."""
     import os
 
     from nanosandbox_tpu_torch.config import load_config
+    from nanosandbox_tpu_torch.data.prepare import prepare_bpe_dataset
 
-    prepare_bytes(tmp, "english_prose_bytes")
-    base = [SP_CONFIG, f"--data_dir={tmp}", "--dataset=english_prose_bytes",
-            f"--device={DEVICE}", *SP_CUTS]
+    t0 = time.monotonic()
+    stats = prepare_bpe_dataset(os.path.join(tmp, "openwebtext"),
+                                source_files=[CORPUS], tokenizer="bpe")
+    print(f"  prepared openwebtext from {CORPUS} (--tokenizer=bpe): "
+          f"{stats} in {time.monotonic() - t0:.1f} s")
+    base = [f"--data_dir={tmp}", f"--device={DEVICE}", *SP_CUTS]
     results = {}
 
-    def run(name, n, bwd, flags, profile_step=None):
+    def run(name, n, bwd, config, flags, profile_step=None):
         out_dir = os.path.join(tmp, name)
         t0 = time.monotonic()
-        reports = run_ranks(n, bwd, base + [f"--out_dir={out_dir}", *flags],
+        reports = run_ranks(n, bwd, [config, *base,
+                                     f"--out_dir={out_dir}", *flags],
                             os.path.join(tmp, name),
                             profile_step=profile_step)
         return reports, out_dir, time.monotonic() - t0
 
+    fp32 = ["--compute_dtype=float32", "--n_layer=2"]
     cases = (
-        ("bf16", [], "zigzag", (("split", 1), ("fused", 4))),
-        ("fp32 zigzag", ["--compute_dtype=float32", "--n_layer=2"],
-         "zigzag", (("fused", 2),)),
-        ("fp32 contiguous", ["--compute_dtype=float32", "--n_layer=2",
-                             "--ring_layout=contiguous"],
-         "contiguous", (("split", 2),)))
-    for name, extra, layout, legs in cases:
+        ("bf16", SP_CONFIG, [], "zigzag", (("split", 1), ("fused", 4))),
+        ("fp32 zigzag", SP_CONFIG, fp32, "zigzag", (("fused", 2),)),
+        ("fp32 contiguous", SP_CONFIG, fp32 + ["--ring_layout=contiguous"],
+         "contiguous", (("split", 2),)),
+        ("fp32 dropout", SP_DROPOUT_CONFIG, fp32, "zigzag",
+         (("fused", 2),)))
+    for name, config, extra, layout, legs in cases:
         tag = name.replace(" ", "_")
-        c = load_config(base + extra)
+        c = load_config([config, *base, *extra])
         single, single_dir, single_s = run(
-            f"{tag}_single", 1, "fused",
-            extra + ["--mesh_sp=1", f"--max_iters={legs[-1][1]}",
+            f"{tag}_single", 1, "fused", config,
+            extra + ["--mesh_sp=1", "--remat=False",
+                     f"--max_iters={legs[-1][1]}",
                      f"--lr_decay_iters={legs[-1][1]}"])
         sp_reports, prev, sp_s, sp_qkv = [], 0, 0.0, []
         for i, (bwd, upto) in enumerate(legs):
             # bf16, fused: rank 0 traces its second step of the leg.
             traced = name == "bf16" and bwd == "fused"
             reports, sp_dir, secs = run(
-                f"{tag}_sp", SP_RANKS, bwd,
+                f"{tag}_sp", SP_RANKS, bwd, config,
                 extra + [f"--max_iters={upto}",
                          f"--lr_decay_iters={legs[-1][1]}"]
                 + (["--init_from=resume"] if i else []),
@@ -2208,7 +2401,8 @@ def check_sp_trainer(smi: str, tmp: str) -> dict:
         worst_qkv = float(rel_qkv[:SP_QKV_STEPS].max())
         print(f"  {name} ({c.n_layer}L/{c.n_head}H/{c.n_embd}d, block "
               f"{c.block_size}, vocab {c.vocab_size}, batch {c.batch_size}, "
-              f"{c.compute_dtype}, {layout}): losses SP "
+              f"{c.compute_dtype}, {layout}, dropout {c.dropout}, remat "
+              f"{c.remat_policy if c.remat else False}): losses SP "
               f"{[round(got[i][0], 6) for i in sorted(got)]} vs one process "
               f"{[round(ref[i][0], 6) for i in sorted(ref)]}; rel by step: "
               f"losses {[f'{x:.1e}' for x in rel_loss]}, grad norms "
@@ -2230,15 +2424,20 @@ def check_sp_trainer(smi: str, tmp: str) -> dict:
             for rep_ in reports:
                 x = rep_["exchanged"]
                 # A training step rotates K/V forward and their gradients
-                # back; each of the 2 eval batches rotates forward only.
+                # back, and remat's recompute rotates K/V forward again
+                # (counted apart); each of the 2 eval batches rotates
+                # forward only.
                 step = 2 / (2 * n_steps + 2)
+                ring_b = x["ring_bytes"] - x["recompute_bytes"]
+                ring_s = x["ring_seconds"] - x["recompute_seconds"]
                 print(f"    {rep_['backend_line'].strip()}; {bwd} backward, "
                       f"{n_steps} steps: launches "
                       f"{ {k: v for k, v in rep_['launches'].items() if v} }"
                       f"; peak {rep_['peak_memory_gb']:.2f} GiB; a training "
-                      f"step exchanges: ring "
-                      f"{step * x['ring_bytes'] / 2**20:.1f} MiB in "
-                      f"{step * x['ring_seconds']:.3f} s, all-reduce "
+                      f"step exchanges: ring {step * ring_b / 2**20:.1f} "
+                      f"MiB in {step * ring_s:.3f} s, remat's recompute "
+                      f"{x['recompute_bytes'] / n_steps / 2**20:.1f} MiB in "
+                      f"{x['recompute_seconds'] / n_steps:.3f} s, all-reduce "
                       f"{x['allreduce_bytes'] / n_steps / 2**20:.1f} MiB in "
                       f"{x['allreduce_seconds'] / n_steps:.3f} s "
                       "(host-staged gloo on one card)")
@@ -2270,8 +2469,20 @@ def sp_launches(results: dict, name: str, key: str) -> int:
                for rep_ in reports)
 
 
-# Phases that stand alone, for a partial run (--phases=2,3,7,13).
-STANDALONE_PHASES = (2, 3, 7, 13)
+# Phases that stand alone, for a partial run (--phases=2,3,7,9,13; 9
+# runs phase 12 after it).
+STANDALONE_PHASES = (2, 3, 7, 9, 13)
+
+
+def train_and_sample(at, fd, smi: str) -> None:
+    """Phase 9, then phase 12 on its checkpoint, in a temporary dir."""
+    from nanosandbox_tpu_torch.ops import _build
+
+    _build.library()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        check_trainer(at, fd, smi, tmp)
+        print("== phase 12: the sampler on phase 9's checkpoint")
+        check_sampler(tmp)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -2312,6 +2523,9 @@ def main(argv: list[str] | None = None) -> int:
                  lambda: check_kernels(fd)),
                 (7, "training kernels vs plain versions",
                  lambda: (check_train_kernels(at), check_ring_blocks(at))),
+                (9, "the 124M bf16 trainer, then phase 12's sampler on "
+                    "its checkpoint",
+                 lambda: train_and_sample(at, fd, smi)),
                 (13, "the sequence-parallel trainer (4 ranks, one card)",
                  lambda: (_build.library(), check_sp_trainer(
                      smi, tempfile.mkdtemp(prefix="chip_smoke_sp_"))))):
@@ -2486,8 +2700,8 @@ def main(argv: list[str] | None = None) -> int:
     # The non-causal instances with an lse cotangent (ring attention's
     # off-diagonal blocks), timed at phase 7's ring block, with the
     # launches of phase 13's sequence-parallel runs (every rank): bf16 K5
-    # in the first run, K6 + K7 in the resume; fp32 K5 in the zigzag run,
-    # K6 + K7 in the contiguous one.
+    # in the first run, K6 + K7 in the resume; fp32 K5 in the zigzag and
+    # dropout runs, K6 + K7 in the contiguous one.
     # The wgmma K4-K7 (csrc/flash_attention_sm90.cu) also at the 8k
     # config's committed batch 4, with the same launches.
     bf, zz, ct = "bf16", "fp32 zigzag", "fp32 contiguous"
@@ -2510,9 +2724,11 @@ def main(argv: list[str] | None = None) -> int:
     # The non-causal fp32 K4-K7 (csrc/flash_ring_f32.cuh) also at the 8k
     # config's committed batch 4, with the same launches.
     ring = "flash_ring_f32.cuh"
-    n_k4 = (sp_launches(sp, zz, "flash_attention_fwd/full")
-            + sp_launches(sp, ct, "flash_attention_fwd/full"))
-    n_k5 = sp_launches(sp, zz, "flash_attention_bwd_fused/full/dlse")
+    dr = "fp32 dropout"
+    n_k4 = sum(sp_launches(sp, name, "flash_attention_fwd/full")
+               for name in (zz, ct, dr))
+    n_k5 = sum(sp_launches(sp, name, "flash_attention_bwd_fused/full/dlse")
+               for name in (zz, dr))
     n_k6 = sp_launches(sp, ct, "flash_attention_bwd_dq/full/dlse")
     n_k7 = sp_launches(sp, ct, "flash_attention_bwd_dkv/full/dlse")
     for name, replaces, n, kind in (

@@ -32,6 +32,7 @@ from typing import Any
 import torch
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+REMAT_POLICIES = ("save_attention", "full")
 
 
 @dataclass
@@ -111,17 +112,41 @@ class TrainConfig:
     num_processes: int = 0
     process_id: int = -1
 
-    memory_report: bool = False  # not ported yet
+    # Print and log the step's memory before iter 0 (train.py
+    # memory_report): parameters, optimizer state and batch computed, the
+    # activations measured over one forward+backward on a GPU.
+    memory_report: bool = False
 
     # -- logging --
     tensorboard: bool = True
     run_name: str = ""
     log_dir: str = ""  # default: <out_dir>/runs
-    profile_steps: str = ""  # 'a:b'; not ported yet
+    # 'a:b': a torch.profiler trace (CPU and CUDA) of iters [a, b) to
+    # <log_dir>/profile, rank 0 only.
+    profile_steps: str = ""
 
     def __post_init__(self) -> None:
         if self.lr_decay_iters <= 0:
             self.lr_decay_iters = self.max_iters
+        if self.profile_steps:  # fail fast, before any resources exist
+            self.profile_range()
+
+    def profile_range(self) -> tuple[int, int] | None:
+        """Parsed --profile_steps=a:b, validated. None when unset."""
+        if not self.profile_steps:
+            return None
+        parts = self.profile_steps.split(":")
+        try:
+            a, b = (int(p) for p in parts)
+        except ValueError:
+            raise ValueError(
+                f"profile_steps expects 'a:b' integers, got "
+                f"{self.profile_steps!r}") from None
+        if len(parts) != 2 or a < 0 or b <= a:
+            raise ValueError(
+                f"profile_steps expects 'a:b' with 0 <= a < b, got "
+                f"{self.profile_steps!r}")
+        return a, b
 
     @property
     def resolved_log_dir(self) -> str:
@@ -185,16 +210,8 @@ def check_ported(cfg: TrainConfig) -> None:
         unported.append(f"mesh_slices={cfg.mesh_slices} (multi-slice)")
     if cfg.shard_params:
         unported.append("shard_params=True (FSDP)")
-    if cfg.mesh_sp > 1 and cfg.dropout > 0.0:
-        unported.append(f"dropout={cfg.dropout} under mesh_sp > 1 (residual "
-                        "dropout keyed per rank)")
     if cfg.init_from.startswith(("gpt2", "hf:")):
         unported.append(f"init_from={cfg.init_from!r} (pretrained weights)")
-    if cfg.memory_report:
-        unported.append("memory_report=True")
-    if cfg.profile_steps:
-        unported.append(f"profile_steps={cfg.profile_steps!r} (profiler "
-                        "window)")
     if unported:
         raise NotImplementedError(
             "not ported yet to nanosandbox_tpu_torch: " + ", ".join(unported))
@@ -308,6 +325,9 @@ class GPTConfig:
     bias: bool = False
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    # Activation checkpointing of each training block (models/gpt.py):
+    # 'save_attention' keeps each attention call's (o, lse), 'full' keeps
+    # nothing.
     remat: bool = False
     remat_policy: str = "save_attention"
     # 'ring' runs ring attention when the model is given a mesh whose seq
@@ -324,9 +344,10 @@ class GPTConfig:
         if self.n_embd % self.n_head:
             raise ValueError(f"n_embd {self.n_embd} is not divisible by "
                              f"n_head {self.n_head}")
-        if self.remat:
-            raise NotImplementedError(
-                "remat=True (activation checkpointing) is not ported yet")
+        if self.remat and self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"unknown remat_policy: {self.remat_policy!r} "
+                "(expected 'save_attention' or 'full')")
 
     @property
     def head_dim(self) -> int:

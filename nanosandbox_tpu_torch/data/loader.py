@@ -2,7 +2,7 @@
 
 This package's own copy of nanosandbox_tpu/data/loader.py: nanoGPT's
 get_batch contract (random-offset windows from train.bin / val.bin
-uint16 memmaps, prepared with ``meta.pkl`` by the JAX package's
+uint16 memmaps, prepared with ``meta.pkl`` by either package's
 data.prepare), with offsets drawn from a stream keyed by
 (seed, split, step, process_index), so a resumed run draws the batches
 an uninterrupted one would.
@@ -52,7 +52,7 @@ class BinDataset:
             if not os.path.exists(path):
                 raise FileNotFoundError(
                     f"{path} not found — run `python -m "
-                    f"nanosandbox_tpu.data.prepare {dataset} "
+                    f"nanosandbox_tpu_torch.data.prepare {dataset} "
                     f"--data_dir={data_dir}` first")
             self.splits[split] = np.memmap(path, dtype=np.uint16, mode="r")
         meta_path = os.path.join(self.dir, "meta.pkl")

@@ -25,7 +25,13 @@ Two forward paths:
     dropout where flax has it (after the embedding sum, after attention's
     c_proj, after the MLP's c_proj) with masks drawn from the generator,
     and attention-probability dropout in the kernels, keyed by a uint32
-    seed per layer drawn from the same generator;
+    seed per layer drawn from the same generator. Under sequence
+    parallelism every rank draws the GLOBAL (B, T, C) mask and keeps its
+    own positions' rows, so the masks are one process's and every rank
+    draws as many numbers, which keeps the attention seeds shared. With
+    cfg.remat a forward that records gradients runs each block under
+    torch.utils.checkpoint (``_RematBlock``; the cached path and
+    no-grad evaluation never do);
   * paged cache: each layer's pool is (num_blocks + 1, H, page, D). The
     call writes its K/V through the block table first, then attends with
     the paged-attention kernels (ops/flash_decode.py): the decode kernel
@@ -75,7 +81,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from nanosandbox_tpu_torch.config import DTYPES, GPTConfig
-from nanosandbox_tpu_torch.ops.attention import (causal_attention,
+from nanosandbox_tpu_torch.ops.attention import (SavedAttention,
+                                                 causal_attention,
+                                                 saving_attention,
                                                  torch_flash_attention)
 from nanosandbox_tpu_torch.ops.flash_decode import (KV_MODES, KV_STORAGE,
                                                     flash_decode,
@@ -105,14 +113,23 @@ def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 def _dropout(x: torch.Tensor, rate: float,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
+             generator: Optional[torch.Generator],
+             spread: Optional[Tuple[int, torch.Tensor]] = None
+             ) -> torch.Tensor:
     """flax nn.Dropout: keep with probability 1 - rate, kept values
-    scaled by 1 / (1 - rate); the identity without a generator."""
+    scaled by 1 / (1 - rate); the identity without a generator. spread
+    (T_global, positions (T,)): x holds these positions of each row, so
+    the mask is drawn for the whole (B, T_global, C) and these rows kept."""
     if generator is None or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
-    return torch.where(keep, x / keep_prob, 0.0)
+    B, T, C = x.shape
+    if spread is None:
+        u = torch.rand((B, T, C), generator=generator, device=x.device)
+    else:
+        u = torch.rand((B, spread[0], C), generator=generator,
+                       device=x.device)[:, spread[1]]
+    return torch.where(u < keep_prob, x / keep_prob, 0.0)
 
 
 def _attention_seed(generator: torch.Generator, device) -> torch.Tensor:
@@ -200,7 +217,7 @@ class CausalSelfAttention(nn.Module):
         self.c_proj = nn.Linear(C, C, bias=cfg.bias, **factory)
 
     def forward(self, x, cache=None, cache_index=None, block_table=None,
-                generator=None, plain_attention=False):
+                generator=None, plain_attention=False, spread=None):
         cfg = self.cfg
         B, T, C = x.shape
         H, D = cfg.n_head, cfg.head_dim
@@ -242,7 +259,8 @@ class CausalSelfAttention(nn.Module):
         else:
             y = self._dense_cached(q, k, v, cache, cache_index)
         y = y.transpose(1, 2).reshape(B, T, C)
-        return _dropout(_dense(self.c_proj, y, dtype), cfg.dropout, generator)
+        return _dropout(_dense(self.c_proj, y, dtype), cfg.dropout, generator,
+                        spread)
 
     @staticmethod
     def _dense_cached(q, k, v, cache, cache_index):
@@ -283,11 +301,11 @@ class MLP(nn.Module):
         self.c_fc = nn.Linear(C, 4 * C, bias=cfg.bias, **factory)
         self.c_proj = nn.Linear(4 * C, C, bias=cfg.bias, **factory)
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, spread=None):
         dtype = self.cfg.torch_compute_dtype
         h = F.gelu(_dense(self.c_fc, x, dtype), approximate="tanh")
         return _dropout(_dense(self.c_proj, h, dtype), self.cfg.dropout,
-                        generator)
+                        generator, spread)
 
 
 class Block(nn.Module):
@@ -300,12 +318,64 @@ class Block(nn.Module):
         self.mlp = MLP(cfg, **factory)
 
     def forward(self, x, cache=None, cache_index=None, block_table=None,
-                generator=None, plain_attention=False):
+                generator=None, plain_attention=False, spread=None):
         dtype = x.dtype
         x = x + self.attn(_layer_norm(self.ln_1, x).to(dtype), cache,
                           cache_index, block_table, generator,
-                          plain_attention)
-        return x + self.mlp(_layer_norm(self.ln_2, x).to(dtype), generator)
+                          plain_attention, spread)
+        return x + self.mlp(_layer_norm(self.ln_2, x).to(dtype), generator,
+                            spread)
+
+
+class _RematBlock:
+    """One training block call under activation checkpointing
+    (torch.utils.checkpoint, non-reentrant): the first run keeps no
+    activation, and the backward runs the block again to rebuild them.
+
+    Two things must come out of the recompute as they did the first
+    time. The dropout generator: torch.utils.checkpoint restores only the
+    default generators, so the recompute sets the block's generator to
+    the state the first run began at and restores it after. The
+    attention: under 'save_attention' the first run keeps each call's
+    (o, lse) (ops/attention.py SavedAttention) and the recompute takes
+    them back without launching the forward kernel; under 'full' it is
+    computed again."""
+
+    def __init__(self, block: Block, policy: str, generator, plain_attention,
+                 spread):
+        self.block, self.generator = block, generator
+        self.plain_attention, self.spread = plain_attention, spread
+        self.saved = SavedAttention() if policy == "save_attention" else None
+        self.state = None if generator is None else generator.get_state()
+        self.first = True
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.first:
+            self.first = False
+            return self._run(x)
+        if self.saved is not None:
+            self.saved.replay = True
+        g = self.generator
+        resume = None if g is None else g.get_state()
+        if g is not None:
+            g.set_state(self.state)
+        distributed.recomputing = True
+        try:
+            return self._run(x)
+        finally:
+            distributed.recomputing = False
+            if g is not None:
+                g.set_state(resume)
+
+    def _run(self, x):
+        with saving_attention(self.saved):
+            return self.block(x, generator=self.generator,
+                              plain_attention=self.plain_attention,
+                              spread=self.spread)
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return checkpoint(self, x, use_reentrant=False,
+                          preserve_rng_state=False)
 
 
 class GPT(nn.Module):
@@ -396,11 +466,20 @@ class GPT(nn.Module):
             # garbage rows nobody reads, clamped so the lookup stays in
             # range (an out-of-range index raises on CUDA).
             pos = (start + ar[None, :]).clamp(max=cfg.block_size - 1)
+        # Under sequence parallelism dropout masks are drawn for the global
+        # sequence and this rank's rows kept (module docstring).
+        spread = (T_global, pos[0]) if ring else None
         x = _dropout(self.wte(idx) + self.wpe(pos), cfg.dropout,
-                     dropout_generator).to(cfg.torch_compute_dtype)
+                     dropout_generator, spread).to(cfg.torch_compute_dtype)
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.h):
-            x = block(x, None if cache is None else cache[i], cache_index,
-                      block_table, dropout_generator, plain_attention)
+            if remat:
+                x = _RematBlock(block, cfg.remat_policy, dropout_generator,
+                                plain_attention, spread).apply(x)
+            else:
+                x = block(x, None if cache is None else cache[i],
+                          cache_index, block_table, dropout_generator,
+                          plain_attention, spread)
         return _layer_norm(self.ln_f, x)
 
     def head(self, h: torch.Tensor) -> torch.Tensor:

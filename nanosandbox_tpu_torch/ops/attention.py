@@ -45,12 +45,25 @@ backward's row term, ds = p (dp - (Drow - dlse)).
 
 Routing, as in ops/flash_decode.py: a CUDA tensor goes to a kernel or
 the call raises; a CPU tensor goes to the plain PyTorch version beside
-it (``torch_flash_attention``, differentiable by autograd, and
-``torch_flash_attention_bwd``, the backward kernels' arithmetic). There
-is no probe and no fallback between the two. ``launches`` counts kernel
+it (``torch_flash_attention`` and ``torch_flash_attention_bwd``, the
+backward kernels' arithmetic, which ``FlashAttention`` applies on the
+CPU as it applies the kernels on CUDA; ``torch_flash_attention`` is
+also differentiable by autograd, for comparison harnesses). There is
+no probe and no fallback between the two. ``launches`` counts kernel
 launches; ``plain_cuda_calls`` counts plain-version calls on CUDA
 tensors (a comparison harness makes those on purpose; the training path
 never does).
+
+Activation checkpointing (remat, models/gpt.py): under the
+'save_attention' policy a checkpointed block runs inside
+``saving_attention(store)``. Its first run keeps every attention call's
+(o, lse) in the ``SavedAttention`` store, in call order (the JAX
+package's ``checkpoint_name("attn_out"/"attn_lse")`` tags); the
+recompute in the backward takes them back from the store instead of
+launching the forward kernel, so only the dense, LayerNorm and GELU work
+runs again. ``FlashAttention`` is the one place that reads the store:
+every attention call of the training path, the ring's blocks included,
+goes through it.
 
 Attention-probability dropout is the JAX kernels' counter-based hash
 mask, bit for bit (``hash_dropout_keep_mask``): the same (5,) seed words
@@ -61,7 +74,9 @@ are not ported (on Hopper the lse is a plain (B*H, T) vector;
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -87,7 +102,8 @@ __all__ = ["flash_attention", "flash_attention_dropout", "causal_attention",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "torch_flash_attention", "torch_flash_attention_bwd",
            "hash_dropout_keep_mask", "FlashAttention", "BWD_IMPL",
-           "launches", "plain_cuda_calls", "reset_counts"]
+           "SavedAttention", "saving_attention", "launches",
+           "plain_cuda_calls", "reset_counts"]
 
 # Keyed by kernel, "/full" for the non-causal instance, "/dlse" for a
 # backward given an lse cotangent: "flash_attention_fwd" is the causal K4,
@@ -555,20 +571,68 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     return (dq * sm_scale).to(q.dtype), dk, dv
 
 
+# ---------------------------------------------------------------------------
+# The saved attention outputs of a checkpointed block (remat)
+# ---------------------------------------------------------------------------
+
+class SavedAttention:
+    """The (o, lse) of each attention call of one checkpointed block run,
+    in call order: kept by the first run, handed back one by one by the
+    recompute (``replay``)."""
+
+    def __init__(self):
+        self.outs: list[tuple[torch.Tensor, torch.Tensor]] = []
+        self.replay = False
+        self._next = 0
+
+    def take(self):
+        o, lse = self.outs[self._next]
+        self._next += 1
+        # Fresh aliases: the Function's output wrapping must not touch the
+        # tensors the first run's graph holds.
+        return o.detach(), lse.detach()
+
+
+_current = threading.local()
+
+
+@contextlib.contextmanager
+def saving_attention(store: SavedAttention | None):
+    """Within this context every FlashAttention call of the current
+    thread keeps its (o, lse) in ``store`` (its first run) or takes them
+    back from it (``store.replay``: the recompute, which starts at the
+    first call again). ``store=None`` is a no-op: the 'full' policy."""
+    outer = getattr(_current, "store", None)
+    if store is not None:
+        store._next = 0
+    _current.store = store
+    try:
+        yield store
+    finally:
+        _current.store = outer
+
+
 class FlashAttention(torch.autograd.Function):
     """(o, lse) = (dropout(softmax(q k^T * sm_scale)) v, logsumexp of the
     scores), causal or not, with the forward kernel (K4) and the backward
     of BWD_IMPL (K5, or K6 + K7); lse's cotangent, when lse reaches a loss,
-    folds into the backward's row term. The wrappers below apply it to
-    CUDA tensors; on CPU tensors its entry points take the plain versions
-    (the CPU tests drive it that way)."""
+    folds into the backward's row term. On CPU tensors the same entry
+    points take the plain versions. Inside ``saving_attention(store)``
+    the first run keeps (o, lse) in the store and a replay takes them
+    from it without launching the forward."""
 
     @staticmethod
     def forward(ctx, q, k, v, seed, causal, sm_scale, dropout_rate,
                 hash_seq_len):
         kw = dict(causal=causal, sm_scale=sm_scale,
                   dropout_rate=dropout_rate, hash_seq_len=hash_seq_len)
-        o, lse = flash_attention_fwd(q, k, v, seed=seed, **kw)
+        store = getattr(_current, "store", None)
+        if store is not None and store.replay:
+            o, lse = store.take()
+        else:
+            o, lse = flash_attention_fwd(q, k, v, seed=seed, **kw)
+            if store is not None:
+                store.outs.append((o.detach(), lse.detach()))
         ctx.save_for_backward(q, k, v, o, lse, seed)
         ctx.kw = kw
         # An unused output's cotangent arrives as None: no dlse, no dO.
@@ -597,17 +661,13 @@ def flash_attention_lse_dropout(q, k, v, seed, causal: bool = True,
     one seed, offsets 0), ``hash_heads`` / ``hash_seq_len`` the global
     head count and sequence length the mask hash runs over, so every ring
     block drops the elements the whole-sequence call would. lse is that
-    of the unmasked scores. Differentiable in both outputs. The heads are
-    not sharded in the port, so ``hash_heads`` is the call's H (None says
-    so too)."""
+    of the unmasked scores. Differentiable in both outputs, through
+    FlashAttention on either device. The heads are not sharded in the
+    port, so ``hash_heads`` is the call's H (None says so too)."""
     _require_seed(seed, rate)
     if hash_heads not in (None, q.shape[1]):
         raise ValueError(f"hash_heads {hash_heads} != the call's {q.shape[1]} "
                          "heads: head-sharded calls are not ported yet")
-    if not q.is_cuda:
-        return torch_flash_attention(q, k, v, causal=causal,
-                                     sm_scale=sm_scale, dropout_rate=rate,
-                                     seed=seed, hash_seq_len=hash_seq_len)
     words = seed_words(seed, q.device)
     return FlashAttention.apply(q, k, v, words, bool(causal), sm_scale,
                                 float(rate), hash_seq_len)

@@ -14,11 +14,15 @@ the chunk lies wholly in the query's past), merged exactly:
     lse = logaddexp(lse_a, lse_b)
     out = out_a exp(lse_a - lse) + out_b exp(lse_b - lse)
 
-On CUDA tensors the block is the flash kernels' lse instance
-(ops/attention.py flash_attention_lse[_dropout]: K4 forward, K5 or K6 +
-K7 backward with the lse cotangent); on CPU tensors it is the plain
-block ``_xla_block``. The tensor's device alone picks it (the trainer's
-``ring_block_impl`` selects nothing, config.py).
+The block is the flash attention lse call (ops/attention.py
+flash_attention_lse[_dropout], through its autograd.Function): on CUDA
+tensors the kernels (K4 forward, K5 or K6 + K7 backward with the lse
+cotangent), on CPU tensors their plain versions. The tensor's device
+alone picks them (the trainer's ``ring_block_impl`` selects nothing,
+config.py). Under remat's 'save_attention' policy each block call keeps
+its (o, lse), as JAX's tags inside flash_attention_lse do; the rotation
+and the merges run again in the recompute, as JAX's untagged ppermutes
+do.
 
 Two layouts, as in the JAX package: contiguous (rank i holds rows
 [i Tc, (i+1) Tc), and skips the blocks wholly in its future) and zigzag
@@ -55,11 +59,8 @@ import torch
 
 from nanosandbox_tpu_torch.config import RING_LAYOUTS
 from nanosandbox_tpu_torch.ops.attention import (flash_attention_lse,
-                                                 flash_attention_lse_dropout,
-                                                 hash_dropout_keep_mask)
+                                                 flash_attention_lse_dropout)
 from nanosandbox_tpu_torch.parallel import distributed
-
-NEG_INF = -1e30
 
 __all__ = ["ring_attention_sharded", "ring_positions", "use_zigzag",
            "zigzag_permutation"]
@@ -69,26 +70,6 @@ __all__ = ["ring_attention_sharded", "ring_positions", "use_zigzag",
 # The block and the merge
 # ---------------------------------------------------------------------------
 
-def _xla_block(q, k, v, causal: bool, sm_scale: float, keep=None,
-               rate: float = 0.0):
-    """(out f32, lse f32) of one block in plain torch ops (the JAX
-    package's _xla_block): causal masks above the diagonal; keep is an
-    optional (B, H, Tq, Tk) dropout keep-mask on the normalized
-    probabilities, with the 1/(1-rate) rescale."""
-    scores = torch.einsum("bhqd,bhkd->bhqk", q.float() * sm_scale, k.float())
-    if causal:
-        Tq, Tk = q.shape[2], k.shape[2]
-        mask = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device).tril()
-        scores = scores.masked_fill(~mask, NEG_INF)
-    m = scores.amax(dim=-1)
-    p = torch.exp(scores - m[..., None])
-    l = p.sum(dim=-1)
-    if keep is not None:
-        p = torch.where(keep, p * (1.0 / (1.0 - rate)), 0.0)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
-    return out / l.clamp_min(1e-30)[..., None], m + torch.log(l)
-
-
 def _make_block_fn(sm_scale: float, dropout_rate: float = 0.0,
                    hash_seq_len: int | None = None):
     """block(q, k, v, diag, seed) -> (out f32, lse (B, H, Tq) f32).
@@ -96,18 +77,9 @@ def _make_block_fn(sm_scale: float, dropout_rate: float = 0.0,
     diag=True applies the in-chunk causal mask (q and k share a position
     base); diag=False attends fully (the chunk lies wholly in the past).
     seed: the block's (5,) words with global offsets (None without
-    dropout). CUDA tensors take the flash kernels, CPU tensors the plain
-    block."""
+    dropout)."""
 
     def block(q, k, v, diag, seed):
-        if not q.is_cuda:
-            keep = None
-            if dropout_rate > 0.0:
-                keep = hash_dropout_keep_mask(
-                    seed, q.shape[0], q.shape[1], q.shape[2], k.shape[2],
-                    hash_seq_len=hash_seq_len, rate=dropout_rate,
-                    device=q.device)
-            return _xla_block(q, k, v, diag, sm_scale, keep, dropout_rate)
         if dropout_rate > 0.0:
             out, lse = flash_attention_lse_dropout(
                 q, k, v, seed, diag, sm_scale, dropout_rate,

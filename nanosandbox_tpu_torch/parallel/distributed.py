@@ -38,9 +38,16 @@ import torch.distributed as dist
 
 # Bytes sent and, for host-staged exchanges, their host seconds, keyed by
 # kind ("ring": K/V rotations and their gradients, "allreduce": loss sums
-# and gradients).
+# and gradients; "recompute": the share of "ring" sent while
+# ``recomputing`` is set).
 exchanged = {"ring_bytes": 0, "ring_seconds": 0.0,
-             "allreduce_bytes": 0, "allreduce_seconds": 0.0}
+             "allreduce_bytes": 0, "allreduce_seconds": 0.0,
+             "recompute_bytes": 0, "recompute_seconds": 0.0}
+
+# Set by remat's recompute of a block (models/gpt.py _RematBlock) while it
+# runs the block again, so that the rotations it repeats count as
+# "recompute" too.
+recomputing = False
 
 
 def derive_process_id_from_hostname(hostname: str | None = None) -> int | None:
@@ -146,10 +153,14 @@ def shift(t: torch.Tensor, offset: int, group=None) -> torch.Tensor:
            dist.P2POp(dist.irecv, recv, src, group)]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
+    kinds = ("ring", "recompute") if recomputing else ("ring",)
     if staged:
         recv = recv.to(t.device)
-        exchanged["ring_seconds"] += time.perf_counter() - t0
-    exchanged["ring_bytes"] += send.numel() * send.element_size()
+        secs = time.perf_counter() - t0
+        for kind in kinds:
+            exchanged[kind + "_seconds"] += secs
+    for kind in kinds:
+        exchanged[kind + "_bytes"] += send.numel() * send.element_size()
     return recv
 
 

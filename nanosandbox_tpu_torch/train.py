@@ -39,15 +39,27 @@ decoupled decay).
 
 Dropout masks come from a torch.Generator seeded from (seed + 7,
 iter_num) at every step, so a resumed run draws the masks an
-uninterrupted one would. JAX draws from threefry: residual-dropout bits
-differ between the packages; the attention mask is a pure function of
-the per-layer seed words and matches the JAX kernels' bit for bit for
-the same words.
+uninterrupted one would. Under sequence parallelism every rank holds
+the same generator and draws the global masks (models/gpt.py), so a
+rank's masks are one process's at its positions. JAX draws from
+threefry: residual-dropout bits differ between the packages; the
+attention mask is a pure function of the per-layer seed words and
+matches the JAX kernels' bit for bit for the same words.
+
+``profile_steps='a:b'`` traces iters [a, b) with torch.profiler (CPU and
+CUDA activities) into a Chrome trace under <log_dir>/profile, on rank 0.
+``memory_report`` prints and logs the JAX trainer's keys before iter 0
+(``memory_report``): parameters, AdamW moments and batch computed from
+their shapes, activations and workspace measured on the GPU over one
+throwaway forward and backward of the first micro-batch. The port runs
+eagerly, so there is no compiled program to analyse and no
+``compile=True`` requirement.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import sys
 import time
 from typing import Callable
@@ -305,6 +317,70 @@ class Trainer:
             out[split] = float(torch.stack(losses).mean())
         return out
 
+    # -- memory --------------------------------------------------------------
+
+    def memory_report(self, x: torch.Tensor, y: torch.Tensor) -> dict:
+        """Bytes a device holds for one optimizer step, under the JAX
+        trainer's keys: params_bytes and state_bytes (parameters, AdamW's
+        two moments, the step's batch on the device) from their shapes;
+        on a GPU also temp_bytes, the peak of torch.cuda's allocations
+        over one forward and backward of the micro-batch x, y above what
+        was allocated before it (activations, gradients, workspace), and
+        total_bytes = state_bytes + temp_bytes. The pass changes nothing
+        the run reads: its gradients are dropped and its dropout masks
+        come from a generator of its own."""
+        from nanosandbox_tpu_torch.models.gpt import count_params
+
+        cfg = self.cfg
+        itemsize = torch.empty((), dtype=self.model_cfg.torch_param_dtype
+                               ).element_size()
+        params = itemsize * count_params(self.model)
+        rows = cfg.sequences_per_iter
+        cols = cfg.block_size if self.columns is None else len(self.columns)
+        batch = 2 * rows * cols * torch.empty((), dtype=torch.long
+                                              ).element_size()
+        out = {"params_bytes": params, "state_bytes": 3 * params + batch}
+        if self.device.type != "cuda":
+            return out
+        torch.cuda.synchronize(self.device)
+        torch.cuda.reset_peak_memory_stats(self.device)
+        before = torch.cuda.memory_allocated(self.device)
+        gen = None
+        if cfg.dropout > 0.0:
+            gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.model.train()
+        self.loss(x, y, gen)[0].backward()
+        torch.cuda.synchronize(self.device)
+        out["temp_bytes"] = torch.cuda.max_memory_allocated(
+            self.device) - before
+        out["total_bytes"] = out["state_bytes"] + out["temp_bytes"]
+        self.optimizer.zero_grad(set_to_none=True)
+        return out
+
+    def report_memory(self, writer, start_step: int) -> dict:
+        """memory_report on the first micro-batch of step ``start_step``,
+        printed (rank 0) in the JAX trainer's line and logged at step 0."""
+        loader = self.make_loader("train", start_step=start_step,
+                                  prefetch=False)
+        xb, yb = next(loader)
+        accum = self.cfg.gradient_accumulation_steps
+        mem = self.memory_report(self.to_device(xb).chunk(accum)[0],
+                                 self.to_device(yb).chunk(accum)[0])
+        if self.rank0:
+            gb = 1 << 30
+            line = (f"memory report (per device): params "
+                    f"{mem['params_bytes'] / gb:.2f} GB, state+batch "
+                    f"{mem['state_bytes'] / gb:.2f} GB")
+            if "temp_bytes" in mem:
+                line += (f", activations/temp {mem['temp_bytes'] / gb:.2f} "
+                         f"GB, total {mem['total_bytes'] / gb:.2f} GB")
+            else:
+                line += (" (activations are measured on a GPU only: not "
+                         "measured on the CPU)")
+            print(line)
+        writer.log(0, {f"mem/{k}": float(v) for k, v in mem.items()})
+        return mem
+
     # -- MFU -----------------------------------------------------------------
 
     def flops_per_iter(self) -> float:
@@ -390,6 +466,10 @@ class Trainer:
         last_loss = float("nan")
         last_eval: tuple[int, dict] | None = None
         log: list[dict] = []
+        mem = (self.report_memory(writer, iter_num) if cfg.memory_report
+               else None)
+        prof_range = cfg.profile_range() if self.rank0 else None
+        profiler = None
         t0 = time.time()
         window_start_iter = iter_num - 1  # the sync precedes step iter_num
         try:
@@ -417,10 +497,15 @@ class Trainer:
                         torch.cuda.synchronize(self.device)
                     t0, window_start_iter = time.time(), iter_num - 1
 
+                if prof_range and iter_num == prof_range[0]:
+                    profiler = self._start_profile()
                 xb, yb = next(loader)
                 metrics = self.train_step(self.to_device(xb),
                                           self.to_device(yb),
                                           self.dropout_generator(iter_num))
+                if profiler is not None and iter_num == prof_range[1] - 1:
+                    self._stop_profile(profiler, prof_range)
+                    profiler = None
 
                 if cfg.log_interval > 0 and iter_num % cfg.log_interval == 0:
                     loss = float(metrics["loss"])  # the log-step sync
@@ -443,9 +528,12 @@ class Trainer:
                         "train/lr": lr, "perf/tokens_per_sec": toks,
                         "perf/mfu": mfu})
                     log.append({"iter": iter_num, "loss": loss,
-                                "ms": dt * 1000, "tok_s": toks, "mfu": mfu})
+                                "grad_norm": grad_norm, "ms": dt * 1000,
+                                "tok_s": toks, "mfu": mfu})
                 iter_num += 1
         finally:
+            if profiler is not None:  # the run ended inside the window
+                self._stop_profile(profiler, prof_range)
             loader.close()
             writer.close()
 
@@ -457,7 +545,33 @@ class Trainer:
             self.save(ckpt, iter_num,
                       min(best_val_loss, losses.get("val", 1e9)))
         return {"iter_num": iter_num, "final_loss": last_loss, "log": log,
+                "memory_report": mem,
                 **{f"final_{k}_loss": v for k, v in losses.items()}}
+
+    # -- profiler window -----------------------------------------------------
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profile(self, profiler, prof_range) -> None:
+        """Drain the device so the window holds its work, stop, and write
+        the Chrome trace."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        out = os.path.join(self.cfg.resolved_log_dir, "profile")
+        os.makedirs(out, exist_ok=True)
+        a, b = prof_range
+        profiler.export_chrome_trace(
+            os.path.join(out, f"iters_{a}_{b}.trace.json"))
+        print(f"profiler trace for iters [{a}:{b}) -> {out}")
 
 
 def main(argv: list[str] | None = None) -> dict:

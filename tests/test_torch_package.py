@@ -122,10 +122,20 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     passes (greedy tokens equal the recompute, the dense and quantized
     engines' tokens equal the paged engine's and their plain-version
     controls', 6/6 answers on each server, a prefix hit on the paged
-    ones; the trainer's loss falls by 2 nats by iter 25, ckpt/30 exists,
-    the resume continues at 30; the sample CLI prints its samples and
-    generate equals the argmax loop), and the launch check then refuses
-    each run, because on the CPU no kernel launched."""
+    ones; the trainer's dataset is the JAX package's bins, its loss
+    falls by 2 nats by iter 25, ckpt/30 exists, the resume continues at
+    30, the memory report and the profiler trace are written, and the
+    remat legs' iter 0 losses are the first run's bits; the sample CLI
+    prints its samples and generate equals the argmax loop), and the
+    launch check then refuses each run, because on the CPU no kernel
+    launched. The trainer phase prepares its BPE dataset from a 200 KB
+    slice of the XL corpus, held to the sha256s of the JAX package's
+    prepare of the same slice, so the test never BPE-encodes 25 MB."""
+    import hashlib
+
+    from nanosandbox_tpu.data.prepare import \
+        prepare_english_prose_bpe_dataset as jax_prepare
+
     sys.path.insert(0, str(REPO))
     try:
         import chip_smoke
@@ -134,15 +144,25 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     from nanosandbox_tpu_torch.ops import attention as at
     from nanosandbox_tpu_torch.ops import flash_decode as fd
 
+    corpus = tmp_path / "slice.txt"
+    with open(REPO / chip_smoke.BPE_CORPUS, encoding="utf-8") as f:
+        corpus.write_text(f.read(200_000), encoding="utf-8")
+    jax_prepare(str(tmp_path / "jax_bpe"), source_file=str(corpus))
+    sha = {name: hashlib.sha256(
+        (tmp_path / "jax_bpe" / name).read_bytes()).hexdigest()
+        for name in ("train.bin", "val.bin")}
     monkeypatch.chdir(REPO)
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "BPE_CORPUS", str(corpus))
+    monkeypatch.setattr(chip_smoke, "BPE_SHA256", sha)
     monkeypatch.setattr(chip_smoke, "MODEL", dict(
         n_layer=2, n_head=2, n_embd=64, block_size=1024, vocab_size=256))
     # A tiny width learns too slowly at the config's rate to fall 2 nats
-    # in 25 steps over 50304 logits; 256 logits at 1e-2 do.
+    # in 25 steps; at 1e-2 it does, over the config's 50304 logits.
+    # Batch 2 keeps the CPU steps over those logits short.
     monkeypatch.setattr(chip_smoke, "TRAIN", [
         "--n_layer=2", "--n_head=2", "--n_embd=64", "--block_size=64",
-        "--batch_size=4", "--vocab_size=256", "--learning_rate=1e-2"])
+        "--batch_size=2", "--learning_rate=1e-2"])
     model, prompts = chip_smoke.fp32_model_and_prompts()
     ref = chip_smoke.recompute(model, prompts)
     paged = {"tokens": ref}
