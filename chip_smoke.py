@@ -1,10 +1,10 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases=2,3,7,9,13]
+    python3 chip_smoke.py [--phases=2,3,7,9,13,14]
 
 Phases (each prints what it found; any failure exits non-zero; --phases
-runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it) or 13,
-and prints no result line):
+runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13 or
+14, and prints no result line):
 
   1. device   torch / CUDA versions, the card's name and power limit;
   2. build    the CUDA kernels from nanosandbox_tpu_torch/csrc (into
@@ -57,10 +57,12 @@ and prints no result line):
               attention, TF32 off;
   5. server   GPT-2 124M in bf16 served by `python -m
               nanosandbox_tpu_torch.serve`'s code path on an ephemeral
-              port: 6 /generate requests (one a prefix hit), /healthz,
-              /stats;
+              port, after its default warmup (--warmup=full): 6
+              /generate requests (one a prefix hit), /healthz, /stats;
   6. counts   kernel launches of phase 5 (the serving path, counts reset
-              just before it); the plain versions make no CUDA call there;
+              just after the warmup; the decode kernels' are each CUDA
+              graph's capture-time launches times its replays); the
+              plain versions make no CUDA call there;
   7. train kernels  the flash-attention kernels (forward K4, fused
               backward K5, split backward K6 + K7) against their plain
               versions at the 124M training shape (B 16, H 12, T 1024,
@@ -163,7 +165,20 @@ and prints no result line):
               again, the all-reduce); rank 0 traces one bf16 step of the
               fused leg (torch.profiler): its wall and the device ms of
               the non-causal ring blocks, of the other flash kernels and
-              of everything else.
+              of everything else;
+ 14. dispatch modes  the engine's eager synchronous step (its private
+              entry: the decode body run from Python every step) against
+              replayed CUDA graph chunks at scan_k 1 and 8 with the
+              pipeline on: greedy and sampled tokens identical, on the
+              bf16 124M paged engine (phase 5's requests) and the fp32
+              paged and dense engines (phase 4's prompts); in the k=8
+              runs the decode kernels in a torch.profiler trace equal
+              each graph's capture-time launches times its replays, one
+              8-step chunk replayed alone launches K2 (paged) or K3
+              (dense) 8 x n_layer times, and no plain version runs on
+              the card; then the bf16 engine's decode wall per step and
+              device idle share in each mode (serve/profile.py
+              measure_decode), beside the card's name and power limit.
 
 The last line is {"ok": true, "device": {...}}; the line before it is a
 JSON object with one entry per kernel instance timed (K1 twice for each
@@ -193,7 +208,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense bf16 tensor cores
               torch.float32: 67e12}    # fp32 outside the tensor cores
 SEED = 1234
 DEVICE = "cuda"
-# GPTConfig overrides for the model of phases 4, 5, 10 and 11; empty =
+# GPTConfig overrides for the model of phases 4, 5, 10, 11 and 14; empty =
 # GPT-2 124M (the defaults). A CPU rehearsal of the phases sets a tiny
 # model here.
 MODEL: dict = {}
@@ -929,28 +944,150 @@ def recompute(model, prompts, new=ENGINE_NEW) -> list:
     return out
 
 
-def run_engine(model, prompts, **kw) -> dict:
-    """One engine (8 slots x 1024) drained over the prompts, greedy, with
-    every count reset just before: tokens per prompt, wall time, the
-    decode kernels' launches and plain-version calls on the card, and
-    the flash forward's launches (the dense prefill's K4)."""
+def replay_counts(engine, per_graph: dict) -> dict:
+    """The counts of an engine's CUDA graph replays: each graph's
+    capture-time counts in ``per_graph`` (``engine.graph_launches`` or
+    ``engine.graph_plain_calls``; the wrappers count a capture, not a
+    replay) times its replays since they were last zeroed."""
+    out: dict = {}
+    for graph, n in engine.graph_replays.items():
+        for key, per_replay in per_graph[graph].items():
+            out[key] = out.get(key, 0) + per_replay * n
+    return out
+
+
+def zero_replays(engine) -> None:
+    for graph in engine.graph_replays:
+        engine.graph_replays[graph] = 0
+
+
+def counted_launches(fd, engine) -> dict:
+    """Every decode-kernel launch since the counts were zeroed: the
+    wrappers' own (eager calls) plus the graph replays'."""
+    out = {k: n for k, n in fd.launches.items() if n}
+    for key, n in replay_counts(engine, engine.graph_launches).items():
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def counted_plain(fd, at, engine) -> dict:
+    """Every plain-version call on the card since the counts were zeroed:
+    the plain functions' own (eager calls) plus the graph replays'."""
+    out = {**fd.plain_cuda_calls, **at.plain_cuda_calls}
+    for key, n in replay_counts(engine, engine.graph_plain_calls).items():
+        out[key] += n
+    return out
+
+
+# Kernel names by the instances they count, in a profiler trace.
+TRACED_KERNELS = {"K1": "paged_prefill_", "K2": "paged_decode_kernel",
+                  "K3": "flash_decode_kernel", "K4": "flash_fwd_"}
+
+
+def traced_kernels(fn) -> dict:
+    """{K1..K4: kernels launched, "all": {kernel: launches}} in a
+    torch.profiler trace of fn() (all zero on the CPU, where there is no
+    device to trace)."""
+    out: dict = dict.fromkeys(TRACED_KERNELS, 0)
+    out["all"] = {}
+    if DEVICE == "cpu":
+        fn()
+        return out
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        # A trace can lose its first records: in full runs of this
+        # script a one-chunk trace lacked the chunk's first ~40 kernels
+        # (a K3, LayerNorms, ...), and a 10 ms spin before it was lost
+        # too. A preamble of short kernels takes their place.
+        for _ in range(512):
+            torch.cuda._sleep(1)
+        fn()
+        sync()
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        out["all"][e.key[:70]] = e.count
+        for k, name in TRACED_KERNELS.items():
+            if name in e.key:
+                out[k] += e.count
+    return out
+
+
+def graph_trace(name: str, engine) -> dict:
+    """Every CUDA graph of an idle engine replayed once over its parked
+    slots, under one trace: each graph's capture-time count of its decode
+    kernel (K2 paged, K3 dense) must be its rung x n_layer, and the trace
+    must show their sum. So a launch count taken as capture counts x
+    replays (counted_launches) is what the card ran. Returns the kernel,
+    the captured sum and the traced count ({} without graphs: the CPU)."""
+    if not engine._graphs:
+        return {}
+    kernel = "K2" if engine.paged else "K3"
+    key = (f"flash_decode{'_paged' if engine.paged else ''}/"
+           f"{engine.kv_dtype}")
+    captured = {g: engine.graph_launches[g].get(key, 0)
+                for g in engine._graphs}
+    want = {g: g[0] * engine.cfg.n_layer for g in engine._graphs}
+
+    def replay_all():
+        for g in engine._graphs:
+            engine._copied_wait(engine._dispatch(*g))
+
+    if engine.has_work():
+        fail(f"{name}: graph_trace on a busy engine")
+    traced = traced_kernels(replay_all)
+    out = {"kernel": kernel, "captured": sum(captured.values()),
+           "traced": traced[kernel]}
+    if captured != want or out["traced"] != out["captured"]:
+        fail(f"{name}: {key} launches captured per graph {captured} (want "
+             f"rung x n_layer {want}), traced over one replay of each "
+             f"{out['traced']}; the trace: {traced['all']}")
+    return out
+
+
+def run_engine(model, prompts, *, sampling=None, new=ENGINE_NEW,
+               eager=False, trace=False, graphs=True, **kw) -> dict:
+    """One engine (8 slots x 1024) drained over the prompts (greedy, or
+    each with its keywords from ``sampling``), with every count reset
+    just before: tokens per prompt, wall time, the decode kernels'
+    launches (counted_launches) and plain-version calls on the card, and
+    the flash forward's launches (the dense prefill's K4). ``eager``
+    runs the decode body without its graphs (the engine's private entry,
+    phase 14's reference); ``trace`` counts the run's kernels in a
+    torch.profiler trace. Then, unless ``graphs`` is False (the plain
+    controls, whose graphs hold no kernel), each of the engine's graphs
+    replayed once under a trace (graph_trace)."""
     from nanosandbox_tpu_torch.ops import attention as at
     from nanosandbox_tpu_torch.ops import flash_decode as fd
     from nanosandbox_tpu_torch.serve.engine import Engine
 
     engine = Engine(model, num_slots=8, max_len=1024, device=DEVICE, **kw)
+    if eager:
+        engine._replay = False
     fd.reset_counts()
     at.reset_counts()
+    rids: list = []
+    done: dict = {}
+
+    def drain():
+        rids.extend(engine.submit(p, new, **(sampling[i] if sampling
+                                              else {}))
+                    for i, p in enumerate(prompts))
+        done.update((r.rid, r) for r in engine.drain())
+        sync()
+
     t0 = time.monotonic()
-    rids = [engine.submit(p, ENGINE_NEW) for p in prompts]
-    done = {r.rid: r for r in engine.drain()}
-    sync()
+    traced = traced_kernels(drain) if trace else drain()
     out = {"tokens": [done[r].tokens for r in rids],
            "wall_s": time.monotonic() - t0,
-           "launches": {k: n for k, n in fd.launches.items() if n},
+           "launches": counted_launches(fd, engine),
            "k4_launches": at.launches["flash_attention_fwd"],
-           "plain_cuda_calls": {**fd.plain_cuda_calls,
-                                **at.plain_cuda_calls}}
+           "plain_cuda_calls": counted_plain(fd, at, engine),
+           "stats": engine.stats()}
+    if trace:
+        out["traced"] = traced
+    if graphs:
+        out["graph_trace"] = graph_trace(f"the engine {kw}", engine)
     del engine
     if DEVICE != "cpu":
         torch.cuda.empty_cache()
@@ -976,7 +1113,8 @@ def check_engine_fp32(model, prompts, ref) -> dict:
     print(f"  fp32 engine: {len(prompts)} prompts (lengths "
           f"{[len(p) for p in prompts]}), {ENGINE_NEW} greedy tokens each, "
           f"{run['wall_s']:.3f} s; launches {run['launches']}; token "
-          f"mismatches vs no-cache recompute: {mismatches}")
+          f"mismatches vs no-cache recompute: {mismatches}; each graph "
+          f"replayed once, traced {run['graph_trace']}")
     if mismatches:
         fail("fp32 engine greedy tokens differ from the recompute")
     need_launches("the fp32 engine", run, ("flash_decode_paged/fp32",
@@ -993,6 +1131,29 @@ def post(base, body, timeout=300):
                                  data=json.dumps(body).encode())
     with urllib.request.urlopen(req, timeout=timeout) as r:
         return r.status, json.loads(r.read())
+
+
+def server_rounds(cfg) -> list:
+    """Phase 5's requests, two rounds of three /generate bodies (greedy
+    and top-k sampled); the second round's first request shares a
+    128-token prefix with the first round's first."""
+    rng = np.random.default_rng(SEED + 2)
+
+    def toks(n):
+        return [int(t) for t in rng.integers(0, prompt_vocab(cfg), n)]
+
+    shared = toks(128)
+    return [
+        [dict(prompt_tokens=shared + toks(40), temperature=0.0),
+         dict(prompt_tokens=toks(200), temperature=0.8, top_k=40, seed=1),
+         dict(prompt_tokens=toks(60), temperature=0.0)],
+        # After round 1 the shared 128-token prefix is in the radix
+        # cache: the first request here prefills only its suffix.
+        [dict(prompt_tokens=shared + toks(30), temperature=0.8, top_k=40,
+              seed=2),
+         dict(prompt_tokens=toks(250), temperature=0.0),
+         dict(prompt_tokens=toks(20), temperature=0.8, top_k=40, seed=3)],
+    ]
 
 
 def check_server(fd, smi: str, flags=(), need=("flash_decode_paged/bf16",
@@ -1015,34 +1176,20 @@ def check_server(fd, smi: str, flags=(), need=("flash_decode_paged/bf16",
             device=DEVICE).manual_seed(SEED))
         save_for_serving(out_dir, cfg, model.state_dict())
         del model
-        # The serving path is the main path: counts start here.
-        fd.reset_counts()
-        at.reset_counts()
         server, loop, engine = build_server([
             f"--out_dir={out_dir}", "--host=127.0.0.1", "--port=0",
             "--num_slots=8", "--max_len=1024", "--kv_page_size=16",
             f"--device={DEVICE}", *flags])
+    # The serving path is the main path: counts start after the warmup,
+    # with the loop idle.
+    fd.reset_counts()
+    at.reset_counts()
+    zero_replays(engine)
     th = threading.Thread(target=server.serve_forever, daemon=True)
     th.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
-    rng = np.random.default_rng(SEED + 2)
-
-    def toks(n):
-        return [int(t) for t in rng.integers(0, prompt_vocab(cfg), n)]
-
-    shared = toks(128)
     new = 64
-    rounds = [
-        [dict(prompt_tokens=shared + toks(40), temperature=0.0),
-         dict(prompt_tokens=toks(200), temperature=0.8, top_k=40, seed=1),
-         dict(prompt_tokens=toks(60), temperature=0.0)],
-        # After round 1 the shared 128-token prefix is in the radix
-        # cache: the first request here prefills only its suffix.
-        [dict(prompt_tokens=shared + toks(30), temperature=0.8, top_k=40,
-              seed=2),
-         dict(prompt_tokens=toks(250), temperature=0.0),
-         dict(prompt_tokens=toks(20), temperature=0.8, top_k=40, seed=3)],
-    ]
+    rounds = server_rounds(cfg)
     answers = []
     try:
         t0 = time.monotonic()
@@ -1065,15 +1212,17 @@ def check_server(fd, smi: str, flags=(), need=("flash_decode_paged/bf16",
         with urllib.request.urlopen(base + "/stats", timeout=30) as r:
             stats = json.loads(r.read())
         sync()
-        launches = {k: n for k, n in fd.launches.items() if n}
+        launches = counted_launches(fd, engine)
         launches["flash_attention_fwd"] = at.launches["flash_attention_fwd"]
-        plain = {**fd.plain_cuda_calls, **at.plain_cuda_calls}
+        plain = counted_plain(fd, at, engine)
     finally:
         server.shutdown()
         server.server_close()
         loop.stop()
         loop.join(timeout=60)
         th.join(timeout=60)
+    engine.drain()
+    graphs = graph_trace(f"the server {list(flags)}", engine)
     for i, a in enumerate(answers):
         if a is None or a[0] != 200:
             fail(f"request {i}: {a}")
@@ -1095,7 +1244,8 @@ def check_server(fd, smi: str, flags=(), need=("flash_decode_paged/bf16",
         hits = f"{hits} ({stats['kv_pool']['prefix_hit_tokens']} tokens)"
     total = sum(len(a[1]["tokens"]) for a in answers)
     print(f"  {label}: 6/6 answered 200 with {new} in-vocab tokens, "
-          f"/healthz ok, prefix hits {hits}; launches {launches}")
+          f"/healthz ok, prefix hits {hits}; launches {launches}; each "
+          f"graph replayed once, traced {graphs}")
     print(f"  [{smi}] decode {stats['decode_tokens_per_sec']:.1f} tok/s "
           f"(engine window), {total / wall:.1f} tok/s end to end over "
           f"{wall:.3f} s; TTFT p50 {stats['ttft_s']['p50'] * 1e3:.2f} ms; "
@@ -1963,7 +2113,8 @@ def check_pools_fp32(model, prompts, ref, paged_fp32) -> dict:
     print(f"  dense fp32 engine: {dense['wall_s']:.3f} s; launches "
           f"{dense['launches']}, flash forward (prefill) "
           f"{dense['k4_launches']}; token mismatches vs recompute {bad}, "
-          f"vs the paged engine {bad_paged}")
+          f"vs the paged engine {bad_paged}; each graph replayed once, "
+          f"traced {dense['graph_trace']}")
     if bad or bad_paged:
         fail("the dense fp32 engine's greedy tokens differ from the "
              "recompute or the paged engine")
@@ -1975,7 +2126,7 @@ def check_pools_fp32(model, prompts, ref, paged_fp32) -> dict:
             run = run_engine(model, prompts, kv_dtype=mode, paged=paged)
             with plain_kernels():
                 plain = run_engine(model, prompts, kv_dtype=mode,
-                                   paged=paged)
+                                   paged=paged, graphs=False)
             runs[name] = run
             bad = sum(a != b for a, b in zip(run["tokens"], plain["tokens"]))
             agree = sum(x == y for a, b in zip(run["tokens"], ref)
@@ -1983,7 +2134,8 @@ def check_pools_fp32(model, prompts, ref, paged_fp32) -> dict:
             print(f"  {name} engine: {run['wall_s']:.3f} s; launches "
                   f"{run['launches']}; token mismatches vs its plain-version "
                   f"control {bad}; tokens agreeing with the fp32-KV engine "
-                  f"{agree}/{ref_tokens} ({100 * agree / ref_tokens:.1f}%)")
+                  f"{agree}/{ref_tokens} ({100 * agree / ref_tokens:.1f}%); "
+                  f"each graph replayed once, traced {run['graph_trace']}")
             if bad:
                 fail(f"the {name} engine's tokens differ from its "
                      "plain-version control")
@@ -2469,9 +2621,101 @@ def sp_launches(results: dict, name: str, key: str) -> int:
                for rep_ in reports)
 
 
-# Phases that stand alone, for a partial run (--phases=2,3,7,9,13; 9
-# runs phase 12 after it).
-STANDALONE_PHASES = (2, 3, 7, 9, 13)
+# ---------------------------------------------------------------------------
+# phase 14: the engine's dispatch modes on the card
+# ---------------------------------------------------------------------------
+
+# (label, engine keywords, eager): the eager synchronous step (the
+# engine's private entry: its decode body run from Python every step)
+# and replayed chunks at scan_k 1 and 8 with the pipeline on.
+DISPATCH_MODES = (("eager sync", dict(pipeline=False), True),
+                  ("replay k=1", dict(), False),
+                  ("replay k=8", dict(scan_k=8), False))
+
+
+def check_dispatch(fd, smi: str) -> dict:
+    """Phase 14: tokens of every DISPATCH_MODES engine equal the eager
+    one's (the 124M bf16 paged engine on phase 5's requests, the fp32
+    paged and dense engines on phase 4's prompts); in the k=8 runs the
+    traced decode kernels equal the capture-time launches times the
+    replays, one chunk replayed alone launches K2 (paged) or K3 (dense)
+    k x n_layer times, and no plain version runs on the card; then the
+    bf16 engine's decode step in each mode (serve/profile.py
+    measure_decode: wall per step and idle share)."""
+    from nanosandbox_tpu_torch.config import GPTConfig
+    from nanosandbox_tpu_torch.models.gpt import GPT, cast_for_serving
+    from nanosandbox_tpu_torch.serve import profile as serve_profile
+    from nanosandbox_tpu_torch.serve.engine import Engine
+
+    cfg = GPTConfig(**MODEL)                     # bf16 compute
+    bf16 = cast_for_serving(GPT(cfg, device=DEVICE, generator=torch.Generator(
+        device=DEVICE).manual_seed(SEED)))
+    bodies = [b for rnd in server_rounds(cfg) for b in rnd]
+    fp32, prompts = fp32_model_and_prompts()
+    cases = (
+        ("bf16 paged", bf16, [b["prompt_tokens"] for b in bodies],
+         [{k: v for k, v in b.items() if k != "prompt_tokens"}
+          for b in bodies], 64, {}, "K2", "flash_decode_paged/bf16"),
+        ("fp32 paged", fp32, prompts, None, ENGINE_NEW, {}, "K2",
+         "flash_decode_paged/fp32"),
+        ("fp32 dense", fp32, prompts, None, ENGINE_NEW,
+         dict(paged=False), "K3", "flash_decode/fp32"))
+    runs = {}
+    for name, model, ps, sampling, new, kw, kernel, key in cases:
+        t0 = time.monotonic()
+        got = {}
+        for label, mode, eager in DISPATCH_MODES:
+            got[label] = run_engine(model, ps, sampling=sampling, new=new,
+                                    eager=eager, trace=label == "replay k=8",
+                                    **kw, **mode)
+        ref = got["eager sync"]["tokens"]
+        bad = {label: sum(a != b for a, b in zip(r["tokens"], ref))
+               for label, r in got.items()}
+        k8 = got["replay k=8"]
+        st = k8["stats"]
+        print(f"  {name}: token mismatches vs the eager synchronous step "
+              f"{bad}; k=8: {st['host_dispatches']['decode']} dispatches, "
+              f"{st['decode_chunk_steps']} decode steps, replays "
+              f"{st['graph_replays']}, graph pool "
+              f"{(st['graph_pool_bytes'] or 0) / 2**20:.1f} MiB; {kernel} "
+              f"traced {k8['traced'][kernel]} vs captured x replays "
+              f"{k8['launches'].get(key, 0)}; every graph replayed once "
+              f"{k8['graph_trace']} ({time.monotonic() - t0:.1f} s)")
+        if any(bad.values()):
+            fail(f"phase 14 {name}: replayed chunks' tokens differ from "
+                 f"the eager step's: {bad}")
+        for label, r in got.items():
+            need_launches(f"phase 14 {name} {label}", r, (key,))
+        if k8["traced"][kernel] != k8["launches"].get(key, 0):
+            fail(f"phase 14 {name}: the trace shows {k8['traced'][kernel]} "
+                 f"{kernel} launches, the graphs' counts x replays "
+                 f"{k8['launches'][key]}")
+        runs[name] = got
+    del fp32
+    times = {}
+    t0 = time.monotonic()
+    for label, mode, eager in DISPATCH_MODES:
+        engine = Engine(bf16, num_slots=8, max_len=1024, device=DEVICE,
+                        **mode)
+        engine._replay = not eager
+        times[label] = serve_profile.measure_decode(
+            engine, np.random.default_rng(SEED))
+        del engine
+        torch.cuda.empty_cache()
+    print(f"  bf16 paged, 8 slots x 512-token prompts; per decode step "
+          f"({time.monotonic() - t0:.1f} s): [{smi}]")
+    for label, t in times.items():
+        print(f"  {label:<10} wall {t['decode_step_ms']:.3f} ms "
+              f"(each step synchronised {t['decode_step_ms_synchronised']:.3f}"
+              f"), device {t['device_ms_per_step']:.3f} ms, idle share "
+              f"{t['device_idle_share']:.3f}, kernels "
+              f"{t['kernels_per_step']:.1f} [{smi}]")
+    return {"runs": runs, "times": times}
+
+
+# Phases that stand alone, for a partial run (--phases=2,3,7,9,13,14;
+# 9 runs phase 12 after it).
+STANDALONE_PHASES = (2, 3, 7, 9, 13, 14)
 
 
 def train_and_sample(at, fd, smi: str) -> None:
@@ -2528,7 +2772,9 @@ def main(argv: list[str] | None = None) -> int:
                  lambda: train_and_sample(at, fd, smi)),
                 (13, "the sequence-parallel trainer (4 ranks, one card)",
                  lambda: (_build.library(), check_sp_trainer(
-                     smi, tempfile.mkdtemp(prefix="chip_smoke_sp_"))))):
+                     smi, tempfile.mkdtemp(prefix="chip_smoke_sp_")))),
+                (14, "dispatch modes on the card",
+                 lambda: check_dispatch(fd, smi))):
             if phase in only:
                 print(f"== phase {phase}: {title}")
                 fn()
@@ -2596,6 +2842,9 @@ def main(argv: list[str] | None = None) -> int:
         print("== phase 13: the sequence-parallel trainer (4 ranks, one "
               "card)")
         sp = check_sp_trainer(smi, tmp)
+
+    print("== phase 14: dispatch modes on the card")
+    check_dispatch(fd, smi)
 
     def entry(name, source, replaces, launches, case):
         return {"name": name, "route": "cuda",

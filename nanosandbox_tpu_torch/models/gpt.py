@@ -182,7 +182,12 @@ def write_dense_kv(layer, k: torch.Tensor, v: torch.Tensor,
                    cache_index) -> None:
     """Write (B, H, T, D) K/V into a dense (B, H, L, D') layer: a scalar
     ``cache_index`` i writes positions [i, i + T) of every row; a (B,)
-    one (T = 1 only) writes row b at its own position cache_index[b]."""
+    one (T = 1 only) writes row b at its own position cache_index[b],
+    clamped to L - 1 as JAX's per-row dynamic_update_slice clamps it. A
+    row past L is one that rides a pipelined or scan_k chunk after its
+    budget: its write lands in its own row's last position, which no
+    token of its budget reads (plen + max_new <= L, so the last useful
+    step writes position L - 2), and K3 clamps its length to L."""
     vals = _to_pool(layer, k, v)
     if isinstance(cache_index, int):
         T = k.shape[2]
@@ -190,7 +195,7 @@ def write_dense_kv(layer, k: torch.Tensor, v: torch.Tensor,
             buf[:, :, cache_index:cache_index + T] = x
         return
     rows = torch.arange(k.shape[0], device=k.device)
-    pos = cache_index.long()
+    pos = cache_index.long().clamp(max=layer[0].shape[2] - 1)
     for buf, x in zip(layer, vals):
         buf[rows, :, pos] = x[:, :, 0]
 

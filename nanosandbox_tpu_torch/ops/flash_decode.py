@@ -68,7 +68,7 @@ __all__ = ["flash_decode", "flash_decode_paged", "flash_prefill_paged",
            "torch_prefill_attention_paged", "quantize_kv_rows",
            "quantize_kv_rows_int4", "unpack_int4", "decode_splits",
            "dense_decode_splits", "dense_decode_launch_shape",
-           "launches", "plain_cuda_calls", "reset_counts"]
+           "ticket_counters", "launches", "plain_cuda_calls", "reset_counts"]
 
 launches = {f"{fn}/{mode}": 0
             for fn in ("flash_decode", "flash_decode_paged",
@@ -361,11 +361,14 @@ def _sm_count(device: torch.device) -> int:
     return _sm_counts[idx]
 
 
-def _ticket_counters(device: torch.device, n: int) -> torch.Tensor:
+def ticket_counters(device: torch.device, n: int) -> torch.Tensor:
     """The decode kernels' (row, head) ticket counters, shared by K2 and
-    K3: int32 zeros, one buffer per device, made anew when a call has more
-    rows. The kernels leave them zero, so calls on one stream share them;
-    calls on two streams at once must not."""
+    K3: int32 zeros, one buffer per device (a tensor's device, with its
+    index), made anew when a call has more rows. The kernels leave them
+    zero, so calls on one stream share them; calls on two streams at once
+    must not. A CUDA graph keeps the pointer it captured, and a buffer
+    made anew frees the old one: whoever replays a graph holds the buffer
+    this returned before the capture (serve/engine.py does)."""
     buf = _tickets.get(device)
     if buf is None or buf.numel() < n:
         buf = _tickets[device] = torch.zeros(n, dtype=torch.int32,
@@ -454,7 +457,7 @@ def flash_decode(q, k, v, lengths, *, k_scale=None, v_scale=None,
     err = _build.library().nsb_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), lengths.data_ptr(), out.data_ptr(), _ptr(part),
-        _ticket_counters(q.device, B * H).data_ptr(), B, H, D, L, S,
+        ticket_counters(q.device, B * H).data_ptr(), B, H, D, L, S,
         float(sm_scale), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash decode")
@@ -503,7 +506,7 @@ def flash_decode_paged(q, k, v, block_table, lengths, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), block_table.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), _ptr(part),
-        _ticket_counters(q.device, B * H).data_ptr(), B, H, D, N, page, nb,
+        ticket_counters(q.device, B * H).data_ptr(), B, H, D, N, page, nb,
         S, Ls, float(sm_scale), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged decode")

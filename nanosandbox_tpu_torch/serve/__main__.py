@@ -52,12 +52,63 @@ def build_parser() -> argparse.ArgumentParser:
                     help="KV pool storage (default: the compute dtype); "
                          "int8 and int4 (two values per byte) keep one "
                          "f32 scale per position and quantize on write")
+    ap.add_argument("--no_pipeline", action="store_true",
+                    help="synchronous decode loop (dispatch, read back, "
+                         "retire); default keeps one decode chunk in "
+                         "flight ahead of the host")
+    ap.add_argument("--scan_k", type=int, default=1,
+                    help="decode steps one dispatch may run (one CUDA "
+                         "graph replay per chunk, chunk lengths 1, 2, 4, "
+                         "..., scan_k); finish detection lags the chunk. "
+                         "Tokens are the same for every value")
+    ap.add_argument("--decode_impl", default=None,
+                    choices=("auto", "pallas", "pallas_interpret", "xla"),
+                    help="the JAX engine's names: auto and pallas are the "
+                         "decode kernels; pallas_interpret and xla are "
+                         "accepted and select nothing")
+    ap.add_argument("--warmup", choices=("full", "buckets"), default="full",
+                    help="before binding the port, 'full' runs one "
+                         "admission wave for every (wave size, prefill "
+                         "bucket) pair, 'buckets' one single-request wave "
+                         "per bucket; both then dispatch every decode "
+                         "chunk length once")
     return ap
+
+
+def warm_up(engine, mode: str) -> int:
+    """The JAX server's warmup before the port binds: one admission wave
+    for every (admit rung x prefill bucket) pair ('full') or for rung 1
+    only ('buckets'), each prompt mapping to its bucket, with the prefix
+    cache flushed between waves so that no warmup prompt shortens the
+    next one's suffix or serves a hit to live traffic; then every decode
+    chunk length once over the parked slots, and the latency windows
+    cleared. Returns the waves run."""
+    rungs = engine.admit_buckets if mode == "full" else [1]
+    waves, lo = 0, 1
+    for bucket in engine.sched.buckets:
+        # A length in (previous bucket, bucket], leaving room for two new
+        # tokens so the wave's rows also reach the decode step; a bucket
+        # reachable only by one-token requests warms with one.
+        length, new_tokens = min(bucket, engine.max_len - 2), 2
+        lo, prev_lo = bucket + 1, lo
+        if length < prev_lo:
+            length, new_tokens = min(bucket, engine.max_len - 1), 1
+            if length < prev_lo:
+                continue
+        for k in rungs:
+            for _ in range(k):
+                engine.submit([0] * length, new_tokens)
+            engine.drain()
+            engine.reset_prefix_cache()
+            waves += 1
+    engine.warm_scan_rungs()
+    engine.reset_latency_stats()
+    return waves
 
 
 def build_server(argv: list[str] | None = None):
     """(server, loop, engine): the checkpoint loaded, the engine warmed
-    by one one-token request, its loop thread started, and the HTTP
+    (warm_up, --warmup), its loop thread started, and the HTTP
     server bound (not yet serving). The caller runs
     ``server.serve_forever()`` and, at the end, ``loop.stop()`` and
     ``server.server_close()``."""
@@ -82,12 +133,12 @@ def build_server(argv: list[str] | None = None):
                     paged=args.paged == "on",
                     kv_page_size=args.kv_page_size,
                     kv_pool_blocks=args.kv_pool_blocks or None,
-                    prefix_cache=not args.no_prefix_cache, device=device)
-    # One request through prefill and decode before the port binds, so
+                    prefix_cache=not args.no_prefix_cache,
+                    pipeline=not args.no_pipeline, scan_k=args.scan_k,
+                    decode_impl=args.decode_impl, device=device)
+    # Every prefill shape and decode chunk once before the port binds, so
     # no client pays for the libraries' first-call setup.
-    engine.submit([0], 2)
-    engine.drain()
-    engine.reset_latency_stats()
+    waves = warm_up(engine, args.warmup)
     loop = EngineLoop(engine)
     loop.start()
     server = make_server(
@@ -99,7 +150,11 @@ def build_server(argv: list[str] | None = None):
             f"{engine.kv_page_size}" if engine.paged else "dense pool")
     print(f"[serve] {cfg.n_layer}L/{cfg.n_embd}d on {engine.device}: "
           f"{engine.num_slots} slots x {engine.max_len} ctx, {pool} "
-          f"(kv_dtype={engine.kv_dtype}); listening on {args.host}:"
+          f"(kv_dtype={engine.kv_dtype}, pipeline="
+          f"{'on' if engine.pipeline else 'off'}, scan_k={engine.scan_k}, "
+          f"{engine.max_programs()['decode']} decode graphs, "
+          f"decode_impl={engine.decode_impl}); warmup {args.warmup}: "
+          f"{waves} prefill waves; listening on {args.host}:"
           f"{server.server_address[1]} (POST /generate, GET /healthz "
           "/stats)", file=sys.stderr, flush=True)
     return server, loop, engine

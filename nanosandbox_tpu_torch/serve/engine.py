@@ -1,9 +1,10 @@
 """Continuous-batching decode engine over a paged or dense KV pool.
 
-The counterpart of nanosandbox_tpu/serve/engine.py with ``--scan_k=1``,
-both pools, and every --kv_dtype (fp32, bf16, int8, int4; the quantized
-modes quantize on write, models/gpt.py). The paged pool (``paged=True``,
-the default):
+The counterpart of nanosandbox_tpu/serve/engine.py's single-chip engine:
+both pools, every --kv_dtype (fp32, bf16, int8, int4; the quantized
+modes quantize on write, models/gpt.py), and its decode dispatch modes
+(``pipeline``, ``scan_k``; below). The paged pool (``paged=True``, the
+default):
 
   * One per-layer K/V pool of (kv_pool_blocks + 1) blocks of
     ``kv_page_size`` positions (models/gpt.py init_paged_cache) and a
@@ -17,7 +18,7 @@ the default):
     row, and the paged prefill kernel attends over the row's chain with
     the resident prefix included. Padding rows carry all-sentinel
     tables, so their writes go to the drop block.
-  * One batched decode step over ALL slots per engine step: parked rows
+  * Batched decode steps over ALL slots: parked rows
     (pos 0, token 0, all-sentinel table) ride along, their writes go to
     the drop block and their tokens are never read. Per-slot decode
     operands live on the device; admission and release update them in
@@ -35,11 +36,42 @@ own position and attends with K3 (flash_decode); a parked row writes
 into its own row at position 0, as in JAX. There is no prefix cache.
 
 On both pools sampling is per-row and keyed by (seed, position)
-(sample.py): a request's tokens do not depend on the rest of its batch.
-The loop is synchronous — dispatch, read back, retire — which is the
-JAX engine's ``pipeline=False``; outputs are identical either way. The
-one-step pipeline, scan_k, speculative decoding, chunked prefill,
-preemption, deadlines and recovery are later slices of the port.
+(sample.py): a request's tokens do not depend on the rest of its batch,
+nor on how its steps are dispatched.
+
+Dispatch (the JAX engine's ``pipeline`` and ``scan_k``): one dispatch
+runs a CHUNK of k decode steps, k from the ``scan_rungs`` ladder (1,
+powers of two below scan_k, scan_k) chosen by ``_next_chunk``. A step
+body is the forward, the sample, the poison guard (a row with
+non-finite logits emits the out-of-vocab sentinel and keeps its input
+token) and the frontier advance, all on the device: the host reads
+nothing between the steps of a chunk. The chunk's (k, S) tokens land in
+a static device buffer and are copied, non-blocking, into one of two
+pinned host buffers, with an event recorded after the copy. With
+``pipeline`` (the default) one chunk stays in flight: the host
+dispatches chunk n + 1 before it retires chunk n (``_retire``), so the
+device works while the host reads back, retires and admits. Finish
+detection lags by up to a chunk: a row that reached its budget or eos
+rides on, its surplus tokens are cut at readback, and its writes land in
+its own private positions (dense: clamped to the row's last position,
+models/gpt.py write_dense_kv) or the drop block (paged, past its chain).
+
+On CUDA each (rung, filtered) chunk is captured once, in the
+constructor over the parked (idle) slot state, as a torch.cuda.CUDAGraph
+of k step bodies, and a dispatch is one replay; every graph draws on one
+memory pool. ``filtered`` is the host's knowledge that some live row
+truncates its distribution (top_k / top_p): the sort is its own program,
+as in sample_token_rows. The engine has no eager path on the card: a
+capture that fails raises (only a comparison harness runs the body
+eagerly there, through the private ``_replay``). The per-slot state
+tensors (``_pos``, ``_tok``, ``_temp``, ``_topk``, ``_topp``, ``_seed``,
+``_live``, ``_table``), the pool, the token buffer and the decode
+kernels' ticket buffer keep their addresses for the engine's life;
+admission and release write into them in place, ordered on the stream
+behind any chunk in flight. On the CPU
+the same body runs eagerly k times. Speculative decoding, chunked
+prefill, preemption, deadlines and recovery are later slices of the
+port.
 """
 
 from __future__ import annotations
@@ -58,6 +90,8 @@ from nanosandbox_tpu_torch.models.gpt import (GPT, init_cache,
                                               init_paged_cache, kv_mode,
                                               scatter_cache_rows)
 from nanosandbox_tpu_torch.ops import _build
+from nanosandbox_tpu_torch.ops import attention as at
+from nanosandbox_tpu_torch.ops import flash_decode as fd
 from nanosandbox_tpu_torch.sample import sample_token_rows
 from nanosandbox_tpu_torch.serve.paged import (Allocation, BlockPool,
                                                prefix_digests)
@@ -102,6 +136,37 @@ class _Active:
     first_token_t: float = 0.0
 
 
+# The JAX engine's decode_impl names. 'auto' and 'pallas' name the
+# decode kernels (K2, K3), which a CUDA tensor always runs and a CPU
+# tensor never does; 'pallas_interpret' and 'xla' name JAX
+# implementations and are accepted but inert, as attention_impl's are.
+DECODE_IMPLS = ("auto", "pallas", "pallas_interpret", "xla")
+
+
+def resolve_decode_impl(impl: Optional[str]) -> str:
+    """None and 'auto' -> 'pallas'; the other names pass through."""
+    impl = impl or "auto"
+    if impl not in DECODE_IMPLS:
+        raise ValueError(f"unknown decode impl: {impl!r} (expected one of "
+                         f"{DECODE_IMPLS})")
+    return "pallas" if impl == "auto" else impl
+
+
+def scan_ladder(scan_k: int) -> List[int]:
+    """The chunk lengths one dispatch may run: 1, the powers of two below
+    scan_k, then scan_k (JAX's scan_rungs)."""
+    if scan_k < 1:
+        raise ValueError(f"scan_k must be >= 1, got {scan_k}")
+    rungs = [1]
+    r = 2
+    while r < scan_k:
+        rungs.append(r)
+        r *= 2
+    if scan_k > 1:
+        rungs.append(scan_k)
+    return rungs
+
+
 class Engine:
     """submit() / step() / drain() over a KV pool on ``device``.
 
@@ -116,18 +181,35 @@ class Engine:
     kv_page_size / kv_pool_blocks / prefix_cache : the paged pool, as in
         the JAX engine (default pool: num_slots * max_len / page blocks);
         unused by the dense pool.
+    pipeline : keep one decode chunk in flight ahead of the host
+        (default); False is the synchronous loop (dispatch, read back,
+        retire). Tokens are the same either way.
+    scan_k : decode steps one dispatch may run (module docstring);
+        tokens are the same for every value.
+    decode_impl : a name of DECODE_IMPLS (default 'auto').
     device : 'auto' (the GPU; raises without one), 'cuda' or 'cpu'.
     """
+
+    # A dispatch's fixed cost in units of one step's device time: the
+    # chunk policy's rate of exchange between fewer dispatches and lane
+    # steps past a row's budget (JAX's value).
+    scan_dispatch_cost_steps = 2.0
 
     def __init__(self, model: GPT, *, num_slots: int = 8,
                  max_len: Optional[int] = None,
                  kv_dtype: Optional[str] = None, paged: bool = True,
                  kv_page_size: int = 16,
                  kv_pool_blocks: Optional[int] = None,
-                 prefix_cache: bool = True, device: str = "auto"):
+                 prefix_cache: bool = True, pipeline: bool = True,
+                 scan_k: int = 1, decode_impl: Optional[str] = None,
+                 device: str = "auto"):
         if paged and kv_page_size < 1:
             raise ValueError(f"kv_page_size must be >= 1, got "
                              f"{kv_page_size}")
+        self.scan_rungs = scan_ladder(scan_k)
+        self.scan_k = int(scan_k)
+        self.pipeline = bool(pipeline)
+        self.decode_impl = resolve_decode_impl(decode_impl)
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         cfg = self.cfg = model.cfg
@@ -154,28 +236,47 @@ class Engine:
             self.kv_page_size = self.slot_blocks = self.kv_pool_blocks = 0
             self._pool = init_cache(cfg, num_slots, self.max_len, kv_dtype,
                                     device=self.device)
-        self._reset_slot_state()
-        if self.device.type == "cuda":
-            _build.library()       # build the kernels before any request
+        self._init_slot_state()
 
         self._active: Dict[int, _Active] = {}        # slot -> state
         self._pending: List[Result] = []             # max_new_tokens == 0
         self._submit_t: Dict[int, float] = {}
         self._rid = itertools.count()
-        self.steps = 0
+        # The dispatched chunk not yet retired: (host buffer index,
+        # {slot: rid} at dispatch, chunk length).
+        self._inflight: Optional[tuple] = None
+        self.steps = 0                               # decode dispatches
+        self.chunk_steps = 0            # decode steps those dispatches ran
         self.waves = 0
         self.admitted = 0
         self.completed = 0
         self.tokens_generated = 0
         self.rejected: Dict[str, int] = {}
+        self.host_dispatches = {"decode": 0}
         self._ttft: deque = deque(maxlen=4096)
         self._tpot: deque = deque(maxlen=4096)
         self._rate: deque = deque(maxlen=256)        # (t, tokens read back)
+        # On CUDA, per (rung, filtered): the captured chunk, its replays,
+        # and the kernel launches and plain-version calls its capture
+        # recorded (a replay runs them again, uncounted by the wrappers);
+        # and the bytes the captures reserved.
+        self._graphs: Dict[tuple, torch.cuda.CUDAGraph] = {}
+        self.graph_replays: Dict[tuple, int] = {}
+        self.graph_launches: Dict[tuple, Dict[str, int]] = {}
+        self.graph_plain_calls: Dict[tuple, Dict[str, int]] = {}
+        self.graph_pool_bytes = 0
+        self._replay = self.device.type == "cuda"
+        if self._replay:
+            _build.library()       # build the kernels before any request
+            self._capture_graphs()
 
     # ------------------------------------------------------------------
     # device slot state
     # ------------------------------------------------------------------
-    def _reset_slot_state(self) -> None:
+    def _init_slot_state(self) -> None:
+        """The per-slot decode operands, parked, and the chunk's token
+        buffers. Every tensor here keeps its address for the engine's
+        life (the graphs point at them)."""
         S, dev = self.num_slots, self.device
         self._pos = torch.zeros(S, dtype=torch.int32, device=dev)
         self._tok = torch.zeros(S, dtype=torch.int64, device=dev)
@@ -187,6 +288,17 @@ class Engine:
         self._table = (torch.full((S, self.slot_blocks), self.kv_pool_blocks,
                                   dtype=torch.int32, device=dev)
                        if self.paged else None)
+        self._chunk_toks = torch.zeros((self.scan_k, S), dtype=torch.int64,
+                                       device=dev)
+        # Two host buffers, used in turn, so the chunk in flight and the
+        # one being retired never share one; each with the event recorded
+        # after its copy.
+        cuda = dev.type == "cuda"
+        self._host_toks = [torch.zeros((self.scan_k, S), dtype=torch.int64,
+                                       pin_memory=cuda) for _ in range(2)]
+        self._copied = ([torch.cuda.Event() for _ in range(2)] if cuda
+                        else [None, None])
+        self._next_buf = 0
 
     def _release_row(self, slot: int) -> None:
         """Park one slot: pos 0, token 0, greedy and, paged, the whole
@@ -260,17 +372,44 @@ class Engine:
         return rid
 
     def has_work(self) -> bool:
-        return bool(self._active or self.sched.queued or self._pending)
+        """Requests queued, active or pending, or a chunk in flight."""
+        return bool(self._active or self.sched.queued or self._pending
+                    or self._inflight is not None)
 
     def step(self) -> List[Result]:
-        """Admit what fits (one batched prefill per wave), run one batched
-        decode step, retire it, and backfill the slots it freed. Returns
-        the requests that finished during this call."""
+        """Admit what fits (one batched prefill per wave), dispatch one
+        decode chunk, retire the previous chunk (pipeline) or this one,
+        and backfill the slots the retire freed; with nothing left to
+        dispatch, retire the chunk in flight. Returns the requests that
+        finished during this call."""
         finished, self._pending = self._pending, []
         with torch.no_grad():
             self._admit_waves(finished)
-            if self._active:
-                self._decode_step(finished)
+            retired = False
+            chunk_len = self._next_chunk() if self._active else 0
+            if chunk_len:
+                buf = self._dispatch(chunk_len, any(
+                    st.req.filters for st in self._active.values()))
+                self.steps += 1
+                self.host_dispatches["decode"] += 1
+                snapshot = {slot: st.req.rid
+                            for slot, st in self._active.items()}
+                prev, self._inflight = self._inflight, (buf, snapshot,
+                                                        chunk_len)
+                if not self.pipeline:
+                    prev, self._inflight = self._inflight, None
+                if prev is not None:
+                    self._retire(prev, finished)
+                    retired = True
+            elif self._inflight is not None:
+                # Every live row's budget is covered by computed tokens:
+                # drain the lagging readback.
+                prev, self._inflight = self._inflight, None
+                self._retire(prev, finished)
+                retired = True
+            if retired:
+                # The slots the retire freed backfill now; their prefill
+                # queues behind the chunk in flight.
                 self._admit_waves(finished)
         return finished
 
@@ -280,6 +419,33 @@ class Engine:
         while self.has_work():
             out.extend(self.step())
         return out
+
+    def warm_scan_rungs(self) -> None:
+        """Dispatch every rung once (each filtered variant too) over the
+        parked slot state: parked rows write to their own position 0
+        (dense) or the drop block (paged), keep their frontiers, and
+        their tokens are never read. Idle-only: on a busy engine the
+        dispatches would advance live frontiers with no readback."""
+        if self._active or self._inflight is not None:
+            raise RuntimeError(
+                "warm_scan_rungs on a busy engine: active rows' frontiers "
+                "would advance without a readback")
+        with torch.no_grad():
+            for r in self.scan_rungs:
+                for filtered in (False, True):
+                    self._copied_wait(self._dispatch(r, filtered))
+
+    def reset_prefix_cache(self) -> None:
+        """Drop every cached prefix block back to the free list (and zero
+        the hit/miss ledger). Idle-only: active requests hold references
+        into the radix cache. A no-op on the dense pool."""
+        if not self.paged:
+            return
+        if self._active:
+            raise RuntimeError(
+                "reset_prefix_cache on a busy engine: active requests hold "
+                "references into the radix cache")
+        self.block_pool.reset_cache()
 
     # ------------------------------------------------------------------
     # admission
@@ -409,30 +575,149 @@ class Engine:
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
-    def _decode_step(self, finished: List[Result]) -> None:
-        """One token for every slot at its own frontier, then retire."""
-        logits = self.model(self._tok[:, None], cache=self._pool,
-                            cache_index=self._pos,
-                            block_table=self._table)[:, 0]
-        nxt = sample_token_rows(
-            logits, seeds=self._seed, positions=self._pos + 1,
-            temperature=self._temp, top_k=self._topk, top_p=self._topp,
-            filtered=any(st.req.filters for st in self._active.values()))
-        ok = torch.isfinite(logits).all(dim=-1)
-        self._pos += self._live.int()
-        self._tok = torch.where(self._live & ok, nxt, self._tok)
-        host = torch.where(ok, nxt, self.cfg.vocab_size).cpu().tolist()
-        self.steps += 1
+    def _next_chunk(self) -> int:
+        """The next dispatch's chunk length from scan_rungs, or 0 when
+        every live row's budget is already covered by computed tokens
+        (read back, or in the chunk in flight). The rung maximises useful
+        lane steps per unit of time, sum_rows min(remaining, r) /
+        (scan_dispatch_cost_steps + r), ties to the larger rung (JAX's
+        policy, without its brownout cap). Chunks are dispatch
+        boundaries, not sampling state: the choice never changes a
+        token."""
+        snapshot, ahead = ((self._inflight[1], self._inflight[2])
+                           if self._inflight is not None else ({}, 0))
+        rems = []
+        for slot, st in self._active.items():
+            rem = st.req.max_new_tokens - len(st.tokens)
+            if snapshot.get(slot) == st.req.rid:
+                rem -= ahead
+            if rem > 0:
+                rems.append(rem)
+        if not rems:
+            return 0
+        cost = self.scan_dispatch_cost_steps
+        best, best_score = 1, -1.0
+        for r in self.scan_rungs:
+            score = sum(min(rem, r) for rem in rems) / (cost + r)
+            if score >= best_score:
+                best, best_score = r, score
+        return best
+
+    def _steps(self, k: int, filtered: bool) -> None:
+        """k decode steps for every slot at its own frontier, on the
+        device alone: step j's tokens (the out-of-vocab sentinel for a row
+        whose logits are not finite) go to row j of the chunk buffer;
+        live rows advance and take their token as the next input (a
+        poisoned row keeps its input, in range for the embedding). What a
+        CUDA graph of the chunk captures."""
+        for j in range(k):
+            logits = self.model(self._tok[:, None], cache=self._pool,
+                                cache_index=self._pos,
+                                block_table=self._table)[:, 0]
+            nxt = sample_token_rows(
+                logits, seeds=self._seed, positions=self._pos + 1,
+                temperature=self._temp, top_k=self._topk, top_p=self._topp,
+                filtered=filtered)
+            ok = torch.isfinite(logits).all(dim=-1)
+            self._chunk_toks[j].copy_(torch.where(ok, nxt,
+                                                  self.cfg.vocab_size))
+            self._tok.copy_(torch.where(self._live & ok, nxt, self._tok))
+            self._pos += self._live.int()
+
+    def _capture_graphs(self) -> None:
+        """Capture every (rung, filtered) chunk over the parked slot state,
+        after one eager step of each variant on the capture stream (the
+        libraries' first-call setup: cuBLAS's workspace, the sort's).
+        Records each capture's kernel launches and plain-version calls
+        (the wrappers' counts, which a replay does not tick) and the bytes
+        the captures reserved. A capture that fails raises."""
+        dev = self._tok.device
+        # The decode kernels' ticket buffer the captures point at.
+        self._tickets = fd.ticket_counters(
+            dev, self.num_slots * self.cfg.n_head)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.no_grad():
+            with torch.cuda.stream(stream):
+                for filtered in (False, True):
+                    self._steps(1, filtered)
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            pool = torch.cuda.graph_pool_handle()
+            for r in self.scan_rungs:
+                for filtered in (False, True):
+                    key = (r, filtered)
+                    before = _wrapper_counts()
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph, pool=pool, stream=stream):
+                        self._steps(r, filtered)
+                    self._graphs[key] = graph
+                    self.graph_replays[key] = 0
+                    self.graph_launches[key], self.graph_plain_calls[key] = (
+                        {name: n - b[name] for name, n in a.items()
+                         if n > b[name]}
+                        for a, b in zip(_wrapper_counts(), before))
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+
+    def _dispatch(self, k: int, filtered: bool) -> int:
+        """Run one chunk of k steps (one graph replay on CUDA) and start
+        its tokens' copy into the next host buffer; returns the buffer's
+        index, which _copied_wait waits on."""
+        if self._replay:
+            self._graphs[(k, filtered)].replay()
+            self.graph_replays[(k, filtered)] += 1
+        else:
+            self._steps(k, filtered)
+        self.chunk_steps += k
+        i = self._next_buf
+        self._next_buf ^= 1
+        self._host_toks[i][:k].copy_(self._chunk_toks[:k], non_blocking=True)
+        if self._copied[i] is not None:
+            self._copied[i].record()
+        return i
+
+    def _copied_wait(self, i: int) -> torch.Tensor:
+        """Host buffer i once the copy into it is done (this chunk's
+        event only: work queued behind it keeps running)."""
+        if self._copied[i] is not None:
+            self._copied[i].synchronize()
+        return self._host_toks[i]
+
+    def _retire(self, inflight: tuple, finished: List[Result]) -> None:
+        """Read one dispatched chunk's tokens back and apply the lagged
+        finish decisions. A slot whose occupant changed since dispatch
+        (its request finished and the slot was reused) is skipped: its
+        tokens belong to nobody. A live row walks its chunk in order and
+        stops at the first of: its budget reached (the surplus is
+        dropped), eos (kept, then nothing after it), or the out-of-vocab
+        sentinel (the row fails with the clean tokens before it)."""
+        i, snapshot, k = inflight
+        toks = self._copied_wait(i)[:k].tolist()
         now = time.monotonic()
+        vocab = self.cfg.vocab_size
         n_live = 0
-        for slot, st in list(self._active.items()):
-            tok = host[slot]
-            if not 0 <= tok < self.cfg.vocab_size:
-                finished.append(self._finish(st, "failed"))
+        for slot, rid in snapshot.items():
+            st = self._active.get(slot)
+            if st is None or st.req.rid != rid:
                 continue
-            st.tokens.append(tok)
-            n_live += 1
-            done = self._maybe_finish(st)
+            poisoned = False
+            for row in toks:
+                if len(st.tokens) >= st.req.max_new_tokens:
+                    break
+                tok = row[slot]
+                if not 0 <= tok < vocab:
+                    poisoned = True
+                    break
+                st.tokens.append(tok)
+                n_live += 1
+                if st.req.eos_id is not None and tok == st.req.eos_id:
+                    break
+            done = (self._finish(st, "failed") if poisoned
+                    else self._maybe_finish(st))
             if done is not None:
                 finished.append(done)
         self.tokens_generated += n_live
@@ -485,9 +770,13 @@ class Engine:
         return sum(n for _, n in ring[1:]) / (ring[-1][0] - ring[0][0])
 
     def reset_latency_stats(self) -> None:
+        """Clear the TTFT / TPOT / rate windows and the pool's hit
+        ledger, so that they describe the traffic after a warmup."""
         self._ttft.clear()
         self._tpot.clear()
         self._rate.clear()
+        if self.block_pool is not None:
+            self.block_pool.reset_ledger()
 
     def stats(self) -> dict:
         return {
@@ -510,8 +799,40 @@ class Engine:
             "rejected": dict(self.rejected),
             "prefill_waves": self.waves,
             "decode_steps": self.steps,
+            "decode_chunk_steps": self.chunk_steps,
+            "decode_attention_impl": self.decode_impl,
+            "pipeline": self.pipeline,
+            "scan_k": self.scan_k,
+            "scan_rungs": list(self.scan_rungs),
+            "host_dispatches": dict(self.host_dispatches),
+            "tokens_per_dispatch": (
+                self.tokens_generated / self.host_dispatches["decode"]
+                if self.host_dispatches["decode"] else None),
+            "graph_replays": {_graph_name(g): n
+                              for g, n in self.graph_replays.items()},
+            "graph_pool_bytes": (self.graph_pool_bytes if self._graphs
+                                 else None),
             "tokens_generated": self.tokens_generated,
             "decode_tokens_per_sec": self._recent_rate(),
             "ttft_s": self._pcts(self._ttft),
             "tpot_s": self._pcts(self._tpot),
         }
+
+    def max_programs(self) -> dict:
+        """The decode programs: the CUDA graphs captured, one per (rung,
+        filtered) pair (none on the CPU, where the body runs eagerly).
+        JAX's counterpart counts one compiled program per rung."""
+        return {"decode": len(self._graphs)}
+
+
+def _wrapper_counts() -> tuple:
+    """The kernel wrappers' counts, copied: (launches, plain-version
+    calls on the card)."""
+    return ({**fd.launches, **at.launches},
+            {**fd.plain_cuda_calls, **at.plain_cuda_calls})
+
+
+def _graph_name(key: tuple) -> str:
+    """'<rung>' or '<rung>/filtered': a graph's name in stats()."""
+    rung, filtered = key
+    return f"{rung}/filtered" if filtered else str(rung)

@@ -45,6 +45,7 @@ class EngineLoop(threading.Thread):
         self._cond = threading.Condition()
         self._inbox: list[_Pending] = []
         self._by_rid: dict[int, _Pending] = {}
+        self._taken: list[_Pending] = []     # being handed to the engine
         self._stopping = False
         # Set when the loop dies on an engine error: /healthz goes red.
         self.dead: Optional[str] = None
@@ -88,6 +89,22 @@ class EngineLoop(threading.Thread):
                     "dead": self.dead}
 
     def run(self) -> None:
+        try:
+            self._serve()
+        except Exception as e:
+            # An engine failure wedges every request it holds, the chunk
+            # in flight's included: fail all waiters now instead of
+            # letting them time out, mark the loop dead so /healthz goes
+            # red, and exit.
+            with self._cond:
+                self.dead = f"{type(e).__name__}: {e}"
+                self._fail_all(RuntimeError(
+                    f"engine loop died: {self.dead}"))
+            raise
+
+    def _serve(self) -> None:
+        """Hand the inbox to the engine and step while it has work (a
+        chunk in flight counts: Engine.has_work)."""
         while True:
             with self._cond:
                 while (not self._stopping and not self._inbox
@@ -96,41 +113,30 @@ class EngineLoop(threading.Thread):
                 if self._stopping:
                     self._fail_all(RuntimeError("server shutting down"))
                     return
-                inbox, self._inbox = self._inbox, []
-            for p in inbox:
+                self._taken, self._inbox = self._inbox, []
+            for p in self._taken:
                 try:
                     rid = self.engine.submit(**p.kwargs)
                     self._by_rid[rid] = p
                 except ValueError as e:     # admission rules -> the caller
                     p.error = e
                     p.done.set()
-            try:
-                results = self.engine.step()
-            except Exception as e:
-                # An engine failure wedges every in-flight request: fail
-                # all waiters now instead of letting them time out, mark
-                # the loop dead so /healthz goes red, and exit.
-                with self._cond:
-                    self.dead = f"{type(e).__name__}: {e}"
-                    self._fail_all(RuntimeError(
-                        f"engine loop died: {self.dead}"))
-                raise
-            for res in results:
+            self._taken = []
+            for res in self.engine.step():
                 p = self._by_rid.pop(res.rid, None)
                 if p is not None:
                     p.result = res
                     p.done.set()
 
     def _fail_all(self, err: Exception) -> None:
-        """Signal every waiter (call with self._cond held)."""
-        for p in self._inbox:
-            p.error = err
-            p.done.set()
-        self._inbox = []
-        for p in self._by_rid.values():
-            p.error = err
-            p.done.set()
-        self._by_rid = {}
+        """Signal every waiter (call with self._cond held): the inbox, the
+        submissions being handed over, and every request the engine
+        holds."""
+        for p in (*self._inbox, *self._taken, *self._by_rid.values()):
+            if not p.done.is_set():
+                p.error = err
+                p.done.set()
+        self._inbox, self._taken, self._by_rid = [], [], {}
 
 
 def make_server(host: str, port: int, loop: EngineLoop,

@@ -3,7 +3,8 @@ allocator over fixed-size KV blocks plus a refcounted radix prefix cache.
 
 This package's own copy of nanosandbox_tpu/serve/paged.py, cut to what
 the serving slice runs (migration adoption, preemption donation and the
-debug views are later slices' work). Plain Python over block *ids*; the
+debug views are later slices' work; the cache and ledger resets that
+warmup needs are here). Plain Python over block *ids*; the
 K/V bytes live in the device pool (models/gpt.py init_paged_cache).
 
 Allocation contract — full reservation at admission: a request is
@@ -249,6 +250,29 @@ class BlockPool:
                                       alloc.table, alloc.n_hit)
         self._free.extend(dup)
         self._free.extend(alloc.table[full:])
+
+    def reset_cache(self) -> None:
+        """Evict every cached block back to the free list and zero the
+        hit/miss ledger. Callers must ensure no live allocation holds
+        cache references (the engine checks it is idle first): with every
+        refcount zero, repeated leaf eviction drains the whole trie."""
+        if self.cache is None:
+            return
+        self._free.extend(self.cache.evict(self.num_blocks))
+        self.hit_tokens = 0
+        self.miss_tokens = 0
+        self.hit_requests = 0
+
+    def reset_ledger(self) -> None:
+        """Zero the telemetry counters (hit/miss tokens and requests,
+        stalls, evictions) without touching allocation state, so that
+        hit rates describe the traffic after a warmup (the engine's
+        reset_latency_stats)."""
+        self.hit_tokens = 0
+        self.miss_tokens = 0
+        self.hit_requests = 0
+        self.stall_steps = 0
+        self.evicted_blocks = 0
 
     def stats(self) -> dict:
         cached = len(self.cache) if self.cache is not None else 0
