@@ -1,10 +1,10 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases=2,3,7,9,13,14]
+    python3 chip_smoke.py [--phases=2,3,7,9,13,14,15]
 
 Phases (each prints what it found; any failure exits non-zero; --phases
-runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13 or
-14, and prints no result line):
+runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13,
+14 or 15, and prints no result line):
 
   1. device   torch / CUDA versions, the card's name and power limit;
   2. build    the CUDA kernels from nanosandbox_tpu_torch/csrc (into
@@ -178,7 +178,31 @@ runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13 or
               (dense) 8 x n_layer times, and no plain version runs on
               the card; then the bf16 engine's decode wall per step and
               device idle share in each mode (serve/profile.py
-              measure_decode), beside the card's name and power limit.
+              measure_decode), beside the card's name and power limit;
+ 15. scheduling  phase 4's fp32 model through the paged engine at
+              prefill_chunk 128 on phase 4's prompts and a 900-token one
+              (tokens equal to the same engine's without chunking; K1
+              launches, traced and counted, equal its prefill dispatches,
+              waves and pieces, x n_layer; a decoding row takes tokens
+              between the long prompt's first piece and its last), then
+              preemption on 2 slots: paged, two batch requests and an
+              interactive one with a 0.05 s deadline (a preemption, at
+              least one block donated, the resume a prefix hit) and a
+              request whose 1e-4 s deadline expires in the queue (shed),
+              dense with a preemption forced at step 8; tokens equal to
+              a 4-slot twin without preemption, no resume record left,
+              no plain version on the card; then the bf16 server at
+              --prefill_chunk=256 (phase 5's requests with slo_class,
+              priority and deadline_s, and 8 blockers, two of them
+              chunked, answer 200; with every slot busy a 1e-4 s
+              deadline answers 429 with Retry-After; /stats carries the
+              scheduling keys; the share of tokens equal to phase 5's
+              answers printed); last, the bf16 paged engine at the CLI's
+              defaults with 4 rows decoding when four 512-token prompts
+              arrive, at prefill_chunk off, 256 and 128: the longest and
+              median step wall while they are admitted, the device ms a
+              step (a traced pass) and their TTFTs, beside the card's
+              name and power limit.
 
 The last line is {"ok": true, "device": {...}}; the line before it is a
 JSON object with one entry per kernel instance timed (K1 twice for each
@@ -198,6 +222,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -1252,7 +1277,8 @@ def check_server(fd, smi: str, flags=(), need=("flash_decode_paged/bf16",
           f"TPOT p50 {stats['tpot_s']['p50'] * 1e3:.3f} ms; decode steps "
           f"{stats['decode_steps']}, prefill waves {stats['prefill_waves']}")
     return {"launches": launches, "plain_cuda_calls": plain,
-            "stats": stats, "wall_s": wall, "tokens": total}
+            "stats": stats, "wall_s": wall, "tokens": total,
+            "answers": [a[1]["tokens"] for a in answers]}
 
 
 # ---------------------------------------------------------------------------
@@ -2713,9 +2739,408 @@ def check_dispatch(fd, smi: str) -> dict:
     return {"runs": runs, "times": times}
 
 
-# Phases that stand alone, for a partial run (--phases=2,3,7,9,13,14;
+# ---------------------------------------------------------------------------
+# phase 15: scheduling (chunked prefill, preemption, deadlines, 429s)
+# ---------------------------------------------------------------------------
+
+CHUNK_LONG = 900        # the long prompt of phase 15's chunked fp32 run
+
+
+def wrap_release(engine) -> list:
+    """Record the blocks each preemption donates (BlockPool.release with
+    ``generated``) on a paged engine; returns the list it appends to."""
+    donated: list = []
+    release = engine.block_pool.release
+
+    def counted(alloc, **kw):
+        n = release(alloc, **kw)
+        if kw.get("generated"):
+            donated.append(n)
+        return n
+
+    engine.block_pool.release = counted
+    return donated
+
+
+def sched_counts(fd, at, engine) -> dict:
+    """The run's kernel launches and plain-version calls on the card
+    (need_launches' input), with the flash forward's launches."""
+    launches = counted_launches(fd, engine)
+    launches["flash_attention_fwd"] = at.launches["flash_attention_fwd"]
+    return {"launches": launches,
+            "plain_cuda_calls": counted_plain(fd, at, engine)}
+
+
+def check_chunked_fp32(fd, at, model, prompts) -> None:
+    """Phase 4's fp32 engine (8 slots x 1024) at prefill_chunk 128 on
+    phase 4's prompts and a CHUNK_LONG-token one, stepped by hand under
+    a trace: tokens equal the same engine's without chunking, traced K1
+    launches equal its prefill dispatches (waves and pieces) x n_layer,
+    and a decoding row takes tokens between the long prompt's first
+    piece and its last."""
+    from nanosandbox_tpu_torch.serve.engine import Engine
+
+    rng = np.random.default_rng(SEED + 15)
+    prompts = prompts + [[int(t) for t in rng.integers(
+        0, prompt_vocab(model.cfg), CHUNK_LONG)]]
+    plain = run_engine(model, prompts)
+    engine = Engine(model, num_slots=8, max_len=1024, prefill_chunk=128,
+                    device=DEVICE)
+    fd.reset_counts()
+    at.reset_counts()
+    rids = [engine.submit(p, ENGINE_NEW) for p in prompts]
+    long_rid, done, trace = rids[-1], {}, []
+
+    def drive():
+        while engine.has_work():
+            for r in engine.step():
+                done[r.rid] = r
+            lane = next((e for e in engine._chunking
+                         if e.req.rid == long_rid), None)
+            trace.append((lane.done if lane else None,
+                          engine.tokens_generated))
+        sync()
+
+    t0 = time.monotonic()
+    traced = traced_kernels(drive)
+    wall = time.monotonic() - t0
+    run = sched_counts(fd, at, engine)
+    tokens = [done[r].tokens for r in rids]
+    dispatches = engine.waves + engine.prefill_chunks
+    want_k1 = dispatches * model.cfg.n_layer
+    in_lane = [i for i, (d, _) in enumerate(trace) if d is not None]
+    between = (sum(trace[i + 1][1] > trace[i][1]
+                   for i in in_lane[:-1]) if in_lane else 0)
+    graphs = graph_trace("the chunked fp32 engine", engine)
+    bad = sum(a != b for a, b in zip(tokens, plain["tokens"]))
+    print(f"  fp32 paged, prefill_chunk 128, prompts "
+          f"{[len(p) for p in prompts]}: {engine.waves} waves + "
+          f"{engine.prefill_chunks} pieces, traced K1 {traced['K1']} "
+          f"(counted {run['launches'].get('flash_prefill_paged/fp32')}; "
+          f"want {dispatches} x {model.cfg.n_layer} = {want_k1}); the "
+          f"{CHUNK_LONG}-token prompt in the lane for {len(in_lane)} steps, "
+          f"decode tokens retired in {between} of them; token mismatches "
+          f"vs prefill_chunk off: {bad}; {wall:.3f} s; graphs {graphs}")
+    if bad:
+        fail("phase 15: chunked prefill changed the fp32 engine's tokens")
+    if len(in_lane) < 2 or not between:
+        fail(f"phase 15: no decode token between the long prompt's pieces "
+             f"({trace})")
+    need_launches("phase 15 chunked fp32", run, (
+        "flash_decode_paged/fp32", "flash_prefill_paged/fp32"))
+    if not engine.prefill_chunks or traced["K1"] != want_k1 \
+            or run["launches"].get("flash_prefill_paged/fp32") != want_k1:
+        fail(f"phase 15: K1 launches {traced['K1']} traced / "
+             f"{run['launches']} counted, want {want_k1}")
+    del engine
+
+
+def check_preemption_fp32(fd, at, model, paged: bool) -> None:
+    """Preemption on phase 4's fp32 model over 2 slots. Paged: two batch
+    requests and, once they decode, an interactive one with a deadline
+    (a natural preemption that donates blocks and resumes as a prefix
+    hit), then a request whose deadline expires in the queue (shed).
+    Dense: a preemption forced at a fixed step. Tokens equal a 4-slot
+    twin's without preemption; no plain version runs on the card."""
+    from nanosandbox_tpu_torch.serve.engine import Engine
+
+    rng = np.random.default_rng(SEED + 16)
+    vocab = prompt_vocab(model.cfg)
+    batch = [[int(t) for t in rng.integers(0, vocab, 64)] for _ in (0, 1)]
+    hi = [int(t) for t in rng.integers(0, vocab, 32)]
+    name = "paged" if paged else "dense"
+    engine = Engine(model, num_slots=2, max_len=1024, paged=paged,
+                    device=DEVICE)
+    donated = wrap_release(engine) if paged else []
+    fd.reset_counts()
+    at.reset_counts()
+    zero_replays(engine)
+    rids = [engine.submit(p, 200, slo_class="batch") for p in batch]
+    done: dict = {}
+    for _ in range(8):
+        done.update((r.rid, r) for r in engine.step())
+    shed_rid = None
+    if paged:
+        rids.append(engine.submit(hi, 16, slo_class="interactive",
+                                  deadline_s=0.05))
+        while not engine.preemptions and engine.has_work():
+            done.update((r.rid, r) for r in engine.step())
+        shed_rid = engine.submit([1, 2, 3], 8, slo_class="batch",
+                                 deadline_s=1e-4)
+    else:
+        victim = max(engine._active.values(), key=lambda st: st.req.rid)
+        engine._preempt(victim)
+    while engine.has_work():
+        done.update((r.rid, r) for r in engine.step())
+    sync()
+    run = sched_counts(fd, at, engine)
+    st = engine.stats()
+    twin = Engine(model, num_slots=4, max_len=1024, paged=paged,
+                  preemption=False, device=DEVICE)
+    tids = [twin.submit(p, 200) for p in batch]
+    if paged:
+        tids.append(twin.submit(hi, 16))
+    tw = {r.rid: r.tokens for r in twin.drain()}
+    bad = sum(done[r].tokens != tw[t] for r, t in zip(rids, tids))
+    hits = st["kv_pool"]["prefix_hit_requests"] if paged else None
+    print(f"  fp32 {name}, 2 slots: preemptions {st['preemptions']}, "
+          f"blocks donated {donated}, prefix-hit resumes {hits}, "
+          f"shed {st['shed']} (deadline 1e-4 s in the queue: "
+          f"{done[shed_rid].finish_reason if paged else 'n/a'}), "
+          f"resume records left {len(engine._resumed)}; token "
+          f"mismatches vs the 4-slot twin without preemption: {bad}; "
+          f"launches {run['launches']}")
+    if bad or st["preemptions"] < 1 or engine._resumed:
+        fail(f"phase 15 {name} preemption: {bad} mismatches, "
+             f"{st['preemptions']} preemptions")
+    if paged and (not donated or max(donated) < 1 or hits < 1
+                  or done[shed_rid].finish_reason != "shed"):
+        fail(f"phase 15: donated {donated}, prefix hits {hits}, the "
+             f"expired request {done[shed_rid].finish_reason}")
+    if paged:
+        engine.block_pool.check([])
+    need_launches(f"phase 15 {name} preemption", run, (
+        ("flash_decode_paged/fp32", "flash_prefill_paged/fp32")
+        if paged else ("flash_decode/fp32", "flash_attention_fwd")))
+    del engine, twin
+    torch.cuda.empty_cache()
+
+
+def check_sched_server(fd, smi: str, unchunked: list) -> None:
+    """The bf16 124M server at --prefill_chunk=256: phase 5's requests
+    with slo_class, priority and deadline_s answer 200 (their tokens'
+    share equal to ``unchunked``, phase 5's answers, printed); with all 8
+    slots busy, a request with a 1e-4 s deadline answers 429 with a
+    Retry-After; /stats carries the scheduling keys."""
+    from nanosandbox_tpu_torch.checkpoint import save_for_serving
+    from nanosandbox_tpu_torch.config import GPTConfig
+    from nanosandbox_tpu_torch.models.gpt import GPT
+    from nanosandbox_tpu_torch.ops import attention as at
+    from nanosandbox_tpu_torch.serve.__main__ import build_server
+
+    cfg = GPTConfig(**MODEL)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+        model = GPT(cfg, device=DEVICE, generator=torch.Generator(
+            device=DEVICE).manual_seed(SEED))
+        save_for_serving(out_dir, cfg, model.state_dict())
+        del model
+        server, loop, engine = build_server([
+            f"--out_dir={out_dir}", "--host=127.0.0.1", "--port=0",
+            "--num_slots=8", "--max_len=1024", "--prefill_chunk=256",
+            "--warmup=buckets", f"--device={DEVICE}"])
+    fd.reset_counts()
+    at.reset_counts()
+    zero_replays(engine)
+    pieces0 = engine.prefill_chunks         # the warmup's
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    fields = [dict(slo_class="interactive", deadline_s=30.0),
+              dict(slo_class="batch", priority=0, deadline_s=60.0),
+              dict(slo_class="default", priority=3)]
+
+    def fire(bodies) -> list:
+        got = [None] * len(bodies)
+
+        def one(i, body):
+            try:
+                got[i] = post(base, body)
+            except urllib.error.HTTPError as e:
+                got[i] = (e.code, json.loads(e.read()),
+                          e.headers.get("Retry-After"))
+
+        ths = [threading.Thread(target=one, args=(i, b))
+               for i, b in enumerate(bodies)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=600)
+        return got
+
+    rng = np.random.default_rng(SEED + 17)
+    try:
+        answers = []
+        for bodies in server_rounds(cfg):
+            answers += fire([dict(b, max_new_tokens=64, **fields[i])
+                             for i, b in enumerate(bodies)])
+        # 8 blockers fill the slots, two of them long enough (600 tokens)
+        # for the chunked lane.
+        blockers: list = []
+        busy = threading.Thread(target=lambda: blockers.extend(fire([
+            dict(prompt_tokens=[int(t) for t in rng.integers(
+                0, prompt_vocab(cfg), 600 if i % 4 == 0 else 100)],
+                 max_new_tokens=256, temperature=0.0,
+                 slo_class="interactive", deadline_s=60.0)
+            for i in range(8)])))
+        busy.start()
+        t0 = time.monotonic()
+        while True:
+            with urllib.request.urlopen(base + "/stats", timeout=30) as r:
+                st = json.loads(r.read())
+            if st["active"] + st["chunking"] == 8:
+                break
+            if time.monotonic() - t0 > 60:
+                fail(f"phase 15: the 8 blockers never filled the slots {st}")
+            time.sleep(0.002)
+        doomed = fire([dict(prompt_tokens=[1, 2, 3], max_new_tokens=8,
+                            slo_class="batch", deadline_s=1e-4)])[0]
+        busy.join(timeout=600)
+        with urllib.request.urlopen(base + "/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+        sync()
+        run = sched_counts(fd, at, engine)
+    finally:
+        server.shutdown()
+        server.server_close()
+        loop.stop()
+        loop.join(timeout=60)
+        th.join(timeout=60)
+    for i, a in enumerate(answers + blockers):
+        if a is None or a[0] != 200:
+            fail(f"phase 15 server: request {i}: {a}")
+    if doomed[0] != 429 or not doomed[2] or int(doomed[2]) < 1:
+        fail(f"phase 15 server: the expired request answered {doomed}")
+    keys = ("shed", "preemptions", "prefill_chunk", "spec_suspended",
+            "brownout", "slo")
+    if any(k not in stats for k in keys) or stats["prefill_chunk"] != 256:
+        fail(f"phase 15 server: /stats lacks {keys}: {sorted(stats)}")
+    pieces = stats["prefill_chunks"] - pieces0
+    if pieces < 2 * 3:
+        fail(f"phase 15 server: the 600-token blockers took {pieces} "
+             f"pieces, want 2 x 3")
+    agree = sum(x == y for a, u in zip(answers, unchunked)
+                for x, y in zip(a[1]["tokens"], u))
+    total = sum(len(u) for u in unchunked)
+    need_launches("phase 15 server", run, ("flash_decode_paged/bf16",
+                                           "flash_prefill_paged/bf16"))
+    print(f"  bf16 server, --prefill_chunk=256: {len(answers)} requests "
+          f"with slo_class/priority/deadline_s and 8 blockers answered "
+          f"200; the 1e-4 s request {doomed[0]} (Retry-After {doomed[2]}, "
+          f"{doomed[1]['finish_reason']}); /stats shed {stats['shed']}, "
+          f"preemptions {stats['preemptions']}, pieces {pieces}, "
+          f"brownout {stats['brownout']['name']}, "
+          f"slo {stats['slo']['overall']}; tokens agreeing with the "
+          f"unchunked answers {agree}/{total} ({agree / total:.3f}; bf16: "
+          f"chunking changes the GEMM shapes) [{smi}]")
+
+
+# Chunking's effect on the decoding rows: DECODERS rows decoding, then
+# STORM prompts of STORM_LEN tokens arriving at once.
+DECODERS, STORM, STORM_LEN = 4, 4, 512
+
+
+def storm_pass(engine, rng, vocab, traced=False) -> dict:
+    """DECODERS rows decode 10 steps, then STORM prompts arrive: each
+    engine step's wall (host clock) from their arrival until every one of
+    them has its first token, and their TTFTs; ``traced``: the kernels'
+    device ms in that window too (torch.profiler, which slows the host's
+    walls, not the kernels)."""
+    for _ in range(DECODERS):
+        engine.submit([int(t) for t in rng.integers(0, vocab, 64)], 300)
+    for _ in range(10):
+        engine.step()
+    sync()
+    storm = [engine.submit([int(t) for t in rng.integers(0, vocab,
+                                                         STORM_LEN)], 8)
+             for _ in range(STORM)]
+    walls = []
+    with (torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) if traced
+          else contextlib.nullcontext()) as prof:
+        while (engine.sched.queued or engine._chunking
+               or any(st.req.rid in storm and not st.tokens
+                      for st in engine._active.values())):
+            t0 = time.perf_counter()
+            engine.step()
+            walls.append(time.perf_counter() - t0)
+        sync()
+    ttft = list(engine._ttft)[-STORM:]
+    engine.drain()
+    engine.reset_prefix_cache()
+    out = {"walls_ms": [w * 1e3 for w in walls],
+           "ttft_ms": [t * 1e3 for t in ttft]}
+    if traced:
+        from nanosandbox_tpu_torch.serve import profile as serve_profile
+
+        out["device_ms"] = sum(serve_profile._device_ms_by_name(prof)
+                               .values())
+    return out
+
+
+def check_chunk_stalls(smi: str) -> dict:
+    """The bf16 124M paged engine at the serve CLI's defaults (pipeline
+    on, scan_k 1), prefill_chunk off, 256 and 128, each its own engine:
+    a warm pass, the measured one, then a traced one (storm_pass).
+    Prints the longest and the median step wall of the decoding rows
+    while the storm is admitted, the storm's TTFTs, and the traced
+    window's device ms a step against the measured window's wall."""
+    from nanosandbox_tpu_torch.config import GPTConfig
+    from nanosandbox_tpu_torch.models.gpt import GPT, cast_for_serving
+    from nanosandbox_tpu_torch.serve.engine import Engine
+
+    cfg = GPTConfig(**MODEL)
+    bf16 = cast_for_serving(GPT(cfg, device=DEVICE, generator=torch.Generator(
+        device=DEVICE).manual_seed(SEED)))
+    rng = np.random.default_rng(SEED + 18)
+    out = {}
+    for chunk in (None, 256, 128):
+        engine = Engine(bf16, num_slots=8, max_len=1024, prefill_chunk=chunk,
+                        device=DEVICE)
+        storm_pass(engine, rng, prompt_vocab(cfg))
+        out[chunk] = storm_pass(engine, rng, prompt_vocab(cfg))
+        if DEVICE != "cpu":     # no device to trace in a CPU rehearsal
+            out[chunk]["device_ms"] = storm_pass(
+                engine, rng, prompt_vocab(cfg), traced=True)["device_ms"]
+        del engine
+    torch.cuda.empty_cache()
+    print(f"  bf16 paged, 8 slots, pipeline on, scan_k 1: {DECODERS} rows "
+          f"decoding when {STORM} {STORM_LEN}-token prompts arrive [{smi}]")
+    print("  prefill_chunk  steps  step wall max ms  median ms  "
+          "device ms a step (busy share)  TTFT of the prompts ms")
+    for chunk, r in out.items():
+        w = r["walls_ms"]
+        dev = (f"{r['device_ms'] / len(w):10.3f} "
+               f"({r['device_ms'] / sum(w):.3f})" if "device_ms" in r
+               else "not measured")
+        print(f"  {str(chunk or 'off'):<13} {len(w):6d}  {max(w):16.3f}  "
+              f"{float(np.median(w)):9.3f}  {dev:<29} "
+              + " / ".join(f"{t:.2f}" for t in r["ttft_ms"]))
+    return out
+
+
+def check_scheduling(fd, at, smi: str, unchunked=None) -> None:
+    """Phase 15 (module docstring); ``unchunked``: phase 5's answers, or
+    None in a partial run (then the same requests through an unchunked
+    bf16 engine)."""
+    t0 = time.monotonic()
+    model, prompts = fp32_model_and_prompts()
+    check_chunked_fp32(fd, at, model, prompts)
+    for paged in (True, False):
+        check_preemption_fp32(fd, at, model, paged)
+    del model
+    torch.cuda.empty_cache()
+    if unchunked is None:
+        from nanosandbox_tpu_torch.config import GPTConfig
+        from nanosandbox_tpu_torch.models.gpt import GPT, cast_for_serving
+
+        cfg = GPTConfig(**MODEL)
+        bf16 = cast_for_serving(GPT(cfg, device=DEVICE,
+                                    generator=torch.Generator(
+                                        device=DEVICE).manual_seed(SEED)))
+        bodies = [b for rnd in server_rounds(cfg) for b in rnd]
+        unchunked = run_engine(
+            bf16, [b["prompt_tokens"] for b in bodies],
+            sampling=[{k: v for k, v in b.items() if k != "prompt_tokens"}
+                      for b in bodies], new=64, graphs=False)["tokens"]
+        del bf16
+    check_sched_server(fd, smi, unchunked)
+    check_chunk_stalls(smi)
+    print(f"  phase 15: {time.monotonic() - t0:.1f} s")
+
+
+# Phases that stand alone, for a partial run (--phases=2,3,7,9,13,14,15;
 # 9 runs phase 12 after it).
-STANDALONE_PHASES = (2, 3, 7, 9, 13, 14)
+STANDALONE_PHASES = (2, 3, 7, 9, 13, 14, 15)
 
 
 def train_and_sample(at, fd, smi: str) -> None:
@@ -2774,7 +3199,9 @@ def main(argv: list[str] | None = None) -> int:
                  lambda: (_build.library(), check_sp_trainer(
                      smi, tempfile.mkdtemp(prefix="chip_smoke_sp_")))),
                 (14, "dispatch modes on the card",
-                 lambda: check_dispatch(fd, smi))):
+                 lambda: check_dispatch(fd, smi)),
+                (15, "scheduling (chunked prefill, preemption, deadlines)",
+                 lambda: (_build.library(), check_scheduling(fd, at, smi)))):
             if phase in only:
                 print(f"== phase {phase}: {title}")
                 fn()
@@ -2845,6 +3272,9 @@ def main(argv: list[str] | None = None) -> int:
 
     print("== phase 14: dispatch modes on the card")
     check_dispatch(fd, smi)
+
+    print("== phase 15: scheduling (chunked prefill, preemption, deadlines)")
+    check_scheduling(fd, at, smi, served["answers"])
 
     def entry(name, source, replaces, launches, case):
         return {"name": name, "route": "cuda",

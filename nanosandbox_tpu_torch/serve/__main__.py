@@ -56,6 +56,31 @@ def build_parser() -> argparse.ArgumentParser:
                     help="synchronous decode loop (dispatch, read back, "
                          "retire); default keeps one decode chunk in "
                          "flight ahead of the host")
+    ap.add_argument("--prefill_chunk", type=int, default=0,
+                    help="per-step prefill token budget (one of the "
+                         "prefill buckets; 0 = off): admission waves are "
+                         "paced and long prompts split into chunk-sized "
+                         "prefills interleaved with decode steps, so a "
+                         "prefill storm cannot stall the active requests' "
+                         "tokens. Paged pools only for the splitting half")
+    ap.add_argument("--no_preemption", action="store_true",
+                    help="disable deadline-driven preemption (default on: "
+                         "when the highest-priority queued request would "
+                         "miss its deadline waiting on slots or KV blocks, "
+                         "the lowest-priority active request is evicted; "
+                         "its blocks go to the prefix cache and it "
+                         "resumes, with the same tokens, as a prefix hit)")
+    ap.add_argument("--brownout", default="on", choices=("on", "off"),
+                    help="SLO-driven brownout ladder (default on): under "
+                         "sustained deadline burn the engine steps through "
+                         "shrink-scan -> suspend-spec -> shed-batch -> "
+                         "interactive-only, with hysteresis. Costs nothing "
+                         "without deadlines")
+    ap.add_argument("--deadline_s", type=float, default=0.0,
+                    help="default per-request SLO deadline in seconds "
+                         "(submit -> finish) for requests that send none; "
+                         "0 = best-effort. A queued request past its "
+                         "deadline is shed (429 + Retry-After)")
     ap.add_argument("--scan_k", type=int, default=1,
                     help="decode steps one dispatch may run (one CUDA "
                          "graph replay per chunk, chunk lengths 1, 2, 4, "
@@ -135,7 +160,11 @@ def build_server(argv: list[str] | None = None):
                     kv_pool_blocks=args.kv_pool_blocks or None,
                     prefix_cache=not args.no_prefix_cache,
                     pipeline=not args.no_pipeline, scan_k=args.scan_k,
-                    decode_impl=args.decode_impl, device=device)
+                    decode_impl=args.decode_impl,
+                    default_deadline_s=args.deadline_s or None,
+                    prefill_chunk=args.prefill_chunk or None,
+                    preemption=not args.no_preemption,
+                    brownout=args.brownout == "on", device=device)
     # Every prefill shape and decode chunk once before the port binds, so
     # no client pays for the libraries' first-call setup.
     waves = warm_up(engine, args.warmup)
@@ -153,7 +182,11 @@ def build_server(argv: list[str] | None = None):
           f"(kv_dtype={engine.kv_dtype}, pipeline="
           f"{'on' if engine.pipeline else 'off'}, scan_k={engine.scan_k}, "
           f"{engine.max_programs()['decode']} decode graphs, "
-          f"decode_impl={engine.decode_impl}); warmup {args.warmup}: "
+          f"decode_impl={engine.decode_impl}, "
+          f"prefill_chunk={engine.prefill_chunk or 'off'}, preemption="
+          f"{'on' if engine.preemption else 'off'}, brownout="
+          f"{'on' if engine.brownout is not None else 'off'}); "
+          f"warmup {args.warmup}: "
           f"{waves} prefill waves; listening on {args.host}:"
           f"{server.server_address[1]} (POST /generate, GET /healthz "
           "/stats)", file=sys.stderr, flush=True)

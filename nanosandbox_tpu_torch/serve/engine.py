@@ -69,9 +69,48 @@ tensors (``_pos``, ``_tok``, ``_temp``, ``_topk``, ``_topp``, ``_seed``,
 kernels' ticket buffer keep their addresses for the engine's life;
 admission and release write into them in place, ordered on the stream
 behind any chunk in flight. On the CPU
-the same body runs eagerly k times. Speculative decoding, chunked
-prefill, preemption, deadlines and recovery are later slices of the
-port.
+the same body runs eagerly k times.
+
+Scheduling (the JAX engine's, by its names): the queue is ordered by
+priority, then FIFO (serve/scheduler.py); a request's priority defaults
+from its ``slo_class`` (PRIORITY_BY_CLASS). A request may carry a
+``deadline_s`` (submit to finish): a queued request past it is shed (a
+terminal 'shed' Result), and every deadline-carrying terminal lands in
+the SLO ledger (obs/slo.py). Each step runs, in order: the shed sweep,
+the preemption check, admission, the decode dispatch, and the brownout
+controller's poll (serve/brownout.py), which may cap the decode chunk
+and shed low classes.
+
+  * Chunked prefill (``prefill_chunk``, a prefill bucket): each step
+    spends at most that many prefill tokens. A paged request whose
+    suffix bucket exceeds it claims a slot and its full reservation,
+    then prefills in bucket-shaped pieces, oldest first, one budget a
+    step, at cache_index = hit + tokens done (K1 from a moving start).
+    An intermediate piece writes K/V only; the last samples the first
+    token with the (seed, true_len) key and commits the row. Until then
+    the slot stays parked, its table row on the sentinel, so its
+    ride-along decode writes go to the drop block. A piece of c tokens
+    padded to its bucket writes padding K/V past start + c, into the
+    request's private blocks (the next piece overwrites it) or the drop
+    block, never a shared prefix block. Dense engines cannot split a
+    prompt and pace whole waves.
+  * Preemption (``preemption``): when the highest-priority queued
+    request has a deadline, cannot be admitted for want of a slot or
+    blocks, and would miss its deadline waiting, the lowest-priority
+    active request (the latest admitted among equals) is evicted: its
+    prompt and generated blocks are donated to the prefix cache
+    (BlockPool.release(generated=...): positions below its last token's,
+    which the chunk in flight never writes), and it goes back to the
+    head of its class with prompt' = prompt + tokens. Its resume is a
+    prefix hit, and sampling keyed by position makes its tokens those of
+    an unpreempted run; every terminal reports the original prompt and
+    all of its tokens (``_Resume``, ``_unstitch``). The slot is also
+    dropped from the chunk in flight's snapshot, so a resume into the
+    same slot does not take that chunk's tokens.
+
+Speculative decoding, the flight recorder and metric registry, fault
+injection and recovery, and the disaggregated handoff are later slices
+of the port.
 """
 
 from __future__ import annotations
@@ -79,8 +118,8 @@ from __future__ import annotations
 import itertools
 import time
 from collections import deque
-from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from dataclasses import dataclass, field, replace
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -89,19 +128,30 @@ from nanosandbox_tpu_torch.config import resolve_device
 from nanosandbox_tpu_torch.models.gpt import (GPT, init_cache,
                                               init_paged_cache, kv_mode,
                                               scatter_cache_rows)
+from nanosandbox_tpu_torch.obs.slo import SLOLedger, validate_slo_class
 from nanosandbox_tpu_torch.ops import _build
 from nanosandbox_tpu_torch.ops import attention as at
 from nanosandbox_tpu_torch.ops import flash_decode as fd
 from nanosandbox_tpu_torch.sample import sample_token_rows
+from nanosandbox_tpu_torch.serve.brownout import BrownoutController
 from nanosandbox_tpu_torch.serve.paged import (Allocation, BlockPool,
                                                prefix_digests)
 from nanosandbox_tpu_torch.serve.scheduler import (SlotScheduler,
                                                    default_buckets)
 
+# Scheduling priority by SLO class: higher admits first and may preempt
+# lower. An explicit priority overrides the class's; unknown classes take
+# the default. The brownout floors (serve/brownout.py) use these numbers.
+PRIORITY_BY_CLASS = {"batch": 0, "default": 1, "interactive": 2}
+DEFAULT_PRIORITY = 1
+
 
 @dataclass(frozen=True)
 class Request:
-    """One generation request, in token-id space."""
+    """One generation request, in token-id space. ``deadline_s`` is the
+    submit-to-finish budget (None: never tracked, never deadline-shed);
+    ``slo_class`` labels its SLO accounting; ``priority`` orders the
+    queue and decides who preempts whom."""
     rid: int
     prompt: tuple
     max_new_tokens: int
@@ -110,6 +160,9 @@ class Request:
     top_p: float = 1.0
     seed: int = 0
     eos_id: Optional[int] = None
+    deadline_s: Optional[float] = None
+    slo_class: str = "default"
+    priority: int = DEFAULT_PRIORITY
 
     @property
     def filters(self) -> bool:
@@ -122,7 +175,7 @@ class Result:
     rid: int
     prompt: tuple
     tokens: List[int]          # generated ids (includes the eos hit, if any)
-    finish_reason: str         # 'length' | 'eos' | 'failed'
+    finish_reason: str         # 'length' | 'eos' | 'shed' | 'failed'
     prefix_digest: tuple = ()  # prompt blocks donated to the prefix cache
 
 
@@ -134,6 +187,26 @@ class _Active:
     tokens: List[int] = field(default_factory=list)
     submit_t: float = 0.0
     first_token_t: float = 0.0
+
+
+@dataclass
+class _Resume:
+    """A preempted request's original prompt and the tokens it had
+    before each preemption: what its terminal Result reports."""
+    prompt: tuple
+    tokens: List[int]
+
+
+@dataclass
+class _Chunking:
+    """A request in the chunked-prefill lane: popped from the queue with
+    a slot claimed and every block reserved. ``hit`` is its prefix hit
+    (the first piece's start), ``done`` the suffix tokens written."""
+    req: Request
+    slot: int
+    alloc: Allocation
+    hit: int
+    done: int = 0
 
 
 # The JAX engine's decode_impl names. 'auto' and 'pallas' name the
@@ -187,6 +260,14 @@ class Engine:
     scan_k : decode steps one dispatch may run (module docstring);
         tokens are the same for every value.
     decode_impl : a name of DECODE_IMPLS (default 'auto').
+    default_deadline_s : the deadline of requests that give none (None:
+        best-effort).
+    prefill_chunk : the per-step prefill token budget, one of the prefill
+        buckets (None: admit everything now); module docstring.
+    preemption : evict a lower-priority row for a deadline-pressed queue
+        head (default True; module docstring).
+    brownout : attach a BrownoutController (default False; the serve CLI
+        turns it on).
     device : 'auto' (the GPU; raises without one), 'cuda' or 'cpu'.
     """
 
@@ -202,6 +283,9 @@ class Engine:
                  kv_pool_blocks: Optional[int] = None,
                  prefix_cache: bool = True, pipeline: bool = True,
                  scan_k: int = 1, decode_impl: Optional[str] = None,
+                 default_deadline_s: Optional[float] = None,
+                 prefill_chunk: Optional[int] = None,
+                 preemption: bool = True, brownout: bool = False,
                  device: str = "auto"):
         if paged and kv_page_size < 1:
             raise ValueError(f"kv_page_size must be >= 1, got "
@@ -219,6 +303,20 @@ class Engine:
         # Prefill buckets: the power-of-two ladder up to max_len.
         self.sched = SlotScheduler(num_slots, default_buckets(self.max_len))
         self.admit_buckets = self.sched.admit_buckets
+        # A chunk is a bucket, so chunk dispatches keep the waves' shapes.
+        if prefill_chunk is not None:
+            prefill_chunk = int(prefill_chunk)
+            if prefill_chunk not in self.sched.buckets:
+                raise ValueError(
+                    f"prefill_chunk {prefill_chunk} must be one of the "
+                    f"prefill buckets {self.sched.buckets} (chunk "
+                    "dispatches reuse the bucket-shaped programs)")
+        self.prefill_chunk = prefill_chunk
+        if default_deadline_s is not None and default_deadline_s <= 0:
+            raise ValueError(f"default_deadline_s must be > 0, got "
+                             f"{default_deadline_s}")
+        self.default_deadline_s = default_deadline_s
+        self.preemption = bool(preemption)
         self.paged = bool(paged)
         self.block_pool: Optional[BlockPool] = None
         if self.paged:
@@ -239,8 +337,12 @@ class Engine:
         self._init_slot_state()
 
         self._active: Dict[int, _Active] = {}        # slot -> state
-        self._pending: List[Result] = []             # max_new_tokens == 0
-        self._submit_t: Dict[int, float] = {}
+        self._pending: List[Result] = []    # terminal before any step
+        # rid -> (decode steps, wall clock) at submit, for queued requests.
+        self._submit_meta: Dict[int, Tuple[int, float]] = {}
+        self._chunking: List[_Chunking] = []     # the chunked-prefill lane
+        self._prefill_spent = 0                  # this step's prefill tokens
+        self._resumed: Dict[int, _Resume] = {}   # preempted rids
         self._rid = itertools.count()
         # The dispatched chunk not yet retired: (host buffer index,
         # {slot: rid} at dispatch, chunk length).
@@ -248,13 +350,28 @@ class Engine:
         self.steps = 0                               # decode dispatches
         self.chunk_steps = 0            # decode steps those dispatches ran
         self.waves = 0
+        self.prefill_chunks = 0         # chunked-lane prefill dispatches
         self.admitted = 0
         self.completed = 0
         self.tokens_generated = 0
         self.rejected: Dict[str, int] = {}
+        self.shed = 0
+        # Deadline-carrying sheds that the brownout floor caused: the
+        # controller takes them out of its window (serve/brownout.py).
+        self.brownout_sheds = 0
+        self.preemptions = 0
+        # The brownout knobs, read on the hot path. spec_suspended is
+        # inert until speculative decoding is ported.
+        self.scan_cap: Optional[int] = None
+        self.spec_suspended = False
+        self.brownout_min_priority: Optional[int] = None
+        self.slo = SLOLedger()
         self.host_dispatches = {"decode": 0}
         self._ttft: deque = deque(maxlen=4096)
         self._tpot: deque = deque(maxlen=4096)
+        # Decode steps each admitted request waited in the queue (the
+        # retry-after hint's p50).
+        self._queue_wait: deque = deque(maxlen=4096)
         self._rate: deque = deque(maxlen=256)        # (t, tokens read back)
         # On CUDA, per (rung, filtered): the captured chunk, its replays,
         # and the kernel launches and plain-version calls its capture
@@ -269,6 +386,8 @@ class Engine:
         if self._replay:
             _build.library()       # build the kernels before any request
             self._capture_graphs()
+        # Last, so that the controller sees the finished engine.
+        self.brownout = BrownoutController(self) if brownout else None
 
     # ------------------------------------------------------------------
     # device slot state
@@ -327,9 +446,16 @@ class Engine:
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int, *,
                temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
-               seed: int = 0, eos_id: Optional[int] = None) -> int:
+               seed: int = 0, eos_id: Optional[int] = None,
+               deadline_s: Optional[float] = None,
+               slo_class: str = "default",
+               priority: Optional[int] = None) -> int:
         """Queue one request; returns its id. Requests the engine can
-        never serve are rejected here (ValueError), not mid-flight."""
+        never serve are rejected here (ValueError), not mid-flight.
+        ``deadline_s`` (default: default_deadline_s) arms SLO accounting
+        and queue-time shedding; ``priority`` defaults from
+        PRIORITY_BY_CLASS[slo_class]. Below an active brownout floor a
+        valid request is accepted and shed at once (a 'shed' Result)."""
         prompt = tuple(int(t) for t in prompt)
         plen = len(prompt)
         if not prompt:
@@ -344,6 +470,17 @@ class Engine:
         if max_new_tokens < 0:
             self._reject("bad_max_new",
                          f"max_new_tokens must be >= 0, got {max_new_tokens}")
+        if deadline_s is None:
+            deadline_s = self.default_deadline_s
+        else:
+            deadline_s = float(deadline_s)
+            if deadline_s <= 0:
+                self._reject("bad_deadline",
+                             f"deadline_s must be > 0, got {deadline_s}")
+        try:
+            slo_class = validate_slo_class(str(slo_class))
+        except ValueError as e:
+            self._reject("bad_slo_class", str(e))
         if plen > self.sched.buckets[-1]:
             self._reject("prompt_exceeds_bucket",
                          f"prompt length {plen} exceeds the largest prefill "
@@ -359,31 +496,53 @@ class Engine:
                 self._reject("pool_too_small",
                              f"request needs {need} KV blocks but the pool "
                              f"holds {self.kv_pool_blocks}")
+        priority = (PRIORITY_BY_CLASS.get(slo_class, DEFAULT_PRIORITY)
+                    if priority is None else int(priority))
         rid = next(self._rid)
         req = Request(rid=rid, prompt=prompt, max_new_tokens=max_new_tokens,
                       temperature=float(temperature), top_k=int(top_k),
-                      top_p=float(top_p), seed=int(seed), eos_id=eos_id)
+                      top_p=float(top_p), seed=int(seed), eos_id=eos_id,
+                      deadline_s=deadline_s, slo_class=slo_class,
+                      priority=priority)
+        floor = self.brownout_min_priority
+        if floor is not None and priority < floor:
+            # Shed at submit: counted against the class's attainment,
+            # nothing spent on it.
+            self.shed += 1
+            if deadline_s is not None:
+                self.slo.record_shed(slo_class)
+                self.brownout_sheds += 1
+            self._pending.append(Result(rid, prompt, [], "shed"))
+            return rid
         if max_new_tokens == 0:
             self.completed += 1
+            self.slo.record_finish(slo_class, tokens=0, elapsed_s=0.0,
+                                   deadline_s=deadline_s)
             self._pending.append(Result(rid, prompt, [], "length"))
             return rid
-        self._submit_t[rid] = time.monotonic()
+        self._submit_meta[rid] = (self.steps, time.monotonic())
         self.sched.enqueue(req)
         return rid
 
     def has_work(self) -> bool:
-        """Requests queued, active or pending, or a chunk in flight."""
-        return bool(self._active or self.sched.queued or self._pending
-                    or self._inflight is not None)
+        """Requests queued, chunking, active or pending, or a chunk in
+        flight."""
+        return bool(self._active or self.sched.queued or self._chunking
+                    or self._pending or self._inflight is not None)
 
     def step(self) -> List[Result]:
-        """Admit what fits (one batched prefill per wave), dispatch one
-        decode chunk, retire the previous chunk (pipeline) or this one,
-        and backfill the slots the retire freed; with nothing left to
-        dispatch, retire the chunk in flight. Returns the requests that
+        """Shed expired queued requests, preempt for a deadline-pressed
+        head, admit what fits (one batched prefill per wave, or chunks
+        within the prefill budget), dispatch one decode chunk, retire the
+        previous chunk (pipeline) or this one, and backfill the slots the
+        retire freed; with nothing left to dispatch, retire the chunk in
+        flight. Then the brownout poll. Returns the requests that
         finished during this call."""
         finished, self._pending = self._pending, []
+        self._prefill_spent = 0
         with torch.no_grad():
+            self._shed_expired(finished)
+            self._maybe_preempt()
             self._admit_waves(finished)
             retired = False
             chunk_len = self._next_chunk() if self._active else 0
@@ -411,7 +570,36 @@ class Engine:
                 # The slots the retire freed backfill now; their prefill
                 # queues behind the chunk in flight.
                 self._admit_waves(finished)
+        if self.brownout is not None:
+            self.brownout.on_step()
         return finished
+
+    def _shed_expired(self, finished: List[Result]) -> None:
+        """Queued requests past their deadline, or below the brownout
+        floor, become terminal 'shed' Results (a resumed victim's with
+        its original prompt and salvaged tokens), counted against their
+        class's attainment."""
+        if not self.sched.queued:
+            return
+        now = time.monotonic()
+        meta = self._submit_meta
+        floor = self.brownout_min_priority
+
+        def expired(item) -> bool:
+            return ((item.deadline_s is not None
+                     and now - meta[item.rid][1] > item.deadline_s)
+                    or (floor is not None and item.priority < floor))
+
+        for req in self.sched.drain_expired(expired):
+            _, sub_t = meta.pop(req.rid)
+            self.shed += 1
+            prompt_out, tokens_out, _ = self._unstitch(req, [])
+            if req.deadline_s is not None:
+                self.slo.record_shed(req.slo_class)
+                if now - sub_t <= req.deadline_s:
+                    self.brownout_sheds += 1
+            finished.append(Result(rid=req.rid, prompt=prompt_out,
+                                   tokens=tokens_out, finish_reason="shed"))
 
     def drain(self) -> List[Result]:
         """Run step() until queue and slots are empty."""
@@ -441,7 +629,7 @@ class Engine:
         into the radix cache. A no-op on the dense pool."""
         if not self.paged:
             return
-        if self._active:
+        if self._active or self._chunking:
             raise RuntimeError(
                 "reset_prefix_cache on a busy engine: active requests hold "
                 "references into the radix cache")
@@ -457,39 +645,143 @@ class Engine:
             len(req.prompt) - self.block_pool.match_len(req.prompt))
 
     def _admit_waves(self, finished: List[Result]) -> None:
+        """Admit waves until the queue, the slots, the blocks or (under
+        ``prefill_chunk``) this step's prefill budget run out. The
+        chunked lane goes first: its requests were popped from the
+        queue's head, so they are ahead of it. Under a budget a wave is
+        capped so that rung x bucket fits what is left of it; a paged
+        head whose suffix bucket exceeds the budget enters the chunked
+        lane, and a dense one admits alone on a fresh step."""
+        budget = self.prefill_chunk
+        if budget is not None and self._chunking:
+            self._advance_chunked(finished)
         while True:
+            max_items: Optional[int] = None
+            if budget is not None:
+                if self._prefill_spent >= budget:
+                    return
+                head = self.sched.peek_head()
+                if head is None:
+                    return
+                if self.sched.free_slots:
+                    hb = (self._suffix_bucket(head) if self.paged
+                          else self.sched.bucket_for(len(head.prompt)))
+                    if self.paged and hb > budget:
+                        # A block-starved head fences admission (FIFO).
+                        if not self._start_chunked(head):
+                            return
+                        self._advance_chunked(finished)
+                        continue
+                    remaining = budget - self._prefill_spent
+                    max_items = 0
+                    for r in self.admit_buckets:
+                        if r * hb <= remaining:
+                            max_items = r
+                    if max_items == 0:
+                        if self._prefill_spent:
+                            return          # on the next step's budget
+                        max_items = 1
             if not self.paged:
-                wave = self.sched.next_admission_wave()
+                wave = self.sched.next_admission_wave(max_items=max_items)
                 if wave is None:
                     return
                 reqs, slots, bucket = wave
-                self._prefill_wave(reqs, slots, [None] * len(reqs), bucket,
-                                   finished)
-                continue
-            allocs: List[Allocation] = []
+                allocs: List[Optional[Allocation]] = [None] * len(reqs)
+            else:
+                allocs = []
 
-            def try_alloc(req: Request) -> bool:
-                a = self.block_pool.admit(req.prompt, req.max_new_tokens)
-                if a is not None:
-                    allocs.append(a)
-                return a is not None
+                def try_alloc(req: Request) -> bool:
+                    a = self.block_pool.admit(req.prompt,
+                                              req.max_new_tokens)
+                    if a is not None:
+                        allocs.append(a)
+                    return a is not None
 
-            wave = self.sched.next_admission_wave(
-                bucket_of=self._suffix_bucket, admit=try_alloc)
-            if wave is None:
-                return
-            reqs, slots, bucket = wave
+                wave = self.sched.next_admission_wave(
+                    max_items=max_items, bucket_of=self._suffix_bucket,
+                    admit=try_alloc)
+                if wave is None:
+                    return
+                reqs, slots, bucket = wave
+            if budget is not None:
+                self._prefill_spent += self.sched.rung_for(len(reqs)) * bucket
             self._prefill_wave(reqs, slots, allocs, bucket, finished)
+
+    def _start_chunked(self, head: Request) -> bool:
+        """Claim the queue head into the chunked lane: its blocks (the
+        full reservation) and a slot, no device work yet. False when the
+        pool cannot cover it: the head stays queued."""
+        alloc = self.block_pool.admit(head.prompt, head.max_new_tokens)
+        if alloc is None:
+            return False
+        popped = self.sched.pop_head()
+        assert popped is head
+        self._chunking.append(_Chunking(
+            req=head, slot=self.sched.take_slot(), alloc=alloc,
+            hit=alloc.n_hit * self.kv_page_size))
+        return True
+
+    def _advance_chunked(self, finished: List[Result]) -> None:
+        """Prefill pieces of the chunked lane's requests, oldest first,
+        until this step's budget is spent. A piece is sized to what is
+        left of the budget and padded to its bucket; one whose bucket
+        would overshoot waits for the next step (whose fresh budget fits
+        a whole piece: prefill_chunk is a bucket). The last piece of a
+        request samples its first token and commits it (_prefill_wave
+        from the piece's start)."""
+        budget = self.prefill_chunk
+        page = self.kv_page_size
+        for entry in list(self._chunking):
+            req, alloc = entry.req, entry.alloc
+            while self._prefill_spent < budget:
+                remaining = len(req.prompt) - entry.hit - entry.done
+                c = min(remaining, budget - self._prefill_spent)
+                bucket = self.sched.bucket_for(c)
+                if bucket > budget - self._prefill_spent:
+                    return
+                start = entry.hit + entry.done
+                # The padding past start + c lands in private blocks or
+                # the drop block, never in the shared prefix.
+                assert start >= alloc.n_hit * page, (start, alloc.n_hit)
+                self._prefill_spent += bucket
+                self.prefill_chunks += 1
+                entry.done += c
+                if c < remaining:
+                    self._prefill_piece(req.prompt[start:start + c], start,
+                                        alloc, bucket)
+                    continue
+                self._chunking.remove(entry)
+                self._prefill_wave([req], [entry.slot], [alloc], bucket,
+                                   finished, start=start)
+                break
+            else:
+                return          # budget spent; later entries wait
+
+    def _prefill_piece(self, tokens: Sequence[int], start: int,
+                       alloc: Allocation, bucket: int) -> None:
+        """An intermediate piece of a chunked prefill: one row's tokens at
+        positions [start, start + len) written through its chain, padded
+        to ``bucket``; nothing is sampled and no slot state changes."""
+        row = np.zeros((1, bucket), np.int64)
+        row[0, :len(tokens)] = tokens
+        table = np.full((1, self.slot_blocks), self.kv_pool_blocks, np.int32)
+        table[0, :len(alloc.table)] = alloc.table
+        self.model.hidden(self._to_dev(row), cache=self._pool,
+                          cache_index=self._to_dev(
+                              np.array([start], np.int32)),
+                          block_table=self._to_dev(table))
 
     def _prefill_wave(self, reqs: List[Request], slots: List[int],
                       allocs: List[Optional[Allocation]], bucket: int,
-                      finished: List[Result]) -> None:
+                      finished: List[Result],
+                      start: Optional[int] = None) -> None:
         """One (rung, bucket) prefill forward — against the paged pool
         from each row's prefix hit on, or into a dense temp cache whose
         first n rows are scattered onto the wave's slots (module
         docstring) — then first tokens sampled from each row's last true
         position with the (seed, true_len) key the decode stream
-        continues from."""
+        continues from. ``start`` makes it the last piece of a chunked
+        prefill (one paged row, from that position)."""
         k, n = self.sched.rung_for(len(reqs)), len(reqs)
         page = self.kv_page_size
         tokens = np.zeros((k, bucket), np.int64)
@@ -502,7 +794,8 @@ class Engine:
         top_ks = np.zeros(k, np.int64)
         top_ps = np.ones(k, np.float32)
         for i, (req, a) in enumerate(zip(reqs, allocs)):
-            hit = a.n_hit * page if a is not None else 0
+            hit = (start if start is not None
+                   else a.n_hit * page if a is not None else 0)
             sfx = req.prompt[hit:]
             tokens[i, :len(sfx)] = sfx
             if a is not None:
@@ -547,7 +840,8 @@ class Engine:
             self._table[idx] = d_tables[:n]
         self._live[idx] = True
         host = torch.where(ok, toks, self.cfg.vocab_size).cpu().tolist()
-        self.waves += 1
+        if start is None:
+            self.waves += 1
         now = time.monotonic()
         self._rate.append((now, n))
         for i, (req, slot, a) in enumerate(zip(reqs, slots, allocs)):
@@ -558,8 +852,9 @@ class Engine:
                           first_tok: int, now: float,
                           finished: List[Result]) -> None:
         self.admitted += 1
-        st = _Active(req=req, slot=slot, alloc=alloc,
-                     submit_t=self._submit_t.pop(req.rid),
+        sub_step, sub_t = self._submit_meta.pop(req.rid)
+        self._queue_wait.append(self.steps - sub_step)
+        st = _Active(req=req, slot=slot, alloc=alloc, submit_t=sub_t,
                      first_token_t=now)
         self._active[slot] = st
         if not 0 <= first_tok < self.cfg.vocab_size:
@@ -567,10 +862,124 @@ class Engine:
             return
         st.tokens.append(first_tok)
         self.tokens_generated += 1
-        self._ttft.append(now - st.submit_t)
+        # A resumed request's first token came before its preemption.
+        if req.rid not in self._resumed:
+            self._ttft.append(now - sub_t)
         done = self._maybe_finish(st)
         if done is not None:
             finished.append(done)
+
+    # ------------------------------------------------------------------
+    # preemption (module docstring)
+    # ------------------------------------------------------------------
+    def _head_blocks_available(self, head: Request) -> bool:
+        """Could the head's reservation be covered now (free plus
+        evictable blocks, less its prefix hit)? A probe; nothing
+        commits."""
+        need = self.block_pool.blocks_needed(len(head.prompt),
+                                             head.max_new_tokens)
+        hit_blocks = self.block_pool.match_len(head.prompt) \
+            // self.kv_page_size
+        avail = self.block_pool.free_blocks
+        if self.block_pool.cache is not None:
+            avail += self.block_pool.cache.evictable()
+        return need - hit_blocks <= avail
+
+    def _steps_per_s(self) -> Optional[float]:
+        """Recent entries of the rate ring a second (admission waves and
+        retires: the unit queue waits are counted in), or None while the
+        signal is cold. Read by the retry-after hint."""
+        ring = list(self._rate)
+        if len(ring) < 2:
+            return None
+        dt = ring[-1][0] - ring[0][0]
+        if dt <= 0:
+            return None
+        return (len(ring) - 1) / dt
+
+    def _projected_slot_free_s(self) -> Optional[float]:
+        """Seconds until a slot frees by itself: the smallest remaining
+        budget of an active row over the recent tokens a second of one
+        row. None while the signal is cold."""
+        rate = self._recent_rate()
+        if rate is None or rate <= 0 or not self._active:
+            return None
+        per_row = rate / len(self._active)
+        min_rem = min(st.req.max_new_tokens - len(st.tokens)
+                      for st in self._active.values())
+        return max(0, min_rem) / per_row
+
+    def _maybe_preempt(self) -> None:
+        """At most one preemption a step: evict the lowest-priority
+        active row when the queue head has a deadline, is blocked on
+        slots or blocks, and its slack no longer covers the projected
+        wait for a slot to free by itself (with a cold rate signal: once
+        it has waited half its deadline). A head past its deadline is
+        not saved (it sheds); equal priorities never preempt."""
+        if not self.preemption or not self._active:
+            return
+        head = self.sched.peek_head()
+        if head is None or head.deadline_s is None:
+            return
+        if self.sched.free_slots and (
+                self.block_pool is None
+                or self._head_blocks_available(head)):
+            return
+        waited = time.monotonic() - self._submit_meta[head.rid][1]
+        slack = head.deadline_s - waited
+        if slack <= 0:
+            return
+        proj = self._projected_slot_free_s()
+        if proj is not None:
+            if slack > proj:
+                return
+        elif waited < 0.5 * head.deadline_s:
+            return
+        victims = [st for st in self._active.values()
+                   if st.req.priority < head.priority]
+        if not victims:
+            return
+        # Lowest priority first; among equals the latest admission (the
+        # least work lost, the shortest re-prefill).
+        self._preempt(min(victims, key=lambda st: (st.req.priority,
+                                                   -st.req.rid)))
+
+    def _preempt(self, st: _Active) -> None:
+        """Evict one active request: park its slot, donate its prompt and
+        generated blocks to the prefix cache, and requeue it at the head
+        of its class with prompt' = prompt + tokens (module docstring).
+        Not a terminal: its Result comes when the resume finishes or
+        sheds."""
+        req = st.req
+        del self._active[st.slot]
+        self.sched.release(st.slot)
+        if self._inflight is not None:
+            # The chunk in flight's tokens for this slot belong to nobody
+            # now: a resume in the same slot must not take them (the
+            # resume recomputes them, sampling being keyed by position).
+            self._inflight[1].pop(st.slot, None)
+        self._release_row(st.slot)
+        if st.alloc is not None:
+            self.block_pool.release(st.alloc, generated=st.tokens)
+        base = self._resumed.get(req.rid)
+        self._resumed[req.rid] = _Resume(
+            prompt=base.prompt if base is not None else req.prompt,
+            tokens=(base.tokens if base is not None else []) + st.tokens)
+        self._submit_meta[req.rid] = (self.steps, st.submit_t)
+        self.preemptions += 1
+        self.sched.requeue_front([replace(
+            req, prompt=req.prompt + tuple(st.tokens),
+            max_new_tokens=req.max_new_tokens - len(st.tokens))])
+
+    def _unstitch(self, req: Request,
+                  tokens: Sequence[int]) -> Tuple[tuple, List[int], bool]:
+        """A terminal's (prompt, tokens, resumed): a preempted request
+        reports its original prompt and the tokens of every incarnation.
+        Pops the record, which must not outlive the request."""
+        res = self._resumed.pop(req.rid, None)
+        if res is None:
+            return req.prompt, list(tokens), False
+        return res.prompt, res.tokens + list(tokens), True
 
     # ------------------------------------------------------------------
     # decode
@@ -581,7 +990,8 @@ class Engine:
         (read back, or in the chunk in flight). The rung maximises useful
         lane steps per unit of time, sum_rows min(remaining, r) /
         (scan_dispatch_cost_steps + r), ties to the larger rung (JAX's
-        policy, without its brownout cap). Chunks are dispatch
+        policy). Under brownout (``scan_cap``) only the rungs up to the
+        cap are taken: graphs already captured. Chunks are dispatch
         boundaries, not sampling state: the choice never changes a
         token."""
         snapshot, ahead = ((self._inflight[1], self._inflight[2])
@@ -595,9 +1005,12 @@ class Engine:
                 rems.append(rem)
         if not rems:
             return 0
+        rungs = self.scan_rungs
+        if self.scan_cap is not None:
+            rungs = [r for r in rungs if r <= self.scan_cap] or rungs[:1]
         cost = self.scan_dispatch_cost_steps
         best, best_score = 1, -1.0
-        for r in self.scan_rungs:
+        for r in rungs:
             score = sum(min(rem, r) for rem in rems) / (cost + r)
             if score >= best_score:
                 best, best_score = r, score
@@ -733,7 +1146,10 @@ class Engine:
 
     def _finish(self, st: _Active, reason: str) -> Result:
         """Release the slot (host and device) and the blocks — donating
-        the full prompt blocks to the prefix cache unless the row failed."""
+        the full prompt blocks to the prefix cache unless the row failed
+        — and account the terminal: a preempted request's Result carries
+        its original prompt and all of its tokens; a deadline-carrying
+        one lands in the SLO ledger (a failed row as shed)."""
         now = time.monotonic()
         del self._active[st.slot]
         self.sched.release(st.slot)
@@ -748,9 +1164,17 @@ class Engine:
         if len(st.tokens) > 1:
             self._tpot.append((now - st.first_token_t)
                               / (len(st.tokens) - 1))
-        return Result(rid=st.req.rid, prompt=st.req.prompt,
-                      tokens=list(st.tokens), finish_reason=reason,
-                      prefix_digest=digest)
+        req = st.req
+        prompt_out, tokens_out, _ = self._unstitch(req, st.tokens)
+        if reason == "failed":
+            if req.deadline_s is not None:
+                self.slo.record_shed(req.slo_class)
+        else:
+            self.slo.record_finish(
+                req.slo_class, tokens=len(tokens_out),
+                elapsed_s=now - st.submit_t, deadline_s=req.deadline_s)
+        return Result(rid=req.rid, prompt=prompt_out, tokens=tokens_out,
+                      finish_reason=reason, prefix_digest=digest)
 
     # ------------------------------------------------------------------
     # observability
@@ -769,16 +1193,42 @@ class Engine:
             return None
         return sum(n for _, n in ring[1:]) / (ring[-1][0] - ring[0][0])
 
+    def retry_after_s(self, slo_class: Optional[str] = None,
+                      priority: Optional[int] = None) -> float:
+        """Client backoff hint for a 429: the queue-wait p50 (decode
+        steps) over the recent step rate, at least 0.5 s (1 s while
+        either signal is cold). With a class or a priority it scales by
+        the queue mass ahead of that priority, the strictly higher part
+        counted twice: a batch request behind a deep interactive queue
+        waits longer than an interactive one."""
+        base = 1.0
+        waits = list(self._queue_wait)
+        steps_per_s = self._steps_per_s()
+        if waits and steps_per_s is not None:
+            base = max(0.5, float(np.percentile(waits, 50)) / steps_per_s)
+        if priority is None:
+            if slo_class is None:
+                return base
+            priority = PRIORITY_BY_CLASS.get(slo_class, DEFAULT_PRIORITY)
+        ahead, jumps = self.sched.queue_mass(priority)
+        return base * (1.0 + (ahead + jumps) / max(1, self.num_slots))
+
     def reset_latency_stats(self) -> None:
-        """Clear the TTFT / TPOT / rate windows and the pool's hit
-        ledger, so that they describe the traffic after a warmup."""
+        """Clear the TTFT / TPOT / queue-wait / rate windows, the SLO
+        ledger and the pool's hit ledger, so that they describe the
+        traffic after a warmup."""
         self._ttft.clear()
         self._tpot.clear()
+        self._queue_wait.clear()
         self._rate.clear()
+        self.slo.reset()
         if self.block_pool is not None:
             self.block_pool.reset_ledger()
 
     def stats(self) -> dict:
+        # Copies (one C-level call each): HTTP handler threads read stats
+        # while the engine thread appends.
+        waits = list(self._queue_wait)
         return {
             "device": str(self.device),
             "num_slots": self.num_slots,
@@ -816,6 +1266,19 @@ class Engine:
             "decode_tokens_per_sec": self._recent_rate(),
             "ttft_s": self._pcts(self._ttft),
             "tpot_s": self._pcts(self._tpot),
+            "queue_wait_steps_mean": (float(np.mean(waits))
+                                      if waits else None),
+            "retry_after_s": self.retry_after_s(),
+            "shed": self.shed,
+            "default_deadline_s": self.default_deadline_s,
+            "preemptions": self.preemptions,
+            "prefill_chunk": self.prefill_chunk,
+            "prefill_chunks": self.prefill_chunks,
+            "chunking": len(self._chunking),
+            "spec_suspended": self.spec_suspended,
+            "brownout": (None if self.brownout is None
+                         else self.brownout.stats()),
+            "slo": self.slo.stats(),
         }
 
     def max_programs(self) -> dict:

@@ -5,13 +5,19 @@ make_server, with the JAX server's request and response names:
 
     POST /generate  {"prompt": str | "prompt_tokens": [int], and any of
                      max_new_tokens, temperature, top_k, top_p, seed,
-                     eos_id} -> {"id", "tokens", "text", "finish_reason"}
+                     eos_id, deadline_s, slo_class, priority}
+                     -> {"id", "tokens", "text", "finish_reason"}
                      (+ "prefix_digest" when prompt blocks were cached);
-                     400 for a request the engine rejects, 503 when the
-                     engine loop is gone, 504 on timeout.
+                     400 for a request the engine rejects (a bad
+                     deadline or class included), 429 with Retry-After
+                     for a request shed (deadline expired in the queue,
+                     or the brownout ladder shedding its class), 503
+                     when the engine loop is gone, 504 on timeout.
     GET  /healthz   {"ok": true} while the engine loop runs, else 503.
     GET  /stats     engine counters: tokens, steps, prefix hits, TTFT /
-                    TPOT percentiles, decode tokens/s.
+                    TPOT percentiles, decode tokens/s; sheds,
+                    preemptions, the prefill chunk, the brownout level
+                    and the SLO ledger.
 
 The Engine is single-threaded; EngineLoop is the ONE thread that touches
 it. Handler threads (ThreadingHTTPServer) hand submissions over through
@@ -22,6 +28,7 @@ clients become N rows of the same batched decode step.
 from __future__ import annotations
 
 import json
+import math
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional
@@ -148,15 +155,24 @@ def make_server(host: str, port: int, loop: EngineLoop,
     prompts are a 400 and responses carry "text": null; prompt_tokens
     requests need none."""
 
+    def retry_after(slo_class: str) -> int:
+        """Whole seconds for a 429's Retry-After, scaled by the queue
+        mass ahead of the requester's class (Engine.retry_after_s)."""
+        return max(1, math.ceil(
+            loop.engine.retry_after_s(slo_class=slo_class)))
+
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # stdout stays quiet
             pass
 
-        def _json(self, code: int, obj: dict) -> None:
+        def _json(self, code: int, obj: dict,
+                  headers: Optional[dict] = None) -> None:
             data = json.dumps(obj).encode()
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(data)))
+            for k, v in (headers or {}).items():
+                self.send_header(k, str(v))
             self.end_headers()
             self.wfile.write(data)
 
@@ -200,6 +216,12 @@ def make_server(host: str, port: int, loop: EngineLoop,
                 )
                 if payload.get("eos_id") is not None:
                     kwargs["eos_id"] = int(payload["eos_id"])
+                if payload.get("deadline_s") is not None:
+                    kwargs["deadline_s"] = float(payload["deadline_s"])
+                if payload.get("slo_class") is not None:
+                    kwargs["slo_class"] = str(payload["slo_class"])
+                if payload.get("priority") is not None:
+                    kwargs["priority"] = int(payload["priority"])
             except (ValueError, TypeError, KeyError) as e:
                 # KeyError: a char tokenizer meeting an out-of-vocab char.
                 self._json(400, {"error": f"bad request: {e!r}"})
@@ -214,6 +236,18 @@ def make_server(host: str, port: int, loop: EngineLoop,
                 return
             except RuntimeError as e:
                 self._json(503, {"error": str(e)})
+                return
+            if res.finish_reason == "shed":
+                # The engine is healthy; this request lost its place.
+                # tokens are non-empty only for a preempted request shed
+                # before its resume (what it had generated).
+                cls = kwargs.get("slo_class", "default")
+                self._json(429, {"error": "shed: deadline expired in the "
+                                          "queue (or brownout shed)",
+                                 "id": res.rid, "tokens": res.tokens,
+                                 "finish_reason": "shed",
+                                 "slo_class": cls},
+                           headers={"Retry-After": retry_after(cls)})
                 return
             if res.finish_reason == "failed":
                 self._json(503, {"error": "non-finite logits during "

@@ -2,10 +2,12 @@
 allocator over fixed-size KV blocks plus a refcounted radix prefix cache.
 
 This package's own copy of nanosandbox_tpu/serve/paged.py, cut to what
-the serving slice runs (migration adoption, preemption donation and the
-debug views are later slices' work; the cache and ledger resets that
-warmup needs are here). Plain Python over block *ids*; the
-K/V bytes live in the device pool (models/gpt.py init_paged_cache).
+the serving engine runs: admission, release (with the preemption path's
+donation of generated blocks), the O(1) evictable count the preemption
+check probes, and the cache and ledger resets that warmup needs.
+Migration adoption and the debug views are later slices of the port.
+Plain Python over block *ids*; the K/V bytes live in the device pool
+(models/gpt.py init_paged_cache).
 
 Allocation contract — full reservation at admission: a request is
 admitted with every block it can ever touch, ceil((prompt_len +
@@ -18,7 +20,9 @@ cache is a trie keyed on page-sized token blocks. Only FULL prompt
 blocks are shared, so the block anything writes is always private. A hit
 is capped one token short of the prompt, so the suffix prefill always
 has a token to compute the first logit from. On release a request's
-full prompt blocks are DONATED to the trie (refcount 0, evictable LRU).
+full prompt blocks are DONATED to the trie (refcount 0, evictable LRU);
+a preempted request donates its generated blocks too, so its resume is a
+prefix hit.
 """
 
 from __future__ import annotations
@@ -55,7 +59,8 @@ def prefix_digests(tokens: Sequence[int], page: int) -> List[str]:
 class _Node:
     """One cached block: a trie edge keyed by its page of token ids."""
 
-    __slots__ = ("key", "block", "parent", "children", "refs", "last_use")
+    __slots__ = ("key", "block", "parent", "children", "refs", "last_use",
+                 "locks")
 
     def __init__(self, key, block: int, parent):
         self.key = key
@@ -64,6 +69,8 @@ class _Node:
         self.children: Dict[tuple, "_Node"] = {}
         self.refs = 0                   # in-flight requests sharing it
         self.last_use = 0
+        self.locks = 0                  # refs > 0 nodes in this subtree
+        #                                 (self included): evictable at 0
 
 
 class RadixPrefixCache:
@@ -76,6 +83,7 @@ class RadixPrefixCache:
         self.root = _Node(key=None, block=-1, parent=None)
         self._nodes: List[_Node] = []
         self._tick = 0
+        self._evictable = 0             # nodes with locks == 0
 
     def __len__(self) -> int:
         return len(self._nodes)
@@ -101,13 +109,32 @@ class RadixPrefixCache:
             n.last_use = self._tick
         return path
 
+    def _lock_chain(self, node: _Node, d: int) -> None:
+        """Carry a refs 0 <-> 1 transition up the ancestor chain.
+        ``locks`` counts the pinned (refs > 0) nodes of a subtree, so a
+        node is evictable exactly while its locks are 0; kept here at
+        O(depth) a transition so that ``evictable()`` is an O(1) read."""
+        n = node
+        while n is not None:
+            n.locks += d
+            if n.parent is not None:    # the root is not a pool block
+                if d > 0 and n.locks == 1:
+                    self._evictable -= 1
+                elif d < 0 and n.locks == 0:
+                    self._evictable += 1
+            n = n.parent
+
     def acquire(self, node: _Node) -> None:
         node.refs += 1
+        if node.refs == 1:
+            self._lock_chain(node, +1)
 
     def release(self, node: _Node) -> None:
         if node.refs <= 0:
             raise RuntimeError("prefix-cache refcount underflow")
         node.refs -= 1
+        if node.refs == 0:
+            self._lock_chain(node, -1)
 
     def insert_chain(self, prompt: Sequence[int], blocks: Sequence[int],
                      start: int) -> List[int]:
@@ -128,11 +155,20 @@ class RadixPrefixCache:
                 child = _Node(keys[i], blocks[i], node)
                 node.children[keys[i]] = child
                 self._nodes.append(child)
+                self._evictable += 1    # refs 0, no children: locks 0
             else:
                 dup.append(blocks[i])
             child.last_use = self._tick
             node = child
         return dup
+
+    def evictable(self) -> int:
+        """Blocks reclaimable now by repeated leaf eviction: nodes with
+        no pinned node in their subtree (a refs-0 parent of a pinned
+        child stays: the child's prefix walk crosses it). An O(1) read
+        for the engine's per-step preemption probe, audited against the
+        O(n) walk in BlockPool.check."""
+        return self._evictable
 
     def evict(self, want: int) -> List[int]:
         """Free up to ``want`` blocks, LRU refcount-zero leaves first (a
@@ -148,6 +184,7 @@ class RadixPrefixCache:
                 break
             del victim.parent.children[victim.key]
             self._nodes.remove(victim)
+            self._evictable -= 1        # victims have locks 0 by choice
             freed.append(victim.block)
         return freed
 
@@ -236,20 +273,33 @@ class BlockPool:
                           table=[n.block for n in nodes] + fresh,
                           n_hit=n_hit, nodes=nodes)
 
-    def release(self, alloc: Allocation, *, donate: bool = True) -> None:
-        """Unwind one finished request: deref its hit chain, donate its
-        full prompt blocks to the trie, free the rest. ``donate=False``
-        frees everything (a failed row's K/V must never serve a hit)."""
+    def release(self, alloc: Allocation, *,
+                generated: Sequence[int] = (),
+                donate: bool = True) -> int:
+        """Unwind one request: deref its hit chain, donate its full
+        prompt blocks to the trie, free the rest. Returns the number of
+        blocks newly donated.
+
+        ``generated`` (the preemption path) extends the donation to the
+        full prompt + generated blocks, so the victim's resume, prompt'
+        = prompt + tokens so far, is a prefix hit over its own K/V. The
+        last generated token's position is left out: that token was only
+        sampled, never fed back, so its K/V was never written.
+        ``donate=False`` frees everything (a failed row's K/V must never
+        serve a hit)."""
         for n in alloc.nodes:
             self.cache.release(n)
         if self.cache is None or not donate:
             self._free.extend(alloc.table[alloc.n_hit:])
-            return
-        full = len(alloc.prompt) // self.page
-        dup = self.cache.insert_chain(alloc.prompt[:full * self.page],
+            return 0
+        tokens = tuple(alloc.prompt) + tuple(generated)
+        written = len(tokens) - (1 if generated else 0)
+        full = written // self.page
+        dup = self.cache.insert_chain(tokens[:full * self.page],
                                       alloc.table, alloc.n_hit)
         self._free.extend(dup)
         self._free.extend(alloc.table[full:])
+        return full - alloc.n_hit - len(dup)
 
     def reset_cache(self) -> None:
         """Evict every cached block back to the free list and zero the
@@ -292,8 +342,9 @@ class BlockPool:
 
     def check(self, live_allocs: Sequence[Allocation] = ()) -> None:
         """Invariant audit: the free list, the trie and the live
-        allocations' private blocks partition [0, num_blocks), and each
-        node's refcount equals the live allocations holding it."""
+        allocations' private blocks partition [0, num_blocks), each
+        node's refcount equals the live allocations holding it, and the
+        O(1) evictable counter equals its O(n) recount."""
         free = list(self._free)
         cached = self.cache.cached_blocks() if self.cache else []
         owned: List[int] = []
@@ -308,7 +359,20 @@ class BlockPool:
             raise AssertionError(
                 f"pool partition broken: free={sorted(free)} "
                 f"cached={sorted(cached)} owned={sorted(owned)}")
-        for n in (self.cache._nodes if self.cache else []):
+        if self.cache is None:
+            return
+        for n in self.cache._nodes:
             if n.refs != refs.get(id(n), 0):
                 raise AssertionError(("refcount drift", n.key, n.refs,
                                       refs.get(id(n), 0)))
+        # The O(1) evictable counter against the O(n) pinned-set walk.
+        pinned: set = set()
+        for n in self.cache._nodes:
+            if n.refs > 0:
+                while n is not None and id(n) not in pinned:
+                    pinned.add(id(n))
+                    n = n.parent
+        slow = sum(1 for n in self.cache._nodes if id(n) not in pinned)
+        if self.cache._evictable != slow:
+            raise AssertionError(("evictable-counter drift",
+                                  self.cache._evictable, slow))

@@ -1,8 +1,10 @@
 """Admission control for the continuous-batching engine (host-side).
 
-This package's own copy of nanosandbox_tpu/serve/scheduler.py, cut to
-what the serving slice runs: a FIFO queue, the free-slot pool, and the
-two ladders that turn an arbitrary request stream into few shapes —
+This package's own copy of nanosandbox_tpu/serve/scheduler.py, without
+its migration limbo (the disaggregated prefill/decode handoff, a later
+slice of the port): one FIFO queue per priority class, the free-slot
+pool, and the two ladders that turn an arbitrary request stream into few
+shapes --
 
   * prefill pads each (suffix) prompt up to a bucket of a power-of-two
     ladder, so one wave is one (rung, bucket) block;
@@ -10,14 +12,17 @@ two ladders that turn an arbitrary request stream into few shapes —
 
 PyTorch compiles nothing per shape, but the ladders keep the waves the
 same shapes as the JAX engine's, and with them the batching behaviour.
-Priority classes, migration limbo and the deadline sweep are later
-slices' work.
+
+Step boundaries are chunk boundaries: every wave is popped and committed
+between two decode dispatches, so queue-wait accounting is in dispatch
+units (a "step" of waiting spans up to scan_k tokens).
 """
 
 from __future__ import annotations
 
+from bisect import insort
 from collections import deque
-from typing import Deque, List, Optional, Tuple
+from typing import Deque, Dict, List, Optional, Tuple
 
 
 def admit_ladder(num_slots: int) -> List[int]:
@@ -47,9 +52,16 @@ def default_buckets(max_len: int, min_bucket: int = 16) -> List[int]:
 
 
 class SlotScheduler:
-    """FIFO queue + free-slot pool + bucket ladder. Owns no device state:
-    the engine asks which requests go into which slots
-    (``next_admission_wave``) and reports freed slots (``release``)."""
+    """Priority queue + free-slot pool + bucket ladder. Owns no device
+    state: the engine asks which requests go into which slots
+    (``next_admission_wave``) and reports freed slots (``release``).
+
+    Ordering is priority, then FIFO: items with a higher ``.priority``
+    sit ahead of lower ones, and within a class admission is strictly
+    FIFO (a long prompt at the head of its class is never jumped by a
+    later short one). Items without ``.priority`` share one class, a
+    plain FIFO. Lower classes may starve under sustained higher-priority
+    load; the engine's brownout ladder sheds them explicitly."""
 
     def __init__(self, num_slots: int, buckets: List[int]):
         if num_slots < 1:
@@ -61,14 +73,63 @@ class SlotScheduler:
         self.buckets = list(buckets)
         self.admit_buckets = admit_ladder(num_slots)
         self._free: List[int] = list(range(num_slots - 1, -1, -1))
-        self._queue: Deque = deque()
+        # One FIFO deque per priority class (enqueue and requeue_front
+        # are O(1) at any depth); ``_negprios`` holds the negated
+        # priorities of the non-empty classes in ascending order, i.e.
+        # the priorities descending.
+        self._queues: Dict[int, Deque] = {}
+        self._negprios: List[int] = []
+        # The queue depth as a plain int: HTTP handler threads read it
+        # while the engine thread mutates the classes.
+        self._n = 0
+
+    # -- queue side --
+    @staticmethod
+    def _prio(item) -> int:
+        return getattr(item, "priority", 0)
+
+    def _class(self, p: int) -> Deque:
+        """The class deque for priority ``p``, created on first use."""
+        q = self._queues.get(p)
+        if q is None:
+            q = self._queues[p] = deque()
+            insort(self._negprios, -p)
+        return q
+
+    def _drop_if_empty(self, p: int) -> None:
+        if not self._queues[p]:
+            del self._queues[p]
+            self._negprios.remove(-p)
 
     def enqueue(self, item) -> None:
-        self._queue.append(item)
+        """Append at the tail of the item's priority class."""
+        self._class(self._prio(item)).append(item)
+        self._n += 1
+
+    def peek_head(self):
+        """The next item admission would consider (None when empty): the
+        head of the highest non-empty class."""
+        if not self._negprios:
+            return None
+        return self._queues[-self._negprios[0]][0]
+
+    def pop_head(self):
+        """Pop the queue head: the chunked-prefill lane claims it outside
+        the wave machinery (its prefill spans several engine steps)."""
+        p = -self._negprios[0]
+        item = self._queues[p].popleft()
+        self._n -= 1
+        self._drop_if_empty(p)
+        return item
+
+    def take_slot(self) -> int:
+        """Claim one free slot (the chunked lane's twin of the slot pop
+        in next_admission_wave). The caller checks ``free_slots``."""
+        return self._free.pop()
 
     @property
     def queued(self) -> int:
-        return len(self._queue)
+        return self._n
 
     @property
     def free_slots(self) -> int:
@@ -91,35 +152,92 @@ class SlotScheduler:
         raise ValueError(
             f"wave size {wave_size} exceeds num_slots {self.num_slots}")
 
-    def next_admission_wave(self, *, bucket_of=None, admit=None,
+    def next_admission_wave(self, max_items: Optional[int] = None, *,
+                            bucket_of=None, admit=None,
                             ) -> Optional[Tuple[List, List[int], int]]:
-        """(items, slots, bucket): the maximal FIFO *prefix* of the queue
-        whose prompts share the head's bucket, capped at the free slots.
-        A request with a different bucket ends the wave rather than being
-        jumped, so admission stays FIFO.
+        """(items, slots, bucket): the maximal prefix of the queue, in
+        priority order, whose prompts share the head's bucket, capped at
+        the free slots (and at ``max_items``). A request with a different
+        bucket ends the wave rather than being jumped.
 
         ``bucket_of(item)`` overrides the bucket key (the paged engine
         buckets the prefix-hit-adjusted suffix); ``admit(item) -> bool``
         commits the item's KV blocks, and False fences the wave with the
         item still queued (pool exhaustion is a wait, not a deadlock)."""
-        if not self._queue or not self._free:
+        if not self._negprios or not self._free:
             return None
         key = bucket_of if bucket_of is not None else (
             lambda item: self.bucket_for(len(item.prompt)))
-        bucket = key(self._queue[0])
+        bucket = key(self.peek_head())
         items: List = []
         slots: List[int] = []
-        while self._queue and self._free:
-            head = self._queue[0]
+        while (self._negprios and self._free
+               and (max_items is None or len(items) < max_items)):
+            head = self.peek_head()
             if key(head) != bucket:
                 break
             if admit is not None and not admit(head):
                 break
-            items.append(self._queue.popleft())
+            items.append(self.pop_head())
             slots.append(self._free.pop())
         if not items:
             return None
         return items, slots, bucket
+
+    def drain_expired(self, expired) -> List:
+        """Remove and return every queued item for which
+        ``expired(item)`` is true, the survivors keeping their order:
+        the engine's deadline and brownout shed. Cheap when nothing
+        expired (attribute checks only; a class is rebuilt only on a
+        hit)."""
+        shed: List = []
+        if any(expired(item)
+               for q in self._queues.values() for item in q):
+            for np_ in list(self._negprios):
+                p = -np_
+                kept: Deque = deque()
+                for item in self._queues[p]:
+                    (shed if expired(item) else kept).append(item)
+                self._queues[p] = kept
+                self._drop_if_empty(p)
+            self._n -= len(shed)
+        return shed
+
+    def requeue_front(self, items: List) -> None:
+        """Push items back at the head of their priority class, in the
+        given order among themselves (the preemption path): a victim
+        does not queue behind same-class traffic that came after it, and
+        does not jump a higher class, so ``peek_head`` stays the most
+        urgent item."""
+        for item in reversed(list(items)):
+            self._class(self._prio(item)).appendleft(item)
+            self._n += 1
+
+    def queue_mass(self, priority: int) -> Tuple[int, int]:
+        """(at_or_above, strictly_above): the queued counts a request of
+        ``priority`` waits behind (the retry-after hint). Safe from HTTP
+        handler threads: per-class len() on a copy of the class list."""
+        ahead = jumps = 0
+        for np_ in list(self._negprios):
+            q = self._queues.get(-np_)
+            if q is None:
+                continue
+            n = len(q)
+            if -np_ >= priority:
+                ahead += n
+            if -np_ > priority:
+                jumps += n
+        return ahead, jumps
+
+    def queued_items(self) -> List:
+        """A copy of the queue, head first (callers must not mutate the
+        items); each class deque is copied whole, never iterated live."""
+        out: List = []
+        for np_ in list(self._negprios):
+            q = self._queues.get(-np_)
+            if q is not None:
+                out.extend(list(q))
+        return out
 
     def release(self, slot: int) -> None:
         if slot in self._free:

@@ -72,9 +72,11 @@ def test_importing_every_module_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
     names, bad = json.loads(proc.stdout.strip().splitlines()[-1])
     assert len(names) >= 15 and bad == [], proc.stdout
-    # Ring attention and the multi-process modules are among them.
+    # Ring attention, the multi-process modules and the scheduling
+    # modules (the SLO ledger, the brownout ladder) are among them.
     for mod in ("ops.ring_attention", "parallel.distributed",
-                "parallel.mesh"):
+                "parallel.mesh", "obs.slo", "serve.brownout",
+                "serve.scheduler"):
         assert f"nanosandbox_tpu_torch.{mod}" in names, names
 
 
