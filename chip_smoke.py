@@ -1,10 +1,10 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases=2,3,7,9,13,14,15]
+    python3 chip_smoke.py [--phases=2,3,7,9,13,14,15,16]
 
 Phases (each prints what it found; any failure exits non-zero; --phases
 runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13,
-14 or 15, and prints no result line):
+14, 15 or 16, and prints no result line):
 
   1. device   torch / CUDA versions, the card's name and power limit;
   2. build    the CUDA kernels from nanosandbox_tpu_torch/csrc (into
@@ -204,9 +204,29 @@ runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13,
               step (a traced pass) and their TTFTs, beside the card's
               name and power limit.
 
+ 16. spec and recovery  phase 4's fp32 model: the paged engine with
+              NGramDrafter(k=4) and with an oracle ModelDrafter (the
+              target's own weights), greedy tokens equal to phase 4's,
+              each verify graph's K1 launches n_layer at capture and in a
+              trace of one replay (the (8, 5) block), no plain version,
+              target forwards per emitted token (< 1 under the oracle);
+              the dense engine with NGram on phase 4's prompts and a
+              992-token one (its last blocks run past max_len), tokens
+              equal to phase 10's and the recompute; a supervised paged
+              engine on 4 slots under chaos-smoke plus a slow_step the
+              stalled_step watchdog catches, tokens equal to the no-fault
+              run, one terminal a request, a flush recovery and decode
+              replays after it; a drafter_fault streak that disables
+              spec with phase 4's tokens; the bf16 server with
+              --spec=ngram on phase 5's requests (acceptance, the share
+              of tokens equal to phase 5's, TPOT p50 beside phase 5's);
+              K1 at the verify shape (S 8, T 5, bf16 and fp32) timed
+              against its plain version, its bound and SDPA.
+
 The last line is {"ok": true, "device": {...}}; the line before it is a
 JSON object with one entry per kernel instance timed (K1 twice for each
-pool and query: phase 3's B 2, T 256 case and the wave; K2 twice: phase
+pool and query: phase 3's B 2, T 256 case and the wave, and once more in
+bf16 and fp32 at phase 16's verify shape; K2 twice: phase
 3's lengths and the serving steady state; K3 three times: phase 3's
 lengths, 8 x 512 and 1 x 1024). Needs one CUDA
 GPU; without one it exits non-zero and prints no result.
@@ -3138,9 +3158,283 @@ def check_scheduling(fd, at, smi: str, unchunked=None) -> None:
     print(f"  phase 15: {time.monotonic() - t0:.1f} s")
 
 
-# Phases that stand alone, for a partial run (--phases=2,3,7,9,13,14,15;
+# ---------------------------------------------------------------------------
+# phase 16: speculative decoding and recovery
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+# K1 at the verify shape: 8 slots' k+1 = 5 queries at these frontiers.
+VERIFY_STARTS = (100, 517, 1000, 300, 16, 33, 700, 1019)
+
+
+def spec_run(model, prompts, *, new=ENGINE_NEW, num_slots=8,
+             supervised=False, setup=None, **kw) -> dict:
+    """One engine (num_slots x 1024) drained over the prompts, greedy,
+    every count reset just before: tokens, wall, the kernel launches
+    (the wrappers' own plus captures x replays, verify and draft graphs
+    included), plain-version calls on the card and K4's launches, the
+    stats, and the engine itself. ``setup(engine)`` runs first;
+    ``supervised`` steps it through an EngineSupervisor (backoff 0), and
+    a rid ending twice fails."""
+    from nanosandbox_tpu_torch.ops import attention as at
+    from nanosandbox_tpu_torch.ops import flash_decode as fd
+    from nanosandbox_tpu_torch.serve.engine import Engine
+    from nanosandbox_tpu_torch.serve.recovery import EngineSupervisor
+
+    engine = Engine(model, num_slots=num_slots, max_len=1024, device=DEVICE,
+                    **kw)
+    if setup is not None:
+        setup(engine)
+    fd.reset_counts()
+    at.reset_counts()
+    rids = [engine.submit(p, new) for p in prompts]
+    t0 = time.monotonic()
+    sup = EngineSupervisor(engine, backoff_base_s=0.0) if supervised \
+        else None
+    done: dict = {}
+    while engine.has_work():
+        for r in (sup or engine).step():
+            if r.rid in done:
+                fail(f"request {r.rid} ended twice")
+            done[r.rid] = r
+    sync()
+    return {"tokens": [done[r].tokens for r in rids],
+            "reasons": [done[r].finish_reason for r in rids],
+            "wall_s": time.monotonic() - t0,
+            "launches": counted_launches(fd, engine),
+            "k4_launches": at.launches["flash_attention_fwd"],
+            "plain_cuda_calls": counted_plain(fd, at, engine),
+            "stats": engine.stats(), "engine": engine, "supervisor": sup}
+
+
+def verify_trace(name: str, engine) -> dict:
+    """Each verify graph of an idle spec engine replayed once under a
+    trace (its rows parked: nothing moves): on a paged pool the capture
+    must hold n_layer K1 launches (the (num_slots, k+1) block, one a
+    layer) and the trace must show them; no graph may hold a
+    plain-version call. Returns {graph: (captured, traced)}."""
+    key = f"flash_prefill_paged/{engine.kv_dtype}"
+    out = {}
+    for g, graph in engine._spec_graphs.items():
+        if g[0] != "verify":
+            continue
+        plain = {k: n for k, n in engine.graph_plain_calls[g].items() if n}
+        if plain:
+            fail(f"{name}: the {g} graph holds plain-version calls {plain}")
+        captured = engine.graph_launches[g].get(key, 0)
+        traced = traced_kernels(graph.replay)["K1"]
+        want = engine.cfg.n_layer if engine.paged else 0
+        if DEVICE != "cpu" and (captured != want or traced != captured):
+            fail(f"{name}: the {g} graph captured {captured} {key} "
+                 f"launches, traced {traced} (want {want})")
+        out["/".join(map(str, g))] = (captured, traced)
+    return out
+
+
+def check_verify_k1(fd, smi: str) -> dict:
+    """K1 at the verify shape (S 8, T 5, H 12, D 64, VERIFY_STARTS) over
+    fp32 and bf16 pools under a query of the same dtype, against its
+    plain version at phase 3's limits, timed beside its bound and SDPA on
+    the gathered rows."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(SEED + 16)
+    H, D, T = 12, 64, SPEC_K + 1
+    start = np.array(VERIFY_STARTS, np.int32)
+    pk, pv, ptbl = make_case(rng, len(start), start + T)
+    pq = torch.from_numpy(rng.standard_normal((len(start), H, T, D),
+                                              dtype=np.float32)).to(DEVICE)
+    pstart = torch.from_numpy(start).to(DEVICE)
+    Lp = int((start + T).max())
+    qpos = pstart[:, None] + torch.arange(T, device=DEVICE)[None]
+    mask = (torch.arange(Lp, device=DEVICE)[None, None, None, :]
+            <= qpos[:, None, :, None])
+    shape = f"verify S={len(start)} H={H} T={T} D={D}"
+    cases = {}
+    for dtype, mode, k1 in ((torch.float32, "fp32",
+                             "paged_prefill_f32_kernel<fp32>"),
+                            (torch.bfloat16, "bf16",
+                             "paged_prefill_mma_kernel<bf16>")):
+        q = pq.to(dtype)
+        k, v = pk.to(dtype), pv.to(dtype)
+        err = check_limits(f"{k1} {shape}",
+                           fd.flash_prefill_paged(q, k, v, ptbl, pstart),
+                           fd.torch_prefill_attention_paged(q, k, v, ptbl,
+                                                            pstart), dtype)
+        gk, gv = gathered(k, ptbl, Lp), gathered(v, ptbl, Lp)
+        cases[mode] = case(
+            k1, dtype, shape, err, DECODE_TOL[dtype]["abs"],
+            lambda: fd.flash_prefill_paged(q, k, v, ptbl, pstart),
+            lambda: fd.torch_prefill_attention_paged(q, k, v, ptbl, pstart),
+            lambda: F.scaled_dot_product_attention(q, gk, gv,
+                                                   attn_mask=mask),
+            decode_bytes(int((start + T).sum()), H, D, mode,
+                         q.numel() * q.element_size()),
+            int(sum(4 * H * D * (s * T + T * T / 2) for s in start)))
+        c = cases[mode]
+        print(f"  K1 {k1} {shape} starts {list(VERIFY_STARTS)}: max|err| "
+              f"{err:.2e}, {c['ms']:.5f} ms, bound {c['bound_ms']:.5f} ms "
+              f"[{c['bound_by']}] ({100 * c['bound_ms'] / c['ms']:.1f}% of "
+              f"bound), plain {c['plain_ms']:.5f} ms, SDPA on gathered rows "
+              f"{c['library_ms']:.5f} ms [{smi}]")
+    return cases
+
+
+def check_spec_and_recovery(fd, at, smi: str, ref=None, dense_ref=None,
+                            served=None) -> dict:
+    """Phase 16 (module docstring). ``ref`` / ``dense_ref``: phase 4's
+    paged and phase 10's dense fp32 tokens on phase 4's prompts,
+    ``served``: phase 5's server run; a standalone run makes them."""
+    from nanosandbox_tpu_torch.serve.drafters import ModelDrafter, NGramDrafter
+    from nanosandbox_tpu_torch.serve.faults import CANNED, FaultPlan
+
+    t_phase = time.monotonic()
+    model, prompts = fp32_model_and_prompts()
+    if ref is None:
+        ref = spec_run(model, prompts)["tokens"]
+    if dense_ref is None:
+        dense_ref = spec_run(model, prompts, paged=False)["tokens"]
+    n_layer = model.cfg.n_layer
+    runs = {}
+    # (a) the fp32 paged engine, NGram and an oracle ModelDrafter (the
+    # target's own weights).
+    oracle, _ = fp32_model_and_prompts()
+    for name, drafter in (("paged NGram", NGramDrafter(k=SPEC_K)),
+                          ("paged oracle", ModelDrafter(oracle, k=SPEC_K))):
+        run = spec_run(model, prompts, spec=drafter)
+        st, eng = run["stats"], run["engine"]
+        bad = sum(a != b for a, b in zip(run["tokens"], ref))
+        emitted = st["tokens_generated"] - st["admitted"]
+        per_token = st["host_dispatches"]["verify"] / max(1, emitted)
+        trace = verify_trace(f"phase 16 {name}", eng)
+        print(f"  fp32 {name} k={SPEC_K}: {run['wall_s']:.3f} s; token "
+              f"mismatches vs phase 4 {bad}; acceptance "
+              f"{st['spec_acceptance_rate']}, accepted length mean "
+              f"{st['spec_accepted_len_mean']}, target forwards per emitted "
+              f"token {per_token:.3f} ({st['host_dispatches']['verify']} "
+              f"verifies / {emitted}); launches {run['launches']}; verify "
+              f"graphs K1 (captured, traced) {trace}; graphs "
+              f"{eng.max_programs()} [{smi}]")
+        if bad:
+            fail(f"phase 16 {name}: greedy tokens differ from phase 4's")
+        need = ["flash_prefill_paged/fp32"]
+        if name == "paged oracle":
+            need.append("flash_decode_paged/fp32")     # the draft steps
+            if per_token >= 1:
+                fail(f"phase 16 {name}: {per_token} target forwards per "
+                     "emitted token under the oracle drafter")
+        need_launches(f"phase 16 {name}", run, need)
+        runs[name] = run
+        del run["engine"], eng
+    del oracle
+    # (b) the fp32 dense engine with NGram, and a prompt whose frontier
+    # comes within k+1 of max_len (its last blocks' columns drop).
+    rng = np.random.default_rng(SEED + 16)
+    long = [int(t) for t in rng.integers(0, prompt_vocab(model.cfg),
+                                         1024 - ENGINE_NEW)]
+    long_ref = recompute(model, [long])
+    run = spec_run(model, prompts + [long], paged=False,
+                   spec=NGramDrafter(k=SPEC_K))
+    bad = sum(a != b for a, b in zip(run["tokens"], dense_ref + long_ref))
+    trace = verify_trace("phase 16 dense NGram", run["engine"])
+    print(f"  fp32 dense NGram k={SPEC_K} (+ a {len(long)}-token prompt to "
+          f"max_len): {run['wall_s']:.3f} s; token mismatches vs phase 10 "
+          f"and the recompute {bad}; acceptance "
+          f"{run['stats']['spec_acceptance_rate']}; launches "
+          f"{run['launches']}, flash forward {run['k4_launches']}; verify "
+          f"graphs {trace}")
+    if bad:
+        fail("phase 16 dense NGram: greedy tokens differ")
+    if not run["k4_launches"] or any(run["plain_cuda_calls"].values()):
+        fail(f"phase 16 dense NGram: flash forward "
+             f"{run['k4_launches']}, plain {run['plain_cuda_calls']}")
+    del run["engine"]
+    runs["dense NGram"] = run
+    # (d) supervised chaos: phase 4's prompts and 8 short ones on 4
+    # slots, CANNED chaos-smoke plus a stall the watchdog catches; then a
+    # drafter-fault streak.
+    work = prompts + [[int(t) for t in rng.integers(
+        0, prompt_vocab(model.cfg), int(n))] for n in rng.integers(20, 120, 8)]
+    clean = spec_run(model, work, num_slots=4)
+    del clean["engine"]
+    plan = FaultPlan.parse(CANNED["chaos-smoke"] + ",slow_step@9:0.3")
+    recoveries = []
+
+    def spy_on(eng):
+        """The watchdog's stall limit under the injected stall, and each
+        recovery's (cause, flush, decode replays before it)."""
+        eng.watchdog.stalled_step_s = 0.2
+        recover = eng.recover
+
+        def spy(cause, flush_cache=False):
+            recoveries.append([cause, flush_cache, sum(
+                n for g, n in eng.graph_replays.items() if g[0] != "verify")])
+            return recover(cause, flush_cache=flush_cache)
+
+        eng.recover = spy
+
+    chaos = spec_run(model, work, num_slots=4, faults=plan, supervised=True,
+                     setup=spy_on)
+    eng = chaos["engine"]
+    final = sum(n for g, n in eng.graph_replays.items() if g[0] != "verify")
+    sites = sorted({f["site"] for f in plan.fired_log})
+    bad = sum(a != b for a, b in zip(chaos["tokens"], clean["tokens"]))
+    flushed = [r for r in recoveries if r[1]]
+    print(f"  fp32 paged, 4 slots, {len(work)} requests under chaos-smoke + "
+          f"slow_step: fired {sites}; recoveries (cause, flush, decode "
+          f"replays before) {recoveries}, decode replays at the end "
+          f"{final}; supervisor {chaos['supervisor'].stats()['state']}; "
+          f"token mismatches vs the no-fault run {bad}; terminals "
+          f"{sorted(set(chaos['reasons']))}, one per request")
+    if bad or set(chaos["reasons"]) - {"length"}:
+        fail("phase 16 chaos: tokens or terminals differ from the no-fault "
+             "run")
+    if sites != ["alloc_fail", "nan_logits", "preempt_storm", "prefill_exc",
+                 "slow_step"] or not flushed or final <= flushed[-1][2]:
+        fail(f"phase 16 chaos: sites {sites}, flush recoveries {flushed}, "
+             f"decode replays after the last flush {final}")
+    need_launches("phase 16 chaos", chaos, ("flash_decode_paged/fp32",
+                                            "flash_prefill_paged/fp32"))
+    del chaos["engine"], eng
+    streak = spec_run(model, prompts, spec=NGramDrafter(k=SPEC_K),
+                      faults=FaultPlan.parse("drafter_fault@2x99"))
+    st = streak["stats"]
+    bad = sum(a != b for a, b in zip(streak["tokens"], ref))
+    print(f"  drafter_fault streak: drafter faults {st['drafter_faults']}, "
+          f"spec disabled: {st['recovery']['spec_disabled']!r}; decode "
+          f"dispatches after it {st['host_dispatches']['decode']}; token "
+          f"mismatches vs phase 4 {bad}")
+    if bad or st["spec"]["enabled"] or not st["host_dispatches"]["decode"]:
+        fail("phase 16: a drafter fault streak did not leave the engine "
+             "serving plain decode with phase 4's tokens")
+    del streak["engine"]
+    del model
+    torch.cuda.empty_cache() if DEVICE != "cpu" else None
+    # (c) the bf16 124M server with --spec=ngram on phase 5's requests.
+    if served is None:
+        served = check_server(fd, smi)
+    spec_served = check_server(fd, smi, ["--spec=ngram", "--warmup=buckets"],
+                               need=("flash_prefill_paged/bf16",))
+    same = sum(x == y for a, b in zip(spec_served["answers"],
+                                      served["answers"])
+               for x, y in zip(a, b))
+    total = sum(len(a) for a in served["answers"])
+    sst, pst = spec_served["stats"], served["stats"]
+    print(f"  bf16 server --spec=ngram: acceptance "
+          f"{sst['spec_acceptance_rate']}, accepted length mean "
+          f"{sst['spec_accepted_len_mean']}; tokens equal to phase 5's "
+          f"{same}/{total} ({100 * same / total:.1f}%); TPOT p50 "
+          f"{sst['tpot_s']['p50'] * 1e3:.3f} ms vs phase 5's "
+          f"{pst['tpot_s']['p50'] * 1e3:.3f} ms [{smi}]")
+    # (e) K1 at the verify shape.
+    k1 = check_verify_k1(fd, smi)
+    print(f"  phase 16: {time.monotonic() - t_phase:.1f} s")
+    return {"runs": runs, "server": spec_served, "k1": k1}
+
+
+# Phases that stand alone, for a partial run (--phases=2,3,7,9,13,14,15,16;
 # 9 runs phase 12 after it).
-STANDALONE_PHASES = (2, 3, 7, 9, 13, 14, 15)
+STANDALONE_PHASES = (2, 3, 7, 9, 13, 14, 15, 16)
 
 
 def train_and_sample(at, fd, smi: str) -> None:
@@ -3201,7 +3495,10 @@ def main(argv: list[str] | None = None) -> int:
                 (14, "dispatch modes on the card",
                  lambda: check_dispatch(fd, smi)),
                 (15, "scheduling (chunked prefill, preemption, deadlines)",
-                 lambda: (_build.library(), check_scheduling(fd, at, smi)))):
+                 lambda: (_build.library(), check_scheduling(fd, at, smi))),
+                (16, "speculative decoding and recovery",
+                 lambda: (_build.library(),
+                          check_spec_and_recovery(fd, at, smi)))):
             if phase in only:
                 print(f"== phase {phase}: {title}")
                 fn()
@@ -3276,6 +3573,10 @@ def main(argv: list[str] | None = None) -> int:
     print("== phase 15: scheduling (chunked prefill, preemption, deadlines)")
     check_scheduling(fd, at, smi, served["answers"])
 
+    print("== phase 16: speculative decoding and recovery")
+    spec = check_spec_and_recovery(fd, at, smi, paged_fp32["tokens"],
+                                   pools["dense fp32"]["tokens"], served)
+
     def entry(name, source, replaces, launches, case):
         return {"name": name, "route": "cuda",
                 "source": f"nanosandbox_tpu_torch/csrc/{source}",
@@ -3338,6 +3639,17 @@ def main(argv: list[str] | None = None) -> int:
                   timed(k1, "float32", "B=2 H=12 T=256")),
             entry(f"{k1}[wave B=8 T=512]", paged, "flash_decode.py:585",
                   n_k1, timed(k1, "float32", "B=8"))]
+    # K1 at the verify shape (phase 16), with the launches of phase 16's
+    # fp32 paged NGram engine (prefills and verifies) and of its bf16
+    # --spec=ngram server.
+    for mode, k1, n in (
+            ("fp32", "paged_prefill_f32_kernel<fp32>",
+             spec["runs"]["paged NGram"]["launches"][
+                 "flash_prefill_paged/fp32"]),
+            ("bf16", "paged_prefill_mma_kernel<bf16>",
+             spec["server"]["launches"]["flash_prefill_paged/bf16"])):
+        kernels.append(entry(f"{k1}[verify S=8 T=5]", paged,
+                             "flash_decode.py:585", n, spec["k1"][mode]))
     # K3: the bf16 pool's launches are the dense bf16 server's; the fp32,
     # int8 and int4 pools' are phase 10's fp32-compute dense engines', so
     # their times are taken under an fp32 query. Each at phase 3's lengths,

@@ -43,9 +43,14 @@ Two forward paths:
     ``cache_index`` i and T = 1 (the sampler's decode step) every row
     writes at i and K3 attends over [0, i]; with i == 0 and T > 1 (a
     prefill into a fresh cache) the call writes [0, T) and attends
-    causally over its own keys through causal_attention (K4). Other
-    combinations (T > 1 at a nonzero index: speculative verify) are not
-    ported yet.
+    causally over its own keys through causal_attention (K4); with a
+    per-row ``cache_index`` and T > 1 (the speculative verify block)
+    row b writes positions cache_index[b] + [0, T) with drop semantics
+    (columns past the buffer are discarded, never shifted back onto
+    valid history) and attends through the masked attention over the
+    whole buffer (ops/flash_decode.py masked_cache_attention, JAX's
+    masked-score path: no kernel there either). A T > 1 call at a
+    nonzero scalar index is not ported yet.
 
 Each pool layer is (K, V) in fp32 or bf16, or (K, V, k_scale, v_scale)
 for the quantized modes: int8 values, or packed int4 (uint8, two nibbles
@@ -89,6 +94,7 @@ from nanosandbox_tpu_torch.ops.flash_decode import (KV_MODES, KV_STORAGE,
                                                     flash_decode,
                                                     flash_decode_paged,
                                                     flash_prefill_paged,
+                                                    masked_cache_attention,
                                                     quantize_kv_rows,
                                                     quantize_kv_rows_int4)
 from nanosandbox_tpu_torch.ops.ring_attention import (ring_attention_sharded,
@@ -182,22 +188,55 @@ def write_dense_kv(layer, k: torch.Tensor, v: torch.Tensor,
                    cache_index) -> None:
     """Write (B, H, T, D) K/V into a dense (B, H, L, D') layer: a scalar
     ``cache_index`` i writes positions [i, i + T) of every row; a (B,)
-    one (T = 1 only) writes row b at its own position cache_index[b],
+    one with T = 1 writes row b at its own position cache_index[b],
     clamped to L - 1 as JAX's per-row dynamic_update_slice clamps it. A
     row past L is one that rides a pipelined or scan_k chunk after its
     budget: its write lands in its own row's last position, which no
     token of its budget reads (plen + max_new <= L, so the last useful
-    step writes position L - 2), and K3 clamps its length to L."""
+    step writes position L - 2), and K3 clamps its length to L. A (B,)
+    one with T > 1 (the verify block) writes row b at cache_index[b] +
+    [0, T) with JAX's scatter-drop semantics (_write_dense_block)."""
     vals = _to_pool(layer, k, v)
     if isinstance(cache_index, int):
         T = k.shape[2]
         for buf, x in zip(layer, vals):
             buf[:, :, cache_index:cache_index + T] = x
         return
+    if k.shape[2] > 1:
+        _write_dense_block(layer, vals, cache_index)
+        return
     rows = torch.arange(k.shape[0], device=k.device)
     pos = cache_index.long().clamp(max=layer[0].shape[2] - 1)
     for buf, x in zip(layer, vals):
         buf[rows, :, pos] = x[:, :, 0]
+
+
+def _write_dense_block(layer, vals, cache_index: torch.Tensor) -> None:
+    """Row b's T columns at cache_index[b] + [0, T), columns past L
+    dropped (JAX's .at[...].set(mode='drop')), without a host sync or a
+    data-dependent shape: a dropped column is redirected to the row's
+    first column and carries that column's own new value (or, for a row
+    whose start is itself past L, the value already at L - 1), so every
+    duplicate index writes identical values and nothing outside the
+    block changes. The start is never clamped: a clamped block would
+    shift backwards over valid history."""
+    B, _, T = vals[0].shape[:3]
+    L = layer[0].shape[2]
+    dev = cache_index.device
+    start = cache_index.long()
+    cols = start[:, None] + torch.arange(T, device=dev)[None, :]   # (B, T)
+    first = start.clamp(max=L - 1)
+    tgt = torch.where(cols < L, cols, first[:, None])
+    rows = torch.arange(B, device=dev)
+    inside = (start < L)[:, None, None]
+    for buf, x in zip(layer, vals):
+        x = x.transpose(1, 2)                         # (B, T, H[, D'])
+        old = buf[rows, :, L - 1]                     # (B, H[, D'])
+        fill = torch.where(inside.view(B, *([1] * (x.dim() - 2))),
+                           x[:, 0], old)
+        x = torch.where((cols < L).view(B, T, *([1] * (x.dim() - 2))), x,
+                        fill[:, None])
+        buf[rows[:, None], :, tgt] = x
 
 
 def _scales(layer) -> dict:
@@ -280,10 +319,18 @@ class CausalSelfAttention(nn.Module):
             return flash_decode(q[:, :, 0].contiguous(), cache[0], cache[1],
                                 lengths.to(torch.int32),
                                 **_scales(cache))[:, :, None]
-        if per_row or cache_index != 0:
+        if per_row:
+            # The verify block: drop-mode write, then every query at its
+            # own position over the whole buffer (module docstring).
+            write_dense_kv(cache, k, v, cache_index)
+            qpos = (cache_index.long()[:, None]
+                    + torch.arange(T, device=q.device)[None, :])
+            return masked_cache_attention(q, cache[0], cache[1], qpos,
+                                          **_scales(cache))
+        if cache_index != 0:
             raise NotImplementedError(
-                "a dense-cache call with T > 1 at a nonzero or per-row "
-                "cache_index (speculative verify) is not ported yet")
+                "a dense-cache call with T > 1 at a nonzero scalar "
+                "cache_index is not ported yet")
         if len(cache) == 4:
             raise NotImplementedError(
                 "a T > 1 prefill into a quantized dense cache is not "

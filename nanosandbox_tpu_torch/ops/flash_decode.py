@@ -65,8 +65,9 @@ DENSE_CHUNK = 64
 
 __all__ = ["flash_decode", "flash_decode_paged", "flash_prefill_paged",
            "torch_decode_attention", "torch_decode_attention_paged",
-           "torch_prefill_attention_paged", "quantize_kv_rows",
-           "quantize_kv_rows_int4", "unpack_int4", "decode_splits",
+           "torch_prefill_attention_paged", "masked_cache_attention",
+           "quantize_kv_rows", "quantize_kv_rows_int4", "unpack_int4",
+           "decode_splits",
            "dense_decode_splits", "dense_decode_launch_shape",
            "ticket_counters", "launches", "plain_cuda_calls", "reset_counts"]
 
@@ -299,6 +300,28 @@ def torch_prefill_attention_paged(q, k, v, block_table, start, *,
     mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None]  # (B,1,T,S)
     return _attend(q, gk, gv, mask, gks, gvs, sm_scale,
                    _dot_dtype(q, k, k_scale)).to(q.dtype)
+
+
+def masked_cache_attention(q, k, v, qpos, *, k_scale=None, v_scale=None,
+                           sm_scale: float | None = None) -> torch.Tensor:
+    """Multi-query masked attention over contiguous slot rows: query t
+    of row b sits at position qpos[b, t] and attends to every key
+    position <= it of k/v (B, H, L, D), the whole buffer included.
+    Returns (B, H, T, D) in q's dtype. The dense pool's speculative
+    verify (a T = k+1 block at per-row frontiers) reads through this:
+    JAX computes that read with the masked-score XLA path of
+    models/gpt.py, outside any Pallas kernel, so it has no kernel here
+    either and is not a plain version (plain_cuda_calls does not count
+    it). p is rounded as JAX's path rounds it: to q's dtype over an
+    int8/int4 pool, else to the pool's."""
+    _kv_mode(q, k, v, k_scale, v_scale)
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    kpos = torch.arange(k.shape[2], device=q.device)
+    mask = (kpos[None, None, :] <= qpos.long()[:, :, None])[:, None]
+    p_dtype = q.dtype if k_scale is not None else v.dtype
+    return _attend(q, _values(k), _values(v), mask, k_scale, v_scale,
+                   sm_scale, p_dtype).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,8 @@ The counterpart of nanosandbox_tpu/sample.py:
     sliding context window (K4) when prompt + new tokens exceed
     block_size;
   * ``main``: ``python -m nanosandbox_tpu_torch.sample`` with the JAX
-    CLI's flags, from a training out_dir of this port.
+    CLI's flags, from a training out_dir of this port; ``--spec``
+    samples through a speculative serve engine instead.
 
     python -m nanosandbox_tpu_torch.sample --out_dir=out --start="Once" \
         --num_samples=2 --max_new_tokens=100
@@ -39,6 +40,10 @@ NEG_INF = -1e30
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
 _SALT = 0x85EBCA77
+# The accept coin's stream tag (accept_uniforms): no column hash of
+# row_uniforms equals it (v * _GOLDEN mod 2^32 takes this value only at
+# v = 1192979645, past any vocabulary).
+ACCEPT_STREAM = 0x5BD1E995
 
 
 def _fmix32(h: torch.Tensor) -> torch.Tensor:
@@ -64,6 +69,29 @@ def row_uniforms(seeds: torch.Tensor, positions: torch.Tensor,
            * _GOLDEN) & _M32
     h = _fmix32(_fmix32(row[:, None] ^ col[None, :]))
     return ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def accept_uniforms(seeds: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """f32 uniforms in (0, 1) shaped like ``positions``: the speculative
+    verify's accept coin for the token at position q of a request seeded
+    s, a hash of (s, q) alone. Its own stream (ACCEPT_STREAM folded into
+    the row hash, as JAX folds 1 into the row key), so it never
+    correlates with row_uniforms(s, q, .), the Gumbel noise that draws
+    the token at q."""
+    s = seeds.long() & _M32
+    q = positions.long() & _M32
+    row = _fmix32(s ^ _fmix32((q * _GOLDEN + _SALT) & _M32))
+    h = _fmix32(_fmix32(row ^ ACCEPT_STREAM))
+    return ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def gumbel_argmax(x: torch.Tensor, seeds: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """(B,) tokens: Gumbel-max over (B, V) temperature-scaled (and
+    filtered) logits with the (seed, position) noise of row_uniforms."""
+    u = row_uniforms(seeds, positions, x.shape[-1])
+    return torch.argmax(x - torch.log(-torch.log(u)), dim=-1)
 
 
 def filter_logits_rows(logits: torch.Tensor, *, temperature: torch.Tensor,
@@ -110,9 +138,7 @@ def sample_token_rows(logits: torch.Tensor, *, seeds: torch.Tensor,
                                top_p=top_p)
     else:
         x = logits / torch.where(t > 0, t, torch.ones_like(t))[:, None]
-    u = row_uniforms(seeds, positions, logits.shape[-1])
-    sampled = torch.argmax(x - torch.log(-torch.log(u)), dim=-1)
-    return torch.where(t == 0.0, greedy, sampled)
+    return torch.where(t == 0.0, greedy, gumbel_argmax(x, seeds, positions))
 
 
 # ---------------------------------------------------------------------------
@@ -225,20 +251,16 @@ def main(argv: list[str] | None = None) -> list[str]:
     ap.add_argument("--seed", type=int, default=1337,
                     help="sample i draws its noise from seed + i")
     ap.add_argument("--spec", default="off",
-                    help="speculative decoding: not ported yet (only "
-                         "'off' runs)")
-    ap.add_argument("--spec_k", type=int, default=None,
-                    help="draft tokens per verify step: not ported yet "
-                         "(setting it raises)")
+                    help="speculative decoding through the serve engine's "
+                         "batched verify: 'ngram' or 'model:<out_dir>' "
+                         "(needs prompt + max_new_tokens <= block_size)")
+    ap.add_argument("--spec_k", type=int, default=4,
+                    help="draft tokens per verify step (--spec only)")
     ap.add_argument("--device", default="auto",
                     help="auto (the GPU; raises without one) | cuda | cpu")
     args = ap.parse_args(argv if argv is not None else sys.argv[1:])
     if args.num_samples < 1:
         ap.error(f"--num_samples must be >= 1, got {args.num_samples}")
-    if args.spec != "off" or args.spec_k is not None:
-        raise NotImplementedError(
-            f"--spec={args.spec} --spec_k={args.spec_k}: speculative "
-            "decoding is not ported yet")
     # Fail fast on a bad --start=FILE:<path>, before loading a model.
     start_text = resolve_start(args.start)
 
@@ -259,6 +281,8 @@ def main(argv: list[str] | None = None) -> list[str]:
     tok = tokenizer_for_dataset(args.data_dir or tcfg.data_dir,
                                 args.dataset or tcfg.dataset)
     start_ids = tok.encode(start_text) or [0]
+    if args.spec != "off":
+        return _spec_samples(ap, args, model, tok, start_ids, device)
     idx = torch.tensor([start_ids] * args.num_samples, dtype=torch.int64,
                        device=device)
     out = generate(model, idx, args.max_new_tokens,
@@ -271,6 +295,42 @@ def main(argv: list[str] | None = None) -> list[str]:
         texts.append(text)
         print(text)
         print("---------------")
+    return texts
+
+
+def _spec_samples(ap, args, model, tok, start_ids, device) -> list[str]:
+    """--spec: the samples through a spec engine of min(num_samples, 8)
+    slots (serve/engine.py), sample i seeded seed + i as in generate.
+    Bounded to the cached regime: the windowed fallback has no frontier
+    to verify against."""
+    from nanosandbox_tpu_torch.serve.drafters import drafter_from_flag
+    from nanosandbox_tpu_torch.serve.engine import Engine
+
+    total = len(start_ids) + args.max_new_tokens
+    if total > model.cfg.block_size:
+        ap.error(f"--spec needs prompt + max_new_tokens <= block_size "
+                 f"({total} > {model.cfg.block_size}); drop --spec to use "
+                 "the windowed fallback")
+    drafter = drafter_from_flag(args.spec, k=args.spec_k, device=device)
+    engine = Engine(model, num_slots=min(args.num_samples, 8),
+                    max_len=model.cfg.block_size, spec=drafter,
+                    device=device)
+    rids = [engine.submit(start_ids, args.max_new_tokens,
+                          temperature=args.temperature, top_k=args.top_k,
+                          top_p=args.top_p, seed=args.seed + i)
+            for i in range(args.num_samples)]
+    res = {r.rid: r for r in engine.drain()}
+    texts = []
+    for rid in rids:
+        text = tok.decode(list(res[rid].prompt) + res[rid].tokens)
+        texts.append(text)
+        print(text)
+        print("---------------")
+    s = engine.stats()
+    print(f"[spec] drafter={s['spec']['drafter']} k={s['spec']['k']} "
+          f"acceptance_rate={s['spec_acceptance_rate']} "
+          f"accepted_len_mean={s['spec_accepted_len_mean']}",
+          file=sys.stderr)
     return texts
 
 

@@ -9,6 +9,12 @@ the compute dtype, and exposes the continuous-batching engine over HTTP:
         "max_new_tokens": 32, "temperature": 0.8, "top_k": 40}'
     curl -s localhost:8000/stats
 
+With --spec=ngram (or model:<out_dir>) each step drafts --spec_k
+tokens a request and verifies them in one batched forward; --faults arms
+a fault-injection plan (serve/faults.py; steps counted from the end of
+the warmup); an EngineSupervisor recovers from faults unless
+--no_recovery.
+
 --device defaults to auto, which is the GPU and raises without one;
 --device=cpu runs the plain PyTorch attention instead of the kernels.
 Tokenizer flags are optional: without --data_dir, only prompt_tokens
@@ -91,6 +97,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the JAX engine's names: auto and pallas are the "
                          "decode kernels; pallas_interpret and xla are "
                          "accepted and select nothing")
+    ap.add_argument("--spec", default="off",
+                    help="speculative decoding: 'ngram' (prompt lookup) "
+                         "or 'model:<out_dir>' (a smaller GPT of the same "
+                         "vocabulary drafting greedily); up to spec_k+1 "
+                         "tokens a target forward, greedy outputs "
+                         "unchanged. Forces the synchronous loop and "
+                         "scan_k 1")
+    ap.add_argument("--spec_k", type=int, default=4,
+                    help="draft tokens per verify step (--spec only)")
+    ap.add_argument("--faults", default=None,
+                    help="arm a deterministic fault-injection plan "
+                         "(serve/faults.py): 'site@step[xN][:param]' "
+                         "entries comma-separated, or a canned plan name "
+                         "('chaos-smoke', 'chaos-full'); steps count from "
+                         "the end of the warmup")
+    ap.add_argument("--no_recovery", action="store_true",
+                    help="no engine supervisor: a dispatch error kills the "
+                         "serving loop, and a row poisoned 3 times in a "
+                         "row ends 'failed' instead of recovering")
     ap.add_argument("--warmup", choices=("full", "buckets"), default="full",
                     help="before binding the port, 'full' runs one "
                          "admission wave for every (wave size, prefill "
@@ -141,12 +166,25 @@ def build_server(argv: list[str] | None = None):
     from nanosandbox_tpu_torch.config import resolve_device
     from nanosandbox_tpu_torch.data.tokenizer import tokenizer_for_dataset
     from nanosandbox_tpu_torch.models.gpt import GPT, cast_for_serving
+    from nanosandbox_tpu_torch.serve.drafters import drafter_from_flag
     from nanosandbox_tpu_torch.serve.engine import Engine
+    from nanosandbox_tpu_torch.serve.faults import FaultPlan
     from nanosandbox_tpu_torch.serve.http import EngineLoop, make_server
+    from nanosandbox_tpu_torch.serve.recovery import EngineSupervisor
 
     args = build_parser().parse_args(argv if argv is not None
                                      else sys.argv[1:])
+    # A fault plan parses before the checkpoint loads (a typo fails at
+    # once) and stays disarmed through the warmup.
+    fault_plan = None
+    if args.faults:
+        try:
+            fault_plan = FaultPlan.parse(args.faults)
+        except ValueError as e:
+            raise SystemExit(f"--faults: {e}")
+        fault_plan.enabled = False
     device = resolve_device(args.device)
+    drafter = drafter_from_flag(args.spec, k=args.spec_k, device=device)
     cfg, state_dict = load_for_serving(args.out_dir)
     model = GPT(cfg, device=device)
     model.load_state_dict(state_dict)
@@ -164,11 +202,18 @@ def build_server(argv: list[str] | None = None):
                     default_deadline_s=args.deadline_s or None,
                     prefill_chunk=args.prefill_chunk or None,
                     preemption=not args.no_preemption,
-                    brownout=args.brownout == "on", device=device)
+                    brownout=args.brownout == "on", spec=drafter,
+                    faults=fault_plan, device=device)
     # Every prefill shape and decode chunk once before the port binds, so
     # no client pays for the libraries' first-call setup.
     waves = warm_up(engine, args.warmup)
-    loop = EngineLoop(engine)
+    if fault_plan is not None:
+        fault_plan.rearm(engine.steps)
+        fault_plan.enabled = True
+        print(f"[serve] fault plan armed: {fault_plan.describe()}",
+              file=sys.stderr, flush=True)
+    supervisor = None if args.no_recovery else EngineSupervisor(engine)
+    loop = EngineLoop(engine, supervisor=supervisor)
     loop.start()
     server = make_server(
         args.host, args.port, loop,
@@ -185,7 +230,10 @@ def build_server(argv: list[str] | None = None):
           f"decode_impl={engine.decode_impl}, "
           f"prefill_chunk={engine.prefill_chunk or 'off'}, preemption="
           f"{'on' if engine.preemption else 'off'}, brownout="
-          f"{'on' if engine.brownout is not None else 'off'}); "
+          f"{'on' if engine.brownout is not None else 'off'}, spec="
+          f"{args.spec if drafter is not None else 'off'}"
+          f"{f' k={drafter.k}' if drafter is not None else ''}, recovery="
+          f"{'off' if supervisor is None else 'on'}); "
           f"warmup {args.warmup}: "
           f"{waves} prefill waves; listening on {args.host}:"
           f"{server.server_address[1]} (POST /generate, GET /healthz "

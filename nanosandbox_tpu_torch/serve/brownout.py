@@ -10,8 +10,8 @@ stretch (hysteresis):
   level 1  ``shrink_scan``       cap the decode chunk at scan_k // 2
                                  (a no-op at scan_k 1); the cap picks
                                  among the graphs already captured.
-  level 2  ``no_spec``           suspend speculative decoding. The port
-                                 has none yet, so the knob is inert.
+  level 2  ``no_spec``           suspend speculative decoding: a spec
+                                 engine steps its plain decode graphs.
   level 3  ``shed_batch``        shed the batch class (priority < 1):
                                  queued batch requests end 'shed', and
                                  new ones shed at submit (429 upstream).

@@ -108,9 +108,41 @@ and shed low classes.
     dropped from the chunk in flight's snapshot, so a resume into the
     same slot does not take that chunk's tokens.
 
-Speculative decoding, the flight recorder and metric registry, fault
-injection and recovery, and the disaggregated handoff are later slices
-of the port.
+Speculative decoding (``spec``, serve/spec.py and serve/drafters.py):
+each step drafts up to k tokens a live row (capped at its remaining
+budget - 1, so a row never overshoots), runs ONE (num_slots, k+1) verify
+(on CUDA one of two captured graphs, greedy or sampled) and retires the
+accepted prefix plus one fresh token a row, truncated exactly at an eos
+inside the run. A full reject rolls back by not advancing the frontier.
+The verify's readback gates the next draft, so under spec the loop is
+synchronous: ``pipeline`` is forced off and ``scan_k`` to 1. While the
+brownout ladder suspends spec (``spec_suspended``), or after
+``spec_fault_tolerance`` drafter faults in a row disable it, steps run
+the plain decode graphs. A ModelDrafter's pool (its own, in the engine's
+kv_dtype; paged, indexed by the engine's block ids) takes each prefill
+right after the engine's, and its k+1 draft steps are one captured graph
+on CUDA.
+
+Faults and recovery (``faults``, serve/faults.py; serve/recovery.py
+EngineSupervisor): the plan's sites sit where JAX's do. A non-finite row
+(the sentinel at a readback, or a first token of a prefill) keeps its
+clean tokens and marks the step poisoned (``take_poison``); unsupervised,
+a row poisoned POISON_STRIKE_LIMIT times in a row ends 'failed'.
+``recover`` requeues every active, mid-wave and mid-chunk request at the
+head of its class with prompt' = prompt + tokens (a mid-chunk prefill's
+blocks freed without donation), so greedy resumes are token-identical.
+The graphs point at the slot state and the pools, so recovery resets
+them IN PLACE, after a device sync: every slot parked (_release_row),
+and under ``flush_cache`` the prefix cache dropped and every pool tensor
+zeroed, drop block and drafter pool included, and the decode kernels'
+ticket counters zeroed; nothing is re-captured, and no replay touches
+freed memory. ``abort_all`` is the permanent failure: every request gets
+one terminal 'failed' Result and submit raises EngineFailedError.
+``watchdog`` (obs/flight.py) feeds the supervisor its stuck_slot and
+stalled_step trips.
+
+The flight recorder and metric registry, the other watchdogs, and the
+disaggregated handoff are later slices of the port.
 """
 
 from __future__ import annotations
@@ -128,22 +160,36 @@ from nanosandbox_tpu_torch.config import resolve_device
 from nanosandbox_tpu_torch.models.gpt import (GPT, init_cache,
                                               init_paged_cache, kv_mode,
                                               scatter_cache_rows)
+from nanosandbox_tpu_torch.obs.flight import WatchdogPanel
 from nanosandbox_tpu_torch.obs.slo import SLOLedger, validate_slo_class
 from nanosandbox_tpu_torch.ops import _build
 from nanosandbox_tpu_torch.ops import attention as at
 from nanosandbox_tpu_torch.ops import flash_decode as fd
 from nanosandbox_tpu_torch.sample import sample_token_rows
 from nanosandbox_tpu_torch.serve.brownout import BrownoutController
+from nanosandbox_tpu_torch.serve.faults import FaultInjected, FaultPlan
 from nanosandbox_tpu_torch.serve.paged import (Allocation, BlockPool,
                                                prefix_digests)
 from nanosandbox_tpu_torch.serve.scheduler import (SlotScheduler,
                                                    default_buckets)
+from nanosandbox_tpu_torch.serve.spec import SpecRunner
 
 # Scheduling priority by SLO class: higher admits first and may preempt
 # lower. An explicit priority overrides the class's; unknown classes take
 # the default. The brownout floors (serve/brownout.py) use these numbers.
 PRIORITY_BY_CLASS = {"batch": 0, "default": 1, "interactive": 2}
 DEFAULT_PRIORITY = 1
+
+# Consecutive poisoned readbacks a row survives before it ends 'failed':
+# the backstop when no supervisor recovers (a supervised engine recovers
+# after the first poison).
+POISON_STRIKE_LIMIT = 3
+
+
+class EngineFailedError(RuntimeError):
+    """The engine escalated to permanent failure (recovery exhausted its
+    attempts) and drained; submissions are refused until a restart. The
+    HTTP layer answers 503."""
 
 
 @dataclass(frozen=True)
@@ -187,6 +233,9 @@ class _Active:
     tokens: List[int] = field(default_factory=list)
     submit_t: float = 0.0
     first_token_t: float = 0.0
+    last_t: float = 0.0                     # last retired token (watchdog)
+    poison_strikes: int = 0
+    spec_accepted: int = 0
 
 
 @dataclass
@@ -268,6 +317,17 @@ class Engine:
         head (default True; module docstring).
     brownout : attach a BrownoutController (default False; the serve CLI
         turns it on).
+    spec : a drafter (serve/drafters.py NGramDrafter or ModelDrafter, or
+        any object with ``kind`` 'host', ``k`` and ``propose``) turns on
+        speculative decoding (module docstring); None (default) is off.
+    spec_fault_tolerance : drafter faults in a row absorbed (each step
+        degrades to plain verify of no drafts) before spec is disabled
+        for the engine's life (default 3).
+    faults : a serve/faults.py FaultPlan injecting failures at its sites
+        (default None: each site check is one ``is None`` branch).
+    watchdog_dir : the JAX watchdogs' dump directory; dumps are not
+        ported yet, and a value raises (the stuck_slot and stalled_step
+        watchdogs themselves always run).
     device : 'auto' (the GPU; raises without one), 'cuda' or 'cpu'.
     """
 
@@ -286,10 +346,20 @@ class Engine:
                  default_deadline_s: Optional[float] = None,
                  prefill_chunk: Optional[int] = None,
                  preemption: bool = True, brownout: bool = False,
+                 spec=None, spec_fault_tolerance: int = 3,
+                 faults: Optional[FaultPlan] = None,
+                 watchdog_dir: Optional[str] = None,
                  device: str = "auto"):
         if paged and kv_page_size < 1:
             raise ValueError(f"kv_page_size must be >= 1, got "
                              f"{kv_page_size}")
+        if watchdog_dir is not None:
+            raise NotImplementedError(
+                "watchdog_dir (the watchdogs' dumps) is not ported yet")
+        # A verify's readback gates the next draft: under spec the loop
+        # is synchronous, one step a dispatch (module docstring).
+        if spec is not None:
+            pipeline, scan_k = False, 1
         self.scan_rungs = scan_ladder(scan_k)
         self.scan_k = int(scan_k)
         self.pipeline = bool(pipeline)
@@ -360,13 +430,47 @@ class Engine:
         # controller takes them out of its window (serve/brownout.py).
         self.brownout_sheds = 0
         self.preemptions = 0
-        # The brownout knobs, read on the hot path. spec_suspended is
-        # inert until speculative decoding is ported.
+        # The brownout knobs, read on the hot path.
         self.scan_cap: Optional[int] = None
         self.spec_suspended = False
         self.brownout_min_priority: Optional[int] = None
         self.slo = SLOLedger()
+        # Dispatches by kind: decode chunks, and under spec verifies.
         self.host_dispatches = {"decode": 0}
+        if spec is not None:
+            self.host_dispatches["verify"] = 0
+        # Faults and recovery (module docstring). _admitting is the wave
+        # between its queue pop and its commit: (req, slot, alloc,
+        # whether recover may donate its prompt blocks).
+        self.faults = faults
+        if faults is not None:
+            faults.arm(0)
+        self.spec_fault_tolerance = int(spec_fault_tolerance)
+        self.quarantined = False
+        self.quarantine_cause: Optional[str] = None
+        self.failed = False
+        self.recoveries = 0
+        self.recovery_s: deque = deque(maxlen=4096)
+        self.poisoned_steps = 0
+        self.requeued = 0
+        self.drafter_faults = 0
+        self.spec_disabled_reason: Optional[str] = None
+        self._drafter_fault_streak = 0
+        self._poison: Optional[dict] = None
+        self._admitting: List[tuple] = []
+        self.watchdog = WatchdogPanel(self)
+        # Accepted draft lengths of drafting verify rows.
+        self._spec_accept_len: deque = deque(maxlen=4096)
+        self._spec = None
+        if spec is not None:
+            if spec.kind == "device":
+                spec.build(target_cfg=cfg, num_slots=num_slots,
+                           max_len=self.max_len, kv_dtype=self.kv_dtype,
+                           paged=self.paged,
+                           kv_page_size=self.kv_page_size,
+                           kv_pool_blocks=self.kv_pool_blocks,
+                           device=self.device)
+            self._spec = SpecRunner(spec, self)
         self._ttft: deque = deque(maxlen=4096)
         self._tpot: deque = deque(maxlen=4096)
         # Decode steps each admitted request waited in the queue (the
@@ -376,8 +480,12 @@ class Engine:
         # On CUDA, per (rung, filtered): the captured chunk, its replays,
         # and the kernel launches and plain-version calls its capture
         # recorded (a replay runs them again, uncounted by the wrappers);
-        # and the bytes the captures reserved.
+        # and the bytes the captures reserved. Under spec the verify
+        # graphs ('verify', sampled) and a ModelDrafter's ('draft',) sit
+        # in _spec_graphs, with their replays and counts in the same
+        # dicts.
         self._graphs: Dict[tuple, torch.cuda.CUDAGraph] = {}
+        self._spec_graphs: Dict[tuple, torch.cuda.CUDAGraph] = {}
         self.graph_replays: Dict[tuple, int] = {}
         self.graph_launches: Dict[tuple, Dict[str, int]] = {}
         self.graph_plain_calls: Dict[tuple, Dict[str, int]] = {}
@@ -434,6 +542,26 @@ class Engine:
         if self.paged:
             self._table[slot] = self.kv_pool_blocks
 
+    def _reset_device_state(self, flush_cache: bool) -> None:
+        """Recovery's in-place reset (module docstring): wait for the
+        device, park every slot, and under ``flush_cache`` zero every
+        pool tensor (the drop block and a ModelDrafter's pool included)
+        and the decode kernels' ticket counters. Every tensor keeps its
+        address, so the captured graphs stay valid."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        for slot in range(self.num_slots):
+            self._release_row(slot)
+        if not flush_cache:
+            return
+        for layer in self._pool:
+            for buf in layer:
+                buf.zero_()
+        if self._spec is not None and self._spec.drafter.kind == "device":
+            self._spec.drafter.zero_pool()
+        if self._replay:
+            self._tickets.zero_()
+
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
@@ -458,6 +586,14 @@ class Engine:
         valid request is accepted and shed at once (a 'shed' Result)."""
         prompt = tuple(int(t) for t in prompt)
         plen = len(prompt)
+        if self.failed:
+            # Permanent failure drains; it does not queue into a void.
+            self.rejected["engine_failed"] = \
+                self.rejected.get("engine_failed", 0) + 1
+            raise EngineFailedError(
+                "engine permanently failed "
+                f"({self.quarantine_cause or 'unknown cause'}); restart "
+                "the process or route to another replica")
         if not prompt:
             self._reject("empty_prompt",
                          "empty prompt (encode at least one token)")
@@ -533,45 +669,77 @@ class Engine:
     def step(self) -> List[Result]:
         """Shed expired queued requests, preempt for a deadline-pressed
         head, admit what fits (one batched prefill per wave, or chunks
-        within the prefill budget), dispatch one decode chunk, retire the
-        previous chunk (pipeline) or this one, and backfill the slots the
-        retire freed; with nothing left to dispatch, retire the chunk in
-        flight. Then the brownout poll. Returns the requests that
-        finished during this call."""
-        finished, self._pending = self._pending, []
+        within the prefill budget), then either one speculative verify
+        (spec on and not suspended) or one decode chunk: dispatch it,
+        retire the previous chunk (pipeline) or this one, and backfill
+        the slots the retire freed; with nothing left to dispatch,
+        retire the chunk in flight. Then the watchdogs and the brownout
+        poll. Returns the requests that finished during this call. A
+        Result already terminal when a dispatch raises stays owed and
+        comes with the next call."""
+        if self.failed:
+            # abort_all drained everything else.
+            finished, self._pending = self._pending, []
+            return finished
+        t0 = time.monotonic()
         self._prefill_spent = 0
         with torch.no_grad():
-            self._shed_expired(finished)
-            self._maybe_preempt()
-            self._admit_waves(finished)
-            retired = False
-            chunk_len = self._next_chunk() if self._active else 0
-            if chunk_len:
-                buf = self._dispatch(chunk_len, any(
-                    st.req.filters for st in self._active.values()))
-                self.steps += 1
-                self.host_dispatches["decode"] += 1
-                snapshot = {slot: st.req.rid
-                            for slot, st in self._active.items()}
-                prev, self._inflight = self._inflight, (buf, snapshot,
-                                                        chunk_len)
-                if not self.pipeline:
-                    prev, self._inflight = self._inflight, None
-                if prev is not None:
-                    self._retire(prev, finished)
-                    retired = True
-            elif self._inflight is not None:
-                # Every live row's budget is covered by computed tokens:
-                # drain the lagging readback.
-                prev, self._inflight = self._inflight, None
-                self._retire(prev, finished)
-                retired = True
-            if retired:
-                # The slots the retire freed backfill now; their prefill
-                # queues behind the chunk in flight.
-                self._admit_waves(finished)
+            finished = self._step_impl()
+        self.watchdog.on_step_time(time.monotonic() - t0)
+        self.watchdog.check()
         if self.brownout is not None:
             self.brownout.on_step()
+        return finished
+
+    def _step_impl(self) -> List[Result]:
+        # ``finished`` IS self._pending until the return detaches it: an
+        # exception mid-step must not strand Results already terminal.
+        finished = self._pending
+        self._shed_expired(finished)
+        self._maybe_preempt()
+        self._admit_waves(finished)
+        if self._spec is not None and not self.spec_suspended:
+            if self._active:
+                self._spec_step(finished)
+                self._admit_waves(finished)
+            self._pending = []
+            return finished
+        retired = False
+        chunk_len = self._next_chunk() if self._active else 0
+        if chunk_len:
+            if self.faults is not None:
+                f = self.faults.fire("slow_step", self.steps)
+                if f is not None:
+                    time.sleep(f.stall_s)
+            buf = self._dispatch(chunk_len, any(
+                st.req.filters for st in self._active.values()))
+            self.steps += 1
+            self.host_dispatches["decode"] += 1
+            # An injected poison replaces the whole chunk's readback with
+            # the sentinel, as non-finite logits mid-chunk would.
+            poison = (self.faults is not None
+                      and self.faults.fire("nan_logits", self.steps)
+                      is not None)
+            snapshot = {slot: st.req.rid
+                        for slot, st in self._active.items()}
+            prev, self._inflight = self._inflight, (buf, snapshot,
+                                                    chunk_len, poison)
+            if not self.pipeline:
+                prev, self._inflight = self._inflight, None
+            if prev is not None:
+                self._retire(prev, finished)
+                retired = True
+        elif self._inflight is not None:
+            # Every live row's budget is covered by computed tokens:
+            # drain the lagging readback.
+            prev, self._inflight = self._inflight, None
+            self._retire(prev, finished)
+            retired = True
+        if retired:
+            # The slots the retire freed backfill now; their prefill
+            # queues behind the chunk in flight.
+            self._admit_waves(finished)
+        self._pending = []
         return finished
 
     def _shed_expired(self, finished: List[Result]) -> None:
@@ -691,8 +859,7 @@ class Engine:
                 allocs = []
 
                 def try_alloc(req: Request) -> bool:
-                    a = self.block_pool.admit(req.prompt,
-                                              req.max_new_tokens)
+                    a = self._try_alloc(req)
                     if a is not None:
                         allocs.append(a)
                     return a is not None
@@ -705,13 +872,28 @@ class Engine:
                 reqs, slots, bucket = wave
             if budget is not None:
                 self._prefill_spent += self.sched.rung_for(len(reqs)) * bucket
+            # Until the commit the wave is in limbo (popped, slots and
+            # blocks taken, not active): recover() requeues it from here.
+            self._admitting = [(req, slot, a, True) for req, slot, a
+                               in zip(reqs, slots, allocs)]
+            self._raise_prefill_exc()
             self._prefill_wave(reqs, slots, allocs, bucket, finished)
+
+    def _try_alloc(self, req: Request) -> Optional[Allocation]:
+        """Reserve one request's blocks, or None (it stays queued). The
+        alloc_fail site forces None, counted as a stall step, as a real
+        exhaustion is."""
+        if (self.faults is not None
+                and self.faults.fire("alloc_fail", self.steps) is not None):
+            self.block_pool.stall_steps += 1
+            return None
+        return self.block_pool.admit(req.prompt, req.max_new_tokens)
 
     def _start_chunked(self, head: Request) -> bool:
         """Claim the queue head into the chunked lane: its blocks (the
         full reservation) and a slot, no device work yet. False when the
         pool cannot cover it: the head stays queued."""
-        alloc = self.block_pool.admit(head.prompt, head.max_new_tokens)
+        alloc = self._try_alloc(head)
         if alloc is None:
             return False
         popped = self.sched.pop_head()
@@ -743,14 +925,20 @@ class Engine:
                 # The padding past start + c lands in private blocks or
                 # the drop block, never in the shared prefix.
                 assert start >= alloc.n_hit * page, (start, alloc.n_hit)
-                self._prefill_spent += bucket
-                self.prefill_chunks += 1
-                entry.done += c
+                self._raise_prefill_exc()
                 if c < remaining:
                     self._prefill_piece(req.prompt[start:start + c], start,
                                         alloc, bucket)
+                    self._prefill_spent += bucket
+                    self.prefill_chunks += 1
+                    entry.done += c
                     continue
+                self._prefill_spent += bucket
+                self.prefill_chunks += 1
+                entry.done += c
                 self._chunking.remove(entry)
+                # A half-written chain: never donated if this raises.
+                self._admitting = [(req, entry.slot, alloc, False)]
                 self._prefill_wave([req], [entry.slot], [alloc], bucket,
                                    finished, start=start)
                 break
@@ -766,10 +954,22 @@ class Engine:
         row[0, :len(tokens)] = tokens
         table = np.full((1, self.slot_blocks), self.kv_pool_blocks, np.int32)
         table[0, :len(alloc.table)] = alloc.table
-        self.model.hidden(self._to_dev(row), cache=self._pool,
-                          cache_index=self._to_dev(
-                              np.array([start], np.int32)),
-                          block_table=self._to_dev(table))
+        d_row, d_table = self._to_dev(row), self._to_dev(table)
+        d_start = self._to_dev(np.array([start], np.int32))
+        self.model.hidden(d_row, cache=self._pool, cache_index=d_start,
+                          block_table=d_table)
+        if self._device_drafter():
+            self._spec.drafter.prefill(d_row, cache_index=d_start,
+                                       block_table=d_table)
+
+    def _device_drafter(self) -> bool:
+        return self._spec is not None and self._spec.drafter.kind == "device"
+
+    def _raise_prefill_exc(self) -> None:
+        """The prefill_exc site: a prefill dispatch that raises."""
+        if (self.faults is not None
+                and self.faults.fire("prefill_exc", self.steps) is not None):
+            raise FaultInjected("prefill_exc", self.steps)
 
     def _prefill_wave(self, reqs: List[Request], slots: List[int],
                       allocs: List[Optional[Allocation]], bucket: int,
@@ -808,6 +1008,7 @@ class Engine:
         d_topk, d_topp = self._to_dev(top_ks), self._to_dev(top_ps)
         d_tokens = self._to_dev(tokens)
         d_tables = None
+        d_slots = torch.tensor(slots, device=self.device)
         if self.paged:
             d_tables = self._to_dev(tables)
             h = self.model.hidden(d_tokens, cache=self._pool,
@@ -817,8 +1018,14 @@ class Engine:
             h = self.model.hidden(d_tokens, cache=temp, cache_index=0)
             scatter_cache_rows(self._pool,
                                [tuple(x[:n] for x in layer) for layer in temp],
-                               torch.tensor(slots, device=self.device))
+                               d_slots)
             del temp
+        if self._device_drafter():
+            # The drafter's pool takes the same wave (paged: through the
+            # same tables, so a prefix hit skips its prefix too).
+            self._spec.drafter.prefill(d_tokens, cache_index=d_hits,
+                                       block_table=d_tables, slots=d_slots,
+                                       n=n)
         rows = torch.arange(k, device=self.device)
         logits = self.model.head(h[rows, (d_true - d_hits - 1).long()])
         toks = sample_token_rows(
@@ -840,26 +1047,40 @@ class Engine:
             self._table[idx] = d_tables[:n]
         self._live[idx] = True
         host = torch.where(ok, toks, self.cfg.vocab_size).cpu().tolist()
+        if (self.faults is not None
+                and self.faults.fire("scatter_corrupt", self.steps)
+                is not None):
+            # A corrupted admission surfaces as sentinel first tokens at
+            # the wave's readback.
+            host = [self.cfg.vocab_size] * k
         if start is None:
             self.waves += 1
         now = time.monotonic()
         self._rate.append((now, n))
+        poisoned = False
         for i, (req, slot, a) in enumerate(zip(reqs, slots, allocs)):
-            self._commit_admission(req, slot, a, host[i], now, finished)
+            poisoned |= self._commit_admission(req, slot, a, host[i], now,
+                                               finished)
+        self._admitting = []
+        if poisoned:
+            self._mark_poison("poisoned_prefill",
+                              rids=[r.rid for r in reqs])
 
     def _commit_admission(self, req: Request, slot: int,
                           alloc: Optional[Allocation],
                           first_tok: int, now: float,
-                          finished: List[Result]) -> None:
+                          finished: List[Result]) -> bool:
+        """The row goes active with its first token; returns whether the
+        token was the sentinel (the row then goes active with no token,
+        and the caller marks the wave poisoned)."""
         self.admitted += 1
         sub_step, sub_t = self._submit_meta.pop(req.rid)
         self._queue_wait.append(self.steps - sub_step)
         st = _Active(req=req, slot=slot, alloc=alloc, submit_t=sub_t,
-                     first_token_t=now)
+                     first_token_t=now, last_t=now)
         self._active[slot] = st
         if not 0 <= first_tok < self.cfg.vocab_size:
-            finished.append(self._finish(st, "failed"))
-            return
+            return True
         st.tokens.append(first_tok)
         self.tokens_generated += 1
         # A resumed request's first token came before its preemption.
@@ -868,6 +1089,7 @@ class Engine:
         done = self._maybe_finish(st)
         if done is not None:
             finished.append(done)
+        return False
 
     # ------------------------------------------------------------------
     # preemption (module docstring)
@@ -915,7 +1137,16 @@ class Engine:
         slots or blocks, and its slack no longer covers the projected
         wait for a slot to free by itself (with a cold rate signal: once
         it has waited half its deadline). A head past its deadline is
-        not saved (it sheds); equal priorities never preempt."""
+        not saved (it sheds); equal priorities never preempt. Also the
+        preempt_storm site, which skips the policy and evicts the
+        lowest-priority active row (the earliest admitted among
+        equals)."""
+        if self.faults is not None and self._active:
+            f = self.faults.fire("preempt_storm", self.steps)
+            if f is not None:
+                self._preempt(min(self._active.values(),
+                                  key=lambda st: (st.req.priority,
+                                                  st.req.rid)))
         if not self.preemption or not self._active:
             return
         head = self.sched.peek_head()
@@ -1045,28 +1276,43 @@ class Engine:
         (the wrappers' counts, which a replay does not tick) and the bytes
         the captures reserved. A capture that fails raises."""
         dev = self._tok.device
-        # The decode kernels' ticket buffer the captures point at.
-        self._tickets = fd.ticket_counters(
-            dev, self.num_slots * self.cfg.n_head)
+        # The decode kernels' ticket buffer the captures point at (a
+        # ModelDrafter's draft steps share it: sized for the wider).
+        heads = self.cfg.n_head
+        drafter = self._spec.drafter if self._spec is not None else None
+        if drafter is not None and drafter.kind == "device":
+            heads = max(heads, drafter.model.cfg.n_head)
+        self._tickets = fd.ticket_counters(dev, self.num_slots * heads)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
+        bodies = {(r, filtered): (lambda r=r, f=filtered: self._steps(r, f))
+                  for r in self.scan_rungs for filtered in (False, True)}
+        spec_bodies = {}
+        if self._spec is not None:
+            spec_bodies = {("verify", sampled):
+                           (lambda s=sampled: self._spec.body(s))
+                           for sampled in (False, True)}
+            if drafter.kind == "device":
+                spec_bodies[("draft",)] = self._draft_steps
         with torch.no_grad():
             with torch.cuda.stream(stream):
                 for filtered in (False, True):
                     self._steps(1, filtered)
+                for body in spec_bodies.values():
+                    body()
             torch.cuda.current_stream(dev).wait_stream(stream)
             pool = torch.cuda.graph_pool_handle()
-            for r in self.scan_rungs:
-                for filtered in (False, True):
-                    key = (r, filtered)
+            for graphs, group in ((self._graphs, bodies),
+                                  (self._spec_graphs, spec_bodies)):
+                for key, body in group.items():
                     before = _wrapper_counts()
                     graph = torch.cuda.CUDAGraph()
                     with torch.cuda.graph(graph, pool=pool, stream=stream):
-                        self._steps(r, filtered)
-                    self._graphs[key] = graph
+                        body()
+                    graphs[key] = graph
                     self.graph_replays[key] = 0
                     self.graph_launches[key], self.graph_plain_calls[key] = (
                         {name: n - b[name] for name, n in a.items()
@@ -1075,6 +1321,20 @@ class Engine:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+
+    def _draft_steps(self) -> None:
+        """The ModelDrafter's k+1 draft steps from the slot state (what
+        its graph captures)."""
+        self._spec.drafter.steps(self._tok, self._pos, self._live,
+                                 self._table)
+
+    def _run_spec(self, key: tuple, body) -> None:
+        """One spec graph replay on CUDA (counted), the body on the CPU."""
+        if self._replay:
+            self._spec_graphs[key].replay()
+            self.graph_replays[key] += 1
+        else:
+            body()
 
     def _dispatch(self, k: int, filtered: bool) -> int:
         """Run one chunk of k steps (one graph replay on CUDA) and start
@@ -1107,16 +1367,22 @@ class Engine:
         tokens belong to nobody. A live row walks its chunk in order and
         stops at the first of: its budget reached (the surplus is
         dropped), eos (kept, then nothing after it), or the out-of-vocab
-        sentinel (the row fails with the clean tokens before it)."""
-        i, snapshot, k = inflight
+        sentinel (the clean tokens before it are kept, the step is
+        marked poisoned, and a row poisoned POISON_STRIKE_LIMIT times in
+        a row ends 'failed')."""
+        i, snapshot, k, poison = inflight
         toks = self._copied_wait(i)[:k].tolist()
-        now = time.monotonic()
         vocab = self.cfg.vocab_size
+        if poison:
+            toks = [[vocab] * self.num_slots for _ in toks]
+        now = time.monotonic()
         n_live = 0
+        poisoned_slots: List[int] = []
         for slot, rid in snapshot.items():
             st = self._active.get(slot)
             if st is None or st.req.rid != rid:
                 continue
+            kept = 0
             poisoned = False
             for row in toks:
                 if len(st.tokens) >= st.req.max_new_tokens:
@@ -1126,18 +1392,39 @@ class Engine:
                     poisoned = True
                     break
                 st.tokens.append(tok)
-                n_live += 1
+                kept += 1
                 if st.req.eos_id is not None and tok == st.req.eos_id:
                     break
-            done = (self._finish(st, "failed") if poisoned
-                    else self._maybe_finish(st))
-            if done is not None:
-                finished.append(done)
+            if kept:
+                st.last_t = now
+                n_live += kept
+            if poisoned:
+                self._strike(st, slot, poisoned_slots, finished)
+                continue
+            if kept:
+                st.poison_strikes = 0
+                done = self._maybe_finish(st)
+                if done is not None:
+                    finished.append(done)
+        if poisoned_slots:
+            self._mark_poison("poisoned_step", slots=poisoned_slots)
         self.tokens_generated += n_live
         self._rate.append((now, n_live))
 
+    def _strike(self, st: _Active, slot: int, poisoned_slots: List[int],
+                finished: List[Result]) -> None:
+        """A poisoned readback of one row: counted toward the step's
+        poison mark, and past POISON_STRIKE_LIMIT in a row the row ends
+        'failed' (nobody is recovering)."""
+        poisoned_slots.append(slot)
+        st.poison_strikes += 1
+        if st.poison_strikes >= POISON_STRIKE_LIMIT:
+            finished.append(self._finish(st, "failed"))
+
     def _maybe_finish(self, st: _Active) -> Optional[Result]:
         req = st.req
+        if not st.tokens:
+            return None
         if req.eos_id is not None and st.tokens[-1] == req.eos_id:
             return self._finish(st, "eos")
         if len(st.tokens) >= req.max_new_tokens:
@@ -1175,6 +1462,235 @@ class Engine:
                 elapsed_s=now - st.submit_t, deadline_s=req.deadline_s)
         return Result(rid=req.rid, prompt=prompt_out, tokens=tokens_out,
                       finish_reason=reason, prefix_digest=digest)
+
+    # ------------------------------------------------------------------
+    # speculative decoding (module docstring)
+    # ------------------------------------------------------------------
+    def _spec_step(self, finished: List[Result]) -> None:
+        """One speculative round: the drafts (host prompt lookup, or the
+        ModelDrafter's draft steps), one verify over every slot, and the
+        retire of each live row's accepted prefix plus its fresh token,
+        truncated at an eos inside it. Drafts are capped at the row's
+        remaining budget - 1: the verify always emits accepted + 1
+        tokens, so a row never overshoots max_new_tokens. A drafter
+        that raises degrades the step to a verify of no drafts (plain
+        decode); spec_fault_tolerance of them in a row disable spec."""
+        runner = self._spec
+        k, drafter = runner.k, runner.drafter
+        caps = {slot: min(k, st.req.max_new_tokens - len(st.tokens) - 1)
+                for slot, st in self._active.items()}
+        dl = np.zeros(self.num_slots, np.int64)
+        drafts: Optional[np.ndarray] = np.zeros((self.num_slots, k),
+                                                np.int64)
+        try:
+            if (self.faults is not None
+                    and self.faults.fire("drafter_fault", self.steps)
+                    is not None):
+                raise FaultInjected("drafter_fault", self.steps)
+            if drafter.kind == "host":
+                for slot, st in self._active.items():
+                    if caps[slot] <= 0:
+                        continue
+                    prop = drafter.propose(list(st.req.prompt) + st.tokens,
+                                           caps[slot])
+                    dl[slot] = len(prop)
+                    drafts[slot, :len(prop)] = prop
+            else:
+                self._run_spec(("draft",), self._draft_steps)
+                drafts = None
+                for slot, cap in caps.items():
+                    dl[slot] = max(cap, 0)
+        except Exception as e:
+            self.drafter_faults += 1
+            self._drafter_fault_streak += 1
+            dl[:] = 0
+            drafts = np.zeros((self.num_slots, k), np.int64)
+            if self._drafter_fault_streak >= self.spec_fault_tolerance:
+                self._disable_spec(
+                    f"{self._drafter_fault_streak} consecutive drafter "
+                    f"faults (last: {type(e).__name__}: {e})")
+        else:
+            self._drafter_fault_streak = 0
+        runner.load(drafts, dl)
+        sampled = any(st.req.temperature > 0
+                      for st in self._active.values())
+        self._run_spec(("verify", sampled), lambda: runner.body(sampled))
+        self.steps += 1
+        self.host_dispatches["verify"] += 1
+        runner.steps += 1
+        out = runner.readback()
+        emitted, counts, acc_host = out[:, :k + 1], out[:, k + 1], \
+            out[:, k + 2]
+        if (self.faults is not None
+                and self.faults.fire("nan_logits", self.steps) is not None):
+            emitted = np.full_like(emitted, self.cfg.vocab_size)
+        now = time.monotonic()
+        n_kept = 0
+        poisoned_slots: List[int] = []
+        for slot, st in list(self._active.items()):
+            c = int(counts[slot])
+            if c <= 0:
+                continue
+            acc = int(acc_host[slot])
+            toks = emitted[slot, :c].tolist()
+            if any(not 0 <= t < self.cfg.vocab_size for t in toks):
+                self._strike(st, slot, poisoned_slots, finished)
+                continue
+            if dl[slot] > 0:
+                runner.drafted += int(dl[slot])
+                runner.accepted += acc
+                self._spec_accept_len.append(acc)
+                st.spec_accepted += acc
+            if st.req.eos_id is not None and st.req.eos_id in toks:
+                toks = toks[:toks.index(st.req.eos_id) + 1]
+            st.tokens.extend(toks)
+            st.poison_strikes = 0
+            st.last_t = now
+            n_kept += len(toks)
+            done = self._maybe_finish(st)
+            if done is not None:
+                finished.append(done)
+        if poisoned_slots:
+            self._mark_poison("poisoned_step", slots=poisoned_slots)
+        self.tokens_generated += n_kept
+        self._rate.append((now, n_kept))
+
+    def _disable_spec(self, reason: str) -> None:
+        """Drop to plain decode for the engine's life (outputs unchanged:
+        greedy spec is greedy plain decode)."""
+        self.spec_disabled_reason = reason
+        self._spec = None
+
+    # ------------------------------------------------------------------
+    # fault detection, quarantine and recovery (module docstring; the
+    # policy is serve/recovery.py's)
+    # ------------------------------------------------------------------
+    def _mark_poison(self, kind: str, **info) -> None:
+        """Latch a poisoned step until take_poison: its outputs were
+        discarded and the supervisor should recover before the next
+        dispatch."""
+        self.poisoned_steps += 1
+        if self._poison is None:
+            self._poison = {"kind": kind, "step": self.steps, **info}
+
+    def take_poison(self) -> Optional[dict]:
+        """The supervisor's check after a step: returns and clears the
+        latched poison, if any."""
+        poison, self._poison = self._poison, None
+        return poison
+
+    def quarantine(self, cause: str) -> None:
+        """Readiness goes red until recover()."""
+        self.quarantined = True
+        self.quarantine_cause = cause
+
+    def recover(self, cause: str = "unknown", *,
+                flush_cache: bool = False) -> dict:
+        """Reset the device state in place (_reset_device_state) and
+        requeue every request in flight at the head of its class, in rid
+        order: an active one with prompt' = prompt + its tokens and the
+        remaining budget (its prompt blocks donated, so the resume is a
+        prefix hit); a wave caught mid-prefill and a chunked prefill as
+        they were (a chunk's half-written chain freed without donation).
+        Sampling keyed by position makes greedy resumes token-identical.
+        ``flush_cache`` (a dispatch raised: buffers suspect) also drops
+        the prefix cache and zeroes the pools."""
+        t0 = time.monotonic()
+        self._inflight = None
+        self._poison = None
+        actives = sorted(self._active.values(), key=lambda s: s.req.rid)
+        active_rids = {st.req.rid for st in actives}
+        # A raise inside the commit loop leaves the committed part of the
+        # wave in both _active and _admitting: _active owns it.
+        admitting = [e for e in self._admitting
+                     if e[0].rid not in active_rids]
+        self._active = {}
+        self._admitting = []
+        requeue: List[Tuple[Request, Optional[float]]] = []
+        for st in actives:
+            self.sched.release(st.slot)
+            if st.alloc is not None:
+                self.block_pool.release(st.alloc)
+            base = self._resumed.get(st.req.rid)
+            self._resumed[st.req.rid] = _Resume(
+                prompt=base.prompt if base is not None else st.req.prompt,
+                tokens=(base.tokens if base is not None else [])
+                + st.tokens)
+            requeue.append((replace(
+                st.req, prompt=st.req.prompt + tuple(st.tokens),
+                max_new_tokens=st.req.max_new_tokens - len(st.tokens)),
+                st.submit_t))
+        for req, slot, alloc, donate in admitting:
+            self.sched.release(slot)
+            if alloc is not None:
+                self.block_pool.release(alloc, donate=donate)
+            requeue.append((req, None))
+        for entry in self._chunking:
+            self.sched.release(entry.slot)
+            self.block_pool.release(entry.alloc, donate=False)
+            requeue.append((entry.req, None))
+        self._chunking = []
+        if flush_cache and self.paged:
+            self.block_pool.reset_cache()
+        self._reset_device_state(flush_cache)
+        requeue.sort(key=lambda item: item[0].rid)
+        now = time.monotonic()
+        for req, sub_t in requeue:
+            if req.rid not in self._submit_meta:
+                self._submit_meta[req.rid] = (
+                    self.steps, sub_t if sub_t is not None else now)
+            self.requeued += 1
+        self.sched.requeue_front([req for req, _ in requeue])
+        self.recoveries += 1
+        dt = time.monotonic() - t0
+        self.recovery_s.append(dt)
+        self.quarantined = False
+        self.quarantine_cause = None
+        return {"cause": cause, "requeued": len(requeue),
+                "flush_cache": flush_cache, "rebuild_s": dt}
+
+    def abort_all(self, cause: str) -> List[Result]:
+        """Permanent failure: every request in flight or queued ends
+        'failed' (its tokens so far salvaged into the Result), the slots
+        are parked, and submit raises EngineFailedError from now on."""
+        self.failed = True
+        self.quarantined = False
+        self.quarantine_cause = cause
+        self._inflight = None
+        self._poison = None
+        results, self._pending = self._pending, []
+        victims: List[Tuple[Request, List[int]]] = []
+        active_rids = set()
+        for st in sorted(self._active.values(), key=lambda s: s.req.rid):
+            self.sched.release(st.slot)
+            if st.alloc is not None:
+                self.block_pool.release(st.alloc, donate=False)
+            active_rids.add(st.req.rid)
+            victims.append((st.req, st.tokens))
+        for req, slot, alloc, _ in self._admitting:
+            if req.rid in active_rids:
+                continue
+            self.sched.release(slot)
+            if alloc is not None:
+                self.block_pool.release(alloc, donate=False)
+            victims.append((req, []))
+        for entry in self._chunking:
+            self.sched.release(entry.slot)
+            self.block_pool.release(entry.alloc, donate=False)
+            victims.append((entry.req, []))
+        self._active, self._admitting, self._chunking = {}, [], []
+        victims += [(req, []) for req in
+                    self.sched.drain_expired(lambda item: True)]
+        self._reset_device_state(flush_cache=False)
+        for req, toks in victims:
+            self._submit_meta.pop(req.rid, None)
+            prompt_out, tokens_out, _ = self._unstitch(req, toks)
+            if req.deadline_s is not None:
+                self.slo.record_shed(req.slo_class)
+            results.append(Result(rid=req.rid, prompt=prompt_out,
+                                  tokens=tokens_out,
+                                  finish_reason="failed"))
+        return results
 
     # ------------------------------------------------------------------
     # observability
@@ -1224,11 +1740,21 @@ class Engine:
         self.slo.reset()
         if self.block_pool is not None:
             self.block_pool.reset_ledger()
+        self._spec_accept_len.clear()
+        self.watchdog.reset()
+        if self._spec is not None:
+            # The acceptance rate describes the traffic after a warmup
+            # too (warmup prompts are all zeros).
+            self._spec.steps = self._spec.drafted = self._spec.accepted = 0
 
     def stats(self) -> dict:
         # Copies (one C-level call each): HTTP handler threads read stats
         # while the engine thread appends.
         waits = list(self._queue_wait)
+        accept_lens = list(self._spec_accept_len)
+        spec = {"enabled": False} if self._spec is None else \
+            self._spec.stats()
+        dispatches = sum(self.host_dispatches.values())
         return {
             "device": str(self.device),
             "num_slots": self.num_slots,
@@ -1256,8 +1782,7 @@ class Engine:
             "scan_rungs": list(self.scan_rungs),
             "host_dispatches": dict(self.host_dispatches),
             "tokens_per_dispatch": (
-                self.tokens_generated / self.host_dispatches["decode"]
-                if self.host_dispatches["decode"] else None),
+                self.tokens_generated / dispatches if dispatches else None),
             "graph_replays": {_graph_name(g): n
                               for g, n in self.graph_replays.items()},
             "graph_pool_bytes": (self.graph_pool_bytes if self._graphs
@@ -1279,13 +1804,45 @@ class Engine:
             "brownout": (None if self.brownout is None
                          else self.brownout.stats()),
             "slo": self.slo.stats(),
+            # The speculative signal: token-level acceptance rate and the
+            # mean accepted draft length of drafting verify rows.
+            "spec": spec,
+            "spec_acceptance_rate": spec.get("acceptance_rate"),
+            "spec_accepted_len_mean": (float(np.mean(accept_lens))
+                                       if accept_lens else None),
+            # Faults and recovery: what readiness keys off, plus the
+            # armed plan. JAX mirrors these into its metric registry.
+            "recovery": {
+                "quarantined": self.quarantined,
+                "failed": self.failed,
+                "cause": self.quarantine_cause,
+                "recoveries": self.recoveries,
+                "recovery_s": self._pcts(self.recovery_s),
+                "poisoned_steps": self.poisoned_steps,
+                "requeued": self.requeued,
+                "resumed_in_flight": len(self._resumed),
+                "drafter_faults": self.drafter_faults,
+                "spec_disabled": self.spec_disabled_reason,
+            },
+            "drafter_faults": self.drafter_faults,
+            "faults": (None if self.faults is None
+                       else self.faults.stats()),
+            "watchdog": self.watchdog.stats(),
         }
 
     def max_programs(self) -> dict:
-        """The decode programs: the CUDA graphs captured, one per (rung,
-        filtered) pair (none on the CPU, where the body runs eagerly).
-        JAX's counterpart counts one compiled program per rung."""
-        return {"decode": len(self._graphs)}
+        """The CUDA graphs captured (none on the CPU, where the bodies
+        run eagerly): decode, one per (rung, filtered) pair; under spec
+        'verify', the greedy and the sampled graph, and a ModelDrafter's
+        'draft'. JAX's counterpart counts compiled programs: one per
+        rung, and one verify (its lax.cond holds both paths)."""
+        progs = {"decode": len(self._graphs)}
+        if self._spec is not None:
+            progs["verify"] = sum(key[0] == "verify"
+                                  for key in self._spec_graphs)
+            if self._spec.drafter.kind == "device":
+                progs["draft"] = int(("draft",) in self._spec_graphs)
+        return progs
 
 
 def _wrapper_counts() -> tuple:
@@ -1296,6 +1853,11 @@ def _wrapper_counts() -> tuple:
 
 
 def _graph_name(key: tuple) -> str:
-    """'<rung>' or '<rung>/filtered': a graph's name in stats()."""
+    """A graph's name in stats(): '<rung>' or '<rung>/filtered' for a
+    decode chunk, 'verify' or 'verify/sampled', 'draft'."""
+    if key[0] == "verify":
+        return "verify/sampled" if key[1] else "verify"
+    if key[0] == "draft":
+        return "draft"
     rung, filtered = key
     return f"{rung}/filtered" if filtered else str(rung)

@@ -13,15 +13,25 @@ make_server, with the JAX server's request and response names:
                      for a request shed (deadline expired in the queue,
                      or the brownout ladder shedding its class), 503
                      when the engine loop is gone, 504 on timeout.
-    GET  /healthz   {"ok": true} while the engine loop runs, else 503.
+                     503 when the engine loop is gone or the engine
+                     failed for good (with Retry-After then).
+    GET  /healthz   liveness: {"ok": true} while the engine loop runs
+                    and the engine has not failed for good, else 503.
+    GET  /healthz?ready=1  readiness: {"ok", "ready"}; also false (503,
+                    with "reason" and Retry-After) while the engine is
+                    quarantined for recovery or has failed.
     GET  /stats     engine counters: tokens, steps, prefix hits, TTFT /
                     TPOT percentiles, decode tokens/s; sheds,
                     preemptions, the prefill chunk, the brownout level
-                    and the SLO ledger.
+                    and the SLO ledger; spec acceptance, recovery, the
+                    fault plan and the watchdogs; the loop's supervisor.
 
 The Engine is single-threaded; EngineLoop is the ONE thread that touches
-it. Handler threads (ThreadingHTTPServer) hand submissions over through
-a lock-guarded inbox and wait on a per-request Event, so N concurrent
+it, stepping it through an EngineSupervisor (serve/recovery.py) when it
+has one, as the serve CLI does by default: a fault then recovers in
+place, and its clients see only their (token-identical) answers.
+Handler threads (ThreadingHTTPServer) hand submissions over through a
+lock-guarded inbox and wait on a per-request Event, so N concurrent
 clients become N rows of the same batched decode step.
 """
 
@@ -32,6 +42,9 @@ import math
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional
+from urllib.parse import parse_qs, urlsplit
+
+from nanosandbox_tpu_torch.serve.engine import EngineFailedError
 
 
 class _Pending:
@@ -46,9 +59,11 @@ class EngineLoop(threading.Thread):
     """Background thread that owns the Engine: drains the submission
     inbox, steps while any request is in flight, sleeps otherwise."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, supervisor=None):
         super().__init__(daemon=True, name="serve-engine-loop")
         self.engine = engine
+        self.supervisor = supervisor
+        self._stepper = supervisor if supervisor is not None else engine
         self._cond = threading.Condition()
         self._inbox: list[_Pending] = []
         self._by_rid: dict[int, _Pending] = {}
@@ -84,16 +99,36 @@ class EngineLoop(threading.Thread):
             self._cond.notify()
 
     def is_live(self) -> tuple[bool, str]:
+        """Liveness: False once the loop is dead or the engine failed for
+        good (restart-to-fix states)."""
         if self.dead is not None:
             return False, f"engine loop died: {self.dead}"
         if not self.is_alive():
             return False, "engine loop not running"
+        if self.engine.failed:
+            return False, "engine permanently failed"
+        return True, "ok"
+
+    def is_ready(self) -> tuple[bool, str]:
+        """Readiness: can this replica take a request now? Also False
+        while the engine is quarantined for recovery."""
+        live, reason = self.is_live()
+        if not live:
+            return live, reason
+        if self.engine.quarantined:
+            return False, f"quarantined: {self.engine.quarantine_cause}"
+        sup = self.supervisor
+        if sup is not None and sup.state != "ok":
+            return False, f"supervisor state {sup.state}"
         return True, "ok"
 
     def stats(self) -> dict:
         with self._cond:
-            return {"inbox": len(self._inbox), "waiting": len(self._by_rid),
-                    "dead": self.dead}
+            out = {"inbox": len(self._inbox), "waiting": len(self._by_rid),
+                   "dead": self.dead}
+        if self.supervisor is not None:
+            out["supervisor"] = self.supervisor.stats()
+        return out
 
     def run(self) -> None:
         try:
@@ -125,11 +160,11 @@ class EngineLoop(threading.Thread):
                 try:
                     rid = self.engine.submit(**p.kwargs)
                     self._by_rid[rid] = p
-                except ValueError as e:     # admission rules -> the caller
-                    p.error = e
+                except (ValueError, EngineFailedError) as e:
+                    p.error = e             # admission rules -> the caller
                     p.done.set()
             self._taken = []
-            for res in self.engine.step():
+            for res in self._stepper.step():
                 p = self._by_rid.pop(res.rid, None)
                 if p is not None:
                     p.result = res
@@ -155,7 +190,7 @@ def make_server(host: str, port: int, loop: EngineLoop,
     prompts are a 400 and responses carry "text": null; prompt_tokens
     requests need none."""
 
-    def retry_after(slo_class: str) -> int:
+    def retry_after(slo_class: Optional[str]) -> int:
         """Whole seconds for a 429's Retry-After, scaled by the queue
         mass ahead of the requester's class (Engine.retry_after_s)."""
         return max(1, math.ceil(
@@ -177,8 +212,18 @@ def make_server(host: str, port: int, loop: EngineLoop,
             self.wfile.write(data)
 
         def do_GET(self):
-            path = self.path.split("?", 1)[0]
-            if path == "/healthz":
+            url = urlsplit(self.path)
+            path = url.path
+            ready_q = parse_qs(url.query).get("ready", ["0"])[0]
+            if path == "/healthz" and ready_q not in ("0", "", "false"):
+                ready, reason = loop.is_ready()
+                body = {"ok": ready, "ready": ready}
+                if ready:
+                    self._json(200, body)
+                else:
+                    self._json(503, dict(body, reason=reason),
+                               headers={"Retry-After": retry_after(None)})
+            elif path == "/healthz":
                 live, reason = loop.is_live()
                 self._json(200 if live else 503,
                            {"ok": live} if live else
@@ -234,6 +279,10 @@ def make_server(host: str, port: int, loop: EngineLoop,
             except TimeoutError as e:
                 self._json(504, {"error": str(e)})
                 return
+            except EngineFailedError as e:
+                self._json(503, {"error": str(e)},
+                           headers={"Retry-After": retry_after(None)})
+                return
             except RuntimeError as e:
                 self._json(503, {"error": str(e)})
                 return
@@ -250,8 +299,9 @@ def make_server(host: str, port: int, loop: EngineLoop,
                            headers={"Retry-After": retry_after(cls)})
                 return
             if res.finish_reason == "failed":
-                self._json(503, {"error": "non-finite logits during "
-                                          "generation", "id": res.rid,
+                self._json(503, {"error": "generation failed (non-finite "
+                                          "logits, or the engine failed "
+                                          "for good)", "id": res.rid,
                                  "tokens": res.tokens,
                                  "finish_reason": "failed"})
                 return

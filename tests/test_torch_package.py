@@ -72,11 +72,14 @@ def test_importing_every_module_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
     names, bad = json.loads(proc.stdout.strip().splitlines()[-1])
     assert len(names) >= 15 and bad == [], proc.stdout
-    # Ring attention, the multi-process modules and the scheduling
-    # modules (the SLO ledger, the brownout ladder) are among them.
+    # Ring attention, the multi-process modules, the scheduling modules
+    # (the SLO ledger, the brownout ladder), and speculative decoding and
+    # recovery (the fault plan, the watchdogs, the supervisor) are among
+    # them.
     for mod in ("ops.ring_attention", "parallel.distributed",
                 "parallel.mesh", "obs.slo", "serve.brownout",
-                "serve.scheduler"):
+                "serve.scheduler", "serve.faults", "serve.spec",
+                "serve.drafters", "serve.recovery", "obs.flight"):
         assert f"nanosandbox_tpu_torch.{mod}" in names, names
 
 
@@ -424,10 +427,11 @@ def test_build_compiles_every_source_and_hashes_every_header():
 
 def test_unported_paths_raise():
     """The dense pool and the int8/int4 pools are ported and construct;
-    speculative verify (T > 1 at a nonzero cache_index) and the
-    sampler's --spec / --spec_k are not, and raise."""
-    from nanosandbox_tpu_torch import sample
+    a dense T > 1 call at a nonzero scalar cache_index (speculative
+    verify is per-row and ported) and the watchdogs' dumps are not, and
+    raise; an unknown --spec value is refused."""
     from nanosandbox_tpu_torch.models.gpt import init_cache
+    from nanosandbox_tpu_torch.serve.drafters import drafter_from_flag
 
     model = GPT(GPTConfig(n_layer=1, n_head=2, n_embd=64, block_size=32,
                           vocab_size=16, compute_dtype="float32"))
@@ -441,9 +445,11 @@ def test_unported_paths_raise():
                                         match="not ported yet"):
         model(torch.zeros(1, 3, dtype=torch.int64),
               cache=init_cache(model.cfg, 1, 32), cache_index=5)
-    for flag in ("--spec=ngram", "--spec_k=4"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            sample.main([flag, "--out_dir=nowhere"])
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        Engine(model, num_slots=1, max_len=32, device="cpu",
+               watchdog_dir="dumps")
+    with pytest.raises(ValueError, match="unknown --spec"):
+        drafter_from_flag("bogus")
 
 
 def test_block_pool_and_scheduler_round_trip():
