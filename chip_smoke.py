@@ -1,10 +1,10 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases=2,3,7,9,13,14,15,16]
+    python3 chip_smoke.py [--phases=2,3,7,9,13,14,15,16,17]
 
 Phases (each prints what it found; any failure exits non-zero; --phases
 runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13,
-14, 15 or 16, and prints no result line):
+14, 15, 16 or 17, and prints no result line):
 
   1. device   torch / CUDA versions, the card's name and power limit;
   2. build    the CUDA kernels from nanosandbox_tpu_torch/csrc (into
@@ -124,9 +124,12 @@ runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13,
               forward n_layer a step under 'save_attention', 2 n_layer
               under 'full'); the step's time, tok/s and MFU (median of
               the logged windows outside iter 0 and the profiled iters);
-              a torch.profiler split of one step; then, as a control,
-              the first run's 30 steps with the plain attention (loss
-              trajectory printed, not checked);
+              a torch.profiler split of one step; the trainer's
+              registry (train_loss equal to the loss logged at the last
+              log iter, train_iters_total that iter + 1) and its spans
+              (eval, checkpoint_save, profiler_window, none left open);
+              then, as a control, the first run's 30 steps with the
+              plain attention (loss trajectory printed, not checked);
  10. pools    phase 4's model and prompts through a dense-pool fp32
               engine (tokens equal to phase 4's paged engine and to the
               recompute; K3 and the K4 prefill launched), then fp32
@@ -222,6 +225,26 @@ runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13,
               of tokens equal to phase 5's, TPOT p50 beside phase 5's);
               K1 at the verify shape (S 8, T 5, bf16 and fp32) timed
               against its plain version, its bound and SDPA.
+ 17. observability  the paged bf16 124M server (phase 5's flags, the
+              CLI's defaults, --watchdog_dir): /metrics scraped before
+              and after phase 5's rounds (the exposition parses, the
+              families of OBS_FAMILIES are there, the submitted,
+              completed, admitted and token counters move by what was
+              sent and agree with /stats); /trace of every request (one
+              generate and one queued span, decode steps overlapping by
+              the pipeline's lag; an unknown rid 404); the /debug views'
+              shapes; POST /profile {"steps": 16} while a 900-token
+              request decodes, then a wave of two requests admitted in
+              the window: its torch.profiler trace must hold
+              paged_decode_kernel launched by graph replays and
+              paged_prefill_mma_kernel; a forced ttft_spike trip and its
+              dump (flight JSONL, spans, stats; no post_freeze_retrace
+              while serving); POST /drain (readiness 503 at once, a new
+              request 503, the 900-token request finishes); then the
+              engine with telemetry on and off (runs on, off, on, off):
+              tokens, graph replays, counted launches and one traced
+              step's kernels equal, and the median step walls printed
+              beside the card's name and power limit.
 
 The last line is {"ok": true, "device": {...}}; the line before it is a
 JSON object with one entry per kernel instance timed (K1 twice for each
@@ -1926,8 +1949,14 @@ def check_trainer(at, fd, smi: str, tmp: str) -> dict:
     fd.reset_counts()
     peak_gb()
     t0 = time.monotonic()
-    first = train.main(flags + [f"--profile_steps={a}:{b}",
-                                "--memory_report=True"])
+    # train.main's body, keeping the Trainer: its registry and spans are
+    # read below.
+    trainer = train.Trainer(load_config(flags + [
+        f"--profile_steps={a}:{b}", "--memory_report=True"]))
+    try:
+        first = trainer.run()
+    finally:
+        train.distributed.shutdown()
     first_peak = peak_gb()
     at.BWD_IMPL = "split"
     try:
@@ -1972,6 +2001,24 @@ def check_trainer(at, fd, smi: str, tmp: str) -> dict:
                          f"iters_{a}_{b}.trace.json")
     if not os.path.exists(trace):
         fail(f"--profile_steps={a}:{b} wrote no trace at {trace}")
+    # The trainer's registry: train_loss is the loss logged at the last
+    # log iter; the eval, checkpoint and profile windows are spans.
+    snap = trainer.metrics.snapshot()
+    spans = sorted({s.name for s in trainer.tracer.spans()})
+    last = first["log"][-1]
+    gauges = {k: snap[k]["series"][0]["value"] for k in (
+        "train_loss", "train_iters_total", "checkpoint_saves_total")}
+    print(f"  the trainer's registry: {gauges} (logged loss at iter "
+          f"{last['iter']}: {last['loss']}), eval_loss "
+          f"{ {s['labels']['split']: s['value'] for s in snap['eval_loss']['series']} }"
+          f"; spans {spans}")
+    if (gauges["train_loss"] != last["loss"]
+            or gauges["train_iters_total"] != last["iter"] + 1
+            or not {"eval", "checkpoint_save", "profiler_window"}
+            <= set(spans) or trainer.tracer.open_count()):
+        fail(f"the trainer's registry {gauges} or spans {spans} disagree "
+             f"with its log {last}")
+    del trainer
     remat = check_remat_legs(at, flags, first, first_peak, tmp)
 
     # The launch checks come after every other check of the phase.
@@ -3074,7 +3121,8 @@ def storm_pass(engine, rng, vocab, traced=False) -> dict:
             engine.step()
             walls.append(time.perf_counter() - t0)
         sync()
-    ttft = list(engine._ttft)[-STORM:]
+    # The TTFT histogram's recent window (obs/registry.py RingStat).
+    ttft = list(engine._ttft.peek()._ring._buf)[-STORM:]
     engine.drain()
     engine.reset_prefix_cache()
     out = {"walls_ms": [w * 1e3 for w in walls],
@@ -3432,9 +3480,425 @@ def check_spec_and_recovery(fd, at, smi: str, ref=None, dense_ref=None,
     return {"runs": runs, "server": spec_served, "k1": k1}
 
 
-# Phases that stand alone, for a partial run (--phases=2,3,7,9,13,14,15,16;
-# 9 runs phase 12 after it).
-STANDALONE_PHASES = (2, 3, 7, 9, 13, 14, 15, 16)
+# ---------------------------------------------------------------------------
+# phase 17: observability on the live server
+# ---------------------------------------------------------------------------
+
+OBS_FAMILIES = (   # a sample of the families the CPU tests name
+    "serve_ttft_seconds", "serve_tpot_seconds", "serve_queue_wait_steps",
+    "serve_requests_submitted_total", "serve_requests_completed_total",
+    "serve_tokens_generated_total", "serve_prefill_waves_total",
+    "serve_decode_steps_total", "serve_host_dispatches_total",
+    "serve_kv_pool_blocks", "serve_prefix_hit_tokens_total",
+    "serve_prefix_miss_tokens_total", "serve_prefix_ttft_seconds",
+    "serve_slots_active", "serve_queue_depth", "serve_brownout_level",
+    "serve_supervisor_state", "serve_loop_waiting",
+    "process_resident_memory_bytes", "torch_cuda_allocated_bytes")
+OBS_PROFILE_STEPS = 16
+# The request that decodes through the /profile window, the trip and the
+# /drain (100 prompt tokens + these fill the 1024 positions but 24).
+OBS_LONG_NEW = 900
+OBS_COST_NEW = 256      # greedy tokens a request in the telemetry-cost leg
+
+
+def http_get(url: str):
+    """(status, body text) of a GET, HTTP errors included."""
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def http_post(url: str, body: dict, timeout: float = 300):
+    req = urllib.request.Request(url, data=json.dumps(body).encode())
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def scrape(base: str) -> dict:
+    """/metrics parsed: {"types": {family: type}, "values": {sample line
+    name with labels: value}}; every line must be a comment or a
+    sample."""
+    code, text = http_get(base + "/metrics")
+    if code != 200:
+        fail(f"/metrics answered {code}: {text[:300]}")
+    types, values = {}, {}
+    for ln in text.splitlines():
+        if ln.startswith("# TYPE "):
+            _, _, name, kind = ln.split(" ", 3)
+            types[name] = kind
+        elif ln.startswith("# HELP "):
+            continue
+        else:
+            m = re.match(r'^([a-zA-Z_:][a-zA-Z0-9_:]*(?:\{.*\})?) (\S+)$',
+                         ln)
+            if m is None:
+                fail(f"/metrics line not in the exposition format: {ln!r}")
+            values[m.group(1)] = float(m.group(2))
+    return {"types": types, "values": values}
+
+
+def profile_kernels(path: str) -> dict:
+    """Kernel events of a torch.profiler Chrome trace by name, with the
+    ones launched by a CUDA graph replay counted apart (a kernel's
+    'correlation' id matching a cudaGraphLaunch runtime event's)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    graph = {e["args"].get("correlation") for e in events
+             if e.get("cat") == "cuda_runtime"
+             and "GraphLaunch" in e.get("name", "")}
+    out: dict = {"all": {}, "in_graph": {}}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        name = e.get("name", "")[:70]
+        out["all"][name] = out["all"].get(name, 0) + 1
+        if e.get("args", {}).get("correlation") in graph:
+            out["in_graph"][name] = out["in_graph"].get(name, 0) + 1
+    return out
+
+
+def named(counts: dict, part: str) -> int:
+    return sum(n for k, n in counts.items() if part in k)
+
+
+def wait_active(base: str, want: int, timeout: float = 60) -> None:
+    """Until /debug/slots shows ``want`` active rows with a token each."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        slots = json.loads(http_get(base + "/debug/slots")[1])["slots"]
+        if sum(s["state"] == "active" and s["tokens"] > 0
+               for s in slots) >= want:
+            return
+        time.sleep(0.002)
+    fail(f"no {want} decoding rows after {timeout} s")
+
+
+def telemetry_cost(smi: str) -> dict:
+    """The same bf16 124M engine, pipelined, with telemetry at its
+    defaults and with the tracer, flight recorder and watchdogs off,
+    each run twice (on, off, on, off) on 8 greedy requests: tokens,
+    graph replays, counted launches and one traced decode step's kernels
+    must be equal; each run's median step wall over its steady decode
+    steps (every slot live) is printed."""
+    from nanosandbox_tpu_torch.config import GPTConfig
+    from nanosandbox_tpu_torch.models.gpt import GPT, cast_for_serving
+    from nanosandbox_tpu_torch.obs import FlightRecorder, SpanTracer
+    from nanosandbox_tpu_torch.ops import flash_decode as fd
+    from nanosandbox_tpu_torch.serve.engine import Engine
+
+    cfg = GPTConfig(**MODEL)
+    model = GPT(cfg, device=DEVICE, generator=torch.Generator(
+        device=DEVICE).manual_seed(SEED))
+    cast_for_serving(model)
+    rng = np.random.default_rng(SEED + 17)
+    prompts = [[int(t) for t in rng.integers(0, prompt_vocab(cfg), n)]
+               for n in (64, 100, 128, 200, 256, 300, 40, 500)]
+    new = OBS_COST_NEW if DEVICE != "cpu" else 8
+    engines = {
+        "on": Engine(model, num_slots=8, max_len=1024, device=DEVICE),
+        "off": Engine(model, num_slots=8, max_len=1024, device=DEVICE,
+                      tracer=SpanTracer(enabled=False),
+                      flight=FlightRecorder(enabled=False),
+                      watchdogs=False)}
+    runs: dict = {"on": [], "off": []}
+    for name in ("on", "off", "on", "off"):
+        engine = engines[name]
+        fd.reset_counts()
+        zero_replays(engine)
+        rids = [engine.submit(p, new) for p in prompts]
+        walls, done = [], {}
+        while engine.sched.queued or any(not st.tokens for st in
+                                         engine._active.values()):
+            done.update((r.rid, r) for r in engine.step())
+        sync()
+        # Steady decode: every slot live, nothing to admit.
+        while len(engine._active) == 8 and all(
+                len(st.tokens) < new - 4 for st in engine._active.values()):
+            t0 = time.perf_counter()
+            done.update((r.rid, r) for r in engine.step())
+            walls.append(time.perf_counter() - t0)
+        traced = traced_kernels(lambda: engine.step())
+        done.update((r.rid, r) for r in engine.drain())
+        sync()
+        # The next run of this engine starts as cold as this one did.
+        engine.reset_prefix_cache()
+        runs[name].append({
+            "tokens": [done[r].tokens for r in rids],
+            "replays": dict(engine.graph_replays),
+            "launches": counted_launches(fd, engine),
+            "step_kernels": traced["all"],
+            "wall_ms": 1e3 * float(np.median(walls)) if walls else None,
+            "steps": len(walls)})
+        engine.reset_latency_stats()
+    on, off = runs["on"][0], runs["off"][0]
+    for key in ("tokens", "replays", "launches", "step_kernels"):
+        if on[key] != off[key] or any(r[key] != on[key]
+                                      for r in runs["on"] + runs["off"]):
+            fail(f"telemetry changed the {key}: on {on[key]}, off "
+                 f"{off[key]}")
+    out = {name: [r["wall_ms"] for r in rs] for name, rs in runs.items()}
+    print(f"  [{smi}] telemetry cost, bf16 124M engine pipelined, 8 rows x "
+          f"{new} greedy tokens: median step wall on {out['on']} ms, off "
+          f"{out['off']} ms (over {on['steps']} steady steps a run, runs "
+          "in the order on, off, on, off); tokens, graph replays "
+          f"{on['replays']}, counted launches and one traced step's "
+          f"{sum(on['step_kernels'].values())} kernels equal")
+    del engines, model
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_observability(fd, smi: str, tmp: str) -> dict:
+    """Phase 17: the paged bf16 124M server (phase 5's flags, the CLI's
+    defaults: --warmup=full, pipeline on) with --watchdog_dir, then
+    /metrics against /stats over phase 5's rounds, /trace, a /profile
+    window over a wave admitted while a request decodes, the /debug
+    views, a forced watchdog trip and its dump, /drain while a request
+    decodes; then the telemetry-cost leg (telemetry_cost). The launch
+    check and the profile's kernels come last."""
+    import os
+
+    from nanosandbox_tpu_torch.checkpoint import save_for_serving
+    from nanosandbox_tpu_torch.config import GPTConfig
+    from nanosandbox_tpu_torch.models.gpt import GPT
+    from nanosandbox_tpu_torch.ops import attention as at
+    from nanosandbox_tpu_torch.serve.__main__ import build_server
+
+    t_phase = time.monotonic()
+    cfg = GPTConfig(**MODEL)
+    dumps = os.path.join(tmp, "watchdog")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as out_dir:
+        model = GPT(cfg, device=DEVICE, generator=torch.Generator(
+            device=DEVICE).manual_seed(SEED))
+        save_for_serving(out_dir, cfg, model.state_dict())
+        del model
+        server, loop, engine = build_server([
+            f"--out_dir={out_dir}", "--host=127.0.0.1", "--port=0",
+            "--num_slots=8", "--max_len=1024", "--kv_page_size=16",
+            f"--device={DEVICE}", f"--watchdog_dir={dumps}"])
+    fd.reset_counts()
+    at.reset_counts()
+    zero_replays(engine)
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    new = 64
+    report: dict = {}
+    try:
+        # /metrics against /stats over phase 5's rounds.
+        before = scrape(base)
+        rids, sent = [], 0
+        for bodies in server_rounds(cfg):
+            got = [None] * len(bodies)
+
+            def one(i, body):
+                got[i] = http_post(base + "/generate",
+                                   dict(body, max_new_tokens=new))
+
+            ths = [threading.Thread(target=one, args=(i, b))
+                   for i, b in enumerate(bodies)]
+            for t in ths:
+                t.start()
+            for t in ths:
+                t.join(timeout=600)
+            for g in got:
+                if g is None or g[0] != 200 or len(g[1]["tokens"]) != new:
+                    fail(f"a round request answered {g}")
+                rids.append(g[1]["id"])
+                sent += new
+        after = scrape(base)
+        stats = json.loads(http_get(base + "/stats")[1])
+        v0, v1 = before["values"], after["values"]
+
+        def delta(name):
+            return v1.get(name, 0.0) - v0.get(name, 0.0)
+
+        missing = [f for f in OBS_FAMILIES if f not in after["types"]
+                   and not (DEVICE == "cpu" and f.startswith("torch_cuda"))]
+        counters = {
+            "submitted": delta("serve_requests_submitted_total"),
+            "completed": delta('serve_requests_completed_total'
+                               '{reason="length"}'),
+            "tokens": delta("serve_tokens_generated_total"),
+            "admitted": delta("serve_requests_admitted_total")}
+        want = {"submitted": len(rids), "completed": len(rids),
+                "tokens": sent, "admitted": len(rids)}
+        print(f"  /metrics: {len(after['types'])} families; deltas over "
+              f"phase 5's rounds {counters}; /stats tokens "
+              f"{stats['tokens_generated']}, completed {stats['completed']}")
+        if missing:
+            fail(f"/metrics lacks {missing}")
+        if counters != want:
+            fail(f"/metrics deltas {counters}, sent {want}")
+        if (v1["serve_tokens_generated_total"] != stats["tokens_generated"]
+                or v1["serve_requests_admitted_total"] != stats["admitted"]
+                or v1["serve_decode_steps_total"] != stats["decode_steps"]):
+            fail(f"/metrics and /stats disagree: {v1}, {stats}")
+        # /trace: a generate and a queued span a request, decode steps
+        # overlapping by the pipeline's lag; an unknown rid is a 404.
+        lagged = 0
+        for rid in rids:
+            code, body = http_get(base + f"/trace?rid={rid}")
+            evs = [e for e in json.loads(body)["traceEvents"]
+                   if e["ph"] == "X"]
+            mine = sorted(e["name"] for e in evs
+                          if e["args"].get("rid") == rid)
+            steps = sorted((e for e in evs if e["name"] == "decode_step"),
+                           key=lambda e: e["ts"])
+            lagged += sum(b["ts"] < a["ts"] + a["dur"]
+                          for a, b in zip(steps, steps[1:]))
+            if code != 200 or mine != ["generate", "queued"] or not steps:
+                fail(f"/trace?rid={rid}: {code}, request spans {mine}, "
+                     f"{len(steps)} decode steps")
+        code404 = http_get(base + "/trace?rid=987654")[0]
+        print(f"  /trace: a generate and a queued span for each of "
+              f"{len(rids)} requests, {lagged} decode-step pairs "
+              f"overlapping (the pipeline's lag); unknown rid {code404}")
+        if code404 != 404 or not lagged:
+            fail(f"/trace: unknown rid answered {code404}, {lagged} "
+                 "overlapping decode steps")
+        # /debug views.
+        evs = json.loads(http_get(base + f"/debug/requests?rid={rids[0]}")
+                         [1])["events"]
+        slots = json.loads(http_get(base + "/debug/slots")[1])
+        kvpool = json.loads(http_get(base + "/debug/kvpool")[1])
+        sched = json.loads(http_get(base + "/debug/scheduler")[1])
+        names = [e["ev"] for e in evs]
+        print(f"  /debug/requests?rid={rids[0]}: {names}; /debug/slots "
+              f"{slots['num_slots']} slots; /debug/kvpool trie nodes "
+              f"{kvpool['trie'].get('nodes')}, free {kvpool['free']}; "
+              f"/debug/scheduler queued {sched['queued']}")
+        if (names[:3] != ["submit", "queue", "block_reserve"]
+                or "finish" not in names or names[-1] != "http"
+                or slots["num_slots"] != 8 or len(slots["slots"]) != 8
+                or kvpool["paged"] is not True
+                or not kvpool["trie"]["enabled"]
+                or sched["queue"] != [] or "brownout" not in sched):
+            fail(f"/debug shapes: {names}, {slots}, {kvpool}, {sched}")
+        # /profile: armed while a request decodes; a wave admitted inside
+        # the window.
+        long_req = {}
+        lt = threading.Thread(target=lambda: long_req.update(r=http_post(
+            base + "/generate", {"prompt_tokens": list(range(1, 101)),
+                                 "max_new_tokens": OBS_LONG_NEW,
+                                 "temperature": 0.0})))
+        lt.start()
+        wait_active(base, 1)
+        code, armed = http_post(base + "/profile",
+                                {"steps": OBS_PROFILE_STEPS})
+        if code != 200:
+            fail(f"/profile answered {code}: {armed}")
+        wave = [None, None]
+
+        def wave_one(i, n):
+            wave[i] = http_post(base + "/generate", {
+                "prompt_tokens": [int(t) for t in np.random.default_rng(
+                    SEED + 170 + i).integers(0, prompt_vocab(cfg), n)],
+                "max_new_tokens": 8, "temperature": 0.0})
+
+        wts = [threading.Thread(target=wave_one, args=(i, n))
+               for i, n in enumerate((40, 300))]
+        for t in wts:
+            t.start()
+        for t in wts:
+            t.join(timeout=600)
+        t0 = time.monotonic()
+        while json.loads(http_get(base + "/stats")[1])["profile"][
+                "active"] and time.monotonic() - t0 < 120:
+            time.sleep(0.01)
+        prof = json.loads(http_get(base + "/stats")[1])["profile"]["last"]
+        if any(w is None or w[0] != 200 for w in wave) or not prof \
+                or prof.get("error") or not os.path.exists(
+                    prof.get("trace", "")):
+            fail(f"/profile: the window's wave {wave}, the window {prof}")
+        report["profile"] = prof
+        # A watchdog trip: a tight ttft_spike (any TTFT over the rolling
+        # median of the TTFTs so far trips), fed at an admission of a
+        # request through the server.
+        wd = engine.watchdog
+        wd.ttft_min_samples, wd.ttft_min_s = 1, 0.0
+        wd.ttft_spike_factor = 1e-9
+        tripped = http_post(base + "/generate", {"prompt_tokens": [1, 2, 3],
+                                                 "max_new_tokens": 2})
+        trips = dict(wd.trips)
+        # The first trip of a kind dumps; later ones within cooldown_s
+        # only count.
+        found = (sorted(d for d in os.listdir(dumps)
+                        if d.startswith("ttft_spike-"))
+                 if os.path.isdir(dumps) else [])
+        dump = os.path.join(dumps, found[0]) if found else ""
+        files = sorted(os.listdir(dump)) if dump else []
+        text = http_get(base + "/metrics")[1]
+        print(f"  watchdog: a request {tripped[0]}; trips {trips}, the "
+              f"last {wd.last_trip}; dump {dump}: {files}")
+        if (not trips.get("ttft_spike") or files != [
+                "flight-ttft_spike.jsonl", "meta-ttft_spike.json",
+                "trace-ttft_spike.json"]
+                or 'watchdog_trips_total{kind="ttft_spike"}' not in text):
+            fail(f"the forced ttft_spike trip: trips {trips}, dump {files}")
+        with open(os.path.join(dump, "flight-ttft_spike.jsonl")) as f:
+            if not any(json.loads(ln)["ev"] == "finish" for ln in f):
+                fail("the trip's flight dump holds no finish")
+        if trips.get("post_freeze_retrace"):
+            fail(f"a program was built while serving: {trips}")
+        # /drain while the long request decodes.
+        code, drained = http_post(base + "/drain", {})
+        ready = http_get(base + "/healthz?ready=1")
+        refused = http_post(base + "/generate", {"prompt_tokens": [1, 2],
+                                                 "max_new_tokens": 4})
+        lt.join(timeout=600)
+        r = long_req.get("r")
+        print(f"  /drain: {drained}; readiness then {ready[0]} "
+              f"{json.loads(ready[1]).get('reason')}; a new request "
+              f"{refused[0]}; the request in flight finished {r and r[0]} "
+              f"with {r and len(r[1].get('tokens', []))} tokens")
+        if (code != 200 or not drained["in_flight"] or ready[0] != 503
+                or refused[0] != 503 or r is None or r[0] != 200
+                or len(r[1]["tokens"]) != OBS_LONG_NEW):
+            fail("/drain: readiness must go red at once, new requests "
+                 "503, the request in flight must finish")
+        sync()
+        launches = counted_launches(fd, engine)
+        launches["flash_attention_fwd"] = at.launches["flash_attention_fwd"]
+        plain = counted_plain(fd, at, engine)
+    finally:
+        server.shutdown()
+        server.server_close()
+        loop.stop()
+        loop.join(timeout=60)
+        th.join(timeout=60)
+    del engine
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    report["cost"] = telemetry_cost(smi)
+    # The launch checks, then the profile's kernels, come last.
+    need_launches("the observed bf16 server", {
+        "launches": launches, "plain_cuda_calls": plain},
+        ("flash_decode_paged/bf16", "flash_prefill_paged/bf16"))
+    kern = profile_kernels(report["profile"]["trace"])
+    k2_all = named(kern["all"], "paged_decode_kernel")
+    k2_graph = named(kern["in_graph"], "paged_decode_kernel")
+    k1 = named(kern["all"], "paged_prefill_mma_kernel")
+    print(f"  /profile window {report['profile']}: paged_decode_kernel "
+          f"{k2_all} ({k2_graph} in graph replays), paged_prefill_mma_"
+          f"kernel {k1}; launches {launches}")
+    if not (k2_graph and k1):
+        fail(f"the /profile trace lacks K2 in graph replays ({k2_graph}) "
+             f"or K1 ({k1}): {kern}")
+    report["kernels"] = {"K2": k2_all, "K2_in_graph": k2_graph, "K1": k1}
+    print(f"  phase 17: {time.monotonic() - t_phase:.1f} s")
+    return report
+
+
+# Phases that stand alone, for a partial run (--phases=2,3,7,9,13,14,15,16,
+# 17; 9 runs phase 12 after it).
+STANDALONE_PHASES = (2, 3, 7, 9, 13, 14, 15, 16, 17)
 
 
 def train_and_sample(at, fd, smi: str) -> None:
@@ -3498,7 +3962,10 @@ def main(argv: list[str] | None = None) -> int:
                  lambda: (_build.library(), check_scheduling(fd, at, smi))),
                 (16, "speculative decoding and recovery",
                  lambda: (_build.library(),
-                          check_spec_and_recovery(fd, at, smi)))):
+                          check_spec_and_recovery(fd, at, smi))),
+                (17, "observability on the live server",
+                 lambda: (_build.library(), check_observability(
+                     fd, smi, tempfile.mkdtemp(prefix="chip_smoke_obs_"))))):
             if phase in only:
                 print(f"== phase {phase}: {title}")
                 fn()
@@ -3576,6 +4043,10 @@ def main(argv: list[str] | None = None) -> int:
     print("== phase 16: speculative decoding and recovery")
     spec = check_spec_and_recovery(fd, at, smi, paged_fp32["tokens"],
                                    pools["dense fp32"]["tokens"], served)
+
+    print("== phase 17: observability on the live server")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
+        check_observability(fd, smi, tmp)
 
     def entry(name, source, replaces, launches, case):
         return {"name": name, "route": "cuda",

@@ -42,6 +42,9 @@ LINK_FLAGS = ("-ldl",)
 
 _lock = threading.Lock()
 _lib: types.SimpleNamespace | None = None
+# Libraries loaded in this process: 0 until the first library() call,
+# then 1 (the engine's post_freeze_retrace watchdog watches it).
+loads = 0
 # What the last build did, for the caller that wants to report it:
 # seconds, and per source its library path, whether it was built now,
 # and nvcc's log (with ptxas's register and spill report).
@@ -114,7 +117,7 @@ def library() -> types.SimpleNamespace:
     """Every kernel entry point, declared, as attributes of one object;
     the libraries are built on the first call of the process (and reused
     from ``build/`` when identical builds exist)."""
-    global _lib
+    global _lib, loads
     with _lock:
         if _lib is not None:
             return _lib
@@ -160,5 +163,6 @@ def library() -> types.SimpleNamespace:
         if missing:
             raise RuntimeError(f"kernel libraries lack {missing}")
         _lib = types.SimpleNamespace(**fns)
+        loads += 1
         build_info.update(libs=libs, seconds=time.monotonic() - t0)
         return _lib

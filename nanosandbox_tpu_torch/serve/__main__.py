@@ -8,12 +8,20 @@ the compute dtype, and exposes the continuous-batching engine over HTTP:
     curl -s localhost:8000/generate -d '{"prompt_tokens": [1, 2, 3],
         "max_new_tokens": 32, "temperature": 0.8, "top_k": 40}'
     curl -s localhost:8000/stats
+    curl -s localhost:8000/metrics                 # Prometheus text
+    curl -s 'localhost:8000/trace?rid=0'           # Chrome trace JSON
+    curl -s 'localhost:8000/debug/requests?rid=0'  # flight events
+    curl -s localhost:8000/profile -d '{"steps": 16}'
 
 With --spec=ngram (or model:<out_dir>) each step drafts --spec_k
 tokens a request and verifies them in one batched forward; --faults arms
 a fault-injection plan (serve/faults.py; steps counted from the end of
 the warmup); an EngineSupervisor recovers from faults unless
---no_recovery.
+--no_recovery. The anomaly watchdogs run unless --no_watchdogs, dumping
+under --watchdog_dir; the warmup's end marks the program set steady, so
+a CUDA graph captured or a kernel library built later trips
+post_freeze_retrace. The process vitals (RSS, fds, uptime, CUDA
+allocator bytes) ride every /metrics scrape.
 
 --device defaults to auto, which is the GPU and raises without one;
 --device=cpu runs the plain PyTorch attention instead of the kernels.
@@ -112,6 +120,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "entries comma-separated, or a canned plan name "
                          "('chaos-smoke', 'chaos-full'); steps count from "
                          "the end of the warmup")
+    ap.add_argument("--watchdog_dir", default=None,
+                    help="directory for anomaly-watchdog dumps (flight "
+                         "ledger + span ring + stats snapshot per trip); "
+                         "default: a temporary directory made at the "
+                         "first trip")
+    ap.add_argument("--no_watchdogs", action="store_true",
+                    help="disable the anomaly watchdogs (TTFT spike, "
+                         "admission stall, pool thrash, post-warmup "
+                         "build, stuck slot, stalled step)")
     ap.add_argument("--no_recovery", action="store_true",
                     help="no engine supervisor: a dispatch error kills the "
                          "serving loop, and a row poisoned 3 times in a "
@@ -166,6 +183,7 @@ def build_server(argv: list[str] | None = None):
     from nanosandbox_tpu_torch.config import resolve_device
     from nanosandbox_tpu_torch.data.tokenizer import tokenizer_for_dataset
     from nanosandbox_tpu_torch.models.gpt import GPT, cast_for_serving
+    from nanosandbox_tpu_torch.obs import register_process_vitals
     from nanosandbox_tpu_torch.serve.drafters import drafter_from_flag
     from nanosandbox_tpu_torch.serve.engine import Engine
     from nanosandbox_tpu_torch.serve.faults import FaultPlan
@@ -203,10 +221,15 @@ def build_server(argv: list[str] | None = None):
                     prefill_chunk=args.prefill_chunk or None,
                     preemption=not args.no_preemption,
                     brownout=args.brownout == "on", spec=drafter,
-                    faults=fault_plan, device=device)
+                    faults=fault_plan, watchdogs=not args.no_watchdogs,
+                    watchdog_dir=args.watchdog_dir, device=device)
     # Every prefill shape and decode chunk once before the port binds, so
     # no client pays for the libraries' first-call setup.
     waves = warm_up(engine, args.warmup)
+    # The program set is complete: a graph captured or a kernel library
+    # built from now on eats a live request's time, and pages.
+    engine.watchdog.mark_steady()
+    register_process_vitals()
     if fault_plan is not None:
         fault_plan.rearm(engine.steps)
         fault_plan.enabled = True
@@ -233,11 +256,14 @@ def build_server(argv: list[str] | None = None):
           f"{'on' if engine.brownout is not None else 'off'}, spec="
           f"{args.spec if drafter is not None else 'off'}"
           f"{f' k={drafter.k}' if drafter is not None else ''}, recovery="
-          f"{'off' if supervisor is None else 'on'}); "
+          f"{'off' if supervisor is None else 'on'}, watchdogs="
+          f"{'off' if args.no_watchdogs else 'on'}); "
           f"warmup {args.warmup}: "
           f"{waves} prefill waves; listening on {args.host}:"
-          f"{server.server_address[1]} (POST /generate, GET /healthz "
-          "/stats)", file=sys.stderr, flush=True)
+          f"{server.server_address[1]} (POST /generate /drain /profile, "
+          "GET /healthz[?ready=1] /stats /metrics /trace /debug/requests "
+          "/debug/slots /debug/kvpool /debug/scheduler)", file=sys.stderr,
+          flush=True)
     return server, loop, engine
 
 

@@ -25,12 +25,15 @@ level after ``clear_checks`` consecutive windows at or above
 ``clear_above`` (idle windows count as healthy). Without deadlines there
 are no SLO events and it never escalates.
 
-The JAX controller also publishes a level gauge and a transition
-counter, and records each transition in the flight recorder; those come
-with the port's metric registry and flight recorder, a later slice.
+Each transition leaves a ``brownout`` flight event and moves the
+``serve_brownout_level`` gauge and the
+``serve_brownout_transitions_total{direction=}`` counter on the engine's
+registry, as JAX's does.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 LEVELS = ("normal", "shrink_scan", "no_spec", "shed_batch",
           "interactive_only")
@@ -73,6 +76,16 @@ class BrownoutController:
         self._last_check_step = engine.steps
         self._mark = engine.slo.totals()
         self._bshed_mark = engine.brownout_sheds
+        m = engine.metrics
+        self._g_level = m.gauge(
+            "serve_brownout_level",
+            "Current brownout degradation level (0 = normal; see "
+            "serve/brownout.py for the ladder).")
+        self._c_trans = m.counter(
+            "serve_brownout_transitions_total",
+            "Brownout ladder transitions, by direction.",
+            labelnames=("direction",))
+        self._g_level.set(0.0)
 
     def on_step(self) -> None:
         """Called after every Engine.step(); judges one window per
@@ -98,7 +111,7 @@ class BrownoutController:
             if attainment < self.escalate_below:
                 self._clear_streak = 0
                 if self.level < len(LEVELS) - 1:
-                    self._set(self.level + 1)
+                    self._set(self.level + 1, attainment=attainment)
                 return
             if attainment < self.clear_above:
                 # Hysteresis band: neither burning nor clearly healthy.
@@ -109,11 +122,11 @@ class BrownoutController:
             self._clear_streak = 0
             self._set(self.level - 1)
 
-    def _set(self, level: int) -> None:
+    def _set(self, level: int, attainment: Optional[float] = None) -> None:
         """Move to ``level`` and apply the cumulative effects of every
         level at or below it, so a step down reverses by the same
         assignment and the knobs never drift from the level."""
-        self.level = level
+        old, self.level = self.level, level
         eng = self.engine
         eng.scan_cap = max(1, eng.scan_k // 2) if level >= 1 else None
         eng.spec_suspended = level >= 2
@@ -121,6 +134,14 @@ class BrownoutController:
             self.interactive_floor if level >= 4
             else self.shed_batch_floor if level >= 3 else None)
         self.transitions += 1
+        direction = "up" if level > old else "down"
+        self._c_trans.labels(direction=direction).inc()
+        self._g_level.set(float(level))
+        info = {"level": level, "name": LEVELS[level],
+                "from": LEVELS[old], "direction": direction}
+        if attainment is not None:
+            info["window_attainment"] = round(attainment, 4)
+        eng.flight.record("brownout", step=eng.steps, **info)
 
     def stats(self) -> dict:
         return {"level": self.level,

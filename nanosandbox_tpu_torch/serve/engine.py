@@ -141,13 +141,36 @@ one terminal 'failed' Result and submit raises EngineFailedError.
 ``watchdog`` (obs/flight.py) feeds the supervisor its stuck_slot and
 stalled_step trips.
 
-The flight recorder and metric registry, the other watchdogs, and the
-disaggregated handoff are later slices of the port.
+Telemetry (obs/, the JAX engine's names; nothing in the hot loop reads
+a device tensor for it): ``metrics`` is the engine's MetricRegistry.
+Counters and gauges mirror the engine's plain ints at scrape time
+(``_collect_metrics``); the latency signal (TTFT, TPOT, queue wait,
+prefix TTFT, accepted lengths, recovery time) lives in its histograms,
+which ``stats()`` reads too. ``flight`` (a FlightRecorder) takes one
+event at every lifecycle point of a request (submit, queue, block
+reserve or stall, admit, prefill, prefill_chunk, retire, evict, finish;
+reject, shed, preempt, fault, poison, quarantine, requeue, recover,
+failed, engine_failed, brownout, drafter_fault, spec_disabled);
+``tracer`` (a SpanTracer) the spans 'queued' and 'generate' of each
+request, 'prefill_wave' of each admission wave, 'decode_step' of each
+decode dispatch (one graph replay: opened at dispatch, closed at its
+retire, so with the pipeline on it closes after the next dispatch) and
+'spec_verify' of each verify. ``watchdog`` is the full WatchdogPanel
+(six detectors, dumps under ``watchdog_dir``); ``request_profile`` arms
+a torch.profiler window over the next steps (POST /profile). The
+``debug_*`` views read host state only. JAX families this engine does
+not publish: the tensor-parallel degree, the disaggregation role, limbo
+and migration counters, and the compile-trace counter.
+
+The disaggregated handoff is a later slice of the port.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
+import tempfile
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field, replace
@@ -160,8 +183,10 @@ from nanosandbox_tpu_torch.config import resolve_device
 from nanosandbox_tpu_torch.models.gpt import (GPT, init_cache,
                                               init_paged_cache, kv_mode,
                                               scatter_cache_rows)
-from nanosandbox_tpu_torch.obs.flight import WatchdogPanel
+from nanosandbox_tpu_torch.obs.flight import FlightRecorder, WatchdogPanel
+from nanosandbox_tpu_torch.obs.registry import MetricRegistry
 from nanosandbox_tpu_torch.obs.slo import SLOLedger, validate_slo_class
+from nanosandbox_tpu_torch.obs.tracer import SpanTracer
 from nanosandbox_tpu_torch.ops import _build
 from nanosandbox_tpu_torch.ops import attention as at
 from nanosandbox_tpu_torch.ops import flash_decode as fd
@@ -173,6 +198,8 @@ from nanosandbox_tpu_torch.serve.paged import (Allocation, BlockPool,
 from nanosandbox_tpu_torch.serve.scheduler import (SlotScheduler,
                                                    default_buckets)
 from nanosandbox_tpu_torch.serve.spec import SpecRunner
+from nanosandbox_tpu_torch.utils import profiler as profile_window
+from nanosandbox_tpu_torch.utils.metrics import warn_once
 
 # Scheduling priority by SLO class: higher admits first and may preempt
 # lower. An explicit priority overrides the class's; unknown classes take
@@ -236,6 +263,7 @@ class _Active:
     last_t: float = 0.0                     # last retired token (watchdog)
     poison_strikes: int = 0
     spec_accepted: int = 0
+    span: int = 0                           # its open 'generate' span
 
 
 @dataclass
@@ -325,9 +353,13 @@ class Engine:
         for the engine's life (default 3).
     faults : a serve/faults.py FaultPlan injecting failures at its sites
         (default None: each site check is one ``is None`` branch).
-    watchdog_dir : the JAX watchdogs' dump directory; dumps are not
-        ported yet, and a value raises (the stuck_slot and stalled_step
-        watchdogs themselves always run).
+    metrics : the MetricRegistry to publish on (default: a new one; one
+        engine a registry, a second raises).
+    tracer : the SpanTracer (default: a new one).
+    flight : the FlightRecorder (default: a new one).
+    watchdogs : run the WatchdogPanel's detectors (default True).
+    watchdog_dir : where a trip dumps (default: a temporary directory
+        made at the first trip).
     device : 'auto' (the GPU; raises without one), 'cuda' or 'cpu'.
     """
 
@@ -348,14 +380,15 @@ class Engine:
                  preemption: bool = True, brownout: bool = False,
                  spec=None, spec_fault_tolerance: int = 3,
                  faults: Optional[FaultPlan] = None,
+                 metrics: Optional[MetricRegistry] = None,
+                 tracer: Optional[SpanTracer] = None,
+                 flight: Optional[FlightRecorder] = None,
+                 watchdogs: bool = True,
                  watchdog_dir: Optional[str] = None,
                  device: str = "auto"):
         if paged and kv_page_size < 1:
             raise ValueError(f"kv_page_size must be >= 1, got "
                              f"{kv_page_size}")
-        if watchdog_dir is not None:
-            raise NotImplementedError(
-                "watchdog_dir (the watchdogs' dumps) is not ported yet")
         # A verify's readback gates the next draft: under spec the loop
         # is synchronous, one step a dispatch (module docstring).
         if spec is not None:
@@ -408,14 +441,16 @@ class Engine:
 
         self._active: Dict[int, _Active] = {}        # slot -> state
         self._pending: List[Result] = []    # terminal before any step
-        # rid -> (decode steps, wall clock) at submit, for queued requests.
-        self._submit_meta: Dict[int, Tuple[int, float]] = {}
+        # rid -> (decode steps, wall clock, open 'queued' span) at submit,
+        # for queued requests.
+        self._submit_meta: Dict[int, Tuple[int, float, int]] = {}
         self._chunking: List[_Chunking] = []     # the chunked-prefill lane
         self._prefill_spent = 0                  # this step's prefill tokens
         self._resumed: Dict[int, _Resume] = {}   # preempted rids
         self._rid = itertools.count()
         # The dispatched chunk not yet retired: (host buffer index,
-        # {slot: rid} at dispatch, chunk length).
+        # {slot: rid} at dispatch, chunk length, injected poison, its
+        # 'decode_step' span, the step count at dispatch).
         self._inflight: Optional[tuple] = None
         self.steps = 0                               # decode dispatches
         self.chunk_steps = 0            # decode steps those dispatches ran
@@ -434,7 +469,8 @@ class Engine:
         self.scan_cap: Optional[int] = None
         self.spec_suspended = False
         self.brownout_min_priority: Optional[int] = None
-        self.slo = SLOLedger()
+        self._init_telemetry(metrics, tracer, flight)
+        self.slo = SLOLedger(self.metrics)
         # Dispatches by kind: decode chunks, and under spec verifies.
         self.host_dispatches = {"decode": 0}
         if spec is not None:
@@ -450,7 +486,6 @@ class Engine:
         self.quarantine_cause: Optional[str] = None
         self.failed = False
         self.recoveries = 0
-        self.recovery_s: deque = deque(maxlen=4096)
         self.poisoned_steps = 0
         self.requeued = 0
         self.drafter_faults = 0
@@ -458,9 +493,18 @@ class Engine:
         self._drafter_fault_streak = 0
         self._poison: Optional[dict] = None
         self._admitting: List[tuple] = []
-        self.watchdog = WatchdogPanel(self)
-        # Accepted draft lengths of drafting verify rows.
-        self._spec_accept_len: deque = deque(maxlen=4096)
+        # The open 'prefill_wave' span of the wave in _admitting, ended
+        # by recover() and abort_all() when a raise skipped its close.
+        self._admitting_span: Optional[int] = None
+        self.watchdog = WatchdogPanel(self, dump_dir=watchdog_dir,
+                                      enabled=watchdogs)
+        self.metrics.add_collector(self._collect_metrics)
+        # The on-demand torch.profiler window (request_profile): armed
+        # from an HTTP thread, opened, advanced and closed by the one
+        # stepping thread inside step().
+        self._profile_lock = threading.Lock()
+        self._profile: Optional[dict] = None
+        self.last_profile: Optional[dict] = None
         self._spec = None
         if spec is not None:
             if spec.kind == "device":
@@ -471,11 +515,7 @@ class Engine:
                            kv_pool_blocks=self.kv_pool_blocks,
                            device=self.device)
             self._spec = SpecRunner(spec, self)
-        self._ttft: deque = deque(maxlen=4096)
-        self._tpot: deque = deque(maxlen=4096)
-        # Decode steps each admitted request waited in the queue (the
-        # retry-after hint's p50).
-        self._queue_wait: deque = deque(maxlen=4096)
+            self._spec.register_metrics(self.metrics)
         self._rate: deque = deque(maxlen=256)        # (t, tokens read back)
         # On CUDA, per (rung, filtered): the captured chunk, its replays,
         # and the kernel launches and plain-version calls its capture
@@ -490,12 +530,190 @@ class Engine:
         self.graph_launches: Dict[tuple, Dict[str, int]] = {}
         self.graph_plain_calls: Dict[tuple, Dict[str, int]] = {}
         self.graph_pool_bytes = 0
+        self.graph_captures = 0
         self._replay = self.device.type == "cuda"
         if self._replay:
             _build.library()       # build the kernels before any request
             self._capture_graphs()
         # Last, so that the controller sees the finished engine.
         self.brownout = BrownoutController(self) if brownout else None
+
+    # ------------------------------------------------------------------
+    # telemetry (module docstring)
+    # ------------------------------------------------------------------
+    def _init_telemetry(self, metrics, tracer, flight) -> None:
+        """The registry and its families, the tracer and the flight
+        recorder. The latency signal lives in histograms (a RingStat
+        window for stats() and Prometheus buckets for /metrics: both read
+        the same series); the counters and gauges are mirrored from plain
+        ints by _collect_metrics at scrape time."""
+        self.metrics = metrics if metrics is not None else MetricRegistry()
+        self.tracer = tracer if tracer is not None else SpanTracer()
+        self.flight = flight if flight is not None else FlightRecorder()
+        m = self.metrics
+        # One engine a registry: a second would share the unlabeled
+        # families, and the two collectors would overwrite each other's
+        # mirrored counters at every scrape.
+        if any(f.name == "serve_ttft_seconds" for f in m.families()):
+            raise ValueError(
+                "metrics registry already hosts an Engine's families; "
+                "give each Engine its own MetricRegistry")
+        self._ttft = m.histogram(
+            "serve_ttft_seconds", "Submit -> first-token seconds.",
+            unit="seconds")
+        self._tpot = m.histogram(
+            "serve_tpot_seconds", "Per-token seconds after the first.",
+            unit="seconds")
+        # Decode steps each admitted request waited in the queue (the
+        # retry-after hint's p50).
+        self._queue_wait = m.histogram(
+            "serve_queue_wait_steps",
+            "Decode steps a request spent queued before admission.",
+            unit="steps", buckets=(0, 1, 2, 4, 8, 16, 32, 64, 128))
+        self._c_submitted = m.counter(
+            "serve_requests_submitted_total", "Requests accepted by submit().")
+        self._c_completed = m.counter(
+            "serve_requests_completed_total",
+            "Requests finished, by finish reason.", labelnames=("reason",))
+        self._c_waves = m.counter(
+            "serve_prefill_waves_total", "Batched prefill admission waves.")
+        self._c_tokens = m.counter(
+            "serve_tokens_generated_total", "Generated tokens read back.")
+        self._c_steps = m.counter(
+            "serve_decode_steps_total",
+            "Batched decode/verify step dispatches.")
+        self._c_dispatches = m.counter(
+            "serve_host_dispatches_total",
+            "Compiled-program dispatches from the engine loop, by "
+            "program kind.", labelnames=("kind",))
+        self._g_toks_per_dispatch = m.gauge(
+            "serve_tokens_per_dispatch",
+            "Generated tokens per decode dispatch over the engine "
+            "lifetime (== scan_k when every chunk retires fully).")
+        self._c_admitted = m.counter(
+            "serve_requests_admitted_total", "Requests admitted to slots.")
+        self._g_active = m.gauge("serve_slots_active",
+                                 "Slots owned by in-flight requests.")
+        self._g_free = m.gauge("serve_slots_free", "Free KV-pool slots.")
+        self._g_queued = m.gauge("serve_queue_depth",
+                                 "Requests queued awaiting admission.")
+        self._g_rate = m.gauge(
+            "serve_decode_tokens_per_sec",
+            "Generated tokens/sec over the recent readback window.")
+        self._g_impl = m.gauge(
+            "serve_decode_attention_impl",
+            "Resolved cached-decode attention impl (1 = active).",
+            labelnames=("impl",))
+        self._g_kv = m.gauge(
+            "serve_kv_dtype", "KV-pool storage mode (1 = active).",
+            labelnames=("kv_dtype",))
+        self._g_pool_blocks = m.gauge(
+            "serve_kv_pool_blocks",
+            "Paged KV pool blocks by state (free | live | cached).",
+            labelnames=("state",))
+        self._c_prefix_hit = m.counter(
+            "serve_prefix_hit_tokens_total",
+            "Prompt tokens skipped via radix prefix-cache hits.")
+        self._c_prefix_miss = m.counter(
+            "serve_prefix_miss_tokens_total",
+            "Prompt tokens prefilled from scratch.")
+        self._c_block_stalls = m.counter(
+            "serve_admission_block_stall_steps_total",
+            "Admission attempts deferred on KV-block availability "
+            "(the no-deadlock backpressure: the request stays queued).")
+        self._ttft_prefix = m.histogram(
+            "serve_prefix_ttft_seconds",
+            "Submit -> first-token seconds by prefix-cache outcome.",
+            unit="seconds", labelnames=("prefix",))
+        self._c_rejected = m.counter(
+            "serve_requests_rejected_total",
+            "Requests rejected at submit, by reason.",
+            labelnames=("reason",))
+        self._c_shed = m.counter(
+            "serve_requests_shed_total",
+            "Queued requests shed after their deadline expired.")
+        self._c_preempted = m.counter(
+            "serve_preemptions_total",
+            "Active requests preempted (evicted + requeued) so a "
+            "higher-priority deadline could admit.")
+        self._c_recoveries = m.counter(
+            "serve_engine_recoveries_total",
+            "Engine quarantine -> rebuild -> re-admit cycles, by cause.",
+            labelnames=("cause",))
+        self._h_recovery = m.histogram(
+            "serve_engine_recovery_seconds",
+            "Quarantine -> device state rebuilt and victims requeued.",
+            unit="seconds",
+            buckets=(0.001, 0.005, 0.02, 0.1, 0.5, 2.0, 10.0))
+        self._c_poisoned = m.counter(
+            "serve_poisoned_steps_total",
+            "Steps whose readback carried poisoned (non-finite-logit "
+            "or out-of-vocab) tokens.")
+        self._c_requeued = m.counter(
+            "serve_requests_requeued_total",
+            "In-flight requests re-admitted after an engine recovery.")
+        self._c_drafter_faults = m.counter(
+            "serve_spec_drafter_faults_total",
+            "Drafter faults absorbed (the step degraded to plain "
+            "decode).")
+        self._g_quarantined = m.gauge(
+            "serve_engine_quarantined",
+            "1 while the engine is quarantined for recovery, else 0.")
+        # Accepted draft lengths of drafting verify rows, and each
+        # request's accepted total at its finish (spec only).
+        self._spec_accept_len = m.histogram(
+            "serve_spec_accept_len",
+            "Accepted draft length per drafting verify row.",
+            unit="tokens", buckets=(0, 1, 2, 3, 4, 6, 8, 12, 16),
+            window=4096)
+        self._spec_req_accepted = m.histogram(
+            "serve_spec_req_accepted_tokens",
+            "Draft tokens accepted over one request's lifetime.",
+            unit="tokens", buckets=(0, 1, 2, 4, 8, 16, 32, 64, 128, 256))
+
+    def _collect_metrics(self) -> None:
+        """The scrape-time mirror of the engine's plain ints into the
+        registry: runs per snapshot or scrape, never in the decode loop."""
+        self._c_tokens._set_total(self.tokens_generated)
+        self._c_steps._set_total(self.steps)
+        for kind, n in list(self.host_dispatches.items()):
+            if n:
+                self._c_dispatches.labels(kind=kind)._set_total(n)
+        dec = sum(self.host_dispatches.values())
+        self._g_toks_per_dispatch.set(
+            self.tokens_generated / dec if dec else 0.0)
+        self._c_admitted._set_total(self.admitted)
+        self._c_shed._set_total(self.shed)
+        self._c_preempted._set_total(self.preemptions)
+        for reason, n in list(self.rejected.items()):
+            self._c_rejected.labels(reason=reason)._set_total(n)
+        self._c_poisoned._set_total(self.poisoned_steps)
+        self._c_requeued._set_total(self.requeued)
+        self._c_drafter_faults._set_total(self.drafter_faults)
+        self._g_quarantined.set(1.0 if self.quarantined else 0.0)
+        self._g_active.set(len(self._active))
+        self._g_free.set(self.sched.free_slots)
+        self._g_queued.set(self.sched.queued)
+        rate = self._recent_rate()
+        self._g_rate.set(0.0 if rate is None else rate)
+        self._g_impl.labels(impl=self.decode_impl).set(1.0)
+        self._g_kv.labels(kv_dtype=self.kv_dtype).set(1.0)
+        if self.block_pool is not None:
+            ps = self.block_pool.stats()
+            for state in ("free", "live", "cached"):
+                self._g_pool_blocks.labels(state=state).set(ps[state])
+            self._c_prefix_hit._set_total(ps["prefix_hit_tokens"])
+            self._c_prefix_miss._set_total(ps["prefix_miss_tokens"])
+            self._c_block_stalls._set_total(ps["block_stall_steps"])
+
+    def program_counts(self) -> dict:
+        """The programs this process has built: the engine's CUDA graph
+        captures and the kernel libraries loaded (ops/_build.py). What
+        the post_freeze_retrace watchdog watches, as JAX's watches its
+        jit traces: either growing after the warmup is a build on a live
+        request's time."""
+        return {"graph_captures": self.graph_captures,
+                "kernel_builds": _build.loads}
 
     # ------------------------------------------------------------------
     # device slot state
@@ -568,8 +786,12 @@ class Engine:
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
-    def _reject(self, reason: str, msg: str) -> None:
+    def _reject(self, reason: str, msg: str, **fields) -> None:
+        """Count a rejected submission, leave its terminal 'reject' event
+        (rid None: no id was assigned) and raise the client error."""
         self.rejected[reason] = self.rejected.get(reason, 0) + 1
+        self.flight.record("reject", step=self.steps, reason=reason,
+                           **fields)
         raise ValueError(msg)
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int, *,
@@ -590,6 +812,8 @@ class Engine:
             # Permanent failure drains; it does not queue into a void.
             self.rejected["engine_failed"] = \
                 self.rejected.get("engine_failed", 0) + 1
+            self.flight.record("reject", step=self.steps,
+                               reason="engine_failed", prompt_len=plen)
             raise EngineFailedError(
                 "engine permanently failed "
                 f"({self.quarantine_cause or 'unknown cause'}); restart "
@@ -602,36 +826,38 @@ class Engine:
         if bad is not None:
             self._reject("token_out_of_range",
                          f"prompt token {bad} outside [0, vocab_size="
-                         f"{self.cfg.vocab_size})")
+                         f"{self.cfg.vocab_size})", prompt_len=plen)
         if max_new_tokens < 0:
             self._reject("bad_max_new",
-                         f"max_new_tokens must be >= 0, got {max_new_tokens}")
+                         f"max_new_tokens must be >= 0, got {max_new_tokens}",
+                         prompt_len=plen)
         if deadline_s is None:
             deadline_s = self.default_deadline_s
         else:
             deadline_s = float(deadline_s)
             if deadline_s <= 0:
                 self._reject("bad_deadline",
-                             f"deadline_s must be > 0, got {deadline_s}")
+                             f"deadline_s must be > 0, got {deadline_s}",
+                             prompt_len=plen)
         try:
             slo_class = validate_slo_class(str(slo_class))
         except ValueError as e:
-            self._reject("bad_slo_class", str(e))
+            self._reject("bad_slo_class", str(e), prompt_len=plen)
         if plen > self.sched.buckets[-1]:
             self._reject("prompt_exceeds_bucket",
                          f"prompt length {plen} exceeds the largest prefill "
-                         f"bucket {self.sched.buckets[-1]}")
+                         f"bucket {self.sched.buckets[-1]}", prompt_len=plen)
         if plen + max_new_tokens > self.max_len:
             self._reject("exceeds_max_len",
                          f"prompt ({plen}) + max_new_tokens "
                          f"({max_new_tokens}) exceeds the per-request KV "
-                         f"length {self.max_len}")
+                         f"length {self.max_len}", prompt_len=plen)
         if self.paged:
             need = self.block_pool.blocks_needed(plen, max_new_tokens)
             if need > self.kv_pool_blocks:
                 self._reject("pool_too_small",
                              f"request needs {need} KV blocks but the pool "
-                             f"holds {self.kv_pool_blocks}")
+                             f"holds {self.kv_pool_blocks}", prompt_len=plen)
         priority = (PRIORITY_BY_CLASS.get(slo_class, DEFAULT_PRIORITY)
                     if priority is None else int(priority))
         rid = next(self._rid)
@@ -640,11 +866,20 @@ class Engine:
                       top_p=float(top_p), seed=int(seed), eos_id=eos_id,
                       deadline_s=deadline_s, slo_class=slo_class,
                       priority=priority)
+        self._c_submitted.inc()
+        sub_fields = {"prompt_len": plen, "max_new": max_new_tokens,
+                      "slo_class": slo_class, "priority": priority}
+        if deadline_s is not None:
+            sub_fields["deadline_s"] = deadline_s
+        self.flight.record("submit", rid=rid, step=self.steps, **sub_fields)
         floor = self.brownout_min_priority
         if floor is not None and priority < floor:
             # Shed at submit: counted against the class's attainment,
             # nothing spent on it.
             self.shed += 1
+            self.flight.record("shed", rid=rid, step=self.steps,
+                               reason="brownout", slo_class=slo_class,
+                               priority=priority, floor=floor)
             if deadline_s is not None:
                 self.slo.record_shed(slo_class)
                 self.brownout_sheds += 1
@@ -652,12 +887,20 @@ class Engine:
             return rid
         if max_new_tokens == 0:
             self.completed += 1
+            self._c_completed.labels(reason="length").inc()
+            self.flight.record("finish", rid=rid, step=self.steps,
+                               reason="length", tokens=0, e2e_s=0.0)
             self.slo.record_finish(slo_class, tokens=0, elapsed_s=0.0,
                                    deadline_s=deadline_s)
             self._pending.append(Result(rid, prompt, [], "length"))
             return rid
-        self._submit_meta[rid] = (self.steps, time.monotonic())
+        sid = self.tracer.begin("queued", cat="request", rid=rid,
+                                args={"prompt_len": plen,
+                                      "max_new": max_new_tokens})
+        self._submit_meta[rid] = (self.steps, time.monotonic(), sid)
         self.sched.enqueue(req)
+        self.flight.record("queue", rid=rid, step=self.steps,
+                           depth=self.sched.queued)
         return rid
 
     def has_work(self) -> bool:
@@ -683,9 +926,15 @@ class Engine:
             return finished
         t0 = time.monotonic()
         self._prefill_spent = 0
+        built0 = sum(self.program_counts().values())
+        self._profile_window_start()
         with torch.no_grad():
             finished = self._step_impl()
-        self.watchdog.on_step_time(time.monotonic() - t0)
+        self._profile_window_advance()
+        # A step that built something (a capture, the kernel libraries)
+        # is slow for a reason and must not read as a wedged device.
+        if sum(self.program_counts().values()) == built0:
+            self.watchdog.on_step_time(time.monotonic() - t0)
         self.watchdog.check()
         if self.brownout is not None:
             self.brownout.on_step()
@@ -710,6 +959,8 @@ class Engine:
             if self.faults is not None:
                 f = self.faults.fire("slow_step", self.steps)
                 if f is not None:
+                    self.flight.record("fault", step=self.steps,
+                                       site="slow_step", stall_s=f.stall_s)
                     time.sleep(f.stall_s)
             buf = self._dispatch(chunk_len, any(
                 st.req.filters for st in self._active.values()))
@@ -720,10 +971,18 @@ class Engine:
             poison = (self.faults is not None
                       and self.faults.fire("nan_logits", self.steps)
                       is not None)
+            if poison:
+                self.flight.record("fault", step=self.steps,
+                                   site="nan_logits")
             snapshot = {slot: st.req.rid
                         for slot, st in self._active.items()}
-            prev, self._inflight = self._inflight, (buf, snapshot,
-                                                    chunk_len, poison)
+            # Opened at dispatch, closed at the retire (module docstring).
+            sid = self.tracer.begin("decode_step", cat="decode",
+                                    args={"step": self.steps,
+                                          "rows": len(snapshot),
+                                          "chunk_len": chunk_len})
+            prev, self._inflight = self._inflight, (
+                buf, snapshot, chunk_len, poison, sid, self.steps)
             if not self.pipeline:
                 prev, self._inflight = self._inflight, None
             if prev is not None:
@@ -759,12 +1018,26 @@ class Engine:
                     or (floor is not None and item.priority < floor))
 
         for req in self.sched.drain_expired(expired):
-            _, sub_t = meta.pop(req.rid)
+            sub_step, sub_t, sid = meta.pop(req.rid)
             self.shed += 1
-            prompt_out, tokens_out, _ = self._unstitch(req, [])
+            self.tracer.end(sid, {"shed": True,
+                                  "wait_steps": self.steps - sub_step})
+            prompt_out, tokens_out, resumed = self._unstitch(req, [])
+            deadline_hit = (req.deadline_s is not None
+                            and now - sub_t > req.deadline_s)
+            shed_fields = {"waited_s": round(now - sub_t, 6),
+                           "deadline_s": req.deadline_s,
+                           "slo_class": req.slo_class,
+                           "reason": ("deadline" if deadline_hit
+                                      else "brownout")}
+            if resumed:
+                shed_fields["resumed"] = True
+                shed_fields["tokens"] = len(tokens_out)
+            self.flight.record("shed", rid=req.rid, step=self.steps,
+                               **shed_fields)
             if req.deadline_s is not None:
                 self.slo.record_shed(req.slo_class)
-                if now - sub_t <= req.deadline_s:
+                if not deadline_hit:
                     self.brownout_sheds += 1
             finished.append(Result(rid=req.rid, prompt=prompt_out,
                                    tokens=tokens_out, finish_reason="shed"))
@@ -870,14 +1143,22 @@ class Engine:
                 if wave is None:
                     return
                 reqs, slots, bucket = wave
+            k = self.sched.rung_for(len(reqs))
             if budget is not None:
-                self._prefill_spent += self.sched.rung_for(len(reqs)) * bucket
+                self._prefill_spent += k * bucket
             # Until the commit the wave is in limbo (popped, slots and
             # blocks taken, not active): recover() requeues it from here.
             self._admitting = [(req, slot, a, True) for req, slot, a
                                in zip(reqs, slots, allocs)]
-            self._raise_prefill_exc()
+            wave_sid = self.tracer.begin(
+                "prefill_wave", cat="prefill",
+                args={"bucket": bucket, "rung": k, "wave": len(reqs),
+                      "rids": [r.rid for r in reqs]})
+            self._admitting_span = wave_sid
+            self._raise_prefill_exc(rids=[r.rid for r in reqs])
             self._prefill_wave(reqs, slots, allocs, bucket, finished)
+            self._admitting_span = None
+            self.tracer.end(wave_sid)
 
     def _try_alloc(self, req: Request) -> Optional[Allocation]:
         """Reserve one request's blocks, or None (it stays queued). The
@@ -886,8 +1167,20 @@ class Engine:
         if (self.faults is not None
                 and self.faults.fire("alloc_fail", self.steps) is not None):
             self.block_pool.stall_steps += 1
+            self.flight.record("fault", rid=req.rid, step=self.steps,
+                               site="alloc_fail")
             return None
-        return self.block_pool.admit(req.prompt, req.max_new_tokens)
+        a = self.block_pool.admit(req.prompt, req.max_new_tokens)
+        if a is None:
+            self.flight.record(
+                "block_stall", rid=req.rid, step=self.steps,
+                need=self.block_pool.blocks_needed(len(req.prompt),
+                                                   req.max_new_tokens),
+                free=self.block_pool.free_blocks)
+            return None
+        self.flight.record("block_reserve", rid=req.rid, step=self.steps,
+                           blocks=len(a.table), hit_blocks=a.n_hit)
+        return a
 
     def _start_chunked(self, head: Request) -> bool:
         """Claim the queue head into the chunked lane: its blocks (the
@@ -925,17 +1218,19 @@ class Engine:
                 # The padding past start + c lands in private blocks or
                 # the drop block, never in the shared prefix.
                 assert start >= alloc.n_hit * page, (start, alloc.n_hit)
-                self._raise_prefill_exc()
+                self._raise_prefill_exc(rid=req.rid)
                 if c < remaining:
                     self._prefill_piece(req.prompt[start:start + c], start,
                                         alloc, bucket)
                     self._prefill_spent += bucket
                     self.prefill_chunks += 1
                     entry.done += c
+                    self._record_chunk(entry, c)
                     continue
                 self._prefill_spent += bucket
                 self.prefill_chunks += 1
                 entry.done += c
+                self._record_chunk(entry, c)
                 self._chunking.remove(entry)
                 # A half-written chain: never donated if this raises.
                 self._admitting = [(req, entry.slot, alloc, False)]
@@ -965,10 +1260,19 @@ class Engine:
     def _device_drafter(self) -> bool:
         return self._spec is not None and self._spec.drafter.kind == "device"
 
-    def _raise_prefill_exc(self) -> None:
-        """The prefill_exc site: a prefill dispatch that raises."""
+    def _record_chunk(self, entry: _Chunking, c: int) -> None:
+        self.flight.record("prefill_chunk", rid=entry.req.rid,
+                           step=self.steps, n=c,
+                           prefilled=entry.hit + entry.done,
+                           of=len(entry.req.prompt))
+
+    def _raise_prefill_exc(self, **fields) -> None:
+        """The prefill_exc site: a prefill dispatch that raises (its
+        'fault' event carries the wave's rids, or the chunk's rid)."""
         if (self.faults is not None
                 and self.faults.fire("prefill_exc", self.steps) is not None):
+            self.flight.record("fault", step=self.steps, site="prefill_exc",
+                               **fields)
             raise FaultInjected("prefill_exc", self.steps)
 
     def _prefill_wave(self, reqs: List[Request], slots: List[int],
@@ -1052,15 +1356,20 @@ class Engine:
                 is not None):
             # A corrupted admission surfaces as sentinel first tokens at
             # the wave's readback.
+            self.flight.record("fault", step=self.steps,
+                               site="scatter_corrupt")
             host = [self.cfg.vocab_size] * k
         if start is None:
             self.waves += 1
+            self._c_waves.inc()
         now = time.monotonic()
         self._rate.append((now, n))
         poisoned = False
+        rung = k if start is None else 1
         for i, (req, slot, a) in enumerate(zip(reqs, slots, allocs)):
             poisoned |= self._commit_admission(req, slot, a, host[i], now,
-                                               finished)
+                                               finished, bucket=bucket,
+                                               rung=rung)
         self._admitting = []
         if poisoned:
             self._mark_poison("poisoned_prefill",
@@ -1069,23 +1378,44 @@ class Engine:
     def _commit_admission(self, req: Request, slot: int,
                           alloc: Optional[Allocation],
                           first_tok: int, now: float,
-                          finished: List[Result]) -> bool:
+                          finished: List[Result], *, bucket: int,
+                          rung: int) -> bool:
         """The row goes active with its first token; returns whether the
         token was the sentinel (the row then goes active with no token,
         and the caller marks the wave poisoned)."""
         self.admitted += 1
-        sub_step, sub_t = self._submit_meta.pop(req.rid)
-        self._queue_wait.append(self.steps - sub_step)
+        poisoned = not 0 <= first_tok < self.cfg.vocab_size
+        resumed = req.rid in self._resumed
+        sub_step, sub_t, queued_sid = self._submit_meta.pop(req.rid)
+        wait = self.steps - sub_step
+        self._queue_wait.observe(wait)
+        # A resumed request's first token came before its preemption or
+        # recovery, and a poisoned one never reached the client.
+        if not resumed and not poisoned:
+            self._ttft.observe(now - sub_t)
+            self.watchdog.on_ttft(now - sub_t)
+        hit_toks = alloc.n_hit * self.kv_page_size if alloc is not None \
+            else 0
+        if (self.paged and self.block_pool.cache is not None
+                and not resumed and not poisoned):
+            self._ttft_prefix.labels(
+                prefix="hit" if hit_toks else "miss").observe(now - sub_t)
+        self.tracer.end(queued_sid, {"wait_steps": wait})
+        self.flight.record("admit", rid=req.rid, step=self.steps, slot=slot,
+                           bucket=bucket, rung=rung, wait_steps=wait)
+        self.flight.record("prefill", rid=req.rid, step=self.steps,
+                           prefix="hit" if hit_toks else "miss",
+                           hit_tokens=hit_toks,
+                           suffix_tokens=len(req.prompt) - hit_toks)
+        span = self.tracer.begin("generate", cat="request", rid=req.rid,
+                                 args={"slot": slot, "bucket": bucket})
         st = _Active(req=req, slot=slot, alloc=alloc, submit_t=sub_t,
-                     first_token_t=now, last_t=now)
+                     first_token_t=now, last_t=now, span=span)
         self._active[slot] = st
-        if not 0 <= first_tok < self.cfg.vocab_size:
+        if poisoned:
             return True
         st.tokens.append(first_tok)
         self.tokens_generated += 1
-        # A resumed request's first token came before its preemption.
-        if req.rid not in self._resumed:
-            self._ttft.append(now - sub_t)
         done = self._maybe_finish(st)
         if done is not None:
             finished.append(done)
@@ -1144,9 +1474,11 @@ class Engine:
         if self.faults is not None and self._active:
             f = self.faults.fire("preempt_storm", self.steps)
             if f is not None:
-                self._preempt(min(self._active.values(),
-                                  key=lambda st: (st.req.priority,
-                                                  st.req.rid)))
+                victim = min(self._active.values(),
+                             key=lambda st: (st.req.priority, st.req.rid))
+                self.flight.record("fault", rid=victim.req.rid,
+                                   step=self.steps, site="preempt_storm")
+                self._preempt(victim, cause="preempt_storm")
         if not self.preemption or not self._active:
             return
         head = self.sched.peek_head()
@@ -1173,9 +1505,10 @@ class Engine:
         # Lowest priority first; among equals the latest admission (the
         # least work lost, the shortest re-prefill).
         self._preempt(min(victims, key=lambda st: (st.req.priority,
-                                                   -st.req.rid)))
+                                                   -st.req.rid)),
+                      cause="deadline")
 
-    def _preempt(self, st: _Active) -> None:
+    def _preempt(self, st: _Active, cause: str = "deadline") -> None:
         """Evict one active request: park its slot, donate its prompt and
         generated blocks to the prefix cache, and requeue it at the head
         of its class with prompt' = prompt + tokens (module docstring).
@@ -1190,14 +1523,23 @@ class Engine:
             # resume recomputes them, sampling being keyed by position).
             self._inflight[1].pop(st.slot, None)
         self._release_row(st.slot)
+        donated = 0
         if st.alloc is not None:
-            self.block_pool.release(st.alloc, generated=st.tokens)
+            donated = self.block_pool.release(st.alloc, generated=st.tokens)
         base = self._resumed.get(req.rid)
+        pre = (base.tokens if base is not None else []) + st.tokens
         self._resumed[req.rid] = _Resume(
             prompt=base.prompt if base is not None else req.prompt,
-            tokens=(base.tokens if base is not None else []) + st.tokens)
-        self._submit_meta[req.rid] = (self.steps, st.submit_t)
+            tokens=pre)
+        self.tracer.end(st.span, {"preempted": True, "cause": cause})
+        sid = self.tracer.begin("queued", cat="request", rid=req.rid,
+                                args={"preempted": True})
+        self._submit_meta[req.rid] = (self.steps, st.submit_t, sid)
         self.preemptions += 1
+        self.flight.record("preempt", rid=req.rid, step=self.steps,
+                           cause=cause, slot=st.slot,
+                           salvaged_tokens=len(pre), donated_blocks=donated,
+                           priority=req.priority)
         self.sched.requeue_front([replace(
             req, prompt=req.prompt + tuple(st.tokens),
             max_new_tokens=req.max_new_tokens - len(st.tokens))])
@@ -1313,6 +1655,7 @@ class Engine:
                     with torch.cuda.graph(graph, pool=pool, stream=stream):
                         body()
                     graphs[key] = graph
+                    self.graph_captures += 1
                     self.graph_replays[key] = 0
                     self.graph_launches[key], self.graph_plain_calls[key] = (
                         {name: n - b[name] for name, n in a.items()
@@ -1370,7 +1713,7 @@ class Engine:
         sentinel (the clean tokens before it are kept, the step is
         marked poisoned, and a row poisoned POISON_STRIKE_LIMIT times in
         a row ends 'failed')."""
-        i, snapshot, k, poison = inflight
+        i, snapshot, k, poison, sid, chunk = inflight
         toks = self._copied_wait(i)[:k].tolist()
         vocab = self.cfg.vocab_size
         if poison:
@@ -1398,6 +1741,11 @@ class Engine:
             if kept:
                 st.last_t = now
                 n_live += kept
+                # One event a retired (row, chunk), n tokens at once.
+                ev = {"rid": rid, "step": self.steps, "n": kept}
+                if self.scan_k > 1:
+                    ev["chunk"] = chunk
+                self.flight.record("retire", **ev)
             if poisoned:
                 self._strike(st, slot, poisoned_slots, finished)
                 continue
@@ -1410,6 +1758,7 @@ class Engine:
             self._mark_poison("poisoned_step", slots=poisoned_slots)
         self.tokens_generated += n_live
         self._rate.append((now, n_live))
+        self.tracer.end(sid, {"live_tokens": n_live})
 
     def _strike(self, st: _Active, slot: int, poisoned_slots: List[int],
                 finished: List[Result]) -> None:
@@ -1419,7 +1768,8 @@ class Engine:
         poisoned_slots.append(slot)
         st.poison_strikes += 1
         if st.poison_strikes >= POISON_STRIKE_LIMIT:
-            finished.append(self._finish(st, "failed"))
+            finished.append(self._finish(st, "failed",
+                                         cause="persistent_poison"))
 
     def _maybe_finish(self, st: _Active) -> Optional[Result]:
         req = st.req
@@ -1431,35 +1781,61 @@ class Engine:
             return self._finish(st, "length")
         return None
 
-    def _finish(self, st: _Active, reason: str) -> Result:
+    def _finish(self, st: _Active, reason: str,
+                cause: Optional[str] = None) -> Result:
         """Release the slot (host and device) and the blocks — donating
         the full prompt blocks to the prefix cache unless the row failed
         — and account the terminal: a preempted request's Result carries
         its original prompt and all of its tokens; a deadline-carrying
-        one lands in the SLO ledger (a failed row as shed)."""
+        one lands in the SLO ledger (a failed row as shed). A finish
+        leaves 'evict' and 'finish' events, a failed row (``cause``) one
+        'failed' event."""
         now = time.monotonic()
+        req = st.req
         del self._active[st.slot]
         self.sched.release(st.slot)
+        failed = reason == "failed"
+        if not failed:
+            self.flight.record("evict", rid=req.rid, step=self.steps,
+                               slot=st.slot)
         self._release_row(st.slot)
-        donate = reason != "failed"
         digest: tuple = ()
         if self.paged:
-            self.block_pool.release(st.alloc, donate=donate)
-        if donate and self.paged and self.block_pool.cache is not None:
-            digest = tuple(prefix_digests(st.req.prompt, self.kv_page_size))
+            self.block_pool.release(st.alloc, donate=not failed)
+        if not failed and self.paged and self.block_pool.cache is not None:
+            digest = tuple(prefix_digests(req.prompt, self.kv_page_size))
         self.completed += 1
-        if len(st.tokens) > 1:
-            self._tpot.append((now - st.first_token_t)
-                              / (len(st.tokens) - 1))
-        req = st.req
-        prompt_out, tokens_out, _ = self._unstitch(req, st.tokens)
-        if reason == "failed":
+        self._c_completed.labels(reason=reason).inc()
+        prompt_out, tokens_out, resumed = self._unstitch(req, st.tokens)
+        if failed:
             if req.deadline_s is not None:
                 self.slo.record_shed(req.slo_class)
+            self.tracer.end(st.span, {"failed": True, "cause": cause})
+            self.flight.record("failed", rid=req.rid, step=self.steps,
+                               cause=cause, tokens=len(tokens_out))
         else:
-            self.slo.record_finish(
-                req.slo_class, tokens=len(tokens_out),
-                elapsed_s=now - st.submit_t, deadline_s=req.deadline_s)
+            self.tracer.end(st.span, {"tokens": len(tokens_out),
+                                      "finish_reason": reason})
+            elapsed = now - st.submit_t
+            met = self.slo.record_finish(
+                req.slo_class, tokens=len(tokens_out), elapsed_s=elapsed,
+                deadline_s=req.deadline_s,
+                prefix="hit" if st.alloc is not None and st.alloc.n_hit
+                else "miss")
+            fin = {"reason": reason, "tokens": len(tokens_out),
+                   "e2e_s": round(elapsed, 6)}
+            if resumed:
+                fin["resumed"] = True
+            if met is not None:
+                fin["deadline_met"] = met
+            if digest:
+                fin["prefix_digest"] = list(digest)
+            self.flight.record("finish", rid=req.rid, step=self.steps, **fin)
+            if self._spec is not None:
+                self._spec_req_accepted.observe(st.spec_accepted)
+            if len(st.tokens) > 1:
+                self._tpot.observe((now - st.first_token_t)
+                                   / (len(st.tokens) - 1))
         return Result(rid=req.rid, prompt=prompt_out, tokens=tokens_out,
                       finish_reason=reason, prefix_digest=digest)
 
@@ -1477,6 +1853,9 @@ class Engine:
         decode); spec_fault_tolerance of them in a row disable spec."""
         runner = self._spec
         k, drafter = runner.k, runner.drafter
+        verify_sid = self.tracer.begin(
+            "spec_verify", cat="spec",
+            args={"k": k, "rows": len(self._active)})
         caps = {slot: min(k, st.req.max_new_tokens - len(st.tokens) - 1)
                 for slot, st in self._active.items()}
         dl = np.zeros(self.num_slots, np.int64)
@@ -1505,6 +1884,9 @@ class Engine:
             self._drafter_fault_streak += 1
             dl[:] = 0
             drafts = np.zeros((self.num_slots, k), np.int64)
+            self.flight.record("drafter_fault", step=self.steps,
+                               error=f"{type(e).__name__}: {e}",
+                               streak=self._drafter_fault_streak)
             if self._drafter_fault_streak >= self.spec_fault_tolerance:
                 self._disable_spec(
                     f"{self._drafter_fault_streak} consecutive drafter "
@@ -1523,6 +1905,7 @@ class Engine:
             out[:, k + 2]
         if (self.faults is not None
                 and self.faults.fire("nan_logits", self.steps) is not None):
+            self.flight.record("fault", step=self.steps, site="nan_logits")
             emitted = np.full_like(emitted, self.cfg.vocab_size)
         now = time.monotonic()
         n_kept = 0
@@ -1539,13 +1922,15 @@ class Engine:
             if dl[slot] > 0:
                 runner.drafted += int(dl[slot])
                 runner.accepted += acc
-                self._spec_accept_len.append(acc)
+                self._spec_accept_len.observe(acc)
                 st.spec_accepted += acc
             if st.req.eos_id is not None and st.req.eos_id in toks:
                 toks = toks[:toks.index(st.req.eos_id) + 1]
             st.tokens.extend(toks)
             st.poison_strikes = 0
             st.last_t = now
+            self.flight.record("retire", rid=st.req.rid, step=self.steps,
+                               n=len(toks), accepted=acc)
             n_kept += len(toks)
             done = self._maybe_finish(st)
             if done is not None:
@@ -1554,12 +1939,19 @@ class Engine:
             self._mark_poison("poisoned_step", slots=poisoned_slots)
         self.tokens_generated += n_kept
         self._rate.append((now, n_kept))
+        self.tracer.end(verify_sid, {"emitted": n_kept,
+                                     "drafted": int(dl.sum()),
+                                     "accepted": int(acc_host.sum())})
 
     def _disable_spec(self, reason: str) -> None:
         """Drop to plain decode for the engine's life (outputs unchanged:
         greedy spec is greedy plain decode)."""
         self.spec_disabled_reason = reason
         self._spec = None
+        self.flight.record("spec_disabled", step=self.steps, reason=reason)
+        warn_once("serve-spec-disabled",
+                  f"[serve] speculative decoding DISABLED: {reason}; "
+                  "continuing with plain decode")
 
     # ------------------------------------------------------------------
     # fault detection, quarantine and recovery (module docstring; the
@@ -1572,6 +1964,7 @@ class Engine:
         self.poisoned_steps += 1
         if self._poison is None:
             self._poison = {"kind": kind, "step": self.steps, **info}
+        self.flight.record("poison", step=self.steps, kind=kind, **info)
 
     def take_poison(self) -> Optional[dict]:
         """The supervisor's check after a step: returns and clears the
@@ -1583,6 +1976,17 @@ class Engine:
         """Readiness goes red until recover()."""
         self.quarantined = True
         self.quarantine_cause = cause
+        self.flight.record("quarantine", step=self.steps, cause=cause)
+
+    def _close_dangling_spans(self) -> None:
+        """End the spans a raise left open (the chunk in flight's
+        'decode_step', a mid-prefill wave's 'prefill_wave'), so the
+        tracer's open table cannot grow across recoveries."""
+        if self._inflight is not None:
+            self.tracer.end(self._inflight[4], {"aborted": True})
+        if self._admitting_span is not None:
+            self.tracer.end(self._admitting_span, {"aborted": True})
+            self._admitting_span = None
 
     def recover(self, cause: str = "unknown", *,
                 flush_cache: bool = False) -> dict:
@@ -1596,6 +2000,7 @@ class Engine:
         ``flush_cache`` (a dispatch raised: buffers suspect) also drops
         the prefix cache and zeroes the pools."""
         t0 = time.monotonic()
+        self._close_dangling_spans()
         self._inflight = None
         self._poison = None
         actives = sorted(self._active.values(), key=lambda s: s.req.rid)
@@ -1606,46 +2011,61 @@ class Engine:
                      if e[0].rid not in active_rids]
         self._active = {}
         self._admitting = []
-        requeue: List[Tuple[Request, Optional[float]]] = []
+
+        def done_before(req: Request) -> int:
+            base = self._resumed.get(req.rid)
+            return len(base.tokens) if base is not None else 0
+
+        # (request, tokens done before, submit time or None)
+        requeue: List[Tuple[Request, int, Optional[float]]] = []
         for st in actives:
             self.sched.release(st.slot)
             if st.alloc is not None:
                 self.block_pool.release(st.alloc)
+            self.tracer.end(st.span, {"recovered": True})
             base = self._resumed.get(st.req.rid)
+            pre = (base.tokens if base is not None else []) + st.tokens
             self._resumed[st.req.rid] = _Resume(
                 prompt=base.prompt if base is not None else st.req.prompt,
-                tokens=(base.tokens if base is not None else [])
-                + st.tokens)
+                tokens=pre)
             requeue.append((replace(
                 st.req, prompt=st.req.prompt + tuple(st.tokens),
                 max_new_tokens=st.req.max_new_tokens - len(st.tokens)),
-                st.submit_t))
+                len(pre), st.submit_t))
         for req, slot, alloc, donate in admitting:
             self.sched.release(slot)
             if alloc is not None:
                 self.block_pool.release(alloc, donate=donate)
-            requeue.append((req, None))
+            requeue.append((req, done_before(req), None))
         for entry in self._chunking:
             self.sched.release(entry.slot)
             self.block_pool.release(entry.alloc, donate=False)
-            requeue.append((entry.req, None))
+            requeue.append((entry.req, done_before(entry.req), None))
         self._chunking = []
         if flush_cache and self.paged:
             self.block_pool.reset_cache()
         self._reset_device_state(flush_cache)
         requeue.sort(key=lambda item: item[0].rid)
         now = time.monotonic()
-        for req, sub_t in requeue:
+        for req, done, sub_t in requeue:
             if req.rid not in self._submit_meta:
+                sid = self.tracer.begin("queued", cat="request",
+                                        rid=req.rid, args={"resumed": True})
                 self._submit_meta[req.rid] = (
-                    self.steps, sub_t if sub_t is not None else now)
+                    self.steps, sub_t if sub_t is not None else now, sid)
             self.requeued += 1
-        self.sched.requeue_front([req for req, _ in requeue])
+            self.flight.record("requeue", rid=req.rid, step=self.steps,
+                               cause=cause, tokens_done=done)
+        self.sched.requeue_front([item[0] for item in requeue])
         self.recoveries += 1
+        self._c_recoveries.labels(cause=cause).inc()
         dt = time.monotonic() - t0
-        self.recovery_s.append(dt)
+        self._h_recovery.observe(dt)
         self.quarantined = False
         self.quarantine_cause = None
+        self.flight.record("recover", step=self.steps, cause=cause,
+                           requeued=len(requeue), flushed=flush_cache,
+                           rebuild_s=round(dt, 6))
         return {"cause": cause, "requeued": len(requeue),
                 "flush_cache": flush_cache, "rebuild_s": dt}
 
@@ -1656,6 +2076,7 @@ class Engine:
         self.failed = True
         self.quarantined = False
         self.quarantine_cause = cause
+        self._close_dangling_spans()
         self._inflight = None
         self._poison = None
         results, self._pending = self._pending, []
@@ -1665,6 +2086,7 @@ class Engine:
             self.sched.release(st.slot)
             if st.alloc is not None:
                 self.block_pool.release(st.alloc, donate=False)
+            self.tracer.end(st.span, {"failed": True})
             active_rids.add(st.req.rid)
             victims.append((st.req, st.tokens))
         for req, slot, alloc, _ in self._admitting:
@@ -1683,26 +2105,25 @@ class Engine:
                     self.sched.drain_expired(lambda item: True)]
         self._reset_device_state(flush_cache=False)
         for req, toks in victims:
-            self._submit_meta.pop(req.rid, None)
+            meta = self._submit_meta.pop(req.rid, None)
+            if meta is not None:
+                self.tracer.end(meta[2], {"failed": True})
             prompt_out, tokens_out, _ = self._unstitch(req, toks)
             if req.deadline_s is not None:
                 self.slo.record_shed(req.slo_class)
+            self._c_completed.labels(reason="failed").inc()
+            self.flight.record("failed", rid=req.rid, step=self.steps,
+                               cause=cause, tokens=len(tokens_out))
             results.append(Result(rid=req.rid, prompt=prompt_out,
                                   tokens=tokens_out,
                                   finish_reason="failed"))
+        self.flight.record("engine_failed", step=self.steps, cause=cause,
+                           aborted=len(victims))
         return results
 
     # ------------------------------------------------------------------
     # observability
     # ------------------------------------------------------------------
-    @staticmethod
-    def _pcts(samples) -> Optional[dict]:
-        xs = list(samples)
-        if not xs:
-            return None
-        p50, p90, p99 = np.percentile(xs, (50, 90, 99))
-        return {"p50": float(p50), "p90": float(p90), "p99": float(p99)}
-
     def _recent_rate(self) -> Optional[float]:
         ring = list(self._rate)
         if len(ring) < 2 or ring[-1][0] <= ring[0][0]:
@@ -1718,10 +2139,10 @@ class Engine:
         counted twice: a batch request behind a deep interactive queue
         waits longer than an interactive one."""
         base = 1.0
-        waits = list(self._queue_wait)
+        p = self._queue_wait.percentiles((50,))
         steps_per_s = self._steps_per_s()
-        if waits and steps_per_s is not None:
-            base = max(0.5, float(np.percentile(waits, 50)) / steps_per_s)
+        if p and steps_per_s is not None:
+            base = max(0.5, p["p50"] / steps_per_s)
         if priority is None:
             if slo_class is None:
                 return base
@@ -1730,31 +2151,144 @@ class Engine:
         return base * (1.0 + (ahead + jumps) / max(1, self.num_slots))
 
     def reset_latency_stats(self) -> None:
-        """Clear the TTFT / TPOT / queue-wait / rate windows, the SLO
-        ledger and the pool's hit ledger, so that they describe the
-        traffic after a warmup."""
-        self._ttft.clear()
-        self._tpot.clear()
-        self._queue_wait.clear()
+        """Clear the latency histograms, the rate window, the span ring,
+        the SLO ledger, the flight ring, the watchdog's TTFT baseline,
+        the pool's hit ledger and the spec acceptance counts, so that
+        they describe the traffic after a warmup."""
+        for fam in (self._ttft, self._ttft_prefix, self._tpot,
+                    self._queue_wait, self._spec_accept_len,
+                    self._spec_req_accepted):
+            fam.reset()
         self._rate.clear()
+        self.tracer.clear()
         self.slo.reset()
+        self.flight.clear()
+        self.watchdog.reset()
         if self.block_pool is not None:
             self.block_pool.reset_ledger()
-        self._spec_accept_len.clear()
-        self.watchdog.reset()
         if self._spec is not None:
             # The acceptance rate describes the traffic after a warmup
             # too (warmup prompts are all zeros).
             self._spec.steps = self._spec.drafted = self._spec.accepted = 0
 
+    # ------------------------------------------------------------------
+    # the on-demand profiler window (POST /profile)
+    # ------------------------------------------------------------------
+    def request_profile(self, steps: int, out_dir: Optional[str] = None,
+                        ) -> dict:
+        """Arm a torch.profiler window (utils/profiler.py, the trainer's
+        profile_steps machinery) over the next ``steps`` engine steps;
+        the trace lands in ``out_dir`` (default: a new temporary
+        directory) as serve_profile.trace.json. Thread-safe: an HTTP
+        handler arms it, the stepping thread opens, advances and closes
+        it inside step(). The directory is made and checked here, before
+        the lock, so a bad path is the caller's error and slow I/O never
+        holds a lock the stepping thread takes. A started window raises
+        RuntimeError; an armed one not yet started is replaced."""
+        steps = int(steps)
+        if steps < 1:
+            raise ValueError(f"profile steps must be >= 1, got {steps}")
+        auto = out_dir is None
+        d = out_dir or tempfile.mkdtemp(prefix="serve-profile-")
+        try:
+            os.makedirs(d, exist_ok=True)
+        except OSError as e:
+            raise ValueError(f"unusable profile dir {d!r}: {e}") from e
+        with self._profile_lock:
+            if self._profile is not None and self._profile["started"]:
+                if auto:
+                    _rmdir_quietly(d)
+                raise RuntimeError("a profile window is already in progress")
+            self._reap_unstarted_dir()
+            self._profile = {"dir": d, "auto_dir": auto, "steps": steps,
+                             "remaining": steps, "started": False,
+                             "span": 0, "profiler": None}
+        return {"dir": d, "steps": steps}
+
+    def _reap_unstarted_dir(self) -> None:
+        """Remove the empty auto-made directory of a replaced or
+        cancelled window that never started (call with _profile_lock
+        held). rmdir only: a directory a trace wrote into stays."""
+        prof = self._profile
+        if prof is not None and prof["auto_dir"] and not prof["started"]:
+            _rmdir_quietly(prof["dir"])
+
+    def cancel_profile(self) -> bool:
+        """Disarm a window that has not started (a started one runs to
+        its close). Returns whether anything was cancelled."""
+        with self._profile_lock:
+            if self._profile is not None and not self._profile["started"]:
+                self._reap_unstarted_dir()
+                self._profile = None
+                return True
+            return False
+
+    def _profile_window_start(self) -> None:
+        # Unlocked None check first: this runs every step, and no lock is
+        # taken unless a window is armed.
+        if self._profile is None:
+            return
+        with self._profile_lock:
+            prof = self._profile
+            if prof is None or prof["started"] or not self.has_work():
+                return
+            prof["started"] = True
+        try:
+            prof["profiler"] = profile_window.start(self.device,
+                                                    preamble=True)
+        except Exception as e:  # the profiler is busy elsewhere
+            # Fail the profile, never the serving loop it rides in.
+            with self._profile_lock:
+                if prof["auto_dir"]:
+                    _rmdir_quietly(prof["dir"])
+                self._profile = None
+            self.last_profile = {"dir": prof["dir"], "steps": prof["steps"],
+                                 "error": f"{type(e).__name__}: {e}"}
+            return
+        prof["span"] = self.tracer.begin(
+            "profile_window", cat="profile",
+            args={"steps": prof["steps"], "dir": prof["dir"]})
+
+    def _profile_window_advance(self) -> None:
+        prof = self._profile
+        if prof is None or not prof["started"]:
+            return
+        prof["remaining"] -= 1
+        # Close early when the engine runs dry: the loop stops stepping
+        # an idle engine, and the window would stay open until traffic
+        # came back.
+        if prof["remaining"] > 0 and self.has_work():
+            return
+        path = os.path.join(prof["dir"], "serve_profile.trace.json")
+        self.last_profile = {"dir": prof["dir"], "steps": prof["steps"],
+                             "steps_profiled": prof["steps"]
+                             - prof["remaining"]}
+        try:
+            profile_window.stop(prof["profiler"], self.device, path)
+        except Exception as e:  # the directory went away, a full disk
+            self.last_profile["error"] = f"{type(e).__name__}: {e}"
+            self.tracer.end(prof["span"], {"error": self.last_profile["error"]})
+        else:
+            self.last_profile["trace"] = path
+            self.tracer.end(prof["span"])
+        with self._profile_lock:
+            self._profile = None
+
     def stats(self) -> dict:
-        # Copies (one C-level call each): HTTP handler threads read stats
-        # while the engine thread appends.
-        waits = list(self._queue_wait)
-        accept_lens = list(self._spec_accept_len)
         spec = {"enabled": False} if self._spec is None else \
             self._spec.stats()
         dispatches = sum(self.host_dispatches.values())
+        kv_pool: dict = {"paged": False}
+        if self.paged:
+            kv_pool = self.block_pool.stats()
+            # peek, never labels(): a read must not mint an empty
+            # {prefix=} series for the exposition to render.
+            hit = self._ttft_prefix.peek(prefix="hit")
+            miss = self._ttft_prefix.peek(prefix="miss")
+            kv_pool["ttft_hit_s"] = (None if hit is None
+                                     else hit.percentiles((50, 90, 99)))
+            kv_pool["ttft_miss_s"] = (None if miss is None
+                                      else miss.percentiles((50, 90, 99)))
         return {
             "device": str(self.device),
             "num_slots": self.num_slots,
@@ -1763,8 +2297,7 @@ class Engine:
             "kv_dtype": self.kv_dtype,
             "kv_page_size": self.kv_page_size,
             "kv_pool_blocks": self.kv_pool_blocks,
-            "kv_pool": (self.block_pool.stats() if self.paged
-                        else {"paged": False}),
+            "kv_pool": kv_pool,
             "prefill_buckets": list(self.sched.buckets),
             "admit_buckets": list(self.admit_buckets),
             "active": len(self._active),
@@ -1789,10 +2322,9 @@ class Engine:
                                  else None),
             "tokens_generated": self.tokens_generated,
             "decode_tokens_per_sec": self._recent_rate(),
-            "ttft_s": self._pcts(self._ttft),
-            "tpot_s": self._pcts(self._tpot),
-            "queue_wait_steps_mean": (float(np.mean(waits))
-                                      if waits else None),
+            "ttft_s": self._ttft.percentiles((50, 90, 99)),
+            "tpot_s": self._tpot.percentiles((50, 90, 99)),
+            "queue_wait_steps_mean": self._queue_wait.mean(),
             "retry_after_s": self.retry_after_s(),
             "shed": self.shed,
             "default_deadline_s": self.default_deadline_s,
@@ -1808,16 +2340,17 @@ class Engine:
             # mean accepted draft length of drafting verify rows.
             "spec": spec,
             "spec_acceptance_rate": spec.get("acceptance_rate"),
-            "spec_accepted_len_mean": (float(np.mean(accept_lens))
-                                       if accept_lens else None),
+            "spec_accepted_len_mean": self._spec_accept_len.mean(),
+            "spec_req_accepted_tokens": self._spec_req_accepted.percentiles(
+                (50, 90, 99)),
             # Faults and recovery: what readiness keys off, plus the
-            # armed plan. JAX mirrors these into its metric registry.
+            # armed plan.
             "recovery": {
                 "quarantined": self.quarantined,
                 "failed": self.failed,
                 "cause": self.quarantine_cause,
                 "recoveries": self.recoveries,
-                "recovery_s": self._pcts(self.recovery_s),
+                "recovery_s": self._h_recovery.percentiles((50, 90, 99)),
                 "poisoned_steps": self.poisoned_steps,
                 "requeued": self.requeued,
                 "resumed_in_flight": len(self._resumed),
@@ -1827,8 +2360,126 @@ class Engine:
             "drafter_faults": self.drafter_faults,
             "faults": (None if self.faults is None
                        else self.faults.stats()),
+            "flight": self.flight.stats(),
             "watchdog": self.watchdog.stats(),
+            "profile": {"active": self._profile is not None,
+                        "last": self.last_profile},
         }
+
+    # ------------------------------------------------------------------
+    # live introspection (GET /debug/slots | /debug/kvpool |
+    # /debug/scheduler): reads from an HTTP handler thread while the
+    # loop thread mutates, as /stats does. Every shared structure is
+    # copied before iteration, so a torn read gives a stale view, never
+    # a crash; no device tensor is read.
+    # ------------------------------------------------------------------
+    def debug_slots(self) -> dict:
+        """Per-slot occupancy: who owns each row, how far along it is,
+        and how stale its last token is (the stuck-slot watchdog's view,
+        on demand)."""
+        now = time.monotonic()
+        inflight = self._inflight
+        inflight = dict(inflight[1]) if inflight is not None else {}
+        active = dict(self._active)
+        chunking = {e.slot: e for e in list(self._chunking)}
+        slots = []
+        for slot in range(self.num_slots):
+            st = active.get(slot)
+            if st is None:
+                e = chunking.get(slot)
+                if e is not None:
+                    slots.append({"slot": slot, "state": "prefilling",
+                                  "rid": e.req.rid,
+                                  "prompt_len": len(e.req.prompt),
+                                  "prefilled": e.hit + e.done})
+                else:
+                    slots.append({"slot": slot, "state": "free"})
+                continue
+            req = st.req
+            slots.append({
+                "slot": slot, "state": "active", "rid": req.rid,
+                "slo_class": req.slo_class, "deadline_s": req.deadline_s,
+                "prompt_len": len(req.prompt),
+                "max_new": req.max_new_tokens,
+                "tokens": len(st.tokens),
+                "age_s": round(now - st.submit_t, 6),
+                "since_last_token_s": round(now - st.last_t, 6),
+                "prefix_hit": bool(st.alloc.n_hit)
+                if st.alloc is not None else False,
+                "in_flight_step": inflight.get(slot) == req.rid,
+                "spec_accepted": st.spec_accepted,
+            })
+        return {"num_slots": self.num_slots, "active": len(active),
+                "free_slots": self.sched.free_slots, "slots": slots}
+
+    def debug_kvpool(self) -> dict:
+        """Paged-pool block states, fragmentation and radix-trie
+        occupancy (serve/paged.py BlockPool.debug); {"paged": False} on a
+        dense engine."""
+        if self.block_pool is None:
+            return {"paged": False}
+        live = [(st.req.rid, len(st.req.prompt) + len(st.tokens), st.alloc)
+                for st in list(self._active.values())
+                if st.alloc is not None]
+        return {"paged": True, "kv_page_size": self.kv_page_size,
+                **self.block_pool.debug(live)}
+
+    def debug_scheduler(self) -> dict:
+        """The queue head first, with each request's wait, deadline state
+        (the shed forecast), bucket and priority; the depth of each class
+        by priority; the brownout posture, the chunked-prefill lane, the
+        ladders and, under spec, the drafter's acceptance."""
+        now = time.monotonic()
+        queued = []
+        by_class: Dict[str, dict] = {}
+        for item in self.sched.queued_items():
+            meta = self._submit_meta.get(item.rid)
+            waited = None if meta is None else round(now - meta[1], 6)
+            queued.append({
+                "rid": item.rid, "prompt_len": len(item.prompt),
+                "max_new": item.max_new_tokens,
+                # The no-hit bucket: a debug read must not walk the radix
+                # trie the loop thread owns.
+                "bucket": self.sched.bucket_for(len(item.prompt)),
+                "slo_class": item.slo_class,
+                "priority": item.priority,
+                "deadline_s": item.deadline_s,
+                "waited_s": waited,
+                "expired": bool(item.deadline_s is not None
+                                and waited is not None
+                                and waited > item.deadline_s),
+            })
+            cls = by_class.setdefault(
+                item.slo_class, {"queued": 0, "priorities": {}})
+            cls["queued"] += 1
+            pr = cls["priorities"]
+            pr[item.priority] = pr.get(item.priority, 0) + 1
+        out = {"queued": len(queued), "queue": queued,
+               "queue_by_class": by_class,
+               "free_slots": self.sched.free_slots,
+               "active": len(self._active),
+               "prefill_buckets": list(self.sched.buckets),
+               "admit_buckets": list(self.admit_buckets),
+               "pipeline": self.pipeline,
+               "inflight_step": self._inflight is not None,
+               "steps": self.steps, "shed": self.shed,
+               "default_deadline_s": self.default_deadline_s,
+               "preemptions": self.preemptions,
+               "prefill_chunk": self.prefill_chunk,
+               "chunking": [{"rid": e.req.rid, "slot": e.slot,
+                             "prefilled": e.hit + e.done,
+                             "prompt_len": len(e.req.prompt)}
+                            for e in list(self._chunking)],
+               "brownout": (None if self.brownout is None
+                            else self.brownout.stats())}
+        spec = self._spec
+        if spec is not None:
+            out["spec"] = {**spec.stats(),
+                           "drafter_kind": spec.drafter.kind,
+                           "mean_accepted_per_verify": (
+                               spec.accepted / spec.steps if spec.steps
+                               else None)}
+        return out
 
     def max_programs(self) -> dict:
         """The CUDA graphs captured (none on the CPU, where the bodies
@@ -1843,6 +2494,13 @@ class Engine:
             if self._spec.drafter.kind == "device":
                 progs["draft"] = int(("draft",) in self._spec_graphs)
         return progs
+
+
+def _rmdir_quietly(path: str) -> None:
+    try:
+        os.rmdir(path)
+    except OSError:
+        pass
 
 
 def _wrapper_counts() -> tuple:

@@ -325,12 +325,20 @@ class BlockPool:
         self.evicted_blocks = 0
 
     def stats(self) -> dict:
+        """Counts and the hit ledger. ``free``, ``cached`` (trie blocks
+        no request holds: reclaimable) and ``live`` (every block a
+        request holds) partition the pool: the serve_kv_pool_blocks
+        gauge's states."""
         cached = len(self.cache) if self.cache is not None else 0
+        evictable = self.cache.evictable() if self.cache is not None else 0
+        free = len(self._free)
         seen = self.hit_tokens + self.miss_tokens
         return {
             "num_blocks": self.num_blocks,
             "page": self.page,
-            "free": len(self._free),
+            "free": free,
+            "cached": evictable,
+            "live": self.num_blocks - free - evictable,
             "trie_blocks": cached,
             "prefix_hit_requests": self.hit_requests,
             "prefix_hit_tokens": self.hit_tokens,
@@ -339,6 +347,62 @@ class BlockPool:
             "block_stall_steps": self.stall_steps,
             "evicted_blocks": self.evicted_blocks,
         }
+
+    def debug(self, live: Sequence[tuple] = ()) -> dict:
+        """The GET /debug/kvpool view: the block-state partition,
+        fragmentation, trie occupancy and each live request's blocks.
+
+        ``live`` is the engine's [(rid, used_positions, Allocation)]: the
+        pool tracks block ids, and only the engine knows how many
+        positions each reservation has written, which is what internal
+        fragmentation is (a full reservation at admission holds
+        positions its generation has not reached yet)."""
+        out = self.stats()
+        reserved_pos = used_pos = 0
+        per_request = []
+        for rid, used, alloc in live:
+            reserved = len(alloc.table) * self.page
+            reserved_pos += reserved
+            used_pos += min(used, reserved)
+            per_request.append({
+                "rid": rid, "blocks": len(alloc.table),
+                "hit_blocks": alloc.n_hit,
+                "reserved_positions": reserved,
+                "used_positions": min(used, reserved),
+            })
+        out["fragmentation"] = {
+            "internal": (1.0 - used_pos / reserved_pos
+                         if reserved_pos else 0.0),
+            "reserved_positions": reserved_pos,
+            "used_positions": used_pos,
+            # A paged pool never fragments externally: any free block
+            # serves any request.
+            "free_frac": len(self._free) / self.num_blocks,
+        }
+        trie: dict = {"enabled": self.cache is not None}
+        if self.cache is not None:
+            depths: Dict[int, int] = {}
+            # A list() snapshot: HTTP handler threads read this while the
+            # loop thread inserts and evicts; an evicted node keeps its
+            # parent pointers, so the depth walk stays safe.
+            for n in list(self.cache._nodes):
+                d = 0
+                p = n.parent
+                while p is not None:
+                    d += 1
+                    p = p.parent
+                depths[d] = depths.get(d, 0) + 1
+            trie.update({
+                "nodes": len(self.cache),
+                "cached_tokens": len(self.cache) * self.page,
+                "evictable_blocks": self.cache.evictable(),
+                "depth_histogram": {str(k): v
+                                    for k, v in sorted(depths.items())},
+                "max_depth": max(depths) if depths else 0,
+            })
+        out["trie"] = trie
+        out["live_requests"] = per_request
+        return out
 
     def check(self, live_allocs: Sequence[Allocation] = ()) -> None:
         """Invariant audit: the free list, the trie and the live

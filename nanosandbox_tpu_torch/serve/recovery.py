@@ -25,18 +25,16 @@ Attempts back off exponentially (base * 2^(n-1), capped), and more than
 ``max_consecutive`` faults without a clean stretch of ``settle_s``
 escalate to permanent failure: every in-flight and queued request gets a
 terminal 'failed' Result with its tokens so far, and submissions raise
-EngineFailedError (503 upstream). The JAX supervisor also publishes a
-TTFRT histogram and a state gauge; here the samples and the state are
-plain values in ``stats()`` until the port's metric registry exists.
+EngineFailedError (503 upstream). On the engine's registry the
+supervisor publishes, as JAX's does, the ``serve_recovery_ttfrt_seconds``
+histogram (detection to the first retired token after it) and the
+one-hot ``serve_supervisor_state{state=}`` gauge.
 """
 
 from __future__ import annotations
 
 import time
-from collections import deque
 from typing import Callable, List, Optional
-
-import numpy as np
 
 # The watchdog kinds a reset can help (obs/flight.py).
 RECOVERABLE_TRIPS = ("stuck_slot", "stalled_step")
@@ -79,7 +77,17 @@ class EngineSupervisor:
         # detection to the first token of the victims' resumes.
         self._await_tok_t: Optional[float] = None
         self._tok_mark = 0
-        self._ttfrt: deque = deque(maxlen=4096)
+        m = engine.metrics
+        self._h_ttfrt = m.histogram(
+            "serve_recovery_ttfrt_seconds",
+            "Quarantine detection -> first post-recovery retired token.",
+            unit="seconds",
+            buckets=(0.005, 0.02, 0.1, 0.5, 2.0, 10.0, 60.0))
+        self._g_state = m.gauge(
+            "serve_supervisor_state",
+            "Supervisor state one-hot (ok | failed).",
+            labelnames=("state",))
+        self._g_state.labels(state="ok").set(1.0)
 
     def step(self) -> List:
         """One supervised engine step: the engine's finished Results. On
@@ -106,7 +114,7 @@ class EngineSupervisor:
         now = time.monotonic()
         if (self._await_tok_t is not None
                 and eng.tokens_generated > self._tok_mark):
-            self._ttfrt.append(now - self._await_tok_t)
+            self._h_ttfrt.observe(now - self._await_tok_t)
             self._await_tok_t = None
         if (self.consecutive and self._last_fault_t is not None
                 and now - self._last_fault_t > self.settle_s):
@@ -146,6 +154,8 @@ class EngineSupervisor:
             # Recovery is not converging: drain cleanly instead of
             # burning the ladder forever on the same poison.
             self.state = "failed"
+            self._g_state.labels(state="ok").set(0.0)
+            self._g_state.labels(state="failed").set(1.0)
             return eng.abort_all(
                 f"{cause} x{self.consecutive} (recovery exhausted)")
         backoff = min(self.backoff_base_s * (2 ** (self.consecutive - 1)),
@@ -160,12 +170,6 @@ class EngineSupervisor:
         return []
 
     def stats(self) -> dict:
-        xs = list(self._ttfrt)
-        ttfrt = None
-        if xs:
-            p50, p90, p99 = np.percentile(xs, (50, 90, 99))
-            ttfrt = {"p50": float(p50), "p90": float(p90),
-                     "p99": float(p99)}
         return {"state": self.state,
                 "recoveries": self.recoveries,
                 "consecutive": self.consecutive,
@@ -173,4 +177,4 @@ class EngineSupervisor:
                 "last_cause": self.last_cause,
                 "last_detail": self.last_detail,
                 "last_backoff_s": self.last_backoff_s,
-                "ttfrt_s": ttfrt}
+                "ttfrt_s": self._h_ttfrt.percentiles((50, 90, 99))}

@@ -79,6 +79,33 @@ class SpecRunner:
         self.drafted = 0
         self.accepted = 0
 
+    def register_metrics(self, registry) -> None:
+        """Publish the acceptance counters on the engine's registry, as a
+        scrape-time mirror of the plain ints (the verify loop never
+        touches a metric family)."""
+        c_drafted = registry.counter(
+            "serve_spec_tokens_drafted_total",
+            "Draft tokens proposed to the verify step.")
+        c_accepted = registry.counter(
+            "serve_spec_tokens_accepted_total",
+            "Draft tokens the target model accepted.")
+        c_steps = registry.counter(
+            "serve_spec_verify_steps_total", "Batched verify dispatches.")
+        g_rate = registry.gauge(
+            "serve_spec_acceptance_rate",
+            "Token-level accepted/drafted over the process lifetime.")
+
+        def collect():
+            c_drafted._set_total(self.drafted)
+            c_accepted._set_total(self.accepted)
+            c_steps._set_total(self.steps)
+            # Unconditional: reset_latency_stats zeroes the counts after
+            # the warmup, and the gauge must follow.
+            g_rate.set(self.accepted / self.drafted if self.drafted
+                       else 0.0)
+
+        registry.add_collector(collect)
+
     def load(self, drafts: Optional[np.ndarray],
              draft_len: np.ndarray) -> None:
         """Stage the next verify's inputs in the static buffers: host

@@ -54,6 +54,15 @@ their shapes, activations and workspace measured on the GPU over one
 throwaway forward and backward of the first micro-batch. The port runs
 eagerly, so there is no compiled program to analyse and no
 ``compile=True`` requirement.
+
+Telemetry (obs/, as the JAX trainer's): ``trainer.metrics`` is a
+MetricRegistry with the gauges train_loss, train_grad_norm, train_lr,
+train_tokens_per_sec, train_mfu and eval_loss{split}, and the counters
+train_iters_total and checkpoint_saves_total; ``trainer.tracer`` records
+the eval windows ('eval'), checkpoint saves ('checkpoint_save') and the
+profile window ('profiler_window') as spans. Both are updated at log and
+eval points only, from values the loop already read back, never inside
+the step.
 """
 
 from __future__ import annotations
@@ -197,6 +206,7 @@ class Trainer:
                          mesh=self.mesh)
         self.optimizer, self.lr_schedule = make_optimizer(self.model, cfg)
         self.step = 0  # optimizer updates done: the schedule's count
+        self._init_telemetry()
         from nanosandbox_tpu_torch.utils.metrics import warn_once
         if cfg.compile:
             warn_once("compile", "[train] compile=True: the port runs the "
@@ -208,6 +218,30 @@ class Trainer:
                       "and selects nothing here: causal attention runs the "
                       "flash kernels on CUDA, their plain versions on the "
                       "CPU")
+
+    def _init_telemetry(self) -> None:
+        """The registry and tracer of the module docstring."""
+        from nanosandbox_tpu_torch.obs import MetricRegistry, SpanTracer
+
+        self.metrics = MetricRegistry()
+        self.tracer = SpanTracer(capacity=2048)
+        m = self.metrics
+        self._m_loss = m.gauge("train_loss",
+                               "Training loss at the last log step.")
+        self._m_grad_norm = m.gauge("train_grad_norm",
+                                    "Global grad norm at the last log step.")
+        self._m_lr = m.gauge("train_lr", "Learning rate at the last "
+                             "log step.")
+        self._m_toks = m.gauge("train_tokens_per_sec",
+                               "Window-averaged training tokens/sec.")
+        self._m_mfu = m.gauge("train_mfu",
+                              "Model FLOPs utilization (0..1).")
+        self._m_iters = m.counter("train_iters_total",
+                                  "Optimizer steps completed.")
+        self._m_eval = m.gauge("eval_loss", "Last estimate_loss value, "
+                               "by split.", labelnames=("split",))
+        self._m_ckpt = m.counter("checkpoint_saves_total",
+                                 "Checkpoints written.")
 
     # -- steps ---------------------------------------------------------------
 
@@ -306,6 +340,8 @@ class Trainer:
         fixed sample. One host read per split."""
         eval_iters = eval_iters or self.cfg.eval_iters
         cols = slice(None) if self.columns is None else self.columns
+        sid = self.tracer.begin("eval", cat="train",
+                                args={"eval_iters": eval_iters})
         out = {}
         for split in ("train", "val"):
             batches = [tuple(a[:, cols] for a in self.dataset.sample_batch(
@@ -315,6 +351,9 @@ class Trainer:
             losses = [self.eval_loss(self.to_device(xb), self.to_device(yb))
                       for xb, yb in batches]
             out[split] = float(torch.stack(losses).mean())
+            self._m_eval.labels(split=split).set(out[split])
+        self.tracer.end(sid, {f"{k}_loss": round(v, 6)
+                              for k, v in out.items()})
         return out
 
     # -- memory --------------------------------------------------------------
@@ -408,14 +447,22 @@ class Trainer:
 
     # -- checkpoints ---------------------------------------------------------
 
-    def save(self, ckpt, iter_num: int, best_val_loss: float) -> bool:
-        """Rank 0 writes; every rank holds the same state."""
+    def save(self, ckpt, iter_num: int, best_val_loss: float,
+             final: bool = False) -> bool:
+        """Rank 0 writes (a 'checkpoint_save' span); every rank holds the
+        same state."""
         if not self.rank0:
             return False
-        return ckpt.save(iter_num, model=self.model.state_dict(),
-                         optimizer=self.optimizer.state_dict(),
-                         iter_num=iter_num, best_val_loss=best_val_loss,
-                         config=self.cfg.to_dict(), opt_step=self.step)
+        args = {"iter": iter_num, "final": True} if final else \
+            {"iter": iter_num}
+        sid = self.tracer.begin("checkpoint_save", cat="train", args=args)
+        saved = ckpt.save(iter_num, model=self.model.state_dict(),
+                          optimizer=self.optimizer.state_dict(),
+                          iter_num=iter_num, best_val_loss=best_val_loss,
+                          config=self.cfg.to_dict(), opt_step=self.step)
+        self.tracer.end(sid)
+        self._m_ckpt.inc()
+        return saved
 
     def restore(self, ckpt, step: int | None = None) -> dict:
         blob = ckpt.restore(step)
@@ -498,7 +545,7 @@ class Trainer:
                     t0, window_start_iter = time.time(), iter_num - 1
 
                 if prof_range and iter_num == prof_range[0]:
-                    profiler = self._start_profile()
+                    profiler = self._start_profile(prof_range)
                 xb, yb = next(loader)
                 metrics = self.train_step(self.to_device(xb),
                                           self.to_device(yb),
@@ -530,6 +577,12 @@ class Trainer:
                     log.append({"iter": iter_num, "loss": loss,
                                 "grad_norm": grad_norm, "ms": dt * 1000,
                                 "tok_s": toks, "mfu": mfu})
+                    self._m_loss.set(loss)
+                    self._m_grad_norm.set(grad_norm)
+                    self._m_lr.set(lr)
+                    self._m_toks.set(toks)
+                    self._m_mfu.set(mfu)
+                    self._m_iters._set_total(iter_num + 1)
                 iter_num += 1
         finally:
             if profiler is not None:  # the run ended inside the window
@@ -543,34 +596,31 @@ class Trainer:
             losses = self.estimate_loss() if cfg.max_iters > 0 else {}
         if cfg.max_iters > 0 and not cfg.eval_only:
             self.save(ckpt, iter_num,
-                      min(best_val_loss, losses.get("val", 1e9)))
+                      min(best_val_loss, losses.get("val", 1e9)), final=True)
         return {"iter_num": iter_num, "final_loss": last_loss, "log": log,
                 "memory_report": mem,
                 **{f"final_{k}_loss": v for k, v in losses.items()}}
 
     # -- profiler window -----------------------------------------------------
 
-    def _start_profile(self):
-        from torch.profiler import ProfilerActivity, profile
+    def _start_profile(self, prof_range):
+        from nanosandbox_tpu_torch.utils import profiler as window
 
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        profiler = profile(activities=activities)
-        profiler.start()
-        return profiler
+        self._profile_span = self.tracer.begin(
+            "profiler_window", cat="train",
+            args={"start": prof_range[0], "stop": prof_range[1]})
+        return window.start(self.device)
 
     def _stop_profile(self, profiler, prof_range) -> None:
         """Drain the device so the window holds its work, stop, and write
-        the Chrome trace."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        profiler.stop()
+        the Chrome trace (utils/profiler.py)."""
+        from nanosandbox_tpu_torch.utils import profiler as window
+
         out = os.path.join(self.cfg.resolved_log_dir, "profile")
-        os.makedirs(out, exist_ok=True)
         a, b = prof_range
-        profiler.export_chrome_trace(
-            os.path.join(out, f"iters_{a}_{b}.trace.json"))
+        window.stop(profiler, self.device,
+                    os.path.join(out, f"iters_{a}_{b}.trace.json"))
+        self.tracer.end(self._profile_span)
         print(f"profiler trace for iters [{a}:{b}) -> {out}")
 
 

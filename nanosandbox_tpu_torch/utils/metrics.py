@@ -1,4 +1,4 @@
-"""Metric logging: the JAX package's MetricsWriter.
+"""Metric logging: the JAX package's MetricsWriter, warn_once and RingStat.
 
 ``<log_dir>/<run>/metrics.jsonl`` gets one header record
 (``{"header": {...}, "time": t}``, written with the first scalars, so a
@@ -7,6 +7,9 @@ run that logs nothing leaves no file behind) and one record per
 JAX package's record format. With ``tensorboard=True`` every scalar that
 ``float()`` takes also goes, under its key as the tag, into a TensorBoard
 event file beside it (utils/events.py), opened with the first scalars.
+
+``RingStat`` is the bounded sample window the metric registry's
+histograms keep (obs/registry.py).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import json
 import os
 import sys
 import time
+from collections import deque
 from typing import Any
 
 from nanosandbox_tpu_torch.utils.events import EventFileWriter
@@ -23,11 +27,65 @@ _WARNED: set[str] = set()
 
 
 def warn_once(key: str, msg: str) -> None:
-    """Print msg to stderr the first time key is seen in the process."""
+    """Print msg to stderr the first time key is seen in the process.
+    Every firing also counts in the process-global metric registry as
+    ``warn_once_fired_total{key=...}``."""
     if key in _WARNED:
         return
     _WARNED.add(key)
+    # Lazy import: obs.registry imports RingStat from this module.
+    from nanosandbox_tpu_torch.obs.registry import global_registry
+    global_registry().counter(
+        "warn_once_fired_total",
+        "One-shot warn_once firings, by dedup key.",
+        labelnames=("key",)).labels(key=key).inc()
     print(msg, file=sys.stderr, flush=True)
+
+
+def reset_for_tests() -> None:
+    """Clear the warn_once dedup set so a test can assert that a warning
+    fires (once). The ``warn_once_fired_total`` counter is not reset: it
+    is a monotonic process-lifetime ledger."""
+    _WARNED.clear()
+
+
+class RingStat:
+    """Bounded ring of float samples with mean and percentile reads:
+    O(1) memory over an unbounded stream, and percentiles of the recent
+    window ("how slow is it now")."""
+
+    def __init__(self, maxlen: int = 1024):
+        self._buf: deque = deque(maxlen=maxlen)
+
+    def record(self, x: float) -> None:
+        self._buf.append(float(x))
+
+    def __len__(self) -> int:
+        return len(self._buf)
+
+    def clear(self) -> None:
+        self._buf.clear()
+
+    def mean(self) -> float | None:
+        # list(deque) is one C-level copy: reads may race the recording
+        # thread (an HTTP handler against the engine loop).
+        buf = list(self._buf)
+        if not buf:
+            return None
+        return sum(buf) / len(buf)
+
+    def percentiles(self, ps: tuple = (50, 90, 99)) -> dict | None:
+        """{"p50": ..., "p90": ..., ...} over the window (nearest rank),
+        or None before the first sample."""
+        srt = sorted(self._buf)
+        if not srt:
+            return None
+        n = len(srt)
+        out = {}
+        for p in ps:
+            rank = max(1, -(-int(p) * n // 100))  # ceil(p/100 * n), >= 1
+            out[f"p{int(p)}"] = srt[min(rank, n) - 1]
+        return out
 
 
 class MetricsWriter:

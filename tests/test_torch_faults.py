@@ -394,7 +394,7 @@ def test_http_readiness_recovery_and_failure(model):
     srv, loop, th, base = _serve(eng, sup)
     try:
         assert _get(base + "/healthz?ready=1")[:2] == (
-            200, {"ok": True, "ready": True})
+            200, {"ok": True, "ready": True, "draining": False})
         out = {}
         ths = [threading.Thread(target=lambda i=i: out.__setitem__(
             i, _post(base, {"prompt_tokens": prompts[i],

@@ -79,7 +79,9 @@ def test_importing_every_module_loads_no_jax():
     for mod in ("ops.ring_attention", "parallel.distributed",
                 "parallel.mesh", "obs.slo", "serve.brownout",
                 "serve.scheduler", "serve.faults", "serve.spec",
-                "serve.drafters", "serve.recovery", "obs.flight"):
+                "serve.drafters", "serve.recovery", "obs.flight",
+                "obs.registry", "obs.tracer", "obs.vitals",
+                "utils.profiler"):
         assert f"nanosandbox_tpu_torch.{mod}" in names, names
 
 
@@ -133,7 +135,9 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     remat legs' iter 0 losses are the first run's bits; the sample CLI
     prints its samples and generate equals the argmax loop), and the
     launch check then refuses each run, because on the CPU no kernel
-    launched. The trainer phase prepares its BPE dataset from a 200 KB
+    launched. Phase 17 (observability) passes its /metrics, /trace,
+    /debug, /profile, watchdog, /drain and telemetry-cost checks first.
+    The trainer phase prepares its BPE dataset from a 200 KB
     slice of the XL corpus, held to the sha256s of the JAX package's
     prepare of the same slice, so the test never BPE-encodes 25 MB."""
     import hashlib
@@ -179,7 +183,9 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path):
                                                       paged),
                   lambda: chip_smoke.check_trainer(at, fd, "cpu",
                                                    str(tmp_path)),
-                  lambda: chip_smoke.check_sampler(str(tmp_path))):
+                  lambda: chip_smoke.check_sampler(str(tmp_path)),
+                  lambda: chip_smoke.check_observability(fd, "cpu",
+                                                         str(tmp_path))):
         with pytest.raises(SystemExit, match="bypassed a kernel"):
             phase()
 
@@ -425,12 +431,16 @@ def test_build_compiles_every_source_and_hashes_every_header():
     assert entry == set(sigs), sorted(entry ^ set(sigs))
 
 
-def test_unported_paths_raise():
-    """The dense pool and the int8/int4 pools are ported and construct;
-    a dense T > 1 call at a nonzero scalar cache_index (speculative
-    verify is per-row and ported) and the watchdogs' dumps are not, and
-    raise; an unknown --spec value is refused."""
+def test_unported_paths_raise(tmp_path):
+    """The dense pool and the int8/int4 pools are ported and construct,
+    and so does an engine with a watchdog dump directory; a dense T > 1
+    call at a nonzero scalar cache_index (speculative verify is per-row
+    and ported) and a tensor-parallel mesh axis (ROADMAP A10) are not,
+    and raise; the serve CLI refuses the fleet's --role and --replicas
+    (ROADMAP A9), and an unknown --spec value."""
     from nanosandbox_tpu_torch.models.gpt import init_cache
+    from nanosandbox_tpu_torch.parallel.mesh import make_mesh
+    from nanosandbox_tpu_torch.serve.__main__ import build_parser
     from nanosandbox_tpu_torch.serve.drafters import drafter_from_flag
 
     model = GPT(GPTConfig(n_layer=1, n_head=2, n_embd=64, block_size=32,
@@ -445,9 +455,14 @@ def test_unported_paths_raise():
                                         match="not ported yet"):
         model(torch.zeros(1, 3, dtype=torch.int64),
               cache=init_cache(model.cfg, 1, 32), cache_index=5)
+    eng = Engine(model, num_slots=1, max_len=32, device="cpu",
+                 watchdog_dir=str(tmp_path / "dumps"))
+    assert eng.watchdog.dump_dir == str(tmp_path / "dumps")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        Engine(model, num_slots=1, max_len=32, device="cpu",
-               watchdog_dir="dumps")
+        make_mesh(1, 1, 2, 1, world_size=2)
+    for flag in ("--role=decode", "--replicas=http://127.0.0.1:1"):
+        with pytest.raises(SystemExit):
+            build_parser().parse_args([flag])
     with pytest.raises(ValueError, match="unknown --spec"):
         drafter_from_flag("bogus")
 

@@ -49,6 +49,8 @@ from nanosandbox_tpu_torch.checkpoint import save_for_serving
 from nanosandbox_tpu_torch.config import GPTConfig
 from nanosandbox_tpu_torch.models.convert import state_dict_from_jax_params
 from nanosandbox_tpu_torch.models.gpt import GPT
+from nanosandbox_tpu_torch.obs import FlightRecorder as TFlightRecorder
+from nanosandbox_tpu_torch.obs import MetricRegistry as TMetricRegistry
 from nanosandbox_tpu_torch.obs.slo import SLOLedger
 from nanosandbox_tpu_torch.serve.__main__ import build_parser, build_server
 from nanosandbox_tpu_torch.serve.brownout import LEVELS, BrownoutController
@@ -181,28 +183,31 @@ def _apply(ledger, event):
 
 def test_slo_ledger_matches_jax():
     rng = np.random.default_rng(1)
-    ours, theirs = SLOLedger(), JaxSLOLedger(MetricRegistry())
+    ours_reg, theirs_reg = TMetricRegistry(), MetricRegistry()
+    ours, theirs = SLOLedger(ours_reg), JaxSLOLedger(theirs_reg)
     for burn in (False, True, False):
         for event in _finishes(rng, 80, burn=burn):
             assert _apply(ours, event) == _apply(theirs, event)
             assert ours.totals() == theirs.totals()
             assert ours.stats() == theirs.stats()
+        # The registry mirror renders the same text.
+        assert ours_reg.prometheus_text() == theirs_reg.prometheus_text()
     ours.reset()
     theirs.reset()
     assert ours.stats() == theirs.stats() and ours.totals() == (0, 0, 0)
+    assert ours_reg.prometheus_text() == theirs_reg.prometheus_text()
 
 
 class _StubEngine:
-    """What a controller reads and writes on an Engine."""
+    """What a controller reads and writes on an Engine, with the registry
+    and flight recorder it publishes on."""
 
-    def __init__(self, slo, scan_k, metrics=None):
+    def __init__(self, slo, scan_k, metrics, flight):
         self.slo, self.scan_k = slo, scan_k
         self.steps = self.brownout_sheds = 0
         self.scan_cap = self.brownout_min_priority = None
         self.spec_suspended = False
-        if metrics is not None:     # what JAX's controller publishes on
-            self.metrics = metrics
-            self.flight = FlightRecorder()
+        self.metrics, self.flight = metrics, flight
 
 
 @pytest.mark.parametrize("scan_k,kw", [
@@ -211,9 +216,9 @@ class _StubEngine:
              escalate_below=0.6, clear_above=0.9))])
 def test_brownout_controller_matches_jax(scan_k, kw):
     rng = np.random.default_rng(scan_k + len(kw))
-    reg = MetricRegistry()
-    ours = _StubEngine(SLOLedger(), scan_k)
-    theirs = _StubEngine(JaxSLOLedger(reg), scan_k, metrics=reg)
+    reg, treg = MetricRegistry(), TMetricRegistry()
+    ours = _StubEngine(SLOLedger(treg), scan_k, treg, TFlightRecorder())
+    theirs = _StubEngine(JaxSLOLedger(reg), scan_k, reg, FlightRecorder())
     c_ours = BrownoutController(ours, **kw)
     c_theirs = JaxBrownoutController(theirs, **kw)
     seen = set()
@@ -241,6 +246,14 @@ def test_brownout_controller_matches_jax(scan_k, kw):
             seen.add(c_ours.level)
     assert seen == set(range(len(LEVELS))), seen
     assert c_ours.transitions == c_theirs.transitions >= len(LEVELS) - 1
+    # The level gauge, the transition counter and the flight events.
+    assert treg.prometheus_text() == reg.prometheus_text()
+
+    def events(eng):
+        return [{k: v for k, v in e.items() if k not in ("t", "wall")}
+                for e in eng.flight.events()]
+
+    assert events(ours) == events(theirs)
 
 
 # ---------------------------------------------------------------------------
