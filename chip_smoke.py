@@ -1,10 +1,10 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases=2,3,7,9,13,14,15,16,17]
+    python3 chip_smoke.py [--phases=2,3,7,9,13,14,15,16,17,18]
 
 Phases (each prints what it found; any failure exits non-zero; --phases
 runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13,
-14, 15, 16 or 17, and prints no result line):
+14, 15, 16, 17 or 18, and prints no result line):
 
   1. device   torch / CUDA versions, the card's name and power limit;
   2. build    the CUDA kernels from nanosandbox_tpu_torch/csrc (into
@@ -245,6 +245,31 @@ runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13,
               tokens, graph replays, counted launches and one traced
               step's kernels equal, and the median step walls printed
               beside the card's name and power limit.
+ 18. multi-replica serving  (a) phase 5's bf16 model and requests
+              through a DisaggPair (a prefill and a decode engine, 8
+              slots x 1024, on the one card) over bf16, int8 and int4
+              pools: tokens equal to a colocated paged engine's, every
+              adopted block's codes and scales the source's bits, the
+              decode tier's K1 launches 0 (eager and in its graphs) and
+              its prefill dispatches 0, its K2 launches > 0, the
+              prefill tier's K1 > 0; the bytes moved a request, the
+              migration's host wall p50 and one chain's copy timed on
+              the card, beside the card's name and power limit; then, on
+              phase 4's fp32 model, replica_down in the migration window
+              of four late requests while four decode: each request
+              ends once with the colocated engine's tokens (restitched
+              and fallen back); (b) a Fleet of two bf16 engines: three
+              followers of a 128-token prefix route by affinity to the
+              warm replica, tokens equal to a colocated engine served
+              alike; a Fleet of two fp32 engines under replica_down with
+              eight requests decoding: failover, one terminal a
+              namespaced rid, the colocated engine's tokens; (c) a
+              --role=prefill and a --role=decode server behind an
+              in-process RouterFrontend on loopback: phase 5's 60-token
+              greedy request migrates with phase 5's server's tokens,
+              serve_migrated_out_total >= 1 on the prefill pod and
+              serve_adopted_in_total >= 1 on the decode pod, which ran
+              no prefill. The launch checks come last.
 
 The last line is {"ok": true, "device": {...}}; the line before it is a
 JSON object with one entry per kernel instance timed (K1 twice for each
@@ -3896,9 +3921,472 @@ def check_observability(fd, smi: str, tmp: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 18: multi-replica serving
+# ---------------------------------------------------------------------------
+
+FLEET_KV_MODES = ("bf16", "int8", "int4")
+FLEET_NEW = 64          # phase 5's budget
+
+
+def bf16_model():
+    """Phase 5's bf16 124M model (the weights its server loads), in
+    process."""
+    from nanosandbox_tpu_torch.config import GPTConfig
+    from nanosandbox_tpu_torch.models.gpt import GPT, cast_for_serving
+
+    return cast_for_serving(GPT(GPTConfig(**MODEL), device=DEVICE,
+                                generator=torch.Generator(
+                                    device=DEVICE).manual_seed(SEED)))
+
+
+def phase5_requests(cfg) -> list:
+    """Phase 5's six /generate bodies as (prompt, sampling keywords)."""
+    out = []
+    for bodies in server_rounds(cfg):
+        for body in bodies:
+            body = dict(body)
+            out.append((body.pop("prompt_tokens"), body))
+    return out
+
+
+def serve_all(eng, reqs, new) -> list:
+    """Submit every request at once and drain: each one's (tokens, finish
+    reason), in order; fails unless every request ended exactly once."""
+    rids = [eng.submit(p, new, **kw) for p, kw in reqs]
+    out = eng.drain()
+    sync()
+    if sorted(str(r.rid) for r in out) != sorted(str(r) for r in rids):
+        fail(f"{type(eng).__name__}: results {[r.rid for r in out]} for "
+             f"requests {rids} (a request ended twice, or never)")
+    got = {r.rid: (r.tokens, r.finish_reason) for r in out}
+    return [got[r] for r in rids]
+
+
+def engine_counts(fd, at, engines: dict) -> dict:
+    """Wrap each engine's step so that the kernel wrappers' eager
+    launches and plain-version calls made inside it are charged to that
+    engine; zero the counts and the replays. Returns {name: {"launches":
+    {}, "plain": {}}}, filled as the engines step; graph replays are
+    added by engine_totals after the run."""
+    fd.reset_counts()
+    at.reset_counts()
+    per = {name: {"launches": {}, "plain": {}} for name in engines}
+
+    def snap():
+        return (dict(fd.launches),
+                {**fd.plain_cuda_calls, **at.plain_cuda_calls})
+
+    for name, eng in engines.items():
+        zero_replays(eng)
+        step = eng.step
+
+        def counted(_step=step, _name=name):
+            l0, p0 = snap()
+            try:
+                return _step()
+            finally:
+                l1, p1 = snap()
+                for key, d0, d1 in (("launches", l0, l1),
+                                    ("plain", p0, p1)):
+                    acc = per[_name][key]
+                    for k, v in d1.items():
+                        if v - d0[k]:
+                            acc[k] = acc.get(k, 0) + v - d0[k]
+
+        eng.step = counted
+    return per
+
+
+def engine_totals(per: dict, engines: dict) -> dict:
+    """Each engine's launches and plain calls: its steps' eager counts
+    plus its graph replays x their capture-time counts."""
+    out = {}
+    for name, eng in engines.items():
+        launches = dict(per[name]["launches"])
+        plain = dict(per[name]["plain"])
+        for acc, graphs in ((launches, eng.graph_launches),
+                            (plain, eng.graph_plain_calls)):
+            for k, v in replay_counts(eng, graphs).items():
+                acc[k] = acc.get(k, 0) + v
+        out[name] = {"launches": launches, "plain": plain}
+    return out
+
+
+def bitwise_copies(pair) -> list:
+    """Check every adoption's copy as it lands: the blocks read back from
+    the decode tier's pool must be the source's bits, codes and scales
+    alike. Returns the per-migration byte counts, filled as it runs."""
+    sizes: list = []
+    write = pair.decode.write_pool_blocks
+
+    def checked(block_ids, values):
+        n = write(block_ids, values)
+        back = pair.decode.read_pool_blocks(block_ids)
+        for got, want in zip(back, values):
+            if not torch.equal(got.contiguous().view(torch.uint8),
+                               want[:len(block_ids)].contiguous()
+                               .view(torch.uint8)):
+                fail(f"adopted blocks {list(block_ids)} are not the "
+                     f"source's bits ({got.dtype} leaf)")
+        sizes.append(n)
+        return n
+
+    pair.decode.write_pool_blocks = checked
+    return sizes
+
+
+def exactly_once(name: str, events: list) -> None:
+    """Every namespaced rid that entered an engine (submit, adopt) ends
+    there exactly once, or hands its request off (migrate) and ends
+    nowhere there."""
+    from nanosandbox_tpu_torch.obs.flight import TERMINAL_EVENTS
+
+    terms: dict = {}
+    entered, moved = set(), set()
+    for e in events:
+        if e["ev"] in ("submit", "adopt"):
+            entered.add(e["rid"])
+        elif e["ev"] == "migrate":
+            moved.add(e["rid"])
+        elif e["ev"] in TERMINAL_EVENTS:
+            terms[e["rid"]] = terms.get(e["rid"], 0) + 1
+    bad = {rid: terms.get(rid, 0) for rid in entered
+           if terms.get(rid, 0) != (0 if rid in moved else 1)}
+    if bad:
+        fail(f"{name}: terminals per rid {bad} (want one each)")
+
+
+def transfer_ms(pair, blocks: int) -> tuple:
+    """Device time of one migration's copy of ``blocks`` chain blocks
+    (read_pool_blocks on the prefill tier, write_pool_blocks on the
+    decode tier, the same ids both sides; the engines are idle) and the
+    bytes it moves."""
+    ids = list(range(blocks))
+    vals = pair.prefill.read_pool_blocks(ids)
+    nbytes = sum(v.numel() * v.element_size() for v in vals)
+    # The class's write, not bitwise_copies' checking wrapper.
+    write = type(pair.decode).write_pool_blocks
+    ms = time_ms(lambda: write(pair.decode, ids,
+                               pair.prefill.read_pool_blocks(ids)))
+    return ms, nbytes
+
+
+def check_disagg_pairs(fd, at, smi: str, bf16, reqs) -> dict:
+    """18a: per pool dtype, a DisaggPair against a colocated paged engine
+    on phase 5's requests: tokens equal, every copy bit-identical, the
+    decode tier's K1 launches 0 (eager and in its graphs) and no prefill
+    dispatch, its K2 launches > 0, the prefill tier's K1 > 0; the
+    migration's host wall p50 (export to adoption committed), its bytes a
+    request and the device time of one request's copy."""
+    from nanosandbox_tpu_torch.serve.disagg import DisaggPair
+    from nanosandbox_tpu_torch.serve.engine import Engine
+
+    kw = dict(num_slots=8, max_len=1024, device=DEVICE)
+    out: dict = {}
+    for mode in FLEET_KV_MODES:
+        ref = serve_all(Engine(bf16, kv_dtype=mode, **kw), reqs, FLEET_NEW)
+        pair = DisaggPair(bf16, kv_dtype=mode, **kw)
+        sizes = bitwise_copies(pair)
+        per = engine_counts(fd, at, pair.engines)
+        got = serve_all(pair, reqs, FLEET_NEW)
+        tot = engine_totals(per, pair.engines)
+        st = pair.stats()
+        bad = [i for i, (g, w) in enumerate(zip(got, ref)) if g != w]
+        if bad:
+            fail(f"18a {mode}: DisaggPair tokens differ from the colocated "
+                 f"engine's for requests {bad}")
+        if st["migrations"] != len(reqs) or not sizes:
+            fail(f"18a {mode}: {st['migrations']} migrations of "
+                 f"{len(reqs)} requests")
+        exactly_once(f"18a {mode}", pair.merged_flight_events())
+        dec = st["tiers"]["decode"]
+        if dec["prefill_waves"] or dec["prefill_chunks"]:
+            fail(f"18a {mode}: the decode tier dispatched prefills: {dec}")
+        chain = max(len(p) for p, _ in reqs) // pair.prefill.kv_page_size
+        ms, nbytes = (transfer_ms(pair, chain) if DEVICE != "cpu"
+                      else (float("nan"), 0))
+        out[mode] = {"tokens": got, "totals": tot, "stats": st,
+                     "bytes_per_request": sum(sizes) / len(sizes),
+                     "migration_s": st["migration_s"],
+                     "copy_ms": ms, "copy_bytes": nbytes,
+                     "copy_blocks": chain}
+        print(f"  18a {mode}: {len(reqs)} requests x {FLEET_NEW} tokens equal "
+              f"to the colocated engine's, {st['migrations']} migrations, "
+              f"every copy bit-identical; launches prefill tier "
+              f"{tot['prefill']['launches']}, decode tier "
+              f"{tot['decode']['launches']}")
+        del pair
+        if DEVICE != "cpu":
+            torch.cuda.empty_cache()
+    print(f"  [{smi}] pool  bytes/request  migration p50 ms (host, export "
+          "to adoption)  copy of one chain: blocks, MB, device ms, GB/s")
+    for mode, r in out.items():
+        p50 = r["migration_s"]["p50"]
+        print(f"  {mode:<5} {r['bytes_per_request']:14.0f}  "
+              f"{p50 * 1e3:10.3f}  {r['copy_blocks']:4d} "
+              f"{r['copy_bytes'] / 1e6:8.3f} {r['copy_ms']:9.4f} "
+              f"{r['copy_bytes'] / max(r['copy_ms'], 1e-9) / 1e6:8.1f}")
+    return out
+
+
+def check_pair_kill(fd, at, fp32, prompts) -> dict:
+    """18a's replica_down leg, on phase 4's fp32 model (a restitched
+    victim's salvaged tokens are prefilled where the colocated engine
+    decoded them; in fp32 that cannot move a greedy token, in bf16 it
+    can): phase 4's prompts migrate, then four more arrive four steps
+    later and the kill fires in their migration window, with the first
+    four decoding on the decode tier. Every request ends once, with the
+    colocated engine's tokens."""
+    from nanosandbox_tpu_torch.serve.disagg import DisaggPair
+    from nanosandbox_tpu_torch.serve.engine import Engine
+    from nanosandbox_tpu_torch.serve.faults import FaultPlan
+
+    rng = np.random.default_rng(SEED + 18)
+    late = [[int(t) for t in rng.integers(0, prompt_vocab(fp32.cfg), n)]
+            for n in (33, 90, 140, 200)]
+    reqs = [(p, {}) for p in prompts + late]
+    kw = dict(num_slots=8, max_len=1024, device=DEVICE)
+    ref = serve_all(Engine(fp32, **kw), reqs, ENGINE_NEW)
+    pair = DisaggPair(fp32, faults=FaultPlan.parse("replica_down@4"), **kw)
+    per = engine_counts(fd, at, pair.engines)
+    rids = [pair.submit(p, ENGINE_NEW) for p in prompts]
+    results = []
+    for _ in range(4):
+        results += pair.step()
+    rids += [pair.submit(p, ENGINE_NEW) for p in late]
+    results += pair.drain()
+    sync()
+    got = {r.rid: (r.tokens, r.finish_reason) for r in results}
+    if sorted(got) != sorted(rids) or len(results) != len(rids):
+        fail(f"18a kill: results {[r.rid for r in results]} for {rids}")
+    bad = [i for i, r in enumerate(rids) if got[r] != ref[i]]
+    if bad or not pair.decode.failed or pair.replica_downs != 1:
+        fail(f"18a kill: tokens differ for requests {bad}; decode tier "
+             f"failed {pair.decode.failed}, kills {pair.replica_downs}")
+    exactly_once("18a kill", pair.merged_flight_events())
+    st = pair.stats()
+    restitched = sum(e["ev"] == "failover" for e in pair.flight.events())
+    print(f"  18a kill: replica_down in the migration window at step "
+          f"{[e['step'] for e in pair.flight.events() if e['ev'] == 'replica_down']}"
+          f": {restitched} decoding requests restitched onto the prefill "
+          f"tier, {st['fallbacks']} exports fell back colocated, "
+          f"{len(rids)} requests ended once with the colocated engine's "
+          f"tokens")
+    return {"totals": engine_totals(per, pair.engines),
+            "restitched": restitched, "fallbacks": st["fallbacks"]}
+
+
+def check_fleet(fd, at, bf16, fp32, prompts) -> dict:
+    """18b: a Fleet of two bf16 engines takes a request and then three
+    sharing its 128-token prefix, one at a time: each follower routes
+    to the warm replica by affinity and prefills only its suffix, and
+    every answer equals a colocated bf16 engine's served the same way.
+    Then a Fleet of two fp32 engines (phase 4's model: a failover
+    prefills its victims' salvaged tokens, see check_pair_kill) under
+    replica_down at step 6 with eight requests decoding: the victims
+    fail over, each request ends once (one terminal a namespaced rid),
+    and the tokens equal the colocated fp32 engine's."""
+    from nanosandbox_tpu_torch.serve.engine import Engine
+    from nanosandbox_tpu_torch.serve.faults import FaultPlan
+    from nanosandbox_tpu_torch.serve.fleet import Fleet
+
+    kw = dict(num_slots=8, max_len=1024, device=DEVICE)
+    rng = np.random.default_rng(SEED + 19)
+    vocab = prompt_vocab(bf16.cfg)
+    shared = [int(t) for t in rng.integers(0, vocab, 128)]
+    reqs = [(shared + [int(t) for t in rng.integers(0, vocab, n)],
+             {"temperature": 0.8, "top_k": 40, "seed": i} if i % 2 else {})
+            for i, n in enumerate((40, 25, 70, 9))]
+    colo = Engine(bf16, **kw)
+    ref = [serve_all(colo, [r], FLEET_NEW)[0] for r in reqs]
+    fleet = Fleet(bf16, n_replicas=2, **kw)
+    per = engine_counts(fd, at, fleet.replicas)
+    got, homes = [], []
+    for r in reqs:
+        fid = fleet.submit(r[0], FLEET_NEW, **r[1])
+        (res,) = fleet.drain()
+        got.append((res.tokens, res.finish_reason))
+        homes.append(fid.split(":")[0])
+    sync()
+    routes = [e for e in fleet.flight.events() if e["ev"] == "route"]
+    hits = sum(e["reason"] == "affinity" for e in routes)
+    if got != ref or hits < 3 or len(set(homes)) != 1:
+        fail(f"18b affinity: tokens equal {got == ref}, routes "
+             f"{[(e['replica'], e['reason'], e['est_hit_tokens']) for e in routes]}")
+    warm = fleet.replicas[homes[0]].block_pool.stats()
+    print(f"  18b affinity (bf16): {len(reqs)} requests, the followers "
+          f"routed by affinity to {homes[0]} ({hits} affinity decisions, "
+          f"est. hits {[e['est_hit_tokens'] for e in routes]}; prefix hit "
+          f"tokens there {warm['prefix_hit_tokens']}), tokens equal to the "
+          f"colocated engine's")
+    aff = engine_totals(per, fleet.replicas)
+    del fleet, colo
+    late = [[int(t) for t in rng.integers(0, prompt_vocab(fp32.cfg), n)]
+            for n in (50, 120, 64, 230)]
+    reqs = [(p, {}) for p in prompts + late]
+    ref = serve_all(Engine(fp32, **kw), reqs, ENGINE_NEW)
+    fleet = Fleet(fp32, n_replicas=2,
+                  faults=FaultPlan.parse("replica_down@6"), **kw)
+    per = engine_counts(fd, at, fleet.replicas)
+    got = serve_all(fleet, reqs, ENGINE_NEW)
+    bad = [i for i, (g, w) in enumerate(zip(got, ref)) if g != w]
+    events = fleet.merged_flight_events()
+    fails = [e for e in events if e["ev"] == "failover"]
+    if bad or fleet.replica_downs != 1 or not fails:
+        fail(f"18b failover: tokens differ for requests {bad}; kills "
+             f"{fleet.replica_downs}, failovers {len(fails)}")
+    exactly_once("18b failover", events)
+    print(f"  18b failover (fp32): replica_down at step 6 killed "
+          f"{fails[0]['dead']} with {len(fails)} requests decoding; each "
+          f"failed over with its salvaged tokens "
+          f"{[e['tokens'] for e in fails]}, {len(reqs)} requests ended once "
+          f"with the colocated engine's tokens")
+    return {"affinity": aff, "failover": engine_totals(per, fleet.replicas),
+            "failovers": len(fails)}
+
+
+def check_http_tiers(fd, at, smi: str, want: list) -> dict:
+    """18c: a --role=prefill and a --role=decode server (phase 5's model
+    and flags; --warmup=buckets) behind an in-process RouterFrontend, all
+    on loopback: phase 5's 60-token greedy request migrates (the answer
+    names both replicas) with ``want``'s tokens; the prefill pod's
+    serve_migrated_out_total and the decode pod's serve_adopted_in_total
+    are >= 1, and the decode pod ran no prefill."""
+    from nanosandbox_tpu_torch.checkpoint import save_for_serving
+    from nanosandbox_tpu_torch.config import GPTConfig
+    from nanosandbox_tpu_torch.models.gpt import GPT
+    from nanosandbox_tpu_torch.serve.__main__ import build_server
+    from nanosandbox_tpu_torch.serve.http import RouterFrontend
+
+    cfg = GPTConfig(**MODEL)
+    pods: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as out_dir:
+        model = GPT(cfg, device=DEVICE, generator=torch.Generator(
+            device=DEVICE).manual_seed(SEED))
+        save_for_serving(out_dir, cfg, model.state_dict())
+        del model
+        for role in ("prefill", "decode"):
+            server, loop, engine = build_server([
+                f"--out_dir={out_dir}", "--host=127.0.0.1", "--port=0",
+                "--num_slots=8", "--max_len=1024", "--kv_page_size=16",
+                "--warmup=buckets", f"--device={DEVICE}", f"--role={role}"])
+            th = threading.Thread(target=server.serve_forever, daemon=True)
+            th.start()
+            pods[role] = (server, loop, engine, th,
+                          f"http://127.0.0.1:{server.server_address[1]}")
+    engines = {role: pod[2] for role, pod in pods.items()}
+    fe = None
+    try:
+        fe = RouterFrontend([pods["prefill"][4], pods["decode"][4]],
+                            host="127.0.0.1", port=0, page=16,
+                            health_interval_s=0.2).start()
+        base = f"http://127.0.0.1:{fe.port}"
+        deadline = time.monotonic() + 60
+        while not fe._phase_tiering():
+            if time.monotonic() > deadline:
+                fail(f"18c: the router never saw both tiers ready: "
+                     f"{fe.router.stats()}")
+            time.sleep(0.05)
+        per = engine_counts(fd, at, engines)
+        prompt, kwargs = phase5_requests(cfg)[2]
+        code, body = http_post(base + "/generate", dict(
+            kwargs, prompt_tokens=prompt, max_new_tokens=FLEET_NEW))
+        sync()
+        out_m = scrape(pods["prefill"][4])["values"]
+        in_m = scrape(pods["decode"][4])["values"]
+        router = json.loads(http_get(base + "/debug/router")[1])
+        fe_m = scrape(base)["values"]
+    finally:
+        if fe is not None:
+            fe.stop()
+        for server, loop, _, th, _ in pods.values():
+            server.shutdown()
+            server.server_close()
+            loop.stop()
+            loop.join(timeout=60)
+            th.join(timeout=60)
+    tot = engine_totals(per, engines)
+    if code != 200 or body.get("migrated_from") != pods["prefill"][4] \
+            or body.get("replica") != pods["decode"][4]:
+        fail(f"18c: /generate through the router answered {code}: "
+             f"{ {k: v for k, v in body.items() if k != 'tokens'} }")
+    if body["tokens"] != want:
+        fail("18c: the migrated request's tokens differ from phase 5's "
+             "server's")
+    migrated = out_m.get("serve_migrated_out_total", 0)
+    adopted = in_m.get("serve_adopted_in_total", 0)
+    if migrated < 1 or adopted < 1:
+        fail(f"18c: serve_migrated_out_total {migrated} on the prefill "
+             f"pod, serve_adopted_in_total {adopted} on the decode pod")
+    dstats = engines["decode"].stats()
+    if dstats["prefill_waves"] or dstats["prefill_chunks"]:
+        fail(f"18c: the decode pod prefilled: {dstats['prefill_waves']} "
+             "waves")
+    print(f"  18c http: the router migrated phase 5's 60-token request "
+          f"({len(want)} tokens, equal to the reference): prefill pod "
+          f"serve_migrated_out_total {migrated:.0f}, decode pod "
+          f"serve_adopted_in_total {adopted:.0f}; router decisions "
+          f"{router['router']['decisions']}, serve_migrations_total "
+          f"{ {k: v for k, v in fe_m.items() if 'serve_migrations_total' in k} }; "
+          f"launches prefill pod {tot['prefill']['launches']}, decode pod "
+          f"{tot['decode']['launches']}")
+    return tot
+
+
+def check_fleet_serving(fd, at, smi: str, served=None) -> dict:
+    """Phase 18: 18a (check_disagg_pairs, check_pair_kill), 18b
+    (check_fleet), 18c (check_http_tiers, its request's tokens held to
+    phase 5's server's answer, or standalone to 18a's colocated bf16
+    engine's, which phase 5's answer equals: the request prefills alone
+    in a rung-1 wave and decodes in the 8-slot batch either way). The
+    launch checks come last: K1 on every decode tier 0, K2 there > 0, K1
+    on every prefill tier > 0, no plain version on the card."""
+    t_phase = time.monotonic()
+    bf16 = bf16_model()
+    reqs = phase5_requests(bf16.cfg)
+    pairs = check_disagg_pairs(fd, at, smi, bf16, reqs)
+    fp32, prompts = fp32_model_and_prompts()
+    kill = check_pair_kill(fd, at, fp32, prompts)
+    fleet = check_fleet(fd, at, bf16, fp32, prompts)
+    del bf16, fp32
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    colocated = pairs["bf16"]["tokens"][2][0]
+    if served is not None and served[2] != colocated:
+        fail("18a: the colocated bf16 engine's answer to phase 5's 60-token "
+             "request differs from phase 5's server's")
+    http = check_http_tiers(fd, at, smi, colocated if served is None
+                            else served[2])
+    # The launch checks.
+    tiers = [(f"18a {mode}", r["totals"]) for mode, r in pairs.items()]
+    tiers += [("18a kill", kill["totals"]), ("18c http", http)]
+    for name, tot in tiers:
+        k1 = {k: v for k, v in tot["decode"]["launches"].items()
+              if k.startswith("flash_prefill_paged")}
+        if any(k1.values()):
+            fail(f"{name}: the decode tier launched K1: {k1}")
+        for role, kernel in (("decode", "flash_decode_paged"),
+                             ("prefill", "flash_prefill_paged")):
+            if not any(v for k, v in tot[role]["launches"].items()
+                       if k.startswith(kernel)):
+                fail(f"{name} bypassed a kernel: the {role} tier never "
+                     f"launched {kernel} ({tot[role]['launches']})")
+    for name, tot in tiers + [("18b affinity", fleet["affinity"]),
+                              ("18b failover", fleet["failover"])]:
+        plain = {f"{eng}/{k}": v for eng, t in tot.items()
+                 for k, v in t["plain"].items() if v}
+        if plain:
+            fail(f"{name}: plain versions ran on the card: {plain}")
+        if not any(v for t in tot.values() for v in t["launches"].values()):
+            fail(f"{name} bypassed a kernel: no launch at all")
+    print(f"  phase 18: {time.monotonic() - t_phase:.1f} s")
+    return {"pairs": pairs, "kill": kill, "fleet": fleet, "http": http}
+
+
 # Phases that stand alone, for a partial run (--phases=2,3,7,9,13,14,15,16,
-# 17; 9 runs phase 12 after it).
-STANDALONE_PHASES = (2, 3, 7, 9, 13, 14, 15, 16, 17)
+# 17,18; 9 runs phase 12 after it).
+STANDALONE_PHASES = (2, 3, 7, 9, 13, 14, 15, 16, 17, 18)
 
 
 def train_and_sample(at, fd, smi: str) -> None:
@@ -3965,7 +4453,11 @@ def main(argv: list[str] | None = None) -> int:
                           check_spec_and_recovery(fd, at, smi))),
                 (17, "observability on the live server",
                  lambda: (_build.library(), check_observability(
-                     fd, smi, tempfile.mkdtemp(prefix="chip_smoke_obs_"))))):
+                     fd, smi, tempfile.mkdtemp(prefix="chip_smoke_obs_")))),
+                (18, "multi-replica serving (disaggregated tiers, the "
+                     "fleet, the router)",
+                 lambda: (_build.library(),
+                          check_fleet_serving(fd, at, smi)))):
             if phase in only:
                 print(f"== phase {phase}: {title}")
                 fn()
@@ -4047,6 +4539,10 @@ def main(argv: list[str] | None = None) -> int:
     print("== phase 17: observability on the live server")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
         check_observability(fd, smi, tmp)
+
+    print("== phase 18: multi-replica serving (disaggregated tiers, the "
+          "fleet, the router)")
+    check_fleet_serving(fd, at, smi, served["answers"])
 
     def entry(name, source, replaces, launches, case):
         return {"name": name, "route": "cuda",

@@ -20,6 +20,19 @@ Two host-side pieces close that gap:
     quarantine / requeue / recover events: the request re-enters the
     queue and still reaches exactly one terminal.
 
+    Across replicas and tiers rids are namespaced (``r0:17``,
+    ``prefill:7``: the recorder's ``namespace``), so the ledgers of a
+    fleet or a prefill/decode pair merge into one stream in which each
+    rid still ends once. A fleet's own recorder adds ``route``,
+    ``failover`` and ``replica_down`` events, never a terminal. A
+    migrated request's track spans two engines: ``export`` on the
+    prefill side (first token sampled, the request parked in migration
+    limbo with its slot freed and its blocks held), ``migrate`` there
+    when the chain has moved (blocks, bytes, destination), ``adopt`` on
+    the decode side (the chain admitted as a prefix hit, no prefill),
+    or ``requeue`` at the source when the handoff failed and the
+    request falls back to colocated decode under the same rid.
+
     Each event is one small dict recorded from host state the engine
     already holds (ints and floats), so the pipelined loop gains no
     device read. A record is a dict build and a deque append under a

@@ -27,6 +27,25 @@ allocator bytes) ride every /metrics scrape.
 --device=cpu runs the plain PyTorch attention instead of the kernels.
 Tokenizer flags are optional: without --data_dir, only prompt_tokens
 requests are served.
+
+Multi-replica serving: --role=prefill|decode makes a replica one tier of
+disaggregated serving (a prefill replica answers a migrate-flagged
+/generate with 202 and its block chain; a decode replica adopts chains
+through /internal/adopt, runs no prefill and warms no prefill wave;
+--role=decode needs --paged=on). --router runs the front tier instead of
+a replica: an asyncio proxy over --replicas (comma-separated base URLs,
+or dns+http://name:port) routing by prefix affinity (--router_page must
+match the replicas' --kv_page_size; --no_affinity routes seeded-random),
+polling each replica every --health_interval_s, and proxying the two
+legs of a migration while a prefill and a decode replica are both ready.
+It loads no checkpoint and needs no GPU:
+
+    python -m nanosandbox_tpu_torch.serve --out_dir=out_torch --port=8001 \
+        --role=prefill &
+    python -m nanosandbox_tpu_torch.serve --out_dir=out_torch --port=8002 \
+        --role=decode &
+    python -m nanosandbox_tpu_torch.serve --router --port=8000 \
+        --replicas=http://127.0.0.1:8001,http://127.0.0.1:8002 &
 """
 
 from __future__ import annotations
@@ -37,6 +56,35 @@ import sys
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m nanosandbox_tpu_torch.serve")
+    ap.add_argument("--router", action="store_true",
+                    help="run the fleet's front tier instead of a replica: "
+                         "an asyncio proxy routing POST /generate across "
+                         "--replicas by radix-prefix affinity, with health "
+                         "and load fallback and failover re-routing. Loads "
+                         "no checkpoint and needs no GPU")
+    ap.add_argument("--replicas", default="",
+                    help="router mode: comma-separated replica base URLs "
+                         "(http://host:port), or a dns+http://name:port "
+                         "spec resolved every health interval")
+    ap.add_argument("--health_interval_s", type=float, default=2.0,
+                    help="router mode: seconds between each replica's "
+                         "health, load and prefix-summary polls; a "
+                         "draining or dead replica leaves rotation within "
+                         "one interval")
+    ap.add_argument("--router_page", type=int, default=16,
+                    help="router mode: the replicas' KV page size (their "
+                         "--kv_page_size), or no prefix fingerprint will "
+                         "ever match")
+    ap.add_argument("--no_affinity", action="store_true",
+                    help="router mode: route seeded-random over the ready "
+                         "replicas (the affinity-blind baseline)")
+    ap.add_argument("--role", default="both",
+                    choices=("both", "prefill", "decode"),
+                    help="disaggregated serving tier: 'prefill' answers a "
+                         "migrate-flagged /generate with 202 and its block "
+                         "chain; 'decode' adopts chains via /internal/adopt "
+                         "with no prefill (and warms no prefill wave; needs "
+                         "--paged=on); 'both' (default) serves colocated")
     ap.add_argument("--out_dir", default="out")
     ap.add_argument("--data_dir", default="",
                     help="prepared-dataset root holding <dataset>/meta.pkl "
@@ -149,10 +197,11 @@ def warm_up(engine, mode: str) -> int:
     cache flushed between waves so that no warmup prompt shortens the
     next one's suffix or serves a hit to live traffic; then every decode
     chunk length once over the parked slots, and the latency windows
-    cleared. Returns the waves run."""
+    cleared. 'decode' (a decode-tier replica) runs no wave. Returns the
+    waves run."""
     rungs = engine.admit_buckets if mode == "full" else [1]
     waves, lo = 0, 1
-    for bucket in engine.sched.buckets:
+    for bucket in engine.sched.buckets if mode != "decode" else ():
         # A length in (previous bucket, bucket], leaving room for two new
         # tokens so the wave's rows also reach the decode step; a bucket
         # reachable only by one-token requests warms with one.
@@ -171,6 +220,27 @@ def warm_up(engine, mode: str) -> int:
     engine.warm_scan_rungs()
     engine.reset_latency_stats()
     return waves
+
+
+def build_router(args):
+    """The started RouterFrontend of --router mode (no checkpoint, no
+    torch device)."""
+    from nanosandbox_tpu_torch.serve.http import RouterFrontend
+
+    replicas = [u.strip() for u in args.replicas.split(",") if u.strip()]
+    if not replicas:
+        raise SystemExit("--router needs --replicas=<url,url,...> or "
+                         "--replicas=dns+http://name:port")
+    fe = RouterFrontend(replicas, host=args.host, port=args.port,
+                        page=args.router_page,
+                        health_interval_s=args.health_interval_s,
+                        affinity=not args.no_affinity).start()
+    print(f"[serve-router] routing {replicas} (affinity="
+          f"{'off' if args.no_affinity else 'on'}, page={args.router_page}, "
+          f"health every {args.health_interval_s}s); listening on "
+          f"{args.host}:{fe.port} (POST /generate, GET /healthz "
+          "/debug/router /metrics)", file=sys.stderr, flush=True)
+    return fe
 
 
 def build_server(argv: list[str] | None = None):
@@ -192,6 +262,11 @@ def build_server(argv: list[str] | None = None):
 
     args = build_parser().parse_args(argv if argv is not None
                                      else sys.argv[1:])
+    if args.router:
+        raise SystemExit("--router runs the front tier: use main()")
+    if args.role == "decode" and args.paged != "on":
+        raise SystemExit("--role=decode needs --paged=on: adoption is a "
+                         "paged block-chain operation")
     # A fault plan parses before the checkpoint loads (a typo fails at
     # once) and stays disarmed through the warmup.
     fault_plan = None
@@ -222,10 +297,13 @@ def build_server(argv: list[str] | None = None):
                     preemption=not args.no_preemption,
                     brownout=args.brownout == "on", spec=drafter,
                     faults=fault_plan, watchdogs=not args.no_watchdogs,
-                    watchdog_dir=args.watchdog_dir, device=device)
+                    watchdog_dir=args.watchdog_dir, role=args.role,
+                    device=device)
     # Every prefill shape and decode chunk once before the port binds, so
-    # no client pays for the libraries' first-call setup.
-    waves = warm_up(engine, args.warmup)
+    # no client pays for the libraries' first-call setup. A decode replica
+    # never prefills: it warms its decode chunks only.
+    waves = warm_up(engine, "decode" if args.role == "decode"
+                    else args.warmup)
     # The program set is complete: a graph captured or a kernel library
     # built from now on eats a live request's time, and pages.
     engine.watchdog.mark_steady()
@@ -257,17 +335,33 @@ def build_server(argv: list[str] | None = None):
           f"{args.spec if drafter is not None else 'off'}"
           f"{f' k={drafter.k}' if drafter is not None else ''}, recovery="
           f"{'off' if supervisor is None else 'on'}, watchdogs="
-          f"{'off' if args.no_watchdogs else 'on'}); "
+          f"{'off' if args.no_watchdogs else 'on'}, role={args.role}); "
           f"warmup {args.warmup}: "
           f"{waves} prefill waves; listening on {args.host}:"
           f"{server.server_address[1]} (POST /generate /drain /profile, "
           "GET /healthz[?ready=1] /stats /metrics /trace /debug/requests "
-          "/debug/slots /debug/kvpool /debug/scheduler)", file=sys.stderr,
+          "/debug/slots /debug/kvpool /debug/scheduler /debug/prefix_summary"
+          + (", POST /internal/adopt /internal/export_done"
+             if args.role != "both" else "") + ")", file=sys.stderr,
           flush=True)
     return server, loop, engine
 
 
 def main(argv: list[str] | None = None) -> None:
+    args = build_parser().parse_args(argv if argv is not None
+                                     else sys.argv[1:])
+    if args.router:
+        import time
+
+        fe = build_router(args)
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            fe.stop()
+        return
     server, loop, _ = build_server(argv)
     try:
         server.serve_forever()

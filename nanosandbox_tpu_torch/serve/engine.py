@@ -159,10 +159,28 @@ retire, so with the pipeline on it closes after the next dispatch) and
 (six detectors, dumps under ``watchdog_dir``); ``request_profile`` arms
 a torch.profiler window over the next steps (POST /profile). The
 ``debug_*`` views read host state only. JAX families this engine does
-not publish: the tensor-parallel degree, the disaggregation role, limbo
-and migration counters, and the compile-trace counter.
+not publish: the tensor-parallel degree and the compile-trace counter.
 
-The disaggregated handoff is a later slice of the port.
+Disaggregated prefill/decode (``role``, ``submit(migrate=True)``; the
+pair and the HTTP tier that drive it are serve/disagg.py and
+serve/http.py): a migrate-flagged request on a paged engine reserves its
+prompt's blocks only and, at its first-token readback, EXPORTS instead
+of going active: its slot is parked (host and device), and its block
+chain, first token (sampled with the (seed, true_len) key) and request
+wait in the scheduler's migration limbo (``_Export``), where the shed
+sweep, ``recover`` and ``abort_all`` see it. ``pop_export`` claims one;
+it ends in exactly one of ``complete_export`` (adopted elsewhere: the
+chain is donated here), ``requeue_export`` (colocated fallback: the
+re-prefill is a prefix hit over the donated chain and samples the same
+first token) or ``repark_export``. The adopting engine runs
+``begin_adopt`` (a slot and the full footprint, BlockPool.adopt_chain),
+``write_pool_blocks`` (the source's ``read_pool_blocks``, the blocks its
+radix cache lacks) and ``commit_adopt``, which writes the row's slot
+state in place (pos = true_len, the first token, the seed and sampling
+knobs, the table row): no prefill runs there, and decode continues at
+(seed, pos + 1), the stream the source would have produced. Both pool
+calls write and read the pool tensors in place, ordered on the stream
+behind any chunk in flight, and neither touches the drop block.
 """
 
 from __future__ import annotations
@@ -275,6 +293,52 @@ class _Resume:
 
 
 @dataclass
+class _Export:
+    """A request parked in migration limbo: its prompt's K/V sits in
+    ``alloc``'s chain and ``first_tok`` was sampled with the (seed,
+    true_len) key, but its decode belongs to another engine. Its slot was
+    released at export, so it owns {blocks, first token, request}: the
+    migration's payload. A shed or abort frees its blocks without
+    donation."""
+    req: Request
+    alloc: Allocation
+    first_tok: int
+    export_t: float              # wall clock at export
+    submit_t: float              # wall clock at submit (deadline budget)
+    submit_step: int
+
+    # The shed sweep applies one predicate to queue items and limbo
+    # records: the fields it reads.
+    @property
+    def rid(self) -> int:
+        return self.req.rid
+
+    @property
+    def deadline_s(self) -> Optional[float]:
+        return self.req.deadline_s
+
+    @property
+    def priority(self) -> int:
+        return self.req.priority
+
+
+@dataclass
+class _Adoption:
+    """The adopting side's handle between begin_adopt (slot and blocks
+    reserved, nothing written) and commit_adopt or abort_adopt.
+    ``copy`` lists the chain positions the caller fills from the source
+    pool before the commit; ``dst_blocks`` are their block ids here."""
+    req: Request
+    slot: int
+    alloc: Allocation
+    copy: List[int]
+
+    @property
+    def dst_blocks(self) -> List[int]:
+        return [self.alloc.table[i] for i in self.copy]
+
+
+@dataclass
 class _Chunking:
     """A request in the chunked-prefill lane: popped from the queue with
     a slot claimed and every block reserved. ``hit`` is its prefix hit
@@ -360,6 +424,9 @@ class Engine:
     watchdogs : run the WatchdogPanel's detectors (default True).
     watchdog_dir : where a trip dumps (default: a temporary directory
         made at the first trip).
+    role : the serving tier, 'both' (colocated, the default), 'prefill'
+        or 'decode': telemetry and fleet routing, never a capability
+        gate (a prefill engine whose decode tier died still decodes).
     device : 'auto' (the GPU; raises without one), 'cuda' or 'cpu'.
     """
 
@@ -385,7 +452,7 @@ class Engine:
                  flight: Optional[FlightRecorder] = None,
                  watchdogs: bool = True,
                  watchdog_dir: Optional[str] = None,
-                 device: str = "auto"):
+                 role: str = "both", device: str = "auto"):
         if paged and kv_page_size < 1:
             raise ValueError(f"kv_page_size must be >= 1, got "
                              f"{kv_page_size}")
@@ -420,6 +487,15 @@ class Engine:
                              f"{default_deadline_s}")
         self.default_deadline_s = default_deadline_s
         self.preemption = bool(preemption)
+        if role not in ("both", "prefill", "decode"):
+            raise ValueError(f"role must be 'both', 'prefill' or 'decode', "
+                             f"got {role!r}")
+        self.role = role
+        # Requests submitted with migrate=True (still before their
+        # export), and the handoffs out of and into this engine.
+        self._migrate_rids: set = set()
+        self.migrated = 0
+        self.adopted = 0
         self.paged = bool(paged)
         self.block_pool: Optional[BlockPool] = None
         if self.paged:
@@ -670,6 +746,23 @@ class Engine:
             "serve_spec_req_accepted_tokens",
             "Draft tokens accepted over one request's lifetime.",
             unit="tokens", buckets=(0, 1, 2, 4, 8, 16, 32, 64, 128, 256))
+        # The disaggregated posture: this engine's tier (1-hot) and its
+        # sides of the migration flow.
+        self._g_role = m.gauge(
+            "serve_engine_role",
+            "Serving tier of this engine (1 = active role).",
+            labelnames=("role",))
+        self._g_limbo = m.gauge(
+            "serve_migration_limbo_depth",
+            "Exports parked awaiting adoption by the decode tier.")
+        self._c_migrated = m.counter(
+            "serve_migrated_out_total",
+            "Requests this engine prefilled and handed to another "
+            "tier (terminal accounting moves with them).")
+        self._c_adopted = m.counter(
+            "serve_adopted_in_total",
+            "Migrated requests this engine re-admitted as pure prefix "
+            "hits (zero prefill dispatches).")
 
     def _collect_metrics(self) -> None:
         """The scrape-time mirror of the engine's plain ints into the
@@ -691,6 +784,10 @@ class Engine:
         self._c_requeued._set_total(self.requeued)
         self._c_drafter_faults._set_total(self.drafter_faults)
         self._g_quarantined.set(1.0 if self.quarantined else 0.0)
+        self._g_role.labels(role=self.role).set(1.0)
+        self._g_limbo.set(self.sched.limbo)
+        self._c_migrated._set_total(self.migrated)
+        self._c_adopted._set_total(self.adopted)
         self._g_active.set(len(self._active))
         self._g_free.set(self.sched.free_slots)
         self._g_queued.set(self.sched.queued)
@@ -799,13 +896,19 @@ class Engine:
                seed: int = 0, eos_id: Optional[int] = None,
                deadline_s: Optional[float] = None,
                slo_class: str = "default",
-               priority: Optional[int] = None) -> int:
+               priority: Optional[int] = None,
+               migrate: bool = False) -> int:
         """Queue one request; returns its id. Requests the engine can
         never serve are rejected here (ValueError), not mid-flight.
         ``deadline_s`` (default: default_deadline_s) arms SLO accounting
         and queue-time shedding; ``priority`` defaults from
         PRIORITY_BY_CLASS[slo_class]. Below an active brownout floor a
-        valid request is accepted and shed at once (a 'shed' Result)."""
+        valid request is accepted and shed at once (a 'shed' Result).
+        ``migrate=True`` (paged engines) marks it for the disaggregated
+        handoff: it prefills here and exports (module docstring); its
+        terminal Result comes from the adopting engine, or from here when
+        the first token already finishes it or the export is shed or
+        falls back."""
         prompt = tuple(int(t) for t in prompt)
         plen = len(prompt)
         if self.failed:
@@ -858,6 +961,10 @@ class Engine:
                 self._reject("pool_too_small",
                              f"request needs {need} KV blocks but the pool "
                              f"holds {self.kv_pool_blocks}", prompt_len=plen)
+        if migrate and not self.paged:
+            self._reject("migrate_unpaged",
+                         "migrate=True needs a paged engine: the block chain "
+                         "is the migration wire format", prompt_len=plen)
         priority = (PRIORITY_BY_CLASS.get(slo_class, DEFAULT_PRIORITY)
                     if priority is None else int(priority))
         rid = next(self._rid)
@@ -894,6 +1001,10 @@ class Engine:
                                    deadline_s=deadline_s)
             self._pending.append(Result(rid, prompt, [], "length"))
             return rid
+        if migrate and max_new_tokens > 1:
+            # A one-token request finishes at its prefill: nothing to
+            # migrate, it stays colocated.
+            self._migrate_rids.add(rid)
         sid = self.tracer.begin("queued", cat="request", rid=rid,
                                 args={"prompt_len": plen,
                                       "max_new": max_new_tokens})
@@ -904,10 +1015,12 @@ class Engine:
         return rid
 
     def has_work(self) -> bool:
-        """Requests queued, chunking, active or pending, or a chunk in
-        flight."""
+        """Requests queued, chunking, active, parked in limbo (an export
+        owes its client a terminal and holds blocks) or pending, or a
+        chunk in flight."""
         return bool(self._active or self.sched.queued or self._chunking
-                    or self._pending or self._inflight is not None)
+                    or self.sched.limbo or self._pending
+                    or self._inflight is not None)
 
     def step(self) -> List[Result]:
         """Shed expired queued requests, preempt for a deadline-pressed
@@ -1005,19 +1118,39 @@ class Engine:
         """Queued requests past their deadline, or below the brownout
         floor, become terminal 'shed' Results (a resumed victim's with
         its original prompt and salvaged tokens), counted against their
-        class's attainment."""
-        if not self.sched.queued:
+        class's attainment. Exports in migration limbo past their
+        deadline are shed too, their blocks freed without donation (a
+        shed must not warm the cache); the brownout floor spares them,
+        their prefill being paid already."""
+        if not (self.sched.queued or self.sched.limbo):
             return
         now = time.monotonic()
         meta = self._submit_meta
         floor = self.brownout_min_priority
 
         def expired(item) -> bool:
+            if isinstance(item, _Export):
+                return (item.deadline_s is not None
+                        and now - item.submit_t > item.deadline_s)
             return ((item.deadline_s is not None
                      and now - meta[item.rid][1] > item.deadline_s)
                     or (floor is not None and item.priority < floor))
 
         for req in self.sched.drain_expired(expired):
+            if isinstance(req, _Export):
+                self.shed += 1
+                self.block_pool.release(req.alloc, donate=False)
+                prompt_out, _, _ = self._unstitch(req.req, [])
+                self.flight.record(
+                    "shed", rid=req.rid, step=self.steps,
+                    reason="deadline", limbo=True,
+                    waited_s=round(now - req.submit_t, 6),
+                    deadline_s=req.deadline_s,
+                    slo_class=req.req.slo_class)
+                self.slo.record_shed(req.req.slo_class)
+                finished.append(Result(rid=req.rid, prompt=prompt_out,
+                                       tokens=[], finish_reason="shed"))
+                continue
             sub_step, sub_t, sid = meta.pop(req.rid)
             self.shed += 1
             self.tracer.end(sid, {"shed": True,
@@ -1070,7 +1203,7 @@ class Engine:
         into the radix cache. A no-op on the dense pool."""
         if not self.paged:
             return
-        if self._active or self._chunking:
+        if self._active or self._chunking or self.sched.limbo:
             raise RuntimeError(
                 "reset_prefix_cache on a busy engine: active requests hold "
                 "references into the radix cache")
@@ -1170,12 +1303,14 @@ class Engine:
             self.flight.record("fault", rid=req.rid, step=self.steps,
                                site="alloc_fail")
             return None
-        a = self.block_pool.admit(req.prompt, req.max_new_tokens)
+        # A migrate-flagged request reserves its prompt's chain only: the
+        # generation budget belongs to the adopting engine.
+        max_new = 0 if req.rid in self._migrate_rids else req.max_new_tokens
+        a = self.block_pool.admit(req.prompt, max_new)
         if a is None:
             self.flight.record(
                 "block_stall", rid=req.rid, step=self.steps,
-                need=self.block_pool.blocks_needed(len(req.prompt),
-                                                   req.max_new_tokens),
+                need=self.block_pool.blocks_needed(len(req.prompt), max_new),
                 free=self.block_pool.free_blocks)
             return None
         self.flight.record("block_reserve", rid=req.rid, step=self.steps,
@@ -1380,11 +1515,14 @@ class Engine:
                           first_tok: int, now: float,
                           finished: List[Result], *, bucket: int,
                           rung: int) -> bool:
-        """The row goes active with its first token; returns whether the
-        token was the sentinel (the row then goes active with no token,
-        and the caller marks the wave poisoned)."""
+        """The row goes active with its first token, or a migrate-flagged
+        one exports (module docstring); returns whether the token was the
+        sentinel (the row then goes active with no token, and the caller
+        marks the wave poisoned)."""
         self.admitted += 1
         poisoned = not 0 <= first_tok < self.cfg.vocab_size
+        if not poisoned:
+            self.tokens_generated += 1
         resumed = req.rid in self._resumed
         sub_step, sub_t, queued_sid = self._submit_meta.pop(req.rid)
         wait = self.steps - sub_step
@@ -1407,6 +1545,28 @@ class Engine:
                            prefix="hit" if hit_toks else "miss",
                            hit_tokens=hit_toks,
                            suffix_tokens=len(req.prompt) - hit_toks)
+        if req.rid in self._migrate_rids:
+            self._migrate_rids.discard(req.rid)
+            finishes_here = (
+                poisoned or req.max_new_tokens <= 1
+                or (req.eos_id is not None and first_tok == req.eos_id))
+            if not finishes_here and alloc is not None:
+                # Export: the prompt's K/V is written and the first token
+                # is in hand. The slot is parked now, host and device
+                # (behind the chunk in flight, which never saw it live),
+                # so the row never decodes here and the chain is never
+                # written again. A poisoned or finishing first token
+                # stays colocated below.
+                self.sched.release(slot)
+                self._release_row(slot)
+                self.sched.park_limbo(_Export(
+                    req=req, alloc=alloc, first_tok=first_tok,
+                    export_t=now, submit_t=sub_t, submit_step=sub_step))
+                self.flight.record("export", rid=req.rid, step=self.steps,
+                                   chain_blocks=len(alloc.table),
+                                   hit_blocks=alloc.n_hit,
+                                   prompt_len=len(req.prompt))
+                return False
         span = self.tracer.begin("generate", cat="request", rid=req.rid,
                                  args={"slot": slot, "bucket": bucket})
         st = _Active(req=req, slot=slot, alloc=alloc, submit_t=sub_t,
@@ -1415,7 +1575,6 @@ class Engine:
         if poisoned:
             return True
         st.tokens.append(first_tok)
-        self.tokens_generated += 1
         done = self._maybe_finish(st)
         if done is not None:
             finished.append(done)
@@ -2042,6 +2201,17 @@ class Engine:
             self.block_pool.release(entry.alloc, donate=False)
             requeue.append((entry.req, done_before(entry.req), None))
         self._chunking = []
+        while True:
+            # Migration limbo: the chain is written and the row released,
+            # so it is donated (clean as an active's prompt), the migrate
+            # intent restored, and the request requeued: its re-prefill
+            # is a prefix hit that samples the same first token.
+            exp = self.sched.pop_limbo()
+            if exp is None:
+                break
+            self.block_pool.release(exp.alloc)
+            self._migrate_rids.add(exp.rid)
+            requeue.append((exp.req, done_before(exp.req), exp.submit_t))
         if flush_cache and self.paged:
             self.block_pool.reset_cache()
         self._reset_device_state(flush_cache)
@@ -2101,8 +2271,15 @@ class Engine:
             self.block_pool.release(entry.alloc, donate=False)
             victims.append((entry.req, []))
         self._active, self._admitting, self._chunking = {}, [], []
-        victims += [(req, []) for req in
-                    self.sched.drain_expired(lambda item: True)]
+        self._migrate_rids.clear()
+        for item in self.sched.drain_expired(lambda item: True):
+            if isinstance(item, _Export):
+                # Migration limbo: the handoff never completed. Blocks
+                # freed without donation; the first token is salvaged.
+                self.block_pool.release(item.alloc, donate=False)
+                victims.append((item.req, [item.first_tok]))
+            else:
+                victims.append((item, []))
         self._reset_device_state(flush_cache=False)
         for req, toks in victims:
             meta = self._submit_meta.pop(req.rid, None)
@@ -2120,6 +2297,208 @@ class Engine:
         self.flight.record("engine_failed", step=self.steps, cause=cause,
                            aborted=len(victims))
         return results
+
+    # ------------------------------------------------------------------
+    # disaggregated prefill/decode (module docstring). The export side:
+    # pop_export, then exactly one of complete_export, requeue_export,
+    # repark_export. The adopting side: begin_adopt, write_pool_blocks
+    # (from the source's read_pool_blocks), then commit_adopt, or
+    # abort_adopt.
+    # ------------------------------------------------------------------
+    def pop_export(self) -> Optional[_Export]:
+        """Claim the oldest parked export for transfer (None when limbo is
+        empty). The caller owns it until it completes, requeues or
+        reparks it."""
+        return self.sched.pop_limbo()
+
+    def repark_export(self, exp: _Export) -> None:
+        """Return an untransferred export to the head of limbo (the
+        adopting engine had no slot or blocks); the shed sweep keeps
+        watching it."""
+        self.sched.park_limbo_front(exp)
+
+    def complete_export(self, exp: _Export, *, dst: str = "",
+                        blocks_copied: int = 0, bytes_moved: int = 0,
+                        migrate_s: float = 0.0) -> None:
+        """The handoff landed: the adopting engine committed the row. The
+        chain is released with donation (written and clean: a later
+        failover restitch hits it here) and the terminal belongs to the
+        adopter. This engine records the one ``migrate`` event."""
+        self.migrated += 1
+        self.completed += 1
+        self._c_completed.labels(reason="migrated").inc()
+        self.block_pool.release(exp.alloc)
+        self.flight.record(
+            "migrate", rid=exp.rid, step=self.steps, dst=dst,
+            chain_blocks=len(exp.alloc.table), hit_blocks=exp.alloc.n_hit,
+            copied_blocks=blocks_copied, bytes=bytes_moved,
+            migrate_s=round(migrate_s, 6),
+            limbo_s=round(time.monotonic() - exp.export_t, 6))
+
+    def requeue_export(self, exp: _Export, *, migrate: bool = False) -> None:
+        """Fallback (no engine can adopt): the request goes back through
+        this engine's admission under its rid and deadline budget,
+        colocated unless ``migrate``. The chain is donated first, so the
+        re-prefill is a prefix hit that samples the same first token."""
+        self.block_pool.release(exp.alloc)
+        if migrate:
+            self._migrate_rids.add(exp.rid)
+        sid = self.tracer.begin("queued", cat="request", rid=exp.rid,
+                                args={"requeued_export": True})
+        self._submit_meta[exp.rid] = (exp.submit_step, exp.submit_t, sid)
+        self.sched.requeue_front([exp.req])
+        self.flight.record("requeue", rid=exp.rid, step=self.steps,
+                           cause="export_fallback", tokens_done=0)
+
+    def begin_adopt(self, req: Request, *,
+                    max_new_tokens: Optional[int] = None
+                    ) -> Optional[_Adoption]:
+        """Reserve a slot and the full footprint of a migrated request
+        (BlockPool.adopt_chain), re-keyed into this engine's rids; None
+        when it cannot be taken now (no free slot, too few blocks,
+        quarantined): the caller reparks the export. The handle's
+        ``copy`` / ``dst_blocks`` name the blocks to fill before
+        commit_adopt."""
+        if self.failed:
+            raise EngineFailedError("engine permanently failed; cannot "
+                                    "adopt")
+        if not self.paged:
+            raise ValueError("adoption needs a paged engine: the block "
+                             "chain is the migration wire format")
+        max_new = (req.max_new_tokens if max_new_tokens is None
+                   else int(max_new_tokens))
+        if len(req.prompt) + max_new > self.max_len:
+            raise ValueError(
+                f"adopted prompt ({len(req.prompt)}) + max_new ({max_new}) "
+                f"exceeds max_len {self.max_len}")
+        if self.quarantined or not self.sched.free_slots:
+            return None
+        got = self.block_pool.adopt_chain(req.prompt, max_new)
+        if got is None:
+            self.flight.record(
+                "block_stall", rid=-1, step=self.steps,
+                need=self.block_pool.blocks_needed(len(req.prompt), max_new),
+                free=self.block_pool.free_blocks, adopt=True)
+            return None
+        alloc, copy = got
+        req = replace(req, rid=next(self._rid), max_new_tokens=max_new)
+        return _Adoption(req=req, slot=self.sched.take_slot(), alloc=alloc,
+                         copy=copy)
+
+    def abort_adopt(self, ad: _Adoption) -> None:
+        """Unwind a begun adoption whose transfer failed: the slot back,
+        the blocks freed without donation (a half-copied chain must never
+        serve a hit). No terminal: the source's export still owns the
+        request."""
+        self.sched.release(ad.slot)
+        self.block_pool.release(ad.alloc, donate=False)
+
+    def commit_adopt(self, ad: _Adoption, first_tok: int, *,
+                     submit_t: Optional[float] = None,
+                     src: str = "") -> Tuple[int, Optional[Result]]:
+        """Activate the adopted row: its slot state is written in place
+        (table row, pos = true_len, the migrated first token, the seed
+        and sampling knobs, live), behind any chunk in flight, and no
+        prefill runs. Decode continues at (seed, pos + 1), so its tokens
+        are the source's colocated stream. Returns (rid here, the Result
+        when the first token already finishes it). A first token outside
+        the vocabulary raises ValueError before anything is written."""
+        req = ad.req
+        if not 0 <= int(first_tok) < self.cfg.vocab_size:
+            raise ValueError(f"migrated first token {first_tok} outside "
+                             f"[0, vocab_size={self.cfg.vocab_size})")
+        now = time.monotonic()
+        slot = ad.slot
+        row = np.full(self.slot_blocks, self.kv_pool_blocks, np.int32)
+        row[:len(ad.alloc.table)] = ad.alloc.table
+        self._table[slot].copy_(torch.from_numpy(row))
+        self._pos[slot] = len(req.prompt)
+        self._tok[slot] = int(first_tok)
+        self._temp[slot] = req.temperature
+        self._topk[slot] = req.top_k
+        self._topp[slot] = req.top_p
+        self._seed[slot] = req.seed
+        self._live[slot] = True
+        self.admitted += 1
+        self.adopted += 1
+        self._c_submitted.inc()
+        span = self.tracer.begin("generate", cat="request", rid=req.rid,
+                                 args={"slot": slot, "adopted": True})
+        st = _Active(req=req, slot=slot, alloc=ad.alloc,
+                     tokens=[int(first_tok)],
+                     submit_t=submit_t if submit_t is not None else now,
+                     first_token_t=now, last_t=now, span=span)
+        self._active[slot] = st
+        self.flight.record(
+            "adopt", rid=req.rid, step=self.steps, slot=slot, src=src,
+            chain_blocks=len(ad.alloc.table), hit_blocks=ad.alloc.n_hit,
+            copied_blocks=len(ad.copy), prompt_len=len(req.prompt))
+        return req.rid, self._maybe_finish(st)
+
+    def _pool_leaves(self) -> List[torch.Tensor]:
+        """The pool's tensors in the JAX package's leaf order: per layer
+        (k, v), or (k, v, k_scale, v_scale) for int8 and int4."""
+        return [buf for layer in self._pool for buf in layer]
+
+    def _block_index(self, block_ids: Sequence[int]) -> torch.Tensor:
+        """The ids of one request's blocks as a device index; ValueError
+        past slot_blocks of them or outside the allocatable blocks (the
+        drop block is never read or written as a block)."""
+        ids = [int(b) for b in block_ids]
+        if len(ids) > self.slot_blocks or any(
+                not 0 <= b < self.kv_pool_blocks for b in ids):
+            raise ValueError(f"block ids {ids}: at most {self.slot_blocks} "
+                             f"in [0, {self.kv_pool_blocks})")
+        return torch.tensor(ids, dtype=torch.int64, device=self.device)
+
+    def read_pool_blocks(self, block_ids: Sequence[int]
+                         ) -> List[torch.Tensor]:
+        """Whole blocks by id, one tensor a pool leaf (_pool_leaves'
+        order), on this engine's device: the migration payload. Quantized
+        pools give their codes and scales as they are."""
+        idx = self._block_index(block_ids)
+        return [leaf.index_select(0, idx) for leaf in self._pool_leaves()]
+
+    def write_pool_blocks(self, block_ids: Sequence[int],
+                          values: Sequence) -> int:
+        """Write whole blocks into this pool by id, in place (the pool
+        tensors keep their addresses for the graphs), behind any chunk in
+        flight: the adopting twin of read_pool_blocks. ``values`` are
+        tensors (any device) of (>= n, ...) rows, one a leaf. JAX pads
+        its scatter to slot_blocks rows for one compiled shape; an eager
+        index_copy_ needs none, so only the n real rows move. Returns the
+        payload bytes written."""
+        n = len(block_ids)
+        if n == 0:
+            return 0
+        idx = self._block_index(block_ids)
+        leaves = self._pool_leaves()
+        if len(values) != len(leaves):
+            raise ValueError(f"payload has {len(values)} leaves, pool has "
+                             f"{len(leaves)}")
+        for leaf, v in zip(leaves, values):
+            if (v.shape[0] < n or tuple(v.shape[1:]) != leaf.shape[1:]
+                    or v.dtype != leaf.dtype):
+                raise ValueError(
+                    f"payload leaf {tuple(v.shape)}/{v.dtype} does not "
+                    f"match pool leaf {tuple(leaf.shape)}/{leaf.dtype}")
+        nbytes = 0
+        for leaf, v in zip(leaves, values):
+            leaf.index_copy_(0, idx, v[:n].to(self.device))
+            nbytes += v[:n].numel() * v.element_size()
+        return nbytes
+
+    def prefix_summary(self) -> dict:
+        """The radix cache's residency summary a fleet router replaces its
+        index of this replica with (GET /debug/prefix_summary): one
+        chained fingerprint a resident trie node. Host bookkeeping only;
+        walks the trie, so it runs on the thread that steps the engine."""
+        if self.block_pool is None or self.block_pool.cache is None:
+            return {"enabled": False, "page": 0, "blocks": 0,
+                    "digests": []}
+        digests = self.block_pool.cache.digests()
+        return {"enabled": True, "page": self.kv_page_size,
+                "blocks": len(digests), "digests": digests}
 
     # ------------------------------------------------------------------
     # observability
@@ -2306,6 +2685,12 @@ class Engine:
             "admitted": self.admitted,
             "completed": self.completed,
             "rejected": dict(self.rejected),
+            # The disaggregated posture: the tier and both sides of the
+            # migration flow.
+            "role": self.role,
+            "limbo": self.sched.limbo,
+            "migrated": self.migrated,
+            "adopted": self.adopted,
             "prefill_waves": self.waves,
             "decode_steps": self.steps,
             "decode_chunk_steps": self.chunk_steps,
@@ -2454,8 +2839,28 @@ class Engine:
             cls["queued"] += 1
             pr = cls["priorities"]
             pr[item.priority] = pr.get(item.priority, 0) + 1
+        # The migration limbo: exports awaiting adoption, with the queue's
+        # deadline fields (the same shed sweep covers them).
+        limbo = []
+        for exp in self.sched.limbo_items():
+            waited = round(now - exp.submit_t, 6)
+            limbo.append({
+                "rid": exp.rid, "prompt_len": len(exp.req.prompt),
+                "chain_blocks": len(exp.alloc.table),
+                "hit_blocks": exp.alloc.n_hit,
+                "slo_class": exp.req.slo_class,
+                "priority": exp.priority,
+                "deadline_s": exp.deadline_s,
+                "waited_s": waited,
+                "limbo_s": round(now - exp.export_t, 6),
+                "expired": bool(exp.deadline_s is not None
+                                and waited > exp.deadline_s),
+            })
         out = {"queued": len(queued), "queue": queued,
                "queue_by_class": by_class,
+               "role": self.role,
+               "limbo": len(limbo), "limbo_queue": limbo,
+               "migrated": self.migrated, "adopted": self.adopted,
                "free_slots": self.sched.free_slots,
                "active": len(self._active),
                "prefill_buckets": list(self.sched.buckets),

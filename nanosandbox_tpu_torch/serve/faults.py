@@ -29,8 +29,11 @@ Sites (where the port's Engine consults the plan):
   preempt_storm   the scheduler preempts its lowest-priority active
                   request whatever the deadlines; repeated firings keep
                   evicting it as it re-admits.
-  replica_down    a fleet-level site: it parses, but no Engine of the
-                  port consults it (the fleet is a later slice).
+  replica_down    a fleet-level site, consulted by serve/fleet.py's Fleet
+                  once a step (the busiest live replica is killed) and
+                  by serve/disagg.py's DisaggPair inside a migration's
+                  window (the decode engine is killed); no Engine
+                  consults it.
 
 With no plan attached every site check is one ``is None`` branch.
 Stdlib only.

@@ -4,8 +4,9 @@ allocator over fixed-size KV blocks plus a refcounted radix prefix cache.
 This package's own copy of nanosandbox_tpu/serve/paged.py, cut to what
 the serving engine runs: admission, release (with the preemption path's
 donation of generated blocks), the O(1) evictable count the preemption
-check probes, and the cache and ledger resets that warmup needs.
-Migration adoption and the debug views are later slices of the port.
+check probes, the cache and ledger resets that warmup needs, the debug
+views, the trie's digest summary a fleet router refreshes from, and the
+adoption of a migrated block chain (disaggregated prefill/decode).
 Plain Python over block *ids*; the K/V bytes live in the device pool
 (models/gpt.py init_paged_cache).
 
@@ -29,7 +30,7 @@ from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 
 def blocks_for(n_positions: int, page: int) -> int:
@@ -38,6 +39,10 @@ def blocks_for(n_positions: int, page: int) -> int:
 
 
 def _block_digest(prev: bytes, block: Sequence[int]) -> bytes:
+    """Chained 64-bit fingerprint of one page of token ids given its
+    parent chain's digest: the one hash prefix_digests() and
+    RadixPrefixCache.digests() share, so a router matching a request's
+    chain against a replica's summary cannot drift from the trie."""
     h = hashlib.blake2b(digest_size=8)
     h.update(prev)
     h.update(",".join(str(int(t)) for t in block).encode())
@@ -191,6 +196,23 @@ class RadixPrefixCache:
     def cached_blocks(self) -> List[int]:
         return [n.block for n in self._nodes]
 
+    def digests(self) -> List[str]:
+        """Chained fingerprints of every resident chain prefix, one a
+        trie node, by prefix_digests()'s chain: membership in this set
+        answers "would block i of this prompt hit here". The summary a
+        fleet router's per-replica index is replaced by
+        (GET /debug/prefix_summary); what the LRU evicted since the last
+        refresh drops out with it."""
+        out: List[str] = []
+        stack = [(child, b"") for child in self.root.children.values()]
+        while stack:
+            node, prev = stack.pop()
+            d = _block_digest(prev, node.key)
+            out.append(d.hex())
+            for c in node.children.values():
+                stack.append((c, d))
+        return out
+
 
 @dataclass
 class Allocation:
@@ -219,6 +241,8 @@ class BlockPool:
         self.hit_requests = 0
         self.stall_steps = 0
         self.evicted_blocks = 0
+        self.adoptions = 0              # migrated chains admitted here
+        self.adopted_blocks = 0         # blocks filled by a KV transfer
 
     def blocks_needed(self, prompt_len: int, max_new: int) -> int:
         return blocks_for(prompt_len + max_new, self.page)
@@ -273,6 +297,30 @@ class BlockPool:
                           table=[n.block for n in nodes] + fresh,
                           n_hit=n_hit, nodes=nodes)
 
+    def adopt_chain(self, prompt: Sequence[int], max_new: int
+                    ) -> Optional[Tuple[Allocation, List[int]]]:
+        """Admit a migrated request's chain: the receiving half of the
+        disaggregated handoff. The footprint is a local admission's
+        (prompt chain + the whole generation budget); ``copy`` lists the
+        chain positions (indices into ``alloc.table``) of the prompt's
+        blocks this pool does not already hold as a radix hit, which the
+        caller fills with the source's blocks at the same positions
+        before the request decodes. Hit blocks are the source's bits by
+        the chained-digest argument (same tokens at the same positions),
+        so a local hit shrinks the copy as it shrinks a prefill. The
+        partial tail block is copied (the source's prefill wrote its
+        positions below len(prompt)); generation blocks never are.
+        None when the pool cannot cover the footprint (adoption
+        backpressure, counted as a stall); check() holds after an
+        adoption as after admit()."""
+        a = self.admit(prompt, max_new)
+        if a is None:
+            return None
+        copy = list(range(a.n_hit, blocks_for(len(prompt), self.page)))
+        self.adoptions += 1
+        self.adopted_blocks += len(copy)
+        return a, copy
+
     def release(self, alloc: Allocation, *,
                 generated: Sequence[int] = (),
                 donate: bool = True) -> int:
@@ -323,6 +371,8 @@ class BlockPool:
         self.hit_requests = 0
         self.stall_steps = 0
         self.evicted_blocks = 0
+        self.adoptions = 0
+        self.adopted_blocks = 0
 
     def stats(self) -> dict:
         """Counts and the hit ledger. ``free``, ``cached`` (trie blocks
@@ -346,6 +396,8 @@ class BlockPool:
             "prefix_hit_rate": (self.hit_tokens / seen) if seen else None,
             "block_stall_steps": self.stall_steps,
             "evicted_blocks": self.evicted_blocks,
+            "adoptions": self.adoptions,
+            "adopted_blocks": self.adopted_blocks,
         }
 
     def debug(self, live: Sequence[tuple] = ()) -> dict:
@@ -408,7 +460,8 @@ class BlockPool:
         """Invariant audit: the free list, the trie and the live
         allocations' private blocks partition [0, num_blocks), each
         node's refcount equals the live allocations holding it, and the
-        O(1) evictable counter equals its O(n) recount."""
+        O(1) evictable counter equals its O(n) recount. An adopted chain
+        is a live allocation like any other."""
         free = list(self._free)
         cached = self.cache.cached_blocks() if self.cache else []
         owned: List[int] = []

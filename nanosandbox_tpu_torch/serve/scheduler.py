@@ -1,10 +1,9 @@
 """Admission control for the continuous-batching engine (host-side).
 
-This package's own copy of nanosandbox_tpu/serve/scheduler.py, without
-its migration limbo (the disaggregated prefill/decode handoff, a later
-slice of the port): one FIFO queue per priority class, the free-slot
-pool, and the two ladders that turn an arbitrary request stream into few
-shapes --
+This package's own copy of nanosandbox_tpu/serve/scheduler.py: one FIFO
+queue per priority class, the free-slot pool, the migration limbo of the
+disaggregated prefill/decode handoff, and the two ladders that turn an
+arbitrary request stream into few shapes --
 
   * prefill pads each (suffix) prompt up to a bucket of a power-of-two
     ladder, so one wave is one (rung, bucket) block;
@@ -82,6 +81,13 @@ class SlotScheduler:
         # The queue depth as a plain int: HTTP handler threads read it
         # while the engine thread mutates the classes.
         self._n = 0
+        # Migration limbo: exports whose prefill completed here and whose
+        # block chain no decode tier has adopted yet. They hold no slot
+        # (the row was released at export) but hold blocks and an
+        # unserved deadline, so the deadline sweep sees them
+        # (drain_expired) and /debug/scheduler shows them. FIFO: the
+        # handoffs go in export order.
+        self._limbo: Deque = deque()
 
     # -- queue side --
     @staticmethod
@@ -135,6 +141,32 @@ class SlotScheduler:
     def free_slots(self) -> int:
         return len(self._free)
 
+    # -- migration limbo --
+    @property
+    def limbo(self) -> int:
+        return len(self._limbo)
+
+    def park_limbo(self, item) -> None:
+        """Park an export awaiting adoption, at the tail."""
+        self._limbo.append(item)
+
+    def park_limbo_front(self, item) -> None:
+        """Park again at the head (the adopting tier had no slot or
+        blocks this pump): the oldest export stays first in line, so a
+        stalled decode tier cannot invert the handoff order and starve
+        the head into a deadline shed."""
+        self._limbo.appendleft(item)
+
+    def pop_limbo(self):
+        """The oldest parked export, claimed for transfer (None when
+        empty)."""
+        return self._limbo.popleft() if self._limbo else None
+
+    def limbo_items(self) -> List:
+        """A copy of the limbo, oldest first (safe from handler
+        threads)."""
+        return list(self._limbo)
+
     def bucket_for(self, prompt_len: int) -> int:
         """Smallest prefill-length rung >= prompt_len."""
         for b in self.buckets:
@@ -185,11 +217,13 @@ class SlotScheduler:
         return items, slots, bucket
 
     def drain_expired(self, expired) -> List:
-        """Remove and return every queued item for which
+        """Remove and return every queued or limbo-parked item for which
         ``expired(item)`` is true, the survivors keeping their order:
-        the engine's deadline and brownout shed. Cheap when nothing
-        expired (attribute checks only; a class is rebuilt only on a
-        hit)."""
+        the engine's deadline and brownout shed. Limbo is swept with the
+        same predicate (a parked export holds blocks and an unserved
+        deadline like a queued request); the caller tells the two kinds
+        apart by type. Cheap when nothing expired (attribute checks
+        only; a class is rebuilt only on a hit)."""
         shed: List = []
         if any(expired(item)
                for q in self._queues.values() for item in q):
@@ -201,6 +235,11 @@ class SlotScheduler:
                 self._queues[p] = kept
                 self._drop_if_empty(p)
             self._n -= len(shed)
+        if self._limbo and any(expired(item) for item in self._limbo):
+            kept_l: Deque = deque()
+            for item in self._limbo:
+                (shed if expired(item) else kept_l).append(item)
+            self._limbo = kept_l
         return shed
 
     def requeue_front(self, items: List) -> None:

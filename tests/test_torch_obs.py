@@ -57,10 +57,6 @@ DIMS = dict(n_layer=2, n_head=2, n_embd=32, block_size=64, vocab_size=50)
 # ROADMAP item that owns it.
 JAX_ONLY_FAMILIES = {
     "serve_tp_degree": "A10",               # tensor-parallel serving
-    "serve_engine_role": "A9",              # disaggregated tiers
-    "serve_migration_limbo_depth": "A9",
-    "serve_migrated_out_total": "A9",
-    "serve_adopted_in_total": "A9",
     "serve_compile_traces_total": "A11",    # the tracecheck ledgers
 }
 

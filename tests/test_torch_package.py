@@ -73,15 +73,17 @@ def test_importing_every_module_loads_no_jax():
     names, bad = json.loads(proc.stdout.strip().splitlines()[-1])
     assert len(names) >= 15 and bad == [], proc.stdout
     # Ring attention, the multi-process modules, the scheduling modules
-    # (the SLO ledger, the brownout ladder), and speculative decoding and
-    # recovery (the fault plan, the watchdogs, the supervisor) are among
-    # them.
+    # (the SLO ledger, the brownout ladder), speculative decoding and
+    # recovery (the fault plan, the watchdogs, the supervisor), and
+    # multi-replica serving (the router, the fleet, the prefill/decode
+    # pair) are among them.
     for mod in ("ops.ring_attention", "parallel.distributed",
                 "parallel.mesh", "obs.slo", "serve.brownout",
                 "serve.scheduler", "serve.faults", "serve.spec",
                 "serve.drafters", "serve.recovery", "obs.flight",
                 "obs.registry", "obs.tracer", "obs.vitals",
-                "utils.profiler"):
+                "utils.profiler", "serve.router", "serve.fleet",
+                "serve.disagg"):
         assert f"nanosandbox_tpu_torch.{mod}" in names, names
 
 
@@ -136,7 +138,11 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     prints its samples and generate equals the argmax loop), and the
     launch check then refuses each run, because on the CPU no kernel
     launched. Phase 17 (observability) passes its /metrics, /trace,
-    /debug, /profile, watchdog, /drain and telemetry-cost checks first.
+    /debug, /profile, watchdog, /drain and telemetry-cost checks first;
+    phase 18 (multi-replica serving) its DisaggPair, Fleet and HTTP
+    router checks (tokens equal to the colocated engine's, bit-identical
+    copies, one terminal a request through both replica_down kills, the
+    migration counters on both pods).
     The trainer phase prepares its BPE dataset from a 200 KB
     slice of the XL corpus, held to the sha256s of the JAX package's
     prepare of the same slice, so the test never BPE-encodes 25 MB."""
@@ -169,6 +175,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     # A tiny width learns too slowly at the config's rate to fall 2 nats
     # in 25 steps; at 1e-2 it does, over the config's 50304 logits.
     # Batch 2 keeps the CPU steps over those logits short.
+    # Phase 18's control flow does not depend on its budget.
+    monkeypatch.setattr(chip_smoke, "FLEET_NEW", 16)
     monkeypatch.setattr(chip_smoke, "TRAIN", [
         "--n_layer=2", "--n_head=2", "--n_embd=64", "--block_size=64",
         "--batch_size=2", "--learning_rate=1e-2"])
@@ -185,7 +193,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path):
                                                    str(tmp_path)),
                   lambda: chip_smoke.check_sampler(str(tmp_path)),
                   lambda: chip_smoke.check_observability(fd, "cpu",
-                                                         str(tmp_path))):
+                                                         str(tmp_path)),
+                  lambda: chip_smoke.check_fleet_serving(fd, at, "cpu")):
         with pytest.raises(SystemExit, match="bypassed a kernel"):
             phase()
 
@@ -436,8 +445,9 @@ def test_unported_paths_raise(tmp_path):
     and so does an engine with a watchdog dump directory; a dense T > 1
     call at a nonzero scalar cache_index (speculative verify is per-row
     and ported) and a tensor-parallel mesh axis (ROADMAP A10) are not,
-    and raise; the serve CLI refuses the fleet's --role and --replicas
-    (ROADMAP A9), and an unknown --spec value."""
+    and raise; the serve CLI parses the fleet's --role, --router and
+    --replicas and refuses an unknown role, and an unknown --spec value
+    raises."""
     from nanosandbox_tpu_torch.models.gpt import init_cache
     from nanosandbox_tpu_torch.parallel.mesh import make_mesh
     from nanosandbox_tpu_torch.serve.__main__ import build_parser
@@ -460,9 +470,15 @@ def test_unported_paths_raise(tmp_path):
     assert eng.watchdog.dump_dir == str(tmp_path / "dumps")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         make_mesh(1, 1, 2, 1, world_size=2)
-    for flag in ("--role=decode", "--replicas=http://127.0.0.1:1"):
-        with pytest.raises(SystemExit):
-            build_parser().parse_args([flag])
+    # The fleet's flags parse: the replica tiers and the router.
+    args = build_parser().parse_args([
+        "--role=decode", "--router", "--replicas=http://127.0.0.1:1",
+        "--router_page=32", "--health_interval_s=0.5", "--no_affinity"])
+    assert (args.role, args.router, args.replicas, args.router_page,
+            args.health_interval_s, args.no_affinity) == (
+        "decode", True, "http://127.0.0.1:1", 32, 0.5, True)
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["--role=both_tiers"])
     with pytest.raises(ValueError, match="unknown --spec"):
         drafter_from_flag("bogus")
 
