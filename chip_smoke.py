@@ -1,10 +1,10 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases=2,3,7,9,13,14,15,16,17,18]
+    python3 chip_smoke.py [--phases=2,3,7,9,13,14,15,16,17,18,19]
 
 Phases (each prints what it found; any failure exits non-zero; --phases
 runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13,
-14, 15, 16, 17 or 18, and prints no result line):
+14, 15, 16, 17, 18 or 19, and prints no result line):
 
   1. device   torch / CUDA versions, the card's name and power limit;
   2. build    the CUDA kernels from nanosandbox_tpu_torch/csrc (into
@@ -270,6 +270,32 @@ runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13,
               serve_migrated_out_total >= 1 on the prefill pod and
               serve_adopted_in_total >= 1 on the decode pod, which ran
               no prefill. The launch checks come last.
+ 19. data parallel and FSDP  ranks of `python -m nanosandbox_tpu_torch
+              .train` on one card (gloo, host-staged exchanges) on
+              phase 13's openwebtext, each against one process on the
+              same batches (every step's loss and grad norm within the
+              stated limits): (a) configs/train_gpt2_124m_owt_multihost
+              .py as written at full width and depth in bf16 over 2
+              ranks (mesh_dp = -1), at accumulation 1 and 2, and in fp32
+              at 2 layers; the ranks' parameters equal after the last
+              step; (b) configs/train_gpt2_1p5b_fsdp.py at full width
+              (shard_params, remat) at mesh_fsdp 2 and 4 layers: each
+              rank's parameter and moment bytes beside one process's,
+              then rank 0's checkpoint restored bit for bit in one
+              process and at mesh_dp 2; (c) configs/train_longcontext_
+              8k.py at mesh_dp 2 x mesh_sp 2, fp32, 2 layers, the ring
+              schedule's launches a rank; (d) a GPT-2 124M HF directory
+              written by the port's exporter from seeded weights, 2
+              steps of configs/finetune_gpt2_owt.py from it at 2 ranks
+              (step 0's loss against one process), then the export CLI
+              and load_hf_gpt2: fp32 logits on the card bit-equal to the
+              checkpoint's. Each rank's causal K4 and K5 launches equal
+              a layer's forward per micro-batch and eval batch and its
+              backward per micro-batch, no plain version runs on the
+              card; step wall, tok/s, peak memory a rank, all-reduce,
+              gather and scatter bytes and host seconds a step, and the
+              phase's seconds. The runs whose times are printed run
+              alone; the references and second legs share the card.
 
 The last line is {"ok": true, "device": {...}}; the line before it is a
 JSON object with one entry per kernel instance timed (K1 twice for each
@@ -301,7 +327,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense bf16 tensor cores
               torch.float32: 67e12}    # fp32 outside the tensor cores
 SEED = 1234
 DEVICE = "cuda"
-# GPTConfig overrides for the model of phases 4, 5, 10, 11 and 14; empty =
+# GPTConfig overrides for the model of phases 4, 5, 10, 11, 14 and 19's HF
+# directory; empty =
 # GPT-2 124M (the defaults). A CPU rehearsal of the phases sets a tiny
 # model here.
 MODEL: dict = {}
@@ -2448,12 +2475,37 @@ def record(opt, args, kwargs):
             g = p.grad
             if g is not None and g.dim() == 2 and g.shape[0] == 3 * g.shape[1]:
                 norms += [x.float().norm() for x in g.chunk(3)]
-    qkv.append(torch.stack(norms).tolist())
+    qkv.append(torch.stack(norms).tolist() if norms else [])
     trace(len(qkv))
 register_optimizer_step_pre_hook(record)
+# With RANK_DIGEST set the rank also reports the parameters its AdamW
+# steps (its shards under FSDP): their bytes and the sha256 of their f32
+# bytes in the optimizer's order, and the bytes of both moments.
+opts = []
+if os.environ.get("RANK_DIGEST"):
+    _adamw_init = torch.optim.AdamW.__init__
+    def _keep(self, *a, **k):
+        _adamw_init(self, *a, **k)
+        opts.append(self)
+    torch.optim.AdamW.__init__ = _keep
+def digest():
+    if not opts:
+        return None
+    import hashlib
+    params = [p for g in opts[-1].param_groups for p in g["params"]]
+    h = hashlib.sha256()
+    for p in params:
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return {"param_sha256": h.hexdigest(),
+            "param_bytes": sum(p.numel() * p.element_size() for p in params),
+            "moment_bytes": sum(v.numel() * v.element_size()
+                                for st in opts[-1].state.values()
+                                for k, v in st.items()
+                                if k in ("exp_avg", "exp_avg_sq"))}
 runpy.run_module("nanosandbox_tpu_torch.train", run_name="__main__",
                  alter_sys=True)
 print("RANK_REPORT " + json.dumps({
+    "state": digest(),
     "rank": int(os.environ.get("PROCESS_ID", "0")),
     "qkv_grad_norms": qkv,
     "launches": at.launches,
@@ -2465,14 +2517,13 @@ print("RANK_REPORT " + json.dumps({
 """
 
 
-def run_ranks(n: int, bwd: str, flags: list, log_prefix: str,
-              timeout: int = 600, profile_step: int | None = None) -> list:
+def start_ranks(n: int, bwd: str, flags: list, log_prefix: str,
+                profile_step: int | None = None, digest: bool = False):
     """Start ``n`` processes of RANK_MAIN as the ranks of one run (n = 1:
-    one process, no group) on 127.0.0.1 and a free port, wait for all,
-    and return their RANK_REPORTs, rank 0 first. A failed rank or a hang
-    past ``timeout`` seconds fails the phase (every rank is killed).
-    profile_step: rank 0 traces the step after its profile_step-th
-    optimizer step (RANK_MAIN)."""
+    one process, no group) on 127.0.0.1 and a free port; returns the
+    handle wait_ranks takes. profile_step: rank 0 traces the step after
+    its profile_step-th optimizer step; digest: every rank reports its
+    parameters' digest (RANK_MAIN)."""
     import os
     import socket
 
@@ -2490,11 +2541,20 @@ def run_ranks(n: int, bwd: str, flags: list, log_prefix: str,
         env["PYTHONPATH"] = os.getcwd()
         if profile_step is not None and rank == 0:
             env["RANK_PROFILE_STEP"] = str(profile_step)
+        if digest:
+            env["RANK_DIGEST"] = "1"
         log = open(f"{log_prefix}.rank{rank}.log", "w")
         procs.append((subprocess.Popen(
             [sys.executable, "-c", RANK_MAIN, bwd, *flags], env=env,
             stdout=log, stderr=subprocess.STDOUT), log))
-    t0 = time.monotonic()
+    return log_prefix, procs, time.monotonic()
+
+
+def wait_ranks(handle, timeout: int = 600) -> list:
+    """Wait for the ranks start_ranks started and return their
+    RANK_REPORTs, rank 0 first. A failed rank or a hang past ``timeout``
+    seconds from the start fails the phase (every rank is killed)."""
+    log_prefix, procs, t0 = handle
     try:
         for p, _ in procs:
             p.wait(timeout=max(1.0, timeout - (time.monotonic() - t0)))
@@ -2517,8 +2577,18 @@ def run_ranks(n: int, bwd: str, flags: list, log_prefix: str,
         report = json.loads(line[len("RANK_REPORT "):])
         report["backend_line"] = next(
             (ln for ln in text.splitlines() if "] backend " in ln), "")
+        report["fsdp_line"] = next(
+            (ln for ln in text.splitlines() if "a rank holds" in ln), "")
         reports.append(report)
     return sorted(reports, key=lambda r: r["rank"])
+
+
+def run_ranks(n: int, bwd: str, flags: list, log_prefix: str,
+              timeout: int = 600, profile_step: int | None = None) -> list:
+    """start_ranks, then wait_ranks: ``n`` ranks of one run, their
+    RANK_REPORTs rank 0 first."""
+    return wait_ranks(start_ranks(n, bwd, flags, log_prefix, profile_step),
+                      timeout)
 
 
 def read_steps(out_dir: str) -> dict:
@@ -2737,6 +2807,362 @@ def sp_launches(results: dict, name: str, key: str) -> int:
     return sum(rep_["launches"].get(key, 0)
                for _, _, reports in results[name]
                for rep_ in reports)
+
+
+# ---------------------------------------------------------------------------
+# phase 19: data-parallel and FSDP training, the HF round trip
+# ---------------------------------------------------------------------------
+
+DP_CONFIG = "configs/train_gpt2_124m_owt_multihost.py"
+FSDP_CONFIG = "configs/train_gpt2_1p5b_fsdp.py"
+HF_CONFIG = "configs/finetune_gpt2_owt.py"
+# Every phase 19 run: eval of one batch a split at the end only, every
+# step logged (PERF.md section 4).
+P19_RUN = ["--eval_interval=0", "--eval_iters=1", "--log_interval=1",
+           "--tensorboard=False", "--run_name=r"]
+# (a) The 124M multihost config as written (mesh_dp = -1 takes the 2
+# ranks), cut to a global batch of 8 rows (of its 128), 4 steps, warmup
+# 1; a second leg at accumulation 2 (4-row micro-batches), and fp32 at 2
+# of its 12 layers.
+DP_CUTS = ["--batch_size=8", "--gradient_accumulation_steps=1",
+           "--max_iters=4", "--lr_decay_iters=4", "--warmup_iters=1"]
+DP_ACCUM = ["--batch_size=4", "--gradient_accumulation_steps=2"]
+DP_FP32 = ["--compute_dtype=float32", "--n_layer=2"]
+# (b) The 1.5B config at full width (n_embd 1600, 25 heads of 64, vocab
+# 50304, block 1024) with its shard_params and remat, cut to 4 of its 48
+# layers, a global batch of 2 rows (of its 32, accumulation 1 of its 4),
+# 2 steps, warmup 1 (so step 1 moves the parameters the checkpoint
+# holds), and mesh_fsdp 2 of its 16: sixteen ranks would share the one
+# card.
+FSDP_CUTS = ["--n_layer=4", "--batch_size=2",
+             "--gradient_accumulation_steps=1", "--max_iters=2",
+             "--lr_decay_iters=2", "--warmup_iters=1", "--mesh_fsdp=2"]
+# (c) The 8k config at mesh_dp 2 x mesh_sp 2 (of its 1 x 4), fp32, 2 of
+# its 12 layers, batch 2 (of its 4, accumulation 1 of its 8), 2 steps.
+DXS_CUTS = ["--mesh_dp=2", "--mesh_sp=2", "--compute_dtype=float32",
+            "--n_layer=2", "--batch_size=2", "--gradient_accumulation_steps=1",
+            "--max_iters=2", "--lr_decay_iters=2", "--warmup_iters=1"]
+# (d) finetune_gpt2_owt.py from a local HF directory instead of OpenAI's
+# weights, at batch 4 (of its 8), accumulation 1 (of its 4), 2 steps.
+HF_CUTS = ["--batch_size=4", "--gradient_accumulation_steps=1",
+           "--max_iters=2", "--lr_decay_iters=2"]
+HF_VOCAB = 50257
+# bf16 limits, relative, on every step's loss and grad norm against one
+# process on the same batches: the ranks sum the gradients and the loss
+# in another order and run their GEMMs over half the rows. Read on an
+# H100 (PERF.md section 6) in four sound runs of the 124M legs at
+# accumulation 1 and 2 and the FSDP leg: losses differed by at most
+# 1.3e-5 and grad norms by at most 3.4e-4 (phase 13's readings were
+# 3.0e-5 and 2.6e-4 under the same limits); 7x and 2.9x headroom.
+DP_BF16_LOSS_REL = 1e-4
+DP_BF16_NORM_REL = 1e-3
+# fp32 limits, read the same way over the DP fp32 and data x seq legs:
+# losses at most 2.2e-7 (2 f32 ulps) and grad norms at most 1.3e-7
+# apart (sums in another order); 9x and 15x headroom, 5x and 50x
+# tighter than phase 13's fp32 limits.
+DP_FP32_LOSS_REL = 2e-6
+DP_FP32_NORM_REL = 2e-6
+
+
+def state_digest(sd: dict) -> str:
+    """sha256 of a full state_dict's f32 bytes in the order one process's
+    AdamW holds the parameters (>= 2-D first; RANK_MAIN's digest)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for two_d in (True, False):
+        for t in sd.values():
+            if (t.dim() >= 2) == two_d:
+                h.update(t.float().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_expected(layers: int, micro_steps: int, evals: int = 2) -> dict:
+    """A DP or FSDP rank's causal K4 / fused K5 launches: a forward a
+    layer for each micro-batch and eval batch, a backward for each
+    micro-batch (remat's save_attention replays the forward)."""
+    return {"flash_attention_fwd": layers * (micro_steps + evals),
+            "flash_attention_bwd_fused": layers * micro_steps}
+
+
+def compare_steps(name: str, run: dict, ref: dict, loss_rel: float,
+                  norm_rel: float) -> dict:
+    """Every logged step's loss and grad norm of ``run`` against one
+    process's ``ref`` within the relative limits; prints and returns
+    the worst."""
+    got, want = read_steps(run["out_dir"]), read_steps(ref["out_dir"])
+    if sorted(got) != sorted(want) or not got:
+        fail(f"phase 19 {name}: steps {sorted(got)} vs {sorted(want)}")
+    rel_loss = [abs(got[i][0] - want[i][0]) / abs(want[i][0])
+                for i in sorted(got)]
+    rel_norm = [abs(got[i][1] - want[i][1]) / abs(want[i][1])
+                for i in sorted(got)]
+    c = run["cfg"]
+    print(f"  {name} ({c.n_layer}L/{c.n_head}H/{c.n_embd}d, block "
+          f"{c.block_size}, vocab {c.vocab_size}, batch {c.batch_size} x "
+          f"accum {c.gradient_accumulation_steps}, {c.compute_dtype}, "
+          f"dropout {c.dropout}, {run['n']} ranks): losses "
+          f"{[round(got[i][0], 6) for i in sorted(got)]} vs one process "
+          f"{[round(want[i][0], 6) for i in sorted(want)]}; rel by step: "
+          f"losses {[f'{x:.1e}' for x in rel_loss]} (limit "
+          f"{loss_rel:.0e}), grad norms {[f'{x:.1e}' for x in rel_norm]} "
+          f"(limit {norm_rel:.0e})")
+    if max(rel_loss) > loss_rel or max(rel_norm) > norm_rel:
+        fail(f"phase 19 {name}: against one process: losses "
+             f"{max(rel_loss):.2e} (limit {loss_rel:.0e}), grad norms "
+             f"{max(rel_norm):.2e} (limit {norm_rel:.0e}) relative")
+    return {"loss": max(rel_loss), "norm": max(rel_norm), "steps": got,
+            "ref_steps": want}
+
+
+def print_ranks(smi: str, run: dict, steps: int) -> None:
+    """Each rank's backend, launches, peak memory and exchanges a step;
+    the step wall and tok/s after step 0 (rank 0's log)."""
+    got = read_steps(run["out_dir"])
+    later = [i for i in sorted(got) if i > 0]
+    toks = float(np.median([got[i][2] for i in later]))
+    c = run["cfg"]
+    print(f"    [{smi}] {run['name']}: step "
+          f"{1e3 * c.tokens_per_iter / toks:.1f} ms, {toks:,.0f} tok/s "
+          f"global (median after step 0; {run['note']}); run wall "
+          f"{run['wall_s']:.1f} s")
+    for rep_ in run["reports"]:
+        x = rep_["exchanged"]
+        parts = []
+        for kind in ("ring", "allreduce", "gather", "scatter"):
+            if x[f"{kind}_bytes"]:
+                parts.append(f"{kind} {x[kind + '_bytes'] / steps / 2**20:.1f}"
+                             f" MiB in {x[kind + '_seconds'] / steps:.3f} s")
+        print(f"    {rep_['backend_line'].strip() or 'one process'}: "
+              f"launches {({k: v for k, v in rep_['launches'].items() if v})}"
+              f"; peak {rep_['peak_memory_gb']:.2f} GiB; a step (the end's "
+              "eval included) exchanges: " + (", ".join(parts) or "nothing"))
+
+
+def export_seeded_gpt2(path: str) -> None:
+    """A GPT-2 124M HF directory (vocab 50257, biases) written by the
+    port's exporter from seeded random weights."""
+    from nanosandbox_tpu_torch.config import GPTConfig
+    from nanosandbox_tpu_torch.models.convert import export_hf_gpt2
+    from nanosandbox_tpu_torch.models.gpt import GPT
+
+    cfg = GPTConfig(**{**MODEL, "vocab_size": HF_VOCAB, "bias": True})
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    model = GPT(cfg, device=DEVICE, generator=gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.normal_(0.0, 0.02, generator=gen)
+    export_hf_gpt2(model.state_dict(), cfg, path)
+
+
+def check_hf_roundtrip(hf_run: dict, tmp: str) -> None:
+    """The HF leg's checkpoint through the export CLI and back: the
+    re-imported weights' fp32 logits on the card equal the checkpoint's
+    bit for bit."""
+    import os
+
+    from nanosandbox_tpu_torch.checkpoint import TrainCheckpointer
+    from nanosandbox_tpu_torch.config import GPTConfig, TrainConfig
+    from nanosandbox_tpu_torch.models.convert import load_hf_gpt2
+    from nanosandbox_tpu_torch.models.gpt import GPT
+
+    dest = os.path.join(tmp, "p19_hf_export")
+    t0 = time.monotonic()
+    subprocess.run([sys.executable, "-m", "nanosandbox_tpu_torch.models"
+                    ".convert", f"--out_dir={hf_run['out_dir']}",
+                    f"--to={dest}"], check=True, timeout=300)
+    export_s = time.monotonic() - t0
+    cfg, sd = load_hf_gpt2(dest)
+    blob = TrainCheckpointer(hf_run["out_dir"]).restore()
+    ckpt_cfg = GPTConfig.from_train_config(
+        TrainConfig(**blob["config"]), blob["model"]["wte.weight"].shape[0])
+    x = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=(2, min(512, cfg.block_size)))).to(DEVICE)
+    logits = []
+    for c, weights in ((cfg, sd), (ckpt_cfg, blob["model"])):
+        c.compute_dtype, c.dropout = "float32", 0.0
+        model = GPT(c, device=DEVICE)
+        model.load_state_dict(weights)
+        with torch.no_grad():
+            logits.append(model.eval()(x))
+        del model
+    if not torch.equal(*logits):
+        fail("phase 19 hf: the exported and re-imported checkpoint's fp32 "
+             "logits differ from the checkpoint's: max |diff| "
+             f"{(logits[0] - logits[1]).abs().max().item():.3e}")
+    print(f"  hf round trip: step {blob['iter_num']}'s checkpoint -> "
+          f"`python -m nanosandbox_tpu_torch.models.convert` ({export_s:.1f}"
+          f" s) -> load_hf_gpt2: fp32 logits of {tuple(x.shape)} tokens on "
+          "the card bit-equal to the checkpoint's")
+
+
+def check_dp_fsdp(smi: str, tmp: str) -> dict:
+    """Phase 19 (module docstring) in ``tmp``; returns its runs by name.
+    The 124M DP ranks run alone on the card; the other runs (the FSDP
+    ranks, the references, the second legs) share it in two waves, and
+    their times say so."""
+    import os
+
+    from nanosandbox_tpu_torch.config import load_config
+    from nanosandbox_tpu_torch.data.prepare import prepare_bpe_dataset
+
+    t_phase = time.monotonic()
+    torch.cuda.empty_cache()     # the ranks share the card with this process
+    owt = os.path.join(tmp, "openwebtext")
+    if not os.path.exists(os.path.join(owt, "train.bin")):
+        prepare_bpe_dataset(owt, source_files=[CORPUS], tokenizer="bpe")
+    base = [f"--data_dir={tmp}", f"--device={DEVICE}", *P19_RUN]
+    runs = {}
+
+    def start(name, n, config, flags, out_dir=None):
+        tag = os.path.join(tmp, "p19_" + name.replace(" ", "_"))
+        out_dir = out_dir or tag
+        handle = start_ranks(n, "fused", [config, *base,
+                                          f"--out_dir={out_dir}", *flags],
+                             tag, digest=True)
+        return {"name": name, "n": n, "out_dir": out_dir, "handle": handle,
+                "cfg": load_config([config, *base, *flags])}
+
+    def finish(*started, note="alone on the card"):
+        for run in started:
+            handle = run.pop("handle")
+            run["reports"] = wait_ranks(handle)
+            run["wall_s"] = time.monotonic() - handle[2]
+            run["note"] = note
+            for rep_ in run["reports"]:
+                if any(rep_["plain_cuda_calls"].values()):
+                    fail(f"phase 19 {run['name']}: plain versions ran on "
+                         f"the card on rank {rep_['rank']}: "
+                         f"{rep_['plain_cuda_calls']}")
+            runs[run["name"]] = run
+
+    # The 124M DP ranks alone (their step wall and exchanges are the
+    # phase's DP times), then the rest in two waves that share the card.
+    finish(start("dp bf16", 2, DP_CONFIG, DP_CUTS))
+    hf_dir = os.path.join(tmp, "p19_hf_gpt2")
+    note = "with {} other processes on the card"
+    wave = [start(*leg) for leg in (
+        ("fsdp", 2, FSDP_CONFIG, FSDP_CUTS),
+        ("fsdp one", 1, FSDP_CONFIG, FSDP_CUTS + ["--mesh_fsdp=1"]),
+        ("dp bf16 one", 1, DP_CONFIG, DP_CUTS),
+        ("dp bf16 accum 2", 2, DP_CONFIG, DP_CUTS + DP_ACCUM),
+        ("dp fp32", 2, DP_CONFIG, DP_CUTS + DP_FP32),
+        ("dp fp32 one", 1, DP_CONFIG, DP_CUTS + DP_FP32))]
+    export_seeded_gpt2(hf_dir)   # while the wave runs
+    torch.cuda.empty_cache()
+    finish(*wave, note=note.format(sum(r["n"] for r in wave) - 1))
+    hf_flags = HF_CUTS + [f"--init_from=hf:{hf_dir}"]
+    fsdp_dir = runs["fsdp"]["out_dir"]
+    resume = ["--mesh_fsdp=1", "--init_from=resume"]
+    wave = [start(*leg) for leg in (
+        ("fsdp resume one", 1, FSDP_CONFIG,
+         FSDP_CUTS + resume + ["--run_name=resume_one"], fsdp_dir),
+        ("fsdp resume dp2", 2, FSDP_CONFIG,
+         FSDP_CUTS + resume + ["--mesh_dp=2", "--run_name=resume_dp2"],
+         fsdp_dir),
+        ("data x seq", 4, SP_CONFIG, DXS_CUTS),
+        ("data x seq one", 1, SP_CONFIG,
+         DXS_CUTS + ["--mesh_dp=1", "--mesh_sp=1", "--remat=False"]),
+        ("hf", 2, HF_CONFIG, hf_flags),
+        ("hf one", 1, HF_CONFIG, hf_flags))]
+    finish(*wave, note=note.format(sum(r["n"] for r in wave) - 1))
+
+    # (a) and (b): every step against one process; launches; the DP ranks'
+    # parameters equal; FSDP's bytes a rank.
+    # The accumulation-2 leg draws the same 8 rows a step as the
+    # one-process run at accumulation 1 (data/loader.py), so that run is
+    # its reference too: the two differ only in the order of the sums.
+    for name, ref, lims in (
+            ("dp bf16", "dp bf16 one", (DP_BF16_LOSS_REL, DP_BF16_NORM_REL)),
+            ("dp bf16 accum 2", "dp bf16 one",
+             (DP_BF16_LOSS_REL, DP_BF16_NORM_REL)),
+            ("dp fp32", "dp fp32 one", (DP_FP32_LOSS_REL, DP_FP32_NORM_REL)),
+            ("fsdp", "fsdp one", (DP_BF16_LOSS_REL, DP_BF16_NORM_REL))):
+        run = runs[name]
+        compare_steps(name, run, runs[ref], *lims)
+        c = run["cfg"]
+        micro = c.max_iters * c.gradient_accumulation_steps
+        want = dp_expected(c.n_layer, micro)
+        for rep_ in run["reports"]:
+            got = {k: v for k, v in rep_["launches"].items() if v}
+            if got != want and DEVICE != "cpu":   # a CPU rehearsal: none
+                fail(f"phase 19 {name}: rank {rep_['rank']} launched {got}, "
+                     f"expected {want}")
+        shas = {rep_["state"]["param_sha256"] for rep_ in run["reports"]}
+        if name != "fsdp" and len(shas) != 1:
+            fail(f"phase 19 {name}: the ranks' parameters differ after the "
+                 "last step")
+        print_ranks(smi, run, c.max_iters)
+        if name == "dp bf16":
+            print_ranks(smi, runs["dp bf16 one"], c.max_iters)
+    one = runs["fsdp one"]["reports"][0]["state"]
+    print(f"    {runs['fsdp']['reports'][0]['fsdp_line'].strip()}")
+    for rep_ in runs["fsdp"]["reports"]:
+        st = rep_["state"]
+        print(f"    fsdp rank {rep_['rank']}: parameters "
+              f"{st['param_bytes']:,} B, AdamW moments "
+              f"{st['moment_bytes']:,} B; one process "
+              f"{one['param_bytes']:,} / {one['moment_bytes']:,} B (ratio "
+              f"{st['param_bytes'] / one['param_bytes']:.4f} / "
+              f"{st['moment_bytes'] / one['moment_bytes']:.4f})")
+        if st["param_bytes"] * 2 > one["param_bytes"] * 1.001:
+            fail(f"phase 19 fsdp: rank {rep_['rank']} holds "
+                 f"{st['param_bytes']} of {one['param_bytes']} parameter "
+                 "bytes")
+    # (b) rank 0's checkpoint resumed in one process and at mesh_dp 2.
+    from nanosandbox_tpu_torch.checkpoint import TrainCheckpointer
+
+    blob = TrainCheckpointer(fsdp_dir).restore()
+    want_sha = state_digest(blob["model"])
+    for name in ("fsdp resume one", "fsdp resume dp2"):
+        for rep_ in runs[name]["reports"]:
+            if rep_["state"]["param_sha256"] != want_sha:
+                fail(f"phase 19 {name}: rank {rep_['rank']}'s restored "
+                     "parameters differ from the checkpoint's")
+    print(f"  fsdp checkpoint (step {blob['iter_num']}, written by rank 0) "
+          "restored bit for bit in one process and in both mesh_dp=2 ranks")
+    # (c) data x seq: one process's losses, the ring schedule a rank.
+    run = runs["data x seq"]
+    compare_steps("data x seq", run, runs["data x seq one"],
+                  DP_FP32_LOSS_REL, DP_FP32_NORM_REL)
+    c = run["cfg"]
+    for rep_ in run["reports"]:
+        want = expected_launches(c.ring_layout, 2, rep_["rank"] % 2,
+                                 c.n_layer, c.max_iters, 2, "fused")
+        got = {k: v for k, v in rep_["launches"].items() if v}
+        if got != {k: v for k, v in want.items() if v} and DEVICE != "cpu":
+            fail(f"phase 19 data x seq: rank {rep_['rank']} launched {got}, "
+                 f"the ring schedule needs {want}")
+    print_ranks(smi, run, c.max_iters)
+    # (d) the HF leg: token ids below the HF vocab, step 0 against one
+    # process from the same directory, the export round trip.
+    top = max(int(np.memmap(os.path.join(owt, f"{s}.bin"), dtype=np.uint16,
+                            mode="r").max()) for s in ("train", "val"))
+    if top >= HF_VOCAB:
+        fail(f"phase 19 hf: token id {top} >= the HF vocab {HF_VOCAB}")
+    got = read_steps(runs["hf"]["out_dir"])
+    ref = read_steps(runs["hf one"]["out_dir"])
+    rel0 = abs(got[0][0] - ref[0][0]) / abs(ref[0][0])
+    with open(os.path.join(hf_dir, "config.json")) as f:
+        layers = json.load(f)["n_layer"]
+    print(f"  hf ({layers} layers from {hf_dir}, dropout "
+          f"{runs['hf']['cfg'].dropout}, ids < {top + 1}): step-0 loss "
+          f"{got[0][0]:.6f} at 2 ranks vs {ref[0][0]:.6f} one process (rel "
+          f"{rel0:.1e}, limit {DP_BF16_LOSS_REL:.0e}); losses "
+          f"{[round(got[i][0], 6) for i in sorted(got)]}")
+    if rel0 > DP_BF16_LOSS_REL:
+        fail(f"phase 19 hf: step-0 loss {rel0:.2e} relative from one "
+             "process's")
+    check_hf_roundtrip(runs["hf"], tmp)
+    print(f"  phase 19: {time.monotonic() - t_phase:.1f} s")
+    return runs
+
+
+def p19_launches(runs: dict, names, key: str) -> int:
+    """A launch key's count summed over the ranks of phase 19's runs."""
+    return sum(rep_["launches"].get(key, 0) for name in names
+               for rep_ in runs[name]["reports"])
 
 
 # ---------------------------------------------------------------------------
@@ -4385,8 +4811,8 @@ def check_fleet_serving(fd, at, smi: str, served=None) -> dict:
 
 
 # Phases that stand alone, for a partial run (--phases=2,3,7,9,13,14,15,16,
-# 17,18; 9 runs phase 12 after it).
-STANDALONE_PHASES = (2, 3, 7, 9, 13, 14, 15, 16, 17, 18)
+# 17,18,19; 9 runs phase 12 after it).
+STANDALONE_PHASES = (2, 3, 7, 9, 13, 14, 15, 16, 17, 18, 19)
 
 
 def train_and_sample(at, fd, smi: str) -> None:
@@ -4457,7 +4883,10 @@ def main(argv: list[str] | None = None) -> int:
                 (18, "multi-replica serving (disaggregated tiers, the "
                      "fleet, the router)",
                  lambda: (_build.library(),
-                          check_fleet_serving(fd, at, smi)))):
+                          check_fleet_serving(fd, at, smi))),
+                (19, "data-parallel and FSDP training, the HF round trip",
+                 lambda: (_build.library(), check_dp_fsdp(
+                     smi, tempfile.mkdtemp(prefix="chip_smoke_dp_"))))):
             if phase in only:
                 print(f"== phase {phase}: {title}")
                 fn()
@@ -4543,6 +4972,10 @@ def main(argv: list[str] | None = None) -> int:
     print("== phase 18: multi-replica serving (disaggregated tiers, the "
           "fleet, the router)")
     check_fleet_serving(fd, at, smi, served["answers"])
+
+    print("== phase 19: data-parallel and FSDP training, the HF round trip")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        dp = check_dp_fsdp(smi, tmp)
 
     def entry(name, source, replaces, launches, case):
         return {"name": name, "route": "cuda",
@@ -4701,6 +5134,28 @@ def main(argv: list[str] | None = None) -> int:
         kernels += [entry(name, ring, replaces, n, ring_cases[kind]),
                     entry(f"{name}[B=4]", ring, replaces, n,
                           ring_cases[f"{kind}_b4"])]
+    # The causal K4 and K5 again with the launches of phase 19's ranks:
+    # bf16 in the DP, FSDP and HF runs, fp32 in the DP fp32 run; and the
+    # fp32 ring blocks with the data x seq ranks'.
+    bf16_ranks = ("dp bf16", "dp bf16 accum 2", "fsdp", "hf")
+    for name, source, replaces, key, runs_, case in (
+            ("flash_fwd_mma_kernel[DP/FSDP ranks]", flash, "attention.py:180",
+             "flash_attention_fwd", bf16_ranks, train_cases["fwd"]),
+            ("flash_bwd_mma_kernel[DP/FSDP ranks]", flash, "attention.py:556",
+             "flash_attention_bwd_fused", bf16_ranks, train_cases["fused"]),
+            ("flash_fwd_f32_kernel[DP ranks]", flash, "attention.py:180",
+             "flash_attention_fwd", ("dp fp32",), train_cases["fwd_fp32"]),
+            ("flash_bwd_kv_kernel<float>[DP ranks]", flash, "attention.py:556",
+             "flash_attention_bwd_fused", ("dp fp32",),
+             train_cases["fused_fp32"]),
+            ("flash_fwd_ring_f32_kernel[data x seq ranks]", ring,
+             "attention.py:180", "flash_attention_fwd/full", ("data x seq",),
+             ring_cases["fwd_fp32"]),
+            ("flash_bwd_ring_f32_kernel<dlse>[data x seq ranks]", ring,
+             "attention.py:556", "flash_attention_bwd_fused/full/dlse",
+             ("data x seq",), ring_cases["fused_fp32"])):
+        kernels.append(entry(name, source, replaces,
+                             p19_launches(dp, runs_, key), case))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

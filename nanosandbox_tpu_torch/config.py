@@ -47,7 +47,8 @@ class TrainConfig:
     eval_only: bool = False
     always_save_checkpoint: bool = True
     # 'scratch' | 'resume' | 'auto' (resume if a checkpoint exists) |
-    # 'gpt2*' / 'hf:<path>' (pretrained weights; not ported yet)
+    # 'hf:<path>' (a local HF GPT-2 directory) | 'gpt2*' (pretrained
+    # OpenAI weights: a download, not ported yet)
     init_from: str = "scratch"
     keep_checkpoints: int = 3
 
@@ -97,7 +98,7 @@ class TrainConfig:
     # logits; -1 = resolve_loss_chunk_size() at Trainer construction.
     loss_chunk_size: int = -1
 
-    # -- parallelism (the seq axis is ported; data, fsdp, model are not) --
+    # -- parallelism (data, fsdp, seq and slices are ported; model not) --
     mesh_dp: int = -1
     mesh_fsdp: int = 1
     mesh_tp: int = 1
@@ -186,7 +187,8 @@ RING_BLOCK_IMPLS = ("auto", "pallas", "xla", "pallas_interpret")
 def check_ported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for every field set to something this
     port does not run yet (ROADMAP.md queue A lists them), and the JAX
-    trainer's ValueErrors for a sequence-parallel config it refuses."""
+    trainer's ValueErrors for a sequence-parallel config it refuses
+    (check_mesh adds its batch checks once the Trainer has a mesh)."""
     if cfg.attention_impl not in ATTENTION_IMPLS:
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r} "
                          f"(expected one of {ATTENTION_IMPLS})")
@@ -203,18 +205,33 @@ def check_ported(cfg: TrainConfig) -> None:
             f"block_size {cfg.block_size} must be divisible by the seq "
             f"mesh axis ({cfg.mesh_sp})")
     unported = []
-    for name in ("mesh_fsdp", "mesh_tp", "mesh_dp"):
-        if getattr(cfg, name) > 1:
-            unported.append(f"{name}={getattr(cfg, name)} (multi-device)")
-    if cfg.mesh_slices:
-        unported.append(f"mesh_slices={cfg.mesh_slices} (multi-slice)")
-    if cfg.shard_params:
-        unported.append("shard_params=True (FSDP)")
-    if cfg.init_from.startswith(("gpt2", "hf:")):
-        unported.append(f"init_from={cfg.init_from!r} (pretrained weights)")
+    if cfg.mesh_tp > 1:
+        unported.append(f"mesh_tp={cfg.mesh_tp} (tensor parallelism)")
+    if cfg.init_from.startswith("gpt2"):
+        unported.append(f"init_from={cfg.init_from!r} (pretrained OpenAI "
+                        "weights need a download)")
     if unported:
         raise NotImplementedError(
             "not ported yet to nanosandbox_tpu_torch: " + ", ".join(unported))
+
+
+def check_mesh(cfg: TrainConfig, shape: dict) -> None:
+    """The JAX trainer's batch and mesh ValueErrors
+    (nanosandbox_tpu/train.py:240-267) for a resolved mesh ``shape``.
+    JAX's two process-count checks (sequences_per_iter and batch_size
+    divisible by jax.process_count()) exist because a JAX process loads
+    its own rows; here every rank draws the global batch and keeps its
+    rows over (data, fsdp), so the first check below is the whole
+    condition (ROADMAP C5)."""
+    dp_shards = shape["data"] * shape["fsdp"]
+    if cfg.batch_size % dp_shards:
+        raise ValueError(
+            f"batch_size {cfg.batch_size} must be divisible by "
+            f"data*fsdp mesh shards ({dp_shards})")
+    if cfg.block_size % shape["seq"]:
+        raise ValueError(
+            f"block_size {cfg.block_size} must be divisible by the "
+            f"seq mesh axis ({shape['seq']})")
 
 
 # Auto loss-chunk policy: full logits when the per-device (B, T, vocab) f32

@@ -7,10 +7,16 @@ data.prepare), with offsets drawn from a stream keyed by
 (seed, split, step, process_index), so a resumed run draws the batches
 an uninterrupted one would.
 
-Under sequence parallelism every rank draws the same global batch (same
-seed and step) and keeps its own columns of x and y (``columns``: the
-ring layout's positions, ops/ring_attention.py ring_positions); no data
-is exchanged.
+Every rank of a multi-process run draws the step's global batch, as one
+process does (process_index 0), and keeps its share; no data is
+exchanged. Under sequence parallelism that is its columns of x and y
+(``columns``: the ring layout's positions, ops/ring_attention.py
+ring_positions); over the data and fsdp axes it is its rows (``rows``:
+(i, n), where i is the rank's index over (data, fsdp) and n their count):
+of each of the step's ``micro_batches`` micro-batches, the i-th of n
+equal row blocks. So N ranks train on one process's batches at any
+accumulation. The JAX loader instead draws a stream a process
+(``process_index``); ROADMAP C5 records the difference.
 
 Offsets come from numpy's Philox keyed by (seed, stream) -- the JAX
 loader's fallback sampler, bit for bit. The JAX loader prefers its C++
@@ -29,6 +35,14 @@ import threading
 import numpy as np
 
 OFFSET_SAMPLER = "numpy-philox"
+
+
+def take_rows(a: np.ndarray, micro_batches: int, index: int,
+              count: int) -> np.ndarray:
+    """Of each of the ``micro_batches`` equal micro-batches a holds (rows
+    in order), the index-th of ``count`` equal row blocks, in order."""
+    m = a.reshape(micro_batches, count, -1, *a.shape[1:])[:, index]
+    return m.reshape(-1, *a.shape[1:])
 
 
 def sample_offsets(seed: int, stream: int, n_tokens: int, width: int,
@@ -92,13 +106,17 @@ class BatchLoader:
 
     def __init__(self, dataset: BinDataset, split: str, batch_size: int,
                  block_size: int, *, seed: int = 1337, start_step: int = 0,
-                 prefetch: bool = True, columns: np.ndarray | None = None):
+                 prefetch: bool = True, columns: np.ndarray | None = None,
+                 rows: tuple[int, int] | None = None,
+                 micro_batches: int = 1):
         self.dataset = dataset
         self.split = split
         self.batch_size = batch_size
         self.block_size = block_size
         self.seed = seed
         self.columns = columns
+        self.rows = rows
+        self.micro_batches = micro_batches
         self.step = start_step
         self._queue: queue.Queue | None = None
         self._worker_exc: BaseException | None = None
@@ -111,6 +129,9 @@ class BatchLoader:
     def _load(self, step: int) -> tuple[np.ndarray, np.ndarray]:
         x, y = self.dataset.sample_batch(self.split, step, self.batch_size,
                                          self.block_size, seed=self.seed)
+        if self.rows is not None:
+            x, y = (take_rows(a, self.micro_batches, *self.rows)
+                    for a in (x, y))
         if self.columns is None:
             return x, y
         return x[:, self.columns], y[:, self.columns]

@@ -17,7 +17,8 @@ Two forward paths:
     than 1) the model holds this rank's tokens only, in the ring layout's
     order (ops/ring_attention.py ring_positions): wpe looks up their
     global positions and attention is ring attention over the seq group;
-    the loss is ``sharded_chunked_cross_entropy_loss``.
+    each rank's loss is its share of the sums over every rank's tokens
+    (``shared_mean``).
     ``plain_attention=True`` asks for the plain version on any device;
     only comparison harnesses pass it (its CUDA calls show in
     attention.plain_cuda_calls), and a ring forward refuses it. With a
@@ -28,8 +29,11 @@ Two forward paths:
     seed per layer drawn from the same generator. Under sequence
     parallelism every rank draws the GLOBAL (B, T, C) mask and keeps its
     own positions' rows, so the masks are one process's and every rank
-    draws as many numbers, which keeps the attention seeds shared. With
-    cfg.remat a forward that records gradients runs each block under
+    draws as many numbers, which keeps the attention seeds shared; a rank
+    that holds rows of the batch (the data and fsdp axes) keeps its rows
+    of the global mask, and its attention seed words carry their first
+    row as the batch offset the kernels hash. With cfg.remat (or FSDP) a
+    forward that records gradients runs each block under
     torch.utils.checkpoint (``_RematBlock``; the cached path and
     no-grad evaluation never do);
   * paged cache: each layer's pool is (num_blocks + 1, H, page, D). The
@@ -77,6 +81,8 @@ The losses (``cross_entropy_loss``, ``chunked_cross_entropy_loss``) and
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from typing import List, Optional, Tuple
 
@@ -120,12 +126,13 @@ def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 def _dropout(x: torch.Tensor, rate: float,
              generator: Optional[torch.Generator],
-             spread: Optional[Tuple[int, torch.Tensor]] = None
-             ) -> torch.Tensor:
+             spread: Optional[tuple] = None) -> torch.Tensor:
     """flax nn.Dropout: keep with probability 1 - rate, kept values
     scaled by 1 / (1 - rate); the identity without a generator. spread
-    (T_global, positions (T,)): x holds these positions of each row, so
-    the mask is drawn for the whole (B, T_global, C) and these rows kept."""
+    (B_global, row0, T_global, positions (T,) or None): x holds rows
+    [row0, row0 + B) of the micro-batch and these positions of each row
+    (None: all of them), so the mask is drawn for the whole (B_global,
+    T_global, C) and x's part kept."""
     if generator is None or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
@@ -133,16 +140,27 @@ def _dropout(x: torch.Tensor, rate: float,
     if spread is None:
         u = torch.rand((B, T, C), generator=generator, device=x.device)
     else:
-        u = torch.rand((B, spread[0], C), generator=generator,
-                       device=x.device)[:, spread[1]]
+        rows, row0, cols, pos = spread
+        u = torch.rand((rows, cols, C), generator=generator,
+                       device=x.device)[row0:row0 + B]
+        if pos is not None:
+            u = u[:, pos]
     return torch.where(u < keep_prob, x / keep_prob, 0.0)
 
 
-def _attention_seed(generator: torch.Generator, device) -> torch.Tensor:
+def _attention_seed(generator: torch.Generator, device,
+                    spread: Optional[tuple] = None) -> torch.Tensor:
     """One uint32 dropout seed (as int64) drawn on the generator's device:
-    no host sync on the training path."""
-    return torch.randint(0, 2**32, (1,), generator=generator,
+    no host sync on the training path. A rank that holds rows from row0
+    on (spread) gets the (5,) seed words with that batch offset, so the
+    kernels hash the rows' global indices."""
+    seed = torch.randint(0, 2**32, (1,), generator=generator,
                          device=device, dtype=torch.int64)
+    if spread is None or spread[1] == 0:
+        return seed
+    offs = torch.tensor([spread[1], 0, 0, 0], dtype=torch.int64,
+                        device=device)
+    return torch.cat([seed, offs])
 
 
 def _to_pool(layer, k: torch.Tensor, v: torch.Tensor, valid=None):
@@ -273,7 +291,8 @@ class CausalSelfAttention(nn.Module):
         if cache is None:
             rate, seed = 0.0, None
             if generator is not None and cfg.dropout > 0.0:
-                rate, seed = cfg.dropout, _attention_seed(generator, x.device)
+                rate, seed = cfg.dropout, _attention_seed(generator, x.device,
+                                                          spread)
             if _ring(cfg, self.mesh):
                 m = self.mesh
                 y = ring_attention_sharded(
@@ -391,11 +410,13 @@ class _RematBlock:
     attention: under 'save_attention' the first run keeps each call's
     (o, lse) (ops/attention.py SavedAttention) and the recompute takes
     them back without launching the forward kernel; under 'full' it is
-    computed again."""
+    computed again. ``gather`` (a context factory) wraps both runs: under
+    FSDP it installs the block's full weights for the run and frees them
+    after (parallel/sharding.py)."""
 
     def __init__(self, block: Block, policy: str, generator, plain_attention,
-                 spread):
-        self.block, self.generator = block, generator
+                 spread, gather=contextlib.nullcontext):
+        self.block, self.generator, self.gather = block, generator, gather
         self.plain_attention, self.spread = plain_attention, spread
         self.saved = SavedAttention() if policy == "save_attention" else None
         self.state = None if generator is None else generator.get_state()
@@ -420,7 +441,7 @@ class _RematBlock:
                 g.set_state(resume)
 
     def _run(self, x):
-        with saving_attention(self.saved):
+        with saving_attention(self.saved), self.gather():
             return self.block(x, generator=self.generator,
                               plain_attention=self.plain_attention,
                               spread=self.spread)
@@ -436,16 +457,25 @@ class GPT(nn.Module):
     models/convert.py maps one onto the other by name.
 
     ``generator`` seeds the initialization (GPT-2's: normal 0.02, the
-    residual projections scaled by 1/sqrt(2 n_layer), LayerNorm 1/0);
+    residual projections scaled by 1/sqrt(2 n_layer), LayerNorm 1/0;
+    init_param);
     without one the weights are left as allocated, for a caller that
     loads a state_dict next. ``mesh`` (parallel/mesh.py) carries the seq
-    group ring attention runs over."""
+    group ring attention runs over and, in training, this rank's row
+    block of the micro-batch (its dropout masks are the global batch's
+    rows). ``fsdp`` (parallel/sharding.py FSDP, set by it) holds the
+    parameters as shards: each part of the forward runs inside
+    ``gathered`` of its weights, and every training block runs as a
+    _RematBlock (under remat_policy, or 'save_attention' without remat)
+    so that its full weights are gathered again for the backward instead
+    of being kept."""
 
     def __init__(self, cfg: GPTConfig, *, device=None,
                  generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.mesh = mesh
+        self.fsdp = None
         factory = {"device": device, "dtype": cfg.torch_param_dtype}
         self.wte = nn.Embedding(cfg.vocab_size, cfg.n_embd, **factory)
         self.wpe = nn.Embedding(cfg.block_size, cfg.n_embd, **factory)
@@ -458,17 +488,16 @@ class GPT(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        proj_std = 0.02 / math.sqrt(2 * self.cfg.n_layer)
         for name, p in self.named_parameters():
-            if name.endswith("c_proj.weight"):
-                nn.init.normal_(p, 0.0, proj_std, generator=generator)
-            elif p.dim() == 2:
-                nn.init.normal_(p, 0.0, 0.02, generator=generator)
-            elif name.endswith("ln_1.weight") or name.endswith(
-                    "ln_2.weight") or name == "ln_f.weight":
-                nn.init.ones_(p)
-            else:
-                nn.init.zeros_(p)
+            init_param(name, p, generator, self.cfg.n_layer)
+
+    def gathered(self, *prefixes: str):
+        """A context in which the parameters whose names start with one of
+        ``prefixes`` are whole: under FSDP their shards are gathered and
+        installed for its duration; a no-op otherwise."""
+        if self.fsdp is None:
+            return contextlib.nullcontext()
+        return self.fsdp.gathered(*prefixes)
 
     def hidden(self, idx: torch.Tensor, *, cache: Optional[KVPool] = None,
                cache_index: Optional[torch.Tensor] = None,
@@ -484,7 +513,9 @@ class GPT(nn.Module):
         row (module docstring). Without a cache, ``dropout_generator``
         turns training dropout on and ``plain_attention`` selects the
         plain attention. Under sequence parallelism idx holds this rank's
-        T / seq tokens of each row, in the ring layout's order."""
+        T / seq tokens of each row, in the ring layout's order; in a
+        training run over the data or fsdp axis, its rows of the
+        micro-batch."""
         cfg = self.cfg
         B, T = idx.shape
         ring = _ring(cfg, self.mesh) and cache is None
@@ -518,21 +549,34 @@ class GPT(nn.Module):
             # garbage rows nobody reads, clamped so the lookup stays in
             # range (an out-of-range index raises on CUDA).
             pos = (start + ar[None, :]).clamp(max=cfg.block_size - 1)
-        # Under sequence parallelism dropout masks are drawn for the global
-        # sequence and this rank's rows kept (module docstring).
-        spread = (T_global, pos[0]) if ring else None
-        x = _dropout(self.wte(idx) + self.wpe(pos), cfg.dropout,
-                     dropout_generator, spread).to(cfg.torch_compute_dtype)
-        remat = cfg.remat and cache is None and torch.is_grad_enabled()
+        # A rank that holds part of the batch (its rows, its positions)
+        # draws the global masks and keeps its part (module docstring).
+        m = self.mesh
+        rows = m is not None and m.batch_shards > 1 and cache is None
+        spread = None
+        if ring or rows:
+            nb = m.batch_shards if rows else 1
+            spread = (B * nb, B * m.batch_index if rows else 0, T_global,
+                      pos[0] if ring else None)
+        with self.gathered("wte.", "wpe."):
+            x = _dropout(self.wte(idx) + self.wpe(pos), cfg.dropout,
+                         dropout_generator, spread)
+        x = x.to(cfg.torch_compute_dtype)
+        remat = ((cfg.remat or self.fsdp is not None) and cache is None
+                 and torch.is_grad_enabled())
+        policy = cfg.remat_policy if cfg.remat else "save_attention"
         for i, block in enumerate(self.h):
+            gather = functools.partial(self.gathered, f"h.{i}.")
             if remat:
-                x = _RematBlock(block, cfg.remat_policy, dropout_generator,
-                                plain_attention, spread).apply(x)
+                x = _RematBlock(block, policy, dropout_generator,
+                                plain_attention, spread, gather).apply(x)
             else:
-                x = block(x, None if cache is None else cache[i],
-                          cache_index, block_table, dropout_generator,
-                          plain_attention, spread)
-        return _layer_norm(self.ln_f, x)
+                with gather():
+                    x = block(x, None if cache is None else cache[i],
+                              cache_index, block_table, dropout_generator,
+                              plain_attention, spread)
+        with self.gathered("ln_f."):
+            return _layer_norm(self.ln_f, x)
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
         """Tied LM head: f32 logits from hidden states. The product runs
@@ -546,10 +590,30 @@ class GPT(nn.Module):
                 block_table=None, dropout_generator=None,
                 plain_attention=False) -> torch.Tensor:
         """Logits (B, T, vocab) in f32."""
-        return self.head(self.hidden(
-            idx, cache=cache, cache_index=cache_index,
-            block_table=block_table, dropout_generator=dropout_generator,
-            plain_attention=plain_attention))
+        h = self.hidden(idx, cache=cache, cache_index=cache_index,
+                        block_table=block_table,
+                        dropout_generator=dropout_generator,
+                        plain_attention=plain_attention)
+        with self.gathered("wte."):
+            return self.head(h)
+
+
+@torch.no_grad()
+def init_param(name: str, p: torch.Tensor, generator: torch.Generator,
+               n_layer: int) -> None:
+    """GPT-2's initialization of parameter ``name`` in place, drawing
+    from ``generator``; GPT.init_weights calls it in named_parameters
+    order, and FSDP one full parameter at a time in the same order."""
+    if name.endswith("c_proj.weight"):
+        nn.init.normal_(p, 0.0, 0.02 / math.sqrt(2 * n_layer),
+                        generator=generator)
+    elif p.dim() == 2:
+        nn.init.normal_(p, 0.0, 0.02, generator=generator)
+    elif name.endswith(("ln_1.weight", "ln_2.weight")) or name == \
+            "ln_f.weight":
+        nn.init.ones_(p)
+    else:
+        nn.init.zeros_(p)
 
 
 _KV_ALIASES = {"fp32": "fp32", "float32": "fp32", "bf16": "bf16",
@@ -654,19 +718,41 @@ def cast_for_serving(model: GPT) -> GPT:
 # Losses
 # ---------------------------------------------------------------------------
 
-def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
-                       ignore_index: int = -1) -> torch.Tensor:
-    """Mean next-token cross entropy; positions == ignore_index are
-    masked. In logsumexp form (nll = logsumexp(logits) - logits[target]),
-    so no (B, T, vocab) log-probability tensor is built beside the
-    logits. ``.float()`` is free for the f32 logits the head returns."""
+def nll_sums(logits: torch.Tensor, targets: torch.Tensor,
+             ignore_index: int = -1):
+    """(sum of next-token nll, count of valid targets); positions ==
+    ignore_index are masked. In logsumexp form (nll = logsumexp(logits)
+    - logits[target]), so no (B, T, vocab) log-probability tensor is
+    built beside the logits. ``.float()`` is free for the f32 logits the
+    head returns."""
     logits = logits.float()
     valid = targets != ignore_index
     safe = torch.where(valid, targets, 0)
     lse = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, safe[..., None])[..., 0]
     nll = torch.where(valid, lse - tgt, 0.0)
-    return nll.sum() / valid.sum().clamp(min=1)
+    return nll.sum(), valid.sum()
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       ignore_index: int = -1) -> torch.Tensor:
+    """Mean next-token cross entropy (nll_sums)."""
+    tot, cnt = nll_sums(logits, targets, ignore_index)
+    return tot / cnt.clamp(min=1)
+
+
+def shared_mean(tot: torch.Tensor, cnt: torch.Tensor, group=None):
+    """A loss whose tokens are spread over a group's ranks, from this
+    rank's (sum, count): both are all-reduced over ``group``. Returns
+    (this rank's share tot / sum(cnt), differentiable: what the rank
+    backprops, so that parameter gradients summed over the ranks are the
+    mean loss's; the mean sum(tot) / sum(cnt), detached, the same on
+    every rank). The JAX package's sharded_chunked_cross_entropy_loss
+    does this over the seq axis."""
+    sums = torch.stack([tot.detach(), cnt.to(tot.dtype)])
+    distributed.all_reduce_sum_(sums, group)
+    total = sums[1].clamp(min=1)
+    return tot / total, sums[0] / total
 
 
 def _chunk_nll(h: torch.Tensor, y: torch.Tensor, emb: torch.Tensor,
@@ -718,29 +804,6 @@ def chunked_cross_entropy_loss(hidden: torch.Tensor, embedding: torch.Tensor,
                                 compute_dtype=compute_dtype,
                                 ignore_index=ignore_index)
     return tot / cnt.clamp(min=1)
-
-
-def sharded_chunked_cross_entropy_loss(hidden: torch.Tensor,
-                                       embedding: torch.Tensor,
-                                       targets: torch.Tensor, *, group=None,
-                                       chunk_size: int = 128,
-                                       compute_dtype: str = "bfloat16",
-                                       ignore_index: int = -1):
-    """The chunked loss under sequence parallelism (the JAX package's
-    sharded_chunked_cross_entropy_loss): each rank sums nll and count
-    over its own tokens, and both sums are all-reduced over the seq
-    group. Returns (this rank's share tot_r / sum(cnt), differentiable:
-    what the rank backprops, so that parameter gradients summed over the
-    ranks are the mean loss's; the mean loss sum(tot) / sum(cnt),
-    detached, the same on every rank)."""
-    tot, cnt = chunked_nll_sums(hidden, embedding, targets,
-                                chunk_size=chunk_size,
-                                compute_dtype=compute_dtype,
-                                ignore_index=ignore_index)
-    sums = torch.stack([tot.detach(), cnt.to(tot.dtype)])
-    distributed.all_reduce_sum_(sums, group)
-    total = sums[1].clamp(min=1)
-    return tot / total, sums[0] / total
 
 
 def count_params(model: nn.Module) -> int:

@@ -100,14 +100,17 @@ def _merge(carry, blk):
 
 
 def _block_seed(seed, q_off: int, k_off: int):
-    """The (5,) words of one block call: the step's seed, no batch or
-    head offset (neither is sharded here), the block's global first query
-    and key positions. None without a seed."""
+    """The (5,) words of one block call: the step's seed, the batch
+    offset the seed carries (a rank's first row over the data axis; none
+    in a (1,) seed), no head offset (heads are not sharded here), the
+    block's global first query and key positions. None without a seed."""
     if seed is None:
         return None
-    offs = torch.tensor([0, 0, q_off, k_off], dtype=torch.int64,
+    words = seed.reshape(-1).to(torch.int64)
+    offs = torch.tensor([0, q_off, k_off], dtype=torch.int64,
                         device=seed.device)
-    return torch.cat([seed.reshape(-1)[:1].to(torch.int64), offs])
+    b_off = words[1:2] if words.numel() > 1 else offs[:1]
+    return torch.cat([words[:1], b_off, offs])
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +249,8 @@ def ring_attention_sharded(q, k, v, *, group=None, rank: int = 0,
     rank, layout, causal)`` gives; returns its rows of the output, in q's
     dtype. layout 'zigzag' applies when ``use_zigzag`` says so, else the
     contiguous layout runs. dropout_seed: a (1,) per-step seed, the same
-    on every rank (required when dropout_rate > 0)."""
+    on every rank of the ring, or its (5,) words with a batch offset
+    (required when dropout_rate > 0)."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("ring attention dropout needs a per-step "
                          "dropout_seed when dropout_rate > 0")

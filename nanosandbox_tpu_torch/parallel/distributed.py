@@ -39,10 +39,14 @@ import torch.distributed as dist
 # Bytes sent and, for host-staged exchanges, their host seconds, keyed by
 # kind ("ring": K/V rotations and their gradients, "allreduce": loss sums
 # and gradients; "recompute": the share of "ring" sent while
-# ``recomputing`` is set).
+# ``recomputing`` is set; "gather" and "scatter": FSDP's all-gathers of
+# parameter shards and reduce-scatters of their gradients, counted as
+# the full buffer's bytes, as an all-reduce is).
 exchanged = {"ring_bytes": 0, "ring_seconds": 0.0,
              "allreduce_bytes": 0, "allreduce_seconds": 0.0,
-             "recompute_bytes": 0, "recompute_seconds": 0.0}
+             "recompute_bytes": 0, "recompute_seconds": 0.0,
+             "gather_bytes": 0, "gather_seconds": 0.0,
+             "scatter_bytes": 0, "scatter_seconds": 0.0}
 
 # Set by remat's recompute of a block (models/gpt.py _RematBlock) while it
 # runs the block again, so that the rotations it repeats count as
@@ -176,6 +180,52 @@ def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
         exchanged["allreduce_seconds"] += time.perf_counter() - t0
     exchanged["allreduce_bytes"] += t.numel() * t.element_size()
     return t
+
+
+def all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    """The group's ranks' 1-D tensors t concatenated in rank order (through
+    host memory when host_staged), on t's device."""
+    size = dist.get_world_size(group)
+    staged = host_staged(t, group)
+    t0 = time.perf_counter()
+    src = t.detach().contiguous()
+    if staged:
+        src = src.cpu()
+    out = src.new_empty(size * src.numel())
+    _all_gather(out, src, group=group)
+    if staged:
+        out = out.to(t.device)
+        exchanged["gather_seconds"] += time.perf_counter() - t0
+    exchanged["gather_bytes"] += out.numel() * out.element_size()
+    return out
+
+
+def reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum the 1-D t over the group's ranks and return this rank's equal
+    piece of the sum, the rank-th (through host memory when host_staged),
+    on t's device."""
+    size = dist.get_world_size(group)
+    staged = host_staged(t, group)
+    t0 = time.perf_counter()
+    src = t.detach().contiguous()
+    if staged:
+        src = src.cpu()
+    out = src.new_empty(src.numel() // size)
+    _reduce_scatter(out, src, group=group)
+    if staged:
+        out = out.to(t.device)
+        exchanged["scatter_seconds"] += time.perf_counter() - t0
+    exchanged["scatter_bytes"] += src.numel() * src.element_size()
+    return out
+
+
+# torch renamed all_gather_into_tensor and reduce_scatter_tensor to
+# all_gather_single and reduce_scatter_single (same arguments); the card's
+# torch and this one need not agree on the names.
+_all_gather = getattr(dist, "all_gather_single", None) or getattr(
+    dist, "all_gather_into_tensor", None)
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or getattr(
+    dist, "reduce_scatter_tensor", None)
 
 
 def all_reduce_grads_(params, group=None) -> None:

@@ -10,24 +10,44 @@ AdamW with weight decay on >= 2-D parameters only, global-norm gradient
 clipping, gradient accumulation, checkpoints under <out_dir>/ckpt with
 best-val gating, and resume (--init_from=resume / auto).
 
-One device, or one process per seq shard. Causal attention goes through
-the flash kernels (ops/attention.py) on a CUDA device and through their
-plain PyTorch versions with --device=cpu; the dense projections stay
-cuBLAS GEMMs. The step runs eagerly whatever ``compile`` says
-(torch.compile or CUDA graph capture of the step is later work).
+One device, or one process a rank of the (data, fsdp, seq) mesh. Causal
+attention goes through the flash kernels (ops/attention.py) on a CUDA
+device and through their plain PyTorch versions with --device=cpu; the
+dense projections stay cuBLAS GEMMs. The step runs eagerly whatever
+``compile`` says (torch.compile or CUDA graph capture of the step is
+later work).
 
-Sequence parallelism (mesh_sp > 1, attention_impl='ring'): mesh_sp
-processes, started as the JAX package's are (coordinator_address,
-num_processes, process_id, or COORDINATOR_ADDRESS / NUM_PROCESSES /
-PROCESS_ID; parallel/distributed.py, which picks nccl or gloo). Every
-rank draws the same global batch and keeps its columns in the ring
-layout's order; attention is ring attention over the ranks
-(ops/ring_attention.py); each rank backprops its share of the summed
-loss, tot_r / sum(cnt), and the parameter gradients are summed over the
-ranks before clipping and AdamW, so every rank steps the same
-parameters. Logging, event files and checkpoints come from rank 0;
-every rank loads a checkpoint to resume. The data, fsdp and model axes
-are not ported yet.
+Several processes (mesh_dp, mesh_fsdp, mesh_sp; parallel/mesh.py, and
+make_hybrid_mesh under mesh_slices) are started as the JAX package's
+are (coordinator_address, num_processes, process_id, or
+COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID;
+parallel/distributed.py, which picks nccl or gloo). Every rank draws the
+step's global batch and keeps its share (data/loader.py): its rows over
+(data, fsdp), of each micro-batch; its columns over seq, in the ring
+layout's order, with ring attention over its seq group
+(ops/ring_attention.py). Each rank backprops its share of the summed
+loss, tot_r / sum(cnt) over every rank's tokens, so that its gradients
+summed over the step's ranks are the mean loss's. Without FSDP every
+rank holds the whole model and the gradients are all-reduced over the
+step's ranks, so every rank steps the same parameters. Under
+shard_params at mesh_fsdp > 1 (ZeRO-3, parallel/sharding.py) each rank
+holds its shard of every parameter and of both AdamW moments; a block's
+weights are gathered just before it runs (forward, and the recompute
+that serves its backward) and its gradients reduce-scattered as soon as
+they exist, then summed over the data and seq ranks; clipping takes the
+global norm over the shards and AdamW steps the shards. shard_params at
+mesh_fsdp 1 is inert, as in JAX. Logging, event files and checkpoints
+come from rank 0 (under FSDP after gathering the full parameters and
+moments: the one-file format of one process); every rank loads a
+checkpoint to resume, taking its shard, on any mesh. The model axis is
+not ported yet.
+
+``init_from='hf:<dir>'`` starts from a local HF GPT-2 directory
+(models/convert.py load_hf_gpt2, read with torch and the standard
+library): its config sets the architecture (n_layer, n_head, n_embd,
+vocab, bias), block_size may crop wpe but not grow it, and 'hf:' with an
+empty path is not pretrained; under FSDP each rank takes its shards of
+the weights on arrival.
 
 Numerics kept from the JAX package, because they decide the trajectory:
 optax's schedule counts updates from 0, so with warmup the first update
@@ -77,7 +97,8 @@ import numpy as np
 import torch
 
 from nanosandbox_tpu_torch.config import (GPTConfig, TrainConfig,
-                                          check_ported, load_config,
+                                          check_mesh, check_ported,
+                                          load_config,
                                           resolve_device,
                                           resolve_loss_chunk_size)
 from nanosandbox_tpu_torch.parallel import distributed
@@ -108,10 +129,12 @@ def make_lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
     return schedule
 
 
-def make_optimizer(model: torch.nn.Module, cfg: TrainConfig):
+def make_optimizer(model, cfg: TrainConfig):
     """(AdamW over two groups -- weight decay on parameters with ndim >= 2,
-    none on the rest -- and the lr schedule)."""
-    params = [p for p in model.parameters() if p.requires_grad]
+    none on the rest -- and the lr schedule). ``model``: a module, or its
+    parameters (FSDP's shards, which keep their full parameter's ndim)."""
+    params = [p for p in (model.parameters() if isinstance(
+        model, torch.nn.Module) else model) if p.requires_grad]
     groups = [
         {"params": [p for p in params if p.dim() >= 2],
          "weight_decay": cfg.weight_decay},
@@ -139,13 +162,17 @@ def clip_by_global_norm_(grads: list[torch.Tensor], norm: torch.Tensor,
 
 def optimizer_step(optimizer: torch.optim.Optimizer,
                    schedule: Callable[[int], float], step: int,
-                   grad_clip: float) -> torch.Tensor:
+                   grad_clip: float,
+                   norm: torch.Tensor | None = None) -> torch.Tensor:
     """One update from the .grad of every parameter: optax's
     chain(clip_by_global_norm, adamw(schedule)) at update count ``step``.
-    Returns the unclipped global norm (a device scalar)."""
+    ``norm``: the global norm when the parameters are shards (FSDP
+    grad_norm), else the norm of these gradients. Returns the unclipped
+    global norm (a device scalar)."""
     grads = [p.grad for group in optimizer.param_groups
              for p in group["params"] if p.grad is not None]
-    norm = global_norm(grads)
+    if norm is None:
+        norm = global_norm(grads)
     if grad_clip > 0:
         clip_by_global_norm_(grads, norm, grad_clip)
     lr = schedule(step)
@@ -160,19 +187,25 @@ class Trainer:
 
     def __init__(self, cfg: TrainConfig):
         from nanosandbox_tpu_torch.data.loader import BinDataset
-        from nanosandbox_tpu_torch.models.gpt import GPT
+        from nanosandbox_tpu_torch.models.convert import (load_hf_gpt2,
+                                                          resolve_init_from)
+        from nanosandbox_tpu_torch.models.gpt import GPT, count_params
         from nanosandbox_tpu_torch.ops.ring_attention import ring_positions
-        from nanosandbox_tpu_torch.parallel.mesh import make_mesh
+        from nanosandbox_tpu_torch.parallel.mesh import (make_hybrid_mesh,
+                                                         make_mesh)
+        from nanosandbox_tpu_torch.parallel.sharding import FSDP
 
         check_ported(cfg)
-        if cfg.init_from not in ("scratch", "resume", "auto"):
+        if (cfg.init_from not in ("scratch", "resume", "auto")
+                and not cfg.init_from.startswith("hf:")):
             raise ValueError(f"unknown init_from {cfg.init_from!r} (expected "
-                             "scratch, resume or auto)")
+                             "scratch, resume, auto or hf:<dir>)")
         self.cfg = cfg
         self.process = distributed.initialize(
             cfg.coordinator_address, cfg.num_processes, cfg.process_id,
             resolve_device(cfg.device))
-        if cfg.mesh_sp > 1 and self.process.world_size == 1:
+        world = self.process.world_size
+        if cfg.mesh_sp > 1 and world == 1:
             raise ValueError(
                 f"mesh_sp={cfg.mesh_sp} runs one process per seq shard: "
                 f"start {cfg.mesh_sp} processes with coordinator_address, "
@@ -180,31 +213,76 @@ class Trainer:
                 "NUM_PROCESSES and PROCESS_ID)")
         self.device = self.process.device
         self.rank0 = self.process.rank == 0
-        self.mesh = make_mesh(cfg.mesh_dp, cfg.mesh_fsdp, cfg.mesh_tp,
-                              cfg.mesh_sp,
-                              world_size=self.process.world_size,
-                              rank=self.process.rank)
-        # Under sequence parallelism this rank's token columns, in the
-        # ring layout's order; None: the whole row.
+
+        # Pretrained import: the HF config dictates the architecture;
+        # block_size may crop wpe, not grow it ('hf:' alone is not one).
+        hf_src = resolve_init_from(cfg.init_from)
+        self._pretrained = bool(hf_src)
+        hf_sd = None
+        if hf_src:
+            hf_cfg, hf_sd = load_hf_gpt2(hf_src)
+            if cfg.block_size > hf_cfg.block_size:
+                raise ValueError(
+                    f"block_size {cfg.block_size} exceeds the pretrained "
+                    f"context {hf_cfg.block_size} ({cfg.init_from})")
+            hf_sd["wpe.weight"] = hf_sd["wpe.weight"][:cfg.block_size]
+            self.cfg = cfg = cfg.replace(
+                n_layer=hf_cfg.n_layer, n_head=hf_cfg.n_head,
+                n_embd=hf_cfg.n_embd, vocab_size=hf_cfg.vocab_size,
+                bias=True)
+            if self.rank0:
+                print(f"initializing from pretrained {cfg.init_from}: "
+                      f"{hf_cfg.n_layer}L/{hf_cfg.n_head}H/"
+                      f"{hf_cfg.n_embd}d, vocab {hf_cfg.vocab_size}")
+
+        axes = (cfg.mesh_dp, cfg.mesh_fsdp, cfg.mesh_tp, cfg.mesh_sp)
+        if cfg.mesh_slices:
+            self.mesh = make_hybrid_mesh(*axes, num_slices=cfg.mesh_slices,
+                                         world_size=world,
+                                         rank=self.process.rank)
+        else:
+            self.mesh = make_mesh(*axes, world_size=world,
+                                  rank=self.process.rank)
+        check_mesh(cfg, self.mesh.shape)
+        # This rank's share of each micro-batch: its row block over
+        # (data, fsdp) (None: every row) and, under sequence parallelism,
+        # its token columns in the ring layout's order (None: the row).
+        m = self.mesh
+        self.rows = ((m.batch_index, m.batch_shards)
+                     if m.batch_shards > 1 else None)
         self.columns = (ring_positions(cfg.block_size, cfg.mesh_sp,
-                                       self.mesh.seq_index, cfg.ring_layout)
-                        if self.mesh.seq > 1 else None)
+                                       m.seq_index, cfg.ring_layout)
+                        if m.seq > 1 else None)
         self.dataset = BinDataset(cfg.data_dir, cfg.dataset)
         vocab = cfg.vocab_size or self.dataset.vocab_size
         self.model_cfg = GPTConfig.from_train_config(cfg, vocab)
         self.loss_chunk_size = resolve_loss_chunk_size(
-            cfg.loss_chunk_size, cfg.batch_size, cfg.block_size, vocab,
-            seq_shards=self.mesh.seq)
-        if self.mesh.seq > 1 and self.loss_chunk_size == 0:
-            raise NotImplementedError(
-                "full logits (loss_chunk_size=0) under mesh_sp > 1 are not "
-                "ported yet: sequence parallelism takes the chunked loss")
-        # Every rank initializes from the same seed: the same parameters.
-        self.model = GPT(self.model_cfg, device=self.device,
-                         generator=torch.Generator(
-                             device=self.device).manual_seed(cfg.seed),
-                         mesh=self.mesh)
-        self.optimizer, self.lr_schedule = make_optimizer(self.model, cfg)
+            cfg.loss_chunk_size, cfg.batch_size // m.batch_shards,
+            cfg.block_size, vocab, seq_shards=m.seq)
+        # Every rank initializes from the same seed: the same parameters
+        # (under FSDP, its shards of them, drawn as one process draws).
+        gen = (None if hf_sd is not None else
+               torch.Generator(device=self.device).manual_seed(cfg.seed))
+        self.fsdp = None
+        if cfg.shard_params and m.fsdp > 1:
+            self.model = GPT(self.model_cfg, device="meta", mesh=m)
+            self.n_params = count_params(self.model)
+            self.fsdp = FSDP(self.model, m, device=self.device,
+                             generator=gen, state_dict=hf_sd)
+            params = self.fsdp.parameters()
+            if self.rank0:
+                print(f"fsdp {m.fsdp}: a rank holds "
+                      f"{self.fsdp.shard_bytes():,} of "
+                      f"{self.fsdp.full_bytes():,} parameter bytes; "
+                      f"replicated: {self.fsdp.replicated or 'none'}")
+        else:
+            self.model = GPT(self.model_cfg, device=self.device,
+                             generator=gen, mesh=m)
+            if hf_sd is not None:
+                self.model.load_state_dict(hf_sd)
+            self.n_params = count_params(self.model)
+            params = self.model.parameters()
+        self.optimizer, self.lr_schedule = make_optimizer(params, cfg)
         self.step = 0  # optimizer updates done: the schedule's count
         self._init_telemetry()
         from nanosandbox_tpu_torch.utils.metrics import warn_once
@@ -249,26 +327,23 @@ class Trainer:
              generator: torch.Generator | None = None):
         """(what this rank backprops, the mean cross entropy): chunked
         head + loss when loss_chunk_size > 0, full logits otherwise; one
-        tensor twice on one process, and under sequence parallelism this
-        rank's share tot_r / sum(cnt) and the all-reduced mean."""
-        from nanosandbox_tpu_torch.models.gpt import (
-            chunked_cross_entropy_loss, cross_entropy_loss,
-            sharded_chunked_cross_entropy_loss)
+        tensor twice on one process, and over several ranks this rank's
+        share tot_r / sum(cnt) and the all-reduced mean."""
+        from nanosandbox_tpu_torch.models.gpt import (chunked_nll_sums,
+                                                      nll_sums, shared_mean)
 
-        kw = dict(chunk_size=self.loss_chunk_size,
-                  compute_dtype=self.cfg.compute_dtype)
-        if self.mesh.seq > 1:
-            hidden = self.model.hidden(x, dropout_generator=generator)
-            return sharded_chunked_cross_entropy_loss(
-                hidden, self.model.wte.weight, y, group=self.mesh.seq_group,
-                **kw)
-        if self.loss_chunk_size > 0:
-            hidden = self.model.hidden(x, dropout_generator=generator)
-            loss = chunked_cross_entropy_loss(hidden, self.model.wte.weight,
-                                              y, **kw)
-        else:
-            loss = cross_entropy_loss(self.model(
-                x, dropout_generator=generator), y)
+        hidden = self.model.hidden(x, dropout_generator=generator)
+        with self.model.gathered("wte."):
+            if self.loss_chunk_size > 0:
+                tot, cnt = chunked_nll_sums(
+                    hidden, self.model.wte.weight, y,
+                    chunk_size=self.loss_chunk_size,
+                    compute_dtype=self.cfg.compute_dtype)
+            else:
+                tot, cnt = nll_sums(self.model.head(hidden), y)
+        if self.mesh.size > 1:
+            return shared_mean(tot, cnt, self.mesh.group)
+        loss = tot / cnt.clamp(min=1)
         return loss, loss
 
     def dropout_generator(self, iter_num: int) -> torch.Generator | None:
@@ -285,8 +360,8 @@ class Trainer:
               generator: torch.Generator | None = None) -> torch.Tensor:
         """Fill every parameter's .grad with the mean gradient over the
         batch's gradient_accumulation_steps micro-batches (summed over the
-        seq ranks under sequence parallelism); returns the mean loss (a
-        device scalar)."""
+        step's ranks; under FSDP each rank's shards of it); returns the
+        mean loss (a device scalar)."""
         accum = self.cfg.gradient_accumulation_steps
         self.optimizer.zero_grad(set_to_none=True)
         total = None
@@ -294,9 +369,11 @@ class Trainer:
             objective, loss = self.loss(xm, ym, generator)
             (objective / accum if accum > 1 else objective).backward()
             total = loss.detach() if total is None else total + loss.detach()
-        if self.mesh.seq > 1:
+        if self.fsdp is not None:
+            self.fsdp.reduce_grads()
+        elif self.mesh.size > 1:
             distributed.all_reduce_grads_(self.model.parameters(),
-                                          self.mesh.seq_group)
+                                          self.mesh.group)
         return total / accum
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor,
@@ -306,8 +383,9 @@ class Trainer:
         device scalars (no host sync)."""
         self.model.train()
         loss = self.grads(x, y, generator)
-        norm = optimizer_step(self.optimizer, self.lr_schedule, self.step,
-                              self.cfg.grad_clip)
+        norm = optimizer_step(
+            self.optimizer, self.lr_schedule, self.step, self.cfg.grad_clip,
+            None if self.fsdp is None else self.fsdp.grad_norm())
         self.step += 1
         return {"loss": loss, "grad_norm": norm}
 
@@ -324,7 +402,8 @@ class Trainer:
         return BatchLoader(self.dataset, split, self.cfg.sequences_per_iter,
                            self.cfg.block_size, seed=self.cfg.seed,
                            start_step=start_step, prefetch=prefetch,
-                           columns=self.columns)
+                           columns=self.columns, rows=self.rows,
+                           micro_batches=self.cfg.gradient_accumulation_steps)
 
     def to_device(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(a).long()
@@ -337,14 +416,23 @@ class Trainer:
     def estimate_loss(self, eval_iters: int | None = None) -> dict:
         """Mean loss over the same eval_iters batches of each split at
         every call (step index 1_000_000 + i, seed + 1): a low-variance,
-        fixed sample. One host read per split."""
+        fixed sample; each rank takes its rows and columns of the global
+        batch, and each batch's loss is the mean over every rank's
+        tokens. One host read per split."""
+        from nanosandbox_tpu_torch.data.loader import take_rows
+
         eval_iters = eval_iters or self.cfg.eval_iters
         cols = slice(None) if self.columns is None else self.columns
+
+        def share(a):
+            a = a if self.rows is None else take_rows(a, 1, *self.rows)
+            return a[:, cols]
+
         sid = self.tracer.begin("eval", cat="train",
                                 args={"eval_iters": eval_iters})
         out = {}
         for split in ("train", "val"):
-            batches = [tuple(a[:, cols] for a in self.dataset.sample_batch(
+            batches = [tuple(share(a) for a in self.dataset.sample_batch(
                 split, 1_000_000 + i, self.cfg.batch_size,
                 self.cfg.block_size, seed=self.cfg.seed + 1))
                 for i in range(eval_iters)]
@@ -361,20 +449,20 @@ class Trainer:
     def memory_report(self, x: torch.Tensor, y: torch.Tensor) -> dict:
         """Bytes a device holds for one optimizer step, under the JAX
         trainer's keys: params_bytes and state_bytes (parameters, AdamW's
-        two moments, the step's batch on the device) from their shapes;
+        two moments, the step's batch on the device) from their shapes,
+        this rank's (under FSDP its shards);
         on a GPU also temp_bytes, the peak of torch.cuda's allocations
         over one forward and backward of the micro-batch x, y above what
         was allocated before it (activations, gradients, workspace), and
         total_bytes = state_bytes + temp_bytes. The pass changes nothing
         the run reads: its gradients are dropped and its dropout masks
         come from a generator of its own."""
-        from nanosandbox_tpu_torch.models.gpt import count_params
-
         cfg = self.cfg
         itemsize = torch.empty((), dtype=self.model_cfg.torch_param_dtype
                                ).element_size()
-        params = itemsize * count_params(self.model)
-        rows = cfg.sequences_per_iter
+        params = (itemsize * self.n_params if self.fsdp is None
+                  else self.fsdp.shard_bytes())
+        rows = cfg.sequences_per_iter // self.mesh.batch_shards
         cols = cfg.block_size if self.columns is None else len(self.columns)
         batch = 2 * rows * cols * torch.empty((), dtype=torch.long
                                               ).element_size()
@@ -425,10 +513,8 @@ class Trainer:
     def flops_per_iter(self) -> float:
         """nanoGPT's estimate: 6N + 12 L H Q T flops per token, N without
         the position embedding."""
-        from nanosandbox_tpu_torch.models.gpt import count_params
-
         m, cfg = self.model_cfg, self.cfg
-        n = count_params(self.model) - m.block_size * m.n_embd
+        n = self.n_params - m.block_size * m.n_embd
         L, H, Q, T = m.n_layer, m.n_head, m.head_dim, cfg.block_size
         return (6 * n + 12 * L * H * Q * T) * cfg.tokens_per_iter
 
@@ -449,15 +535,24 @@ class Trainer:
 
     def save(self, ckpt, iter_num: int, best_val_loss: float,
              final: bool = False) -> bool:
-        """Rank 0 writes (a 'checkpoint_save' span); every rank holds the
-        same state."""
+        """Rank 0 writes (a 'checkpoint_save' span) the full parameters
+        and moments: under FSDP the ranks of its fsdp group gather them
+        first; otherwise every rank holds the same state."""
+        if self.fsdp is not None:
+            m = self.mesh
+            if m.data_index or m.seq_index:
+                return False
+            model = self.fsdp.full_state_dict()
+            optimizer = self.fsdp.full_optimizer_state(self.optimizer)
         if not self.rank0:
             return False
+        if self.fsdp is None:
+            model = self.model.state_dict()
+            optimizer = self.optimizer.state_dict()
         args = {"iter": iter_num, "final": True} if final else \
             {"iter": iter_num}
         sid = self.tracer.begin("checkpoint_save", cat="train", args=args)
-        saved = ckpt.save(iter_num, model=self.model.state_dict(),
-                          optimizer=self.optimizer.state_dict(),
+        saved = ckpt.save(iter_num, model=model, optimizer=optimizer,
                           iter_num=iter_num, best_val_loss=best_val_loss,
                           config=self.cfg.to_dict(), opt_step=self.step)
         self.tracer.end(sid)
@@ -465,9 +560,15 @@ class Trainer:
         return saved
 
     def restore(self, ckpt, step: int | None = None) -> dict:
+        """Load a checkpoint written on any mesh: the whole state, or
+        under FSDP this rank's shards of it."""
         blob = ckpt.restore(step)
-        self.model.load_state_dict(blob["model"])
-        self.optimizer.load_state_dict(blob["optimizer"])
+        if self.fsdp is None:
+            self.model.load_state_dict(blob["model"])
+            self.optimizer.load_state_dict(blob["optimizer"])
+        else:
+            self.fsdp.load_full(blob["model"])
+            self.fsdp.load_optimizer(self.optimizer, blob["optimizer"])
         self.step = int(blob["step"])
         return blob
 

@@ -72,13 +72,14 @@ def test_importing_every_module_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
     names, bad = json.loads(proc.stdout.strip().splitlines()[-1])
     assert len(names) >= 15 and bad == [], proc.stdout
-    # Ring attention, the multi-process modules, the scheduling modules
-    # (the SLO ledger, the brownout ladder), speculative decoding and
-    # recovery (the fault plan, the watchdogs, the supervisor), and
-    # multi-replica serving (the router, the fleet, the prefill/decode
-    # pair) are among them.
+    # Ring attention, the multi-process modules (FSDP's sharding and the
+    # HF converter among them), the scheduling modules (the SLO ledger,
+    # the brownout ladder), speculative decoding and recovery (the fault
+    # plan, the watchdogs, the supervisor), and multi-replica serving
+    # (the router, the fleet, the prefill/decode pair) are among them.
     for mod in ("ops.ring_attention", "parallel.distributed",
-                "parallel.mesh", "obs.slo", "serve.brownout",
+                "parallel.mesh", "parallel.sharding", "models.convert",
+                "obs.slo", "serve.brownout",
                 "serve.scheduler", "serve.faults", "serve.spec",
                 "serve.drafters", "serve.recovery", "obs.flight",
                 "obs.registry", "obs.tracer", "obs.vitals",

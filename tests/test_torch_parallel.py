@@ -7,7 +7,8 @@
   gloo otherwise; one process joins no group, and several need a
   coordinator address.
 * parallel/mesh.py applies the JAX mesh's mesh_dp = -1 rule over the
-  processes and raises NotImplementedError for a data, fsdp or model axis.
+  processes, places rank r as JAX places device r, and raises
+  NotImplementedError for a model axis.
 * ops/ring_attention.py's layouts: zigzag_permutation equals the JAX
   package's, ring_positions gives each rank its rows (zigzag only when
   causal, cp > 1 and T % 2cp == 0), and the rows of all ranks cover the
@@ -68,16 +69,34 @@ def test_one_process_joins_no_group(monkeypatch):
 
 
 def test_mesh_takes_the_seq_axis_only():
+    """A mesh with one axis larger than 1 forms no group of its own (its
+    groups are the world), so it builds without a process group; the
+    data and fsdp axes are ported, and only the model axis raises."""
     m = mesh.make_mesh(-1, 1, 1, 4, world_size=4, rank=3)
     assert m.shape == {"data": 1, "fsdp": 1, "seq": 4, "model": 1}
     assert (m.seq, m.seq_index) == (4, 3)
     assert m.seq_group is torch.distributed.group.WORLD
+    assert m.group is torch.distributed.group.WORLD
+    assert (m.batch_shards, m.fsdp_group, m.replica_group) == (1, None,
+                                                               None)
     one = mesh.make_mesh(-1, 1, 1, 1, world_size=1)
-    assert (one.seq, one.seq_index, one.seq_group) == (1, 0, None)
+    assert (one.seq, one.seq_index, one.seq_group, one.size) == (1, 0, None,
+                                                                 1)
+    d = mesh.make_mesh(-1, 1, 1, 1, world_size=4, rank=2)
+    assert (d.shape["data"], d.data_index, d.batch_index) == (4, 2, 2)
+    assert d.replica_group is torch.distributed.group.WORLD
+    f = mesh.make_mesh(1, 4, 1, 1, world_size=4, rank=1)
+    assert (f.fsdp, f.fsdp_index, f.batch_index) == (4, 1, 1)
+    assert f.fsdp_group is torch.distributed.group.WORLD
+    assert f.replica_group is None
+    # Rank r at (data, fsdp, seq, model) row-major, model innermost.
+    np.testing.assert_array_equal(
+        mesh.mesh_layout(-1, 2, 1, 2, world_size=8),
+        np.arange(8).reshape(2, 2, 2, 1))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        mesh.make_mesh(-1, 1, 1, 2, world_size=4)       # data axis 2
+        mesh.make_mesh(-1, 1, 2, 1, world_size=4)       # model axis 2
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        mesh.make_mesh(1, 2, 1, 2, world_size=4)
+        mesh.make_mesh(1, 2, 2, 1, world_size=4)
     with pytest.raises(ValueError, match="processes"):
         mesh.make_mesh(1, 1, 1, 4, world_size=2)
 

@@ -25,7 +25,8 @@ JAX package, on the CPU.
   every rank holds the same parameters bit for bit; then a two-step
   CLI run at mesh_sp 2 writes one checkpoint from rank 0 and resumes.
 * The JAX trainer's ring validations (tests/test_ring_attention.py),
-  and mesh_dp > 1 with ring, which raises (not ported yet).
+  and mesh_dp > 1 with ring in one process, which raises the process
+  count's ValueError.
 
 Each multi-process case starts its ranks with this file's worker mode,
 at B 2, H 2, T 64-68, D 16, or a 2-layer, 64-wide GPT over 64 positions.
@@ -423,7 +424,7 @@ def test_sp_cli_checkpoints_from_rank0_and_resumes(char_dataset, tmp_path):
     (dict(mesh_sp=8, block_size=60, attention_impl="ring"), ValueError,
      "block_size"),
     (dict(mesh_sp=2, mesh_dp=4, attention_impl="ring"),
-     NotImplementedError, "not ported yet"),
+     ValueError, "processes"),
     (dict(mesh_sp=2, attention_impl="ring"), ValueError,
      "one process per seq shard")])
 def test_trainer_validates_ring_config(tiny_cfg, override, error, match):
