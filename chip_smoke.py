@@ -1,10 +1,10 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases=2,3,7,9,13,14,15,16,17,18,19]
+    python3 chip_smoke.py [--phases=2,3,7,9,13,14,15,16,17,18,19,20]
 
 Phases (each prints what it found; any failure exits non-zero; --phases
 runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13,
-14, 15, 16, 17, 18 or 19, and prints no result line):
+14, 15, 16, 17, 18, 19 or 20, and prints no result line):
 
   1. device   torch / CUDA versions, the card's name and power limit;
   2. build    the CUDA kernels from nanosandbox_tpu_torch/csrc (into
@@ -168,7 +168,9 @@ runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13,
               again, the all-reduce); rank 0 traces one bf16 step of the
               fused leg (torch.profiler): its wall and the device ms of
               the non-causal ring blocks, of the other flash kernels and
-              of everything else;
+              of everything else; the one-process runs share the card
+              with the bf16 SP legs, and the three fp32 SP runs run at
+              once, as phase 19's waves do;
  14. dispatch modes  the engine's eager synchronous step (its private
               entry: the decode body run from Python every step) against
               replayed CUDA graph chunks at scan_k 1 and 8 with the
@@ -220,7 +222,10 @@ runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13,
               stalled_step watchdog catches, tokens equal to the no-fault
               run, one terminal a request, a flush recovery and decode
               replays after it; a drafter_fault streak that disables
-              spec with phase 4's tokens; the bf16 server with
+              spec with phase 4's tokens; an engine whose graph
+              capture meets a collection of a dropped engine (in a
+              reference cycle) still captures and decodes the dropped
+              one's tokens; the bf16 server with
               --spec=ngram on phase 5's requests (acceptance, the share
               of tokens equal to phase 5's, TPOT p50 beside phase 5's);
               K1 at the verify shape (S 8, T 5, bf16 and fp32) timed
@@ -296,13 +301,36 @@ runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13,
               gather and scatter bytes and host seconds a step, and the
               phase's seconds. The runs whose times are printed run
               alone; the references and second legs share the card.
+ 20. tensor parallelism  the model mesh axis at tp 2, every shard and
+              rank on the one card: (e) K2, K1 and K3 at a shard's 6
+              heads against their plain versions, timed beside bound and
+              library; (a) the bf16 124M paged engine at tp 1 and 2 on
+              phase 5's requests: the answers equal, the no-cache
+              logits' max |diff|, TPOT p50 of both; (b) phase 4's fp32
+              model at tp 2 against tp 1 over paged fp32, int8 and int4,
+              dense fp32, scan_k 4 and NGram spec (tokens identical, as
+              many graphs), a supervised nan_logits step and a forced
+              preemption against a clean tp 2 run; (c) Fleet(2 replicas,
+              tp 2) and a DisaggPair with a tp 2 prefill tier and a tp 1
+              decode tier against the colocated engine; (d) launches: a
+              captured decode step's K2 (K3 dense) = rung x n_layer x
+              tp, K1 = n_layer x tp a prefill dispatch; (f) the 124M
+              width at 4 layers, mesh_tp 2, fp32 and bf16, (g) fp32 at
+              mesh_fsdp 2 x mesh_tp 2 and the 8k dropout config at
+              mesh_sp 2 x mesh_tp 2 (2 layers), each against one process
+              with phase 19's limits (phase 13's for the ring), each
+              rank's parameter and moment bytes and its tp exchange
+              bytes and seconds a step; (h) the tp 2 checkpoint restored
+              bit for bit in one process. The training ranks run in two
+              waves beside (b) and (c).
 
 The last line is {"ok": true, "device": {...}}; the line before it is a
 JSON object with one entry per kernel instance timed (K1 twice for each
 pool and query: phase 3's B 2, T 256 case and the wave, and once more in
 bf16 and fp32 at phase 16's verify shape; K2 twice: phase
 3's lengths and the serving steady state; K3 three times: phase 3's
-lengths, 8 x 512 and 1 x 1024). Needs one CUDA
+lengths, 8 x 512 and 1 x 1024; K1, K2 and K3 again at phase 20's shard
+shape). Needs one CUDA
 GPU; without one it exits non-zero and prints no result.
 """
 
@@ -326,6 +354,7 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense bf16 tensor cores
               torch.float32: 67e12}    # fp32 outside the tensor cores
 SEED = 1234
+T_START = time.monotonic()
 DEVICE = "cuda"
 # GPTConfig overrides for the model of phases 4, 5, 10, 11, 14 and 19's HF
 # directory; empty =
@@ -1136,7 +1165,8 @@ def traced_kernels(fn) -> dict:
 def graph_trace(name: str, engine) -> dict:
     """Every CUDA graph of an idle engine replayed once over its parked
     slots, under one trace: each graph's capture-time count of its decode
-    kernel (K2 paged, K3 dense) must be its rung x n_layer, and the trace
+    kernel (K2 paged, K3 dense) must be its rung x n_layer x tp (one
+    launch a layer and shard), and the trace
     must show their sum. So a launch count taken as capture counts x
     replays (counted_launches) is what the card ran. Returns the kernel,
     the captured sum and the traced count ({} without graphs: the CPU)."""
@@ -1147,7 +1177,7 @@ def graph_trace(name: str, engine) -> dict:
            f"{engine.kv_dtype}")
     captured = {g: engine.graph_launches[g].get(key, 0)
                 for g in engine._graphs}
-    want = {g: g[0] * engine.cfg.n_layer for g in engine._graphs}
+    want = {g: g[0] * engine.cfg.n_layer * engine.tp for g in engine._graphs}
 
     def replay_all():
         for g in engine._graphs:
@@ -1160,7 +1190,7 @@ def graph_trace(name: str, engine) -> dict:
            "traced": traced[kernel]}
     if captured != want or out["traced"] != out["captured"]:
         fail(f"{name}: {key} launches captured per graph {captured} (want "
-             f"rung x n_layer {want}), traced over one replay of each "
+             f"rung x n_layer x tp {want}), traced over one replay of each "
              f"{out['traced']}; the trace: {traced['all']}")
     return out
 
@@ -2655,7 +2685,10 @@ def check_sp_trainer(smi: str, tmp: str) -> dict:
     SP_BF16_LOSS_REL, SP_BF16_NORM_REL and SP_BF16_QKV_REL; fp32 within
     1e-5, 1e-4 and 1e-4 relative. Every rank's launch counts must equal
     the ring schedule (expected_launches: save_attention launches no
-    forward again), and no plain version may run on the card."""
+    forward again), and no plain version may run on the card. The four
+    one-process runs share the card with the bf16 SP legs, then the three
+    fp32 SP runs share it: the walls printed are theirs on a shared
+    card."""
     import os
 
     from nanosandbox_tpu_torch.config import load_config
@@ -2669,14 +2702,20 @@ def check_sp_trainer(smi: str, tmp: str) -> dict:
     base = [f"--data_dir={tmp}", f"--device={DEVICE}", *SP_CUTS]
     results = {}
 
-    def run(name, n, bwd, config, flags, profile_step=None):
+    def start(name, n, bwd, config, flags, profile_step=None):
         out_dir = os.path.join(tmp, name)
-        t0 = time.monotonic()
-        reports = run_ranks(n, bwd, [config, *base,
-                                     f"--out_dir={out_dir}", *flags],
-                            os.path.join(tmp, name),
-                            profile_step=profile_step)
-        return reports, out_dir, time.monotonic() - t0
+        return out_dir, start_ranks(
+            n, bwd, [config, *base, f"--out_dir={out_dir}", *flags],
+            out_dir, profile_step=profile_step), time.time()
+
+    def finish(started):
+        """(reports, out_dir, wall s): the wall ends at the ranks' last
+        log write, however late this waits."""
+        out_dir, handle, t_start = started
+        reports = wait_ranks(handle)
+        end = max(os.path.getmtime(f"{handle[0]}.rank{r}.log")
+                  for r in range(len(handle[1])))
+        return reports, out_dir, end - t_start
 
     fp32 = ["--compute_dtype=float32", "--n_layer=2"]
     cases = (
@@ -2686,24 +2725,56 @@ def check_sp_trainer(smi: str, tmp: str) -> dict:
          "contiguous", (("split", 2),)),
         ("fp32 dropout", SP_DROPOUT_CONFIG, fp32, "zigzag",
          (("fused", 2),)))
+
+    def sp_leg(case, i):
+        name, config, extra, _, legs = case
+        bwd, upto = legs[i]
+        # bf16, fused: rank 0 traces its second step of the leg.
+        traced = name == "bf16" and bwd == "fused"
+        return start(f"{name.replace(' ', '_')}_sp", SP_RANKS, bwd, config,
+                     extra + [f"--max_iters={upto}",
+                              f"--lr_decay_iters={legs[-1][1]}"]
+                     + (["--init_from=resume"] if i else []),
+                     profile_step=2 if traced else None)
+
+    # Every one-process reference starts now and shares the card with
+    # the bf16 SP legs (in order: the second resumes the first); then
+    # the fp32 cases' SP runs, one leg each, run at once.
+    started = []
+    try:
+        singles = {}
+        for name, config, extra, _, legs in cases:
+            singles[name] = start(
+                f"{name.replace(' ', '_')}_single", 1, "fused", config,
+                extra + ["--mesh_sp=1", "--remat=False",
+                         f"--max_iters={legs[-1][1]}",
+                         f"--lr_decay_iters={legs[-1][1]}"])
+            started.append(singles[name])
+        sp_runs = {case[0]: [] for case in cases}
+        for i, leg in enumerate(cases[0][4]):
+            started.append(sp_leg(cases[0], i))
+            sp_runs[cases[0][0]].append((*leg, finish(started[-1])))
+        later = [(case, sp_leg(case, 0)) for case in cases[1:]]
+        started += [st for _, st in later]
+        for case, st in later:
+            sp_runs[case[0]].append((*case[4][0], finish(st)))
+        singles = {name: finish(st) for name, st in singles.items()}
+    finally:
+        for _, (_, procs, _), _ in started:
+            for p, log in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+    sharing = {"bf16": "SP beside the one-process runs",
+               "fp32": "the fp32 SP runs at once; one process beside the "
+                       "bf16 SP legs"}
     for name, config, extra, layout, legs in cases:
-        tag = name.replace(" ", "_")
         c = load_config([config, *base, *extra])
-        single, single_dir, single_s = run(
-            f"{tag}_single", 1, "fused", config,
-            extra + ["--mesh_sp=1", "--remat=False",
-                     f"--max_iters={legs[-1][1]}",
-                     f"--lr_decay_iters={legs[-1][1]}"])
+        single, single_dir, single_s = singles[name]
         sp_reports, prev, sp_s, sp_qkv = [], 0, 0.0, []
-        for i, (bwd, upto) in enumerate(legs):
-            # bf16, fused: rank 0 traces its second step of the leg.
+        for bwd, upto, (reports, sp_dir, secs) in sp_runs[name]:
             traced = name == "bf16" and bwd == "fused"
-            reports, sp_dir, secs = run(
-                f"{tag}_sp", SP_RANKS, bwd, config,
-                extra + [f"--max_iters={upto}",
-                         f"--lr_decay_iters={legs[-1][1]}"]
-                + (["--init_from=resume"] if i else []),
-                profile_step=2 if traced else None)
             if traced and not reports[0]["profile"]:
                 fail(f"phase 13 {name}: rank 0 traced no step")
             sp_s += secs
@@ -2751,7 +2822,8 @@ def check_sp_trainer(smi: str, tmp: str) -> dict:
               f"{[f'{x:.1e}' for x in rel_qkv[:, :, 0].max(1)]} k "
               f"{[f'{x:.1e}' for x in rel_qkv[:, :, 1].max(1)]} v "
               f"{[f'{x:.1e}' for x in rel_qkv[:, :, 2].max(1)]}; wall SP "
-              f"{sp_s:.1f} s, one process {single_s:.1f} s")
+              f"{sp_s:.1f} s, one process {single_s:.1f} s "
+              f"({sharing[name.split()[0]]})")
         for bwd, n_steps, reports in sp_reports:
             prof = reports[0]["profile"]
             if prof:
@@ -3779,6 +3851,61 @@ def check_verify_k1(fd, smi: str) -> dict:
     return cases
 
 
+def check_capture_beside_garbage() -> None:
+    """An engine is built while a dropped engine waits in a reference
+    cycle, and the cyclic collector runs inside the new engine's first
+    graph capture (as an automatic collection can land there). The
+    engine must collect before it captures: a dropped engine finalised
+    inside a capture frees pinned buffers, events and graphs, and
+    invalidates the capture. The new engine must capture and decode the
+    dropped one's greedy tokens."""
+    import gc
+
+    from nanosandbox_tpu_torch.config import GPTConfig
+    from nanosandbox_tpu_torch.models.gpt import GPT
+    from nanosandbox_tpu_torch.serve.engine import Engine
+
+    cfg = GPTConfig(n_layer=2, n_head=2, n_embd=128, vocab_size=256,
+                    block_size=128, compute_dtype="float32")
+    model = GPT(cfg, device=DEVICE, generator=torch.Generator(
+        device=DEVICE).manual_seed(SEED))
+    kw = dict(num_slots=2, max_len=128, kv_page_size=16, device=DEVICE)
+    prompts = ([1, 2, 3], [4, 5, 6, 7])
+    collecting = gc.isenabled()
+    steps = Engine._steps
+    freed = []
+
+    def steps_collecting(self, *a, **k):
+        if (not freed and DEVICE != "cpu"
+                and torch.cuda.is_current_stream_capturing()):
+            freed.append(gc.collect())
+        return steps(self, *a, **k)
+
+    gc.disable()
+    try:
+        dead = Engine(model, **kw)
+        rids = [dead.submit(p, 8) for p in prompts]
+        done = {r.rid: r.tokens for r in dead.drain()}
+        want = [done[r] for r in rids]
+        dead.cycle = dead
+        del dead
+        Engine._steps = steps_collecting
+        eng = Engine(model, **kw)
+    finally:
+        Engine._steps = steps
+        if collecting:
+            gc.enable()
+    rids = [eng.submit(p, 8) for p in prompts]
+    done = {r.rid: r.tokens for r in eng.drain()}
+    got = [done[r] for r in rids]
+    print(f"  capture beside garbage: a collection inside the first "
+          f"capture (objects freed {freed}), the engine captured; tokens "
+          f"equal to the dropped engine's {got == want}")
+    if got != want or (DEVICE != "cpu" and not freed):
+        fail(f"capture beside garbage: tokens {got} vs {want}, in-capture "
+             f"collections {freed}")
+
+
 def check_spec_and_recovery(fd, at, smi: str, ref=None, dense_ref=None,
                             served=None) -> dict:
     """Phase 16 (module docstring). ``ref`` / ``dense_ref``: phase 4's
@@ -3909,6 +4036,7 @@ def check_spec_and_recovery(fd, at, smi: str, ref=None, dense_ref=None,
     del streak["engine"]
     del model
     torch.cuda.empty_cache() if DEVICE != "cpu" else None
+    check_capture_beside_garbage()
     # (c) the bf16 124M server with --spec=ngram on phase 5's requests.
     if served is None:
         served = check_server(fd, smi)
@@ -4082,16 +4210,19 @@ def telemetry_cost(smi: str) -> dict:
             "tokens": [done[r].tokens for r in rids],
             "replays": dict(engine.graph_replays),
             "launches": counted_launches(fd, engine),
-            "step_kernels": traced["all"],
+            # The trace's preamble of spin kernels (traced_kernels) is no
+            # kernel of the step: how many of it a trace loses varies.
+            "step_kernels": {k: n for k, n in traced["all"].items()
+                             if "spin_kernel" not in k},
             "wall_ms": 1e3 * float(np.median(walls)) if walls else None,
             "steps": len(walls)})
         engine.reset_latency_stats()
     on, off = runs["on"][0], runs["off"][0]
     for key in ("tokens", "replays", "launches", "step_kernels"):
-        if on[key] != off[key] or any(r[key] != on[key]
-                                      for r in runs["on"] + runs["off"]):
-            fail(f"telemetry changed the {key}: on {on[key]}, off "
-                 f"{off[key]}")
+        if any(r[key] != on[key] for r in runs["on"] + runs["off"]):
+            seen = [r[key] for r in (on, off, runs["on"][1], runs["off"][1])]
+            fail(f"telemetry changed the {key}: in the runs on, off, on, "
+                 f"off {seen}")
     out = {name: [r["wall_ms"] for r in rs] for name, rs in runs.items()}
     print(f"  [{smi}] telemetry cost, bf16 124M engine pipelined, 8 rows x "
           f"{new} greedy tokens: median step wall on {out['on']} ms, off "
@@ -4810,9 +4941,448 @@ def check_fleet_serving(fd, at, smi: str, served=None) -> dict:
     return {"pairs": pairs, "kill": kill, "fleet": fleet, "http": http}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: tensor parallelism (the model mesh axis)
+# ---------------------------------------------------------------------------
+
+TP = 2
+# (b) Phase 4's fp32 model at tp 2 over each pool and dispatch mode; each
+# against the same engine at tp 1 (greedy tokens identical).
+TP_MODES = (("paged fp32", {}), ("paged int8", dict(kv_dtype="int8")),
+            ("paged int4", dict(kv_dtype="int4")),
+            ("dense fp32", dict(paged=False)),
+            ("paged scan_k 4", dict(scan_k=4)),
+            ("paged NGram", dict(spec=True)))
+# (f) The 124M multihost config at full width (12 heads, C 768, vocab
+# 50304, block 1024) and 4 of its 12 layers, a global batch of 8 rows,
+# 3 steps, warmup 1, at mesh_tp 2 over 2 ranks, in fp32 and bf16; (g) the
+# same fp32 cut at mesh_fsdp 2 x mesh_tp 2 with shard_params; (g) the 8k
+# dropout config at mesh_sp 2 x mesh_tp 2 (ring attention, dropout 0.1),
+# fp32, 2 of its layers, 2 steps (phase 13's cut).
+P20_CUTS = ["--batch_size=8", "--gradient_accumulation_steps=1",
+            "--max_iters=3", "--lr_decay_iters=3", "--warmup_iters=1",
+            "--n_layer=4"]
+P20_FP32 = ["--compute_dtype=float32"]
+P20_SP = ["--compute_dtype=float32", "--n_layer=2", "--max_iters=2",
+          "--lr_decay_iters=2"]
+
+
+def shard_kernel_cases(fd) -> dict:
+    """(e): K2, K1 and K3 at a tp 2 shard's shape (H 6 of GPT-2 124M's
+    12 heads, D 64), each against its plain version and timed beside its
+    bound and its library call (phase 3's method): K2 at the serving
+    steady state (8 rows x 512 positions) and K1 at a wave (8 x 512 from
+    0) under bf16 and fp32 queries over a pool in the query's dtype, K3
+    over fp32 slot rows (8 x 512) under an fp32 query."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(SEED + 20)
+    H, D, T = 12 // TP, 64, 512
+    lens = np.full(8, T, np.int32)
+    sk, sv, stbl = make_case(rng, 8, lens, H=H)
+    slen = torch.from_numpy(lens).to(DEVICE)
+    start = np.zeros(8, np.int32)
+    pstart = torch.from_numpy(start).to(DEVICE)
+    pq = torch.from_numpy(rng.standard_normal((8, H, T, D),
+                                              dtype=np.float32)).to(DEVICE)
+    dq = torch.from_numpy(rng.standard_normal((8, H, D),
+                                              dtype=np.float32)).to(DEVICE)
+    ck, cv = (torch.from_numpy(rng.standard_normal(
+        (8, H, T, D), dtype=np.float32)).to(DEVICE) for _ in range(2))
+    mask = (torch.arange(T, device=DEVICE)[None, None, None, :]
+            < slen[:, None, None, None])
+    causal = torch.ones(T, T, dtype=torch.bool, device=DEVICE).tril()
+    shape = f"B=8 H={H} D={D} lengths=8x{T} (tp {TP} shard)"
+    tot = int(lens.sum())
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, qT = dq.to(dtype), pq.to(dtype)
+        k, v = sk.to(dtype), sv.to(dtype)
+        gk, gv = gathered(k, stbl, T), gathered(v, stbl, T)
+        fp = "fp32" if dtype == torch.float32 else "bf16"
+        runs = [
+            ("K2", lambda: fd.flash_decode_paged(q, k, v, stbl, slen),
+             lambda: fd.torch_decode_attention_paged(q, k, v, stbl, slen),
+             lambda: F.scaled_dot_product_attention(q[:, :, None], gk, gv,
+                                                    attn_mask=mask),
+             decode_bytes(tot, H, D, fp, q.numel() * q.element_size()),
+             4 * H * D * tot),
+            ("K1", lambda: fd.flash_prefill_paged(qT, k, v, stbl, pstart),
+             lambda: fd.torch_prefill_attention_paged(qT, k, v, stbl,
+                                                      pstart),
+             lambda: F.scaled_dot_product_attention(qT, gk, gv,
+                                                    attn_mask=causal),
+             decode_bytes(tot, H, D, fp, qT.numel() * qT.element_size()),
+             int(8 * 4 * H * D * T * T / 2))]
+        if dtype == torch.float32:
+            runs.append((
+                "K3", lambda: fd.flash_decode(q, ck, cv, slen),
+                lambda: fd.torch_decode_attention(q, ck, cv, slen),
+                lambda: F.scaled_dot_product_attention(q[:, :, None], ck, cv,
+                                                       attn_mask=mask),
+                decode_bytes(tot, H, D, "fp32", q.numel() * q.element_size()),
+                4 * H * D * tot))
+        for kind, fn, plain, library, nbytes, flops in runs:
+            err = check_limits(f"phase 20 {kind} q {fp} {shape}", fn(),
+                               plain(), dtype)
+            out[(kind, fp)] = case(kind, dtype, shape, err,
+                                   DECODE_TOL[dtype]["abs"], fn, plain,
+                                   library, nbytes, flops)
+    for (kind, fp), c in out.items():
+        print(f"  {kind} q {fp:<4} {c['shape']}: max|err| "
+              f"{c['max_abs_err']:.2e}, {c['ms']:.5f} ms (bound "
+              f"{c['bound_ms']:.5f} ms [{c['bound_by']}], "
+              f"{100 * c['bound_ms'] / c['ms']:.1f}%), plain "
+              f"{c['plain_ms']:.5f} ms, library {c['library_ms']:.5f} ms")
+    return out
+
+
+def tp_serve(model, reqs, new, *, tp, **kw) -> dict:
+    """One engine (8 slots x 1024) at ``tp`` drained over ``reqs``
+    ((prompt, sampling keywords)), every count reset just before: tokens,
+    launches (counted_launches), plain calls on the card, stats, and each
+    graph replayed once under a trace (graph_trace: a decode step's K2 or
+    K3 launches are rung x n_layer x tp)."""
+    from nanosandbox_tpu_torch.ops import attention as at
+    from nanosandbox_tpu_torch.ops import flash_decode as fd
+    from nanosandbox_tpu_torch.serve.drafters import NGramDrafter
+    from nanosandbox_tpu_torch.serve.engine import Engine
+
+    spec = kw.pop("spec", False)
+    engine = Engine(model, num_slots=8, max_len=1024, device=DEVICE, tp=tp,
+                    spec=NGramDrafter(k=SPEC_K) if spec else None, **kw)
+    fd.reset_counts()
+    at.reset_counts()
+    got = serve_all(engine, reqs, new)
+    out = {"tokens": got, "launches": counted_launches(fd, engine),
+           "plain_cuda_calls": counted_plain(fd, at, engine),
+           "stats": engine.stats(), "engine": engine}
+    if not spec:
+        out["graph_trace"] = graph_trace(f"phase 20 tp {tp} {kw}", engine)
+    return out
+
+
+def need_k1_per_wave(name: str, run: dict, key: str) -> None:
+    """K1's launches must be one a layer and shard for each prefill
+    dispatch (waves and chunks; a verify's come on top under spec)."""
+    st, e = run["stats"], run["engine"]
+    want = e.cfg.n_layer * e.tp * (st["prefill_waves"] + st["prefill_chunks"])
+    got = run["launches"].get(key, 0)
+    if (got != want if "verify" not in st["host_dispatches"]
+            else got < want):
+        fail(f"phase 20 {name}: {key} launched {got}, want n_layer x tp x "
+             f"prefill dispatches = {want}")
+
+
+def tp_training_legs(tmp: str, smi: str) -> dict:
+    """(f), (g) and (h): start the training ranks in two waves on the card
+    and return a function that waits for them and checks them."""
+    import os
+
+    from nanosandbox_tpu_torch.config import load_config
+    from nanosandbox_tpu_torch.data.prepare import prepare_bpe_dataset
+
+    owt = os.path.join(tmp, "openwebtext")
+    if not os.path.exists(os.path.join(owt, "train.bin")):
+        prepare_bpe_dataset(owt, source_files=[CORPUS], tokenizer="bpe")
+    base = [f"--data_dir={tmp}", f"--device={DEVICE}", *P19_RUN]
+    sp_base = [f"--data_dir={tmp}", f"--device={DEVICE}", *SP_CUTS]
+    runs: dict = {}
+    live: list = []
+
+    def start(name, n, config, flags, out_dir=None, b=base):
+        if live and live[-1] is None:
+            fail(f"phase 20: {name} not started, the phase failed")
+        tag = os.path.join(tmp, "p20_" + name.replace(" ", "_"))
+        out_dir = out_dir or tag
+        handle = start_ranks(n, "fused", [config, *b, f"--out_dir={out_dir}",
+                                          *flags], tag, digest=True)
+        live.append(handle)
+        return {"name": name, "n": n, "out_dir": out_dir, "handle": handle,
+                "cfg": load_config([config, *b, *flags])}
+
+    def stop() -> None:
+        """Kill every rank still running (a check before them failed)."""
+        live.append(None)               # the waves start nothing more
+        for _, procs, _ in live[:-1]:
+            for p, log in procs:
+                p.kill()
+                p.wait()
+                log.close()
+
+    def finish(*started):
+        for run in started:
+            handle = run.pop("handle")
+            run["reports"] = wait_ranks(handle)
+            run["wall_s"] = time.monotonic() - handle[2]
+            run["note"] = "sharing the card"
+            for rep_ in run["reports"]:
+                if any(rep_["plain_cuda_calls"].values()):
+                    fail(f"phase 20 {run['name']}: plain versions ran on "
+                         f"the card on rank {rep_['rank']}")
+            runs[run["name"]] = run
+
+    tp = [f"--mesh_tp={TP}", "--mesh_dp=1"]
+    fp32 = P20_CUTS + P20_FP32
+    wave = [start(*leg) for leg in (
+        ("tp fp32", TP, DP_CONFIG, fp32 + tp),
+        ("tp bf16", TP, DP_CONFIG, P20_CUTS + tp),
+        ("fp32 one", 1, DP_CONFIG, fp32),
+        ("bf16 one", 1, DP_CONFIG, P20_CUTS),
+        ("seq one", 1, SP_DROPOUT_CONFIG,
+         P20_SP + ["--mesh_sp=1", "--remat=False"], None, sp_base))]
+
+    def waves() -> None:
+        """The first wave to its end, then the second (the resume reads
+        the first's checkpoint), on a thread beside the serving checks."""
+        try:
+            finish(*wave)
+            second = [start(*leg) for leg in (
+                ("fsdp x tp", 4, DP_CONFIG,
+                 fp32 + ["--shard_params=True", "--mesh_fsdp=2",
+                         "--mesh_dp=1", f"--mesh_tp={TP}"]),
+                ("seq x tp", 4, SP_DROPOUT_CONFIG,
+                 P20_SP + ["--mesh_sp=2", f"--mesh_tp={TP}"], None,
+                 sp_base),
+                ("tp resume one", 1, DP_CONFIG,
+                 fp32 + ["--init_from=resume", "--run_name=resume_one"],
+                 runs["tp fp32"]["out_dir"]))]
+            finish(*second)
+        except BaseException as e:      # fail() raises SystemExit
+            runs["error"] = e
+
+    thread = threading.Thread(target=waves, daemon=True)
+    thread.start()
+
+    def check() -> dict:
+        thread.join()
+        if "error" in runs:
+            raise runs["error"]
+        print("    training runs' walls, s (sharing the card): " + ", ".join(
+            f"{name} {run['wall_s']:.1f}" for name, run in runs.items()))
+        for name, ref, lims in (
+                ("tp fp32", "fp32 one", (DP_FP32_LOSS_REL, DP_FP32_NORM_REL)),
+                ("tp bf16", "bf16 one", (DP_BF16_LOSS_REL, DP_BF16_NORM_REL)),
+                ("fsdp x tp", "fp32 one",
+                 (DP_FP32_LOSS_REL, DP_FP32_NORM_REL)),
+                ("seq x tp", "seq one", (1e-5, 1e-4))):
+            run = runs[name]
+            compare_steps(name, run, runs[ref], *lims)
+            c = run["cfg"]
+            for rep_ in run["reports"]:
+                if name == "seq x tp":
+                    want = expected_launches(c.ring_layout, 2,
+                                             (rep_["rank"] // TP) % 2,
+                                             c.n_layer, c.max_iters, 2,
+                                             "fused")
+                else:
+                    want = dp_expected(c.n_layer, c.max_iters)
+                got = {k: v for k, v in rep_["launches"].items() if v}
+                if (got != {k: v for k, v in want.items() if v}
+                        and DEVICE != "cpu"):
+                    fail(f"phase 20 {name}: rank {rep_['rank']} launched "
+                         f"{got}, expected {want}")
+            shas = {rep_["state"]["param_sha256"] for rep_ in run["reports"]}
+            if name in ("tp fp32", "tp bf16") and len(shas) != TP:
+                fail(f"phase 20 {name}: the model ranks hold "
+                     f"{len(shas)} distinct shards, want {TP}")
+            for rep_ in run["reports"]:
+                x, st = rep_["exchanged"], rep_["state"]
+                one = runs[ref]["reports"][0]["state"]
+                mib = {k: x[f"{k}_bytes"] / c.max_iters / 2**20
+                       for k in ("tp", "allreduce", "ring")}
+                print(f"    [{smi}] {name} rank {rep_['rank']}: parameters "
+                      f"{st['param_bytes']:,} B, moments "
+                      f"{st['moment_bytes']:,} B (one process's x "
+                      f"{st['param_bytes'] / one['param_bytes']:.4f} / "
+                      f"{st['moment_bytes'] / one['moment_bytes']:.4f}); a "
+                      f"step exchanges tp {mib['tp']:.1f} MiB in "
+                      f"{x['tp_seconds'] / c.max_iters:.3f} s, all-reduce "
+                      f"{mib['allreduce']:.1f} MiB, ring {mib['ring']:.1f} "
+                      "MiB (host-staged gloo on one card; the end's eval "
+                      f"included); peak {rep_['peak_memory_gb']:.2f} GiB")
+                if not x["tp_bytes"]:
+                    fail(f"phase 20 {name}: rank {rep_['rank']} exchanged "
+                         "nothing over the model group")
+                # A model rank holds 1/TP of every block's projections
+                # (12 C^2 a layer, and the column-parallel biases) and the
+                # embeddings and LayerNorms whole.
+                C, item = c.n_embd, 4 if c.param_dtype == "float32" else 2
+                split = c.n_layer * (12 * C * C + (7 * C if c.bias else 0))
+                want_b = one["param_bytes"] - item * split * (TP - 1) // TP
+                if name in ("tp fp32", "tp bf16") and (
+                        st["param_bytes"] != want_b
+                        or st["moment_bytes"] != 2 * want_b):
+                    fail(f"phase 20 {name}: rank {rep_['rank']} holds "
+                         f"{st['param_bytes']} parameter and "
+                         f"{st['moment_bytes']} moment bytes, want {want_b} "
+                         f"and {2 * want_b}")
+        from nanosandbox_tpu_torch.checkpoint import TrainCheckpointer
+
+        blob = TrainCheckpointer(runs["tp fp32"]["out_dir"]).restore()
+        got = runs["tp resume one"]["reports"][0]["state"]["param_sha256"]
+        if got != state_digest(blob["model"]):
+            fail("phase 20 (h): the tp 2 checkpoint restored in one process "
+                 "differs from it")
+        print(f"  (h) the tp {TP} run's checkpoint (step {blob['iter_num']}, "
+              "written by rank 0 from the gathered shards) restored bit for "
+              "bit in one process")
+        return runs
+
+    check.stop = stop
+    return check
+
+
+def check_tp(fd, at, smi: str, tmp: str) -> dict:
+    """Phase 20 (module docstring) in ``tmp`` (phase 19's, whose
+    openwebtext it reuses); returns the runs whose launches the kernels
+    line reads."""
+    from nanosandbox_tpu_torch.models.gpt import shard_for_serving
+
+    t_phase = time.monotonic()
+    print("  (e) kernels at the shard shape")
+    kern = shard_kernel_cases(fd)
+    # (a) the bf16 124M paged engine at tp 1 and 2 on phase 5's requests.
+    bf16 = bf16_model()
+    reqs = phase5_requests(bf16.cfg)
+    serve = {tp: tp_serve(bf16, reqs, FLEET_NEW, tp=tp) for tp in (1, TP)}
+    same = sum(a == b for a, b in zip(serve[1]["tokens"], serve[TP]["tokens"]))
+    x = torch.tensor([p[:256] for p, _ in reqs if len(p) >= 256][:2]
+                     or [reqs[0][0]], device=DEVICE)
+    with torch.no_grad():
+        full = bf16(x)[:, -1]
+        sharded = shard_for_serving(bf16, TP)(x)[:, -1]
+    err = (full - sharded).abs().max().item()
+    need_launches("phase 20 (a) bf16 tp 2", serve[TP],
+                  ("flash_decode_paged/bf16", "flash_prefill_paged/bf16"))
+    need_k1_per_wave("(a) bf16", serve[TP], "flash_prefill_paged/bf16")
+    tpot = {tp: serve[tp]["stats"]["tpot_s"]["p50"] * 1e3 for tp in serve}
+    print(f"  (a) bf16 124M paged engine, phase 5's {len(reqs)} requests x "
+          f"{FLEET_NEW} tokens: tp {TP} answers equal to tp 1's: {same} of "
+          f"{len(reqs)}; last-position logits of {tuple(x.shape)} prompts, "
+          f"no-cache forward, tp {TP} vs tp 1: max |diff| {err:.3e}; launches "
+          f"tp {TP} {serve[TP]['launches']}, graphs traced "
+          f"{serve[TP]['graph_trace']}")
+    print(f"    [{smi}] TPOT p50 tp 1 {tpot[1]:.3f} ms, tp {TP} "
+          f"{tpot[TP]:.3f} ms (both shards on this one card: the layout's "
+          f"cost, not a speed of TP); (e) and (a) took "
+          f"{time.monotonic() - t_phase:.1f} s")
+    if same < len(reqs) // 2 or err > 0.5:
+        fail(f"phase 20 (a): tp {TP} bf16 answers equal to tp 1's {same} of "
+             f"{len(reqs)}, logits max |diff| {err}")
+    for tp in serve:
+        serve[tp].pop("engine")
+    del bf16
+    release()
+    # The training ranks run from here on, beside the serving checks.
+    training = tp_training_legs(tmp, smi)
+    try:
+        t0 = time.monotonic()
+        serving = tp_serving_checks()
+        print(f"  (b) and (c) took {time.monotonic() - t0:.1f} s, beside "
+              "the training ranks")
+    except BaseException:
+        training.stop()
+        raise
+    try:
+        train = training()
+    except BaseException:
+        training.stop()
+        raise
+    print(f"  phase 20: {time.monotonic() - t_phase:.1f} s")
+    return {"kernels": kern, "serve": serve, "train": train, **serving}
+
+
+def release() -> None:
+    """Free what dropped engines held on the card now: an engine's
+    watchdog panel refers back to it, so only the cycle collector frees
+    its pool and graphs (the training ranks share the card)."""
+    import gc
+
+    gc.collect()
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+
+
+def tp_serving_checks() -> dict:
+    """(b), (c) and (d) on phase 4's fp32 model: the tp 2 engine in
+    every pool and dispatch mode against tp 1, recovery and preemption,
+    the fleet and the mixed-tp pair; returns (b)'s runs."""
+    from nanosandbox_tpu_torch.serve.disagg import DisaggPair
+    from nanosandbox_tpu_torch.serve.engine import Engine
+    from nanosandbox_tpu_torch.serve.faults import FaultPlan
+    from nanosandbox_tpu_torch.serve.fleet import Fleet
+
+    # (b) phase 4's fp32 model at tp 2 in every pool and dispatch mode.
+    fp32, prompts = fp32_model_and_prompts()
+    preqs = [(p, {}) for p in prompts]
+    runs = {}
+    for name, kw in TP_MODES:
+        ref = tp_serve(fp32, preqs, ENGINE_NEW, tp=1, **dict(kw))
+        run = tp_serve(fp32, preqs, ENGINE_NEW, tp=TP, **dict(kw))
+        if run["tokens"] != ref["tokens"]:
+            fail(f"phase 20 (b) {name}: tp {TP} greedy tokens differ from "
+                 "tp 1's")
+        # Under spec every step is a verify: K1 over the drafts.
+        key = ("flash_decode" if kw.get("paged", True) is False
+               else "flash_prefill_paged" if kw.get("spec")
+               else "flash_decode_paged") + "/" + kw.get("kv_dtype", "fp32")
+        need_launches(f"phase 20 (b) {name}", run, (key,))
+        if kw.get("paged", True):
+            need_k1_per_wave(f"(b) {name}", run, "flash_prefill_paged/" +
+                             kw.get("kv_dtype", "fp32"))
+        if (run["engine"].max_programs() != ref["engine"].max_programs()):
+            fail(f"phase 20 (b) {name}: max_programs "
+                 f"{run['engine'].max_programs()} vs tp 1's "
+                 f"{ref['engine'].max_programs()}")
+        run.pop("engine")
+        del ref
+        release()
+        runs[name] = run
+        print(f"  (b) {name}: tp {TP} tokens identical to tp 1's; launches "
+              f"{run['launches']}" + (f", graphs traced {run['graph_trace']}"
+                                      if run.get("graph_trace") else ""))
+    clean = spec_run(fp32, prompts, tp=TP)["tokens"]
+    release()
+    for name, plan in (("nan_logits@3", True), ("preempt_storm@4x2", False)):
+        got = spec_run(fp32, prompts, tp=TP, supervised=plan,
+                       faults=FaultPlan.parse(name))
+        e = got.pop("engine")
+        n = (e.recoveries, e.preemptions)
+        del e, got["supervisor"]
+        release()
+        if got["tokens"] != clean or n[0 if plan else 1] < 1:
+            fail(f"phase 20 (b) {name} at tp {TP}: tokens equal to a clean "
+                 f"run {got['tokens'] == clean}, recoveries {n[0]}, "
+                 f"preemptions {n[1]}")
+        print(f"  (b) {name} at tp {TP}: recoveries {n[0]}, preemptions "
+              f"{n[1]}; tokens equal to a clean tp {TP} run")
+    # (c) a Fleet of two tp 2 replicas, and a pair with a tp 2 prefill tier
+    # and a tp 1 decode tier, against the colocated tp 1 engine.
+    kw = dict(num_slots=8, max_len=1024, device=DEVICE)
+    want = serve_all(Engine(fp32, **kw), preqs, ENGINE_NEW)
+    release()
+    fleet = Fleet(fp32, n_replicas=2, tp=TP, **kw)
+    got = serve_all(fleet, preqs, ENGINE_NEW)
+    del fleet
+    release()
+    pair = DisaggPair(fp32, prefill_tp=TP, **kw)
+    got_pair = serve_all(pair, preqs, ENGINE_NEW)
+    if got != want or got_pair != want:
+        fail(f"phase 20 (c): Fleet(tp={TP}) tokens equal {got == want}, "
+             f"the tp {TP} / tp 1 pair's {got_pair == want}")
+    print(f"  (c) Fleet(n_replicas=2, tp={TP}) and a DisaggPair with a tp "
+          f"{TP} prefill tier and a tp 1 decode tier "
+          f"({pair.stats()['migrations']} migrations): tokens equal to the "
+          "colocated tp 1 engine's")
+    del pair, fp32
+    release()
+    return {"runs": runs}
+
+
 # Phases that stand alone, for a partial run (--phases=2,3,7,9,13,14,15,16,
-# 17,18,19; 9 runs phase 12 after it).
-STANDALONE_PHASES = (2, 3, 7, 9, 13, 14, 15, 16, 17, 18, 19)
+# 17,18,19,20; 9 runs phase 12 after it).
+STANDALONE_PHASES = (2, 3, 7, 9, 13, 14, 15, 16, 17, 18, 19, 20)
 
 
 def train_and_sample(at, fd, smi: str) -> None:
@@ -4824,6 +5394,11 @@ def train_and_sample(at, fd, smi: str) -> None:
         check_trainer(at, fd, smi, tmp)
         print("== phase 12: the sampler on phase 9's checkpoint")
         check_sampler(tmp)
+
+
+def header(text: str) -> None:
+    """A phase's header line, with the seconds since the script started."""
+    print(f"{text} [at {time.monotonic() - T_START:.1f} s]", flush=True)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -4849,7 +5424,7 @@ def main(argv: list[str] | None = None) -> int:
     from nanosandbox_tpu_torch.ops import attention as at
     from nanosandbox_tpu_torch.ops import flash_decode as fd
 
-    print("== phase 1: device")
+    header("== phase 1: device")
     smi = nvidia_smi()
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, "
@@ -4886,50 +5461,54 @@ def main(argv: list[str] | None = None) -> int:
                           check_fleet_serving(fd, at, smi))),
                 (19, "data-parallel and FSDP training, the HF round trip",
                  lambda: (_build.library(), check_dp_fsdp(
-                     smi, tempfile.mkdtemp(prefix="chip_smoke_dp_"))))):
+                     smi, tempfile.mkdtemp(prefix="chip_smoke_dp_")))),
+                (20, "tensor parallelism (the model mesh axis)",
+                 lambda: (_build.library(), check_tp(
+                     fd, at, smi,
+                     tempfile.mkdtemp(prefix="chip_smoke_tp_"))))):
             if phase in only:
-                print(f"== phase {phase}: {title}")
+                header(f"== phase {phase}: {title}")
                 fn()
         print(f"chip_smoke: phases {sorted(only)} passed (a partial run "
               "prints no result line)")
         return 0
 
-    print("== phase 2: build")
+    header("== phase 2: build")
     check_build(_build)
 
-    print("== phase 3: kernels vs plain versions (124M shapes)")
+    header("== phase 3: kernels vs plain versions (124M shapes)")
     kern = check_kernels(fd)
 
-    print("== phase 4: fp32 124M engine vs no-cache recompute")
+    header("== phase 4: fp32 124M engine vs no-cache recompute")
     model, prompts = fp32_model_and_prompts()
     ref = recompute(model, prompts)
     paged_fp32 = check_engine_fp32(model, prompts, ref)
 
-    print("== phase 5: bf16 124M server")
+    header("== phase 5: bf16 124M server")
     served = check_server(fd, smi)
 
-    print("== phase 6: launch counts on the serving path")
+    header("== phase 6: launch counts on the serving path")
     print(f"  kernels {served['launches']}; plain versions on CUDA "
           f"{served['plain_cuda_calls']}")
 
-    print("== phase 7: training kernels vs plain versions")
+    header("== phase 7: training kernels vs plain versions")
     train_cases = check_train_kernels(at)
     ring_cases = check_ring_blocks(at)
 
-    print("== phase 8: fp32 124M loss and gradients, kernels vs plain")
+    header("== phase 8: fp32 124M loss and gradients, kernels vs plain")
     parity_launches = check_train_parity(at)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        print("== phase 9: the 124M bf16 trainer")
+        header("== phase 9: the 124M bf16 trainer")
         trained = check_trainer(at, fd, smi, tmp)
 
-        print("== phase 10: fp32 124M engines, dense pool and int8/int4 "
+        header("== phase 10: fp32 124M engines, dense pool and int8/int4 "
               "pools")
         pools = check_pools_fp32(model, prompts, ref, paged_fp32)
         del model
         torch.cuda.empty_cache()
 
-        print("== phase 11: bf16 124M servers, dense pool and int8/int4 "
+        header("== phase 11: bf16 124M servers, dense pool and int8/int4 "
               "pools")
         servers = {"paged bf16": served}
         for name, flags, need in (
@@ -4948,34 +5527,36 @@ def main(argv: list[str] | None = None) -> int:
                   f"{st['ttft_s']['p50'] * 1e3:11.2f}  "
                   f"{st['tpot_s']['p50'] * 1e3:11.3f}")
 
-        print("== phase 12: the sampler on phase 9's checkpoint")
+        header("== phase 12: the sampler on phase 9's checkpoint")
         check_sampler(tmp)
 
-        print("== phase 13: the sequence-parallel trainer (4 ranks, one "
+        header("== phase 13: the sequence-parallel trainer (4 ranks, one "
               "card)")
         sp = check_sp_trainer(smi, tmp)
 
-    print("== phase 14: dispatch modes on the card")
+    header("== phase 14: dispatch modes on the card")
     check_dispatch(fd, smi)
 
-    print("== phase 15: scheduling (chunked prefill, preemption, deadlines)")
+    header("== phase 15: scheduling (chunked prefill, preemption, deadlines)")
     check_scheduling(fd, at, smi, served["answers"])
 
-    print("== phase 16: speculative decoding and recovery")
+    header("== phase 16: speculative decoding and recovery")
     spec = check_spec_and_recovery(fd, at, smi, paged_fp32["tokens"],
                                    pools["dense fp32"]["tokens"], served)
 
-    print("== phase 17: observability on the live server")
+    header("== phase 17: observability on the live server")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
         check_observability(fd, smi, tmp)
 
-    print("== phase 18: multi-replica serving (disaggregated tiers, the "
+    header("== phase 18: multi-replica serving (disaggregated tiers, the "
           "fleet, the router)")
     check_fleet_serving(fd, at, smi, served["answers"])
 
-    print("== phase 19: data-parallel and FSDP training, the HF round trip")
+    header("== phase 19: data-parallel and FSDP training, the HF round trip")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
         dp = check_dp_fsdp(smi, tmp)
+        header("== phase 20: tensor parallelism (the model mesh axis)")
+        p20 = check_tp(fd, at, smi, tmp)
 
     def entry(name, source, replaces, launches, case):
         return {"name": name, "route": "cuda",
@@ -5156,6 +5737,50 @@ def main(argv: list[str] | None = None) -> int:
              ("data x seq",), ring_cases["fused_fp32"])):
         kernels.append(entry(name, source, replaces,
                              p19_launches(dp, runs_, key), case))
+    # Phase 20: K2, K1 and K3 at a tp 2 shard's shape (H 6) with the
+    # launches of its tp 2 engines (the bf16 124M engine's K2 and K1; the
+    # fp32 paged and dense engines' K2, K1 and K3); the causal K4 and K5
+    # and the fp32 ring blocks with the launches of its model-axis ranks.
+    kc, sv, fr = p20["kernels"], p20["serve"][TP]["launches"], p20["runs"]
+    shard = f"[tp {TP} shard H={12 // TP}]"
+    pf, dn = fr["paged fp32"]["launches"], fr["dense fp32"]["launches"]
+    kernels += [
+        entry(f"paged_decode_kernel{shard}", paged, "flash_decode.py:421",
+              sv["flash_decode_paged/bf16"], kc[("K2", "bf16")]),
+        entry(f"paged_prefill_mma_kernel<bf16>{shard}", paged,
+              "flash_decode.py:585", sv["flash_prefill_paged/bf16"],
+              kc[("K1", "bf16")]),
+        entry(f"paged_decode_kernel[q fp32]{shard}", paged,
+              "flash_decode.py:421", pf["flash_decode_paged/fp32"],
+              kc[("K2", "fp32")]),
+        entry(f"paged_prefill_f32_kernel<fp32>{shard}", paged,
+              "flash_decode.py:585", pf["flash_prefill_paged/fp32"],
+              kc[("K1", "fp32")]),
+        entry(f"flash_decode_kernel<fp32>{shard}", dense,
+              "flash_decode.py:244", dn["flash_decode/fp32"],
+              kc[("K3", "fp32")])]
+    tr = p20["train"]
+    for name, source, replaces, key, runs_, case in (
+            ("flash_fwd_mma_kernel[model ranks]", flash, "attention.py:180",
+             "flash_attention_fwd", ("tp bf16",), train_cases["fwd"]),
+            ("flash_bwd_mma_kernel[model ranks]", flash, "attention.py:556",
+             "flash_attention_bwd_fused", ("tp bf16",), train_cases["fused"]),
+            ("flash_fwd_f32_kernel[model ranks]", flash, "attention.py:180",
+             "flash_attention_fwd", ("tp fp32", "fsdp x tp"),
+             train_cases["fwd_fp32"]),
+            ("flash_bwd_kv_kernel<float>[model ranks]", flash,
+             "attention.py:556", "flash_attention_bwd_fused",
+             ("tp fp32", "fsdp x tp"), train_cases["fused_fp32"]),
+            ("flash_fwd_ring_f32_kernel[seq x model ranks]", ring,
+             "attention.py:180", "flash_attention_fwd/full", ("seq x tp",),
+             ring_cases["fwd_fp32"]),
+            ("flash_bwd_ring_f32_kernel<dlse>[seq x model ranks]", ring,
+             "attention.py:556", "flash_attention_bwd_fused/full/dlse",
+             ("seq x tp",), ring_cases["fused_fp32"])):
+        kernels.append(entry(name, source, replaces,
+                             p19_launches(tr, runs_, key), case))
+    print(f"chip_smoke: every phase passed in "
+          f"{time.monotonic() - T_START:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

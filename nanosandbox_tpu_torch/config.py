@@ -204,9 +204,13 @@ def check_ported(cfg: TrainConfig) -> None:
         raise ValueError(
             f"block_size {cfg.block_size} must be divisible by the seq "
             f"mesh axis ({cfg.mesh_sp})")
+    if cfg.mesh_tp > 1 and cfg.n_head % cfg.mesh_tp:
+        # JAX checks this for the ring alone (its other impls let GSPMD
+        # split a head); the port always splits the model axis by heads.
+        raise ValueError(
+            f"mesh_tp shards heads over model: n_head {cfg.n_head} must "
+            f"be divisible by mesh_tp {cfg.mesh_tp}")
     unported = []
-    if cfg.mesh_tp > 1:
-        unported.append(f"mesh_tp={cfg.mesh_tp} (tensor parallelism)")
     if cfg.init_from.startswith("gpt2"):
         unported.append(f"init_from={cfg.init_from!r} (pretrained OpenAI "
                         "weights need a download)")
@@ -222,7 +226,8 @@ def check_mesh(cfg: TrainConfig, shape: dict) -> None:
     divisible by jax.process_count()) exist because a JAX process loads
     its own rows; here every rank draws the global batch and keeps its
     rows over (data, fsdp), so the first check below is the whole
-    condition (ROADMAP C5)."""
+    condition (ROADMAP C5). The model axis takes no rows: its ranks hold
+    the same tokens."""
     dp_shards = shape["data"] * shape["fsdp"]
     if cfg.batch_size % dp_shards:
         raise ValueError(

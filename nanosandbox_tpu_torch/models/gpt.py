@@ -106,15 +106,35 @@ from nanosandbox_tpu_torch.ops.flash_decode import (KV_MODES, KV_STORAGE,
 from nanosandbox_tpu_torch.ops.ring_attention import (ring_attention_sharded,
                                                       ring_positions)
 from nanosandbox_tpu_torch.parallel import distributed
+from nanosandbox_tpu_torch.parallel.tensor import (copy_to_model,
+                                                   reduce_from_model)
 
 # Per layer: (K, V) or, quantized, (K, V, k_scale, v_scale).
 KVPool = List[Tuple[torch.Tensor, ...]]
 
 
-def _dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype):
-    """flax Dense(dtype=compute): inputs and weights in the compute dtype."""
-    b = lin.bias.to(dtype) if lin.bias is not None else None
+def _dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
+           bias: bool = True):
+    """flax Dense(dtype=compute): inputs and weights in the compute dtype.
+    ``bias=False`` leaves the bias out: a row-parallel partial product,
+    whose bias is added once after the sum (_row_parallel)."""
+    b = lin.bias.to(dtype) if bias and lin.bias is not None else None
     return F.linear(x.to(dtype), lin.weight.to(dtype), b)
+
+
+def _row_parallel(lin: nn.Linear, partials: list, dtype: torch.dtype,
+                  group=None) -> torch.Tensor:
+    """A row-parallel projection's output from its shards' partial
+    products: summed in shard order (shard 0 first) or, one partial a
+    rank, over the model group (parallel/tensor.py reduce_from_model),
+    then the bias added once."""
+    if group is not None:
+        y = reduce_from_model(partials[0], group)
+    else:
+        y = partials[0]
+        for part in partials[1:]:
+            y = y + part
+    return y if lin.bias is None else y + lin.bias.to(dtype)
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -149,18 +169,25 @@ def _dropout(x: torch.Tensor, rate: float,
 
 
 def _attention_seed(generator: torch.Generator, device,
-                    spread: Optional[tuple] = None) -> torch.Tensor:
+                    spread: Optional[tuple] = None,
+                    heads: Optional[tuple] = None) -> torch.Tensor:
     """One uint32 dropout seed (as int64) drawn on the generator's device:
     no host sync on the training path. A rank that holds rows from row0
     on (spread) gets the (5,) seed words with that batch offset, so the
-    kernels hash the rows' global indices."""
+    kernels hash the rows' global indices; a rank that holds heads
+    [h_off, h_off + H_local) of H (``heads`` = (h_off, H), the model
+    axis) gets the head offset and, as a sixth word, the H the stream is
+    linearised over (ops/attention.py seed_words)."""
     seed = torch.randint(0, 2**32, (1,), generator=generator,
                          device=device, dtype=torch.int64)
-    if spread is None or spread[1] == 0:
+    row0 = 0 if spread is None else spread[1]
+    if row0 == 0 and heads is None:
         return seed
-    offs = torch.tensor([spread[1], 0, 0, 0], dtype=torch.int64,
-                        device=device)
-    return torch.cat([seed, offs])
+    words = [row0, 0 if heads is None else heads[0], 0, 0]
+    if heads is not None:
+        words.append(heads[1])
+    return torch.cat([seed, torch.tensor(words, dtype=torch.int64,
+                                         device=device)])
 
 
 def _to_pool(layer, k: torch.Tensor, v: torch.Tensor, valid=None):
@@ -269,30 +296,70 @@ def _ring(cfg: GPTConfig, mesh) -> bool:
             and mesh.seq > 1)
 
 
+def _tp(mesh) -> tuple:
+    """(degree, index) of a mesh's model axis; (1, 0) without one."""
+    return (mesh.model, mesh.model_index) if mesh is not None else (1, 0)
+
+
 class CausalSelfAttention(nn.Module):
-    def __init__(self, cfg: GPTConfig, mesh=None, **factory):
+    """Attention over the heads of one model shard: all H at ``tp`` (1, 0);
+    heads [i H/tp, (i+1) H/tp) at (tp, i), with c_attn's rows of those
+    heads and c_proj's columns (parallel/tensor.py). Under a mesh whose
+    model axis is larger than 1 the forward sums c_proj's partial product
+    over the model group; a single-controller model (ShardedBlock) calls
+    ``attend`` and ``partial`` of each shard and sums them itself."""
+
+    def __init__(self, cfg: GPTConfig, mesh=None, tp: tuple = (1, 0),
+                 **factory):
         super().__init__()
         self.cfg = cfg
         self.mesh = mesh
-        C = cfg.n_embd
-        self.c_attn = nn.Linear(C, 3 * C, bias=cfg.bias, **factory)
-        self.c_proj = nn.Linear(C, C, bias=cfg.bias, **factory)
+        self.tp, self.tp_index = tp
+        self.n_head = cfg.n_head // self.tp
+        C, Cl = cfg.n_embd, cfg.n_embd // self.tp
+        self.c_attn = nn.Linear(C, 3 * Cl, bias=cfg.bias, **factory)
+        self.c_proj = nn.Linear(Cl, C, bias=cfg.bias, **factory)
 
     def forward(self, x, cache=None, cache_index=None, block_table=None,
                 generator=None, plain_attention=False, spread=None):
         cfg = self.cfg
-        B, T, C = x.shape
-        H, D = cfg.n_head, cfg.head_dim
         dtype = cfg.torch_compute_dtype
-        q, k, v = _dense(self.c_attn, x, dtype).split(C, dim=-1)
+        if self.tp == 1:
+            y = self.attend(x, cache, cache_index, block_table, generator,
+                            plain_attention, spread)
+            return _dropout(_dense(self.c_proj, y, dtype), cfg.dropout,
+                            generator, spread)
+        group = self.mesh.model_group
+        y = self.attend(copy_to_model(x, group), cache, cache_index,
+                        block_table, generator, plain_attention, spread)
+        return _dropout(_row_parallel(self.c_proj, [self.partial(y)],
+                                      dtype, group),
+                        cfg.dropout, generator, spread)
+
+    def partial(self, y: torch.Tensor) -> torch.Tensor:
+        """c_proj's product over this shard's heads, without the bias."""
+        return _dense(self.c_proj, y, self.cfg.torch_compute_dtype,
+                      bias=False)
+
+    def attend(self, x, cache=None, cache_index=None, block_table=None,
+               generator=None, plain_attention=False, spread=None):
+        """(B, T, C / tp): this shard's heads' attention output, before
+        c_proj."""
+        cfg = self.cfg
+        B, T, _ = x.shape
+        H, D = self.n_head, cfg.head_dim
+        dtype = cfg.torch_compute_dtype
+        q, k, v = _dense(self.c_attn, x, dtype).split(H * D, dim=-1)
         q = q.view(B, T, H, D).transpose(1, 2)        # (B, H, T, D)
         k = k.view(B, T, H, D).transpose(1, 2)
         v = v.view(B, T, H, D).transpose(1, 2)
         if cache is None:
             rate, seed = 0.0, None
             if generator is not None and cfg.dropout > 0.0:
-                rate, seed = cfg.dropout, _attention_seed(generator, x.device,
-                                                          spread)
+                heads = (None if self.tp == 1
+                         else (self.tp_index * H, cfg.n_head))
+                rate, seed = cfg.dropout, _attention_seed(
+                    generator, x.device, spread, heads)
             if _ring(cfg, self.mesh):
                 m = self.mesh
                 y = ring_attention_sharded(
@@ -321,9 +388,7 @@ class CausalSelfAttention(nn.Module):
                                         cache_index, **_scales(cache))
         else:
             y = self._dense_cached(q, k, v, cache, cache_index)
-        y = y.transpose(1, 2).reshape(B, T, C)
-        return _dropout(_dense(self.c_proj, y, dtype), cfg.dropout, generator,
-                        spread)
+        return y.transpose(1, 2).reshape(B, T, H * D)
 
     @staticmethod
     def _dense_cached(q, k, v, cache, cache_index):
@@ -365,18 +430,39 @@ class CausalSelfAttention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: GPTConfig, **factory):
+    """The 4x tanh-GELU MLP over one model shard's hidden units (all 4C
+    at ``tp`` (1, 0); units [i 4C/tp, (i+1) 4C/tp) at (tp, i)), summed
+    over the model group as CausalSelfAttention's output is."""
+
+    def __init__(self, cfg: GPTConfig, mesh=None, tp: tuple = (1, 0),
+                 **factory):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
+        self.tp = tp[0]
         C = cfg.n_embd
-        self.c_fc = nn.Linear(C, 4 * C, bias=cfg.bias, **factory)
-        self.c_proj = nn.Linear(4 * C, C, bias=cfg.bias, **factory)
+        self.c_fc = nn.Linear(C, 4 * C // self.tp, bias=cfg.bias, **factory)
+        self.c_proj = nn.Linear(4 * C // self.tp, C, bias=cfg.bias,
+                                **factory)
 
     def forward(self, x, generator=None, spread=None):
         dtype = self.cfg.torch_compute_dtype
-        h = F.gelu(_dense(self.c_fc, x, dtype), approximate="tanh")
-        return _dropout(_dense(self.c_proj, h, dtype), self.cfg.dropout,
-                        generator, spread)
+        if self.tp == 1:
+            y = _dense(self.c_proj, self.hidden(x), dtype)
+        else:
+            group = self.mesh.model_group
+            y = _row_parallel(self.c_proj, [self.partial(
+                self.hidden(copy_to_model(x, group)))], dtype, group)
+        return _dropout(y, self.cfg.dropout, generator, spread)
+
+    def hidden(self, x: torch.Tensor) -> torch.Tensor:
+        return F.gelu(_dense(self.c_fc, x, self.cfg.torch_compute_dtype),
+                      approximate="tanh")
+
+    def partial(self, h: torch.Tensor) -> torch.Tensor:
+        """c_proj's product over this shard's units, without the bias."""
+        return _dense(self.c_proj, h, self.cfg.torch_compute_dtype,
+                      bias=False)
 
 
 class Block(nn.Module):
@@ -384,9 +470,9 @@ class Block(nn.Module):
         super().__init__()
         C = cfg.n_embd
         self.ln_1 = nn.LayerNorm(C, eps=1e-5, bias=cfg.bias, **factory)
-        self.attn = CausalSelfAttention(cfg, mesh, **factory)
+        self.attn = CausalSelfAttention(cfg, mesh, _tp(mesh), **factory)
         self.ln_2 = nn.LayerNorm(C, eps=1e-5, bias=cfg.bias, **factory)
-        self.mlp = MLP(cfg, **factory)
+        self.mlp = MLP(cfg, mesh, _tp(mesh), **factory)
 
     def forward(self, x, cache=None, cache_index=None, block_table=None,
                 generator=None, plain_attention=False, spread=None):
@@ -396,6 +482,45 @@ class Block(nn.Module):
                           plain_attention, spread)
         return x + self.mlp(_layer_norm(self.ln_2, x).to(dtype), generator,
                             spread)
+
+
+class ShardedBlock(nn.Module):
+    """A block of the single-controller tensor-parallel model (serving,
+    GPT(shards=tp)): ``tp`` shards of attention and of the MLP at local
+    width, each with its own weights, run one after another on one
+    device. A cached call's pool layer holds every shard's slice of the
+    heads along a leading dim (init_paged_cache / init_cache with tp), and
+    shard i attends through slice i. The row-parallel partial products
+    are summed in shard order, then the bias (shard 0's; every shard
+    holds it) added once. The LayerNorms are whole, once."""
+
+    def __init__(self, cfg: GPTConfig, tp: int, **factory):
+        super().__init__()
+        C = cfg.n_embd
+        self.ln_1 = nn.LayerNorm(C, eps=1e-5, bias=cfg.bias, **factory)
+        self.attn = nn.ModuleList(CausalSelfAttention(cfg, tp=(tp, i),
+                                                      **factory)
+                                  for i in range(tp))
+        self.ln_2 = nn.LayerNorm(C, eps=1e-5, bias=cfg.bias, **factory)
+        self.mlp = nn.ModuleList(MLP(cfg, tp=(tp, i), **factory)
+                                 for i in range(tp))
+
+    def forward(self, x, cache=None, cache_index=None, block_table=None,
+                generator=None, plain_attention=False, spread=None):
+        if generator is not None:
+            raise ValueError("the single-controller tensor-parallel model "
+                             "serves: it takes no dropout generator")
+        dtype = x.dtype
+        cdt = self.attn[0].cfg.torch_compute_dtype
+        h = _layer_norm(self.ln_1, x).to(dtype)
+        parts = [a.partial(a.attend(
+            h, None if cache is None else tuple(buf[i] for buf in cache),
+            cache_index, block_table, plain_attention=plain_attention))
+            for i, a in enumerate(self.attn)]
+        x = x + _row_parallel(self.attn[0].c_proj, parts, cdt)
+        h = _layer_norm(self.ln_2, x).to(dtype)
+        parts = [m.partial(m.hidden(h)) for m in self.mlp]
+        return x + _row_parallel(self.mlp[0].c_proj, parts, cdt)
 
 
 class _RematBlock:
@@ -463,7 +588,15 @@ class GPT(nn.Module):
     loads a state_dict next. ``mesh`` (parallel/mesh.py) carries the seq
     group ring attention runs over and, in training, this rank's row
     block of the micro-batch (its dropout masks are the global batch's
-    rows). ``fsdp`` (parallel/sharding.py FSDP, set by it) holds the
+    rows); a model axis larger than 1 builds the rank's model shard
+    (tensor parallelism, parallel/tensor.py): its heads and hidden units
+    of every block, the rest whole, summed over the model group; the
+    attention-dropout seed words carry the shard's head offset and the
+    global head count, so the masks are one process's. ``shards`` > 1
+    is serving's single controller (shard_for_serving): every block a
+    ShardedBlock of that many shards in one process, its cached calls
+    over a pool made with tp = shards. ``fsdp`` (parallel/sharding.py
+    FSDP, set by it) holds the
     parameters as shards: each part of the forward runs inside
     ``gathered`` of its weights, and every training block runs as a
     _RematBlock (under remat_policy, or 'save_attention' without remat)
@@ -471,16 +604,27 @@ class GPT(nn.Module):
     of being kept."""
 
     def __init__(self, cfg: GPTConfig, *, device=None,
-                 generator: Optional[torch.Generator] = None, mesh=None):
+                 generator: Optional[torch.Generator] = None, mesh=None,
+                 shards: int = 1):
         super().__init__()
         self.cfg = cfg
         self.mesh = mesh
         self.fsdp = None
+        self.tp = _tp(mesh)
+        self.shards = int(shards)
+        if self.shards > 1 and self.tp[0] > 1:
+            raise ValueError("a model is sharded over a mesh's model axis "
+                             "or over shards in one process, not both")
+        for tp in (self.tp[0], self.shards):
+            if cfg.n_head % tp:
+                raise ValueError(f"tensor parallelism splits heads: n_head "
+                                 f"{cfg.n_head} must be divisible by {tp}")
         factory = {"device": device, "dtype": cfg.torch_param_dtype}
         self.wte = nn.Embedding(cfg.vocab_size, cfg.n_embd, **factory)
         self.wpe = nn.Embedding(cfg.block_size, cfg.n_embd, **factory)
-        self.h = nn.ModuleList(Block(cfg, mesh, **factory)
-                               for _ in range(cfg.n_layer))
+        self.h = nn.ModuleList(
+            (ShardedBlock(cfg, self.shards, **factory) if self.shards > 1
+             else Block(cfg, mesh, **factory)) for _ in range(cfg.n_layer))
         self.ln_f = nn.LayerNorm(cfg.n_embd, eps=1e-5, bias=cfg.bias,
                                  **factory)
         if generator is not None:
@@ -488,8 +632,25 @@ class GPT(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
+        """GPT-2's initialization, drawn as one process draws it: on a
+        model shard (a mesh's model axis) each full parameter is drawn
+        and this rank's shard of it kept (parallel/tensor.py)."""
+        from nanosandbox_tpu_torch.parallel.tensor import (full_shapes,
+                                                           shard_param)
+
+        if self.shards > 1:
+            raise ValueError("the single-controller tensor-parallel model "
+                             "takes its weights from a full model "
+                             "(shard_for_serving)")
+        tp, index = self.tp
+        shapes = full_shapes(self.cfg) if tp > 1 else {}
         for name, p in self.named_parameters():
-            init_param(name, p, generator, self.cfg.n_layer)
+            if tp == 1:
+                init_param(name, p, generator, self.cfg.n_layer)
+                continue
+            full = torch.empty(shapes[name], dtype=p.dtype, device=p.device)
+            init_param(name, full, generator, self.cfg.n_layer)
+            p.copy_(shard_param(name, full, tp, index))
 
     def gathered(self, *prefixes: str):
         """A context in which the parameters whose names start with one of
@@ -640,17 +801,22 @@ def kv_mode(cfg: GPTConfig, kv_dtype=None) -> str:
 
 
 def _cache_layers(cfg: GPTConfig, lead: tuple, length: int, kv_dtype,
-                  device) -> KVPool:
+                  device, tp: int = 1) -> KVPool:
     """Per-layer pools of lead + (H, length, head_dim): (K, V) for the fp
     modes; (K, V, k_scale, v_scale) with f32 scales lead + (H, length)
-    for int8 and int4 (values packed to head_dim // 2 bytes)."""
+    for int8 and int4 (values packed to head_dim // 2 bytes). ``tp`` > 1
+    gives every tensor a leading dim of tp shards of H / tp heads each:
+    shard i's slice [i] is its own contiguous pool (ShardedBlock)."""
     mode = kv_mode(cfg, kv_dtype)
     D = cfg.head_dim
     if mode == "int4" and D % 2:
         raise ValueError(f"int4 KV packs two dims per byte; head_dim {D} "
                          "must be even")
-    vshape = lead + (cfg.n_head, length, D // 2 if mode == "int4" else D)
-    sshape = lead + (cfg.n_head, length)
+    if tp > 1:
+        lead = (tp,) + lead
+    H = cfg.n_head // tp
+    vshape = lead + (H, length, D // 2 if mode == "int4" else D)
+    sshape = lead + (H, length)
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -665,15 +831,16 @@ def _cache_layers(cfg: GPTConfig, lead: tuple, length: int, kv_dtype,
 
 
 def init_cache(cfg: GPTConfig, batch_size: int, max_len: int, kv_dtype=None,
-               device=None) -> KVPool:
+               device=None, tp: int = 1) -> KVPool:
     """Per-layer dense decode pools of (batch_size, H, max_len, head_dim)
     (models/gpt.py init_cache of the JAX package): one row per slot or
     sample, in the --kv_dtype mode (module docstring). max_len caps at
-    block_size, the positions wpe defines."""
+    block_size, the positions wpe defines. ``tp`` > 1: (tp, batch_size,
+    H / tp, max_len, head_dim), for GPT(shards=tp)."""
     if max_len > cfg.block_size:
         raise ValueError(f"cache length {max_len} > block_size "
                          f"{cfg.block_size}")
-    return _cache_layers(cfg, (batch_size,), max_len, kv_dtype, device)
+    return _cache_layers(cfg, (batch_size,), max_len, kv_dtype, device, tp)
 
 
 def scatter_cache_rows(pool: KVPool, rows: KVPool,
@@ -699,12 +866,49 @@ def scatter_cache_rows(pool: KVPool, rows: KVPool,
 
 
 def init_paged_cache(cfg: GPTConfig, num_blocks: int, page: int,
-                     kv_dtype=None, device=None) -> KVPool:
+                     kv_dtype=None, device=None, tp: int = 1) -> KVPool:
     """Per-layer block pools of (num_blocks + 1, H, page, head_dim):
     ``num_blocks`` allocatable blocks plus the drop block at index
     num_blocks (module docstring), in the --kv_dtype mode; int8/int4
-    layers carry (num_blocks + 1, H, page) f32 scales."""
-    return _cache_layers(cfg, (num_blocks + 1,), page, kv_dtype, device)
+    layers carry (num_blocks + 1, H, page) f32 scales. ``tp`` > 1: a
+    leading dim of tp shards of H / tp heads, for GPT(shards=tp)."""
+    return _cache_layers(cfg, (num_blocks + 1,), page, kv_dtype, device, tp)
+
+
+def pool_shards(pool: KVPool, tp: int) -> List[KVPool]:
+    """The per-shard pools of a pool made with ``tp`` (views of its
+    slices: writes land in it); [pool] itself at tp 1."""
+    if tp == 1:
+        return [pool]
+    return [[tuple(buf[i] for buf in layer) for layer in pool]
+            for i in range(tp)]
+
+
+@torch.no_grad()
+def shard_for_serving(model: GPT, tp: int) -> GPT:
+    """The single-controller tensor-parallel model of a full ``model``:
+    GPT(shards=tp) on the model's device and dtype, shard i of each block
+    holding its own copy of shard i of the weights (parallel/tensor.py
+    shard_state_dict); the embeddings and LayerNorms once. The model
+    itself at tp 1."""
+    from nanosandbox_tpu_torch.parallel.tensor import shard_state_dict
+
+    if tp == 1:
+        return model
+    w = model.wte.weight
+    out = GPT(model.cfg, device="meta", shards=tp).to_empty(device=w.device)
+    out = out.to(w.dtype)
+    sd = model.state_dict()
+    mine = out.state_dict()
+    for i in range(tp):
+        for name, t in shard_state_dict(sd, tp, i).items():
+            parts = name.split(".")
+            if parts[0] == "h" and parts[2] in ("attn", "mlp"):
+                name = ".".join(parts[:3] + [str(i)] + parts[3:])
+            elif i:
+                continue
+            mine[name].copy_(t)
+    return out
 
 
 def cast_for_serving(model: GPT) -> GPT:

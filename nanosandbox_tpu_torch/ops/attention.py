@@ -67,7 +67,11 @@ goes through it.
 
 Attention-probability dropout is the JAX kernels' counter-based hash
 mask, bit for bit (``hash_dropout_keep_mask``): the same (5,) seed words
-drop the same score elements in both packages. The Mosaic stat layouts
+drop the same score elements in both packages. A head-sharded call (the
+model axis: a rank's H / tp heads of H) carries a sixth word, the global
+head count the stream id is linearised over (JAX's static
+``hash_heads``); the kernels always read six (``_dropout_args`` adds a
+0, "the call's H", to five). The Mosaic stat layouts
 are not ported (on Hopper the lse is a plain (B*H, T) vector;
 ``attention_stat_layout`` selects nothing).
 """
@@ -146,10 +150,12 @@ def _fmix32(h: torch.Tensor) -> torch.Tensor:
 
 
 def seed_words(seed, device=None) -> torch.Tensor:
-    """The (SEED_WORDS,) int64 words (uint32 values) every kernel reads:
-    a scalar or (1,) seed gets zero offsets (the non-ring path), a
-    (SEED_WORDS,) vector is taken as it is; None is all zeros. A tensor
-    stays on its device (a seed drawn on the card needs no host sync)."""
+    """The (SEED_WORDS,) int64 words (uint32 values) the kernels hash: a
+    scalar or (1,) seed gets zero offsets (the non-ring path), a
+    (SEED_WORDS,) vector, or one with the sixth word hash_heads of a
+    head-sharded call (module docstring), is taken as it is; None is all
+    zeros. A tensor stays on its device (a seed drawn on the card needs
+    no host sync)."""
     if seed is None:
         return torch.zeros(SEED_WORDS, dtype=torch.int64, device=device)
     if isinstance(seed, torch.Tensor):
@@ -159,10 +165,11 @@ def seed_words(seed, device=None) -> torch.Tensor:
         words = torch.tensor([int(x) & _M32 for x in
                               np.asarray(seed).reshape(-1).tolist()],
                              dtype=torch.int64, device=device)
-    if words.numel() == SEED_WORDS:
+    if words.numel() in (SEED_WORDS, SEED_WORDS + 1):
         return words.contiguous()
     if words.numel() != 1:
-        raise ValueError(f"seed must hold 1 or {SEED_WORDS} words, got "
+        raise ValueError(f"seed must hold 1 or {SEED_WORDS} words (or "
+                         f"{SEED_WORDS + 1} with hash_heads), got "
                          f"{words.numel()}")
     return torch.cat([words, words.new_zeros(SEED_WORDS - 1)])
 
@@ -193,9 +200,12 @@ def hash_dropout_keep_mask(seed, B: int, H: int, Tq: int, Tk: int, *,
                            rate: float = 0.1, device=None) -> torch.Tensor:
     """The exact (B, H, Tq, Tk) bool keep-mask the kernels derive, as
     plain torch ops: bit for bit the JAX package's mask for the same
-    seed words."""
+    seed words. hash_heads: the argument, else the words' sixth, else
+    H."""
     w = seed_words(seed, device).tolist()
-    hash_heads = H if hash_heads is None else hash_heads
+    if hash_heads is None:
+        hash_heads = w[SEED_WORDS] if len(w) > SEED_WORDS and w[
+            SEED_WORDS] else H
     if hash_seq_len is None:
         hash_seq_len = default_hash_seq_len(Tq)
     bh = torch.arange(B * H, dtype=torch.int64, device=device)
@@ -344,14 +354,17 @@ def _raise_on(err: int, name: str) -> None:
 
 def _dropout_args(q, seed, dropout_rate, hash_seq_len):
     """(seed words on q's device or None, (seed pointer, on, threshold,
-    keep scale, hash_seq_len)) for a C entry point. The kernels linearise
-    the stream over the call's own heads."""
+    keep scale, hash_seq_len)) for a C entry point. The kernels read six
+    words: the sixth, hash_heads, 0 when the call's own heads are the
+    stream's."""
     hash_seq_len = hash_seq_len or default_hash_seq_len(q.shape[2])
     _check_dropout_seq_len(dropout_rate, hash_seq_len)
     if dropout_rate <= 0.0:
         return None, (None, 0, 0, 1.0, hash_seq_len)
     _require_seed(seed, dropout_rate)
     words = seed_words(seed, q.device)
+    if words.numel() == SEED_WORDS:
+        words = torch.cat([words, words.new_zeros(1)])
     return words, (words.data_ptr(), 1, dropout_threshold(dropout_rate),
                    1.0 / (1.0 - dropout_rate), hash_seq_len)
 
@@ -662,13 +675,18 @@ def flash_attention_lse_dropout(q, k, v, seed, causal: bool = True,
     head count and sequence length the mask hash runs over, so every ring
     block drops the elements the whole-sequence call would. lse is that
     of the unmasked scores. Differentiable in both outputs, through
-    FlashAttention on either device. The heads are not sharded in the
-    port, so ``hash_heads`` is the call's H (None says so too)."""
+    FlashAttention on either device. ``hash_heads`` larger than the
+    call's H is a head-sharded call: the seed's head offset names its
+    first head, and it rides in the words' sixth (None: the words' own,
+    else the call's H)."""
     _require_seed(seed, rate)
-    if hash_heads not in (None, q.shape[1]):
-        raise ValueError(f"hash_heads {hash_heads} != the call's {q.shape[1]} "
-                         "heads: head-sharded calls are not ported yet")
     words = seed_words(seed, q.device)
+    if hash_heads is not None and hash_heads != q.shape[1]:
+        if hash_heads < q.shape[1]:
+            raise ValueError(f"hash_heads {hash_heads} < the call's "
+                             f"{q.shape[1]} heads")
+        words = torch.cat([words[:SEED_WORDS],
+                           words.new_tensor([hash_heads])])
     return FlashAttention.apply(q, k, v, words, bool(causal), sm_scale,
                                 float(rate), hash_seq_len)
 

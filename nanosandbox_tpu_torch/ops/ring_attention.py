@@ -47,9 +47,10 @@ rotation, also where it skips a block.
 Dropout: the keep-mask is a hash of GLOBAL (q_pos, k_pos) coordinates,
 the per-block offsets riding in the (5,) seed words [seed, b_off, h_off,
 q_off, k_off] and the hash running over the global head count and
-sequence length (the heads are not sharded: the global head count is
-the call's), so every layout, and the non-ring kernel over the whole
-sequence at hash length T, drop the same elements.
+sequence length (a rank of the model axis holds H / tp heads: its seed
+carries their offset and, as a sixth word, the global count), so every
+layout, and the non-ring kernel over the whole sequence at hash length
+T, drop the same elements.
 """
 
 from __future__ import annotations
@@ -100,17 +101,19 @@ def _merge(carry, blk):
 
 
 def _block_seed(seed, q_off: int, k_off: int):
-    """The (5,) words of one block call: the step's seed, the batch
-    offset the seed carries (a rank's first row over the data axis; none
-    in a (1,) seed), no head offset (heads are not sharded here), the
-    block's global first query and key positions. None without a seed."""
+    """The words of one block call: the step's seed, the batch and head
+    offsets the seed carries (a rank's first row over the data axis, its
+    first head over the model axis; none in a (1,) seed), the block's
+    global first query and key positions, and a head-sharded seed's
+    sixth word, the global head count (ops/attention.py seed_words).
+    None without a seed."""
     if seed is None:
         return None
     words = seed.reshape(-1).to(torch.int64)
-    offs = torch.tensor([0, q_off, k_off], dtype=torch.int64,
+    offs = torch.tensor([0, 0, q_off, k_off], dtype=torch.int64,
                         device=seed.device)
-    b_off = words[1:2] if words.numel() > 1 else offs[:1]
-    return torch.cat([words[:1], b_off, offs])
+    bh_off = words[1:3] if words.numel() > 1 else offs[:2]
+    return torch.cat([words[:1], bh_off, offs[2:], words[5:]])
 
 
 # ---------------------------------------------------------------------------

@@ -41,12 +41,14 @@ import torch.distributed as dist
 # and gradients; "recompute": the share of "ring" sent while
 # ``recomputing`` is set; "gather" and "scatter": FSDP's all-gathers of
 # parameter shards and reduce-scatters of their gradients, counted as
-# the full buffer's bytes, as an all-reduce is).
+# the full buffer's bytes, as an all-reduce is; "tp": tensor
+# parallelism's all-reduces over the model group, parallel/tensor.py).
 exchanged = {"ring_bytes": 0, "ring_seconds": 0.0,
              "allreduce_bytes": 0, "allreduce_seconds": 0.0,
              "recompute_bytes": 0, "recompute_seconds": 0.0,
              "gather_bytes": 0, "gather_seconds": 0.0,
-             "scatter_bytes": 0, "scatter_seconds": 0.0}
+             "scatter_bytes": 0, "scatter_seconds": 0.0,
+             "tp_bytes": 0, "tp_seconds": 0.0}
 
 # Set by remat's recompute of a block (models/gpt.py _RematBlock) while it
 # runs the block again, so that the rotations it repeats count as
@@ -168,17 +170,18 @@ def shift(t: torch.Tensor, offset: int, group=None) -> torch.Tensor:
     return recv
 
 
-def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
+def all_reduce_sum_(t: torch.Tensor, group=None,
+                    kind: str = "allreduce") -> torch.Tensor:
     """Sum t over the group's ranks, in place (through host memory when
-    host_staged); returns t."""
+    host_staged), counted in ``exchanged`` under ``kind``; returns t."""
     staged = host_staged(t, group)
     t0 = time.perf_counter()
     buf = t.cpu() if staged else t
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     if staged:
         t.copy_(buf)
-        exchanged["allreduce_seconds"] += time.perf_counter() - t0
-    exchanged["allreduce_bytes"] += t.numel() * t.element_size()
+        exchanged[kind + "_seconds"] += time.perf_counter() - t0
+    exchanged[kind + "_bytes"] += t.numel() * t.element_size()
     return t
 
 

@@ -16,17 +16,21 @@ each reduction the training step runs:
     (parallel/sharding.py);
   * ``replica_group``: the ranks that share fsdp, over (data, seq): those
     that hold the same parameter shard, whose gradients FSDP sums;
-  * ``group``: every rank of the step, over (data, fsdp, seq): the loss
-    sums and, without FSDP, the gradients are summed over it. The batch's
-    rows are split over (data, fsdp) (``batch_index``, the loader's
-    ``rows``), but no sum runs over those axes alone: a seq rank holds
-    other tokens of the same rows.
+  * ``group``: every rank of the step at this model index, over (data,
+    fsdp, seq): the loss sums and, without FSDP, the gradients are summed
+    over it. The batch's rows are split over (data, fsdp) (``batch_index``,
+    the loader's ``rows``), but no sum runs over those axes alone: a seq
+    rank holds other tokens of the same rows;
+  * ``model_group``: the ranks that share (data, fsdp, seq), over model:
+    tensor parallelism's (parallel/tensor.py). They hold the same tokens
+    and other heads and hidden units of every block, and sum the
+    row-parallel projections' partial outputs (and, in the backward, the
+    column-parallel inputs' gradients) over it.
 
 Every rank creates every group, in one order (``dist.new_group`` is
 collective over the world). A group that is the whole world is the
 default group; one of a single rank is None, and its size 1 says that
-nothing is exchanged over it. The model axis (tensor parallelism) is not
-ported yet: a model axis larger than 1 raises NotImplementedError.
+nothing is exchanged over it.
 
 ``mesh_slices`` (make_hybrid_mesh) lays the data axis over slices: each
 (fsdp, seq, model) block lies inside one slice, and the data axis runs
@@ -58,10 +62,18 @@ class Mesh:
     fsdp_group: object = None
     replica_group: object = None
     group: object = None
+    model_index: int = 0
+    model_group: object = None
 
     @property
     def seq(self) -> int:
         return self.shape["seq"]
+
+    @property
+    def model(self) -> int:
+        """The tensor-parallel degree: the ranks a block's heads and
+        hidden units are split over."""
+        return self.shape["model"]
 
     @property
     def fsdp(self) -> int:
@@ -79,7 +91,8 @@ class Mesh:
 
     @property
     def size(self) -> int:
-        """The ranks of one step: data x fsdp x seq."""
+        """The ranks of one step at one model index: data x fsdp x
+        seq."""
         return self.batch_shards * self.seq
 
 
@@ -177,12 +190,8 @@ def _group(layout: np.ndarray, rank: int, keep: tuple, world_size: int):
 
 def _build(layout: np.ndarray, rank: int) -> Mesh:
     shape = dict(zip(AXES, (int(s) for s in layout.shape)))
-    if shape["model"] > 1:
-        raise NotImplementedError(
-            f"mesh axis model={shape['model']} is not ported yet to "
-            "nanosandbox_tpu_torch (tensor parallelism)")
     world = layout.size
-    d, f, s, _ = (int(i[0]) for i in np.nonzero(layout == rank))
+    d, f, s, m = (int(i[0]) for i in np.nonzero(layout == rank))
     if world == 1:
         return Mesh(shape)
     return Mesh(shape, seq_index=s,
@@ -190,7 +199,9 @@ def _build(layout: np.ndarray, rank: int) -> Mesh:
                 data_index=d, fsdp_index=f,
                 fsdp_group=_group(layout, rank, ("fsdp",), world),
                 replica_group=_group(layout, rank, ("data", "seq"), world),
-                group=_group(layout, rank, ("data", "fsdp", "seq"), world))
+                group=_group(layout, rank, ("data", "fsdp", "seq"), world),
+                model_index=m,
+                model_group=_group(layout, rank, ("model",), world))
 
 
 def make_mesh(mesh_dp: int = -1, mesh_fsdp: int = 1, mesh_tp: int = 1,

@@ -1,12 +1,19 @@
-"""Parameter sharding over the fsdp axis (ZeRO-3) and the FSDP wrapper.
+"""Parameter placement over the model and fsdp axes, and the FSDP wrapper.
 
-The placement is the fsdp rule of nanosandbox_tpu/parallel/sharding.py
-spec_for_param: shard the largest dim that the fsdp size divides, the
-embedding tables (wte, wpe) only along their row dim, and replicate a
-parameter with no such dim (tiny models). The rule runs on the flax
-leaf's shape: nn.Linear stores (out, in) where flax Dense stores (in,
-out), so ``fsdp_dim`` maps the dim through the transpose, and the rank
-at fsdp index j holds the elements of JAX's j-th shard of that leaf.
+The placements are nanosandbox_tpu/parallel/sharding.py spec_for_param's,
+model axis first. ``tp_dim`` is its Megatron rule (_tp_dim):
+column-parallel c_attn and c_fc split their outputs, row-parallel c_proj
+its inputs, wte (the tied head) and everything else stay whole. The
+model axis always splits by heads here (parallel/tensor.py), so the
+column-parallel biases split with their columns, where JAX keeps them
+replicated over model and lets GSPMD slice them. ``fsdp_dim`` is the
+fsdp rule: shard the largest dim that the fsdp size divides and the
+model axis did not take, the embedding tables (wte, wpe) only along
+their row dim, and replicate a parameter with no such dim (tiny models).
+The rules run on the flax leaf's full shape: nn.Linear stores (out, in)
+where flax Dense stores (in, out), so both map the dim through the
+transpose, and the rank at fsdp index j holds the elements of JAX's j-th
+shard of that leaf (of its model shard, under tensor parallelism).
 
 ``FSDP`` holds a GPT's parameters as such shards, and the model runs on
 them (models/gpt.py ``gathered``):
@@ -44,20 +51,40 @@ from torch import nn
 from nanosandbox_tpu_torch.parallel import distributed
 
 EMBEDDINGS = ("wte.weight", "wpe.weight")
+# Column-parallel parameters: split along their output dim (dim 0 here).
+TP_COLUMNS = ("c_attn.weight", "c_attn.bias", "c_fc.weight", "c_fc.bias")
 
 
-def fsdp_dim(name: str, shape: tuple, fsdp: int) -> int | None:
-    """The dim of parameter ``name`` (the port's orientation) that an
-    fsdp axis of ``fsdp`` ranks shards, or None: replicated."""
+def tp_dim(name: str, shape: tuple, tp: int) -> int | None:
+    """The dim of parameter ``name`` (the port's orientation, full shape)
+    that a model axis of ``tp`` ranks splits, or None: replicated over
+    model (module docstring)."""
+    if tp <= 1:
+        return None
+    if name.endswith(TP_COLUMNS):
+        return 0
+    if name.endswith("c_proj.weight") and len(shape) == 2:
+        return 1
+    return None
+
+
+def fsdp_dim(name: str, shape: tuple, fsdp: int, tp: int = 1) -> int | None:
+    """The dim of parameter ``name`` (the port's orientation, full shape)
+    that an fsdp axis of ``fsdp`` ranks shards, or None: replicated. Under
+    a model axis of ``tp`` ranks the dim tp_dim took is not a candidate,
+    and the shard is taken of the rank's model shard along this dim."""
     if fsdp <= 1:
         return None
     embedding = name in EMBEDDINGS
     transposed = len(shape) == 2 and not embedding
     flax_shape = tuple(reversed(shape)) if transposed else tuple(shape)
+    taken = tp_dim(name, shape, tp)
+    if taken is not None and transposed:
+        taken = len(shape) - 1 - taken
     allowed = (0,) if embedding else range(len(flax_shape))
     candidates = sorted(
-        (i for i in allowed
-         if flax_shape[i] % fsdp == 0 and flax_shape[i] >= fsdp),
+        (i for i in allowed if i != taken
+         and flax_shape[i] % fsdp == 0 and flax_shape[i] >= fsdp),
         key=lambda i: flax_shape[i], reverse=True)
     if not candidates:
         return None
@@ -92,28 +119,30 @@ class FSDP:
                  generator: torch.Generator | None = None,
                  state_dict: dict | None = None):
         from nanosandbox_tpu_torch.models.gpt import init_param
+        from nanosandbox_tpu_torch.parallel.tensor import full_shapes
 
         if generator is None and state_dict is None:
             raise ValueError("FSDP needs a generator or a state_dict")
         self.mesh = mesh
         self.size, self.index = mesh.fsdp, mesh.fsdp_index
+        self.tp = mesh.model
         self.names: list[str] = []
         self.dims: dict[str, int | None] = {}
         self.shapes: dict[str, tuple] = {}
         self.shards: dict[str, nn.Parameter] = {}
         self._slots = {}
         modules = dict(model.named_modules())
+        fulls = full_shapes(model.cfg)
         for name, p in list(model.named_parameters()):
-            shape = tuple(p.shape)
             if state_dict is not None:
                 full = state_dict[name]
             else:
-                full = torch.empty(shape, dtype=p.dtype, device=device)
+                full = torch.empty(fulls[name], dtype=p.dtype, device=device)
                 init_param(name, full, generator, model.cfg.n_layer)
-            dim = fsdp_dim(name, shape, self.size)
-            shard = self._shard(full, dim).to(device=device, dtype=p.dtype)
+            dim = fsdp_dim(name, fulls[name], self.size, self.tp)
             self.names.append(name)
-            self.dims[name], self.shapes[name] = dim, shape
+            self.dims[name], self.shapes[name] = dim, tuple(p.shape)
+            shard = self._shard(name, full).to(device=device, dtype=p.dtype)
             self.shards[name] = nn.Parameter(shard.clone().contiguous())
             owner, _, leaf = name.rpartition(".")
             module = modules[owner]
@@ -124,12 +153,18 @@ class FSDP:
 
     # -- layout -------------------------------------------------------------
 
-    def _shard(self, full: torch.Tensor, dim: int | None) -> torch.Tensor:
-        """This rank's shard of a full tensor (itself when replicated)."""
+    def _shard(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the full tensor of parameter ``name``: of
+        its model shard (parallel/tensor.py), the fsdp slice (the model
+        shard itself when replicated over fsdp)."""
+        from nanosandbox_tpu_torch.parallel.tensor import shard_param
+
+        local = shard_param(name, full, self.tp, self.mesh.model_index)
+        dim = self.dims[name]
         if dim is None:
-            return full
-        n = full.shape[dim] // self.size
-        return full.narrow(dim, self.index * n, n)
+            return local
+        n = local.shape[dim] // self.size
+        return local.narrow(dim, self.index * n, n)
 
     def parameters(self) -> list[nn.Parameter]:
         return [self.shards[n] for n in self.names]
@@ -221,38 +256,55 @@ class FSDP:
             distributed.all_reduce_grads_(replicated, m.group)
 
     def grad_norm(self) -> torch.Tensor:
-        """The global L2 norm of the full gradients: the shards' squared
-        sums summed over the fsdp group, plus the replicated ones'."""
-        sq = [self.shards[n].grad.float().square().sum()
-              for n in self.names if self.dims[n] is not None
-              and self.shards[n].grad is not None]
-        total = torch.stack(sq).sum()
-        distributed.all_reduce_sum_(total.view(1), self.mesh.fsdp_group)
-        rep = [self.shards[n].grad.float().square().sum()
-               for n in self.replicated if self.shards[n].grad is not None]
-        if rep:
-            total = total + torch.stack(rep).sum()
-        return total.sqrt()
+        """The global L2 norm of the full gradients: each parameter's
+        squared sum summed over the ranks that hold its other elements,
+        the fsdp group for an fsdp shard, then the model group for a
+        model shard; a parameter whole on both axes counted once."""
+        def sq(keep):
+            g = [self.shards[n].grad.float().square().sum()
+                 for n in self.names if keep(n)
+                 and self.shards[n].grad is not None]
+            return torch.stack(g).sum() if g else torch.zeros(
+                (), device=self.shards[self.names[0]].device)
+
+        def split(n):
+            return tp_dim(n, self.shapes[n], self.tp) is not None
+
+        fsdp = torch.stack([
+            sq(lambda n: self.dims[n] is not None and not split(n)),
+            sq(lambda n: self.dims[n] is not None and split(n))])
+        distributed.all_reduce_sum_(fsdp, self.mesh.fsdp_group)
+        model = fsdp[1] + sq(lambda n: self.dims[n] is None and split(n))
+        if self.tp > 1:
+            distributed.all_reduce_sum_(model.view(1), self.mesh.model_group,
+                                        kind="tp")
+        whole = sq(lambda n: self.dims[n] is None and not split(n))
+        return (fsdp[0] + whole + model).sqrt()
 
     # -- checkpoints --------------------------------------------------------
 
     def _full(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        """The full tensor of a shard-shaped tensor of parameter name."""
-        if self.dims[name] is None:
-            return t.detach().clone()
-        return self._all_gather((name,), (t,))[0]
+        """The full tensor of a shard-shaped tensor of parameter name:
+        gathered over the fsdp group, then over the model group."""
+        from nanosandbox_tpu_torch.parallel.tensor import gather_param
+
+        local = (t.detach().clone() if self.dims[name] is None
+                 else self._all_gather((name,), (t,))[0])
+        if self.tp == 1:
+            return local
+        return gather_param(name, local, self.tp, self.mesh.model_group)
 
     @torch.no_grad()
     def full_state_dict(self) -> dict:
         """{name: full parameter}, in the model's state_dict order; every
-        rank of the fsdp group must call it."""
+        rank of the fsdp group and of the model group must call it."""
         return {n: self._full(n, self.shards[n]) for n in self.names}
 
     @torch.no_grad()
     def full_optimizer_state(self, optimizer) -> dict:
         """The optimizer's state_dict with every moment made full: what
         one process's optimizer over the full parameters holds. Every
-        rank of the fsdp group must call it."""
+        rank of the fsdp group and of the model group must call it."""
         osd = optimizer.state_dict()
         order = self._optimizer_names(optimizer)
         state = {}
@@ -265,7 +317,7 @@ class FSDP:
     def load_full(self, state_dict: dict) -> None:
         """Copy each full parameter's shard into this rank's shard."""
         for n in self.names:
-            self.shards[n].copy_(self._shard(state_dict[n], self.dims[n]))
+            self.shards[n].copy_(self._shard(n, state_dict[n]))
 
     def load_optimizer(self, optimizer, osd: dict) -> None:
         """Load a full optimizer state_dict (full_optimizer_state's, or
@@ -274,7 +326,7 @@ class FSDP:
         state = {}
         for i, st in osd["state"].items():
             name = order[int(i)]
-            state[i] = {k: (self._shard(v, self.dims[name]).clone() if k in (
+            state[i] = {k: (self._shard(name, v).clone() if k in (
                 "exp_avg", "exp_avg_sq") else v) for k, v in st.items()}
         optimizer.load_state_dict({"state": state,
                                    "param_groups": osd["param_groups"]})

@@ -95,6 +95,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="0 picks a free port")
     ap.add_argument("--num_slots", type=int, default=8,
                     help="concurrent request capacity (decode batch rows)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree: ONE engine over N "
+                         "shards — Megatron weight placements, the KV "
+                         "pool (and its scale planes) split along heads, "
+                         "slot state replicated. Greedy outputs are "
+                         "token-identical to tp=1; /stats and /metrics "
+                         "carry it (serve_tp_degree). Requires n_head "
+                         "%% tp == 0; every shard runs on --device (one "
+                         "card); 1 = the single-shard engine, unchanged")
     ap.add_argument("--max_len", type=int, default=0,
                     help="per-request KV length; 0 = block_size")
     ap.add_argument("--device", default="auto",
@@ -298,7 +307,7 @@ def build_server(argv: list[str] | None = None):
                     brownout=args.brownout == "on", spec=drafter,
                     faults=fault_plan, watchdogs=not args.no_watchdogs,
                     watchdog_dir=args.watchdog_dir, role=args.role,
-                    device=device)
+                    tp=args.tp, device=device)
     # Every prefill shape and decode chunk once before the port binds, so
     # no client pays for the libraries' first-call setup. A decode replica
     # never prefills: it warms its decode chunks only.

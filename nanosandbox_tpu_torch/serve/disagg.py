@@ -106,10 +106,14 @@ class DisaggPair:
         latency, limbo depth). Each engine always gets its own registry
         (one engine a registry); per-tier role gauges live there as
         ``serve_engine_role{role=}``.
+    prefill_tp : the PREFILL tier's tensor-parallel degree (default:
+        engine_kw's ``tp``, the decode tier's). The payload is tp 1's
+        layout whatever either tier's degree (Engine.read_pool_blocks).
     """
 
     def __init__(self, model, *,
                  prefill_chunk: Optional[int] = None,
+                 prefill_tp: Optional[int] = None,
                  faults=None, fallback: bool = True,
                  metrics: Optional[MetricRegistry] = None,
                  **engine_kw):
@@ -124,10 +128,13 @@ class DisaggPair:
         self.faults = faults
         if faults is not None:
             faults.arm(0)
+        prefill_kw = dict(engine_kw)
+        if prefill_tp is not None:
+            prefill_kw["tp"] = prefill_tp
         self.prefill = Engine(
             model, role=PREFILL, metrics=MetricRegistry(),
             flight=FlightRecorder(namespace=PREFILL),
-            prefill_chunk=prefill_chunk, **engine_kw)
+            prefill_chunk=prefill_chunk, **prefill_kw)
         self.decode = Engine(
             model, role=DECODE, metrics=MetricRegistry(),
             flight=FlightRecorder(namespace=DECODE), **engine_kw)

@@ -185,6 +185,7 @@ behind any chunk in flight, and neither touches the drop block.
 
 from __future__ import annotations
 
+import gc
 import itertools
 import os
 import tempfile
@@ -200,6 +201,7 @@ import torch
 from nanosandbox_tpu_torch.config import resolve_device
 from nanosandbox_tpu_torch.models.gpt import (GPT, init_cache,
                                               init_paged_cache, kv_mode,
+                                              pool_shards, shard_for_serving,
                                               scatter_cache_rows)
 from nanosandbox_tpu_torch.obs.flight import FlightRecorder, WatchdogPanel
 from nanosandbox_tpu_torch.obs.registry import MetricRegistry
@@ -427,6 +429,26 @@ class Engine:
     role : the serving tier, 'both' (colocated, the default), 'prefill'
         or 'decode': telemetry and fleet routing, never a capability
         gate (a prefill engine whose decode tier died still decodes).
+    tp : the tensor-parallel degree (default 1). tp > 1 runs ONE engine
+        as a single controller over tp shards (JAX's contract): each
+        shard holds its own weights, the Megatron placement of
+        parallel/tensor.py (its heads of c_attn, its columns of c_proj,
+        its rows of c_fc), its own slice of the pool along the heads
+        (paged (N, H/tp, page, D), dense (S, H/tp, L, D), with their
+        scale planes: shard i's is the pool tensors' [i]) and its own
+        launches of the attention kernels over its heads. The
+        row-parallel partial products are summed in shard order, then
+        the bias added (models/gpt.py ShardedBlock); slot state, tables
+        and sampling stay one copy. Greedy tokens equal tp 1's; the
+        graphs captured do not change in number; read_pool_blocks and
+        write_pool_blocks move tp 1's payload (every shard's heads in
+        order), so tiers of different tp migrate both ways. Requires
+        n_head % tp == 0; a device drafter raises (it would need its
+        own sharded pool), as JAX's does. Every shard lives on the
+        engine's device: one card holds them all.
+    tp_devices : the cards the shards would live on (default: the
+        engine's device for all). Naming more than one card raises
+        NotImplementedError: shards across cards are not ported yet.
     device : 'auto' (the GPU; raises without one), 'cuda' or 'cpu'.
     """
 
@@ -452,7 +474,22 @@ class Engine:
                  flight: Optional[FlightRecorder] = None,
                  watchdogs: bool = True,
                  watchdog_dir: Optional[str] = None,
-                 role: str = "both", device: str = "auto"):
+                 role: str = "both", tp: int = 1,
+                 tp_devices: Optional[Sequence] = None,
+                 device: str = "auto"):
+        self.tp = int(tp)
+        if self.tp < 1:
+            raise ValueError(f"tp must be >= 1, got {tp}")
+        if model.cfg.n_head % self.tp:
+            raise ValueError(
+                f"tp={self.tp} must divide n_head={model.cfg.n_head}: the "
+                "KV pool shards along the heads dim")
+        if (self.tp > 1 and spec is not None
+                and getattr(spec, "kind", "host") == "device"):
+            raise ValueError(
+                "tp > 1 supports host drafters only (e.g. "
+                "NGramDrafter); a tensor-parallel ModelDrafter "
+                "needs its own sharded pool")
         if paged and kv_page_size < 1:
             raise ValueError(f"kv_page_size must be >= 1, got "
                              f"{kv_page_size}")
@@ -465,8 +502,19 @@ class Engine:
         self.pipeline = bool(pipeline)
         self.decode_impl = resolve_decode_impl(decode_impl)
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        if tp_devices is not None and {
+                torch.device(d) for d in tp_devices} != {self.device}:
+            raise NotImplementedError(
+                f"tensor-parallel shards on {list(tp_devices)}: shards "
+                f"across cards, or off the engine's {self.device}, are not "
+                "ported yet")
+        self.model = shard_for_serving(model.to(self.device),
+                                       self.tp).eval()
         cfg = self.cfg = model.cfg
+        if self.tp > 1:
+            print(f"[engine] tp {self.tp}: {self.tp} shards of "
+                  f"{cfg.n_head // self.tp} heads, every shard on "
+                  f"{self.device}", flush=True)
         self.kv_dtype = kv_mode(cfg, kv_dtype)
         self.num_slots = num_slots
         self.max_len = min(max_len or cfg.block_size, cfg.block_size)
@@ -505,14 +553,14 @@ class Engine:
                                       or num_slots * self.slot_blocks)
             self._pool = init_paged_cache(cfg, self.kv_pool_blocks,
                                           self.kv_page_size, kv_dtype,
-                                          device=self.device)
+                                          device=self.device, tp=self.tp)
             self.block_pool = BlockPool(self.kv_pool_blocks,
                                         self.kv_page_size,
                                         prefix_cache=prefix_cache)
         else:
             self.kv_page_size = self.slot_blocks = self.kv_pool_blocks = 0
             self._pool = init_cache(cfg, num_slots, self.max_len, kv_dtype,
-                                    device=self.device)
+                                    device=self.device, tp=self.tp)
         self._init_slot_state()
 
         self._active: Dict[int, _Active] = {}        # slot -> state
@@ -683,6 +731,10 @@ class Engine:
         self._g_kv = m.gauge(
             "serve_kv_dtype", "KV-pool storage mode (1 = active).",
             labelnames=("kv_dtype",))
+        self._g_tp = m.gauge(
+            "serve_tp_degree",
+            "Tensor-parallel degree of the decode engine (model-axis "
+            "shards; 1 = single chip).")
         self._g_pool_blocks = m.gauge(
             "serve_kv_pool_blocks",
             "Paged KV pool blocks by state (free | live | cached).",
@@ -795,6 +847,7 @@ class Engine:
         self._g_rate.set(0.0 if rate is None else rate)
         self._g_impl.labels(impl=self.decode_impl).set(1.0)
         self._g_kv.labels(kv_dtype=self.kv_dtype).set(1.0)
+        self._g_tp.set(float(self.tp))
         if self.block_pool is not None:
             ps = self.block_pool.stats()
             for state in ("free", "live", "cached"):
@@ -1453,11 +1506,13 @@ class Engine:
             h = self.model.hidden(d_tokens, cache=self._pool,
                                   cache_index=d_hits, block_table=d_tables)
         else:
-            temp = init_cache(self.cfg, k, bucket, device=self.device)
+            temp = init_cache(self.cfg, k, bucket, device=self.device,
+                              tp=self.tp)
             h = self.model.hidden(d_tokens, cache=temp, cache_index=0)
-            scatter_cache_rows(self._pool,
-                               [tuple(x[:n] for x in layer) for layer in temp],
-                               d_slots)
+            for pool, rows in zip(pool_shards(self._pool, self.tp),
+                                  pool_shards(temp, self.tp)):
+                scatter_cache_rows(pool, [tuple(x[:n] for x in layer)
+                                          for layer in rows], d_slots)
             del temp
         if self._device_drafter():
             # The drafter's pool takes the same wave (paged: through the
@@ -1775,7 +1830,24 @@ class Engine:
         libraries' first-call setup: cuBLAS's workspace, the sort's).
         Records each capture's kernel launches and plain-version calls
         (the wrappers' counts, which a replay does not tick) and the bytes
-        the captures reserved. A capture that fails raises."""
+        the captures reserved. A capture that fails raises.
+
+        Python's cyclic collector is run first and kept off while the
+        captures run: a dropped engine waiting in a reference cycle,
+        finalised inside a capture, frees pinned buffers, events and
+        graphs, and those CUDA calls invalidate the capture (torch no
+        longer collects on entering torch.cuda.graph)."""
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            self._capture_all()
+        finally:
+            if collecting:
+                gc.enable()
+
+    def _capture_all(self) -> None:
+        """_capture_graphs' body, with the collector off."""
         dev = self._tok.device
         # The decode kernels' ticket buffer the captures point at (a
         # ModelDrafter's draft steps share it: sized for the wider).
@@ -2437,8 +2509,33 @@ class Engine:
 
     def _pool_leaves(self) -> List[torch.Tensor]:
         """The pool's tensors in the JAX package's leaf order: per layer
-        (k, v), or (k, v, k_scale, v_scale) for int8 and int4."""
+        (k, v), or (k, v, k_scale, v_scale) for int8 and int4. Under tp
+        each carries the leading shard dim (init_paged_cache)."""
         return [buf for layer in self._pool for buf in layer]
+
+    def _read_leaf(self, leaf: torch.Tensor,
+                   idx: torch.Tensor) -> torch.Tensor:
+        """Blocks idx of one leaf in tp 1's layout: under tp the shards'
+        heads concatenated in shard order, (n, H, ...)."""
+        if self.tp == 1:
+            return leaf.index_select(0, idx)
+        blocks = leaf.index_select(1, idx).movedim(0, 1)  # (n, tp, H/tp..)
+        return blocks.flatten(1, 2)
+
+    def _write_leaf(self, leaf: torch.Tensor, idx: torch.Tensor,
+                    v: torch.Tensor) -> None:
+        """read_leaf's inverse, in place: tp 1's (n, H, ...) blocks into
+        blocks idx of one leaf."""
+        if self.tp == 1:
+            leaf.index_copy_(0, idx, v)
+            return
+        leaf.index_copy_(1, idx, v.unflatten(1, (self.tp, -1)).movedim(1, 0))
+
+    def _leaf_shape(self, leaf: torch.Tensor) -> tuple:
+        """A leaf's per-block shape in tp 1's layout."""
+        if self.tp == 1:
+            return tuple(leaf.shape[1:])
+        return (leaf.shape[0] * leaf.shape[2],) + tuple(leaf.shape[3:])
 
     def _block_index(self, block_ids: Sequence[int]) -> torch.Tensor:
         """The ids of one request's blocks as a device index; ValueError
@@ -2457,7 +2554,7 @@ class Engine:
         order), on this engine's device: the migration payload. Quantized
         pools give their codes and scales as they are."""
         idx = self._block_index(block_ids)
-        return [leaf.index_select(0, idx) for leaf in self._pool_leaves()]
+        return [self._read_leaf(leaf, idx) for leaf in self._pool_leaves()]
 
     def write_pool_blocks(self, block_ids: Sequence[int],
                           values: Sequence) -> int:
@@ -2477,14 +2574,14 @@ class Engine:
             raise ValueError(f"payload has {len(values)} leaves, pool has "
                              f"{len(leaves)}")
         for leaf, v in zip(leaves, values):
-            if (v.shape[0] < n or tuple(v.shape[1:]) != leaf.shape[1:]
+            if (v.shape[0] < n or tuple(v.shape[1:]) != self._leaf_shape(leaf)
                     or v.dtype != leaf.dtype):
                 raise ValueError(
                     f"payload leaf {tuple(v.shape)}/{v.dtype} does not "
-                    f"match pool leaf {tuple(leaf.shape)}/{leaf.dtype}")
+                    f"match pool leaf {self._leaf_shape(leaf)}/{leaf.dtype}")
         nbytes = 0
         for leaf, v in zip(leaves, values):
-            leaf.index_copy_(0, idx, v[:n].to(self.device))
+            self._write_leaf(leaf, idx, v[:n].to(self.device))
             nbytes += v[:n].numel() * v.element_size()
         return nbytes
 
@@ -2674,6 +2771,8 @@ class Engine:
             "max_len": self.max_len,
             "paged": self.paged,
             "kv_dtype": self.kv_dtype,
+            "tp": self.tp,
+            "tp_devices": [str(self.device)] * self.tp,
             "kv_page_size": self.kv_page_size,
             "kv_pool_blocks": self.kv_pool_blocks,
             "kv_pool": kv_pool,
@@ -2800,14 +2899,15 @@ class Engine:
     def debug_kvpool(self) -> dict:
         """Paged-pool block states, fragmentation and radix-trie
         occupancy (serve/paged.py BlockPool.debug); {"paged": False} on a
-        dense engine."""
+        dense engine; under tp > 1 also "tp", the shards' count."""
+        shards = {"tp": self.tp} if self.tp > 1 else {}
         if self.block_pool is None:
-            return {"paged": False}
+            return {"paged": False, **shards}
         live = [(st.req.rid, len(st.req.prompt) + len(st.tokens), st.alloc)
                 for st in list(self._active.values())
                 if st.alloc is not None]
         return {"paged": True, "kv_page_size": self.kv_page_size,
-                **self.block_pool.debug(live)}
+                **shards, **self.block_pool.debug(live)}
 
     def debug_scheduler(self) -> dict:
         """The queue head first, with each request's wait, deadline state

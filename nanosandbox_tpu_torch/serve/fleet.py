@@ -74,7 +74,10 @@ class Fleet:
     replicas are what make outputs replica-independent.
 
     n_replicas : engines to build ("r0".."rN-1").
-    tp : per-replica tensor-parallel degree; only 1 is ported.
+    tp : per-replica tensor-parallel degree (Engine's ``tp``). JAX gives
+        replica i its own devices [i*tp, (i+1)*tp); here every replica's
+        shards live on its engine's device, so on one card every
+        replica's shards share it.
     affinity : False = affinity-blind routing, seeded uniform-random over
         the ready set (the comparison baseline).
     faults : a FaultPlan consulted for the fleet-level ``replica_down``
@@ -113,12 +116,10 @@ class Fleet:
         self.faults = faults
         if faults is not None:
             faults.arm(0)
-        if tp != 1:
-            raise NotImplementedError(
-                "tensor-parallel replicas are not ported yet; tp must be 1")
+        self.tp = int(tp)
         names = [f"r{i}" for i in range(self.n_replicas)]
         self.replicas: Dict[str, Engine] = {
-            name: Engine(model, metrics=MetricRegistry(),
+            name: Engine(model, metrics=MetricRegistry(), tp=self.tp,
                          flight=FlightRecorder(namespace=name), **engine_kw)
             for name in names}
         eng0 = self.replicas[names[0]]

@@ -10,16 +10,17 @@ AdamW with weight decay on >= 2-D parameters only, global-norm gradient
 clipping, gradient accumulation, checkpoints under <out_dir>/ckpt with
 best-val gating, and resume (--init_from=resume / auto).
 
-One device, or one process a rank of the (data, fsdp, seq) mesh. Causal
-attention goes through the flash kernels (ops/attention.py) on a CUDA
-device and through their plain PyTorch versions with --device=cpu; the
-dense projections stay cuBLAS GEMMs. The step runs eagerly whatever
-``compile`` says (torch.compile or CUDA graph capture of the step is
-later work).
+One device, or one process a rank of the (data, fsdp, seq, model)
+mesh. Causal attention goes through the flash kernels (ops/attention.py)
+on a CUDA device and through their plain PyTorch versions with
+--device=cpu; the dense projections stay cuBLAS GEMMs. The step runs
+eagerly whatever ``compile`` says (torch.compile or CUDA graph capture
+of the step is later work).
 
-Several processes (mesh_dp, mesh_fsdp, mesh_sp; parallel/mesh.py, and
-make_hybrid_mesh under mesh_slices) are started as the JAX package's
-are (coordinator_address, num_processes, process_id, or
+Several processes (mesh_dp, mesh_fsdp, mesh_sp, mesh_tp;
+parallel/mesh.py, and make_hybrid_mesh under mesh_slices) are started
+as the JAX package's are (coordinator_address, num_processes,
+process_id, or
 COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID;
 parallel/distributed.py, which picks nccl or gloo). Every rank draws the
 step's global batch and keeps its share (data/loader.py): its rows over
@@ -39,8 +40,17 @@ global norm over the shards and AdamW steps the shards. shard_params at
 mesh_fsdp 1 is inert, as in JAX. Logging, event files and checkpoints
 come from rank 0 (under FSDP after gathering the full parameters and
 moments: the one-file format of one process); every rank loads a
-checkpoint to resume, taking its shard, on any mesh. The model axis is
-not ported yet.
+checkpoint to resume, taking its shard, on any mesh.
+
+Under mesh_tp > 1 (tensor parallelism, parallel/tensor.py) each rank of
+a model group builds its shard of the model (models/gpt.py): its heads
+and hidden units of every block, drawn as one process draws the full
+parameters; the ranks of a group hold the same tokens, and the
+row-parallel projections' partial products are summed over the group.
+The data, fsdp and seq sums run per model rank, as above; clipping
+takes the global norm (the model shards' squares summed over the group,
+the replicated parameters' once), and checkpoints stay one file in one
+process's layout, gathered from the shards before rank 0 writes.
 
 ``init_from='hf:<dir>'`` starts from a local HF GPT-2 directory
 (models/convert.py load_hf_gpt2, read with torch and the standard
@@ -189,11 +199,12 @@ class Trainer:
         from nanosandbox_tpu_torch.data.loader import BinDataset
         from nanosandbox_tpu_torch.models.convert import (load_hf_gpt2,
                                                           resolve_init_from)
-        from nanosandbox_tpu_torch.models.gpt import GPT, count_params
+        from nanosandbox_tpu_torch.models.gpt import GPT
         from nanosandbox_tpu_torch.ops.ring_attention import ring_positions
         from nanosandbox_tpu_torch.parallel.mesh import (make_hybrid_mesh,
                                                          make_mesh)
         from nanosandbox_tpu_torch.parallel.sharding import FSDP
+        from nanosandbox_tpu_torch.parallel.tensor import full_shapes
 
         check_ported(cfg)
         if (cfg.init_from not in ("scratch", "resume", "auto")
@@ -205,12 +216,14 @@ class Trainer:
             cfg.coordinator_address, cfg.num_processes, cfg.process_id,
             resolve_device(cfg.device))
         world = self.process.world_size
-        if cfg.mesh_sp > 1 and world == 1:
-            raise ValueError(
-                f"mesh_sp={cfg.mesh_sp} runs one process per seq shard: "
-                f"start {cfg.mesh_sp} processes with coordinator_address, "
-                "num_processes and process_id (or COORDINATOR_ADDRESS, "
-                "NUM_PROCESSES and PROCESS_ID)")
+        for axis, size, shard in (("mesh_sp", cfg.mesh_sp, "seq"),
+                                  ("mesh_tp", cfg.mesh_tp, "model")):
+            if size > 1 and world == 1:
+                raise ValueError(
+                    f"{axis}={size} runs one process per {shard} shard: start "
+                    f"{size} processes with coordinator_address, "
+                    "num_processes and process_id (or COORDINATOR_ADDRESS, "
+                    "NUM_PROCESSES and PROCESS_ID)")
         self.device = self.process.device
         self.rank0 = self.process.rank == 0
 
@@ -264,9 +277,11 @@ class Trainer:
         gen = (None if hf_sd is not None else
                torch.Generator(device=self.device).manual_seed(cfg.seed))
         self.fsdp = None
+        # The full model's count, whatever this rank holds of it.
+        self.n_params = sum(math.prod(s) for s in full_shapes(
+            self.model_cfg).values())
         if cfg.shard_params and m.fsdp > 1:
             self.model = GPT(self.model_cfg, device="meta", mesh=m)
-            self.n_params = count_params(self.model)
             self.fsdp = FSDP(self.model, m, device=self.device,
                              generator=gen, state_dict=hf_sd)
             params = self.fsdp.parameters()
@@ -279,8 +294,7 @@ class Trainer:
             self.model = GPT(self.model_cfg, device=self.device,
                              generator=gen, mesh=m)
             if hf_sd is not None:
-                self.model.load_state_dict(hf_sd)
-            self.n_params = count_params(self.model)
+                self.load_full(hf_sd)
             params = self.model.parameters()
         self.optimizer, self.lr_schedule = make_optimizer(params, cfg)
         self.step = 0  # optimizer updates done: the schedule's count
@@ -383,11 +397,23 @@ class Trainer:
         device scalars (no host sync)."""
         self.model.train()
         loss = self.grads(x, y, generator)
-        norm = optimizer_step(
-            self.optimizer, self.lr_schedule, self.step, self.cfg.grad_clip,
-            None if self.fsdp is None else self.fsdp.grad_norm())
+        norm = optimizer_step(self.optimizer, self.lr_schedule, self.step,
+                              self.cfg.grad_clip, self.grad_norm())
         self.step += 1
         return {"loss": loss, "grad_norm": norm}
+
+    def grad_norm(self) -> torch.Tensor | None:
+        """The global norm of the full gradients when this rank holds
+        shards (FSDP, or the model axis: every rank of the model group
+        calls it); None: the optimizer's gradients are the full ones."""
+        from nanosandbox_tpu_torch.parallel import tensor
+
+        if self.fsdp is not None:
+            return self.fsdp.grad_norm()
+        if self.mesh.model > 1:
+            return tensor.grad_norm(self.model.named_parameters(),
+                                    self.mesh.model, self.mesh.model_group)
+        return None
 
     @torch.no_grad()
     def eval_loss(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -450,7 +476,7 @@ class Trainer:
         """Bytes a device holds for one optimizer step, under the JAX
         trainer's keys: params_bytes and state_bytes (parameters, AdamW's
         two moments, the step's batch on the device) from their shapes,
-        this rank's (under FSDP its shards);
+        this rank's (its model shard, and under FSDP its shards of it);
         on a GPU also temp_bytes, the peak of torch.cuda's allocations
         over one forward and backward of the micro-batch x, y above what
         was allocated before it (activations, gradients, workspace), and
@@ -460,8 +486,8 @@ class Trainer:
         cfg = self.cfg
         itemsize = torch.empty((), dtype=self.model_cfg.torch_param_dtype
                                ).element_size()
-        params = (itemsize * self.n_params if self.fsdp is None
-                  else self.fsdp.shard_bytes())
+        params = (itemsize * sum(p.numel() for p in self.model.parameters())
+                  if self.fsdp is None else self.fsdp.shard_bytes())
         rows = cfg.sequences_per_iter // self.mesh.batch_shards
         cols = cfg.block_size if self.columns is None else len(self.columns)
         batch = 2 * rows * cols * torch.empty((), dtype=torch.long
@@ -536,17 +562,22 @@ class Trainer:
     def save(self, ckpt, iter_num: int, best_val_loss: float,
              final: bool = False) -> bool:
         """Rank 0 writes (a 'checkpoint_save' span) the full parameters
-        and moments: under FSDP the ranks of its fsdp group gather them
-        first; otherwise every rank holds the same state."""
+        and moments: under FSDP the ranks of its fsdp and model groups
+        gather them first, over the model axis the ranks of its model
+        group; otherwise every rank holds the same state."""
+        m = self.mesh
         if self.fsdp is not None:
-            m = self.mesh
             if m.data_index or m.seq_index:
                 return False
             model = self.fsdp.full_state_dict()
             optimizer = self.fsdp.full_optimizer_state(self.optimizer)
+        elif m.model > 1:
+            if m.data_index or m.fsdp_index or m.seq_index:
+                return False
+            model, optimizer = self._gather_state()
         if not self.rank0:
             return False
-        if self.fsdp is None:
+        if self.fsdp is None and m.model == 1:
             model = self.model.state_dict()
             optimizer = self.optimizer.state_dict()
         args = {"iter": iter_num, "final": True} if final else \
@@ -561,16 +592,65 @@ class Trainer:
 
     def restore(self, ckpt, step: int | None = None) -> dict:
         """Load a checkpoint written on any mesh: the whole state, or
-        under FSDP this rank's shards of it."""
+        this rank's shards of it (the model axis, FSDP)."""
         blob = ckpt.restore(step)
+        self.load_full(blob["model"])
         if self.fsdp is None:
-            self.model.load_state_dict(blob["model"])
-            self.optimizer.load_state_dict(blob["optimizer"])
+            self.optimizer.load_state_dict(self._shard_optimizer(
+                blob["optimizer"]))
         else:
-            self.fsdp.load_full(blob["model"])
             self.fsdp.load_optimizer(self.optimizer, blob["optimizer"])
         self.step = int(blob["step"])
         return blob
+
+    def load_full(self, sd: dict) -> None:
+        """Load full parameters (one process's state_dict): this rank's
+        shards of them."""
+        from nanosandbox_tpu_torch.parallel.tensor import shard_state_dict
+
+        if self.fsdp is not None:
+            self.fsdp.load_full(sd)
+        elif self.mesh.model > 1:
+            self.model.load_state_dict(shard_state_dict(
+                sd, self.mesh.model, self.mesh.model_index))
+        else:
+            self.model.load_state_dict(sd)
+
+    def _moments(self, osd: dict, fn) -> dict:
+        """osd with fn(name, moment) for each AdamW moment (the model axis,
+        no FSDP: the optimizer's parameters are the model's)."""
+        by_id = {id(p): n for n, p in self.model.named_parameters()}
+        names = [by_id[id(p)] for g in self.optimizer.param_groups
+                 for p in g["params"]]
+        state = {i: {k: (fn(names[int(i)], v) if k in (
+            "exp_avg", "exp_avg_sq") else v) for k, v in st.items()}
+            for i, st in osd["state"].items()}
+        return {"state": state, "param_groups": osd["param_groups"]}
+
+    def _gather_state(self) -> tuple:
+        """(full parameters, full optimizer state) gathered over the model
+        group; every rank of it must call."""
+        from nanosandbox_tpu_torch.parallel.tensor import (gather_param,
+                                                           gather_state_dict)
+
+        m = self.mesh
+        model = gather_state_dict(self.model.state_dict(), m.model,
+                                  m.model_group)
+        optimizer = self._moments(
+            self.optimizer.state_dict(),
+            lambda n, v: gather_param(n, v, m.model, m.model_group))
+        return model, optimizer
+
+    def _shard_optimizer(self, osd: dict) -> dict:
+        """A full optimizer state_dict as this model rank's shards."""
+        from nanosandbox_tpu_torch.parallel.tensor import shard_param
+
+        m = self.mesh
+        if m.model == 1:
+            return osd
+        return self._moments(osd, lambda n, v: shard_param(
+            n, v, m.model, m.model_index).clone(
+                memory_format=torch.contiguous_format))
 
     # -- main loop -----------------------------------------------------------
 

@@ -382,8 +382,8 @@ def jax_pair():
     jcfg = JaxGPTConfig(**DIMS, dropout=0.0, compute_dtype="float32",
                         attention_impl="xla")
     jmodel = JaxGPT(jcfg)
-    params = jmodel.init(jax.random.key(0),
-                         jnp.zeros((1, 8), jnp.int32))["params"]
+    params = jax.jit(jmodel.init)(jax.random.key(0),
+                                  jnp.zeros((1, 8), jnp.int32))["params"]
     params = jax.tree_util.tree_map(
         lambda a: a * 8 if a.ndim == 2 else a, params)
     cfg = GPTConfig(**DIMS, compute_dtype="float32")

@@ -31,6 +31,7 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -48,13 +49,25 @@ TRAIN = dict(vocab_size=65, batch_size=4, learning_rate=1e-3,
 # (name, ranks, overrides) of each leg.
 # The dp legs also lay the data axis over slices: by host name (one
 # host: one slice) and as two contiguous groups of one rank.
+# The model axis (tensor parallelism) alone and beside each other axis;
+# its ring leg drops (dropout 0.1) at T 128, where one process's
+# attention-dropout hash length is the ring's (tests/
+# test_torch_sp_dropout.py), from weights of its own (SP_TP).
 LEGS = [("dp", 2, dict(mesh_dp=2, mesh_slices=-1)),
         ("fsdp", 2, dict(mesh_fsdp=2, mesh_dp=1, shard_params=True)),
         ("dropout", 2, dict(mesh_dp=2, dropout=0.1, mesh_slices=2)),
+        ("tp", 2, dict(mesh_tp=2, mesh_dp=1)),
         ("dp_sp", 4, dict(mesh_dp=2, mesh_sp=2, attention_impl="ring",
                           loss_chunk_size=0)),
         ("fsdp_sp", 4, dict(mesh_fsdp=2, mesh_dp=1, mesh_sp=2,
-                            shard_params=True, attention_impl="ring"))]
+                            shard_params=True, attention_impl="ring")),
+        ("dp_tp", 4, dict(mesh_dp=2, mesh_tp=2)),
+        ("fsdp_tp", 4, dict(mesh_fsdp=2, mesh_dp=1, mesh_tp=2,
+                            shard_params=True)),
+        ("sp_tp", 4, dict(mesh_sp=2, mesh_dp=1, mesh_tp=2,
+                          attention_impl="ring", dropout=0.1,
+                          block_size=128))]
+SP_TP = dict(dropout=0.1, block_size=128)
 
 
 # ---------------------------------------------------------------------------
@@ -69,44 +82,49 @@ def _worker(plan_path: str) -> None:
     from nanosandbox_tpu_torch.checkpoint import TrainCheckpointer
     from nanosandbox_tpu_torch.config import TrainConfig
     from nanosandbox_tpu_torch.parallel import distributed
+    from nanosandbox_tpu_torch.parallel.tensor import gather_param
 
     with open(plan_path) as f:
         plan = json.load(f)
     for leg in plan["legs"]:
         trainer = ttrain.Trainer(TrainConfig(**leg["cfg"]))
-        rank, fsdp = trainer.process.rank, trainer.fsdp
+        rank, fsdp, m = trainer.process.rank, trainer.fsdp, trainer.mesh
         named = (fsdp.named_parameters() if fsdp
                  else list(trainer.model.named_parameters()))
         out = {"held": sorted(n for n, _ in trainer.model.named_parameters())}
+
+        def full(tensors):
+            """Every rank's pieces gathered: {name: full tensor}."""
+            if fsdp:
+                return {n: fsdp._full(n, t) for n, t in tensors.items()}
+            return {n: gather_param(n, t, m.model, m.model_group)
+                    for n, t in tensors.items()}
+
         if leg.get("run"):
             trainer.run()
+            if m.model > 1:
+                out["full"] = trainer._gather_state()[0]
         elif leg.get("restore"):
             trainer.restore(TrainCheckpointer(leg["restore"]))
             out["params"] = {n: p.detach().clone() for n, p in named}
         else:
-            sd = torch.load(plan["init"])
-            if fsdp:
-                fsdp.load_full(sd)
-            else:
-                trainer.model.load_state_dict(sd)
+            trainer.load_full(torch.load(leg.get("init", plan["init"])))
             xb, yb = next(trainer.make_loader("train", prefetch=False))
             loss = trainer.grads(torch.from_numpy(xb).long(),
                                  torch.from_numpy(yb).long(),
                                  trainer.dropout_generator(0))
             out["loss"] = float(loss)
             out["grads"] = {n: p.grad.clone() for n, p in named}
-            if fsdp:
-                out["full_grads"] = {
-                    n: fsdp._full(n, p.grad) for n, p in named}
+            if fsdp or m.model > 1:
+                out["full_grads"] = full(out["grads"])
             ttrain.optimizer_step(trainer.optimizer, trainer.lr_schedule, 0,
-                                  trainer.cfg.grad_clip,
-                                  fsdp.grad_norm() if fsdp else None)
+                                  trainer.cfg.grad_clip, trainer.grad_norm())
             out["params"] = {n: p.detach().clone() for n, p in named}
             out["moments"] = sum(
                 v.numel() for st in trainer.optimizer.state.values()
                 for k, v in st.items() if k in ("exp_avg", "exp_avg_sq"))
-            if fsdp:
-                out["full"] = fsdp.full_state_dict()
+            if fsdp or m.model > 1:
+                out["full"] = full(out["params"])
         torch.save(out, os.path.join(plan["out"],
                                      f"{leg['name']}_rank{rank}.pt"))
     distributed.shutdown()
@@ -138,11 +156,11 @@ from nanosandbox_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 from nanosandbox_tpu_torch.parallel.sharding import fsdp_dim  # noqa: E402
 
 
-def _run_ranks(P, argv, timeout=120):
+def _start_ranks(P, argv):
     """Start P processes of ``argv`` as the ranks of one group (the
     COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID contract; P = 1: one
-    process, no group) and wait for all; returns their outputs. A rank
-    that fails fails the test."""
+    process, no group), each writing to a temporary file; returns them
+    for _wait_ranks."""
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
@@ -152,19 +170,34 @@ def _run_ranks(P, argv, timeout=120):
         if P > 1:
             env.update(COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                        NUM_PROCESSES=str(P), PROCESS_ID=str(rank))
-        procs.append(subprocess.Popen(argv, cwd=REPO, env=env, text=True,
-                                      stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT))
+        log = tempfile.TemporaryFile("w+")
+        procs.append((subprocess.Popen(argv, cwd=REPO, env=env, text=True,
+                                       stdout=log, stderr=subprocess.STDOUT),
+                      log))
+    return procs
+
+
+def _wait_ranks(procs, timeout=120):
+    """Wait for the ranks _start_ranks started; returns their outputs. A
+    rank that fails fails the test."""
     outs = []
     try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
+        for p, log in procs:
+            p.wait(timeout=timeout)
+            log.seek(0)
+            outs.append(log.read())
     finally:
-        for p in procs:
+        for p, log in procs:
             p.kill()
-    for rank, (p, out) in enumerate(zip(procs, outs)):
+            log.close()
+    for rank, ((p, _), out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {rank}:\n{out[-4000:]}"
     return outs
+
+
+def _run_ranks(P, argv, timeout=120):
+    """_start_ranks, then _wait_ranks."""
+    return _wait_ranks(_start_ranks(P, argv), timeout)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -207,7 +240,7 @@ def dp_runs(char_dataset, tmp_path_factory):
     jcfg = jconfig.GPTConfig(**DIMS, vocab_size=65, compute_dtype="float32",
                              attention_impl="xla")
     model = jgpt.GPT(jcfg)
-    params = jax.device_get(model.init(
+    params = jax.device_get(jax.jit(model.init)(      # compiled: faster
         jax.random.key(5), jnp.zeros((1, 8), jnp.int32))["params"])
     mcfg = tconfig.GPTConfig(**DIMS, vocab_size=65, compute_dtype="float32")
     sd = state_dict_from_jax_params(params, mcfg)
@@ -231,11 +264,18 @@ def dp_runs(char_dataset, tmp_path_factory):
                state_dict_from_jax_params(jax.device_get(
                    optax.apply_updates(params, updates)), mcfg))
 
-    def single(**kw):
+    # The sp_tp leg's weights: the port's initialization at T 128.
+    sd128 = ttrain.Trainer(base.replace(**SP_TP)).model.state_dict()
+    torch.save(sd128, tmp / "init128.pt")
+
+    def single(init=sd, **kw):
         trainer = ttrain.Trainer(base.replace(**kw))
-        trainer.model.load_state_dict(sd)
-        loss = trainer.grads(torch.from_numpy(x).long(),
-                             torch.from_numpy(y).long(),
+        trainer.model.load_state_dict(init)
+        xb, yb = trainer.dataset.sample_batch(
+            "train", 0, base.batch_size, trainer.cfg.block_size,
+            seed=base.seed)
+        loss = trainer.grads(torch.from_numpy(xb).long(),
+                             torch.from_numpy(yb).long(),
                              trainer.dropout_generator(0))
         grads = {n: p.grad.clone()
                  for n, p in trainer.model.named_parameters()}
@@ -243,34 +283,49 @@ def dp_runs(char_dataset, tmp_path_factory):
                               base.grad_clip)
         return float(loss), grads, trainer.model.state_dict()
 
-    # The CLI leg first: its checkpoint is restored in the 2-rank spawn.
+    # The 4-rank spawn runs beside the CLI leg and then the 2-rank spawn,
+    # which restores the CLI leg's checkpoint.
     ckpt_dir = str(tmp / "cli_fsdp")
-    cli = _cli_run(char_dataset, ckpt_dir, 2, ["--mesh_fsdp=2",
-                                               "--shard_params=True",
-                                               "--max_iters=2"])
-    runs = {}
-    for n in (2, 4):
+    runs, started = {}, {}
+    for n in (4, 2):
         legs = [{"name": name, "cfg": base.replace(**kw).to_dict()}
                 for name, ranks, kw in LEGS if ranks == n]
+        for leg in legs:
+            if leg["name"] == "sp_tp":
+                leg["init"] = str(tmp / "init128.pt")
         if n == 2:
             legs += [{"name": f"restore_{name}", "restore": ckpt_dir,
                       "cfg": base.replace(out_dir=ckpt_dir, **kw).to_dict()}
                      for name, kw in (("dp", dict(mesh_dp=2)),
                                       ("fsdp", dict(mesh_fsdp=2, mesh_dp=1,
-                                                    shard_params=True)))]
+                                                    shard_params=True)),
+                                      ("tp", dict(mesh_tp=2, mesh_dp=1)))]
             legs.append({"name": "resume_dp2", "run": True, "cfg": _resume(
                 base, ckpt_dir, str(tmp / "resume_dp2"), mesh_dp=2)})
+            # The CLI's loop (Trainer.run) at mesh_tp 2: its checkpoint.
+            legs.append({"name": "tp_run", "run": True, "cfg": base.replace(
+                out_dir=str(tmp / "tp_run"), mesh_tp=2, mesh_dp=1,
+                max_iters=2, run_name="r").to_dict()})
         with open(tmp / f"plan{n}.json", "w") as f:
             json.dump({"legs": legs, "init": str(tmp / "init.pt"),
                        "out": str(tmp)}, f)
-        _run_ranks(n, [sys.executable, __file__, str(tmp / f"plan{n}.json")])
+        if n == 2:
+            cli = _cli_run(char_dataset, ckpt_dir, 2, [
+                "--mesh_fsdp=2", "--shard_params=True", "--max_iters=2"])
+        started[n] = (legs, _start_ranks(
+            n, [sys.executable, __file__, str(tmp / f"plan{n}.json")]))
+    # The one-process references while the spawns run.
+    singles = {"single": single(), "single_dropout": single(dropout=0.1),
+               "single_sp_tp": single(sd128, **SP_TP)}
+    for n, (legs, procs) in started.items():
+        _wait_ranks(procs)
         for leg in legs:
             runs[leg["name"]] = [torch.load(tmp / f"{leg['name']}_rank{r}.pt")
                                  for r in range(n)]
-    return {"params": params, "sd": sd, "jax": jax_ref,
-            "single": single(), "single_dropout": single(dropout=0.1),
+    return {"params": params, "sd": sd, "jax": jax_ref, **singles,
             "runs": runs, "cli": cli, "ckpt_dir": ckpt_dir,
-            "resume_dp2": str(tmp / "resume_dp2"), "base": base}
+            "resume_dp2": str(tmp / "resume_dp2"), "base": base,
+            "tp_run": str(tmp / "tp_run")}
 
 
 def _resume(base, ckpt_dir: str, out: str, **kw) -> dict:
@@ -410,6 +465,99 @@ def test_fsdp_cli_checkpoint_resumes_anywhere(dp_runs, tmp_path):
     assert len(resumed["one"]) == 1 == len(resumed["dp2"]), resumed
     assert abs(resumed["dp2"][0] - resumed["one"][0]) <= 1e-5, resumed
     assert sorted(os.listdir(os.path.join(one, "ckpt"))) == ["2", "3"]
+
+
+@pytest.mark.parametrize("leg", ["tp", "dp_tp", "fsdp_tp", "sp_tp"])
+def test_tp_step_matches_jax_and_one_process(dp_runs, leg):
+    """The model axis, alone and beside each other axis: every rank's
+    loss the same, and the shards gathered (gradients and updated
+    parameters) within the file's limits of JAX's step and of the
+    one-process port's; the dropout leg of the one-process port's."""
+    ranks = dp_runs["runs"][leg]
+    for other in ranks[1:]:
+        assert other["loss"] == ranks[0]["loss"]
+    got = dict(ranks[0], grads=ranks[0]["full_grads"],
+               params=ranks[0]["full"])
+    refs = {"one-process port": dp_runs["single_sp_tp" if leg == "sp_tp"
+                                        else "single"]}
+    if leg != "sp_tp":
+        refs["JAX"] = dp_runs["jax"]
+    for name, ref in refs.items():
+        _check(got, ref, f"{leg} vs {name}")
+
+
+def test_tp_shards_are_megatron_slices(dp_runs):
+    """At mesh_tp 2 rank r holds model shard r: c_fc and c_proj are the
+    elements of JAX's param_shardings slice over model, c_attn the rows
+    of heads [r H/2, (r+1) H/2) of each of q, k and v (ROADMAP C5), the
+    rest whole; the shards gathered are the full parameters, and so are
+    a CLI checkpoint's restored at mesh_tp 2."""
+    from nanosandbox_tpu_torch.parallel.tensor import unshard_param
+
+    sd, params = dp_runs["sd"], dp_runs["params"]
+    ranks = dp_runs["runs"]["tp"]
+    jax_mesh = jmesh.make_mesh(mesh_dp=1, mesh_tp=2,
+                               devices=jax.devices()[:2])
+    shardings = param_shardings(jax_mesh, params, tp=True)
+    C = DIMS["n_embd"]
+    blob = TrainCheckpointer(dp_runs["ckpt_dir"]).restore()["model"]
+    for r in range(2):
+        restored = dp_runs["runs"]["restore_tp"][r]["params"]
+        for n, full in sd.items():
+            if n.endswith("c_attn.weight"):
+                want = torch.cat([full[j * C + r * C // 2:
+                                       j * C + (r + 1) * C // 2]
+                                  for j in range(3)])
+            elif n.endswith(("c_fc.weight", "c_proj.weight")):
+                path = flax_path(n)
+                leaf = np.asarray(_leaf(params, path))
+                idx = _leaf(shardings, path).devices_indices_map(
+                    leaf.shape)[jax_mesh.devices[0, 0, 0, r]]
+                want = torch.from_numpy(np.ascontiguousarray(leaf[idx].T))
+            elif n.endswith(("c_attn.bias", "c_fc.bias")):
+                k = full.shape[0] // (3 if "c_attn" in n else 1)
+                want = torch.cat([full[j * k + r * k // 2:
+                                       j * k + (r + 1) * k // 2]
+                                  for j in range(full.shape[0] // k)])
+            else:
+                want = full
+            assert ranks[r]["params"][n].shape == want.shape, n
+            torch.testing.assert_close(
+                tshard(n, full, r), want, rtol=0, atol=0, msg=n)
+            torch.testing.assert_close(
+                restored[n], tshard(n, blob[n], r), rtol=0, atol=0, msg=n)
+    for n, t in ranks[0]["full"].items():
+        assert torch.equal(unshard_param(
+            n, [ranks[r]["params"][n] for r in range(2)]), t), n
+    assert ranks[0]["moments"] == 2 * sum(
+        p.numel() for p in ranks[0]["params"].values())
+
+
+def tshard(name, full, r):
+    from nanosandbox_tpu_torch.parallel.tensor import shard_param
+
+    return shard_param(name, full, 2, r)
+
+
+def test_tp_checkpoint_loads_in_one_process(dp_runs):
+    """The mesh_tp 2 run's one checkpoint (rank 0, one process's format)
+    holds the ranks' shards gathered, and loads bit for bit into one
+    process, parameters and moments."""
+    out, base = dp_runs["tp_run"], dp_runs["base"]
+    assert sorted(os.listdir(os.path.join(out, "ckpt"))) == ["2"]
+    blob = TrainCheckpointer(out).restore()
+    for n, t in dp_runs["runs"]["tp_run"][0]["full"].items():
+        assert torch.equal(blob["model"][n], t), n
+    one = ttrain.Trainer(base.replace(out_dir=out))
+    assert list(blob["model"]) == list(one.model.state_dict())
+    one.restore(TrainCheckpointer(out))
+    for n, t in one.model.state_dict().items():
+        assert torch.equal(t, blob["model"][n]), n
+    state = one.optimizer.state_dict()["state"]
+    for i, st in blob["optimizer"]["state"].items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(state[i][k], st[k]), (i, k)
+    assert blob["config"]["mesh_tp"] == 2
 
 
 @pytest.mark.parametrize("args,n", [

@@ -62,8 +62,8 @@ def _few_torch_threads():
 def model():
     jcfg = JaxGPTConfig(**DIMS, compute_dtype="float32",
                         attention_impl="xla")
-    params = JaxGPT(jcfg).init(jax.random.key(0),
-                               jnp.zeros((1, 8), jnp.int32))["params"]
+    params = jax.jit(JaxGPT(jcfg).init)(jax.random.key(0),
+                                        jnp.zeros((1, 8), jnp.int32))["params"]
     cfg = GPTConfig(**DIMS, compute_dtype="float32")
     m = GPT(cfg)
     m.load_state_dict(state_dict_from_jax_params(jax.device_get(params),

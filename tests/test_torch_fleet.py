@@ -296,8 +296,18 @@ def test_priority_and_slo_fields_pass_through(model):
 
 
 def test_tensor_parallel_replicas_raise(model):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Fleet(model, n_replicas=2, tp=2, **KW)
+    """Tensor-parallel replicas are ported: Fleet(tp=2) builds tp 2
+    engines (every shard on the replicas' one device) and drains with
+    the tokens of a tp 1 fleet."""
+    prompts = [[1, 2, 3, 4], [5, 6, 7], [1, 2, 3, 9, 9]]
+    out = {}
+    for tp in (1, 2):
+        fleet = Fleet(model, n_replicas=2, tp=tp, **KW)
+        assert all(e.tp == tp for e in fleet.replicas.values())
+        rids = [fleet.submit(p, 4) for p in prompts]
+        got = {r.rid: r.tokens for r in fleet.drain()}
+        out[tp] = [got[r] for r in rids]
+    assert out[2] == out[1] and all(len(t) == 4 for t in out[2])
 
 
 # ---------------------------------------------------------------------------

@@ -46,8 +46,9 @@ def twin():
     jcfg = JaxGPTConfig(**DIMS, compute_dtype="float32",
                         attention_impl="xla", decode_impl="pallas_interpret")
     jmodel = JaxGPT(jcfg)
-    params = jmodel.init(jax.random.key(0),
-                         jnp.zeros((1, 8), jnp.int32))["params"]
+    # Compiled: the op-by-op init takes four times as long on the CPU.
+    params = jax.jit(jmodel.init)(jax.random.key(0),
+                                  jnp.zeros((1, 8), jnp.int32))["params"]
     cfg = GPTConfig(**DIMS, compute_dtype="float32")
     model = GPT(cfg)
     model.load_state_dict(state_dict_from_jax_params(
@@ -75,13 +76,15 @@ def test_paged_prefill_and_decode_match_jax(twin):
     jpool = jax_paged_cache(jcfg, N, page)
     tpool = init_paged_cache(cfg, N, page)
     jtbl, ttbl = jnp.asarray(table), torch.from_numpy(table)
+    # Compiled once a shape (T 16, 20 and 1): the same function as the
+    # op-by-op apply, in a fifth of its time on the CPU.
+    japply = jax.jit(lambda p, t, c, i, b: jmodel.apply(
+        {"params": p}, t, cache=c, cache_index=i, block_table=b))
 
     def both(tokens, pos):
         nonlocal jpool
-        jl, jpool = jmodel.apply(
-            {"params": params}, jnp.asarray(tokens, jnp.int32),
-            cache=jpool, cache_index=jnp.asarray(pos, jnp.int32),
-            block_table=jtbl)
+        jl, jpool = japply(params, jnp.asarray(tokens, jnp.int32), jpool,
+                           jnp.asarray(pos, jnp.int32), jtbl)
         with torch.no_grad():
             tl = model(torch.from_numpy(np.asarray(tokens, np.int64)),
                        cache=tpool,

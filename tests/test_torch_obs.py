@@ -56,7 +56,6 @@ DIMS = dict(n_layer=2, n_head=2, n_embd=32, block_size=64, vocab_size=50)
 # Families of the JAX Engine the port does not publish, each with the
 # ROADMAP item that owns it.
 JAX_ONLY_FAMILIES = {
-    "serve_tp_degree": "A10",               # tensor-parallel serving
     "serve_compile_traces_total": "A11",    # the tracecheck ledgers
 }
 
@@ -444,8 +443,8 @@ def models():
     jcfg = JaxGPTConfig(**DIMS, dropout=0.0, compute_dtype="float32",
                         attention_impl="xla")
     jmodel = JaxGPT(jcfg)
-    params = jmodel.init(jax.random.key(0),
-                         jnp.zeros((1, 8), jnp.int32))["params"]
+    params = jax.jit(jmodel.init)(jax.random.key(0),
+                                  jnp.zeros((1, 8), jnp.int32))["params"]
     cfg = GPTConfig(**DIMS, compute_dtype="float32")
     model = GPT(cfg)
     model.load_state_dict(state_dict_from_jax_params(

@@ -445,12 +445,11 @@ def test_unported_paths_raise(tmp_path):
     """The dense pool and the int8/int4 pools are ported and construct,
     and so does an engine with a watchdog dump directory; a dense T > 1
     call at a nonzero scalar cache_index (speculative verify is per-row
-    and ported) and a tensor-parallel mesh axis (ROADMAP A10) are not,
-    and raise; the serve CLI parses the fleet's --role, --router and
+    and ported) and tensor-parallel shards across cards (ROADMAP A10)
+    are not, and raise; the serve CLI parses the fleet's --role, --router and
     --replicas and refuses an unknown role, and an unknown --spec value
     raises."""
     from nanosandbox_tpu_torch.models.gpt import init_cache
-    from nanosandbox_tpu_torch.parallel.mesh import make_mesh
     from nanosandbox_tpu_torch.serve.__main__ import build_parser
     from nanosandbox_tpu_torch.serve.drafters import drafter_from_flag
 
@@ -470,7 +469,8 @@ def test_unported_paths_raise(tmp_path):
                  watchdog_dir=str(tmp_path / "dumps"))
     assert eng.watchdog.dump_dir == str(tmp_path / "dumps")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_mesh(1, 1, 2, 1, world_size=2)
+        Engine(model, num_slots=1, max_len=32, device="cpu", tp=2,
+               tp_devices=["cuda:0", "cuda:1"])
     # The fleet's flags parse: the replica tiers and the router.
     args = build_parser().parse_args([
         "--role=decode", "--router", "--replicas=http://127.0.0.1:1",

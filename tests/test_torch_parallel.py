@@ -71,7 +71,8 @@ def test_one_process_joins_no_group(monkeypatch):
 def test_mesh_takes_the_seq_axis_only():
     """A mesh with one axis larger than 1 forms no group of its own (its
     groups are the world), so it builds without a process group; the
-    data and fsdp axes are ported, and only the model axis raises."""
+    data, fsdp and model axes are ported too (the model axis innermost:
+    a model group is consecutive ranks)."""
     m = mesh.make_mesh(-1, 1, 1, 4, world_size=4, rank=3)
     assert m.shape == {"data": 1, "fsdp": 1, "seq": 4, "model": 1}
     assert (m.seq, m.seq_index) == (4, 3)
@@ -93,10 +94,12 @@ def test_mesh_takes_the_seq_axis_only():
     np.testing.assert_array_equal(
         mesh.mesh_layout(-1, 2, 1, 2, world_size=8),
         np.arange(8).reshape(2, 2, 2, 1))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        mesh.make_mesh(-1, 1, 2, 1, world_size=4)       # model axis 2
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        mesh.make_mesh(1, 2, 2, 1, world_size=4)
+    t = mesh.make_mesh(1, 1, 4, 1, world_size=4, rank=2)   # model axis 4
+    assert (t.model, t.model_index, t.size) == (4, 2, 1)
+    assert t.model_group is torch.distributed.group.WORLD
+    assert (t.group, t.seq_group, t.fsdp_group) == (None, None, None)
+    np.testing.assert_array_equal(mesh.mesh_layout(1, 2, 2, 1, world_size=4),
+                                  np.arange(4).reshape(1, 2, 1, 2))
     with pytest.raises(ValueError, match="processes"):
         mesh.make_mesh(1, 1, 1, 4, world_size=2)
 

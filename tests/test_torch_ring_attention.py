@@ -32,6 +32,7 @@ Each multi-process case starts its ranks with this file's worker mode,
 at B 2, H 2, T 64-68, D 16, or a 2-layer, 64-wide GPT over 64 positions.
 """
 
+import contextlib
 import json
 import os
 import socket
@@ -69,10 +70,10 @@ def _qkv(T_, seed=0):
             for _ in range(4)]                      # q, k, v, dO
 
 
-def _run_ranks(P, argv, timeout=120, env=None):
+def _start_ranks(P, argv, env=None):
     """Start P processes of ``argv`` as the ranks of one group (the
-    COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID contract) and wait
-    for all; returns their outputs. A rank that fails fails the test."""
+    COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID contract), each
+    writing to a temporary file; returns them for _wait_ranks."""
     port = _free_port()
     procs = []
     for rank in range(P):
@@ -80,26 +81,45 @@ def _run_ranks(P, argv, timeout=120, env=None):
              "COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
              "NUM_PROCESSES": str(P), "PROCESS_ID": str(rank),
              "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO}
-        procs.append(subprocess.Popen(argv, cwd=REPO, env=e, text=True,
-                                      stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT))
+        log = tempfile.TemporaryFile("w+")
+        procs.append((subprocess.Popen(argv, cwd=REPO, env=e, text=True,
+                                       stdout=log, stderr=subprocess.STDOUT),
+                      log))
+    return procs
+
+
+def _wait_ranks(procs, timeout=120):
+    """Wait for the ranks _start_ranks started; returns their outputs. A
+    rank that fails fails the test."""
     outs = []
     try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
+        for p, log in procs:
+            p.wait(timeout=timeout)
+            log.seek(0)
+            outs.append(log.read())
     finally:
-        for p in procs:
+        for p, log in procs:
             p.kill()
-    for rank, (p, out) in enumerate(zip(procs, outs)):
+            log.close()
+    for rank, ((p, _), out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {rank}:\n{out[-4000:]}"
     return outs
+
+
+def _run_ranks(P, argv, timeout=120, env=None):
+    """_start_ranks, then _wait_ranks."""
+    return _wait_ranks(_start_ranks(P, argv, env), timeout)
 
 
 # ---------------------------------------------------------------------------
 # Workers (this file run as a script: one process a rank)
 # ---------------------------------------------------------------------------
 
-def _worker_ring(out_dir: str) -> None:
+def _worker(out_dir: str) -> None:
+    """Every ring case, then the SP trainer's step at each config of
+    <out_dir>/legs.json; this rank's results under out_dir."""
+    from nanosandbox_tpu_torch import train as ttrain
+    from nanosandbox_tpu_torch.config import TrainConfig
     from nanosandbox_tpu_torch.ops import ring_attention as ra
     from nanosandbox_tpu_torch.parallel import distributed
 
@@ -120,35 +140,30 @@ def _worker_ring(out_dir: str) -> None:
         np.savez(os.path.join(out_dir, f"ring{i}_rank{rank}.npz"), pos=pos,
                  o=out.detach().numpy(), dq=ql.grad.numpy(),
                  dk=kl.grad.numpy(), dv=vl.grad.numpy())
-    distributed.shutdown()
-
-
-def _worker_trainer(cfg_path: str, out_dir: str) -> None:
-    from nanosandbox_tpu_torch import train as ttrain
-    from nanosandbox_tpu_torch.config import TrainConfig
-    from nanosandbox_tpu_torch.parallel import distributed
-
-    with open(cfg_path) as f:
-        cfg = TrainConfig(**json.load(f))
-    trainer = ttrain.Trainer(cfg)
-    trainer.model.load_state_dict(torch.load(os.path.join(out_dir,
-                                                          "init.pt")))
-    xb, yb = next(trainer.make_loader("train", prefetch=False))
-    loss = trainer.grads(torch.from_numpy(xb).long(),
-                         torch.from_numpy(yb).long())
-    grads = {n: p.grad.clone() for n, p in trainer.model.named_parameters()}
-    ttrain.optimizer_step(trainer.optimizer, trainer.lr_schedule, 0,
-                          cfg.grad_clip)
-    torch.save({"loss": float(loss), "grads": grads,
-                "params": trainer.model.state_dict()},
-               os.path.join(out_dir, f"step_rank{trainer.process.rank}.pt"))
+    with open(os.path.join(out_dir, "legs.json")) as f:
+        legs = json.load(f)
+    for leg in legs:
+        cfg = TrainConfig(**leg)
+        trainer = ttrain.Trainer(cfg)
+        trainer.model.load_state_dict(torch.load(os.path.join(out_dir,
+                                                              "init.pt")))
+        xb, yb = next(trainer.make_loader("train", prefetch=False))
+        loss = trainer.grads(torch.from_numpy(xb).long(),
+                             torch.from_numpy(yb).long())
+        grads = {n: p.grad.clone()
+                 for n, p in trainer.model.named_parameters()}
+        ttrain.optimizer_step(trainer.optimizer, trainer.lr_schedule, 0,
+                              cfg.grad_clip)
+        torch.save({"loss": float(loss), "grads": grads,
+                    "params": trainer.model.state_dict()},
+                   os.path.join(out_dir,
+                                f"step_{cfg.ring_layout}_rank{rank}.pt"))
     distributed.shutdown()
 
 
 if __name__ == "__main__":
     torch.set_num_threads(1)
-    {"ring": _worker_ring, "trainer": _worker_trainer}[sys.argv[1]](
-        *sys.argv[2:])
+    _worker(sys.argv[1])
     sys.exit(0)
 
 
@@ -247,14 +262,29 @@ def test_lse_block_matches_jax(causal, rate):
 # 2. The ring op over gloo processes
 # ---------------------------------------------------------------------------
 
+# The SP trainer's step at each P: the layouts one spawn of P ranks runs
+# after the ring cases.
+SP_LEGS = {2: ("zigzag",), 4: ("zigzag", "contiguous")}
+
+
 @pytest.fixture(scope="module")
-def ring_runs():
-    """{P: (cases, per-case global (o, dq, dk, dv))}: each P's ranks run
-    every case once."""
-    runs = {}
-    for P in (2, 4):
-        with tempfile.TemporaryDirectory() as tmp:
-            _run_ranks(P, [sys.executable, __file__, "ring", tmp])
+def ring_runs(sp_setup):
+    """{P: (cases, per-case global (o, dq, dk, dv), {layout: every rank's
+    trainer step})}: one spawn a P, whose ranks run every ring case once,
+    then the SP trainer's step at each of SP_LEGS[P]'s layouts."""
+    _, sd, _, cfg = sp_setup
+    runs, started = {}, {}
+    with contextlib.ExitStack() as stack:
+        for P in (4, 2):                 # both spawns run at once
+            tmp = stack.enter_context(tempfile.TemporaryDirectory())
+            torch.save(sd, os.path.join(tmp, "init.pt"))
+            with open(os.path.join(tmp, "legs.json"), "w") as f:
+                json.dump([cfg.replace(mesh_sp=P, ring_layout=layout)
+                           .to_dict() for layout in SP_LEGS[P]], f)
+            started[P] = (tmp, _start_ranks(P, [sys.executable, __file__,
+                                                tmp]))
+        for P, (tmp, procs) in sorted(started.items()):
+            _wait_ranks(procs)
             cases = RING_CASES + [(FALLBACK_T[P], "zigzag", 0.0)]
             results = []
             for i, (T_, _, _) in enumerate(cases):
@@ -265,7 +295,10 @@ def ring_runs():
                     for n in full:
                         full[n][:, :, z["pos"]] = z[n]
                 results.append(full)
-        runs[P] = (cases, results)
+            steps = {layout: [torch.load(os.path.join(
+                tmp, f"step_{layout}_rank{r}.pt")) for r in range(P)]
+                for layout in SP_LEGS[P]}
+            runs[P] = (cases, results, steps)
     return runs
 
 
@@ -291,7 +324,7 @@ def _jax_ring(P, T_, layout, rate):
 @pytest.mark.parametrize("case", range(len(RING_CASES) + 1))
 @pytest.mark.parametrize("P", [2, 4])
 def test_ring_attention_matches_jax(ring_runs, P, case):
-    cases, results = ring_runs[P]
+    cases, results, _ = ring_runs[P]
     T_, layout, rate = cases[case]
     ref = _jax_ring(P, T_, layout, rate)
     for name, got in results[case].items():
@@ -309,8 +342,8 @@ def sp_setup(tmp_path_factory, char_dataset):
     """(jax params, port state_dict, the step's global batch, config)."""
     jcfg = jconfig.GPTConfig(**DIMS, vocab_size=65, compute_dtype="float32",
                              attention_impl="xla")
-    params = jgpt.GPT(jcfg).init(jax.random.key(2),
-                                 jnp.zeros((1, 8), jnp.int32))["params"]
+    params = jax.jit(jgpt.GPT(jcfg).init)(       # compiled: faster
+        jax.random.key(2), jnp.zeros((1, 8), jnp.int32))["params"]
     params = jax.device_get(params)
     cfg = tconfig.TrainConfig(**DIMS, **TRAIN, data_dir=char_dataset,
                               dataset="shakespeare_char", device="cpu",
@@ -361,15 +394,10 @@ def _single_process_step(sd, x, y, cfg):
 
 @pytest.mark.parametrize("P,layout", [(2, "zigzag"), (4, "zigzag"),
                                       (4, "contiguous")])
-def test_sp_trainer_step_matches_jax(sp_setup, tmp_path, P, layout):
+def test_sp_trainer_step_matches_jax(sp_setup, ring_runs, P, layout):
     params, sd, (x, y), cfg = sp_setup
     cfg = cfg.replace(mesh_sp=P, ring_layout=layout)
-    torch.save(sd, tmp_path / "init.pt")
-    with open(tmp_path / "cfg.json", "w") as f:
-        json.dump(cfg.to_dict(), f)
-    _run_ranks(P, [sys.executable, __file__, "trainer",
-                   str(tmp_path / "cfg.json"), str(tmp_path)])
-    ranks = [torch.load(tmp_path / f"step_rank{r}.pt") for r in range(P)]
+    ranks = ring_runs[P][2][layout]
     got = ranks[0]
     for other in ranks[1:]:                 # every rank steps the same
         assert other["loss"] == got["loss"]
@@ -438,8 +466,9 @@ def test_trainer_validates_ring_config(tiny_cfg, override, error, match):
 def test_ring_refuses_what_it_does_not_run(what):
     """The ring's block picks the kernels or the plain block by the
     tensors' device alone, so a ring forward refuses plain_attention; and
-    the heads are not sharded, so the lse block refuses a hash head count
-    other than the call's."""
+    a call holds at most the heads the mask hash runs over, so the lse
+    block refuses a hash head count below the call's (a larger one is a
+    head-sharded call, tests/test_torch_tp.py)."""
     if what == "plain_attention":
         from nanosandbox_tpu_torch.models.gpt import GPT
         from nanosandbox_tpu_torch.parallel.mesh import Mesh
@@ -455,4 +484,4 @@ def test_ring_refuses_what_it_does_not_run(what):
         q = torch.zeros(B, H, T, D)
         with pytest.raises(ValueError, match="hash_heads"):
             tattn.flash_attention_lse_dropout(q, q, q, [1], False, None, 0.1,
-                                              hash_heads=H + 1)
+                                              hash_heads=H - 1)

@@ -48,8 +48,8 @@ def twin():
     jcfg = JaxGPTConfig(**DIMS, compute_dtype="float32",
                         attention_impl="xla")
     jmodel = JaxGPT(jcfg)
-    params = jmodel.init(jax.random.key(0),
-                         jnp.zeros((1, 8), jnp.int32))["params"]
+    params = jax.jit(jmodel.init)(jax.random.key(0),
+                                  jnp.zeros((1, 8), jnp.int32))["params"]
     cfg = GPTConfig(**DIMS, compute_dtype="float32")
     model = GPT(cfg)
     model.load_state_dict(state_dict_from_jax_params(

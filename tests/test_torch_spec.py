@@ -63,8 +63,8 @@ def _pair(dims, key):
     jcfg = JaxGPTConfig(**dims, compute_dtype="float32",
                         attention_impl="xla")
     jmodel = JaxGPT(jcfg)
-    params = jmodel.init(jax.random.key(key),
-                         jnp.zeros((1, 8), jnp.int32))["params"]
+    params = jax.jit(jmodel.init)(jax.random.key(key),
+                                  jnp.zeros((1, 8), jnp.int32))["params"]
     cfg = GPTConfig(**dims, compute_dtype="float32")
     model = GPT(cfg)
     model.load_state_dict(state_dict_from_jax_params(

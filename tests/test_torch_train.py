@@ -102,15 +102,16 @@ def test_committed_configs_run_unmodified(name):
     assert n == (V + cfg.block_size) * C + L * 12 * C * C + (2 * L + 1) * C
 
 
-# The data, fsdp and seq axes, mesh_slices, shard_params and hf: init
-# are ported; the model axis and pretrained OpenAI weights are not, and
-# with them beside anything ported the config still raises.
+# The data, fsdp, seq and model axes, mesh_slices, shard_params and hf:
+# init are ported; pretrained OpenAI weights are not, and with them
+# beside anything ported the config still raises.
 @pytest.mark.parametrize("override", [
-    dict(mesh_tp=2), dict(init_from="gpt2"),
+    dict(init_from="gpt2"),
     dict(profile_steps="1:3", init_from="gpt2-medium"),
     dict(coordinator_address="h:1", mesh_sp=2, attention_impl="ring",
-         dropout=0.1, mesh_tp=2),
-    dict(num_processes=2, mesh_sp=2, mesh_tp=2, attention_impl="ring")])
+         dropout=0.1, mesh_tp=2, init_from="gpt2"),
+    dict(num_processes=2, mesh_sp=2, mesh_tp=2, attention_impl="ring",
+         init_from="gpt2-large")])
 def test_unported_keys_raise(override):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tconfig.check_ported(tconfig.TrainConfig(**override))
@@ -120,11 +121,21 @@ def test_unported_keys_raise(override):
     dict(mesh_fsdp=2), dict(mesh_sp=2, mesh_dp=2, attention_impl="ring"),
     dict(mesh_dp=4), dict(mesh_slices=-1), dict(shard_params=True),
     dict(attention_impl="ring", mesh_fsdp=2), dict(init_from="hf:/x"),
-    dict(memory_report=True, mesh_dp=2)])
+    dict(memory_report=True, mesh_dp=2), dict(mesh_tp=2),
+    dict(coordinator_address="h:1", mesh_sp=2, attention_impl="ring",
+         dropout=0.1, mesh_tp=2),
+    dict(num_processes=2, mesh_sp=2, mesh_tp=2, attention_impl="ring"),
+    dict(mesh_tp=2, mesh_fsdp=2, shard_params=True)])
 def test_ported_mesh_keys_accepted(override):
     """What used to raise as unported passes check_ported now; the batch
-    checks against the mesh are the Trainer's (check_mesh)."""
+    checks against the mesh are the Trainer's (check_mesh). The model
+    axis splits heads, under every attention impl: n_head must divide
+    by it."""
     tconfig.check_ported(tconfig.TrainConfig(**override))
+    if override.get("mesh_tp", 1) > 1:
+        with pytest.raises(ValueError, match="n_head 6 must be divisible"):
+            tconfig.check_ported(tconfig.TrainConfig(**{
+                **override, "n_head": 6, "n_embd": 384, "mesh_tp": 4}))
 
 
 def test_accepted_inert_keys_and_device(monkeypatch, tiny_cfg):
@@ -150,8 +161,8 @@ def twin():
     jcfg = jconfig.GPTConfig(**DIMS, compute_dtype="float32",
                              attention_impl="pallas_interpret")
     jmodel = jgpt.GPT(jcfg)
-    params = jmodel.init(jax.random.key(0),
-                         jnp.zeros((1, 8), jnp.int32))["params"]
+    params = jax.jit(jmodel.init)(                  # compiled: faster
+        jax.random.key(0), jnp.zeros((1, 8), jnp.int32))["params"]
     cfg = tconfig.GPTConfig(**DIMS, compute_dtype="float32")
     model = GPT(cfg)
     model.load_state_dict(state_dict_from_jax_params(
@@ -198,8 +209,8 @@ def test_convert_carries_biased_training_params():
     dims = dict(DIMS, n_layer=1, bias=True)
     jmodel = jgpt.GPT(jconfig.GPTConfig(**dims, compute_dtype="float32",
                                         attention_impl="xla"))
-    params = jmodel.init(jax.random.key(1),
-                         jnp.zeros((1, 8), jnp.int32))["params"]
+    params = jax.jit(jmodel.init)(jax.random.key(1),
+                                  jnp.zeros((1, 8), jnp.int32))["params"]
     params = jax.tree.map(lambda p: p + 0.01, params)   # nonzero biases
     cfg = tconfig.GPTConfig(**dims, compute_dtype="float32")
     model = GPT(cfg)
