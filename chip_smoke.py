@@ -112,7 +112,9 @@ runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13,
               backward, --profile_steps=20:22 and --memory_report=True
               (the loss must fall by 2 nats by iter 25, ckpt/30, the
               memory report's keys and the Chrome trace must exist, the
-              trace must name the flash kernels; the report printed
+              trace must name the flash kernels, the window's host syncs
+              by ledger name must be its log readbacks and one drain;
+              the loader's host time a batch printed; the report printed
               beside the run's measured peak), then a resume to 35 with
               the split backward; then the remat legs (REMAT_LEGS, on
               the same batches): 5 steps with --remat=True under
@@ -183,7 +185,8 @@ runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13,
               (dense) 8 x n_layer times, and no plain version runs on
               the card; then the bf16 engine's decode wall per step and
               device idle share in each mode (serve/profile.py
-              measure_decode), beside the card's name and power limit;
+              measure_decode, on the bf16 token runs' engines), beside
+              the card's name and power limit;
  15. scheduling  phase 4's fp32 model through the paged engine at
               prefill_chunk 128 on phase 4's prompts and a 900-token one
               (tokens equal to the same engine's without chunking; K1
@@ -231,11 +234,15 @@ runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13,
               K1 at the verify shape (S 8, T 5, bf16 and fp32) timed
               against its plain version, its bound and SDPA.
  17. observability  the paged bf16 124M server (phase 5's flags, the
-              CLI's defaults, --watchdog_dir): /metrics scraped before
+              CLI's defaults, --watchdog_dir), serving inside the
+              --warmup=full freeze (its serve_compile_traces_total
+              unchanged to the end): /metrics scraped before
               and after phase 5's rounds (the exposition parses, the
               families of OBS_FAMILIES are there, the submitted,
               completed, admitted and token counters move by what was
-              sent and agree with /stats); /trace of every request (one
+              sent and agree with /stats; the rounds' host syncs one
+              decode-readback a decode chunk and admission readbacks,
+              printed a chunk by name); /trace of every request (one
               generate and one queued span, decode steps overlapping by
               the pipeline's lag; an unknown rid 404); the /debug views'
               shapes; POST /profile {"steps": 16} while a 900-token
@@ -323,6 +330,16 @@ runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13,
               bytes and seconds a step; (h) the tp 2 checkpoint restored
               bit for bit in one process. The training ranks run in two
               waves beside (b) and (c).
+ 21. schedule fuzz  the bf16 124M model (4 slots x 256) as an Engine
+              under an EngineLoop, a 2-replica Fleet and a DisaggPair:
+              each served greedy requests uninstrumented, then again
+              with every lock swapped for schedcheck's seeded-
+              preemption wrapper (its prefix caches flushed between):
+              tokens, K1 and K2 launches (eager plus graph replays) and
+              the sync ledger's names equal; then utils/schedcheck.py's
+              fuzz loops, 2 seeds each, inside the frozen capture
+              budgets: no order violation, no crashed thread, the
+              program counts unchanged.
 
 The last line is {"ok": true, "device": {...}}; the line before it is a
 JSON object with one entry per kernel instance timed (K1 twice for each
@@ -1196,7 +1213,8 @@ def graph_trace(name: str, engine) -> dict:
 
 
 def run_engine(model, prompts, *, sampling=None, new=ENGINE_NEW,
-               eager=False, trace=False, graphs=True, **kw) -> dict:
+               eager=False, trace=False, graphs=True, keep=False,
+               **kw) -> dict:
     """One engine (8 slots x 1024) drained over the prompts (greedy, or
     each with its keywords from ``sampling``), with every count reset
     just before: tokens per prompt, wall time, the decode kernels'
@@ -1206,7 +1224,8 @@ def run_engine(model, prompts, *, sampling=None, new=ENGINE_NEW,
     phase 14's reference); ``trace`` counts the run's kernels in a
     torch.profiler trace. Then, unless ``graphs`` is False (the plain
     controls, whose graphs hold no kernel), each of the engine's graphs
-    replayed once under a trace (graph_trace)."""
+    replayed once under a trace (graph_trace). ``keep`` returns the
+    idle engine too, under "engine"."""
     from nanosandbox_tpu_torch.ops import attention as at
     from nanosandbox_tpu_torch.ops import flash_decode as fd
     from nanosandbox_tpu_torch.serve.engine import Engine
@@ -1238,8 +1257,10 @@ def run_engine(model, prompts, *, sampling=None, new=ENGINE_NEW,
         out["traced"] = traced
     if graphs:
         out["graph_trace"] = graph_trace(f"the engine {kw}", engine)
+    if keep:
+        out["engine"] = engine
     del engine
-    if DEVICE != "cpu":
+    if DEVICE != "cpu" and not keep:
         torch.cuda.empty_cache()
     return out
 
@@ -1682,13 +1703,19 @@ def profile_ring_calls(at, rng, calls: int = 10) -> None:
             sync()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
+                # A trace can lose its first records (traced_kernels): a
+                # preamble of spin kernels takes their place, and is no
+                # kernel of the call.
+                for _ in range(512):
+                    torch.cuda._sleep(1)
                 for _ in range(calls):
                     fn()
                 sync()
             us = {re.sub(r"\(anonymous namespace\)::", "",
                          e.key).split("(")[0]: e.self_device_time_total / calls
                   for e in prof.key_averages()
-                  if e.self_device_time_total > 0}
+                  if e.self_device_time_total > 0
+                  and "spin_kernel" not in e.key}
             names = {n.removeprefix("void ").split("<")[0] for n in us}
             want = RING_F32_CALL_KERNELS[kind]
             if dtype == torch.float32 and names != want:
@@ -2121,6 +2148,16 @@ def check_trainer(at, fd, smi: str, tmp: str) -> dict:
         if got != want:
             fail(f"the remat leg '{name}' bypassed a kernel or ran it "
                  f"again: launches {got}, needs {want}")
+    # The window's deliberate syncs by ledger name (utils/tracecheck.py):
+    # its log steps' readbacks before the last iter, and the drain.
+    window = first["host_syncs_in_window"]
+    want = {"profile-window-drain": 1}
+    n_log = sum(i % 5 == 0 for i in range(a, b - 1))   # --log_interval=5
+    if n_log:
+        want["train-log-readback"] = n_log
+    print(f"  profile window [{a}:{b}): host_syncs_in_window {window}")
+    if window != want:
+        fail(f"the profile window's host syncs {window}, expected {want}")
     with open(trace) as f:
         text = f.read()
     named = {k: k in text for k in ("flash_fwd", "flash_bwd")}
@@ -2155,6 +2192,13 @@ def check_trainer(at, fd, smi: str, tmp: str) -> dict:
           f"{prof['peak_memory_gb']:.2f} GiB")
     for name, t in prof["top_kernels_ms"].items():
         print(f"    {t:8.3f} ms  {name}")
+    gather = loader_times(trainer.dataset, cfg)
+    print(f"  [{smi}] loader, host (native xorshift128+ offsets and "
+          f"gather, the memmap warm): sample_batch "
+          f"{gather['sample_batch_ms']:.4f} ms a batch of "
+          f"{cfg.batch_size} x {cfg.block_size + 1} tokens, the gather "
+          f"alone {gather['gather_ms']:.4f} ms (medians of "
+          f"{gather['n']})")
     del trainer
     torch.cuda.empty_cache()
     control = control_losses(train, flags, tmp)
@@ -2165,6 +2209,30 @@ def check_trainer(at, fd, smi: str, tmp: str) -> dict:
     return {"launches": launches, "plain_cuda_calls": plain, "step_ms": ms,
             "split_step_ms": split_ms, "tok_s": toks, "mfu": mfu,
             "profile": prof, "remat": remat, "prepare_s": prepare_s}
+
+
+def loader_times(dataset, cfg, n: int = 200) -> dict:
+    """Host time of the loader's batch (BinDataset.sample_batch: the
+    native offsets, the native gather, the int32 cast) and of the native
+    gather alone, at the config's batch and block, medians of n draws
+    (the memmap warm: each draw is timed after a first untimed one)."""
+    from nanosandbox_tpu_torch.utils import native
+
+    data = dataset.splits["train"]
+    width = cfg.block_size + 1
+    dataset.sample_batch("train", 0, cfg.batch_size, cfg.block_size)
+    t_batch, t_gather = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        dataset.sample_batch("train", i, cfg.batch_size, cfg.block_size)
+        t_batch.append(time.perf_counter() - t0)
+        offsets = native.sample_offsets(SEED, i, data.shape[0], width,
+                                        cfg.batch_size)
+        t0 = time.perf_counter()
+        native.gather_windows(data, offsets, width)
+        t_gather.append(time.perf_counter() - t0)
+    return {"sample_batch_ms": 1e3 * float(np.median(t_batch)),
+            "gather_ms": 1e3 * float(np.median(t_gather)), "n": n}
 
 
 # Remat legs of phase 9: (name, extra flags, steps, forward launches a
@@ -3257,11 +3325,12 @@ def check_dispatch(fd, smi: str) -> dict:
     replays, one chunk replayed alone launches K2 (paged) or K3 (dense)
     k x n_layer times, and no plain version runs on the card; then the
     bf16 engine's decode step in each mode (serve/profile.py
-    measure_decode: wall per step and idle share)."""
+    measure_decode: wall per step and idle share), on the engines the
+    bf16 token runs used (their prefix caches flushed), so the timing
+    builds and captures no engine of its own."""
     from nanosandbox_tpu_torch.config import GPTConfig
     from nanosandbox_tpu_torch.models.gpt import GPT, cast_for_serving
     from nanosandbox_tpu_torch.serve import profile as serve_profile
-    from nanosandbox_tpu_torch.serve.engine import Engine
 
     cfg = GPTConfig(**MODEL)                     # bf16 compute
     bf16 = cast_for_serving(GPT(cfg, device=DEVICE, generator=torch.Generator(
@@ -3283,7 +3352,7 @@ def check_dispatch(fd, smi: str) -> dict:
         for label, mode, eager in DISPATCH_MODES:
             got[label] = run_engine(model, ps, sampling=sampling, new=new,
                                     eager=eager, trace=label == "replay k=8",
-                                    **kw, **mode)
+                                    keep=model is bf16, **kw, **mode)
         ref = got["eager sync"]["tokens"]
         bad = {label: sum(a != b for a, b in zip(r["tokens"], ref))
                for label, r in got.items()}
@@ -3310,10 +3379,11 @@ def check_dispatch(fd, smi: str) -> dict:
     del fp32
     times = {}
     t0 = time.monotonic()
-    for label, mode, eager in DISPATCH_MODES:
-        engine = Engine(bf16, num_slots=8, max_len=1024, device=DEVICE,
-                        **mode)
-        engine._replay = not eager
+    for label, _mode, _eager in DISPATCH_MODES:
+        # The token run's engine: 8 slots x 1024, the mode's scan_k and
+        # pipeline, the eager one with _replay off.
+        engine = runs["bf16 paged"][label].pop("engine")
+        engine.reset_prefix_cache()
         times[label] = serve_profile.measure_decode(
             engine, np.random.default_rng(SEED))
         del engine
@@ -4242,15 +4312,20 @@ def check_observability(fd, smi: str, tmp: str) -> dict:
     /metrics against /stats over phase 5's rounds, /trace, a /profile
     window over a wave admitted while a request decodes, the /debug
     views, a forced watchdog trip and its dump, /drain while a request
-    decodes; then the telemetry-cost leg (telemetry_cost). The launch
-    check and the profile's kernels come last."""
+    decodes; then the telemetry-cost leg (telemetry_cost). The server
+    serves inside the CLI's --warmup=full freeze (frozen_programs): its
+    serve_compile_traces_total must not move, and the rounds' host syncs
+    by ledger name are printed a decode chunk. The launch check and the
+    profile's kernels come last."""
     import os
 
     from nanosandbox_tpu_torch.checkpoint import save_for_serving
     from nanosandbox_tpu_torch.config import GPTConfig
     from nanosandbox_tpu_torch.models.gpt import GPT
     from nanosandbox_tpu_torch.ops import attention as at
-    from nanosandbox_tpu_torch.serve.__main__ import build_server
+    from nanosandbox_tpu_torch.serve.__main__ import (build_server,
+                                                      frozen_programs)
+    from nanosandbox_tpu_torch.utils import tracecheck
 
     t_phase = time.monotonic()
     cfg = GPTConfig(**MODEL)
@@ -4267,14 +4342,21 @@ def check_observability(fd, smi: str, tmp: str) -> dict:
     fd.reset_counts()
     at.reset_counts()
     zero_replays(engine)
-    th = threading.Thread(target=server.serve_forever, daemon=True)
+
+    def serve_frozen():
+        with frozen_programs(engine, "full"):
+            server.serve_forever()
+
+    th = threading.Thread(target=serve_frozen, daemon=True)
     th.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
     new = 64
     report: dict = {}
+    programs = engine.program_counts()
     try:
         # /metrics against /stats over phase 5's rounds.
         before = scrape(base)
+        sync_mark = tracecheck.sync_counts()
         rids, sent = [], 0
         for bodies in server_rounds(cfg):
             got = [None] * len(bodies)
@@ -4294,12 +4376,26 @@ def check_observability(fd, smi: str, tmp: str) -> dict:
                     fail(f"a round request answered {g}")
                 rids.append(g[1]["id"])
                 sent += new
+        syncs = tracecheck.sync_delta(sync_mark)
         after = scrape(base)
         stats = json.loads(http_get(base + "/stats")[1])
         v0, v1 = before["values"], after["values"]
 
         def delta(name):
             return v1.get(name, 0.0) - v0.get(name, 0.0)
+
+        # The rounds' deliberate syncs a decode chunk, by ledger name:
+        # one readback a chunk, and the admission waves' first tokens.
+        chunks = delta('serve_host_dispatches_total{kind="decode"}')
+        per_chunk = {k: round(n / max(chunks, 1), 4)
+                     for k, n in sorted(syncs.items())}
+        print(f"  [{smi}] host syncs over the rounds a decode chunk, by "
+              f"name ({chunks:.0f} chunks): {per_chunk} ({syncs})")
+        if not chunks or syncs.get("decode-readback") != chunks or set(
+                syncs) - {"decode-readback", "admit-readback"}:
+            fail(f"the rounds' host syncs {syncs} over {chunks} decode "
+                 "chunks: one decode-readback a chunk, admit-readbacks, "
+                 "nothing else")
 
         missing = [f for f in OBS_FAMILIES if f not in after["types"]
                    and not (DEVICE == "cpu" and f.startswith("torch_cuda"))]
@@ -4399,6 +4495,12 @@ def check_observability(fd, smi: str, tmp: str) -> dict:
                 or prof.get("error") or not os.path.exists(
                     prof.get("trace", "")):
             fail(f"/profile: the window's wave {wave}, the window {prof}")
+        in_window = prof.get("host_syncs_in_window", {})
+        print(f"  /profile window's host_syncs_in_window {in_window}")
+        if (in_window.get("profile-window-drain") != 1
+                or not in_window.get("decode-readback")):
+            fail(f"the /profile window's host syncs {in_window}: one "
+                 "drain and its chunks' readbacks")
         report["profile"] = prof
         # A watchdog trip: a tight ttft_spike (any TTFT over the rolling
         # median of the TTFTs so far trips), fed at an admission of a
@@ -4446,6 +4548,18 @@ def check_observability(fd, smi: str, tmp: str) -> dict:
             fail("/drain: readiness must go red at once, new requests "
                  "503, the request in flight must finish")
         sync()
+        traces = {k: v for k, v in scrape(base)["values"].items()
+                  if k.startswith("serve_compile_traces_total")}
+        traces0 = {k: v for k, v in v0.items()
+                   if k.startswith("serve_compile_traces_total")}
+        print(f"  frozen (--warmup=full): serve_compile_traces_total "
+              f"{traces} after the phase's requests, {traces0} before; "
+              f"program_counts {engine.program_counts()}, {programs} "
+              "before")
+        if (not traces or traces != traces0
+                or engine.program_counts() != programs):
+            fail(f"a program was captured while serving frozen: "
+                 f"{traces0} -> {traces}")
         launches = counted_launches(fd, engine)
         launches["flash_attention_fwd"] = at.launches["flash_attention_fwd"]
         plain = counted_plain(fd, at, engine)
@@ -4942,6 +5056,136 @@ def check_fleet_serving(fd, at, smi: str, served=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 21: the schedule fuzz over the serve host on the card
+# ---------------------------------------------------------------------------
+
+SCHED_SEEDS = (0, 1)
+SCHED_NEW = 16
+SCHED_KEYS = ("flash_prefill_paged/bf16", "flash_decode_paged/bf16")
+
+
+def sched_requests(vocab: int) -> list:
+    """Six greedy requests, two of them sharing a 48-token prefix."""
+    rng = np.random.default_rng(SEED + 210)
+    shared = rng.integers(0, vocab, 48).tolist()
+    out = []
+    for i, n in enumerate((20, 60, 90, 130, 30, 70)):
+        head = shared if i in (1, 2) else []
+        out.append((head + rng.integers(0, vocab, n).tolist(),
+                    {"temperature": 0.0}))
+    return out
+
+
+def group_run(fd, at, target, engines: list, reqs) -> dict:
+    """Every engine's prefix cache flushed and counts zeroed, the
+    requests served: tokens, K1/K2 launches (eager plus graph replays)
+    and the sync ledger's growth by name."""
+    from nanosandbox_tpu_torch.utils import tracecheck
+
+    for eng in engines:
+        eng.reset_prefix_cache()
+        zero_replays(eng)
+    if hasattr(target, "router"):
+        for name in target.replicas:
+            target.router.forget(name)
+    fd.reset_counts()
+    at.reset_counts()
+    mark = tracecheck.sync_counts()
+    tokens = serve_all(target, reqs, SCHED_NEW)
+    launches = {k: n for k, n in fd.launches.items() if n}
+    for eng in engines:
+        for key, n in replay_counts(eng, eng.graph_launches).items():
+            launches[key] = launches.get(key, 0) + n
+    return {"tokens": tokens,
+            "launches": {k: launches.get(k, 0) for k in SCHED_KEYS},
+            "syncs": sorted(tracecheck.sync_delta(mark))}
+
+
+def check_schedcheck(fd, at, smi: str) -> dict:
+    """Phase 21 (the module docstring): the port's serve host under
+    utils/schedcheck.py on the card."""
+    from nanosandbox_tpu_torch.serve.disagg import DisaggPair
+    from nanosandbox_tpu_torch.serve.engine import Engine
+    from nanosandbox_tpu_torch.serve.fleet import Fleet
+    from nanosandbox_tpu_torch.serve.http import EngineLoop
+    from nanosandbox_tpu_torch.utils import schedcheck, tracecheck
+
+    t_phase = time.monotonic()
+    bf16 = bf16_model()
+    kw = dict(num_slots=4, max_len=256, device=DEVICE)
+    reqs = sched_requests(prompt_vocab(bf16.cfg))
+    order = schedcheck.load_order()
+    engine = Engine(bf16, **kw)
+    fleet = Fleet(bf16, n_replicas=2, **kw)
+    pair = DisaggPair(bf16, **kw)
+    groups = (("engine loop", engine, [engine], schedcheck.instrument_engine),
+              ("fleet", fleet, list(fleet.replicas.values()),
+               schedcheck.instrument_fleet),
+              ("disagg pair", pair, [pair.prefill, pair.decode],
+               schedcheck.instrument_disagg))
+    out: dict = {}
+    for name, target, engines, instrument in groups:
+        programs = [eng.program_counts() for eng in engines]
+        ref = group_run(fd, at, target, engines, reqs)
+        check = schedcheck.SchedCheck(seed=SCHED_SEEDS[0], order=order)
+        instrument(target, check)
+        got = group_run(fd, at, target, engines, reqs)
+        print(f"  {name}: {len(reqs)} requests x {SCHED_NEW} tokens; "
+              f"launches {ref['launches']} plain, {got['launches']} "
+              f"instrumented; syncs by name {ref['syncs']}")
+        bad = [i for i, (a, b) in enumerate(zip(ref["tokens"],
+                                                 got["tokens"])) if a != b]
+        if bad or got["launches"] != ref["launches"] or \
+                got["syncs"] != ref["syncs"]:
+            fail(f"phase 21 {name}: instrumentation changed tokens of "
+                 f"requests {bad}, launches {ref['launches']} -> "
+                 f"{got['launches']} or syncs {ref['syncs']} -> "
+                 f"{got['syncs']}")
+        # The fuzz, inside the frozen budgets: a capture would raise.
+        loop = None
+        if name == "engine loop":
+            loop = EngineLoop(engine)
+            loop.start()
+        stats = []
+        try:
+            with contextlib.ExitStack() as frozen:
+                for eng in engines:
+                    frozen.enter_context(eng.tracecheck.frozen())
+                frozen.enter_context(tracecheck.global_registry().frozen())
+                for seed in SCHED_SEEDS:
+                    if loop is not None:
+                        c = schedcheck.fuzz_engine_loop(loop, seed,
+                                                        order=order)
+                    elif name == "fleet":
+                        c = schedcheck.fuzz_fleet(target, seed, order=order)
+                    else:
+                        c = schedcheck.fuzz_disagg(target, seed, order=order)
+                    c.assert_clean()
+                    stats.append((seed, c.acquires, c.preemptions))
+        finally:
+            if loop is not None:
+                loop.stop()
+                loop.join(60)
+        after = [eng.program_counts() for eng in engines]
+        print(f"  {name}: fuzz (seed, instrumented acquires, preemptions) "
+              f"{stats}, clean; program counts {after}")
+        if after != programs:
+            fail(f"phase 21 {name}: the fuzz built programs: {programs} "
+                 f"-> {after}")
+        out[name] = {"ref": ref, "fuzz": stats}
+    del engine, fleet, pair
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    print(f"  [{smi}] phase 21: {time.monotonic() - t_phase:.1f} s")
+    # The launch checks come last.
+    for name, run in out.items():
+        need_launches(f"phase 21 {name}", {
+            "launches": run["ref"]["launches"], "plain_cuda_calls": {}},
+            SCHED_KEYS)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 20: tensor parallelism (the model mesh axis)
 # ---------------------------------------------------------------------------
 
@@ -5382,7 +5626,7 @@ def tp_serving_checks() -> dict:
 
 # Phases that stand alone, for a partial run (--phases=2,3,7,9,13,14,15,16,
 # 17,18,19,20; 9 runs phase 12 after it).
-STANDALONE_PHASES = (2, 3, 7, 9, 13, 14, 15, 16, 17, 18, 19, 20)
+STANDALONE_PHASES = (2, 3, 7, 9, 13, 14, 15, 16, 17, 18, 19, 20, 21)
 
 
 def train_and_sample(at, fd, smi: str) -> None:
@@ -5465,7 +5709,9 @@ def main(argv: list[str] | None = None) -> int:
                 (20, "tensor parallelism (the model mesh axis)",
                  lambda: (_build.library(), check_tp(
                      fd, at, smi,
-                     tempfile.mkdtemp(prefix="chip_smoke_tp_"))))):
+                     tempfile.mkdtemp(prefix="chip_smoke_tp_")))),
+                (21, "the schedule fuzz over the serve host",
+                 lambda: (_build.library(), check_schedcheck(fd, at, smi)))):
             if phase in only:
                 header(f"== phase {phase}: {title}")
                 fn()
@@ -5557,6 +5803,9 @@ def main(argv: list[str] | None = None) -> int:
         dp = check_dp_fsdp(smi, tmp)
         header("== phase 20: tensor parallelism (the model mesh axis)")
         p20 = check_tp(fd, at, smi, tmp)
+
+    header("== phase 21: the schedule fuzz over the serve host")
+    check_schedcheck(fd, at, smi)
 
     def entry(name, source, replaces, launches, case):
         return {"name": name, "route": "cuda",

@@ -18,11 +18,11 @@ equal row blocks. So N ranks train on one process's batches at any
 accumulation. The JAX loader instead draws a stream a process
 (``process_index``); ROADMAP C5 records the difference.
 
-Offsets come from numpy's Philox keyed by (seed, stream) -- the JAX
-loader's fallback sampler, bit for bit. The JAX loader prefers its C++
-xorshift128+ sampler when ``csrc/libbatchgen.so`` loads, and that draws
-other batches from the same seed; this port has only the Philox stream
-and records ``"offset_sampler": "numpy-philox"`` in its metrics header.
+Offsets come from the native xorshift128+ sampler keyed by (seed,
+stream), and the windows from the native gather (utils/native.py over
+csrc/batchgen.cpp): the JAX loader's native path, bit for bit. The
+metrics header records ``"offset_sampler": "native-xorshift128+"``. A
+missing or failed g++ build raises; there is no other sampler.
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ import threading
 
 import numpy as np
 
-OFFSET_SAMPLER = "numpy-philox"
+from nanosandbox_tpu_torch.utils import native
+from nanosandbox_tpu_torch.utils.native import OFFSET_SAMPLER  # noqa: F401
 
 
 def take_rows(a: np.ndarray, micro_batches: int, index: int,
@@ -43,16 +44,6 @@ def take_rows(a: np.ndarray, micro_batches: int, index: int,
     in order), the index-th of ``count`` equal row blocks, in order."""
     m = a.reshape(micro_batches, count, -1, *a.shape[1:])[:, index]
     return m.reshape(-1, *a.shape[1:])
-
-
-def sample_offsets(seed: int, stream: int, n_tokens: int, width: int,
-                   batch: int) -> np.ndarray:
-    """Deterministic window offsets in [0, n_tokens - width]. The stream
-    goes into the 128-bit Philox KEY (not the counter), so adjacent
-    stream ids get unrelated keystreams."""
-    key = (int(seed) << 64) | (int(stream) & ((1 << 64) - 1))
-    rng = np.random.Generator(np.random.Philox(key=key))
-    return rng.integers(0, n_tokens - width + 1, size=batch, dtype=np.int64)
 
 
 class BinDataset:
@@ -90,10 +81,9 @@ class BinDataset:
         stream = (np.uint64(step) * np.uint64(0x10001)
                   + np.uint64(process_index) * np.uint64(2)
                   + np.uint64(split_tag))
-        offsets = sample_offsets(seed, int(stream), data.shape[0], width,
-                                 batch_size)
-        idx = offsets[:, None] + np.arange(width)[None, :]
-        xy = np.take(data, idx).astype(np.int32)
+        offsets = native.sample_offsets(seed, int(stream), data.shape[0],
+                                        width, batch_size)
+        xy = native.gather_windows(data, offsets, width).astype(np.int32)
         return xy[:, :-1], xy[:, 1:]
 
 

@@ -404,14 +404,17 @@ class WatchdogPanel:
         with self._dump_lock:
             try:
                 if self.dump_dir is None:
-                    # The dump I/O under _dump_lock is the point: the
-                    # lock serialises whole snapshots and nothing
+                    # lockcheck: disable=blocking-under-lock -- the dump
+                    # I/O under _dump_lock is the point: the lock
+                    # serialises whole snapshots and nothing
                     # latency-sensitive takes it.
                     self.dump_dir = tempfile.mkdtemp(
                         prefix="serve-watchdog-")
                 d = os.path.join(
                     self.dump_dir,
                     f"{kind}-{self.trips[kind]}-{int(time.time())}")
+                # lockcheck: disable=blocking-under-lock -- the same
+                # deliberate serialisation as the mkdtemp above.
                 os.makedirs(d, exist_ok=True)
                 self.engine.flight.dump(
                     os.path.join(d, f"flight-{kind}.jsonl"))

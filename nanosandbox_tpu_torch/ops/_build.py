@@ -24,6 +24,8 @@ import threading
 import time
 import types
 
+from nanosandbox_tpu_torch.utils import tracecheck
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_ROOT = os.path.dirname(_PKG)
 BUILD_DIR = os.path.join(REPO_ROOT, "build")
@@ -42,9 +44,12 @@ LINK_FLAGS = ("-ldl",)
 
 _lock = threading.Lock()
 _lib: types.SimpleNamespace | None = None
-# Libraries loaded in this process: 0 until the first library() call,
-# then 1 (the engine's post_freeze_retrace watchdog watches it).
-loads = 0
+# The libraries' one load a process, counted in tracecheck's global
+# registry under this name (Engine.program_counts' 'kernel_builds', which
+# the post_freeze_retrace watchdog watches); a second load, or one while
+# the registry is frozen, raises.
+BUDGET_NAME = "kernel_library"
+tracecheck.global_registry().register(BUDGET_NAME, 1)
 # What the last build did, for the caller that wants to report it:
 # seconds, and per source its library path, whether it was built now,
 # and nvcc's log (with ptxas's register and spill report).
@@ -117,10 +122,11 @@ def library() -> types.SimpleNamespace:
     """Every kernel entry point, declared, as attributes of one object;
     the libraries are built on the first call of the process (and reused
     from ``build/`` when identical builds exist)."""
-    global _lib, loads
+    global _lib
     with _lock:
         if _lib is not None:
             return _lib
+        tracecheck.global_registry().bump(BUDGET_NAME)
         t0 = time.monotonic()
         libs = []
         procs = []
@@ -130,6 +136,9 @@ def library() -> types.SimpleNamespace:
                      "log": out[:-3] + ".log", "built": False}
             libs.append(entry)
             if not os.path.exists(out):
+                # lockcheck: disable=blocking-under-lock -- build once:
+                # the lock makes one thread run nvcc while the others
+                # wait for the libraries instead of racing it.
                 os.makedirs(BUILD_DIR, exist_ok=True)
                 tmp = f"{out}.{os.getpid()}.tmp"
                 cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src, *LINK_FLAGS]
@@ -163,6 +172,5 @@ def library() -> types.SimpleNamespace:
         if missing:
             raise RuntimeError(f"kernel libraries lack {missing}")
         _lib = types.SimpleNamespace(**fns)
-        loads += 1
         build_info.update(libs=libs, seconds=time.monotonic() - t0)
         return _lib

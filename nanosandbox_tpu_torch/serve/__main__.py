@@ -20,7 +20,9 @@ the warmup); an EngineSupervisor recovers from faults unless
 --no_recovery. The anomaly watchdogs run unless --no_watchdogs, dumping
 under --watchdog_dir; the warmup's end marks the program set steady, so
 a CUDA graph captured or a kernel library built later trips
-post_freeze_retrace. The process vitals (RSS, fds, uptime, CUDA
+post_freeze_retrace; under --warmup=full the loop serves with the
+capture budgets frozen (utils/tracecheck.py), so such a build raises
+CompileBudgetExceeded in the engine loop first. The process vitals (RSS, fds, uptime, CUDA
 allocator bytes) ride every /metrics scrape.
 
 --device defaults to auto, which is the GPU and raises without one;
@@ -51,7 +53,10 @@ It loads no checkpoint and needs no GPU:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
+
+from nanosandbox_tpu_torch.utils import tracecheck
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -356,6 +361,20 @@ def build_server(argv: list[str] | None = None):
     return server, loop, engine
 
 
+def frozen_programs(engine, warmup: str):
+    """The post-warmup freeze: under ``--warmup=full`` the engine's
+    capture budgets and the process's kernel-library budget
+    (utils/tracecheck.py), so a capture or a library load on a live
+    request raises CompileBudgetExceeded in the engine loop instead of
+    costing that request its latency (JAX freezes its jit traces the
+    same way). ``--warmup=buckets`` freezes nothing."""
+    stack = contextlib.ExitStack()
+    if warmup == "full":
+        stack.enter_context(engine.tracecheck.frozen())
+        stack.enter_context(tracecheck.global_registry().frozen())
+    return stack
+
+
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv if argv is not None
                                      else sys.argv[1:])
@@ -371,9 +390,10 @@ def main(argv: list[str] | None = None) -> None:
         finally:
             fe.stop()
         return
-    server, loop, _ = build_server(argv)
+    server, loop, engine = build_server(argv)
     try:
-        server.serve_forever()
+        with frozen_programs(engine, args.warmup):
+            server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:

@@ -61,6 +61,7 @@ from nanosandbox_tpu_torch.serve.engine import (DEFAULT_PRIORITY, Engine,
                                                 EngineFailedError, Request,
                                                 Result)
 from nanosandbox_tpu_torch.serve.paged import blocks_for
+from nanosandbox_tpu_torch.utils import tracecheck as _tracecheck
 
 PREFILL, DECODE = "prefill", "decode"
 
@@ -448,7 +449,8 @@ _FROM_WIRE = {name: dtype for dtype, name in WIRE_DTYPES.items()}
 def leaf_to_wire(t: torch.Tensor) -> dict:
     """One pool leaf's rows as a wire entry: shape, dtype name, base64 of
     its bytes (bf16 through a uint8 view: no numpy bfloat16 needed)."""
-    t = t.detach().contiguous().cpu()
+    t = _tracecheck.host_sync("migrate-export-readback",
+                              t.detach().contiguous())
     raw = t.view(torch.uint8).numpy().tobytes() if t.numel() else b""
     return {"shape": list(t.shape), "dtype": WIRE_DTYPES[t.dtype],
             "data": base64.b64encode(raw).decode("ascii")}

@@ -219,7 +219,9 @@ from nanosandbox_tpu_torch.serve.scheduler import (SlotScheduler,
                                                    default_buckets)
 from nanosandbox_tpu_torch.serve.spec import SpecRunner
 from nanosandbox_tpu_torch.utils import profiler as profile_window
+from nanosandbox_tpu_torch.utils import tracecheck as _tracecheck
 from nanosandbox_tpu_torch.utils.metrics import warn_once
+from nanosandbox_tpu_torch.utils.tracecheck import TraceBudgetRegistry
 
 # Scheduling priority by SLO class: higher admits first and may preempt
 # lower. An explicit priority overrides the class's; unknown classes take
@@ -593,6 +595,10 @@ class Engine:
         self.scan_cap: Optional[int] = None
         self.spec_suspended = False
         self.brownout_min_priority: Optional[int] = None
+        # Capture budgets (utils/tracecheck.py): registered from
+        # max_programs() before the captures; every capture bumps its
+        # kind first, and past its budget (or frozen) it raises.
+        self.tracecheck = TraceBudgetRegistry()
         self._init_telemetry(metrics, tracer, flight)
         self.slo = SLOLedger(self.metrics)
         # Dispatches by kind: decode chunks, and under spec verifies.
@@ -654,8 +660,9 @@ class Engine:
         self.graph_launches: Dict[tuple, Dict[str, int]] = {}
         self.graph_plain_calls: Dict[tuple, Dict[str, int]] = {}
         self.graph_pool_bytes = 0
-        self.graph_captures = 0
         self._replay = self.device.type == "cuda"
+        for kind, budget in self.max_programs().items():
+            self.tracecheck.register(kind, budget)
         if self._replay:
             _build.library()       # build the kernels before any request
             self._capture_graphs()
@@ -716,6 +723,10 @@ class Engine:
             "lifetime (== scan_k when every chunk retires fully).")
         self._c_admitted = m.counter(
             "serve_requests_admitted_total", "Requests admitted to slots.")
+        self._c_traces = m.counter(
+            "serve_compile_traces_total",
+            "Observed CUDA graph captures of this engine's programs, by "
+            "kind.", labelnames=("program",))
         self._g_active = m.gauge("serve_slots_active",
                                  "Slots owned by in-flight requests.")
         self._g_free = m.gauge("serve_slots_free", "Free KV-pool slots.")
@@ -855,15 +866,19 @@ class Engine:
             self._c_prefix_hit._set_total(ps["prefix_hit_tokens"])
             self._c_prefix_miss._set_total(ps["prefix_miss_tokens"])
             self._c_block_stalls._set_total(ps["block_stall_steps"])
+        for name, n in self.tracecheck.counts().items():
+            self._c_traces.labels(program=name)._set_total(n)
 
     def program_counts(self) -> dict:
-        """The programs this process has built: the engine's CUDA graph
-        captures and the kernel libraries loaded (ops/_build.py). What
-        the post_freeze_retrace watchdog watches, as JAX's watches its
-        jit traces: either growing after the warmup is a build on a live
+        """The programs built: this engine's CUDA graph captures (its
+        tracecheck registry) and the kernel libraries the process loaded
+        (the global registry's 'kernel_library'). What the
+        post_freeze_retrace watchdog watches, as JAX's watches its jit
+        traces: either growing after the warmup is a build on a live
         request's time."""
-        return {"graph_captures": self.graph_captures,
-                "kernel_builds": _build.loads}
+        return {"graph_captures": sum(self.tracecheck.counts().values()),
+                "kernel_builds": _tracecheck.global_registry().counts().get(
+                    _build.BUDGET_NAME, 0)}
 
     # ------------------------------------------------------------------
     # device slot state
@@ -917,6 +932,7 @@ class Engine:
         and the decode kernels' ticket counters. Every tensor keeps its
         address, so the captured graphs stay valid."""
         if self.device.type == "cuda":
+            _tracecheck.host_sync("recovery-sync")
             torch.cuda.synchronize(self.device)
         for slot in range(self.num_slots):
             self._release_row(slot)
@@ -1540,7 +1556,9 @@ class Engine:
         if self.paged:
             self._table[idx] = d_tables[:n]
         self._live[idx] = True
-        host = torch.where(ok, toks, self.cfg.vocab_size).cpu().tolist()
+        host = _tracecheck.host_sync(
+            "admit-readback",
+            torch.where(ok, toks, self.cfg.vocab_size)).tolist()
         if (self.faults is not None
                 and self.faults.fire("scatter_corrupt", self.steps)
                 is not None):
@@ -1881,12 +1899,12 @@ class Engine:
             for graphs, group in ((self._graphs, bodies),
                                   (self._spec_graphs, spec_bodies)):
                 for key, body in group.items():
+                    self.tracecheck.bump(_program_kind(key))
                     before = _wrapper_counts()
                     graph = torch.cuda.CUDAGraph()
                     with torch.cuda.graph(graph, pool=pool, stream=stream):
                         body()
                     graphs[key] = graph
-                    self.graph_captures += 1
                     self.graph_replays[key] = 0
                     self.graph_launches[key], self.graph_plain_calls[key] = (
                         {name: n - b[name] for name, n in a.items()
@@ -1929,9 +1947,9 @@ class Engine:
 
     def _copied_wait(self, i: int) -> torch.Tensor:
         """Host buffer i once the copy into it is done (this chunk's
-        event only: work queued behind it keeps running)."""
-        if self._copied[i] is not None:
-            self._copied[i].synchronize()
+        event only: work queued behind it keeps running): the decode
+        chunk's one readback, 'decode-readback' in the sync ledger."""
+        _tracecheck.host_sync("decode-readback", self._copied[i])
         return self._host_toks[i]
 
     def _retire(self, inflight: tuple, finished: List[Result]) -> None:
@@ -2721,6 +2739,7 @@ class Engine:
             self.last_profile = {"dir": prof["dir"], "steps": prof["steps"],
                                  "error": f"{type(e).__name__}: {e}"}
             return
+        prof["sync_mark"] = _tracecheck.sync_counts()
         prof["span"] = self.tracer.begin(
             "profile_window", cat="profile",
             args={"steps": prof["steps"], "dir": prof["dir"]})
@@ -2745,8 +2764,11 @@ class Engine:
             self.last_profile["error"] = f"{type(e).__name__}: {e}"
             self.tracer.end(prof["span"], {"error": self.last_profile["error"]})
         else:
+            by_kind = _tracecheck.sync_delta(prof["sync_mark"])
             self.last_profile["trace"] = path
-            self.tracer.end(prof["span"])
+            self.last_profile["host_syncs_in_window"] = by_kind
+            self.tracer.end(prof["span"],
+                            {"host_syncs": sum(by_kind.values())})
         with self._profile_lock:
             self._profile = None
 
@@ -2987,17 +3009,18 @@ class Engine:
         return out
 
     def max_programs(self) -> dict:
-        """The CUDA graphs captured (none on the CPU, where the bodies
-        run eagerly): decode, one per (rung, filtered) pair; under spec
-        'verify', the greedy and the sampled graph, and a ModelDrafter's
-        'draft'. JAX's counterpart counts compiled programs: one per
-        rung, and one verify (its lax.cond holds both paths)."""
-        progs = {"decode": len(self._graphs)}
+        """The CUDA graphs the engine captures, by kind (none on the CPU,
+        where the bodies run eagerly): decode, one per (rung, filtered)
+        pair; under spec 'verify', the greedy and the sampled graph, and
+        a ModelDrafter's 'draft'. The tracecheck budgets. JAX's
+        counterpart counts compiled programs: one per rung, and one
+        verify (its lax.cond holds both paths)."""
+        n = int(self._replay)
+        progs = {"decode": n * 2 * len(self.scan_rungs)}
         if self._spec is not None:
-            progs["verify"] = sum(key[0] == "verify"
-                                  for key in self._spec_graphs)
+            progs["verify"] = n * 2
             if self._spec.drafter.kind == "device":
-                progs["draft"] = int(("draft",) in self._spec_graphs)
+                progs["draft"] = n
         return progs
 
 
@@ -3013,6 +3036,11 @@ def _wrapper_counts() -> tuple:
     calls on the card)."""
     return ({**fd.launches, **at.launches},
             {**fd.plain_cuda_calls, **at.plain_cuda_calls})
+
+
+def _program_kind(key: tuple) -> str:
+    """The tracecheck kind of a graph key: 'decode', 'verify', 'draft'."""
+    return key[0] if key[0] in ("verify", "draft") else "decode"
 
 
 def _graph_name(key: tuple) -> str:

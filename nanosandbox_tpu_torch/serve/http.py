@@ -1290,9 +1290,13 @@ class RouterFrontend:
         # Publish-once fields: written here on the router loop before the
         # _started barrier below, which start() waits on, so every other
         # thread (stop(), callers reading .port) sees the final values.
+        # lockcheck: disable=unguarded-shared-write -- one assignment,
+        # sequenced before the _started barrier that start() waits on.
         self._stopping = asyncio.Event()
         server = await asyncio.start_server(self._handle, self.host,
                                             self.port)
+        # lockcheck: disable=unguarded-shared-write -- the bound port,
+        # published before the same _started barrier.
         self.port = server.sockets[0].getsockname()[1]
         health = asyncio.create_task(self._health_loop())
         self._started.set()

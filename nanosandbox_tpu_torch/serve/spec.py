@@ -52,6 +52,7 @@ import torch
 
 from nanosandbox_tpu_torch.sample import (NEG_INF, accept_uniforms,
                                           filter_logits_rows, gumbel_argmax)
+from nanosandbox_tpu_torch.utils import tracecheck as _tracecheck
 
 
 class SpecRunner:
@@ -183,7 +184,8 @@ class SpecRunner:
         emitted[:, :k+1] (row r's new tokens are its first count[r]),
         count (accepted + 1 for live rows, 0 for parked ones) at k+1,
         accepted at k+2."""
-        return self._out.cpu().numpy()
+        return _tracecheck.host_sync("spec-verify-readback",
+                                     self._out).numpy()
 
     def stats(self) -> dict:
         rate: Optional[float] = (self.accepted / self.drafted

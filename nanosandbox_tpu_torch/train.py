@@ -77,7 +77,11 @@ attention mask is a pure function of the per-layer seed words and
 matches the JAX kernels' bit for bit for the same words.
 
 ``profile_steps='a:b'`` traces iters [a, b) with torch.profiler (CPU and
-CUDA activities) into a Chrome trace under <log_dir>/profile, on rank 0.
+CUDA activities) into a Chrome trace under <log_dir>/profile, on rank 0,
+and prints the window's deliberate host syncs by ledger name
+(utils/tracecheck.py: the loop reads back through ``host_sync`` only,
+under JAX's names: one 'train-log-readback' a log step, one
+'eval-readback' a split per eval, the window's 'profile-window-drain').
 ``memory_report`` prints and logs the JAX trainer's keys before iter 0
 (``memory_report``): parameters, AdamW moments and batch computed from
 their shapes, activations and workspace measured on the GPU over one
@@ -112,6 +116,7 @@ from nanosandbox_tpu_torch.config import (GPTConfig, TrainConfig,
                                           resolve_device,
                                           resolve_loss_chunk_size)
 from nanosandbox_tpu_torch.parallel import distributed
+from nanosandbox_tpu_torch.utils import tracecheck
 
 # Peak dense bf16 FLOP/s per device for MFU (data sheets): NVIDIA H100
 # SXM 989 TFLOP/s. A CPU run reports MFU against a nominal 1 TFLOP/s.
@@ -317,6 +322,8 @@ class Trainer:
 
         self.metrics = MetricRegistry()
         self.tracer = SpanTracer(capacity=2048)
+        # The profile window's host syncs by ledger name, once it closed.
+        self.host_syncs_in_window: dict | None = None
         m = self.metrics
         self._m_loss = m.gauge("train_loss",
                                "Training loss at the last log step.")
@@ -464,7 +471,9 @@ class Trainer:
                 for i in range(eval_iters)]
             losses = [self.eval_loss(self.to_device(xb), self.to_device(yb))
                       for xb, yb in batches]
-            out[split] = float(torch.stack(losses).mean())
+            # One readback a split, through the ledger (JAX's name).
+            out[split] = tracecheck.host_sync("eval-readback",
+                                              torch.stack(losses).mean())
             self._m_eval.labels(split=split).set(out[split])
         self.tracer.end(sid, {f"{k}_loss": round(v, 6)
                               for k, v in out.items()})
@@ -722,6 +731,10 @@ class Trainer:
                     # Eval and checkpoint time stay out of the next
                     # throughput window.
                     if self.device.type == "cuda":
+                        # torchlint: disable=host-sync -- waits out the
+                        # checkpoint's copies (the eval readback drained
+                        # the rest), so they stay out of the next
+                        # throughput window; JAX's loop has no such sync.
                         torch.cuda.synchronize(self.device)
                     t0, window_start_iter = time.time(), iter_num - 1
 
@@ -736,7 +749,12 @@ class Trainer:
                     profiler = None
 
                 if cfg.log_interval > 0 and iter_num % cfg.log_interval == 0:
-                    loss = float(metrics["loss"])  # the log-step sync
+                    # The log-step sync: loss and grad norm in one
+                    # readback, through the ledger (JAX's name).
+                    loss, grad_norm = tracecheck.host_sync(
+                        "train-log-readback",
+                        torch.stack([metrics["loss"].float(),
+                                     metrics["grad_norm"].float()])).tolist()
                     last_loss = loss
                     # Window-averaged: the host runs ahead of the device,
                     # and this read drains every step since the last one.
@@ -749,7 +767,6 @@ class Trainer:
                     say(f"iter {iter_num}: loss {loss:.4f}, "
                           f"time {dt * 1000:.2f}ms, "
                           f"tok/s {toks:,.0f}, mfu {mfu * 100:.2f}%")
-                    grad_norm = float(metrics["grad_norm"])
                     lr = self.lr_schedule(iter_num)
                     writer.log(iter_num, {
                         "train/loss": loss, "train/grad_norm": grad_norm,
@@ -780,6 +797,7 @@ class Trainer:
                       min(best_val_loss, losses.get("val", 1e9)), final=True)
         return {"iter_num": iter_num, "final_loss": last_loss, "log": log,
                 "memory_report": mem,
+                "host_syncs_in_window": self.host_syncs_in_window,
                 **{f"final_{k}_loss": v for k, v in losses.items()}}
 
     # -- profiler window -----------------------------------------------------
@@ -790,6 +808,8 @@ class Trainer:
         self._profile_span = self.tracer.begin(
             "profiler_window", cat="train",
             args={"start": prof_range[0], "stop": prof_range[1]})
+        # The window reports its own syncs, not the process's.
+        self._profile_sync_mark = tracecheck.sync_counts()
         return window.start(self.device)
 
     def _stop_profile(self, profiler, prof_range) -> None:
@@ -801,8 +821,13 @@ class Trainer:
         a, b = prof_range
         window.stop(profiler, self.device,
                     os.path.join(out, f"iters_{a}_{b}.trace.json"))
-        self.tracer.end(self._profile_span)
-        print(f"profiler trace for iters [{a}:{b}) -> {out}")
+        by_kind = tracecheck.sync_delta(self._profile_sync_mark)
+        self.host_syncs_in_window = by_kind
+        self.tracer.end(self._profile_span,
+                        {"host_syncs": sum(by_kind.values())})
+        print(f"profiler trace for iters [{a}:{b}) -> {out} "
+              f"({sum(by_kind.values())} logged host sync(s) in the "
+              f"window; by kind: {by_kind})")
 
 
 def main(argv: list[str] | None = None) -> dict:

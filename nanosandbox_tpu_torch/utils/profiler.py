@@ -35,11 +35,14 @@ def start(device, preamble: bool = False):
 
 
 def stop(profiler, device, path: str) -> str:
-    """Drain the device so the window holds its work, stop the profiler
-    and write its Chrome trace to ``path`` (directories created).
-    Returns the path."""
+    """Drain the device so the window holds its work (the sync ledger's
+    'profile-window-drain'), stop the profiler and write its Chrome trace
+    to ``path`` (directories created). Returns the path."""
     import torch
 
+    from nanosandbox_tpu_torch.utils import tracecheck
+
+    tracecheck.host_sync("profile-window-drain")
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     profiler.stop()

@@ -54,10 +54,8 @@ REPO = Path(__file__).resolve().parent.parent
 DIMS = dict(n_layer=2, n_head=2, n_embd=32, block_size=64, vocab_size=50)
 
 # Families of the JAX Engine the port does not publish, each with the
-# ROADMAP item that owns it.
-JAX_ONLY_FAMILIES = {
-    "serve_compile_traces_total": "A11",    # the tracecheck ledgers
-}
+# ROADMAP item that owns it (none left).
+JAX_ONLY_FAMILIES: dict = {}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -650,9 +648,11 @@ def test_engine_watchdog_trips_and_dumps(models, tmp_path, kind):
         eng.submit([1, 2], 4)
         eng.drain()
         assert "post_freeze_retrace" not in eng.watchdog.trips
-        # On the card a capture after the warmup bumps this count; on the
-        # CPU nothing is captured, so the count is bumped by hand.
-        eng.graph_captures += 1
+        # On the card a capture after the warmup bumps the engine's
+        # tracecheck registry; on the CPU nothing is captured, so a
+        # capture is recorded by hand.
+        eng.tracecheck.register("decode", 1)
+        eng.tracecheck.bump("decode")
         eng.submit([3, 4], 4)
         eng.drain()
         assert eng.watchdog.trips.get(kind, 0) == 1

@@ -143,7 +143,9 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     phase 18 (multi-replica serving) its DisaggPair, Fleet and HTTP
     router checks (tokens equal to the colocated engine's, bit-identical
     copies, one terminal a request through both replica_down kills, the
-    migration counters on both pods).
+    migration counters on both pods); phase 21 (the schedule fuzz) its
+    instrumented runs' tokens and sync names equal to the plain ones and
+    its fuzz clean.
     The trainer phase prepares its BPE dataset from a 200 KB
     slice of the XL corpus, held to the sha256s of the JAX package's
     prepare of the same slice, so the test never BPE-encodes 25 MB."""
@@ -195,7 +197,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path):
                   lambda: chip_smoke.check_sampler(str(tmp_path)),
                   lambda: chip_smoke.check_observability(fd, "cpu",
                                                          str(tmp_path)),
-                  lambda: chip_smoke.check_fleet_serving(fd, at, "cpu")):
+                  lambda: chip_smoke.check_fleet_serving(fd, at, "cpu"),
+                  lambda: chip_smoke.check_schedcheck(fd, at, "cpu")):
         with pytest.raises(SystemExit, match="bypassed a kernel"):
             phase()
 

@@ -11,10 +11,11 @@
   identical gradients to 1e-6, and lr(0) = 0;
 * gradient accumulation over 2 micro-batches equals one step on the
   whole batch (loss 1e-6, gradients 1e-5);
-* BinDataset.sample_batch draws the JAX loader's batches when the JAX
-  package's native sampler is off (numpy Philox on both sides);
+* BinDataset.sample_batch draws the JAX loader's batches, both through
+  their native xorshift128+ sampler and gather;
 * the CLI trains on the CPU, checkpoints, resumes at the saved
-  iteration, and the checkpoint converts into a serving one.
+  iteration, and the checkpoint converts into a serving one; its host
+  syncs by ledger name are JAX's loop's at the same flags.
 """
 
 import glob
@@ -294,8 +295,8 @@ def test_gradient_accumulation_equals_whole_batch(tiny_cfg):
                                    atol=1e-5, err_msg=name)
 
 
-def test_sample_batch_matches_the_jax_loader(monkeypatch, char_dataset):
-    monkeypatch.setattr(native, "get_lib", lambda: None)
+def test_sample_batch_matches_the_jax_loader(char_dataset):
+    assert native.get_lib() is not None     # xorshift on both sides
     jds = jloader.BinDataset(char_dataset, "shakespeare_char")
     tds = BinDataset(char_dataset, "shakespeare_char")
     assert tds.vocab_size == jds.vocab_size
@@ -315,13 +316,20 @@ def test_sample_batch_matches_the_jax_loader(monkeypatch, char_dataset):
 
 
 def test_cli_trains_checkpoints_and_resumes(char_dataset, tmp_path):
+    from nanosandbox_tpu_torch.utils import tracecheck
+
     out = str(tmp_path / "out")
     flags = [os.path.join(REPO, "configs", "smoke_cpu.py"),
              f"--data_dir={char_dataset}", f"--out_dir={out}",
              "--device=cpu", "--block_size=64", "--batch_size=8",
              "--eval_interval=10", "--eval_iters=2", "--log_interval=5",
              "--tensorboard=False", "--run_name=r"]
+    mark = tracecheck.sync_counts()
     first = ttrain.main(flags + ["--max_iters=20", "--lr_decay_iters=20"])
+    # JAX's loop at these flags: one log readback a log step (0, 5, 10,
+    # 15), one eval readback a split per eval (iters 0 and 10, the end).
+    assert tracecheck.sync_delta(mark) == {"train-log-readback": 4,
+                                           "eval-readback": 6}
     log = first["log"]
     assert first["iter_num"] == 20 and [r["iter"] for r in log] == [
         0, 5, 10, 15]
@@ -334,7 +342,7 @@ def test_cli_trains_checkpoints_and_resumes(char_dataset, tmp_path):
     with open(os.path.join(out, "runs", "r", "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     header = recs[0]["header"]
-    assert header["offset_sampler"] == "numpy-philox"
+    assert header["offset_sampler"] == "native-xorshift128+"
     assert header["rng_impl"] == "threefry2x32"
     assert any(r.get("step") == 20 and "train/loss" in r for r in recs)
 
