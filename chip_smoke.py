@@ -330,16 +330,25 @@ runs phase 1 and the phases named, 2, 3, 7, 9 (with 12 after it), 13,
               bytes and seconds a step; (h) the tp 2 checkpoint restored
               bit for bit in one process. The training ranks run in two
               waves beside (b) and (c).
- 21. schedule fuzz  the bf16 124M model (4 slots x 256) as an Engine
-              under an EngineLoop, a 2-replica Fleet and a DisaggPair:
-              each served greedy requests uninstrumented, then again
-              with every lock swapped for schedcheck's seeded-
-              preemption wrapper (its prefix caches flushed between):
-              tokens, K1 and K2 launches (eager plus graph replays) and
-              the sync ledger's names equal; then utils/schedcheck.py's
-              fuzz loops, 2 seeds each, inside the frozen capture
-              budgets: no order violation, no crashed thread, the
-              program counts unchanged.
+ 21. schedule fuzz  the bf16 124M model (4 slots x 256, a pool of 40
+              blocks: 2.5 slots' worth) as an Engine under an
+              EngineLoop, a 2-replica Fleet and a DisaggPair: each
+              served greedy requests uninstrumented, then again with
+              every lock swapped for schedcheck's seeded-preemption
+              wrapper (its prefix caches flushed between): tokens, K1
+              and K2 launches (eager plus graph replays) and the sync
+              ledger's names equal; then utils/schedcheck.py's fuzz
+              loops, 2 seeds each, inside the frozen capture budgets,
+              at load: twice as many requests as the target has slots,
+              60-200 token prompts over the model's vocab, 32 new tokens
+              each, half of them interactive with a 0.1 s deadline
+              behind one shared 48-token prefix and half batch, so slots
+              stay full, admission waits behind decode and the
+              deadline policy preempts batch rows and sheds late heads;
+              no order violation, no crashed thread, the program counts
+              unchanged. Prints each seed's instrumented acquires,
+              injected preemptions and the engines' own preemptions and
+              sheds.
 
 The last line is {"ok": true, "device": {...}}; the line before it is a
 JSON object with one entry per kernel instance timed (K1 twice for each
@@ -1150,6 +1159,20 @@ TRACED_KERNELS = {"K1": "paged_prefill_", "K2": "paged_decode_kernel",
                   "K3": "flash_decode_kernel", "K4": "flash_fwd_"}
 
 
+# Spin kernels that open every trace: a trace can lose its first records
+# (in full runs of this script a one-chunk trace lacked the chunk's
+# first ~40 kernels, and a 10 ms spin before it was lost too; a later
+# run lost all of a 512-kernel preamble and ~550 records after it).
+TRACE_PREAMBLE = 4096
+
+
+def trace_preamble() -> None:
+    """Short kernels that take the place of the records a trace loses;
+    no kernel of the traced call ("spin_kernel")."""
+    for _ in range(TRACE_PREAMBLE):
+        torch.cuda._sleep(1)
+
+
 def traced_kernels(fn) -> dict:
     """{K1..K4: kernels launched, "all": {kernel: launches}} in a
     torch.profiler trace of fn() (all zero on the CPU, where there is no
@@ -1161,12 +1184,7 @@ def traced_kernels(fn) -> dict:
         return out
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        # A trace can lose its first records: in full runs of this
-        # script a one-chunk trace lacked the chunk's first ~40 kernels
-        # (a K3, LayerNorms, ...), and a 10 ms spin before it was lost
-        # too. A preamble of short kernels takes their place.
-        for _ in range(512):
-            torch.cuda._sleep(1)
+        trace_preamble()
         fn()
         sync()
     for e in prof.key_averages():
@@ -1703,11 +1721,7 @@ def profile_ring_calls(at, rng, calls: int = 10) -> None:
             sync()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                # A trace can lose its first records (traced_kernels): a
-                # preamble of spin kernels takes their place, and is no
-                # kernel of the call.
-                for _ in range(512):
-                    torch.cuda._sleep(1)
+                trace_preamble()
                 for _ in range(calls):
                     fn()
                 sync()
@@ -3634,13 +3648,20 @@ def check_sched_server(fd, smi: str, unchunked: list) -> None:
             for i in range(8)])))
         busy.start()
         t0 = time.monotonic()
+        seen = []            # (s since t0, active + chunking, queued)
         while True:
             with urllib.request.urlopen(base + "/stats", timeout=30) as r:
                 st = json.loads(r.read())
-            if st["active"] + st["chunking"] == 8:
+            seen.append((round(time.monotonic() - t0, 3),
+                         st["active"] + st["chunking"], st["queued"]))
+            if seen[-1][1] == 8:
                 break
             if time.monotonic() - t0 > 60:
-                fail(f"phase 15: the 8 blockers never filled the slots {st}")
+                changes = [x for i, x in enumerate(seen)
+                           if i == 0 or x[1:] != seen[i - 1][1:]]
+                fail(f"phase 15: the 8 blockers never filled the slots: "
+                     f"{len(seen)} polls, (s, active + chunking, queued) "
+                     f"at each change {changes[:40]}; {st}")
             time.sleep(0.002)
         doomed = fire([dict(prompt_tokens=[1, 2, 3], max_new_tokens=8,
                             slo_class="batch", deadline_s=1e-4)])[0]
@@ -4009,8 +4030,8 @@ def check_spec_and_recovery(fd, at, smi: str, ref=None, dense_ref=None,
               f"{st['spec_accepted_len_mean']}, target forwards per emitted "
               f"token {per_token:.3f} ({st['host_dispatches']['verify']} "
               f"verifies / {emitted}); launches {run['launches']}; verify "
-              f"graphs K1 (captured, traced) {trace}; graphs "
-              f"{eng.max_programs()} [{smi}]")
+              f"graphs K1 (captured, traced) {trace}; graphs captured "
+              f"{eng.tracecheck.counts()} [{smi}]")
         if bad:
             fail(f"phase 16 {name}: greedy tokens differ from phase 4's")
         need = ["flash_prefill_paged/fp32"]
@@ -5062,6 +5083,29 @@ def check_fleet_serving(fd, at, smi: str, served=None) -> dict:
 SCHED_SEEDS = (0, 1)
 SCHED_NEW = 16
 SCHED_KEYS = ("flash_prefill_paged/bf16", "flash_decode_paged/bf16")
+# The fuzz's load: new tokens a request, the pool (16 blocks hold one
+# slot's max_len of 256), requests per slot of the target, and the
+# interactive requests' deadline.
+SCHED_FUZZ_NEW = 32
+SCHED_POOL_BLOCKS = 40
+SCHED_FUZZ_PER_SLOT = 2
+SCHED_DEADLINE_S = 0.1
+
+
+def fuzz_requests(vocab: int, seed: int, n: int) -> list:
+    """n (prompt, submit keywords): prompts of 60-200 tokens over the
+    model's vocab; the even ones behind one shared 48-token prefix (the
+    fleet's affinity, the prefix cache) and interactive with a deadline,
+    the odd ones batch, the victims the deadline policy preempts."""
+    rng = np.random.default_rng(SEED + 211 + seed)
+    shared = rng.integers(0, vocab, 48).tolist()
+    out = []
+    for i in range(n):
+        tail = rng.integers(0, vocab, int(rng.integers(60, 153))).tolist()
+        out.append((shared + tail, {"slo_class": "interactive",
+                                    "deadline_s": SCHED_DEADLINE_S})
+                   if i % 2 == 0 else (tail, {"slo_class": "batch"}))
+    return out
 
 
 def sched_requests(vocab: int) -> list:
@@ -5112,7 +5156,8 @@ def check_schedcheck(fd, at, smi: str) -> dict:
 
     t_phase = time.monotonic()
     bf16 = bf16_model()
-    kw = dict(num_slots=4, max_len=256, device=DEVICE)
+    kw = dict(num_slots=4, max_len=256, kv_pool_blocks=SCHED_POOL_BLOCKS,
+              device=DEVICE)
     reqs = sched_requests(prompt_vocab(bf16.cfg))
     order = schedcheck.load_order()
     engine = Engine(bf16, **kw)
@@ -5153,22 +5198,32 @@ def check_schedcheck(fd, at, smi: str) -> dict:
                     frozen.enter_context(eng.tracecheck.frozen())
                 frozen.enter_context(tracecheck.global_registry().frozen())
                 for seed in SCHED_SEEDS:
+                    load = dict(order=order, budget=SCHED_FUZZ_NEW,
+                                requests=fuzz_requests(
+                                    prompt_vocab(bf16.cfg), seed,
+                                    SCHED_FUZZ_PER_SLOT * sum(
+                                        e.num_slots for e in engines)))
+                    pre = [sum(e.preemptions for e in engines),
+                           sum(e.shed for e in engines)]
                     if loop is not None:
-                        c = schedcheck.fuzz_engine_loop(loop, seed,
-                                                        order=order)
+                        c = schedcheck.fuzz_engine_loop(loop, seed, **load)
                     elif name == "fleet":
-                        c = schedcheck.fuzz_fleet(target, seed, order=order)
+                        c = schedcheck.fuzz_fleet(target, seed, **load)
                     else:
-                        c = schedcheck.fuzz_disagg(target, seed, order=order)
+                        c = schedcheck.fuzz_disagg(target, seed, **load)
                     c.assert_clean()
-                    stats.append((seed, c.acquires, c.preemptions))
+                    stats.append((seed, len(load["requests"]), c.acquires,
+                                  c.preemptions,
+                                  sum(e.preemptions for e in engines) - pre[0],
+                                  sum(e.shed for e in engines) - pre[1]))
         finally:
             if loop is not None:
                 loop.stop()
                 loop.join(60)
         after = [eng.program_counts() for eng in engines]
-        print(f"  {name}: fuzz (seed, instrumented acquires, preemptions) "
-              f"{stats}, clean; program counts {after}")
+        print(f"  {name}: fuzz (seed, requests, instrumented acquires, "
+              f"injected preemptions, engine preemptions, sheds) {stats}, "
+              f"clean; program counts {after}")
         if after != programs:
             fail(f"phase 21 {name}: the fuzz built programs: {programs} "
                  f"-> {after}")
@@ -5575,10 +5630,10 @@ def tp_serving_checks() -> dict:
         if kw.get("paged", True):
             need_k1_per_wave(f"(b) {name}", run, "flash_prefill_paged/" +
                              kw.get("kv_dtype", "fp32"))
-        if (run["engine"].max_programs() != ref["engine"].max_programs()):
-            fail(f"phase 20 (b) {name}: max_programs "
-                 f"{run['engine'].max_programs()} vs tp 1's "
-                 f"{ref['engine'].max_programs()}")
+        captured = [r["engine"].tracecheck.counts() for r in (run, ref)]
+        if captured[0] != captured[1]:
+            fail(f"phase 20 (b) {name}: graphs captured {captured[0]} vs "
+                 f"tp 1's {captured[1]}")
         run.pop("engine")
         del ref
         release()

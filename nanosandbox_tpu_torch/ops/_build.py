@@ -46,8 +46,9 @@ _lock = threading.Lock()
 _lib: types.SimpleNamespace | None = None
 # The libraries' one load a process, counted in tracecheck's global
 # registry under this name (Engine.program_counts' 'kernel_builds', which
-# the post_freeze_retrace watchdog watches); a second load, or one while
-# the registry is frozen, raises.
+# the post_freeze_retrace watchdog watches) once the load has succeeded;
+# a second load, or one while the registry is frozen, raises before nvcc
+# runs.
 BUDGET_NAME = "kernel_library"
 tracecheck.global_registry().register(BUDGET_NAME, 1)
 # What the last build did, for the caller that wants to report it:
@@ -126,7 +127,7 @@ def library() -> types.SimpleNamespace:
     with _lock:
         if _lib is not None:
             return _lib
-        tracecheck.global_registry().bump(BUDGET_NAME)
+        tracecheck.global_registry().check(BUDGET_NAME)
         t0 = time.monotonic()
         libs = []
         procs = []
@@ -172,5 +173,6 @@ def library() -> types.SimpleNamespace:
         if missing:
             raise RuntimeError(f"kernel libraries lack {missing}")
         _lib = types.SimpleNamespace(**fns)
+        tracecheck.global_registry().bump(BUDGET_NAME)
         build_info.update(libs=libs, seconds=time.monotonic() - t0)
         return _lib

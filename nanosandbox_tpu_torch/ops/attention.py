@@ -226,29 +226,9 @@ def hash_dropout_keep_mask(seed, B: int, H: int, Tq: int, Tk: int, *,
 # Plain versions: the CPU path, and the reference the kernels are held to
 # ---------------------------------------------------------------------------
 
-# Intra-op thread counts whose threads have run torch.exp once (CPU).
-_exp_warm: set = set()
-
-
-def _warm_cpu_exp() -> None:
-    """Run torch.exp once over a tensor that every intra-op thread takes
-    a part of, and throw the result away. On the CPU the first exp an
-    intra-op thread computes in a process came out, now and then, with
-    up to 1.5e-4 relative error over that thread's whole share (one
-    batch row of the plain attention: its lse off by 5.4e-5), while other
-    processes loaded the host; every later call was exact to f32. So the
-    plain attention warms each thread count once before its first exp."""
-    n = torch.get_num_threads()
-    if n not in _exp_warm:
-        torch.exp(torch.zeros(n << 16))
-        _exp_warm.add(n)
-
-
 def _scores(q, k, sm_scale, causal: bool = True) -> torch.Tensor:
     """f32 scores, scaled after the product; causal: NEG_INF above the
     diagonal (Tq == Tk, as every block here has)."""
-    if not q.is_cuda:
-        _warm_cpu_exp()
     T = q.shape[2]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
     if not causal:

@@ -193,7 +193,7 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field, replace
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -661,8 +661,10 @@ class Engine:
         self.graph_plain_calls: Dict[tuple, Dict[str, int]] = {}
         self.graph_pool_bytes = 0
         self._replay = self.device.type == "cuda"
-        for kind, budget in self.max_programs().items():
-            self.tracecheck.register(kind, budget)
+        # The budgets: the graphs the engine captures, by kind (0 on the
+        # CPU, where the bodies run eagerly).
+        for kind, bodies in self._program_bodies().items():
+            self.tracecheck.register(kind, len(bodies) * self._replay)
         if self._replay:
             _build.library()       # build the kernels before any request
             self._capture_graphs()
@@ -1879,27 +1881,21 @@ class Engine:
         reserved = torch.cuda.memory_reserved(dev)
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
-        bodies = {(r, filtered): (lambda r=r, f=filtered: self._steps(r, f))
-                  for r in self.scan_rungs for filtered in (False, True)}
-        spec_bodies = {}
-        if self._spec is not None:
-            spec_bodies = {("verify", sampled):
-                           (lambda s=sampled: self._spec.body(s))
-                           for sampled in (False, True)}
-            if drafter.kind == "device":
-                spec_bodies[("draft",)] = self._draft_steps
+        programs = self._program_bodies()
         with torch.no_grad():
             with torch.cuda.stream(stream):
                 for filtered in (False, True):
                     self._steps(1, filtered)
-                for body in spec_bodies.values():
-                    body()
+                for kind in ("verify", "draft"):
+                    for body in programs.get(kind, {}).values():
+                        body()
             torch.cuda.current_stream(dev).wait_stream(stream)
             pool = torch.cuda.graph_pool_handle()
-            for graphs, group in ((self._graphs, bodies),
-                                  (self._spec_graphs, spec_bodies)):
+            for kind, group in programs.items():
+                graphs = self._graphs if kind == "decode" else (
+                    self._spec_graphs)
                 for key, body in group.items():
-                    self.tracecheck.bump(_program_kind(key))
+                    self.tracecheck.bump(kind)
                     before = _wrapper_counts()
                     graph = torch.cuda.CUDAGraph()
                     with torch.cuda.graph(graph, pool=pool, stream=stream):
@@ -3008,20 +3004,29 @@ class Engine:
                                else None)}
         return out
 
+    def _program_bodies(self) -> Dict[str, Dict[tuple, Callable]]:
+        """The CUDA graphs the engine captures, by kind and key, each
+        with the body its capture records: 'decode', one per (rung,
+        filtered) pair; under spec 'verify', the greedy and the sampled
+        graph, and a ModelDrafter's 'draft'."""
+        progs = {"decode": {
+            (r, filtered): (lambda r=r, f=filtered: self._steps(r, f))
+            for r in self.scan_rungs for filtered in (False, True)}}
+        if self._spec is not None:
+            progs["verify"] = {("verify", sampled):
+                               (lambda s=sampled: self._spec.body(s))
+                               for sampled in (False, True)}
+            if self._spec.drafter.kind == "device":
+                progs["draft"] = {("draft",): self._draft_steps}
+        return progs
+
     def max_programs(self) -> dict:
-        """The CUDA graphs the engine captures, by kind (none on the CPU,
-        where the bodies run eagerly): decode, one per (rung, filtered)
-        pair; under spec 'verify', the greedy and the sampled graph, and
-        a ModelDrafter's 'draft'. The tracecheck budgets. JAX's
+        """The tracecheck budgets by kind: how many graphs of each kind
+        the engine captures (none on the CPU, where the bodies run
+        eagerly). What was captured is ``tracecheck.counts()``. JAX's
         counterpart counts compiled programs: one per rung, and one
         verify (its lax.cond holds both paths)."""
-        n = int(self._replay)
-        progs = {"decode": n * 2 * len(self.scan_rungs)}
-        if self._spec is not None:
-            progs["verify"] = n * 2
-            if self._spec.drafter.kind == "device":
-                progs["draft"] = n
-        return progs
+        return self.tracecheck.budgets()
 
 
 def _rmdir_quietly(path: str) -> None:
@@ -3036,11 +3041,6 @@ def _wrapper_counts() -> tuple:
     calls on the card)."""
     return ({**fd.launches, **at.launches},
             {**fd.plain_cuda_calls, **at.plain_cuda_calls})
-
-
-def _program_kind(key: tuple) -> str:
-    """The tracecheck kind of a graph key: 'decode', 'verify', 'draft'."""
-    return key[0] if key[0] in ("verify", "draft") else "decode"
 
 
 def _graph_name(key: tuple) -> str:

@@ -764,7 +764,16 @@ def make_server(host: str, port: int, loop: EngineLoop,
             if res is not None:
                 self._respond_result(res, extra={"migrate_fallback": True})
 
-    return ThreadingHTTPServer((host, port), Handler)
+    return _Server((host, port), Handler)
+
+
+class _Server(ThreadingHTTPServer):
+    """The front end's listening socket with socket.SOMAXCONN pending
+    connections, not socketserver's 5: the accept thread shares the GIL
+    with the stepping thread, and a burst of concurrent clients that
+    overflows the queue loses a SYN, which the client resends only after
+    a second (one request of eight admitted 1 s late, on the H100)."""
+    request_queue_size = socket.SOMAXCONN
 
 
 # ---------------------------------------------------------------------------

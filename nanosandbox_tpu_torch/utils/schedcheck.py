@@ -351,21 +351,26 @@ def fuzz_router(seed: int, *, n_replicas: int = 4, iters: int = 300,
 def fuzz_engine_loop(loop, seed: int, *, n_requests: int = 4,
                      budget: int = 3, vocab: int = 50,
                      order: Optional[Dict[str, int]] = None,
-                     reader_iters: int = 60) -> SchedCheck:
+                     reader_iters: int = 60,
+                     requests: Optional[List[Tuple[List[int], dict]]]
+                     = None) -> SchedCheck:
     """Concurrent submit + debug-view + stats traffic through a RUNNING
     EngineLoop (caller owns loop.start()/loop.stop()): the handler-
     thread traffic pattern, with prefix_summary marshalled through
-    loop.call exactly as the HTTP handler now does."""
+    loop.call exactly as the HTTP handler now does. ``requests``, (prompt,
+    submit keywords) pairs, when given, replace the n_requests seeded
+    prompts over ``vocab``."""
     check = SchedCheck(seed=seed, order=order if order is not None
                        else _try_order())
     instrument_engine_loop(loop, check)
     rng = random.Random(seed)
-    prompts = [[rng.randrange(vocab) for _ in range(4 + 3 * i)]
-               for i in range(n_requests)]
+    if requests is None:
+        requests = [([rng.randrange(vocab) for _ in range(4 + 3 * i)], {})
+                    for i in range(n_requests)]
 
     def submit_loop():
-        pending = [loop.submit(prompt=p, max_new_tokens=budget)
-                   for p in prompts]
+        pending = [loop.submit(prompt=p, max_new_tokens=budget, **kw)
+                   for p, kw in requests]
         for p in pending:
             if not p.done.wait(60):
                 raise TimeoutError("request did not finish under fuzz")
@@ -401,22 +406,27 @@ def fuzz_engine_loop(loop, seed: int, *, n_requests: int = 4,
 def fuzz_fleet(fleet, seed: int, *, n_requests: int = 4, budget: int = 3,
                vocab: int = 50,
                order: Optional[Dict[str, int]] = None,
-               reader_iters: int = 80) -> SchedCheck:
+               reader_iters: int = 80,
+               requests: Optional[List[Tuple[List[int], dict]]] = None
+               ) -> SchedCheck:
     """One stepping thread (the fleet's single-threaded contract) vs.
-    concurrent stats/merged-ledger/router readers."""
+    concurrent stats/merged-ledger/router readers. ``requests``,
+    (prompt, submit keywords) pairs, when given, replace the n_requests
+    seeded prompts over ``vocab``."""
     check = SchedCheck(seed=seed, order=order if order is not None
                        else _try_order())
     instrument_fleet(fleet, check)
     rng = random.Random(seed)
-    shared = [rng.randrange(vocab) for _ in range(18)]
-    prompts = [shared + [rng.randrange(vocab) for _ in range(1 + i)]
-               if i % 2 == 0
-               else [rng.randrange(vocab) for _ in range(5 + 2 * i)]
-               for i in range(n_requests)]
+    if requests is None:
+        shared = [rng.randrange(vocab) for _ in range(18)]
+        requests = [(shared + [rng.randrange(vocab) for _ in range(1 + i)]
+                     if i % 2 == 0
+                     else [rng.randrange(vocab) for _ in range(5 + 2 * i)],
+                     {}) for i in range(n_requests)]
 
     def step_loop():
-        for p in prompts:
-            fleet.submit(p, budget)
+        for p, kw in requests:
+            fleet.submit(p, budget, **kw)
         while fleet.has_work():
             fleet.step()
 
@@ -438,19 +448,25 @@ def fuzz_fleet(fleet, seed: int, *, n_requests: int = 4, budget: int = 3,
 def fuzz_disagg(pair, seed: int, *, n_requests: int = 4, budget: int = 3,
                 vocab: int = 50,
                 order: Optional[Dict[str, int]] = None,
-                reader_iters: int = 80) -> SchedCheck:
+                reader_iters: int = 80,
+                requests: Optional[List[Tuple[List[int], dict]]] = None
+                ) -> SchedCheck:
     """One migration-pump stepping thread vs. concurrent stats and
-    merged-ledger readers on a DisaggPair."""
+    merged-ledger readers on a DisaggPair. ``requests``, (prompt, submit
+    keywords) pairs, when given, replace the n_requests seeded prompts
+    over ``vocab``."""
     check = SchedCheck(seed=seed, order=order if order is not None
                        else _try_order())
     instrument_disagg(pair, check)
     rng = random.Random(seed)
-    prompts = [[rng.randrange(vocab) for _ in range(5 + 3 * i)]
-               for i in range(n_requests)]
+    if requests is None:
+        requests = [([rng.randrange(vocab) for _ in range(5 + 3 * i)], {})
+                    for i in range(n_requests)]
 
     def step_loop():
-        for i, p in enumerate(prompts):
-            pair.submit(p, budget, temperature=0.0, seed=seed + i)
+        for i, (p, kw) in enumerate(requests):
+            pair.submit(p, budget, **{"temperature": 0.0, "seed": seed + i,
+                                      **kw})
         while pair.has_work():
             pair.step()
 
@@ -487,14 +503,18 @@ def main(argv=None) -> int:
     ap.add_argument("--target", choices=("router", "engine"),
                     default="router",
                     help="router = PrefixAffinityRouter fuzz (no "
-                         "torch); engine = tiny CPU EngineLoop fuzz")
+                         "torch, no device); engine = EngineLoop fuzz over "
+                         "a tiny seeded model on --device")
+    ap.add_argument("--device", default="auto",
+                    help="the engine target's device: auto (the GPU; "
+                         "raises without one) | cuda | cpu")
     ap.add_argument("--seeds", type=int, default=20)
     ap.add_argument("--lock-order", default=None, metavar="FILE")
     args = ap.parse_args(argv)
 
     order = (load_order(args.lock_order) if args.lock_order
              else _try_order())
-    loop = _tiny_loop() if args.target == "engine" else None
+    loop = _tiny_loop(args.device) if args.target == "engine" else None
     bad = 0
     total_pre = 0
     try:
@@ -519,22 +539,24 @@ def main(argv=None) -> int:
     return 1 if bad else 0
 
 
-def _tiny_loop():
-    """One started EngineLoop over a 2-layer CPU model with seeded random
-    weights, shared across every CLI seed (the fuzz re-instruments the
-    same locks per seed)."""
+def _tiny_loop(device: str = "auto"):
+    """One started EngineLoop over a 2-layer model with seeded random
+    weights on ``device`` (config.resolve_device: the GPU unless 'cpu'),
+    shared across every CLI seed (the fuzz re-instruments the same locks
+    per seed). Head size 32, the smallest the decode kernels take."""
     import torch
 
-    from nanosandbox_tpu_torch.config import GPTConfig
+    from nanosandbox_tpu_torch.config import GPTConfig, resolve_device
     from nanosandbox_tpu_torch.models.gpt import GPT
     from nanosandbox_tpu_torch.serve.engine import Engine
     from nanosandbox_tpu_torch.serve.http import EngineLoop
 
-    torch.manual_seed(0)
-    cfg = GPTConfig(n_layer=2, n_head=2, n_embd=32, block_size=64,
+    dev = resolve_device(device)
+    cfg = GPTConfig(n_layer=2, n_head=2, n_embd=64, block_size=64,
                     vocab_size=50, dropout=0.0, compute_dtype="float32")
-    eng = Engine(GPT(cfg).eval(), num_slots=2, max_len=64, paged=True,
-                 device="cpu")
+    model = GPT(cfg, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(0)).eval()
+    eng = Engine(model, num_slots=2, max_len=64, paged=True, device=dev)
     loop = EngineLoop(eng)
     loop.start()
     return loop

@@ -5,8 +5,9 @@ The static half of the contract is ``nanosandbox_tpu_torch.analysis``
 no XLA program, so what it guards is what costs a live request its
 latency the same way: a CUDA graph capture, or a kernel library load
 (``ops/_build.py``). Each capture site calls ``bump(kind)`` on the
-owner's registry before it builds; past the kind's budget, or at any
-time while the registry is frozen, ``bump`` raises
+owner's registry before it builds (a build that can fail calls
+``check(kind)`` before and ``bump(kind)`` after it); past the kind's
+budget, or at any time while the registry is frozen, they raise
 ``CompileBudgetExceeded`` and nothing is built.
 
     reg = TraceBudgetRegistry()
@@ -75,23 +76,34 @@ class TraceBudgetRegistry:
             else:
                 b.max_traces = max_traces
 
+    def _refuse(self, b: _Budget) -> None:
+        """Raise if one more capture of ``b`` is not allowed (lock held)."""
+        if self._frozen:
+            raise CompileBudgetExceeded(
+                f"capture of {b.name!r} (would be #{b.traces + 1}) "
+                "inside a frozen registry: the program set was "
+                "declared complete (post-warmup serving)")
+        if b.traces + 1 > b.max_traces:
+            raise CompileBudgetExceeded(
+                f"{b.name!r} would be captured {b.traces + 1} times, "
+                f"budget {b.max_traces}: a call-site input left the "
+                "closed set (an unbucketed shape or a new variant), "
+                "or the budget must grow with the program set")
+
+    def check(self, name: str) -> None:
+        """Raise as ``bump(name)`` would, and count nothing: for a build
+        that can fail, which checks before it starts and bumps once it
+        has succeeded, so that a failed build leaves no count behind."""
+        with self._lock:
+            self._refuse(self._budgets.setdefault(name, _Budget(name, 0)))
+
     def bump(self, name: str) -> int:
         """Record one capture of ``name``; raises on budget overflow or
         when frozen. A rejected capture does not count: the raise comes
         before anything is built, so counts() stays the real set."""
         with self._lock:
             b = self._budgets.setdefault(name, _Budget(name, 0))
-            if self._frozen:
-                raise CompileBudgetExceeded(
-                    f"capture of {name!r} (would be #{b.traces + 1}) "
-                    "inside a frozen registry: the program set was "
-                    "declared complete (post-warmup serving)")
-            if b.traces + 1 > b.max_traces:
-                raise CompileBudgetExceeded(
-                    f"{name!r} would be captured {b.traces + 1} times, "
-                    f"budget {b.max_traces}: a call-site input left the "
-                    "closed set (an unbucketed shape or a new variant), "
-                    "or the budget must grow with the program set")
+            self._refuse(b)
             b.traces += 1
             n = b.traces
         _obs_counter("compile_traces_total",

@@ -178,8 +178,11 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     # A tiny width learns too slowly at the config's rate to fall 2 nats
     # in 25 steps; at 1e-2 it does, over the config's 50304 logits.
     # Batch 2 keeps the CPU steps over those logits short.
-    # Phase 18's control flow does not depend on its budget.
+    # Phase 18's control flow does not depend on its budget, nor phase
+    # 21's fuzz on its load (the card's load would take the CPU minutes).
     monkeypatch.setattr(chip_smoke, "FLEET_NEW", 16)
+    monkeypatch.setattr(chip_smoke, "SCHED_FUZZ_NEW", 4)
+    monkeypatch.setattr(chip_smoke, "SCHED_FUZZ_PER_SLOT", 1)
     monkeypatch.setattr(chip_smoke, "TRAIN", [
         "--n_layer=2", "--n_head=2", "--n_embd=64", "--block_size=64",
         "--batch_size=2", "--learning_rate=1e-2"])

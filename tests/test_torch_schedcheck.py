@@ -7,10 +7,13 @@
   (2 seeds each), under the port's own lock-order file;
 * instrumentation leaves an engine's program counts, budgets and sync
   ledger delta unchanged on the same workload;
-* tracecheck: an engine's capture budgets are its max_programs(); frozen,
-  a capture raises CompileBudgetExceeded and is not counted; the kernel
-  libraries' one load a process; host_sync counts by name and reads a
-  0-d tensor as a float and any other as a host tensor.
+* tracecheck: an engine's capture budgets are its max_programs(), one
+  per graph it would capture; frozen, a capture raises
+  CompileBudgetExceeded and is not counted; the kernel libraries' one
+  load a process, counted only once the build succeeded; host_sync
+  counts by name and reads a 0-d tensor as a float and any other as a
+  host tensor;
+* the schedcheck CLI's engine target runs on the device it is given.
 """
 
 import threading
@@ -120,10 +123,20 @@ def test_instrumentation_changes_no_count(model):
 
 
 def test_capture_budgets_are_max_programs_and_freeze(model):
-    for eng in (Engine(model, paged=True, **KW),
-                Engine(model, paged=True, spec=NGramDrafter(k=2), **KW)):
+    for eng, kinds in ((Engine(model, paged=True, **KW), ("decode",)),
+                       (Engine(model, paged=True, spec=NGramDrafter(k=2),
+                               **KW), ("decode", "verify"))):
+        # On the CPU the bodies run eagerly: a budget of 0 for every kind
+        # of graph the card would capture, and nothing captured.
+        assert eng.max_programs() == dict.fromkeys(kinds, 0)
         assert eng.tracecheck.budgets() == eng.max_programs()
-        assert eng.program_counts()["graph_captures"] == 0   # the CPU
+        assert eng.tracecheck.counts() == dict.fromkeys(kinds, 0)
+        # What the card would capture: a graph per (rung, filtered), and
+        # the greedy and the sampled verify.
+        want = {"decode": 2 * len(eng.scan_rungs), "verify": 2}
+        assert {k: len(v) for k, v in eng._program_bodies().items()} == {
+            k: want[k] for k in kinds}
+        assert eng.program_counts()["graph_captures"] == 0
     reg = eng.tracecheck
     reg.register("decode", 1)
     with reg.frozen():
@@ -135,6 +148,40 @@ def test_capture_budgets_are_max_programs_and_freeze(model):
         reg.bump("decode")
     assert eng.program_counts()["graph_captures"] == 1
     assert tracecheck.global_registry().budgets()[_build.BUDGET_NAME] == 1
+
+
+def test_failed_library_build_leaves_no_count(monkeypatch, tmp_path):
+    """The kernel libraries' load is counted once it has succeeded: a
+    failed build leaves no count, and a retry raises the build's own
+    error again, not the budget's."""
+    def no_nvcc():
+        raise RuntimeError("no nvcc in this test")
+
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(_build, "_target",
+                        lambda src: str(tmp_path / "absent.so"))
+    monkeypatch.setattr(_build, "_lib", None)
+    reg = tracecheck.global_registry()
+    before = reg.counts().get(_build.BUDGET_NAME, 0)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="no nvcc in this test"):
+            _build.library()
+    assert reg.counts().get(_build.BUDGET_NAME, 0) == before
+    with reg.frozen():
+        with pytest.raises(CompileBudgetExceeded, match="frozen"):
+            _build.library()                 # refused before the build
+
+
+def test_schedcheck_cli_engine_target_device(monkeypatch, capsys):
+    """--target=engine runs on --device: an explicit cpu fuzzes the tiny
+    engine there; the default (auto) wants the card and raises without
+    one, as every entry point of the port does."""
+    assert schedcheck.main(["--target=engine", "--device=cpu",
+                            "--seeds=1"]) == 0
+    assert "0 seed(s) with violations" in capsys.readouterr().out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+        schedcheck.main(["--target=engine", "--seeds=1"])
 
 
 def test_host_sync_ledger():

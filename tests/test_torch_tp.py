@@ -95,7 +95,7 @@ def test_tp_greedy_parity_with_tp1_and_jax(served, case):
     e1, base = _port(model, reqs, tp=1, spec=spec, **kw)
     e2, out = _port(model, reqs, tp=2, spec=spec, **kw)
     assert out == base, f"tp=2 diverged from tp=1 under {case}"
-    assert e2.max_programs() == e1.max_programs()
+    assert e2.tracecheck.counts() == e1.tracecheck.counts()
     assert e2.stats()["tp"] == 2 and e1.stats()["tp"] == 1
     jeng = JaxEngine(jmodel, params, spec=JaxNGram(k=3) if spec else None,
                      prefill_buckets=[64], **KW, **kw)
